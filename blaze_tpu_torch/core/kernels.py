@@ -1,16 +1,26 @@
 """Whole-batch device kernels for the batch plumbing hot path.
 
-``compact_planes`` (K1) is a hand-written CUDA kernel (csrc/compact.cu)
-with a plain PyTorch twin: a tensor on the CPU takes the plain version,
-a CUDA tensor launches the kernel or raises. The gathers, slices and
-concatenation are plain PyTorch for now (ROADMAP.md Queue 2), as are the
-slot-code and sort-key helpers the aggregation and top-k operators use.
+Each is a hand-written CUDA kernel with a plain PyTorch twin in this
+module: a tensor on the CPU takes the plain version, a CUDA tensor
+launches the kernel or raises.
+
+- K1 ``compact_planes`` (csrc/compact.cu): FilterExec's stable compaction.
+- K5 ``sort_key_operands`` + ``lexsort_indices`` (csrc/sort.cu): the sort
+  keys' (rank, value) operands and a stable LSD radix sort over them.
+- K6 ``gather_planes`` (csrc/gather.cu): ``ColumnarBatch.take``.
+- K7 ``slice_planes`` / ``concat_planes`` (csrc/gather.cu):
+  ``ColumnarBatch.slice`` and ``.concat``.
+
+The slot-code helpers of the aggregation are plain PyTorch twins of the
+JAX package's (the slot kernels K3/K4 are in ops/agg_device.py), and the
+window counters are host numpy, as they are in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from blaze_tpu_torch.core.batch import iota
@@ -21,25 +31,93 @@ def _zero_where(live: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(live, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def gather_planes(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
-                  idx: torch.Tensor, out_cap: int, n_out: int):
+# -- K6: gather ------------------------------------------------------------------
+
+
+def gather_planes_plain(datas: Sequence[torch.Tensor],
+                        valids: Sequence[torch.Tensor], idx: torch.Tensor,
+                        out_cap: int, n_out: int,
+                        live: Optional[torch.Tensor] = None):
     """Gather rows ``idx`` (length n_out, each < the planes' length) of
     every (data, validity) plane into ``out_cap``-row planes; rows past
-    n_out are padding (data 0, validity False). Plain PyTorch twin of
-    blaze_tpu/core/kernels.py:_gather_n."""
+    n_out, and rows where the optional ``live`` mask (length n_out) is
+    False, are padding (data 0, validity False). Plain PyTorch twin of
+    K6, the same function as blaze_tpu/core/kernels.py:_gather_n (and,
+    with ``live``, ``_gather``)."""
     dev = idx.device
     full = torch.zeros(out_cap, dtype=torch.int64, device=dev)
-    full[:n_out] = idx
-    live = iota(out_cap, dev) < n_out
-    out_d = [_zero_where(live, d[full.clamp(0, d.shape[0] - 1)]) for d in datas]
-    out_v = [v[full.clamp(0, v.shape[0] - 1)] & live for v in valids]
+    full[:n_out] = idx[:n_out]
+    on = iota(out_cap, dev) < n_out
+    if live is not None:
+        lfull = torch.zeros(out_cap, dtype=torch.bool, device=dev)
+        lfull[:n_out] = live[:n_out]
+        on = on & lfull
+    out_d = [_zero_where(on, d[full.clamp(0, d.shape[0] - 1)]) for d in datas]
+    out_v = [v[full.clamp(0, v.shape[0] - 1)] & on for v in valids]
     return out_d, out_v
 
 
-def slice_planes(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
-                 offset: int, length: int, out_cap: int):
+def _check_planes(name: str, planes: Sequence[torch.Tensor]) -> None:
+    for p in planes:
+        if p.dim() != 1:
+            raise ValueError(f"{name}: plane of shape {tuple(p.shape)}")
+        if p.element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"{name}: element size {p.element_size()}")
+
+
+def gather_planes_cuda(datas: Sequence[torch.Tensor],
+                       valids: Sequence[torch.Tensor], idx: torch.Tensor,
+                       out_cap: int, n_out: int,
+                       live: Optional[torch.Tensor] = None):
+    """K6 on the card (csrc/gather.cu): same contract as
+    :func:`gather_planes_plain`, one launch for every plane."""
+    planes = list(datas) + list(valids)
+    extra = [live] if live is not None else []
+    cuda_lib.require_cuda("gather_planes", idx, *planes, *extra)
+    if idx.dtype != torch.int64 or idx.dim() != 1 or idx.shape[0] < n_out:
+        raise ValueError(f"gather_planes: index {idx.dtype} of shape "
+                         f"{tuple(idx.shape)} for {n_out} rows")
+    if live is not None and (live.dtype != torch.bool or live.shape[0] < n_out):
+        raise ValueError("gather_planes: live mask must be bool, n_out rows")
+    if not 0 <= n_out <= out_cap:
+        raise ValueError(f"gather_planes: {n_out} rows into {out_cap}")
+    _check_planes("gather_planes", planes)
+    outs = [torch.empty(out_cap, dtype=p.dtype, device=idx.device) for p in planes]
+    k = len(datas)
+    if not planes:
+        return outs[:k], outs[k:]
+    srcs, _k1 = cuda_lib.ptr_array(planes)
+    dsts, _k2 = cuda_lib.ptr_array(outs)
+    caps, _k3 = cuda_lib.int_array([p.shape[0] for p in planes],
+                                   cuda_lib.ctypes.c_longlong)
+    sizes, _k4 = cuda_lib.int_array([p.element_size() for p in planes])
+    err = cuda_lib.library().blz_gather_planes(
+        idx.data_ptr(), n_out, live.data_ptr() if live is not None else None,
+        out_cap, len(planes), srcs, dsts, caps, sizes,
+        cuda_lib.stream_of(idx.device))
+    cuda_lib.check(err, "gather_planes")
+    cuda_lib.LAUNCHES["gather_planes"] += 1
+    return outs[:k], outs[k:]
+
+
+def gather_planes(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                  idx: torch.Tensor, out_cap: int, n_out: int,
+                  live: Optional[torch.Tensor] = None):
+    """Row gather of a batch's planes (``ColumnarBatch.take``): K6 on a
+    CUDA index, the plain version on a CPU one."""
+    fn = gather_planes_cuda if idx.is_cuda else gather_planes_plain
+    return fn(datas, valids, idx, out_cap, n_out, live)
+
+
+# -- K7: slice and concat ----------------------------------------------------------
+
+
+def slice_planes_plain(datas: Sequence[torch.Tensor],
+                       valids: Sequence[torch.Tensor], offset: int,
+                       length: int, out_cap: int):
     """Contiguous row window [offset, offset + length) into ``out_cap``-row
-    planes (blaze_tpu/core/kernels.py:_dyn_slice)."""
+    planes; plain twin of K7, the same function as
+    blaze_tpu/core/kernels.py:_dyn_slice."""
     dev = datas[0].device if datas else torch.device("cpu")
     idx = iota(out_cap, dev) + offset
     live = iota(out_cap, dev) < length
@@ -48,11 +126,12 @@ def slice_planes(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
     return out_d, out_v
 
 
-def concat_planes(per_field_datas: List[List[torch.Tensor]],
-                  per_field_valids: List[List[torch.Tensor]],
-                  num_rows: Sequence[int], out_cap: int):
+def concat_planes_plain(per_field_datas: List[List[torch.Tensor]],
+                        per_field_valids: List[List[torch.Tensor]],
+                        num_rows: Sequence[int], out_cap: int):
     """Field-wise concatenation of k batches' live rows into ``out_cap``-row
-    planes (blaze_tpu/core/kernels.py:_concat_gather)."""
+    planes; plain twin of K7, the same function as
+    blaze_tpu/core/kernels.py:_concat_gather."""
     total = int(sum(num_rows))
 
     def cat(parts):
@@ -62,6 +141,80 @@ def concat_planes(per_field_datas: List[List[torch.Tensor]],
 
     return ([cat(p) for p in per_field_datas],
             [cat(p) for p in per_field_valids])
+
+
+def _rows_of_sources(name: str, per_plane: List[List[torch.Tensor]],
+                     counts: Sequence[int], starts: Sequence[int], out_cap: int):
+    """K7 on the card: output row r of the k sources (source b holds
+    counts[b] rows from starts[b]) in one launch; rows past the total are
+    padding."""
+    if not per_plane:
+        return []
+    k = len(counts)
+    flat = [t for parts in per_plane for t in parts]
+    cuda_lib.require_cuda(name, *flat)
+    _check_planes(name, flat)
+    total = int(sum(counts))
+    if not 0 <= total <= out_cap or min(counts) < 0 or min(starts) < 0:
+        raise ValueError(f"{name}: {list(counts)} rows from {list(starts)} "
+                         f"into {out_cap}")
+    dev = flat[0].device
+    for parts in per_plane:
+        if len(parts) != k or any(t.dtype != parts[0].dtype for t in parts):
+            raise ValueError(f"{name}: every source needs each plane, one dtype")
+    outs = [torch.empty(out_cap, dtype=parts[0].dtype, device=dev)
+            for parts in per_plane]
+    prefix = np.zeros(k + 1, dtype=np.int64)
+    np.cumsum(counts, out=prefix[1:])
+    table = np.concatenate([
+        prefix, np.asarray(starts, dtype=np.int64),
+        np.array([o.data_ptr() for o in outs], dtype=np.uint64).view(np.int64),
+        np.array([o.element_size() for o in outs], dtype=np.int64),
+        np.array([t.data_ptr() for t in flat], dtype=np.uint64).view(np.int64),
+        np.array([t.shape[0] for t in flat], dtype=np.int64)])
+    dev_table = torch.from_numpy(table).to(dev, non_blocking=True)
+    err = cuda_lib.library().blz_concat_planes(
+        dev_table.data_ptr(), k, len(per_plane), out_cap,
+        cuda_lib.stream_of(dev))
+    cuda_lib.check(err, name)
+    cuda_lib.LAUNCHES[name] += 1
+    return outs
+
+
+def slice_planes_cuda(datas, valids, offset: int, length: int, out_cap: int):
+    """K7 as a slice (k = 1 with a start offset); same contract as
+    :func:`slice_planes_plain`."""
+    outs = _rows_of_sources("slice_planes", [[p] for p in list(datas) + list(valids)],
+                            [length], [offset], out_cap)
+    return outs[:len(datas)], outs[len(datas):]
+
+
+def concat_planes_cuda(per_field_datas, per_field_valids, num_rows, out_cap: int):
+    """K7 as a concat (every start 0); same contract as
+    :func:`concat_planes_plain`."""
+    outs = _rows_of_sources("concat_planes",
+                            list(per_field_datas) + list(per_field_valids),
+                            list(num_rows), [0] * len(num_rows), out_cap)
+    return outs[:len(per_field_datas)], outs[len(per_field_datas):]
+
+
+def slice_planes(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                 offset: int, length: int, out_cap: int):
+    """``ColumnarBatch.slice``: K7 on CUDA planes, the plain version on CPU
+    ones."""
+    on_cuda = bool(datas) and datas[0].is_cuda
+    fn = slice_planes_cuda if on_cuda else slice_planes_plain
+    return fn(datas, valids, offset, length, out_cap)
+
+
+def concat_planes(per_field_datas: List[List[torch.Tensor]],
+                  per_field_valids: List[List[torch.Tensor]],
+                  num_rows: Sequence[int], out_cap: int):
+    """``ColumnarBatch.concat``: K7 on CUDA planes, the plain version on CPU
+    ones."""
+    on_cuda = bool(per_field_datas) and per_field_datas[0][0].is_cuda
+    fn = concat_planes_cuda if on_cuda else concat_planes_plain
+    return fn(per_field_datas, per_field_valids, num_rows, out_cap)
 
 
 # -- K1: stable compaction -----------------------------------------------------
@@ -164,12 +317,19 @@ def radix_pack(key_data, key_valid, exists, bases, sizes, strides):
     return torch.where(exists, seg, torch.full_like(seg, S)), fits
 
 
-# -- sort keys -----------------------------------------------------------------
+# -- K5: the key sort ------------------------------------------------------------
+
+_KEY_BOOL, _KEY_INT, _KEY_FLOAT = 0, 1, 2
+_WORD_UNSIGNED, _WORD_SIGNED, _WORD_FLOAT = 0, 1, 2
+_MAX_SORT_KEYS = 16
+# csrc/sort.cu BLZ_SORT_TILE: rows per block of a radix pass
+SORT_TILE = cuda_lib.THREADS * 4
 
 
-def sort_key_operands(datas, valids, exists, spec):
+def sort_key_operands_plain(datas, valids, exists, spec):
     """Per key a (u8 rank, value) operand pair, direction-adjusted (plain
-    PyTorch twin of blaze_tpu/core/kernels.py:_key_ops_traced):
+    PyTorch twin of K5's key pass, the same function as
+    blaze_tpu/core/kernels.py:_key_ops_traced):
       0 = null (nulls first)   1 = NaN under descending
       2 = valid                3 = NaN under ascending
       4 = null (nulls last)    6 = padding row (always last)
@@ -200,16 +360,199 @@ def sort_key_operands(datas, valids, exists, spec):
     return ops
 
 
-def lexsort_indices(operands: List[torch.Tensor]) -> torch.Tensor:
+def _key_kind(t: torch.Tensor) -> int:
+    if t.dtype in (torch.float32, torch.float64):
+        return _KEY_FLOAT
+    if t.dtype == torch.bool:
+        return _KEY_BOOL
+    if t.dtype in (torch.int8, torch.int16, torch.int32, torch.int64):
+        return _KEY_INT
+    raise TypeError(f"sort_key_operands: sort key of dtype {t.dtype}")
+
+
+def sort_key_operands_cuda(datas, valids, exists, spec):
+    """K5's key pass on the card (csrc/sort.cu): same operands as
+    :func:`sort_key_operands_plain`, every key in one launch."""
+    cuda_lib.require_cuda("sort_key_operands", exists, *datas, *valids)
+    n = int(exists.shape[0])
+    k = len(datas)
+    if not 0 < k <= _MAX_SORT_KEYS or len(valids) != k or len(spec) != k:
+        raise ValueError(f"sort_key_operands: {k} keys, {len(spec)} specs")
+    if exists.dtype != torch.bool or any(v.dtype != torch.bool for v in valids):
+        raise TypeError("sort_key_operands: exists and validity must be bool")
+    for p in list(datas) + list(valids):
+        if p.shape != (n,):
+            raise ValueError(f"sort_key_operands: plane {tuple(p.shape)}, "
+                             f"expected ({n},)")
+    kinds = [_key_kind(d) for d in datas]
+    dev = exists.device
+    ranks = [torch.empty(n, dtype=torch.uint8, device=dev) for _ in datas]
+    vals = [torch.empty(n, dtype=torch.uint8 if kind == _KEY_BOOL else d.dtype,
+                        device=dev) for d, kind in zip(datas, kinds)]
+    if n:
+        keep = []
+
+        def arr(pair):
+            keep.append(pair[1])
+            return pair[0]
+
+        err = cuda_lib.library().blz_sort_key_operands(
+            k, arr(cuda_lib.ptr_array(datas)), arr(cuda_lib.ptr_array(valids)),
+            arr(cuda_lib.int_array([d.element_size() for d in datas])),
+            arr(cuda_lib.int_array(kinds)),
+            arr(cuda_lib.int_array([int(a) for a, _ in spec])),
+            arr(cuda_lib.int_array([int(nf) for _, nf in spec])),
+            exists.data_ptr(), n, arr(cuda_lib.ptr_array(ranks)),
+            arr(cuda_lib.ptr_array(vals)), cuda_lib.stream_of(dev))
+        cuda_lib.check(err, "sort_key_operands")
+        cuda_lib.LAUNCHES["sort_key_operands"] += 1
+    return [t for pair in zip(ranks, vals) for t in pair]
+
+
+def sort_key_operands(datas, valids, exists, spec):
+    """All sort keys of a batch as [rank0, val0, rank1, val1, ...]: K5's
+    key pass on a CUDA batch, the plain version on a CPU one."""
+    fn = sort_key_operands_cuda if exists.is_cuda else sort_key_operands_plain
+    return fn(datas, valids, exists, spec)
+
+
+def lexsort_indices_plain(operands: List[torch.Tensor],
+                          num_rows: Optional[int] = None) -> torch.Tensor:
     """Indices that sort rows lexicographically by ``operands`` (first
     operand most significant), ties in row order: successive stable sorts
-    from the least significant operand."""
+    from the least significant operand (plain twin of K5's sort). Only
+    rows [0, num_rows) are sorted; the rows past them keep their place
+    at the end, as padding rows (rank 6 in the first operand, every value
+    0) would in a sort of all rows."""
     n = operands[0].shape[0]
-    idx = torch.arange(n, dtype=torch.int64, device=operands[0].device)
+    m = n if num_rows is None else num_rows
+    idx = torch.arange(m, dtype=torch.int64, device=operands[0].device)
     for op in reversed(operands):
         key = op[idx]
         if key.dtype == torch.uint8:
             key = key.to(torch.int16)
         order = torch.sort(key, stable=True).indices
         idx = idx[order]
+    if m < n:
+        idx = torch.cat([idx, torch.arange(m, n, dtype=torch.int64,
+                                           device=idx.device)])
     return idx
+
+
+def _word_kind(t: torch.Tensor) -> int:
+    if t.dtype in (torch.float32, torch.float64):
+        return _WORD_FLOAT
+    if t.dtype in (torch.int8, torch.int16, torch.int32, torch.int64):
+        return _WORD_SIGNED
+    if t.dtype in (torch.uint8, torch.bool):
+        return _WORD_UNSIGNED
+    raise TypeError(f"lexsort_indices: operand of dtype {t.dtype}")
+
+
+def radix_passes(and_or: np.ndarray, sizes: Sequence[int]) -> List[Tuple[int, int]]:
+    """(operand, bit shift) of every 8-bit digit that is not the same in
+    all rows, least significant first: K5's pass list. ``and_or`` holds
+    per operand the AND and the OR of its order-preserving words."""
+    passes = []
+    for o in reversed(range(len(sizes))):
+        differ = int(and_or[2 * o]) ^ int(and_or[2 * o + 1])
+        passes += [(o, 8 * b) for b in range(sizes[o]) if (differ >> (8 * b)) & 0xFF]
+    return passes
+
+
+def lexsort_indices_cuda(operands: List[torch.Tensor],
+                         num_rows: Optional[int] = None) -> torch.Tensor:
+    """K5's stable LSD radix sort on the card (csrc/sort.cu); same result
+    as :func:`lexsort_indices_plain`. One sync: the per-operand bits that
+    decide which digit passes run."""
+    cuda_lib.require_cuda("lexsort_indices", *operands)
+    n = int(operands[0].shape[0])
+    m = n if num_rows is None else int(num_rows)
+    if not 0 < len(operands) <= 2 * _MAX_SORT_KEYS or not 0 <= m <= n or \
+            n >= 2 ** 31 or any(op.shape != (n,) for op in operands):
+        raise ValueError(f"lexsort_indices: {len(operands)} operands of "
+                         f"{[tuple(o.shape) for o in operands]}, {m} rows")
+    dev = operands[0].device
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return out
+    lib = cuda_lib.library()
+    sizes = [op.element_size() for op in operands]
+    kinds = [_word_kind(op) for op in operands]
+    keep = []
+
+    def arr(pair):
+        keep.append(pair[1])
+        return pair[0]
+
+    datas = arr(cuda_lib.ptr_array(operands))
+    csizes, ckinds = arr(cuda_lib.int_array(sizes)), arr(cuda_lib.int_array(kinds))
+    stream = cuda_lib.stream_of(dev)
+    passes = []
+    if m > 1:
+        and_or = torch.empty(2 * len(operands), dtype=torch.int64, device=dev)
+        err = lib.blz_sort_bits(len(operands), datas, csizes, ckinds, m,
+                                and_or.data_ptr(), stream)
+        cuda_lib.check(err, "lexsort_indices")
+        passes = radix_passes(and_or.cpu().numpy().view(np.uint64), sizes)
+    ntiles = max(1, -(-m // SORT_TILE))
+    idx_a = torch.empty(max(m, 1), dtype=torch.int32, device=dev)
+    idx_b = torch.empty(max(m, 1), dtype=torch.int32, device=dev)
+    counts = torch.empty(ntiles * 256, dtype=torch.int32, device=dev)
+    err = lib.blz_radix_sort(
+        len(operands), datas, csizes, ckinds, m, n, len(passes),
+        arr(cuda_lib.int_array([o for o, _ in passes])),
+        arr(cuda_lib.int_array([s for _, s in passes])),
+        idx_a.data_ptr(), idx_b.data_ptr(), counts.data_ptr(), out.data_ptr(),
+        stream)
+    cuda_lib.check(err, "lexsort_indices")
+    cuda_lib.LAUNCHES["lexsort_indices"] += 1
+    return out
+
+
+def lexsort_indices(operands: List[torch.Tensor],
+                    num_rows: Optional[int] = None) -> torch.Tensor:
+    """The permutation that sorts rows [0, num_rows) by ``operands`` (ties
+    in row order), rows past them after, in place: K5 on CUDA operands,
+    the plain version on CPU ones."""
+    fn = lexsort_indices_cuda if operands[0].is_cuda else lexsort_indices_plain
+    return fn(operands, num_rows)
+
+
+# -- window counters (host numpy) -------------------------------------------------
+#
+# Group structure arrives as boundary masks over rows sorted by (partition,
+# order), never as control flow; a carry continues a segment left open by
+# the previous batch (blaze_tpu/core/kernels.py:374-404, copied).
+
+
+def seg_start_index(seg_start: np.ndarray) -> np.ndarray:
+    """Per-row index of the most recent True in ``seg_start`` at or before
+    the row; -1 for head rows that continue a segment carried in from the
+    previous batch."""
+    n = len(seg_start)
+    idx = np.arange(n, dtype=np.int64)
+    return np.maximum.accumulate(np.where(seg_start, idx, np.int64(-1)))
+
+
+def restarting_counters(part_start: np.ndarray, new_peer: np.ndarray,
+                        carry_rn: int = 0, carry_rank: int = 1,
+                        carry_dense: int = 0):
+    """row_number / rank / dense_rank as restart-at-segment prefix scans.
+
+    ``part_start``/``new_peer`` are boundary masks over rows pre-sorted by
+    (partition, order); every partition start must also be a peer start.
+    Carries seed rows belonging to the partition left open by the previous
+    batch: carry_rn = its last row_number, carry_rank = the rank of its open
+    peer group, carry_dense = its last dense_rank."""
+    n = len(part_start)
+    idx = np.arange(n, dtype=np.int64)
+    psi = seg_start_index(part_start)
+    rn = np.where(psi >= 0, idx - psi + 1, idx + 1 + carry_rn)
+    ppi = seg_start_index(new_peer)
+    rank = np.where(ppi >= 0, rn[np.clip(ppi, 0, None)], carry_rank)
+    c = np.cumsum(new_peer.astype(np.int64))
+    base = np.where(psi >= 0, c[np.clip(psi, 0, None)] - 1,
+                    np.int64(-carry_dense))
+    dense = c - base
+    return rn, rank, dense

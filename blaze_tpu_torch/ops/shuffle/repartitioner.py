@@ -4,8 +4,9 @@ Counterpart of blaze_tpu/ops/shuffle/repartitioner.py for the slice:
 ``HashPartitioner`` is Spark's HashPartitioning (murmur3 seed 42, pmod n;
 kernel K2, exprs/spark_hash.py), ``SinglePartitioner`` the collapse to one
 partition. ``bucketize`` splits a batch into per-partition device
-sub-batches with one stable sort by partition id, one gather and
-contiguous slices, as the JAX package's device tier does. Round-robin and
+sub-batches with one stable sort by partition id (K5, one operand), one
+gather (K6) and contiguous slices (K7), as the JAX package's device tier
+does. Round-robin and
 range partitioning are not ported (ROADMAP.md Queue 2).
 """
 
@@ -15,6 +16,7 @@ from typing import List, Tuple
 
 import torch
 
+from blaze_tpu_torch.core import kernels as K
 from blaze_tpu_torch.core.batch import ColumnarBatch
 from blaze_tpu_torch.exprs import spark_hash
 from blaze_tpu_torch.exprs.compiler import ExprEvaluator
@@ -38,8 +40,8 @@ class Repartitioner:
         if self.num_partitions == 1:
             return [(0, batch)]
         pids = self.partition_ids(batch)
-        sorted_pids, order = torch.sort(pids, stable=True)
-        counts = torch.bincount(sorted_pids.to(torch.int64),
+        order = K.lexsort_indices([pids])
+        counts = torch.bincount(pids.to(torch.int64),
                                 minlength=self.num_partitions).tolist()
         gathered = batch.take(order, conf)
         out = []

@@ -1,13 +1,15 @@
-"""Sort with an optional fetch limit (top-k).
+"""Sort: the in-memory full sort and the top-k (fetch limit).
 
-Counterpart of blaze_tpu/ops/sort.py: ``SortExec._execute_topk`` stages
-input until it holds max(4k, batch_size) rows, then keeps the k first rows
-of a full sort of (kept rows + staged rows). The sort of a batch is a
-lexicographic stable sort over the normalised key operands
-(``torch.sort(stable=True)`` per operand, least significant first), where
-the JAX package leaves it to ``lax.sort``; a hand-written key sort is
-queued (ROADMAP.md Queue 2). A sort without a fetch limit sorts all of
-its partition in memory: the spilling run merge is not ported.
+Counterpart of blaze_tpu/ops/sort.py. The sort of a batch is K5 (the key
+pass ``sort_key_operands`` and the stable radix sort ``lexsort_indices``,
+where the JAX package uses ``lax.sort``) and one K6 gather (``take``).
+``SortExec._execute_topk`` stages input until it holds max(4k,
+batch_size) rows, then keeps the k first rows of a full sort of (kept
+rows + staged rows). Without a fetch limit the partition is sorted whole
+in memory and cut into ``batch_size`` slices with K7, as
+``_SortState.output`` does when nothing spilled. The spill and the run
+merge (``_SortState.spill``, ``_merge_runs_vectorized``) need the memory
+manager, which is not ported (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ def sort_batch(batch: ColumnarBatch, sort_orders: List[E.SortOrder],
                limit: Optional[int] = None, conf=None) -> ColumnarBatch:
     if batch.num_rows <= 1:
         return batch
-    idx = K.lexsort_indices(SK.key_operands(batch, sort_orders))[:batch.num_rows]
+    operands = SK.key_operands(batch, sort_orders)
+    idx = K.lexsort_indices(operands, batch.num_rows)[:batch.num_rows]
     if limit is not None:
         idx = idx[:limit]
     return batch.take(idx, conf)
@@ -39,17 +42,30 @@ class SortExec(Operator):
         super().__init__(child.schema, [child])
 
     def _execute(self, partition, ctx):
-        k = self.fetch_limit
-        if k is not None and k <= 0:
+        if self.fetch_limit is not None:
+            yield from self._execute_topk(partition, ctx)
             return
-        step = max(4 * k, ctx.conf.batch_size) if k is not None else None
+        staged = list(self.execute_child(0, partition, ctx))
+        if not staged:
+            return
+        merged = sort_batch(ColumnarBatch.concat(staged, self.schema, ctx.conf),
+                            self.sort_orders, conf=ctx.conf)
+        bs = ctx.conf.batch_size
+        for off in range(0, merged.num_rows, bs):
+            yield merged.slice(off, bs, ctx.conf)
+
+    def _execute_topk(self, partition, ctx):
+        k = self.fetch_limit
+        if k <= 0:
+            return
+        step = max(4 * k, ctx.conf.batch_size)
         current: Optional[ColumnarBatch] = None
         staged: List[ColumnarBatch] = []
         staged_rows = 0
         for batch in self.execute_child(0, partition, ctx):
             staged.append(batch)
             staged_rows += batch.num_rows
-            if step is not None and staged_rows >= step:
+            if staged_rows >= step:
                 current = self._merge(current, staged, k, ctx)
                 staged, staged_rows = [], 0
         if staged:

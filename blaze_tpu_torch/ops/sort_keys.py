@@ -1,16 +1,19 @@
-"""Sort-key normalisation (plain PyTorch).
+"""Sort-key normalisation and the window's peer keys.
 
 As blaze_tpu/ops/sort_keys.py ``key_operands``: every sort key becomes a
 (u8 rank, native value) operand pair, direction-adjusted, with nulls,
-NaNs and padding rows folded into the rank (core/kernels.py
-``sort_key_operands``). Keys must be device (fixed-width) values; the
-host path for var-width keys is not ported (ROADMAP.md Queue 2).
+NaNs and padding rows folded into the rank (K5's key pass,
+core/kernels.py ``sort_key_operands``). ``peer_key_rows`` is the
+window's order-key encoding (ops/joins/keymap.py). Keys must be device
+(fixed-width) values; the host path for var-width keys is not ported
+(ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from blaze_tpu_torch.core import kernels as K
@@ -34,3 +37,17 @@ def key_operands(batch: ColumnarBatch,
         valids.append(v)
     return K.sort_key_operands(datas, valids, batch.row_exists_mask(),
                                key_spec(sort_orders))
+
+
+def peer_key_rows(batch: ColumnarBatch, sort_orders: List[E.SortOrder],
+                  evaluator: Optional[ExprEvaluator] = None) -> np.ndarray:
+    """Canonical per-row ORDER-key rows for window peer-boundary detection
+    (keymap.key_rows), so peer equality matches partition-key equality:
+    floats folded (-0.0 == 0.0, one NaN payload), nulls grouped as values.
+    Sort direction is irrelevant here: peers are equal-key runs of input
+    that is already sorted."""
+    from blaze_tpu_torch.ops.joins.keymap import key_rows
+
+    ev = evaluator or ExprEvaluator([so.child for so in sort_orders],
+                                    batch.schema)
+    return key_rows(batch, ev.evaluate(batch))

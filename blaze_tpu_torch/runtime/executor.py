@@ -2,8 +2,8 @@
 
 Whole-stage fusion (``ir/fusion.py``) is not ported: ``fusion_enabled=
 False`` gives the JAX package this same tree, and q01 forms no fused
-stage. A node outside the slice raises NotImplementedError naming the
-ROADMAP item that ports it.
+stage. A node outside the ported slices raises NotImplementedError naming
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -35,6 +35,12 @@ def build_operator(node: N.PlanNode) -> Operator:
 
         return AggExec(build_operator(node.child), node.exec_mode,
                        node.groupings, node.aggs, node.supports_partial_skipping)
+    if isinstance(node, N.Window):
+        from blaze_tpu_torch.ops.window import WindowExec
+
+        return WindowExec(build_operator(node.child), node.window_exprs,
+                          node.partition_spec, node.order_spec,
+                          node.group_limit, node.output_window_cols)
     if isinstance(node, N.FFIReader):
         from blaze_tpu_torch.ops.shuffle.reader import FFIReaderExec
 

@@ -28,7 +28,7 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu")
+SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libblaze_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -39,6 +39,11 @@ LAUNCHES: Dict[str, int] = {
     "murmur3_pmod": 0,
     "slot_agg_partial": 0,
     "slot_agg_merge": 0,
+    "sort_key_operands": 0,
+    "lexsort_indices": 0,
+    "gather_planes": 0,
+    "slice_planes": 0,
+    "concat_planes": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -164,6 +169,20 @@ _SIGNATURES = {
         _PP, _PP, _P, _P, _P, _I, _I,        # key_out, kvalid_out, count_out, brows, bgroups, shift, nb
         _P,                                  # stream
     ],
+    # k, datas, valids, sizes, kinds, asc, nulls_first, exists, n,
+    # rank_out, val_out, stream
+    "blz_sort_key_operands": [_I, _PP, _PP, _PI, _PI, _PI, _PI, _P, _I64,
+                              _PP, _PP, _P],
+    # nops, datas, sizes, kinds, n, andor, stream
+    "blz_sort_bits": [_I, _PP, _PI, _PI, _I64, _P, _P],
+    # nops, datas, sizes, kinds, n_sort, n_total, npasses, pass_op,
+    # pass_shift, idx_a, idx_b, counts, out, stream
+    "blz_radix_sort": [_I, _PP, _PI, _PI, _I64, _I64, _I, _PI, _PI, _P, _P,
+                       _P, _P, _P],
+    # idx, n_out, live, out_cap, nplanes, srcs, dsts, caps, sizes, stream
+    "blz_gather_planes": [_P, _I64, _P, _I64, _I, _PP, _PP, _PLL, _PI, _P],
+    # table, k, nplanes, out_cap, stream
+    "blz_concat_planes": [_P, _I, _I, _I64, _P],
 }
 
 

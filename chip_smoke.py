@@ -10,26 +10,32 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K4 held against their plain PyTorch versions on the card,
-   exactly, at the main path's shapes and at edge cases (nulls, all-false
-   and all-true masks, padding rows, keys next to the slot range, one and
-   two keys, int32/int64/decimal words, capacities 1024 and 262144); then
+3. kernels: K1-K7 held against their plain PyTorch versions on the card,
+   exactly (float planes bit for bit), at the main paths' shapes and at
+   edge cases (nulls, all-false and all-true masks, padding rows, keys
+   next to the slot range, one to three sort keys ASC/DESC with nulls
+   first/last, int64 min/max, bools, f64 NaN and +-0.0, mixed plane
+   capacities, offsets past the end, empty batches in a concat); then
    each timed with CUDA events beside its plain version, one PyTorch
-   library call where one computes the same function, and its bound (bytes
-   moved over 3.35 TB/s);
-4. slice: TPC-DS q01 (filter -> partial agg -> murmur3 hash exchange ->
-   final agg -> top 100) through ``Session().execute_to_pydict`` over
-   28,795,080 store_returns rows (the SF100 row count) in 4 partitions,
-   drawn with numpy as bench.py draws them and staged on the card; the
-   result is checked exactly against a numpy oracle, and the launch count
-   of every kernel over that run must be above 0;
-5. one JSON line per kernel (shape, times, bound, launches in the q01
-   run), the kernels' summary JSON line, the card line, and the device
-   JSON line.
+   library call where one computes the same function, and its bound
+   (bytes moved over 3.35 TB/s);
+4. paths, each checked exactly against a numpy oracle, with the launch
+   counts set to 0 just before its measured run and read just after:
+   - TPC-DS q01 (filter -> partial agg -> murmur3 hash exchange -> final
+     agg -> top 100) over 28,795,080 store_returns rows (the SF100 row
+     count) drawn as bench.py draws them;
+   - q67 (two-key partial agg -> hash exchange -> final agg -> full sort
+     -> rank window -> rank <= 3) over 28,800,991 store_sales rows (the
+     SF10 row count) drawn as bench.py draws them (seed 67), order
+     included;
+   both through ``Session().execute_to_pydict`` in 4 partitions staged on
+   the card; every kernel must have launched over the two runs;
+5. one JSON line per kernel (shape, times, bound, launches per path), the
+   kernels' summary JSON line, the card line, and the device JSON line.
 
-``--profile`` adds one q01 run under torch.profiler (device busy share,
-launch and sync counts, the top kernels); ``--trace=PATH`` also writes
-that run's Chrome trace to PATH.
+``--profile`` adds one run of each path under torch.profiler (device busy
+share, launch and sync counts, the top kernels); ``--trace=PATH`` also
+writes q01's Chrome trace to PATH and q67's beside it (``_q67.json``).
 
 Needs one CUDA device; exits 2 without one, or when run outside a checkout
 of the repository.
@@ -46,6 +52,14 @@ ROWS = 28_795_080
 PARTS = 4
 N_STORES = 400
 N_CUSTOMERS = 100_000
+N_ITEMS = 2000
+Q67_ROWS = 28_800_991
+Q67_SEED = 67
+Q67_GROUPS = 797_601  # (item, store) groups of q67 at Q67_ROWS: the kernels' shapes
+# q67's final merge holds ~6.2M partial-state rows per reducer (~330 MB
+# at their capacity buckets), past the 256 MB default beyond which the
+# JAX package spills to its host table (not ported); the card holds them
+Q67_MERGE_BYTES = 2 << 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 WARMUP, ITERS = 3, 20
 
@@ -92,8 +106,17 @@ def max_abs_err(a, b) -> float:
         raise AssertionError(f"{tuple(a.shape)}/{a.dtype} vs {tuple(b.shape)}/{b.dtype}")
     if a.dtype == torch.bool:
         return float((a != b).sum().item())
-    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max().item()) \
-        if a.numel() else 0.0
+    if not a.numel():
+        return 0.0
+    if a.is_floating_point():
+        # bit for bit: -0.0 against +0.0, or one NaN payload against
+        # another, counts as a difference
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        if torch.equal(a.view(bits), b.view(bits)):
+            return 0.0
+        diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
+        return float(torch.nan_to_num(diff, nan=float("inf")).max().clamp(min=1e-300).item())
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max().item())
 
 
 MAX_ERR = {}
@@ -368,7 +391,397 @@ def kernel_k3_k4(dev, rng, results):
         bytes=nbytes))
 
 
-# -- phase 4: q01 on the card -------------------------------------------------
+# K5-K7 cases: the CPU parity tests' shapes (tests/test_torch_sort_window.py)
+# and the main path's
+SORT_KEY_CASES = (
+    ((("i64", True, True),), 256, 200, 0.1),
+    ((("i64", False, False),), 4096, 4096, 0.05),
+    ((("i64", True, True), ("i32", False, True)), 4096, 3000, 0.1),
+    ((("bool", True, False), ("f64", False, True), ("i64", True, False)), 256, 250, 0.2),
+    ((("f64", True, True),), 4096, 4000, 0.1),
+    ((("f32", False, False),), 256, 256, 0.0),
+    ((("bool", False, False),), 256, 100, 0.3),
+    ((("i64", True, True), ("i64", False, True)), 1 << 20, 797_601, 0.0),
+)
+F64_SPECIALS = (0.0, -0.0, float("nan"), float("-nan"), float("inf"), float("-inf"), 1.5, -1.5)
+
+
+def key_plane(kind, cap, n, rng, nulls, dev):
+    import numpy as np
+    import torch
+
+    npdt = {"i64": np.int64, "i32": np.int32, "bool": np.bool_, "f64": np.float64,
+            "f32": np.float32}[kind]
+    d = np.zeros(cap, npdt)
+    if kind in ("i64", "i32"):
+        hi = 1 << 13 if n > 100_000 else 4
+        vals = rng.integers(-hi, hi, n)
+        if kind == "i64" and n <= 100_000:
+            vals[rng.random(n) < 0.1] = np.iinfo(np.int64).min
+            vals[rng.random(n) < 0.1] = np.iinfo(np.int64).max
+        d[:n] = vals
+    elif kind == "bool":
+        d[:n] = rng.random(n) < 0.5
+    else:
+        d[:n] = rng.choice(np.array(F64_SPECIALS), n)
+    v = np.zeros(cap, bool)
+    v[:n] = rng.random(n) >= nulls
+    d[~v] = 0
+    return torch.from_numpy(d).to(dev), torch.from_numpy(v).to(dev)
+
+
+def q67_sort_keys(rng, dev):
+    """The q67 full sort's input: ~797,601 (item, store) groups in a
+    1,048,576-row bucket, item ASC then the quantity sum DESC (sums of ~36
+    quantities in [1, 100))."""
+    import numpy as np
+    import torch
+
+    cap, n = 1 << 20, Q67_GROUPS
+    item = np.zeros(cap, np.int64)
+    qty = np.zeros(cap, np.int64)
+    item[:n] = rng.integers(1, N_ITEMS, n)
+    qty[:n] = rng.poisson(36.1, n) * 50 + rng.integers(-49, 50, n)
+    v = np.arange(cap) < n
+    return ([torch.from_numpy(x).to(dev) for x in (item, qty)],
+            [torch.from_numpy(v).to(dev)] * 2, torch.from_numpy(v).to(dev), n)
+
+
+def kernel_k5(dev, rng, results):
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    cases = []
+    for keys, cap, n, nulls in SORT_KEY_CASES:
+        planes = [key_plane(kind, cap, n, rng, nulls, dev) for kind, _, _ in keys]
+        spec = tuple((asc, nf) for _, asc, nf in keys)
+        exists = torch.arange(cap, device=dev) < n
+        datas, valids = [p[0] for p in planes], [p[1] for p in planes]
+        got = K.sort_key_operands_cuda(datas, valids, exists, spec)
+        want = K.sort_key_operands_plain(datas, valids, exists, spec)
+        label = f"keys={'+'.join(k for k, _, _ in keys)},cap={cap},n={n},nulls={nulls}"
+        check_equal("sort_key_operands", label, got, want)
+        for rows in (n, None):
+            check_equal("lexsort_indices", f"{label},num_rows={rows}",
+                        K.lexsort_indices_cuda(want, rows),
+                        K.lexsort_indices_plain(want, rows))
+        cases.append(label)
+    # the exchange's pid sort (one int32 operand) and a raw f64 operand
+    # with signed zeros and infinities (the sort's own word mapping; the
+    # key pass never hands it a NaN)
+    pids = torch.randint(0, PARTS, (229_000,), dtype=torch.int32, device=dev)
+    check_equal("lexsort_indices", "pids", K.lexsort_indices_cuda([pids]),
+                K.lexsort_indices_plain([pids]))
+    raw, _ = key_plane("f64", 4096, 4096, rng, 0.0, dev)
+    raw = torch.nan_to_num(raw, nan=0.0, posinf=float("inf"), neginf=float("-inf"))
+    check_equal("lexsort_indices", "raw f64", K.lexsort_indices_cuda([raw]),
+                K.lexsort_indices_plain([raw]))
+    cases += ["pids int32 n=229000", "raw f64 +-0.0 +-inf n=4096"]
+
+    # main path: the q67 full sort
+    datas, valids, exists, n = q67_sort_keys(rng, dev)
+    spec = ((True, True), (False, True))
+    cap = exists.shape[0]
+    ops = K.sort_key_operands_cuda(datas, valids, exists, spec)
+    ms = time_ms(lambda: K.sort_key_operands_cuda(datas, valids, exists, spec))
+    plain_ms = time_ms(lambda: K.sort_key_operands_plain(datas, valids, exists, spec))
+    results.append(dict(
+        name="sort_key_operands", route="cuda", source="blaze_tpu_torch/csrc/sort.cu",
+        replaces="blaze_tpu/core/kernels.py:293", shape=f"{cap} rows x 2 int64 keys",
+        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=None, library_call=None,
+        bytes=cap * (1 + 2 * (8 + 1) + 2 * (1 + 8))))
+    ms = time_ms(lambda: K.lexsort_indices_cuda(ops, n))
+    plain_ms = time_ms(lambda: K.lexsort_indices_plain(ops, n))
+
+    def chained_sort():
+        idx = torch.arange(n, device=dev)
+        for op in reversed(ops):
+            key = op[idx]
+            idx = idx[torch.sort(key.to(torch.int16) if key.dtype == torch.uint8 else key,
+                                 stable=True).indices]
+        return idx
+
+    lib_ms = time_ms(chained_sort)
+    passes = K.radix_passes(_and_or(ops, n), [op.element_size() for op in ops])
+    results.append(dict(
+        name="lexsort_indices", route="cuda", source="blaze_tpu_torch/csrc/sort.cu",
+        replaces="blaze_tpu/ops/sort.py:46", shape=f"{n} of {cap} rows, 4 operands, "
+        f"{len(passes)} digit passes", cases=cases, ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, library_call="torch.sort(stable=True) chained per operand",
+        bytes=n * (1 + 8 + 1 + 8) + cap * 8, digit_passes=len(passes)))
+
+
+def _and_or(ops, n):
+    """Per operand the AND and the OR of its sort words over rows [0, n)
+    (what the kernel's bits pass computes, for integer operands), for the
+    pass count."""
+    import numpy as np
+
+    out = []
+    for op in ops:
+        x = op[:n].cpu().numpy()
+        size = x.dtype.itemsize
+        w = x.view({1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[size]).astype(np.uint64)
+        if x.dtype.kind == "i":
+            w = w ^ np.uint64(1 << (8 * size - 1))
+        out += [np.bitwise_and.reduce(w), np.bitwise_or.reduce(w)]
+    return np.array(out, np.uint64)
+
+
+def mixed_planes(rng, caps, n_live, dev):
+    import numpy as np
+    import torch
+
+    datas, valids = [], []
+    for cap, dt in zip(caps, (np.int64, np.int32, np.bool_, np.float64)):
+        d = np.zeros(cap, dt)
+        v = np.zeros(cap, bool)
+        m = min(n_live, cap)
+        d[:m] = rng.integers(-1000, 1000, m) if dt != np.bool_ else rng.random(m) < 0.5
+        v[:m] = rng.random(m) >= 0.2
+        d[~v] = 0
+        datas.append(torch.from_numpy(d).to(dev))
+        valids.append(torch.from_numpy(v).to(dev))
+    return datas, valids
+
+
+def kernel_k6(dev, rng, results):
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    cases = []
+    datas, valids = mixed_planes(rng, (4096, 4096, 1024, 4096), 3000, dev)
+    for out_cap, n_out, masked in ((256, 200, False), (4096, 4096, False), (256, 0, False),
+                                   (1024, 700, True), (256, 256, True)):
+        idx = torch.randint(0, 3000, (n_out,), device=dev)
+        live = (torch.rand(n_out, device=dev) < 0.7) if masked else None
+        got = K.gather_planes_cuda(datas, valids, idx, out_cap, n_out, live)
+        want = K.gather_planes_plain(datas, valids, idx, out_cap, n_out, live)
+        check_equal("gather_planes", f"out_cap={out_cap} n_out={n_out} masked={masked}",
+                    got, want)
+        cases.append(f"out_cap={out_cap},n_out={n_out},masked={masked},mixed caps")
+    # main path: the q67 sort's take of 797,601 of 1,048,576 rows
+    cap, n = 1 << 20, Q67_GROUPS
+    datas, valids = planes(n, cap, 3, rng, dev)
+    idx = torch.randperm(n, device=dev)
+    check_equal("gather_planes", "q67 take", K.gather_planes_cuda(datas, valids, idx, cap, n),
+                K.gather_planes_plain(datas, valids, idx, cap, n))
+    cases.append(f"out_cap={cap},n_out={n},3 int64 + 3 bool planes")
+    ms = time_ms(lambda: K.gather_planes_cuda(datas, valids, idx, cap, n))
+    plain_ms = time_ms(lambda: K.gather_planes_plain(datas, valids, idx, cap, n))
+    lib_ms = time_ms(lambda: [torch.index_select(x, 0, idx) for x in datas + valids])
+    results.append(dict(
+        name="gather_planes", route="cuda", source="blaze_tpu_torch/csrc/gather.cu",
+        replaces="blaze_tpu/core/kernels.py:181", shape=f"{n} of {cap} rows x 6 planes",
+        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_call="torch.index_select per plane",
+        bytes=n * 8 + n * 3 * (8 + 1) + cap * 3 * (8 + 1)))
+
+
+def kernel_k7(dev, rng, results):
+    import torch
+    import torch.nn.functional as Fn
+    from blaze_tpu_torch.core import kernels as K
+
+    cases = []
+    for cap, num_rows, offset, length, out_cap in (
+            (4096, 3000, 0, 256, 256), (4096, 3000, 2900, 256, 256),
+            (4096, 3000, 3000, 256, 256), (4096, 3000, 5000, 256, 256),
+            (256, 256, 10, 200, 256)):
+        datas, valids = mixed_planes(rng, (cap,) * 4, num_rows, dev)
+        length = max(0, min(length, num_rows - offset))
+        check_equal("slice_planes", f"offset={offset} length={length}",
+                    K.slice_planes_cuda(datas, valids, offset, length, out_cap),
+                    K.slice_planes_plain(datas, valids, offset, length, out_cap))
+        cases.append(f"cap={cap},offset={offset},length={length}")
+    ccases = []
+    for k in range(1, 6):
+        caps = [256, 1024, 256, 512, 256][:k]
+        rows = [200, 0, 256, 37, 0][:k]
+        per = [mixed_planes(rng, (c,) * 4, n, dev) for c, n in zip(caps, rows)]
+        pd = [[b[0][f] for b in per] for f in range(4)]
+        pv = [[b[1][f] for b in per] for f in range(4)]
+        out_cap = max(256, 1 << (sum(rows) - 1).bit_length())
+        check_equal("concat_planes", f"k={k}",
+                    K.concat_planes_cuda(pd, pv, rows, out_cap),
+                    K.concat_planes_plain(pd, pv, rows, out_cap))
+        ccases.append(f"k={k},rows={rows}")
+    # main path: the full sort's 262144-row output slices of the sorted
+    # 1,048,576-row batch, and its concat of the four reducers' outputs
+    cap, n, bs = 1 << 20, Q67_GROUPS, 262144
+    datas, valids = planes(n, cap, 3, rng, dev)
+    off = 3 * bs
+    length = n - off
+    check_equal("slice_planes", "q67 last slice", K.slice_planes_cuda(datas, valids, off, length, bs),
+                K.slice_planes_plain(datas, valids, off, length, bs))
+    cases.append(f"cap={cap},offset={off},length={length} (q67)")
+    ms = time_ms(lambda: K.slice_planes_cuda(datas, valids, 0, bs, bs))
+    plain_ms = time_ms(lambda: K.slice_planes_plain(datas, valids, 0, bs, bs))
+    lib_ms = time_ms(lambda: [torch.cat([x[0:bs]]) for x in datas + valids])
+    results.append(dict(
+        name="slice_planes", route="cuda", source="blaze_tpu_torch/csrc/gather.cu",
+        replaces="blaze_tpu/core/kernels.py:233", shape=f"{bs} of {cap} rows x 6 planes",
+        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_call="torch.cat of the live prefix + pad per plane (k = 1: a copy)",
+        bytes=2 * bs * 3 * (8 + 1)))
+    rows = [n // 4 + (1 if i < n % 4 else 0) for i in range(4)]
+    parts = [planes(r, bs, 3, rng, dev) for r in rows]
+    pd = [[p[0][f] for p in parts] for f in range(3)]
+    pv = [[p[1][f] for p in parts] for f in range(3)]
+    check_equal("concat_planes", "q67 concat", K.concat_planes_cuda(pd, pv, rows, cap),
+                K.concat_planes_plain(pd, pv, rows, cap))
+    ccases.append(f"k=4,rows={rows} (q67)")
+    ms = time_ms(lambda: K.concat_planes_cuda(pd, pv, rows, cap))
+    plain_ms = time_ms(lambda: K.concat_planes_plain(pd, pv, rows, cap))
+    lib_ms = time_ms(lambda: [Fn.pad(torch.cat([x[:r] for x, r in zip(p, rows)]), (0, cap - n))
+                              for p in pd + pv])
+    results.append(dict(
+        name="concat_planes", route="cuda", source="blaze_tpu_torch/csrc/gather.cu",
+        replaces="blaze_tpu/core/kernels.py:354", shape=f"4 x ~{n // 4} rows -> {cap} x 6 planes",
+        cases=ccases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_call="torch.cat of the live prefixes + pad per plane",
+        bytes=n * 3 * (8 + 1) + cap * 3 * (8 + 1)))
+
+
+# -- phase 4: the paths on the card ------------------------------------------------
+
+
+def stage_batches(schema, columns, dev, bs=262144):
+    """Host int64 columns -> device batches of ``bs`` rows (the last one in
+    its own capacity bucket), all-valid."""
+    import torch
+    from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
+
+    n_all = len(columns[0])
+    cols = [torch.from_numpy(x).to(dev) for x in columns]
+    batches = []
+    for s in range(0, n_all, bs):
+        n = min(bs, n_all - s)
+        cap = bs if n == bs else 1 << max(8, (n - 1).bit_length())
+        dcols = []
+        for f, c in zip(schema.fields, cols):
+            d = torch.zeros(cap, dtype=torch.int64, device=dev)
+            d[:n] = c[s:s + n]
+            v = torch.zeros(cap, dtype=torch.bool, device=dev)
+            v[:n] = True
+            dcols.append(DeviceColumn(f.dtype, d, v))
+        batches.append(ColumnarBatch(schema, dcols, n))
+    return batches
+
+
+def make_q67_data(dev):
+    """store_sales' q67 columns drawn as bench.py:make_data draws them
+    (ss_item_sk uniform [1, 2000), ss_store_sk uniform [1, 400),
+    ss_quantity uniform [1, 100); seed 67), 28,800,991 rows (TPC-DS
+    SF10's store_sales row count) in 4 partitions, staged on the card."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.ir import types as T
+
+    schema = T.Schema.of(("ss_item_sk", T.I64), ("ss_store_sk", T.I64),
+                         ("ss_quantity", T.I64))
+    rng = np.random.default_rng(Q67_SEED)
+    host, parts = [], []
+    for p in range(PARTS):
+        per = Q67_ROWS // PARTS + (1 if p < Q67_ROWS % PARTS else 0)
+        cols = (rng.integers(1, N_ITEMS, per), rng.integers(1, N_STORES, per),
+                rng.integers(1, 100, per))
+        host.append(cols)
+        parts.append(stage_batches(schema, cols, dev))
+    torch.cuda.synchronize()
+    return schema, parts, host
+
+
+def q67_plan(schema):
+    """bench.py:380 plan_q67 over an in-memory source: top-3 stores per item
+    by quantity over the (item, store) aggregate."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    col = E.Column
+    keys = [("ss_item_sk", col("ss_item_sk")), ("ss_store_sk", col("ss_store_sk"))]
+    aggs = [("qty", E.AggExpr(E.AggFunction.SUM, [col("ss_quantity")]))]
+    scan = N.FFIReader(schema, "store_sales", PARTS)
+    partial = N.Agg(scan, E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(a, E.AggMode.PARTIAL, n) for n, a in aggs],
+                    supports_partial_skipping=True)
+    ex = N.ShuffleExchange(partial, N.HashPartitioning([e for _, e in keys], PARTS))
+    final = N.Agg(ex, E.AggExecMode.HASH_AGG, keys,
+                  [N.AggColumn(a, E.AggMode.FINAL, n) for n, a in aggs])
+    srt = N.Sort(N.ShuffleExchange(final, N.SinglePartitioning(1)),
+                 [E.SortOrder(col("ss_item_sk")), E.SortOrder(col("qty"), ascending=False)])
+    win = N.Window(srt, [N.WindowExpr("rank", "rk")], [col("ss_item_sk")],
+                   [E.SortOrder(col("qty"), ascending=False)])
+    return N.Filter(win, [E.BinaryExpr(E.BinaryOp.LTEQ, col("rk"), E.Literal(3, T.I32))])
+
+
+def _u32(x):
+    import numpy as np
+
+    return np.uint32(x)
+
+
+def spark_pmod_two_longs(a, b, n):
+    """Spark's HashPartitioning of two non-null int64 keys in numpy:
+    Murmur3_x86_32 hashLong(a, 42), then hashLong(b, that), pmod n."""
+    import numpy as np
+
+    def rotl(x, r):
+        return (x << _u32(r)) | (x >> _u32(32 - r))
+
+    def mix_k1(k):
+        return rotl(k * _u32(0xcc9e2d51), 15) * _u32(0x1b873593)
+
+    def mix_h1(h, k):
+        return rotl(h ^ k, 13) * _u32(5) + _u32(0xe6546b64)
+
+    def hash_long(v, seed):
+        u = v.astype(np.int64).view(np.uint64)
+        h = mix_h1(seed, mix_k1((u & np.uint64(0xffffffff)).astype(np.uint32)))
+        h = mix_h1(h, mix_k1((u >> np.uint64(32)).astype(np.uint32)))
+        h = h ^ _u32(8)
+        h = h ^ (h >> _u32(16))
+        h = h * _u32(0x85ebca6b)
+        h = h ^ (h >> _u32(13))
+        h = h * _u32(0xc2b2ae35)
+        return h ^ (h >> _u32(16))
+
+    h = hash_long(b, hash_long(a, np.full(len(a), 42, np.uint32)))
+    return np.mod(h.view(np.int32).astype(np.int64), n)
+
+
+def q67_oracle(host):
+    """The q67 answer in numpy, order included: group sums by (item,
+    store); the sort's input is the final aggregate's reducers in order,
+    each in (item, store) order, and the sort is stable, so rows tied on
+    (item, qty) come in (reducer, store) order; rank as bench.py:acero_q67
+    computes it; rows with rank <= 3."""
+    import numpy as np
+
+    item = np.concatenate([h[0] for h in host])
+    store = np.concatenate([h[1] for h in host])
+    qty = np.concatenate([h[2] for h in host])
+    key = item * N_STORES + store
+    sums = np.bincount(key, weights=qty, minlength=N_ITEMS * N_STORES)
+    present = np.nonzero(np.bincount(key, minlength=N_ITEMS * N_STORES))[0]
+    del key, item, store, qty
+    if sums.max() >= 2 ** 53:  # float64 sums of int64 are exact below 2^53
+        raise AssertionError("q67 oracle: a sum reached 2^53")
+    g_item, g_store = present // N_STORES, present % N_STORES
+    g_qty = sums[present].astype(np.int64)
+    pid = spark_pmod_two_longs(g_item, g_store, PARTS)
+    order = np.lexsort((g_store, pid, -g_qty, g_item))
+    k, q = g_item[order], g_qty[order]
+    idx = np.arange(len(k))
+    new_key = np.concatenate([[True], k[1:] != k[:-1]])
+    new_val = np.concatenate([[True], (q[1:] != q[:-1]) | new_key[1:]])
+    grp_start = np.maximum.accumulate(np.where(new_key, idx, 0))
+    val_start = np.maximum.accumulate(np.where(new_val, idx, 0))
+    rk = val_start - grp_start + 1
+    keep = rk <= 3
+    return {"ss_item_sk": k[keep].tolist(), "ss_store_sk": g_store[order][keep].tolist(),
+            "qty": q[keep].tolist(), "rk": rk[keep].tolist()}, len(present)
 
 
 def make_data(dev):
@@ -376,7 +789,6 @@ def make_data(dev):
     staged on the card as 262144-row batches per partition."""
     import numpy as np
     import torch
-    from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
     from blaze_tpu_torch.ir import types as T
 
     schema = T.Schema.of(("sr_store_sk", T.I64), ("sr_customer_sk", T.I64),
@@ -384,27 +796,12 @@ def make_data(dev):
     rng = np.random.default_rng(42)
     per = ROWS // PARTS
     host, parts = [], []
-    bs = 262144
     for _ in range(PARTS):
         amt = rng.integers(0, 10_000_00, per)
         store = rng.integers(1, N_STORES, per)
         cust = rng.integers(1, N_CUSTOMERS, per)
         host.append((store, amt))
-        cols = [torch.from_numpy(x).to(dev) for x in (store, cust, amt)]
-        batches = []
-        for s in range(0, per, bs):
-            n = min(bs, per - s)
-            cap = bs if n == bs else 1 << max(8, (n - 1).bit_length())
-            dcols = []
-            for f, c in zip(schema.fields, cols):
-                d = torch.zeros(cap, dtype=torch.int64, device=dev)
-                d[:n] = c[s:s + n]
-                v = torch.zeros(cap, dtype=torch.bool, device=dev)
-                v[:n] = True
-                dcols.append(DeviceColumn(f.dtype, d, v))
-            batches.append(ColumnarBatch(schema, dcols, n))
-        parts.append(batches)
-        del cols
+        parts.append(stage_batches(schema, (store, cust, amt), dev))
     torch.cuda.synchronize()
     return schema, parts, host
 
@@ -453,23 +850,46 @@ def q01_oracle(host):
             "cnt": counts[top].tolist()}
 
 
-def run_slice(dev, profile=False, trace_path=None):
-    import torch
+def run_q01(dev, profile=False, trace_path=None):
     import blaze_tpu_torch
-    from blaze_tpu_torch.utils import cuda_lib
 
     t0 = time.perf_counter()
     schema, parts, host = make_data(dev)
     setup_s = time.perf_counter() - t0
-    plan = q01_plan(schema)
-    want = q01_oracle(host)
     session = blaze_tpu_torch.Session()
     session.resources["store_returns"] = lambda p: parts[p]
+    want = q01_oracle(host)
+    return run_query("q01", ROWS, session, q01_plan(schema), want, setup_s,
+                     {"groups": len(want["sr_store_sk"])}, profile, trace_path)
+
+
+def run_q67(dev, profile=False, trace_path=None):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    schema, parts, host = make_q67_data(dev)
+    want, groups = q67_oracle(host)
+    del host
+    setup_s = time.perf_counter() - t0
+    session = blaze_tpu_torch.Session(Config(device_merge_max_bytes=Q67_MERGE_BYTES))
+    session.resources["store_sales"] = lambda p: parts[p]
+    return run_query("q67", Q67_ROWS, session, q67_plan(schema), want, setup_s,
+                     {"groups": groups, "out_rows": len(want["rk"])}, profile,
+                     trace_path)
+
+
+def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_path):
+    """A first run, then one run with the launch counts set to 0 just before
+    and read just after; both exact against the oracle."""
+    import torch
+    from blaze_tpu_torch.utils import cuda_lib
+
     t0 = time.perf_counter()
     warm = session.execute_to_pydict(plan)
     warm_s = time.perf_counter() - t0
     if warm != want:
-        raise AssertionError("q01 (warm-up run) differs from the numpy oracle")
+        raise AssertionError(f"{name} (first run) differs from the numpy oracle")
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
@@ -477,23 +897,20 @@ def run_slice(dev, profile=False, trace_path=None):
     wall = time.perf_counter() - t0
     launches = cuda_lib.launch_counts()
     if got != want:
-        raise AssertionError("q01 differs from the numpy oracle")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by q01: {missing}")
+        raise AssertionError(f"{name} differs from the numpy oracle")
+    peak = torch.cuda.max_memory_allocated()
     if profile:
-        profile_q01(session, plan, want, trace_path)
-    log(json.dumps({"phase": "slice", "query": "q01", "rows": ROWS, "partitions": PARTS,
-                    "groups": len(got["sr_store_sk"]), "setup_s": setup_s,
-                    "first_run_s": warm_s, "wall_s": wall, "rows_per_s": ROWS / wall,
-                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        profile_query(name, session, plan, want, trace_path)
+    log(json.dumps({"phase": "slice", "query": name, "rows": rows, "partitions": PARTS,
+                    **info, "setup_s": setup_s, "first_run_s": warm_s, "wall_s": wall,
+                    "rows_per_s": rows / wall, "max_memory_allocated": peak,
                     "launches": launches, "exact": True}))
     return launches
 
 
-def profile_q01(session, plan, want, trace_path=None):
-    """One more q01 run under torch.profiler: the device's busy time (the
-    kernels' and copies' own device time — one stream, so they do not
+def profile_query(name, session, plan, want, trace_path=None):
+    """One more run under torch.profiler: the device's busy time (the
+    kernels' and copies' own device time -- one stream, so they do not
     overlap) against the run's wall, the launch/copy/sync counts, and the
     kernels that take the time; the Chrome trace to ``trace_path`` when
     given."""
@@ -506,7 +923,7 @@ def profile_q01(session, plan, want, trace_path=None):
         got = session.execute_to_pydict(plan)
         wall = time.perf_counter() - t0
     if got != want:
-        raise AssertionError("q01 (profiled run) differs from the numpy oracle")
+        raise AssertionError(f"{name} (profiled run) differs from the numpy oracle")
     avgs = prof.key_averages()
     device = [e for e in avgs if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in device)
@@ -516,7 +933,7 @@ def profile_q01(session, plan, want, trace_path=None):
     if trace_path:
         os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
         prof.export_chrome_trace(trace_path)
-    log(json.dumps({"phase": "profile", "query": "q01", "wall_s": wall,
+    log(json.dumps({"phase": "profile", "query": name, "wall_s": wall,
                     "device_busy_s": busy_us / 1e6,
                     "device_busy_share": busy_us / 1e6 / wall,
                     "host_calls": calls,
@@ -565,11 +982,22 @@ def main(device: str = "cuda") -> int:
     kernel_k1(dev, rng, results)
     kernel_k2(dev, rng, results)
     kernel_k3_k4(dev, rng, results)
-    # 4. slice
+    kernel_k5(dev, rng, results)
+    kernel_k6(dev, rng, results)
+    kernel_k7(dev, rng, results)
+    # 4. the paths: q01, then q67
     args = sys.argv[1:]
+    profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
-    launches = run_slice(dev, profile="--profile" in args,
-                         trace_path=trace[0] if trace else None)
+    per_path = {
+        "q01": run_q01(dev, profile, trace[0] if trace else None),
+        "q67": run_q67(dev, profile, trace[0].replace(".json", "") + "_q67.json"
+                       if trace else None),
+    }
+    launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["q01"]}
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels launched by neither path: {missing}")
     # 5. summary lines
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -578,14 +1006,16 @@ def main(device: str = "cuda") -> int:
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
         r["bound_by"] = "bytes"
         r["launches"] = launches[r["name"]]
+        r["launches_per_path"] = {q: per_path[q][r["name"]] for q in per_path}
         r["max_abs_err"] = MAX_ERR[r["name"]]
         log(json.dumps({"phase": "kernel", "name": r["name"], "shape": r["shape"],
                         "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                         "library_ms": r["library_ms"], "library_call": r["library_call"],
                         "bound_ms": r["bound_ms"], "bytes": r["bytes"],
-                        "launches": r["launches"], "exact_cases": r["cases"],
-                        **({"ms_262144_rows": r["ms_262144_rows"]}
-                           if "ms_262144_rows" in r else {})}))
+                        "launches": r["launches"],
+                        "launches_per_path": r["launches_per_path"],
+                        "exact_cases": r["cases"],
+                        **{k: r[k] for k in ("ms_262144_rows", "digit_passes") if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"kernels": kernels}))
     log(card)

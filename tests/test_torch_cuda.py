@@ -1,12 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, and the q01 slice on the card against the same plan on the CPU.
+card, and the q01 and q67 paths on the card against the same plans on the
+CPU.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: exact (integer, bool and int64-backed decimal planes only).
+Tolerance: exact (integer, bool and int64-backed decimal planes, and
+float sort keys compared bit for bit).
 """
 
 import numpy as np
@@ -32,6 +34,9 @@ def _equal(a, b):
             _equal(x, y)
         return
     assert a.dtype == b.dtype and a.shape == b.shape
+    if a.is_floating_point():  # bit for bit: -0.0 is not +0.0 here
+        bits = {4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(bits), b.view(bits)
     assert torch.equal(a, b)
 
 
@@ -130,3 +135,102 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
     assert all(v > 0 for v in cuda_lib.launch_counts().values())
+
+
+def _key_planes(kinds, cap, n, seed, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    datas, valids = [], []
+    specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -float("inf"), 1.5])
+    for kind in kinds:
+        if kind == "f64":
+            d = specials[torch.randint(0, 6, (cap,), generator=g)]
+        elif kind == "bool":
+            d = torch.rand(cap, generator=g) < 0.5
+        else:
+            d = torch.randint(-4, 4, (cap,), generator=g)
+            d[torch.rand(cap, generator=g) < 0.1] = torch.iinfo(torch.int64).min
+            d = d.to(torch.int32) if kind == "i32" else d
+        v = (torch.rand(cap, generator=g) < 0.85) & (torch.arange(cap) < n)
+        datas.append(torch.where(v, d, torch.zeros((), dtype=d.dtype)).to(dev))
+        valids.append(v.to(dev))
+    return datas, valids
+
+
+@pytest.mark.parametrize("kinds,spec,cap,n", [
+    (("i64",), ((True, True),), 256, 200),
+    (("i64", "i32"), ((True, False), (False, True)), 4096, 3000),
+    (("bool", "f64", "i64"), ((False, True), (False, False), (True, True)), 4096, 4096),
+    (("i64", "i64"), ((True, True), (False, True)), 1 << 20, 797_601),
+])
+def test_key_sort_kernels(dev, kinds, spec, cap, n):
+    from blaze_tpu_torch.core import kernels as K
+
+    datas, valids = _key_planes(kinds, cap, n, cap + n, dev)
+    exists = torch.arange(cap, device=dev) < n
+    ops = K.sort_key_operands_cuda(datas, valids, exists, spec)
+    _equal(ops, K.sort_key_operands_plain(datas, valids, exists, spec))
+    for rows in (n, None):
+        _equal(K.lexsort_indices_cuda(ops, rows), K.lexsort_indices_plain(ops, rows))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_gather_kernel(dev, masked):
+    from blaze_tpu_torch.core import kernels as K
+
+    g = torch.Generator(device="cpu").manual_seed(int(masked))
+    datas = [torch.randint(-2**40, 2**40, (4096,), generator=g),
+             torch.randint(-100, 100, (1024,), generator=g).to(torch.int32)]
+    valids = [torch.rand(4096, generator=g) < 0.8, torch.rand(1024, generator=g) < 0.8]
+    idx = torch.randint(0, 3000, (2500,), generator=g).to(dev)
+    live = (torch.rand(2500, generator=g) < 0.7).to(dev) if masked else None
+    args = ([d.to(dev) for d in datas], [v.to(dev) for v in valids], idx, 4096, 2500, live)
+    _equal(K.gather_planes_cuda(*args), K.gather_planes_plain(*args))
+
+
+def test_slice_and_concat_kernels(dev):
+    from blaze_tpu_torch.core import kernels as K
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    d = torch.randint(-2**40, 2**40, (4096,), generator=g).to(dev)
+    v = (torch.rand(4096, generator=g) < 0.8).to(dev)
+    for offset, length in ((0, 256), (3900, 100), (3000, 0), (5000, 0)):
+        _equal(K.slice_planes_cuda([d], [v], offset, length, 256),
+               K.slice_planes_plain([d], [v], offset, length, 256))
+    rows = [200, 0, 4096, 37]
+    parts = [(torch.randint(-9, 9, (4096,), generator=g).to(dev),
+              (torch.rand(4096, generator=g) < 0.8).to(dev)) for _ in rows]
+    args = ([[p[0] for p in parts]], [[p[1] for p in parts]], rows, 8192)
+    _equal(K.concat_planes_cuda(*args), K.concat_planes_plain(*args))
+
+
+def test_q67_on_the_card_equals_the_cpu(dev):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    rng = np.random.default_rng(1)
+    schema = T.Schema.of(("item", T.I64), ("store", T.I64), ("q", T.I64))
+    parts = [[{"item": rng.integers(1, 300, 40_000), "store": rng.integers(1, 50, 40_000),
+               "q": rng.integers(1, 5, 40_000)}] for _ in range(3)]
+    keys = [("item", E.Column("item")), ("store", E.Column("store"))]
+    agg = [("qty", E.AggExpr(E.AggFunction.SUM, [E.Column("q")]))]
+    partial = N.Agg(N.FFIReader(schema, "src", 3), E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(a, E.AggMode.PARTIAL, n) for n, a in agg])
+    final = N.Agg(N.ShuffleExchange(partial, N.HashPartitioning([e for _, e in keys], 3)),
+                  E.AggExecMode.HASH_AGG, keys,
+                  [N.AggColumn(a, E.AggMode.FINAL, n) for n, a in agg])
+    srt = N.Sort(N.ShuffleExchange(final, N.SinglePartitioning(1)),
+                 [E.SortOrder(E.Column("item")), E.SortOrder(E.Column("qty"), ascending=False)])
+    win = N.Window(srt, [N.WindowExpr("rank", "rk")], [E.Column("item")],
+                   [E.SortOrder(E.Column("qty"), ascending=False)])
+    plan = N.Filter(win, [E.BinaryExpr(E.BinaryOp.LTEQ, E.Column("rk"), E.Literal(3, T.I32))])
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(Config(batch_size=4096),
+                                    device=device)
+        s.resources["src"] = lambda p: parts[p]
+        out[device] = s.execute_to_pydict(plan)
+    assert len(out["cpu"]["rk"]) > 300
+    assert out[None] == out["cpu"]

@@ -97,5 +97,6 @@ def test_every_module_is_listed_in_the_package():
                 "exprs.decimal", "exprs.compiler", "exprs.spark_hash", "ops.base",
                 "ops.basic", "ops.shuffle.reader", "ops.shuffle.repartitioner",
                 "ops.aggfns", "ops.agg_device", "ops.agg", "ops.sort_keys",
-                "ops.sort", "runtime.executor", "runtime.session"):
+                "ops.sort", "ops.window", "ops.joins.keymap", "runtime.executor",
+                "runtime.session"):
         assert "blaze_tpu_torch." + mod in names
