@@ -10,6 +10,9 @@ launches the kernel or raises.
 - K6 ``gather_planes`` (csrc/gather.cu): ``ColumnarBatch.take``.
 - K7 ``slice_planes`` / ``concat_planes`` (csrc/gather.cu):
   ``ColumnarBatch.slice`` and ``.concat``.
+- K8 ``inner_join_planes`` (csrc/join.cu): the unique-key inner
+  broadcast join of one probe batch (probe, stable compaction, gathers
+  of both sides), with ``canon_words``, the join key's canonical word.
 
 The slot-code helpers of the aggregation are plain PyTorch twins of the
 JAX package's (the slot kernels K3/K4 are in ops/agg_device.py), and the
@@ -273,6 +276,137 @@ def compact_planes(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor]
     fn = compact_planes_cuda if mask.is_cuda else compact_planes_plain
     count, out_d, out_v = fn(datas, valids, mask)
     return int(count), out_d, out_v
+
+
+# -- K8: the unique-key inner join -------------------------------------------------
+
+_JOIN_KEY_INT, _JOIN_KEY_FLOAT = 0, 1
+
+
+def canon_words(data: torch.Tensor) -> torch.Tensor:
+    """Canonical int64 join words, the same function as
+    blaze_tpu/ops/joins/keymap.py:canon_word_traced: integers (and bools)
+    widen with their sign; floats fold -0.0 into +0.0 and every NaN
+    payload into the quiet NaN, then f64 words are the int64 bits and
+    f32 words the int32 bits sign-extended. K8 computes the same word in
+    its probe (csrc/join.cu blz_canon_word)."""
+    if data.is_floating_point():
+        d = _zero_where(data != 0, data)
+        d = torch.where(torch.isnan(d),
+                        torch.full((), float("nan"), dtype=d.dtype, device=d.device), d)
+        if d.dtype == torch.float32:
+            return d.view(torch.int32).to(torch.int64)
+        return d.view(torch.int64)
+    return data.to(torch.int64)
+
+
+def inner_join_planes_plain(uniq: torch.Tensor, nk: int, num_rows: int,
+                            key_data: torch.Tensor, key_valid: torch.Tensor,
+                            probe_datas: Sequence[torch.Tensor],
+                            probe_valids: Sequence[torch.Tensor],
+                            build_datas: Sequence[torch.Tensor],
+                            build_valids: Sequence[torch.Tensor]):
+    """Plain PyTorch twin of K8, the same function as
+    blaze_tpu/ops/joins/bhj.py:_inner_fast_kernel. ``uniq`` holds the
+    build's sorted unique canonical words (length max(nk, 1)); the probe
+    key hits where it is valid, the row is live and its word is in
+    uniq[0, nk). Hit rows move to the front in probe order, each probe
+    plane beside build row clip(rank, 0, cap_b - 1) of every build plane;
+    rows past the count are padding. Returns (count as a 0-d int64
+    tensor, probe datas, probe valids, build datas, build valids), every
+    output plane of the probe batch's capacity."""
+    cap_p = key_data.shape[0]
+    dev = key_data.device
+    w = canon_words(key_data)
+    idx = torch.searchsorted(uniq, w)
+    cidx = idx.clamp(0, max(nk - 1, 0))
+    hit = key_valid & (iota(cap_p, dev) < num_rows) & (idx < nk) & (uniq[cidx] == w)
+    count = hit.sum()
+    pos = torch.where(hit, torch.cumsum(hit, 0) - 1, cap_p)
+
+    def compact(x):
+        out = torch.zeros(cap_p + 1, dtype=x.dtype, device=dev)
+        out[pos] = x
+        return out[:cap_p]
+
+    cap_b = build_datas[0].shape[0] if build_datas else 1
+    bidx = cidx.clamp(0, cap_b - 1)
+    return (count, [compact(d) for d in probe_datas],
+            [compact(v) for v in probe_valids],
+            [compact(d[bidx]) for d in build_datas],
+            [compact(v[bidx]) for v in build_valids])
+
+
+def _join_key_kind(t: torch.Tensor) -> int:
+    if t.dtype in (torch.float32, torch.float64):
+        return _JOIN_KEY_FLOAT
+    if t.dtype in (torch.bool, torch.int8, torch.int16, torch.int32, torch.int64):
+        return _JOIN_KEY_INT
+    raise TypeError(f"inner_join_planes: join key of dtype {t.dtype}")
+
+
+def inner_join_planes_cuda(uniq: torch.Tensor, nk: int, num_rows: int,
+                           key_data: torch.Tensor, key_valid: torch.Tensor,
+                           probe_datas: Sequence[torch.Tensor],
+                           probe_valids: Sequence[torch.Tensor],
+                           build_datas: Sequence[torch.Tensor],
+                           build_valids: Sequence[torch.Tensor]):
+    """K8 on the card (csrc/join.cu): same contract as
+    :func:`inner_join_planes_plain`, one probe for every plane and one
+    scatter launch per 32 planes."""
+    probe = list(probe_datas) + list(probe_valids)
+    build = list(build_datas) + list(build_valids)
+    cuda_lib.require_cuda("inner_join_planes", uniq, key_data, key_valid,
+                          *probe, *build)
+    cap_p = int(key_data.shape[0])
+    kind = _join_key_kind(key_data)
+    if uniq.dtype != torch.int64 or uniq.shape != (max(nk, 1),) or nk < 0:
+        raise ValueError(f"inner_join_planes: sorted keys {uniq.dtype} of shape "
+                         f"{tuple(uniq.shape)} for {nk} keys")
+    if key_valid.dtype != torch.bool or key_data.shape != (cap_p,) or \
+            key_valid.shape != (cap_p,) or not 0 <= num_rows <= cap_p or cap_p == 0:
+        raise ValueError(f"inner_join_planes: key planes {tuple(key_data.shape)} / "
+                         f"{tuple(key_valid.shape)}, {num_rows} rows")
+    if not build_datas:
+        raise ValueError("inner_join_planes: the build side has no planes")
+    cap_b = int(build_datas[0].shape[0])
+    if any(p.shape != (cap_p,) for p in probe) or \
+            any(p.shape != (cap_b,) for p in build) or cap_b >= 2 ** 31:
+        raise ValueError(f"inner_join_planes: probe planes need {cap_p} rows, "
+                         f"build planes one capacity below 2^31 (got {cap_b})")
+    _check_planes("inner_join_planes", probe + build)
+    dev = key_data.device
+    planes = probe + build
+    outs = [torch.empty(cap_p, dtype=p.dtype, device=dev) for p in planes]
+    codes = torch.empty(cap_p, dtype=torch.int32, device=dev)
+    offs = torch.empty(cuda_lib.blocks(cap_p) + 1, dtype=torch.int64, device=dev)
+    srcs, _k1 = cuda_lib.ptr_array(planes)
+    dsts, _k2 = cuda_lib.ptr_array(outs)
+    sizes, _k3 = cuda_lib.int_array([p.element_size() for p in planes])
+    err = cuda_lib.library().blz_inner_join(
+        uniq.data_ptr(), nk, num_rows, key_data.data_ptr(), key_data.element_size(),
+        kind, key_valid.data_ptr(), cap_p, cap_b, len(probe), len(planes), srcs,
+        dsts, sizes, codes.data_ptr(), offs.data_ptr(), cuda_lib.stream_of(dev))
+    cuda_lib.check(err, "inner_join_planes")
+    cuda_lib.LAUNCHES["inner_join_planes"] += 1
+    a, b, c = len(probe_datas), len(probe), len(probe) + len(build_datas)
+    return offs[-1], outs[:a], outs[a:b], outs[b:c], outs[c:]
+
+
+def inner_join_planes(uniq: torch.Tensor, nk: int, num_rows: int,
+                      key_data: torch.Tensor, key_valid: torch.Tensor,
+                      probe_datas: Sequence[torch.Tensor],
+                      probe_valids: Sequence[torch.Tensor],
+                      build_datas: Sequence[torch.Tensor],
+                      build_valids: Sequence[torch.Tensor]):
+    """One probe batch's unique-key inner join (BroadcastJoinExec's hot
+    path): K8 on a CUDA key, the plain version on a CPU one. Returns
+    (count: int, probe datas, probe valids, build datas, build valids);
+    the count is the one host sync."""
+    fn = inner_join_planes_cuda if key_data.is_cuda else inner_join_planes_plain
+    count, pd, pv, bd, bv = fn(uniq, nk, num_rows, key_data, key_valid,
+                               probe_datas, probe_valids, build_datas, build_valids)
+    return int(count), pd, pv, bd, bv
 
 
 # -- slot codes (radix_pack) ---------------------------------------------------

@@ -43,6 +43,12 @@ __device__ __forceinline__ int blz_block_rank(bool flag, int* warp_sums) {
   return (warp ? warp_sums[warp - 1] : 0) + lane_rank;
 }
 
+// In-place exclusive scan of per-block counts (compact.cu), by one block:
+// block_offsets[b] becomes the sum of the counts before block b and
+// block_offsets[nblocks] the total. block_offsets holds nblocks + 1 values.
+cudaError_t blz_scan_block_counts(int64_t* block_offsets, int64_t nblocks,
+                                  cudaStream_t stream);
+
 // Stable compaction offsets over a byte flag array (compact.cu):
 // block_offsets[b] = number of set flags before block b (blocks of
 // BLZ_THREADS), block_offsets[nblocks] = total. block_offsets holds

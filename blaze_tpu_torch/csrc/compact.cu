@@ -74,13 +74,19 @@ __global__ void blz_offsets_scan_kernel(int64_t* offs, int64_t nblocks) {
   if (threadIdx.x == 0) offs[nblocks] = (int64_t)carry;
 }
 
+cudaError_t blz_scan_block_counts(int64_t* block_offsets, int64_t nblocks,
+                                  cudaStream_t stream) {
+  blz_offsets_scan_kernel<<<1, BLZ_THREADS, 0, stream>>>(block_offsets,
+                                                         nblocks);
+  return cudaGetLastError();
+}
+
 cudaError_t blz_flag_offsets(const uint8_t* flags, int64_t n,
                              int64_t* block_offsets, cudaStream_t stream) {
   const unsigned int nb = blz_blocks(n);
   blz_flag_count_kernel<<<nb, BLZ_THREADS, 0, stream>>>(flags, n,
                                                          block_offsets);
-  blz_offsets_scan_kernel<<<1, BLZ_THREADS, 0, stream>>>(block_offsets, nb);
-  return cudaGetLastError();
+  return blz_scan_block_counts(block_offsets, nb, stream);
 }
 
 __device__ __forceinline__ void blz_copy_elem(const void* src, void* dst,

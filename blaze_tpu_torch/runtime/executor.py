@@ -41,6 +41,12 @@ def build_operator(node: N.PlanNode) -> Operator:
         return WindowExec(build_operator(node.child), node.window_exprs,
                           node.partition_spec, node.order_spec,
                           node.group_limit, node.output_window_cols)
+    if isinstance(node, N.BroadcastJoin):
+        from blaze_tpu_torch.ops.joins.bhj import BroadcastJoinExec
+
+        return BroadcastJoinExec(build_operator(node.left), build_operator(node.right),
+                                 node.on, node.join_type, node.broadcast_side,
+                                 node.cached_build_hash_map_id, node.condition)
     if isinstance(node, N.FFIReader):
         from blaze_tpu_torch.ops.shuffle.reader import FFIReaderExec
 

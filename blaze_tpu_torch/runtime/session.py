@@ -13,9 +13,12 @@ mapped sub-batches stay on the device, referenced per reducer, with no
 serialisation. Map outputs are coalesced like the JAX writer
 (>= 32768 rows before a bucketize pass), adjacent small reducers merge
 into one read task (AQE, ``advisory_partition_bytes``), and a
-single-partition exchange is a collect in map order. Worker pools, file
-and remote shuffle tiers, broadcast and range exchanges are not ported
-(ROADMAP.md Queue 1 items 7 and 12).
+single-partition exchange is a collect in map order. A broadcast
+exchange is the same collect, read by every task as one partition
+(``_run_broadcast_collect``). Each query also gets the broadcast join's
+build-map cache (ops/joins/bhj.py ``BUILD_MAPS``), dropped with the
+query's other resources. Worker pools, file and remote shuffle tiers and
+range exchanges are not ported (ROADMAP.md Queue 1 items 7 and 12).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from blaze_tpu_torch.config import Config
 from blaze_tpu_torch.core.batch import ColumnarBatch
 from blaze_tpu_torch.ir import nodes as N
 from blaze_tpu_torch.ops.base import ExecContext
+from blaze_tpu_torch.ops.joins.bhj import BUILD_MAPS
 from blaze_tpu_torch.ops.shuffle.repartitioner import create_repartitioner
 from blaze_tpu_torch.runtime.executor import build_operator
 from blaze_tpu_torch.utils.device import resolve_device
@@ -51,7 +55,8 @@ class Session:
     def execute(self, plan: N.PlanNode) -> Iterator[ColumnarBatch]:
         """Run a plan, yielding the result batches (final-stage partitions in
         order). Exchange outputs are released when the stream ends."""
-        self._query_rids = []
+        self._query_rids = [BUILD_MAPS]
+        self.resources[BUILD_MAPS] = {}
         try:
             op = build_operator(self._lower(plan))
             for p in range(op.num_partitions()):
@@ -96,9 +101,7 @@ class Session:
         if isinstance(node, N.ShuffleExchange):
             return self._run_exchange(node)
         if isinstance(node, N.BroadcastExchange):
-            raise NotImplementedError(
-                "broadcast exchanges are not ported to the PyTorch package yet "
-                "(ROADMAP.md Queue 1 item 9)")
+            return self._run_broadcast_collect(node)
         return node
 
     def _register(self, provider) -> str:
@@ -107,17 +110,29 @@ class Session:
         self._query_rids.append(rid)
         return rid
 
+    def _collect(self, child: N.PlanNode) -> str:
+        """Run every partition of ``child`` in partition order and register
+        its batches as a one-partition resource; returns its id."""
+        child_op = build_operator(child)
+        blocks = [b for m in range(child_op.num_partitions())
+                  for b in child_op.execute(m, self._ctx())]
+        return self._register(lambda p, _b=blocks: _b)
+
+    def _run_broadcast_collect(self, node: N.BroadcastExchange) -> N.PlanNode:
+        """The child's batches collected in partition order and read whole
+        by every task (the device tier's counterpart of
+        blaze_tpu/runtime/session.py:_run_broadcast_collect)."""
+        return N.BatchSource(node.child.output_schema, self._collect(node.child), 1)
+
     def _run_exchange(self, node: N.ShuffleExchange) -> N.PlanNode:
-        child_op = build_operator(node.child)
         schema = node.child.output_schema
         part = node.partitioning
-        num_maps = child_op.num_partitions()
         if isinstance(part, N.SinglePartitioning) and part.num_partitions == 1:
             # a single-reducer exchange is a collect, assembled in map order
-            blocks = [b for m in range(num_maps)
-                      for b in child_op.execute(m, self._ctx())]
-            rid = self._register(lambda p, _b=blocks: _b)
-            return N.CoalesceBatches(N.BatchSource(schema, rid, 1), batch_size=0)
+            return N.CoalesceBatches(N.BatchSource(schema, self._collect(node.child), 1),
+                                     batch_size=0)
+        child_op = build_operator(node.child)
+        num_maps = child_op.num_partitions()
         num_reducers = part.num_partitions
         maps = [self._run_map(child_op, part, schema, m) for m in range(num_maps)]
         sizes = [0] * num_reducers

@@ -28,7 +28,8 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu")
+SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu",
+           "join.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libblaze_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -44,6 +45,7 @@ LAUNCHES: Dict[str, int] = {
     "gather_planes": 0,
     "slice_planes": 0,
     "concat_planes": 0,
+    "inner_join_planes": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -183,6 +185,10 @@ _SIGNATURES = {
     "blz_gather_planes": [_P, _I64, _P, _I64, _I, _PP, _PP, _PLL, _PI, _P],
     # table, k, nplanes, out_cap, stream
     "blz_concat_planes": [_P, _I, _I, _I64, _P],
+    # uniq, nk, num_rows, key, key_size, key_kind, key_valid, cap_p, cap_b,
+    # nprobe, nplanes, srcs, dsts, sizes, codes, offs, stream
+    "blz_inner_join": [_P, _I64, _I64, _P, _I, _I, _P, _I64, _I64, _I, _I,
+                       _PP, _PP, _PI, _P, _P, _P],
 }
 
 

@@ -10,17 +10,20 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K7 held against their plain PyTorch versions on the card,
+3. kernels: K1-K8 held against their plain PyTorch versions on the card,
    exactly (float planes bit for bit), at the main paths' shapes and at
    edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
    first/last, int64 min/max, bools, f64 NaN and +-0.0, mixed plane
-   capacities, offsets past the end, empty batches in a concat); then
-   each timed with CUDA events beside its plain version, one PyTorch
-   library call where one computes the same function, and its bound
-   (bytes moved over 3.35 TB/s);
-4. paths, each checked exactly against a numpy oracle, with the launch
-   counts set to 0 just before its measured run and read just after:
+   capacities, offsets past the end, empty batches in a concat; for the
+   join: misses, null probe keys, an empty build, one build key, a
+   null-keyed build row, int32/f32/f64 keys with +-0.0 and NaN payloads,
+   and q06's batch all hitting and half missing); then each timed with
+   CUDA events beside its plain version, one PyTorch library call (or a
+   chain of them, said so) where one computes the same function, and its
+   bound (bytes moved over 3.35 TB/s);
+4. paths, each checked against a numpy oracle, with the launch counts
+   set to 0 just before its measured run and read just after:
    - TPC-DS q01 (filter -> partial agg -> murmur3 hash exchange -> final
      agg -> top 100) over 28,795,080 store_returns rows (the SF100 row
      count) drawn as bench.py draws them;
@@ -28,14 +31,22 @@ only when every phase passed:
      -> rank window -> rank <= 3) over 28,800,991 store_sales rows (the
      SF10 row count) drawn as bench.py draws them (seed 67), order
      included;
-   both through ``Session().execute_to_pydict`` in 4 partitions staged on
-   the card; every kernel must have launched over the two runs;
+   - q06 (store_sales JOIN broadcast item -> partial agg by category ->
+     hash exchange -> final agg -> sort) and q47 (the same join -> agg by
+     (category, brand) -> sort -> rank window -> rank <= 5) over one draw
+     of 28,800,991 store_sales rows and SF10's 102,000 items (seed 6);
+     q06 exact in order, q47's rows in order with the oracle's ranks
+     (rows tied on quantity in any order);
+   all through ``Session().execute_to_pydict`` in 4 partitions staged on
+   the card; every kernel must have launched over the four runs, and the
+   join kernel on each join path;
 5. one JSON line per kernel (shape, times, bound, launches per path), the
    kernels' summary JSON line, the card line, and the device JSON line.
 
 ``--profile`` adds one run of each path under torch.profiler (device busy
 share, launch and sync counts, the top kernels); ``--trace=PATH`` also
-writes q01's Chrome trace to PATH and q67's beside it (``_q67.json``).
+writes q01's Chrome trace to PATH and the other paths' beside it
+(``_q67.json``, ``_q06.json``, ``_q47.json``).
 
 Needs one CUDA device; exits 2 without one, or when run outside a checkout
 of the repository.
@@ -60,6 +71,9 @@ Q67_GROUPS = 797_601  # (item, store) groups of q67 at Q67_ROWS: the kernels' sh
 # at their capacity buckets), past the 256 MB default beyond which the
 # JAX package spills to its host table (not ported); the card holds them
 Q67_MERGE_BYTES = 2 << 30
+Q06_ROWS = 28_800_991  # q06 and q47 share one store_sales draw
+Q06_ITEMS = 102_000   # TPC-DS SF10's item row count
+Q06_SEED = 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 WARMUP, ITERS = 3, 20
 
@@ -643,6 +657,145 @@ def kernel_k7(dev, rng, results):
         bytes=n * 3 * (8 + 1) + cap * 3 * (8 + 1)))
 
 
+# K8 cases: the CPU parity tests' (tests/test_torch_joins.py): key kind,
+# probe capacity, live rows, build keys, build capacity, null probe keys
+JOIN_CASES = (
+    ("i64", 256, 200, 60, 256, 0.0),
+    ("i64", 256, 256, 60, 64, 0.2),
+    ("i64", 4096, 3000, 700, 1024, 0.05),
+    ("i64", 256, 180, 0, 256, 0.0),
+    ("i64", 256, 200, 1, 256, 0.1),
+    ("i64", 256, 200, 40, 41, 0.0),
+    ("i32", 4096, 4000, 300, 512, 0.1),
+    ("f32", 256, 250, 8, 256, 0.1),
+    ("f64", 4096, 3500, 10, 256, 0.1),
+)
+
+
+def join_case(kind, cap_p, n, nk, cap_b, nulls, rng, dev):
+    """K8's arguments: the sorted unique words of nk build keys (code c
+    is build row c; one null-keyed build row after them), and a probe
+    batch whose key misses about a third of the time and, for float keys,
+    carries +-0.0 and several NaN payloads; int32, decimal and bool probe
+    planes beside it."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.ops.joins.keymap import _canon_words
+
+    npdt = {"i64": np.int64, "i32": np.int32, "f32": np.float32, "f64": np.float64}[kind]
+    if kind in ("f32", "f64"):
+        nans = (np.array([0x7FF8000000000000, 0xFFF8000000000000, 0x7FF8000000000123,
+                          0x7FF0000000000001], np.uint64).view(np.float64)
+                if kind == "f64" else
+                np.array([0x7FC00000, 0xFFC00000, 0x7FC00123, 0x7F800001],
+                         np.uint32).view(np.float32))
+        pool = np.concatenate([np.array([0.0, -0.0, np.inf, -np.inf, 1.5, -1.5, 2.25,
+                                         -1e30, 7.0, 3.0], npdt), nans])
+        _, first = np.unique(_canon_words(pool), return_index=True)
+        distinct = pool[np.sort(first)]
+        bvals = distinct[rng.permutation(len(distinct))[:nk]]
+        probe_pool = np.concatenate([pool, np.array([5.0, -7.5, 1e-3], npdt)])
+    else:
+        bvals = rng.choice(np.arange(-5000, 5000), nk, replace=False).astype(npdt)
+        if nk:
+            bvals[0] = np.iinfo(npdt).min
+        probe_pool = np.concatenate([np.tile(bvals, max(1, 64 // max(nk, 1))),
+                                     rng.integers(-5000, 5000, 64).astype(npdt)])
+    words = _canon_words(bvals)
+    uniq = np.unique(words) if nk else np.zeros(1, np.int64)
+    live_b = np.arange(cap_b) < min(nk + 1, cap_b)
+    bkey = np.zeros(cap_b, npdt)
+    bkey[:nk] = bvals[np.argsort(words, kind="stable")]
+    bpay = np.where(live_b, rng.integers(-10**12, 10**12, cap_b), 0)
+    build = [(bkey, np.arange(cap_b) < nk), (bpay, live_b),
+             ((rng.random(cap_b) < 0.5) & live_b, live_b)]
+    live = np.arange(cap_p) < n
+    pk_v = live & (rng.random(cap_p) >= nulls)
+    pk = np.where(pk_v, probe_pool[rng.integers(0, len(probe_pool), cap_p)], 0).astype(npdt)
+    pdec_v = live & (rng.random(cap_p) >= 0.1)
+    probe = [(pk, pk_v), (np.where(live, rng.integers(-99, 99, cap_p), 0).astype(np.int32), live),
+             (np.where(pdec_v, rng.integers(0, 10**6, cap_p), 0), pdec_v),
+             ((rng.random(cap_p) < 0.5) & live, live)]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (t(uniq), nk, n, t(pk), t(pk_v), [t(d) for d, _ in probe], [t(v) for _, v in probe],
+            [t(d) for d, _ in build], [t(v) for _, v in build])
+
+
+def q06_join_batch(rng, dev, miss, nulls):
+    """One q06 probe batch (262,144 store_sales rows: item, store,
+    quantity, price) against the SF10 item dimension (102,000 rows,
+    keys 1..102,000, in a 131,072-row bucket). ``miss`` of the item keys
+    fall past the dimension, ``nulls`` are null."""
+    import numpy as np
+    import torch
+
+    cap, nk, cap_b = 262144, Q06_ITEMS, 131072
+    item = rng.integers(1, nk + 1, cap)
+    out = rng.random(cap) < miss
+    item[out] = rng.integers(nk + 1, 2 * nk, int(out.sum()))
+    kv = rng.random(cap) >= nulls
+    item[~kv] = 0
+    probe = [item, rng.integers(1, N_STORES, cap), rng.integers(1, 100, cap),
+             rng.integers(0, 500_00, cap)]
+    live_b = np.arange(cap_b) < nk
+    build = [np.where(live_b, np.arange(1, cap_b + 1), 0)] + [
+        np.where(live_b, rng.integers(lo, hi, cap_b), 0)
+        for lo, hi in ((0, 10), (1, 60), (0, 300_00))]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    ones_p = torch.ones(cap, dtype=torch.bool, device=dev)
+    return (t(np.arange(1, nk + 1)), nk, cap, t(item), t(kv),
+            [t(x) for x in probe], [t(kv)] + [ones_p] * 3,
+            [t(x) for x in build], [t(live_b)] * 4)
+
+
+def kernel_k8(dev, rng, results):
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    cases = []
+    for kind, cap_p, n, nk, cap_b, nulls in JOIN_CASES:
+        args = join_case(kind, cap_p, n, nk, cap_b, nulls, rng, dev)
+        label = f"key={kind},cap_p={cap_p},n={n},nk={nk},cap_b={cap_b},nulls={nulls}"
+        check_equal("inner_join_planes", label, K.inner_join_planes_cuda(*args),
+                    K.inner_join_planes_plain(*args))
+        cases.append(label)
+    # the main path's shape: all hit, then ~50% misses with 5% null keys
+    for miss, nulls in ((0.5, 0.05), (0.0, 0.0)):
+        args = q06_join_batch(rng, dev, miss, nulls)
+        got = K.inner_join_planes_cuda(*args)
+        check_equal("inner_join_planes", f"q06 miss={miss} nulls={nulls}", got,
+                    K.inner_join_planes_plain(*args))
+        cases.append(f"q06 262144 x 4 cols vs 102000 x 4 cols, miss={miss},nulls={nulls}")
+    uniq, nk, n, key, kv, pd, pv, bd, bv = args
+
+    def library():
+        idx = torch.searchsorted(uniq, key)
+        cidx = idx.clamp(max=nk - 1)
+        rows = torch.nonzero(kv & (idx < nk) & (uniq[cidx] == key)).squeeze(1)
+        brow = cidx.index_select(0, rows)
+        return ([p.index_select(0, rows) for p in list(pd) + list(pv)] +
+                [p.index_select(0, brow) for p in list(bd) + list(bv)])
+
+    ms = time_ms(lambda: K.inner_join_planes_cuda(*args))
+    plain_ms = time_ms(lambda: K.inner_join_planes_plain(*args))
+    lib_ms = time_ms(library)
+    hits = int(got[0])
+    row_p = sum(x.element_size() for x in list(pd) + list(pv))
+    row_b = sum(x.element_size() for x in list(bd) + list(bv))
+    touched = int(torch.unique(key[:n][kv[:n]]).numel())  # build rows the hits read
+    nbytes = (n * (key.element_size() + 1) + hits * (row_p - key.element_size() - 1)
+              + nk * 8 + touched * row_b + n * (row_p + row_b))
+    results.append(dict(
+        name="inner_join_planes", route="cuda", source="blaze_tpu_torch/csrc/join.cu",
+        replaces="blaze_tpu/ops/joins/bhj.py:38",
+        shape=f"{n} probe rows x 4 cols (all hit) vs {nk} build rows x 4 cols",
+        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_call="torch.searchsorted + torch.nonzero + index_select per plane "
+                     "(a chain of calls)",
+        bytes=nbytes, build_rows_touched=touched, hits=hits))
+
+
 # -- phase 4: the paths on the card ------------------------------------------------
 
 
@@ -879,6 +1032,195 @@ def run_q67(dev, profile=False, trace_path=None):
                      trace_path)
 
 
+def make_join_data(dev):
+    """q06's and q47's tables: store_sales drawn as bench.py:make_data
+    draws it, but with ss_item_sk uniform over the SF10 item keys
+    [1, 102,001) so every row has its item (seed 6; ss_store_sk uniform
+    [1, 400), ss_quantity [1, 100), ss_sales_price decimal(7,2) unscaled
+    [0, 50,000)), 28,800,991 rows in 4 partitions; the item dimension as
+    bench.py draws it at SF10's 102,000 rows (i_item_sk 1..102,000,
+    i_category_id [0, 10), i_brand_id [1, 60), i_current_price [0,
+    30,000) unscaled) in one batch. The wide ss_ext_wholesale_cost is
+    left out: neither query reads it. Both tables are staged on the card."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.ir import types as T
+
+    price = T.DecimalType(7, 2)
+    sales = T.Schema.of(("ss_item_sk", T.I64), ("ss_store_sk", T.I64),
+                        ("ss_quantity", T.I64), ("ss_sales_price", price))
+    item = T.Schema.of(("i_item_sk", T.I64), ("i_category_id", T.I64),
+                       ("i_brand_id", T.I64), ("i_current_price", price))
+    rng = np.random.default_rng(Q06_SEED)
+    host, parts = [], []
+    for p in range(PARTS):
+        per = Q06_ROWS // PARTS + (1 if p < Q06_ROWS % PARTS else 0)
+        cols = (rng.integers(1, Q06_ITEMS + 1, per), rng.integers(1, N_STORES, per),
+                rng.integers(1, 100, per), rng.integers(0, 500_00, per))
+        host.append((cols[0], cols[2], cols[3]))
+        parts.append(stage_batches(sales, cols, dev))
+    n = Q06_ITEMS
+    item_cols = (np.arange(1, n + 1), rng.integers(0, 10, n), rng.integers(1, 60, n),
+                 rng.integers(0, 300_00, n))
+    items = stage_batches(item, item_cols, dev)
+    torch.cuda.synchronize()
+    return sales, item, parts, items, host, item_cols
+
+
+def two_stage_agg(child, keys, aggs):
+    """bench.py:_two_stage_agg: PARTIAL -> murmur3 hash exchange -> FINAL."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+
+    keys = [(k, E.Column(k)) for k in keys]
+    partial = N.Agg(child, E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(a, E.AggMode.PARTIAL, n) for n, a in aggs],
+                    supports_partial_skipping=True)
+    ex = N.ShuffleExchange(partial, N.HashPartitioning([e for _, e in keys], PARTS))
+    return N.Agg(ex, E.AggExecMode.HASH_AGG, keys,
+                 [N.AggColumn(a, E.AggMode.FINAL, n) for n, a in aggs])
+
+
+def item_join(sales, item, cache_id):
+    """store_sales JOIN BroadcastExchange(item) ON ss_item_sk = i_item_sk
+    (INNER, build right), as bench.py:227 and :319 build it."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+
+    return N.BroadcastJoin(N.FFIReader(sales, "store_sales", PARTS),
+                           N.BroadcastExchange(N.FFIReader(item, "item", 1)),
+                           [(E.Column("ss_item_sk"), E.Column("i_item_sk"))],
+                           N.JoinType.INNER, N.JoinSide.RIGHT, cache_id)
+
+
+def q06_plan(sales, item):
+    """bench.py:227 plan_q06: quantity and revenue per item category."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    F = E.AggFunction
+    agg = two_stage_agg(item_join(sales, item, "bench_items"), ["i_category_id"], [
+        ("qty", E.AggExpr(F.SUM, [E.Column("ss_quantity")])),
+        ("revenue", E.AggExpr(F.SUM, [E.Column("ss_sales_price")], T.DecimalType(17, 2)))])
+    return N.Sort(N.ShuffleExchange(agg, N.SinglePartitioning(1)),
+                  [E.SortOrder(E.Column("i_category_id"))])
+
+
+def q47_plan(sales, item):
+    """bench.py:319 plan_q47: the top 5 brands by quantity per category
+    (rank, ties kept)."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    col = E.Column
+    agg = two_stage_agg(item_join(sales, item, "bench_items47"),
+                        ["i_category_id", "i_brand_id"],
+                        [("qty", E.AggExpr(E.AggFunction.SUM, [col("ss_quantity")]))])
+    srt = N.Sort(N.ShuffleExchange(agg, N.SinglePartitioning(1)),
+                 [E.SortOrder(col("i_category_id")), E.SortOrder(col("qty"), ascending=False)])
+    win = N.Window(srt, [N.WindowExpr("rank", "rk")], [col("i_category_id")],
+                   [E.SortOrder(col("qty"), ascending=False)])
+    return N.Filter(win, [E.BinaryExpr(E.BinaryOp.LTEQ, col("rk"), E.Literal(5, T.I32))])
+
+
+def q06_oracle(host, item_cols):
+    """The q06 answer in numpy: the join by i_item_sk - 1 indexing, sums
+    accumulated in int64."""
+    import decimal
+
+    import numpy as np
+
+    cat = item_cols[1]
+    qty = np.zeros(10, np.int64)
+    rev = np.zeros(10, np.int64)
+    cnt = np.zeros(10, np.int64)
+    for it, q, pr in host:
+        c = cat[it - 1]
+        np.add.at(qty, c, q)
+        np.add.at(rev, c, pr)
+        cnt += np.bincount(c, minlength=10)
+    present = np.nonzero(cnt)[0]
+    return {"i_category_id": present.tolist(), "qty": qty[present].tolist(),
+            "revenue": [decimal.Decimal(int(r)).scaleb(-2) for r in rev[present]]}
+
+
+def q47_oracle(host, item_cols):
+    """q47's rows in numpy (the join by index, int64 sums per (category,
+    brand), rank by quantity within the category) and a check of a
+    result: rows in (category ASC, qty DESC) order, each rk the oracle's
+    rank of its (category, qty), and the same rows as the oracle's. Rows
+    tied on qty may come in any order. Returns (check, groups, rows)."""
+    import numpy as np
+
+    gid = item_cols[1] * 60 + item_cols[2]
+    qty = np.zeros(600, np.int64)
+    cnt = np.zeros(600, np.int64)
+    for it, q, _ in host:
+        g = gid[it - 1]
+        np.add.at(qty, g, q)
+        cnt += np.bincount(g, minlength=600)
+    present = np.nonzero(cnt)[0]
+    cat, brand, s = present // 60, present % 60, qty[present]
+    order = np.lexsort((brand, -s, cat))
+    cat, brand, s = cat[order], brand[order], s[order]
+    idx = np.arange(len(cat))
+    new_cat = np.concatenate([[True], cat[1:] != cat[:-1]])
+    new_val = np.concatenate([[True], (s[1:] != s[:-1]) | new_cat[1:]])
+    rk = (np.maximum.accumulate(np.where(new_val, idx, 0))
+          - np.maximum.accumulate(np.where(new_cat, idx, 0)) + 1)
+    keep = rk <= 5
+    want = sorted(zip(cat[keep].tolist(), brand[keep].tolist(), s[keep].tolist(),
+                      rk[keep].tolist()))
+    rank_of = {(c, q): r for c, _b, q, r in want}
+
+    def check(got):
+        rows = list(zip(got["i_category_id"], got["i_brand_id"], got["qty"], got["rk"]))
+        for (c1, _, q1, _), (c2, _, q2, _) in zip(rows, rows[1:]):
+            if not (c1 < c2 or (c1 == c2 and q1 >= q2)):
+                raise AssertionError(f"q47 rows out of order: {(c1, q1)} before {(c2, q2)}")
+        for c, _b, q, r in rows:
+            if rank_of.get((c, q)) != r:
+                raise AssertionError(f"q47 rank {r} for {(c, q)}, oracle {rank_of.get((c, q))}")
+        if sorted(rows) != want:
+            raise AssertionError("q47 rows differ from the numpy oracle")
+
+    return check, len(present), len(want)
+
+
+def run_join_paths(dev, profile=False, trace_path=None):
+    """q06 and q47 over one staged draw of store_sales and item."""
+    import blaze_tpu_torch
+
+    t0 = time.perf_counter()
+    sales, item, parts, items, host, item_cols = make_join_data(dev)
+    want06 = q06_oracle(host, item_cols)
+    check47, groups47, rows47 = q47_oracle(host, item_cols)
+    del host
+    setup_s = time.perf_counter() - t0
+    out = {}
+    for name, plan, want, info in (
+            ("q06", q06_plan(sales, item), want06, {"groups": len(want06["qty"])}),
+            ("q47", q47_plan(sales, item), check47, {"groups": groups47, "out_rows": rows47})):
+        session = blaze_tpu_torch.Session()
+        session.resources["store_sales"] = lambda p: parts[p]
+        session.resources["item"] = lambda p: items
+        path_trace = trace_path.replace(".json", "") + f"_{name}.json" if trace_path else None
+        out[name] = run_query(name, Q06_ROWS, session, plan, want, setup_s,
+                              {"items": Q06_ITEMS, **info}, profile, path_trace)
+    return out
+
+
+def check_result(name, got, want):
+    """``want`` is the oracle's result (equal, order included) or a
+    function that raises when ``got`` is wrong."""
+    if callable(want):
+        want(got)
+    elif got != want:
+        raise AssertionError(f"{name} differs from the numpy oracle")
+
+
 def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_path):
     """A first run, then one run with the launch counts set to 0 just before
     and read just after; both exact against the oracle."""
@@ -888,16 +1230,14 @@ def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_pat
     t0 = time.perf_counter()
     warm = session.execute_to_pydict(plan)
     warm_s = time.perf_counter() - t0
-    if warm != want:
-        raise AssertionError(f"{name} (first run) differs from the numpy oracle")
+    check_result(f"{name} (first run)", warm, want)
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
     got = session.execute_to_pydict(plan)
     wall = time.perf_counter() - t0
     launches = cuda_lib.launch_counts()
-    if got != want:
-        raise AssertionError(f"{name} differs from the numpy oracle")
+    check_result(name, got, want)
     peak = torch.cuda.max_memory_allocated()
     if profile:
         profile_query(name, session, plan, want, trace_path)
@@ -922,8 +1262,7 @@ def profile_query(name, session, plan, want, trace_path=None):
         t0 = time.perf_counter()
         got = session.execute_to_pydict(plan)
         wall = time.perf_counter() - t0
-    if got != want:
-        raise AssertionError(f"{name} (profiled run) differs from the numpy oracle")
+    check_result(f"{name} (profiled run)", got, want)
     avgs = prof.key_averages()
     device = [e for e in avgs if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in device)
@@ -985,7 +1324,8 @@ def main(device: str = "cuda") -> int:
     kernel_k5(dev, rng, results)
     kernel_k6(dev, rng, results)
     kernel_k7(dev, rng, results)
-    # 4. the paths: q01, then q67
+    kernel_k8(dev, rng, results)
+    # 4. the paths: q01, q67, then q06 and q47
     args = sys.argv[1:]
     profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
@@ -993,11 +1333,15 @@ def main(device: str = "cuda") -> int:
         "q01": run_q01(dev, profile, trace[0] if trace else None),
         "q67": run_q67(dev, profile, trace[0].replace(".json", "") + "_q67.json"
                        if trace else None),
+        **run_join_paths(dev, profile, trace[0] if trace else None),
     }
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["q01"]}
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
-        raise AssertionError(f"kernels launched by neither path: {missing}")
+        raise AssertionError(f"kernels launched by no path: {missing}")
+    for q in ("q06", "q47"):
+        if per_path[q]["inner_join_planes"] <= 0:
+            raise AssertionError(f"{q} did not go through the join kernel")
     # 5. summary lines
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1015,7 +1359,8 @@ def main(device: str = "cuda") -> int:
                         "launches": r["launches"],
                         "launches_per_path": r["launches_per_path"],
                         "exact_cases": r["cases"],
-                        **{k: r[k] for k in ("ms_262144_rows", "digit_passes") if k in r}}))
+                        **{k: r[k] for k in ("ms_262144_rows", "digit_passes", "hits",
+                                             "build_rows_touched") if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, and the q01 and q67 paths on the card against the same plans on the
-CPU.
+card, and the q01, q67 and q06 paths on the card against the same plans
+on the CPU.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -134,7 +134,9 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         cuda_lib.reset_launch_counts()
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
-    assert all(v > 0 for v in cuda_lib.launch_counts().values())
+    # every kernel but the join's, which q01 does not reach
+    assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
+               if k != "inner_join_planes")
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -234,3 +236,94 @@ def test_q67_on_the_card_equals_the_cpu(dev):
         out[device] = s.execute_to_pydict(plan)
     assert len(out["cpu"]["rk"]) > 300
     assert out[None] == out["cpu"]
+
+
+def _join_case(key_dtype, cap_p, n, nk, cap_b, ncols, seed, dev):
+    """Sorted unique build words, the probe key and ncols probe / build
+    columns (int64 and int32 planes with nulls) for K8."""
+    from blaze_tpu_torch.core import kernels as K
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if key_dtype.is_floating_point:
+        pool = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -float("inf"), 1.5,
+                             -2.5, 3.0, 1e30], dtype=key_dtype)
+        nans = torch.tensor([0x7FF8000000000123, -0x0008000000000000],
+                            dtype=torch.int64).view(torch.float64).to(key_dtype)
+        pool = torch.cat([pool, nans])
+        words = torch.unique(K.canon_words(pool))
+        uniq = words[torch.randperm(len(words), generator=g)[:nk]].sort().values
+    else:
+        keys = (torch.randperm(3 * nk + 64, generator=g)[:nk] - nk).to(key_dtype)
+        misses = torch.randint(-4 * nk - 64, 4 * nk + 64, (64,), generator=g)
+        pool = torch.cat([keys, misses.to(key_dtype)])
+        uniq = torch.unique(K.canon_words(keys))
+    key = pool[torch.randint(0, len(pool), (cap_p,), generator=g)]
+    kv = (torch.rand(cap_p, generator=g) < 0.9) & (torch.arange(cap_p) < n)
+    key = torch.where(kv, key, torch.zeros((), dtype=key_dtype))
+    probe = [torch.randint(-2**40, 2**40, (cap_p,), generator=g) if i % 2 == 0 else
+             torch.randint(-99, 99, (cap_p,), generator=g).to(torch.int32)
+             for i in range(ncols)]
+    build = [torch.randint(-2**40, 2**40, (cap_b,), generator=g) if i % 2 else
+             torch.rand(cap_b, generator=g) < 0.5 for i in range(ncols)]
+    pv = [torch.rand(cap_p, generator=g) < 0.8 for _ in probe]
+    bv = [torch.rand(cap_b, generator=g) < 0.8 for _ in build]
+    uniq = uniq if nk else torch.zeros(1, dtype=torch.int64)
+    on = [t.to(dev) for t in (uniq, key, kv)]
+    return (on[0], nk, n, on[1], on[2], [key.to(dev)] + [p.to(dev) for p in probe],
+            [kv.to(dev)] + [v.to(dev) for v in pv], [b.to(dev) for b in build],
+            [v.to(dev) for v in bv])
+
+
+@pytest.mark.parametrize("key_dtype,cap_p,n,nk,cap_b,ncols", [
+    (torch.int64, 256, 200, 60, 256, 3),
+    (torch.int64, 4096, 4096, 1, 256, 3),
+    (torch.int64, 256, 100, 0, 256, 3),
+    (torch.int32, 4096, 3000, 500, 1024, 3),
+    (torch.float32, 256, 250, 6, 256, 3),
+    (torch.float64, 4096, 4000, 8, 16, 3),
+    (torch.int64, 262144, 262144, 102_000, 131072, 3),
+    (torch.int64, 4096, 3000, 700, 1024, 20),   # 42 planes: two scatter launches
+])
+def test_inner_join_kernel(dev, key_dtype, cap_p, n, nk, cap_b, ncols):
+    from blaze_tpu_torch.core import kernels as K
+
+    args = _join_case(key_dtype, cap_p, n, nk, cap_b, ncols, cap_p + nk + ncols, dev)
+    _equal(K.inner_join_planes_cuda(*args), K.inner_join_planes_plain(*args))
+
+
+def test_q06_on_the_card_equals_the_cpu(dev):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    rng = np.random.default_rng(2)
+    sales = T.Schema.of(("item", T.I64), ("q", T.I64))
+    dim = T.Schema.of(("i_item", T.I64), ("cat", T.I64))
+    parts = [[{"item": rng.integers(1, 1100, 40_000), "q": rng.integers(1, 100, 40_000)}]
+             for _ in range(3)]
+    items = [{"i_item": np.arange(1, 1001), "cat": rng.integers(0, 10, 1000)}]
+    join = N.BroadcastJoin(N.FFIReader(sales, "sales", 3),
+                           N.BroadcastExchange(N.FFIReader(dim, "items", 1)),
+                           [(E.Column("item"), E.Column("i_item"))], N.JoinType.INNER,
+                           N.JoinSide.RIGHT, "items")
+    keys = [("cat", E.Column("cat"))]
+    agg = [("qty", E.AggExpr(E.AggFunction.SUM, [E.Column("q")]))]
+    partial = N.Agg(join, E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(a, E.AggMode.PARTIAL, n) for n, a in agg])
+    final = N.Agg(N.ShuffleExchange(partial, N.HashPartitioning([E.Column("cat")], 3)),
+                  E.AggExecMode.HASH_AGG, keys,
+                  [N.AggColumn(a, E.AggMode.FINAL, n) for n, a in agg])
+    plan = N.Sort(N.ShuffleExchange(final, N.SinglePartitioning(1)),
+                  [E.SortOrder(E.Column("cat"))])
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(device=device)
+        s.resources["sales"] = lambda p: parts[p]
+        s.resources["items"] = lambda p: items
+        cuda_lib.reset_launch_counts()
+        out[device] = s.execute_to_pydict(plan)
+    assert out[None] == out["cpu"]
+    assert len(out["cpu"]["cat"]) == 10
+    assert cuda_lib.launch_counts()["inner_join_planes"] == 3

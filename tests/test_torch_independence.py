@@ -97,6 +97,7 @@ def test_every_module_is_listed_in_the_package():
                 "exprs.decimal", "exprs.compiler", "exprs.spark_hash", "ops.base",
                 "ops.basic", "ops.shuffle.reader", "ops.shuffle.repartitioner",
                 "ops.aggfns", "ops.agg_device", "ops.agg", "ops.sort_keys",
-                "ops.sort", "ops.window", "ops.joins.keymap", "runtime.executor",
+                "ops.sort", "ops.window", "ops.joins.keymap", "ops.joins.bhj",
+                "runtime.executor",
                 "runtime.session"):
         assert "blaze_tpu_torch." + mod in names

@@ -168,8 +168,19 @@ def test_carry_round_trip_and_columns():
         assert not col.data.numpy()[ROWS_PER_PART:].any()
 
 
+def _store_join(join_type, condition=None):
+    """store_returns joined with a store dimension (unique keys)."""
+    dim = JT.Schema.of(("s_store_sk", JT.I64), ("s_state_id", JT.I64))
+    return JN.BroadcastJoin(
+        JN.FFIReader(SCHEMA, "store_returns", PARTS),
+        JN.BroadcastExchange(JN.FFIReader(dim, "stores", 1)),
+        [(JE.Column("sr_store_sk"), JE.Column("s_store_sk"))], join_type,
+        JN.JoinSide.RIGHT, "stores", condition)
+
+
 @pytest.mark.parametrize("variant", ["string_key", "float_sum", "wide_decimal",
-                                     "too_many_slots"])
+                                     "too_many_slots", "left_join", "left_semi_join",
+                                     "join_condition"])
 def test_out_of_slice_plans_raise(variant):
     """Plans the slice does not cover raise NotImplementedError naming the
     ROADMAP item; there is no hidden host path."""
@@ -188,10 +199,19 @@ def test_out_of_slice_plans_raise(variant):
     elif variant == "wide_decimal":
         plan = _q01(aggs=[("total", JE.AggExpr(F.SUM, [JE.Column("sr_return_amt")],
                                                JT.DecimalType(25, 2)))])
+    elif variant == "left_join":
+        plan = _store_join(JN.JoinType.LEFT)
+    elif variant == "left_semi_join":
+        plan = _store_join(JN.JoinType.LEFT_SEMI)
+    elif variant == "join_condition":
+        plan = _store_join(JN.JoinType.INNER, JE.BinaryExpr(
+            JE.BinaryOp.GT, JE.Column("s_state_id"), JE.Literal(3, JT.I64)))
     else:
         plan = _q01(key="sr_customer_sk")
         conf = Config(radix_agg_max_slots=1024)
     port = blaze_tpu_torch.Session(conf=conf, device="cpu")
     port.resources["store_returns"] = lambda p: _numpy_batches(parts[p])
+    port.resources["stores"] = lambda p: [
+        {"s_store_sk": np.arange(1, 400), "s_state_id": np.arange(1, 400) % 50}]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.execute_to_pydict(from_foreign(plan))
