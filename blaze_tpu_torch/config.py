@@ -40,6 +40,14 @@ class Config:
     coalesce_partitions_enable: bool = True
     advisory_partition_bytes: int = 8 << 20
 
+    # Shuffled hash join: a build side past either threshold falls back to
+    # a sort-merge join in the JAX package. SMJ is not ported: past them
+    # the port raises NotImplementedError (ROADMAP.md). The JAX package's
+    # smj_fallback_enable switch is left out: the port has no fallback
+    # to switch off.
+    smj_fallback_rows_threshold: int = 10_000_000
+    smj_fallback_mem_size_threshold: int = 1 << 30
+
     # Capacity bucketing: device buffers are padded up to the next power of
     # two >= min_capacity.
     min_capacity: int = 256

@@ -136,6 +136,19 @@ class ColumnarBatch:
             DeviceColumn.from_numpy(dt, d, v, cap, device)
             for dt, d, v in planes], n)
 
+    @staticmethod
+    def empty(schema: T.Schema, device: torch.device,
+              conf: Optional[Config] = None) -> "ColumnarBatch":
+        """A batch of no rows: zero planes of ``min_capacity`` rows, so a
+        masked gather from it yields null rows."""
+        cap = (conf or Config()).min_capacity
+        cols = [DeviceColumn(f.dtype,
+                             torch.zeros(cap, dtype=_require_device_type(f.dtype, f.name),
+                                         device=device),
+                             torch.zeros(cap, dtype=torch.bool, device=device))
+                for f in schema.fields]
+        return ColumnarBatch(schema, cols, 0)
+
     # --- properties ----------------------------------------------------------
 
     @property
@@ -175,6 +188,29 @@ class ColumnarBatch:
         cols = [DeviceColumn(c.dtype, d, v)
                 for c, d, v in zip(self.columns, datas, valids)]
         return ColumnarBatch(self.schema, cols, n)
+
+    def take_nullable(self, indices: np.ndarray,
+                      conf: Optional[Config] = None) -> "ColumnarBatch":
+        """Row gather by host indices where -1 yields an all-null row (the
+        outer joins' null extension): K6's masked form. With any null row
+        the schema's fields become nullable, as in the JAX package."""
+        from blaze_tpu_torch.core import kernels
+
+        indices = np.asarray(indices, dtype=np.int64)
+        n = len(indices)
+        null_mask = indices < 0
+        cap = (conf or Config()).capacity_for(n)
+        dev = self.device
+        datas, valids = kernels.gather_planes(
+            [c.data for c in self.columns], [c.validity for c in self.columns],
+            torch.from_numpy(np.where(null_mask, 0, indices)).to(dev), cap, n,
+            live=torch.from_numpy(~null_mask).to(dev))
+        cols = [DeviceColumn(c.dtype, d, v)
+                for c, d, v in zip(self.columns, datas, valids)]
+        schema = T.Schema(tuple(T.StructField(f.name, f.dtype, True)
+                                for f in self.schema.fields)) \
+            if null_mask.any() else self.schema
+        return ColumnarBatch(schema, cols, n)
 
     def slice(self, offset: int, length: int,
               conf: Optional[Config] = None) -> "ColumnarBatch":

@@ -13,6 +13,8 @@ launches the kernel or raises.
 - K8 ``inner_join_planes`` (csrc/join.cu): the unique-key inner
   broadcast join of one probe batch (probe, stable compaction, gathers
   of both sides), with ``canon_words``, the join key's canonical word.
+- K9 ``probe_codes`` (csrc/join.cu): the generic join probe, each probe
+  key's code in the build map or -1.
 
 The slot-code helpers of the aggregation are plain PyTorch twins of the
 JAX package's (the slot kernels K3/K4 are in ops/agg_device.py), and the
@@ -342,7 +344,7 @@ def _join_key_kind(t: torch.Tensor) -> int:
         return _JOIN_KEY_FLOAT
     if t.dtype in (torch.bool, torch.int8, torch.int16, torch.int32, torch.int64):
         return _JOIN_KEY_INT
-    raise TypeError(f"inner_join_planes: join key of dtype {t.dtype}")
+    raise TypeError(f"join key of dtype {t.dtype}")
 
 
 def inner_join_planes_cuda(uniq: torch.Tensor, nk: int, num_rows: int,
@@ -407,6 +409,57 @@ def inner_join_planes(uniq: torch.Tensor, nk: int, num_rows: int,
     count, pd, pv, bd, bv = fn(uniq, nk, num_rows, key_data, key_valid,
                                probe_datas, probe_valids, build_datas, build_valids)
     return int(count), pd, pv, bd, bv
+
+
+# -- K9: the generic join probe ----------------------------------------------------
+
+
+def probe_codes_plain(uniq: torch.Tensor, nk: int, key_data: torch.Tensor,
+                      key_valid: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of K9, the same function as
+    blaze_tpu/ops/joins/keymap.py:_probe_fn: each row's rank
+    clip(searchsorted(uniq, w), 0, nk - 1) where its key is valid and its
+    canonical word w is in uniq[0, nk), else -1. ``uniq`` holds the
+    build's sorted unique words (length max(nk, 1)); the codes are an
+    int64 plane of the key's capacity."""
+    w = canon_words(key_data)
+    idx = torch.searchsorted(uniq, w)
+    cidx = idx.clamp(0, max(nk - 1, 0))
+    hit = key_valid & (idx < nk) & (uniq[cidx] == w)
+    return torch.where(hit, cidx, torch.full((), -1, dtype=torch.int64,
+                                             device=cidx.device))
+
+
+def probe_codes_cuda(uniq: torch.Tensor, nk: int, key_data: torch.Tensor,
+                     key_valid: torch.Tensor) -> torch.Tensor:
+    """K9 on the card (csrc/join.cu): same contract as
+    :func:`probe_codes_plain`, one launch."""
+    cuda_lib.require_cuda("probe_codes", uniq, key_data, key_valid)
+    cap = int(key_data.shape[0])
+    if uniq.dtype != torch.int64 or uniq.shape != (max(nk, 1),) or nk < 0:
+        raise ValueError(f"probe_codes: sorted keys {uniq.dtype} of shape "
+                         f"{tuple(uniq.shape)} for {nk} keys")
+    if key_valid.dtype != torch.bool or key_data.shape != (cap,) or \
+            key_valid.shape != (cap,) or cap == 0:
+        raise ValueError(f"probe_codes: key planes {tuple(key_data.shape)} / "
+                         f"{tuple(key_valid.shape)}")
+    kind = _join_key_kind(key_data)
+    codes = torch.empty(cap, dtype=torch.int64, device=key_data.device)
+    err = cuda_lib.library().blz_probe_codes(
+        uniq.data_ptr(), nk, key_data.data_ptr(), key_data.element_size(), kind,
+        key_valid.data_ptr(), cap, codes.data_ptr(),
+        cuda_lib.stream_of(key_data.device))
+    cuda_lib.check(err, "probe_codes")
+    cuda_lib.LAUNCHES["probe_codes"] += 1
+    return codes
+
+
+def probe_codes(uniq: torch.Tensor, nk: int, key_data: torch.Tensor,
+                key_valid: torch.Tensor) -> torch.Tensor:
+    """One probe batch's build-map codes (the generic hash join's probe):
+    K9 on a CUDA key, the plain version on a CPU one."""
+    fn = probe_codes_cuda if key_data.is_cuda else probe_codes_plain
+    return fn(uniq, nk, key_data, key_valid)
 
 
 # -- slot codes (radix_pack) ---------------------------------------------------

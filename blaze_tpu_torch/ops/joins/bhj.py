@@ -1,34 +1,53 @@
-"""Broadcast hash join: the unique-key inner join.
+"""Broadcast and shuffled hash joins, all join types.
 
-The counterpart of blaze_tpu/ops/joins/bhj.py's ``BroadcastJoinExec`` on
-the path every bench join takes: an INNER, unconditioned join on one
-fixed-width key whose build side is unique (a dimension table) — the
-reference's ``_inner_fast`` branch of ``_probe_with_map``. Each probe
-batch is one K8 call (core/kernels.py ``inner_join_planes``: probe,
-stable compaction and the gathers of both sides) and one count sync; the
-output has the probe batch's capacity, columns left + right.
+The counterpart of blaze_tpu/ops/joins/bhj.py: ``_HashJoinBase`` probes
+a prebuilt ``JoinHashMap`` (ops/joins/keymap.py) with each batch of the
+probe side; ``BroadcastJoinExec`` builds its map once per
+``cached_build_hash_map_id`` and query from the broadcast side,
+``HashJoinExec`` from its own partition of the build child. Join types:
+inner, left/right/full outer, left/right semi and anti, existence, with
+an optional condition over the pair of rows.
 
-The build map (ops/joins/keymap.py ``JoinHashMap``) is built once per
-``cached_build_hash_map_id`` and query: the cache lives in the session's
-per-query resource ``BUILD_MAPS`` and goes with the query's other
-resources (runtime/session.py). The reference keeps it process-global,
-so a later query with the same id and other dimension data would reuse
-a stale map there.
+Per probe batch, as in the reference:
 
-Not ported yet (NotImplementedError naming ROADMAP.md): outer, semi,
-anti and existence joins, join conditions, multi-key joins and duplicate
-build keys (the generic probe), the shuffled hash join with its SMJ
-fallback, and ``BroadcastJoinBuildHashMapExec``.
+- an INNER, unconditioned join whose build keys are unique and single
+  (a dimension table) takes K8 (core/kernels.py ``inner_join_planes``:
+  probe, stable compaction and the gathers of both sides, one count
+  sync);
+- every other join takes the generic probe: K9 (``probe_codes``) gives
+  each probe key its build-map code, the codes come to the host, the
+  map's CSR expands the matching pairs there (numpy), the condition
+  filters the pairs, and K6 gathers the output rows (``take``, or
+  ``take_nullable`` for the null-extended side). Unmatched probe rows of
+  an outer join follow the batch's pairs; unmatched or matched build
+  rows (outer joins, semi/anti/existence on the build side) come last,
+  after the probe side is done, from the task's ``matched`` flags.
+
+The build-map cache lives in the session's per-query resource
+``BUILD_MAPS`` and goes with the query's other resources
+(runtime/session.py); each task takes the cached map with its own
+``matched`` flags (``JoinHashMap.for_task``). The reference keeps the
+cache process-global, so a later query with the same id and other
+dimension data would reuse a stale map there.
+
+Not ported yet (NotImplementedError naming ROADMAP.md): the shuffled hash
+join's fallback to a sort-merge join when its build side passes
+``smj_fallback_rows_threshold`` or ``smj_fallback_mem_size_threshold``
+(SMJ is not ported), and ``BroadcastJoinBuildHashMapExec``.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
+import torch
+
 from blaze_tpu_torch.core import kernels
 from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
 from blaze_tpu_torch.exprs.compiler import ExprEvaluator
 from blaze_tpu_torch.ir import exprs as E
+from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ir.nodes import JoinSide, JoinType, _join_output_schema
 from blaze_tpu_torch.ops.base import Operator
 from blaze_tpu_torch.ops.joins.keymap import JoinHashMap
@@ -36,29 +55,29 @@ from blaze_tpu_torch.ops.joins.keymap import JoinHashMap
 # resource id of the per-query build-map cache ({cache id: JoinHashMap})
 BUILD_MAPS = "broadcast_build_maps"
 
-_GENERIC = "ROADMAP.md Queue 1 item 9: the generic probe, PERF.md row 14"
+_SEMI = (JoinType.LEFT_SEMI, JoinType.RIGHT_SEMI)
+_ANTI = (JoinType.LEFT_ANTI, JoinType.RIGHT_ANTI)
 
 
-class BroadcastJoinExec(Operator):
-    """Join against a broadcast build side; the built map is cached per
-    query under ``cached_build_hash_map_id``."""
+def _on(idx: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64)).to(device)
+
+
+class _HashJoinBase(Operator):
+    """Common probe logic; subclasses load the build side and call
+    ``_probe_with_map``."""
 
     def __init__(self, left: Operator, right: Operator,
                  on: List[Tuple[E.Expr, E.Expr]], join_type: JoinType,
-                 broadcast_side: JoinSide = JoinSide.RIGHT,
-                 cached_build_hash_map_id: str = "",
+                 build_side: JoinSide = JoinSide.RIGHT,
                  condition: Optional[E.Expr] = None):
-        if join_type != JoinType.INNER:
-            raise NotImplementedError(
-                f"{join_type.value} broadcast joins are not ported to the "
-                f"PyTorch package yet ({_GENERIC})")
-        if condition is not None:
-            raise NotImplementedError(
-                f"broadcast joins with a join condition are not ported yet ({_GENERIC})")
         self.on = on
         self.join_type = join_type
-        self.build_side = broadcast_side
-        self.cached_build_hash_map_id = cached_build_hash_map_id
+        self.build_side = build_side
+        # extra condition over left + right columns; matched pairs failing
+        # it count as unmatched
+        self.condition = condition
+        self._pair_schema = left.schema + right.schema
         schema = _join_output_schema(left.schema, right.schema, join_type)
         super().__init__(schema, [left, right])
 
@@ -79,38 +98,70 @@ class BroadcastJoinExec(Operator):
             return [l if self._build_is_left else r for l, r in self.on]
         return [r if self._build_is_left else l for l, r in self.on]
 
+    def _semi_side_is_probe(self) -> bool:
+        jt = self.join_type
+        if jt in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.EXISTENCE):
+            return self._probe_child() == 0
+        if jt in (JoinType.RIGHT_SEMI, JoinType.RIGHT_ANTI):
+            return self._probe_child() == 1
+        return False
+
     def num_partitions(self):
         return self.children[self._probe_child()].num_partitions()
 
-    # -- build ----------------------------------------------------------------
-
-    def _load_build_map(self, ctx) -> JoinHashMap:
-        cache_id = self.cached_build_hash_map_id
-        cache = ctx.resources.get(BUILD_MAPS) if cache_id else None
-        if cache is not None and cache_id in cache:
-            return cache[cache_id]
-        child = self._build_child()
-        # the broadcast side is one partition whatever the probe partition
-        batches = list(self.execute_child(child, 0, ctx))
-        built = JoinHashMap.build(batches, self._key_exprs(for_build=True),
-                                  self.children[child].schema, ctx.device,
-                                  ctx.conf)
-        if cache is not None:
-            cache[cache_id] = built
-        return built
+    def _build_map(self, batches: List[ColumnarBatch], ctx) -> JoinHashMap:
+        return JoinHashMap.build(batches, self._key_exprs(for_build=True),
+                                 self.children[self._build_child()].schema,
+                                 ctx.device, ctx.conf)
 
     # -- probe ----------------------------------------------------------------
 
-    def _execute(self, partition, ctx):
-        bmap = self._load_build_map(ctx)
+    def _probe_with_map(self, bmap: JoinHashMap, partition, ctx):
+        jt = self.join_type
         probe_child = self._probe_child()
+        probe_on_left = probe_child == 0
+        # which side's unmatched rows must be emitted?
+        emit_unmatched_probe = (
+            jt == JoinType.FULL
+            or (jt == JoinType.LEFT and probe_on_left)
+            or (jt == JoinType.RIGHT and not probe_on_left))
+        emit_unmatched_build = (
+            jt == JoinType.FULL
+            or (jt == JoinType.LEFT and not probe_on_left)
+            or (jt == JoinType.RIGHT and probe_on_left))
+        semi_anti_exist = jt in _SEMI + _ANTI + (JoinType.EXISTENCE,)
+        track_build_matched = emit_unmatched_build or (
+            semi_anti_exist and not self._semi_side_is_probe())
+
         key_ev = ExprEvaluator(self._key_exprs(for_build=False),
                                self.children[probe_child].schema)
+        cond_ev = ExprEvaluator([self.condition], self._pair_schema) \
+            if self.condition is not None else None
+        inner_fast_ok = (jt == JoinType.INNER and cond_ev is None
+                         and not track_build_matched and bmap.unique_single_key)
         for batch in self.execute_child(probe_child, partition, ctx):
-            out = self._inner_fast(batch, bmap, key_ev.evaluate(batch),
-                                   probe_on_left=probe_child == 0)
-            if out is not None:
+            cols = key_ev.evaluate(batch)
+            if inner_fast_ok:
+                out = self._inner_fast(batch, bmap, cols, probe_on_left)
+            else:
+                codes = bmap.probe_codes(batch, cols)
+                probe_idx, build_idx, _ = bmap.probe(codes)
+                probe_idx, build_idx, counts = self._apply_condition(
+                    batch, bmap, probe_idx, build_idx, probe_on_left, cond_ev,
+                    ctx.conf)
+                if track_build_matched and len(build_idx):
+                    bmap.matched[build_idx] = True
+                out = self._emit_probe_batch(batch, bmap, probe_idx, build_idx,
+                                             counts, emit_unmatched_probe,
+                                             probe_on_left, ctx.conf)
+            if out is not None and out.num_rows:
                 yield out
+        # unmatched build rows (right/left-opposite/full), or the build side
+        # of a semi/anti/existence join, after the whole probe side
+        tail = self._emit_build_tail(bmap, probe_on_left, emit_unmatched_build,
+                                     ctx)
+        if tail is not None and tail.num_rows:
+            yield tail
 
     def _inner_fast(self, batch: ColumnarBatch, bmap: JoinHashMap,
                     cols: List[DeviceColumn], probe_on_left: bool):
@@ -131,3 +182,131 @@ class BroadcastJoinExec(Operator):
         left, right = ((probe_cols, build_cols) if probe_on_left
                        else (build_cols, probe_cols))
         return ColumnarBatch(self.schema, left + right, count)
+
+    def _apply_condition(self, batch, bmap, probe_idx, build_idx, probe_on_left,
+                         cond_ev, conf):
+        """Filter matching pairs by the extra condition; returns the
+        surviving (probe_idx, build_idx, counts per probe row)."""
+        n = batch.num_rows
+        if cond_ev is not None and len(probe_idx):
+            dev = batch.device
+            probe_out = batch.take(_on(probe_idx, dev), conf)
+            build_out = bmap.batch.take(_on(build_idx, dev), conf)
+            left, right = ((probe_out, build_out) if probe_on_left
+                           else (build_out, probe_out))
+            pair = ColumnarBatch(self._pair_schema, left.columns + right.columns,
+                                 len(probe_idx))
+            keep = cond_ev.evaluate_predicate(pair)[: len(probe_idx)].cpu().numpy()
+            probe_idx = probe_idx[keep]
+            build_idx = build_idx[keep]
+        counts = np.bincount(probe_idx, minlength=n) if len(probe_idx) else \
+            np.zeros(n, dtype=np.int64)
+        return probe_idx, build_idx, counts
+
+    def _emit_probe_batch(self, batch, bmap, probe_idx, build_idx, counts,
+                          emit_unmatched_probe, probe_on_left, conf):
+        jt = self.join_type
+        n = batch.num_rows
+        dev = batch.device
+        matched_mask = counts > 0
+        if jt == JoinType.EXISTENCE:
+            if not self._semi_side_is_probe():
+                return None
+            exists = DeviceColumn.from_numpy(T.BOOL, matched_mask, None,
+                                             batch.capacity, dev)
+            return ColumnarBatch(self.schema, batch.columns + [exists], n)
+        if jt in _SEMI + _ANTI:
+            if not self._semi_side_is_probe():
+                return None
+            keep = np.nonzero(matched_mask if jt in _SEMI else ~matched_mask)[0]
+            return batch.take(_on(keep, dev), conf) if len(keep) else None
+        # inner / outer: the pairs, then this batch's unmatched probe rows
+        if emit_unmatched_probe:
+            un = np.nonzero(~matched_mask)[0]
+            probe_idx = np.concatenate([probe_idx, un])
+            build_idx = np.concatenate([build_idx, np.full(len(un), -1, np.int64)])
+        if len(probe_idx) == 0:
+            return None
+        probe_out = batch.take(_on(probe_idx, dev), conf)
+        build_out = bmap.batch.take_nullable(build_idx, conf)
+        left, right = ((probe_out, build_out) if probe_on_left
+                       else (build_out, probe_out))
+        return ColumnarBatch(self.schema, left.columns + right.columns,
+                             len(probe_idx))
+
+    def _emit_build_tail(self, bmap, probe_on_left, emit_unmatched_build, ctx):
+        jt = self.join_type
+        build = bmap.batch
+        build_n = build.num_rows
+        if build_n == 0:
+            return None
+        dev = build.device
+        if jt in _SEMI + _ANTI and not self._semi_side_is_probe():
+            keep = np.nonzero(bmap.matched if jt in _SEMI else ~bmap.matched)[0]
+            return build.take(_on(keep, dev), ctx.conf) if len(keep) else None
+        if jt == JoinType.EXISTENCE and not self._semi_side_is_probe():
+            exists = DeviceColumn.from_numpy(T.BOOL, bmap.matched, None,
+                                             build.capacity, dev)
+            return ColumnarBatch(self.schema, build.columns + [exists], build_n)
+        if not emit_unmatched_build:
+            return None
+        un = np.nonzero(~bmap.matched)[0]
+        if len(un) == 0:
+            return None
+        build_out = build.take(_on(un, dev), ctx.conf)
+        probe_schema = self.children[self._probe_child()].schema
+        probe_nulls = ColumnarBatch.empty(probe_schema, dev, conf=ctx.conf) \
+            .take_nullable(np.full(len(un), -1, np.int64), ctx.conf)
+        left, right = ((build_out, probe_nulls) if not probe_on_left
+                       else (probe_nulls, build_out))
+        return ColumnarBatch(self.schema, left.columns + right.columns, len(un))
+
+
+class HashJoinExec(_HashJoinBase):
+    """Shuffled hash join: partition i of the probe child against a map
+    built from partition i of the build child (the session keeps the two
+    sides' partitions aligned: no reducer coalescing below a partition-
+    zipping node). Past the SMJ fallback thresholds the reference re-plans
+    the partition as a sort-merge join; SMJ is not ported, so the port
+    raises there and takes no other path."""
+
+    def _execute(self, partition, ctx):
+        conf = ctx.conf
+        batches = []
+        rows = 0
+        nbytes = 0
+        for b in self.execute_child(self._build_child(), partition, ctx):
+            batches.append(b)
+            rows += b.num_rows
+            nbytes += b.nbytes()
+            if rows > conf.smj_fallback_rows_threshold or \
+                    nbytes > conf.smj_fallback_mem_size_threshold:
+                raise NotImplementedError(
+                    f"the hash join's build side passed the SMJ fallback "
+                    f"threshold ({rows} rows, {nbytes} bytes); the sort-merge "
+                    "join it falls back to is not ported yet (ROADMAP.md "
+                    "\"Queued next\": the sort-merge join and the SMJ fallback)")
+        bmap = self._build_map(batches, ctx)
+        yield from self._probe_with_map(bmap, partition, ctx)
+
+
+class BroadcastJoinExec(_HashJoinBase):
+    """Join against a broadcast build side; the built map is cached per
+    query under ``cached_build_hash_map_id``."""
+
+    def __init__(self, left, right, on, join_type, broadcast_side=JoinSide.RIGHT,
+                 cached_build_hash_map_id="", condition=None):
+        super().__init__(left, right, on, join_type, broadcast_side, condition)
+        self.cached_build_hash_map_id = cached_build_hash_map_id
+
+    def _execute(self, partition, ctx):
+        cache_id = self.cached_build_hash_map_id
+        cache = ctx.resources.get(BUILD_MAPS) if cache_id else None
+        built = cache.get(cache_id) if cache is not None else None
+        if built is None:
+            # the broadcast side is one partition whatever the probe partition
+            built = self._build_map(
+                list(self.execute_child(self._build_child(), 0, ctx)), ctx)
+            if cache is not None:
+                cache[cache_id] = built
+        yield from self._probe_with_map(built.for_task(), partition, ctx)

@@ -1,47 +1,80 @@
-"""Join-key canonicalization, the build-side map of the broadcast join,
-and the carryable per-row key encoding of the window.
+"""Join-key canonicalization, the build-side map of the hash joins, and
+the carryable per-row key encoding of the window.
 
 Copies of blaze_tpu/ops/joins/keymap.py, host numpy as they are there:
 
 - ``_canon_words``, ``key_rows`` and ``RunningKeyCodes``: the window
   operator finds its partition and peer boundaries with them;
-- ``JoinHashMap`` with ``build``/``_build_sorted``/``_from_codes``,
-  ``num_codes``, ``unique_single_key`` and the device-resident sorted-key
-  cell: the build side of the unique-key inner broadcast join
-  (ops/joins/bhj.py), whose probe is K8 (core/kernels.py
-  ``inner_join_planes``; the probe's canonical word is ``canon_words``
-  there, the device twin of ``_canon_words``).
+- ``key_codes``: the host interning of multi-column keys;
+- ``JoinHashMap``: the build side of every hash join (ops/joins/bhj.py),
+  a CSR layout of the code-sorted build rows. A single fixed-width key
+  gets codes that are ranks in its sorted unique canonical words, probed
+  on the device by K9 (core/kernels.py ``probe_codes``; the reference's
+  ``_probe_fn``) or, for a unique-key inner join, by K8
+  (``inner_join_planes``); several key columns are interned on the host.
+  The codes come to the host, where ``probe`` expands the matching
+  (probe row, build row) pairs, as in the reference.
 
-Not ported yet (NotImplementedError naming ROADMAP.md): the host-interned
-multi-key build (``key_codes``), the generic probe (``probe_codes`` and
-the CSR pair expansion ``probe``; the reference's ``_probe_fn``),
-duplicate build keys, and the broadcast serialization. The port has device columns
-only, so the reference's host-column (python tuple) branches have no
-counterpart here.
+The port has device columns only, so the reference's host-column
+branches (python tuples in ``key_codes``, the numpy searchsorted probe of
+a host key column in ``probe_codes``) have no counterpart here. The
+broadcast serialization waits for ``io/batch_serde.py`` (NotImplementedError
+naming ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from blaze_tpu_torch.config import Config
+from blaze_tpu_torch.core import kernels
 from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
 from blaze_tpu_torch.exprs.compiler import ExprEvaluator
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
 
-_GENERIC_PROBE = ("the generic join probe (ROADMAP.md Queue 1 item 9, "
-                  "PERF.md kernel table row 14)")
 
-
-def key_codes(*_args, **_kwargs):
-    """The host-interned multi-key codes of the reference: not ported."""
-    raise NotImplementedError(
-        "multi-key join maps (host key interning) are not ported to the "
-        f"PyTorch package yet: {_GENERIC_PROBE}")
+def key_codes(batch: ColumnarBatch, cols: List[DeviceColumn], key_map: Dict,
+              insert: bool) -> np.ndarray:
+    """Map each row's key tuple to an integer code. ``insert`` adds unseen
+    keys (build side); otherwise unseen -> -1 (probe side). Rows with any
+    null key always get -1. The key planes are pulled to the host and
+    deduplicated there with ``np.unique``, as the reference does."""
+    n = batch.num_rows
+    if n == 0:
+        return np.empty(0, dtype=np.int64)
+    mats = []
+    null_any = np.zeros(n, dtype=bool)
+    for c in cols:
+        data = c.data[:n].cpu().numpy()
+        valid = c.validity[:n].cpu().numpy()
+        null_any |= ~valid
+        if data.dtype in (np.float64, np.float32):
+            d64 = _canon_words(np.where(valid, data, data.dtype.type(0)))
+        else:
+            d64 = np.where(valid, data, 0).astype(np.int64)
+        mats.append(d64)
+    mat = np.column_stack(mats)
+    view = np.ascontiguousarray(mat).view(
+        np.dtype((np.void, mat.dtype.itemsize * mat.shape[1]))).ravel()
+    uniq, inverse = np.unique(view, return_inverse=True)
+    lut = np.empty(len(uniq), dtype=np.int64)
+    for i, u in enumerate(uniq):
+        kb = u.tobytes()
+        code = key_map.get(kb)
+        if code is None:
+            if insert:
+                code = len(key_map)
+                key_map[kb] = code
+            else:
+                code = -1
+        lut[i] = code
+    codes = lut[inverse]
+    codes[null_any] = -1
+    return codes
 
 
 def _canon_words(data: np.ndarray) -> np.ndarray:
@@ -104,15 +137,17 @@ class JoinHashMap:
     """Build-side map: key code -> contiguous range of build rows (CSR over
     the concatenated, code-sorted build batch).
 
-    The port keeps the reference's device-probe form only: one fixed-width
-    key, codes are ranks in the sorted unique canonical words
-    (``sorted_keys``), and every key owns exactly one build row (the
-    dimension-table case), so code c is build row c. The outer joins'
-    ``matched`` flags belong to the generic probe and are not kept.
+    Two code assignments share the CSR layout: a single fixed-width key
+    has codes that are ranks in the sorted unique canonical words
+    (``sorted_keys``), probed on the device (K9); several key columns are
+    interned on the host (``key_map``). ``matched`` flags the build rows a
+    task has matched (outer, semi and anti joins on the build side,
+    existence): each task gets its own flags (``for_task``).
     """
 
-    def __init__(self, batch: ColumnarBatch, key_map, offsets: np.ndarray,
-                 schema: T.Schema, sorted_keys: Optional[np.ndarray] = None):
+    def __init__(self, batch: ColumnarBatch, key_map: Optional[Dict],
+                 offsets: np.ndarray, schema: T.Schema,
+                 sorted_keys: Optional[np.ndarray] = None):
         self.batch = batch          # build rows sorted by key code
         self.key_map = key_map
         self.offsets = offsets      # (num_codes + 1,) row ranges
@@ -121,6 +156,17 @@ class JoinHashMap:
         # one-element cell: every task of a query that shares this map
         # shares one upload of the sorted keys to the device
         self._dev_cell: List[Optional[torch.Tensor]] = [None]
+        self.matched = np.zeros(batch.num_rows, dtype=bool)
+
+    def for_task(self) -> "JoinHashMap":
+        """This map with fresh ``matched`` flags, sharing the build batch,
+        the CSR and the device key upload: a cached map is shared by the
+        tasks of every partition, and one task's matches must not leak
+        into another's build tail."""
+        m = JoinHashMap(self.batch, self.key_map, self.offsets, self.schema,
+                        self.sorted_keys)
+        m._dev_cell = self._dev_cell
+        return m
 
     @property
     def num_codes(self) -> int:
@@ -148,8 +194,6 @@ class JoinHashMap:
     def build(batches: List[ColumnarBatch], key_exprs: List[E.Expr],
               schema: T.Schema, device: torch.device,
               conf: Optional[Config] = None) -> "JoinHashMap":
-        if len(key_exprs) != 1:
-            key_codes()
         key_cols = []
         kept = []
         for b in batches:
@@ -158,15 +202,22 @@ class JoinHashMap:
             ev = ExprEvaluator(key_exprs, b.schema)
             key_cols.append(ev.evaluate(b))
             kept.append(b)
+        single = len(key_exprs) == 1
         if not kept:
-            # the reference builds an empty generic map here, whose inner
-            # probe emits nothing; an empty sorted map (nk = 0) does the same
-            empty = ColumnarBatch.from_numpy(
-                schema, {f.name: np.zeros(0, np.int64) for f in schema.fields},
-                device, conf=conf)
-            return JoinHashMap(empty, None, np.zeros(1, np.int64), schema,
-                               np.zeros(0, np.int64))
-        return JoinHashMap._build_sorted(kept, key_cols, schema, conf)
+            # the reference builds an empty interned map here, whose probe
+            # indexes past its one offset; an empty map of the same kind as
+            # a full one (nk = 0, or no interned key) probes to no match
+            return JoinHashMap(ColumnarBatch.empty(schema, device, conf=conf),
+                               None if single else {}, np.zeros(1, np.int64),
+                               schema, np.zeros(0, np.int64) if single else None)
+        if single:
+            return JoinHashMap._build_sorted(kept, key_cols, schema, conf)
+        key_map: Dict = {}
+        code_arrays = [key_codes(b, cols, key_map, insert=True)
+                       for b, cols in zip(kept, key_cols)]
+        big = ColumnarBatch.concat(kept, schema, conf)
+        return JoinHashMap._from_codes(big, np.concatenate(code_arrays),
+                                       len(key_map), key_map, None, schema, conf)
 
     @staticmethod
     def _build_sorted(kept, key_cols, schema, conf) -> "JoinHashMap":
@@ -203,21 +254,42 @@ class JoinHashMap:
         counts = np.bincount(sorted_codes, minlength=ncodes + 1)[: ncodes + 1]
         offsets = np.zeros(ncodes + 1, dtype=np.int64)
         np.cumsum(counts[:ncodes], out=offsets[1:])
-        m = JoinHashMap(big, key_map, offsets, schema, sorted_keys)
-        if not m.unique_single_key:
-            raise NotImplementedError(
-                "duplicate build keys in a broadcast join are not ported to "
-                f"the PyTorch package yet: {_GENERIC_PROBE}")
-        return m
+        return JoinHashMap(big, key_map, offsets, schema, sorted_keys)
 
-    def probe_codes(self, *_args, **_kwargs):
-        raise NotImplementedError(
-            f"JoinHashMap.probe_codes is not ported yet: {_GENERIC_PROBE}")
+    def probe_codes(self, batch: ColumnarBatch,
+                    cols: List[DeviceColumn]) -> np.ndarray:
+        """Row key -> code for this map (-1: no match), on the host."""
+        if self.sorted_keys is not None and len(cols) == 1:
+            return self._device_probe(batch, cols[0])
+        return key_codes(batch, cols, self.key_map, insert=False)
 
-    def probe(self, *_args, **_kwargs):
-        raise NotImplementedError(
-            f"JoinHashMap.probe (CSR pair expansion) is not ported yet: "
-            f"{_GENERIC_PROBE}")
+    def _device_probe(self, batch: ColumnarBatch, col: DeviceColumn) -> np.ndarray:
+        """K9 over the key plane; the live rows' codes come to the host."""
+        codes = kernels.probe_codes(self.device_keys(batch.device),
+                                    len(self.sorted_keys), col.data, col.validity)
+        return codes[: batch.num_rows].cpu().numpy()
+
+    def probe(self, codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """codes (n,) -> (probe_idx, build_idx, match_counts): all matching
+        row pairs, in probe-row order, each probe row's build rows in CSR
+        order."""
+        valid = (codes >= 0) & (codes < self.num_codes)
+        if self.num_codes == 0:
+            # an empty build: no code is valid (the reference would index
+            # past its one offset below)
+            return (np.empty(0, np.int64), np.empty(0, np.int64),
+                    np.zeros(len(codes), np.int64))
+        safe = np.where(valid, codes, 0)
+        starts = self.offsets[safe]
+        ends = self.offsets[safe + 1]
+        counts = np.where(valid, ends - starts, 0)
+        total = int(counts.sum())
+        if total == 0:
+            return (np.empty(0, np.int64), np.empty(0, np.int64), counts)
+        probe_idx = np.repeat(np.arange(len(codes)), counts)
+        base = np.repeat(np.cumsum(counts) - counts, counts)
+        build_idx = np.repeat(starts, counts) + (np.arange(total) - base)
+        return probe_idx, build_idx, counts
 
     def serialize(self) -> bytes:
         raise NotImplementedError(

@@ -47,6 +47,12 @@ def build_operator(node: N.PlanNode) -> Operator:
         return BroadcastJoinExec(build_operator(node.left), build_operator(node.right),
                                  node.on, node.join_type, node.broadcast_side,
                                  node.cached_build_hash_map_id, node.condition)
+    if isinstance(node, N.HashJoin):
+        from blaze_tpu_torch.ops.joins.bhj import HashJoinExec
+
+        return HashJoinExec(build_operator(node.left), build_operator(node.right),
+                            node.on, node.join_type, node.build_side,
+                            node.condition)
     if isinstance(node, N.FFIReader):
         from blaze_tpu_torch.ops.shuffle.reader import FFIReaderExec
 

@@ -17,8 +17,11 @@ single-partition exchange is a collect in map order. A broadcast
 exchange is the same collect, read by every task as one partition
 (``_run_broadcast_collect``). Each query also gets the broadcast join's
 build-map cache (ops/joins/bhj.py ``BUILD_MAPS``), dropped with the
-query's other resources. Worker pools, file and remote shuffle tiers and
-range exchanges are not ported (ROADMAP.md Queue 1 items 7 and 12).
+query's other resources. Reducers never merge below a partition-
+zipping node (a hash join pairs partition i of both sides): a top-down
+flag carried through the lowering, as in the JAX package. Worker pools,
+file and remote shuffle tiers and range exchanges are not ported
+(ROADMAP.md Queue 1 items 7 and 12).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ class Session:
         self.resources: Dict[str, object] = {}
         self._stage_ids = itertools.count()
         self._query_rids: List[str] = []
+        self._zip_ok = True
 
     # -- public API -----------------------------------------------------------
 
@@ -91,7 +95,14 @@ class Session:
         return ExecContext(self.conf, self.device, self.resources)
 
     def _lower(self, node: N.PlanNode) -> N.PlanNode:
-        node = N.map_children(node, self._lower)
+        # top-down flag: may the exchanges below merge reducers? Not under
+        # a partition-zipping node (blaze_tpu/runtime/session.py _lower)
+        prev_zip_ok = self._zip_ok
+        self._zip_ok = _child_zip_ok(node, prev_zip_ok)
+        try:
+            node = N.map_children(node, self._lower)
+        finally:
+            self._zip_ok = prev_zip_ok
         if isinstance(node, N.Sort) and isinstance(node.child, N.CoalesceBatches):
             # Sort stages its whole input; a reducer coalesce below it
             # gathers the same rows twice
@@ -176,9 +187,10 @@ class Session:
 
     def _coalesce_reducers(self, sizes: List[int]) -> List[List[int]]:
         """Greedy adjacent merge of reducers below the advisory size
-        (blaze_tpu/runtime/session.py:_coalesce_reducers)."""
+        (blaze_tpu/runtime/session.py:_coalesce_reducers); none below a
+        partition-zipping node."""
         n = len(sizes)
-        if not self.conf.coalesce_partitions_enable or n <= 1:
+        if not self.conf.coalesce_partitions_enable or n <= 1 or not self._zip_ok:
             return [[r] for r in range(n)]
         target = self.conf.advisory_partition_bytes
         groups, cur, cur_bytes = [], [], 0
@@ -191,3 +203,17 @@ class Session:
         if cur:
             groups.append(cur)
         return groups
+
+
+def _child_zip_ok(node: N.PlanNode, own_zip_ok: bool) -> bool:
+    """May a child's partition count change (whole partitions merged)?
+    Only partition-zipping parents forbid it: a hash join pairs partition
+    i of both children, a union maps partitions by position. An exchange
+    re-partitions its child, so below it merging is free again; every
+    other node passes its own freedom through (the JAX package's
+    ``Session._child_zip_ok``)."""
+    if isinstance(node, (N.ShuffleExchange, N.BroadcastExchange)):
+        return True
+    if isinstance(node, (N.SortMergeJoin, N.HashJoin, N.Union)):
+        return False
+    return own_zip_ok

@@ -46,6 +46,7 @@ LAUNCHES: Dict[str, int] = {
     "slice_planes": 0,
     "concat_planes": 0,
     "inner_join_planes": 0,
+    "probe_codes": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -189,6 +190,8 @@ _SIGNATURES = {
     # nprobe, nplanes, srcs, dsts, sizes, codes, offs, stream
     "blz_inner_join": [_P, _I64, _I64, _P, _I, _I, _P, _I64, _I64, _I, _I,
                        _PP, _PP, _PI, _P, _P, _P],
+    # uniq, nk, key, key_size, key_kind, key_valid, cap, codes, stream
+    "blz_probe_codes": [_P, _I64, _P, _I, _I, _P, _I64, _P, _P],
 }
 
 

@@ -10,7 +10,7 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K8 held against their plain PyTorch versions on the card,
+3. kernels: K1-K9 held against their plain PyTorch versions on the card,
    exactly (float planes bit for bit), at the main paths' shapes and at
    edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
@@ -18,7 +18,10 @@ only when every phase passed:
    capacities, offsets past the end, empty batches in a concat; for the
    join: misses, null probe keys, an empty build, one build key, a
    null-keyed build row, int32/f32/f64 keys with +-0.0 and NaN payloads,
-   and q06's batch all hitting and half missing); then each timed with
+   and q06's batch all hitting and half missing; for the generic probe:
+   the same key kinds, keys below and above the build's range, an empty
+   build, one build key, q69's probe batch and a 262,144-row batch of
+   customer keys against the store window's keys); then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s);
@@ -37,16 +40,23 @@ only when every phase passed:
      of 28,800,991 store_sales rows and SF10's 102,000 items (seed 6);
      q06 exact in order, q47's rows in order with the oracle's ranks
      (rows tied on quantity in any order);
+   - q69 (customer JOIN broadcast address in three states -> exchange ->
+     LEFT SEMI store window, LEFT ANTI web window, LEFT ANTI catalog
+     window, each a shuffled hash join against sales JOIN broadcast
+     date_dim of April-June 2001 -> JOIN broadcast demographics -> COUNT(*)
+     by four demographics -> sort, top 100) over TPC-DS SF10's row counts
+     (seed 69), exact in order against set operations in numpy;
    all through ``Session().execute_to_pydict`` in 4 partitions staged on
-   the card; every kernel must have launched over the four runs, and the
-   join kernel on each join path;
+   the card; every kernel must have launched over the five runs, the
+   unique-key join kernel on each join path, and the generic probe on
+   q69;
 5. one JSON line per kernel (shape, times, bound, launches per path), the
    kernels' summary JSON line, the card line, and the device JSON line.
 
 ``--profile`` adds one run of each path under torch.profiler (device busy
 share, launch and sync counts, the top kernels); ``--trace=PATH`` also
 writes q01's Chrome trace to PATH and the other paths' beside it
-(``_q67.json``, ``_q06.json``, ``_q47.json``).
+(``_q67.json``, ``_q06.json``, ``_q47.json``, ``_q69.json``).
 
 Needs one CUDA device; exits 2 without one, or when run outside a checkout
 of the repository.
@@ -74,6 +84,14 @@ Q67_MERGE_BYTES = 2 << 30
 Q06_ROWS = 28_800_991  # q06 and q47 share one store_sales draw
 Q06_ITEMS = 102_000   # TPC-DS SF10's item row count
 Q06_SEED = 6
+Q69_SEED = 69
+# TPC-DS SF10 row counts of q69's tables
+Q69_ROWS = {"customer": 500_000, "customer_address": 250_000,
+            "customer_demographics": 1_920_800, "date_dim": 73_049,
+            "store_sales": 28_800_991, "web_sales": 7_197_566,
+            "catalog_sales": 14_401_261}
+Q69_STATES = (4, 17, 42)  # the ca_state codes of the IN list, of 51
+Q69_SALES_DATES = (2_450_816, 2_452_642)  # the sales' first and last d_date_sk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 WARMUP, ITERS = 3, 20
 
@@ -796,27 +814,150 @@ def kernel_k8(dev, rng, results):
         bytes=nbytes, build_rows_touched=touched, hits=hits))
 
 
+# K9 cases: the CPU parity tests' (tests/test_torch_generic_joins.py): key
+# kind, capacity, live rows, build keys, null probe keys
+PROBE_CASES = (
+    ("i64", 256, 200, 60, 0.1),
+    ("i64", 4096, 4096, 700, 0.05),
+    ("i64", 256, 180, 0, 0.0),
+    ("i64", 256, 200, 1, 0.1),
+    ("i32", 4096, 3000, 300, 0.1),
+    ("f32", 256, 250, 8, 0.1),
+    ("f64", 4096, 3500, 10, 0.1),
+    ("f64", 256, 100, 1, 0.0),
+)
+
+
+def probe_case(kind, cap, n, nk, nulls, rng, dev):
+    """K9's arguments: the sorted unique words of nk build keys and a probe
+    key plane whose keys hit, miss inside the build's range and below and
+    above it, or are null (float keys: +-0.0 and several NaN payloads);
+    padding rows past n."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.ops.joins.keymap import _canon_words
+
+    npdt = {"i64": np.int64, "i32": np.int32, "f32": np.float32, "f64": np.float64}[kind]
+    if kind in ("f32", "f64"):
+        nans = (np.array([0x7FF8000000000000, 0xFFF8000000000000, 0x7FF8000000000123,
+                          0x7FF0000000000001], np.uint64).view(np.float64)
+                if kind == "f64" else
+                np.array([0x7FC00000, 0xFFC00000, 0x7FC00123, 0x7F800001],
+                         np.uint32).view(np.float32))
+        pool = np.concatenate([np.array([0.0, -0.0, np.inf, -np.inf, 1.5, -1.5, 2.25,
+                                         -1e30, 7.0, 3.0], npdt), nans])
+        _, first = np.unique(_canon_words(pool), return_index=True)
+        bvals = pool[np.sort(first)][rng.permutation(len(first))[:nk]]
+        probe_pool = np.concatenate([pool, np.array([5.0, -7.5, 1e-3, -1e38, 1e38], npdt)])
+    else:
+        info = np.iinfo(npdt)
+        bvals = rng.choice(np.arange(-5000, 5000), nk, replace=False).astype(npdt)
+        if nk > 2:
+            bvals[:2] = (info.min, info.max)
+        probe_pool = np.concatenate([
+            np.tile(bvals, max(1, 64 // max(nk, 1))),
+            rng.integers(-5000, 5000, 64).astype(npdt),
+            np.array([-9000, 9000, info.min + 1, info.max - 1], npdt)])
+    uniq = np.unique(_canon_words(bvals)) if nk else np.zeros(1, np.int64)
+    valid = (np.arange(cap) < n) & (rng.random(cap) >= nulls)
+    key = np.where(valid, probe_pool[rng.integers(0, len(probe_pool), cap)], 0).astype(npdt)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return t(uniq), nk, t(key), t(valid)
+
+
+def customer_probe(rng, dev, cap, n, build_rows, nulls, keys):
+    """A probe batch of customer keys (uniform over ``keys`` customers, a
+    ``nulls`` share null) against the sorted distinct customer keys of
+    ``build_rows`` sales rows (uniform over the same customers)."""
+    import numpy as np
+    import torch
+
+    uniq = np.unique(rng.integers(1, keys + 1, build_rows))
+    valid = (np.arange(cap) < n) & (rng.random(cap) >= nulls)
+    key = np.where(valid, rng.integers(1, keys + 1, cap), 0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return t(uniq), len(uniq), t(key), t(valid)
+
+
+def kernel_k9(dev, rng, results):
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    cases = []
+    for kind, cap, n, nk, nulls in PROBE_CASES:
+        args = probe_case(kind, cap, n, nk, nulls, rng, dev)
+        label = f"key={kind},cap={cap},n={n},nk={nk},nulls={nulls}"
+        check_equal("probe_codes", label, K.probe_codes_cuda(*args),
+                    K.probe_codes_plain(*args))
+        cases.append(label)
+    # q69's shapes: one partition's probe (~7,100 customers against the
+    # ~118,000 distinct keys of its store window, both drawn from the
+    # 125,000 customer keys that hash to one of 4 partitions) and one
+    # 262,144-row batch (4% null) against all ~470,000 window keys
+    window = Q69_ROWS["store_sales"] * 91 // 1827
+    customers = Q69_ROWS["customer"]
+    main = customer_probe(rng, dev, 8192, 7100, window // 4, 0.0, customers // 4)
+    big = customer_probe(rng, dev, 262144, 262144, window, 0.04, customers)
+    for label, args in (("q69 partition probe", main), ("262144 customer keys", big)):
+        check_equal("probe_codes", label, K.probe_codes_cuda(*args),
+                    K.probe_codes_plain(*args))
+        cases.append(f"{label}: cap={args[2].shape[0]}, nk={args[1]}")
+
+    def library(uniq, nk, key, valid):
+        idx = torch.searchsorted(uniq, key)
+        cidx = idx.clamp(max=nk - 1)
+        return torch.where(valid & (idx < nk) & (uniq[cidx] == key), cidx, -1)
+
+    def nbytes(uniq, nk, key, valid):
+        # validity and codes for every row, the key of each valid row, the
+        # sorted keys once
+        cap = key.shape[0]
+        return cap * (1 + 8) + int(valid.sum()) * key.element_size() + nk * 8
+
+    timed = {}
+    for name, args in (("main", main), ("big", big)):
+        timed[name] = (time_ms(lambda: K.probe_codes_cuda(*args)),
+                       time_ms(lambda: K.probe_codes_plain(*args)),
+                       time_ms(lambda: library(*args)), nbytes(*args))
+    ms, plain_ms, lib_ms, nb = timed["main"]
+    results.append(dict(
+        name="probe_codes", route="cuda", source="blaze_tpu_torch/csrc/join.cu",
+        replaces="blaze_tpu/ops/joins/keymap.py:226",
+        shape=f"{int(main[3].sum())} customer keys in an 8192-row plane vs "
+              f"{main[1]} sorted build keys (a q69 partition's store window)",
+        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_call="torch.searchsorted + compare + torch.where (a chain of calls)",
+        bytes=nb, ms_262144_rows=timed["big"][0],
+        big_batch={"nk": big[1], "kernel_ms": timed["big"][0],
+                   "plain_ms": timed["big"][1], "library_ms": timed["big"][2],
+                   "bound_ms": timed["big"][3] / HBM_BYTES_PER_S * 1e3}))
+
+
 # -- phase 4: the paths on the card ------------------------------------------------
 
 
-def stage_batches(schema, columns, dev, bs=262144):
+def stage_batches(schema, columns, dev, bs=262144, valids=None):
     """Host int64 columns -> device batches of ``bs`` rows (the last one in
-    its own capacity bucket), all-valid."""
+    its own capacity bucket); ``valids`` (None: all valid) gives a
+    validity array, or None, per column (null rows carry data 0)."""
     import torch
     from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
 
     n_all = len(columns[0])
     cols = [torch.from_numpy(x).to(dev) for x in columns]
+    vcols = [None if v is None else torch.from_numpy(v).to(dev)
+             for v in (valids or [None] * len(columns))]
     batches = []
     for s in range(0, n_all, bs):
         n = min(bs, n_all - s)
         cap = bs if n == bs else 1 << max(8, (n - 1).bit_length())
         dcols = []
-        for f, c in zip(schema.fields, cols):
+        for f, c, vc in zip(schema.fields, cols, vcols):
+            v = torch.zeros(cap, dtype=torch.bool, device=dev)
+            v[:n] = True if vc is None else vc[s:s + n]
             d = torch.zeros(cap, dtype=torch.int64, device=dev)
             d[:n] = c[s:s + n]
-            v = torch.zeros(cap, dtype=torch.bool, device=dev)
-            v[:n] = True
+            d[~v] = 0
             dcols.append(DeviceColumn(f.dtype, d, v))
         batches.append(ColumnarBatch(schema, dcols, n))
     return batches
@@ -1212,6 +1353,198 @@ def run_join_paths(dev, profile=False, trace_path=None):
     return out
 
 
+Q69_SALES = (("store_sales", "ss_sold_date_sk", "ss_customer_sk", "LEFT_SEMI"),
+             ("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk", "LEFT_ANTI"),
+             ("catalog_sales", "cs_sold_date_sk", "cs_ship_customer_sk", "LEFT_ANTI"))
+Q69_CD = (("cd_gender", 2), ("cd_marital_status", 5), ("cd_education_status", 7),
+          ("cd_purchase_estimate", 20), ("cd_credit_rating", 4), ("cd_dep_count", 7),
+          ("cd_dep_employed_count", 7), ("cd_dep_college_count", 7))
+Q69_KEYS = ("cd_gender", "cd_marital_status", "cd_education_status", "cd_credit_rating")
+
+
+def q69_schemas():
+    from blaze_tpu_torch.ir import types as T
+
+    def sch(*names):
+        return T.Schema.of(*[(n, T.I64) for n in names])
+
+    out = {"customer": sch("c_customer_sk", "c_current_addr_sk", "c_current_cdemo_sk"),
+           "customer_address": sch("ca_address_sk", "ca_state_id"),
+           "customer_demographics": sch("cd_demo_sk", *[c for c, _ in Q69_CD]),
+           "date_dim": sch("d_date_sk", "d_year", "d_moy")}
+    for name, dcol, ccol, _ in Q69_SALES:
+        out[name] = sch(dcol, ccol)
+    return out
+
+
+def make_q69_data(dev):
+    """q69's tables at TPC-DS SF10's row counts (seed 69): customer keys
+    1..500,000 with c_current_addr_sk uniform [1, 250,000] and
+    c_current_cdemo_sk uniform [1, 1,920,800]; customer_address with
+    ca_state_id uniform over 51 codes; customer_demographics as the
+    mixed-radix cross product TPC-DS defines, decoded from cd_demo_sk - 1
+    (gender 2, marital 5, education 7, purchase estimate 20 (500..10,000),
+    credit 4, three dependant counts 7 each); date_dim from 2,415,022
+    (1900-01-02), 73,049 days, d_year and d_moy from the date; the three
+    sales tables with the sale date uniform over 2,450,816..2,452,642 and
+    the customer uniform [1, 500,000]. 4% of every foreign key is null.
+    Facts and customers in 4 partitions, dimensions in one, all staged on
+    the card as 262,144-row batches. Returns the schemas, the staged
+    batches and the host copies."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(Q69_SEED)
+    schemas = q69_schemas()
+    host = {}
+
+    def fk(hi, n):
+        valid = rng.random(n) >= 0.04
+        return np.where(valid, rng.integers(1, hi + 1, n), 0), valid
+
+    n = Q69_ROWS["customer"]
+    addr, addr_v = fk(Q69_ROWS["customer_address"], n)
+    cdemo, cdemo_v = fk(Q69_ROWS["customer_demographics"], n)
+    host["customer"] = ((np.arange(1, n + 1), addr, cdemo), (None, addr_v, cdemo_v))
+    n = Q69_ROWS["customer_address"]
+    host["customer_address"] = ((np.arange(1, n + 1), rng.integers(0, 51, n)), None)
+    n = Q69_ROWS["customer_demographics"]
+    code, attrs = np.arange(n), []
+    for _, radix in Q69_CD:
+        attrs.append(code % radix)
+        code = code // radix
+    attrs[3] = attrs[3] * 500 + 500
+    host["customer_demographics"] = ((np.arange(1, n + 1), *attrs), None)
+    days = np.arange(2_415_022, 2_415_022 + Q69_ROWS["date_dim"])
+    date = np.datetime64("1900-01-02") + (days - 2_415_022)
+    host["date_dim"] = ((days, date.astype("datetime64[Y]").astype(np.int64) + 1970,
+                         date.astype("datetime64[M]").astype(np.int64) % 12 + 1), None)
+    for name, _d, _c, _ in Q69_SALES:
+        n = Q69_ROWS[name]
+        cust, cust_v = fk(Q69_ROWS["customer"], n)
+        host[name] = ((rng.integers(Q69_SALES_DATES[0], Q69_SALES_DATES[1] + 1, n), cust),
+                      (None, cust_v))
+    staged = {}
+    for name, (cols, valids) in host.items():
+        if name in ("customer", "store_sales", "web_sales", "catalog_sales"):
+            cuts = [len(cols[0]) * p // PARTS for p in range(PARTS + 1)]
+            staged[name] = [stage_batches(
+                schemas[name], [c[a:b] for c in cols], dev,
+                valids=None if valids is None else
+                [None if v is None else v[a:b] for v in valids])
+                for a, b in zip(cuts, cuts[1:])]
+        else:
+            staged[name] = [stage_batches(schemas[name], cols, dev, valids=valids)]
+    torch.cuda.synchronize()
+    return schemas, staged, host
+
+
+def q69_plan(schemas):
+    """TPC-DS q69 (v3.2.0) as Spark plans it, in 4 partitions: customer
+    JOIN broadcast customer_address filtered to three states (ca_state IN
+    (...) as an OR of three equalities) -> exchange by c_customer_sk ->
+    LEFT SEMI store window, LEFT ANTI web window, LEFT ANTI catalog
+    window, each a shuffled hash join (build right) against sales JOIN
+    broadcast date_dim (d_year = 2001 AND d_moy BETWEEN 4 AND 6),
+    projected to the customer key and exchanged by it -> JOIN broadcast
+    customer_demographics -> COUNT(*) by (gender, marital status,
+    education, credit rating), two-stage -> single exchange -> sort on
+    the four keys, top 100."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    C = E.Column
+    J = N.JoinType
+
+    def lit(op, c, v):
+        return E.BinaryExpr(op, C(c), E.Literal(v, T.I64))
+
+    def scan(name, parts=PARTS):
+        return N.FFIReader(schemas[name], name, parts)
+
+    def by(child, keys):
+        return N.ShuffleExchange(child, N.HashPartitioning([C(k) for k in keys], PARTS))
+
+    eq, OR = E.BinaryOp.EQ, E.BinaryOp.OR
+    states = E.BinaryExpr(OR, E.BinaryExpr(OR, lit(eq, "ca_state_id", Q69_STATES[0]),
+                                           lit(eq, "ca_state_id", Q69_STATES[1])),
+                          lit(eq, "ca_state_id", Q69_STATES[2]))
+    cust = N.BroadcastJoin(scan("customer"), N.BroadcastExchange(
+        N.Filter(scan("customer_address", 1), [states])),
+        [(C("c_current_addr_sk"), C("ca_address_sk"))], J.INNER, N.JoinSide.RIGHT,
+        "q69_address")
+    out = by(N.Projection(cust, [C("c_customer_sk"), C("c_current_cdemo_sk")],
+                          ["c_customer_sk", "c_current_cdemo_sk"]), ["c_customer_sk"])
+    dates = N.Filter(scan("date_dim", 1), [lit(eq, "d_year", 2001),
+                                           lit(E.BinaryOp.GTEQ, "d_moy", 4),
+                                           lit(E.BinaryOp.LTEQ, "d_moy", 6)])
+    for name, dcol, ccol, jt in Q69_SALES:
+        window = N.BroadcastJoin(scan(name), N.BroadcastExchange(dates),
+                                 [(C(dcol), C("d_date_sk"))], J.INNER, N.JoinSide.RIGHT,
+                                 f"q69_dates_{name}")
+        window = by(N.Projection(window, [C(ccol)], [ccol]), [ccol])
+        out = N.HashJoin(out, window, [(C("c_customer_sk"), C(ccol))], J[jt],
+                         N.JoinSide.RIGHT)
+    out = N.BroadcastJoin(out, N.BroadcastExchange(scan("customer_demographics", 1)),
+                          [(C("c_current_cdemo_sk"), C("cd_demo_sk"))], J.INNER,
+                          N.JoinSide.RIGHT, "q69_demographics")
+    agg = two_stage_agg(out, list(Q69_KEYS), [("cnt", E.AggExpr(E.AggFunction.COUNT, []))])
+    return N.Sort(N.ShuffleExchange(agg, N.SinglePartitioning(1)),
+                  [E.SortOrder(C(k)) for k in Q69_KEYS], fetch_limit=100)
+
+
+def q69_oracle(host):
+    """q69 by set operations in numpy on the host copies: the customers in
+    the three states who bought in a store in April-June 2001 and on
+    neither the web nor the catalog then, counted by their four
+    demographics, the first 100 groups in key order. Also returns the
+    customers left after each step."""
+    import numpy as np
+
+    (c_sk, c_addr, c_cd), (_, addr_v, cd_v) = host["customer"]
+    (ca_sk, ca_state), _ = host["customer_address"]
+    in_states = np.zeros(Q69_ROWS["customer_address"] + 1, bool)
+    in_states[ca_sk[np.isin(ca_state, Q69_STATES)]] = True
+    keep = addr_v & in_states[c_addr]
+    steps = {"address": int(keep.sum())}
+    (d_sk, d_year, d_moy), _ = host["date_dim"]
+    window = np.zeros(d_sk[-1] + 1, bool)
+    window[d_sk[(d_year == 2001) & (d_moy >= 4) & (d_moy <= 6)]] = True
+    for name, _d, _c, jt in Q69_SALES:
+        (date, cust), (_, cust_v) = host[name]
+        bought = np.zeros(Q69_ROWS["customer"] + 1, bool)
+        bought[cust[cust_v & window[date]]] = True
+        keep &= bought[c_sk] if jt == "LEFT_SEMI" else ~bought[c_sk]
+        steps[name] = int(keep.sum())
+    keep &= cd_v
+    cd_cols = dict(zip(["cd_demo_sk"] + [c for c, _ in Q69_CD],
+                       host["customer_demographics"][0]))
+    rows = c_cd[keep] - 1
+    keys = np.stack([cd_cols[k][rows] for k in Q69_KEYS], axis=1)
+    groups, counts = np.unique(keys, axis=0, return_counts=True)
+    groups, counts = groups[:100], counts[:100]  # np.unique sorts rows lexically
+    want = {k: groups[:, i].tolist() for i, k in enumerate(Q69_KEYS)}
+    want["cnt"] = counts.tolist()
+    return want, steps, len(rows)
+
+
+def run_q69(dev, profile=False, trace_path=None):
+    import blaze_tpu_torch
+
+    t0 = time.perf_counter()
+    schemas, staged, host = make_q69_data(dev)
+    want, steps, agg_rows = q69_oracle(host)
+    del host
+    setup_s = time.perf_counter() - t0
+    session = blaze_tpu_torch.Session()
+    for name, parts in staged.items():
+        session.resources[name] = lambda p, _parts=parts: _parts[p]
+    return run_query("q69", sum(Q69_ROWS.values()), session, q69_plan(schemas), want,
+                     setup_s, {"customers_after": steps, "agg_rows": agg_rows,
+                               "groups": len(want["cnt"])}, profile, trace_path)
+
+
 def check_result(name, got, want):
     """``want`` is the oracle's result (equal, order included) or a
     function that raises when ``got`` is wrong."""
@@ -1253,7 +1586,12 @@ def profile_query(name, session, plan, want, trace_path=None):
     kernels' and copies' own device time -- one stream, so they do not
     overlap) against the run's wall, the launch/copy/sync counts, and the
     kernels that take the time; the Chrome trace to ``trace_path`` when
-    given."""
+    given. Then one run under cProfile: the package's functions that hold
+    the host longest (cumulative seconds, inflated by the profiler's own
+    cost)."""
+    import cProfile
+    import pstats
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1280,6 +1618,21 @@ def profile_query(name, session, plan, want, trace_path=None):
                                     "device_ms": e.self_device_time_total / 1e3}
                                    for e in top]}))
     torch.cuda.synchronize()
+    host = cProfile.Profile()
+    t0 = time.perf_counter()
+    host.enable()
+    got = session.execute_to_pydict(plan)
+    torch.cuda.synchronize()
+    host.disable()
+    wall = time.perf_counter() - t0
+    check_result(f"{name} (host-profiled run)", got, want)
+    stats = pstats.Stats(host).stats  # {(file, line, function): (cc, calls, tt, ct, _)}
+    ours = [(f"{os.path.relpath(f, ROOT)}:{line} {fn}", v[1], v[3])
+            for (f, line, fn), v in stats.items() if "blaze_tpu_torch" in f]
+    top_host = sorted(ours, key=lambda x: x[2], reverse=True)[:25]
+    log(json.dumps({"phase": "host_profile", "query": name, "wall_s": wall,
+                    "top_cumulative": [{"function": f, "calls": c, "cum_s": t}
+                                       for f, c, t in top_host]}))
 
 
 def main(device: str = "cuda") -> int:
@@ -1325,7 +1678,8 @@ def main(device: str = "cuda") -> int:
     kernel_k6(dev, rng, results)
     kernel_k7(dev, rng, results)
     kernel_k8(dev, rng, results)
-    # 4. the paths: q01, q67, then q06 and q47
+    kernel_k9(dev, rng, results)
+    # 4. the paths: q01, q67, q06 and q47, then q69
     args = sys.argv[1:]
     profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
@@ -1334,14 +1688,18 @@ def main(device: str = "cuda") -> int:
         "q67": run_q67(dev, profile, trace[0].replace(".json", "") + "_q67.json"
                        if trace else None),
         **run_join_paths(dev, profile, trace[0] if trace else None),
+        "q69": run_q69(dev, profile, trace[0].replace(".json", "") + "_q69.json"
+                       if trace else None),
     }
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["q01"]}
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels launched by no path: {missing}")
-    for q in ("q06", "q47"):
+    for q in ("q06", "q47", "q69"):
         if per_path[q]["inner_join_planes"] <= 0:
             raise AssertionError(f"{q} did not go through the join kernel")
+    if per_path["q69"]["probe_codes"] <= 0:
+        raise AssertionError("q69 did not go through the generic probe kernel")
     # 5. summary lines
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1360,7 +1718,8 @@ def main(device: str = "cuda") -> int:
                         "launches_per_path": r["launches_per_path"],
                         "exact_cases": r["cases"],
                         **{k: r[k] for k in ("ms_262144_rows", "digit_passes", "hits",
-                                             "build_rows_touched") if k in r}}))
+                                             "build_rows_touched", "big_batch")
+                           if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, and the q01, q67 and q06 paths on the card against the same plans
-on the CPU.
+card, and the q01, q67 and q06 paths and every hash-join type on the card
+against the same plans on the CPU. K9's cases come from chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -14,6 +14,8 @@ float sort keys compared bit for bit).
 import numpy as np
 import pytest
 import torch
+
+from chip_smoke import PROBE_CASES, customer_probe, probe_case
 
 pytestmark = pytest.mark.cuda
 
@@ -134,9 +136,9 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         cuda_lib.reset_launch_counts()
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
-    # every kernel but the join's, which q01 does not reach
+    # every kernel but the joins', which q01 does not reach
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
-               if k != "inner_join_planes")
+               if k not in ("inner_join_planes", "probe_codes"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -327,3 +329,58 @@ def test_q06_on_the_card_equals_the_cpu(dev):
     assert out[None] == out["cpu"]
     assert len(out["cpu"]["cat"]) == 10
     assert cuda_lib.launch_counts()["inner_join_planes"] == 3
+
+
+@pytest.mark.parametrize("case", [*PROBE_CASES, "q69 partition", "262144 customer keys"])
+def test_probe_codes_kernel(dev, case):
+    """K9 against its twin on chip_smoke.py's cases: the CPU parity
+    tests' (tests/test_torch_generic_joins.py) and q69's shapes."""
+    from blaze_tpu_torch.core import kernels as K
+
+    rng = np.random.default_rng(9)
+    if case == "q69 partition":
+        args = customer_probe(rng, dev, 8192, 7100, 359_000, 0.0, 125_000)
+    elif case == "262144 customer keys":
+        args = customer_probe(rng, dev, 262144, 262144, 1_434_000, 0.04, 500_000)
+    else:
+        args = probe_case(*case, rng, dev)
+    got = K.probe_codes_cuda(*args)
+    _equal(got, K.probe_codes_plain(*args))
+    assert (got >= 0).any() or args[1] == 0
+
+
+@pytest.mark.parametrize("build", ["left", "right"])
+def test_hash_joins_on_the_card_equal_the_cpu(dev, build):
+    """Every join type, as a shuffled hash join with duplicate and null
+    keys and a condition, on the card and on the CPU: the generic probe
+    (K9) on the card, equal results."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    rng = np.random.default_rng(4)
+    ls = T.Schema.of(("lk", T.I64), ("lv", T.I64))
+    rs = T.Schema.of(("rk", T.I64), ("rv", T.I64))
+
+    def side(k, v, hi):
+        valid = rng.random(3000) >= 0.1
+        return [{k: (np.where(valid, rng.integers(0, hi, 3000), 0), valid),
+                 v: rng.integers(0, 100, 3000)} for _ in range(2)]
+
+    tables = {"l": side("lk", "lv", 900), "r": side("rk", "rv", 1200)}
+    cond = E.BinaryExpr(E.BinaryOp.GT, E.Column("lv"), E.Column("rv"))
+    for jt in N.JoinType:
+        plan = N.HashJoin(N.FFIReader(ls, "l", 2), N.FFIReader(rs, "r", 2),
+                          [(E.Column("lk"), E.Column("rk"))], jt, N.JoinSide[build.upper()],
+                          cond)
+        out = {}
+        for device in ("cpu", None):
+            s = blaze_tpu_torch.Session(device=device)
+            for name, parts in tables.items():
+                s.resources[name] = lambda p, _parts=parts: [_parts[p]]
+            cuda_lib.reset_launch_counts()
+            out[device] = s.execute_to_pydict(plan)
+        assert out[None] == out["cpu"], jt
+        assert cuda_lib.launch_counts()["probe_codes"] == 2

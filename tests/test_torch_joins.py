@@ -235,15 +235,23 @@ def test_build_map_matches_jax(split):
 
 
 def test_build_map_duplicate_keys_raise():
+    """Duplicate build keys and a two-column key no longer raise: the map
+    is the generic CSR map (not unique, so the join takes the generic
+    probe rather than K8), equal to the reference's; only the broadcast
+    serialization still raises, naming ROADMAP.md."""
     keys = np.array([3, 1, 3, 2])
     schema, jbs, tbs = _build_batches(keys, np.ones(4, bool), keys * 10, [])
-    assert not JKM.JoinHashMap.build(jbs, [JE.Column("k")], schema).unique_single_key
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KM.JoinHashMap.build(tbs, [E.Column("k")], from_foreign(schema),
-                             torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KM.JoinHashMap.build(tbs, [E.Column("k"), E.Column("pay")],
-                             from_foreign(schema), torch.device("cpu"))
+    for key_exprs in ([JE.Column("k")], [JE.Column("k"), JE.Column("pay")]):
+        ref = JKM.JoinHashMap.build(jbs, key_exprs, schema)
+        port = KM.JoinHashMap.build(tbs, [from_foreign(e) for e in key_exprs],
+                                    from_foreign(schema), torch.device("cpu"))
+        assert not ref.unique_single_key and not port.unique_single_key
+        np.testing.assert_array_equal(port.offsets, ref.offsets)
+        assert port.key_map == ref.key_map
+        for jc, tc in zip(ref.batch.columns, port.batch.columns):
+            _same_bytes(np.asarray(jc.data)[:4], tc.data[:4])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port.serialize()
 
 
 # -- q06, q47 and q17's join chain -------------------------------------------------

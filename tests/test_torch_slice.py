@@ -200,12 +200,18 @@ def test_out_of_slice_plans_raise(variant):
         plan = _q01(aggs=[("total", JE.AggExpr(F.SUM, [JE.Column("sr_return_amt")],
                                                JT.DecimalType(25, 2)))])
     elif variant == "left_join":
-        plan = _store_join(JN.JoinType.LEFT)
+        # the sort-merge join is not ported (the hash joins are)
+        join = _store_join(JN.JoinType.LEFT)
+        plan = JN.SortMergeJoin(join.left, join.right.child, join.on, join.join_type)
     elif variant == "left_semi_join":
-        plan = _store_join(JN.JoinType.LEFT_SEMI)
+        # a shuffled hash join past its SMJ fallback threshold
+        join = _store_join(JN.JoinType.LEFT_SEMI)
+        plan = JN.HashJoin(join.left, join.right.child, join.on, join.join_type)
+        conf = Config(smj_fallback_rows_threshold=100)
     elif variant == "join_condition":
-        plan = _store_join(JN.JoinType.INNER, JE.BinaryExpr(
-            JE.BinaryOp.GT, JE.Column("s_state_id"), JE.Literal(3, JT.I64)))
+        # a condition whose expression is not ported (InList)
+        plan = _store_join(JN.JoinType.INNER, JE.InList(
+            JE.Column("s_state_id"), [JE.Literal(3, JT.I64)]))
     else:
         plan = _q01(key="sr_customer_sk")
         conf = Config(radix_agg_max_slots=1024)
