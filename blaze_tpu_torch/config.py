@@ -10,6 +10,7 @@ out rather than accepted and ignored.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass
@@ -23,12 +24,22 @@ class Config:
     # raises NotImplementedError (ROADMAP.md Queue 2).
     device_merge_max_bytes: int = 256 << 20
 
+    # The slot-table routes of the grouped aggregation (K3/K4): dense_agg
+    # for the partial aggregate's small tables, radix_agg for its large
+    # ones and for the merge. True/False force a route, as in the JAX
+    # package; None keeps the port's default, which takes them wherever an
+    # integer-keyed plan fits (the JAX package's None means "on a CPU
+    # backend only", and the port has no backend hint). Where a route is
+    # off or no plan fits, the aggregate takes the sort route (K10).
+    dense_agg: Optional[bool] = None
+    radix_agg: Optional[bool] = None
+
     # Upper bound on the dense slot-table size (product of per-key rounded
     # ranges) of the partial aggregate.
     dense_agg_max_buckets: int = 65536
 
-    # Upper bound on the radix slot-table size; key spaces beyond it need
-    # the sort-path aggregate, which is not ported (NotImplementedError).
+    # Upper bound on the radix slot-table size; key spaces beyond it take
+    # the sort route.
     radix_agg_max_slots: int = 1 << 22
 
     # Number of radix buckets (power of two) of the per-bucket (rows,

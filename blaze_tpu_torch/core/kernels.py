@@ -706,6 +706,325 @@ def lexsort_indices(operands: List[torch.Tensor],
     return fn(operands, num_rows)
 
 
+# -- K10: the segmented aggregate ------------------------------------------------
+#
+# The sort route of the grouped aggregation, blaze_tpu/ops/agg_device.py
+# _partial_kernel and _merge_kernel: K5 sorts the rows so that equal keys
+# are adjacent, ``segment_ids`` cuts the sorted rows into segments, and
+# ``segment_reduce`` runs the slot program's ops (ADD / COUNT / MIN / MAX,
+# gated by up to three validity planes) and emits over each segment.
+# Segments are dense by construction, so group s is segment s.
+
+OP_ADD, OP_COUNT, OP_MIN, OP_MAX = 0, 1, 2, 3
+EMIT_RAW, EMIT_NONZERO, EMIT_WHERE = 0, 1, 2
+_INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+# csrc/seg_agg.cu limits of one launch
+_MAX_SEG_KEYS = 16
+_MAX_SEG_OPS = 24
+_MAX_SEG_EMITS = 24
+_QNAN_BITS = 0x7FF8000000000000  # every NaN a float state ends as
+
+
+class AggOp:
+    """One op of the slot program: ``kind`` into a table initialised to
+    ``init``, from ``src`` (int64, or float64 for a float state; None for
+    COUNT) times ``mult``, where every plane of ``valids`` holds."""
+
+    __slots__ = ("kind", "src", "valids", "mult", "init")
+
+    def __init__(self, kind, src, valids, mult=1, init=0):
+        self.kind, self.src, self.valids = kind, src, list(valids)
+        self.mult, self.init = mult, init
+
+    @property
+    def is_float(self) -> bool:
+        return self.src is not None and self.src.is_floating_point()
+
+
+class AggEmit:
+    """One output column: table ``table`` RAW, NONZERO (as bool), or its
+    value WHERE table ``aux`` is nonzero (else 0), cast to ``dtype``."""
+
+    __slots__ = ("kind", "table", "aux", "dtype")
+
+    def __init__(self, kind, table, dtype, aux=-1):
+        self.kind, self.table, self.aux, self.dtype = kind, table, aux, dtype
+
+
+def canonical_keys(key_data, key_valid):
+    """blaze_tpu/ops/agg_device.py:_canonical_keys: float keys fold -0.0
+    into 0.0 and every NaN into one NaN; null rows are 0."""
+    out = []
+    for d, v in zip(key_data, key_valid):
+        if d.is_floating_point():
+            d = torch.where(torch.isnan(d), float("nan"), d)
+            d = torch.where(d == 0, 0.0, d)
+        out.append(_zero_where(v, d))
+    return out
+
+
+def _segment_planes(key_data, key_valid, exists, direct: bool):
+    """The planes ``_segmentation`` sorts and cuts by. A single integer
+    key whose valid values all lie in [0, capacity - 1) is its own segment
+    id, null rows going to capacity - 1 (so they come last); the choice is
+    made on the device, as the reference's ``lax.cond`` makes it: the one
+    plane is then that id, valid on every existing row. Otherwise the
+    keys themselves, null first."""
+    if not (direct and len(key_data) == 1 and key_data[0].dtype in _INT_DTYPES):
+        return list(key_data), list(key_valid)
+    cap = exists.shape[0]
+    d64, v = key_data[0].to(torch.int64), key_valid[0]
+    fits = torch.where(exists & v, (d64 >= 0) & (d64 < cap - 1), True).all()
+    data = torch.where(fits, torch.where(v, d64, cap - 1), _zero_where(v, d64))
+    return [data], [torch.where(fits, exists, v)]
+
+
+def segment_starts_plain(datas, valids, order, num_rows: int):
+    """Plain twin of K10's segmentation pass. Over the rows in ``order``'s
+    sorted positions [0, num_rows), a segment starts where any key's
+    validity differs from the previous row's, or both are valid and the
+    values differ (IEEE: -0.0 equals 0.0, and a NaN differs from every
+    key, itself included, as ``sd[1:] != sd[:-1]`` of the canonical keys
+    does in the reference). Returns (starts, count): ``starts`` (capacity
+    + 1 int64) holds the sorted position where segment s starts for s <
+    count and num_rows after, ``count`` the segment count (0-d int64)."""
+    dev = order.device
+    cap = order.shape[0]
+    n = num_rows
+    rows = order[:n]
+    new = torch.zeros(n, dtype=torch.bool, device=dev)
+    if n:
+        new[0] = True
+    for d, v in zip(canonical_keys(datas, valids), valids):
+        sd, sv = d[rows], v[rows]
+        new[1:] |= (sd[1:] != sd[:-1]) | (sv[1:] != sv[:-1])
+    sid = torch.cumsum(new.to(torch.int64), 0) - 1
+    starts = torch.full((cap + 2,), n, dtype=torch.int64, device=dev)
+    starts.scatter_(0, torch.where(new, sid, cap + 1), iota(n, dev))
+    return starts[:cap + 1], new.sum()
+
+
+def segment_starts_cuda(datas, valids, order, num_rows: int):
+    """K10's segmentation pass on the card (csrc/seg_agg.cu: flag, block
+    scan, stable scatter of the starts); same result as
+    :func:`segment_starts_plain`."""
+    cuda_lib.require_cuda("segment_ids", order, *datas, *valids)
+    cap = int(order.shape[0])
+    k = len(datas)
+    if not 0 < k <= _MAX_SEG_KEYS or len(valids) != k or order.dtype != torch.int64:
+        raise ValueError(f"segment_ids: {k} keys, order {order.dtype}")
+    if not 0 <= num_rows <= cap:
+        raise ValueError(f"segment_ids: {num_rows} rows of {cap}")
+    for d, v in zip(datas, valids):
+        if d.shape != (cap,) or v.shape != (cap,) or v.dtype != torch.bool:
+            raise ValueError("segment_ids: key planes must be capacity-long, "
+                             "validity bool")
+        if d.dtype not in _INT_DTYPES + (torch.bool, torch.float32, torch.float64):
+            raise TypeError(f"segment_ids: key of dtype {d.dtype}")
+    dev = order.device
+    starts = torch.empty(cap + 1, dtype=torch.int64, device=dev)
+    if num_rows == 0:
+        starts.zero_()
+        return starts, torch.zeros((), dtype=torch.int64, device=dev)
+    nb = cuda_lib.blocks(num_rows)
+    flags = torch.empty(num_rows, dtype=torch.uint8, device=dev)
+    offs = torch.empty(nb + 1, dtype=torch.int64, device=dev)
+    keep = []
+
+    def arr(pair):
+        keep.append(pair[1])
+        return pair[0]
+
+    err = cuda_lib.library().blz_segment_starts(
+        k, arr(cuda_lib.ptr_array(datas)), arr(cuda_lib.ptr_array(valids)),
+        arr(cuda_lib.int_array([d.element_size() for d in datas])),
+        arr(cuda_lib.int_array([int(d.is_floating_point()) for d in datas])),
+        order.data_ptr(), num_rows, cap, flags.data_ptr(), offs.data_ptr(),
+        starts.data_ptr(), cuda_lib.stream_of(dev))
+    cuda_lib.check(err, "segment_ids")
+    cuda_lib.LAUNCHES["segment_ids"] += 1
+    return starts, offs[nb]
+
+
+def segment_ids(key_data, key_valid, exists, num_rows: int, direct: bool = True):
+    """``_segmentation`` of blaze_tpu/ops/agg_device.py:1082: the stable
+    order that makes equal keys adjacent (K5's key pass and radix sort,
+    keys ascending, null first, NaN last), then K10's segment starts over
+    it. ``key_valid`` is masked with ``exists`` (a prefix of num_rows
+    rows). ``direct`` allows the single-integer-key case where the key is
+    the segment id. Returns (order, starts, count) as
+    :func:`segment_starts_plain` describes them."""
+    datas, valids = _segment_planes(key_data, key_valid, exists, direct)
+    ops = sort_key_operands(datas, valids, exists, [(True, True)] * len(datas))
+    order = lexsort_indices(ops, num_rows)
+    fn = segment_starts_cuda if order.is_cuda else segment_starts_plain
+    starts, count = fn(datas, valids, order, num_rows)
+    return order, starts, count
+
+
+def _order_words(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 words in IEEE total order (-0.0 below 0.0); the
+    map is its own inverse."""
+    b = x.view(torch.int64)
+    return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFF)
+
+
+def _quiet_nan(x: torch.Tensor) -> torch.Tensor:
+    """Every NaN of a float64 plane as the quiet NaN 0x7FF8...: the payload
+    a NaN gets from arithmetic differs between the host and the card."""
+    return torch.where(torch.isnan(x), _QNAN_BITS, x.view(torch.int64)).view(torch.float64)
+
+
+def narrow_float(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float64 plane cast to ``dtype``; NaN narrows to the quiet float32
+    NaN on either device."""
+    out = x.to(dtype)
+    if dtype != torch.float32:
+        return out
+    return torch.where(torch.isnan(x), 0x7FC00000, out.view(torch.int32)).view(torch.float32)
+
+
+def _float_fold(seg, contrib, size):
+    """Per-segment sums as left folds from +0.0 in row order: CPU
+    ``index_add_`` on a 1-d float64 table adds its updates one by one in
+    index order (the scatter-add order of the reference's XLA CPU
+    kernels); on a CUDA tensor it would use atomics, so the fold runs on
+    the host."""
+    table = torch.zeros(size, dtype=torch.float64)
+    table.index_add_(0, seg.cpu(), contrib.cpu())
+    return table.to(contrib.device)
+
+
+def segment_reduce_plain(order, starts, count, num_rows: int, ops, emits):
+    """Plain twin of K10's reduction: the ops over the rows of each segment
+    (the sorted positions starts[s] .. starts[s + 1]), in sorted order,
+    then the emits; everything past ``count`` is 0. Float ADD is a left
+    fold from +0.0 in sorted row order; float MIN/MAX follow XLA's
+    scatter min/max (-0.0 below 0.0, a NaN in the segment gives NaN); a
+    float result that is NaN is the quiet NaN. Returns (emit outputs
+    (int64 / float64 / bool), first), ``first`` the row index of each
+    segment's first row (0 past count)."""
+    dev = order.device
+    cap = order.shape[0]
+    n = num_rows
+    rows = order[:n]
+    pos = iota(n, dev)
+    seg = torch.searchsorted(starts[:cap], pos, right=True) - 1
+    out_valid = iota(cap, dev) < count
+    tables = []
+    for op in ops:
+        ok = torch.ones(n, dtype=torch.bool, device=dev)
+        for v in op.valids:
+            ok = ok & v[rows]
+        if op.kind == OP_COUNT:
+            t = torch.zeros(cap, dtype=torch.int64, device=dev)
+            t.index_add_(0, seg, ok.to(torch.int64))
+        elif op.is_float:
+            src = op.src[rows]
+            if op.kind == OP_ADD:
+                t = _float_fold(seg, torch.where(ok, src, 0.0), cap)
+            else:
+                sent = float("inf") if op.kind == OP_MIN else float("-inf")
+                w = _order_words(torch.where(ok, src, sent))
+                t = torch.full((cap,), sent, dtype=torch.float64, device=dev)
+                t = _order_words(_order_words(t).scatter_reduce(
+                    0, seg, w, "amin" if op.kind == OP_MIN else "amax")).view(torch.float64)
+                nan = torch.zeros(cap, dtype=torch.int64, device=dev)
+                nan.index_add_(0, seg, (ok & torch.isnan(src)).to(torch.int64))
+                t = torch.where(nan > 0, float("nan"), t)
+            t = _quiet_nan(t)
+        else:
+            src = op.src[rows]
+            if op.kind == OP_ADD:
+                t = torch.zeros(cap, dtype=torch.int64, device=dev)
+                t.index_add_(0, seg, torch.where(ok, src * op.mult, 0))
+            else:
+                t = torch.full((cap,), op.init, dtype=torch.int64, device=dev)
+                t.scatter_reduce_(0, seg, torch.where(ok, src, op.init),
+                                  "amin" if op.kind == OP_MIN else "amax")
+        tables.append(t)
+    outs = []
+    for e in emits:
+        t = tables[e.table]
+        if e.kind == EMIT_NONZERO:
+            outs.append((t != 0) & out_valid)
+            continue
+        if e.kind == EMIT_WHERE:
+            t = _zero_where(tables[e.aux] != 0, t)
+        outs.append(_zero_where(out_valid, t))
+    first = _zero_where(out_valid, order[starts[:cap].clamp(max=max(n - 1, 0))])
+    return outs, first
+
+
+def segment_reduce_cuda(name, order, starts, count, num_rows: int, ops, emits):
+    """K10's reduction on the card (csrc/seg_agg.cu: one thread per
+    segment folds its rows in sorted order); same outputs as
+    :func:`segment_reduce_plain`. ``count`` is the device scalar
+    ``segment_starts_cuda`` returned."""
+    srcs = [op.src for op in ops if op.src is not None]
+    valids = [v for op in ops for v in op.valids]
+    cuda_lib.require_cuda(name, order, starts, *srcs, *valids)
+    cap = int(order.shape[0])
+    if len(ops) > _MAX_SEG_OPS or len(emits) > _MAX_SEG_EMITS or \
+            any(len(op.valids) > 3 for op in ops):
+        raise NotImplementedError(f"{name}: more aggregates than one "
+                                  "segment-reduce launch takes")
+    for s in srcs:
+        if s.dtype not in (torch.int64, torch.float64) or s.shape != (cap,):
+            raise TypeError(f"{name}: state source {s.dtype} of {tuple(s.shape)}")
+    for v in valids:
+        if v.dtype != torch.bool or v.shape != (cap,):
+            raise TypeError(f"{name}: validity plane {v.dtype} of {tuple(v.shape)}")
+    if starts.shape != (cap + 1,) or count.dtype != torch.int64:
+        raise ValueError(f"{name}: starts {tuple(starts.shape)} for {cap} rows")
+    dev = order.device
+    outs = [torch.empty(cap, dtype=torch.bool, device=dev) if e.kind == EMIT_NONZERO
+            else torch.empty(cap, dtype=torch.float64 if ops[e.table].is_float
+                             else torch.int64, device=dev) for e in emits]
+    first = torch.empty(cap, dtype=torch.int64, device=dev)
+    keep = []
+
+    def arr(pair):
+        keep.append(pair[1])
+        return pair[0]
+
+    def init_bits(op):
+        if not op.is_float:
+            return int(op.init)
+        return int(torch.tensor(float(op.init), dtype=torch.float64)
+                   .view(torch.int64).item())
+
+    op_valid = []
+    for op in ops:
+        op_valid += list(op.valids) + [None] * (3 - len(op.valids))
+    LL = cuda_lib.ctypes.c_longlong
+    err = cuda_lib.library().blz_segment_reduce(
+        starts.data_ptr(), order.data_ptr(), count.data_ptr(), cap,
+        len(ops), arr(cuda_lib.int_array([op.kind for op in ops])),
+        arr(cuda_lib.int_array([int(op.is_float) for op in ops])),
+        arr(cuda_lib.ptr_array([op.src for op in ops])),
+        arr(cuda_lib.int_array([len(op.valids) for op in ops])),
+        arr(cuda_lib.ptr_array(op_valid)),
+        arr(cuda_lib.int_array([op.mult for op in ops], LL)),
+        arr(cuda_lib.int_array([init_bits(op) for op in ops], LL)),
+        len(emits), arr(cuda_lib.int_array([e.kind for e in emits])),
+        arr(cuda_lib.int_array([e.table for e in emits])),
+        arr(cuda_lib.int_array([e.aux for e in emits])),
+        arr(cuda_lib.ptr_array(outs)), first.data_ptr(), cuda_lib.stream_of(dev))
+    cuda_lib.check(err, name)
+    cuda_lib.LAUNCHES[name] += 1
+    return outs, first
+
+
+def segment_reduce(name, order, starts, count, num_rows: int, ops, emits):
+    """``_reduce_aggs`` (:1165) / ``_merge_reduce`` (:1330) over sorted
+    segments: K10 on CUDA planes, the plain version on CPU ones. ``name``
+    is the launch count to add to."""
+    if order.is_cuda:
+        return segment_reduce_cuda(name, order, starts, count, num_rows, ops, emits)
+    return segment_reduce_plain(order, starts, count, num_rows, ops, emits)
+
+
 # -- window counters (host numpy) -------------------------------------------------
 #
 # Group structure arrives as boundary masks over rows sorted by (partition,

@@ -3,17 +3,19 @@
 Counterpart of blaze_tpu/ops/agg.py ``AggExec._execute`` for its device
 paths:
 
-- PARTIAL over raw rows: per-batch partial states from K3
-  (``DevicePartialAgger``), then per-task consolidation of the staged
-  partials with K4 (PARTIAL_MERGE) when they are few and reducing, as the
-  JAX package does before the exchange;
-- FINAL / PARTIAL_MERGE over partial states: one K4 merge of every staged
-  state batch (``DeviceMergeAgger``).
+- PARTIAL over raw rows: per-batch partial states from the slot route
+  (K3) or the sort route (K10), as ``DevicePartialAgger`` routes each
+  batch, then per-task consolidation of the staged partials
+  (PARTIAL_MERGE) when they are few and reducing, as the JAX package does
+  before the exchange;
+- FINAL / PARTIAL_MERGE over partial states: one merge of every staged
+  state batch (``DeviceMergeAgger``: K4 over a radix plan, else K10).
 
-Not ported (NotImplementedError, ROADMAP.md Queue 2): the host ``AggTable``
-with spill, sort-mode aggregation, aggregates without grouping keys,
+Not ported (NotImplementedError, ROADMAP.md): the host ``AggTable`` with
+spill, sort-mode aggregation, aggregates without grouping keys,
 single-stage COMPLETE mode and the passthrough kernel of partial skipping
-(``supports_partial_skipping`` is accepted and never engages).
+(``supports_partial_skipping`` is accepted and never engages; Queue 2 row
+9).
 """
 
 from __future__ import annotations

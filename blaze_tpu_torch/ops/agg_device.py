@@ -1,26 +1,42 @@
-"""Device slot aggregation: the partial (K3) and merge (K4) paths.
+"""Device grouped aggregation: the slot routes (K3, K4) and the sort
+route (K10).
 
-Counterpart of blaze_tpu/ops/agg_device.py's dense/radix paths
-(``DevicePartialAgger._try_dense`` with ``_dense_partial_kernel``, and
-``DeviceMergeAgger`` with ``_radix_merge_kernel``). Integer group keys are
-probed for their range (one ``aminmax`` and one small sync per stream),
-planned into a slot table (``_plan_slot_table``: per key a power-of-two
-range whose code 0 is the null key), and every row scatters its
-aggregate states straight into its slot. Groups come out in slot order
-(keys ascending, nulls first), keys rebuilt from the slot index.
+Counterpart of blaze_tpu/ops/agg_device.py's ``DevicePartialAgger`` and
+``DeviceMergeAgger``.
 
-Both kernels run one program (csrc/slot_agg.cu) described by two lists:
-*ops* (ADD / COUNT / MIN / MAX into a slot table, gated by up to three
-validity planes) and *emits* (RAW table value, NONZERO flag, or the value
-WHERE a companion count is nonzero). ``_partial_program`` and
-``_merge_program`` spell SUM/COUNT/AVG/MIN/MAX with them, exactly as
-``_reduce_aggs`` and ``_merge_reduce`` compute them in the JAX package;
-``_run_plain`` is the plain PyTorch version of the same program.
+- Slot routes (``_dense_partial_kernel``, ``_radix_merge_kernel``):
+  integer group keys are probed for their range (one ``aminmax`` and one
+  small sync per stream), planned into a slot table (``plan_slot_table``:
+  per key a power-of-two range whose code 0 is the null key), and every
+  row scatters its aggregate states straight into its slot. Groups come
+  out in slot order (keys ascending, nulls first), keys rebuilt from the
+  slot index. ``dense_agg`` gates the partial's small tables and
+  ``radix_agg`` its large ones and the merge, as in the JAX package.
+- Sort route (``_partial_kernel``, ``_merge_kernel``): K5 sorts the rows
+  by key, K10 cuts them into segments and reduces each one, K6 takes each
+  group's keys from its first row. It serves every aggregate whose keys
+  are not integers, whose slot plan does not fit ``radix_agg_max_slots``,
+  whose batch has no valid key to plan from, or whose route is switched
+  off, as the reference routes them. A single integer key in [0,
+  capacity - 1) is its own segment id there, nulls last (the reference's
+  direct segmentation).
+- Float aggregate states (float SUM/AVG sums, float MIN/MAX) never reach
+  K3/K4, whose adds are atomics: where the reference would take a slot
+  route they take K10 with the sorted segmentation, which gives the slot
+  route's group order and its per-group fold order, bit for bit.
 
-Key ranges wider than ``radix_agg_max_slots``, non-integer keys and any
-aggregate outside ops/aggfns.py raise NotImplementedError: the sort-path
-kernels (``_partial_kernel``, ``_merge_kernel``) are not ported yet
-(ROADMAP.md Queue 2 item 8).
+All kernels run one program described by two lists: *ops* (ADD / COUNT /
+MIN / MAX into a table, gated by up to three validity planes) and *emits*
+(RAW table value, NONZERO flag, or the value WHERE a companion count is
+nonzero). ``_partial_program`` and ``_merge_program`` spell
+SUM/COUNT/AVG/MIN/MAX with them, exactly as ``_reduce_aggs`` and
+``_merge_reduce`` compute them in the JAX package; ``_run_plain`` is the
+plain PyTorch version of the slot kernels, and core/kernels.py holds
+K10's twins.
+
+Not ported: wide-decimal (limb) states and any aggregate outside
+ops/aggfns.py (NotImplementedError naming ROADMAP.md), and the
+passthrough kernel of partial skipping (Queue 2 row 9).
 """
 
 from __future__ import annotations
@@ -32,13 +48,13 @@ import torch
 
 from blaze_tpu_torch.core import kernels as K
 from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn, iota
+from blaze_tpu_torch.core.kernels import (EMIT_NONZERO, EMIT_RAW, EMIT_WHERE,
+                                          OP_ADD, OP_COUNT, OP_MAX, OP_MIN,
+                                          AggEmit, AggOp)
 from blaze_tpu_torch.exprs.compiler import ExprEvaluator, broadcast
 from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ops import aggfns
 from blaze_tpu_torch.utils import cuda_lib
-
-OP_ADD, OP_COUNT, OP_MIN, OP_MAX = 0, 1, 2, 3
-EMIT_RAW, EMIT_NONZERO, EMIT_WHERE = 0, 1, 2
 
 # "no valid key in this batch and no plan to anchor to"
 _DEFER_PLAN = object()
@@ -48,55 +64,49 @@ _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} needs the sort-path aggregate kernels, which are not ported "
-        "to the PyTorch package yet (ROADMAP.md Queue 2 item 8)")
+        f"{what} is not on the PyTorch port yet (ROADMAP.md Queue 1 item 2)")
 
 
 # -- the slot program ----------------------------------------------------------
 
 
-class _Op:
-    __slots__ = ("kind", "src", "valids", "mult", "init")
-
-    def __init__(self, kind, src, valids, mult=1, init=0):
-        self.kind, self.src, self.valids = kind, src, list(valids)
-        self.mult, self.init = mult, init
-
-
-class _Emit:
-    __slots__ = ("kind", "table", "aux", "dtype")
-
-    def __init__(self, kind, table, dtype, aux=-1):
-        self.kind, self.table, self.aux, self.dtype = kind, table, aux, dtype
-
-
-def _extreme(dtype: torch.dtype, which: str) -> int:
+def _extreme(dtype: torch.dtype, which: str):
+    if dtype.is_floating_point:
+        return float("inf") if which == "min" else float("-inf")
     info = torch.iinfo(dtype)
     return info.max if which == "min" else info.min
 
 
+def _widen(x: torch.Tensor, to_float: bool = False) -> torch.Tensor:
+    """A state source as the kernels take it: float64 for floats (or when
+    the aggregate accumulates in float64), int64 otherwise."""
+    return x.to(torch.float64 if to_float or x.is_floating_point() else torch.int64)
+
+
 def _partial_program(specs, args):
-    """Ops/emits of ``_reduce_aggs`` for the slice's kinds. ``args[i]`` is
-    aggregate i's (data, valid) pair, valid already masked with exists."""
-    ops: List[_Op] = []
-    emits: List[_Emit] = []
-    for (kind, rescale, _acc), (data, valid) in zip(specs, args):
+    """Ops/emits of ``_reduce_aggs`` for the ported kinds. ``args[i]`` is
+    aggregate i's (data, valid) pair, valid already masked with exists;
+    ``specs[i]`` its (kind, rescale power, accumulator dtype)."""
+    ops: List[AggOp] = []
+    emits: List[AggEmit] = []
+    for (kind, rescale, acc), (data, valid) in zip(specs, args):
         t = len(ops)
         if kind in ("sum", "avg"):
-            ops += [_Op(OP_ADD, data, [valid], 10 ** rescale),
-                    _Op(OP_COUNT, None, [valid])]
-            emits += [_Emit(EMIT_RAW, t, torch.int64),
-                      _Emit(EMIT_NONZERO, t + 1, torch.bool) if kind == "sum"
-                      else _Emit(EMIT_RAW, t + 1, torch.int64)]
+            src = _widen(data, acc == "float64")  # widen BEFORE accumulating
+            ops += [AggOp(OP_ADD, src, [valid], 10 ** rescale),
+                    AggOp(OP_COUNT, None, [valid])]
+            emits += [AggEmit(EMIT_RAW, t, src.dtype),
+                      AggEmit(EMIT_NONZERO, t + 1, torch.bool) if kind == "sum"
+                      else AggEmit(EMIT_RAW, t + 1, torch.int64)]
         elif kind == "count":
-            ops.append(_Op(OP_COUNT, None, [valid]))
-            emits.append(_Emit(EMIT_RAW, t, torch.int64))
+            ops.append(AggOp(OP_COUNT, None, [valid]))
+            emits.append(AggEmit(EMIT_RAW, t, torch.int64))
         elif kind in ("min", "max"):
-            ops += [_Op(OP_MIN if kind == "min" else OP_MAX, data, [valid],
-                        init=_extreme(data.dtype, kind)),
-                    _Op(OP_COUNT, None, [valid])]
-            emits += [_Emit(EMIT_WHERE, t, data.dtype, aux=t + 1),
-                      _Emit(EMIT_NONZERO, t + 1, torch.bool)]
+            ops += [AggOp(OP_MIN if kind == "min" else OP_MAX, _widen(data), [valid],
+                          init=_extreme(data.dtype, kind)),
+                    AggOp(OP_COUNT, None, [valid])]
+            emits += [AggEmit(EMIT_WHERE, t, data.dtype, aux=t + 1),
+                      AggEmit(EMIT_NONZERO, t + 1, torch.bool)]
         else:
             _not_ported(f"partial aggregate kind {kind!r}")
     return ops, emits
@@ -106,33 +116,33 @@ def _merge_program(kinds, states):
     """Ops/emits of ``_merge_reduce``. ``states[i]`` is aggregate i's list
     of (data, valid) state-column pairs, valid already masked with
     exists."""
-    ops: List[_Op] = []
-    emits: List[_Emit] = []
+    ops: List[AggOp] = []
+    emits: List[AggEmit] = []
     for kind, scols in zip(kinds, states):
         t = len(ops)
         if kind == "sum":
             (sd, sv), (hd, hv) = scols
             gate = [sv, hd, hv]
-            ops += [_Op(OP_ADD, sd, gate), _Op(OP_COUNT, None, gate)]
-            emits += [_Emit(EMIT_RAW, t, sd.dtype),
-                      _Emit(EMIT_NONZERO, t + 1, torch.bool)]
+            ops += [AggOp(OP_ADD, _widen(sd), gate), AggOp(OP_COUNT, None, gate)]
+            emits += [AggEmit(EMIT_RAW, t, sd.dtype),
+                      AggEmit(EMIT_NONZERO, t + 1, torch.bool)]
         elif kind == "count":
             (cd, cv), = scols
-            ops.append(_Op(OP_ADD, cd, [cv]))
-            emits.append(_Emit(EMIT_RAW, t, torch.int64))
+            ops.append(AggOp(OP_ADD, _widen(cd), [cv]))
+            emits.append(AggEmit(EMIT_RAW, t, torch.int64))
         elif kind == "avg":
             (sd, sv), (cd, cv) = scols
-            ops += [_Op(OP_ADD, sd, [sv]), _Op(OP_ADD, cd, [cv])]
-            emits += [_Emit(EMIT_RAW, t, sd.dtype),
-                      _Emit(EMIT_RAW, t + 1, torch.int64)]
+            ops += [AggOp(OP_ADD, _widen(sd), [sv]), AggOp(OP_ADD, _widen(cd), [cv])]
+            emits += [AggEmit(EMIT_RAW, t, sd.dtype),
+                      AggEmit(EMIT_RAW, t + 1, torch.int64)]
         elif kind in ("min", "max"):
             (vd, vv), (hd, hv) = scols
             gate = [vv, hd, hv]
-            ops += [_Op(OP_MIN if kind == "min" else OP_MAX, vd, gate,
-                        init=_extreme(vd.dtype, kind)),
-                    _Op(OP_COUNT, None, gate)]
-            emits += [_Emit(EMIT_RAW, t, vd.dtype),
-                      _Emit(EMIT_NONZERO, t + 1, torch.bool)]
+            ops += [AggOp(OP_MIN if kind == "min" else OP_MAX, _widen(vd), gate,
+                          init=_extreme(vd.dtype, kind)),
+                    AggOp(OP_COUNT, None, gate)]
+            emits += [AggEmit(EMIT_RAW, t, vd.dtype),
+                      AggEmit(EMIT_NONZERO, t + 1, torch.bool)]
         else:
             _not_ported(f"merge aggregate kind {kind!r}")
     return ops, emits
@@ -215,8 +225,7 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
     :func:`_run_plain`."""
     dev = kvalids[0].device
     keys64 = [k.to(torch.int64).contiguous() for k in keys]
-    srcs = [op.src.to(torch.int64).contiguous() if op.src is not None else None
-            for op in ops]
+    srcs = [op.src.contiguous() if op.src is not None else None for op in ops]
     cuda_lib.require_cuda(name, *keys64, *kvalids,
                           *[v for op in ops for v in op.valids],
                           *[s for s in srcs if s is not None])
@@ -287,6 +296,10 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
 
 
 def _run(name, *args):
+    ops = args[6]
+    if any(op.is_float for op in ops):
+        # K3/K4 add with atomics: a float sum would depend on their order
+        raise TypeError(f"{name}: float states take the sort route (K10)")
     on_cuda = args[1][0].is_cuda  # key validity planes
     return _run_cuda(name, *args) if on_cuda else _run_plain(*args)
 
@@ -323,6 +336,44 @@ def slot_agg_merge_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes,
     ops, emits = _merge_program(kinds, states)
     return _run_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
                       emits, out_cap, 0)
+
+
+def _run_sorted(name, keys, kvalids, num_rows, ops, emits, direct):
+    """The sort route (K5 sort, K10 segments and reduction, K6 take of each
+    group's keys from its first row); outputs as the slot program's, with
+    capacity-long planes: (group count, out_valid, per key (data, valid),
+    per emit its column). One sync, the group count, besides K5's."""
+    dev = kvalids[0].device
+    cap = kvalids[0].shape[0]
+    exists = iota(cap, dev) < num_rows
+    order, starts, count = K.segment_ids(keys, kvalids, exists, num_rows, direct)
+    outs, first = K.segment_reduce(name, order, starts, count, num_rows, ops, emits)
+    num_groups = int(count)
+    kd, kv = K.gather_planes(keys, kvalids, first, cap, num_groups)
+    results = [num_groups, iota(cap, dev) < num_groups]
+    for d, v in zip(kd, kv):
+        results += [d, v]
+    results += [o if e.kind == EMIT_NONZERO else K.narrow_float(o, e.dtype)
+                for o, e in zip(outs, emits)]
+    return tuple(results)
+
+
+def seg_agg_partial(keys, kvalids, num_rows, specs, args, direct=True):
+    """K10 partial: rows -> partial states in key order; the outputs of
+    ``_partial_kernel`` (keys' validity masked with exists, a prefix of
+    num_rows rows). ``direct`` allows the single-integer-key segmentation
+    (nulls last); without it groups come in the slot routes' order."""
+    ops, emits = _partial_program(specs, args)
+    return _run_sorted("seg_agg_partial", keys, kvalids, num_rows, ops, emits,
+                       direct)
+
+
+def seg_agg_merge(keys, kvalids, num_rows, kinds, states, direct=True):
+    """K10 merge: partial states -> merged states in key order; the outputs
+    of ``_merge_kernel``."""
+    ops, emits = _merge_program(kinds, states)
+    return _run_sorted("seg_agg_merge", keys, kvalids, num_rows, ops, emits,
+                       direct)
 
 
 # -- planning ------------------------------------------------------------------
@@ -371,18 +422,32 @@ def plan_slot_table(probe: np.ndarray, capacity: int, prev, max_slots: int,
     return tuple(bases), tuple(sizes), conf.capacity_for(min(S, capacity))
 
 
-def _require_int_keys(key_data, what: str):
-    for d in key_data:
-        if d.dtype not in _INT_DTYPES:
-            _not_ported(f"{what} over a {d.dtype} key")
+def _int_keys(key_data) -> bool:
+    return bool(key_data) and all(d.dtype in _INT_DTYPES for d in key_data)
+
+
+def _slot_fits(key_data, key_valid, num_rows, bases, sizes) -> bool:
+    """Does every valid key lie in the plan (radix_pack's rule)? One sync."""
+    exists = iota(key_valid[0].shape[0], key_valid[0].device) < num_rows
+    return bool(K.radix_pack(key_data, key_valid, exists, bases, sizes,
+                             K.radix_strides(sizes))[1])
 
 
 # -- the operators' engines ----------------------------------------------------
 
 
+def _route_on(flag: Optional[bool]) -> bool:
+    """A slot route's switch: True/False force it; None is the port's
+    default, on (the JAX package's None reads its backend hint)."""
+    return True if flag is None else bool(flag)
+
+
 class DevicePartialAgger:
-    """Streams batches through K3: probe once per stream, re-plan once on a
-    range overflow, one group-count sync per batch."""
+    """Streams batches through the slot routes (K3) or the sort route
+    (K10), routed as ``_try_dense`` routes them: probe once per stream,
+    re-plan once on a range overflow, the sort route for a batch without
+    a valid key to plan from, and for the rest of the stream once no plan
+    fits; one group-count sync per batch."""
 
     def __init__(self, op, child_schema: T.Schema, conf):
         self.op = op
@@ -401,7 +466,13 @@ class DevicePartialAgger:
                     rescale = target.scale - fn.arg_type.scale
             if rescale < 0:
                 _not_ported(f"a {fn.kind} into a smaller decimal scale")
-            self.specs.append((fn.kind, rescale, "int64"))
+            state_t = fn.sum_type if fn.kind == "avg" else fn.result_type
+            acc = "float64" if aggfns.is_float(state_t) else "int64"
+            self.specs.append((fn.kind, rescale, acc))
+        self.float_states = any(acc == "float64" for _, _, acc in self.specs)
+        # slot-route state: _dense_ok/_radix_ok None = undecided, False =
+        # off for this stream; _bucket_state the active plan
+        self._dense_ok = self._radix_ok = None
         self._bucket_state = None
         self.last_bucket_stats = None
 
@@ -411,7 +482,6 @@ class DevicePartialAgger:
             d, v = broadcast(self.group_ev.eval(e, batch), batch)
             key_data.append(d)
             key_valid.append(v & exists)
-        _require_int_keys(key_data, "a grouped aggregate")
         return key_data, key_valid
 
     def _args(self, batch: ColumnarBatch, exists: torch.Tensor):
@@ -426,19 +496,24 @@ class DevicePartialAgger:
         return args
 
     def _plan(self, probe, capacity, prev):
-        st = plan_slot_table(probe, capacity, prev,
-                             min(self.conf.dense_agg_max_buckets, capacity),
-                             self.conf)
-        if st is _DEFER_PLAN:
-            return st
-        if st is not None:
-            return ("dense",) + st
-        st = plan_slot_table(probe, capacity, prev,
-                             self.conf.radix_agg_max_slots, self.conf)
-        if st is None:
-            _not_ported(f"a key range beyond radix_agg_max_slots="
-                        f"{self.conf.radix_agg_max_slots} slots")
-        return ("radix",) + st
+        """``_plan_bucketed``: ("dense"|"radix", bases, sizes, out_cap),
+        _DEFER_PLAN, or None when no enabled table fits."""
+        if self._dense_ok:
+            st = plan_slot_table(probe, capacity, prev,
+                                 min(self.conf.dense_agg_max_buckets, capacity),
+                                 self.conf)
+            if st is _DEFER_PLAN:
+                return st
+            if st is not None:
+                return ("dense",) + st
+        if self._radix_ok:
+            st = plan_slot_table(probe, capacity, prev,
+                                 self.conf.radix_agg_max_slots, self.conf)
+            if st is _DEFER_PLAN:
+                return st
+            if st is not None:
+                return ("radix",) + st
+        return None
 
     def process(self, batch: ColumnarBatch) -> Optional[ColumnarBatch]:
         n = batch.num_rows
@@ -447,41 +522,60 @@ class DevicePartialAgger:
         exists = batch.row_exists_mask()
         key_data, key_valid = self._keys(batch, exists)
         args = self._args(batch, exists)
-        key_dtypes = [d.dtype for d in key_data]
+        if self._dense_ok is None:
+            ints = _int_keys(key_data)
+            self._dense_ok = ints and _route_on(self.conf.dense_agg)
+            self._radix_ok = ints and _route_on(self.conf.radix_agg)
+        outs = self._try_slots(key_data, key_valid, args, n, batch.capacity)
+        if outs is None:
+            outs = seg_agg_partial(key_data, key_valid, n, self.specs, args)
+        num_groups = int(outs[0])
+        return self._assemble(outs, num_groups) if num_groups else None
+
+    def _try_slots(self, key_data, key_valid, args, n, capacity):
+        """``_try_dense``: the slot route's outputs, or None for the sort
+        route."""
         self.last_bucket_stats = None
+        if not (self._dense_ok or self._radix_ok):
+            return None
         st = self._bucket_state
         prev = None
         for _ in range(2):
             if st is None:
-                st = self._plan(probe_ranges(key_data, key_valid),
-                                batch.capacity, prev)
+                st = self._plan(probe_ranges(key_data, key_valid), capacity, prev)
                 if st is _DEFER_PLAN:
-                    # every key of this batch is null: one null group, the
-                    # next batch probes again
-                    k = len(key_data)
-                    st_once = ("dense", (0,) * k, (2,) * k,
-                               self.conf.capacity_for(min(2 ** k, batch.capacity)))
-                    outs = self._call(st_once, key_data, key_valid, key_dtypes,
-                                      n, args)
-                    return self._assemble(outs, int(outs[0]))
+                    # no valid key to anchor a plan: the sort route for this
+                    # batch, a fresh probe on the next one
+                    self._bucket_state = None
+                    return None
+                if st is None:
+                    # too wide for every enabled table: the sort route for
+                    # the rest of the stream
+                    self._dense_ok = self._radix_ok = False
+                    self._bucket_state = None
+                    return None
                 self._bucket_state = st
-            outs = self._call(st, key_data, key_valid, key_dtypes, n, args)
-            num_groups = int(outs[0])  # the sync; -1 flags a range overflow
-            if num_groups >= 0:
-                if st[0] == "radix":
+            outs = self._call(st, key_data, key_valid, n, args)
+            if int(outs[0]) >= 0:  # the sync; -1 flags a range overflow
+                if st[0] == "radix" and not self.float_states:
                     self.last_bucket_stats = (outs[-2], outs[-1])
                     outs = outs[:-2]
-                return self._assemble(outs, num_groups) if num_groups else None
+                return outs
             prev, st = (st[1], st[2]), None
-            self._bucket_state = None
-        raise RuntimeError("slot plan overflowed after re-planning over the "
-                           "union of the probed ranges")
+        self._bucket_state = None
+        return None
 
-    def _call(self, st, key_data, key_valid, key_dtypes, n, args):
+    def _call(self, st, key_data, key_valid, n, args):
         table, bases, sizes, out_cap = st
+        if self.float_states:
+            # K10 in the slot order; the plan still decides the route
+            if not _slot_fits(key_data, key_valid, n, bases, sizes):
+                return (-1,)
+            return seg_agg_partial(key_data, key_valid, n, self.specs, args,
+                                   direct=False)
         nbuck = self.conf.radix_agg_buckets if table == "radix" else 0
-        return slot_agg_partial(key_data, key_valid, key_dtypes, n, bases,
-                                sizes, self.specs, args, out_cap, nbuck)
+        return slot_agg_partial(key_data, key_valid, [d.dtype for d in key_data],
+                                n, bases, sizes, self.specs, args, out_cap, nbuck)
 
     def _assemble(self, outs, num_groups: int) -> ColumnarBatch:
         out_valid = outs[1]
@@ -515,9 +609,11 @@ class DevicePartialAgger:
 
 
 class DeviceMergeAgger:
-    """Merges partial-state batches with K4: concatenate all input (states
-    are small next to raw rows), one probe, one kernel call, then merged
-    state columns (PARTIAL_MERGE) or final values (FINAL)."""
+    """Merges partial-state batches: concatenate all input (states are small
+    next to raw rows), then K4 over a radix plan where ``radix_agg`` is on
+    and the integer keys fit one, else K10 (``DeviceMergeAgger.run`` and
+    ``_radix_plan`` of the JAX package); merged state columns
+    (PARTIAL_MERGE) or final values (FINAL)."""
 
     def __init__(self, op, child_schema: T.Schema, conf):
         self.op = op
@@ -532,6 +628,7 @@ class DeviceMergeAgger:
         if not batches:
             return []
         big = ColumnarBatch.concat(batches, self.child_schema, self.conf)
+        n = big.num_rows
         exists = big.row_exists_mask()
         ev = ExprEvaluator([e for _, e in op.groupings], big.schema)
         key_data, key_valid = [], []
@@ -539,7 +636,6 @@ class DeviceMergeAgger:
             d, v = broadcast(ev.eval(e, big), big)
             key_data.append(d)
             key_valid.append(v & exists)
-        _require_int_keys(key_data, "a merge aggregate")
         states = []
         pos = len(op.groupings)
         for fn in self.fns:
@@ -549,24 +645,31 @@ class DeviceMergeAgger:
                 cols.append((c.data, c.validity & exists))
                 pos += 1
             states.append(cols)
-        st = plan_slot_table(probe_ranges(key_data, key_valid), big.capacity,
-                             None, self.conf.radix_agg_max_slots, self.conf)
-        if st is None:
-            _not_ported(f"a merge key range beyond radix_agg_max_slots="
-                        f"{self.conf.radix_agg_max_slots} slots")
-        if st is _DEFER_PLAN:
-            k = len(key_data)
-            st = ((0,) * k, (2,) * k, self.conf.capacity_for(2 ** k))
-        bases, sizes, out_cap = st
-        outs = slot_agg_merge(key_data, key_valid, [d.dtype for d in key_data],
-                              big.num_rows, bases, sizes, self.kinds, states,
-                              out_cap)
+        float_states = any(d.is_floating_point() for cols in states for d, _ in cols)
+        outs = None
+        st = None
+        if _route_on(self.conf.radix_agg) and _int_keys(key_data):
+            st = plan_slot_table(probe_ranges(key_data, key_valid), big.capacity,
+                                 None, self.conf.radix_agg_max_slots, self.conf)
+        if st is not None and st is not _DEFER_PLAN:
+            bases, sizes, out_cap = st
+            if float_states:
+                outs = seg_agg_merge(key_data, key_valid, n, self.kinds, states,
+                                     direct=False)
+            else:
+                outs = slot_agg_merge(key_data, key_valid,
+                                      [d.dtype for d in key_data], n, bases, sizes,
+                                      self.kinds, states, out_cap)
+                if int(outs[0]) < 0:
+                    # a probe/pack disagreement: the reference's sort fallback
+                    outs = None
+        if outs is None:
+            outs = seg_agg_merge(key_data, key_valid, n, self.kinds, states)
         num_groups = int(outs[0])
-        if num_groups < 0:
-            raise RuntimeError("merge slot plan overflowed on its own probe")
         if num_groups == 0:
             return []
         out_valid = outs[1]
+        out_cap = out_valid.shape[0]
         out_schema = op.schema
         cols: List[DeviceColumn] = []
         p = 2

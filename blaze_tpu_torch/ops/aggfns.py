@@ -34,6 +34,10 @@ def _int_valued(dt: T.DataType) -> bool:
         isinstance(dt, T.DecimalType) and dt.fits_int64)
 
 
+def is_float(dt: T.DataType) -> bool:
+    return isinstance(dt, (T.Float32Type, T.Float64Type))
+
+
 def _not_ported(what: str, item: str = "Queue 2 item 6"):
     raise NotImplementedError(
         f"{what} is not on the PyTorch port's slice yet (ROADMAP.md {item})")
@@ -69,9 +73,11 @@ class SumAgg(AggFunction):
 
     def __init__(self, agg, arg_type, result_type):
         super().__init__(agg, arg_type, result_type)
-        if not (_int_valued(result_type) and _int_valued(arg_type)):
-            _not_ported(f"SUM of {arg_type!r} into {result_type!r} (float "
-                        "or wide-decimal sum)")
+        float_sum = isinstance(result_type, T.Float64Type) and (
+            is_float(arg_type) or isinstance(arg_type, _INT_TYPES))
+        if not (float_sum or (_int_valued(result_type) and _int_valued(arg_type))):
+            _not_ported(f"SUM of {arg_type!r} into {result_type!r} (a "
+                        "wide-decimal sum, or a decimal summed into a float)")
 
     def state_fields(self):
         return [("sum", self.result_type), ("has", T.BOOL)]
@@ -112,9 +118,14 @@ class AvgAgg(AggFunction):
     def __init__(self, agg, arg_type, result_type):
         super().__init__(agg, arg_type, result_type)
         self.sum_type = avg_sum_type(arg_type)
-        if not (isinstance(self.sum_type, T.DecimalType) and self.sum_type.fits_int64
-                and isinstance(result_type, T.DecimalType) and result_type.fits_int64):
-            _not_ported(f"AVG of {arg_type!r} into {result_type!r} (float or "
+        decimal_avg = (isinstance(self.sum_type, T.DecimalType)
+                       and self.sum_type.fits_int64
+                       and isinstance(result_type, T.DecimalType)
+                       and result_type.fits_int64)
+        float_avg = isinstance(self.sum_type, T.Float64Type) and \
+            isinstance(result_type, T.Float64Type)
+        if not (decimal_avg or float_avg):
+            _not_ported(f"AVG of {arg_type!r} into {result_type!r} (a "
                         "wide-decimal average)")
 
     def state_fields(self):
@@ -129,6 +140,8 @@ class AvgAgg(AggFunction):
         s, c = state
         has = c > 0
         cnz = torch.where(has, c, torch.ones_like(c))
+        if isinstance(self.result_type, T.Float64Type):
+            return DeviceColumn(T.F64, s.to(torch.float64) / cnz.to(torch.float64), has)
         scale_adjust = self.result_type.scale - self.sum_type.scale
         out, validity = dec.div(s, has, cnz, has, scale_adjust)
         out, validity = dec.check_overflow(out, validity, self.result_type.precision)
@@ -139,9 +152,9 @@ class MinMaxAgg(AggFunction):
     def __init__(self, agg, arg_type, result_type, which: str):
         super().__init__(agg, arg_type, result_type)
         self.kind = which
-        if not _int_valued(arg_type):
-            _not_ported(f"{which.upper()} of {arg_type!r} (float, bool, string "
-                        "or wide-decimal extremes)")
+        if not (_int_valued(arg_type) or is_float(arg_type)):
+            _not_ported(f"{which.upper()} of {arg_type!r} (bool, string or "
+                        "wide-decimal extremes)")
 
     def state_fields(self):
         return [("val", self.result_type), ("has", T.BOOL)]

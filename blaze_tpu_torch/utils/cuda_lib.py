@@ -29,7 +29,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu",
-           "join.cu")
+           "join.cu", "seg_agg.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libblaze_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -47,6 +47,9 @@ LAUNCHES: Dict[str, int] = {
     "concat_planes": 0,
     "inner_join_planes": 0,
     "probe_codes": 0,
+    "segment_ids": 0,
+    "seg_agg_partial": 0,
+    "seg_agg_merge": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -192,6 +195,17 @@ _SIGNATURES = {
                        _PP, _PP, _PI, _P, _P, _P],
     # uniq, nk, key, key_size, key_kind, key_valid, cap, codes, stream
     "blz_probe_codes": [_P, _I64, _P, _I, _I, _P, _I64, _P, _P],
+    # k, datas, valids, sizes, is_float, order, n, cap, flags, offs,
+    # starts, stream
+    "blz_segment_starts": [_I, _PP, _PP, _PI, _PI, _P, _I64, _I64, _P, _P, _P,
+                           _P],
+    "blz_segment_reduce": [
+        _P, _P, _P, _I64,                    # starts, order, count, cap
+        _I, _PI, _PI, _PP, _PI, _PP,         # nops, kind, is_float, src, nvalid, valid
+        _PLL, _PLL,                          # mult, init
+        _I, _PI, _PI, _PI, _PP,              # nemit, kind, table, aux, out
+        _P, _P,                              # first, stream
+    ],
 }
 
 

@@ -10,18 +10,22 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K9 held against their plain PyTorch versions on the card,
-   exactly (float planes bit for bit), at the main paths' shapes and at
-   edge cases (nulls, all-false and all-true masks, padding rows, keys
+3. kernels: K1-K10 held against their plain PyTorch versions on the
+   card, exactly (float planes bit for bit), at the main paths' shapes and
+   at edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
-   first/last, int64 min/max, bools, f64 NaN and +-0.0, mixed plane
+   first/last, int64 min/max, bools, f64 NaN, +-0.0 and subnormals, mixed plane
    capacities, offsets past the end, empty batches in a concat; for the
    join: misses, null probe keys, an empty build, one build key, a
    null-keyed build row, int32/f32/f64 keys with +-0.0 and NaN payloads,
    and q06's batch all hitting and half missing; for the generic probe:
    the same key kinds, keys below and above the build's range, an empty
    build, one build key, q69's probe batch and a 262,144-row batch of
-   customer keys against the store window's keys); then each timed with
+   customer keys against the store window's keys; for the segmented
+   aggregate: one to five int/float keys, direct and sorted segmentation,
+   nulls, padding, all-null keys, int64/int32/f64/f32 arguments with NaN,
+   +-0.0, +-inf and subnormals, partial and merge, a q67 batch and a
+   q67_sort reducer's merge); then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s);
@@ -33,7 +37,9 @@ only when every phase passed:
    - q67 (two-key partial agg -> hash exchange -> final agg -> full sort
      -> rank window -> rank <= 3) over 28,800,991 store_sales rows (the
      SF10 row count) drawn as bench.py draws them (seed 67), order
-     included;
+     included; then q67_sort, the same plan and data with
+     ``Config(dense_agg=False, radix_agg=False)``: the JAX package's
+     route on a TPU, K10 in the partial and the merge;
    - q06 (store_sales JOIN broadcast item -> partial agg by category ->
      hash exchange -> final agg -> sort) and q47 (the same join -> agg by
      (category, brand) -> sort -> rank window -> rank <= 5) over one draw
@@ -44,19 +50,21 @@ only when every phase passed:
      LEFT SEMI store window, LEFT ANTI web window, LEFT ANTI catalog
      window, each a shuffled hash join against sales JOIN broadcast
      date_dim of April-June 2001 -> JOIN broadcast demographics -> COUNT(*)
-     by four demographics -> sort, top 100) over TPC-DS SF10's row counts
-     (seed 69), exact in order against set operations in numpy;
+     by the five demographics TPC-DS names (sort route: K10) -> sort, top
+     100) over TPC-DS SF10's row counts (seed 69), exact in order against
+     set operations in numpy;
    all through ``Session().execute_to_pydict`` in 4 partitions staged on
-   the card; every kernel must have launched over the five runs, the
-   unique-key join kernel on each join path, and the generic probe on
-   q69;
+   the card; every kernel must have launched over the six runs, the
+   unique-key join kernel on each join path, the generic probe on q69,
+   and K10's three launches on q69 and q67_sort;
 5. one JSON line per kernel (shape, times, bound, launches per path), the
    kernels' summary JSON line, the card line, and the device JSON line.
 
 ``--profile`` adds one run of each path under torch.profiler (device busy
 share, launch and sync counts, the top kernels); ``--trace=PATH`` also
 writes q01's Chrome trace to PATH and the other paths' beside it
-(``_q67.json``, ``_q06.json``, ``_q47.json``, ``_q69.json``).
+(``_q67.json``, ``_q67_sort.json``, ``_q06.json``, ``_q47.json``,
+``_q69.json``).
 
 Needs one CUDA device; exits 2 without one, or when run outside a checkout
 of the repository.
@@ -200,6 +208,18 @@ def kernel_k1(dev, rng, results):
         want = K.compact_planes_plain(datas, valids, mask)
         check_equal("compact_planes", f"cap={cap} n={n} keep={frac}", got, want)
         cases.append(f"cap={cap},n={n},keep={frac},nulls={nulls}")
+    # float planes with NaN, +-0.0, +-inf and subnormals move bit for bit
+    cap = 1024
+    floats = np.array(SEG_FLOATS)[rng.integers(0, len(SEG_FLOATS), cap)]
+    with np.errstate(over="ignore"):
+        datas = [torch.from_numpy(floats).to(dev), torch.from_numpy(floats[::-1].astype(
+            np.float32)).to(dev)]
+    valids = [torch.ones(cap, dtype=torch.bool, device=dev)] * 2
+    mask = torch.from_numpy(rng.random(cap) < 0.6).to(dev)
+    check_equal("compact_planes", "f64/f32 subnormals",
+                K.compact_planes_cuda(datas, valids, mask),
+                K.compact_planes_plain(datas, valids, mask))
+    cases.append("cap=1024,f64+f32 planes with subnormals")
     # main path: FilterExec on a 262144-row q01 batch (3 int64 planes + 3
     # validity planes, ~95% kept)
     cap = 262144
@@ -435,7 +455,8 @@ SORT_KEY_CASES = (
     ((("bool", False, False),), 256, 100, 0.3),
     ((("i64", True, True), ("i64", False, True)), 1 << 20, 797_601, 0.0),
 )
-F64_SPECIALS = (0.0, -0.0, float("nan"), float("-nan"), float("inf"), float("-inf"), 1.5, -1.5)
+F64_SPECIALS = (0.0, -0.0, float("nan"), float("-nan"), float("inf"), float("-inf"), 1.5, -1.5,
+                5e-324, -5e-324, 1e-310, 1e-40, -1e-45)  # subnormals (f64; f32 last two)
 
 
 def key_plane(kind, cap, n, rng, nulls, dev):
@@ -707,8 +728,10 @@ def join_case(kind, cap_p, n, nk, cap_b, nulls, rng, dev):
                 if kind == "f64" else
                 np.array([0x7FC00000, 0xFFC00000, 0x7FC00123, 0x7F800001],
                          np.uint32).view(np.float32))
+        subnormal = (np.array([5e-324, -5e-324, 1e-310], np.float64) if kind == "f64"
+                     else np.array([1e-40, -1e-45, 1e-39], np.float32))
         pool = np.concatenate([np.array([0.0, -0.0, np.inf, -np.inf, 1.5, -1.5, 2.25,
-                                         -1e30, 7.0, 3.0], npdt), nans])
+                                         -1e30, 7.0, 3.0], npdt), nans, subnormal])
         _, first = np.unique(_canon_words(pool), return_index=True)
         distinct = pool[np.sort(first)]
         bvals = distinct[rng.permutation(len(distinct))[:nk]]
@@ -844,8 +867,10 @@ def probe_case(kind, cap, n, nk, nulls, rng, dev):
                 if kind == "f64" else
                 np.array([0x7FC00000, 0xFFC00000, 0x7FC00123, 0x7F800001],
                          np.uint32).view(np.float32))
+        subnormal = (np.array([5e-324, -5e-324, 1e-310], np.float64) if kind == "f64"
+                     else np.array([1e-40, -1e-45, 1e-39], np.float32))
         pool = np.concatenate([np.array([0.0, -0.0, np.inf, -np.inf, 1.5, -1.5, 2.25,
-                                         -1e30, 7.0, 3.0], npdt), nans])
+                                         -1e30, 7.0, 3.0], npdt), nans, subnormal])
         _, first = np.unique(_canon_words(pool), return_index=True)
         bvals = pool[np.sort(first)][rng.permutation(len(first))[:nk]]
         probe_pool = np.concatenate([pool, np.array([5.0, -7.5, 1e-3, -1e38, 1e38], npdt)])
@@ -931,6 +956,256 @@ def kernel_k9(dev, rng, results):
         big_batch={"nk": big[1], "kernel_ms": timed["big"][0],
                    "plain_ms": timed["big"][1], "library_ms": timed["big"][2],
                    "bound_ms": timed["big"][3] / HBM_BYTES_PER_S * 1e3}))
+
+
+# K10 cases: the CPU parity tests' (tests/test_torch_sort_agg.py): key kinds,
+# capacity, live rows, null share, key range
+SEG_CASES = (
+    (("i64",), 256, 200, 0.2, (-40, 40)),               # sorted (negative keys)
+    (("i64",), 256, 256, 0.1, (0, 255)),                # direct: keys in [0, cap-1)
+    (("i64",), 256, 230, 0.1, (0, 256)),                # a key at cap-1: sorted
+    (("i32",), 1024, 1000, 0.0, (0, 20)),               # direct, no nulls
+    (("f64",), 4096, 4000, 0.1, (0, 1)),                # float keys
+    (("f32", "i64"), 1024, 900, 0.1, (-3, 3)),
+    (("i64", "i32", "i64"), 4096, 4000, 0.05, (-4, 4)),
+    (("i64", "i64", "i64", "i64"), 4096, 4000, 0.1, (0, 4)),
+    (("i64", "i32", "f64", "i64", "i64"), 4096, 3000, 0.1, (0, 3)),
+    (("i64",), 256, 200, 1.0, (0, 10)),                 # every key null
+    (("i64", "i64"), 256, 1, 0.0, (0, 5)),              # one row
+)
+# NaN, +-0.0, +-inf, normal values and subnormals (which the port keeps)
+SEG_FLOATS = (float("nan"), 0.0, -0.0, float("inf"), float("-inf"), 1.5, -2.25, 1e300,
+              -1e300, 7.0, 3.0, 0.1, 5e-324, -5e-324, 1e-310, -1e-310, 1e-40, -1e-45)
+# aggregate (kind, rescale, accumulator) and the column it reads: int64 a,
+# int32 b, float64 x, float32 y, * for COUNT(*)
+SEG_SPECS = ((("sum", 0, "int64"), "a"), (("count", 0, ""), "*"), (("avg", 4, "int64"), "a"),
+             (("min", 0, ""), "b"), (("max", 0, ""), "b"), (("sum", 0, "float64"), "x"),
+             (("min", 0, ""), "x"), (("max", 0, ""), "x"), (("avg", 0, "float64"), "a"),
+             (("sum", 0, "float64"), "y"), (("min", 0, ""), "y"))
+
+
+def seg_plane(kind, cap, n, rng, nulls, lo, hi):
+    import numpy as np
+
+    live = np.arange(cap) < n
+    if kind in ("f64", "f32"):
+        d = np.array(SEG_FLOATS)[rng.integers(0, len(SEG_FLOATS), cap)]
+        with np.errstate(over="ignore"):
+            d = d.astype(np.float64 if kind == "f64" else np.float32)
+    else:
+        d = rng.integers(lo, hi, cap).astype(np.int64 if kind == "i64" else np.int32)
+    return np.where(live, d, 0).astype(d.dtype), live & (rng.random(cap) >= nulls)
+
+
+def seg_case(kinds, cap, n, nulls, key_range, rng):
+    """K10's partial arguments on the host: key planes (validity masked
+    with the live rows), SEG_SPECS and their (data, valid) columns."""
+    import numpy as np
+    import torch
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    keys = [seg_plane(k, cap, n, rng, nulls, *key_range) for k in kinds]
+    cols = {"a": seg_plane("i64", cap, n, rng, nulls, -10 ** 6, 10 ** 6),
+            "b": seg_plane("i32", cap, n, rng, nulls, -1000, 1000),
+            "x": seg_plane("f64", cap, n, rng, nulls, 0, 0),
+            "y": seg_plane("f32", cap, n, rng, nulls, 0, 0),
+            "*": (np.zeros(cap, np.int64), np.arange(cap) < n)}
+    return ([t(d) for d, _ in keys], [t(v) for _, v in keys], tuple(s for s, _ in SEG_SPECS),
+            [(t(cols[c][0]), t(cols[c][1])) for _, c in SEG_SPECS])
+
+
+def merge_states(outs, k, kinds, n, rng):
+    """Partial outputs as merge-input state columns (validity redrawn so
+    every gate of the merge is taken), on the outputs' device."""
+    import numpy as np
+    import torch
+
+    live = torch.arange(outs[1].shape[0], device=outs[1].device) < n
+    states, pos = [], 2 + 2 * k
+    for kind in kinds:
+        cols = []
+        for _ in range({"sum": 2, "count": 1, "avg": 2, "min": 2, "max": 2}[kind]):
+            keep = torch.from_numpy(rng.random(live.shape[0]) >= 0.1).to(live.device)
+            cols.append((outs[pos], keep & live))
+            pos += 1
+        states.append(cols)
+    return states
+
+
+def check_seg_pipeline(name, fn, args_cuda, args_cpu, label):
+    """K10's route on the card against the same route on CPU copies (the
+    plain versions of K5, K10 and K6)."""
+    got = fn(*args_cuda)
+    want = fn(*args_cpu)
+    if int(got[0]) != int(want[0]):
+        raise AssertionError(f"{name} [{label}]: {int(got[0])} groups vs {int(want[0])}")
+    check_equal(name, label, [g.cpu() for g in got[1:]], list(want[1:]))
+    return got
+
+
+def to_dev(x, dev):
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_dev(y, dev) for y in x)
+    return x.to(dev) if hasattr(x, "to") else x
+
+
+def q67_batch(rng, dev, cap=262144):
+    """One q67 partial batch: 262,144 store_sales rows, (item, store) keys,
+    SUM(quantity) -- about 223,000 groups."""
+    import numpy as np
+    import torch
+
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    ones = t(np.ones(cap, bool))
+    keys = [t(rng.integers(1, N_ITEMS, cap)), t(rng.integers(1, N_STORES, cap))]
+    return keys, [ones, ones], (("sum", 0, "int64"),), [(t(rng.integers(1, 100, cap)), ones)]
+
+
+def q67_merge_input(rng, dev, rows=6_200_000, groups=200_000, cap=1 << 23):
+    """One q67_sort reducer's merge: ~6.2M (item, store) partial-state rows
+    (sum, has) of ~200,000 groups in an 8,388,608-row bucket."""
+    import numpy as np
+    import torch
+
+    g = rng.integers(0, groups, rows) * 4
+    live = np.arange(cap) < rows
+
+    def pad(x, dt):
+        out = np.zeros(cap, dt)
+        out[:rows] = x
+        return torch.from_numpy(out).to(dev)
+
+    keys = [pad(1 + g // N_STORES, np.int64), pad(1 + g % N_STORES, np.int64)]
+    lv = torch.from_numpy(live).to(dev)
+    s = pad(rng.integers(1, 3000, rows), np.int64)
+    has = pad(rng.random(rows) < 0.999, np.bool_)
+    return keys, [lv, lv], ("sum",), [[(s, has & lv), (has, lv)]], rows
+
+
+def kernel_k10(dev, rng, results):
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops import agg_device as A
+
+    cpu = torch.device("cpu")
+    cases = []
+    for kinds, cap, n, nulls, key_range in SEG_CASES:
+        keys, kvalids, specs, args = seg_case(kinds, cap, n, nulls, key_range, rng)
+        label = f"keys={'+'.join(kinds)},cap={cap},n={n},nulls={nulls},range={key_range}"
+        dkeys, dvalids, dargs = to_dev(keys, dev), to_dev(kvalids, dev), to_dev(args, dev)
+        # the two passes against their plain versions on the same planes
+        exists = torch.arange(cap, device=dev) < n
+        planes = K._segment_planes(dkeys, dvalids, exists, True)
+        ops = K.sort_key_operands(*planes, exists, [(True, True)] * len(planes[0]))
+        order = K.lexsort_indices(ops, n)
+        got = K.segment_starts_cuda(*planes, order, n)
+        check_equal("segment_ids", label, got, K.segment_starts_plain(*planes, order, n))
+        ops_, emits = A._partial_program(specs, dargs)
+        check_equal("seg_agg_partial", label,
+                    K.segment_reduce_cuda("seg_agg_partial", order, *got, n, ops_, emits),
+                    K.segment_reduce_plain(order, *got, n, ops_, emits))
+        # the whole route, both segmentations
+        for direct in (True, False):
+            outs = check_seg_pipeline("seg_agg_partial", A.seg_agg_partial,
+                                      (dkeys, dvalids, n, specs, dargs, direct),
+                                      (keys, kvalids, n, specs, args, direct),
+                                      f"{label},direct={direct}")
+        g = int(outs[0])
+        if g:
+            kinds_m = tuple(s[0] for s in specs)
+            states = merge_states(outs, len(kinds), kinds_m, g, rng)
+            check_seg_pipeline("seg_agg_merge", A.seg_agg_merge,
+                               (list(outs[2:2 + 2 * len(kinds):2]),
+                                list(outs[3:3 + 2 * len(kinds):2]), g, kinds_m, states),
+                               (to_dev(list(outs[2:2 + 2 * len(kinds):2]), cpu),
+                                to_dev(list(outs[3:3 + 2 * len(kinds):2]), cpu), g, kinds_m,
+                                to_dev(states, cpu)), label)
+        cases.append(label)
+    # main path, partial: one q67 batch through the sort route
+    keys, kvalids, specs, args = q67_batch(rng, dev)
+    cap = n = keys[0].shape[0]
+    check_seg_pipeline("seg_agg_partial", A.seg_agg_partial, (keys, kvalids, n, specs, args),
+                       to_dev((keys, kvalids, n, specs, args), cpu), "q67 batch")
+    exists = torch.ones(cap, dtype=torch.bool, device=dev)
+    order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+    groups = int(count)
+    ops, emits = A._partial_program(specs, args)
+    new = torch.zeros(n, dtype=torch.bool, device=dev)
+    new[starts[:groups]] = True
+    seg_row = torch.empty(n, dtype=torch.int64, device=dev)
+    seg_row[order] = torch.cumsum(new.to(torch.int64), 0) - 1
+    t_sum = torch.zeros(cap, dtype=torch.int64, device=dev)
+    t_cnt = torch.zeros(cap, dtype=torch.int64, device=dev)
+    ones = torch.ones(cap, dtype=torch.int64, device=dev)
+
+    def lib_partial():
+        t_sum.index_add_(0, seg_row, args[0][0])
+        t_cnt.index_add_(0, seg_row, ones)
+
+    ids_ms = time_ms(lambda: K.segment_starts_cuda(keys, kvalids, order, n))
+    ids_plain = time_ms(lambda: K.segment_starts_plain(keys, kvalids, order, n))
+    red_ms = time_ms(lambda: K.segment_reduce_cuda("seg_agg_partial", order, starts, count,
+                                                   n, ops, emits))
+    red_plain = time_ms(lambda: K.segment_reduce_plain(order, starts, count, n, ops, emits))
+    lib_ms = time_ms(lib_partial)
+    route_ms = time_ms(lambda: A.seg_agg_partial(keys, kvalids, n, specs, args))
+    # segment_ids: each key plane (8 + 1 bytes a row) and the permutation
+    # read once, the starts written; the reduction: the permutation, the
+    # starts, the sum's source and validity read once, per group the sum,
+    # has flag and first row written
+    ids_bytes = n * (2 * 9 + 8) + (groups + 1) * 8
+    red_bytes = n * (8 + 8 + 1) + groups * 8 + groups * (8 + 1 + 8)
+    shape = f"262144 rows -> {groups} segments (q67 batch, 2 int64 keys, SUM)"
+    results.append(dict(
+        name="segment_ids", route="cuda", source="blaze_tpu_torch/csrc/seg_agg.cu",
+        replaces="blaze_tpu/ops/agg_device.py:1082", shape=shape, cases=cases,
+        ms=ids_ms, plain_ms=ids_plain, library_ms=None, library_call=None,
+        bytes=ids_bytes, route_ms=route_ms))
+    results.append(dict(
+        name="seg_agg_partial", route="cuda", source="blaze_tpu_torch/csrc/seg_agg.cu",
+        replaces="blaze_tpu/ops/agg_device.py:1749", shape=shape, cases=cases,
+        ms=red_ms, plain_ms=red_plain, library_ms=lib_ms,
+        library_call="2x index_add_ into the segment tables (segment ids given: a chain)",
+        bytes=red_bytes, route_ms=route_ms))
+    # main path, merge: one q67_sort reducer's ~6.2M state rows
+    keys, kvalids, kinds, states, n = q67_merge_input(rng, dev)
+    cap = keys[0].shape[0]
+    exists = torch.arange(cap, device=dev) < n
+    order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+    groups = int(count)
+    ops, emits = A._merge_program(kinds, states)
+    got = K.segment_reduce_cuda("seg_agg_merge", order, starts, count, n, ops, emits)
+    check_equal("seg_agg_merge", "q67_sort merge", got,
+                K.segment_reduce_plain(order, starts, count, n, ops, emits))
+    new = torch.zeros(n, dtype=torch.bool, device=dev)
+    new[starts[:groups]] = True
+    seg_row = torch.full((cap,), cap, dtype=torch.int64, device=dev)
+    seg_row[order[:n]] = torch.cumsum(new.to(torch.int64), 0) - 1
+    (sd, sv), (hd, hv) = states[0]
+    m = sv & hd & hv
+    msum = torch.where(m, sd, 0)
+    mcnt = m.to(torch.int64)
+    t_sum = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    t_cnt = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+
+    def lib_merge():
+        t_sum.index_add_(0, seg_row, msum)
+        t_cnt.index_add_(0, seg_row, mcnt)
+
+    ms = time_ms(lambda: K.segment_reduce_cuda("seg_agg_merge", order, starts, count, n,
+                                               ops, emits))
+    plain_ms = time_ms(lambda: K.segment_reduce_plain(order, starts, count, n, ops, emits))
+    lib_ms = time_ms(lib_merge)
+    ids_merge_ms = time_ms(lambda: K.segment_starts_cuda(keys, kvalids, order, n))
+    results.append(dict(
+        name="seg_agg_merge", route="cuda", source="blaze_tpu_torch/csrc/seg_agg.cu",
+        replaces="blaze_tpu/ops/agg_device.py:1477",
+        shape=f"{n} state rows -> {groups} segments (a q67_sort reducer)", cases=cases,
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_call="2x index_add_ into the segment tables (segment ids and the "
+                     "gate given: a chain)",
+        bytes=n * (8 + 8 + 1 + 1 + 1) + groups * 8 + groups * (8 + 1 + 8),
+        segment_ids_ms=ids_merge_ms))
 
 
 # -- phase 4: the paths on the card ------------------------------------------------
@@ -1158,6 +1433,11 @@ def run_q01(dev, profile=False, trace_path=None):
 
 
 def run_q67(dev, profile=False, trace_path=None):
+    """q67 on the port's default route (K3/K4) and, over the same staged
+    data, q67_sort: the route the JAX package takes on a TPU, with both
+    slot routes off (K10's partial on each of the 112 batches, its merge
+    on each reducer's ~6.2M state rows). Group emission is key order on
+    both routes, so both meet the same oracle."""
     import blaze_tpu_torch
     from blaze_tpu_torch.config import Config
 
@@ -1166,11 +1446,17 @@ def run_q67(dev, profile=False, trace_path=None):
     want, groups = q67_oracle(host)
     del host
     setup_s = time.perf_counter() - t0
-    session = blaze_tpu_torch.Session(Config(device_merge_max_bytes=Q67_MERGE_BYTES))
-    session.resources["store_sales"] = lambda p: parts[p]
-    return run_query("q67", Q67_ROWS, session, q67_plan(schema), want, setup_s,
-                     {"groups": groups, "out_rows": len(want["rk"])}, profile,
-                     trace_path)
+    info = {"groups": groups, "out_rows": len(want["rk"])}
+    out = {}
+    for name, conf in (("q67", Config(device_merge_max_bytes=Q67_MERGE_BYTES)),
+                       ("q67_sort", Config(device_merge_max_bytes=Q67_MERGE_BYTES,
+                                           dense_agg=False, radix_agg=False))):
+        session = blaze_tpu_torch.Session(conf)
+        session.resources["store_sales"] = lambda p: parts[p]
+        out[name] = run_query(name, Q67_ROWS, session, q67_plan(schema), want, setup_s,
+                              info, profile, trace_path and
+                              trace_path.replace(".json", f"_{name}.json"))
+    return out
 
 
 def make_join_data(dev):
@@ -1359,7 +1645,8 @@ Q69_SALES = (("store_sales", "ss_sold_date_sk", "ss_customer_sk", "LEFT_SEMI"),
 Q69_CD = (("cd_gender", 2), ("cd_marital_status", 5), ("cd_education_status", 7),
           ("cd_purchase_estimate", 20), ("cd_credit_rating", 4), ("cd_dep_count", 7),
           ("cd_dep_employed_count", 7), ("cd_dep_college_count", 7))
-Q69_KEYS = ("cd_gender", "cd_marital_status", "cd_education_status", "cd_credit_rating")
+Q69_KEYS = ("cd_gender", "cd_marital_status", "cd_education_status", "cd_purchase_estimate",
+            "cd_credit_rating")
 
 
 def q69_schemas():
@@ -1448,8 +1735,10 @@ def q69_plan(schemas):
     broadcast date_dim (d_year = 2001 AND d_moy BETWEEN 4 AND 6),
     projected to the customer key and exchanged by it -> JOIN broadcast
     customer_demographics -> COUNT(*) by (gender, marital status,
-    education, credit rating), two-stage -> single exchange -> sort on
-    the four keys, top 100."""
+    education, purchase estimate, credit rating), two-stage (a slot table
+    of 4 * 8 * 8 * 16384 * 8 slots is past radix_agg_max_slots, so both
+    stages take the sort route, K10) -> single exchange -> sort on the
+    five keys, top 100."""
     from blaze_tpu_torch.ir import exprs as E
     from blaze_tpu_torch.ir import nodes as N
     from blaze_tpu_torch.ir import types as T
@@ -1497,7 +1786,7 @@ def q69_plan(schemas):
 def q69_oracle(host):
     """q69 by set operations in numpy on the host copies: the customers in
     the three states who bought in a store in April-June 2001 and on
-    neither the web nor the catalog then, counted by their four
+    neither the web nor the catalog then, counted by their five
     demographics, the first 100 groups in key order. Also returns the
     customers left after each step."""
     import numpy as np
@@ -1679,14 +1968,14 @@ def main(device: str = "cuda") -> int:
     kernel_k7(dev, rng, results)
     kernel_k8(dev, rng, results)
     kernel_k9(dev, rng, results)
-    # 4. the paths: q01, q67, q06 and q47, then q69
+    kernel_k10(dev, rng, results)
+    # 4. the paths: q01, q67 and q67_sort, q06 and q47, then q69
     args = sys.argv[1:]
     profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
     per_path = {
         "q01": run_q01(dev, profile, trace[0] if trace else None),
-        "q67": run_q67(dev, profile, trace[0].replace(".json", "") + "_q67.json"
-                       if trace else None),
+        **run_q67(dev, profile, trace[0] if trace else None),
         **run_join_paths(dev, profile, trace[0] if trace else None),
         "q69": run_q69(dev, profile, trace[0].replace(".json", "") + "_q69.json"
                        if trace else None),
@@ -1700,6 +1989,10 @@ def main(device: str = "cuda") -> int:
             raise AssertionError(f"{q} did not go through the join kernel")
     if per_path["q69"]["probe_codes"] <= 0:
         raise AssertionError("q69 did not go through the generic probe kernel")
+    for q in ("q69", "q67_sort"):
+        for k in ("segment_ids", "seg_agg_partial", "seg_agg_merge"):
+            if per_path[q][k] <= 0:
+                raise AssertionError(f"{q} did not go through K10 ({k})")
     # 5. summary lines
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1718,7 +2011,8 @@ def main(device: str = "cuda") -> int:
                         "launches_per_path": r["launches_per_path"],
                         "exact_cases": r["cases"],
                         **{k: r[k] for k in ("ms_262144_rows", "digit_passes", "hits",
-                                             "build_rows_touched", "big_batch")
+                                             "build_rows_touched", "big_batch", "route_ms",
+                                             "segment_ids_ms")
                            if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, and the q01, q67 and q06 paths and every hash-join type on the card
-against the same plans on the CPU. K9's cases come from chip_smoke.py.
+card, and the q01, q67 (on both aggregation routes) and q06 paths and
+every hash-join type on the card against the same plans on the CPU. K9's
+and K10's cases come from chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -15,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import PROBE_CASES, customer_probe, probe_case
+from chip_smoke import (PROBE_CASES, SEG_CASES, customer_probe, merge_states,
+                        probe_case, q67_batch, q67_merge_input, seg_case, to_dev)
 
 pytestmark = pytest.mark.cuda
 
@@ -136,9 +138,11 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         cuda_lib.reset_launch_counts()
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
-    # every kernel but the joins', which q01 does not reach
+    # every kernel but the joins' and the sort route's, which q01 does not
+    # reach
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
-               if k not in ("inner_join_planes", "probe_codes"))
+               if k not in ("inner_join_planes", "probe_codes", "segment_ids",
+                            "seg_agg_partial", "seg_agg_merge"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -384,3 +388,140 @@ def test_hash_joins_on_the_card_equal_the_cpu(dev, build):
             out[device] = s.execute_to_pydict(plan)
         assert out[None] == out["cpu"], jt
         assert cuda_lib.launch_counts()["probe_codes"] == 2
+
+
+def _seg_route(fn, args_cuda, args_cpu):
+    got, want = fn(*args_cuda), fn(*args_cpu)
+    assert int(got[0]) == int(want[0])
+    _equal([g.cpu() for g in got[1:]], list(want[1:]))
+    return got
+
+
+@pytest.mark.parametrize("case", SEG_CASES, ids=[str(i) for i in range(len(SEG_CASES))])
+def test_seg_agg_kernels(dev, case):
+    """K10's segmentation and reduction against their plain versions on the
+    same planes, and the whole sort route (K5, K10, K6) on the card against
+    it on the CPU, partial then merge, both segmentations."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops import agg_device as A
+
+    kinds, cap, n, nulls, key_range = case
+    rng = np.random.default_rng(cap + n)
+    keys, kvalids, specs, args = seg_case(kinds, cap, n, nulls, key_range, rng)
+    dkeys, dvalids, dargs = to_dev(keys, dev), to_dev(kvalids, dev), to_dev(args, dev)
+    exists = torch.arange(cap, device=dev) < n
+    planes = K._segment_planes(dkeys, dvalids, exists, True)
+    order = K.lexsort_indices(K.sort_key_operands(*planes, exists, [(True, True)] *
+                                                  len(planes[0])), n)
+    starts = K.segment_starts_cuda(*planes, order, n)
+    _equal(starts, K.segment_starts_plain(*planes, order, n))
+    ops, emits = A._partial_program(specs, dargs)
+    _equal(K.segment_reduce_cuda("seg_agg_partial", order, *starts, n, ops, emits),
+           K.segment_reduce_plain(order, *starts, n, ops, emits))
+    for direct in (True, False):
+        outs = _seg_route(A.seg_agg_partial, (dkeys, dvalids, n, specs, dargs, direct),
+                          (keys, kvalids, n, specs, args, direct))
+    g = int(outs[0])
+    if g:
+        k = len(kinds)
+        mkinds = tuple(sp[0] for sp in specs)
+        states = merge_states(outs, k, mkinds, g, rng)
+        mk, mv = list(outs[2:2 + 2 * k:2]), list(outs[3:3 + 2 * k:2])
+        _seg_route(A.seg_agg_merge, (mk, mv, g, mkinds, states),
+                   (to_dev(mk, "cpu"), to_dev(mv, "cpu"), g, mkinds, to_dev(states, "cpu")))
+
+
+def test_seg_agg_at_the_main_paths_shapes(dev):
+    """One q67 batch (262,144 rows, ~223,000 groups) through the partial
+    and a merge of 1,000,000 state rows, on the card against the CPU."""
+    from blaze_tpu_torch.ops import agg_device as A
+
+    rng = np.random.default_rng(67)
+    keys, kvalids, specs, args = q67_batch(rng, dev)
+    n = keys[0].shape[0]
+    outs = _seg_route(A.seg_agg_partial, (keys, kvalids, n, specs, args),
+                      to_dev((keys, kvalids, n, specs, args), "cpu"))
+    assert int(outs[0]) > 200_000
+    keys, kvalids, kinds, states, n = q67_merge_input(rng, dev, rows=1_000_000,
+                                                      groups=150_000, cap=1 << 20)
+    _seg_route(A.seg_agg_merge, (keys, kvalids, n, kinds, states),
+               to_dev((keys, kvalids, n, kinds, states), "cpu"))
+
+
+def test_seg_agg_never_runs_its_twin_on_the_card(dev, monkeypatch):
+    """On CUDA planes the sort route launches its kernels; the plain
+    versions are never called."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops import agg_device as A
+    from blaze_tpu_torch.utils import cuda_lib
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on CUDA planes")
+
+    for name in ("segment_starts_plain", "segment_reduce_plain", "sort_key_operands_plain",
+                 "lexsort_indices_plain", "gather_planes_plain"):
+        monkeypatch.setattr(K, name, refuse)
+    rng = np.random.default_rng(3)
+    keys, kvalids, specs, args = seg_case(("i64", "f64"), 1024, 900, 0.1, (-3, 3), rng)
+    keys, kvalids, args = to_dev(keys, dev), to_dev(kvalids, dev), to_dev(args, dev)
+    cuda_lib.reset_launch_counts()
+    outs = A.seg_agg_partial(keys, kvalids, 900, specs, args)
+    g = int(outs[0])
+    mk, mv = list(outs[2:6:2]), list(outs[3:7:2])
+    A.seg_agg_merge(mk, mv, g, tuple(sp[0] for sp in specs),
+                    merge_states(outs, 2, tuple(sp[0] for sp in specs), g, rng))
+    counts = cuda_lib.launch_counts()
+    assert counts["segment_ids"] == 2 and counts["seg_agg_partial"] == 1
+    assert counts["seg_agg_merge"] == 1 and counts["slot_agg_partial"] == 0
+
+
+def _q67_plan(schema):
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    keys = [("item", E.Column("item")), ("store", E.Column("store"))]
+    agg = [("qty", E.AggExpr(E.AggFunction.SUM, [E.Column("q")])),
+           ("avg_p", E.AggExpr(E.AggFunction.AVG, [E.Column("p")])),
+           ("max_p", E.AggExpr(E.AggFunction.MAX, [E.Column("p")]))]
+    partial = N.Agg(N.FFIReader(schema, "src", 3), E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(a, E.AggMode.PARTIAL, n) for n, a in agg])
+    final = N.Agg(N.ShuffleExchange(partial, N.HashPartitioning([e for _, e in keys], 3)),
+                  E.AggExecMode.HASH_AGG, keys,
+                  [N.AggColumn(a, E.AggMode.FINAL, n) for n, a in agg])
+    srt = N.Sort(N.ShuffleExchange(final, N.SinglePartitioning(1)),
+                 [E.SortOrder(E.Column("item")), E.SortOrder(E.Column("qty"), ascending=False)])
+    win = N.Window(srt, [N.WindowExpr("rank", "rk")], [E.Column("item")],
+                   [E.SortOrder(E.Column("qty"), ascending=False)])
+    return N.Filter(win, [E.BinaryExpr(E.BinaryOp.LTEQ, E.Column("rk"), E.Literal(3, T.I32))])
+
+
+@pytest.mark.parametrize("route", ["default", "sort"])
+def test_q67_sort_on_the_card_equals_the_cpu(dev, route):
+    """q67 with a float64 price column (AVG and MAX of it beside the
+    quantity sum), on the card and on the CPU: with the slot routes off
+    every aggregate sorts (K10); on the default route the float states
+    still take K10 (in the slot order), never K3's atomics."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    rng = np.random.default_rng(2)
+    schema = T.Schema.of(("item", T.I64), ("store", T.I64), ("q", T.I64), ("p", T.F64))
+    parts = [[{"item": rng.integers(1, 300, 40_000), "store": rng.integers(1, 50, 40_000),
+               "q": rng.integers(1, 5, 40_000),
+               "p": np.round(rng.random(40_000) * 100, 2)}] for _ in range(3)]
+    conf = Config(batch_size=4096) if route == "default" else \
+        Config(batch_size=4096, dense_agg=False, radix_agg=False)
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(conf, device=device)
+        s.resources["src"] = lambda p: parts[p]
+        cuda_lib.reset_launch_counts()
+        out[device] = s.execute_to_pydict(_q67_plan(schema))
+    assert len(out["cpu"]["rk"]) > 300
+    assert out[None] == out["cpu"]
+    counts = cuda_lib.launch_counts()
+    assert counts["seg_agg_partial"] > 0 and counts["seg_agg_merge"] > 0
+    assert counts["slot_agg_partial"] == counts["slot_agg_merge"] == 0

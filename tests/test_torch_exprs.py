@@ -1,10 +1,12 @@
 """The port's expression evaluator against the JAX package's
-``ExprEvaluator``: decimal comparison and arithmetic, integer arithmetic
-and Spark null semantics (Kleene AND/OR, null-poisoned comparisons,
-division by zero -> NULL).
+``ExprEvaluator``: decimal comparison and arithmetic, integer and float
+arithmetic and comparison, and Spark null semantics (Kleene AND/OR,
+null-poisoned comparisons, division by zero -> NULL).
 
-Tolerance: exact — every value here is an integer, bool or int64-backed
-decimal.
+Tolerance: exact — integers, bools and int64-backed decimals by value;
+floats (NaN, +-0.0, +-inf and values from 1e-3 to 1e6, so that no result
+is a subnormal, which the JAX package flushes to zero on the CPU and the
+port keeps) by value, NaN equal to NaN.
 """
 
 import numpy as np
@@ -27,7 +29,9 @@ CAP, N = 1024, 1000
 
 SCHEMA = JT.Schema.of(
     ("d72", JT.DecimalType(7, 2)), ("d94", JT.DecimalType(9, 4)),
-    ("i64", JT.I64), ("i32", JT.I32), ("b1", JT.BOOL), ("b2", JT.BOOL))
+    ("i64", JT.I64), ("i32", JT.I32), ("b1", JT.BOOL), ("b2", JT.BOOL),
+    ("f64", JT.F64), ("f32", JT.F32))
+FLOATS = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, 1e-3, -2.5, 3.0, 7.25, -1e6, 1e6])
 
 
 def _columns(seed):
@@ -46,6 +50,11 @@ def _columns(seed):
         if name == "i32":
             d[rng.random(N) < 0.1] = 0  # divisors of zero
         out[name] = (np.where(v, d, np.zeros((), d.dtype)), v)
+    for name, dt in (("f64", np.float64), ("f32", np.float32)):
+        d = np.where(rng.random(N) < 0.5, FLOATS[rng.integers(0, len(FLOATS), N)],
+                     rng.uniform(-1000, 1000, N)).astype(dt)
+        v = rng.random(N) >= 0.15
+        out[name] = (np.where(v, d, np.zeros((), dt)), v)
     return out
 
 
@@ -98,6 +107,16 @@ EXPRS = {
     "null_literal_cmp": JE.BinaryExpr(B.EQ, _c("i64"), _lit(None, JT.I64)),
     "and_with_null_lit": JE.BinaryExpr(B.AND, _c("b1"), _lit(None, JT.BOOL)),
     "or_with_true_lit": JE.BinaryExpr(B.OR, _c("b1"), _lit(True, JT.BOOL)),
+    "f64_gt_lit": JE.BinaryExpr(B.GT, _c("f64"), _lit(0.0, JT.F64)),
+    "f64_eq_f32": JE.BinaryExpr(B.EQ, _c("f64"), _c("f32")),
+    "f64_lt_f32": JE.BinaryExpr(B.LT, _c("f32"), _c("f64")),
+    "f64_lteq_int": JE.BinaryExpr(B.LTEQ, _c("f64"), _c("i32")),
+    "f64_vs_dec": JE.BinaryExpr(B.GTEQ, _c("f64"), _c("d72")),
+    "f64_add": JE.BinaryExpr(B.ADD, _c("f64"), _c("f32")),
+    "f64_sub_int": JE.BinaryExpr(B.SUB, _c("f64"), _c("i64")),
+    "f64_mul": JE.BinaryExpr(B.MUL, _c("f64"), _c("f64")),
+    "f64_div": JE.BinaryExpr(B.DIV, _c("f64"), _c("f32")),
+    "f32_is_null": JE.IsNull(_c("f32")),
 }
 
 

@@ -428,6 +428,9 @@ STATES = (2, 5, 7)  # the three ca_state codes of the IN list
 CD_DIMS = (2, 5, 7, 20, 4)  # gender, marital, education, purchase estimate, credit
 SALES_DATES = (2_450_816, 2_452_642)  # first and last d_date_sk of the sales
 Q69_KEYS = ["cd_gender", "cd_marital_status", "cd_education_status", "cd_credit_rating"]
+# the five grouping keys TPC-DS q69 names
+Q69_KEYS5 = ["cd_gender", "cd_marital_status", "cd_education_status", "cd_purchase_estimate",
+             "cd_credit_rating"]
 C = JE.Column
 
 
@@ -503,14 +506,14 @@ def _q69_tables(seed, customers=2000, addresses=1000, n_states=8,
     return tables
 
 
-def _q69_plan():
+def _q69_plan(group_keys=Q69_KEYS):
     """TPC-DS q69 as Spark plans it, in 4 partitions: customer JOIN
     address (three states, broadcast) -> exchange by customer -> LEFT
     SEMI store window, LEFT ANTI web window, LEFT ANTI catalog window
     (shuffled hash joins; each window is sales JOIN broadcast date_dim of
     April-June 2001, projected to the customer key and exchanged by it)
-    -> JOIN broadcast demographics -> two-stage COUNT(*) by four
-    demographics -> single exchange -> sort, top 100."""
+    -> JOIN broadcast demographics -> two-stage COUNT(*) by the
+    demographics ``group_keys`` -> single exchange -> sort, top 100."""
     eq = lambda c, v: JE.BinaryExpr(JE.BinaryOp.EQ, C(c), JE.Literal(v, JT.I64))  # noqa: E731
     OR = JE.BinaryOp.OR
     states = JE.BinaryExpr(OR, JE.BinaryExpr(OR, eq("ca_state_id", STATES[0]),
@@ -543,7 +546,7 @@ def _q69_plan():
     out = JN.BroadcastJoin(out, JN.BroadcastExchange(scan("customer_demographics", 1)),
                            [(C("c_current_cdemo_sk"), C("cd_demo_sk"))], J.INNER,
                            JN.JoinSide.RIGHT, "q69_demographics")
-    keys = [(k, C(k)) for k in Q69_KEYS]
+    keys = [(k, C(k)) for k in group_keys]
     count = JE.AggExpr(JE.AggFunction.COUNT, [])
     partial = JN.Agg(out, JE.AggExecMode.HASH_AGG, keys,
                      [JN.AggColumn(count, JE.AggMode.PARTIAL, "cnt")],
@@ -552,10 +555,10 @@ def _q69_plan():
         [e for _, e in keys], Q69_PARTS)), JE.AggExecMode.HASH_AGG, keys,
         [JN.AggColumn(count, JE.AggMode.FINAL, "cnt")])
     return JN.Sort(JN.ShuffleExchange(final, JN.SinglePartitioning(1)),
-                   [JE.SortOrder(C(k)) for k in Q69_KEYS], fetch_limit=100)
+                   [JE.SortOrder(C(k)) for k in group_keys], fetch_limit=100)
 
 
-def _q69_oracle(tables):
+def _q69_oracle(tables, group_keys=Q69_KEYS):
     """q69 by set operations on the host copies."""
     def cat(name, *cols):
         return [np.concatenate([p[c][0] for p in tables[name]]) for c in cols] + \
@@ -579,10 +582,10 @@ def _q69_oracle(tables):
     rows = c_cd[keep] - 1
     groups = {}
     for r in rows:
-        g = tuple(int(cd[k][0][r]) for k in Q69_KEYS)
+        g = tuple(int(cd[k][0][r]) for k in group_keys)
         groups[g] = groups.get(g, 0) + 1
     top = sorted(groups.items())[:100]
-    out = {k: [g[i] for g, _ in top] for i, k in enumerate(Q69_KEYS)}
+    out = {k: [g[i] for g, _ in top] for i, k in enumerate(group_keys)}
     out["cnt"] = [n for _, n in top]
     return out
 
@@ -599,3 +602,22 @@ def test_q69_matches_jax_and_the_oracle():
     got = _port(plan, tables, batch=Q69_BATCH)
     assert got == want
     assert _reference(plan, tables, Q69_SCHEMAS, batch=Q69_BATCH) == want
+
+
+def test_q69_five_keys_matches_jax_and_the_oracle():
+    """q69 grouped by the five demographics TPC-DS names: with
+    cd_purchase_estimate (500..10,000) the slot table is 4 * 8 * 8 *
+    16384 * 8 slots, past radix_agg_max_slots, so the partial and the
+    merge take the sort route (K10) in both packages under the default
+    config."""
+    from blaze_tpu_torch.ops.agg_device import plan_slot_table
+
+    tables = _q69_tables(seed=69)
+    plan = _q69_plan(Q69_KEYS5)
+    want = _q69_oracle(tables, Q69_KEYS5)
+    assert 50 <= len(want["cnt"]) <= 100 and sum(want["cnt"]) > 100
+    got = _port(plan, tables, batch=Q69_BATCH)
+    assert got == want
+    assert _reference(plan, tables, Q69_SCHEMAS, batch=Q69_BATCH) == want
+    probe = np.array([[1, 0, 1], [1, 0, 4], [1, 0, 6], [1, 500, 10_000], [1, 0, 3]])
+    assert plan_slot_table(probe, 1024, None, Config().radix_agg_max_slots, Config()) is None
