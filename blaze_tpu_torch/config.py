@@ -59,6 +59,13 @@ class Config:
     smj_fallback_rows_threshold: int = 10_000_000
     smj_fallback_mem_size_threshold: int = 1 << 30
 
+    # Whole-stage fusion (ir/fusion.py): maximal chains of project /
+    # filter / rename / expand (with coalesce-batches as a staging point
+    # between segments) run as one FusedStageExec, each segment one
+    # generated Triton kernel (K11) per batch plus one K1 compaction per
+    # filtered output group. False builds the exact unfused operator tree.
+    fusion_enabled: bool = True
+
     # Capacity bucketing: device buffers are padded up to the next power of
     # two >= min_capacity.
     min_capacity: int = 256

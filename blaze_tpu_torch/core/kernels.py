@@ -15,6 +15,9 @@ launches the kernel or raises.
   of both sides), with ``canon_words``, the join key's canonical word.
 - K9 ``probe_codes`` (csrc/join.cu): the generic join probe, each probe
   key's code in the build map or -1.
+- K11 ``fused_chain`` (exprs/fused_triton.py, generated Triton): one
+  fused chain segment of project / filter / rename / expand steps over a
+  batch, then K1 once per filtered output group.
 
 The slot-code helpers of the aggregation are plain PyTorch twins of the
 JAX package's (the slot kernels K3/K4 are in ops/agg_device.py), and the
@@ -278,6 +281,77 @@ def compact_planes(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor]
     fn = compact_planes_cuda if mask.is_cuda else compact_planes_plain
     count, out_d, out_v = fn(datas, valids, mask)
     return int(count), out_d, out_v
+
+
+# -- K11: a fused chain segment -------------------------------------------------
+
+
+def fused_chain_plain(in_schema, steps, datas: Sequence[torch.Tensor],
+                      valids: Sequence[torch.Tensor], num_rows: int):
+    """Plain PyTorch twin of K11, the same function as the jitted
+    blaze_tpu/exprs/compiler.py:1042 build_fused_closure: ``steps`` (project
+    / filter / rename / expand, no coalesce) over one batch's planes.
+    Expressions evaluate with ExprEvaluator over a LiveBatch, whose live
+    mask starts as the rows below ``num_rows`` and which filters only
+    narrow; each filtered output group then compacts once with K1's plain
+    version (stable order, dead lanes zeroed). Returns (groups, counts):
+    ``groups[g]`` is that group's (datas, valids) at the input capacity,
+    ``counts[g]`` its row count, a 0-d int64 tensor for a filtered group
+    and ``num_rows`` for an unfiltered one."""
+    from blaze_tpu_torch.core.batch import DeviceColumn
+    from blaze_tpu_torch.exprs.compiler import ExprEvaluator, LiveBatch, \
+        fused_chain_schemas
+
+    schemas = fused_chain_schemas(in_schema, steps)
+    cap = int(datas[0].shape[0])
+    cols = [DeviceColumn(f.dtype, d, v) for f, d, v in zip(in_schema.fields, datas, valids)]
+    groups = [(cols, iota(cap, datas[0].device) < num_rows, False)]
+    for si, st in enumerate(steps):
+        kind = st[0]
+        out_groups = []
+        for cols, live, filtered in groups:
+            batch = LiveBatch(schemas[si], cols, live)
+            if kind == "project":
+                out_groups.append((ExprEvaluator(list(st[1]), schemas[si]).evaluate(batch),
+                                   live, filtered))
+            elif kind == "filter":
+                out_groups.append((cols, ExprEvaluator(list(st[1]), schemas[si])
+                                   .evaluate_predicate(batch), True))
+            elif kind == "rename":
+                out_groups.append((cols, live, filtered))
+            elif kind == "expand":
+                for proj in st[1]:
+                    out_groups.append((ExprEvaluator(list(proj), schemas[si])
+                                       .evaluate(batch), live, filtered))
+            else:
+                raise ValueError(f"unknown fused step {kind!r}")
+        groups = out_groups
+    outs, counts = [], []
+    for cols, live, filtered in groups:
+        ds = tuple(c.data for c in cols)
+        vs = tuple(c.validity for c in cols)
+        if filtered:
+            count, ds, vs = compact_planes_plain(ds, vs, live)
+            ds, vs = tuple(ds), tuple(vs)
+        else:
+            count = num_rows
+        outs.append((ds, vs))
+        counts.append(count)
+    return tuple(outs), tuple(counts)
+
+
+def fused_chain(in_schema, steps, datas: Sequence[torch.Tensor],
+                valids: Sequence[torch.Tensor], num_rows: int, kernel=None):
+    """One fused chain segment over a batch's planes: K11 (with K1) on
+    CUDA planes, the plain version on CPU planes. ``kernel`` is the
+    segment's cached ``exprs.fused_triton.FusedKernel``, made here when
+    not given."""
+    if datas[0].is_cuda:
+        from blaze_tpu_torch.exprs.fused_triton import FusedKernel
+
+        kernel = kernel or FusedKernel(in_schema, steps)
+        return kernel(datas, valids, num_rows)
+    return fused_chain_plain(in_schema, steps, datas, valids, num_rows)
 
 
 # -- K8: the unique-key inner join -------------------------------------------------

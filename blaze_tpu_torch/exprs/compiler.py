@@ -9,8 +9,15 @@ use Kleene logic, division/modulo by zero yield NULL (non-ANSI).
 
 Ported: Column, BoundReference, Literal (decimal literals rescaled to
 their type), comparison/arithmetic/bitwise/logical BinaryExpr, IsNull,
-IsNotNull, Not. Anything else raises NotImplementedError naming the
-ROADMAP item that ports it; there is no host fallback.
+IsNotNull, Not, InList. Anything else raises NotImplementedError naming
+the ROADMAP item that ports it; there is no host fallback.
+
+Whole-stage fusion reads this module too: ``fusable_expr`` is the JAX
+package's whitelist of expressions a fused chain may hold,
+``fused_chain_schemas`` and ``fused_group_flags`` describe a chain, and
+``LiveBatch`` is the batch a fused chain's expressions see (its rows are
+a live mask, not a count). K11 (``exprs/fused_triton.py``) generates the
+same semantics as device code.
 """
 
 from __future__ import annotations
@@ -75,9 +82,7 @@ class ExprEvaluator:
     def eval(self, expr: E.Expr, batch: ColumnarBatch) -> DevVal:
         method = getattr(self, "_eval_" + type(expr).__name__, None)
         if method is None:
-            raise NotImplementedError(
-                f"expression {type(expr).__name__} is not ported to the "
-                "PyTorch package yet (ROADMAP.md Queue 1 item 4)")
+            raise not_ported(expr)
         return method(expr, batch)
 
     # -- value conversions ----------------------------------------------------
@@ -137,7 +142,7 @@ class ExprEvaluator:
             if not res_t.fits_int64:
                 raise NotImplementedError(
                     f"decimal arithmetic into {res_t!r} (wider than 18 digits) "
-                    "is not ported yet (ROADMAP.md Queue 1 item 4)")
+                    "is not ported yet (ROADMAP.md Queue 1 item 6)")
             if _is_float(ldt) or _is_float(rdt):
                 out = _float_op(op, self._decimal_to_f64(l), self._decimal_to_f64(r))
                 scaled = out * float(10 ** res_t.scale)
@@ -235,8 +240,14 @@ class ExprEvaluator:
 
     @staticmethod
     def _decimal_to_f64(v: DevVal) -> torch.Tensor:
+        """A decimal's value as float64: unscaled / 10^scale, divided as
+        IEEE divides (the divisor is a device tensor: CUDA torch multiplies
+        by the reciprocal of a Python scalar divisor, which rounds 35 / 100
+        to 0.35000000000000003)."""
         if isinstance(v.dtype, T.DecimalType):
-            return v.data.to(torch.float64) / float(10 ** v.dtype.scale)
+            den = torch.full((), float(10 ** v.dtype.scale), dtype=torch.float64,
+                             device=v.data.device)
+            return v.data.to(torch.float64) / den
         return v.data.to(torch.float64)
 
     # -- unary ----------------------------------------------------------------
@@ -252,6 +263,30 @@ class ExprEvaluator:
     def _eval_Not(self, expr: E.Not, batch) -> DevVal:
         v = self.eval(expr.child, batch)
         return DevVal(T.BOOL, ~v.data.to(torch.bool), v.validity)
+
+    def _eval_InList(self, expr: E.InList, batch) -> DevVal:
+        """``child [NOT] IN (values)``, the device half of the JAX
+        package's ``_eval_InList``: each value compares as ``_numeric_align``
+        aligns it; a null literal among the values turns every miss null
+        (found without a host sync); ``negated`` flips the data only."""
+        v = self.eval(expr.child, batch)
+        eq_any = torch.zeros(batch.capacity, dtype=torch.bool, device=batch.device)
+        has_null_item = torch.zeros((), dtype=torch.bool, device=batch.device)
+        for item in expr.values:
+            x = self.eval(item, batch)
+            if x.data.dim() == 0:
+                has_null_item = has_null_item | ~x.validity
+            xd, xv = broadcast(x, batch)
+            ld, rd = self._numeric_align(v, DevVal(x.dtype, xd, xv))
+            eq_any = eq_any | (torch.eq(ld, rd) & xv)
+        validity = v.validity & (eq_any | ~has_null_item)
+        return DevVal(T.BOOL, ~eq_any if expr.negated else eq_any, validity)
+
+
+def not_ported(expr: E.Expr) -> NotImplementedError:
+    return NotImplementedError(
+        f"expression {type(expr).__name__} is not ported to the PyTorch package "
+        "yet (ROADMAP.md Queue 1 item 6)")
 
 
 def _ones(batch: ColumnarBatch) -> torch.Tensor:
@@ -300,7 +335,7 @@ def make_literal(value: Any, dtype: T.DataType, device: torch.device) -> DevVal:
     if tdt is None:
         raise NotImplementedError(
             f"literal of type {dtype!r} has no device plane in the PyTorch "
-            "port yet (ROADMAP.md Queue 1 item 4)")
+            "port yet (ROADMAP.md Queue 1 item 6)")
     if value is None:
         return DevVal(dtype, torch.zeros((), dtype=tdt, device=device),
                       torch.zeros((), dtype=torch.bool, device=device))
@@ -311,6 +346,110 @@ def make_literal(value: Any, dtype: T.DataType, device: torch.device) -> DevVal:
             not isinstance(value, int):
         raise NotImplementedError(
             "date/timestamp literals from non-integer values are not ported "
-            "yet (ROADMAP.md Queue 1 item 4)")
+            "yet (ROADMAP.md Queue 1 item 6)")
     return DevVal(dtype, torch.tensor(v, dtype=tdt, device=device),
                   torch.ones((), dtype=torch.bool, device=device))
+
+
+# -- whole-stage fusion ------------------------------------------------------------
+
+
+class LiveBatch:
+    """One batch's planes as a fused chain's expressions see them: the rows
+    that exist are a live mask (narrowed by the chain's filters), not a
+    count, so ``num_rows`` is undefined (blaze_tpu/exprs/compiler.py
+    TraceBatch)."""
+
+    def __init__(self, schema: T.Schema, columns: List[DeviceColumn],
+                 live: torch.Tensor):
+        self.schema = schema
+        self.columns = columns
+        self.live = live
+
+    @property
+    def capacity(self) -> int:
+        return int(self.live.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.live.device
+
+    def row_exists_mask(self) -> torch.Tensor:
+        return self.live
+
+    @property
+    def num_rows(self):
+        raise ExprError("num_rows is not defined inside a fused chain")
+
+
+def _is_device_type(dt: T.DataType) -> bool:
+    return T.torch_dtype(dt) is not None
+
+
+def fusable_expr(expr: E.Expr, schema: T.Schema) -> bool:
+    """The JAX package's whitelist of expressions a fused chain may hold
+    (blaze_tpu/exprs/compiler.py:967): pure device expressions whose
+    result lives on the device. Case, Cast and TryCast pass it as they do
+    there; their evaluation is not ported and raises, fused or not."""
+    try:
+        return _fusable(expr, schema) and _is_device_type(E.infer_type(expr, schema))
+    except Exception:
+        return False
+
+
+def _fusable(expr: E.Expr, schema: T.Schema) -> bool:
+    if isinstance(expr, E.BoundReference):
+        return _is_device_type(schema[expr.index].dtype)
+    if isinstance(expr, E.Column):
+        return _is_device_type(schema[schema.index_of(expr.name)].dtype)
+    if isinstance(expr, (E.Literal, E.ScalarSubquery)):
+        return _is_device_type(expr.dtype)
+    if isinstance(expr, E.BinaryExpr):
+        return _fusable(expr.left, schema) and _fusable(expr.right, schema)
+    if isinstance(expr, (E.Not, E.IsNull, E.IsNotNull)):
+        return _fusable(expr.child, schema)
+    if isinstance(expr, E.Case):
+        parts = [p for branch in expr.branches for p in branch]
+        if expr.else_expr is not None:
+            parts.append(expr.else_expr)
+        return all(_fusable(p, schema) for p in parts)
+    if isinstance(expr, E.InList):
+        return _fusable(expr.child, schema) and \
+            all(_fusable(v, schema) for v in expr.values)
+    if isinstance(expr, (E.Cast, E.TryCast)):
+        return _fusable(expr.child, schema) and _is_device_type(expr.dtype) \
+            and _is_device_type(E.infer_type(expr.child, schema))
+    if isinstance(expr, E.SortOrder):
+        return _fusable(expr.child, schema)
+    return False
+
+
+def fused_chain_schemas(input_schema: T.Schema, steps) -> List[T.Schema]:
+    """The schema each step of a fused chain sees (index i: steps[i]'s
+    input; the last entry: the chain's output). Expand declares one schema
+    for all its projections."""
+    schemas = [input_schema]
+    s = input_schema
+    for st in steps:
+        kind = st[0]
+        if kind == "project":
+            s = T.Schema(tuple(T.StructField(n, E.infer_type(e, s))
+                               for n, e in zip(st[2], st[1])))
+        elif kind == "rename":
+            s = s.rename(list(st[1]))
+        elif kind == "expand":
+            s = st[2]
+        schemas.append(s)
+    return schemas
+
+
+def fused_group_flags(steps) -> List[bool]:
+    """Per output group: was it filtered? An unfiltered group keeps the
+    batch's row count and needs no compaction and no count sync."""
+    flags = [False]
+    for st in steps:
+        if st[0] == "filter":
+            flags = [True] * len(flags)
+        elif st[0] == "expand":
+            flags = [f for f in flags for _ in range(len(st[1]))]
+    return flags

@@ -17,7 +17,14 @@ def _i64(x, like: torch.Tensor) -> torch.Tensor:
 
 
 def floordiv(a: torch.Tensor, b) -> torch.Tensor:
-    return torch.div(a, b, rounding_mode="floor")
+    """Floor division for b != 0. ``a // -1`` is ``-a``, which wraps at
+    the type's minimum as XLA's division does, written out so that the
+    answer does not depend on how the device divides that one case."""
+    if not torch.is_tensor(b):
+        return -a if b == -1 else torch.div(a, b, rounding_mode="floor")
+    m1 = b == -1
+    return torch.where(m1, -a, torch.div(a, torch.where(m1, torch.ones_like(b), b),
+                                          rounding_mode="floor"))
 
 
 def check_overflow(data, validity, precision: int):

@@ -1,0 +1,720 @@
+"""K11: one generated Triton kernel per fused chain segment.
+
+Replaces blaze_tpu/exprs/compiler.py:1042 ``build_fused_closure``, which
+the JAX package jits once per chain fingerprint (blaze_tpu/ops/fused.py).
+The counterpart of a program specialised per chain is a kernel generated
+per chain: ``FusedKernel`` turns a segment (input schema plus project /
+filter / rename / expand steps) into the source of one ``@triton.jit``
+kernel, writes it to ``build_kernels/fused/<fingerprint>.py`` (or under
+``$BLAZE_TORCH_KERNEL_DIR``) and imports it from there, since
+``@triton.jit`` reads its source with ``inspect``. Triton compiles it at
+its first launch; ``triton`` is imported only then, so the package imports
+where there is none.
+
+One program takes 1,024 rows. For each row the kernel loads the data and
+validity planes the chain reads, evaluates every expression with the
+semantics of ``exprs/compiler.py`` and ``exprs/decimal.py`` (op for op,
+in the same types), keeps one live mask per output group (filters only
+narrow it) and stores each group's new planes and, for a filtered group,
+its live mask. Rows past ``num_rows`` carry what the plain version gives
+them (the value, validity False). A column that passes an input data
+plane through is not stored: a filtered group compacts the input planes
+themselves, an unfiltered one shares them. K1 (csrc/compact.cu) then
+compacts each filtered group once, stable, dead lanes zeroed.
+
+Bound: device memory. A chain reads a few planes and writes a few, with
+a handful of integer or float operations a row; nothing is reused, so no
+shared memory and no tensor cores. Triton's blocked loads and stores
+serve that as well as CUDA C++ would, and need no nvcc at run time.
+
+Bit-equality with the plain version (``core/kernels.fused_chain_plain``),
+which the generator guards:
+
+- launches pass ``enable_fp_fusion=False``: no ``a*b + c`` becomes an FMA
+  (float MOD, decimal-from-float rounding);
+- f32 division and truncation are inline PTX ``div.rn.f32`` and
+  ``cvt.rzi.f32.f32`` (IEEE, subnormals kept); f64 ``/`` is IEEE already;
+- Triton's ``//`` truncates, so floor division, Java division and HALF_UP
+  division are written out as ``exprs/decimal.py`` writes them, with
+  ``a // -1 = -a``;
+- every literal and constant is an int64 word in a small device table
+  (floats as their bit patterns) and is cast or bitcast in the kernel, so
+  no Python scalar is typed i32 or fp32 by Triton;
+- bool planes load as ``i1`` and widen through ``tl.where(b, 1, 0)``;
+  int8/int16 results are cast back to their type after every operation.
+
+A build or launch failure raises; nothing falls back to the plain
+version on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import linecache
+import math
+import os
+import re
+import sys
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from blaze_tpu_torch.exprs.compiler import ExprError, fused_chain_schemas, make_literal, \
+    not_ported
+from blaze_tpu_torch.ir import exprs as E
+from blaze_tpu_torch.ir import types as T
+from blaze_tpu_torch.utils import cuda_lib
+
+BLOCK = 1024
+NUM_WARPS = 4
+
+_TL = {torch.bool: "tl.int1", torch.int8: "tl.int8", torch.int16: "tl.int16",
+       torch.int32: "tl.int32", torch.int64: "tl.int64", torch.float32: "tl.float32",
+       torch.float64: "tl.float64"}
+_NARROW = (torch.int8, torch.int16)
+_B = E.BinaryOp
+_CMP = {_B.EQ: "==", _B.NEQ: "!=", _B.LT: "<", _B.LTEQ: "<=", _B.GT: ">", _B.GTEQ: ">="}
+_ARITH = {_B.ADD: "+", _B.SUB: "-", _B.MUL: "*", _B.BIT_AND: "&", _B.BIT_OR: "|",
+          _B.BIT_XOR: "^"}
+
+_PRELUDE = '''"""K11 for one fused chain segment (fingerprint {fp}), generated by
+blaze_tpu_torch/exprs/fused_triton.py; rewritten whenever it differs."""
+import triton
+import triton.language as tl
+
+try:
+    from triton.language.extra import libdevice
+except ImportError:
+    from triton.language.extra.cuda import libdevice
+
+
+@triton.jit
+def _floordiv(a, b):
+    # exprs/decimal.py floordiv: floor division for b != 0, a // -1 = -a
+    m1 = b == -1
+    bs = tl.where(m1, 1, b)
+    q = a // bs
+    r = a - q * bs
+    q = tl.where((r != 0) & ((r < 0) != (bs < 0)), q - 1, q)
+    return tl.where(m1, 0 - a, q)
+
+
+@triton.jit
+def _java_div(a, b):
+    # exprs/compiler.py _java_int_div: truncating division
+    q = _floordiv(a, b)
+    r = a - q * b
+    return tl.where((r != 0) & ((a < 0) != (b < 0)), q + 1, q)
+
+
+@triton.jit
+def _div_half_up(num, den):
+    # exprs/decimal.py _div_half_up (den > 0)
+    q = _floordiv(num, den)
+    r = num - q * den
+    neg = num < 0
+    q_trunc = tl.where(neg & (r != 0), q + 1, q)
+    r_trunc = num - q_trunc * den
+    bump = (2 * tl.abs(r_trunc)) >= den
+    return tl.where(bump, q_trunc + tl.where(neg, -1, 1), q_trunc)
+
+
+@triton.jit
+def _mul_ovf(a, b):
+    # exprs/decimal.py _mul_overflows: the wrapped product and its overflow
+    p = a * b
+    return p, (a != 0) & (_floordiv(p, tl.where(a == 0, 1, a)) != b)
+
+
+@triton.jit
+def _div_f32(a, b):
+    return tl.inline_asm_elementwise("div.rn.f32 $0, $1, $2;", "=f,f,f", [a, b],
+                                     dtype=tl.float32, is_pure=True, pack=1)
+
+
+@triton.jit
+def _trunc_f32(x):
+    return tl.inline_asm_elementwise("cvt.rzi.f32.f32 $0, $1;", "=f,f", [x],
+                                     dtype=tl.float32, is_pure=True, pack=1)
+
+'''
+
+
+@dataclasses.dataclass
+class _V:
+    """A value in the kernel: its data and validity blocks (variable names),
+    the data's torch dtype, its logical type, whether the plain version
+    holds it as a 0-d tensor (a literal), and the input column whose data
+    plane it is, if any."""
+
+    data: str
+    valid: str
+    tdt: torch.dtype
+    dtype: T.DataType
+    scalar: bool = False
+    src: Optional[int] = None
+
+
+@dataclasses.dataclass
+class _Col:
+    data: str
+    valid: str
+    tdt: torch.dtype
+    src: Optional[int]       # input column whose data plane this is
+    valid_src: bool          # validity still the input plane itself
+
+
+class _Gen:
+    """Generates one segment's kernel body, mirroring ExprEvaluator."""
+
+    def __init__(self, in_schema: T.Schema, steps):
+        self.in_schema = in_schema
+        self.steps = tuple(steps)
+        self.body: List[str] = []
+        self.pool: Dict[int, int] = {}
+        self.stores: List[Tuple[str, torch.dtype]] = []
+        # per output group: (data plane specs, validity plane specs, mask
+        # store or None); a spec is ("in_d" | "in_v" | "out", index)
+        self.groups: List[tuple] = []
+        self._n = 0
+        self._generate()
+
+    # -- emission helpers ---------------------------------------------------------
+
+    def let(self, expr: str) -> str:
+        name = f"t{self._n}"
+        self._n += 1
+        self.body.append(f"    {name} = {expr}")
+        return name
+
+    def let2(self, expr: str) -> Tuple[str, str]:
+        a, b = f"t{self._n}", f"t{self._n + 1}"
+        self._n += 2
+        self.body.append(f"    {a}, {b} = {expr}")
+        return a, b
+
+    def word(self, v: int) -> str:
+        """An int64 block of one constant from the segment's table."""
+        v = int(v)
+        if not -(1 << 63) <= v < (1 << 63):
+            raise RuntimeError(f"fused chain constant {v} does not fit in int64")
+        return f"w{self.pool.setdefault(v, len(self.pool))}"
+
+    def fconst(self, x: float) -> str:
+        bits = int(np.array(x, dtype=np.float64).view(np.int64))
+        return self.let(f"{self.word(bits)}.to(tl.float64, bitcast=True)")
+
+    def cast(self, name: str, src: torch.dtype, dst: torch.dtype) -> str:
+        if src == dst:
+            return name
+        if src == torch.bool:
+            return self.let(f"tl.where({name}, 1, 0).to({_TL[dst]})")
+        if dst == torch.bool:
+            return self.let(f"{name} != 0")
+        return self.let(f"{name}.to({_TL[dst]})")
+
+    def narrow(self, name: str, tdt: torch.dtype) -> str:
+        return self.let(f"{name}.to({_TL[tdt]})") if tdt in _NARROW else name
+
+    def to_bool(self, v: _V) -> str:
+        return self.cast(v.data, v.tdt, torch.bool)
+
+    # -- the chain ----------------------------------------------------------------
+
+    def _generate(self):
+        schemas = fused_chain_schemas(self.in_schema, self.steps)
+        cols = [_Col(f"x{i}", f"xv{i}", _require_tdt(f.dtype), i, True)
+                for i, f in enumerate(self.in_schema.fields)]
+        groups = [(cols, "exists", False)]
+        for si, st in enumerate(self.steps):
+            kind, schema = st[0], schemas[si]
+            out = []
+            for cols, live, filtered in groups:
+                if kind == "project":
+                    out.append((self._project(st[1], schema, cols, live), live, filtered))
+                elif kind == "filter":
+                    out.append((cols, self._predicate(st[1], schema, cols, live), True))
+                elif kind == "rename":
+                    out.append((cols, live, filtered))
+                elif kind == "expand":
+                    for proj in st[1]:
+                        out.append((self._project(proj, schema, cols, live), live, filtered))
+                else:
+                    raise ExprError(f"unknown fused step {kind!r}")
+            groups = out
+        for cols, live, filtered in groups:
+            dspec, vspec = [], []
+            for c in cols:
+                if c.src is not None and (filtered or c.valid_src):
+                    dspec.append(("in_d", c.src))
+                    vspec.append(("in_v", c.src))
+                    continue
+                dspec.append(("in_d", c.src) if c.src is not None
+                             else ("out", self._store(c.data, c.tdt)))
+                vspec.append(("out", self._store(c.valid, torch.bool)))
+            mask = self._store(live, torch.bool) if filtered else None
+            self.groups.append((dspec, vspec, mask))
+        # the input planes the kernel loads: those its expressions or its
+        # stores read (a projected isnotnull(column) stores the column's
+        # validity plane itself)
+        read = "\n".join(self.body + [v for v, _tdt in self.stores])
+        n = len(self.in_schema.fields)
+        self.used_d = [i for i in range(n) if re.search(rf"\bx{i}\b", read)]
+        self.used_v = [i for i in range(n) if re.search(rf"\bxv{i}\b", read)]
+
+    def _store(self, var: str, tdt: torch.dtype) -> int:
+        self.stores.append((var, tdt))
+        return len(self.stores) - 1
+
+    def _project(self, exprs, schema, cols, live) -> List[_Col]:
+        out = []
+        for e in exprs:
+            v = self.eval(e, schema, cols)
+            out.append(_Col(v.data, self.let(f"{v.valid} & {live}"), v.tdt, v.src, False))
+        return out
+
+    def _predicate(self, exprs, schema, cols, live) -> str:
+        mask = None
+        for e in exprs:
+            v = self.eval(e, schema, cols)
+            keep = self.let(f"{self.to_bool(v)} & {v.valid}")
+            mask = keep if mask is None else self.let(f"{mask} & {keep}")
+        return self.let(f"{mask} & {live}")
+
+    # -- expressions (exprs/compiler.py ExprEvaluator, as device code) ------------
+
+    def eval(self, expr: E.Expr, schema: T.Schema, cols: List[_Col]) -> _V:
+        method = getattr(self, "_eval_" + type(expr).__name__, None)
+        if method is None:
+            raise not_ported(expr)
+        return method(expr, schema, cols)
+
+    def _eval_Column(self, expr, schema, cols) -> _V:
+        return self._eval_BoundReference(E.BoundReference(schema.index_of(expr.name)),
+                                         schema, cols)
+
+    def _eval_BoundReference(self, expr, schema, cols) -> _V:
+        c = cols[expr.index]
+        return _V(c.data, c.valid, c.tdt, schema[expr.index].dtype, src=c.src)
+
+    def _eval_SortOrder(self, expr, schema, cols) -> _V:
+        return self.eval(expr.child, schema, cols)
+
+    def _eval_Literal(self, expr, schema, cols) -> _V:
+        lit = make_literal(expr.value, expr.dtype, torch.device("cpu"))
+        tdt = lit.data.dtype
+        if tdt.is_floating_point:
+            bits = lit.data.view(torch.int32 if tdt == torch.float32 else torch.int64)
+            w = self.word(bits.item())
+        else:
+            w = self.word(lit.data.to(torch.int64).item())
+        if tdt == torch.int64:
+            data = w
+        elif tdt == torch.bool:
+            data = self.let(f"{w} != 0")
+        elif tdt == torch.float64:
+            data = self.let(f"{w}.to(tl.float64, bitcast=True)")
+        elif tdt == torch.float32:
+            data = self.let(f"{w}.to(tl.int32).to(tl.float32, bitcast=True)")
+        else:
+            data = self.let(f"{w}.to({_TL[tdt]})")
+        return _V(data, "tt" if bool(lit.validity) else "ff", tdt, expr.dtype, scalar=True)
+
+    def _eval_IsNull(self, expr, schema, cols) -> _V:
+        v = self.eval(expr.child, schema, cols)
+        return _V(self.let(f"{v.valid} == 0"), "tt", torch.bool, T.BOOL)
+
+    def _eval_IsNotNull(self, expr, schema, cols) -> _V:
+        v = self.eval(expr.child, schema, cols)
+        return _V(v.valid, "tt", torch.bool, T.BOOL)
+
+    def _eval_Not(self, expr, schema, cols) -> _V:
+        v = self.eval(expr.child, schema, cols)
+        return _V(self.let(f"{self.to_bool(v)} == 0"), v.valid, torch.bool, T.BOOL,
+                  v.scalar)
+
+    def _eval_InList(self, expr, schema, cols) -> _V:
+        v = self.eval(expr.child, schema, cols)
+        eq_any, has_null = "ff", "ff"
+        for item in expr.values:
+            x = self.eval(item, schema, cols)
+            if x.scalar:
+                has_null = self.let(f"{has_null} | ({x.valid} == 0)")
+            ld, rd, _ = self.align(v, x)
+            eq_any = self.let(f"{eq_any} | (({ld} == {rd}) & {x.valid})")
+        valid = self.let(f"{v.valid} & ({eq_any} | ({has_null} == 0))")
+        data = self.let(f"{eq_any} == 0") if expr.negated else eq_any
+        return _V(data, valid, torch.bool, T.BOOL)
+
+    def _eval_BinaryExpr(self, expr, schema, cols) -> _V:
+        l = self.eval(expr.left, schema, cols)
+        r = self.eval(expr.right, schema, cols)
+        scalar = l.scalar and r.scalar
+        op = expr.op
+        if op in (_B.AND, _B.OR):
+            ld, rd, lv, rv = self.to_bool(l), self.to_bool(r), l.valid, r.valid
+            if op == _B.AND:
+                dfalse = self.let(f"({lv} & ({ld} == 0)) | ({rv} & ({rd} == 0))")
+                dtrue = self.let(f"{lv} & {ld} & {rv} & {rd}")
+            else:
+                dtrue = self.let(f"({lv} & {ld}) | ({rv} & {rd})")
+                dfalse = self.let(f"{lv} & ({ld} == 0) & {rv} & ({rd} == 0)")
+            return _V(dtrue, self.let(f"{dtrue} | {dfalse}"), torch.bool, T.BOOL, scalar)
+        if op in _CMP:
+            ld, rd, tdt = self.align(l, r)
+            if tdt == torch.bool and op not in (_B.EQ, _B.NEQ):
+                ld, rd = self.cast(ld, tdt, torch.int32), self.cast(rd, tdt, torch.int32)
+            return _V(self.let(f"{ld} {_CMP[op]} {rd}"), self.let(f"{l.valid} & {r.valid}"),
+                      torch.bool, T.BOOL, scalar)
+        res_t = expr.result_type or E.infer_type(
+            E.BinaryExpr(op, E.Literal(None, l.dtype), E.Literal(None, r.dtype)), T.Schema(()))
+        valid = self.let(f"{l.valid} & {r.valid}")
+        if isinstance(res_t, T.DecimalType):
+            if not res_t.fits_int64:
+                raise NotImplementedError(
+                    f"decimal arithmetic into {res_t!r} (wider than 18 digits) "
+                    "is not ported yet (ROADMAP.md Queue 1 item 6)")
+            if _is_float(l.dtype) or _is_float(r.dtype):
+                return self._float_into_decimal(op, l, r, res_t, valid, scalar)
+            return self._decimal_arith(op, self.coerce_decimal(l), self.coerce_decimal(r),
+                                       res_t, scalar)
+        ld, rd, tdt = self.align(l, r, res_t)
+        if tdt == torch.bool:  # arithmetic on bools: in int32, then back
+            ld, rd = self.cast(ld, tdt, torch.int32), self.cast(rd, tdt, torch.int32)
+        wt = torch.int32 if tdt == torch.bool else tdt
+        if op in _ARITH:
+            out = self.let(f"{ld} {_ARITH[op]} {rd}")
+        elif op in (_B.DIV, _B.MOD):
+            zero = self.let(f"{rd} == 0")
+            valid = self.let(f"{valid} & ({zero} == 0)")
+            den = self.let(f"tl.where({zero}, 1, {rd})")
+            if wt.is_floating_point:
+                q = self.fdiv(ld, den, wt)
+                out = q if op == _B.DIV else \
+                    self.let(f"{ld} - {self.ftrunc(q, wt)} * {den}")
+            else:
+                q = self.narrow(self.let(f"_java_div({ld}, {den})"), wt)
+                out = q if op == _B.DIV else self.let(f"{ld} - {q} * {den}")
+        elif op in (_B.SHIFT_LEFT, _B.SHIFT_RIGHT):
+            bits = torch.empty((), dtype=wt).element_size() * 8
+            rem = self.let(f"{rd} % {bits}")
+            sh = self.let(f"tl.where({rem} < 0, {rem} + {bits}, {rem})")
+            out = self.let(f"{ld} {'<<' if op == _B.SHIFT_LEFT else '>>'} {sh}")
+        else:
+            raise ExprError(f"unsupported device binary op {op}")
+        out = self.narrow(out, wt)
+        if tdt == torch.bool:
+            out = self.cast(out, torch.int32, torch.bool)
+        return _V(out, valid, tdt, res_t, scalar)
+
+    # -- numeric helpers ------------------------------------------------------------
+
+    def coerce_decimal(self, v: _V) -> _V:
+        """ExprEvaluator._coerce_decimal: an integer operand as decimal(18, 0)."""
+        if isinstance(v.dtype, T.DecimalType):
+            return v
+        return _V(self.cast(v.data, v.tdt, torch.int64), v.valid, torch.int64,
+                  T.DecimalType(18, 0), v.scalar)
+
+    def fdiv(self, a: str, b: str, tdt: torch.dtype) -> str:
+        return self.let(f"_div_f32({a}, {b})" if tdt == torch.float32 else f"{a} / {b}")
+
+    def ftrunc(self, x: str, tdt: torch.dtype) -> str:
+        return self.let(f"_trunc_f32({x})" if tdt == torch.float32
+                        else f"libdevice.trunc({x})")
+
+    def align(self, l: _V, r: _V, res_t: Optional[T.DataType] = None):
+        """ExprEvaluator._numeric_align: (left, right, their dtype)."""
+        ldec, rdec = isinstance(l.dtype, T.DecimalType), isinstance(r.dtype, T.DecimalType)
+        if ldec and rdec:
+            s = max(l.dtype.scale, r.dtype.scale)
+            return (self._rescale_data(l.data, l.dtype.scale, s),
+                    self._rescale_data(r.data, r.dtype.scale, s), torch.int64)
+        if ldec or rdec:
+            return self.dec_to_f64(l), self.dec_to_f64(r), torch.float64
+        tdt = T.torch_dtype(res_t) if res_t is not None else None
+        if tdt is None:
+            tdt = torch.promote_types(l.tdt, r.tdt)
+        return self.cast(l.data, l.tdt, tdt), self.cast(r.data, r.tdt, tdt), tdt
+
+    def dec_to_f64(self, v: _V) -> str:
+        if isinstance(v.dtype, T.DecimalType):
+            return self.let(f"{v.data}.to(tl.float64) / "
+                            f"{self.fconst(float(10 ** v.dtype.scale))}")
+        return self.cast(v.data, v.tdt, torch.float64)
+
+    def _float_op(self, op, ld: str, rd: str) -> str:
+        """compiler.py _float_op over f64 blocks."""
+        if op in (_B.ADD, _B.SUB, _B.MUL):
+            return self.let(f"{ld} {_ARITH[op]} {rd}")
+        zero = self.let(f"{rd} == 0")
+        den = self.let(f"tl.where({zero}, 1.0, {rd})")
+        nan = self.fconst(float("nan"))
+        if op == _B.DIV:
+            return self.let(f"tl.where({zero}, {nan}, {ld} / {den})")
+        if op == _B.MOD:
+            q = self.let(f"libdevice.trunc({ld} / {den})")
+            return self.let(f"tl.where({zero}, {nan}, {ld} - {q} * {rd})")
+        raise ExprError(f"unsupported float/decimal op {op}")
+
+    def _float_into_decimal(self, op, l: _V, r: _V, res_t, valid: str, scalar) -> _V:
+        out = self._float_op(op, self.dec_to_f64(l), self.dec_to_f64(r))
+        scaled = self.let(f"{out} * {self.fconst(float(10 ** res_t.scale))}")
+        rounded = self.let(f"tl.where({scaled} >= 0, libdevice.floor({scaled} + 0.5), "
+                           f"libdevice.ceil({scaled} - 0.5))")
+        ok = self.let(f"(tl.abs({scaled}) < {self.fconst(math.inf)}) & "
+                      f"(tl.abs({rounded}) < {self.fconst(float(2 ** 62))})")
+        data = self.let(f"tl.where({ok}, {rounded}, 0.0).to(tl.int64)")
+        data, valid = self._check_overflow(data, self.let(f"{valid} & {ok}"),
+                                           res_t.precision)
+        return _V(data, valid, torch.int64, res_t, scalar)
+
+    # -- exprs/decimal.py, as device code -------------------------------------------
+
+    def _check_overflow(self, data: str, valid: str, precision: int):
+        if precision >= 19:
+            return data, valid
+        bound = 10 ** precision
+        ok = self.let(f"({data} < {self.word(bound)}) & ({data} > {self.word(-bound)})")
+        return data, self.let(f"{valid} & {ok}")
+
+    def _rescale_data(self, data: str, frm: int, to: int) -> str:
+        if to > frm:
+            return self.let2(f"_mul_ovf({data}, {self.word(10 ** (to - frm))})")[0]
+        if to < frm:
+            return self.let(f"_div_half_up({data}, {self.word(10 ** (frm - to))})")
+        return data
+
+    def _rescale(self, data: str, valid: str, frm: int, to: int, precision: int):
+        if to > frm:
+            data, bad = self.let2(f"_mul_ovf({data}, {self.word(10 ** (to - frm))})")
+            valid = self.let(f"{valid} & ({bad} == 0)")
+        elif to < frm:
+            data = self.let(f"_div_half_up({data}, {self.word(10 ** (frm - to))})")
+        return self._check_overflow(data, valid, precision)
+
+    def _decimal_arith(self, op, l: _V, r: _V, res_t: T.DecimalType, scalar) -> _V:
+        ls, rs = l.dtype.scale, r.dtype.scale
+        if op in (_B.ADD, _B.SUB, _B.MOD):
+            s = max(ls, rs)
+            ld, lv = self._rescale(l.data, l.valid, ls, s, 19)
+            rd, rv = self._rescale(r.data, r.valid, rs, s, 19)
+            if op == _B.MOD:
+                zero = self.let(f"{rd} == 0")
+                den = self.let(f"tl.where({zero}, 1, {rd})")
+                out = self.let(f"{ld} - _java_div({ld}, {den}) * {den}")
+                valid = self.let(f"{lv} & {rv} & ({zero} == 0)")
+            else:
+                if op == _B.SUB:
+                    rd = self.let(f"0 - {rd}")
+                out = self.let(f"{ld} + {rd}")
+                ovf = self.let(f"(({ld} >= 0) == ({rd} >= 0)) & (({out} >= 0) != ({ld} >= 0)) "
+                               f"& ({ld} != 0)")
+                valid = self.let(f"{lv} & {rv} & ({ovf} == 0)")
+            out, valid = self._rescale(out, valid, s, res_t.scale, res_t.precision)
+        elif op == _B.MUL:
+            out, bad = self.let2(f"_mul_ovf({l.data}, {r.data})")
+            valid = self.let(f"{l.valid} & {r.valid} & ({bad} == 0)")
+            down = ls + rs - res_t.scale
+            if down > 0:
+                out = self.let(f"_div_half_up({out}, {self.word(10 ** down)})")
+            out, valid = self._check_overflow(out, valid, res_t.precision)
+        elif op == _B.DIV:
+            sa = res_t.scale - ls + rs
+            num, bad = self.let2(f"_mul_ovf({l.data}, {self.word(10 ** sa if sa >= 0 else 1)})")
+            if sa < 0:
+                num = self.let(f"_div_half_up({l.data}, {self.word(10 ** (-sa))})")
+                bad = "ff"
+            zero = self.let(f"{r.data} == 0")
+            den = self.let(f"tl.where({zero}, 1, {r.data})")
+            out = self.let(f"_div_half_up({num} * tl.where({den} < 0, -1, 1), tl.abs({den}))")
+            valid = self.let(f"{l.valid} & {r.valid} & ({bad} == 0) & ({zero} == 0)")
+            out, valid = self._check_overflow(out, valid, res_t.precision)
+        else:
+            raise ExprError(f"unsupported decimal op {op}")
+        return _V(out, valid, torch.int64, res_t, scalar)
+
+    # -- the module -----------------------------------------------------------------
+
+    def source(self, fingerprint: str) -> str:
+        params = ([f"x{i}_ptr" for i in self.used_d] + [f"xv{i}_ptr" for i in self.used_v]
+                  + [f"o{k}" for k in range(len(self.stores))]
+                  + ["consts", "num_rows", "cap", "BLOCK: tl.constexpr"])
+        lines = [_PRELUDE.format(fp=fingerprint),
+                 '@triton.jit(do_not_specialize=["num_rows", "cap"])',
+                 f"def fused_chain({', '.join(params)}):",
+                 "    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)",
+                 "    inb = offs < cap",
+                 "    exists = offs < num_rows",
+                 "    tt = offs >= 0",
+                 "    ff = offs < 0",
+                 "    zi64 = tl.zeros([BLOCK], dtype=tl.int64)"]
+        lines += [f"    w{k} = zi64 + tl.load(consts + {k})" for k in range(len(self.pool))]
+        lines += [f"    x{i} = tl.load(x{i}_ptr + offs, mask=inb, other=0)" for i in self.used_d]
+        lines += [f"    xv{i} = tl.load(xv{i}_ptr + offs, mask=inb, other=0)"
+                  for i in self.used_v]
+        lines += self.body
+        lines += [f"    tl.store(o{k} + offs, {v}.to({_TL[tdt]}), mask=inb)"
+                  for k, (v, tdt) in enumerate(self.stores)]
+        return "\n".join(lines) + "\n"
+
+    def constants(self) -> List[int]:
+        words = [0] * max(1, len(self.pool))
+        for v, k in self.pool.items():
+            words[k] = v
+        return words
+
+
+def _require_tdt(dt: T.DataType) -> torch.dtype:
+    tdt = T.torch_dtype(dt)
+    if tdt is None:
+        raise NotImplementedError(f"a fused chain over {dt!r} has no device plane")
+    return tdt
+
+
+def _is_float(dt: T.DataType) -> bool:
+    return isinstance(dt, (T.Float32Type, T.Float64Type))
+
+
+def kernel_dir() -> str:
+    return os.path.join(cuda_lib.build_dir(), "fused")
+
+
+class FusedKernel:
+    """K11 for one fused chain segment: its generated source (made on first
+    use, from the steps alone, so it can be read without triton), the
+    compiled ``@triton.jit`` function (imported from the written source on
+    the first CUDA call) and its constant table per device."""
+
+    def __init__(self, in_schema: T.Schema, steps, fingerprint: Optional[str] = None):
+        from blaze_tpu_torch.ir.fusion import fused_fingerprint
+
+        self.in_schema = in_schema
+        self.steps = tuple(steps)
+        self.fingerprint = fingerprint or fused_fingerprint(in_schema, self.steps)
+        self._gen: Optional[_Gen] = None
+        self._source: Optional[str] = None
+        self._fn = None
+        self._consts: Dict[str, torch.Tensor] = {}
+        self._lock = threading.Lock()
+
+    @property
+    def gen(self) -> _Gen:
+        if self._gen is None:
+            self._gen = _Gen(self.in_schema, self.steps)
+        return self._gen
+
+    @property
+    def source(self) -> str:
+        if self._source is None:
+            self._source = self.gen.source(self.fingerprint)
+        return self._source
+
+    @source.setter
+    def source(self, text: str) -> None:
+        self._source = text
+        self._fn = None
+
+    @property
+    def path(self) -> str:
+        return os.path.join(kernel_dir(), f"{self.fingerprint}.py")
+
+    def compiled(self):
+        """The ``@triton.jit`` kernel, from the source written to ``path``."""
+        with self._lock:
+            if self._fn is None:
+                os.environ.setdefault("TRITON_CACHE_DIR",
+                                      os.path.join(cuda_lib.build_dir(), "triton_cache"))
+                import triton  # noqa: F401  (K11 needs triton on the card)
+
+                path = self.path
+                _write_if_changed(path, self.source)
+                linecache.checkcache(path)
+                name = f"blaze_tpu_torch_fused_{self.fingerprint}"
+                spec = importlib.util.spec_from_file_location(name, path)
+                mod = importlib.util.module_from_spec(spec)
+                sys.modules[name] = mod
+                spec.loader.exec_module(mod)
+                self._fn = mod.fused_chain
+            return self._fn
+
+    def constants_on(self, device: torch.device) -> torch.Tensor:
+        key = str(device)
+        t = self._consts.get(key)
+        if t is None:
+            t = torch.tensor(self.gen.constants(), dtype=torch.int64, device=device)
+            self._consts[key] = t
+        return t
+
+    def __call__(self, datas, valids, num_rows: int):
+        return fused_chain_cuda(self, datas, valids, num_rows)
+
+
+def _write_if_changed(path: str, text: str) -> None:
+    try:
+        with open(path) as f:
+            if f.read() == text:
+                return
+    except FileNotFoundError:
+        pass
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
+def launch(kernel: FusedKernel, datas: Sequence[torch.Tensor],
+           valids: Sequence[torch.Tensor], num_rows: int) -> List[torch.Tensor]:
+    """K11 alone: checks the planes, launches the segment's kernel once and
+    returns the planes it stored (none, and no launch, for a segment that
+    computes nothing)."""
+    gen = kernel.gen
+    fields = kernel.in_schema.fields
+    if len(datas) != len(fields) or len(valids) != len(fields):
+        raise ValueError(f"fused_chain: {len(datas)} planes for {len(fields)} columns")
+    cuda_lib.require_cuda("fused_chain", *datas, *valids)
+    cap = int(datas[0].shape[0])
+    for f, d, v in zip(fields, datas, valids):
+        if d.shape != (cap,) or v.shape != (cap,) or v.dtype != torch.bool \
+                or d.dtype != T.torch_dtype(f.dtype):
+            raise ValueError(f"fused_chain: column {f.name!r} planes {d.dtype}"
+                             f"{tuple(d.shape)} / {v.dtype}{tuple(v.shape)}")
+    dev = datas[0].device
+    outs = [torch.empty(cap, dtype=tdt, device=dev) for _v, tdt in gen.stores]
+    if outs:
+        fn = kernel.compiled()
+        args = ([datas[i] for i in gen.used_d] + [valids[i] for i in gen.used_v] + outs
+                + [kernel.constants_on(dev), num_rows, cap])
+        fn[((cap + BLOCK - 1) // BLOCK,)](*args, BLOCK=BLOCK, num_warps=NUM_WARPS,
+                                           enable_fp_fusion=False)
+        cuda_lib.LAUNCHES["fused_chain"] += 1
+    return outs
+
+
+def fused_chain_cuda(kernel: FusedKernel, datas: Sequence[torch.Tensor],
+                     valids: Sequence[torch.Tensor], num_rows: int):
+    """K11 on the card, then K1 once per filtered output group: the same
+    contract as ``core/kernels.fused_chain_plain``."""
+    from blaze_tpu_torch.core.kernels import compact_planes_cuda
+
+    outs = launch(kernel, datas, valids, num_rows)
+
+    def plane(spec):
+        kind, i = spec
+        return datas[i] if kind == "in_d" else valids[i] if kind == "in_v" else outs[i]
+
+    groups, counts = [], []
+    for dspec, vspec, mask in kernel.gen.groups:
+        ds = [plane(s) for s in dspec]
+        vs = [plane(s) for s in vspec]
+        if mask is None:
+            count = num_rows
+        else:
+            count, ds, vs = compact_planes_cuda(ds, vs, outs[mask])
+        groups.append((tuple(ds), tuple(vs)))
+        counts.append(count)
+    return tuple(groups), tuple(counts)

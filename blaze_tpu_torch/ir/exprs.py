@@ -325,7 +325,7 @@ def infer_type(expr: Expr, schema: T.Schema) -> T.DataType:
             return expr.return_type
         raise NotImplementedError(
             f"scalar function {expr.name!r} without a return type: "
-            "exprs/functions.py is not ported yet (ROADMAP.md Queue 1 item 4)")
+            "exprs/functions.py is not ported yet (ROADMAP.md Queue 1 item 6)")
     if isinstance(expr, RowNum):
         return T.I64
     if isinstance(expr, GetIndexedField):

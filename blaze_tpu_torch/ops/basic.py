@@ -1,9 +1,11 @@
-"""Streaming operators of the slice: project, filter, coalesce.
+"""Streaming operators: project, filter, coalesce, rename, expand.
 
-Counterparts of ProjectExec, FilterExec and CoalesceBatchesExec in
-blaze_tpu/ops/basic.py. The filter compacts surviving rows with K1
-(core/kernels.compact_planes): one kernel pass and one count sync per
-batch.
+Counterparts of ProjectExec, FilterExec, CoalesceBatchesExec,
+RenameColumnsExec and ExpandExec in blaze_tpu/ops/basic.py: the unfused
+forms, which ``Config(fusion_enabled=False)`` builds and the fusion pass
+leaves where a chain is not worth fusing. The filter compacts surviving
+rows with K1 (core/kernels.compact_planes): one kernel pass and one count
+sync per batch.
 """
 
 from __future__ import annotations
@@ -63,19 +65,55 @@ class CoalesceBatchesExec(Operator):
         super().__init__(child.schema, [child])
 
     def _execute(self, partition, ctx):
-        target = self.batch_size or ctx.conf.batch_size
-        staged: List[ColumnarBatch] = []
-        staged_rows = 0
+        yield from coalesce_stream(self.execute_child(0, partition, ctx), self.schema,
+                                   self.batch_size or ctx.conf.batch_size, ctx.conf)
+
+
+def coalesce_stream(stream, schema: T.Schema, target: int, conf):
+    """Stage a stream's batches until they hold ``target`` rows, then emit
+    their concatenation; a batch of ``target`` rows or more with nothing
+    staged passes through, empty batches are dropped. Also the fused
+    stage's coalesce between segments (ops/fused.py)."""
+    staged: List[ColumnarBatch] = []
+    staged_rows = 0
+    for batch in stream:
+        if batch.num_rows == 0:
+            continue
+        if batch.num_rows >= target and not staged:
+            yield batch
+            continue
+        staged.append(batch)
+        staged_rows += batch.num_rows
+        if staged_rows >= target:
+            yield ColumnarBatch.concat(staged, schema, conf)
+            staged, staged_rows = [], 0
+    if staged:
+        yield ColumnarBatch.concat(staged, schema, conf)
+
+
+class RenameColumnsExec(Operator):
+    """Zero-copy schema rename."""
+
+    def __init__(self, child: Operator, names: List[str]):
+        self.names = names
+        super().__init__(child.schema.rename(names), [child])
+
+    def _execute(self, partition, ctx):
         for batch in self.execute_child(0, partition, ctx):
-            if batch.num_rows == 0:
-                continue
-            if batch.num_rows >= target and not staged:
-                yield batch
-                continue
-            staged.append(batch)
-            staged_rows += batch.num_rows
-            if staged_rows >= target:
-                yield ColumnarBatch.concat(staged, self.schema, ctx.conf)
-                staged, staged_rows = [], 0
-        if staged:
-            yield ColumnarBatch.concat(staged, self.schema, ctx.conf)
+            yield ColumnarBatch(self.schema, batch.columns, batch.num_rows)
+
+
+class ExpandExec(Operator):
+    """Grouping-sets expansion: each input batch emits one output batch per
+    projection list."""
+
+    def __init__(self, child: Operator, projections: List[List[E.Expr]],
+                 schema: T.Schema):
+        self.projections = projections
+        super().__init__(schema, [child])
+
+    def _execute(self, partition, ctx):
+        evs = [ExprEvaluator(p, self.children[0].schema) for p in self.projections]
+        for batch in self.execute_child(0, partition, ctx):
+            for ev in evs:
+                yield ColumnarBatch(self.schema, ev.evaluate(batch), batch.num_rows)

@@ -1,0 +1,135 @@
+"""Whole-stage fused operator: one generated kernel per chain segment.
+
+The counterpart of blaze_tpu/ops/fused.py. ``ir/fusion.py`` decides what
+to fuse; this operator runs it. A FusedStage's ops are lowered to steps
+and split at coalesce-batches boundaries into segments. Each segment runs
+per batch as one K11 launch (``exprs/fused_triton.py``: every project,
+filter, rename and expand step of the segment in one kernel, filters
+narrowing a live mask) followed by one K1 compaction per filtered output
+group, so a project-over-filter-over-project chain costs two launches and
+one count sync a batch, like a lone FilterExec. Kernels are cached
+process-wide by segment fingerprint, shared across queries; each batch
+counts a ``jit_cache_hits`` or ``jit_cache_misses`` against that cache.
+
+Not ported: the JAX package's per-batch eager fallback and its
+``_BROKEN`` trip. The port has no host columns, so a batch that is not
+all device columns of one capacity raises, and so does a kernel that
+fails to build or launch. The sharded path belongs to the mesh (ROADMAP.md
+Queue 1 item 15).
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+from typing import Dict, Tuple
+
+from blaze_tpu_torch.core import kernels
+from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
+from blaze_tpu_torch.exprs.compiler import fused_chain_schemas, fused_group_flags
+from blaze_tpu_torch.exprs.fused_triton import FusedKernel
+from blaze_tpu_torch.ir import nodes as N
+from blaze_tpu_torch.ir import types as T
+from blaze_tpu_torch.ir.fusion import chain_steps, fused_fingerprint
+from blaze_tpu_torch.ops.base import Operator
+from blaze_tpu_torch.ops.basic import coalesce_stream
+
+# process-wide kernel cache: segment fingerprint -> FusedKernel, shared
+# across batches, partitions and queries
+_KERNELS: Dict[str, FusedKernel] = {}
+_CACHE_LOCK = threading.Lock()
+
+
+def clear_fused_cache() -> None:
+    """Drop every cached segment kernel (tests)."""
+    with _CACHE_LOCK:
+        _KERNELS.clear()
+
+
+class _FusedSegment:
+    """One run of non-coalesce steps: one kernel."""
+
+    def __init__(self, steps, in_schema: T.Schema):
+        self.steps = steps
+        self.in_schema = in_schema
+        self.out_schema = fused_chain_schemas(in_schema, steps)[-1]
+        self.group_flags = fused_group_flags(steps)
+        self.fingerprint = fused_fingerprint(in_schema, steps)
+
+    def kernel(self) -> Tuple[FusedKernel, bool]:
+        """The segment's cached kernel and whether the cache held it."""
+        with _CACHE_LOCK:
+            k = _KERNELS.get(self.fingerprint)
+            if k is not None:
+                return k, True
+            k = _KERNELS[self.fingerprint] = FusedKernel(self.in_schema, self.steps,
+                                                         self.fingerprint)
+            return k, False
+
+
+class FusedStageExec(Operator):
+    """Runs a fused chain: segments and coalesce staging in chain order.
+    ``metrics`` counts fused_stages, fused_ops and the kernel cache's hits
+    and misses."""
+
+    def __init__(self, child: Operator, node: N.FusedStage):
+        super().__init__(node.output_schema, [child])
+        self.node = node
+        self.metrics = collections.Counter()
+        self.pipeline: list = []  # ("coalesce", batch_size) | _FusedSegment
+        schema = child.schema
+        run: list = []
+        for st in chain_steps(node.ops):
+            if st[0] == "coalesce":
+                if run:
+                    seg = _FusedSegment(tuple(run), schema)
+                    self.pipeline.append(seg)
+                    schema = seg.out_schema
+                    run = []
+                self.pipeline.append(("coalesce", st[1]))
+            else:
+                run.append(st)
+        if run:
+            self.pipeline.append(_FusedSegment(tuple(run), schema))
+
+    def _execute(self, partition, ctx):
+        segs = [p for p in self.pipeline if isinstance(p, _FusedSegment)]
+        self.metrics["fused_stages"] += len(segs)
+        self.metrics["fused_ops"] += len(self.node.ops)
+        stream = self.execute_child(0, partition, ctx)
+        schema = self.children[0].schema
+        for part in self.pipeline:
+            if isinstance(part, _FusedSegment):
+                stream = self._fused_stream(stream, part)
+                schema = part.out_schema
+            else:
+                stream = coalesce_stream(stream, schema, part[1] or ctx.conf.batch_size,
+                                         ctx.conf)
+        yield from stream
+
+    def _fused_stream(self, stream, seg: _FusedSegment):
+        for batch in stream:
+            cols = batch.columns
+            if not cols or len({c.capacity for c in cols}) != 1:
+                raise ValueError(
+                    "a fused stage takes batches of device columns of one capacity; got "
+                    f"capacities {[c.capacity for c in cols]}")
+            kernel, hit = seg.kernel()
+            self.metrics["jit_cache_hits" if hit else "jit_cache_misses"] += 1
+            groups, counts = kernels.fused_chain(
+                seg.in_schema, seg.steps, [c.data for c in cols],
+                [c.validity for c in cols], batch.num_rows, kernel=kernel)
+            yield from self._emit_groups(seg, batch.num_rows, groups, counts)
+
+    @staticmethod
+    def _emit_groups(seg: _FusedSegment, batch_rows: int, groups, counts):
+        for g, (datas, valids) in enumerate(groups):
+            if seg.group_flags[g]:
+                count = int(counts[g])  # one count sync, as FilterExec
+                if count == 0:
+                    continue
+            else:
+                count = batch_rows
+            cols = [DeviceColumn(f.dtype, d, v)
+                    for f, d, v in zip(seg.out_schema.fields, datas, valids)]
+            yield ColumnarBatch(seg.out_schema, cols, count)

@@ -62,7 +62,7 @@ class Session:
         self._query_rids = [BUILD_MAPS]
         self.resources[BUILD_MAPS] = {}
         try:
-            op = build_operator(self._lower(plan))
+            op = build_operator(self._lower(plan), self.conf)
             for p in range(op.num_partitions()):
                 yield from op.execute(p, self._ctx())
         finally:
@@ -124,7 +124,7 @@ class Session:
     def _collect(self, child: N.PlanNode) -> str:
         """Run every partition of ``child`` in partition order and register
         its batches as a one-partition resource; returns its id."""
-        child_op = build_operator(child)
+        child_op = build_operator(child, self.conf)
         blocks = [b for m in range(child_op.num_partitions())
                   for b in child_op.execute(m, self._ctx())]
         return self._register(lambda p, _b=blocks: _b)
@@ -142,7 +142,7 @@ class Session:
             # a single-reducer exchange is a collect, assembled in map order
             return N.CoalesceBatches(N.BatchSource(schema, self._collect(node.child), 1),
                                      batch_size=0)
-        child_op = build_operator(node.child)
+        child_op = build_operator(node.child, self.conf)
         num_maps = child_op.num_partitions()
         num_reducers = part.num_partitions
         maps = [self._run_map(child_op, part, schema, m) for m in range(num_maps)]

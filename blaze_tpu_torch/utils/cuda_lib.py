@@ -9,7 +9,9 @@ compiles in its own ``nvcc`` process, all started together, then one link.
 
 Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it
 launches its kernel and nowhere else, so a run can show that it went
-through the kernels (``reset_launch_counts`` / ``launch_counts``).
+through the kernels (``reset_launch_counts`` / ``launch_counts``); K11,
+the generated Triton kernel of a fused chain (exprs/fused_triton.py),
+counts under ``fused_chain``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ LAUNCHES: Dict[str, int] = {
     "segment_ids": 0,
     "seg_agg_partial": 0,
     "seg_agg_merge": 0,
+    "fused_chain": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Path walls of one checkout of the PyTorch/CUDA port, for same-call A/B
+comparisons on one NVIDIA GPU.
+
+    python3 chip_ab.py [--tree DIR] [--label NAME] [--paths q67,q67_sort,q69]
+                       [--runs N] [--no-fusion] [--profile]
+
+Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
+(default: this one) and, for each named path, stages its data once (as
+chip_smoke.py does, same seeds and sizes), makes a first run (kernel
+builds and Triton compiles), then N timed runs; every run must equal the
+path's numpy oracle. Prints one JSON line per path with every wall and the
+launch counts of the last run. ``--no-fusion`` runs with
+``Config(fusion_enabled=False)`` (only in a checkout that has the knob);
+``--profile`` adds that checkout's ``chip_smoke.profile_query`` run of each
+path (torch.profiler busy share, then cProfile's top host functions).
+
+Clocks and the host's load drift between processes and between calls:
+compare two checkouts only within one call, alternating processes (A, B,
+B, A, A, B, ...). Needs one CUDA device; exits 2 without one.
+"""
+
+import json
+import os
+import statistics
+import sys
+import time
+
+
+def _args(argv):
+    opts = {"tree": os.path.dirname(os.path.abspath(__file__)), "label": "",
+            "paths": "q67_sort,q69", "runs": "5"}
+    flags = set()
+    for a in argv:
+        if a.startswith("--") and "=" in a:
+            k, v = a[2:].split("=", 1)
+            if k not in opts:
+                raise SystemExit(f"chip_ab: unknown option --{k}")
+            opts[k] = v
+        elif a in ("--no-fusion", "--profile"):
+            flags.add(a[2:])
+        else:
+            raise SystemExit(f"chip_ab: unknown argument {a}")
+    return opts, flags
+
+
+def _q67_setup(cs, dev, name, conf_kw):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+
+    schema, parts, host = cs.make_q67_data(dev)
+    want, _groups = cs.q67_oracle(host)
+    kw = dict(conf_kw, device_merge_max_bytes=cs.Q67_MERGE_BYTES)
+    if name == "q67_sort":
+        kw.update(dense_agg=False, radix_agg=False)
+    session = blaze_tpu_torch.Session(Config(**kw))
+    session.resources["store_sales"] = lambda p: parts[p]
+    return session, cs.q67_plan(schema), want
+
+
+def _q69_setup(cs, dev, name, conf_kw):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+
+    schemas, staged, host = cs.make_q69_data(dev)
+    want, _steps, _rows = cs.q69_oracle(host)
+    session = blaze_tpu_torch.Session(Config(**conf_kw))
+    for table, parts in staged.items():
+        session.resources[table] = lambda p, _parts=parts: _parts[p]
+    return session, cs.q69_plan(schemas), want
+
+
+SETUPS = {"q67": _q67_setup, "q67_sort": _q67_setup, "q69": _q69_setup}
+
+
+def main(argv) -> int:
+    opts, flags = _args(argv)
+    try:
+        import torch
+    except ImportError:
+        print("chip_ab: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(opts["tree"])
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [tree] + [p for p in sys.path if os.path.abspath(p or ".") != here]
+    import chip_smoke as cs
+    from blaze_tpu_torch.utils import cuda_lib
+
+    if not os.path.samefile(os.path.dirname(cs.__file__), tree):
+        raise SystemExit(f"chip_ab: imported chip_smoke from {cs.__file__}, not {tree}")
+    cuda_lib.library()
+    dev = torch.device("cuda")
+    conf_kw = {"fusion_enabled": False} if "no-fusion" in flags else {}
+    runs = int(opts["runs"])
+    for name in opts["paths"].split(","):
+        t0 = time.perf_counter()
+        session, plan, want = SETUPS[name](cs, dev, name, conf_kw)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cs.check_result(f"{name} (first run)", session.execute_to_pydict(plan), want)
+        first_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = session.execute_to_pydict(plan)
+            walls.append(time.perf_counter() - t0)
+            cs.check_result(name, got, want)
+        print(json.dumps({"phase": "ab", "label": opts["label"], "tree": tree,
+                          "query": name, "fusion": "no-fusion" not in flags,
+                          "setup_s": setup_s, "first_run_s": first_s, "walls_s": walls,
+                          "median_s": statistics.median(walls),
+                          "launches": cuda_lib.launch_counts()}), flush=True)
+        if "profile" in flags:
+            cs.profile_query(name, session, plan, want)
+        del session, plan, want
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -10,7 +10,7 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K10 held against their plain PyTorch versions on the
+3. kernels: K1-K11 held against their plain PyTorch versions on the
    card, exactly (float planes bit for bit), at the main paths' shapes and
    at edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
@@ -25,7 +25,13 @@ only when every phase passed:
    aggregate: one to five int/float keys, direct and sorted segmentation,
    nulls, padding, all-null keys, int64/int32/f64/f32 arguments with NaN,
    +-0.0, +-inf and subnormals, partial and merge, a q67 batch and a
-   q67_sort reducer's merge); then each timed with
+   q67_sort reducer's merge; for the fused chain, K11 (a Triton kernel
+   generated per chain) with K1 after it: every step kind (project,
+   filter, rename, expand, and a coalesce between two segments through
+   FusedStageExec), i32/i64/f32/f64/bool/decimal planes, every ported
+   operator, InList with a null item and negated, the FMA shapes, division
+   by zero and by -1, int64 and f64 literals, capacities 256, 4,096 and
+   262,144, batches all kept, none kept and empty); then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s);
@@ -51,12 +57,14 @@ only when every phase passed:
      window, each a shuffled hash join against sales JOIN broadcast
      date_dim of April-June 2001 -> JOIN broadcast demographics -> COUNT(*)
      by the five demographics TPC-DS names (sort route: K10) -> sort, top
-     100) over TPC-DS SF10's row counts (seed 69), exact in order against
-     set operations in numpy;
+     100) over TPC-DS SF10's row counts (seed 69), with the null filters
+     Spark infers on its scans (each a fused stage: K11 + K1), exact in
+     order against set operations in numpy;
    all through ``Session().execute_to_pydict`` in 4 partitions staged on
    the card; every kernel must have launched over the six runs, the
    unique-key join kernel on each join path, the generic probe on q69,
-   and K10's three launches on q69 and q67_sort;
+   K10's three launches on q69 and q67_sort, and K11 on every q69 sales
+   batch (196) and on the root rank filter of q67, q67_sort and q47;
 5. one JSON line per kernel (shape, times, bound, launches per path), the
    kernels' summary JSON line, the card line, and the device JSON line.
 
@@ -1208,6 +1216,261 @@ def kernel_k10(dev, rng, results):
         segment_ids_ms=ids_merge_ms))
 
 
+# -- K11: the fused chain ------------------------------------------------------------
+
+# (capacity, rows): padding, a full bucket, the main path's batch size, empty
+FUSED_CAPS = ((256, 200), (4096, 4096), (262144, 262139), (256, 0))
+I32_MIN, I64_MIN = -(1 << 31), -(1 << 63)
+
+
+def fused_schema(T):
+    return T.Schema.of(("i", T.I32), ("l", T.I64), ("j", T.I64), ("f", T.F32), ("g", T.F32),
+                       ("d", T.F64), ("e", T.F64), ("b", T.BOOL),
+                       ("m", T.DecimalType(9, 2)), ("n", T.DecimalType(7, 3)))
+
+
+def fused_cases(E, T):
+    """K11's battery over ``fused_schema``: (name, input schema, steps), built
+    with the IR modules given (this package's, or another package's whose IR
+    it copies). Every step kind, every ported operator on i32, i64, f32,
+    f64, bool and decimal(<=18), the FMA shapes (float MOD, a*b + c,
+    decimal from a float), division by zero and by -1, int64 and f64
+    literals Triton would type i32/fp32 (2**40 + 1, 0.1), null literals,
+    InList with a null item and negated, a projected isnotnull(column)
+    (its data is the input's validity plane) with and without a filter."""
+    C, L, B = E.Column, E.Literal, E.BinaryOp
+    D92, D73 = T.DecimalType(9, 2), T.DecimalType(7, 3)
+
+    def bx(op, a, b, rt=None):
+        return E.BinaryExpr(op, a, b, rt)
+
+    def proj(*exprs):
+        return ("project", tuple(exprs), tuple(f"c{k}" for k in range(len(exprs))))
+
+    i, l, j, f, g, d, e, b, m, n = (C(x) for x in "iljfgdebmn")
+    schema = fused_schema(T)
+    out = [
+        ("q69 scan filter", (("filter", (bx(B.AND, E.IsNotNull(l), E.IsNotNull(j)),)),)),
+        ("integers", (proj(
+            bx(B.ADD, i, i), bx(B.SUB, i, l), bx(B.MUL, i, i), bx(B.MUL, l, j), bx(B.DIV, l, j),
+            bx(B.MOD, l, j), bx(B.DIV, i, L(0, T.I32)), bx(B.MOD, i, i), bx(B.DIV, l, L(-1, T.I64)),
+            bx(B.MOD, l, L(-1, T.I64)), bx(B.DIV, i, L(-1, T.I32)), bx(B.SHIFT_LEFT, i, i),
+            bx(B.SHIFT_RIGHT, l, j), bx(B.BIT_AND, i, L(0x0F0F, T.I32)), bx(B.BIT_OR, l, j),
+            bx(B.BIT_XOR, i, L(-1, T.I32)), bx(B.LT, l, j), bx(B.GTEQ, i, l),
+            bx(B.EQ, l, L(2 ** 40 + 1, T.I64)), bx(B.ADD, l, L(2 ** 40 + 1, T.I64))),)),
+        ("floats", (proj(
+            bx(B.ADD, f, g), bx(B.MUL, f, L(0.1, T.F32)), bx(B.DIV, f, g), bx(B.MOD, f, g),
+            bx(B.DIV, d, e), bx(B.MOD, d, e), bx(B.MUL, d, L(0.1, T.F64)),
+            bx(B.ADD, d, L(2.0 ** 40 + 1, T.F64)), bx(B.SUB, d, f), bx(B.LT, f, g),
+            bx(B.EQ, d, e), bx(B.NEQ, d, e), bx(B.LTEQ, d, L(0.0, T.F64)), bx(B.GT, f, d),
+            bx(B.ADD, i, f), bx(B.MUL, l, d)),)),
+        ("fma shapes", (proj(
+            bx(B.ADD, bx(B.MUL, d, e), d), bx(B.SUB, bx(B.MUL, f, g), f),
+            bx(B.ADD, bx(B.MUL, d, L(0.1, T.F64)), e), bx(B.MOD, e, L(0.1, T.F64)),
+            bx(B.MUL, m, d, T.DecimalType(18, 4)), bx(B.DIV, d, m, T.DecimalType(18, 6)),
+            bx(B.ADD, f, m, T.DecimalType(12, 3))),)),
+        ("decimals", (proj(
+            bx(B.ADD, m, n), bx(B.SUB, m, n), bx(B.MUL, m, n, T.DecimalType(17, 5)),
+            bx(B.DIV, m, n, T.DecimalType(18, 6)), bx(B.MOD, m, n, T.DecimalType(10, 3)),
+            bx(B.ADD, m, l, T.DecimalType(18, 2)), bx(B.DIV, m, L("0.00", D92), T.DecimalType(18, 6)),
+            bx(B.GT, m, n), bx(B.EQ, m, L("12.50", D92)), bx(B.LT, m, d),
+            bx(B.MUL, n, L("1.005", D73), T.DecimalType(15, 6)),
+            bx(B.DIV, m, L("-3", T.DecimalType(1, 0)), T.DecimalType(18, 1))),)),
+        ("bool logic", (proj(
+            bx(B.AND, b, bx(B.GT, i, L(0, T.I32))), bx(B.OR, b, E.IsNull(l)), E.Not(b),
+            bx(B.EQ, b, bx(B.GT, l, L(0, T.I64))), bx(B.LT, b, bx(B.GT, f, L(0.0, T.F32))),
+            bx(B.AND, L(None, T.BOOL), b), bx(B.OR, L(True, T.BOOL), b),
+            bx(B.OR, L(None, T.BOOL), b), E.Not(bx(B.NEQ, d, d))),)),
+        ("inlist", (proj(
+            E.InList(i, [L(3, T.I32), L(7, T.I32)]), E.InList(i, [L(3, T.I32), L(7, T.I32)], True),
+            E.InList(l, [L(2 ** 40 + 1, T.I64), j]), E.InList(d, [L(0.1, T.F64), e], True),
+            E.InList(m, [L("1.50", D92), n]), E.InList(f, [L(0.5, T.F32), d])),)),
+        ("inlist null item", (proj(
+            E.InList(i, [L(3, T.I32), L(None, T.I32), L(7, T.I32)]),
+            E.InList(i, [L(3, T.I32), L(None, T.I32), L(7, T.I32)], True),
+            E.InList(l, [L(None, T.I64), j], True)),
+            ("filter", (E.InList(C("c0"), [L(True, T.BOOL), L(None, T.BOOL)]),)))),
+        ("literals and nulls", (proj(
+            L(2 ** 40 + 1, T.I64), L(0.1, T.F64), L(0.1, T.F32), L(None, T.I64), L(None, T.F64),
+            L(True, T.BOOL), L(None, D92), L("-3.25", D92), E.IsNull(L(None, T.I32)),
+            bx(B.ADD, l, L(None, T.I64)), E.IsNotNull(bx(B.DIV, d, L(0.0, T.F64))), l),)),
+        ("chain", (
+            ("filter", (bx(B.OR, bx(B.GT, l, j), E.IsNull(j)),)),
+            ("project", (l, bx(B.MUL, i, L(2, T.I32)), d, m), ("l", "i2", "d", "m")),
+            ("filter", (E.Not(bx(B.LT, C("i2"), L(0, T.I32))),)),
+            ("project", (bx(B.ADD, C("l"), C("i2")), bx(B.MUL, C("d"), L(0.5, T.F64)), C("m")),
+             ("li", "dh", "m")))),
+        ("expand rename", (
+            ("filter", (bx(B.LT, i, L(8, T.I32)),)),
+            ("expand", ((l, j, L(0, T.I64)), (l, bx(B.MUL, l, L(10, T.I64)), L(1, T.I64))),
+             T.Schema.of(("a", T.I64), ("v", T.I64), ("tag", T.I64))),
+            ("filter", (bx(B.GT, C("v"), L(50, T.I64)),)),
+            ("rename", ("g_a", "g_v", "g_tag")))),
+        ("rename project", (
+            ("rename", tuple(f"r{k}" for k in range(len(schema)))),
+            ("project", (C("r1"), bx(B.ADD, C("r0"), L(1, T.I32)), C("r7")), ("x", "y", "z")))),
+        ("isnotnull project", (proj(E.IsNotNull(j), bx(B.ADD, i, L(1, T.I32))),)),
+        ("isnotnull after filter", (
+            ("filter", (bx(B.GT, i, L(0, T.I32)),)),
+            proj(E.IsNotNull(j), E.IsNotNull(b), l))),
+        ("none kept", (("filter", (L(False, T.BOOL),)),)),
+        ("all kept", (("filter", (bx(B.OR, E.IsNull(l), E.IsNotNull(l)),)),)),
+    ]
+    return [(name, schema, steps) for name, steps in out]
+
+
+def fused_planes(cap, n, rng, subnormals=True, nulls=0.15):
+    """numpy (datas, valids) for ``fused_schema`` at ``cap`` rows, ``n``
+    live: random values with the edge values mixed in (int64/int32 minimum
+    and maximum, -1, 0, zero divisors, NaN, +-0.0, +-inf, 0.1, and with
+    ``subnormals`` f32/f64 subnormals), ``nulls`` of each column null,
+    padding data 0 and validity False."""
+    import numpy as np
+
+    def mix(vals, special):
+        pick = rng.random(cap) < 0.2
+        vals[pick] = np.asarray(special, dtype=vals.dtype)[rng.integers(0, len(special),
+                                                                        int(pick.sum()))]
+        return vals
+
+    f_spec = [np.nan, 0.0, -0.0, np.inf, -np.inf, 0.1, 1.0, -3.0, 0.5]
+    d_spec = f_spec + [1e300, -1e300]
+    if subnormals:
+        f_spec = f_spec + [1e-40, -1e-41]
+        d_spec = d_spec + [5e-324, -1e-310]
+    with np.errstate(over="ignore"):
+        datas = [
+            mix(rng.integers(-100, 100, cap).astype(np.int32), [I32_MIN, (1 << 31) - 1, -1, 0]),
+            mix(rng.integers(-(1 << 40), 1 << 40, cap), [I64_MIN, (1 << 63) - 1, -1, 0,
+                                                         2 ** 40 + 1]),
+            mix(rng.integers(-5, 6, cap), [-1, 0, I64_MIN]),
+            mix((rng.standard_normal(cap) * 100).astype(np.float32), f_spec),
+            mix((rng.standard_normal(cap) * 10).astype(np.float32), f_spec),
+            mix(rng.standard_normal(cap) * 1e3, d_spec),
+            mix(rng.standard_normal(cap), d_spec),
+            rng.random(cap) < 0.5,
+            mix(rng.integers(-10 ** 8, 10 ** 8, cap), [0, 10 ** 9 - 1, -(10 ** 9 - 1), 150, 1250]),
+            mix(rng.integers(-10 ** 6, 10 ** 6, cap), [0, 1, -1000]),
+        ]
+    valids = []
+    for k, dat in enumerate(datas):
+        v = rng.random(cap) >= nulls
+        v[n:] = False
+        dat[~v] = 0
+        valids.append(v)
+    return datas, valids
+
+
+def fused_flat(result):
+    """(groups, counts) of a fused chain as one flat list of tensors."""
+    import torch
+
+    groups, counts = result
+    out = []
+    for (ds, vs), c in zip(groups, counts):
+        out += list(ds) + list(vs)
+        out.append(c if torch.is_tensor(c) else torch.tensor(c, dtype=torch.int64))
+    return out
+
+
+def kernel_k11(dev, rng, results):
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.exprs.fused_triton import FusedKernel, fused_chain_cuda, launch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    t0 = time.perf_counter()
+    cases = []
+    for name, schema, steps in fused_cases(E, T):
+        kern = FusedKernel(schema, steps)
+        for cap, n in FUSED_CAPS:
+            datas, valids = fused_planes(cap, n, rng)
+            datas = [torch.from_numpy(x).to(dev) for x in datas]
+            valids = [torch.from_numpy(x).to(dev) for x in valids]
+            got = fused_chain_cuda(kern, datas, valids, n)
+            want = K.fused_chain_plain(schema, steps, datas, valids, n)
+            check_equal("fused_chain", f"{name} cap={cap} n={n}", fused_flat(got),
+                        [x.to(dev) for x in fused_flat(want)])
+        cases.append(name)
+    check_fused_stage_coalesce(dev, rng)
+    cases.append("project+filter | coalesce | project through FusedStageExec")
+    battery_s = time.perf_counter() - t0
+    # main path: the null filter Spark infers on a q69 store_sales scan, one
+    # 262,144-row batch (4% of ss_customer_sk null)
+    sch = T.Schema.of(("ss_sold_date_sk", T.I64), ("ss_customer_sk", T.I64))
+    steps = (("filter", (E.BinaryExpr(E.BinaryOp.AND, E.IsNotNull(E.Column("ss_sold_date_sk")),
+                                      E.IsNotNull(E.Column("ss_customer_sk"))),)),)
+    cap = 262144
+    cust_v = rng.random(cap) >= 0.04
+    datas = [torch.from_numpy(rng.integers(*Q69_SALES_DATES, cap)).to(dev),
+             torch.from_numpy(np.where(cust_v, rng.integers(1, 500_001, cap), 0)).to(dev)]
+    valids = [torch.ones(cap, dtype=torch.bool, device=dev), torch.from_numpy(cust_v).to(dev)]
+    kern = FusedKernel(sch, steps)
+    check_equal("fused_chain", "q69 store_sales batch",
+                fused_flat(fused_chain_cuda(kern, datas, valids, cap)),
+                fused_flat(K.fused_chain_plain(sch, steps, datas, valids, cap)))
+    ms = time_ms(lambda: fused_chain_cuda(kern, datas, valids, cap))
+    plain_ms = time_ms(lambda: K.fused_chain_plain(sch, steps, datas, valids, cap))
+    k11_ms = time_ms(lambda: launch(kern, datas, valids, cap))
+    plane_bytes = sum(x.numel() * x.element_size() for x in datas + valids)
+    results.append(dict(
+        name="fused_chain", route="triton", source="blaze_tpu_torch/exprs/fused_triton.py",
+        replaces="blaze_tpu/exprs/compiler.py:1042",
+        shape="a q69 store_sales batch, 262,144 rows x 2 int64 columns, "
+              "isnotnull(ss_sold_date_sk) AND isnotnull(ss_customer_sk): K11 + K1",
+        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=None,
+        library_call="none: no single PyTorch call computes a fused chain",
+        # the segment reads each input plane once and writes its compacted
+        # planes and the count
+        bytes=2 * plane_bytes + 8, k11_only_ms=k11_ms, k11_only_bytes=3 * cap,
+        battery_s=battery_s))
+
+
+def check_fused_stage_coalesce(dev, rng):
+    """A fused stage of two segments split by a coalesce (project + filter,
+    coalesce to 4,096 rows, project) over 256-row batches: FusedStageExec
+    on the card against the same operator over CPU copies (the plain
+    versions of K11, K1 and K7)."""
+    import torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.ops.fused import FusedStageExec
+    from blaze_tpu_torch.ops.shuffle.reader import BatchSourceExec
+
+    schema = fused_schema(T)
+    B, C, L = E.BinaryOp, E.Column, E.Literal
+    leaf = N.BatchSource(schema, "unused", 1)
+    p1 = N.Projection(leaf, [C("l"), E.BinaryExpr(B.MUL, C("d"), L(0.1, T.F64)), C("m")],
+                      ["l", "d1", "m"])
+    f1 = N.Filter(p1, [E.BinaryExpr(B.GT, C("d1"), L(0.0, T.F64))])
+    co = N.CoalesceBatches(f1, 4096)
+    p2 = N.Projection(co, [E.BinaryExpr(B.ADD, C("l"), L(2 ** 40 + 1, T.I64)), C("d1")],
+                      ["l1", "d1"])
+    node = N.FusedStage(child=leaf, ops=(p1, f1, co, p2))
+    host = [(256 - k % 3 * 40, fused_planes(256, 256 - k % 3 * 40, rng)) for k in range(40)]
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        batches = [ColumnarBatch(schema, [
+            DeviceColumn(fld.dtype, torch.from_numpy(dd).to(where), torch.from_numpy(vv).to(where))
+            for fld, dd, vv in zip(schema.fields, datas, valids)], n)
+            for n, (datas, valids) in host]
+        op = FusedStageExec(BatchSourceExec(schema, "src", 1), node)
+        ctx = ExecContext(Config(), where, {"src": lambda p, _b=batches: _b})
+        outs.append([(b.num_rows, [c.data.cpu() for c in b.columns],
+                      [c.validity.cpu() for c in b.columns]) for b in op.execute(0, ctx)])
+    got, want = outs
+    if [g[0] for g in got] != [w[0] for w in want]:
+        raise AssertionError(f"fused stage batches {[g[0] for g in got]} vs {[w[0] for w in want]}")
+    for g, w in zip(got, want):
+        check_equal("fused_chain", "coalesce between segments", g[1:], w[1:])
+
+
 # -- phase 4: the paths on the card ------------------------------------------------
 
 
@@ -1727,18 +1990,22 @@ def make_q69_data(dev):
 
 
 def q69_plan(schemas):
-    """TPC-DS q69 (v3.2.0) as Spark plans it, in 4 partitions: customer
-    JOIN broadcast customer_address filtered to three states (ca_state IN
-    (...) as an OR of three equalities) -> exchange by c_customer_sk ->
-    LEFT SEMI store window, LEFT ANTI web window, LEFT ANTI catalog
-    window, each a shuffled hash join (build right) against sales JOIN
-    broadcast date_dim (d_year = 2001 AND d_moy BETWEEN 4 AND 6),
-    projected to the customer key and exchanged by it -> JOIN broadcast
-    customer_demographics -> COUNT(*) by (gender, marital status,
-    education, purchase estimate, credit rating), two-stage (a slot table
-    of 4 * 8 * 8 * 16384 * 8 slots is past radix_agg_max_slots, so both
-    stages take the sort route, K10) -> single exchange -> sort on the
-    five keys, top 100."""
+    """TPC-DS q69 (v3.2.0) as Spark plans it, in 4 partitions, with the
+    null filters Spark's InferFiltersFromConstraints puts on the scans:
+    customer (isnotnull on both foreign keys) JOIN broadcast
+    customer_address (ca_state IN (...) AND isnotnull(ca_address_sk)) ->
+    exchange by c_customer_sk -> LEFT SEMI store window, LEFT ANTI web
+    window, LEFT ANTI catalog window, each a shuffled hash join (build
+    right) against sales (isnotnull on the date and customer keys) JOIN
+    broadcast date_dim (d_year = 2001 AND d_moy BETWEEN 4 AND 6 AND
+    isnotnull(d_date_sk)), projected to the customer key and exchanged by
+    it -> JOIN broadcast customer_demographics -> COUNT(*) by (gender,
+    marital status, education, purchase estimate, credit rating),
+    two-stage (a slot table of 4 * 8 * 8 * 16384 * 8 slots is past
+    radix_agg_max_slots, so both stages take the sort route, K10) ->
+    single exchange -> sort on the five keys, top 100. Each scan filter is
+    a fused stage (K11 + K1); the answer is the one without them, since no
+    join matches a null key."""
     from blaze_tpu_torch.ir import exprs as E
     from blaze_tpu_torch.ir import nodes as N
     from blaze_tpu_torch.ir import types as T
@@ -1755,21 +2022,29 @@ def q69_plan(schemas):
     def by(child, keys):
         return N.ShuffleExchange(child, N.HashPartitioning([C(k) for k in keys], PARTS))
 
-    eq, OR = E.BinaryOp.EQ, E.BinaryOp.OR
-    states = E.BinaryExpr(OR, E.BinaryExpr(OR, lit(eq, "ca_state_id", Q69_STATES[0]),
-                                           lit(eq, "ca_state_id", Q69_STATES[1])),
-                          lit(eq, "ca_state_id", Q69_STATES[2]))
-    cust = N.BroadcastJoin(scan("customer"), N.BroadcastExchange(
-        N.Filter(scan("customer_address", 1), [states])),
-        [(C("c_current_addr_sk"), C("ca_address_sk"))], J.INNER, N.JoinSide.RIGHT,
-        "q69_address")
+    def both(a, b):
+        return E.BinaryExpr(E.BinaryOp.AND, a, b)
+
+    def notnull(a, b):
+        return both(E.IsNotNull(C(a)), E.IsNotNull(C(b)))
+
+    eq = E.BinaryOp.EQ
+    states = E.InList(C("ca_state_id"), [E.Literal(s, T.I64) for s in Q69_STATES])
+    address = N.Filter(scan("customer_address", 1),
+                       [both(states, E.IsNotNull(C("ca_address_sk")))])
+    customer = N.Filter(scan("customer"), [notnull("c_current_addr_sk", "c_current_cdemo_sk")])
+    cust = N.BroadcastJoin(customer, N.BroadcastExchange(address),
+                           [(C("c_current_addr_sk"), C("ca_address_sk"))], J.INNER,
+                           N.JoinSide.RIGHT, "q69_address")
     out = by(N.Projection(cust, [C("c_customer_sk"), C("c_current_cdemo_sk")],
                           ["c_customer_sk", "c_current_cdemo_sk"]), ["c_customer_sk"])
     dates = N.Filter(scan("date_dim", 1), [lit(eq, "d_year", 2001),
                                            lit(E.BinaryOp.GTEQ, "d_moy", 4),
-                                           lit(E.BinaryOp.LTEQ, "d_moy", 6)])
+                                           lit(E.BinaryOp.LTEQ, "d_moy", 6),
+                                           E.IsNotNull(C("d_date_sk"))])
     for name, dcol, ccol, jt in Q69_SALES:
-        window = N.BroadcastJoin(scan(name), N.BroadcastExchange(dates),
+        window = N.BroadcastJoin(N.Filter(scan(name), [notnull(dcol, ccol)]),
+                                 N.BroadcastExchange(dates),
                                  [(C(dcol), C("d_date_sk"))], J.INNER, N.JoinSide.RIGHT,
                                  f"q69_dates_{name}")
         window = by(N.Projection(window, [C(ccol)], [ccol]), [ccol])
@@ -1896,6 +2171,7 @@ def profile_query(name, session, plan, want, trace_path=None):
     calls = {e.key: e.count for e in avgs
              if e.key in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize")}
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    k11 = [e for e in device if e.key.startswith("fused_chain")]
     if trace_path:
         os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
         prof.export_chrome_trace(trace_path)
@@ -1903,6 +2179,9 @@ def profile_query(name, session, plan, want, trace_path=None):
                     "device_busy_s": busy_us / 1e6,
                     "device_busy_share": busy_us / 1e6 / wall,
                     "host_calls": calls,
+                    "k11_device": {"calls": sum(e.count for e in k11),
+                                   "device_ms": sum(e.self_device_time_total
+                                                    for e in k11) / 1e3},
                     "top_device": [{"name": e.key[:80], "calls": e.count,
                                     "device_ms": e.self_device_time_total / 1e3}
                                    for e in top]}))
@@ -1969,6 +2248,7 @@ def main(device: str = "cuda") -> int:
     kernel_k8(dev, rng, results)
     kernel_k9(dev, rng, results)
     kernel_k10(dev, rng, results)
+    kernel_k11(dev, rng, results)
     # 4. the paths: q01, q67 and q67_sort, q06 and q47, then q69
     args = sys.argv[1:]
     profile = "--profile" in args
@@ -1993,6 +2273,12 @@ def main(device: str = "cuda") -> int:
         for k in ("segment_ids", "seg_agg_partial", "seg_agg_merge"):
             if per_path[q][k] <= 0:
                 raise AssertionError(f"{q} did not go through K10 ({k})")
+    # K11: every sales batch of q69 (112 + 28 + 56), and the root rank
+    # filters of q67, q67_sort and q47
+    for q, least in (("q69", 196), ("q67", 1), ("q67_sort", 1), ("q47", 1)):
+        if per_path[q]["fused_chain"] < least:
+            raise AssertionError(f"{q} launched K11 {per_path[q]['fused_chain']} times, "
+                                 f"fewer than {least}")
     # 5. summary lines
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2012,7 +2298,8 @@ def main(device: str = "cuda") -> int:
                         "exact_cases": r["cases"],
                         **{k: r[k] for k in ("ms_262144_rows", "digit_passes", "hits",
                                              "build_rows_touched", "big_batch", "route_ms",
-                                             "segment_ids_ms")
+                                             "segment_ids_ms", "k11_only_ms", "k11_only_bytes",
+                                             "battery_s")
                            if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"kernels": kernels}))

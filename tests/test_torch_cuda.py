@@ -1,7 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the
-card, and the q01, q67 (on both aggregation routes) and q06 paths and
-every hash-join type on the card against the same plans on the CPU. K9's
-and K10's cases come from chip_smoke.py.
+"""The port's CUDA and Triton kernels against their plain PyTorch versions
+on the card, and the q01, q67 (on both aggregation routes) and q06 paths
+and every hash-join type on the card against the same plans on the CPU.
+K9's, K10's and K11's cases come from chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -16,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (PROBE_CASES, SEG_CASES, customer_probe, merge_states,
-                        probe_case, q67_batch, q67_merge_input, seg_case, to_dev)
+from chip_smoke import (FUSED_CAPS, PROBE_CASES, SEG_CASES, customer_probe, fused_cases,
+                        fused_flat, fused_planes, merge_states, probe_case, q67_batch,
+                        q67_merge_input, seg_case, to_dev)
 
 pytestmark = pytest.mark.cuda
 
@@ -138,11 +139,11 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         cuda_lib.reset_launch_counts()
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
-    # every kernel but the joins' and the sort route's, which q01 does not
-    # reach
+    # every kernel but the joins', the sort route's and K11, which q01 does
+    # not reach (its filter feeds the partial aggregate, so it is not fused)
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
                if k not in ("inner_join_planes", "probe_codes", "segment_ids",
-                            "seg_agg_partial", "seg_agg_merge"))
+                            "seg_agg_partial", "seg_agg_merge", "fused_chain"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -525,3 +526,83 @@ def test_q67_sort_on_the_card_equals_the_cpu(dev, route):
     counts = cuda_lib.launch_counts()
     assert counts["seg_agg_partial"] > 0 and counts["seg_agg_merge"] > 0
     assert counts["slot_agg_partial"] == counts["slot_agg_merge"] == 0
+
+
+def _fused_case_names():
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    return [name for name, _s, _st in fused_cases(E, T)]
+
+
+@pytest.mark.parametrize("case", _fused_case_names())
+def test_fused_chain_kernel(dev, case):
+    """K11 (and K1 after it) against the plain version on the same CUDA
+    planes, bit for bit, at every battery capacity; subnormals included."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.exprs.fused_triton import FusedKernel, fused_chain_cuda
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    _, schema, steps = next(c for c in fused_cases(E, T) if c[0] == case)
+    kern = FusedKernel(schema, steps)
+    rng = np.random.default_rng(len(case))
+    for cap, n in FUSED_CAPS:
+        datas, valids = fused_planes(cap, n, rng)
+        datas = [torch.from_numpy(x).to(dev) for x in datas]
+        valids = [torch.from_numpy(x).to(dev) for x in valids]
+        _equal([x.cpu() for x in fused_flat(fused_chain_cuda(kern, datas, valids, n))],
+               [x.cpu() for x in fused_flat(K.fused_chain_plain(schema, steps, datas,
+                                                                valids, n))])
+
+
+def test_fused_chain_failures_raise_and_never_take_the_twin(dev, monkeypatch):
+    """A source that does not import, or that Triton cannot compile, raises
+    from the call; on CUDA planes the plain version is never called."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.exprs.fused_triton import FusedKernel
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the plain version ran on CUDA planes")
+
+    monkeypatch.setattr(K, "fused_chain_plain", refuse)
+    _, schema, steps = fused_cases(E, T)[0]
+    datas, valids = fused_planes(256, 200, np.random.default_rng(0))
+    datas = [torch.from_numpy(x).to(dev) for x in datas]
+    valids = [torch.from_numpy(x).to(dev) for x in valids]
+    groups, counts = K.fused_chain(schema, steps, datas, valids, 200)
+    assert int(counts[0]) <= 200
+    broken = FusedKernel(schema, steps)
+    broken.source = "def fused_chain(:\n"
+    with pytest.raises(SyntaxError):
+        K.fused_chain(schema, steps, datas, valids, 200, kernel=broken)
+    bad = FusedKernel(schema, steps)
+    bad.source = bad.source.replace("    inb = offs < cap", "    inb = offs < no_such_name")
+    with pytest.raises(Exception, match="no_such_name"):
+        K.fused_chain(schema, steps, datas, valids, 200, kernel=bad)
+    good = FusedKernel(schema, steps)
+    K.fused_chain(schema, steps, datas, valids, 200, kernel=good)
+
+
+def test_decimal_to_double_divides_on_the_card(dev):
+    """A decimal compared with a double converts as unscaled / 10^scale,
+    divided exactly as on the CPU and in the JAX package: 0.35 (decimal)
+    equals 0.35 (double) on the card too. CUDA torch's division by a
+    Python scalar multiplies by its reciprocal (35 * 0.01 is
+    0.35000000000000003), which the port no longer uses."""
+    from blaze_tpu_torch.core.batch import ColumnarBatch
+    from blaze_tpu_torch.exprs.compiler import ExprEvaluator
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    schema = T.Schema.of(("m", T.DecimalType(9, 2)))
+    unscaled = np.arange(1, 100_000)
+    pred = E.BinaryExpr(E.BinaryOp.EQ, E.Column("m"), E.Literal(0.35, T.F64))
+    out = {}
+    for where in ("cpu", dev):
+        batch = ColumnarBatch.from_numpy(schema, {"m": unscaled}, torch.device(where))
+        out[str(where)] = ExprEvaluator([pred], schema).evaluate_predicate(batch).cpu()
+    assert out["cpu"][34] and int(out["cpu"].sum()) == 1
+    _equal(out[str(dev)], out["cpu"])

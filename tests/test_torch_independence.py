@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: it imports without jax, pyarrow or
-protobuf, no file of it (nor chip_smoke.py) imports jax or the JAX package,
-and its default device is the GPU — without one it raises rather than
-continuing on the CPU.
+"""The PyTorch port stands alone: it imports without jax, pyarrow,
+protobuf or triton (K11 imports triton only when it launches on the
+card, and generates its source without it), no file of it (nor
+chip_smoke.py or chip_ab.py) imports jax or the JAX package, and its default device is
+the GPU — without one it raises rather than continuing on the CPU.
 """
 
 import os
@@ -27,8 +28,8 @@ import sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "pyarrow") or name.startswith("google.protobuf") \
-                or top == "blaze_tpu":
+        if top in ("jax", "jaxlib", "pyarrow", "triton") \
+                or name.startswith("google.protobuf") or top == "blaze_tpu":
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -38,7 +39,15 @@ import blaze_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(blaze_tpu_torch.__path__, "blaze_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "pyarrow", "blaze_tpu")]
+from blaze_tpu_torch.exprs.fused_triton import FusedKernel
+from blaze_tpu_torch.ir import exprs as E, types as T
+schema = T.Schema.of(("a", T.I64), ("b", T.F64))
+src = FusedKernel(schema, (("filter", (E.IsNotNull(E.Column("a")),)),
+                           ("project", (E.BinaryExpr(E.BinaryOp.MUL, E.Column("b"),
+                                                     E.Literal(0.1, T.F64)),), ("c",)))).source
+assert "def fused_chain(" in src
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "pyarrow", "blaze_tpu", "triton")]
 print("ok", len(mods))
 """
 
@@ -61,7 +70,7 @@ _FORBIDDEN = [
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_ab.py")]
     for dirpath, _dirs, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
@@ -98,6 +107,7 @@ def test_every_module_is_listed_in_the_package():
                 "ops.basic", "ops.shuffle.reader", "ops.shuffle.repartitioner",
                 "ops.aggfns", "ops.agg_device", "ops.agg", "ops.sort_keys",
                 "ops.sort", "ops.window", "ops.joins.keymap", "ops.joins.bhj",
+                "ir.serde", "ir.fusion", "exprs.fused_triton", "ops.fused",
                 "runtime.executor",
                 "runtime.session"):
         assert "blaze_tpu_torch." + mod in names
