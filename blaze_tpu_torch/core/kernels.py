@@ -1099,6 +1099,259 @@ def segment_reduce(name, order, starts, count, num_rows: int, ops, emits):
     return segment_reduce_plain(order, starts, count, num_rows, ops, emits)
 
 
+# -- K12: the host table's slot update ---------------------------------------------
+#
+# The eager scatters of blaze_tpu/ops/aggfns.py (.at[slots].add/min/max/set,
+# mode="drop") that the host AggTable runs into its persistent slot tables,
+# one call per batch for all of its aggregates. Rows carry their interned
+# slot id; a padding row carries the table capacity and drops.
+
+UPD_ADD, UPD_MIN, UPD_MAX, UPD_FLAG, UPD_FIRST = 0, 1, 2, 3, 4
+# csrc/slot_update.cu limit of one call
+_MAX_UPD_OPS = 24
+I64_MAX = (1 << 63) - 1
+
+
+class SlotUpdate:
+    """One op of K12 into ``table`` (capacity-long, updated in place), over
+    the rows where the row exists and every plane of ``valids`` holds:
+
+    - ADD: ``table += src`` (int64 table; ``src`` None counts 1 a row), or
+      the same into a float64 table as a left fold in row order from the
+      slot's value;
+    - MIN / MAX: the extreme of the slot's value and ``src`` (int64, or
+      float64 with -0.0 below 0.0 and NaN propagating);
+    - FLAG: ``table = True`` (bool table);
+    - FIRST: the row of least ``order`` wins where that order is at most
+      ``order_table``'s, the last row in row order of those tied on it:
+      ``order_table`` takes the order, ``table`` the row's ``src`` and
+      ``valid_table`` the AND of its ``wvalids``.
+    """
+
+    __slots__ = ("kind", "table", "src", "valids", "order", "wvalids",
+                 "valid_table", "order_table")
+
+    def __init__(self, kind, table, src=None, valids=(), order=None,
+                 wvalids=(), valid_table=None, order_table=None):
+        self.kind, self.table, self.src = kind, table, src
+        self.valids = list(valids)
+        self.order, self.wvalids = order, list(wvalids)
+        self.valid_table, self.order_table = valid_table, order_table
+
+    @property
+    def folds(self) -> bool:
+        """Run in slot-sorted row order (float ADD, FIRST), not by atomics."""
+        return self.kind == UPD_FIRST or (
+            self.kind == UPD_ADD and self.table.is_floating_point())
+
+
+def _upd_rows(op: SlotUpdate, slots: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    ok = mask & (slots >= 0) & (slots < op.table.shape[0])
+    for v in op.valids:
+        ok = ok & v
+    return ok
+
+
+def _touched(cap: int, s: torch.Tensor) -> torch.Tensor:
+    out = torch.zeros(cap, dtype=torch.bool, device=s.device)
+    out[s] = True
+    return out
+
+
+def slot_update_plain(slots: torch.Tensor, mask: torch.Tensor, ops) -> None:
+    """Plain PyTorch twin of K12: each op's update of its table in place,
+    the arithmetic of the reference's scatters. Float ADD is CPU
+    ``index_add_`` (one by one in row order, XLA's scatter-add order) on a
+    copy of the table, so the fold starts from the slot's value; a touched
+    float slot holding a NaN ends as the quiet NaN."""
+    n = slots.shape[0]
+    for op in ops:
+        table = op.table
+        cap = table.shape[0]
+        ok = _upd_rows(op, slots, mask)
+        s = slots[ok]
+        if op.kind == UPD_FLAG:
+            table[s] = True
+        elif op.kind == UPD_ADD and table.is_floating_point():
+            work = table.detach().cpu().clone()
+            work.index_add_(0, s.cpu(), op.src[ok].cpu())
+            work = work.to(table.device)
+            table.copy_(torch.where(_touched(cap, s), _quiet_nan(work), work))
+        elif op.kind == UPD_ADD:
+            src = torch.ones(n, dtype=torch.int64, device=slots.device) \
+                if op.src is None else op.src
+            table.index_add_(0, s, src[ok])
+        elif op.kind in (UPD_MIN, UPD_MAX):
+            how = "amin" if op.kind == UPD_MIN else "amax"
+            if not table.is_floating_point():
+                table.scatter_reduce_(0, s, op.src[ok], how)
+                continue
+            src = op.src[ok]
+            words = _order_words(table).scatter_reduce(0, s, _order_words(src), how)
+            nan = torch.zeros(cap, dtype=torch.int64, device=table.device)
+            nan.index_add_(0, s, torch.isnan(src).to(torch.int64))
+            out = torch.where((nan > 0) | torch.isnan(table), float("nan"),
+                              _order_words(words).view(torch.float64))
+            table.copy_(torch.where(_touched(cap, s), _quiet_nan(out), table))
+        else:  # UPD_FIRST
+            rows = iota(n, slots.device)[ok]
+            o = op.order[ok]
+            best = op.order_table.scatter_reduce(0, s, o, "amin")
+            win = o == best[s]
+            last = torch.full((cap,), -1, dtype=torch.int64, device=table.device)
+            last.scatter_reduce_(0, s[win], rows[win], "amax")
+            w = win & (rows == last[s])
+            wvalid = torch.ones(n, dtype=torch.bool, device=slots.device)
+            for v in op.wvalids:
+                wvalid = wvalid & v
+            table[s[w]] = op.src[rows[w]]
+            op.valid_table[s[w]] = wvalid[rows[w]]
+            op.order_table.copy_(best)
+
+
+def _check_table(op: SlotUpdate, cap: int) -> None:
+    """The words of an op that stay the same from batch to batch."""
+    t = op.table
+    if t.shape != (cap,):
+        raise ValueError(f"slot_update: table of {tuple(t.shape)}, expected ({cap},)")
+    if len(op.valids) > 3 or len(op.wvalids) > 3:
+        raise ValueError("slot_update: at most three validity planes an op")
+    if op.kind == UPD_FLAG:
+        ok = t.dtype == torch.bool
+    elif op.kind == UPD_FIRST:
+        ok = (t.element_size() in (1, 2, 4, 8)
+              and op.valid_table is not None and op.valid_table.dtype == torch.bool
+              and op.valid_table.shape == (cap,) and op.order_table is not None
+              and op.order_table.dtype == torch.int64 and op.order_table.shape == (cap,))
+    else:
+        ok = op.kind in (UPD_ADD, UPD_MIN, UPD_MAX) and t.dtype in (torch.int64, torch.float64)
+    if not ok:
+        raise TypeError(f"slot_update: op kind {op.kind} over a {t.dtype} table")
+
+
+def _check_rows(op: SlotUpdate, n: int) -> None:
+    """The row planes of one batch's op."""
+    planes = [p for p in [op.src, op.order] + op.valids + op.wvalids if p is not None]
+    if any(p.shape != (n,) for p in planes):
+        raise ValueError(f"slot_update: row planes must be ({n},)")
+    if any(v.dtype != torch.bool for v in op.valids + op.wvalids):
+        raise TypeError("slot_update: validity planes must be bool")
+    src = None if op.src is None else op.src.dtype
+    t = op.table.dtype
+    if op.kind == UPD_FLAG:
+        ok = src is None
+    elif op.kind == UPD_FIRST:
+        ok = src == t and op.order is not None and op.order.dtype == torch.int64
+    elif op.kind == UPD_ADD and t == torch.int64:
+        ok = src in (None, torch.int64)
+    else:
+        ok = src == t
+    if not ok:
+        raise TypeError(f"slot_update: op kind {op.kind} over a {t} table from {src}")
+
+
+class SlotUpdatePack:
+    """K12's argument arrays for an op list that recurs batch after batch,
+    as the host table's does. The words that stay the same (kinds, table
+    pointers, FIRST's tables, element sizes, plane counts) are checked and
+    packed once; each call then only checks the rows and writes their
+    planes' pointers into the arrays in place. An op list that differs in
+    any of those words (a table that grew is a new tensor) packs anew."""
+
+    def __init__(self):
+        self.key = None
+        self.static = ()
+        self.rows = ()
+
+    @staticmethod
+    def _key(ops, cap: int):
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        return (cap,) + tuple((op.kind, op.table.dtype, op.table.data_ptr(), len(op.valids),
+                               len(op.wvalids), ptr(op.valid_table), ptr(op.order_table))
+                              for op in ops)
+
+    def args(self, ops, n: int, cap: int):
+        """(static arrays, row arrays) for ``blz_slot_update``: kind,
+        is_float, nvalid, table, esize, nwvalid, valid_table, order_table;
+        then src, valid, order, wvalid."""
+        key = self._key(ops, cap)
+        if key != self.key:
+            for op in ops:
+                _check_table(op, cap)
+            m = max(1, len(ops))
+            I, P = cuda_lib.ctypes.c_int, cuda_lib.ctypes.c_void_p
+
+            def ptrs(ts):
+                return (P * m)(*[None if t is None else t.data_ptr() for t in ts])
+
+            self.static = (
+                (I * m)(*[op.kind for op in ops]),
+                (I * m)(*[int(op.table.is_floating_point()) for op in ops]),
+                (I * m)(*[len(op.valids) for op in ops]),
+                ptrs([op.table for op in ops]),
+                (I * m)(*[op.table.element_size() for op in ops]),
+                (I * m)(*[len(op.wvalids) for op in ops]),
+                ptrs([op.valid_table for op in ops]),
+                ptrs([op.order_table for op in ops]))
+            self.rows = ((P * m)(), (P * (3 * m))(), (P * m)(), (P * (3 * m))())
+            self.key = key
+        src, valid, order, wvalid = self.rows
+        for o, op in enumerate(ops):
+            _check_rows(op, n)
+            src[o] = None if op.src is None else op.src.data_ptr()
+            order[o] = None if op.order is None else op.order.data_ptr()
+            for q in range(3):
+                valid[3 * o + q] = op.valids[q].data_ptr() if q < len(op.valids) else None
+                wvalid[3 * o + q] = op.wvalids[q].data_ptr() if q < len(op.wvalids) else None
+        return self.static, self.rows
+
+
+def slot_update_cuda(slots: torch.Tensor, mask: torch.Tensor, ops,
+                     pack: Optional[SlotUpdatePack] = None) -> None:
+    """K12 on the card (csrc/slot_update.cu): every op's update in one
+    atomic launch (integer ADD, MIN, MAX, FLAG) and one fold launch over
+    the rows sorted by slot (float ADD, FIRST; K5 sorts them); same
+    tables as :func:`slot_update_plain`. ``pack`` keeps the argument
+    arrays of a caller that sends the same op list every batch."""
+    if not ops:
+        return
+    tensors = [slots, mask]
+    for op in ops:
+        tensors += [p for p in [op.table, op.src, op.order, op.valid_table, op.order_table]
+                    + op.valids + op.wvalids if p is not None]
+    cuda_lib.require_cuda("slot_update", *tensors)
+    n = int(slots.shape[0])
+    cap = int(ops[0].table.shape[0])
+    if len(ops) > _MAX_UPD_OPS:
+        raise NotImplementedError("slot_update: more aggregates than one launch takes")
+    if slots.dtype != torch.int64 or slots.shape != (n,) or mask.dtype != torch.bool \
+            or mask.shape != (n,):
+        raise TypeError("slot_update: slots must be int64 and the mask bool, both (n,)")
+    (kind, is_float, nvalid, table, esize, nwvalid, valid_table, order_table), \
+        (src, valid, order, wvalid) = (pack or SlotUpdatePack()).args(ops, n, cap)
+    perm = lexsort_indices([slots]) if any(op.folds for op in ops) else None
+    err = cuda_lib.library().blz_slot_update(
+        slots.data_ptr(), mask.data_ptr(), n, cap,
+        None if perm is None else perm.data_ptr(), len(ops), kind, is_float, src, nvalid,
+        valid, table, esize, order, nwvalid, wvalid, valid_table, order_table,
+        cuda_lib.stream_of(slots.device))
+    cuda_lib.check(err, "slot_update")
+    cuda_lib.LAUNCHES["slot_update"] += 1
+
+
+def slot_update(slots: torch.Tensor, mask: torch.Tensor, ops,
+                pack: Optional[SlotUpdatePack] = None) -> None:
+    """The reference's scatters of one batch into the host table's slot
+    tables, in place: K12 on CUDA planes (``pack`` keeps its argument
+    arrays between calls), the plain version on CPU ones."""
+    if slots.is_cuda:
+        slot_update_cuda(slots, mask, ops, pack)
+    else:
+        slot_update_plain(slots, mask, ops)
+
+
 # -- window counters (host numpy) -------------------------------------------------
 #
 # Group structure arrives as boundary masks over rows sorted by (partition,

@@ -31,7 +31,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu",
-           "join.cu", "seg_agg.cu")
+           "join.cu", "seg_agg.cu", "slot_update.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libblaze_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -53,6 +53,7 @@ LAUNCHES: Dict[str, int] = {
     "seg_agg_partial": 0,
     "seg_agg_merge": 0,
     "fused_chain": 0,
+    "slot_update": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -208,6 +209,13 @@ _SIGNATURES = {
         _PLL, _PLL,                          # mult, init
         _I, _PI, _PI, _PI, _PP,              # nemit, kind, table, aux, out
         _P, _P,                              # first, stream
+    ],
+    "blz_slot_update": [
+        _P, _P, _I64, _I64, _P, _I,          # slots, mask, n, cap, perm, nops
+        _PI, _PI, _PP, _PI, _PP, _PP,        # kind, is_float, src, nvalid, valid, table
+        _PI, _PP, _PI, _PP, _PP, _PP,        # esize, order, nwvalid, wvalid,
+                                             # valid_table, order_table
+        _P,                                  # stream
     ],
 }
 

@@ -10,7 +10,7 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K11 held against their plain PyTorch versions on the
+3. kernels: K1-K12 held against their plain PyTorch versions on the
    card, exactly (float planes bit for bit), at the main paths' shapes and
    at edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
@@ -31,7 +31,13 @@ only when every phase passed:
    FusedStageExec), i32/i64/f32/f64/bool/decimal planes, every ported
    operator, InList with a null item and negated, the FMA shapes, division
    by zero and by -1, int64 and f64 literals, capacities 256, 4,096 and
-   262,144, batches all kept, none kept and empty); then each timed with
+   262,144, batches all kept, none kept and empty; for the host table's
+   slot update, K12: every aggregate the table updates (SUM, COUNT, AVG,
+   MIN, MAX, FIRST, FIRST_IGNORES_NULL over int64, int32, float64,
+   float32, bool and decimal arguments) in update and merge mode, nulls,
+   padding, table growth, int64 wrap, NaN, +-0.0 and subnormals, a float
+   sum whose value depends on the fold's order, FIRST with tied orders,
+   an empty batch, and a q67_table merge batch); then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s);
@@ -60,19 +66,30 @@ only when every phase passed:
      100) over TPC-DS SF10's row counts (seed 69), with the null filters
      Spark infers on its scans (each a fused stage: K11 + K1), exact in
      order against set operations in numpy;
+   - q67_table: q67's plan and data under the default Config, whose 256
+     MiB merge budget each reducer's partial states pass, so the FINAL
+     merge is the host table's (K12 a state batch); groups leave the table
+     in slot order, so rows tied on (item, qty) are checked as sets;
+   - q96 (store_sales JOIN broadcast time_dim JOIN broadcast
+     household_demographics JOIN broadcast store -> PARTIAL COUNT(1)
+     without keys (the host table, K12 a batch) -> single exchange ->
+     FINAL COUNT (the table's merge) -> top 100) over TPC-DS SF10's row
+     counts (seed 96), with Spark's scan filters, exact against a numpy
+     count;
    all through ``Session().execute_to_pydict`` in 4 partitions staged on
-   the card; every kernel must have launched over the six runs, the
+   the card; every kernel must have launched over the eight runs, the
    unique-key join kernel on each join path, the generic probe on q69,
-   K10's three launches on q69 and q67_sort, and K11 on every q69 sales
-   batch (196) and on the root rank filter of q67, q67_sort and q47;
+   K10's three launches on q69 and q67_sort, K11 on every q69 sales
+   batch (196) and on the root rank filter of q67, q67_sort and q47, and
+   K12 on q96 and q67_table;
 5. one JSON line per kernel (shape, times, bound, launches per path), the
    kernels' summary JSON line, the card line, and the device JSON line.
 
 ``--profile`` adds one run of each path under torch.profiler (device busy
 share, launch and sync counts, the top kernels); ``--trace=PATH`` also
 writes q01's Chrome trace to PATH and the other paths' beside it
-(``_q67.json``, ``_q67_sort.json``, ``_q06.json``, ``_q47.json``,
-``_q69.json``).
+(``_q67.json``, ``_q67_sort.json``, ``_q67_table.json``, ``_q06.json``,
+``_q47.json``, ``_q69.json``, ``_q96.json``).
 
 Needs one CUDA device; exits 2 without one, or when run outside a checkout
 of the repository.
@@ -95,7 +112,8 @@ Q67_SEED = 67
 Q67_GROUPS = 797_601  # (item, store) groups of q67 at Q67_ROWS: the kernels' shapes
 # q67's final merge holds ~6.2M partial-state rows per reducer (~330 MB
 # at their capacity buckets), past the 256 MB default beyond which the
-# JAX package spills to its host table (not ported); the card holds them
+# merge is the host table's (q67_table runs that route); q67 and q67_sort
+# keep the device merge (K4, K10) with a budget the card holds
 Q67_MERGE_BYTES = 2 << 30
 Q06_ROWS = 28_800_991  # q06 and q47 share one store_sales draw
 Q06_ITEMS = 102_000   # TPC-DS SF10's item row count
@@ -1471,6 +1489,259 @@ def check_fused_stage_coalesce(dev, rng):
         check_equal("fused_chain", "coalesce between segments", g[1:], w[1:])
 
 
+# -- K12: the host table's slot update -------------------------------------------
+
+# every aggregate the host table updates through K12, and its argument: i64,
+# i32, f64, f32, bool, dec (decimal(7,2)); None for COUNT(*)
+UPD_FNS = (("sum", "i64"), ("sum", "f64"), ("sum", "f32"), ("sum", "dec"), ("count", None),
+           ("count", "f64"), ("avg", "i64"), ("avg", "f64"), ("avg", "dec"), ("min", "i64"),
+           ("max", "i32"), ("min", "f64"), ("max", "f64"), ("min", "f32"), ("max", "f32"),
+           ("min", "dec"), ("first", "i64"), ("first_ignores_null", "f64"), ("first", "f32"),
+           ("first_ignores_null", "bool"), ("first", "i32"), ("first_ignores_null", "dec"))
+# (label, mode, (capacity, live rows) a batch, batches, slots drawn from,
+# (table capacity at the start, after the first batch), null share, value
+# range, floats): floats "mixed" (NaN, +-0.0, +-inf, normal values,
+# subnormals unless the caller drops them) or "order" (1e16, 1.0, -1e16:
+# a sum that depends on the fold's order)
+UPD_CASES = (
+    ("update", "update", (256, 200), 3, 40, (1024, 1024), 0.2, (-50, 50), "mixed"),
+    ("merge", "merge", (256, 230), 3, 40, (1024, 1024), 0.2, (-50, 50), "mixed"),
+    ("update, growth", "update", (4096, 4000), 2, 3000, (1024, 4096), 0.1,
+     (-10 ** 6, 10 ** 6), "mixed"),
+    ("merge, growth", "merge", (4096, 3500), 2, 3000, (1024, 4096), 0.1,
+     (-10 ** 6, 10 ** 6), "mixed"),
+    ("update, one slot", "update", (1024, 1000), 2, 1, (1024, 1024), 0.1, (-50, 50), "mixed"),
+    ("update, float order", "update", (256, 256), 2, 3, (1024, 1024), 0.0, (-5, 5), "order"),
+    ("merge, float order", "merge", (256, 256), 2, 3, (1024, 1024), 0.0, (-5, 5), "order"),
+    ("update, int64 wrap", "update", (256, 256), 2, 4, (1024, 1024), 0.0,
+     (2 ** 62, 2 ** 63 - 1), "mixed"),
+    ("merge, all null", "merge", (256, 200), 2, 40, (1024, 1024), 1.0, (-50, 50), "mixed"),
+    ("update, empty batch", "update", (256, 0), 2, 40, (1024, 1024), 0.1, (-50, 50), "mixed"),
+)
+UPD_ORDER_FLOATS = (1e16, 1.0, -1e16, 3.0, -1.0)
+
+
+def upd_arg_type(T, arg):
+    """The argument type of an UPD_FNS entry under the IR module ``T`` of
+    either package."""
+    return {"i64": T.I64, "i32": T.I32, "f64": T.F64, "f32": T.F32, "bool": T.BOOL,
+            "dec": T.DecimalType(7, 2), None: T.I64}[arg]
+
+
+def upd_plane(kind, cap, n, rng, nulls, lo, hi, floats, subnormals):
+    """(data, validity) of one value plane: ``n`` live rows of ``cap``."""
+    import numpy as np
+
+    live = np.arange(cap) < n
+    if kind in ("f64", "f32"):
+        pool = UPD_ORDER_FLOATS if floats == "order" else \
+            SEG_FLOATS if subnormals else SEG_FLOATS[:12]
+        d = np.array(pool)[rng.integers(0, len(pool), cap)]
+        with np.errstate(over="ignore"):
+            d = d.astype(np.float64 if kind == "f64" else np.float32)
+    elif kind == "bool":
+        d = rng.random(cap) < 0.5
+    elif kind in ("i32", "dec"):  # int32, or decimal(7,2) unscaled
+        top = 2 ** 31 - 1 if kind == "i32" else 10 ** 7 - 1
+        if not -top <= lo < hi <= top:
+            lo, hi = -top, top
+        d = rng.integers(lo, hi, cap).astype(np.int32 if kind == "i32" else np.int64)
+    else:
+        d = rng.integers(lo, hi, cap, dtype=np.int64)
+    return np.where(live, d, 0).astype(d.dtype), live & (rng.random(cap) >= nulls)
+
+
+def upd_state_planes(fn, arg, cap, n, rng, nulls, lo, hi, floats, subnormals):
+    """A batch of partial states of ``fn`` (merge input): one (data,
+    validity) pair per state field, every gate of the merge taken."""
+    import numpy as np
+
+    live = np.arange(cap) < n
+
+    def flag():
+        return (rng.random(cap) < 0.8) & live, live & (rng.random(cap) >= nulls)
+
+    def val(kind):
+        return upd_plane(kind, cap, n, rng, nulls, lo, hi, floats, subnormals)
+
+    def widened(kind):
+        d, v = val(kind)
+        return (d.astype(np.float64) if kind in ("f64", "f32") else d.astype(np.int64)), v
+
+    counts = rng.integers(0, 100, cap).astype(np.int64) * live, live & (rng.random(cap) >= nulls)
+    if fn == "sum":
+        return [widened(arg), flag()]
+    if fn == "count":
+        return [counts]
+    if fn == "avg":
+        return [widened(arg), counts]
+    if fn in ("min", "max"):
+        return [val(arg), flag()]
+    # first: value, valid flag, and orders with ties (states of several
+    # map tasks share orders) and the "no row" order
+    order = np.where(rng.random(cap) < 0.1, 2 ** 63 - 1, rng.integers(0, 20, cap)) * live
+    return [val(arg), flag(), (order.astype(np.int64), live & (rng.random(cap) >= nulls))]
+
+
+def upd_case(case, rng, subnormals=True):
+    """K12's inputs of one UPD_CASES entry on the host: per batch the
+    slots (padding rows at the table's capacity then), the row mask, the
+    global row orders and per UPD_FNS entry its planes (update: the
+    argument, None for COUNT(*); merge: the state fields)."""
+    import numpy as np
+
+    label, mode, (cap, n), nbatch, nslots, caps, nulls, (lo, hi), floats = case
+    batches, order = [], 0
+    for b in range(nbatch):
+        table_cap = caps[0] if b == 0 else caps[1]
+        live = np.arange(cap) < n
+        slots = np.where(live, rng.integers(0, min(nslots, table_cap), cap), table_cap)
+        planes = []
+        for fn, arg in UPD_FNS:
+            if mode == "merge":
+                planes.append(upd_state_planes(fn, arg, cap, n, rng, nulls, lo, hi, floats,
+                                               subnormals))
+            else:
+                planes.append(None if arg is None else
+                              upd_plane(arg, cap, n, rng, nulls, lo, hi, floats, subnormals))
+        batches.append({"slots": slots.astype(np.int64), "mask": live,
+                        "order": np.arange(cap, dtype=np.int64) + order, "planes": planes})
+        order += n
+    return {"label": label, "mode": mode, "caps": caps, "batches": batches}
+
+
+def upd_fns():
+    """The port's aggregate functions of UPD_FNS."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops import aggfns
+
+    fns = []
+    for fn, arg in UPD_FNS:
+        agg = E.AggExpr(E.AggFunction[fn.upper()], [] if arg is None else [E.Column("v")])
+        fns.append(aggfns.create_agg_function(agg, T.Schema.of(("v", upd_arg_type(T, arg)))))
+    return fns
+
+
+def upd_run(case, fns, update, dev, packed=False):
+    """The functions' tables after the case's batches, each batch's ops of
+    every function through ``update`` (K12 or its plain version);
+    ``packed``: K12 keeps one argument pack a launch across the batches,
+    as the host table does."""
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.core.batch import DeviceColumn
+    from blaze_tpu_torch.ir import types as T
+
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    caps = case["caps"]
+    states = [fn.init_state(caps[0], dev) for fn in fns]
+    packs = {}
+    for b, batch in enumerate(case["batches"]):
+        if b == 1:
+            states = [fn.grow(st, caps[1]) for fn, st in zip(fns, states)]
+        ops = []
+        for fn, st, planes in zip(fns, states, batch["planes"]):
+            if case["mode"] == "merge":
+                ops += fn.merge_ops(st, [DeviceColumn(T.I64, t(d), t(v)) for d, v in planes])
+            elif planes is None:
+                ops += fn.update_ops(st, None, None)
+            else:
+                ops += fn.update_ops(st, t(planes[0]), t(planes[1]), t(batch["order"]))
+        slots, mask = t(batch["slots"]), t(batch["mask"])
+        for at in range(0, len(ops), K._MAX_UPD_OPS):
+            chunk = ops[at:at + K._MAX_UPD_OPS]
+            if packed:
+                update(slots, mask, chunk, packs.setdefault(at, K.SlotUpdatePack()))
+            else:
+                update(slots, mask, chunk)
+    return states
+
+
+def q67_table_merge_batch(rng, dev, rows=262144, groups=200_000):
+    """One q67_table merge batch: 262,144 (item, store) partial-state rows
+    (sum, has) interned into ~200,000 slots of a 262,144-slot table."""
+    import numpy as np
+    import torch
+
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    slots = t(rng.integers(0, groups, rows))
+    live = torch.ones(rows, dtype=torch.bool, device=dev)
+    s = t(rng.integers(1, 3000, rows))
+    has = t(rng.random(rows) < 0.999)
+    return slots, live, s, has
+
+
+def kernel_k12(dev, rng, results):
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.core.batch import DeviceColumn
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops import aggfns
+
+    cases = []
+    fns = upd_fns()
+    for spec in UPD_CASES:
+        case = upd_case(spec, rng)
+        got = upd_run(case, fns, K.slot_update_cuda, dev, packed=True)
+        want = upd_run(case, fns, K.slot_update_plain, dev)
+        check_equal("slot_update", case["label"], got, want)
+        cases.append(case["label"])
+    # main path: a q67_table merge batch, FINAL SUM(qty) states (sum, has)
+    slots, live, s, has = q67_table_merge_batch(rng, dev)
+    rows = slots.shape[0]
+    fn = aggfns.create_agg_function(E.AggExpr(E.AggFunction.SUM, [E.Column("v")]),
+                                    T.Schema.of(("v", T.I64)))
+    cols = [DeviceColumn(T.I64, s, has), DeviceColumn(T.BOOL, has, live)]
+    tables = {}
+    for name, update in (("kernel", K.slot_update_cuda), ("plain", K.slot_update_plain)):
+        st = fn.init_state(262144, dev)
+        update(slots, live, fn.merge_ops(st, cols))
+        tables[name] = st
+    check_equal("slot_update", "q67_table merge batch", tables["kernel"], tables["plain"])
+    cases.append("q67_table merge batch")
+    st = fn.init_state(262144, dev)
+    ops = fn.merge_ops(st, cols)
+    # as the host table calls it: its argument arrays kept in a pack; and
+    # without one, packing them anew each call
+    pack = K.SlotUpdatePack()
+    ms = time_ms(lambda: K.slot_update_cuda(slots, live, ops, pack))
+    unpacked_ms = time_ms(lambda: K.slot_update_cuda(slots, live, ops))
+    plain_ms = time_ms(lambda: K.slot_update_plain(slots, live, ops))
+    acc, flag = st
+    gate = has & live
+    contrib = torch.where(gate, s, 0)
+    flags = gate.to(torch.uint8)
+    flag8 = torch.zeros(262144, dtype=torch.uint8, device=dev)
+
+    def library():
+        acc.index_add_(0, slots, contrib)
+        flag8.scatter_reduce_(0, slots, flags, "amax")
+
+    lib_ms = time_ms(library)
+    touched = int(torch.unique(slots[gate]).numel())
+    # the rows' slot, mask, sum and has planes (has: data and validity)
+    # read once; each touched slot's sum read and written once, its flag
+    # written once (nothing reads the flag table)
+    nbytes = rows * (8 + 1 + 8 + 1 + 1) + touched * (8 * 2 + 1)
+    # the fold route at the same shape: a float64 SUM of 262,144 raw rows
+    # (K5's sort by slot, then one thread a run)
+    ffn = aggfns.create_agg_function(E.AggExpr(E.AggFunction.SUM, [E.Column("v")]),
+                                     T.Schema.of(("v", T.F64)))
+    fst = ffn.init_state(262144, dev)
+    fvals = torch.from_numpy(rng.random(rows)).to(dev)
+    fops = ffn.update_ops(fst, fvals, live)
+    fold_ms = time_ms(lambda: K.slot_update_cuda(slots, live, fops))
+    results.append(dict(
+        name="slot_update", route="cuda", source="blaze_tpu_torch/csrc/slot_update.cu",
+        replaces="blaze_tpu/ops/aggfns.py:362", shape=f"{rows} state rows -> {touched} "
+        "touched slots of 262,144 (a q67_table merge batch: SUM int64 + has flag)",
+        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_call="index_add_ + scatter_reduce_(amax) into the slot tables (a chain)",
+        bytes=nbytes, fold_ms=fold_ms, unpacked_ms=unpacked_ms))
+
+
 # -- phase 4: the paths on the card ------------------------------------------------
 
 
@@ -1616,6 +1887,23 @@ def q67_oracle(host):
             "qty": q[keep].tolist(), "rk": rk[keep].tolist()}, len(present)
 
 
+def q67_table_check(want):
+    """A check of q67 on the host table's route: the FINAL aggregate emits
+    its groups in slot order (first seen first), not in key order, so rows
+    tied on (item, qty) reach the stable sort in another order than on the
+    slot and sort routes. Every (item, qty, rank) must be the oracle's, in
+    order, and each tie group must hold the oracle's stores."""
+    def check(got):
+        keys = ("ss_item_sk", "qty", "rk")
+        if [list(got[k]) for k in keys] != [want[k] for k in keys]:
+            raise AssertionError("q67_table: (item, qty, rank) rows differ from the oracle")
+        rows = lambda d: sorted(zip(d["ss_item_sk"], d["qty"], d["ss_store_sk"]))  # noqa: E731
+        if rows(got) != rows(want):
+            raise AssertionError("q67_table: the stores of tied rows differ from the oracle")
+
+    return check
+
+
 def make_data(dev):
     """store_returns as bench.py:make_data draws it (seed 42, amt first),
     staged on the card as 262144-row batches per partition."""
@@ -1700,7 +1988,10 @@ def run_q67(dev, profile=False, trace_path=None):
     data, q67_sort: the route the JAX package takes on a TPU, with both
     slot routes off (K10's partial on each of the 112 batches, its merge
     on each reducer's ~6.2M state rows). Group emission is key order on
-    both routes, so both meet the same oracle."""
+    both routes, so both meet the same oracle. Then q67_table: the default
+    Config, whose 256 MiB merge budget each reducer's states pass, so the
+    FINAL merge is the host table's (K12), checked as q67_table_check
+    says."""
     import blaze_tpu_torch
     from blaze_tpu_torch.config import Config
 
@@ -1711,12 +2002,14 @@ def run_q67(dev, profile=False, trace_path=None):
     setup_s = time.perf_counter() - t0
     info = {"groups": groups, "out_rows": len(want["rk"])}
     out = {}
-    for name, conf in (("q67", Config(device_merge_max_bytes=Q67_MERGE_BYTES)),
-                       ("q67_sort", Config(device_merge_max_bytes=Q67_MERGE_BYTES,
-                                           dense_agg=False, radix_agg=False))):
+    for name, conf, check in (
+            ("q67", Config(device_merge_max_bytes=Q67_MERGE_BYTES), want),
+            ("q67_sort", Config(device_merge_max_bytes=Q67_MERGE_BYTES, dense_agg=False,
+                                radix_agg=False), want),
+            ("q67_table", Config(), q67_table_check(want))):
         session = blaze_tpu_torch.Session(conf)
         session.resources["store_sales"] = lambda p: parts[p]
-        out[name] = run_query(name, Q67_ROWS, session, q67_plan(schema), want, setup_s,
+        out[name] = run_query(name, Q67_ROWS, session, q67_plan(schema), check, setup_s,
                               info, profile, trace_path and
                               trace_path.replace(".json", f"_{name}.json"))
     return out
@@ -2109,6 +2402,154 @@ def run_q69(dev, profile=False, trace_path=None):
                                "groups": len(want["cnt"])}, profile, trace_path)
 
 
+# -- q96: a global COUNT through the host table (K12) ----------------------------
+
+Q96_SEED = 96
+# TPC-DS SF10 row counts of q96's tables
+Q96_ROWS = {"store_sales": 28_800_991, "time_dim": 86_400, "household_demographics": 7_200,
+            "store": 102}
+# s_store_name as a code of the ten names TPC-DS's store generator draws
+# from ("ought", "able", "pri", "ese", "anti", "cally", "ation", "eing",
+# "bar", "n st"); the query asks for 'ese'
+Q96_NAMES = 10
+Q96_ESE = 3
+
+
+def q96_schemas(T):
+    def sch(*names):
+        return T.Schema.of(*[(n, T.I64) for n in names])
+
+    return {"store_sales": sch("ss_sold_time_sk", "ss_hdemo_sk", "ss_store_sk"),
+            "time_dim": sch("t_time_sk", "t_hour", "t_minute"),
+            "household_demographics": sch("hd_demo_sk", "hd_dep_count"),
+            "store": sch("s_store_sk", "s_store_name")}
+
+
+def q96_host(rows, seed=Q96_SEED, null_share=0.04):
+    """q96's tables on the host, at ``rows``' row counts: time_dim one row a
+    second of the day (t_time_sk 0..86,399, t_hour = sk // 3600, t_minute
+    = sk // 60 % 60); household_demographics as TPC-DS's cross product,
+    hd_dep_count decoded from hd_demo_sk - 1 (income band 20, buy
+    potential 6, then dep count 10); store names uniform over Q96_NAMES
+    codes; store_sales' three foreign keys uniform over their dimension's
+    keys, ``null_share`` of each null (data 0). Returns {table: (columns,
+    validities or None)}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sk = np.arange(rows["time_dim"])
+    hd = np.arange(1, rows["household_demographics"] + 1)
+    st = np.arange(1, rows["store"] + 1)
+    host = {"time_dim": ((sk, sk // 3600, sk // 60 % 60), None),
+            "household_demographics": ((hd, (hd - 1) // 120 % 10), None),
+            "store": ((st, rng.integers(0, Q96_NAMES, len(st))), None)}
+    n = rows["store_sales"]
+    cols, valids = [], []
+    for lo, hi in ((0, rows["time_dim"]), (1, rows["household_demographics"] + 1),
+                   (1, rows["store"] + 1)):
+        v = rng.random(n) >= null_share
+        cols.append(np.where(v, rng.integers(lo, hi, n), 0))
+        valids.append(v)
+    host["store_sales"] = (tuple(cols), tuple(valids))
+    return host
+
+
+def q96_plan(schemas, E, N, T, parts=PARTS):
+    """TPC-DS q96 (v3.2.0) as Spark plans it (tests/tpcds/queries.py:309),
+    with the null filters Spark infers on the scans, in the IR modules
+    ``E``, ``N``, ``T`` of either package: store_sales (isnotnull on its
+    three keys) JOIN broadcast time_dim (t_hour = 20 AND t_minute >= 30)
+    JOIN broadcast household_demographics (hd_dep_count = 7) JOIN
+    broadcast store (s_store_name = 'ese') -> PARTIAL COUNT(1) without
+    keys -> single exchange -> FINAL COUNT -> ORDER BY count LIMIT 100."""
+    C, B = E.Column, E.BinaryOp
+    J = N.JoinType
+
+    def scan(name, p=1):
+        return N.FFIReader(schemas[name], name, p)
+
+    def all_of(*preds):
+        out = preds[0]
+        for p in preds[1:]:
+            out = E.BinaryExpr(B.AND, out, p)
+        return out
+
+    def cmp(op, c, v):
+        return E.BinaryExpr(op, C(c), E.Literal(v, T.I64))
+
+    def nn(*cols):
+        return [E.IsNotNull(C(c)) for c in cols]
+
+    sales = N.Filter(scan("store_sales", parts),
+                     [all_of(*nn("ss_sold_time_sk", "ss_hdemo_sk", "ss_store_sk"))])
+    time = N.Filter(scan("time_dim"), [all_of(*nn("t_hour", "t_minute", "t_time_sk"),
+                                              cmp(B.EQ, "t_hour", 20),
+                                              cmp(B.GTEQ, "t_minute", 30))])
+    hd = N.Filter(scan("household_demographics"),
+                  [all_of(*nn("hd_dep_count", "hd_demo_sk"), cmp(B.EQ, "hd_dep_count", 7))])
+    store = N.Filter(scan("store"), [all_of(*nn("s_store_name", "s_store_sk"),
+                                            cmp(B.EQ, "s_store_name", Q96_ESE))])
+    out = sales
+    for dim, fk, pk in ((time, "ss_sold_time_sk", "t_time_sk"),
+                        (hd, "ss_hdemo_sk", "hd_demo_sk"),
+                        (store, "ss_store_sk", "s_store_sk")):
+        out = N.BroadcastJoin(out, N.BroadcastExchange(dim), [(C(fk), C(pk))], J.INNER,
+                              N.JoinSide.RIGHT, f"q96_{pk}")
+    count = E.AggExpr(E.AggFunction.COUNT, [E.Literal(1, T.I32)])
+    partial = N.Agg(out, E.AggExecMode.HASH_AGG, [],
+                    [N.AggColumn(count, E.AggMode.PARTIAL, "cnt")])
+    final = N.Agg(N.ShuffleExchange(partial, N.SinglePartitioning(1)),
+                  E.AggExecMode.HASH_AGG, [], [N.AggColumn(count, E.AggMode.FINAL, "cnt")])
+    return N.Sort(final, [E.SortOrder(C("cnt"))], fetch_limit=100)
+
+
+def q96_oracle(host):
+    """q96's count in numpy: the sales rows whose three keys are valid and
+    whose time, household and store pass the dimension filters."""
+    import numpy as np
+
+    (t_sk, t_hour, t_minute), _ = host["time_dim"]
+    (hd_sk, dep), _ = host["household_demographics"]
+    (s_sk, name), _ = host["store"]
+    (time, hdemo, store), (tv, hv, sv) = host["store_sales"]
+    t_ok = np.zeros(t_sk.max() + 1, bool)
+    t_ok[t_sk[(t_hour == 20) & (t_minute >= 30)]] = True
+    h_ok = np.zeros(hd_sk.max() + 1, bool)
+    h_ok[hd_sk[dep == 7]] = True
+    s_ok = np.zeros(s_sk.max() + 1, bool)
+    s_ok[s_sk[name == Q96_ESE]] = True
+    keep = tv & hv & sv & t_ok[time] & h_ok[hdemo] & s_ok[store]
+    return {"cnt": [int(keep.sum())]}
+
+
+def run_q96(dev, profile=False, trace_path=None):
+    import blaze_tpu_torch
+    import torch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    t0 = time.perf_counter()
+    schemas = q96_schemas(T)
+    host = q96_host(Q96_ROWS)
+    want = q96_oracle(host)
+    session = blaze_tpu_torch.Session()
+    for name, (cols, valids) in host.items():
+        if name == "store_sales":
+            cuts = [len(cols[0]) * p // PARTS for p in range(PARTS + 1)]
+            parts = [stage_batches(schemas[name], [c[a:b] for c in cols], dev,
+                                   valids=[v[a:b] for v in valids])
+                     for a, b in zip(cuts, cuts[1:])]
+        else:
+            parts = [stage_batches(schemas[name], cols, dev)]
+        session.resources[name] = lambda p, _parts=parts: _parts[p]
+    del host
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    return run_query("q96", sum(Q96_ROWS.values()), session, q96_plan(schemas, E, N, T),
+                     want, setup_s, {"count": want["cnt"][0]}, profile, trace_path)
+
+
 def check_result(name, got, want):
     """``want`` is the oracle's result (equal, order included) or a
     function that raises when ``got`` is wrong."""
@@ -2249,7 +2690,9 @@ def main(device: str = "cuda") -> int:
     kernel_k9(dev, rng, results)
     kernel_k10(dev, rng, results)
     kernel_k11(dev, rng, results)
-    # 4. the paths: q01, q67 and q67_sort, q06 and q47, then q69
+    kernel_k12(dev, rng, results)
+    # 4. the paths: q01, q67 (slot, sort and table routes), q06 and q47,
+    # q69, then q96
     args = sys.argv[1:]
     profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
@@ -2258,6 +2701,8 @@ def main(device: str = "cuda") -> int:
         **run_q67(dev, profile, trace[0] if trace else None),
         **run_join_paths(dev, profile, trace[0] if trace else None),
         "q69": run_q69(dev, profile, trace[0].replace(".json", "") + "_q69.json"
+                       if trace else None),
+        "q96": run_q96(dev, profile, trace[0].replace(".json", "") + "_q96.json"
                        if trace else None),
     }
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["q01"]}
@@ -2279,6 +2724,15 @@ def main(device: str = "cuda") -> int:
         if per_path[q]["fused_chain"] < least:
             raise AssertionError(f"{q} launched K11 {per_path[q]['fused_chain']} times, "
                                  f"fewer than {least}")
+    # K12: q96's partial (a launch per joined sales batch, 112) and its
+    # final table (1); q67_table's FINAL merge on every reducer (a launch
+    # per state batch), none of them on the device merge
+    if per_path["q96"]["slot_update"] != 113:
+        raise AssertionError(f"q96 launched K12 {per_path['q96']['slot_update']} times, "
+                             "not 112 partial batches and 1 final")
+    if per_path["q67_table"]["slot_update"] < PARTS or per_path["q67_table"]["slot_agg_merge"]:
+        raise AssertionError("q67_table's FINAL merge did not take the host table (K12) "
+                             "on every reducer")
     # 5. summary lines
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2299,7 +2753,7 @@ def main(device: str = "cuda") -> int:
                         **{k: r[k] for k in ("ms_262144_rows", "digit_passes", "hits",
                                              "build_rows_touched", "big_batch", "route_ms",
                                              "segment_ids_ms", "k11_only_ms", "k11_only_bytes",
-                                             "battery_s")
+                                             "battery_s", "fold_ms", "unpacked_ms")
                            if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"kernels": kernels}))

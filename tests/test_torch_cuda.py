@@ -1,7 +1,7 @@
 """The port's CUDA and Triton kernels against their plain PyTorch versions
-on the card, and the q01, q67 (on both aggregation routes) and q06 paths
-and every hash-join type on the card against the same plans on the CPU.
-K9's, K10's and K11's cases come from chip_smoke.py.
+on the card, and the q01, q67 (on both aggregation routes), q06 and q96
+paths and every hash-join type on the card against the same plans on the
+CPU. K9's, K10's, K11's and K12's cases come from chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FUSED_CAPS, PROBE_CASES, SEG_CASES, customer_probe, fused_cases,
-                        fused_flat, fused_planes, merge_states, probe_case, q67_batch,
-                        q67_merge_input, seg_case, to_dev)
+from chip_smoke import (FUSED_CAPS, PROBE_CASES, Q96_ROWS, SEG_CASES, UPD_CASES,
+                        customer_probe, fused_cases, fused_flat, fused_planes, merge_states,
+                        probe_case, q67_batch, q67_merge_input, q67_table_merge_batch,
+                        q96_host, q96_oracle, q96_plan, q96_schemas, seg_case, to_dev,
+                        upd_case, upd_fns, upd_run)
 
 pytestmark = pytest.mark.cuda
 
@@ -139,11 +141,13 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         cuda_lib.reset_launch_counts()
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
-    # every kernel but the joins', the sort route's and K11, which q01 does
-    # not reach (its filter feeds the partial aggregate, so it is not fused)
+    # every kernel but the joins', the sort route's, K11 and the host
+    # table's K12, which q01 does not reach (its filter feeds the partial
+    # aggregate, so it is not fused; both aggregates take the slot route)
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
                if k not in ("inner_join_planes", "probe_codes", "segment_ids",
-                            "seg_agg_partial", "seg_agg_merge", "fused_chain"))
+                            "seg_agg_partial", "seg_agg_merge", "fused_chain",
+                            "slot_update"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -606,3 +610,89 @@ def test_decimal_to_double_divides_on_the_card(dev):
         out[str(where)] = ExprEvaluator([pred], schema).evaluate_predicate(batch).cpu()
     assert out["cpu"][34] and int(out["cpu"].sum()) == 1
     _equal(out[str(dev)], out["cpu"])
+
+
+@pytest.mark.parametrize("case", UPD_CASES, ids=[c[0] for c in UPD_CASES])
+def test_slot_update_kernel(dev, case):
+    """K12 against its plain version on the same CUDA tables: every
+    aggregate of the host table in the case's mode, subnormals included."""
+    from blaze_tpu_torch.core import kernels as K
+
+    data = upd_case(case, np.random.default_rng(sum(map(ord, case[0]))))
+    fns = upd_fns()
+    want = upd_run(data, fns, K.slot_update_plain, dev)
+    _equal(upd_run(data, fns, K.slot_update_cuda, dev), want)
+    _equal(upd_run(data, fns, K.slot_update_cuda, dev, packed=True), want)
+
+
+def test_slot_update_float_sum_folds_in_row_order(dev):
+    """1e16, 1.0, -1e16, 1.0 into one slot over two batches, with other
+    slots' rows between them: the fold starts from the slot's value and
+    follows the rows' order, so the first 1.0 is lost, on every run."""
+    from blaze_tpu_torch.core import kernels as K
+
+    slots = torch.tensor([0, 5, 0, 7], device=dev)
+    mask = torch.ones(4, dtype=torch.bool, device=dev)
+    tables = []
+    for _ in range(3):
+        t = torch.zeros(8, dtype=torch.float64, device=dev)
+        for vals in ([1e16, 2.0, 1.0, 3.0], [-1e16, 2.0, 1.0, 3.0]):
+            src = torch.tensor(vals, dtype=torch.float64, device=dev)
+            K.slot_update_cuda(slots, mask, [K.SlotUpdate(K.UPD_ADD, t, src)])
+        tables.append(t.cpu())
+    assert tables[0].tolist() == [1.0, 0, 0, 0, 0, 4.0, 0, 6.0]
+    assert all(torch.equal(t.view(torch.int64), tables[0].view(torch.int64)) for t in tables)
+
+
+def test_slot_update_at_the_main_paths_shape(dev):
+    """A q67_table merge batch (262,144 state rows into ~200,000 slots)."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.core.batch import DeviceColumn
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops import aggfns
+
+    slots, live, s, has = q67_table_merge_batch(np.random.default_rng(67), dev)
+    fn = aggfns.create_agg_function(E.AggExpr(E.AggFunction.SUM, [E.Column("v")]),
+                                    T.Schema.of(("v", T.I64)))
+    cols = [DeviceColumn(T.I64, s, has), DeviceColumn(T.BOOL, has, live)]
+    states = []
+    for update in (K.slot_update_cuda, K.slot_update_plain):
+        st = fn.init_state(262144, dev)
+        update(slots, live, fn.merge_ops(st, cols))
+        states.append(st)
+    _equal(states[0], states[1])
+
+
+def test_q96_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """chip_smoke.py's q96 at 300,000 store_sales rows on the card and on
+    the CPU: the same count as numpy; K12 launched on every joined batch
+    of the partial and once in the final; its plain version never ran."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    host = q96_host(dict(Q96_ROWS, store_sales=300_000))
+    schemas = q96_schemas(T)
+    plan = q96_plan(schemas, E, N, T, parts=3)
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(Config(batch_size=8192), device=device)
+        for name, (cols, valids) in host.items():
+            valids = valids or [np.ones(len(cols[0]), bool)] * len(cols)
+            n = len(cols[0])
+            cuts = [n * p // 3 for p in range(4)] if name == "store_sales" else [0, n]
+            parts = [[{f.name: (c[a:b], v[a:b])
+                       for f, c, v in zip(schemas[name].fields, cols, valids)}]
+                     for a, b in zip(cuts, cuts[1:])]
+            s.resources[name] = lambda p, _parts=parts: _parts[p]
+        if device is None:
+            monkeypatch.setattr(K, "slot_update_plain", None)
+        cuda_lib.reset_launch_counts()
+        out[device] = s.execute_to_pydict(plan)
+    assert out[None] == out["cpu"] == q96_oracle(host)
+    assert cuda_lib.launch_counts()["slot_update"] >= 4

@@ -27,6 +27,7 @@ Tolerance: none; planes compare by their bytes.
 """
 
 import ast
+import dataclasses
 
 import numpy as np
 import pyarrow as pa
@@ -71,6 +72,23 @@ torch.set_num_threads(1)
 # must not run inside a trace, where it reads False and sends f64 literals
 # down the host path
 supports_f64()
+
+_SHM = {}
+
+
+@pytest.fixture(autouse=True)
+def _shm_in_tmp_path(tmp_path):
+    """Each reference session's shm root goes under the test's tmp_path, not
+    /dev/shm, where tests/test_zero_copy.py's glob would see it."""
+    _SHM["dir"] = str(tmp_path)
+    yield
+    del _SHM["dir"]
+
+
+def _jax_conf(conf=None):
+    """A reference config with its shm root in the test's tmp_path."""
+    return dataclasses.replace(conf or JaxConfig(), shm_dir=_SHM["dir"])
+
 
 C, L, B = JE.Column, JE.Literal, JE.BinaryOp
 T4 = JT.Schema.of(("a", JT.I64), ("b", JT.F64), ("c", JT.I64), ("d", JT.I64))
@@ -459,7 +477,7 @@ def _port_run(plan, parts, conf):
 def test_chain_plans_fused_equal_unfused_and_the_reference(name):
     plan = CHAINS[name]()
     parts = _table()
-    with JaxSession(conf=JaxConfig(batch_size=1024)) as s:
+    with JaxSession(conf=_jax_conf(JaxConfig(batch_size=1024))) as s:
         s.resources["t"] = lambda p: _arrow(parts[p])
         want = s.execute_to_pydict(plan)
     assert len(next(iter(want.values()))) > 100
@@ -479,7 +497,8 @@ def test_q69_in_spark_shape_matches_jax_and_the_oracle():
     assert _port_tables(plan, tables, conf=Config(batch_size=Q69_BATCH, fusion_enabled=False),
                         batch=Q69_BATCH) == want
     JBHJ.clear_build_cache()
-    assert _reference_tables(plan, tables, Q69_SCHEMAS, batch=Q69_BATCH) == want
+    assert _reference_tables(plan, tables, Q69_SCHEMAS, batch=Q69_BATCH,
+                             shm_dir=_SHM["dir"]) == want
 
 
 def test_kernel_cache_is_shared_across_queries():

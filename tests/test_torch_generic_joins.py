@@ -16,6 +16,8 @@ empty build side (its empty map indexes past its one offset), the port
 is held against the join's definition instead.
 """
 
+import dataclasses
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -43,6 +45,24 @@ from blaze_tpu_torch.ir.carry import columns_from_numpy, from_foreign
 from blaze_tpu_torch.ops.joins import keymap as KM
 
 torch.set_num_threads(1)
+
+_SHM = {}
+
+
+@pytest.fixture(autouse=True)
+def _shm_in_tmp_path(tmp_path):
+    """Each reference session's shm root goes under the test's tmp_path, not
+    /dev/shm, where tests/test_zero_copy.py's glob would see it."""
+    _SHM["dir"] = str(tmp_path)
+    yield
+    del _SHM["dir"]
+
+
+def _jax_conf(conf=None, shm_dir=None):
+    """A reference config with its shm root in the test's tmp_path (or in
+    ``shm_dir``, another module's test's)."""
+    return dataclasses.replace(conf or JaxConfig(), shm_dir=shm_dir or _SHM["dir"])
+
 
 CPU = torch.device("cpu")
 
@@ -274,9 +294,9 @@ def _slices(part, batch):
             for s in range(0, n, batch)]
 
 
-def _reference(plan, tables, schemas, conf=None, batch=BATCH):
+def _reference(plan, tables, schemas, conf=None, batch=BATCH, shm_dir=None):
     JBHJ.clear_build_cache()
-    with JaxSession(conf=conf or JaxConfig(batch_size=batch)) as s:
+    with JaxSession(conf=_jax_conf(conf or JaxConfig(batch_size=batch), shm_dir)) as s:
         for name, parts in tables.items():
             s.resources[name] = lambda p, _n=name, _parts=parts: [
                 _arrow(schemas[_n], b) for b in _slices(_parts[p], batch)]

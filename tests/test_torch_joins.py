@@ -16,6 +16,7 @@ package keeps its build-map cache process-wide, so every reference run
 starts with ``clear_build_cache()``.
 """
 
+import dataclasses
 import decimal
 
 import numpy as np
@@ -42,6 +43,22 @@ from blaze_tpu_torch.ir.carry import columns_from_numpy, from_foreign
 from blaze_tpu_torch.ops.joins import keymap as KM
 
 torch.set_num_threads(1)
+
+_SHM = {}
+
+
+@pytest.fixture(autouse=True)
+def _shm_in_tmp_path(tmp_path):
+    """Each reference session's shm root goes under the test's tmp_path, not
+    /dev/shm, where tests/test_zero_copy.py's glob would see it."""
+    _SHM["dir"] = str(tmp_path)
+    yield
+    del _SHM["dir"]
+
+
+def _jax_conf(conf=None):
+    """A reference config with its shm root in the test's tmp_path."""
+    return dataclasses.replace(conf or JaxConfig(), shm_dir=_SHM["dir"])
 
 
 def _t(a):
@@ -381,7 +398,7 @@ def _reference(plan, tables, fused):
     JBHJ.clear_build_cache()
     conf = JaxConfig(batch_size=BATCH) if fused else \
         JaxConfig(batch_size=BATCH, fused_filter_agg=False)
-    with JaxSession(conf=conf) as s:
+    with JaxSession(conf=_jax_conf(conf)) as s:
         for name, parts in tables.items():
             s.resources[name] = lambda p, _n=name, _parts=parts: [
                 _arrow(SCHEMAS[_n], b) for b in _slices(_parts[p], BATCH)]
@@ -450,7 +467,8 @@ def test_build_cache_is_scoped_to_the_query():
     JBHJ.clear_build_cache()
     stale = []
     for tables in (first, second):
-        with JaxSession(conf=JaxConfig(batch_size=BATCH, fused_filter_agg=False)) as s:
+        with JaxSession(conf=_jax_conf(JaxConfig(batch_size=BATCH,
+                                                 fused_filter_agg=False))) as s:
             for name, parts in tables.items():
                 s.resources[name] = lambda p, _n=name, _parts=parts: [
                     _arrow(SCHEMAS[_n], b) for b in _slices(_parts[p], BATCH)]

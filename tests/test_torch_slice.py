@@ -8,6 +8,7 @@ equal: same keys, ``Decimal`` totals, counts and order.
 Tolerance: exact (integers and int64-backed decimals only).
 """
 
+import dataclasses
 import decimal
 
 import numpy as np
@@ -15,6 +16,7 @@ import pyarrow as pa
 import pytest
 import torch
 
+from blaze_tpu.config import Config as JaxConfig
 from blaze_tpu.ir import exprs as JE
 from blaze_tpu.ir import nodes as JN
 from blaze_tpu.ir import types as JT
@@ -26,6 +28,23 @@ from blaze_tpu_torch.ir import nodes as N
 from blaze_tpu_torch.ir.carry import columns_from_numpy, from_foreign
 
 torch.set_num_threads(1)
+
+_SHM = {}
+
+
+@pytest.fixture(autouse=True)
+def _shm_in_tmp_path(tmp_path):
+    """Each reference session's shm root goes under the test's tmp_path, not
+    /dev/shm, where tests/test_zero_copy.py's glob would see it."""
+    _SHM["dir"] = str(tmp_path)
+    yield
+    del _SHM["dir"]
+
+
+def _jax_conf(conf=None):
+    """A reference config with its shm root in the test's tmp_path."""
+    return dataclasses.replace(conf or JaxConfig(), shm_dir=_SHM["dir"])
+
 
 PARTS = 3
 ROWS_PER_PART = 12_000
@@ -102,7 +121,7 @@ def _q01(key="sr_store_sk", aggs=None, sort=None, limit=100):
 
 
 def _run_both(plan, parts, conf=None):
-    with JaxSession() as s:
+    with JaxSession(conf=_jax_conf()) as s:
         s.resources["store_returns"] = lambda p: _arrow_batches(parts[p])
         want = s.execute_to_pydict(plan)
     port = blaze_tpu_torch.Session(conf=conf, device="cpu")

@@ -22,6 +22,7 @@ port keeps them (ROADMAP.md Queue 3); ``test_subnormal_floats_are_kept``
 shows both answers.
 """
 
+import dataclasses
 import decimal
 
 import numpy as np
@@ -49,6 +50,23 @@ from blaze_tpu_torch.ops import agg_device as A
 from blaze_tpu_torch.runtime.executor import build_operator
 
 torch.set_num_threads(1)
+
+_SHM = {}
+
+
+@pytest.fixture(autouse=True)
+def _shm_in_tmp_path(tmp_path):
+    """Each reference session's shm root goes under the test's tmp_path, not
+    /dev/shm, where tests/test_zero_copy.py's glob would see it."""
+    _SHM["dir"] = str(tmp_path)
+    yield
+    del _SHM["dir"]
+
+
+def _jax_conf(conf=None):
+    """A reference config with its shm root in the test's tmp_path."""
+    return dataclasses.replace(conf or JaxConfig(), shm_dir=_SHM["dir"])
+
 
 F = JE.AggFunction
 M = JE.AggMode
@@ -359,7 +377,7 @@ def _canon(d):
 
 
 def _run_both(plan, schema, parts, jconf, conf):
-    with JaxSession(conf=jconf) as s:
+    with JaxSession(conf=_jax_conf(jconf)) as s:
         s.resources["src"] = lambda p: [_arrow(schema, b) for b in _slices(parts[p])]
         want = s.execute_to_pydict(plan)
     port = blaze_tpu_torch.Session(conf=conf, device="cpu")
@@ -512,7 +530,7 @@ def test_device_final_merge_matches_host_table(route):
             ("c", JE.AggExpr(F.COUNT, []))]
     plan = _two_stage(["k"], aggs, schema, 1, 1)
     jconf, conf = _ROUTES[route]
-    with JaxSession(conf=jconf) as s:
+    with JaxSession(conf=_jax_conf(jconf)) as s:
         cuts = np.linspace(0, n, 5).astype(int)
 
         def batches(p):

@@ -11,6 +11,8 @@ Tolerance: none. Every plane is an integer, bool or float compared by
 its bytes, and the plan results must be equal, order included.
 """
 
+import dataclasses
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -35,6 +37,22 @@ from blaze_tpu_torch.ir.carry import columns_from_numpy, from_foreign
 from blaze_tpu_torch.ops.joins import keymap as KM
 
 torch.set_num_threads(1)
+
+_SHM = {}
+
+
+@pytest.fixture(autouse=True)
+def _shm_in_tmp_path(tmp_path):
+    """Each reference session's shm root goes under the test's tmp_path, not
+    /dev/shm, where tests/test_zero_copy.py's glob would see it."""
+    _SHM["dir"] = str(tmp_path)
+    yield
+    del _SHM["dir"]
+
+
+def _jax_conf(conf=None):
+    """A reference config with its shm root in the test's tmp_path."""
+    return dataclasses.replace(conf or JaxConfig(), shm_dir=_SHM["dir"])
 
 
 def _t(a):
@@ -350,7 +368,7 @@ def _arrow_batches(part, batch):
 
 
 def _run_both(plan, parts, batch_size):
-    with JaxSession(conf=JaxConfig(batch_size=batch_size)) as s:
+    with JaxSession(conf=_jax_conf(JaxConfig(batch_size=batch_size))) as s:
         s.resources["store_sales"] = lambda p: _arrow_batches(parts[p], 1024)
         want = s.execute_to_pydict(plan)
     port = blaze_tpu_torch.Session(conf=Config(batch_size=batch_size), device="cpu")
