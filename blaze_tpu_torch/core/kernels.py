@@ -18,10 +18,13 @@ launches the kernel or raises.
 - K11 ``fused_chain`` (exprs/fused_triton.py, generated Triton): one
   fused chain segment of project / filter / rename / expand steps over a
   batch, then K1 once per filtered output group.
+- K13 ``segment_scan`` (csrc/seg_scan.cu): the window aggregates'
+  segmented (sum, count) prefix scan with a carry, in XLA's float order.
 
 The slot-code helpers of the aggregation are plain PyTorch twins of the
 JAX package's (the slot kernels K3/K4 are in ops/agg_device.py), and the
-window counters are host numpy, as they are in the JAX package.
+window counters and the window's numpy scans (decimals, MIN/MAX) are host
+numpy, as they are in the JAX package.
 """
 
 from __future__ import annotations
@@ -1389,3 +1392,210 @@ def restarting_counters(part_start: np.ndarray, new_peer: np.ndarray,
                     np.int64(-carry_dense))
     dense = c - base
     return rn, rank, dense
+
+
+def segment_cumsum(vals: np.ndarray, valid: np.ndarray,
+                   seg_start: np.ndarray, carry_sum=0, carry_cnt: int = 0):
+    """Inclusive per-row (sum, count) of ``vals`` masked by ``valid``,
+    restarting at every True in ``seg_start``; head rows continue the carried
+    accumulators. Works on numeric AND object (Decimal) planes: one global
+    cumsum in row order with per-segment base subtraction
+    (blaze_tpu/core/kernels.py:406, copied)."""
+    masked = np.where(valid, vals, 0)
+    cs = np.cumsum(masked)
+    cc = np.cumsum(valid.astype(np.int64))
+    si = seg_start_index(seg_start)
+    prev = np.clip(si - 1, 0, None)
+    out_s = cs - np.where(si >= 1, cs[prev], 0)
+    out_c = cc - np.where(si >= 1, cc[prev], 0)
+    head = si < 0
+    if head.any():
+        out_s[head] += carry_sum
+        out_c[head] += carry_cnt
+    return out_s, out_c
+
+
+def segment_running_reduce(vals: np.ndarray, valid: np.ndarray,
+                           seg_start: np.ndarray, is_min: bool, carry=None):
+    """Per-row running min/max within segments (restarting at ``seg_start``),
+    invalid rows transparent; ``carry`` (or None) is the extremum of the open
+    head segment. log2(n) masked Hillis-Steele doubling passes with numpy's
+    ``minimum``/``maximum`` (so NaN propagates); rows whose running count
+    is 0 hold an identity sentinel (numeric) or None (object), which the
+    caller nulls out by the paired count (blaze_tpu/core/kernels.py:427,
+    copied)."""
+    n = len(vals)
+    si = seg_start_index(seg_start)
+    begin = np.where(si >= 0, si, 0)
+    if vals.dtype == object:
+        def _comb2(a, b):
+            if a is None:
+                return b
+            if b is None:
+                return a
+            return min(a, b) if is_min else max(a, b)
+        comb = np.frompyfunc(_comb2, 2, 1)
+        out = np.where(valid, vals, None)
+    else:
+        if np.issubdtype(vals.dtype, np.floating):
+            sent = np.array(np.inf if is_min else -np.inf, dtype=vals.dtype)
+        else:
+            info = np.iinfo(vals.dtype)
+            sent = np.array(info.max if is_min else info.min, dtype=vals.dtype)
+        comb = np.minimum if is_min else np.maximum
+        out = np.where(valid, vals, sent)
+    idx = np.arange(n, dtype=np.int64)
+    off = 1
+    while off < n:
+        ok = idx - off >= begin
+        if not ok.any():
+            break
+        out = np.where(ok, comb(out, out[np.clip(idx - off, 0, None)]), out)
+        off <<= 1
+    head = si < 0
+    if carry is not None and head.any():
+        out[head] = comb(out[head], carry)
+    return out
+
+
+# -- K13: the segmented (sum, count) scan ------------------------------------------
+#
+# The reference's _seg_scan (blaze_tpu/core/kernels.py:469) takes its float
+# prefix with jnp.cumsum, which XLA on the CPU lowers to a blocked scan:
+# sequential inclusive prefixes inside 16-row blocks (the plane zero-padded
+# to a multiple of 16), the block totals scanned the same way, recursively,
+# and each block's exclusive prefix added to its rows. Both the twin and K13
+# associate float sums in exactly that order, so they agree with the
+# reference bit for bit; integer sums are exact (and wrap) in any order.
+
+SCAN_BLOCK = 16
+
+
+def _blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-d plane in XLA's 16-block order. The
+    in-block prefix is 15 elementwise adds, not ``torch.cumsum``: that
+    accumulates float32 in double on the CPU and in another order on the
+    card."""
+    n = int(x.shape[0])
+    if n <= 1:
+        return x.clone()
+    m = -(-n // SCAN_BLOCK)
+    p = torch.zeros(m * SCAN_BLOCK, dtype=x.dtype, device=x.device)
+    p[:n] = x
+    p = p.view(m, SCAN_BLOCK)
+    cols = [p[:, 0]]
+    for j in range(1, SCAN_BLOCK):
+        cols.append(cols[-1] + p[:, j])
+    r = torch.stack(cols, dim=1)
+    if m > 1:
+        tot = _blocked_cumsum(r[:, -1].contiguous())
+        excl = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device), tot[:-1]])
+        r = r + excl[:, None]
+    return r.reshape(-1)[:n]
+
+
+def segment_scan_plain(data: torch.Tensor, validity: torch.Tensor,
+                       exists: torch.Tensor, seg_start: torch.Tensor,
+                       carry_sum, carry_cnt: int):
+    """Plain PyTorch twin of K13, the same function as
+    blaze_tpu/core/kernels.py:_seg_scan over capacity-long planes: per-row
+    (sum, count) of the valid, existing rows, restarting at each True of
+    ``seg_start``; rows before the first start continue the carry. Integer
+    data sums in int64; float32 stays float32."""
+    n = int(data.shape[0])
+    dev = data.device
+    si = torch.cummax(torch.where(seg_start, iota(n, dev),
+                                  torch.full((), -1, dtype=torch.int64, device=dev)),
+                      dim=0).values
+    if not data.is_floating_point():
+        data = data.to(torch.int64)
+    valid = validity & exists
+    zero = torch.zeros((), dtype=data.dtype, device=dev)
+    cs = _blocked_cumsum(torch.where(valid, data, zero))
+    cc = _blocked_cumsum(valid.to(torch.int64))
+    prev = (si - 1).clamp(min=0)
+    has_base = si >= 1
+    out_s = cs - torch.where(has_base, cs[prev], zero)
+    out_c = cc - torch.where(has_base, cc[prev], torch.zeros_like(cc[:1]))
+    head = si < 0
+    carry = float(carry_sum) if data.is_floating_point() else int(carry_sum)
+    out_s = out_s + torch.where(head, torch.tensor(carry, dtype=data.dtype, device=dev), zero)
+    out_c = out_c + torch.where(head, torch.tensor(int(carry_cnt), device=dev),
+                                torch.zeros_like(cc[:1]))
+    return out_s, out_c
+
+
+# csrc/seg_scan.cu's data kinds
+_SCAN_KINDS = {torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
+               torch.float32: 4, torch.float64: 5}
+
+
+def seg_scan_scratch_words(n: int) -> int:
+    """Words of each level buffer csrc/seg_scan.cu needs for ``n`` rows: the
+    block totals of every level above the rows (n/16, n/256, ... down to
+    one)."""
+    total = 0
+    m = n
+    while m > 1:
+        m = -(-m // SCAN_BLOCK)
+        total += m
+    return max(total, 1)
+
+
+def segment_scan_cuda(data: torch.Tensor, validity: torch.Tensor,
+                      exists: torch.Tensor, seg_start: torch.Tensor,
+                      carry_sum, carry_cnt: int):
+    """K13 on the card (csrc/seg_scan.cu): same contract as
+    :func:`segment_scan_plain`."""
+    cuda_lib.require_cuda("segment_scan", data, validity, exists, seg_start)
+    n = int(data.shape[0])
+    kind = _SCAN_KINDS.get(data.dtype)
+    if kind is None:
+        raise TypeError(f"segment_scan: data dtype {data.dtype}")
+    for name, t in (("validity", validity), ("exists", exists), ("seg_start", seg_start)):
+        if t.dtype != torch.bool or t.shape != (n,):
+            raise TypeError(f"segment_scan: {name} must be bool of shape ({n},)")
+    if data.shape != (n,) or n < 1:
+        raise ValueError(f"segment_scan: data shape {tuple(data.shape)}")
+    sum_dt = data.dtype if data.is_floating_point() else torch.int64
+    dev = data.device
+    out_s = torch.empty(n, dtype=sum_dt, device=dev)
+    out_c = torch.empty(n, dtype=torch.int64, device=dev)
+    # cs, cc, si: the row-level prefixes; then each level's block totals
+    rows = torch.empty((3, n), dtype=torch.int64, device=dev)
+    levels = torch.empty((3, seg_scan_scratch_words(n)), dtype=torch.int64, device=dev)
+    carry_f = float(carry_sum) if data.is_floating_point() else 0.0
+    carry_i = 0 if data.is_floating_point() else int(carry_sum)
+    err = cuda_lib.library().blz_segment_scan(
+        data.data_ptr(), kind, validity.data_ptr(), exists.data_ptr(),
+        seg_start.data_ptr(), n, carry_f, carry_i, int(carry_cnt),
+        rows.data_ptr(), levels.data_ptr(), out_s.data_ptr(), out_c.data_ptr(),
+        cuda_lib.stream_of(dev))
+    cuda_lib.check(err, "segment_scan")
+    cuda_lib.LAUNCHES["segment_scan"] += 1
+    return out_s, out_c
+
+
+def segment_scan(data: torch.Tensor, validity: torch.Tensor, exists: torch.Tensor,
+                 seg_start: torch.Tensor, carry_sum, carry_cnt: int):
+    """The segmented (sum, count) scan: K13 on CUDA planes, the plain
+    version on CPU ones."""
+    fn = segment_scan_cuda if data.is_cuda else segment_scan_plain
+    return fn(data, validity, exists, seg_start, carry_sum, carry_cnt)
+
+
+def segment_scan_planes(data: torch.Tensor, validity: torch.Tensor,
+                        exists: torch.Tensor, seg_start: np.ndarray,
+                        carry_sum, carry_cnt: int):
+    """A device column's segmented (sum, count) scan in one launch
+    (blaze_tpu/core/kernels.py:490): ``seg_start`` has the batch's n <=
+    capacity rows and is padded here; padding rows have ``exists`` False,
+    so they never perturb the prefixes below n. Returns numpy (sum, count)
+    planes of the n rows, for the host's frame backfill."""
+    cap = int(data.shape[0])
+    n = len(seg_start)
+    pad = np.zeros(cap, dtype=bool)
+    pad[:n] = seg_start
+    out_s, out_c = segment_scan(data, validity, exists,
+                                torch.from_numpy(pad).to(data.device), carry_sum, carry_cnt)
+    return out_s[:n].cpu().numpy(), out_c[:n].cpu().numpy()

@@ -11,7 +11,8 @@ Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it
 launches its kernel and nowhere else, so a run can show that it went
 through the kernels (``reset_launch_counts`` / ``launch_counts``); K11,
 the generated Triton kernel of a fused chain (exprs/fused_triton.py),
-counts under ``fused_chain``.
+counts under ``fused_chain``; K13, the window aggregates' segmented scan,
+under ``segment_scan``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu",
-           "join.cu", "seg_agg.cu", "slot_update.cu")
+           "join.cu", "seg_agg.cu", "slot_update.cu", "seg_scan.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libblaze_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -54,6 +55,7 @@ LAUNCHES: Dict[str, int] = {
     "seg_agg_merge": 0,
     "fused_chain": 0,
     "slot_update": 0,
+    "segment_scan": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -164,6 +166,7 @@ _I32 = ctypes.c_int32
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
 _PLL = ctypes.POINTER(ctypes.c_longlong)
+_D = ctypes.c_double
 
 _SIGNATURES = {
     # mask, n, nplanes, srcs, dsts, sizes, scratch, stream
@@ -217,6 +220,9 @@ _SIGNATURES = {
                                              # valid_table, order_table
         _P,                                  # stream
     ],
+    # data, kind, validity, exists, seg_start, n, carry_f, carry_i, carry_c,
+    # rows, levels, out_s, out_c, stream
+    "blz_segment_scan": [_P, _I, _P, _P, _P, _I64, _D, _I64, _I64, _P, _P, _P, _P, _P],
 }
 
 

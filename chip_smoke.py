@@ -10,7 +10,7 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K12 held against their plain PyTorch versions on the
+3. kernels: K1-K13 held against their plain PyTorch versions on the
    card, exactly (float planes bit for bit), at the main paths' shapes and
    at edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
@@ -37,7 +37,12 @@ only when every phase passed:
    float32, bool and decimal arguments) in update and merge mode, nulls,
    padding, table growth, int64 wrap, NaN, +-0.0 and subnormals, a float
    sum whose value depends on the fold's order, FIRST with tied orders,
-   an empty batch, and a q67_table merge batch); then each timed with
+   an empty batch, and a q67_table merge batch; for the window
+   aggregates' segmented scan, K13: int64, int32, float64 and float32
+   planes, magnitudes 1e-5..1e16 with +-inf, -0.0 and NaN, nulls,
+   padding, capacities 16, 4,096 and 262,144 with live rows not a
+   multiple of 16, carries, segments of one row, of ~4 rows, one spanning
+   the batch and none); then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s);
@@ -76,12 +81,20 @@ only when every phase passed:
      FINAL COUNT (the table's merge) -> top 100) over TPC-DS SF10's row
      counts (seed 96), with Spark's scan filters, exact against a numpy
      count;
+   - q89 (store_sales JOIN broadcast item (q89's category/class lists)
+     JOIN broadcast date_dim (d_year = 1999) JOIN broadcast store -> SUM
+     by six keys, two-stage -> hash exchange by the four window keys ->
+     sort -> Window avg(sum_sales) over the whole partition (K13) ->
+     filter |sum - avg| / avg > 0.1 -> top 100) over TPC-DS SF10's row
+     counts (seed 89), exact against numpy (rows tied on the sort key as
+     sets), K13 on every reducer that holds rows and K8 on every sales
+     batch;
    all through ``Session().execute_to_pydict`` in 4 partitions staged on
-   the card; every kernel must have launched over the eight runs, the
+   the card; every kernel must have launched over the nine runs, the
    unique-key join kernel on each join path, the generic probe on q69,
    K10's three launches on q69 and q67_sort, K11 on every q69 sales
-   batch (196) and on the root rank filter of q67, q67_sort and q47, and
-   K12 on q96 and q67_table;
+   batch (196) and on the root rank filter of q67, q67_sort and q47,
+   K12 on q96 and q67_table, and K13 on q89;
 5. one JSON line per kernel (shape, times, bound, launches per path), the
    kernels' summary JSON line, the card line, and the device JSON line.
 
@@ -89,7 +102,7 @@ only when every phase passed:
 share, launch and sync counts, the top kernels); ``--trace=PATH`` also
 writes q01's Chrome trace to PATH and the other paths' beside it
 (``_q67.json``, ``_q67_sort.json``, ``_q67_table.json``, ``_q06.json``,
-``_q47.json``, ``_q69.json``, ``_q96.json``).
+``_q47.json``, ``_q69.json``, ``_q96.json``, ``_q89.json``).
 
 Needs one CUDA device; exits 2 without one, or when run outside a checkout
 of the repository.
@@ -1255,7 +1268,9 @@ def fused_cases(E, T):
     decimal from a float), division by zero and by -1, int64 and f64
     literals Triton would type i32/fp32 (2**40 + 1, 0.1), null literals,
     InList with a null item and negated, a projected isnotnull(column)
-    (its data is the input's validity plane) with and without a filter."""
+    (its data is the input's validity plane) with and without a filter,
+    and q89's root filter (an int64 - float64 mix divided by a float64
+    that may be zero: NULL there)."""
     C, L, B = E.Column, E.Literal, E.BinaryOp
     D92, D73 = T.DecimalType(9, 2), T.DecimalType(7, 3)
 
@@ -1331,6 +1346,10 @@ def fused_cases(E, T):
         ("isnotnull after filter", (
             ("filter", (bx(B.GT, i, L(0, T.I32)),)),
             proj(E.IsNotNull(j), E.IsNotNull(b), l))),
+        ("q89 root filter", (
+            ("filter", (bx(B.OR, bx(B.GT, bx(B.DIV, bx(B.SUB, l, d), d), L(0.1, T.F64)),
+                           bx(B.GT, bx(B.DIV, bx(B.SUB, d, l), d), L(0.1, T.F64))),)),
+            proj(bx(B.DIV, bx(B.SUB, l, d), d), bx(B.SUB, l, d), l, d))),
         ("none kept", (("filter", (L(False, T.BOOL),)),)),
         ("all kept", (("filter", (bx(B.OR, E.IsNull(l), E.IsNotNull(l)),)),)),
     ]
@@ -1740,6 +1759,151 @@ def kernel_k12(dev, rng, results):
         cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         library_call="index_add_ + scatter_reduce_(amax) into the slot tables (a chain)",
         bytes=nbytes, fold_ms=fold_ms, unpacked_ms=unpacked_ms))
+
+
+# K13's battery: (label, data kind, capacity, live rows, segment shape, null
+# share, carry). Segment shapes: "q89" starts a segment every ~4.5 rows (as
+# q89's window partitions do), "one" every row, "span" once at row 0, "none"
+# never (the whole batch continues the carried segment). Float planes draw
+# magnitudes 1e-5..1e16 with +-inf, -0.0 and NaN; integer planes hold
+# values next to int64's ends, so sums wrap. "i64 q89 window" is the batch
+# q89's main path gives K13: the window's 70,421 input rows (q89_oracle's
+# count at SF10, seed 89) in one int64 plane of capacity_for(70,421) =
+# 131,072 rows, no nulls, no carry.
+SCAN_Q89_STARTS = 15_720 / 70_421     # q89's window partitions a row, SF10
+SCAN_Q89 = ("i64 q89 window", "i64", 131072, 70421, "q89", 0.0, False)
+SCAN_CASES = (
+    SCAN_Q89,
+    ("i64 q89 segments", "i64", 4096, 4001, "q89", 0.05, True),
+    ("i64 wrap, one segment", "i64", 4096, 4096, "span", 0.0, False),
+    ("i32 promoted", "i32", 4096, 4090, "q89", 0.1, True),
+    ("f64 q89 segments", "f64", 262144, 262139, "q89", 0.05, True),
+    ("f32 q89 segments", "f32", 262144, 262139, "q89", 0.05, True),
+    ("f64 one-row segments", "f64", 4096, 4093, "one", 0.1, False),
+    ("f64 one segment spanning", "f64", 262144, 262144, "span", 0.02, True),
+    ("f64 carry only", "f64", 4096, 3001, "none", 0.05, True),
+    ("f32 carry only", "f32", 4096, 4095, "none", 0.0, True),
+    ("i64 capacity 16", "i64", 16, 13, "q89", 0.2, True),
+    ("f64 capacity 16", "f64", 16, 11, "q89", 0.2, True),
+    ("f32 capacity 16, carry only", "f32", 16, 16, "none", 0.0, True),
+)
+SCAN_FLOATS = (0.0, -0.0, float("inf"), float("-inf"), float("nan"))
+
+
+def scan_case(case, rng):
+    """numpy planes of one SCAN_CASES entry, honouring the padding contract:
+    {label, data, validity, exists, seg_start (live rows only), carry_sum,
+    carry_cnt}."""
+    import numpy as np
+
+    label, kind, cap, n, shape, nulls, carry = case
+    npdt = {"i64": np.int64, "i32": np.int32, "f64": np.float64, "f32": np.float32}[kind]
+    data = np.zeros(cap, npdt)
+    if kind.startswith("f"):
+        mag = 10.0 ** rng.uniform(-5, 16, n) * rng.choice([-1.0, 1.0], n)
+        special = rng.random(n) < 0.002
+        mag[special] = rng.choice(SCAN_FLOATS, int(special.sum()))
+        data[:n] = mag
+    elif kind == "i64":
+        big = np.iinfo(np.int64).max // 3
+        data[:n] = rng.integers(big - 1000, big, n) * rng.choice([-1, 1], n)
+    else:
+        data[:n] = rng.integers(-(1 << 31), (1 << 31) - 1, n)
+    valid = np.zeros(cap, bool)
+    valid[:n] = rng.random(n) >= nulls
+    data[~valid] = 0
+    exists = np.arange(cap) < n
+    seg = {"q89": rng.random(n) < SCAN_Q89_STARTS, "one": np.ones(n, bool),
+           "span": np.arange(n) == 0, "none": np.zeros(n, bool)}[shape]
+    if carry:
+        carry_sum = npdt(12345.5) if kind.startswith("f") else np.int64(1 << 40)
+        carry_cnt = 17
+    else:
+        carry_sum, carry_cnt = 0, 0
+    return {"label": label, "data": data, "validity": valid, "exists": exists,
+            "seg_start": seg, "carry_sum": carry_sum, "carry_cnt": carry_cnt}
+
+
+def scan_run(case, fn, dev):
+    """One battery case through ``fn`` (K13's wrapper or its plain twin) on
+    ``dev``: the (sum, count) planes over the capacity."""
+    import numpy as np
+    import torch
+
+    seg = np.zeros(len(case["data"]), bool)
+    seg[:len(case["seg_start"])] = case["seg_start"]
+    t = [torch.from_numpy(case[k]).to(dev) for k in ("data", "validity", "exists")]
+    return fn(*t, torch.from_numpy(seg).to(dev), case["carry_sum"], case["carry_cnt"])
+
+
+def one_nan(x):
+    """``x`` with every NaN as one NaN: a NaN's payload is the hardware's."""
+    import torch
+
+    if not x.is_floating_point():
+        return x
+    return torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+
+
+def kernel_k13(dev, rng, results):
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.core.batch import iota
+
+    cases = []
+    for spec in SCAN_CASES:
+        case = scan_case(spec, rng)
+        got = scan_run(case, K.segment_scan_cuda, dev)
+        want = scan_run(case, K.segment_scan_plain, dev)
+        check_equal("segment_scan", case["label"], [one_nan(x) for x in got],
+                    [one_nan(x) for x in want])
+        cases.append(case["label"])
+    # timed: the main path's batch (SCAN_Q89), and a full 262,144-row
+    # float64 batch with q89-shaped segments and a carry
+    def timed(spec):
+        case = scan_case(spec, rng)
+        d, v, ex = (torch.from_numpy(case[k]).to(dev) for k in ("data", "validity", "exists"))
+        seg = torch.zeros(len(case["data"]), dtype=torch.bool, device=dev)
+        seg[:len(case["seg_start"])] = torch.from_numpy(case["seg_start"]).to(dev)
+        cs0, cc0 = case["carry_sum"], case["carry_cnt"]
+        cap = d.shape[0]
+        idx = iota(cap, dev)
+        neg = torch.full((), -1, dtype=torch.int64, device=dev)
+        zero = torch.zeros((), dtype=torch.int64 if not d.is_floating_point() else d.dtype,
+                           device=dev)
+
+        def library():
+            si = torch.cummax(torch.where(seg, idx, neg), dim=0).values
+            live = v & ex
+            cs = torch.cumsum(torch.where(live, d, zero), dim=0)
+            cc = torch.cumsum(live.to(torch.int64), dim=0)
+            prev = (si - 1).clamp(min=0)
+            return cs - torch.where(si >= 1, cs[prev], zero), cc - torch.where(si >= 1, cc[prev], 0)
+
+        # data, validity, exists and seg_start read once; an 8-byte sum and
+        # an 8-byte count written, over the capacity
+        return {"kernel_ms": time_ms(lambda: K.segment_scan_cuda(d, v, ex, seg, cs0, cc0)),
+                "plain_ms": time_ms(lambda: K.segment_scan_plain(d, v, ex, seg, cs0, cc0)),
+                "library_ms": time_ms(library),
+                "bytes": cap * (d.element_size() + 1 + 1 + 1 + 8 + 8),
+                "rows": int(case["exists"].sum()), "capacity": cap,
+                "segment_starts": int(seg.sum())}
+
+    main = timed(SCAN_Q89)
+    big = timed(("f64 timed", "f64", 262144, 262144, "q89", 0.05, True))
+    big["bound_ms"] = big["bytes"] / HBM_BYTES_PER_S * 1e3
+    results.append(dict(
+        name="segment_scan", route="cuda", source="blaze_tpu_torch/csrc/seg_scan.cu",
+        replaces="blaze_tpu/core/kernels.py:469",
+        shape=f"q89's window batch: {main['rows']} int64 rows in a {main['capacity']}-row "
+              f"plane, {main['segment_starts']} segment starts (~4.5-row partitions), no "
+              "nulls, no carry",
+        cases=cases, ms=main["kernel_ms"], plain_ms=main["plain_ms"],
+        library_ms=main["library_ms"],
+        library_call="cummax + cumsum + gather + subtract, for the sums and the counts "
+        "(a chain)",
+        bytes=main["bytes"], big_batch=big))
 
 
 # -- phase 4: the paths on the card ------------------------------------------------
@@ -2550,6 +2714,322 @@ def run_q96(dev, profile=False, trace_path=None):
                      want, setup_s, {"count": want["cnt"][0]}, profile, trace_path)
 
 
+# -- q89: a window AVG over an aggregate (K13) -----------------------------------
+
+Q89_SEED = 89
+# TPC-DS SF10 row counts of q89's tables
+Q89_ROWS = {"store_sales": 28_800_991, "item": 102_000, "date_dim": 73_049, "store": 102}
+# i_category as a code of TPC-DS's ten categories in this order: Books,
+# Children, Electronics, Home, Jewelry, Men, Music, Shoes, Sports, Women;
+# i_class as a code of 100 classes, the query's class01..class06 codes 1..6;
+# i_brand as TPC-DS builds i_brand_id, category * 10^6 + class * 10^3 + a
+# brand index (1..Q89_BRANDS); s_store_name of Q96_NAMES names and
+# s_company_name of Q89_COMPANIES names, uniform over the stores
+Q89_CATS_A, Q89_CLASSES_A = (0, 2, 8), (1, 2, 3)    # Books, Electronics, Sports
+Q89_CATS_B, Q89_CLASSES_B = (5, 4, 9), (4, 5, 6)    # Men, Jewelry, Women
+Q89_CLASSES = 100
+Q89_BRANDS = 20
+Q89_COMPANIES = 6
+# d_date_sk of 1998-01-01 and 2002-12-31: TPC-DS's five sales years
+Q89_SALES_DATES = (2_450_815, 2_452_640)
+Q89_KEYS = ("i_category_id", "i_class_id", "i_brand_id", "s_store_name",
+            "s_company_name", "d_moy")
+Q89_PARTITION = ("i_category_id", "i_brand_id", "s_store_name", "s_company_name")
+
+
+def q89_schemas(T):
+    def sch(*names):
+        return T.Schema.of(*[(n, T.I64) for n in names])
+
+    return {"store_sales": sch("ss_item_sk", "ss_sold_date_sk", "ss_store_sk", "ss_quantity"),
+            "item": sch("i_item_sk", "i_category_id", "i_class_id", "i_brand_id"),
+            "date_dim": sch("d_date_sk", "d_year", "d_moy"),
+            "store": sch("s_store_sk", "s_store_name", "s_company_name")}
+
+
+def q89_host(rows, seed=Q89_SEED, null_share=0.04):
+    """q89's tables on the host, at ``rows``' row counts: items with
+    category, class and brand drawn as Q89_* says; date_dim from
+    2,415,022 (1900-01-02), d_year and d_moy from the date; stores with a
+    name and a company; store_sales with its item and store uniform over
+    their keys, its sale date uniform over the five sales years, ``null_share``
+    of each foreign key null (data 0), ss_quantity uniform [1, 100].
+    Returns {table: (columns, validities or None)}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = rows["item"]
+    cat = rng.integers(0, 10, n)
+    cls = rng.integers(0, Q89_CLASSES, n)
+    brand = cat * 1_000_000 + cls * 1_000 + rng.integers(1, Q89_BRANDS + 1, n)
+    host = {"item": ((np.arange(1, n + 1), cat, cls, brand), None)}
+    days = np.arange(2_415_022, 2_415_022 + rows["date_dim"])
+    date = np.datetime64("1900-01-02") + (days - 2_415_022)
+    host["date_dim"] = ((days, date.astype("datetime64[Y]").astype(np.int64) + 1970,
+                         date.astype("datetime64[M]").astype(np.int64) % 12 + 1), None)
+    n = rows["store"]
+    host["store"] = ((np.arange(1, n + 1), rng.integers(0, Q96_NAMES, n),
+                      rng.integers(0, Q89_COMPANIES, n)), None)
+    n = rows["store_sales"]
+    cols, valids = [], []
+    for lo, hi in ((1, rows["item"] + 1), (Q89_SALES_DATES[0], Q89_SALES_DATES[1] + 1),
+                   (1, rows["store"] + 1)):
+        v = rng.random(n) >= null_share
+        cols.append(np.where(v, rng.integers(lo, hi, n), 0))
+        valids.append(v)
+    cols.append(rng.integers(1, 101, n))
+    valids.append(np.ones(n, bool))
+    host["store_sales"] = (tuple(cols), tuple(valids))
+    return host
+
+
+def q89_plan(schemas, E, N, T, parts=PARTS):
+    """TPC-DS q89 (v3.2.0) as Spark plans it (tests/tpcds/queries.py:1203),
+    with the null filters Spark infers on the scans, in the IR modules
+    ``E``, ``N``, ``T`` of either package: store_sales (isnotnull on its
+    three keys) JOIN broadcast item ((i_category IN (Books, Electronics,
+    Sports) AND i_class IN (class01..03)) OR (i_category IN (Men, Jewelry,
+    Women) AND i_class IN (class04..06))) JOIN broadcast date_dim (d_year =
+    1999) JOIN broadcast store -> PARTIAL SUM(ss_quantity) by (category,
+    class, brand, store name, company name, month) -> hash exchange ->
+    FINAL -> hash exchange by (category, brand, store name, company name)
+    -> sort on them -> Window avg(sum_sales) over that partition (no order:
+    the whole partition) -> filter |sum - avg| / avg > 0.1 -> single
+    exchange -> ORDER BY sum_sales - avg_monthly_sales, s_store_name LIMIT
+    100. Strings are int codes; ss_quantity stands for ss_sales_price; the
+    CASE WHEN avg <> 0 THEN abs(sum - avg) / avg ELSE null END > 0.1 is
+    (sum - avg) / avg > 0.1 OR (avg - sum) / avg > 0.1 (PERF.md section 4)."""
+    C, B = E.Column, E.BinaryOp
+    J = N.JoinType
+
+    def scan(name, p=1):
+        return N.FFIReader(schemas[name], name, p)
+
+    def all_of(*preds):
+        out = preds[0]
+        for p in preds[1:]:
+            out = E.BinaryExpr(B.AND, out, p)
+        return out
+
+    def nn(*cols):
+        return [E.IsNotNull(C(c)) for c in cols]
+
+    def among(c, codes):
+        return E.InList(C(c), [E.Literal(v, T.I64) for v in codes])
+
+    sales = N.Filter(scan("store_sales", parts),
+                     [all_of(*nn("ss_item_sk", "ss_sold_date_sk", "ss_store_sk"))])
+    lists = [all_of(among("i_category_id", cats), among("i_class_id", classes))
+             for cats, classes in ((Q89_CATS_A, Q89_CLASSES_A), (Q89_CATS_B, Q89_CLASSES_B))]
+    item = N.Filter(scan("item"), [all_of(E.BinaryExpr(B.OR, *lists), *nn("i_item_sk"))])
+    date = N.Filter(scan("date_dim"), [all_of(
+        *nn("d_year"), E.BinaryExpr(B.EQ, C("d_year"), E.Literal(1999, T.I64)),
+        *nn("d_date_sk"))])
+    store = N.Filter(scan("store"), nn("s_store_sk"))
+    out = sales
+    for dim, fk, pk in ((item, "ss_item_sk", "i_item_sk"),
+                        (date, "ss_sold_date_sk", "d_date_sk"),
+                        (store, "ss_store_sk", "s_store_sk")):
+        out = N.BroadcastJoin(out, N.BroadcastExchange(dim), [(C(fk), C(pk))], J.INNER,
+                              N.JoinSide.RIGHT, f"q89_{pk}")
+    keys = [(k, C(k)) for k in Q89_KEYS]
+    total = E.AggExpr(E.AggFunction.SUM, [C("ss_quantity")])
+    partial = N.Agg(out, E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(total, E.AggMode.PARTIAL, "sum_sales")],
+                    supports_partial_skipping=True)
+    final = N.Agg(N.ShuffleExchange(partial, N.HashPartitioning([c for _, c in keys], parts)),
+                  E.AggExecMode.HASH_AGG, keys,
+                  [N.AggColumn(total, E.AggMode.FINAL, "sum_sales")])
+    pkeys = [C(k) for k in Q89_PARTITION]
+    srt = N.Sort(N.ShuffleExchange(final, N.HashPartitioning(pkeys, parts)),
+                 [E.SortOrder(k) for k in pkeys])
+    win = N.Window(srt, [N.WindowExpr("agg", "avg_monthly_sales",
+                                      E.AggExpr(E.AggFunction.AVG, [C("sum_sales")]))],
+                   pkeys, [])
+    s, a = C("sum_sales"), C("avg_monthly_sales")
+
+    def over(x, y):
+        return E.BinaryExpr(B.GT, E.BinaryExpr(B.DIV, E.BinaryExpr(B.SUB, x, y), a),
+                            E.Literal(0.1, T.F64))
+
+    kept = N.Filter(win, [E.BinaryExpr(B.OR, over(s, a), over(a, s))])
+    return N.Sort(N.ShuffleExchange(kept, N.SinglePartitioning(1)),
+                  [E.SortOrder(E.BinaryExpr(B.SUB, s, a)), E.SortOrder(C("s_store_name"))],
+                  fetch_limit=100)
+
+
+def q89_window_input(host):
+    """The window's input rows in numpy, from the host copies: the joined
+    sales summed by q89's six keys. Returns (keys as six int64 arrays,
+    sum_sales)."""
+    import numpy as np
+
+    (i_sk, cat, cls, brand), _ = host["item"]
+    (d_sk, year, moy), _ = host["date_dim"]
+    (s_sk, sname, cname), _ = host["store"]
+    (item, date, store, qty), (iv, dv, sv, _qv) = host["store_sales"]
+    i_ok = np.zeros(i_sk.max() + 1, bool)
+    i_ok[i_sk[(np.isin(cat, Q89_CATS_A) & np.isin(cls, Q89_CLASSES_A))
+              | (np.isin(cat, Q89_CATS_B) & np.isin(cls, Q89_CLASSES_B))]] = True
+    d_ok = np.zeros(d_sk.max() + 1, bool)
+    d_ok[d_sk[year == 1999]] = True
+    keep = iv & dv & sv & i_ok[item] & d_ok[np.clip(date, 0, d_sk.max())]
+    item, date, store, qty = item[keep], date[keep], store[keep], qty[keep]
+    ii, di, si = item - 1, date - d_sk[0], store - 1
+    cols = (cat[ii], cls[ii], brand[ii], sname[si], cname[si], moy[di])
+    uniq, inv = np.unique(np.stack(cols), axis=1, return_inverse=True)
+    return tuple(uniq), _group_sums(inv.reshape(-1), qty, uniq.shape[1])
+
+
+def _group_sums(inv, vals, groups):
+    import numpy as np
+
+    out = np.zeros(groups, np.int64)
+    np.add.at(out, inv, vals)
+    return out
+
+
+def q89_oracle(host):
+    """q89 in numpy: the window input's average per (category, brand,
+    store name, company name) as float64(sum) / float64(count), the rows
+    whose sum differs from it by more than 10% (Spark's CASE form), ordered by (sum - avg,
+    store name). Returns (the check for the result, the window's input
+    rows and partitions, the window's rows as eight planes: the six keys,
+    sum_sales and the partition's average)."""
+    import numpy as np
+
+    keys, sums = q89_window_input(host)
+    part = np.stack([keys[Q89_KEYS.index(k)] for k in Q89_PARTITION])
+    _u, pinv = np.unique(part, axis=1, return_inverse=True)
+    pinv = pinv.reshape(-1)
+    npart = int(pinv.max()) + 1 if len(pinv) else 0
+    psum = _group_sums(pinv, sums, npart)
+    pcnt = np.bincount(pinv, minlength=npart)
+    avg = psum.astype(np.float64) / pcnt.astype(np.float64)
+    a = avg[pinv]
+    s = sums.astype(np.float64)
+    # Spark's form: CASE WHEN avg <> 0 THEN abs(sum - avg) / avg ELSE null
+    # END > 0.1 (the plan's rewrite is held to it)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        keep = (a != 0) & (np.abs(s - a) / a > 0.1)
+    order = np.lexsort((keys[3][keep], (s - a)[keep]))
+    rows = list(zip(*[x[keep][order].tolist() for x in (*keys, sums, a)]))
+    names = Q89_KEYS + ("sum_sales", "avg_monthly_sales")
+
+    def key(r):
+        return (r[6] - r[7], r[3])
+
+    tied = {}
+    for r in rows:
+        tied.setdefault(key(r), []).append(r)
+
+    def check(got):
+        if list(got) != list(names):
+            raise AssertionError(f"q89 columns {list(got)}")
+        got_rows = list(zip(*[got[c] for c in names]))
+        if len(got_rows) != min(100, len(rows)):
+            raise AssertionError(f"q89 returned {len(got_rows)} rows, not "
+                                 f"{min(100, len(rows))}")
+
+        want_keys = [key(r) for r in rows[:len(got_rows)]]
+        if [key(r) for r in got_rows] != want_keys:
+            raise AssertionError("q89's sort keys differ from the numpy oracle")
+        # rows tied on the sort key may come in any order: compare each tie
+        # group as a set; a group cut by the limit must be a subset
+        for k in set(want_keys):
+            g = sorted(r for r in got_rows if key(r) == k)
+            w = sorted(tied[k])
+            if g != w and not (k == want_keys[-1] and set(g) <= set(w)):
+                raise AssertionError(f"q89 rows tied on {k} differ from the oracle")
+
+    window = (*keys, sums, a)
+    return check, {"window_rows": int(len(sums)), "window_partitions": npart,
+                   "result_rows": min(100, len(rows)), "kept_rows": len(rows)}, window
+
+
+def run_q89(dev, profile=False, trace_path=None):
+    import blaze_tpu_torch
+    import torch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops import window as W
+    from blaze_tpu_torch.utils import cuda_lib
+
+    t0 = time.perf_counter()
+    schemas = q89_schemas(T)
+    host = q89_host(Q89_ROWS)
+    want, info, window = q89_oracle(host)
+    session = blaze_tpu_torch.Session()
+    for name, (cols, valids) in host.items():
+        if name == "store_sales":
+            cuts = [len(cols[0]) * p // PARTS for p in range(PARTS + 1)]
+            parts = [stage_batches(schemas[name], [c[a:b] for c in cols], dev,
+                                   valids=[v[a:b] for v in valids])
+                     for a, b in zip(cuts, cuts[1:])]
+        else:
+            parts = [stage_batches(schemas[name], cols, dev)]
+        session.resources[name] = lambda p, _parts=parts: _parts[p]
+    del host
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # each reducer's window: its rows and its K13 launches, every run, and
+    # the window's output batches, held to the oracle after the runs
+    reducers, window_out = [], []
+    segmented = W.WindowExec._execute_segmented
+
+    def counted(self, partition, ctx):
+        before = cuda_lib.LAUNCHES["segment_scan"]
+        rows = 0
+        for b in segmented(self, partition, ctx):
+            rows += b.num_rows
+            window_out.append(b)
+            yield b
+        reducers.append((partition, rows, cuda_lib.LAUNCHES["segment_scan"] - before))
+
+    sales_batches = sum(len(session.resources["store_sales"](p)) for p in range(PARTS))
+    W.WindowExec._execute_segmented = counted
+    try:
+        launches = run_query("q89", sum(Q89_ROWS.values()), session,
+                             q89_plan(schemas, E, N, T), want, setup_s, info, profile,
+                             trace_path)
+    finally:
+        W.WindowExec._execute_segmented = segmented
+    idle = [(p, r) for p, r, k in reducers if k < 1 and r > 0]
+    if idle or not reducers:
+        raise AssertionError(f"q89 reducers whose window did not launch K13: {idle}")
+    if launches["inner_join_planes"] < sales_batches:
+        raise AssertionError(f"q89 launched K8 {launches['inner_join_planes']} times for "
+                             f"{sales_batches} sales batches")
+    q89_window_check(window_out, window)
+    return launches
+
+
+def q89_window_check(batches, want):
+    """Every row the window emitted, in every run, against the oracle's
+    window rows (``q89_oracle``'s ``window``): the same rows, each with its
+    partition's average bit for bit, however many runs there were."""
+    import numpy as np
+
+    cols = [[] for _ in want]
+    for b in batches:
+        n = b.num_rows
+        for out, c in zip(cols, b.columns):
+            if not bool(c.validity[:n].all()):
+                raise AssertionError("q89's window emitted a null")
+            out.append(c.data[:n].cpu().numpy())
+    got = [np.concatenate(c) if c else np.zeros(0, w.dtype) for c, w in zip(cols, want)]
+    runs, rest = divmod(len(got[0]), len(want[0]))
+    if rest or not runs:
+        raise AssertionError(f"q89's window emitted {len(got[0])} rows, not a multiple of "
+                             f"{len(want[0])}")
+    order = np.lexsort(got[::-1])
+    want_order = np.repeat(np.lexsort(want[::-1]), runs)
+    for name, g, w in zip(Q89_KEYS + ("sum_sales", "avg_monthly_sales"), got, want):
+        if not np.array_equal(g[order], w[want_order]):
+            raise AssertionError(f"q89's window column {name} differs from the oracle")
+
+
 def check_result(name, got, want):
     """``want`` is the oracle's result (equal, order included) or a
     function that raises when ``got`` is wrong."""
@@ -2691,8 +3171,9 @@ def main(device: str = "cuda") -> int:
     kernel_k10(dev, rng, results)
     kernel_k11(dev, rng, results)
     kernel_k12(dev, rng, results)
+    kernel_k13(dev, rng, results)
     # 4. the paths: q01, q67 (slot, sort and table routes), q06 and q47,
-    # q69, then q96
+    # q69, q96, then q89
     args = sys.argv[1:]
     profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
@@ -2703,6 +3184,8 @@ def main(device: str = "cuda") -> int:
         "q69": run_q69(dev, profile, trace[0].replace(".json", "") + "_q69.json"
                        if trace else None),
         "q96": run_q96(dev, profile, trace[0].replace(".json", "") + "_q96.json"
+                       if trace else None),
+        "q89": run_q89(dev, profile, trace[0].replace(".json", "") + "_q89.json"
                        if trace else None),
     }
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["q01"]}
@@ -2733,6 +3216,10 @@ def main(device: str = "cuda") -> int:
     if per_path["q67_table"]["slot_update"] < PARTS or per_path["q67_table"]["slot_agg_merge"]:
         raise AssertionError("q67_table's FINAL merge did not take the host table (K12) "
                              "on every reducer")
+    # K13: q89's window AVG (run_q89 also holds each reducer with rows to a
+    # launch, and K8 to every joined sales batch)
+    if per_path["q89"]["segment_scan"] < 1:
+        raise AssertionError("q89 did not go through K13")
     # 5. summary lines
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

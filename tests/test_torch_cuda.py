@@ -1,7 +1,8 @@
 """The port's CUDA and Triton kernels against their plain PyTorch versions
-on the card, and the q01, q67 (on both aggregation routes), q06 and q96
-paths and every hash-join type on the card against the same plans on the
-CPU. K9's, K10's, K11's and K12's cases come from chip_smoke.py.
+on the card, and the q01, q67 (on both aggregation routes), q06, q96 and
+q89 paths, every hash-join type and an explicit-frame window on the card
+against the same plans on the CPU. K9's to K13's cases come from
+chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -16,11 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FUSED_CAPS, PROBE_CASES, Q96_ROWS, SEG_CASES, UPD_CASES,
-                        customer_probe, fused_cases, fused_flat, fused_planes, merge_states,
-                        probe_case, q67_batch, q67_merge_input, q67_table_merge_batch,
-                        q96_host, q96_oracle, q96_plan, q96_schemas, seg_case, to_dev,
-                        upd_case, upd_fns, upd_run)
+from chip_smoke import (FUSED_CAPS, PROBE_CASES, Q89_ROWS, Q96_ROWS, SCAN_CASES, SEG_CASES,
+                        UPD_CASES, customer_probe, fused_cases, fused_flat, fused_planes,
+                        merge_states, one_nan, probe_case, q67_batch, q67_merge_input,
+                        q67_table_merge_batch, q89_host, q89_oracle, q89_plan, q89_schemas,
+                        q96_host, q96_oracle, q96_plan, q96_schemas, scan_case, scan_run,
+                        seg_case, to_dev, upd_case, upd_fns, upd_run)
 
 pytestmark = pytest.mark.cuda
 
@@ -141,13 +143,14 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         cuda_lib.reset_launch_counts()
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
-    # every kernel but the joins', the sort route's, K11 and the host
-    # table's K12, which q01 does not reach (its filter feeds the partial
-    # aggregate, so it is not fused; both aggregates take the slot route)
+    # every kernel but the joins', the sort route's, K11, the host table's
+    # K12 and the window aggregates' K13, which q01 does not reach (its
+    # filter feeds the partial aggregate, so it is not fused; both
+    # aggregates take the slot route; it has no window)
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
                if k not in ("inner_join_planes", "probe_codes", "segment_ids",
                             "seg_agg_partial", "seg_agg_merge", "fused_chain",
-                            "slot_update"))
+                            "slot_update", "segment_scan"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -696,3 +699,89 @@ def test_q96_on_the_card_equals_the_cpu(dev, monkeypatch):
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"] == q96_oracle(host)
     assert cuda_lib.launch_counts()["slot_update"] >= 4
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=[c[0] for c in SCAN_CASES])
+def test_segment_scan_kernel(dev, case):
+    """K13 against its twin on the card, bit for bit (any NaN = any NaN)."""
+    from blaze_tpu_torch.core import kernels as K
+
+    data = scan_case(case, np.random.default_rng(sum(map(ord, case[0]))))
+    got = scan_run(data, K.segment_scan_cuda, dev)
+    want = scan_run(data, K.segment_scan_plain, dev)
+    _equal([one_nan(x) for x in got], [one_nan(x) for x in want])
+
+
+def _sessions_over(host, schemas, parts, device):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+
+    s = blaze_tpu_torch.Session(Config(batch_size=8192), device=device)
+    for name, (cols, valids) in host.items():
+        valids = valids or [np.ones(len(cols[0]), bool)] * len(cols)
+        n = len(cols[0])
+        cuts = [n * p // parts for p in range(parts + 1)] if name == "store_sales" else [0, n]
+        plist = [[{f.name: (c[a:b], v[a:b])
+                   for f, c, v in zip(schemas[name].fields, cols, valids)}]
+                 for a, b in zip(cuts, cuts[1:])]
+        s.resources[name] = lambda p, _pl=plist: _pl[p]
+    return s
+
+
+def test_q89_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """chip_smoke.py's q89 at 300,000 store_sales rows on the card and on
+    the CPU: equal, order included, and to the numpy oracle; K13 launched
+    and its twin never ran on the card."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    host = q89_host(dict(Q89_ROWS, store_sales=300_000))
+    check, _info, _window = q89_oracle(host)
+    schemas = q89_schemas(T)
+    plan = q89_plan(schemas, E, N, T, parts=3)
+    out = {}
+    for device in ("cpu", None):
+        s = _sessions_over(host, schemas, 3, device)
+        if device is None:
+            monkeypatch.setattr(K, "segment_scan_plain", None)
+        cuda_lib.reset_launch_counts()
+        out[device] = s.execute_to_pydict(plan)
+    assert out[None] == out["cpu"]
+    check(out[None])
+    assert cuda_lib.launch_counts()["segment_scan"] >= 1
+
+
+def test_explicit_frame_window_on_the_card_equals_the_cpu(dev):
+    """A ROWS and a RANGE frame over partitions that span batches: the
+    buffered path (K7's concat, K6's takes) on the card equals the CPU."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    rng = np.random.default_rng(13)
+    n = 5000
+    g = np.sort(rng.integers(0, 40, n))
+    o = np.concatenate([np.sort(rng.integers(0, 500, c)) for c in np.bincount(g, minlength=40)])
+    v = rng.standard_normal(n) * 100
+    valid = rng.random(n) >= 0.1
+    schema = T.Schema.of(("g", T.I64), ("o", T.I64), ("v", T.F64))
+    C, F = E.Column, E.AggFunction
+    wexprs = [N.WindowExpr("row_number", "rn"),
+              N.WindowExpr("agg", "s", E.AggExpr(F.SUM, [C("v")]), frame=("rows", -3, 1)),
+              N.WindowExpr("agg", "mx", E.AggExpr(F.MAX, [C("v")]), frame=("range", -20, 20))]
+    plan = N.Window(N.FFIReader(schema, "src", 1), wexprs, [C("g")], [E.SortOrder(C("o"))],
+                    group_limit=50)
+    batches = [{"g": g[a:a + 1024], "o": o[a:a + 1024],
+                "v": (np.where(valid, v, 0.0)[a:a + 1024], valid[a:a + 1024])}
+               for a in range(0, n, 1024)]
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(Config(batch_size=1024), device=device)
+        s.resources["src"] = lambda p: batches
+        out[device] = s.execute_to_pydict(plan)
+    assert out[None] == out["cpu"] and len(out["cpu"]["rn"]) > 1000

@@ -404,9 +404,11 @@ def test_q67_window_variants_with_group_limit_match_jax(kind, limit):
 
 
 def test_window_aggregate_raises_naming_roadmap():
+    """Window aggregates run on the port since K13; one whose result is a
+    decimal wider than 18 digits still raises, naming the ROADMAP item."""
     plan = _q67()
     win = plan.child
-    agg = JN.WindowExpr("agg", "s", JE.AggExpr(F.SUM, [_col("qty")]))
+    agg = JN.WindowExpr("agg", "s", JE.AggExpr(F.SUM, [_col("qty")], JT.DecimalType(25, 2)))
     plan = JN.Window(win.child, [agg], win.partition_spec, win.order_spec)
     port = blaze_tpu_torch.Session(device="cpu")
     parts = _sales(5, 10, 5, 4, 0.0)
