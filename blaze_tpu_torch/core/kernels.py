@@ -789,11 +789,30 @@ def lexsort_indices(operands: List[torch.Tensor],
 # _partial_kernel and _merge_kernel: K5 sorts the rows so that equal keys
 # are adjacent, ``segment_ids`` cuts the sorted rows into segments, and
 # ``segment_reduce`` runs the slot program's ops (ADD / COUNT / MIN / MAX,
-# gated by up to three validity planes) and emits over each segment.
-# Segments are dense by construction, so group s is segment s.
+# the limb ops below, each gated by up to three validity planes) and emits
+# over each segment. Segments are dense by construction, so group s is
+# segment s.
+#
+# The limb ops carry a decimal wider than one int64 (ir/aggstate.py): a
+# two-limb sum (sum2/avg2) adds the low 32 bits and the arithmetic >> 32
+# of an int64 source; a three-limb sum (sum3/avg3) adds the limbs (l0, l1,
+# l2) with OP_ADD; emits renormalise the carries (the reference's
+# ``_limb_renorm`` / ``_limb3_renorm``: LO32 the low limb, CARRY a
+# two-limb high limb, MID and TOP a three-limb l1 and l2). A wide MIN/MAX
+# (minw/maxw) is OP_LEXMIN/OP_LEXMAX over l2 followed by OP_LEXLO over
+# the low word (l1 << 32) | l0, compared as unsigned: l1 and l0 are
+# non-negative 32-bit chunks, so the pair orders as ``_segment_lex3``'s
+# cascade does; WORD_HI and WORD_LO emit the word's chunks, 0 where the
+# count is 0.
 
 OP_ADD, OP_COUNT, OP_MIN, OP_MAX = 0, 1, 2, 3
+OP_ADD_LO32, OP_ADD_HI32 = 4, 5
+OP_LEXMIN, OP_LEXMAX, OP_LEXLO = 6, 7, 8
 EMIT_RAW, EMIT_NONZERO, EMIT_WHERE = 0, 1, 2
+EMIT_LO32, EMIT_CARRY, EMIT_MID, EMIT_TOP = 3, 4, 5, 6
+EMIT_WORD_HI, EMIT_WORD_LO = 7, 8
+LO32 = 0xFFFFFFFF
+_LIMB_OPS = (OP_ADD_LO32, OP_ADD_HI32, OP_LEXMIN, OP_LEXMAX, OP_LEXLO)
 _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
 # csrc/seg_agg.cu limits of one launch
 _MAX_SEG_KEYS = 16
@@ -805,13 +824,15 @@ _QNAN_BITS = 0x7FF8000000000000  # every NaN a float state ends as
 class AggOp:
     """One op of the slot program: ``kind`` into a table initialised to
     ``init``, from ``src`` (int64, or float64 for a float state; None for
-    COUNT) times ``mult``, where every plane of ``valids`` holds."""
+    COUNT) times ``mult``, where every plane of ``valids`` holds. OP_LEXLO
+    also reads ``src0`` (l0; ``src`` is l1) and belongs to the
+    OP_LEXMIN/OP_LEXMAX op just before it, with the same gate."""
 
-    __slots__ = ("kind", "src", "valids", "mult", "init")
+    __slots__ = ("kind", "src", "valids", "mult", "init", "src0")
 
-    def __init__(self, kind, src, valids, mult=1, init=0):
+    def __init__(self, kind, src, valids, mult=1, init=0, src0=None):
         self.kind, self.src, self.valids = kind, src, list(valids)
-        self.mult, self.init = mult, init
+        self.mult, self.init, self.src0 = mult, init, src0
 
     @property
     def is_float(self) -> bool:
@@ -819,13 +840,120 @@ class AggOp:
 
 
 class AggEmit:
-    """One output column: table ``table`` RAW, NONZERO (as bool), or its
-    value WHERE table ``aux`` is nonzero (else 0), cast to ``dtype``."""
+    """One output column: table ``table`` RAW, NONZERO (as bool), its
+    value WHERE table ``aux`` is nonzero (else 0), or a limb emit over
+    tables ``table``, ``aux`` and ``aux2`` (see above), cast to
+    ``dtype``."""
 
-    __slots__ = ("kind", "table", "aux", "dtype")
+    __slots__ = ("kind", "table", "aux", "dtype", "aux2")
 
-    def __init__(self, kind, table, dtype, aux=-1):
+    def __init__(self, kind, table, dtype, aux=-1, aux2=-1):
         self.kind, self.table, self.aux, self.dtype = kind, table, aux, dtype
+        self.aux2 = aux2
+
+
+def lex_ops(kind: str, l0, l1, l2, gate) -> List[AggOp]:
+    """The two ops of a wide MIN/MAX (``kind`` "min" or "max") over limb
+    planes gated by ``gate``; the first table holds l2, the second the
+    low word."""
+    info = torch.iinfo(torch.int64)
+    if kind == "max":
+        return [AggOp(OP_LEXMAX, l2, gate, init=info.min),
+                AggOp(OP_LEXLO, l1, gate, init=0, src0=l0)]
+    return [AggOp(OP_LEXMIN, l2, gate, init=info.max),
+            AggOp(OP_LEXLO, l1, gate, init=-1, src0=l0)]
+
+
+def limb_emits(t: int, nlimbs: int) -> List[AggEmit]:
+    """The renormalised limbs of an ``nlimbs``-limb sum in tables t, t+1
+    (, t+2)."""
+    if nlimbs == 2:
+        return [AggEmit(EMIT_LO32, t, torch.int64),
+                AggEmit(EMIT_CARRY, t + 1, torch.int64, aux=t)]
+    return [AggEmit(EMIT_LO32, t, torch.int64),
+            AggEmit(EMIT_MID, t + 1, torch.int64, aux=t),
+            AggEmit(EMIT_TOP, t + 2, torch.int64, aux=t + 1, aux2=t)]
+
+
+def lex_emits(t: int, count: int) -> List[AggEmit]:
+    """(b0, b1, b2) of the wide extreme in tables t (l2) and t + 1 (low
+    word), zeros where table ``count`` is 0: ``_segment_lex3``'s order."""
+    return [AggEmit(EMIT_WORD_LO, t + 1, torch.int64, aux=count),
+            AggEmit(EMIT_WORD_HI, t + 1, torch.int64, aux=count),
+            AggEmit(EMIT_WHERE, t, torch.int64, aux=count)]
+
+
+def check_limb_program(name: str, ops, emits) -> None:
+    """The kernels' rules for the limb ops: OP_LEXLO right after an
+    OP_LEXMIN/OP_LEXMAX, with both sources int64; every emit's tables in
+    range."""
+    for o, op in enumerate(ops):
+        lex = op.kind in (OP_LEXMIN, OP_LEXMAX)
+        if lex != (o + 1 < len(ops) and ops[o + 1].kind == OP_LEXLO) or (
+                op.kind == OP_LEXLO and (o == 0 or ops[o - 1].kind not in
+                                         (OP_LEXMIN, OP_LEXMAX) or op.src0 is None)):
+            raise ValueError(f"{name}: a lexicographic op without its partner at op {o}")
+        if op.kind in _LIMB_OPS and any(p is not None and p.dtype != torch.int64
+                                        for p in (op.src, op.src0)):
+            raise TypeError(f"{name}: limb op {op.kind} over a non-int64 source")
+    for e in emits:
+        if not all(-1 <= t < len(ops) for t in (e.aux, e.aux2)) or \
+                not 0 <= e.table < len(ops):
+            raise ValueError(f"{name}: emit over tables {e.table}, {e.aux}, {e.aux2} "
+                             f"of {len(ops)}")
+
+
+def op_contrib(op: AggOp, src: torch.Tensor) -> torch.Tensor:
+    """What an integer ADD-family op adds for each row of ``src``."""
+    if op.kind == OP_ADD_LO32:
+        return src & LO32
+    if op.kind == OP_ADD_HI32:
+        return src >> 32
+    return src * op.mult
+
+
+def lex_tables_plain(seg, ok, l2, l1, l0, size: int, is_max: bool):
+    """Plain twin of a wide MIN/MAX pair: per segment of ``seg`` (size
+    ``size``) the extreme l2 and the extreme low word among the rows tied
+    on it, by ``_segment_lex3``'s cascade (l1, then l0). Returns the two
+    tables; a segment without an ``ok`` row holds no defined value."""
+    info = torch.iinfo(torch.int64)
+    how = "amax" if is_max else "amin"
+    hi0 = info.min if is_max else info.max
+    lo0 = -1 if is_max else info.max
+
+    def extreme(vals, take, init):
+        t = torch.full((size,), init, dtype=torch.int64, device=seg.device)
+        return t.scatter_reduce(0, seg, torch.where(take, vals, init), how)
+
+    b2 = extreme(l2, ok, hi0)
+    t2 = ok & (l2 == b2[seg])
+    b1 = extreme(l1, t2, lo0)
+    t1 = t2 & (l1 == b1[seg])
+    b0 = extreme(l0, t1, lo0)
+    return b2, (b1 << 32) | b0
+
+
+def emit_plain(e: AggEmit, tables: List[torch.Tensor]) -> torch.Tensor:
+    """One emit over the final tables (int64 limb arithmetic wraps)."""
+    t = tables[e.table]
+    if e.kind == EMIT_NONZERO:
+        return t != 0
+    if e.kind == EMIT_WHERE:
+        return _zero_where(tables[e.aux] != 0, t)
+    if e.kind == EMIT_LO32:
+        return t & LO32
+    if e.kind == EMIT_CARRY:
+        return t + (tables[e.aux] >> 32)
+    if e.kind == EMIT_MID:
+        return (t + (tables[e.aux] >> 32)) & LO32
+    if e.kind == EMIT_TOP:
+        return t + ((tables[e.aux] + (tables[e.aux2] >> 32)) >> 32)
+    if e.kind == EMIT_WORD_HI:
+        return _zero_where(tables[e.aux] != 0, (t >> 32) & LO32)
+    if e.kind == EMIT_WORD_LO:
+        return _zero_where(tables[e.aux] != 0, t & LO32)
+    return t
 
 
 def canonical_keys(key_data, key_valid):
@@ -989,10 +1117,17 @@ def segment_reduce_plain(order, starts, count, num_rows: int, ops, emits):
     seg = torch.searchsorted(starts[:cap], pos, right=True) - 1
     out_valid = iota(cap, dev) < count
     tables = []
-    for op in ops:
+    for o, op in enumerate(ops):
         ok = torch.ones(n, dtype=torch.bool, device=dev)
         for v in op.valids:
             ok = ok & v[rows]
+        if op.kind in (OP_LEXMIN, OP_LEXMAX):
+            lo = ops[o + 1]
+            tables += lex_tables_plain(seg, ok, op.src[rows], lo.src[rows], lo.src0[rows],
+                                       cap, op.kind == OP_LEXMAX)
+            continue
+        if op.kind == OP_LEXLO:
+            continue
         if op.kind == OP_COUNT:
             t = torch.zeros(cap, dtype=torch.int64, device=dev)
             t.index_add_(0, seg, ok.to(torch.int64))
@@ -1012,9 +1147,9 @@ def segment_reduce_plain(order, starts, count, num_rows: int, ops, emits):
             t = _quiet_nan(t)
         else:
             src = op.src[rows]
-            if op.kind == OP_ADD:
+            if op.kind in (OP_ADD, OP_ADD_LO32, OP_ADD_HI32):
                 t = torch.zeros(cap, dtype=torch.int64, device=dev)
-                t.index_add_(0, seg, torch.where(ok, src * op.mult, 0))
+                t.index_add_(0, seg, torch.where(ok, op_contrib(op, src), 0))
             else:
                 t = torch.full((cap,), op.init, dtype=torch.int64, device=dev)
                 t.scatter_reduce_(0, seg, torch.where(ok, src, op.init),
@@ -1022,23 +1157,21 @@ def segment_reduce_plain(order, starts, count, num_rows: int, ops, emits):
         tables.append(t)
     outs = []
     for e in emits:
-        t = tables[e.table]
-        if e.kind == EMIT_NONZERO:
-            outs.append((t != 0) & out_valid)
-            continue
-        if e.kind == EMIT_WHERE:
-            t = _zero_where(tables[e.aux] != 0, t)
-        outs.append(_zero_where(out_valid, t))
+        t = emit_plain(e, tables)
+        outs.append(t & out_valid if e.kind == EMIT_NONZERO else _zero_where(out_valid, t))
     first = _zero_where(out_valid, order[starts[:cap].clamp(max=max(n - 1, 0))])
     return outs, first
 
 
-def segment_reduce_cuda(name, order, starts, count, num_rows: int, ops, emits):
+def segment_reduce_cuda(name, order, starts, count, num_rows: int, ops, emits,
+                        kinds=()):
     """K10's reduction on the card (csrc/seg_agg.cu: one thread per
     segment folds its rows in sorted order); same outputs as
     :func:`segment_reduce_plain`. ``count`` is the device scalar
-    ``segment_starts_cuda`` returned."""
-    srcs = [op.src for op in ops if op.src is not None]
+    ``segment_starts_cuda`` returned; ``kinds`` the program's limb
+    aggregate kinds, counted per launch (``cuda_lib.LIMB_LAUNCHES``)."""
+    check_limb_program(name, ops, emits)
+    srcs = [p for op in ops for p in (op.src, op.src0) if p is not None]
     valids = [v for op in ops for v in op.valids]
     cuda_lib.require_cuda(name, order, starts, *srcs, *valids)
     cap = int(order.shape[0])
@@ -1080,6 +1213,7 @@ def segment_reduce_cuda(name, order, starts, count, num_rows: int, ops, emits):
         len(ops), arr(cuda_lib.int_array([op.kind for op in ops])),
         arr(cuda_lib.int_array([int(op.is_float) for op in ops])),
         arr(cuda_lib.ptr_array([op.src for op in ops])),
+        arr(cuda_lib.ptr_array([op.src0 for op in ops])),
         arr(cuda_lib.int_array([len(op.valids) for op in ops])),
         arr(cuda_lib.ptr_array(op_valid)),
         arr(cuda_lib.int_array([op.mult for op in ops], LL)),
@@ -1087,18 +1221,21 @@ def segment_reduce_cuda(name, order, starts, count, num_rows: int, ops, emits):
         len(emits), arr(cuda_lib.int_array([e.kind for e in emits])),
         arr(cuda_lib.int_array([e.table for e in emits])),
         arr(cuda_lib.int_array([e.aux for e in emits])),
+        arr(cuda_lib.int_array([e.aux2 for e in emits])),
         arr(cuda_lib.ptr_array(outs)), first.data_ptr(), cuda_lib.stream_of(dev))
     cuda_lib.check(err, name)
     cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count_limb_launch(name, kinds)
     return outs, first
 
 
-def segment_reduce(name, order, starts, count, num_rows: int, ops, emits):
+def segment_reduce(name, order, starts, count, num_rows: int, ops, emits, kinds=()):
     """``_reduce_aggs`` (:1165) / ``_merge_reduce`` (:1330) over sorted
     segments: K10 on CUDA planes, the plain version on CPU ones. ``name``
     is the launch count to add to."""
     if order.is_cuda:
-        return segment_reduce_cuda(name, order, starts, count, num_rows, ops, emits)
+        return segment_reduce_cuda(name, order, starts, count, num_rows, ops, emits,
+                                   kinds)
     return segment_reduce_plain(order, starts, count, num_rows, ops, emits)
 
 
@@ -1110,6 +1247,10 @@ def segment_reduce(name, order, starts, count, num_rows: int, ops, emits):
 # slot id; a padding row carries the table capacity and drops.
 
 UPD_ADD, UPD_MIN, UPD_MAX, UPD_FLAG, UPD_FIRST = 0, 1, 2, 3, 4
+# the limb ops of a wide-decimal state (ops/aggfns.py limbs "2"/"3"/"w")
+UPD_ADD_LO32, UPD_ADD_HI32, UPD_RENORM, UPD_LEXMIN, UPD_LEXMAX = 5, 6, 7, 8, 9
+_UPD_LIMB_NAMES = {UPD_ADD_LO32: "add_lo32", UPD_ADD_HI32: "add_hi32",
+                   UPD_LEXMIN: "lexmin", UPD_LEXMAX: "lexmax"}
 # csrc/slot_update.cu limit of one call
 _MAX_UPD_OPS = 24
 I64_MAX = (1 << 63) - 1
@@ -1128,23 +1269,36 @@ class SlotUpdate:
     - FIRST: the row of least ``order`` wins where that order is at most
       ``order_table``'s, the last row in row order of those tied on it:
       ``order_table`` takes the order, ``table`` the row's ``src`` and
-      ``valid_table`` the AND of its ``wvalids``.
+      ``valid_table`` the AND of its ``wvalids``;
+    - ADD_LO32 / ADD_HI32: ``table += src & 0xFFFFFFFF`` / ``src >> 32``
+      (arithmetic), a two-limb sum's split of an int64 source;
+    - RENORM: the carry renormalisation of the limb sum in ``table`` (l0)
+      and ``tables`` ([l1] or [l1, l2]) at the slots of the rows, after
+      the batch's adds (``_limb_renorm`` / ``_limb3_renorm``; idempotent,
+      so the other slots, already normal, need none);
+    - LEXMIN / LEXMAX: the wide extreme: per slot the batch's best (l2,
+      l1, l0) of ``src`` (l2) and ``srcs`` ([l1, l0]) replaces the state
+      in ``table`` (s2) and ``tables`` ([s1, s0]) where it wins or
+      ``valid_table`` (has) is False, which it then sets
+      (``_lex_scatter_minmax``).
     """
 
     __slots__ = ("kind", "table", "src", "valids", "order", "wvalids",
-                 "valid_table", "order_table")
+                 "valid_table", "order_table", "srcs", "tables")
 
     def __init__(self, kind, table, src=None, valids=(), order=None,
-                 wvalids=(), valid_table=None, order_table=None):
+                 wvalids=(), valid_table=None, order_table=None, srcs=(), tables=()):
         self.kind, self.table, self.src = kind, table, src
         self.valids = list(valids)
         self.order, self.wvalids = order, list(wvalids)
         self.valid_table, self.order_table = valid_table, order_table
+        self.srcs, self.tables = list(srcs), list(tables)
 
     @property
     def folds(self) -> bool:
-        """Run in slot-sorted row order (float ADD, FIRST), not by atomics."""
-        return self.kind == UPD_FIRST or (
+        """Run in slot-sorted row order (float ADD, FIRST, the wide
+        extremes), not by atomics."""
+        return self.kind in (UPD_FIRST, UPD_LEXMIN, UPD_LEXMAX) or (
             self.kind == UPD_ADD and self.table.is_floating_point())
 
 
@@ -1175,6 +1329,13 @@ def slot_update_plain(slots: torch.Tensor, mask: torch.Tensor, ops) -> None:
         s = slots[ok]
         if op.kind == UPD_FLAG:
             table[s] = True
+        elif op.kind in (UPD_ADD_LO32, UPD_ADD_HI32):
+            src = op.src[ok]
+            table.index_add_(0, s, src & LO32 if op.kind == UPD_ADD_LO32 else src >> 32)
+        elif op.kind == UPD_RENORM:
+            _renorm_plain([table] + op.tables, _touched(cap, s))
+        elif op.kind in (UPD_LEXMIN, UPD_LEXMAX):
+            _lex_update_plain(op, s, ok, cap)
         elif op.kind == UPD_ADD and table.is_floating_point():
             work = table.detach().cpu().clone()
             work.index_add_(0, s.cpu(), op.src[ok].cpu())
@@ -1212,15 +1373,58 @@ def slot_update_plain(slots: torch.Tensor, mask: torch.Tensor, ops) -> None:
             op.order_table.copy_(best)
 
 
+def _renorm_plain(limbs: List[torch.Tensor], touched: torch.Tensor) -> None:
+    """``_limb_renorm`` / ``_limb3_renorm`` of the touched slots, in place."""
+    carry = limbs[0] >> 32
+    new = [limbs[0] & LO32]
+    for i, t in enumerate(limbs[1:]):
+        t = t + carry
+        if i + 2 < len(limbs):
+            carry = t >> 32
+            t = t & LO32
+        new.append(t)
+    for t, x in zip(limbs, new):
+        t.copy_(torch.where(touched, x, t))
+
+
+def _lex_update_plain(op: SlotUpdate, s: torch.Tensor, ok: torch.Tensor, cap: int) -> None:
+    """``_lex_scatter_minmax``: each slot's best of the batch (the cascade
+    of ``lex_tables_plain``) replaces the state where it wins or the slot
+    has none."""
+    is_max = op.kind == UPD_LEXMAX
+    l2, l1, l0 = op.src[ok], op.srcs[0][ok], op.srcs[1][ok]
+    b2, word = lex_tables_plain(s, torch.ones_like(s, dtype=torch.bool), l2, l1, l0,
+                                cap, is_max)
+    b1, b0 = (word >> 32) & LO32, word & LO32
+    s2, (s1, s0), has = op.table, op.tables, op.valid_table
+    if is_max:
+        better = (b2 > s2) | ((b2 == s2) & (b1 > s1)) | ((b2 == s2) & (b1 == s1) & (b0 > s0))
+    else:
+        better = (b2 < s2) | ((b2 == s2) & (b1 < s1)) | ((b2 == s2) & (b1 == s1) & (b0 < s0))
+    take = _touched(cap, s) & (better | ~has)
+    for t, x in ((s2, b2), (s1, b1), (s0, b0)):
+        t.copy_(torch.where(take, x, t))
+    has |= take
+
+
 def _check_table(op: SlotUpdate, cap: int) -> None:
     """The words of an op that stay the same from batch to batch."""
     t = op.table
-    if t.shape != (cap,):
+    if any(x.shape != (cap,) for x in [t] + op.tables):
         raise ValueError(f"slot_update: table of {tuple(t.shape)}, expected ({cap},)")
     if len(op.valids) > 3 or len(op.wvalids) > 3:
         raise ValueError("slot_update: at most three validity planes an op")
+    limbs = [t] + op.tables
     if op.kind == UPD_FLAG:
         ok = t.dtype == torch.bool
+    elif op.kind in (UPD_ADD_LO32, UPD_ADD_HI32):
+        ok = t.dtype == torch.int64
+    elif op.kind == UPD_RENORM:
+        ok = len(op.tables) in (1, 2) and all(x.dtype == torch.int64 for x in limbs)
+    elif op.kind in (UPD_LEXMIN, UPD_LEXMAX):
+        ok = (len(op.tables) == 2 and all(x.dtype == torch.int64 for x in limbs)
+              and op.valid_table is not None and op.valid_table.dtype == torch.bool
+              and op.valid_table.shape == (cap,))
     elif op.kind == UPD_FIRST:
         ok = (t.element_size() in (1, 2, 4, 8)
               and op.valid_table is not None and op.valid_table.dtype == torch.bool
@@ -1234,15 +1438,19 @@ def _check_table(op: SlotUpdate, cap: int) -> None:
 
 def _check_rows(op: SlotUpdate, n: int) -> None:
     """The row planes of one batch's op."""
-    planes = [p for p in [op.src, op.order] + op.valids + op.wvalids if p is not None]
+    planes = [p for p in [op.src, op.order] + op.valids + op.wvalids + op.srcs
+              if p is not None]
     if any(p.shape != (n,) for p in planes):
         raise ValueError(f"slot_update: row planes must be ({n},)")
     if any(v.dtype != torch.bool for v in op.valids + op.wvalids):
         raise TypeError("slot_update: validity planes must be bool")
     src = None if op.src is None else op.src.dtype
     t = op.table.dtype
-    if op.kind == UPD_FLAG:
+    if op.kind in (UPD_FLAG, UPD_RENORM):
         ok = src is None
+    elif op.kind in (UPD_LEXMIN, UPD_LEXMAX):
+        ok = src == torch.int64 and len(op.srcs) == 2 and \
+            all(x.dtype == torch.int64 for x in op.srcs)
     elif op.kind == UPD_FIRST:
         ok = src == t and op.order is not None and op.order.dtype == torch.int64
     elif op.kind == UPD_ADD and t == torch.int64:
@@ -1265,6 +1473,7 @@ class SlotUpdatePack:
         self.key = None
         self.static = ()
         self.rows = ()
+        self.limb_src = None
 
     @staticmethod
     def _key(ops, cap: int):
@@ -1272,13 +1481,15 @@ class SlotUpdatePack:
             return None if t is None else t.data_ptr()
 
         return (cap,) + tuple((op.kind, op.table.dtype, op.table.data_ptr(), len(op.valids),
-                               len(op.wvalids), ptr(op.valid_table), ptr(op.order_table))
+                               len(op.wvalids), ptr(op.valid_table), ptr(op.order_table),
+                               tuple(ptr(t) for t in op.tables))
                               for op in ops)
 
     def args(self, ops, n: int, cap: int):
         """(static arrays, row arrays) for ``blz_slot_update``: kind,
-        is_float, nvalid, table, esize, nwvalid, valid_table, order_table;
-        then src, valid, order, wvalid."""
+        is_float, nvalid, table, esize, nwvalid, valid_table, order_table,
+        limb_table; then src, valid, order, wvalid. The limb ops' row
+        planes (limb_src) go to ``self.limb_src``."""
         key = self._key(ops, cap)
         if key != self.key:
             for op in ops:
@@ -1297,10 +1508,14 @@ class SlotUpdatePack:
                 (I * m)(*[op.table.element_size() for op in ops]),
                 (I * m)(*[len(op.wvalids) for op in ops]),
                 ptrs([op.valid_table for op in ops]),
-                ptrs([op.order_table for op in ops]))
+                ptrs([op.order_table for op in ops]),
+                (P * (2 * m))(*[op.tables[q].data_ptr() if q < len(op.tables) else None
+                                for op in ops for q in range(2)]))
             self.rows = ((P * m)(), (P * (3 * m))(), (P * m)(), (P * (3 * m))())
+            self.limb_src = (P * (2 * m))()
             self.key = key
         src, valid, order, wvalid = self.rows
+        limb_src = self.limb_src
         for o, op in enumerate(ops):
             _check_rows(op, n)
             src[o] = None if op.src is None else op.src.data_ptr()
@@ -1308,6 +1523,8 @@ class SlotUpdatePack:
             for q in range(3):
                 valid[3 * o + q] = op.valids[q].data_ptr() if q < len(op.valids) else None
                 wvalid[3 * o + q] = op.wvalids[q].data_ptr() if q < len(op.wvalids) else None
+            for q in range(2):
+                limb_src[2 * o + q] = op.srcs[q].data_ptr() if q < len(op.srcs) else None
         return self.static, self.rows
 
 
@@ -1323,7 +1540,7 @@ def slot_update_cuda(slots: torch.Tensor, mask: torch.Tensor, ops,
     tensors = [slots, mask]
     for op in ops:
         tensors += [p for p in [op.table, op.src, op.order, op.valid_table, op.order_table]
-                    + op.valids + op.wvalids if p is not None]
+                    + op.valids + op.wvalids + op.srcs + op.tables if p is not None]
     cuda_lib.require_cuda("slot_update", *tensors)
     n = int(slots.shape[0])
     cap = int(ops[0].table.shape[0])
@@ -1332,16 +1549,21 @@ def slot_update_cuda(slots: torch.Tensor, mask: torch.Tensor, ops,
     if slots.dtype != torch.int64 or slots.shape != (n,) or mask.dtype != torch.bool \
             or mask.shape != (n,):
         raise TypeError("slot_update: slots must be int64 and the mask bool, both (n,)")
-    (kind, is_float, nvalid, table, esize, nwvalid, valid_table, order_table), \
-        (src, valid, order, wvalid) = (pack or SlotUpdatePack()).args(ops, n, cap)
+    pack = pack or SlotUpdatePack()
+    (kind, is_float, nvalid, table, esize, nwvalid, valid_table, order_table, limb_table), \
+        (src, valid, order, wvalid) = pack.args(ops, n, cap)
+    limb_src = pack.limb_src
     perm = lexsort_indices([slots]) if any(op.folds for op in ops) else None
     err = cuda_lib.library().blz_slot_update(
         slots.data_ptr(), mask.data_ptr(), n, cap,
         None if perm is None else perm.data_ptr(), len(ops), kind, is_float, src, nvalid,
         valid, table, esize, order, nwvalid, wvalid, valid_table, order_table,
-        cuda_lib.stream_of(slots.device))
+        limb_src, limb_table, cuda_lib.stream_of(slots.device))
     cuda_lib.check(err, "slot_update")
     cuda_lib.LAUNCHES["slot_update"] += 1
+    cuda_lib.count_limb_launch("slot_update", [
+        f"renorm{1 + len(op.tables)}" if op.kind == UPD_RENORM else _UPD_LIMB_NAMES[op.kind]
+        for op in ops if op.kind >= UPD_ADD_LO32])
 
 
 def slot_update(slots: torch.Tensor, mask: torch.Tensor, ops,

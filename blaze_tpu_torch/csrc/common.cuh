@@ -1,6 +1,7 @@
 // Shared pieces of the port's hand-written Hopper kernels: the plain C
-// export macro, launch geometry, and the block-level stable rank that the
-// compaction kernels (compact.cu, slot_agg.cu) are built on.
+// export macro, launch geometry, the block-level stable rank that the
+// compaction kernels (compact.cu, slot_agg.cu) are built on, and the emit
+// arithmetic of the aggregate kernels (slot_agg.cu, seg_agg.cu).
 //
 // Every exported function takes the caller's CUDA stream, allocates
 // nothing, does not synchronise, and returns cudaGetLastError() so the
@@ -55,3 +56,36 @@ cudaError_t blz_scan_block_counts(int64_t* block_offsets, int64_t nblocks,
 // blz_blocks(n) + 1 int64 values.
 cudaError_t blz_flag_offsets(const uint8_t* flags, int64_t n,
                              int64_t* block_offsets, cudaStream_t stream);
+
+// The aggregate kernels' emit kinds (core/kernels.py EMIT_*).
+enum { BLZ_EMIT_RAW = 0, BLZ_EMIT_NONZERO = 1, BLZ_EMIT_WHERE = 2, BLZ_EMIT_LO32 = 3,
+       BLZ_EMIT_CARRY = 4, BLZ_EMIT_MID = 5, BLZ_EMIT_TOP = 6, BLZ_EMIT_WORD_HI = 7,
+       BLZ_EMIT_WORD_LO = 8 };
+
+// One emitted value of a group from its final tables: word(0) is the
+// emit's table, word(1) its aux table and word(2) its aux2 table, each read
+// only where the kind uses it. Limb arithmetic wraps as unsigned 64-bit
+// words; shifts of signed words are arithmetic.
+template <class Word>
+__device__ __forceinline__ long long blz_emit_value(int kind, Word word) {
+  const long long t = word(0);
+  switch (kind) {
+    case BLZ_EMIT_NONZERO: return t != 0;
+    case BLZ_EMIT_WHERE: return word(1) != 0 ? t : 0;
+    case BLZ_EMIT_LO32: return t & 0xFFFFFFFFLL;
+    case BLZ_EMIT_CARRY:
+      return (long long)((unsigned long long)t + (unsigned long long)(word(1) >> 32));
+    case BLZ_EMIT_MID:
+      return (long long)((unsigned long long)t + (unsigned long long)(word(1) >> 32)) &
+             0xFFFFFFFFLL;
+    case BLZ_EMIT_TOP: {
+      const long long mid =
+          (long long)((unsigned long long)word(1) + (unsigned long long)(word(2) >> 32));
+      return (long long)((unsigned long long)t + (unsigned long long)(mid >> 32));
+    }
+    case BLZ_EMIT_WORD_HI:
+      return word(1) != 0 ? (long long)((unsigned long long)t >> 32) : 0;
+    case BLZ_EMIT_WORD_LO: return word(1) != 0 ? (t & 0xFFFFFFFFLL) : 0;
+    default: return t;
+  }
+}

@@ -30,6 +30,22 @@
 //     NaN. A float result that is NaN is the quiet NaN 0x7FF8..., so the
 //     card and the host agree to the bit. Integer ops wrap as int64.
 //
+// The wide-decimal (limb) kinds of _reduce_aggs (:1173-1219) and
+// _merge_reduce (:1339-1381), with _segment_lex3 (:1136):
+//   ADD_LO32 / ADD_HI32 add the low 32 bits / the arithmetic >> 32 of an
+//     int64 source (sum2/avg2's split); a three-limb sum (sum3/avg3) adds
+//     its limbs with ADD. The emits renormalise the carries at the end
+//     (LO32, CARRY, MID, TOP: _limb_renorm and _limb3_renorm). A segment's
+//     l0/l1 sums stay below 2^55 even at q67_sort's ~6.2M state rows a
+//     reducer (each addend < 2^32), so no carry is lost before the emit;
+//     l2 wraps mod 2^64 as in the reference, which is exact for totals
+//     within decimal(38).
+//   LEXMIN / LEXMAX with the LEXLO op after it: the segment's extreme
+//     (l2, l1, l0) as one tuple comparison a row: l2 signed, then the low
+//     word (l1 << 32) | l0 unsigned (l1 and l0 are non-negative 32-bit
+//     chunks, so this orders as the reference's cascade does); WORD_HI and
+//     WORD_LO emit the word's chunks, 0 where the segment's count is 0.
+//
 // Bound on the H100: bytes. The segmentation reads each key plane and the
 // permutation once (the key loads are gathers through the permutation,
 // served by L2 at a 262,144-row batch) and writes a flag byte and a start
@@ -44,8 +60,9 @@
 #define BLZ_MAX_SEG_OPS 24
 #define BLZ_MAX_SEG_EMITS 24
 
-enum { BLZ_SEG_ADD = 0, BLZ_SEG_COUNT = 1, BLZ_SEG_MIN = 2, BLZ_SEG_MAX = 3 };
-enum { BLZ_SEG_RAW = 0, BLZ_SEG_NONZERO = 1, BLZ_SEG_WHERE = 2 };
+enum { BLZ_SEG_ADD = 0, BLZ_SEG_COUNT = 1, BLZ_SEG_MIN = 2, BLZ_SEG_MAX = 3,
+       BLZ_SEG_ADD_LO32 = 4, BLZ_SEG_ADD_HI32 = 5, BLZ_SEG_LEXMIN = 6, BLZ_SEG_LEXMAX = 7,
+       BLZ_SEG_LEXLO = 8 };
 
 #define BLZ_QNAN_BITS 0x7FF8000000000000LL
 
@@ -62,6 +79,7 @@ struct SegOp {
   int is_float;
   int nvalid;
   const void* src;  // int64 or float64 rows; unused by COUNT
+  const long long* src0;  // LEXLO: l0 (src is l1)
   const uint8_t* valid[3];
   long long mult;
   long long init;  // the table's first value (a float's bits)
@@ -76,7 +94,8 @@ struct SegEmit {
   int kind;
   int table;
   int aux;
-  void* out;  // 64-bit words for RAW / WHERE, bool bytes for NONZERO
+  int aux2;
+  void* out;  // 64-bit words, bool bytes for NONZERO
 };
 
 struct SegEmitSet {
@@ -182,7 +201,7 @@ __global__ void blz_seg_reduce_kernel(const int64_t* starts,
   if (s >= cap) return;
   if (s >= *count_ptr) {
     for (int c = 0; c < es.n; ++c) {
-      if (es.col[c].kind == BLZ_SEG_NONZERO)
+      if (es.col[c].kind == BLZ_EMIT_NONZERO)
         ((uint8_t*)es.col[c].out)[s] = 0;
       else
         ((long long*)es.col[c].out)[s] = 0;
@@ -202,6 +221,25 @@ __global__ void blz_seg_reduce_kernel(const int64_t* starts,
       for (int q = 0; q < op.nvalid; ++q) ok = ok && op.valid[q][r] != 0;
       if (op.kind == BLZ_SEG_COUNT) {
         acc[o] += ok ? 1 : 0;
+      } else if (op.kind == BLZ_SEG_LEXMIN || op.kind == BLZ_SEG_LEXMAX) {
+        // the pair (acc[o], acc[o + 1]) holds the extreme; LEXLO is op o + 1
+        if (ok) {
+          const SegOp& lo = ops.op[o + 1];
+          const long long x2 = ((const long long*)op.src)[r];
+          const unsigned long long xw =
+              ((unsigned long long)((const long long*)lo.src)[r] << 32) |
+              (unsigned long long)lo.src0[r];
+          const unsigned long long aw = (unsigned long long)acc[o + 1];
+          const bool better = op.kind == BLZ_SEG_LEXMAX
+                                  ? (x2 > acc[o] || (x2 == acc[o] && xw > aw))
+                                  : (x2 < acc[o] || (x2 == acc[o] && xw < aw));
+          if (better) {
+            acc[o] = x2;
+            acc[o + 1] = (long long)xw;
+          }
+        }
+      } else if (op.kind == BLZ_SEG_LEXLO) {
+        // folded with the op before it
       } else if (op.is_float) {
         const double x = ((const double*)op.src)[r];
         double a = __longlong_as_double(acc[o]);
@@ -221,6 +259,12 @@ __global__ void blz_seg_reduce_kernel(const int64_t* starts,
           if (ok)
             acc[o] = (long long)((unsigned long long)acc[o] +
                                  (unsigned long long)x * (unsigned long long)op.mult);
+        } else if (op.kind == BLZ_SEG_ADD_LO32 || op.kind == BLZ_SEG_ADD_HI32) {
+          if (ok)
+            acc[o] = (long long)((unsigned long long)acc[o] +
+                                 (unsigned long long)(op.kind == BLZ_SEG_ADD_LO32
+                                                          ? (x & 0xFFFFFFFFLL)
+                                                          : (x >> 32)));
         } else if (ok) {
           acc[o] = op.kind == BLZ_SEG_MIN ? (x < acc[o] ? x : acc[o])
                                           : (x > acc[o] ? x : acc[o]);
@@ -232,11 +276,10 @@ __global__ void blz_seg_reduce_kernel(const int64_t* starts,
     if (ops.op[o].is_float && isnan(__longlong_as_double(acc[o]))) acc[o] = BLZ_QNAN_BITS;
   for (int c = 0; c < es.n; ++c) {
     const SegEmit& e = es.col[c];
-    const long long v = acc[e.table];
-    if (e.kind == BLZ_SEG_NONZERO)
-      ((uint8_t*)e.out)[s] = v != 0;
-    else if (e.kind == BLZ_SEG_WHERE)
-      ((long long*)e.out)[s] = acc[e.aux] != 0 ? v : 0;
+    const long long v = blz_emit_value(
+        e.kind, [&](int w) { return acc[w == 0 ? e.table : w == 1 ? e.aux : e.aux2]; });
+    if (e.kind == BLZ_EMIT_NONZERO)
+      ((uint8_t*)e.out)[s] = (uint8_t)v;
     else
       ((long long*)e.out)[s] = v;
   }
@@ -247,16 +290,18 @@ __global__ void blz_seg_reduce_kernel(const int64_t* starts,
 // device segment count. Per op o: kind, is_float, source (int64 or float64
 // rows; null for COUNT), op_nvalid[o] bool planes at op_valid[3*o + q],
 // mult (integer ADD), init (the table's first value as 64 bits). Per emit
-// c: kind, table, aux (WHERE only), out (cap 64-bit words, or cap bytes
-// for NONZERO). first: cap int64, each segment's first row.
+// c: kind, table, aux (WHERE, CARRY, MID, TOP, WORD_*), aux2 (TOP), out
+// (cap 64-bit words, or cap bytes for NONZERO). first: cap int64, each
+// segment's first row. A LEXMIN/LEXMAX op must be followed by its LEXLO op
+// (src l1, src0 l0).
 BLZ_EXPORT int blz_segment_reduce(
     const int64_t* starts, const int64_t* order, const int64_t* count,
     int64_t cap, int nops, const int* op_kind, const int* op_float,
-    const void* const* op_src, const int* op_nvalid,
+    const void* const* op_src, const void* const* op_src0, const int* op_nvalid,
     const uint8_t* const* op_valid, const long long* op_mult,
     const long long* op_init, int nemit, const int* emit_kind,
-    const int* emit_table, const int* emit_aux, void* const* emit_out,
-    int64_t* first, cudaStream_t stream) {
+    const int* emit_table, const int* emit_aux, const int* emit_aux2,
+    void* const* emit_out, int64_t* first, cudaStream_t stream) {
   if (nops > BLZ_MAX_SEG_OPS || nemit > BLZ_MAX_SEG_EMITS || cap <= 0)
     return (int)cudaErrorInvalidValue;
   SegOpSet ops;
@@ -266,19 +311,30 @@ BLZ_EXPORT int blz_segment_reduce(
     ops.op[o].is_float = op_float[o];
     ops.op[o].nvalid = op_nvalid[o];
     ops.op[o].src = op_src[o];
+    ops.op[o].src0 = (const long long*)op_src0[o];
     for (int q = 0; q < 3; ++q) ops.op[o].valid[q] = op_valid[3 * o + q];
     ops.op[o].mult = op_mult[o];
     ops.op[o].init = op_init[o];
   }
+  // a LEXMIN/LEXMAX op reads the op after it (core/kernels.py
+  // check_limb_program holds the pairing); here only that its planes exist
+  for (int o = 0; o < nops; ++o)
+    if ((op_kind[o] == BLZ_SEG_LEXMIN || op_kind[o] == BLZ_SEG_LEXMAX) &&
+        (o + 1 >= nops || op_src[o + 1] == nullptr || op_src0[o + 1] == nullptr))
+      return (int)cudaErrorInvalidValue;
   SegEmitSet es;
   es.n = nemit;
   for (int c = 0; c < nemit; ++c) {
+    const int k = emit_kind[c];
+    const bool uses_aux = k == BLZ_EMIT_WHERE || k >= BLZ_EMIT_CARRY;
     if (emit_table[c] < 0 || emit_table[c] >= nops ||
-        (emit_kind[c] == BLZ_SEG_WHERE && (emit_aux[c] < 0 || emit_aux[c] >= nops)))
+        (uses_aux && (emit_aux[c] < 0 || emit_aux[c] >= nops)) ||
+        (k == BLZ_EMIT_TOP && (emit_aux2[c] < 0 || emit_aux2[c] >= nops)))
       return (int)cudaErrorInvalidValue;
-    es.col[c].kind = emit_kind[c];
+    es.col[c].kind = k;
     es.col[c].table = emit_table[c];
     es.col[c].aux = emit_aux[c];
+    es.col[c].aux2 = emit_aux2[c];
     es.col[c].out = emit_out[c];
   }
   blz_seg_reduce_kernel<<<blz_blocks(cap), BLZ_THREADS, 0, stream>>>(

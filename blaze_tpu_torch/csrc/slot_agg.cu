@@ -15,7 +15,25 @@
 //   emits: RAW table value, NONZERO (table != 0 as bool), WHERE (table
 //          value where a companion count is nonzero, else 0),
 // so SUM/COUNT/AVG/MIN/MAX in partial and merge mode are all spelled with
-// them (ops/agg_device.py builds the lists).
+// them (ops/agg_device.py builds the lists). The wide-decimal (limb) kinds
+// of _dense_partial_kernel (:1288) and _radix_merge_kernel (with
+// _merge_reduce's :1339-1381) add:
+//   ops:   ADD_LO32 / ADD_HI32  table[slot] += src & 0xFFFFFFFF / src >> 32
+//          (arithmetic; sum2/avg2's split of an int64 source; sum3/avg3
+//          add their three limbs with ADD);
+//          LEXMIN / LEXMAX  the extreme l2 (signed atomicMin/atomicMax),
+//          with the LEXLO op after it: the extreme low word (l1 << 32) |
+//          l0 (unsigned: l1, l0 are non-negative 32-bit chunks) over the
+//          rows whose l2 equals the slot's, in a second pass once every
+//          l2 has landed. The reference's cascade (l2, then l1, then l0)
+//          with its last two levels folded into one word; exact and
+//          order-free, as every atomic here;
+//   emits: LO32 / CARRY / MID / TOP, the carry renormalisation of a limb
+//          sum (_limb_renorm, _limb3_renorm), and WORD_HI / WORD_LO, the
+//          extreme's l1 and l0 (0 where the count is 0). Limb sums are
+//          64-bit atomics (exact in any order); l0/l1 sums stay below 2^55
+//          at any batch (each addend < 2^32) and l2 wraps mod 2^64 as in
+//          the reference.
 //
 // Passes: (1) fill the slot tables with each op's identity; (2) one thread
 // per row packs the slot (slot 0 of a key is its null; the overflow rule
@@ -39,8 +57,9 @@
 #define BLZ_MAX_EMITS 24
 #define BLZ_MAX_BUCKETS BLZ_THREADS
 
-enum { BLZ_OP_ADD = 0, BLZ_OP_COUNT = 1, BLZ_OP_MIN = 2, BLZ_OP_MAX = 3 };
-enum { BLZ_EMIT_RAW = 0, BLZ_EMIT_NONZERO = 1, BLZ_EMIT_WHERE = 2 };
+enum { BLZ_OP_ADD = 0, BLZ_OP_COUNT = 1, BLZ_OP_MIN = 2, BLZ_OP_MAX = 3,
+       BLZ_OP_ADD_LO32 = 4, BLZ_OP_ADD_HI32 = 5, BLZ_OP_LEXMIN = 6, BLZ_OP_LEXMAX = 7,
+       BLZ_OP_LEXLO = 8 };
 
 struct SlotPlan {
   int k;
@@ -55,6 +74,7 @@ struct SlotOp {
   int kind;
   int nvalid;
   const long long* src;
+  const long long* src0;  // LEXLO: l0 (src is l1)
   const uint8_t* valid[3];
   long long* table;
   long long mult;
@@ -70,7 +90,8 @@ struct EmitCol {
   int kind;
   const long long* table;
   const long long* aux;
-  void* out;  // int64 for RAW / WHERE, bool bytes for NONZERO
+  const long long* aux2;
+  void* out;  // int64 words, bool bytes for NONZERO
 };
 
 struct EmitSet {
@@ -98,6 +119,35 @@ __global__ void blz_slot_init_kernel(OpSet ops, int64_t S, uint8_t* present,
   if (s == 0) *overflow = 0;
 }
 
+// Row i's slot (radix_pack's code; *fits false when a valid key lies
+// outside the plan).
+__device__ __forceinline__ long long blz_slot_of(const SlotPlan& plan, int64_t i,
+                                                 bool* fits) {
+  long long seg = 0;
+  *fits = true;
+  for (int j = 0; j < plan.k; ++j) {
+    const long long d = plan.key[j][i];
+    const bool v = plan.kvalid[j][i] != 0;
+    const long long base = plan.base[j];
+    const long long size = plan.size[j];
+    // wrapping int64 arithmetic, as radix_pack's jnp int64 ops
+    const unsigned long long du = (unsigned long long)d - (unsigned long long)base;
+    const long long diff = (long long)du;
+    long long code = v ? (long long)(du + 1ull) : 0;
+    const bool infit = d >= base && diff >= 0 && diff < size - 1;
+    if (v && !infit) *fits = false;
+    code = code < 0 ? 0 : (code > size - 1 ? size - 1 : code);
+    seg += code * plan.stride[j];
+  }
+  return seg;
+}
+
+__device__ __forceinline__ bool blz_slot_ok(const SlotOp& op, int64_t i) {
+  bool ok = true;
+  for (int q = 0; q < op.nvalid; ++q) ok = ok && op.valid[q][i] != 0;
+  return ok;
+}
+
 __global__ void blz_slot_scatter_kernel(SlotPlan plan, OpSet ops,
                                         int64_t num_rows, uint8_t* present,
                                         int* overflow, long long* brows,
@@ -109,41 +159,33 @@ __global__ void blz_slot_scatter_kernel(SlotPlan plan, OpSet ops,
   }
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < num_rows) {
-    long long seg = 0;
-    bool fits = true;
-    for (int j = 0; j < plan.k; ++j) {
-      const long long d = plan.key[j][i];
-      const bool v = plan.kvalid[j][i] != 0;
-      const long long base = plan.base[j];
-      const long long size = plan.size[j];
-      // wrapping int64 arithmetic, as radix_pack's jnp int64 ops
-      const unsigned long long du = (unsigned long long)d - (unsigned long long)base;
-      const long long diff = (long long)du;
-      long long code = v ? (long long)(du + 1ull) : 0;
-      const bool infit = d >= base && diff >= 0 && diff < size - 1;
-      if (v && !infit) fits = false;
-      code = code < 0 ? 0 : (code > size - 1 ? size - 1 : code);
-      seg += code * plan.stride[j];
-    }
+    bool fits;
+    const long long seg = blz_slot_of(plan, i, &fits);
     if (!fits) *overflow = 1;
     present[seg] = 1;
     for (int o = 0; o < ops.n; ++o) {
       const SlotOp& op = ops.op[o];
-      bool ok = true;
-      for (int q = 0; q < op.nvalid; ++q) ok = ok && op.valid[q][i] != 0;
-      if (!ok) continue;
+      if (op.kind == BLZ_OP_LEXLO || !blz_slot_ok(op, i)) continue;
       switch (op.kind) {
         case BLZ_OP_ADD:
           atomicAdd((unsigned long long*)&op.table[seg],
                     (unsigned long long)op.src[i] * (unsigned long long)op.mult);
           break;
+        case BLZ_OP_ADD_LO32:
+          atomicAdd((unsigned long long*)&op.table[seg],
+                    (unsigned long long)(op.src[i] & 0xFFFFFFFFLL));
+          break;
+        case BLZ_OP_ADD_HI32:
+          atomicAdd((unsigned long long*)&op.table[seg], (unsigned long long)(op.src[i] >> 32));
+          break;
         case BLZ_OP_COUNT:
           atomicAdd((unsigned long long*)&op.table[seg], 1ull);
           break;
         case BLZ_OP_MIN:
+        case BLZ_OP_LEXMIN:
           atomicMin(&op.table[seg], op.src[i]);
           break;
-        default:
+        default:  // MAX, LEXMAX
           atomicMax(&op.table[seg], op.src[i]);
           break;
       }
@@ -154,6 +196,29 @@ __global__ void blz_slot_scatter_kernel(SlotPlan plan, OpSet ops,
     __syncthreads();
     for (int j = threadIdx.x; j < nb; j += blockDim.x)
       if (hist[j]) atomicAdd((unsigned long long*)&brows[j], (unsigned long long)hist[j]);
+  }
+}
+
+// Second pass of a wide extreme: the LEXLO op after each LEXMIN/LEXMAX op
+// takes the extreme low word of the rows whose l2 equals the slot's
+// extreme l2.
+__global__ void blz_slot_lex_kernel(SlotPlan plan, OpSet ops, int64_t num_rows) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= num_rows) return;
+  bool fits;
+  const long long seg = blz_slot_of(plan, i, &fits);
+  for (int o = 0; o + 1 < ops.n; ++o) {
+    const SlotOp& hi = ops.op[o];
+    if (hi.kind != BLZ_OP_LEXMIN && hi.kind != BLZ_OP_LEXMAX) continue;
+    const SlotOp& op = ops.op[o + 1];
+    if (!blz_slot_ok(op, i) || hi.src[i] != hi.table[seg]) continue;
+    const unsigned long long w =
+        ((unsigned long long)op.src[i] << 32) | (unsigned long long)op.src0[i];
+    unsigned long long* t = (unsigned long long*)&op.table[seg];
+    if (hi.kind == BLZ_OP_LEXMAX)
+      atomicMax(t, w);
+    else
+      atomicMin(t, w);
   }
 }
 
@@ -178,11 +243,10 @@ __global__ void blz_slot_emit_kernel(SlotPlan plan, KeyOut ko, EmitSet es,
     }
     for (int c = 0; c < es.n; ++c) {
       const EmitCol& e = es.col[c];
-      const long long v = e.table[s];
+      const long long v = blz_emit_value(
+          e.kind, [&](int w) { return (w == 0 ? e.table : w == 1 ? e.aux : e.aux2)[s]; });
       if (e.kind == BLZ_EMIT_NONZERO)
-        ((uint8_t*)e.out)[pos] = v != 0;
-      else if (e.kind == BLZ_EMIT_WHERE)
-        ((long long*)e.out)[pos] = e.aux[s] != 0 ? v : 0;
+        ((uint8_t*)e.out)[pos] = (uint8_t)v;
       else
         ((long long*)e.out)[pos] = v;
     }
@@ -209,9 +273,11 @@ __global__ void blz_slot_emit_kernel(SlotPlan plan, KeyOut ko, EmitSet es,
 // keys/kvalids: k planes of >= num_rows rows (int64 / bool bytes); rows
 // at or past num_rows do not exist. bases/sizes/strides: the slot plan
 // (sizes powers of two, S = prod(sizes)). Per op o: kind, source plane
-// (unused by COUNT), op_nvalid[o] validity planes at op_valid[3*o + q],
-// table (S int64 scratch), mult, init. Per emit c: kind, table, aux
-// (WHERE only), out (out_cap values). present: S bytes; offs:
+// (unused by COUNT), second source (LEXLO's l0, else null), op_nvalid[o]
+// validity planes at op_valid[3*o + q], table (S int64 scratch), mult,
+// init; a LEXMIN/LEXMAX op is followed by its LEXLO op. Per emit c: kind,
+// table, aux (WHERE, CARRY, MID, TOP, WORD_*), aux2 (TOP), out (out_cap
+// values). present: S bytes; offs:
 // blz_blocks(S) + 1 int64; overflow: 1 int; key_out/kvalid_out: k planes
 // of out_cap; count_out: 2 int64, the group count (-1 when a key fell
 // outside the plan) and the group count regardless.
@@ -220,11 +286,12 @@ BLZ_EXPORT int blz_slot_agg(
     int k, const long long* const* keys, const uint8_t* const* kvalids,
     const long long* bases, const long long* sizes, const long long* strides,
     int64_t num_rows, int nops, const int* op_kind,
-    const long long* const* op_src, const int* op_nvalid,
-    const uint8_t* const* op_valid, long long* const* op_table,
+    const long long* const* op_src, const long long* const* op_src0,
+    const int* op_nvalid, const uint8_t* const* op_valid, long long* const* op_table,
     const long long* op_mult, const long long* op_init, int nemit,
     const int* emit_kind, const long long* const* emit_table,
-    const long long* const* emit_aux, void* const* emit_out, int64_t S,
+    const long long* const* emit_aux, const long long* const* emit_aux2,
+    void* const* emit_out, int64_t S,
     uint8_t* present, int64_t* offs, int* overflow, int64_t out_cap,
     long long* const* key_out, uint8_t* const* kvalid_out,
     int64_t* count_out, long long* brows, long long* bgroups, int shift,
@@ -246,10 +313,20 @@ BLZ_EXPORT int blz_slot_agg(
   }
   OpSet ops;
   ops.n = nops;
+  bool lex = false;
   for (int o = 0; o < nops; ++o) {
-    ops.op[o].kind = op_kind[o];
+    const int kd = op_kind[o];
+    // a LEXMIN/LEXMAX op reads the op after it (core/kernels.py
+    // check_limb_program holds the pairing); here only that its planes exist
+    if (kd == BLZ_OP_LEXMIN || kd == BLZ_OP_LEXMAX) {
+      if (o + 1 >= nops || op_src[o + 1] == nullptr || op_src0[o + 1] == nullptr)
+        return (int)cudaErrorInvalidValue;
+      lex = true;
+    }
+    ops.op[o].kind = kd;
     ops.op[o].nvalid = op_nvalid[o];
     ops.op[o].src = op_src[o];
+    ops.op[o].src0 = op_src0[o];
     for (int q = 0; q < 3; ++q) ops.op[o].valid[q] = op_valid[3 * o + q];
     ops.op[o].table = op_table[o];
     ops.op[o].mult = op_mult[o];
@@ -258,9 +335,15 @@ BLZ_EXPORT int blz_slot_agg(
   EmitSet es;
   es.n = nemit;
   for (int c = 0; c < nemit; ++c) {
-    es.col[c].kind = emit_kind[c];
+    const int kd = emit_kind[c];
+    if (emit_table[c] == nullptr ||
+        ((kd == BLZ_EMIT_WHERE || kd >= BLZ_EMIT_CARRY) && emit_aux[c] == nullptr) ||
+        (kd == BLZ_EMIT_TOP && emit_aux2[c] == nullptr))
+      return (int)cudaErrorInvalidValue;
+    es.col[c].kind = kd;
     es.col[c].table = emit_table[c];
     es.col[c].aux = emit_aux[c];
+    es.col[c].aux2 = emit_aux2[c];
     es.col[c].out = emit_out[c];
   }
   const int64_t init_n = S > nb ? S : nb;
@@ -273,6 +356,12 @@ BLZ_EXPORT int blz_slot_agg(
         plan, ops, num_rows, present, overflow, brows, shift, nb);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    if (lex) {
+      blz_slot_lex_kernel<<<blz_blocks(num_rows), BLZ_THREADS, 0, stream>>>(plan, ops,
+                                                                            num_rows);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   err = blz_flag_offsets(present, S, offs, stream);
   if (err != cudaSuccess) return (int)err;

@@ -18,6 +18,17 @@
 //   FIRST  the row of least order wins: order_table[slot] = that order,
 //          table[slot] = its value (1, 2, 4 or 8 bytes), valid_table[slot]
 //          = the AND of its written-validity planes
+// and the limb ops of a wide-decimal state (the limb branches of
+// SumAgg/AvgAgg.update/merge, :320-377, :524-557, and MinMaxAgg's
+// _lex_scatter_minmax, :161, :728, :767):
+//   ADD_LO32 / ADD_HI32  table[slot] += src & 0xFFFFFFFF / src >> 32
+//          (arithmetic): the two-limb split of an int64 source
+//   RENORM the carry renormalisation of a limb sum (table = l0, limb
+//          tables l1 and, for three limbs, l2) at the rows' slots
+//          (_limb_renorm / _limb3_renorm)
+//   LEXMIN / LEXMAX  the extreme (l2, l1, l0) of the slot's rows (src =
+//          l2, limb sources l1, l0) replaces the state (table = s2, limb
+//          tables s1, s0) where it wins or has (valid_table) is false
 // each applied where the row exists and all of the op's (up to three)
 // validity planes hold.
 //
@@ -29,6 +40,15 @@
 //     a NaN on either side gives the quiet NaN 0x7FF8...: a commutative,
 //     associative rule, so any order gives the same bits), FLAG with a
 //     plain byte store (every writer stores 1);
+//   blz_upd_renorm_kernel, one thread per row, after the adds: RENORM
+//     moves each limb's carry (its arithmetic >> 32) into the next limb
+//     with a CAS on the limb: only the thread whose CAS lands moves that
+//     carry, every thread that adds to a limb normalises it after, so the
+//     touched slots end normal and their values unchanged whatever the
+//     schedule (renormalisation is idempotent, and the untouched slots are
+//     already normal). Limb sums stay exact: l0 and l1 of a slot grow by
+//     less than 2^32 a row between two renormalisations, and l2 wraps mod
+//     2^64 as the reference's does (ir/aggstate.py);
 //   blz_upd_fold_kernel, one thread per run of a slot in the rows sorted
 //     stably by slot (K5's radix sort over the slot words): float ADD is a
 //     left fold in row order that starts from the slot's current value, bit
@@ -36,7 +56,12 @@
 //     least order of the run and, of the rows tied on it, the last in row
 //     order, and writes where that order is at most the slot's: the
 //     reference's min scatter then set scatter, whose last writer wins on
-//     tied orders (partial states of different map tasks share orders).
+//     tied orders (partial states of different map tasks share orders);
+//     LEXMIN / LEXMAX take the run's best (l2 signed, then the low word
+//     (l1 << 32) | l0 unsigned: l1 and l0 are non-negative 32-bit chunks,
+//     so this is the reference's cascade) and write it where it beats the
+//     slot's state or the slot has none. The sort is by slot only: the
+//     fold compares values, so the order of tied values does not matter.
 //     No atomics: their order changes from run to run.
 // A touched float slot that holds a NaN ends as the quiet NaN, so the
 // card and the host agree to the bit.
@@ -55,7 +80,8 @@
 #define BLZ_I64_MAX 0x7FFFFFFFFFFFFFFFLL
 
 enum { BLZ_UPD_ADD = 0, BLZ_UPD_MIN = 1, BLZ_UPD_MAX = 2, BLZ_UPD_FLAG = 3,
-       BLZ_UPD_FIRST = 4 };
+       BLZ_UPD_FIRST = 4, BLZ_UPD_ADD_LO32 = 5, BLZ_UPD_ADD_HI32 = 6, BLZ_UPD_RENORM = 7,
+       BLZ_UPD_LEXMIN = 8, BLZ_UPD_LEXMAX = 9 };
 
 struct UpdOp {
   int kind;
@@ -70,6 +96,8 @@ struct UpdOp {
   void* table;
   uint8_t* valid_table;
   long long* order_table;
+  const long long* limb_src[2];  // LEX: l1, l0
+  long long* limb_table[2];      // RENORM: l1, l2 (or null); LEX: s1, s0
 };
 
 struct UpdOpSet {
@@ -125,6 +153,14 @@ __global__ void blz_upd_atomic_kernel(const int64_t* slots, const uint8_t* mask,
         atomicAdd((unsigned long long*)op.table + s, x);
         break;
       }
+      case BLZ_UPD_ADD_LO32:
+        atomicAdd((unsigned long long*)op.table + s,
+                  (unsigned long long)(((const long long*)op.src)[i] & 0xFFFFFFFFLL));
+        break;
+      case BLZ_UPD_ADD_HI32:
+        atomicAdd((unsigned long long*)op.table + s,
+                  (unsigned long long)(((const long long*)op.src)[i] >> 32));
+        break;
       case BLZ_UPD_FLAG:
         ((uint8_t*)op.table)[s] = 1;
         break;
@@ -140,6 +176,44 @@ __global__ void blz_upd_atomic_kernel(const int64_t* slots, const uint8_t* mask,
         break;
     }
   }
+}
+
+// Move the carry of *lo (its arithmetic >> 32) into *hi, leaving *lo in
+// [0, 2^32): only the thread whose CAS replaces the value moves that carry.
+__device__ void blz_upd_carry(long long* lo, long long* hi) {
+  unsigned long long old = *(volatile unsigned long long*)lo;
+  while (true) {
+    const long long carry = (long long)old >> 32;
+    if (carry == 0) return;
+    const unsigned long long seen =
+        atomicCAS((unsigned long long*)lo, old, old & 0xFFFFFFFFull);
+    if (seen == old) {
+      atomicAdd((unsigned long long*)hi, (unsigned long long)carry);
+      return;
+    }
+    old = seen;
+  }
+}
+
+__global__ void blz_upd_renorm_kernel(const int64_t* slots, const uint8_t* mask,
+                                      int64_t n, int64_t cap, UpdOpSet ops) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n || !mask[i]) return;
+  const int64_t s = slots[i];
+  if (s < 0 || s >= cap) return;
+  for (int o = 0; o < ops.n; ++o) {
+    const UpdOp& op = ops.op[o];
+    if (!blz_upd_ok(op, i)) continue;
+    blz_upd_carry((long long*)op.table + s, op.limb_table[0] + s);
+    if (op.limb_table[1] != nullptr) blz_upd_carry(op.limb_table[0] + s, op.limb_table[1] + s);
+  }
+}
+
+// (a2, aw) beats (b2, bw): l2 signed first, then the low word unsigned.
+__device__ __forceinline__ bool blz_lex_better(long long a2, unsigned long long aw,
+                                               long long b2, unsigned long long bw,
+                                               bool is_max) {
+  return is_max ? (a2 > b2 || (a2 == b2 && aw > bw)) : (a2 < b2 || (a2 == b2 && aw < bw));
 }
 
 __device__ __forceinline__ void blz_upd_copy(void* dst, int64_t s, const void* src,
@@ -176,6 +250,32 @@ __global__ void blz_upd_fold_kernel(const int64_t* slots, const uint8_t* mask,
       }
       if (touched)
         ((long long*)op.table)[s] = isnan(a) ? BLZ_QNAN_BITS : __double_as_longlong(a);
+    } else if (op.kind == BLZ_UPD_LEXMIN || op.kind == BLZ_UPD_LEXMAX) {
+      const bool is_max = op.kind == BLZ_UPD_LEXMAX;
+      bool any = false;
+      long long b2 = 0;
+      unsigned long long bw = 0;
+      for (int64_t q = p; q < end; ++q) {
+        const int64_t r = perm[q];
+        if (!mask[r] || !blz_upd_ok(op, r)) continue;
+        const long long x2 = ((const long long*)op.src)[r];
+        const unsigned long long xw = ((unsigned long long)op.limb_src[0][r] << 32) |
+                                      (unsigned long long)op.limb_src[1][r];
+        if (!any || blz_lex_better(x2, xw, b2, bw, is_max)) {
+          b2 = x2;
+          bw = xw;
+          any = true;
+        }
+      }
+      if (!any) continue;
+      long long* s2 = (long long*)op.table;
+      const unsigned long long sw = ((unsigned long long)op.limb_table[0][s] << 32) |
+                                    (unsigned long long)op.limb_table[1][s];
+      if (op.valid_table[s] && !blz_lex_better(b2, bw, s2[s], sw, is_max)) continue;
+      s2[s] = b2;
+      op.limb_table[0][s] = (long long)(bw >> 32);
+      op.limb_table[1][s] = (long long)(bw & 0xFFFFFFFFull);
+      op.valid_table[s] = 1;
     } else {  // FIRST
       long long best = BLZ_I64_MAX;
       int64_t last = -1;
@@ -208,7 +308,10 @@ __global__ void blz_upd_fold_kernel(const int64_t* slots, const uint8_t* mask,
 // op_valid[3*o + q], table (cap values), and for FIRST
 // the esize, the order plane (n int64), op_nwvalid[o] written-validity
 // planes at op_wvalid[3*o + q], the valid table (cap bool bytes) and the
-// order table (cap int64).
+// order table (cap int64); for the limb ops two limb sources (n int64,
+// LEX: l1, l0) at limb_src[2*o + q] and two limb tables (cap int64;
+// RENORM: l1 and l2 or null; LEX: s1, s0) at limb_table[2*o + q]
+// (LEX also takes the valid table, the has flags).
 BLZ_EXPORT int blz_slot_update(
     const int64_t* slots, const uint8_t* mask, int64_t n, int64_t cap,
     const int64_t* perm, int nops, const int* op_kind, const int* op_float,
@@ -217,10 +320,11 @@ BLZ_EXPORT int blz_slot_update(
     const int* op_esize,
     const long long* const* op_order, const int* op_nwvalid,
     const uint8_t* const* op_wvalid, uint8_t* const* op_valid_table,
-    long long* const* op_order_table, cudaStream_t stream) {
+    long long* const* op_order_table, const long long* const* limb_src,
+    long long* const* limb_table, cudaStream_t stream) {
   if (nops > BLZ_MAX_UPD_OPS || n < 0 || cap <= 0) return (int)cudaErrorInvalidValue;
-  UpdOpSet atomic_ops, fold_ops;
-  atomic_ops.n = fold_ops.n = 0;
+  UpdOpSet atomic_ops, renorm_ops, fold_ops;
+  atomic_ops.n = renorm_ops.n = fold_ops.n = 0;
   for (int o = 0; o < nops; ++o) {
     UpdOp op;
     op.kind = op_kind[o];
@@ -237,10 +341,25 @@ BLZ_EXPORT int blz_slot_update(
     op.table = op_table[o];
     op.valid_table = op_valid_table[o];
     op.order_table = op_order_table[o];
-    if (op.kind < BLZ_UPD_ADD || op.kind > BLZ_UPD_FIRST || op.nvalid > 3 ||
+    for (int q = 0; q < 2; ++q) {
+      op.limb_src[q] = limb_src[2 * o + q];
+      op.limb_table[q] = limb_table[2 * o + q];
+    }
+    if (op.kind < BLZ_UPD_ADD || op.kind > BLZ_UPD_LEXMAX || op.nvalid > 3 ||
         op.nwvalid > 3 || op.table == nullptr)
       return (int)cudaErrorInvalidValue;
-    const bool folds = op.kind == BLZ_UPD_FIRST || (op.kind == BLZ_UPD_ADD && op.is_float);
+    const bool lex = op.kind == BLZ_UPD_LEXMIN || op.kind == BLZ_UPD_LEXMAX;
+    if (lex && (op.src == nullptr || op.limb_src[0] == nullptr || op.limb_src[1] == nullptr ||
+                op.limb_table[0] == nullptr || op.limb_table[1] == nullptr ||
+                op.valid_table == nullptr))
+      return (int)cudaErrorInvalidValue;
+    if (op.kind == BLZ_UPD_RENORM) {
+      if (op.limb_table[0] == nullptr) return (int)cudaErrorInvalidValue;
+      renorm_ops.op[renorm_ops.n++] = op;
+      continue;
+    }
+    const bool folds = op.kind == BLZ_UPD_FIRST || lex ||
+                       (op.kind == BLZ_UPD_ADD && op.is_float);
     if (folds) {
       if (perm == nullptr || op.src == nullptr) return (int)cudaErrorInvalidValue;
       if (op.kind == BLZ_UPD_FIRST &&
@@ -249,7 +368,8 @@ BLZ_EXPORT int blz_slot_update(
         return (int)cudaErrorInvalidValue;
       fold_ops.op[fold_ops.n++] = op;
     } else {
-      if ((op.kind == BLZ_UPD_MIN || op.kind == BLZ_UPD_MAX) && op.src == nullptr)
+      if ((op.kind == BLZ_UPD_MIN || op.kind == BLZ_UPD_MAX || op.kind == BLZ_UPD_ADD_LO32 ||
+           op.kind == BLZ_UPD_ADD_HI32) && op.src == nullptr)
         return (int)cudaErrorInvalidValue;
       atomic_ops.op[atomic_ops.n++] = op;
     }
@@ -258,6 +378,12 @@ BLZ_EXPORT int blz_slot_update(
   if (atomic_ops.n) {
     blz_upd_atomic_kernel<<<blz_blocks(n), BLZ_THREADS, 0, stream>>>(
         slots, mask, n, cap, atomic_ops);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (renorm_ops.n) {
+    blz_upd_renorm_kernel<<<blz_blocks(n), BLZ_THREADS, 0, stream>>>(
+        slots, mask, n, cap, renorm_ops);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

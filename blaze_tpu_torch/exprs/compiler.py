@@ -9,8 +9,12 @@ use Kleene logic, division/modulo by zero yield NULL (non-ANSI).
 
 Ported: Column, BoundReference, Literal (decimal literals rescaled to
 their type), comparison/arithmetic/bitwise/logical BinaryExpr, IsNull,
-IsNotNull, Not, InList. Anything else raises NotImplementedError naming
-the ROADMAP item that ports it; there is no host fallback.
+IsNotNull, Not, InList. A bare reference to a decimal(19..38) column
+evaluates to its three limb planes (a ``DevVal`` whose data is the
+``(l0, l1, l2)`` tuple), which only aggregates and the plane movers read;
+any other expression over such a column raises (ROADMAP.md Queue 1 item
+18). Anything else raises NotImplementedError naming the ROADMAP item
+that ports it; there is no host fallback.
 
 Whole-stage fusion reads this module too: ``fusable_expr`` is the JAX
 package's whitelist of expressions a fused chain may hold,
@@ -28,7 +32,7 @@ from typing import Any, List, Optional
 
 import torch
 
-from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
+from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn, WideColumn
 from blaze_tpu_torch.exprs import decimal as dec
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
@@ -37,7 +41,8 @@ from blaze_tpu_torch.ir import types as T
 @dataclasses.dataclass
 class DevVal:
     """Device value: data + validity (capacity-long, or 0-d for a
-    literal), plus its logical type."""
+    literal), plus its logical type. A wide decimal's data is its
+    ``(l0, l1, l2)`` plane tuple."""
 
     dtype: T.DataType
     data: torch.Tensor
@@ -64,6 +69,12 @@ class ExprEvaluator:
     def __init__(self, exprs: List[E.Expr], input_schema: T.Schema):
         self.exprs = exprs
         self.input_schema = input_schema
+        for e in exprs:  # a bare wide column is its planes; nothing else reads one
+            if not isinstance(e, (E.Column, E.BoundReference)) and \
+                    touches_wide(e, input_schema):
+                raise NotImplementedError(
+                    f"expression {type(e).__name__} over a decimal wider than 18 digits "
+                    "is not ported to the PyTorch package yet (ROADMAP.md Queue 1 item 18)")
 
     # -- public API -----------------------------------------------------------
 
@@ -88,9 +99,12 @@ class ExprEvaluator:
     # -- value conversions ----------------------------------------------------
 
     @staticmethod
-    def _to_column(val: DevVal, batch: ColumnarBatch) -> DeviceColumn:
+    def _to_column(val: DevVal, batch: ColumnarBatch):
+        exists = batch.row_exists_mask()
+        if isinstance(val.data, tuple):
+            return WideColumn(val.dtype, *val.data, val.validity & exists)
         data, validity = broadcast(val, batch)
-        return DeviceColumn(val.dtype, data, validity & batch.row_exists_mask())
+        return DeviceColumn(val.dtype, data, validity & exists)
 
     # -- leaves ---------------------------------------------------------------
 
@@ -101,6 +115,8 @@ class ExprEvaluator:
     def _eval_BoundReference(self, expr: E.BoundReference,
                              batch: ColumnarBatch) -> DevVal:
         col = batch.columns[expr.index]
+        if isinstance(col, WideColumn):
+            return DevVal(col.dtype, tuple(col.planes()), col.validity)
         return DevVal(batch.schema[expr.index].dtype, col.data, col.validity)
 
     def _eval_Literal(self, expr: E.Literal, batch: ColumnarBatch) -> DevVal:
@@ -142,7 +158,7 @@ class ExprEvaluator:
             if not res_t.fits_int64:
                 raise NotImplementedError(
                     f"decimal arithmetic into {res_t!r} (wider than 18 digits) "
-                    "is not ported yet (ROADMAP.md Queue 1 item 6)")
+                    "is not ported yet (ROADMAP.md Queue 1 item 18)")
             if _is_float(ldt) or _is_float(rdt):
                 out = _float_op(op, self._decimal_to_f64(l), self._decimal_to_f64(r))
                 scaled = out * float(10 ** res_t.scale)
@@ -294,8 +310,11 @@ def _ones(batch: ColumnarBatch) -> torch.Tensor:
 
 
 def broadcast(v: DevVal, batch: ColumnarBatch):
-    """(data, validity) of a value, 0-d literals expanded to the batch."""
+    """(data, validity) of a value, 0-d literals expanded to the batch (a
+    wide value's plane tuple is never a literal)."""
     data, validity = v.data, v.validity
+    if isinstance(data, tuple):
+        return data, validity
     if data.ndim == 0:
         data = data.expand(batch.capacity).contiguous()
     if validity.ndim == 0:
@@ -333,9 +352,10 @@ def make_literal(value: Any, dtype: T.DataType, device: torch.device) -> DevVal:
     e.g. "500.00", stored unscaled)."""
     tdt = T.torch_dtype(dtype)
     if tdt is None:
+        item = "18" if T.is_wide_decimal(dtype) else "6b"
         raise NotImplementedError(
             f"literal of type {dtype!r} has no device plane in the PyTorch "
-            "port yet (ROADMAP.md Queue 1 item 6)")
+            f"port yet (ROADMAP.md Queue 1 item {item})")
     if value is None:
         return DevVal(dtype, torch.zeros((), dtype=tdt, device=device),
                       torch.zeros((), dtype=torch.bool, device=device))
@@ -386,13 +406,39 @@ def _is_device_type(dt: T.DataType) -> bool:
     return T.torch_dtype(dt) is not None
 
 
+def touches_wide(expr: E.Expr, schema: T.Schema) -> bool:
+    """Does the expression read a decimal(19..38) column of ``schema``, by
+    name or by index (blaze_tpu/ops/agg_device.py ``_touches_wide``)?"""
+    if isinstance(expr, E.Column):
+        try:
+            return T.is_wide_decimal(schema[schema.index_of(expr.name)].dtype)
+        except (KeyError, ValueError):
+            return False
+    if isinstance(expr, E.BoundReference):
+        return 0 <= expr.index < len(schema) and \
+            T.is_wide_decimal(schema[expr.index].dtype)
+    return any(touches_wide(c, schema) for c in expr.children())
+
+
+def require_narrow_key(dt: T.DataType, what: str) -> None:
+    """A group, join, sort or partition key must have one device plane;
+    the reference keeps a wide-decimal key on host columns."""
+    if T.is_wide_decimal(dt):
+        raise NotImplementedError(
+            f"a {what} of type {dt!r} (a decimal wider than 18 digits, a host "
+            "column in the JAX package) is not ported to the PyTorch package yet "
+            "(ROADMAP.md Queue 1 item 6b)")
+
+
 def fusable_expr(expr: E.Expr, schema: T.Schema) -> bool:
     """The JAX package's whitelist of expressions a fused chain may hold
     (blaze_tpu/exprs/compiler.py:967): pure device expressions whose
-    result lives on the device. Case, Cast and TryCast pass it as they do
+    result lives on the device, reading no wide-decimal column (a fused
+    chain traces no limb plane). Case, Cast and TryCast pass it as they do
     there; their evaluation is not ported and raises, fused or not."""
     try:
-        return _fusable(expr, schema) and _is_device_type(E.infer_type(expr, schema))
+        return not touches_wide(expr, schema) and _fusable(expr, schema) and \
+            _is_device_type(E.infer_type(expr, schema))
     except Exception:
         return False
 

@@ -6,9 +6,11 @@ timestamp-micros/decimal128/list/map/struct) with Spark semantics.
 
 Physical mapping (see core/batch.py): fixed-width types are dense torch
 tensors on the session's device plus a bool validity tensor;
-decimal(p<=18) is the unscaled int64. Var-width, nested and wide-decimal
-types are not on this package's device path yet (``torch_dtype`` returns
-None for them; ROADMAP.md Queue 1).
+decimal(p<=18) is the unscaled int64; decimal(19..38) is three int64
+planes (``is_wide_decimal``, core/batch.py ``WideColumn``), which only
+aggregates and the plane movers read. Var-width and nested types are not
+on this package's device path yet (``torch_dtype`` returns None for them
+and for wide decimals; ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -102,7 +104,7 @@ class TimestampType(DataType):
 @dataclasses.dataclass(frozen=True, eq=False)
 class DecimalType(DataType):
     """Spark decimal(precision, scale). precision<=18 is carried as a scaled
-    int64 on device; larger precisions use two int64 limbs (hi, lo)."""
+    int64 on device; larger precisions as three int64 limbs (a WideColumn)."""
 
     precision: int = 10
     scale: int = 0
@@ -274,6 +276,12 @@ class Schema:
 
     def __add__(self, other: "Schema") -> "Schema":
         return Schema(self.fields + other.fields)
+
+
+def is_wide_decimal(dt: DataType) -> bool:
+    """decimal(19..38): a value too wide for one int64, carried as three
+    int64 limb planes (blaze_tpu/ops/agg_device.py ``_is_wide_dec``)."""
+    return isinstance(dt, DecimalType) and not dt.fits_int64 and dt.precision <= 38
 
 
 def torch_dtype(dt: DataType) -> Optional[torch.dtype]:

@@ -41,8 +41,9 @@ import numpy as np
 import torch
 
 from blaze_tpu_torch.core import kernels as K
-from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn, iota
-from blaze_tpu_torch.exprs.compiler import ExprEvaluator, broadcast
+from blaze_tpu_torch.core.batch import (ColumnarBatch, DeviceColumn, column_planes,
+                                        columns_from_planes, iota)
+from blaze_tpu_torch.exprs.compiler import ExprEvaluator, broadcast, require_narrow_key
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ir.aggstate import (_arg_type_from_state,
@@ -76,6 +77,8 @@ class AggExec(Operator):
         self.supports_partial_skipping = supports_partial_skipping
         schema = agg_output_schema(child.schema, groupings, aggs,
                                    self.input_is_partial, self.is_partial_output)
+        for f in schema.fields[:len(groupings)]:
+            require_narrow_key(f.dtype, "grouping key")
         super().__init__(schema, [child])
 
     @property
@@ -97,14 +100,16 @@ class AggExec(Operator):
         fns = []
         pos = len(self.groupings)
         for a in self.aggs:
-            if parse_state_mode(child_schema[pos].name) is not None:
-                _not_ported("a wide-decimal (limb) aggregate state", "Queue 1 item 2")
+            # the limb layout is the partial producer's decision, read off
+            # the wire schema, never derived again (``_partial_arg_schema``)
+            mode = parse_state_mode(child_schema[pos].name)
             arg = _arg_type_from_state(a.agg, child_schema, pos)
             agg = a.agg
             if agg.args:
                 agg = E.AggExpr(agg.fn, [E.Column("arg")], agg.return_type, agg.udaf)
             fn = aggfns.create_agg_function(
-                agg, T.Schema((T.StructField("arg", arg),)))
+                agg, T.Schema((T.StructField("arg", arg),)),
+                limbs=mode[0] if mode is not None else False)
             pos += len(fn.state_fields())
             fns.append(fn)
         return fns
@@ -368,9 +373,8 @@ class AggTable:
         cap = self.ctx.conf.capacity_for(length)
         cols = [] if keys is None else self._key_columns(keys[off:off + length], cap)
         if agg_cols:
-            datas, valids = K.slice_planes([c.data for c in agg_cols],
-                                           [c.validity for c in agg_cols], off, length, cap)
-            cols += [DeviceColumn(c.dtype, d, v) for c, d, v in zip(agg_cols, datas, valids)]
+            datas, valids = K.slice_planes(*column_planes(agg_cols), off, length, cap)
+            cols += columns_from_planes([c.dtype for c in agg_cols], datas, valids)
         return ColumnarBatch(self.op.schema, cols, length)
 
     def _global_empty_row(self) -> ColumnarBatch:

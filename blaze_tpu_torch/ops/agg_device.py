@@ -26,17 +26,21 @@ Counterpart of blaze_tpu/ops/agg_device.py's ``DevicePartialAgger`` and
   route's group order and its per-group fold order, bit for bit.
 
 All kernels run one program described by two lists: *ops* (ADD / COUNT /
-MIN / MAX into a table, gated by up to three validity planes) and *emits*
-(RAW table value, NONZERO flag, or the value WHERE a companion count is
-nonzero). ``_partial_program`` and ``_merge_program`` spell
-SUM/COUNT/AVG/MIN/MAX with them, exactly as ``_reduce_aggs`` and
-``_merge_reduce`` compute them in the JAX package; ``_run_plain`` is the
-plain PyTorch version of the slot kernels, and core/kernels.py holds
-K10's twins.
+MIN / MAX into a table, gated by up to three validity planes, and the
+limb ops of core/kernels.py) and *emits* (RAW table value, NONZERO flag,
+the value WHERE a companion count is nonzero, and the limb emits).
+``_partial_program`` and ``_merge_program`` spell SUM/COUNT/AVG/MIN/MAX
+with them, exactly as ``_reduce_aggs`` and ``_merge_reduce`` compute them
+in the JAX package, the wide-decimal kinds included: sum2/avg2 (a
+decimal(9..18) argument summed into decimal(19..28) as two limbs),
+sum3/avg3 (a decimal(19..38) argument as three limbs) and minw/maxw (its
+extremes, compared lexicographically); ``_run_plain`` is the plain
+PyTorch version of the slot kernels, and core/kernels.py holds K10's
+twins.
 
-Not ported: wide-decimal (limb) states and any aggregate outside
-ops/aggfns.py (NotImplementedError naming ROADMAP.md), and the
-passthrough kernel of partial skipping (Queue 2 row 9).
+Not ported: any aggregate outside ops/aggfns.py (NotImplementedError
+naming ROADMAP.md), and the passthrough kernel of partial skipping
+(Queue 2 row 9).
 """
 
 from __future__ import annotations
@@ -49,8 +53,9 @@ import torch
 from blaze_tpu_torch.core import kernels as K
 from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn, iota
 from blaze_tpu_torch.core.kernels import (EMIT_NONZERO, EMIT_RAW, EMIT_WHERE,
-                                          OP_ADD, OP_COUNT, OP_MAX, OP_MIN,
-                                          AggEmit, AggOp)
+                                          OP_ADD, OP_ADD_HI32, OP_ADD_LO32, OP_COUNT,
+                                          OP_MAX, OP_MIN, AggEmit, AggOp, lex_emits,
+                                          lex_ops, limb_emits)
 from blaze_tpu_torch.exprs.compiler import ExprEvaluator, broadcast
 from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ops import aggfns
@@ -64,7 +69,7 @@ _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not on the PyTorch port yet (ROADMAP.md Queue 1 item 2)")
+        f"{what} is not on the PyTorch port yet (ROADMAP.md Queue 1 item 3)")
 
 
 # -- the slot program ----------------------------------------------------------
@@ -91,7 +96,20 @@ def _partial_program(specs, args):
     emits: List[AggEmit] = []
     for (kind, rescale, acc), (data, valid) in zip(specs, args):
         t = len(ops)
-        if kind in ("sum", "avg"):
+        if kind in ("sum2", "avg2"):
+            src = _widen(data)
+            ops += [AggOp(OP_ADD_LO32, src, [valid]), AggOp(OP_ADD_HI32, src, [valid]),
+                    AggOp(OP_COUNT, None, [valid])]
+            emits += limb_emits(t, 2) + [_has_or_count(kind, t + 2)]
+        elif kind in ("sum3", "avg3"):
+            ops += [AggOp(OP_ADD, limb, [valid]) for limb in data] + \
+                [AggOp(OP_COUNT, None, [valid])]
+            emits += limb_emits(t, 3) + [_has_or_count(kind, t + 3)]
+        elif kind in ("minw", "maxw"):
+            l0, l1, l2 = data
+            ops += lex_ops(kind[:3], l0, l1, l2, [valid]) + [AggOp(OP_COUNT, None, [valid])]
+            emits += lex_emits(t, t + 2) + [AggEmit(EMIT_NONZERO, t + 2, torch.bool)]
+        elif kind in ("sum", "avg"):
             src = _widen(data, acc == "float64")  # widen BEFORE accumulating
             ops += [AggOp(OP_ADD, src, [valid], 10 ** rescale),
                     AggOp(OP_COUNT, None, [valid])]
@@ -112,6 +130,13 @@ def _partial_program(specs, args):
     return ops, emits
 
 
+def _has_or_count(kind: str, table: int) -> AggEmit:
+    """A SUM's has flag (NONZERO), an AVG's count (RAW)."""
+    if kind.startswith("avg"):
+        return AggEmit(EMIT_RAW, table, torch.int64)
+    return AggEmit(EMIT_NONZERO, table, torch.bool)
+
+
 def _merge_program(kinds, states):
     """Ops/emits of ``_merge_reduce``. ``states[i]`` is aggregate i's list
     of (data, valid) state-column pairs, valid already masked with
@@ -120,7 +145,21 @@ def _merge_program(kinds, states):
     emits: List[AggEmit] = []
     for kind, scols in zip(kinds, states):
         t = len(ops)
-        if kind == "sum":
+        if kind in aggfns.LIMB_KINDS:
+            # limbs, then the has flag or count; the first limb's validity
+            # and the flag or count gate the row (``_merge_reduce``)
+            *limbs, (sd, sv) = scols
+            gate = [limbs[0][1], sd if sd.dtype == torch.bool else sd != 0, sv]
+            datas = [d for d, _ in limbs]
+            if kind in ("minw", "maxw"):
+                ops += lex_ops(kind[:3], *datas, gate) + [AggOp(OP_COUNT, None, gate)]
+                emits += lex_emits(t, t + 2) + [AggEmit(EMIT_NONZERO, t + 2, torch.bool)]
+                continue
+            ops += [AggOp(OP_ADD, d, gate) for d in datas]
+            ops.append(AggOp(OP_ADD, sd, gate) if kind.startswith("avg")
+                       else AggOp(OP_COUNT, None, gate))
+            emits += limb_emits(t, len(datas)) + [_has_or_count(kind, t + len(datas))]
+        elif kind == "sum":
             (sd, sv), (hd, hv) = scols
             gate = [sv, hd, hv]
             ops += [AggOp(OP_ADD, _widen(sd), gate), AggOp(OP_COUNT, None, gate)]
@@ -167,17 +206,24 @@ def _run_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes, ops, emits,
     seg, fits = K.radix_pack(keys, [v & exists for v in kvalids], exists,
                              bases, sizes, strides)
     tables = []
-    for op in ops:
+    for o, op in enumerate(ops):
         ok = exists
         for v in op.valids:
             ok = ok & v.to(torch.bool)
+        if op.kind in (K.OP_LEXMIN, K.OP_LEXMAX):
+            lo = ops[o + 1]
+            tables += [t[:S] for t in K.lex_tables_plain(
+                seg, ok, op.src, lo.src, lo.src0, S + 1, op.kind == K.OP_LEXMAX)]
+            continue
+        if op.kind == K.OP_LEXLO:
+            continue
         table = torch.full((S + 1,), op.init, dtype=torch.int64, device=dev)
         if op.kind == OP_COUNT:
             table.index_add_(0, seg, ok.to(torch.int64))
         else:
             src = op.src.to(torch.int64)
-            if op.kind == OP_ADD:
-                table.index_add_(0, seg, torch.where(ok, src * op.mult, 0))
+            if op.kind in (OP_ADD, OP_ADD_LO32, OP_ADD_HI32):
+                table.index_add_(0, seg, torch.where(ok, K.op_contrib(op, src), 0))
             else:
                 table.scatter_reduce_(0, seg, torch.where(ok, src, op.init),
                                       "amin" if op.kind == OP_MIN else "amax")
@@ -202,13 +248,8 @@ def _run_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes, ops, emits,
         results.append(torch.where(out_valid, compact(kdata), 0).to(kdt))
         results.append(compact(code > 0) & out_valid)
     for e in emits:
-        t = tables[e.table]
-        if e.kind == EMIT_NONZERO:
-            results.append(compact(t != 0))
-        elif e.kind == EMIT_WHERE:
-            results.append(compact(torch.where(tables[e.aux] != 0, t, 0)).to(e.dtype))
-        else:
-            results.append(compact(t).to(e.dtype))
+        x = compact(K.emit_plain(e, tables))
+        results.append(x if e.kind == EMIT_NONZERO else x.to(e.dtype))
     if nbuck:
         shift, nb = K.radix_bucket_shift(S, nbuck)
         rows = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
@@ -220,15 +261,18 @@ def _run_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes, ops, emits,
 
 
 def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
-              emits, out_cap, nbuck):
+              emits, out_cap, nbuck, kinds=()):
     """The slot program on the card (csrc/slot_agg.cu); same outputs as
-    :func:`_run_plain`."""
+    :func:`_run_plain`. ``kinds``: the program's limb aggregate kinds,
+    counted per launch."""
     dev = kvalids[0].device
+    K.check_limb_program(name, ops, emits)
     keys64 = [k.to(torch.int64).contiguous() for k in keys]
     srcs = [op.src.contiguous() if op.src is not None else None for op in ops]
+    src0s = [op.src0.contiguous() if op.src0 is not None else None for op in ops]
     cuda_lib.require_cuda(name, *keys64, *kvalids,
                           *[v for op in ops for v in op.valids],
-                          *[s for s in srcs if s is not None])
+                          *[s for s in srcs + src0s if s is not None])
     for v in list(kvalids) + [v for op in ops for v in op.valids]:
         if v.dtype != torch.bool:
             raise TypeError(f"{name}: validity plane of dtype {v.dtype}")
@@ -271,12 +315,13 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
         len(keys), arg(P(keys64)), arg(P(kvalids)),
         arg(Iv(bases, LL)), arg(Iv(sizes, LL)), arg(Iv(strides, LL)),
         num_rows, len(ops), arg(Iv([op.kind for op in ops])),
-        arg(P(srcs)), arg(Iv([len(op.valids) for op in ops])), arg(P(op_valid)),
-        arg(P([tables[i] for i in range(len(ops))])),
+        arg(P(srcs)), arg(P(src0s)), arg(Iv([len(op.valids) for op in ops])),
+        arg(P(op_valid)), arg(P([tables[i] for i in range(len(ops))])),
         arg(Iv([op.mult for op in ops], LL)), arg(Iv([op.init for op in ops], LL)),
         len(emits), arg(Iv([e.kind for e in emits])),
         arg(P([tables[e.table] for e in emits])),
         arg(P([tables[e.aux] if e.aux >= 0 else None for e in emits])),
+        arg(P([tables[e.aux2] if e.aux2 >= 0 else None for e in emits])),
         arg(P(emit_out)),
         S, present.data_ptr(), offs.data_ptr(), overflow.data_ptr(), out_cap,
         arg(P(key_out)), arg(P(kvalid_out)), count.data_ptr(),
@@ -284,6 +329,7 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
         shift, nb, cuda_lib.stream_of(dev))
     cuda_lib.check(err, name)
     cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count_limb_launch(name, kinds)
     out_valid = iota(out_cap, dev) < count[1]
     results = [count[0], out_valid]
     for kd, kv, kdt in zip(key_out, kvalid_out, key_dtypes):
@@ -295,13 +341,17 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
     return tuple(results)
 
 
-def _run(name, *args):
+def _run(name, kinds, *args):
     ops = args[6]
     if any(op.is_float for op in ops):
         # K3/K4 add with atomics: a float sum would depend on their order
         raise TypeError(f"{name}: float states take the sort route (K10)")
     on_cuda = args[1][0].is_cuda  # key validity planes
-    return _run_cuda(name, *args) if on_cuda else _run_plain(*args)
+    return _run_cuda(name, *args, kinds=kinds) if on_cuda else _run_plain(*args)
+
+
+def _limb_kinds(kinds) -> tuple:
+    return tuple(k for k in kinds if k in aggfns.LIMB_KINDS)
 
 
 def slot_agg_partial(keys, kvalids, key_dtypes, num_rows, bases, sizes, specs,
@@ -311,8 +361,8 @@ def slot_agg_partial(keys, kvalids, key_dtypes, num_rows, bases, sizes, specs,
     valid); per aggregate its state arrays; [per-bucket rows, groups] when
     ``nbuck``) — the outputs of ``_dense_partial_kernel``."""
     ops, emits = _partial_program(specs, args)
-    return _run("slot_agg_partial", keys, kvalids, key_dtypes, num_rows, bases,
-                sizes, ops, emits, out_cap, nbuck)
+    return _run("slot_agg_partial", _limb_kinds(s[0] for s in specs), keys, kvalids,
+                key_dtypes, num_rows, bases, sizes, ops, emits, out_cap, nbuck)
 
 
 def slot_agg_partial_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes,
@@ -327,8 +377,8 @@ def slot_agg_merge(keys, kvalids, key_dtypes, num_rows, bases, sizes, kinds,
     """K4: partial states -> merged states in slot order; the outputs of
     ``_radix_merge_kernel``."""
     ops, emits = _merge_program(kinds, states)
-    return _run("slot_agg_merge", keys, kvalids, key_dtypes, num_rows, bases,
-                sizes, ops, emits, out_cap, 0)
+    return _run("slot_agg_merge", _limb_kinds(kinds), keys, kvalids, key_dtypes,
+                num_rows, bases, sizes, ops, emits, out_cap, 0)
 
 
 def slot_agg_merge_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes,
@@ -338,7 +388,7 @@ def slot_agg_merge_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes,
                       emits, out_cap, 0)
 
 
-def _run_sorted(name, keys, kvalids, num_rows, ops, emits, direct):
+def _run_sorted(name, keys, kvalids, num_rows, ops, emits, direct, kinds=()):
     """The sort route (K5 sort, K10 segments and reduction, K6 take of each
     group's keys from its first row); outputs as the slot program's, with
     capacity-long planes: (group count, out_valid, per key (data, valid),
@@ -347,7 +397,8 @@ def _run_sorted(name, keys, kvalids, num_rows, ops, emits, direct):
     cap = kvalids[0].shape[0]
     exists = iota(cap, dev) < num_rows
     order, starts, count = K.segment_ids(keys, kvalids, exists, num_rows, direct)
-    outs, first = K.segment_reduce(name, order, starts, count, num_rows, ops, emits)
+    outs, first = K.segment_reduce(name, order, starts, count, num_rows, ops, emits,
+                                   _limb_kinds(kinds))
     num_groups = int(count)
     kd, kv = K.gather_planes(keys, kvalids, first, cap, num_groups)
     results = [num_groups, iota(cap, dev) < num_groups]
@@ -365,7 +416,7 @@ def seg_agg_partial(keys, kvalids, num_rows, specs, args, direct=True):
     (nulls last); without it groups come in the slot routes' order."""
     ops, emits = _partial_program(specs, args)
     return _run_sorted("seg_agg_partial", keys, kvalids, num_rows, ops, emits,
-                       direct)
+                       direct, [s[0] for s in specs])
 
 
 def seg_agg_merge(keys, kvalids, num_rows, kinds, states, direct=True):
@@ -373,7 +424,7 @@ def seg_agg_merge(keys, kvalids, num_rows, kinds, states, direct=True):
     of ``_merge_kernel``."""
     ops, emits = _merge_program(kinds, states)
     return _run_sorted("seg_agg_merge", keys, kvalids, num_rows, ops, emits,
-                       direct)
+                       direct, kinds)
 
 
 # -- planning ------------------------------------------------------------------
@@ -459,6 +510,10 @@ class DevicePartialAgger:
                     for a in op.aggs]
         self.specs = []
         for fn in self.fns:
+            if fn.device_kind in aggfns.LIMB_KINDS:
+                # the limb layouts keep the argument's scale (ir/aggstate.py)
+                self.specs.append((fn.device_kind, 0, "int64"))
+                continue
             rescale = 0
             if isinstance(fn.arg_type, T.DecimalType):
                 target = fn.sum_type if fn.kind == "avg" else fn.result_type
@@ -587,7 +642,12 @@ class DevicePartialAgger:
                                      outs[pos + 1] & out_valid))
             pos += 2
         for fn in self.fns:
-            if fn.kind == "sum":
+            if fn.device_kind in aggfns.LIMB_KINDS:
+                # every state plane valid on the groups (``_assemble``)
+                for _, dt in fn.state_fields():
+                    cols.append(DeviceColumn(dt, outs[pos], out_valid))
+                    pos += 1
+            elif fn.kind == "sum":
                 s, has = outs[pos], outs[pos + 1]
                 cols += [DeviceColumn(fn.result_type, s, has & out_valid),
                          DeviceColumn(T.BOOL, has, out_valid)]
@@ -620,7 +680,7 @@ class DeviceMergeAgger:
         self.child_schema = child_schema
         self.conf = conf
         self.fns = op.make_fns(child_schema)
-        self.kinds = tuple(fn.kind for fn in self.fns)
+        self.kinds = tuple(fn.device_kind for fn in self.fns)
 
     def run(self, batches: List[ColumnarBatch]) -> List[ColumnarBatch]:
         op = self.op

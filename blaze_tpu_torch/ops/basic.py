@@ -13,7 +13,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 from blaze_tpu_torch.core import kernels
-from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
+from blaze_tpu_torch.core.batch import ColumnarBatch, column_planes, columns_from_planes
 from blaze_tpu_torch.exprs.compiler import ExprEvaluator
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
@@ -45,16 +45,15 @@ class FilterExec(Operator):
         for batch in self.execute_child(0, partition, ctx):
             mask = pred_ev.evaluate_predicate(batch)
             count, datas, valids = kernels.compact_planes(
-                [c.data for c in batch.columns],
-                [c.validity for c in batch.columns], mask)
+                *column_planes(batch.columns), mask)
             if count == 0:
                 continue
             if count == batch.num_rows:
                 yield batch
                 continue
-            cols = [DeviceColumn(c.dtype, d, v)
-                    for c, d, v in zip(batch.columns, datas, valids)]
-            yield ColumnarBatch(batch.schema, cols, count)
+            yield ColumnarBatch(batch.schema,
+                                columns_from_planes(batch.schema.types, datas, valids),
+                                count)
 
 
 class CoalesceBatchesExec(Operator):

@@ -110,10 +110,11 @@ class FusedStageExec(Operator):
     def _fused_stream(self, stream, seg: _FusedSegment):
         for batch in stream:
             cols = batch.columns
-            if not cols or len({c.capacity for c in cols}) != 1:
+            if not all(isinstance(c, DeviceColumn) for c in cols) or \
+                    len({c.capacity for c in cols}) != 1:
                 raise ValueError(
-                    "a fused stage takes batches of device columns of one capacity; got "
-                    f"capacities {[c.capacity for c in cols]}")
+                    "a fused stage takes batches of one-plane device columns of one "
+                    f"capacity; got {[(c.dtype, c.capacity) for c in cols]}")
             kernel, hit = seg.kernel()
             self.metrics["jit_cache_hits" if hit else "jit_cache_misses"] += 1
             groups, counts = kernels.fused_chain(

@@ -44,8 +44,9 @@ import numpy as np
 import torch
 
 from blaze_tpu_torch.core import kernels
-from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
-from blaze_tpu_torch.exprs.compiler import ExprEvaluator
+from blaze_tpu_torch.core.batch import (ColumnarBatch, DeviceColumn, column_planes,
+                                        columns_from_planes)
+from blaze_tpu_torch.exprs.compiler import ExprEvaluator, require_narrow_key
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ir.nodes import JoinSide, JoinType, _join_output_schema
@@ -78,6 +79,9 @@ class _HashJoinBase(Operator):
         # it count as unmatched
         self.condition = condition
         self._pair_schema = left.schema + right.schema
+        for lk, rk in on:
+            require_narrow_key(E.infer_type(lk, left.schema), "join key")
+            require_narrow_key(E.infer_type(rk, right.schema), "join key")
         schema = _join_output_schema(left.schema, right.schema, join_type)
         super().__init__(schema, [left, right])
 
@@ -171,14 +175,11 @@ class _HashJoinBase(Operator):
         count, pd, pv, bd, bv = kernels.inner_join_planes(
             bmap.device_keys(batch.device), len(bmap.sorted_keys), batch.num_rows,
             cols[0].data, cols[0].validity,
-            [c.data for c in batch.columns], [c.validity for c in batch.columns],
-            [c.data for c in bb.columns], [c.validity for c in bb.columns])
+            *column_planes(batch.columns), *column_planes(bb.columns))
         if count == 0:
             return None
-        probe_cols = [DeviceColumn(c.dtype, d, v)
-                      for c, d, v in zip(batch.columns, pd, pv)]
-        build_cols = [DeviceColumn(c.dtype, d, v)
-                      for c, d, v in zip(bb.columns, bd, bv)]
+        probe_cols = columns_from_planes(batch.schema.types, pd, pv)
+        build_cols = columns_from_planes(bb.schema.types, bd, bv)
         left, right = ((probe_cols, build_cols) if probe_on_left
                        else (build_cols, probe_cols))
         return ColumnarBatch(self.schema, left + right, count)
@@ -285,7 +286,7 @@ class HashJoinExec(_HashJoinBase):
                     f"the hash join's build side passed the SMJ fallback "
                     f"threshold ({rows} rows, {nbytes} bytes); the sort-merge "
                     "join it falls back to is not ported yet (ROADMAP.md "
-                    "\"Queued next\": the sort-merge join and the SMJ fallback)")
+                    "Queue 1 item 8: the sort-merge join and the SMJ fallback)")
         bmap = self._build_map(batches, ctx)
         yield from self._probe_with_map(bmap, partition, ctx)
 

@@ -7,7 +7,7 @@ partition. ``bucketize`` splits a batch into per-partition device
 sub-batches with one stable sort by partition id (K5, one operand), one
 gather (K6) and contiguous slices (K7), as the JAX package's device tier
 does. Round-robin and
-range partitioning are not ported (ROADMAP.md Queue 2).
+range partitioning are not ported (ROADMAP.md Queue 1 item 9, row 12).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 from blaze_tpu_torch.core import kernels as K
 from blaze_tpu_torch.core.batch import ColumnarBatch
 from blaze_tpu_torch.exprs import spark_hash
-from blaze_tpu_torch.exprs.compiler import ExprEvaluator
+from blaze_tpu_torch.exprs.compiler import ExprEvaluator, require_narrow_key
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import nodes as N
 
@@ -66,6 +66,8 @@ class HashPartitioner(Repartitioner):
 
     def __init__(self, exprs: List[E.Expr], num_partitions: int, schema):
         super().__init__(num_partitions)
+        for e in exprs:
+            require_narrow_key(E.infer_type(e, schema), "hash partition key")
         self.ev = ExprEvaluator(exprs, schema)
 
     def partition_ids(self, batch):
@@ -82,4 +84,4 @@ def create_repartitioner(partitioning, schema) -> Repartitioner:
                                schema)
     raise NotImplementedError(
         f"{type(partitioning).__name__} is not ported to the PyTorch package "
-        "yet (ROADMAP.md Queue 2 item 12)")
+        "yet (ROADMAP.md Queue 1 item 9, row 12)")

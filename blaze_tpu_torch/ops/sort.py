@@ -9,7 +9,7 @@ rows + staged rows). Without a fetch limit the partition is sorted whole
 in memory and cut into ``batch_size`` slices with K7, as
 ``_SortState.output`` does when nothing spilled. The spill and the run
 merge (``_SortState.spill``, ``_merge_runs_vectorized``) need the memory
-manager, which is not ported (ROADMAP.md Queue 1 item 7).
+manager, which is not ported (ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import List, Optional
 
 from blaze_tpu_torch.core import kernels as K
 from blaze_tpu_torch.core.batch import ColumnarBatch
+from blaze_tpu_torch.exprs.compiler import require_narrow_key
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ops import sort_keys as SK
 from blaze_tpu_torch.ops.base import Operator
@@ -39,6 +40,8 @@ class SortExec(Operator):
                  fetch_limit: Optional[int] = None):
         self.sort_orders = sort_orders
         self.fetch_limit = fetch_limit
+        for so in sort_orders:
+            require_narrow_key(E.infer_type(so.child, child.schema), "sort key")
         super().__init__(child.schema, [child])
 
     def _execute(self, partition, ctx):

@@ -38,7 +38,7 @@ import torch
 
 from blaze_tpu_torch.core import kernels as K
 from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
-from blaze_tpu_torch.exprs.compiler import ExprEvaluator
+from blaze_tpu_torch.exprs.compiler import ExprEvaluator, require_narrow_key
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ir.nodes import WindowExpr
@@ -59,6 +59,8 @@ class WindowExec(Operator):
         self.order_spec = order_spec
         self.group_limit = group_limit
         self.output_window_cols = output_window_cols
+        for e in list(partition_spec) + [so.child for so in order_spec]:
+            require_narrow_key(E.infer_type(e, child.schema), "window partition or order key")
         super().__init__(self._output_schema(child.schema), [child])
 
     def _output_schema(self, child_schema: T.Schema) -> T.Schema:
@@ -82,8 +84,8 @@ class WindowExec(Operator):
                 dt.precision > T.DecimalType.MAX_INT64_PRECISION:
             raise NotImplementedError(
                 f"window aggregate {w.name!r} has the result type {dt!r}, a decimal "
-                "wider than 18 digits, which has no device plane in the PyTorch "
-                "port yet (ROADMAP.md Queue 1 item 2)")
+                "wider than 18 digits, which the PyTorch port's window does not "
+                "compute yet (ROADMAP.md Queue 1 item 18)")
         return dt
 
     def _segmentable(self) -> bool:

@@ -12,7 +12,10 @@ launches its kernel and nowhere else, so a run can show that it went
 through the kernels (``reset_launch_counts`` / ``launch_counts``); K11,
 the generated Triton kernel of a fused chain (exprs/fused_triton.py),
 counts under ``fused_chain``; K13, the window aggregates' segmented scan,
-under ``segment_scan``.
+under ``segment_scan``. Beside them ``LIMB_LAUNCHES`` counts, per kernel,
+the launches that carried each wide-decimal (limb) op: the aggregate
+kinds sum2/avg2/sum3/avg3/minw/maxw of K3, K4 and K10, and K12's limb
+update ops (``limb_launch_counts``).
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ LAUNCHES: Dict[str, int] = {
     "segment_scan": 0,
 }
 
+LIMB_LAUNCHES: Dict[str, int] = {}
+
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
 BUILD_INFO: Dict[str, object] = {}
@@ -74,10 +79,23 @@ def blocks(n: int) -> int:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LIMB_LAUNCHES.clear()
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def count_limb_launch(name: str, ops) -> None:
+    """One launch of kernel ``name`` carrying the limb ops ``ops``: each
+    distinct one adds one under ``"name:op"``, and the launch one under
+    ``"name:limbs"``."""
+    for key in [f"{name}:{op}" for op in set(ops)] + ([f"{name}:limbs"] if ops else []):
+        LIMB_LAUNCHES[key] = LIMB_LAUNCHES.get(key, 0) + 1
+
+
+def limb_launch_counts() -> Dict[str, int]:
+    return dict(LIMB_LAUNCHES)
 
 
 def build_dir() -> str:
@@ -176,8 +194,10 @@ _SIGNATURES = {
     "blz_slot_agg": [
         _I, _PP, _PP, _PLL, _PLL, _PLL,      # k, keys, kvalids, bases, sizes, strides
         _I64, _I, _PI,                       # num_rows, nops, op_kind
-        _PP, _PI, _PP, _PP, _PLL, _PLL,      # op_src, op_nvalid, op_valid, op_table, op_mult, op_init
-        _I, _PI, _PP, _PP, _PP,              # nemit, emit_kind, emit_table, emit_aux, emit_out
+        _PP, _PP, _PI, _PP, _PP, _PLL, _PLL,  # op_src, op_src0, op_nvalid, op_valid,
+                                             # op_table, op_mult, op_init
+        _I, _PI, _PP, _PP, _PP, _PP,         # nemit, emit_kind, emit_table, emit_aux,
+                                             # emit_aux2, emit_out
         _I64, _P, _P, _P, _I64,              # S, present, offs, overflow, out_cap
         _PP, _PP, _P, _P, _P, _I, _I,        # key_out, kvalid_out, count_out, brows, bgroups, shift, nb
         _P,                                  # stream
@@ -208,9 +228,10 @@ _SIGNATURES = {
                            _P],
     "blz_segment_reduce": [
         _P, _P, _P, _I64,                    # starts, order, count, cap
-        _I, _PI, _PI, _PP, _PI, _PP,         # nops, kind, is_float, src, nvalid, valid
+        _I, _PI, _PI, _PP, _PP, _PI, _PP,    # nops, kind, is_float, src, src0, nvalid,
+                                             # valid
         _PLL, _PLL,                          # mult, init
-        _I, _PI, _PI, _PI, _PP,              # nemit, kind, table, aux, out
+        _I, _PI, _PI, _PI, _PI, _PP,         # nemit, kind, table, aux, aux2, out
         _P, _P,                              # first, stream
     ],
     "blz_slot_update": [
@@ -218,6 +239,7 @@ _SIGNATURES = {
         _PI, _PI, _PP, _PI, _PP, _PP,        # kind, is_float, src, nvalid, valid, table
         _PI, _PP, _PI, _PP, _PP, _PP,        # esize, order, nwvalid, wvalid,
                                              # valid_table, order_table
+        _PP, _PP,                            # limb_src (2 an op), limb_table (2 an op)
         _P,                                  # stream
     ],
     # data, kind, validity, exists, seg_start, n, carry_f, carry_i, carry_c,

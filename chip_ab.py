@@ -5,6 +5,9 @@ comparisons on one NVIDIA GPU.
     python3 chip_ab.py [--tree DIR] [--label NAME] [--paths q67,q67_sort,q69]
                        [--runs N] [--no-fusion] [--profile]
 
+Paths: q67, q67_sort, q69, q06, and q17, q17_sort, q17_table (a checkout
+from before q17 has no q17 data to stage).
+
 Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
 (default: this one) and, for each named path, stages its data once (as
 chip_smoke.py does, same seeds and sizes), makes a first run (kernel
@@ -70,7 +73,38 @@ def _q69_setup(cs, dev, name, conf_kw):
     return session, cs.q69_plan(schemas), want
 
 
-SETUPS = {"q67": _q67_setup, "q67_sort": _q67_setup, "q69": _q69_setup}
+def _q06_setup(cs, dev, name, conf_kw):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+
+    sales, item, parts, items, host, item_cols = cs.make_join_data(dev)
+    want = cs.q06_oracle(host, item_cols)
+    session = blaze_tpu_torch.Session(Config(**conf_kw))
+    session.resources["store_sales"] = lambda p: parts[p]
+    session.resources["item"] = lambda p: items
+    return session, cs.q06_plan(sales, item), want
+
+
+def _q17_setup(cs, dev, name, conf_kw):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+
+    (sales, item, store), parts, items, stores, host = cs.make_q17_data(dev)
+    want = cs.q17_oracle(*host)
+    kw = dict(conf_kw)
+    if name == "q17_sort":
+        kw.update(dense_agg=False, radix_agg=False)
+    elif name == "q17_table":
+        kw.update(device_merge_max_bytes=cs.Q17_TABLE_MERGE_BYTES)
+    session = blaze_tpu_torch.Session(Config(**kw))
+    session.resources["store_sales"] = lambda p: parts[p]
+    session.resources["item"] = lambda p: items
+    session.resources["store"] = lambda p: stores
+    return session, cs.q17_plan(sales, item, store), want
+
+
+SETUPS = {"q67": _q67_setup, "q67_sort": _q67_setup, "q69": _q69_setup, "q06": _q06_setup,
+          "q17": _q17_setup, "q17_sort": _q17_setup, "q17_table": _q17_setup}
 
 
 def main(argv) -> int:

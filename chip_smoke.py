@@ -42,7 +42,13 @@ only when every phase passed:
    planes, magnitudes 1e-5..1e16 with +-inf, -0.0 and NaN, nulls,
    padding, capacities 16, 4,096 and 262,144 with live rows not a
    multiple of 16, carries, segments of one row, of ~4 rows, one spanning
-   the batch and none); then each timed with
+   the batch and none; for the limb halves of K3/K4, K10 and K12 (the
+   wide-decimal states): sum2/avg2/sum3/avg3/minw/maxw in partial and
+   merge mode on K3, K4 and K10 and K12's limb update, merge and
+   lexicographic-fold ops, over negative values, 38-digit extremes and
+   values past 2^64, all-negative extremes, cancellation near the
+   extremes, single rows, one row, nulls, padding and every value null,
+   then timed at q17's shapes); then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s);
@@ -89,25 +95,37 @@ only when every phase passed:
      counts (seed 89), exact against numpy (rows tied on the sort key as
      sets), K13 on every reducer that holds rows and K8 on every sales
      batch;
+   - q17 (store_sales JOIN broadcast item JOIN broadcast store -> COUNT,
+     SUM(ss_quantity) and SUM(ss_ext_wholesale_cost), decimal(38,2), by
+     (state, category), two-stage -> single exchange -> sort) over q06's
+     store_sales draw with bench.py's wcost stream (seed 421), SF10's
+     items and 400 stores: the wide sum crosses the exchange as
+     three-limb states; on the default route (K3, K4), as q17_sort
+     (K10) and as q17_table (the host table's FINAL merge, K12), each
+     exact in order against numpy;
    all through ``Session().execute_to_pydict`` in 4 partitions staged on
-   the card; every kernel must have launched over the nine runs, the
+   the card; every kernel must have launched over the twelve runs, every
+   limb op over the runs or the battery, the
    unique-key join kernel on each join path, the generic probe on q69,
    K10's three launches on q69 and q67_sort, K11 on every q69 sales
    batch (196) and on the root rank filter of q67, q67_sort and q47,
    K12 on q96 and q67_table, and K13 on q89;
-5. one JSON line per kernel (shape, times, bound, launches per path), the
+5. one JSON line per kernel (shape, times, bound, launches per path; the
+   limb halves as ``name:limbs``), the limb ops' launch counts, the
    kernels' summary JSON line, the card line, and the device JSON line.
 
 ``--profile`` adds one run of each path under torch.profiler (device busy
 share, launch and sync counts, the top kernels); ``--trace=PATH`` also
 writes q01's Chrome trace to PATH and the other paths' beside it
 (``_q67.json``, ``_q67_sort.json``, ``_q67_table.json``, ``_q06.json``,
-``_q47.json``, ``_q69.json``, ``_q96.json``, ``_q89.json``).
+``_q47.json``, ``_q69.json``, ``_q96.json``, ``_q89.json``, ``_q17.json``,
+``_q17_sort.json``, ``_q17_table.json``).
 
 Needs one CUDA device; exits 2 without one, or when run outside a checkout
 of the repository.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -187,6 +205,12 @@ def max_abs_err(a, b) -> float:
         return float((a != b).sum().item())
     if not a.numel():
         return 0.0
+    if not a.is_floating_point():
+        # exact: int64 limbs differing by one can round to one float64
+        b = b.to(a.device)
+        if torch.equal(a, b):
+            return 0.0
+        return max(1.0, float((a.to(torch.float64) - b.to(torch.float64)).abs().max().item()))
     if a.is_floating_point():
         # bit for bit: -0.0 against +0.0, or one NaN payload against
         # another, counts as a difference
@@ -1906,15 +1930,610 @@ def kernel_k13(dev, rng, results):
         bytes=main["bytes"], big_batch=big))
 
 
+# -- the limb halves: wide-decimal states in K3/K4, K10 and K12 ------------------
+
+# |l2| below this keeps |value| < 10^38: 5e18 * 2^64 < 10^38
+L2_SPAN = 5 * 10 ** 18
+# values a case draws from besides uniform limbs: decimal(38)'s ends, 2^64's
+# and 2^63's neighbours, cancellation pairs near the extremes; the
+# decimal(18) pools for the two-limb sums
+WIDE_POOLS = {
+    "extremes": (10 ** 38 - 1, -(10 ** 38 - 1), 2 ** 64, 2 ** 64 - 1, -(2 ** 64),
+                 -(2 ** 64) - 1, 2 ** 63, -(2 ** 63), 1, -1, 0),
+    "cancel": (10 ** 37, -(10 ** 37), 10 ** 37, -(10 ** 37), 12345, -12345),
+}
+NARROW_POOLS = {
+    "extremes": (10 ** 18 - 1, -(10 ** 18 - 1), 2 ** 32, -(2 ** 32), 2 ** 31 - 1, 1, -1, 0),
+    "cancel": (10 ** 18 - 1, -(10 ** 18 - 1), 12345),
+}
+# aggregate (kind, rescale, accumulator) and its argument: d a decimal(18,2)
+# plane (two-limb sums), w a decimal(38,2) plane as limbs, * COUNT(*)
+WIDE_SPECS = ((("sum2", 0, "int64"), "d"), (("avg2", 0, "int64"), "d"),
+              (("sum3", 0, "int64"), "w"), (("avg3", 0, "int64"), "w"),
+              (("minw", 0, "int64"), "w"), (("maxw", 0, "int64"), "w"),
+              (("count", 0, ""), "*"))
+# (label, key kinds, capacity, live rows, key null share, value null share,
+# key range, values): values "mixed" (both signs: uniform limbs up to ~10^38
+# and int64 magnitudes), "negative", "extremes", "cancel" (pools above), or
+# "q17" (q17's wcost: uniform [10^14, 9*10^16))
+WIDE_CASES = (
+    ("mixed signs, nulls, padding", ("i64",), 4096, 4000, 0.05, 0.1, (-20, 20), "mixed"),
+    ("all negative", ("i64",), 256, 200, 0.0, 0.1, (0, 8), "negative"),
+    ("38-digit extremes, past 2^64", ("i64", "i64"), 1024, 1000, 0.05, 0.05, (0, 4),
+     "extremes"),
+    ("cancellation near the extremes", ("i64",), 256, 256, 0.0, 0.0, (0, 3), "cancel"),
+    ("single rows", ("i64",), 256, 60, 0.0, 0.1, (0, 50_000), "mixed"),
+    ("every value null", ("i64",), 256, 200, 0.0, 1.0, (0, 10), "mixed"),
+    ("one row", ("i64",), 256, 1, 0.0, 0.0, (0, 5), "extremes"),
+    ("q17 values", ("i64", "i64"), 4096, 4096, 0.0, 0.0, (0, 10), "q17"),
+)
+LO32 = 0xFFFFFFFF
+
+
+def limbs_of(values):
+    """Python ints within 128 bits -> (l0, l1, l2) int64 arrays."""
+    import numpy as np
+
+    lo = np.array([int(v) & ((1 << 64) - 1) for v in values], dtype=np.uint64).view(np.int64)
+    return lo & LO32, (lo >> 32) & LO32, np.array([int(v) >> 64 for v in values], np.int64)
+
+
+def ints_of(l0, l1, l2):
+    """The exact Python ints of limb planes."""
+    return [(int(c) << 64) + (int(b) << 32) + int(a) for a, b, c in zip(l0, l1, l2)]
+
+
+def wide_plane(kind, cap, n, rng, nulls):
+    """(l0, l1, l2, validity) of a decimal(38) plane with ``n`` live rows of
+    ``cap``: padding rows 0, null rows keep their drawn limbs (the kernels
+    must not read them)."""
+    import numpy as np
+
+    live = np.arange(cap) < n
+    if kind in ("mixed", "negative"):
+        top = 0 if kind == "negative" else L2_SPAN
+        l0, l1 = rng.integers(0, 1 << 32, cap), rng.integers(0, 1 << 32, cap)
+        l2 = rng.integers(-L2_SPAN, top, cap)
+        x = rng.integers(-(1 << 62), 0 if kind == "negative" else 1 << 62, cap)
+        small = rng.random(cap) < 0.3  # int64 magnitudes: l2 is 0 or -1
+        l0, l1, l2 = (np.where(small, x & LO32, l0), np.where(small, (x >> 32) & LO32, l1),
+                      np.where(small, x >> 63, l2))
+    elif kind == "q17":
+        x = rng.integers(10 ** 14, 9 * 10 ** 16, cap)
+        l0, l1, l2 = x & LO32, x >> 32, np.zeros(cap, np.int64)
+    else:
+        p0, p1, p2 = limbs_of(WIDE_POOLS[kind])
+        i = rng.integers(0, len(p0), cap)
+        l0, l1, l2 = p0[i], p1[i], p2[i]
+    valid = live & (rng.random(cap) >= nulls)
+    return tuple(np.where(live, x, 0).astype(np.int64) for x in (l0, l1, l2)) + (valid,)
+
+
+def narrow_plane(kind, cap, n, rng, nulls):
+    """(data, validity) of a decimal(18) plane (the two-limb sums'
+    argument), drawn as ``wide_plane`` draws its kind."""
+    import numpy as np
+
+    live = np.arange(cap) < n
+    if kind in NARROW_POOLS:
+        pool = np.array(NARROW_POOLS[kind], np.int64)
+        d = pool[rng.integers(0, len(pool), cap)]
+    elif kind == "q17":
+        d = rng.integers(10 ** 14, 9 * 10 ** 16, cap)
+    else:
+        d = rng.integers(-(10 ** 18) + 1, 0 if kind == "negative" else 10 ** 18, cap)
+    return np.where(live, d, 0).astype(np.int64), live & (rng.random(cap) >= nulls)
+
+
+def wide_case(case, rng):
+    """The partial arguments of one WIDE_CASES entry on the host: key planes
+    (validity masked with the live rows), the specs and per aggregate its
+    (data, valid): data a (l0, l1, l2) tuple for a wide argument."""
+    import numpy as np
+
+    _label, kinds, cap, n, knulls, vnulls, (lo, hi), values = case
+    live = np.arange(cap) < n
+    keys, kvalids = [], []
+    for _ in kinds:
+        d = rng.integers(lo, hi, cap)
+        keys.append(np.where(live, d, 0).astype(np.int64))
+        kvalids.append(live & (rng.random(cap) >= knulls))
+    w = wide_plane(values, cap, n, rng, vnulls)
+    cols = {"d": narrow_plane(values, cap, n, rng, vnulls), "w": (w[:3], w[3]),
+            "*": (np.zeros(cap, np.int64), live)}
+    return keys, kvalids, tuple(s for s, _ in WIDE_SPECS), [cols[c] for _, c in WIDE_SPECS]
+
+
+def wide_torch(x, dev):
+    """numpy planes (nested in tuples and lists) as tensors on ``dev``."""
+    import numpy as np
+    import torch
+
+    if isinstance(x, (list, tuple)):
+        return type(x)(wide_torch(y, dev) for y in x)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev) if isinstance(x, np.ndarray) else x
+
+
+def wide_states(outs, k, kinds, live, rng):
+    """The partial outputs as merge-input state columns (validity redrawn,
+    so every gate of the merge is taken)."""
+    import numpy as np
+    import torch
+
+    nstate = {"sum2": 3, "avg2": 3, "sum3": 4, "avg3": 4, "minw": 4, "maxw": 4, "count": 1}
+    states, pos = [], 2 + 2 * k
+    for kind in kinds:
+        cols = []
+        for _ in range(nstate[kind]):
+            keep = torch.from_numpy(rng.random(live.shape[0]) >= 0.1).to(live.device)
+            cols.append((outs[pos], keep & live))
+            pos += 1
+        states.append(cols)
+    return states
+
+
+def doubled(outs, g, cap2, dev):
+    """Partial outputs' first ``g`` rows twice (two maps' states), padded to
+    ``cap2``."""
+    import torch
+
+    return [torch.nn.functional.pad(torch.cat([x[:g], x[:g]]), (0, cap2 - 2 * g))
+            for x in outs[2:]]
+
+
+def kernel_limbs(dev, rng, results):
+    """The limb ops of K3/K4 and K10 against their plain versions on every
+    WIDE_CASES entry, partial and merge, then K12's (``kernel_limbs_k12``),
+    then each timed at q17's shapes (``time_limbs``)."""
+    import torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops import agg_device as A
+
+    conf = Config()
+    cpu = torch.device("cpu")
+    cases = []
+    for case in WIDE_CASES:
+        keys, kvalids, specs, args = wide_torch(wide_case(case, rng), dev)
+        label, n, cap = case[0], case[3], case[2]
+        kinds = tuple(s[0] for s in specs)
+        k = len(keys)
+        kd = [torch.int64] * k
+        # K3 and K4
+        st = A.plan_slot_table(A.probe_ranges(keys, kvalids), cap, None,
+                               conf.radix_agg_max_slots, conf)
+        if st is not None and st is not A._DEFER_PLAN:
+            bases, sizes, out_cap = st
+            got = A.slot_agg_partial(keys, kvalids, kd, n, bases, sizes, specs, args, out_cap)
+            want = A.slot_agg_partial_plain(keys, kvalids, kd, n, bases, sizes, specs, args,
+                                            out_cap)
+            check_equal("slot_agg_partial:limbs", label, got, want)
+            g = int(want[0])
+            cap2 = conf.capacity_for(2 * g)
+            cat = doubled(want, g, cap2, dev)
+            live = torch.arange(cap2, device=dev) < 2 * g
+            mk = [cat[2 * i] for i in range(k)]
+            mv = [cat[2 * i + 1] & live for i in range(k)]
+            states = wide_states([None, None] + cat, k, kinds, live, rng)
+            st2 = A.plan_slot_table(A.probe_ranges(mk, mv), cap2, None,
+                                    conf.radix_agg_max_slots, conf)
+            if st2 is not None and st2 is not A._DEFER_PLAN:
+                b2, s2, o2 = st2
+                check_equal("slot_agg_merge:limbs", label,
+                            A.slot_agg_merge(mk, mv, kd, 2 * g, b2, s2, kinds, states, o2),
+                            A.slot_agg_merge_plain(mk, mv, kd, 2 * g, b2, s2, kinds, states,
+                                                   o2))
+        # K10: its reduction against the twin on the same sorted rows, then
+        # the whole route on the card against the route on CPU copies
+        exists = torch.arange(cap, device=dev) < n
+        order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+        ops, emits = A._partial_program(specs, args)
+        check_equal("seg_agg_partial:limbs", label,
+                    K.segment_reduce_cuda("seg_agg_partial", order, starts, count, n, ops,
+                                          emits, kinds),
+                    K.segment_reduce_plain(order, starts, count, n, ops, emits))
+        for direct in (True, False):
+            outs = check_seg_pipeline("seg_agg_partial:limbs", A.seg_agg_partial,
+                                      (keys, kvalids, n, specs, args, direct),
+                                      to_dev((keys, kvalids, n, specs, args, direct), cpu),
+                                      f"{label},direct={direct}")
+        g = int(outs[0])
+        if g:
+            live = torch.arange(cap, device=dev) < g
+            states = wide_states(outs, k, kinds, live, rng)
+            mk, mv = list(outs[2:2 + 2 * k:2]), list(outs[3:3 + 2 * k:2])
+            check_seg_pipeline("seg_agg_merge:limbs", A.seg_agg_merge,
+                               (mk, mv, g, kinds, states),
+                               (to_dev(mk, cpu), to_dev(mv, cpu), g, kinds,
+                                to_dev(states, cpu)), label)
+        cases.append(label)
+    upd_cases = kernel_limbs_k12(dev, rng)
+    time_limbs(dev, rng, results, cases, upd_cases)
+
+
+# K12's limb battery: the limb aggregates of the host table and their
+# argument (d decimal(18,2), w decimal(38,2)); cases (label, mode, (capacity,
+# live rows) a batch, batches, slots drawn from, (table capacity at the
+# start, after the first batch), null share, values)
+WIDE_UPD_FNS = (("sum", "d"), ("avg", "d"), ("sum", "w"), ("avg", "w"), ("min", "w"),
+                ("max", "w"))
+WIDE_UPD_CASES = (
+    ("update, mixed signs", "update", (256, 200), 3, 40, (1024, 1024), 0.1, "mixed"),
+    ("merge, mixed signs", "merge", (256, 230), 3, 40, (1024, 1024), 0.1, "mixed"),
+    ("update, all negative, growth", "update", (4096, 4000), 2, 3000, (1024, 4096), 0.1,
+     "negative"),
+    ("merge, extremes, growth", "merge", (4096, 3500), 2, 3000, (1024, 4096), 0.05,
+     "extremes"),
+    ("update, one slot, cancellation", "update", (1024, 1000), 2, 1, (1024, 1024), 0.0,
+     "cancel"),
+    ("merge, all null", "merge", (256, 200), 2, 40, (1024, 1024), 1.0, "mixed"),
+    ("update, empty batch", "update", (256, 0), 2, 40, (1024, 1024), 0.1, "mixed"),
+)
+
+
+def wide_upd_types(T, arg):
+    return T.DecimalType(18, 2) if arg == "d" else T.DecimalType(38, 2)
+
+
+def wide_upd_fns():
+    """The port's aggregate functions of WIDE_UPD_FNS (limb layouts)."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops import aggfns
+
+    fns = []
+    for fn, arg in WIDE_UPD_FNS:
+        agg = E.AggExpr(E.AggFunction[fn.upper()], [E.Column("v")])
+        fns.append(aggfns.create_agg_function(agg, T.Schema.of(("v", wide_upd_types(T, arg)))))
+    assert all(f.limbs for f in fns)
+    return fns
+
+
+def wide_upd_state_planes(fn, arg, cap, n, rng, nulls, values):
+    """A batch of partial states of ``fn`` (merge input), one (data,
+    validity) pair per state field: limbs normalised, as partial states
+    are, with every gate of the merge taken."""
+    import numpy as np
+
+    live = np.arange(cap) < n
+
+    def flag():
+        return (rng.random(cap) < 0.8) & live, live & (rng.random(cap) >= nulls)
+
+    if arg == "d":
+        d, v = narrow_plane(values, cap, n, rng, nulls)
+        limbs = [(d & LO32, v), (d >> 32, v)]
+    else:
+        w = wide_plane(values, cap, n, rng, nulls)
+        limbs = [(x, w[3]) for x in w[:3]]
+    if fn == "avg":
+        counts = rng.integers(0, 100, cap).astype(np.int64) * live
+        return limbs + [(counts, live & (rng.random(cap) >= nulls))]
+    return limbs + [flag()]
+
+
+def wide_upd_case(case, rng):
+    """K12's inputs of one WIDE_UPD_CASES entry on the host: per batch the
+    slots (padding rows at the table's capacity), the row mask and per
+    WIDE_UPD_FNS entry its planes (update: the argument's (data, validity),
+    data a limb tuple for w; merge: the state fields)."""
+    import numpy as np
+
+    label, mode, (cap, n), nbatch, nslots, caps, nulls, values = case
+    batches = []
+    for b in range(nbatch):
+        table_cap = caps[0] if b == 0 else caps[1]
+        live = np.arange(cap) < n
+        slots = np.where(live, rng.integers(0, min(nslots, table_cap), cap), table_cap)
+        planes = []
+        for fn, arg in WIDE_UPD_FNS:
+            if mode == "merge":
+                planes.append(wide_upd_state_planes(fn, arg, cap, n, rng, nulls, values))
+            elif arg == "d":
+                planes.append(narrow_plane(values, cap, n, rng, nulls))
+            else:
+                w = wide_plane(values, cap, n, rng, nulls)
+                planes.append((w[:3], w[3]))
+        batches.append({"slots": slots.astype(np.int64), "mask": live, "planes": planes})
+    return {"label": label, "mode": mode, "caps": caps, "batches": batches}
+
+
+def wide_upd_run(case, fns, update, dev):
+    """The functions' tables after the case's batches, each batch's ops of
+    every function through ``update`` (K12 or its plain version)."""
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.core.batch import DeviceColumn
+    from blaze_tpu_torch.ir import types as T
+
+    caps = case["caps"]
+    states = [fn.init_state(caps[0], dev) for fn in fns]
+    for b, batch in enumerate(case["batches"]):
+        if b == 1:
+            states = [fn.grow(st, caps[1]) for fn, st in zip(fns, states)]
+        ops = []
+        for fn, st, planes in zip(fns, states, batch["planes"]):
+            if case["mode"] == "merge":
+                ops += fn.merge_ops(st, [DeviceColumn(T.I64, *wide_torch((d, v), dev))
+                                         for d, v in planes])
+            else:
+                d, v = wide_torch(planes, dev)
+                ops += fn.update_ops(st, d, v)
+        slots, mask = wide_torch((batch["slots"], batch["mask"]), dev)
+        for at in range(0, len(ops), K._MAX_UPD_OPS):
+            update(slots, mask, ops[at:at + K._MAX_UPD_OPS])
+    return states
+
+
+def kernel_limbs_k12(dev, rng):
+    """K12's limb ops (update, merge, lex fold) against their plain version
+    on every WIDE_UPD_CASES entry."""
+    from blaze_tpu_torch.core import kernels as K
+
+    fns = wide_upd_fns()
+    cases = []
+    for spec in WIDE_UPD_CASES:
+        case = wide_upd_case(spec, rng)
+        check_equal("slot_update:limbs", case["label"],
+                    wide_upd_run(case, fns, K.slot_update_cuda, dev),
+                    wide_upd_run(case, fns, K.slot_update_plain, dev))
+        cases.append(case["label"])
+    return cases
+
+
+# q17's partial batch: 262,144 joined store_sales rows, keys (s_state_id
+# [0, 50), i_category_id [0, 10)), COUNT(*), SUM(ss_quantity) and the wide
+# SUM(ss_ext_wholesale_cost). Its merges: on the default route each map
+# task consolidates its 28 partial batches' states (K4); on the sort and
+# table routes a partial batch's states pass the merge budget, so nothing
+# consolidates and the reducer's FINAL merges all 112 batches' states at
+# once (K10 on q17_sort, K12 on q17_table). Each partial batch emits its
+# 500 groups in key order. ``run_q17`` holds the paths' merge inputs to
+# these shapes.
+Q17_SPECS = (("count", 0, ""), ("sum", 0, "int64"), ("sum3", 0, "int64"))
+Q17_GROUPS = 500
+Q17_TASK_BATCHES = (Q06_ROWS // PARTS + 262143) // 262144  # 28
+Q17_MERGE_ROWS = Q17_TASK_BATCHES * Q17_GROUPS
+Q17_FINAL_ROWS = PARTS * Q17_MERGE_ROWS
+
+
+def q17_partial_batch(rng, dev, cap=262144):
+    import numpy as np
+    import torch
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    ones = torch.ones(cap, dtype=torch.bool, device=dev)
+    keys = [t(rng.integers(0, 50, cap)), t(rng.integers(0, 10, cap))]
+    x = rng.integers(10 ** 14, 9 * 10 ** 16, cap)
+    limbs = (t(x & LO32), t(x >> 32), t(np.zeros(cap, np.int64)))
+    args = [(torch.zeros(cap, dtype=torch.int64, device=dev), ones),
+            (t(rng.integers(1, 100, cap)), ones), (limbs, ones)]
+    return keys, [ones, ones], Q17_SPECS, args
+
+
+def q17_merge_input(rng, dev, rows):
+    """A q17 merge input of ``rows`` state rows (``rows / 500`` partial
+    batches' states, each batch's 500 groups in key order) in its capacity
+    bucket: count, qty sum + has, wcost limbs + has."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.config import Config
+
+    cap = Config().capacity_for(rows)
+    live = np.arange(cap) < rows
+
+    def pad(x, dt=np.int64):
+        out = np.zeros(cap, dt)
+        out[:rows] = x
+        return torch.from_numpy(out).to(dev)
+
+    g = np.tile(np.arange(Q17_GROUPS), rows // Q17_GROUPS)
+    lv = torch.from_numpy(live).to(dev)
+    keys = [pad(g // 10), pad(g % 10)]
+    has = pad(np.ones(rows, bool), np.bool_)
+    # a batch's group sum of wcost: ~524 rows of < 9 * 10^16, past int64
+    states = [[(pad(rng.integers(1, 1000, rows)), lv)],
+              [(pad(rng.integers(1, 50_000, rows)), lv), (has, lv)],
+              [(pad(rng.integers(0, 1 << 32, rows)), lv),
+               (pad(rng.integers(0, 1 << 32, rows)), lv), (pad(rng.integers(0, 3, rows)), lv),
+               (has, lv)]]
+    return keys, [lv, lv], ("count", "sum", "sum3"), states
+
+
+def time_limbs(dev, rng, results, cases, upd_cases):
+    """The limb halves timed at q17's shapes beside their plain versions,
+    a chain of PyTorch library calls computing the same sums (slot or
+    segment ids given) and the bytes they must move."""
+    import torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.core.batch import DeviceColumn
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops import agg_device as A
+
+    conf = Config()
+    keys, kvalids, specs, args = q17_partial_batch(rng, dev)
+    cap = n = keys[0].shape[0]
+    kd = [torch.int64, torch.int64]
+    bases, sizes, out_cap = A.plan_slot_table(A.probe_ranges(keys, kvalids), cap, None,
+                                              conf.dense_agg_max_buckets, conf)
+    check_equal("slot_agg_partial:limbs", "q17 batch",
+                A.slot_agg_partial(keys, kvalids, kd, n, bases, sizes, specs, args, out_cap),
+                A.slot_agg_partial_plain(keys, kvalids, kd, n, bases, sizes, specs, args,
+                                         out_cap))
+    S = sizes[0] * sizes[1]
+    slot = (keys[0] - bases[0] + 1) * sizes[1] + (keys[1] - bases[1] + 1)
+    planes = [torch.ones(cap, dtype=torch.int64, device=dev), args[1][0], *args[2][0]]
+    tabs = torch.zeros((len(planes), S), dtype=torch.int64, device=dev)
+
+    def chain(tables, ids, srcs):
+        for t, s in zip(tables, srcs):
+            t.index_add_(0, ids, s)
+
+    # the rows' keys (8 + 1 bytes each), qty and the three limbs (8 bytes
+    # each + one validity byte a column) read once; a group's two keys, its
+    # count, qty sum + has, three limbs + has written once
+    row_bytes, group_bytes = 2 * 9 + 9 + 25, 2 * 9 + 8 + 9 + 25
+    groups = Q17_GROUPS
+    six = wide_case(("six limb kinds", ("i64", "i64"), cap, cap, 0.0, 0.0, (0, 10), "q17"),
+                    rng)
+    sk, sv, sspecs, sargs = wide_torch(six, dev)
+    sb, ss, so = A.plan_slot_table(A.probe_ranges(sk, sv), cap, None,
+                                   conf.dense_agg_max_buckets, conf)
+    results.append(dict(
+        name="slot_agg_partial:limbs", route="cuda", source="blaze_tpu_torch/csrc/slot_agg.cu",
+        replaces="blaze_tpu/ops/agg_device.py:1288",
+        shape=f"262144 rows -> {S} slots, <= 500 groups (a q17 batch: COUNT, SUM int64, "
+              "SUM decimal(38,2) as three limbs)",
+        cases=cases, ms=time_ms(lambda: A.slot_agg_partial(keys, kvalids, kd, n, bases, sizes,
+                                                            specs, args, out_cap)),
+        plain_ms=time_ms(lambda: A.slot_agg_partial_plain(keys, kvalids, kd, n, bases, sizes,
+                                                          specs, args, out_cap)),
+        library_ms=time_ms(lambda: chain(tabs, slot, planes)),
+        library_call="5x index_add_ into the slot tables (slot ids given; a chain)",
+        bytes=n * row_bytes + groups * group_bytes,
+        six_kinds_ms=time_ms(lambda: A.slot_agg_partial(sk, sv, kd, cap, sb, ss, sspecs,
+                                                         sargs, so))))
+    # K10 over the same batch (its reduction: the permutation read too)
+    exists = torch.ones(cap, dtype=torch.bool, device=dev)
+    order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+    ops, emits = A._partial_program(specs, args)
+    check_equal("seg_agg_partial:limbs", "q17 batch",
+                K.segment_reduce_cuda("seg_agg_partial", order, starts, count, n, ops, emits,
+                                      ("sum3",)),
+                K.segment_reduce_plain(order, starts, count, n, ops, emits))
+    new = torch.zeros(n, dtype=torch.bool, device=dev)
+    g10 = int(count)
+    new[starts[:g10]] = True
+    seg_row = torch.empty(n, dtype=torch.int64, device=dev)
+    seg_row[order] = torch.cumsum(new.to(torch.int64), 0) - 1
+    stabs = torch.zeros((len(planes), cap), dtype=torch.int64, device=dev)
+    results.append(dict(
+        name="seg_agg_partial:limbs", route="cuda", source="blaze_tpu_torch/csrc/seg_agg.cu",
+        replaces="blaze_tpu/ops/agg_device.py:1173",
+        shape=f"262144 rows -> {g10} segments (a q17 batch on the sort route: COUNT, SUM "
+              "int64, SUM decimal(38,2) as three limbs)",
+        cases=cases,
+        ms=time_ms(lambda: K.segment_reduce_cuda("seg_agg_partial", order, starts, count, n,
+                                                 ops, emits, ("sum3",))),
+        plain_ms=time_ms(lambda: K.segment_reduce_plain(order, starts, count, n, ops, emits)),
+        library_ms=time_ms(lambda: chain(stabs, seg_row, planes)),
+        library_call="5x index_add_ into the segment tables (segment ids given; a chain)",
+        bytes=n * (row_bytes - 18 + 8) + (g10 + 1) * 8 + g10 * (group_bytes - 18 + 8),
+        route_ms=time_ms(lambda: A.seg_agg_partial(keys, kvalids, n, specs, args))))
+    # a state row's keys, count, qty sum + has, three limbs + has (each with
+    # its validity byte) read once; a group written once
+    mrow_bytes = 2 * 9 + 9 + 9 + 2 + 27 + 2
+    # K4: q17's consolidation of a map task's partial batches
+    mk, mv, kinds, states = q17_merge_input(rng, dev, Q17_MERGE_ROWS)
+    rows, mcap = Q17_MERGE_ROWS, mk[0].shape[0]
+    mb, ms_, mo = A.plan_slot_table(A.probe_ranges(mk, mv), mcap, None,
+                                    conf.radix_agg_max_slots, conf)
+    check_equal("slot_agg_merge:limbs", "q17 consolidation",
+                A.slot_agg_merge(mk, mv, kd, rows, mb, ms_, kinds, states, mo),
+                A.slot_agg_merge_plain(mk, mv, kd, rows, mb, ms_, kinds, states, mo))
+    mslot = (mk[0] - mb[0] + 1) * ms_[1] + (mk[1] - mb[1] + 1)
+    msrc = [states[0][0][0], states[1][0][0], states[2][0][0], states[2][1][0],
+            states[2][2][0]]
+    mtabs = torch.zeros((5, ms_[0] * ms_[1]), dtype=torch.int64, device=dev)
+    results.append(dict(
+        name="slot_agg_merge:limbs", route="cuda", source="blaze_tpu_torch/csrc/slot_agg.cu",
+        replaces="blaze_tpu/ops/agg_device.py:1421",
+        shape=f"{rows} state rows -> {groups} groups (q17's consolidation of a map task's "
+              f"{Q17_TASK_BATCHES} partial batches: COUNT, SUM, three-limb SUM)",
+        cases=cases, ms=time_ms(lambda: A.slot_agg_merge(mk, mv, kd, rows, mb, ms_, kinds,
+                                                         states, mo)),
+        plain_ms=time_ms(lambda: A.slot_agg_merge_plain(mk, mv, kd, rows, mb, ms_, kinds,
+                                                        states, mo)),
+        library_ms=time_ms(lambda: chain(mtabs, mslot, msrc)),
+        library_call="5x index_add_ into the slot tables (slot ids given; a chain)",
+        bytes=rows * mrow_bytes + groups * group_bytes))
+    # K10 and K12: the reducer's FINAL merge of every partial batch's states
+    # (q17_sort's and q17_table's; neither consolidates)
+    fk, fv, kinds, fstates = q17_merge_input(rng, dev, Q17_FINAL_ROWS)
+    frows, fcap = Q17_FINAL_ROWS, fk[0].shape[0]
+    fexists = torch.arange(fcap, device=dev) < frows
+    forder, fstarts, fcount = K.segment_ids(fk, fv, fexists, frows)
+    fops, femits = A._merge_program(kinds, fstates)
+    check_equal("seg_agg_merge:limbs", "q17 FINAL",
+                K.segment_reduce_cuda("seg_agg_merge", forder, fstarts, fcount, frows, fops,
+                                      femits, ("sum3",)),
+                K.segment_reduce_plain(forder, fstarts, fcount, frows, fops, femits))
+    fnew = torch.zeros(frows, dtype=torch.bool, device=dev)
+    fnew[fstarts[:int(fcount)]] = True
+    fseg = torch.full((fcap,), fcap, dtype=torch.int64, device=dev)
+    fseg[forder[:frows]] = torch.cumsum(fnew.to(torch.int64), 0) - 1
+    fsrc = [fstates[0][0][0], fstates[1][0][0], fstates[2][0][0], fstates[2][1][0],
+            fstates[2][2][0]]
+    fstabs = torch.zeros((5, fcap + 1), dtype=torch.int64, device=dev)
+    results.append(dict(
+        name="seg_agg_merge:limbs", route="cuda", source="blaze_tpu_torch/csrc/seg_agg.cu",
+        replaces="blaze_tpu/ops/agg_device.py:1355",
+        shape=f"{frows} state rows -> {int(fcount)} segments (q17_sort's FINAL merge of "
+              f"{PARTS * Q17_TASK_BATCHES} partial batches' states: COUNT, SUM, three-limb "
+              "SUM)",
+        cases=cases,
+        ms=time_ms(lambda: K.segment_reduce_cuda("seg_agg_merge", forder, fstarts, fcount,
+                                                 frows, fops, femits, ("sum3",))),
+        plain_ms=time_ms(lambda: K.segment_reduce_plain(forder, fstarts, fcount, frows, fops,
+                                                        femits)),
+        library_ms=time_ms(lambda: chain(fstabs, fseg, fsrc)),
+        library_call="5x index_add_ into the segment tables (segment ids given; a chain)",
+        bytes=frows * (mrow_bytes - 18 + 8) + groups * (8 + group_bytes - 18 + 8)))
+    # K12: q17_table's FINAL merge of the same state rows into its 1,024-slot
+    # table (the wide SUM's share of the launch: three limb adds, the
+    # renormalisation, the has flag), and beside it the lexicographic fold
+    # of a 262,144-row batch (MIN and MAX of a decimal(38,2) column: K5's
+    # sort by slot, then one thread a run)
+    fns = wide_upd_fns()
+    sum3 = fns[2]
+    slots = torch.where(fexists, fk[0] * 10 + fk[1], 1024)
+    cols = [DeviceColumn(T.I64, d, v) for d, v in fstates[2]]
+    tabs12 = {}
+    for name, update in (("kernel", K.slot_update_cuda), ("plain", K.slot_update_plain)):
+        st = sum3.init_state(1024, dev)
+        update(slots, fexists, sum3.merge_ops(st, cols))
+        tabs12[name] = st
+    check_equal("slot_update:limbs", "q17_table FINAL", tabs12["kernel"], tabs12["plain"])
+    st = sum3.init_state(1024, dev)
+    mops12 = sum3.merge_ops(st, cols)
+    gate = fstates[2][3][0] & fstates[2][3][1]
+    ltabs = torch.zeros((3, 1024), dtype=torch.int64, device=dev)
+    lsrc = [torch.where(gate, fstates[2][q][0], 0) for q in range(3)]
+    lex_st = [f.init_state(1024, dev) for f in fns[4:]]
+    lslots = slot[:n].clone()
+    lex_ops_ = [op for f, s_ in zip(fns[4:], lex_st) for op in f.update_ops(s_, args[2][0],
+                                                                             exists)]
+    results.append(dict(
+        name="slot_update:limbs", route="cuda", source="blaze_tpu_torch/csrc/slot_update.cu",
+        replaces="blaze_tpu/ops/aggfns.py:320",
+        shape=f"{frows} state rows -> {groups} of 1,024 slots (q17_table's FINAL merge: "
+              "three-limb SUM + renormalisation + has)",
+        cases=upd_cases, ms=time_ms(lambda: K.slot_update_cuda(slots, fexists, mops12)),
+        plain_ms=time_ms(lambda: K.slot_update_plain(slots, fexists, mops12)),
+        library_ms=time_ms(lambda: chain(ltabs, slots.clamp(max=1023), lsrc)),
+        library_call="3x index_add_ of the gated limbs into the slot tables (no "
+                     "renormalisation; a chain)",
+        # a row's slot, mask, three limbs and the has flag's data and
+        # validity read once; a touched slot's three limbs read and written
+        # once, its flag written
+        bytes=frows * (8 + 1 + 24 + 2) + groups * (2 * 24 + 1),
+        fold_ms=time_ms(lambda: K.slot_update_cuda(lslots, exists, lex_ops_)),
+        fold_replaces="blaze_tpu/ops/aggfns.py:161",
+        fold_shape="262144 rows -> <= 500 of 1,024 slots (MIN and MAX of decimal(38,2))"))
+
+
 # -- phase 4: the paths on the card ------------------------------------------------
 
 
 def stage_batches(schema, columns, dev, bs=262144, valids=None):
     """Host int64 columns -> device batches of ``bs`` rows (the last one in
     its own capacity bucket); ``valids`` (None: all valid) gives a
-    validity array, or None, per column (null rows carry data 0)."""
+    validity array, or None, per column (null rows carry data 0). A
+    decimal(19..38) field's int64 values become a WideColumn's limbs."""
     import torch
-    from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
+    from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn, WideColumn
+    from blaze_tpu_torch.ir import types as T
 
     n_all = len(columns[0])
     cols = [torch.from_numpy(x).to(dev) for x in columns]
@@ -1931,7 +2550,10 @@ def stage_batches(schema, columns, dev, bs=262144, valids=None):
             d = torch.zeros(cap, dtype=torch.int64, device=dev)
             d[:n] = c[s:s + n]
             d[~v] = 0
-            dcols.append(DeviceColumn(f.dtype, d, v))
+            if T.is_wide_decimal(f.dtype):  # int64 values as the three limbs
+                dcols.append(WideColumn(f.dtype, d & LO32, (d >> 32) & LO32, d >> 63, v))
+            else:
+                dcols.append(DeviceColumn(f.dtype, d, v))
         batches.append(ColumnarBatch(schema, dcols, n))
     return batches
 
@@ -2179,17 +2801,36 @@ def run_q67(dev, profile=False, trace_path=None):
     return out
 
 
-def make_join_data(dev):
-    """q06's and q47's tables: store_sales drawn as bench.py:make_data
-    draws it, but with ss_item_sk uniform over the SF10 item keys
-    [1, 102,001) so every row has its item (seed 6; ss_store_sk uniform
-    [1, 400), ss_quantity [1, 100), ss_sales_price decimal(7,2) unscaled
-    [0, 50,000)), 28,800,991 rows in 4 partitions; the item dimension as
-    bench.py draws it at SF10's 102,000 rows (i_item_sk 1..102,000,
-    i_category_id [0, 10), i_brand_id [1, 60), i_current_price [0,
-    30,000) unscaled) in one batch. The wide ss_ext_wholesale_cost is
-    left out: neither query reads it. Both tables are staged on the card."""
+def draw_join_tables(stage):
+    """store_sales drawn as bench.py:make_data draws it, but with
+    ss_item_sk uniform over the SF10 item keys [1, 102,001) so every row
+    has its item (seed 6; ss_store_sk uniform [1, 400), ss_quantity [1,
+    100), ss_sales_price decimal(7,2) unscaled [0, 50,000)), 28,800,991
+    rows in 4 partitions, each partition's columns handed to ``stage`` as
+    drawn; then the item dimension as bench.py draws it at SF10's 102,000
+    rows (i_item_sk 1..102,000, i_category_id [0, 10), i_brand_id [1, 60),
+    i_current_price [0, 30,000) unscaled). Returns (the ``stage`` results,
+    the item columns, the generator, whose next draw is bench.py's store
+    dimension)."""
     import numpy as np
+
+    rng = np.random.default_rng(Q06_SEED)
+    staged = []
+    for p in range(PARTS):
+        per = Q06_ROWS // PARTS + (1 if p < Q06_ROWS % PARTS else 0)
+        staged.append(stage(p, (rng.integers(1, Q06_ITEMS + 1, per),
+                                rng.integers(1, N_STORES, per), rng.integers(1, 100, per),
+                                rng.integers(0, 500_00, per))))
+    n = Q06_ITEMS
+    item_cols = (np.arange(1, n + 1), rng.integers(0, 10, n), rng.integers(1, 60, n),
+                 rng.integers(0, 300_00, n))
+    return staged, item_cols, rng
+
+
+def make_join_data(dev):
+    """q06's and q47's tables (``draw_join_tables``), both staged on the
+    card, the item dimension in one batch. The wide ss_ext_wholesale_cost
+    is left out: neither query reads it."""
     import torch
     from blaze_tpu_torch.ir import types as T
 
@@ -2198,17 +2839,13 @@ def make_join_data(dev):
                         ("ss_quantity", T.I64), ("ss_sales_price", price))
     item = T.Schema.of(("i_item_sk", T.I64), ("i_category_id", T.I64),
                        ("i_brand_id", T.I64), ("i_current_price", price))
-    rng = np.random.default_rng(Q06_SEED)
-    host, parts = [], []
-    for p in range(PARTS):
-        per = Q06_ROWS // PARTS + (1 if p < Q06_ROWS % PARTS else 0)
-        cols = (rng.integers(1, Q06_ITEMS + 1, per), rng.integers(1, N_STORES, per),
-                rng.integers(1, 100, per), rng.integers(0, 500_00, per))
+    host = []
+
+    def stage(p, cols):
         host.append((cols[0], cols[2], cols[3]))
-        parts.append(stage_batches(sales, cols, dev))
-    n = Q06_ITEMS
-    item_cols = (np.arange(1, n + 1), rng.integers(0, 10, n), rng.integers(1, 60, n),
-                 rng.integers(0, 300_00, n))
+        return stage_batches(sales, cols, dev)
+
+    parts, item_cols, _ = draw_join_tables(stage)
     items = stage_batches(item, item_cols, dev)
     torch.cuda.synchronize()
     return sales, item, parts, items, host, item_cols
@@ -2356,6 +2993,188 @@ def run_join_paths(dev, profile=False, trace_path=None):
         path_trace = trace_path.replace(".json", "") + f"_{name}.json" if trace_path else None
         out[name] = run_query(name, Q06_ROWS, session, plan, want, setup_s,
                               {"items": Q06_ITEMS, **info}, profile, path_trace)
+    return out
+
+
+# q17: bench.py's own stream for ss_ext_wholesale_cost (bench.py:128-139)
+Q17_WIDE_SEED = 421
+Q17_STATES, Q17_CATEGORIES = 50, 10
+# q17_table's merge budget: below one partial state batch of q17 (~500
+# groups in a 512-row bucket, ~34 KB), so no map task consolidates and
+# every reducer's FINAL merge is the host table's (K12 with limb merges)
+Q17_TABLE_MERGE_BYTES = 16 << 10
+
+
+def make_q17_data(dev):
+    """q17's tables: ``draw_join_tables``' store_sales (q06's draw) with
+    ss_sales_price left out and ss_ext_wholesale_cost added, decimal(38,2)
+    drawn as bench.py draws it (its own stream, seed 421: unscaled uniform
+    [10^14, 9 * 10^16)), staged on the card as three limb planes; the item
+    dimension; the store dimension as bench.py:156 draws it (400 rows,
+    s_state_id uniform [0, 50), the next draw of the same generator).
+    Returns (schemas, sales partitions, item batches, store batches, the
+    host columns the oracle reads)."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.ir import types as T
+
+    price = T.DecimalType(7, 2)
+    sales = T.Schema.of(("ss_item_sk", T.I64), ("ss_store_sk", T.I64),
+                        ("ss_quantity", T.I64), ("ss_ext_wholesale_cost", T.DecimalType(38, 2)))
+    item = T.Schema.of(("i_item_sk", T.I64), ("i_category_id", T.I64),
+                       ("i_brand_id", T.I64), ("i_current_price", price))
+    store = T.Schema.of(("s_store_sk", T.I64), ("s_state_id", T.I64))
+    rng_wide = np.random.default_rng(Q17_WIDE_SEED)
+    host = []
+
+    def stage(p, cols):
+        wcost = rng_wide.integers(10 ** 14, 9 * 10 ** 16, len(cols[0]))
+        cols = (cols[0], cols[1], cols[2], wcost)
+        host.append(cols)
+        return stage_batches(sales, cols, dev)
+
+    parts, item_cols, rng = draw_join_tables(stage)
+    store_cols = (np.arange(1, N_STORES + 1), rng.integers(0, Q17_STATES, N_STORES))
+    items = stage_batches(item, item_cols, dev)
+    stores = stage_batches(store, store_cols, dev)
+    torch.cuda.synchronize()
+    return (sales, item, store), parts, items, stores, (host, item_cols, store_cols)
+
+
+def q17_plan(sales, item, store):
+    """bench.py:265 plan_q17: store_sales JOIN item JOIN store -> COUNT(*),
+    SUM(ss_quantity), SUM(ss_ext_wholesale_cost) (decimal(38,2): three-limb
+    states across the exchange) by (s_state_id, i_category_id) -> single
+    exchange -> sort."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+
+    F = E.AggFunction
+    j2 = N.BroadcastJoin(item_join(sales, item, "bench_items17"),
+                         N.BroadcastExchange(N.FFIReader(store, "store", 1)),
+                         [(E.Column("ss_store_sk"), E.Column("s_store_sk"))],
+                         N.JoinType.INNER, N.JoinSide.RIGHT, "bench_stores17")
+    agg = two_stage_agg(j2, ["s_state_id", "i_category_id"], [
+        ("n", E.AggExpr(F.COUNT, [])), ("qty", E.AggExpr(F.SUM, [E.Column("ss_quantity")])),
+        ("wcost", E.AggExpr(F.SUM, [E.Column("ss_ext_wholesale_cost")]))])
+    return N.Sort(N.ShuffleExchange(agg, N.SinglePartitioning(1)),
+                  [E.SortOrder(E.Column("s_state_id")), E.SortOrder(E.Column("i_category_id"))])
+
+
+def q17_oracle(host, item_cols, store_cols):
+    """q17's answer in numpy, exact: each row's group id (state * 10 +
+    category, by index into the dimensions), then per group the row count
+    and ``np.bincount`` sums of the quantity and of each wcost value's low
+    32 bits and high part. Every per-group chunk total stays below 2^53
+    (at most ~230,000 rows of < 2^32), so the float64 sums are exact; the
+    <= 500 group totals combine into Python ints."""
+    import decimal
+
+    import numpy as np
+
+    groups = Q17_STATES * Q17_CATEGORIES
+    cnt = np.zeros(groups, np.int64)
+    qty, lo, hi = (np.zeros(groups) for _ in range(3))
+    for it, st, q, w in host:
+        g = store_cols[1][st - 1] * Q17_CATEGORIES + item_cols[1][it - 1]
+        cnt += np.bincount(g, minlength=groups)
+        qty += np.bincount(g, weights=q, minlength=groups)
+        lo += np.bincount(g, weights=w & LO32, minlength=groups)
+        hi += np.bincount(g, weights=w >> 32, minlength=groups)
+    present = np.nonzero(cnt)[0]
+    ctx = decimal.Context(prec=80)
+    return {"s_state_id": (present // Q17_CATEGORIES).tolist(),
+            "i_category_id": (present % Q17_CATEGORIES).tolist(),
+            "n": cnt[present].tolist(), "qty": [int(x) for x in qty[present]],
+            "wcost": [decimal.Decimal((int(h) << 32) + int(x)).scaleb(-2, ctx)
+                      for h, x in zip(hi[present], lo[present])]}
+
+
+@contextlib.contextmanager
+def merge_inputs(seen):
+    """While open, adds (kind, rows, capacity) of each merge's input to
+    ``seen``: a device merge's concatenated state batches ("device"), a
+    state batch the host table merges ("table")."""
+    from blaze_tpu_torch.ops import agg as G
+    from blaze_tpu_torch.ops import agg_device as A
+
+    run, process = A.DeviceMergeAgger.run, G.AggTable.process_batch
+
+    def run_seen(self, batches):
+        live = [b for b in batches if b.num_rows]
+        rows = sum(b.num_rows for b in live)
+        if live:
+            seen.add(("device", rows, live[0].capacity if len(live) == 1
+                      else self.conf.capacity_for(rows)))
+        return run(self, batches)
+
+    def process_seen(self, batch):
+        if self.op.input_is_partial and batch.num_rows:
+            seen.add(("table", batch.num_rows, batch.capacity))
+        return process(self, batch)
+
+    A.DeviceMergeAgger.run, G.AggTable.process_batch = run_seen, process_seen
+    try:
+        yield
+    finally:
+        A.DeviceMergeAgger.run, G.AggTable.process_batch = run, process
+
+
+def run_q17(dev, profile=False, trace_path=None):
+    """q17 whole over one staged draw on three routes: the default Config
+    (K3's dense partial with the three-limb sum, K4's merges), the sort
+    route (``dense_agg=False, radix_agg=False``: K10), and the host
+    table's FINAL merge (``Q17_TABLE_MERGE_BYTES``: K12's limb merges);
+    each exact in order against ``q17_oracle``, the wide totals past
+    int64."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    (sales, item, store), parts, items, stores, host = make_q17_data(dev)
+    want = q17_oracle(*host)
+    del host
+    if not any(w >= 2 ** 63 for w in (int(x.scaleb(2)) for x in want["wcost"])):
+        raise AssertionError("q17's wcost totals stay within int64: no limb state is needed")
+    setup_s = time.perf_counter() - t0
+    sales_batches = sum(len(p) for p in parts)
+    if sales_batches != PARTS * Q17_TASK_BATCHES:
+        raise AssertionError(f"{sales_batches} sales batches, not {PARTS} x {Q17_TASK_BATCHES}")
+    # each route's merge inputs (kind, rows, capacity), held to the shapes
+    # at which time_limbs compared and timed the limb merges
+    fcap = Config().capacity_for(Q17_FINAL_ROWS)
+    merges = {"q17": {("device", Q17_MERGE_ROWS, Config().capacity_for(Q17_MERGE_ROWS)),
+                      ("device", PARTS * Q17_GROUPS, Config().capacity_for(PARTS * Q17_GROUPS))},
+              "q17_sort": {("device", Q17_FINAL_ROWS, fcap)},
+              "q17_table": {("table", Q17_FINAL_ROWS, fcap)}}
+    out = {}
+    for name, conf in (("q17", Config()), ("q17_sort", Config(dense_agg=False, radix_agg=False)),
+                       ("q17_table", Config(device_merge_max_bytes=Q17_TABLE_MERGE_BYTES))):
+        session = blaze_tpu_torch.Session(conf=conf)
+        session.resources["store_sales"] = lambda p: parts[p]
+        session.resources["item"] = lambda p: items
+        session.resources["store"] = lambda p: stores
+        path_trace = trace_path.replace(".json", "") + f"_{name}.json" if trace_path else None
+        seen = set()
+        with merge_inputs(seen):
+            out[name] = run_query(name, Q06_ROWS, session, q17_plan(sales, item, store), want,
+                                  setup_s, {"groups": len(want["n"]), "items": Q06_ITEMS,
+                                            "stores": N_STORES}, profile, path_trace)
+        if seen != merges[name]:
+            raise AssertionError(f"{name}'s merge inputs {sorted(seen)} are not the shapes "
+                                 f"the limb merges were held at, {sorted(merges[name])}")
+        if out[name]["inner_join_planes"] < 2 * sales_batches:
+            raise AssertionError(f"{name} launched K8 {out[name]['inner_join_planes']} times "
+                                 f"for {sales_batches} sales batches and two joins")
+    routes = {"q17": ("slot_agg_partial:sum3", "slot_agg_merge:sum3"),
+              "q17_sort": ("seg_agg_partial:sum3", "seg_agg_merge:sum3"),
+              "q17_table": ("slot_agg_partial:sum3", "slot_update:renorm3")}
+    for name, keys in routes.items():
+        missing = [k for k in keys if out[name].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{name} did not launch the limb ops {missing}")
+    if out["q17_table"]["slot_agg_merge"] or out["q17_table"]["seg_agg_merge"]:
+        raise AssertionError("q17_table merged on the device, not in the host table")
     return out
 
 
@@ -3054,7 +3873,7 @@ def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_pat
     t0 = time.perf_counter()
     got = session.execute_to_pydict(plan)
     wall = time.perf_counter() - t0
-    launches = cuda_lib.launch_counts()
+    launches = {**cuda_lib.launch_counts(), **cuda_lib.limb_launch_counts()}
     check_result(name, got, want)
     peak = torch.cuda.max_memory_allocated()
     if profile:
@@ -3172,8 +3991,10 @@ def main(device: str = "cuda") -> int:
     kernel_k11(dev, rng, results)
     kernel_k12(dev, rng, results)
     kernel_k13(dev, rng, results)
+    kernel_limbs(dev, rng, results)
+    battery_limbs = cuda_lib.limb_launch_counts()
     # 4. the paths: q01, q67 (slot, sort and table routes), q06 and q47,
-    # q69, q96, then q89
+    # q69, q96, q89, then q17 (slot, sort and table routes)
     args = sys.argv[1:]
     profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
@@ -3187,11 +4008,22 @@ def main(device: str = "cuda") -> int:
                        if trace else None),
         "q89": run_q89(dev, profile, trace[0].replace(".json", "") + "_q89.json"
                        if trace else None),
+        **run_q17(dev, profile, trace[0] if trace else None),
     }
-    launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["q01"]}
-    missing = [k for k, v in launches.items() if v <= 0]
+    launches = {k: sum(p.get(k, 0) for p in per_path.values())
+                for k in set().union(*per_path.values())}
+    missing = [k for k in cuda_lib.LAUNCHES if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels launched by no path: {missing}")
+    # every limb op of K3/K4, K10 and K12, launched by a path or the battery
+    limb_ops = [f"{k}:{kind}" for k in ("slot_agg_partial", "slot_agg_merge",
+                                        "seg_agg_partial", "seg_agg_merge")
+                for kind in ("sum2", "avg2", "sum3", "avg3", "minw", "maxw")] + \
+        [f"slot_update:{op}" for op in ("add_lo32", "add_hi32", "renorm2", "renorm3",
+                                         "lexmin", "lexmax")]
+    missing = [k for k in limb_ops if launches.get(k, 0) + battery_limbs.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"limb ops launched by no path and not by the battery: {missing}")
     for q in ("q06", "q47", "q69"):
         if per_path[q]["inner_join_planes"] <= 0:
             raise AssertionError(f"{q} did not go through the join kernel")
@@ -3227,8 +4059,8 @@ def main(device: str = "cuda") -> int:
     for r in results:
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
         r["bound_by"] = "bytes"
-        r["launches"] = launches[r["name"]]
-        r["launches_per_path"] = {q: per_path[q][r["name"]] for q in per_path}
+        r["launches"] = launches.get(r["name"], 0)
+        r["launches_per_path"] = {q: per_path[q].get(r["name"], 0) for q in per_path}
         r["max_abs_err"] = MAX_ERR[r["name"]]
         log(json.dumps({"phase": "kernel", "name": r["name"], "shape": r["shape"],
                         "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -3240,9 +4072,13 @@ def main(device: str = "cuda") -> int:
                         **{k: r[k] for k in ("ms_262144_rows", "digit_passes", "hits",
                                              "build_rows_touched", "big_batch", "route_ms",
                                              "segment_ids_ms", "k11_only_ms", "k11_only_bytes",
-                                             "battery_s", "fold_ms", "unpacked_ms")
+                                             "battery_s", "fold_ms", "unpacked_ms",
+                                             "six_kinds_ms", "fold_replaces", "fold_shape")
                            if k in r}}))
         kernels.append({k: r[k] for k in keys})
+    log(json.dumps({"phase": "limb_ops", "paths": {
+        q: {k: v for k, v in p.items() if ":" in k} for q, p in per_path.items()},
+        "battery": battery_limbs}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

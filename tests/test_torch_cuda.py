@@ -18,11 +18,13 @@ import pytest
 import torch
 
 from chip_smoke import (FUSED_CAPS, PROBE_CASES, Q89_ROWS, Q96_ROWS, SCAN_CASES, SEG_CASES,
-                        UPD_CASES, customer_probe, fused_cases, fused_flat, fused_planes,
-                        merge_states, one_nan, probe_case, q67_batch, q67_merge_input,
+                        UPD_CASES, WIDE_CASES, WIDE_UPD_CASES, customer_probe, doubled,
+                        fused_cases, fused_flat, fused_planes, merge_states, one_nan,
+                        probe_case, q17_oracle, q17_plan, q67_batch, q67_merge_input,
                         q67_table_merge_batch, q89_host, q89_oracle, q89_plan, q89_schemas,
                         q96_host, q96_oracle, q96_plan, q96_schemas, scan_case, scan_run,
-                        seg_case, to_dev, upd_case, upd_fns, upd_run)
+                        seg_case, to_dev, upd_case, upd_fns, upd_run, wide_case, wide_states,
+                        wide_torch, wide_upd_case, wide_upd_fns, wide_upd_run)
 
 pytestmark = pytest.mark.cuda
 
@@ -785,3 +787,127 @@ def test_explicit_frame_window_on_the_card_equals_the_cpu(dev):
         s.resources["src"] = lambda p: batches
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"] and len(out["cpu"]["rn"]) > 1000
+
+
+# -- the limb halves: wide-decimal states ----------------------------------------
+
+
+def _limb_kernel_case(dev, case):
+    keys, kvalids, specs, args = wide_torch(
+        wide_case(case, np.random.default_rng(sum(map(ord, case[0])))), dev)
+    return keys, kvalids, specs, args, case[2], case[3]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=[c[0] for c in WIDE_CASES])
+def test_slot_agg_limb_kernels(dev, case):
+    """K3 and K4 with every limb kind (sum2, avg2, sum3, avg3, minw, maxw)
+    against their plain versions on the card."""
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ops import agg_device as A
+
+    conf = Config()
+    keys, kvalids, specs, args, cap, n = _limb_kernel_case(dev, case)
+    kd = [torch.int64] * len(keys)
+    bases, sizes, out_cap = A.plan_slot_table(A.probe_ranges(keys, kvalids), cap, None,
+                                              conf.radix_agg_max_slots, conf)
+    want = A.slot_agg_partial_plain(keys, kvalids, kd, n, bases, sizes, specs, args, out_cap)
+    _equal(A.slot_agg_partial(keys, kvalids, kd, n, bases, sizes, specs, args, out_cap), want)
+    g = int(want[0])
+    cap2 = conf.capacity_for(2 * g)
+    cat = doubled(want, g, cap2, dev)
+    live = torch.arange(cap2, device=dev) < 2 * g
+    mk = [cat[2 * i] for i in range(len(keys))]
+    mv = [cat[2 * i + 1] & live for i in range(len(keys))]
+    kinds = tuple(sp[0] for sp in specs)
+    states = wide_states([None, None] + cat, len(keys), kinds, live, np.random.default_rng(2))
+    b2, s2, o2 = A.plan_slot_table(A.probe_ranges(mk, mv), cap2, None,
+                                   conf.radix_agg_max_slots, conf)
+    _equal(A.slot_agg_merge(mk, mv, kd, 2 * g, b2, s2, kinds, states, o2),
+           A.slot_agg_merge_plain(mk, mv, kd, 2 * g, b2, s2, kinds, states, o2))
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=[c[0] for c in WIDE_CASES])
+def test_seg_agg_limb_kernels(dev, case):
+    """K10's reduction with every limb kind, partial and merge, against
+    its plain version over the same sorted rows on the card."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops import agg_device as A
+
+    keys, kvalids, specs, args, cap, n = _limb_kernel_case(dev, case)
+    kinds = tuple(sp[0] for sp in specs)
+    exists = torch.arange(cap, device=dev) < n
+    order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+    ops, emits = A._partial_program(specs, args)
+    _equal(K.segment_reduce_cuda("seg_agg_partial", order, starts, count, n, ops, emits),
+           K.segment_reduce_plain(order, starts, count, n, ops, emits))
+    outs = A.seg_agg_partial(keys, kvalids, n, specs, args)
+    g = int(outs[0])
+    live = torch.arange(cap, device=dev) < g
+    states = wide_states(outs, len(keys), kinds, live, np.random.default_rng(3))
+    mk, mv = list(outs[2:2 + 2 * len(keys):2]), list(outs[3:3 + 2 * len(keys):2])
+    morder, mstarts, mcount = K.segment_ids(mk, mv, live, g)
+    mops, memits = A._merge_program(kinds, states)
+    _equal(K.segment_reduce_cuda("seg_agg_merge", morder, mstarts, mcount, g, mops, memits),
+           K.segment_reduce_plain(morder, mstarts, mcount, g, mops, memits))
+
+
+@pytest.mark.parametrize("case", WIDE_UPD_CASES, ids=[c[0] for c in WIDE_UPD_CASES])
+def test_slot_update_limb_kernel(dev, case):
+    """K12's limb ops (two-limb splits, the renormalisation of touched
+    slots, limb merges and the lexicographic fold) against its plain
+    version on the card."""
+    from blaze_tpu_torch.core import kernels as K
+
+    data = wide_upd_case(case, np.random.default_rng(sum(map(ord, case[0]))))
+    fns = wide_upd_fns()
+    _equal(wide_upd_run(data, fns, K.slot_update_cuda, dev),
+           wide_upd_run(data, fns, K.slot_update_plain, dev))
+
+
+@pytest.mark.parametrize("route", ["default", "sort", "table"])
+def test_q17_on_the_card_equals_the_cpu(dev, route):
+    """q17 at 200,000 store_sales rows on the card and on the CPU: equal to
+    each other and to chip_smoke.py's exact oracle, the wide totals past
+    int64; the route's limb kernels launched."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    rng = np.random.default_rng(17)
+    n, n_items, n_stores = 200_000, 2000, 400
+    host = [(rng.integers(1, n_items + 1, n), rng.integers(1, n_stores, n),
+             rng.integers(1, 100, n), rng.integers(10 ** 14, 9 * 10 ** 16, n))]
+    item_cols = (np.arange(1, n_items + 1), rng.integers(0, 10, n_items),
+                 rng.integers(1, 60, n_items), rng.integers(0, 30000, n_items))
+    store_cols = (np.arange(1, n_stores + 1), rng.integers(0, 50, n_stores))
+    price = T.DecimalType(7, 2)
+    sales = T.Schema.of(("ss_item_sk", T.I64), ("ss_store_sk", T.I64),
+                        ("ss_quantity", T.I64), ("ss_ext_wholesale_cost", T.DecimalType(38, 2)))
+    item = T.Schema.of(("i_item_sk", T.I64), ("i_category_id", T.I64),
+                       ("i_brand_id", T.I64), ("i_current_price", price))
+    store = T.Schema.of(("s_store_sk", T.I64), ("s_state_id", T.I64))
+    from blaze_tpu_torch.core.batch import wide_words
+
+    it, st, q, w = host[0]
+    parts = [[{"ss_item_sk": it[a:b], "ss_store_sk": st[a:b], "ss_quantity": q[a:b],
+               "ss_ext_wholesale_cost": wide_words(w[a:b].tolist())}]
+             for a, b in ((0, n // 4), (n // 4, n // 2), (n // 2, 3 * n // 4), (3 * n // 4, n))]
+    conf = {"default": Config(batch_size=8192),
+            "sort": Config(batch_size=8192, dense_agg=False, radix_agg=False),
+            "table": Config(batch_size=8192, device_merge_max_bytes=1)}[route]
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(conf, device=device)
+        s.resources["store_sales"] = lambda p: parts[p]
+        s.resources["item"] = lambda p: [dict(zip(item.names, item_cols))]
+        s.resources["store"] = lambda p: [dict(zip(store.names, store_cols))]
+        cuda_lib.reset_launch_counts()
+        out[device] = s.execute_to_pydict(q17_plan(sales, item, store))
+    want = q17_oracle(host, item_cols, store_cols)
+    assert out[None] == out["cpu"] == want
+    assert any(int(x.scaleb(2)) >= 2 ** 63 for x in want["wcost"])
+    limbs = cuda_lib.limb_launch_counts()
+    key = {"default": "slot_agg_merge:sum3", "sort": "seg_agg_merge:sum3",
+           "table": "slot_update:renorm3"}[route]
+    assert limbs.get(key, 0) > 0, limbs

@@ -38,6 +38,7 @@ from blaze_tpu.runtime.session import Session as JaxSession
 import blaze_tpu_torch
 from blaze_tpu_torch.config import Config
 from blaze_tpu_torch.core import kernels as K
+from blaze_tpu_torch.core.batch import wide_words
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir.carry import columns_from_numpy, from_foreign
 from blaze_tpu_torch.ops.joins import keymap as KM
@@ -325,7 +326,11 @@ def _arrow(schema, cols):
     arrs = []
     for f in schema.fields:
         d, v = cols[f.name]
-        if isinstance(f.dtype, JT.DecimalType):
+        if JT.DecimalType(38, 2) == f.dtype:  # (lo_raw, hi) words of a wide decimal
+            vals = [(int(hi) << 64) + (int(lo) & ((1 << 64) - 1)) for lo, hi in d]
+            arrs.append(pa.array([_EXACT.scaleb(decimal.Decimal(x), -2) if ok else None
+                                  for x, ok in zip(vals, v)], type=pa.decimal128(38, 2)))
+        elif isinstance(f.dtype, JT.DecimalType):
             arrs.append(pa.array([decimal.Decimal(int(x)).scaleb(-2) if ok else None
                                   for x, ok in zip(d, v)], type=pa.decimal128(7, 2)))
         else:
@@ -382,6 +387,42 @@ def _q47():
                                          JE.Literal(5, JT.I32))])
 
 
+WCOST = JT.DecimalType(38, 2)
+SALES17 = JT.Schema.of(*[(f.name, f.dtype) for f in SALES.fields],
+                       ("ss_ext_wholesale_cost", WCOST))
+_EXACT = decimal.Context(prec=80)
+
+
+def _tables_wcost(seed):
+    """``_tables`` with bench.py's decimal(38,2) ss_ext_wholesale_cost on
+    store_sales, from its own stream, some nulls, as the port's (lo_raw,
+    hi) words. Unscaled values are uniform [10^16, 9 * 10^18) (bench.py
+    draws [10^14, 9 * 10^16) over 28.8M rows), so the ~20 rows of a group
+    here still sum past int64."""
+    tables = _tables(seed)
+    rng = np.random.default_rng(seed + 421)
+    for part in tables["store_sales"]:
+        x = rng.integers(10 ** 16, 9 * 10 ** 18, ROWS_PER_PART)
+        v = rng.random(ROWS_PER_PART) >= 0.03
+        part["ss_ext_wholesale_cost"] = (wide_words(x.tolist(), v), v)
+    return tables
+
+
+def _q17():
+    """bench.py:265 plan_q17 whole: the item and store joins, then COUNT,
+    SUM(ss_quantity) and the wide SUM(ss_ext_wholesale_cost) by (state,
+    category), a single exchange and the sort."""
+    j1 = _join(JN.FFIReader(SALES17, "store_sales", PARTS), "item", "ss_item_sk",
+               "i_item_sk", "bench_items17")
+    j2 = _join(j1, "store", "ss_store_sk", "s_store_sk", "bench_stores17")
+    agg = _two_stage(j2, ["s_state_id", "i_category_id"], [
+        ("n", JE.AggExpr(F.COUNT, [])),
+        ("qty", JE.AggExpr(F.SUM, [_col("ss_quantity")])),
+        ("wcost", JE.AggExpr(F.SUM, [_col("ss_ext_wholesale_cost")]))])
+    return JN.Sort(JN.ShuffleExchange(agg, JN.SinglePartitioning(1)),
+                   [JE.SortOrder(_col("s_state_id")), JE.SortOrder(_col("i_category_id"))])
+
+
 def _q17_joins():
     """bench.py:265 plan_q17's two joins (item, then store) under its
     (state, category) agg, without the wide-decimal wcost sum."""
@@ -394,14 +435,15 @@ def _q17_joins():
                    [JE.SortOrder(_col("s_state_id")), JE.SortOrder(_col("i_category_id"))])
 
 
-def _reference(plan, tables, fused):
+def _reference(plan, tables, fused, schemas=None):
     JBHJ.clear_build_cache()
     conf = JaxConfig(batch_size=BATCH) if fused else \
         JaxConfig(batch_size=BATCH, fused_filter_agg=False)
+    schemas = schemas or SCHEMAS
     with JaxSession(conf=_jax_conf(conf)) as s:
         for name, parts in tables.items():
             s.resources[name] = lambda p, _n=name, _parts=parts: [
-                _arrow(SCHEMAS[_n], b) for b in _slices(_parts[p], BATCH)]
+                _arrow(schemas[_n], b) for b in _slices(_parts[p], BATCH)]
         return s.execute_to_pydict(plan)
 
 
@@ -432,6 +474,33 @@ def test_join_paths_match_jax(query, fused):
     if query == "q47":
         assert len(got["rk"]) >= 50
         assert any(a == b for a, b in zip(got["rk"], got["rk"][1:]))  # ties
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_q17_with_wcost_matches_jax(fused):
+    """q17 whole: the decimal(38,2) column rides through both joins (K8)
+    as three limb planes, its SUM crosses the exchange as three-limb
+    states (sum3) and comes out exact, against both reference modes and a
+    Python oracle."""
+    tables = _tables_wcost(seed=17)
+    want = _reference(_q17(), tables, fused, dict(SCHEMAS, store_sales=SALES17))
+    got = _port(_q17(), tables)
+    assert got == want
+    item, store = tables["item"][0], tables["store"][0]
+    cat = dict(zip(item["i_item_sk"][0].tolist(), item["i_category_id"][0].tolist()))
+    state = dict(zip(store["s_store_sk"][0].tolist(), store["s_state_id"][0].tolist()))
+    sums = {}
+    for part in tables["store_sales"]:
+        (it, iv), (st, sv) = part["ss_item_sk"], part["ss_store_sk"]
+        words, wv = part["ss_ext_wholesale_cost"]
+        for i, ok_i, s_, ok_s, w, ok_w in zip(it, iv, st, sv, words[:, 0], wv):
+            if ok_i and ok_s and int(i) in cat and int(s_) in state and ok_w:
+                g = (state[int(s_)], cat[int(i)])
+                sums[g] = sums.get(g, 0) + int(w)
+    keys = list(zip(got["s_state_id"], got["i_category_id"]))
+    assert got["wcost"] == [_EXACT.scaleb(decimal.Decimal(sums[g]), -2) if g in sums else None
+                            for g in keys]
+    assert any(s >= 1 << 63 for s in sums.values())
 
 
 def test_empty_dimension_gives_no_rows():

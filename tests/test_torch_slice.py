@@ -170,6 +170,21 @@ def test_q01_avg_min_max_matches_jax():
     assert got == want
 
 
+@pytest.mark.parametrize("route", ["slot", "sort", "table"])
+def test_q01_wide_decimal_sum_matches_jax(route):
+    """q01's SUM into decimal(25,2): two int64 limbs a state (sum2) across
+    the exchange, a decimal(25,2) column out, on the slot routes (K3/K4),
+    the sort route (K10) and the host table's FINAL merge (K12)."""
+    aggs = [("total", JE.AggExpr(F.SUM, [JE.Column("sr_return_amt")], JT.DecimalType(25, 2))),
+            ("cnt", JE.AggExpr(F.COUNT, []))]
+    plan = _q01(aggs=aggs, sort=[JE.SortOrder(JE.Column("sr_store_sk"))], limit=1000)
+    conf = {"slot": None, "sort": Config(dense_agg=False, radix_agg=False),
+            "table": Config(device_merge_max_bytes=1)}[route]
+    want, got = _run_both(plan, _data(seed=8, nulls=0.05), conf)
+    assert got == want
+    assert len(got["total"]) > 300 and all(isinstance(t, decimal.Decimal) for t in got["total"])
+
+
 def test_carry_round_trip_and_columns():
     plan = _q01()
     port_plan = from_foreign(plan)
@@ -216,8 +231,13 @@ def test_out_of_slice_plans_raise(variant):
         plan = _q01(aggs=[("total", JE.AggExpr(F.SUM, [JE.Column("sr_return_amt")],
                                                JT.F64))])
     elif variant == "wide_decimal":
-        plan = _q01(aggs=[("total", JE.AggExpr(F.SUM, [JE.Column("sr_return_amt")],
-                                               JT.DecimalType(25, 2)))])
+        # a decimal(25,2) group key, a host column in the reference (the
+        # SUM into decimal(25,2) itself runs: test_q01_wide_decimal_sum_matches_jax)
+        final = _two_stage(JN.FFIReader(SCHEMA, "store_returns", PARTS), "sr_store_sk", [
+            ("total", JE.AggExpr(F.SUM, [JE.Column("sr_return_amt")],
+                                 JT.DecimalType(25, 2)))])
+        plan = JN.Agg(final, JE.AggExecMode.HASH_AGG, [("total", JE.Column("total"))],
+                      [JN.AggColumn(JE.AggExpr(F.COUNT, []), JE.AggMode.COMPLETE, "n")])
     elif variant == "left_join":
         # the sort-merge join is not ported (the hash joins are)
         join = _store_join(JN.JoinType.LEFT)

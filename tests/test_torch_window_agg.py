@@ -472,7 +472,7 @@ def test_wide_decimal_result_raises_naming_roadmap():
     plan = _window(schema, [_agg("s", F.SUM, C("m"))], ["g"])
     port = blaze_tpu_torch.Session(device="cpu")
     port.resources["src"] = lambda p: [{"g": np.array([1]), "m": np.array([5])}]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
         port.execute_to_pydict(from_foreign(plan))
 
 
