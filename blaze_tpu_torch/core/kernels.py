@@ -20,6 +20,9 @@ launches the kernel or raises.
   batch, then K1 once per filtered output group.
 - K13 ``segment_scan`` (csrc/seg_scan.cu): the window aggregates'
   segmented (sum, count) prefix scan with a carry, in XLA's float order.
+- K14 ``range_partition_ids`` (csrc/range_part.cu): the range exchange's
+  partition ids, a binary search of each row's normalised key tuple over
+  the sorted bound rows; ``range_partition_order`` sorts rows by them.
 
 The slot-code helpers of the aggregation are plain PyTorch twins of the
 JAX package's (the slot kernels K3/K4 are in ops/agg_device.py), and the
@@ -781,6 +784,131 @@ def lexsort_indices(operands: List[torch.Tensor],
     the plain version on CPU ones."""
     fn = lexsort_indices_cuda if operands[0].is_cuda else lexsort_indices_plain
     return fn(operands, num_rows)
+
+
+# -- K14: range-partition ids ------------------------------------------------------
+#
+# blaze_tpu/core/kernels.py _range_pids: a row's partition is the number of
+# bound rows whose key tuple is <= the row's (bisect_right), both compared
+# as K5's key pass normalises them: (u8 rank, value) per key, the value
+# compared with < and == in its own dtype (so a -0.0 bound equals a 0.0
+# row). The reference counts over a (rows x bounds) broadcast; K14 and its
+# twin binary-search the bounds, which ``range_bound_operands`` hands over
+# in ascending order. A count of bounds <= a row does not depend on the
+# order of the bounds, and over bounds in ascending order those bounds are
+# a prefix, so the two agree on any bound set. Padding rows park at
+# ``len(bounds) + 1``, past every partition.
+
+# csrc/range_part.cu: bound rows staged in shared memory up to this many
+# bytes (8-byte words and 1-byte ranks), read from global memory past it
+RANGE_SMEM_BYTES = 48 << 10
+
+
+def range_bound_operands(datas, valids, spec) -> List[torch.Tensor]:
+    """The bound rows' key operands ([rank0, val0, ...], one row a bound,
+    K5's key pass), sorted ascending (K5's sort): what K14 searches."""
+    exists = torch.ones(datas[0].shape[0], dtype=torch.bool, device=datas[0].device)
+    ops = sort_key_operands(datas, valids, exists, spec)
+    if not exists.shape[0]:
+        return ops
+    order = lexsort_indices(ops)
+    return [op[order] for op in ops]
+
+
+def _bounds_le(ops, bound_ops, j: torch.Tensor) -> torch.Tensor:
+    """Is bound row ``j[i]`` <= row i, lexicographically over the operands?"""
+    lt = torch.zeros(j.shape, dtype=torch.bool, device=j.device)
+    eq = torch.ones(j.shape, dtype=torch.bool, device=j.device)
+    for o, b in zip(ops, bound_ops):
+        bb = b[j]
+        lt |= eq & (bb < o)
+        eq &= bb == o
+    return lt | eq
+
+
+def range_partition_ids_plain(datas, valids, exists, bound_ops, spec) -> torch.Tensor:
+    """Plain PyTorch twin of K14: int32 partition ids over the capacity,
+    by a binary search of every row at once over ``bound_ops`` (ascending,
+    from :func:`range_bound_operands`)."""
+    ops = sort_key_operands_plain(datas, valids, exists, spec)
+    nb = int(bound_ops[0].shape[0]) if bound_ops else 0
+    n = int(exists.shape[0])
+    lo = torch.zeros(n, dtype=torch.int64, device=exists.device)
+    hi = torch.full((n,), nb, dtype=torch.int64, device=exists.device)
+    for _ in range(nb.bit_length()):
+        mid = (lo + hi) // 2
+        le = _bounds_le(ops, bound_ops, mid.clamp(max=max(nb - 1, 0)))
+        active = lo < hi
+        lo = torch.where(active & le, mid + 1, lo)
+        hi = torch.where(active & ~le, mid, hi)
+    return torch.where(exists, lo, nb + 1).to(torch.int32)
+
+
+def range_partition_ids_cuda(datas, valids, exists, bound_ops, spec) -> torch.Tensor:
+    """K14 on the card (csrc/range_part.cu): same ids as
+    :func:`range_partition_ids_plain`, one launch."""
+    cuda_lib.require_cuda("range_partition_ids", exists, *datas, *valids, *bound_ops)
+    n = int(exists.shape[0])
+    k = len(datas)
+    if not 0 < k <= _MAX_SORT_KEYS or len(valids) != k or len(spec) != k or \
+            len(bound_ops) != 2 * k:
+        raise ValueError(f"range_partition_ids: {k} keys, {len(spec)} specs, "
+                         f"{len(bound_ops)} bound operands")
+    if exists.dtype != torch.bool or any(v.dtype != torch.bool for v in valids):
+        raise TypeError("range_partition_ids: exists and validity must be bool")
+    for p in list(datas) + list(valids):
+        if p.shape != (n,):
+            raise ValueError(f"range_partition_ids: plane {tuple(p.shape)}, "
+                             f"expected ({n},)")
+    nb = int(bound_ops[0].shape[0])
+    kinds = [_key_kind(d) for d in datas]
+    for c, (d, kind) in enumerate(zip(datas, kinds)):
+        rank, val = bound_ops[2 * c], bound_ops[2 * c + 1]
+        want = torch.uint8 if kind == _KEY_BOOL else d.dtype
+        if rank.dtype != torch.uint8 or val.dtype != want or \
+                rank.shape != (nb,) or val.shape != (nb,):
+            raise TypeError(f"range_partition_ids: key {c}'s bounds are {rank.dtype}/"
+                            f"{val.dtype} of {tuple(val.shape)}, expected uint8/{want} "
+                            f"of ({nb},)")
+    out = torch.empty(n, dtype=torch.int32, device=exists.device)
+    if n:
+        keep = []
+
+        def arr(pair):
+            keep.append(pair[1])
+            return pair[0]
+
+        err = cuda_lib.library().blz_range_partition_ids(
+            k, arr(cuda_lib.ptr_array(datas)), arr(cuda_lib.ptr_array(valids)),
+            arr(cuda_lib.int_array([d.element_size() for d in datas])),
+            arr(cuda_lib.int_array(kinds)),
+            arr(cuda_lib.int_array([int(a) for a, _ in spec])),
+            arr(cuda_lib.int_array([int(nf) for _, nf in spec])),
+            exists.data_ptr(), n, arr(cuda_lib.ptr_array(bound_ops[0::2])),
+            arr(cuda_lib.ptr_array(bound_ops[1::2])), nb,
+            int(k * nb * 9 <= RANGE_SMEM_BYTES), out.data_ptr(),
+            cuda_lib.stream_of(exists.device))
+        cuda_lib.check(err, "range_partition_ids")
+        cuda_lib.LAUNCHES["range_partition"] += 1
+    return out
+
+
+def range_partition_ids(datas, valids, exists, bound_ops, spec) -> torch.Tensor:
+    """Row-order int32 range-partition ids over the capacity: K14 on a
+    CUDA batch, the plain version on a CPU one."""
+    fn = range_partition_ids_cuda if exists.is_cuda else range_partition_ids_plain
+    return fn(datas, valids, exists, bound_ops, spec)
+
+
+def range_partition_order(datas, valids, exists, bound_ops, spec,
+                          num_rows: Optional[int] = None):
+    """(sorted_pids, order): K14's ids, then K5's stable sort of the rows
+    by id (blaze_tpu/core/kernels.py _range_order). Padding rows carry the
+    largest id, so sorting only the first ``num_rows`` rows leaves them
+    where a sort of every row would put them."""
+    pids = range_partition_ids(datas, valids, exists, bound_ops, spec)
+    order = lexsort_indices([pids], num_rows)
+    return pids[order], order
 
 
 # -- K10: the segmented aggregate ------------------------------------------------

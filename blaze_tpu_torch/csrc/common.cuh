@@ -1,5 +1,6 @@
 // Shared pieces of the port's hand-written Hopper kernels: the plain C
-// export macro, launch geometry, the block-level stable rank that the
+// export macro, launch geometry, the key kinds and integer load of the key
+// passes (sort.cu, range_part.cu), the block-level stable rank that the
 // compaction kernels (compact.cu, slot_agg.cu) are built on, and the emit
 // arithmetic of the aggregate kernels (slot_agg.cu, seg_agg.cu).
 //
@@ -20,6 +21,21 @@
 
 static inline unsigned int blz_blocks(int64_t n) {
   return (unsigned int)((n + BLZ_THREADS - 1) / BLZ_THREADS);
+}
+
+// The key kinds of the sort and range-partition key passes (sort.cu,
+// range_part.cu; core/kernels.py _KEY_*).
+enum { BLZ_KEY_BOOL = 0, BLZ_KEY_INT = 1, BLZ_KEY_FLOAT = 2 };
+
+// A signed integer plane's row i, sign-extended from its ``size`` bytes.
+__device__ __forceinline__ long long blz_load_int(const void* p, int size,
+                                                  int64_t i) {
+  switch (size) {
+    case 1: return ((const int8_t*)p)[i];
+    case 2: return ((const int16_t*)p)[i];
+    case 4: return ((const int32_t*)p)[i];
+    default: return ((const long long*)p)[i];
+  }
 }
 
 // Exclusive rank of this thread's flag among the flagged threads of its

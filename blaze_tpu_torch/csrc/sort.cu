@@ -46,7 +46,6 @@
 #define BLZ_SORT_TILE (BLZ_THREADS * BLZ_SORT_ITEMS)
 
 enum { BLZ_WORD_UNSIGNED = 0, BLZ_WORD_SIGNED = 1, BLZ_WORD_FLOAT = 2 };
-enum { BLZ_KEY_BOOL = 0, BLZ_KEY_INT = 1, BLZ_KEY_FLOAT = 2 };
 
 // -- 1. key operands ------------------------------------------------------------
 
@@ -61,16 +60,6 @@ struct SortKeySet {
   int asc[BLZ_MAX_SORT_KEYS];
   int nulls_first[BLZ_MAX_SORT_KEYS];
 };
-
-__device__ __forceinline__ long long blz_load_int(const void* p, int size,
-                                                  int64_t i) {
-  switch (size) {
-    case 1: return ((const int8_t*)p)[i];
-    case 2: return ((const int16_t*)p)[i];
-    case 4: return ((const int32_t*)p)[i];
-    default: return ((const long long*)p)[i];
-  }
-}
 
 __device__ __forceinline__ void blz_store_int(void* p, int size, int64_t i,
                                               long long v) {

@@ -1,27 +1,37 @@
 """Row -> partition routing for the in-process exchange.
 
-Counterpart of blaze_tpu/ops/shuffle/repartitioner.py for the slice:
+Counterpart of blaze_tpu/ops/shuffle/repartitioner.py:
 ``HashPartitioner`` is Spark's HashPartitioning (murmur3 seed 42, pmod n;
-kernel K2, exprs/spark_hash.py), ``SinglePartitioner`` the collapse to one
-partition. ``bucketize`` splits a batch into per-partition device
-sub-batches with one stable sort by partition id (K5, one operand), one
-gather (K6) and contiguous slices (K7), as the JAX package's device tier
-does. Round-robin and
-range partitioning are not ported (ROADMAP.md Queue 1 item 9, row 12).
+kernel K2, exprs/spark_hash.py), ``RoundRobinPartitioner`` deals rows out
+in turn (ids continue across a map task's batches, from 0 in each task),
+``RangePartitioner`` binary-searches the driver-sampled bounds (K14,
+core/kernels.py ``range_partition_ids``), and ``SinglePartitioner`` is the
+collapse to one partition. ``bucketize`` splits a batch into
+per-partition device sub-batches with one stable sort by partition id
+(K5, one operand), one gather (K6) and contiguous slices (K7), as the JAX
+package's device tier does.
 """
 
 from __future__ import annotations
 
+import datetime
+import decimal
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from blaze_tpu_torch.core import kernels as K
 from blaze_tpu_torch.core.batch import ColumnarBatch
 from blaze_tpu_torch.exprs import spark_hash
-from blaze_tpu_torch.exprs.compiler import ExprEvaluator, require_narrow_key
+from blaze_tpu_torch.exprs.compiler import ExprEvaluator, broadcast, require_narrow_key
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import nodes as N
+from blaze_tpu_torch.ir import types as T
+from blaze_tpu_torch.ops import sort_keys as SK
+
+# scales a decimal bound without rounding
+_EXACT = decimal.Context(prec=80)
 
 
 class Repartitioner:
@@ -75,6 +85,94 @@ class HashPartitioner(Repartitioner):
                                         self.num_partitions)
 
 
+class RoundRobinPartitioner(Repartitioner):
+    """Round robin from a deterministic start, so a retried map task gives
+    the same partitions; ids continue across the task's batches."""
+
+    def __init__(self, num_partitions: int, start: int = 0):
+        super().__init__(num_partitions)
+        self.next_pid = start % max(num_partitions, 1)
+
+    def partition_ids(self, batch):
+        n = batch.num_rows
+        pids = (torch.arange(n, dtype=torch.int64, device=batch.device)
+                + self.next_pid) % self.num_partitions
+        self.next_pid = int((self.next_pid + n) % self.num_partitions)
+        return pids.to(torch.int32)
+
+
+def _bound_value(dt: T.DataType, v):
+    """A bound's Python value as its key plane's number (a decimal at the
+    key's scale, which must hold it exactly)."""
+    if isinstance(dt, T.DecimalType):
+        scaled = decimal.Decimal(v).scaleb(dt.scale, _EXACT)
+        if scaled != scaled.to_integral_value():
+            raise ValueError(f"range bound {v!r} does not fit {dt!r}")
+        return int(scaled)
+    if isinstance(dt, T.DateType):
+        return (v - datetime.date(1970, 1, 1)).days
+    if isinstance(dt, T.TimestampType):
+        return (v - datetime.datetime(1970, 1, 1)) // datetime.timedelta(microseconds=1)
+    return v
+
+
+class RangePartitioner(Repartitioner):
+    """bisect_right of each row's sort-key tuple over the sampled bounds
+    (rows of the sort-key schema, Spark's RangePartitioning bounds). The
+    bounds are normalised once per partitioner (the Session builds one an
+    exchange), by the same key pass as the rows (K5), sorted, and kept on
+    the device; each bucketize pass is
+    one K14 launch, one K5 sort by id, one K6 gather and K7 slices. Empty
+    bounds put every row in partition 0."""
+
+    def __init__(self, sort_orders: List[E.SortOrder], num_partitions: int,
+                 bounds: List[tuple], schema):
+        super().__init__(num_partitions)
+        self.sort_orders = sort_orders
+        self.bounds = bounds
+        self.key_types = [E.infer_type(so.child, schema) for so in sort_orders]
+        for t in self.key_types:
+            require_narrow_key(t, "range partition key")
+        self.spec = SK.key_spec(sort_orders)
+        self.ev = ExprEvaluator([so.child for so in sort_orders], schema)
+        self._dev_bounds = None
+
+    def _device_bounds(self, device: torch.device) -> List[torch.Tensor]:
+        """The bound rows as a batch of the sort-key schema, through K5's
+        key pass and sort, sliced to the bound count (the batch pads to its
+        capacity)."""
+        if self._dev_bounds is None:
+            schema = T.Schema.of(*[(f"k{i}", t) for i, t in enumerate(self.key_types)])
+            cols = {}
+            for i, t in enumerate(self.key_types):
+                vals = [b[i] for b in self.bounds]
+                cols[f"k{i}"] = (np.array([0 if v is None else _bound_value(t, v)
+                                           for v in vals]),
+                                 np.array([v is not None for v in vals], bool))
+            bb = ColumnarBatch.from_numpy(schema, cols, device)
+            nb = len(self.bounds)
+            self._dev_bounds = K.range_bound_operands(
+                [c.data[:nb] for c in bb.columns], [c.validity[:nb] for c in bb.columns],
+                self.spec)
+        return self._dev_bounds
+
+    def _key_planes(self, batch):
+        datas, valids = [], []
+        for so in self.sort_orders:
+            d, v = broadcast(self.ev.eval(so.child, batch), batch)
+            datas.append(d)
+            valids.append(v)
+        return datas, valids
+
+    def partition_ids(self, batch):
+        if not self.bounds:
+            return torch.zeros(batch.num_rows, dtype=torch.int32, device=batch.device)
+        datas, valids = self._key_planes(batch)
+        pids = K.range_partition_ids(datas, valids, batch.row_exists_mask(),
+                                     self._device_bounds(batch.device), self.spec)
+        return pids[:batch.num_rows]
+
+
 def create_repartitioner(partitioning, schema) -> Repartitioner:
     if isinstance(partitioning, N.SinglePartitioning) or \
             partitioning.num_partitions == 1:
@@ -82,6 +180,9 @@ def create_repartitioner(partitioning, schema) -> Repartitioner:
     if isinstance(partitioning, N.HashPartitioning):
         return HashPartitioner(partitioning.exprs, partitioning.num_partitions,
                                schema)
-    raise NotImplementedError(
-        f"{type(partitioning).__name__} is not ported to the PyTorch package "
-        "yet (ROADMAP.md Queue 1 item 9, row 12)")
+    if isinstance(partitioning, N.RoundRobinPartitioning):
+        return RoundRobinPartitioner(partitioning.num_partitions)
+    if isinstance(partitioning, N.RangePartitioning):
+        return RangePartitioner(partitioning.sort_orders, partitioning.num_partitions,
+                                partitioning.bounds, schema)
+    raise NotImplementedError(f"partitioning {partitioning!r}")

@@ -4,9 +4,11 @@ As blaze_tpu/ops/sort_keys.py ``key_operands``: every sort key becomes a
 (u8 rank, native value) operand pair, direction-adjusted, with nulls,
 NaNs and padding rows folded into the rank (K5's key pass,
 core/kernels.py ``sort_key_operands``). ``peer_key_rows`` is the
-window's order-key encoding (ops/joins/keymap.py). Keys must be device
-(fixed-width) values; the host path for var-width keys is not ported
-(ROADMAP.md Queue 2).
+window's order-key encoding (ops/joins/keymap.py). ``host_key_part`` is
+the host sort key of one Python value (blaze_tpu/ops/sort_keys.py
+``_host_key_part``), which the range exchange's bound sampling sorts by
+(runtime/session.py). Keys must be device (fixed-width) values; the host
+path for var-width keys is not ported (ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
@@ -51,3 +53,28 @@ def peer_key_rows(batch: ColumnarBatch, sort_orders: List[E.SortOrder],
     ev = evaluator or ExprEvaluator([so.child for so in sort_orders],
                                     batch.schema)
     return key_rows(batch, ev.evaluate(batch))
+
+
+class _Rev:
+    """Reverses comparison order for descending host keys."""
+
+    __slots__ = ("v",)
+
+    def __init__(self, v):
+        self.v = v
+
+    def __lt__(self, other):
+        return other.v < self.v
+
+    def __eq__(self, other):
+        return self.v == other.v
+
+
+def host_key_part(v, so: E.SortOrder):
+    """One Python value's host sort key: (null rank, value), the value
+    reversed under DESC; nulls before (rank 0) or after (rank 2) every
+    value (rank 1)."""
+    null_rank = (0 if so.nulls_first else 2) if v is None else 1
+    if v is None:
+        return (null_rank, 0)
+    return (null_rank, _Rev(v) if not so.ascending else v)

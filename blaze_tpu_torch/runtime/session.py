@@ -19,13 +19,16 @@ exchange is the same collect, read by every task as one partition
 build-map cache (ops/joins/bhj.py ``BUILD_MAPS``), dropped with the
 query's other resources. Reducers never merge below a partition-
 zipping node (a hash join pairs partition i of both sides): a top-down
-flag carried through the lowering, as in the JAX package. Worker pools,
-file and remote shuffle tiers and range exchanges are not ported
-(ROADMAP.md Queue 1 items 7 and 12).
+flag carried through the lowering, as in the JAX package. A range
+exchange without bounds (Spark's plan for a global ORDER BY) first runs
+its child once to sample them (``_sample_range_bounds``), then again to
+map it. The file and remote shuffle tiers and worker pools are not
+ported (ROADMAP.md Queue 1 items 11 and 13).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Dict, Iterator, List, Optional
 
@@ -33,10 +36,13 @@ import torch
 
 from blaze_tpu_torch.config import Config
 from blaze_tpu_torch.core.batch import ColumnarBatch
+from blaze_tpu_torch.exprs.compiler import ExprEvaluator
 from blaze_tpu_torch.ir import nodes as N
+from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ops.base import ExecContext
 from blaze_tpu_torch.ops.joins.bhj import BUILD_MAPS
 from blaze_tpu_torch.ops.shuffle.repartitioner import create_repartitioner
+from blaze_tpu_torch.ops.sort_keys import host_key_part
 from blaze_tpu_torch.runtime.executor import build_operator
 from blaze_tpu_torch.utils.device import resolve_device
 
@@ -106,8 +112,6 @@ class Session:
         if isinstance(node, N.Sort) and isinstance(node.child, N.CoalesceBatches):
             # Sort stages its whole input; a reducer coalesce below it
             # gathers the same rows twice
-            import dataclasses
-
             node = dataclasses.replace(node, child=node.child.child)
         if isinstance(node, N.ShuffleExchange):
             return self._run_exchange(node)
@@ -138,6 +142,9 @@ class Session:
     def _run_exchange(self, node: N.ShuffleExchange) -> N.PlanNode:
         schema = node.child.output_schema
         part = node.partitioning
+        if isinstance(part, N.RangePartitioning) and not part.bounds and \
+                part.num_partitions > 1:
+            part = self._sample_range_bounds(node)
         if isinstance(part, N.SinglePartitioning) and part.num_partitions == 1:
             # a single-reducer exchange is a collect, assembled in map order
             return N.CoalesceBatches(N.BatchSource(schema, self._collect(node.child), 1),
@@ -145,7 +152,12 @@ class Session:
         child_op = build_operator(node.child, self.conf)
         num_maps = child_op.num_partitions()
         num_reducers = part.num_partitions
-        maps = [self._run_map(child_op, part, schema, m) for m in range(num_maps)]
+        # one partitioner serves every map task, so a range exchange's
+        # bounds are normalised once; round robin starts anew in each task
+        shared = None if isinstance(part, N.RoundRobinPartitioning) else \
+            create_repartitioner(part, schema)
+        maps = [self._run_map(child_op, shared or create_repartitioner(part, schema),
+                              schema, m) for m in range(num_maps)]
         sizes = [0] * num_reducers
         for staged in maps:
             for pid, subs in staged.items():
@@ -160,10 +172,45 @@ class Session:
         return N.CoalesceBatches(N.BatchSource(schema, rid, len(groups)),
                                  batch_size=0)
 
-    def _run_map(self, child_op, partitioning, schema, m: int):
+    def _sample_range_bounds(self, node: N.ShuffleExchange) -> N.RangePartitioning:
+        """num_partitions - 1 quantile bounds of the child's sort keys
+        (blaze_tpu/runtime/session.py:_sample_range_bounds, the same
+        procedure): every max(1, rows // 50)-th row of each batch, until a
+        partition has given 5,000 rows; the samples sorted by their host
+        keys, the bound i the sample at i * len // num_partitions."""
+        part = node.partitioning
+        child_op = build_operator(node.child, self.conf)
+        exprs = [so.child for so in part.sort_orders]
+        samples = []
+        for p in range(child_op.num_partitions()):
+            taken = 0
+            for batch in child_op.execute(p, self._ctx()):
+                cols = ExprEvaluator(exprs, batch.schema).evaluate(batch)
+                keys = ColumnarBatch(
+                    T.Schema.of(*[(f"k{i}", c.dtype) for i, c in enumerate(cols)]),
+                    cols, batch.num_rows)
+                step = max(1, batch.num_rows // 50)
+                rows = torch.arange(0, batch.num_rows, step, device=batch.device)
+                picked = keys.take(rows, self.conf).to_pydict()
+                samples.extend(zip(*picked.values()))
+                taken += batch.num_rows
+                if taken >= 5000:
+                    break
+        if not samples:
+            return dataclasses.replace(part, bounds=[])
+
+        def keyf(row):
+            return tuple(host_key_part(v, so) for v, so in zip(row, part.sort_orders))
+
+        samples.sort(key=keyf)
+        n = part.num_partitions
+        return dataclasses.replace(part, bounds=[
+            samples[min(len(samples) - 1, i * len(samples) // n)] for i in range(1, n)])
+
+    def _run_map(self, child_op, repart, schema, m: int):
         """One map task: stream the child partition, coalesce small
-        batches, bucketize by partition id; returns {pid: [sub-batches]}."""
-        repart = create_repartitioner(partitioning, schema)
+        batches, bucketize by partition id with ``repart``; returns
+        {pid: [sub-batches]}."""
         staged: Dict[int, List[ColumnarBatch]] = {}
         pending: List[ColumnarBatch] = []
         pending_rows = 0

@@ -12,7 +12,8 @@ launches its kernel and nowhere else, so a run can show that it went
 through the kernels (``reset_launch_counts`` / ``launch_counts``); K11,
 the generated Triton kernel of a fused chain (exprs/fused_triton.py),
 counts under ``fused_chain``; K13, the window aggregates' segmented scan,
-under ``segment_scan``. Beside them ``LIMB_LAUNCHES`` counts, per kernel,
+under ``segment_scan``; K14, the range exchange's partition ids, under
+``range_partition``. Beside them ``LIMB_LAUNCHES`` counts, per kernel,
 the launches that carried each wide-decimal (limb) op: the aggregate
 kinds sum2/avg2/sum3/avg3/minw/maxw of K3, K4 and K10, and K12's limb
 update ops (``limb_launch_counts``).
@@ -35,7 +36,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu",
-           "join.cu", "seg_agg.cu", "slot_update.cu", "seg_scan.cu")
+           "join.cu", "seg_agg.cu", "slot_update.cu", "seg_scan.cu", "range_part.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libblaze_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -59,6 +60,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_chain": 0,
     "slot_update": 0,
     "segment_scan": 0,
+    "range_partition": 0,
 }
 
 LIMB_LAUNCHES: Dict[str, int] = {}
@@ -245,6 +247,10 @@ _SIGNATURES = {
     # data, kind, validity, exists, seg_start, n, carry_f, carry_i, carry_c,
     # rows, levels, out_s, out_c, stream
     "blz_segment_scan": [_P, _I, _P, _P, _P, _I64, _D, _I64, _I64, _P, _P, _P, _P, _P],
+    # k, datas, valids, sizes, kinds, asc, nulls_first, exists, n, brank,
+    # bval, nb, staged, out, stream
+    "blz_range_partition_ids": [_I, _PP, _PP, _PI, _PI, _PI, _PI, _P, _I64, _PP, _PP,
+                                _I, _I, _P, _P],
 }
 
 

@@ -10,7 +10,7 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K13 held against their plain PyTorch versions on the
+3. kernels: K1-K14 held against their plain PyTorch versions on the
    card, exactly (float planes bit for bit), at the main paths' shapes and
    at edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
@@ -48,7 +48,15 @@ only when every phase passed:
    lexicographic-fold ops, over negative values, 38-digit extremes and
    values past 2^64, all-negative extremes, cancellation near the
    extremes, single rows, one row, nulls, padding and every value null,
-   then timed at q17's shapes); then each timed with
+   then timed at q17's shapes); for the range exchange's partition ids,
+   K14: one to five keys of int64/int32/int16/int8/bool/float32/float64/
+   decimal, ASC and DESC, nulls first and last, NaN and +-0.0 in rows and
+   bounds, int64 min and max, null bounds, 1, 3, 31, 199 and 1,200
+   bounds (the last past the shared-memory stage), padding rows,
+   capacities 256, 4,096 and 262,144, and sort10M's map batch, then timed
+   there at 31 and 199 bounds and on one key beside torch.searchsorted
+   (and every K14 launch of q98's and sort10M's first runs held to the
+   twin on that batch); then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s);
@@ -103,13 +111,29 @@ only when every phase passed:
      three-limb states; on the default route (K3, K4), as q17_sort
      (K10) and as q17_table (the host table's FINAL merge, K12), each
      exact in order against numpy;
-   all through ``Session().execute_to_pydict`` in 4 partitions staged on
-   the card; every kernel must have launched over the twelve runs, every
+   - q98 (store_sales JOIN broadcast item (Sports, Books, Home) JOIN
+     broadcast date_dim (February 1999) -> SUM(ss_quantity) by five
+     keys on the sort route (K10), two-stage -> hash exchange by i_class
+     -> sort -> Window sum over i_class (K13) -> the revenue ratio ->
+     range exchange on the five ORDER BY keys, bounds sampled by the
+     Session (K14) -> sort) over TPC-DS SF10's row counts (seed 98),
+     exact in order against numpy (rows tied on all five keys as sets);
+   - sort10M, the soak's global sort (scripts/scale_soak.py:98): bench.py's
+     five store_sales columns, the decimal(38,2) one as limbs, 10,000,000
+     rows in 32 partitions (seed 1010) -> range exchange on
+     (ss_sales_price DESC, ss_item_sk) into 32, bounds sampled (K14 on
+     every map-side bucketize pass) -> sort; the keys exact in order
+     against numpy's stable sort, the rows as multisets within tied keys
+     (collected as numpy planes through ``Session().execute``);
+   all through ``Session().execute_to_pydict`` (sort10M: ``execute``) in
+   partitions staged on the card; every kernel must have launched over
+   the fourteen runs, every
    limb op over the runs or the battery, the
    unique-key join kernel on each join path, the generic probe on q69,
    K10's three launches on q69 and q67_sort, K11 on every q69 sales
    batch (196) and on the root rank filter of q67, q67_sort and q47,
-   K12 on q96 and q67_table, and K13 on q89;
+   K12 on q96 and q67_table, K13 on q89 and q98, and K14 on q98 and on
+   sort10M once a map-side bucketize pass;
 5. one JSON line per kernel (shape, times, bound, launches per path; the
    limb halves as ``name:limbs``), the limb ops' launch counts, the
    kernels' summary JSON line, the card line, and the device JSON line.
@@ -119,7 +143,7 @@ share, launch and sync counts, the top kernels); ``--trace=PATH`` also
 writes q01's Chrome trace to PATH and the other paths' beside it
 (``_q67.json``, ``_q67_sort.json``, ``_q67_table.json``, ``_q06.json``,
 ``_q47.json``, ``_q69.json``, ``_q96.json``, ``_q89.json``, ``_q17.json``,
-``_q17_sort.json``, ``_q17_table.json``).
+``_q17_sort.json``, ``_q17_table.json``, ``_q98.json``, ``_sort10m.json``).
 
 Needs one CUDA device; exits 2 without one, or when run outside a checkout
 of the repository.
@@ -2523,6 +2547,195 @@ def time_limbs(dev, rng, results, cases, upd_cases):
         fold_shape="262144 rows -> <= 500 of 1,024 slots (MIN and MAX of decimal(38,2))"))
 
 
+# -- K14: range-partition ids -------------------------------------------------------
+
+# the sort10M map batch's keys: ss_sales_price DESC (decimal(7,2), unscaled
+# [0, 50,000)) and ss_item_sk ASC ([1, 2,000)), as bench.py draws them
+SORT10M_KEYS = (("price", False, True), ("item", True, True))
+RANGE_CASES = (
+    # label, keys ((kind, ascending, nulls_first), ...), capacity, live rows,
+    # bounds, null share of the rows, null share of the bounds
+    ("i64, 1 bound", (("i64", True, True),), 256, 200, 1, 0.1, 0.0),
+    ("i64 DESC nulls last, 3 bounds", (("i64", False, False),), 256, 256, 3, 0.2, 0.3),
+    ("i32 + f64 DESC, 31 bounds", (("i32", True, False), ("f64", False, True)), 4096, 4000,
+     31, 0.1, 0.1),
+    ("i16, bool DESC, f32 nulls last: 3 keys, 199 bounds",
+     (("i16", True, True), ("bool", False, True), ("f32", True, False)), 4096, 4090, 199, 0.1,
+     0.05),
+    ("dec, i64 DESC, bool, f64, i32 DESC: 5 keys, 31 bounds",
+     (("dec", True, True), ("i64", False, False), ("bool", True, False), ("f64", True, True),
+      ("i32", False, True)), 4096, 4096, 31, 0.05, 0.05),
+    ("f64 NaN and +-0.0, 3 bounds", (("f64", True, True),), 4096, 4000, 3, 0.05, 0.0),
+    ("f64 DESC NaN and +-0.0 nulls last, 31 bounds", (("f64", False, False),), 4096, 4093, 31,
+     0.05, 0.1),
+    ("f32 NaN and +-0.0 + i8 DESC, 31 bounds", (("f32", True, True), ("i8", False, False)),
+     4096, 4096, 31, 0.05, 0.1),
+    ("int64 min/max, ASC and DESC, 31 bounds", (("wide", True, True), ("wide", False, True)),
+     4096, 4090, 31, 0.05, 0.05),
+    ("every bound null, 3 bounds", (("i64", True, True), ("f64", False, False)), 256, 250, 3,
+     0.1, 1.0),
+    ("dec + i8: 2 keys, 199 bounds", (("dec", False, True), ("i8", True, True)), 262144,
+     262100, 199, 0.02, 0.0),
+    ("sort10M map batch: price DESC, item, 31 bounds", SORT10M_KEYS, 262144, 262144, 31, 0.0,
+     0.0),
+    ("5 keys, 1,200 bounds: bounds read from global memory",
+     (("i64", True, True), ("f64", False, True), ("i32", True, False), ("bool", False, False),
+      ("dec", True, True)), 4096, 4000, 1200, 0.05, 0.05),
+    ("padding only: no live row, 3 bounds", (("i64", True, True),), 256, 0, 3, 0.0, 0.0),
+)
+RANGE_FLOAT_SPECIALS = (0.0, -0.0, float("nan"), float("inf"), float("-inf"))
+RANGE_NPDT = {"i64": "int64", "wide": "int64", "dec": "int64", "price": "int64",
+              "item": "int64", "i32": "int32", "i16": "int16", "i8": "int8", "bool": "bool",
+              "f32": "float32", "f64": "float64"}
+
+
+def range_values(kind, n, rng):
+    """``n`` values of a key kind, with ties: small integers, bools, floats
+    on a 0.5 grid with NaN, +-0.0 and +-inf mixed in, decimal(7,2)
+    unscaled, int64 near both extremes, or sort10M's price and item."""
+    import numpy as np
+
+    npdt = np.dtype(RANGE_NPDT[kind])
+    if kind == "bool":
+        return rng.random(n) < 0.5
+    if kind in ("f32", "f64"):
+        v = rng.integers(-8, 9, n) * 0.5
+        special = rng.random(n) < 0.1
+        v[special] = rng.choice(RANGE_FLOAT_SPECIALS, int(special.sum()))
+        return v.astype(npdt)
+    if kind == "wide":
+        lo, hi = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+        return rng.choice(np.array([lo, lo + 1, lo + 2, -1, 0, 1, hi - 2, hi - 1, hi]), n)
+    lo, hi = {"i64": (-40, 40), "i32": (-1000, 1000), "i16": (-300, 300), "i8": (-128, 128),
+              "dec": (0, 50_000), "price": (0, 50_000), "item": (1, 2_000)}[kind]
+    return rng.integers(lo, hi, n).astype(npdt)
+
+
+def range_case(case, rng):
+    """numpy planes of one RANGE_CASES entry, honouring the padding
+    contract: {label, datas, valids, exists (capacity-long), bdatas,
+    bvalids (one row a bound, in draw order), spec}."""
+    import numpy as np
+
+    label, keys, cap, n, nb, nulls, bnulls = case
+    datas, valids, bdatas, bvalids = [], [], [], []
+    for kind, _asc, _nf in keys:
+        d = np.zeros(cap, RANGE_NPDT[kind])
+        v = np.zeros(cap, bool)
+        d[:n] = range_values(kind, n, rng)
+        v[:n] = rng.random(n) >= nulls
+        d[~v] = 0
+        bv = rng.random(nb) >= bnulls
+        bd = np.where(bv, range_values(kind, nb, rng), np.zeros((), d.dtype))
+        datas.append(d)
+        valids.append(v)
+        bdatas.append(bd)
+        bvalids.append(bv)
+    return {"label": label, "datas": datas, "valids": valids, "exists": np.arange(cap) < n,
+            "bdatas": bdatas, "bvalids": bvalids,
+            "spec": tuple((asc, nf) for _k, asc, nf in keys)}
+
+
+def range_run(case, fn, dev, bound_ops=None):
+    """One battery case through ``fn`` (K14's wrapper or its twin, or
+    ``range_partition_order``) on ``dev``, over the bounds as
+    ``range_bound_operands`` sorts them (or ``bound_ops``)."""
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    t = [[torch.from_numpy(x).to(dev) for x in case[k]]
+         for k in ("datas", "valids", "bdatas", "bvalids")]
+    if bound_ops is None:
+        bound_ops = K.range_bound_operands(t[2], t[3], case["spec"])
+    return fn(t[0], t[1], torch.from_numpy(case["exists"]).to(dev), bound_ops, case["spec"])
+
+
+def kernel_device_ms(fn, prefix, iters=ITERS):
+    """The device time of one call's kernels whose names hold ``prefix``
+    (torch.profiler over ``iters`` calls after a warm-up): the
+    kernel alone, without the host's time between launches that CUDA
+    events over back-to-back calls also count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and prefix in e.key) / 1e3 / iters
+
+
+def kernel_k14(dev, rng, results):
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    cases = []
+    for spec in RANGE_CASES:
+        case = range_case(spec, rng)
+        check_equal("range_partition", case["label"],
+                    range_run(case, K.range_partition_ids_cuda, dev),
+                    range_run(case, K.range_partition_ids_plain, dev))
+        cases.append(case["label"])
+    # timed at the sort10M map batch (262,144 rows, two int64 keys) against
+    # 31 and 199 bounds drawn as that path samples them (quantiles of the
+    # rows), and on one key against torch.searchsorted
+    def timed(keys, nb):
+        case = range_case(("timed", keys, 262144, 262144, 0, 0.0, 0.0), rng)
+        live = np.lexsort([d if asc else -d for d, (_k, asc, _nf) in
+                           zip(case["datas"][::-1], keys[::-1])])
+        picks = live[(np.arange(1, nb + 1) * len(live)) // (nb + 1)]
+        case["bdatas"] = [d[picks] for d in case["datas"]]
+        case["bvalids"] = [np.ones(nb, bool) for _ in keys]
+        t = [[torch.from_numpy(x).to(dev) for x in case[k]]
+             for k in ("datas", "valids", "bdatas", "bvalids")]
+        ex = torch.from_numpy(case["exists"]).to(dev)
+        ops = K.range_bound_operands(t[2], t[3], case["spec"])
+        check_equal("range_partition", f"timed, {len(keys)} keys, {nb} bounds",
+                    K.range_partition_ids_cuda(t[0], t[1], ex, ops, case["spec"]),
+                    K.range_partition_ids_plain(t[0], t[1], ex, ops, case["spec"]))
+        out = {"ms": time_ms(lambda: K.range_partition_ids_cuda(t[0], t[1], ex, ops,
+                                                                case["spec"])),
+               "plain_ms": time_ms(lambda: K.range_partition_ids_plain(t[0], t[1], ex, ops,
+                                                                       case["spec"])),
+               # each key's data and validity and the exists byte read once,
+               # a 4-byte id written
+               "bytes": 262144 * (sum(d.element_size() + 1 for d in t[0]) + 1 + 4),
+               "device_ms": kernel_device_ms(
+                   lambda: K.range_partition_ids_cuda(t[0], t[1], ex, ops, case["spec"]),
+                   "blz_range_partition")}
+        if len(keys) == 1 and keys[0][1]:
+            # one valid ascending key: bisect_right is torch.searchsorted
+            # over the sorted bound values
+            bvals = ops[1].contiguous()
+            want = K.range_partition_ids_cuda(t[0], t[1], ex, ops, case["spec"])
+            got = torch.searchsorted(bvals, t[0][0], right=True).to(torch.int32)
+            if not torch.equal(got, want):
+                raise AssertionError("torch.searchsorted differs from K14 on one valid key")
+            out["library_ms"] = time_ms(lambda: torch.searchsorted(bvals, t[0][0], right=True))
+        return out
+
+    main = timed(SORT10M_KEYS, 31)
+    wide = timed(SORT10M_KEYS, 199)
+    one = timed((("item", True, True),), 31)
+    results.append(dict(
+        name="range_partition", route="cuda", source="blaze_tpu_torch/csrc/range_part.cu",
+        replaces="blaze_tpu/core/kernels.py:321",
+        shape="sort10M's map batch: 262,144 rows, ss_sales_price DESC and ss_item_sk ASC "
+              "(two int64 keys, no nulls), 31 bounds (32 partitions)",
+        cases=cases, ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+        library_ms=None,
+        library_call="none for two keys: torch.searchsorted takes one sorted key "
+                     "(one_key, beside K14 on one key)",
+        bytes=main["bytes"], bounds_199=wide,
+        one_key=dict(one, shape="262,144 rows, ss_item_sk ASC, 31 bounds",
+                     library_call="torch.searchsorted(bounds, keys, right=True)")))
+
+
 # -- phase 4: the paths on the card ------------------------------------------------
 
 
@@ -3849,6 +4062,380 @@ def q89_window_check(batches, want):
             raise AssertionError(f"q89's window column {name} differs from the oracle")
 
 
+Q98_SEED = 98
+# TPC-DS SF10 row counts of q98's tables
+Q98_ROWS = {"store_sales": 28_800_991, "item": 102_000, "date_dim": 73_049}
+Q98_CATS = (8, 0, 3)  # Sports, Books, Home (Q89_CATS_A's category codes)
+Q98_DESCS = 10_000    # i_item_desc codes
+Q98_GROUPS = ("i_item_id", "i_item_desc", "i_category_id", "i_class_id", "i_current_price")
+Q98_ORDER = ("i_category_id", "i_class_id", "i_item_id", "i_item_desc", "revenueratio")
+Q98_COLUMNS = Q98_GROUPS + ("itemrevenue", "revenueratio")
+
+
+def q98_schemas(T):
+    def sch(*names):
+        return T.Schema.of(*[(n, T.I64) for n in names])
+
+    return {"store_sales": sch("ss_item_sk", "ss_sold_date_sk", "ss_quantity"),
+            "item": T.Schema.of(*[(n, T.I64) for n in ("i_item_sk",) + Q98_GROUPS[:4]],
+                                ("i_current_price", T.DecimalType(7, 2))),
+            "date_dim": sch("d_date_sk", "d_year", "d_moy")}
+
+
+def q98_host(rows, seed=Q98_SEED, null_share=0.04):
+    """q98's tables on the host: ``q89_host``'s generator (its own seed)
+    for store_sales (without ss_store_sk), date_dim and the items'
+    category and class; then, from a second stream, i_item_id (two
+    item_sk an id, as TPC-DS's revised items), an i_item_desc code an id,
+    and i_current_price, decimal(7,2) unscaled [9, 10,000) an item_sk."""
+    import numpy as np
+
+    base = q89_host({**rows, "store": Q89_ROWS["store"]}, seed, null_share)
+    (i_sk, cat, cls, _brand), _ = base["item"]
+    rng = np.random.default_rng(seed + 1)
+    item_id = (i_sk + 1) // 2
+    desc = rng.integers(0, Q98_DESCS, int(item_id.max()) + 1)[item_id]
+    price = rng.integers(9, 10_000, len(i_sk))
+    (item, date, _store, qty), (iv, dv, _sv, qv) = base["store_sales"]
+    return {"item": ((i_sk, item_id, desc, cat, cls, price), None),
+            "date_dim": base["date_dim"],
+            "store_sales": ((item, date, qty), (iv, dv, qv))}
+
+
+def q98_plan(schemas, E, N, T, parts=PARTS):
+    """TPC-DS q98 (v3.2.0) as Spark plans it (tests/tpcds/queries.py:1120),
+    in the IR modules ``E``, ``N``, ``T`` of either package: store_sales
+    JOIN broadcast item (i_category IN (Sports, Books, Home)) JOIN
+    broadcast date_dim (d_year = 1999 AND d_moy = 2) -> PARTIAL
+    SUM(ss_quantity) by (i_item_id, i_item_desc, i_category, i_class,
+    i_current_price) -> hash exchange -> FINAL -> hash exchange by i_class
+    -> sort on it -> Window sum(itemrevenue) over i_class (the whole
+    partition) -> itemrevenue * 100.0 / that sum -> range exchange on
+    (i_category, i_class, i_item_id, i_item_desc, revenueratio), bounds
+    sampled by the Session -> sort. Strings are int codes; ss_quantity
+    stands for ss_ext_sales_price; revenueratio is a double (PERF.md
+    section 4)."""
+    C, B = E.Column, E.BinaryOp
+
+    def scan(name, p=1):
+        return N.FFIReader(schemas[name], name, p)
+
+    def eq(c, v):
+        return E.BinaryExpr(B.EQ, C(c), E.Literal(v, T.I64))
+
+    item = N.Filter(scan("item"), [E.InList(C("i_category_id"),
+                                            [E.Literal(v, T.I64) for v in Q98_CATS])])
+    date = N.Filter(scan("date_dim"), [E.BinaryExpr(B.AND, eq("d_year", 1999), eq("d_moy", 2))])
+    out = scan("store_sales", parts)
+    for dim, fk, pk in ((item, "ss_item_sk", "i_item_sk"),
+                        (date, "ss_sold_date_sk", "d_date_sk")):
+        out = N.BroadcastJoin(out, N.BroadcastExchange(dim), [(C(fk), C(pk))],
+                              N.JoinType.INNER, N.JoinSide.RIGHT, f"q98_{pk}")
+    keys = [(k, C(k)) for k in Q98_GROUPS]
+    total = E.AggExpr(E.AggFunction.SUM, [C("ss_quantity")])
+    partial = N.Agg(out, E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(total, E.AggMode.PARTIAL, "itemrevenue")],
+                    supports_partial_skipping=True)
+    final = N.Agg(N.ShuffleExchange(partial, N.HashPartitioning([c for _, c in keys], parts)),
+                  E.AggExecMode.HASH_AGG, keys,
+                  [N.AggColumn(total, E.AggMode.FINAL, "itemrevenue")])
+    cls = C("i_class_id")
+    srt = N.Sort(N.ShuffleExchange(final, N.HashPartitioning([cls], parts)), [E.SortOrder(cls)])
+    win = N.Window(srt, [N.WindowExpr("agg", "_we0",
+                                      E.AggExpr(E.AggFunction.SUM, [C("itemrevenue")]))],
+                   [cls], [])
+    ratio = E.BinaryExpr(B.DIV, E.BinaryExpr(B.MUL, C("itemrevenue"), E.Literal(100.0, T.F64)),
+                         C("_we0"))
+    proj = N.Projection(win, [C(k) for k in Q98_GROUPS] + [C("itemrevenue"), ratio],
+                        list(Q98_COLUMNS))
+    orders = [E.SortOrder(C(k)) for k in Q98_ORDER]
+    return N.Sort(N.ShuffleExchange(proj, N.RangePartitioning(orders, parts, [])), orders)
+
+
+def q98_oracle(host):
+    """q98 in numpy: the joined sales summed by the five group keys, each
+    group's revenueratio as float64(sum) * 100.0 / float64(its class's
+    total), ordered by (category, class, id, desc, ratio). Returns the
+    check for the result (rows tied on all five sort keys as sets) and
+    the sizes."""
+    import decimal
+
+    import numpy as np
+
+    (i_sk, iid, desc, cat, cls, price), _ = host["item"]
+    (d_sk, year, moy), _ = host["date_dim"]
+    (item, date, qty), (iv, dv, _qv) = host["store_sales"]
+    i_ok = np.zeros(i_sk.max() + 1, bool)
+    i_ok[i_sk[np.isin(cat, Q98_CATS)]] = True
+    d_ok = np.zeros(d_sk.max() + 1, bool)
+    d_ok[d_sk[(year == 1999) & (moy == 2)]] = True
+    keep = iv & dv & i_ok[item] & d_ok[np.clip(date, 0, d_sk.max())]
+    ii = item[keep] - 1
+    uniq, inv = np.unique(np.stack([iid[ii], desc[ii], cat[ii], cls[ii], price[ii]]), axis=1,
+                          return_inverse=True)
+    sums = _group_sums(inv.reshape(-1), qty[keep], uniq.shape[1])
+    _c, cinv = np.unique(uniq[3], return_inverse=True)
+    wsum = _group_sums(cinv.reshape(-1), sums, int(cinv.max()) + 1)[cinv.reshape(-1)]
+    ratio = sums.astype(np.float64) * 100.0 / wsum.astype(np.float64)
+    order = np.lexsort((ratio, uniq[1], uniq[0], uniq[3], uniq[2]))
+    ctx = decimal.Context(prec=80)
+    want = {"i_item_id": uniq[0][order].tolist(), "i_item_desc": uniq[1][order].tolist(),
+            "i_category_id": uniq[2][order].tolist(), "i_class_id": uniq[3][order].tolist(),
+            "i_current_price": [decimal.Decimal(int(v)).scaleb(-2, ctx)
+                                for v in uniq[4][order]],
+            "itemrevenue": sums[order].tolist(), "revenueratio": ratio[order].tolist()}
+    rows = list(zip(*[want[c] for c in Q98_COLUMNS]))
+
+    def key(r):
+        return (r[2], r[3], r[0], r[1], r[6])
+
+    def check(got):
+        if list(got) != list(Q98_COLUMNS):
+            raise AssertionError(f"q98 columns {list(got)}")
+        got_rows = list(zip(*[got[c] for c in Q98_COLUMNS]))
+        if len(got_rows) != len(rows):
+            raise AssertionError(f"q98 returned {len(got_rows)} rows, not {len(rows)}")
+        if [key(r) for r in got_rows] != [key(r) for r in rows]:
+            raise AssertionError("q98's sort keys differ from the numpy oracle")
+        # rows tied on all five sort keys may come in any order
+        if got_rows != rows:
+            starts = [0] + [i for i in range(1, len(rows)) if key(rows[i]) != key(rows[i - 1])]
+            for a, b in zip(starts, starts[1:] + [len(rows)]):
+                if sorted(got_rows[a:b]) != sorted(rows[a:b]):
+                    raise AssertionError(f"q98 rows tied on {key(rows[a])} differ from the "
+                                         "oracle")
+
+    ties = len(rows) - len({key(r) for r in rows})
+    return check, {"groups": len(rows), "classes": int(cinv.max()) + 1 if len(cinv) else 0,
+                   "rows_tied_on_the_sort_keys": ties, "joined_rows": int(keep.sum())}
+
+
+@contextlib.contextmanager
+def range_twin_check(name):
+    """While open, every K14 launch is also held to its twin on the same
+    batch and bounds (``range_partition:<name> batch``); the first such
+    batch is then timed (K14, its device time, its twin) into
+    ``RANGE_PATH_TIMES[name]``."""
+    from blaze_tpu_torch.core import kernels as K
+
+    fn = K.range_partition_ids
+    first = []
+
+    def checked(datas, valids, exists, bound_ops, spec):
+        got = fn(datas, valids, exists, bound_ops, spec)
+        check_equal("range_partition", f"{name} batch", got,
+                    K.range_partition_ids_plain(datas, valids, exists, bound_ops, spec))
+        if not first:
+            first.append((datas, valids, exists, bound_ops, spec))
+        return got
+
+    K.range_partition_ids = checked
+    try:
+        yield
+    finally:
+        K.range_partition_ids = fn
+    if not first:
+        raise AssertionError(f"{name}'s first run launched no K14")
+    args = first[0]
+    n = int(args[2].shape[0])
+    RANGE_PATH_TIMES[name] = {
+        "rows": int(args[2].sum().item()), "capacity": n, "keys": len(args[0]),
+        "bounds": int(args[3][0].shape[0]),
+        "ms": time_ms(lambda: K.range_partition_ids_cuda(*args)),
+        "device_ms": kernel_device_ms(lambda: K.range_partition_ids_cuda(*args),
+                                      "blz_range_partition"),
+        "plain_ms": time_ms(lambda: K.range_partition_ids_plain(*args)),
+        "bytes": n * (sum(d.element_size() + 1 for d in args[0]) + 1 + 4)}
+
+
+RANGE_PATH_TIMES = {}
+
+
+def run_q98(dev, profile=False, trace_path=None):
+    """q98 at SF10 on the reference's TPU route (the sort route: K5 + K10),
+    exact against ``q98_oracle``; K14 on the range exchange (held to its
+    twin on every batch of the first run), K13 on the window, K8 on every
+    sales batch."""
+    import blaze_tpu_torch
+    import torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    t0 = time.perf_counter()
+    schemas = q98_schemas(T)
+    host = q98_host(Q98_ROWS)
+    want, info = q98_oracle(host)
+    session = blaze_tpu_torch.Session(conf=Config(dense_agg=False, radix_agg=False))
+    for name, (cols, valids) in host.items():
+        if name == "store_sales":
+            cuts = [len(cols[0]) * p // PARTS for p in range(PARTS + 1)]
+            parts = [stage_batches(schemas[name], [c[a:b] for c in cols], dev,
+                                   valids=[v[a:b] for v in valids])
+                     for a, b in zip(cuts, cuts[1:])]
+        else:
+            parts = [stage_batches(schemas[name], cols, dev)]
+        session.resources[name] = lambda p, _parts=parts: _parts[p]
+    del host
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sales_batches = sum(len(session.resources["store_sales"](p)) for p in range(PARTS))
+    launches = run_query("q98", sum(Q98_ROWS.values()), session, q98_plan(schemas, E, N, T),
+                         want, setup_s, info, profile, trace_path,
+                         first_run=range_twin_check("q98"))
+    for k, least in (("range_partition", 1), ("segment_scan", 1), ("seg_agg_partial", 1),
+                     ("seg_agg_merge", 1), ("inner_join_planes", 2 * sales_batches)):
+        if launches[k] < least:
+            raise AssertionError(f"q98 launched {k} {launches[k]} times, fewer than {least}")
+    return launches
+
+
+SORT10M_ROWS = 10_000_000
+SORT10M_PARTS = 32
+SORT10M_SEED = 1010
+SORT10M_COLUMNS = ("ss_item_sk", "ss_store_sk", "ss_quantity", "ss_sales_price",
+                   "ss_ext_wholesale_cost")
+
+
+def sort10m_schema(T):
+    return T.Schema.of(("ss_item_sk", T.I64), ("ss_store_sk", T.I64), ("ss_quantity", T.I64),
+                       ("ss_sales_price", T.DecimalType(7, 2)),
+                       ("ss_ext_wholesale_cost", T.DecimalType(38, 2)))
+
+
+def sort10m_host(rows=SORT10M_ROWS, parts=SORT10M_PARTS, seed=SORT10M_SEED):
+    """The soak's store_sales (scripts/scale_soak.py:98, bench.py:130-140's
+    five columns and ranges, a seed of its own) as int64 columns a
+    partition: item [1, 2,000), store [1, 400), quantity [1, 100), the
+    price's unscaled cents [0, 50,000), and from a second stream the
+    decimal(38,2) wholesale cost's unscaled [10^14, 9 * 10^16)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rng_wide = np.random.default_rng(seed + 1)
+    out = []
+    for p in range(parts):
+        n = rows * (p + 1) // parts - rows * p // parts
+        out.append((rng.integers(1, 2_000, n), rng.integers(1, 400, n), rng.integers(1, 100, n),
+                    rng.integers(0, 50_000, n), rng_wide.integers(10 ** 14, 9 * 10 ** 16, n)))
+    return out
+
+
+def sort10m_plan(schema, E, N, parts=SORT10M_PARTS, range_parts=SORT10M_PARTS):
+    """The soak's sort10M (scripts/scale_soak.py:107): the scan ->
+    RangePartitioning on (ss_sales_price DESC, ss_item_sk ASC), bounds
+    sampled by the Session -> sort on the same keys."""
+    orders = [E.SortOrder(E.Column("ss_sales_price"), ascending=False),
+              E.SortOrder(E.Column("ss_item_sk"))]
+    scan = N.FFIReader(schema, "store_sales", parts)
+    return N.Sort(N.ShuffleExchange(scan, N.RangePartitioning(orders, range_parts, [])),
+                  orders)
+
+
+def sort10m_collect(session, plan):
+    """The result's columns as numpy arrays (the wide column as its int64
+    values), every row valid."""
+    import numpy as np
+
+    cols = {c: [] for c in SORT10M_COLUMNS}
+    for b in session.execute(plan):
+        for name, (data, valid) in b.to_numpy().items():
+            if not valid.all():
+                raise AssertionError(f"sort10M returned a null {name}")
+            if data.ndim == 2:  # (lo_raw, hi) words of values in [0, 2^63)
+                if (data[:, 1] != 0).any():
+                    raise AssertionError("sort10M's wholesale cost came back past int64")
+                data = data[:, 0]
+            cols[name].append(data)
+    return {c: np.concatenate(v) if v else np.zeros(0, np.int64) for c, v in cols.items()}
+
+
+def sort10m_oracle(host):
+    """The check of a collected sort10M result: the key columns equal
+    numpy's stable sort in order; the whole rows equal it as a multiset
+    within each run of tied keys (both sides sorted by the other columns
+    inside those runs, which hold about a tenth of the rows)."""
+    import numpy as np
+
+    cols = [np.concatenate(c) for c in zip(*host)]
+    item, _store, _qty, price, _wcost = cols
+
+    def packed(price, item):
+        # (price DESC, item ASC) as one word: price < 2^16, item < 2^11
+        return ((2 ** 16 - 1 - price) << 11) | item
+
+    order = np.argsort(packed(price, item), kind="stable")
+    keys = packed(price[order], item[order])
+    new_key = np.concatenate([[True], np.diff(keys) != 0])
+    run = np.cumsum(new_key) - 1  # the run of tied keys each output row is in
+    tied = np.flatnonzero(~(new_key & np.concatenate([new_key[1:], [True]])))
+
+    def full_sort(c):
+        # the rows in runs of two or more, by (run, store, quantity,
+        # wholesale cost); store < 2^9 and quantity < 2^7 pack beside the
+        # run id. The runs are contiguous, so each keeps its positions.
+        rows = np.arange(len(c[0]))
+        rows[tied] = tied[np.lexsort((c[4][tied], (run[tied] << 16) | (c[1][tied] << 7)
+                                      | c[2][tied]))]
+        return rows
+
+    want_rows = [c[order] for c in cols]
+    want_rows = [c[full_sort(want_rows)] for c in want_rows]
+    ties = int(len(item) - new_key.sum())
+
+    def check(got):
+        g = [got[c] for c in SORT10M_COLUMNS]
+        if len(g[0]) != len(item):
+            raise AssertionError(f"sort10M returned {len(g[0])} rows, not {len(item)}")
+        if not np.array_equal(packed(g[3], g[0]), keys):
+            raise AssertionError("sort10M's keys are not in numpy's stable sort order")
+        rows = full_sort(g)
+        for name, x, w in zip(SORT10M_COLUMNS, g, want_rows):
+            if not np.array_equal(x[rows], w):
+                raise AssertionError(f"sort10M's rows tied on the keys differ ({name})")
+
+    return check, {"rows_tied_with_the_previous_key": ties}
+
+
+def run_sort10m(dev, profile=False, trace_path=None):
+    """The soak's sort10M at full size: 10,000,000 rows in 32 partitions
+    of staged batches -> range exchange into 32 (K14 on every map-side
+    bucketize pass, held to its twin on every batch of the first run) ->
+    sort (K5, K6, K7); the keys exact in order against numpy, the rows as
+    multisets within tied keys."""
+    import blaze_tpu_torch
+    import torch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    t0 = time.perf_counter()
+    schema = sort10m_schema(T)
+    host = sort10m_host()
+    want, info = sort10m_oracle(host)
+    parts = [stage_batches(schema, cols, dev) for cols in host]
+    del host
+    session = blaze_tpu_torch.Session()
+    session.resources["store_sales"] = lambda p: parts[p]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    map_batches = sum(len(p) for p in parts)
+    info.update(partitions=SORT10M_PARTS, map_batches=map_batches)
+    launches = run_query("sort10m", SORT10M_ROWS, session, sort10m_plan(schema, E, N), want,
+                         setup_s, info, profile, trace_path, collect=sort10m_collect,
+                         first_run=range_twin_check("sort10m"))
+    # every map batch (50,356 rows or more) passes the map side's
+    # 32,768-row coalescing alone into one bucketize, the only K14 caller
+    if launches["range_partition"] != map_batches:
+        raise AssertionError(f"sort10M launched K14 {launches['range_partition']} times over "
+                             f"{map_batches} map batches")
+    for k in ("sort_key_operands", "lexsort_indices", "gather_planes", "slice_planes"):
+        if launches[k] < 1:
+            raise AssertionError(f"sort10M did not launch {k}")
+    return launches
+
+
 def check_result(name, got, want):
     """``want`` is the oracle's result (equal, order included) or a
     function that raises when ``got`` is wrong."""
@@ -3858,26 +4445,36 @@ def check_result(name, got, want):
         raise AssertionError(f"{name} differs from the numpy oracle")
 
 
-def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_path):
-    """A first run, then one run with the launch counts set to 0 just before
-    and read just after; both exact against the oracle."""
+def pydict_of(session, plan):
+    return session.execute_to_pydict(plan)
+
+
+def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_path,
+              collect=pydict_of, first_run=contextlib.nullcontext()):
+    """A first run (inside the context ``first_run``), then one run with
+    the launch counts set to 0 just before and read just after; both exact
+    against the oracle. ``collect(session, plan)`` runs the plan and
+    returns what the oracle reads."""
     import torch
     from blaze_tpu_torch.utils import cuda_lib
 
     t0 = time.perf_counter()
-    warm = session.execute_to_pydict(plan)
+    with first_run:
+        warm = collect(session, plan)
     warm_s = time.perf_counter() - t0
     check_result(f"{name} (first run)", warm, want)
+    del warm
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
-    got = session.execute_to_pydict(plan)
+    got = collect(session, plan)
     wall = time.perf_counter() - t0
     launches = {**cuda_lib.launch_counts(), **cuda_lib.limb_launch_counts()}
     check_result(name, got, want)
+    del got
     peak = torch.cuda.max_memory_allocated()
     if profile:
-        profile_query(name, session, plan, want, trace_path)
+        profile_query(name, session, plan, want, trace_path, collect)
     log(json.dumps({"phase": "slice", "query": name, "rows": rows, "partitions": PARTS,
                     **info, "setup_s": setup_s, "first_run_s": warm_s, "wall_s": wall,
                     "rows_per_s": rows / wall, "max_memory_allocated": peak,
@@ -3885,7 +4482,7 @@ def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_pat
     return launches
 
 
-def profile_query(name, session, plan, want, trace_path=None):
+def profile_query(name, session, plan, want, trace_path=None, collect=pydict_of):
     """One more run under torch.profiler: the device's busy time (the
     kernels' and copies' own device time -- one stream, so they do not
     overlap) against the run's wall, the launch/copy/sync counts, and the
@@ -3902,7 +4499,7 @@ def profile_query(name, session, plan, want, trace_path=None):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        got = session.execute_to_pydict(plan)
+        got = collect(session, plan)
         wall = time.perf_counter() - t0
     check_result(f"{name} (profiled run)", got, want)
     avgs = prof.key_averages()
@@ -3929,7 +4526,7 @@ def profile_query(name, session, plan, want, trace_path=None):
     host = cProfile.Profile()
     t0 = time.perf_counter()
     host.enable()
-    got = session.execute_to_pydict(plan)
+    got = collect(session, plan)
     torch.cuda.synchronize()
     host.disable()
     wall = time.perf_counter() - t0
@@ -3993,6 +4590,7 @@ def main(device: str = "cuda") -> int:
     kernel_k13(dev, rng, results)
     kernel_limbs(dev, rng, results)
     battery_limbs = cuda_lib.limb_launch_counts()
+    kernel_k14(dev, rng, results)
     # 4. the paths: q01, q67 (slot, sort and table routes), q06 and q47,
     # q69, q96, q89, then q17 (slot, sort and table routes)
     args = sys.argv[1:]
@@ -4009,6 +4607,10 @@ def main(device: str = "cuda") -> int:
         "q89": run_q89(dev, profile, trace[0].replace(".json", "") + "_q89.json"
                        if trace else None),
         **run_q17(dev, profile, trace[0] if trace else None),
+        "q98": run_q98(dev, profile, trace[0].replace(".json", "") + "_q98.json"
+                       if trace else None),
+        "sort10m": run_sort10m(dev, profile, trace[0].replace(".json", "") + "_sort10m.json"
+                               if trace else None),
     }
     launches = {k: sum(p.get(k, 0) for p in per_path.values())
                 for k in set().union(*per_path.values())}
@@ -4052,7 +4654,16 @@ def main(device: str = "cuda") -> int:
     # launch, and K8 to every joined sales batch)
     if per_path["q89"]["segment_scan"] < 1:
         raise AssertionError("q89 did not go through K13")
+    # K14: q98's and sort10M's range exchanges (run_sort10m also holds it
+    # to one launch a map-side bucketize pass, and both paths hold every
+    # launch of their first run to the twin)
+    for q in ("q98", "sort10m"):
+        if per_path[q]["range_partition"] < 1:
+            raise AssertionError(f"{q} did not go through K14")
     # 5. summary lines
+    for r in results:
+        if r["name"] == "range_partition":
+            r["path_batches"] = RANGE_PATH_TIMES
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -4073,7 +4684,9 @@ def main(device: str = "cuda") -> int:
                                              "build_rows_touched", "big_batch", "route_ms",
                                              "segment_ids_ms", "k11_only_ms", "k11_only_bytes",
                                              "battery_s", "fold_ms", "unpacked_ms",
-                                             "six_kinds_ms", "fold_replaces", "fold_shape")
+                                             "six_kinds_ms", "fold_replaces", "fold_shape",
+                                             "bounds_199", "one_key", "device_ms",
+                                             "path_batches")
                            if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"phase": "limb_ops", "paths": {

@@ -1,8 +1,8 @@
 """The port's CUDA and Triton kernels against their plain PyTorch versions
-on the card, and the q01, q67 (on both aggregation routes), q06, q96 and
-q89 paths, every hash-join type and an explicit-frame window on the card
-against the same plans on the CPU. K9's to K13's cases come from
-chip_smoke.py.
+on the card, and the q01, q67 (on both aggregation routes), q06, q96,
+q89, q17, q98 and sort10M paths, every hash-join type and an
+explicit-frame window on the card against the same plans on the CPU.
+K9's to K14's cases come from chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -17,14 +17,17 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FUSED_CAPS, PROBE_CASES, Q89_ROWS, Q96_ROWS, SCAN_CASES, SEG_CASES,
-                        UPD_CASES, WIDE_CASES, WIDE_UPD_CASES, customer_probe, doubled,
-                        fused_cases, fused_flat, fused_planes, merge_states, one_nan,
-                        probe_case, q17_oracle, q17_plan, q67_batch, q67_merge_input,
-                        q67_table_merge_batch, q89_host, q89_oracle, q89_plan, q89_schemas,
-                        q96_host, q96_oracle, q96_plan, q96_schemas, scan_case, scan_run,
-                        seg_case, to_dev, upd_case, upd_fns, upd_run, wide_case, wide_states,
-                        wide_torch, wide_upd_case, wide_upd_fns, wide_upd_run)
+from chip_smoke import (FUSED_CAPS, PROBE_CASES, Q89_ROWS, Q96_ROWS, Q98_ROWS, RANGE_CASES,
+                        SCAN_CASES, SEG_CASES, SORT10M_COLUMNS, UPD_CASES, WIDE_CASES,
+                        WIDE_UPD_CASES, customer_probe, doubled, fused_cases, fused_flat,
+                        fused_planes, merge_states, one_nan, probe_case, q17_oracle, q17_plan,
+                        q67_batch, q67_merge_input, q67_table_merge_batch, q89_host,
+                        q89_oracle, q89_plan, q89_schemas, q96_host, q96_oracle, q96_plan,
+                        q96_schemas, q98_host, q98_oracle, q98_plan, q98_schemas, range_case,
+                        range_run, scan_case, scan_run, seg_case, sort10m_collect,
+                        sort10m_host, sort10m_oracle, sort10m_plan, sort10m_schema, to_dev,
+                        upd_case, upd_fns, upd_run, wide_case, wide_states, wide_torch,
+                        wide_upd_case, wide_upd_fns, wide_upd_run)
 
 pytestmark = pytest.mark.cuda
 
@@ -146,13 +149,14 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
     # every kernel but the joins', the sort route's, K11, the host table's
-    # K12 and the window aggregates' K13, which q01 does not reach (its
-    # filter feeds the partial aggregate, so it is not fused; both
-    # aggregates take the slot route; it has no window)
+    # K12, the window aggregates' K13 and the range exchange's K14, which
+    # q01 does not reach (its filter feeds the partial aggregate, so it is
+    # not fused; both aggregates take the slot route; it has no window and
+    # no range exchange)
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
                if k not in ("inner_join_planes", "probe_codes", "segment_ids",
                             "seg_agg_partial", "seg_agg_merge", "fused_chain",
-                            "slot_update", "segment_scan"))
+                            "slot_update", "segment_scan", "range_partition"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -911,3 +915,101 @@ def test_q17_on_the_card_equals_the_cpu(dev, route):
     key = {"default": "slot_agg_merge:sum3", "sort": "seg_agg_merge:sum3",
            "table": "slot_update:renorm3"}[route]
     assert limbs.get(key, 0) > 0, limbs
+
+
+@pytest.mark.parametrize("case", RANGE_CASES, ids=[c[0] for c in RANGE_CASES])
+def test_range_partition_kernel(dev, case):
+    """K14 against its twin on the card, and range_partition_order's K5
+    sort of its ids against the twin's."""
+    from blaze_tpu_torch.core import kernels as K
+
+    data = range_case(case, np.random.default_rng(sum(map(ord, case[0]))))
+    _equal(range_run(data, K.range_partition_ids_cuda, dev),
+           range_run(data, K.range_partition_ids_plain, dev))
+    _equal(range_run(data, K.range_partition_order, dev),
+           [x.to(dev) for x in range_run(data, K.range_partition_order, torch.device("cpu"))])
+
+
+def test_range_partition_raises_on_bad_bounds_and_never_takes_the_twin(dev, monkeypatch):
+    """A CUDA batch launches K14 or raises: bound planes of another dtype
+    than the key's are refused, and the twin is never called."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.utils import cuda_lib
+
+    data = range_case(RANGE_CASES[2], np.random.default_rng(2))
+    monkeypatch.setattr(K, "range_partition_ids_plain", None)
+    cuda_lib.reset_launch_counts()
+    range_run(data, K.range_partition_ids, dev)
+    assert cuda_lib.launch_counts()["range_partition"] == 1
+    t = [[torch.from_numpy(x).to(dev) for x in data[k]]
+         for k in ("datas", "valids", "bdatas", "bvalids")]
+    ops = K.range_bound_operands(t[2], t[3], data["spec"])
+    ops[1] = ops[1].to(torch.int64)  # the int32 key's bound values as int64
+    with pytest.raises(TypeError, match="bounds"):
+        K.range_partition_ids(t[0], t[1], torch.from_numpy(data["exists"]).to(dev), ops,
+                              data["spec"])
+
+
+def test_q98_on_the_card_equals_the_cpu(dev):
+    """chip_smoke.py's q98 at 300,000 store_sales rows on the card and on
+    the CPU, on the sort route: equal, order included, and to the numpy
+    oracle; K14, K13 and K10 launched."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    host = q98_host(dict(Q98_ROWS, store_sales=300_000, item=4_000))
+    check, _info = q98_oracle(host)
+    schemas = q98_schemas(T)
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(Config(batch_size=8192, dense_agg=False, radix_agg=False),
+                                    device=device)
+        for name, (cols, valids) in host.items():
+            valids = valids or [np.ones(len(cols[0]), bool)] * len(cols)
+            n = len(cols[0])
+            cuts = [n * p // 3 for p in range(4)] if name == "store_sales" else [0, n]
+            plist = [[{f.name: (c[a:b], v[a:b])
+                       for f, c, v in zip(schemas[name].fields, cols, valids)}]
+                     for a, b in zip(cuts, cuts[1:])]
+            s.resources[name] = lambda p, _pl=plist: _pl[p]
+        cuda_lib.reset_launch_counts()
+        out[device] = s.execute_to_pydict(q98_plan(schemas, E, N, T, parts=3))
+    assert out[None] == out["cpu"]
+    check(out[None])
+    counts = cuda_lib.launch_counts()
+    assert counts["range_partition"] >= 1 and counts["segment_scan"] >= 1
+    assert counts["seg_agg_partial"] >= 1
+
+
+def test_sort10m_on_the_card_equals_the_cpu(dev):
+    """sort10M's plan at 300,000 rows in 4 partitions into 8 range
+    partitions on the card and on the CPU: equal, and the keys in numpy's
+    order; one K14 launch a map-side bucketize pass."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.core.batch import wide_words
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    host = sort10m_host(rows=300_000, parts=4, seed=3)
+    check, _info = sort10m_oracle(host)
+    schema = sort10m_schema(T)
+    parts = [[{c: wide_words(x[s:s + 16384].tolist()) if c == SORT10M_COLUMNS[4]
+               else x[s:s + 16384] for c, x in zip(SORT10M_COLUMNS, cols)}
+              for s in range(0, len(cols[0]), 16384)] for cols in host]
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(Config(batch_size=16384), device=device)
+        s.resources["store_sales"] = lambda p: parts[p]
+        cuda_lib.reset_launch_counts()
+        out[device] = sort10m_collect(s, sort10m_plan(schema, E, N, parts=4, range_parts=8))
+    for c in SORT10M_COLUMNS:
+        np.testing.assert_array_equal(out[None][c], out["cpu"][c])
+    check(out[None])
+    assert cuda_lib.launch_counts()["range_partition"] == sum(len(p) for p in parts)
