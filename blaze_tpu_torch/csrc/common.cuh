@@ -1,5 +1,6 @@
 // Shared pieces of the port's hand-written Hopper kernels: the plain C
-// export macro, launch geometry, the key kinds and integer load of the key
+// export macro, launch geometry, the column table of the row hashes
+// (murmur3.cu, xxhash64.cu), the key kinds and integer load of the key
 // passes (sort.cu, range_part.cu), the block-level stable rank that the
 // compaction kernels (compact.cu, slot_agg.cu) are built on, and the emit
 // arithmetic of the aggregate kernels (slot_agg.cu, seg_agg.cu).
@@ -21,6 +22,30 @@
 
 static inline unsigned int blz_blocks(int64_t n) {
   return (unsigned int)((n + BLZ_THREADS - 1) / BLZ_THREADS);
+}
+
+// The columns a row hash folds, passed to the kernel by value: k planes
+// of 4-byte (wide 0) or 8-byte (wide 1) words, each with its validity
+// bytes (a null entry: every row valid).
+#define BLZ_MAX_KEYS 32
+
+struct KeySet {
+  int k;
+  const void* data[BLZ_MAX_KEYS];
+  const uint8_t* valid[BLZ_MAX_KEYS];
+  int wide[BLZ_MAX_KEYS];
+};
+
+static inline KeySet blz_key_set(int k, const void* const* datas,
+                                 const uint8_t* const* valids, const int* wide) {
+  KeySet ks;
+  ks.k = k;
+  for (int c = 0; c < k; ++c) {
+    ks.data[c] = datas[c];
+    ks.valid[c] = valids[c];
+    ks.wide[c] = wide[c];
+  }
+  return ks;
 }
 
 // The key kinds of the sort and range-partition key passes (sort.cu,

@@ -16,15 +16,6 @@
 // coalesced loads; nothing else is needed at this intensity.
 #include "common.cuh"
 
-#define BLZ_MAX_KEYS 32
-
-struct KeySet {
-  int k;
-  const void* data[BLZ_MAX_KEYS];
-  const uint8_t* valid[BLZ_MAX_KEYS];
-  int wide[BLZ_MAX_KEYS];  // 1: 8-byte words (hashLong), 0: 4-byte (hashInt)
-};
-
 __device__ __forceinline__ uint32_t blz_rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
@@ -86,13 +77,7 @@ BLZ_EXPORT int blz_murmur3_pmod(int k, const void* const* datas,
                                 cudaStream_t stream) {
   if (k > BLZ_MAX_KEYS || n <= 0 || (pid_out != nullptr && nparts <= 0))
     return (int)cudaErrorInvalidValue;
-  KeySet ks;
-  ks.k = k;
-  for (int c = 0; c < k; ++c) {
-    ks.data[c] = datas[c];
-    ks.valid[c] = valids[c];
-    ks.wide[c] = wide[c];
-  }
+  const KeySet ks = blz_key_set(k, datas, valids, wide);
   blz_murmur3_pmod_kernel<<<blz_blocks(n), BLZ_THREADS, 0, stream>>>(
       ks, n, seed, nparts, hash_out, pid_out);
   return (int)cudaGetLastError();

@@ -9,12 +9,16 @@ use Kleene logic, division/modulo by zero yield NULL (non-ANSI).
 
 Ported: Column, BoundReference, Literal (decimal literals rescaled to
 their type), comparison/arithmetic/bitwise/logical BinaryExpr, IsNull,
-IsNotNull, Not, InList. A bare reference to a decimal(19..38) column
-evaluates to its three limb planes (a ``DevVal`` whose data is the
-``(l0, l1, l2)`` tuple), which only aggregates and the plane movers read;
-any other expression over such a column raises (ROADMAP.md Queue 1 item
-18). Anything else raises NotImplementedError naming the ROADMAP item
-that ports it; there is no host fallback.
+IsNotNull, Not, InList, Case (the device branch of the JAX package's
+``_eval_Case``), Cast and TryCast (``exprs/cast.py cast_dev``) and
+ScalarFunction (the device functions of ``exprs/functions.py``, XXH64
+through K15). A bare reference to a
+decimal(19..38) column evaluates to its three limb planes (a ``DevVal``
+whose data is the ``(l0, l1, l2)`` tuple), which only aggregates and the
+plane movers read; any other expression over such a column raises
+(ROADMAP.md Queue 1 item 18). Strings, nested values, UDFs and casts from
+or to them raise NotImplementedError naming item 6b, the bloom probe
+item 7; there is no host fallback.
 
 Whole-stage fusion reads this module too: ``fusable_expr`` is the JAX
 package's whitelist of expressions a fused chain may hold,
@@ -34,6 +38,7 @@ import torch
 
 from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn, WideColumn
 from blaze_tpu_torch.exprs import decimal as dec
+from blaze_tpu_torch.exprs.cast import cast_dev, decimal_to_f64, host_cast_error
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
 
@@ -70,6 +75,11 @@ class ExprEvaluator:
         self.exprs = exprs
         self.input_schema = input_schema
         for e in exprs:  # a bare wide column is its planes; nothing else reads one
+            if _hashes_wide(e, input_schema):
+                raise NotImplementedError(
+                    "a row hash of a decimal wider than 18 digits (hashed as its "
+                    "BigInteger bytes on the host in the JAX package) is not ported to "
+                    "the PyTorch package yet (ROADMAP.md Queue 1 item 6b)")
             if not isinstance(e, (E.Column, E.BoundReference)) and \
                     touches_wide(e, input_schema):
                 raise NotImplementedError(
@@ -256,15 +266,19 @@ class ExprEvaluator:
 
     @staticmethod
     def _decimal_to_f64(v: DevVal) -> torch.Tensor:
-        """A decimal's value as float64: unscaled / 10^scale, divided as
-        IEEE divides (the divisor is a device tensor: CUDA torch multiplies
-        by the reciprocal of a Python scalar divisor, which rounds 35 / 100
-        to 0.35000000000000003)."""
+        """A value as float64; a decimal's is unscaled / 10^scale, divided as
+        IEEE divides (``cast.decimal_to_f64``: a device-tensor divisor)."""
         if isinstance(v.dtype, T.DecimalType):
-            den = torch.full((), float(10 ** v.dtype.scale), dtype=torch.float64,
-                             device=v.data.device)
-            return v.data.to(torch.float64) / den
+            return decimal_to_f64(v.data, v.dtype.scale)
         return v.data.to(torch.float64)
+
+    @staticmethod
+    def _host_scalar(v: DevVal):
+        """A literal argument's Python value (None when null): one host read
+        of a 0-d tensor, as the JAX package's ``_host_scalar``."""
+        if v.data.dim() != 0:
+            raise ExprError("expected a literal argument")
+        return v.data.item() if bool(v.validity) else None
 
     # -- unary ----------------------------------------------------------------
 
@@ -298,11 +312,77 @@ class ExprEvaluator:
         validity = v.validity & (eq_any | ~has_null_item)
         return DevVal(T.BOOL, ~eq_any if expr.negated else eq_any, validity)
 
+    # -- CASE, casts and functions ---------------------------------------------
+
+    def _eval_Case(self, expr: E.Case, batch) -> DevVal:
+        """The device branch of the JAX package's ``_eval_Case``: the first
+        definitely-true condition picks its branch (a null or false one
+        falls through); the result type is the first branch's, and later
+        branches and ELSE are converted to its plane type as they are (no
+        decimal rescale); without ELSE the rows no branch took are NULL."""
+        taken = torch.zeros(batch.capacity, dtype=torch.bool, device=batch.device)
+        out_data = out_valid = res_dtype = None
+        conds = [self.eval(c, batch) for c, _ in expr.branches]
+        vals = [self.eval(v, batch) for _, v in expr.branches]
+        else_v = self.eval(expr.else_expr, batch) if expr.else_expr is not None else None
+        for cv, vv in zip(conds, vals):
+            cmask = cv.data.to(torch.bool) & cv.validity & ~taken
+            vdata, vvalid = broadcast(vv, batch)
+            if out_data is None:
+                res_dtype = vv.dtype
+                out_data = torch.where(cmask, vdata, torch.zeros((), dtype=vdata.dtype,
+                                                                 device=vdata.device))
+                out_valid = cmask & vvalid
+            else:
+                out_data = torch.where(cmask, vdata.to(out_data.dtype), out_data)
+                out_valid = torch.where(cmask, vvalid, out_valid)
+            taken = taken | cmask
+        if else_v is not None:
+            edata, evalid = broadcast(else_v, batch)
+            out_data = torch.where(taken, out_data, edata.to(out_data.dtype))
+            out_valid = torch.where(taken, out_valid, evalid)
+        else:
+            out_valid = out_valid & taken
+        return DevVal(res_dtype, out_data, out_valid)
+
+    def _eval_Cast(self, expr: E.Cast, batch) -> DevVal:
+        return self._cast(self.eval(expr.child, batch), expr.dtype)
+
+    def _eval_TryCast(self, expr: E.TryCast, batch) -> DevVal:
+        # on the device a failed conversion is NULL in both (non-ANSI)
+        return self._cast(self.eval(expr.child, batch), expr.dtype)
+
+    @staticmethod
+    def _cast(v: DevVal, to: T.DataType) -> DevVal:
+        if v.dtype == to:
+            return v
+        if _is_device_type(to) and _is_device_type(v.dtype):
+            data, validity = cast_dev(v.data, v.validity, v.dtype, to)
+            return DevVal(to, data, validity)
+        raise host_cast_error(v.dtype, to)
+
+    def _eval_ScalarFunction(self, expr: E.ScalarFunction, batch) -> DevVal:
+        from blaze_tpu_torch.exprs.functions import dispatch_function
+
+        args = [self.eval(a, batch) for a in expr.args]
+        return dispatch_function(expr.name, args, self, batch)
+
+
+def _hashes_wide(expr: E.Expr, schema: T.Schema) -> bool:
+    """Does the expression hash a decimal(19..38) column (an argument of
+    xxhash64 or murmur3_hash)?"""
+    if isinstance(expr, E.ScalarFunction) and \
+            expr.name.lower() in ("xxhash64", "murmur3_hash") and \
+            any(touches_wide(a, schema) for a in expr.args):
+        return True
+    return any(_hashes_wide(c, schema) for c in expr.children())
+
 
 def not_ported(expr: E.Expr) -> NotImplementedError:
+    item = "7" if isinstance(expr, E.BloomFilterMightContain) else "6b"
     return NotImplementedError(
         f"expression {type(expr).__name__} is not ported to the PyTorch package "
-        "yet (ROADMAP.md Queue 1 item 6)")
+        f"yet (ROADMAP.md Queue 1 item {item})")
 
 
 def _ones(batch: ColumnarBatch) -> torch.Tensor:
@@ -365,8 +445,8 @@ def make_literal(value: Any, dtype: T.DataType, device: torch.device) -> DevVal:
     elif isinstance(dtype, (T.DateType, T.TimestampType)) and \
             not isinstance(value, int):
         raise NotImplementedError(
-            "date/timestamp literals from non-integer values are not ported "
-            "yet (ROADMAP.md Queue 1 item 6)")
+            "date/timestamp literals from non-integer values (parsed on the host) "
+            "are not ported yet (ROADMAP.md Queue 1 item 6b)")
     return DevVal(dtype, torch.tensor(v, dtype=tdt, device=device),
                   torch.ones((), dtype=torch.bool, device=device))
 
@@ -434,8 +514,7 @@ def fusable_expr(expr: E.Expr, schema: T.Schema) -> bool:
     """The JAX package's whitelist of expressions a fused chain may hold
     (blaze_tpu/exprs/compiler.py:967): pure device expressions whose
     result lives on the device, reading no wide-decimal column (a fused
-    chain traces no limb plane). Case, Cast and TryCast pass it as they do
-    there; their evaluation is not ported and raises, fused or not."""
+    chain traces no limb plane). A ScalarFunction is never fused."""
     try:
         return not touches_wide(expr, schema) and _fusable(expr, schema) and \
             _is_device_type(E.infer_type(expr, schema))

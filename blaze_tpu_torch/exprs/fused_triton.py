@@ -41,7 +41,10 @@ which the generator guards:
   (floats as their bit patterns) and is cast or bitcast in the kernel, so
   no Python scalar is typed i32 or fp32 by Triton;
 - bool planes load as ``i1`` and widen through ``tl.where(b, 1, 0)``;
-  int8/int16 results are cast back to their type after every operation.
+  int8/int16 results are cast back to their type after every operation;
+- a float -> int cast masks the out-of-range lanes before the convert
+  (Java's NaN -> 0 and saturation); decimal -> double is a float64 divide;
+  timestamp -> date and -> seconds use ``_floordiv``.
 
 A build or launch failure raises; nothing falls back to the plain
 version on a CUDA tensor.
@@ -62,6 +65,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from blaze_tpu_torch.exprs.cast import US_PER_DAY, US_PER_SECOND
+from blaze_tpu_torch.exprs.cast import is_int as _is_int
 from blaze_tpu_torch.exprs.compiler import ExprError, fused_chain_schemas, make_literal, \
     not_ported
 from blaze_tpu_torch.ir import exprs as E
@@ -376,7 +381,7 @@ class _Gen:
             if not res_t.fits_int64:
                 raise NotImplementedError(
                     f"decimal arithmetic into {res_t!r} (wider than 18 digits) "
-                    "is not ported yet (ROADMAP.md Queue 1 item 6)")
+                    "is not ported yet (ROADMAP.md Queue 1 item 18)")
             if _is_float(l.dtype) or _is_float(r.dtype):
                 return self._float_into_decimal(op, l, r, res_t, valid, scalar)
             return self._decimal_arith(op, self.coerce_decimal(l), self.coerce_decimal(r),
@@ -410,7 +415,115 @@ class _Gen:
             out = self.cast(out, torch.int32, torch.bool)
         return _V(out, valid, tdt, res_t, scalar)
 
+    def _eval_Case(self, expr, schema, cols) -> _V:
+        """ExprEvaluator._eval_Case: the first definitely-true condition
+        picks its branch; later branches and ELSE convert to the first
+        branch's plane type (no decimal rescale); no ELSE: untaken -> NULL."""
+        taken = "ff"
+        out = None
+        for cond_e, val_e in expr.branches:
+            c = self.eval(cond_e, schema, cols)
+            v = self.eval(val_e, schema, cols)
+            cmask = self.let(f"{self.to_bool(c)} & {c.valid} & ({taken} == 0)")
+            if out is None:
+                out = _V(self.let(f"tl.where({cmask}, {v.data}, {self.zero(v.tdt)})"),
+                         self.let(f"{cmask} & {v.valid}"), v.tdt, v.dtype)
+            else:
+                vd = self.cast(v.data, v.tdt, out.tdt)
+                out = _V(self.let(f"tl.where({cmask}, {vd}, {out.data})"),
+                         self.let(f"tl.where({cmask}, {v.valid}, {out.valid})"),
+                         out.tdt, out.dtype)
+            taken = self.let(f"{taken} | {cmask}")
+        if expr.else_expr is not None:
+            e = self.eval(expr.else_expr, schema, cols)
+            ed = self.cast(e.data, e.tdt, out.tdt)
+            return _V(self.let(f"tl.where({taken}, {out.data}, {ed})"),
+                      self.let(f"tl.where({taken}, {out.valid}, {e.valid})"),
+                      out.tdt, out.dtype)
+        return _V(out.data, self.let(f"{out.valid} & {taken}"), out.tdt, out.dtype)
+
+    def _eval_Cast(self, expr, schema, cols) -> _V:
+        return self._cast(self.eval(expr.child, schema, cols), expr.dtype)
+
+    def _eval_TryCast(self, expr, schema, cols) -> _V:
+        return self._cast(self.eval(expr.child, schema, cols), expr.dtype)
+
+    def _cast(self, v: _V, to: T.DataType) -> _V:
+        """exprs/cast.py cast_dev, as device code."""
+        frm = v.dtype
+        if frm == to:
+            return v
+        tdt = _require_tdt(to)
+        data, valid = v.data, v.valid
+        if isinstance(frm, T.DecimalType):
+            if isinstance(to, T.DecimalType):
+                data, valid = self._rescale(data, valid, frm.scale, to.scale, to.precision)
+            elif _is_int(to):
+                m = self.word(10 ** frm.scale)
+                q = self.let(f"_floordiv({data}, {m})")
+                r = self.let(f"{data} - {q} * {m}")
+                data = self.let(f"tl.where(({r} != 0) & ({data} < 0), {q} + 1, {q})"
+                                f".to({_TL[tdt]})")
+            elif _is_float(to):
+                data = self.cast(self.dec_to_f64(v), torch.float64, tdt)
+            elif isinstance(to, T.BooleanType):
+                data = self.let(f"{data} != 0")
+            else:
+                raise NotImplementedError(f"cast decimal -> {to!r}")
+        elif isinstance(to, T.DecimalType):
+            if _is_int(frm) or isinstance(frm, T.BooleanType):
+                data = self.cast(data, v.tdt, torch.int64)
+                if to.scale > 0:
+                    data, bad = self.let2(f"_mul_ovf({data}, {self.word(10 ** to.scale)})")
+                    valid = self.let(f"{valid} & ({bad} == 0)")
+                data, valid = self._check_overflow(data, valid, to.precision)
+            elif _is_float(frm):
+                x = self.cast(data, v.tdt, torch.float64)
+                scaled = self.let(f"{x} * {self.fconst(float(10 ** to.scale))}")
+                rounded = self.let(f"tl.where({scaled} >= 0, libdevice.floor({scaled} + 0.5), "
+                                   f"libdevice.ceil({scaled} - 0.5))")
+                ok = self.let(f"(tl.abs({scaled}) < {self.fconst(math.inf)}) & "
+                              f"(tl.abs({rounded}) < {self.fconst(float(2 ** 63))})")
+                data = self.let(f"tl.where({ok}, {rounded}, 0.0).to(tl.int64)")
+                data, valid = self._check_overflow(data, self.let(f"{valid} & {ok}"),
+                                                   to.precision)
+            else:
+                raise NotImplementedError(f"cast {frm!r} -> decimal")
+        elif _is_float(frm) and _is_int(to):
+            # Java semantics: NaN -> 0, saturation; out-of-range lanes are
+            # masked before the convert (an infinity compares as the
+            # reference's nan_to_num makes it, past either bound)
+            info = torch.iinfo(tdt)
+            xf = self.cast(data, v.tdt, torch.float64)
+            x = self.let(f"libdevice.trunc(tl.where({xf} != {xf}, 0.0, {xf}))")
+            max_f, min_f = self.fconst(float(info.max)), self.fconst(float(info.min))
+            inb = self.let(f"({x} > {min_f}) & ({x} < {max_f})")
+            xi = self.let(f"tl.where({inb}, {x}, 0.0).to({_TL[tdt]})")
+            hi = self.let(f"{self.word(info.max)}.to({_TL[tdt]})")
+            lo = self.let(f"{self.word(info.min)}.to({_TL[tdt]})")
+            data = self.let(f"tl.where({x} >= {max_f}, {hi}, tl.where({x} <= {min_f}, "
+                            f"{lo}, {xi}))")
+        elif isinstance(to, T.BooleanType):
+            data = self.let(f"{data} != 0")
+        elif isinstance(frm, T.DateType) and isinstance(to, T.TimestampType):
+            data = self.let(f"{self.cast(data, v.tdt, torch.int64)} * "
+                            f"{self.word(US_PER_DAY)}")
+        elif isinstance(frm, T.TimestampType) and isinstance(to, T.DateType):
+            data = self.let(f"_floordiv({data}, {self.word(US_PER_DAY)}).to(tl.int32)")
+        elif isinstance(frm, T.TimestampType) and _is_int(to):
+            data = self.let(f"_floordiv({data}, {self.word(US_PER_SECOND)})"
+                            f".to({_TL[tdt]})")
+        elif _is_int(frm) and isinstance(to, T.TimestampType):
+            data = self.let(f"{self.cast(data, v.tdt, torch.int64)} * "
+                            f"{self.word(US_PER_SECOND)}")
+        else:
+            data = self.cast(data, v.tdt, tdt)
+        return _V(data, valid, tdt, to, v.scalar)
+
     # -- numeric helpers ------------------------------------------------------------
+
+    def zero(self, tdt: torch.dtype) -> str:
+        return "ff" if tdt == torch.bool else self.let(f"tl.zeros([BLOCK], dtype={_TL[tdt]})")
 
     def coerce_decimal(self, v: _V) -> _V:
         """ExprEvaluator._coerce_decimal: an integer operand as decimal(18, 0)."""

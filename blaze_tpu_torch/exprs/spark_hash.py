@@ -1,8 +1,11 @@
-"""Spark-exact Murmur3_x86_32 (seed 42) row hashing and pmod routing (K2).
+"""Spark-exact row hashing: Murmur3_x86_32 (seed 42) with pmod routing
+(K2) and XXH64 (seed 42, K15).
 
 ``murmur3_pmod`` launches the hand-written kernel (csrc/murmur3.cu) on a
-CUDA tensor and runs ``murmur3_pmod_plain`` on a CPU tensor. Semantics, as
-blaze_tpu/exprs/spark_hash.py (``murmur3_update_column``,
+CUDA tensor and runs ``murmur3_pmod_plain`` on a CPU tensor;
+``xxhash64_rows`` does the same with csrc/xxhash64.cu and
+``xxhash64_rows_plain``. Semantics, as blaze_tpu/exprs/spark_hash.py
+(``murmur3_update_column`` / ``xxhash64_update_column`` folded by
 ``_hash_device_run``) and the pmod of ``HashPartitioner``:
 
 - multi-column hashing chains: each row's running hash is the seed for the
@@ -10,10 +13,15 @@ blaze_tpu/exprs/spark_hash.py (``murmur3_update_column``,
 - int8/16/32, date and bool hash as a 4-byte int (hashInt), float32 as its
   4-byte bit pattern; int64, timestamp, decimal(p<=18) (unscaled) hash as
   8 bytes (hashLong: low word, then high word), float64 as its bit pattern;
-- partition id = ((int32) hash mod n + n) mod n.
+- partition id = ((int32) hash mod n + n) mod n;
+- XXH64 hashes a 4-byte word with XXH64's 4-byte tail round and an
+  8-byte word with its 8-byte round, then the avalanche; floats hash as
+  their raw bits (no -0.0 or NaN normalisation, as the reference).
 
-The plain version computes in int64 with ``& 0xFFFFFFFF`` masks: PyTorch
-on the CPU has no uint32 shift or add.
+The plain versions compute in int64 with ``& 0xFFFFFFFF`` masks: PyTorch
+on the CPU has no uint32 or uint64 shift or add, and signed int64
+overflow is not relied on, so XXH64's 64-bit words are (hi, lo) pairs of
+32-bit halves.
 """
 
 from __future__ import annotations
@@ -142,6 +150,15 @@ def murmur3_pmod_cuda(words: Sequence[torch.Tensor],
     return hash_out, pid_out
 
 
+def murmur3_hashes(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                   kinds: Sequence[str], n: int) -> torch.Tensor:
+    """Spark's murmur3 row hash (int32) of the first ``n`` rows: K2's hash
+    output on CUDA tensors, the plain version on CPU tensors."""
+    if valids[0].is_cuda:
+        return murmur3_pmod_cuda(words, valids, kinds, n, 1, with_hash=True)[0]
+    return murmur3_pmod_plain(words, valids, kinds, n, 1)[0]
+
+
 def murmur3_pmod(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
                  kinds: Sequence[str], n: int, nparts: int) -> torch.Tensor:
     """Partition ids of the first ``n`` rows: K2 on CUDA tensors, the plain
@@ -157,3 +174,150 @@ def partition_ids(columns: List, n: int, nparts: int) -> torch.Tensor:
     kinds = [hash_kind(c.dtype) for c in columns]
     words = [hash_words(c.data, k) for c, k in zip(columns, kinds)]
     return murmur3_pmod(words, [c.validity for c in columns], kinds, n, nparts)
+
+
+# -- XXH64 (row 2b): the plain version ----------------------------------------------
+
+_P1 = 0x9E3779B185EBCA87
+_P2 = 0xC2B2AE3D27D4EB4F
+_P3 = 0x165667B19E3779F9
+_P4 = 0x85EBCA77C2B2AE63
+_P5 = 0x27D4EB2F165667C5
+
+
+def _c64(c: int):
+    return c >> 32, c & _M32
+
+
+def _addc64(a, c: int):
+    ch, cl = _c64(c)
+    lo = a[1] + cl
+    return (a[0] + ch + (lo >> 32)) & _M32, lo & _M32
+
+
+def _mul64(a, c: int):
+    """Low 64 bits of a * c, both unsigned: c in 16-bit pieces against
+    the 32-bit halves, so that no partial product reaches 2^63."""
+    ah, al = a
+    ch, cl = _c64(c)
+    p0 = al * (cl & 0xFFFF)
+    p1 = al * (cl >> 16)
+    s = (p0 & _M32) + ((p1 & 0xFFFF) << 16)
+    hi = (p0 >> 32) + (p1 >> 16) + (s >> 32)   # the high half of al * cl
+    hi = hi + _mul32(ah, cl) + _mul32(al, ch)
+    return hi & _M32, s & _M32
+
+
+def _xor64(a, b):
+    return a[0] ^ b[0], a[1] ^ b[1]
+
+
+def _rotl64(a, r: int):
+    ah, al = a if r < 32 else (a[1], a[0])
+    r %= 32
+    if r == 0:
+        return ah, al
+    return (((ah << r) | (al >> (32 - r))) & _M32,
+            ((al << r) | (ah >> (32 - r))) & _M32)
+
+
+def _shr64(a, r: int):
+    ah, al = a
+    if r >= 32:
+        return torch.zeros_like(ah), ah >> (r - 32)
+    return ah >> r, ((al >> r) | (ah << (32 - r))) & _M32
+
+
+def _avalanche64(acc):
+    acc = _mul64(_xor64(acc, _shr64(acc, 33)), _P2)
+    acc = _mul64(_xor64(acc, _shr64(acc, 29)), _P3)
+    return _xor64(acc, _shr64(acc, 32))
+
+
+def _xxh64_long(v, seed):
+    """XXH64 of one 8-byte word (XXH64's 8-byte round), per-row seeds."""
+    acc = _addc64(seed, _P5 + 8)
+    k1 = _mul64(_rotl64(_mul64(v, _P2), 31), _P1)
+    acc = _addc64(_mul64(_rotl64(_xor64(acc, k1), 27), _P1), _P4)
+    return _avalanche64(acc)
+
+
+def _xxh64_int(v, seed):
+    """XXH64 of one 4-byte word (its 4-byte tail round), per-row seeds."""
+    acc = _addc64(seed, _P5 + 4)
+    acc = _xor64(acc, _mul64(v, _P1))
+    acc = _addc64(_mul64(_rotl64(acc, 23), _P2), _P3)
+    return _avalanche64(acc)
+
+
+def _halves(w: torch.Tensor, kind: str):
+    w = w.to(torch.int64)
+    if kind == "i64":
+        return (w >> 32) & _M32, w & _M32
+    return torch.zeros_like(w), w & _M32
+
+
+def _to_int64(a) -> torch.Tensor:
+    hi = torch.where(a[0] >= 1 << 31, a[0] - (1 << 32), a[0])
+    return hi * (1 << 32) + a[1]  # exact: |hi * 2^32| <= 2^63
+
+
+def xxhash64_rows_plain(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                        kinds: Sequence[str], n: int, cap: int) -> torch.Tensor:
+    """Plain PyTorch twin of K15: Spark's XXH64 row hash (seed 42) of the
+    first ``n`` rows, the columns folded in order (a null value leaves the
+    running hash unchanged), as int64 of ``cap`` rows, 0 past ``n``.
+    ``words``/``kinds`` as ``hash_words``/``hash_kind`` give them."""
+    device = valids[0].device if valids else torch.device("cpu")
+    zero = torch.zeros(n, dtype=torch.int64, device=device)
+    h = (zero, zero + SEED)
+    for w, v, kind in zip(words, valids, kinds):
+        word = _halves(w[:n], kind)
+        new = _xxh64_long(word, h) if kind == "i64" else _xxh64_int(word, h)
+        keep = v[:n]
+        h = (torch.where(keep, new[0], h[0]), torch.where(keep, new[1], h[1]))
+    out = torch.zeros(cap, dtype=torch.int64, device=device)
+    out[:n] = _to_int64(h)
+    return out
+
+
+# -- K15 on the card -------------------------------------------------------------------
+
+
+def xxhash64_rows_cuda(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                       kinds: Sequence[str], n: int, cap: int) -> torch.Tensor:
+    """K15 (csrc/xxhash64.cu): same contract as :func:`xxhash64_rows_plain`."""
+    cuda_lib.require_cuda("xxhash64", *words, *valids)
+    if not words or len(words) != len(valids) or len(words) != len(kinds):
+        raise ValueError(f"xxhash64: {len(words)} words, {len(valids)} validities, "
+                         f"{len(kinds)} kinds")
+    if not 0 <= n <= cap:
+        raise ValueError(f"xxhash64: n={n}, cap={cap}")
+    for w, v, kind in zip(words, valids, kinds):
+        want = torch.int64 if kind == "i64" else torch.int32
+        if w.dtype != want or v.dtype != torch.bool or w.shape[0] < n \
+                or v.shape[0] < n:
+            raise TypeError(f"xxhash64: word {w.dtype}/{kind}, validity "
+                            f"{v.dtype}, rows {w.shape[0]} for n={n}")
+    device = valids[0].device
+    out = torch.empty(cap, dtype=torch.int64, device=device)
+    if cap == 0:
+        return out
+    lib = cuda_lib.library()
+    datas, _k1 = cuda_lib.ptr_array(words)
+    vptrs, _k2 = cuda_lib.ptr_array(valids)
+    wide, _k3 = cuda_lib.int_array([1 if k == "i64" else 0 for k in kinds])
+    err = lib.blz_xxhash64(len(words), datas, vptrs, wide, n, cap, SEED,
+                           out.data_ptr(), cuda_lib.stream_of(device))
+    cuda_lib.check(err, "xxhash64")
+    cuda_lib.LAUNCHES["xxhash64"] += 1
+    return out
+
+
+def xxhash64_rows(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                  kinds: Sequence[str], n: int, cap: int) -> torch.Tensor:
+    """XXH64 row hashes: K15 on CUDA tensors, the plain version on CPU
+    tensors."""
+    if valids[0].is_cuda:
+        return xxhash64_rows_cuda(words, valids, kinds, n, cap)
+    return xxhash64_rows_plain(words, valids, kinds, n, cap)

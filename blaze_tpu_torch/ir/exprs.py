@@ -323,9 +323,9 @@ def infer_type(expr: Expr, schema: T.Schema) -> T.DataType:
     if isinstance(expr, ScalarFunction):
         if expr.return_type is not None:
             return expr.return_type
-        raise NotImplementedError(
-            f"scalar function {expr.name!r} without a return type: "
-            "exprs/functions.py is not ported yet (ROADMAP.md Queue 1 item 6)")
+        from blaze_tpu_torch.exprs.function_types import infer_function_type
+
+        return infer_function_type(expr.name, [infer_type(a, schema) for a in expr.args])
     if isinstance(expr, RowNum):
         return T.I64
     if isinstance(expr, GetIndexedField):

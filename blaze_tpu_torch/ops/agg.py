@@ -28,7 +28,7 @@ aggregation with grouping keys (``_execute_sorted_impl``), the table's
 spill under the memory manager (item 11), its partial skipping (the
 passthrough of ``AggTable.passthrough_batch``; the table never skips, and
 ``supports_partial_skipping`` is accepted and never engages on the device
-route either: Queue 2 row 9), and host-resident key columns (item 6).
+route either: Queue 2 row 9), and host-resident key columns (item 6b).
 """
 
 from __future__ import annotations

@@ -213,7 +213,9 @@ class SumAgg(AggFunction):
                         "Queue 1 item 3")
         if not (float_sum or (_int_valued(result_type) and _int_valued(arg_type))):
             _not_ported(f"SUM of {arg_type!r} into {result_type!r} (a decimal summed "
-                        "into a float)", "Queue 1 item 6a")
+                        "into a float: the JAX package adds the unscaled values; Spark "
+                        "casts the argument, SUM(CAST(x AS DOUBLE)), which the port runs)",
+                        "Queue 3")
 
     def state_fields(self):
         if self.limbs == "2":

@@ -5,7 +5,7 @@ As in blaze_tpu/ops/base.py: an operator is a schema-carrying object whose
 based streaming). The context carries the conf, the session's device and
 the resource map (sources and exchange outputs). The JAX package's
 metrics tree, tracer spans, memory manager and cancellation are not
-ported yet (ROADMAP.md Queue 1 items 1 and 13).
+ported yet (ROADMAP.md Queue 1 items 10, 11 and 14).
 """
 
 from __future__ import annotations

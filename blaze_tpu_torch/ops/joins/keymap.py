@@ -294,10 +294,10 @@ class JoinHashMap:
     def serialize(self) -> bytes:
         raise NotImplementedError(
             "JoinHashMap broadcast serialization is not ported yet "
-            "(ROADMAP.md Queue 1 items 9 and 12)")
+            "(ROADMAP.md Queue 1 item 8)")
 
     @staticmethod
     def deserialize(blob: bytes, schema):
         raise NotImplementedError(
             "JoinHashMap broadcast serialization is not ported yet "
-            "(ROADMAP.md Queue 1 items 9 and 12)")
+            "(ROADMAP.md Queue 1 item 8)")

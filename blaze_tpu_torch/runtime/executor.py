@@ -88,4 +88,4 @@ def _build(node: N.PlanNode) -> Operator:
         return BatchSourceExec(node.schema, node.resource_id, node.num_partitions)
     raise NotImplementedError(
         f"plan node {type(node).__name__} is not ported to the PyTorch package "
-        "yet (ROADMAP.md Queue 1 items 5, 8 and 12)")
+        "yet (ROADMAP.md Queue 1 items 6c, 8, 11, 12 and 17)")

@@ -23,7 +23,7 @@ flag carried through the lowering, as in the JAX package. A range
 exchange without bounds (Spark's plan for a global ORDER BY) first runs
 its child once to sample them (``_sample_range_bounds``), then again to
 map it. The file and remote shuffle tiers and worker pools are not
-ported (ROADMAP.md Queue 1 items 11 and 13).
+ported (ROADMAP.md Queue 1 items 11, 12 and 13).
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ through the kernels (``reset_launch_counts`` / ``launch_counts``); K11,
 the generated Triton kernel of a fused chain (exprs/fused_triton.py),
 counts under ``fused_chain``; K13, the window aggregates' segmented scan,
 under ``segment_scan``; K14, the range exchange's partition ids, under
-``range_partition``. Beside them ``LIMB_LAUNCHES`` counts, per kernel,
+``range_partition``; K15, the xxhash64 row hash, under ``xxhash64``. Beside them ``LIMB_LAUNCHES`` counts, per kernel,
 the launches that carried each wide-decimal (limb) op: the aggregate
 kinds sum2/avg2/sum3/avg3/minw/maxw of K3, K4 and K10, and K12's limb
 update ops (``limb_launch_counts``).
@@ -36,7 +36,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu",
-           "join.cu", "seg_agg.cu", "slot_update.cu", "seg_scan.cu", "range_part.cu")
+           "join.cu", "seg_agg.cu", "slot_update.cu", "seg_scan.cu", "range_part.cu",
+           "xxhash64.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libblaze_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -61,6 +62,7 @@ LAUNCHES: Dict[str, int] = {
     "slot_update": 0,
     "segment_scan": 0,
     "range_partition": 0,
+    "xxhash64": 0,
 }
 
 LIMB_LAUNCHES: Dict[str, int] = {}
@@ -182,6 +184,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
 _I32 = ctypes.c_int32
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
@@ -251,6 +254,8 @@ _SIGNATURES = {
     # bval, nb, staged, out, stream
     "blz_range_partition_ids": [_I, _PP, _PP, _PI, _PI, _PI, _PI, _P, _I64, _PP, _PP,
                                 _I, _I, _P, _P],
+    # k, datas, valids, wide, n, cap, seed, out, stream
+    "blz_xxhash64": [_I, _PP, _PP, _PI, _I64, _I64, _U64, _P, _P],
 }
 
 

@@ -10,7 +10,7 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K14 held against their plain PyTorch versions on the
+3. kernels: K1-K15 held against their plain PyTorch versions on the
    card, exactly (float planes bit for bit), at the main paths' shapes and
    at edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
@@ -56,7 +56,14 @@ only when every phase passed:
    capacities 256, 4,096 and 262,144, and sort10M's map batch, then timed
    there at 31 and 199 bounds and on one key beside torch.searchsorted
    (and every K14 launch of q98's and sort10M's first runs held to the
-   twin on that batch); then each timed with
+   twin on that batch); for the XXH64 row hash, K15: every lane (int8,
+   int16, int32, int64, date, timestamp, bool, float32 and float64 bits
+   with -0.0, +-inf and four NaN payloads, decimal(7,2) and decimal(18,0)
+   unscaled), nulls at 0%, 15% and 100%, one to eight columns, capacities
+   16 and 262,144 with padding rows and none live, each also against a
+   numpy XXH64, and Spark's golden longs, timed at hash_sample's batch
+   (and every K15 launch of hash_sample's first run held to the twin);
+   K11's battery also covers CASE and Cast/TryCast; then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s);
@@ -99,10 +106,11 @@ only when every phase passed:
      JOIN broadcast date_dim (d_year = 1999) JOIN broadcast store -> SUM
      by six keys, two-stage -> hash exchange by the four window keys ->
      sort -> Window avg(sum_sales) over the whole partition (K13) ->
-     filter |sum - avg| / avg > 0.1 -> top 100) over TPC-DS SF10's row
-     counts (seed 89), exact against numpy (rows tied on the sort key as
-     sets), K13 on every reducer that holds rows and K8 on every sales
-     batch;
+     Spark's own filter, CASE WHEN avg <> 0 THEN abs(CAST(sum AS DOUBLE)
+     - avg) / avg ELSE NULL END > 0.1 (unfused: K1) -> top 100) over
+     TPC-DS SF10's row counts (seed 89), exact against numpy (rows tied
+     on the sort key as sets), K13 on every reducer that holds rows and K8
+     on every sales batch;
    - q17 (store_sales JOIN broadcast item JOIN broadcast store -> COUNT,
      SUM(ss_quantity) and SUM(ss_ext_wholesale_cost), decimal(38,2), by
      (state, category), two-stage -> single exchange -> sort) over q06's
@@ -125,15 +133,25 @@ only when every phase passed:
      every map-side bucketize pass) -> sort; the keys exact in order
      against numpy's stable sort, the rows as multisets within tied keys
      (collected as numpy planes through ``Session().execute``);
+   - hash_sample, a stable 10% hash sample of store_sales (SELECT
+     ss_store_sk, count(*), sum(ss_quantity), sum(ss_sales_price) WHERE
+     abs(xxhash64(ss_item_sk, ss_ticket_number)) % 100 < 10 GROUP BY
+     ss_store_sk ORDER BY ss_store_sk: the filter K15 + K1 a batch ->
+     partial agg -> hash exchange -> final agg -> range exchange, bounds
+     sampled (K14) -> sort) over 28,800,991 rows typed as Spark's TPC-DS
+     schema (int32 keys, decimal(7,2) price; seed 1115), exact in order
+     against a numpy XXH64 and ``np.bincount`` sums, K15 once a sales
+     batch (112);
    all through ``Session().execute_to_pydict`` (sort10M: ``execute``) in
    partitions staged on the card; every kernel must have launched over
-   the fourteen runs, every
+   the fifteen runs, every
    limb op over the runs or the battery, the
    unique-key join kernel on each join path, the generic probe on q69,
    K10's three launches on q69 and q67_sort, K11 on every q69 sales
    batch (196) and on the root rank filter of q67, q67_sort and q47,
-   K12 on q96 and q67_table, K13 on q89 and q98, and K14 on q98 and on
-   sort10M once a map-side bucketize pass;
+   K12 on q96 and q67_table, K13 on q89 and q98, K14 on q98, on
+   hash_sample and on sort10M once a map-side bucketize pass, and K15 on
+   every hash_sample sales batch;
 5. one JSON line per kernel (shape, times, bound, launches per path; the
    limb halves as ``name:limbs``), the limb ops' launch counts, the
    kernels' summary JSON line, the card line, and the device JSON line.
@@ -143,7 +161,8 @@ share, launch and sync counts, the top kernels); ``--trace=PATH`` also
 writes q01's Chrome trace to PATH and the other paths' beside it
 (``_q67.json``, ``_q67_sort.json``, ``_q67_table.json``, ``_q06.json``,
 ``_q47.json``, ``_q69.json``, ``_q96.json``, ``_q89.json``, ``_q17.json``,
-``_q17_sort.json``, ``_q17_table.json``, ``_q98.json``, ``_sort10m.json``).
+``_q17_sort.json``, ``_q17_table.json``, ``_q98.json``, ``_sort10m.json``,
+``_hash_sample.json``).
 
 Needs one CUDA device; exits 2 without one, or when run outside a checkout
 of the repository.
@@ -1317,8 +1336,14 @@ def fused_cases(E, T):
     literals Triton would type i32/fp32 (2**40 + 1, 0.1), null literals,
     InList with a null item and negated, a projected isnotnull(column)
     (its data is the input's validity plane) with and without a filter,
-    and q89's root filter (an int64 - float64 mix divided by a float64
-    that may be zero: NULL there)."""
+    q89's old root filter (an int64 - float64 mix divided by a float64
+    that may be zero: NULL there), CASE with and without ELSE (null and
+    false conditions falling through, literal, column, decimal and null
+    branches converted to the first branch's plane type) and Cast/TryCast
+    over every device pair the chain meets (float -> int at NaN, +-inf and
+    +-2^63, decimal rescales up and down with overflow, decimal -> double
+    against a double literal, int/bool/float -> decimal, date <->
+    timestamp on negative values, timestamp -> seconds, int narrowing)."""
     C, L, B = E.Column, E.Literal, E.BinaryOp
     D92, D73 = T.DecimalType(9, 2), T.DecimalType(7, 3)
 
@@ -1330,6 +1355,8 @@ def fused_cases(E, T):
 
     i, l, j, f, g, d, e, b, m, n = (C(x) for x in "iljfgdebmn")
     schema = fused_schema(T)
+    cast, try_cast, case = E.Cast, E.TryCast, E.Case
+    two63 = float(2 ** 63)
     out = [
         ("q69 scan filter", (("filter", (bx(B.AND, E.IsNotNull(l), E.IsNotNull(j)),)),)),
         ("integers", (proj(
@@ -1398,6 +1425,44 @@ def fused_cases(E, T):
             ("filter", (bx(B.OR, bx(B.GT, bx(B.DIV, bx(B.SUB, l, d), d), L(0.1, T.F64)),
                            bx(B.GT, bx(B.DIV, bx(B.SUB, d, l), d), L(0.1, T.F64))),)),
             proj(bx(B.DIV, bx(B.SUB, l, d), d), bx(B.SUB, l, d), l, d))),
+        ("case", (proj(
+            case([(bx(B.GT, i, L(0, T.I32)), l), (E.IsNull(j), j)], bx(B.MUL, l, L(2, T.I64))),
+            case([(b, i)]),
+            case([(bx(B.LT, d, L(0.0, T.F64)), L(-1.0, T.F64)),
+                  (bx(B.GT, d, L(0.0, T.F64)), L(1.0, T.F64))], L(None, T.F64)),
+            case([(b, m), (bx(B.GT, i, L(0, T.I32)), n)]),
+            case([(bx(B.GT, f, g), f)], g),
+            case([(b, cast(i, T.I8)), (E.Not(b), cast(l, T.I8))], L(7, T.I8)),
+            case([(bx(B.EQ, i, L(0, T.I32)), L(True, T.BOOL))], b),
+            case([(L(None, T.BOOL), l)], L(None, T.I64))),)),
+        ("case filter", (
+            ("filter", (bx(B.GT, case([(E.Not(bx(B.EQ, e, L(0.0, T.F64))),
+                                        bx(B.DIV, bx(B.SUB, cast(l, T.F64), d), e))],
+                                      L(None, T.F64)), L(0.1, T.F64)),
+                        case([(bx(B.LT, i, L(50, T.I32)), b)], L(True, T.BOOL)))),
+            proj(l, case([(b, d)], e)))),
+        ("casts", (proj(
+            cast(d, T.I64), cast(d, T.I32), cast(f, T.I16), cast(f, T.I8), cast(d, T.I8),
+            cast(bx(B.MUL, d, L(1e16, T.F64)), T.I64), cast(L(two63, T.F64), T.I64),
+            cast(L(-two63, T.F64), T.I64), cast(L(9.223372036854774784e18, T.F64), T.I64),
+            try_cast(L(float("nan"), T.F64), T.I32), try_cast(L(float("-inf"), T.F32), T.I64),
+            cast(m, T.DecimalType(12, 4)), cast(m, T.DecimalType(5, 1)),
+            cast(n, T.DecimalType(7, 0)), cast(m, T.DecimalType(18, 12)),
+            try_cast(n, T.DecimalType(9, 3)), cast(m, T.F64), cast(n, T.F32),
+            bx(B.EQ, cast(m, T.F64), L(0.35, T.F64)), cast(m, T.I32), cast(n, T.I8),
+            cast(m, T.BOOL), cast(i, T.DecimalType(5, 2)), cast(l, T.DecimalType(18, 2)),
+            cast(b, T.DecimalType(3, 1)), cast(j, T.DecimalType(2, 0))),)),
+        ("casts dates and narrowing", (proj(
+            cast(cast(i, T.DATE), T.TIMESTAMP), cast(cast(l, T.TIMESTAMP), T.DATE),
+            cast(cast(l, T.TIMESTAMP), T.I64), cast(cast(j, T.TIMESTAMP), T.I32),
+            cast(cast(bx(B.MUL, l, L(997, T.I64)), T.TIMESTAMP), T.DATE), cast(i, T.DATE),
+            cast(l, T.I16), cast(l, T.I32), cast(i, T.I8), cast(i, T.I64), cast(b, T.I32),
+            cast(f, T.F64), cast(d, T.F32), cast(l, T.F32), cast(l, T.F64), cast(d, T.BOOL),
+            cast(i, T.BOOL), try_cast(j, T.F32)),)),
+        ("cast float to decimal", (proj(
+            cast(d, T.DecimalType(18, 2)), cast(f, T.DecimalType(9, 3)),
+            cast(e, T.DecimalType(4, 2)), try_cast(bx(B.MUL, d, L(1e14, T.F64)),
+                                                   T.DecimalType(18, 0))),)),
         ("none kept", (("filter", (L(False, T.BOOL),)),)),
         ("all kept", (("filter", (bx(B.OR, E.IsNull(l), E.IsNotNull(l)),)),)),
     ]
@@ -1434,7 +1499,8 @@ def fused_planes(cap, n, rng, subnormals=True, nulls=0.15):
             mix(rng.standard_normal(cap) * 1e3, d_spec),
             mix(rng.standard_normal(cap), d_spec),
             rng.random(cap) < 0.5,
-            mix(rng.integers(-10 ** 8, 10 ** 8, cap), [0, 10 ** 9 - 1, -(10 ** 9 - 1), 150, 1250]),
+            mix(rng.integers(-10 ** 8, 10 ** 8, cap), [0, 10 ** 9 - 1, -(10 ** 9 - 1), 150, 1250,
+                                                       35]),
             mix(rng.integers(-10 ** 6, 10 ** 6, cap), [0, 1, -1000]),
         ]
     valids = []
@@ -2654,7 +2720,8 @@ def kernel_device_ms(fn, prefix, iters=ITERS):
     """The device time of one call's kernels whose names hold ``prefix``
     (torch.profiler over ``iters`` calls after a warm-up): the
     kernel alone, without the host's time between launches that CUDA
-    events over back-to-back calls also count."""
+    events over back-to-back calls also count; None when the profiler
+    recorded no time for such a kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2665,8 +2732,11 @@ def kernel_device_ms(fn, prefix, iters=ITERS):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and prefix in e.key) / 1e3 / iters
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and prefix in e.key)
+    # no kernel time recorded (torch.profiler sometimes keeps none of a
+    # session's kernels): not measured, rather than 0
+    return total / 1e3 / iters if total > 0 else None
 
 
 def kernel_k14(dev, rng, results):
@@ -2736,12 +2806,170 @@ def kernel_k14(dev, rng, results):
                      library_call="torch.searchsorted(bounds, keys, right=True)")))
 
 
+# -- K15: the XXH64 row hash ------------------------------------------------------
+
+XXH_LANES = ("i8", "i16", "i32", "i64", "date", "ts", "bool", "f32", "f64", "d72", "d180")
+XXH_CASES = tuple(
+    # label, lanes, capacity, live rows, null share
+    [(f"{lane}, padding, 15% null", (lane,), 16, 13, 0.15) for lane in XXH_LANES] + [
+        ("eight columns, 15% null", XXH_LANES[:8], 262144, 262144, 0.15),
+        ("f64 + decimals + i32, no nulls, padding", ("f64", "d72", "d180", "i32"), 262144,
+         262000, 0.0),
+        ("floats, every value null, padding", ("f64", "f32"), 262144, 200000, 1.0),
+        ("hash_sample's two int32 keys", ("i32", "i32"), 262144, 262144, 0.0),
+        ("one i64, no live row", ("i64",), 16, 0, 0.0),
+    ])
+XXH_F32_BITS = (0x7FC00000, 0x7FC00001, 0xFFC00000, 0x7F800001)  # NaN payloads
+XXH_F64_BITS = (0x7FF8000000000000, 0x7FF8000000000001, 0xFFF8000000000000,
+                0x7FF0000000000001)
+
+
+def xxh_lane_type(T, lane):
+    return {"i8": T.I8, "i16": T.I16, "i32": T.I32, "i64": T.I64, "date": T.DATE,
+            "ts": T.TIMESTAMP, "bool": T.BOOL, "f32": T.F32, "f64": T.F64,
+            "d72": T.DecimalType(7, 2), "d180": T.DecimalType(18, 0)}[lane]
+
+
+def xxh_values(lane, cap, rng):
+    """``cap`` numpy values of one lane, the lane's edge values mixed in
+    (integer extremes, -1 and 0; -0.0, +-inf and NaNs of four payloads for
+    the floats)."""
+    import numpy as np
+
+    def mix(vals, special):
+        pick = rng.random(cap) < 0.2
+        vals[pick] = np.asarray(special, dtype=vals.dtype)[
+            rng.integers(0, len(special), int(pick.sum()))]
+        return vals
+
+    if lane in ("i8", "i16", "i32", "i64"):
+        info = np.iinfo(lane.replace("i", "int"))
+        vals = rng.integers(info.min, info.max, cap, dtype=info.dtype, endpoint=True)
+        return mix(vals, [info.min, info.max, -1, 0])
+    if lane == "date":
+        return mix(rng.integers(-100_000, 100_000, cap).astype(np.int32), [0, -1])
+    if lane == "ts":
+        return mix(rng.integers(-10 ** 16, 10 ** 16, cap), [0, -1, 1])
+    if lane == "bool":
+        return rng.random(cap) < 0.5
+    if lane in ("f32", "f64"):
+        dt, it = (np.float32, np.uint32) if lane == "f32" else (np.float64, np.uint64)
+        bits = XXH_F32_BITS if lane == "f32" else XXH_F64_BITS
+        special = np.concatenate([np.array([0.0, -0.0, np.inf, -np.inf, 1.0, -2.5], dt),
+                                  np.array(bits, it).view(dt)])
+        return mix((rng.standard_normal(cap) * 1e3).astype(dt), special)
+    bound = 10 ** (7 if lane == "d72" else 18)
+    return mix(rng.integers(-bound + 1, bound, cap), [bound - 1, -bound + 1, 0])
+
+
+def xxh_case(case, rng, dev):
+    """One battery case as the kernel takes it: (words, validities, kinds,
+    n, cap), each column's values in its own plane type turned into hash
+    words as ``exprs/spark_hash.py hash_words`` turns them; null and
+    padding rows carry data 0."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.exprs import spark_hash as H
+    from blaze_tpu_torch.ir import types as T
+
+    _label, lanes, cap, n, nulls = case
+    words, valids, kinds = [], [], []
+    for lane in lanes:
+        vals = xxh_values(lane, cap, rng)
+        v = rng.random(cap) >= nulls
+        v[n:] = False
+        vals[~v] = 0
+        kind = H.hash_kind(xxh_lane_type(T, lane))
+        words.append(H.hash_words(torch.from_numpy(vals).to(dev), kind))
+        valids.append(torch.from_numpy(v).to(dev))
+        kinds.append(kind)
+    return words, valids, kinds, n, cap
+
+
+def xxh64_np(words, valids, seed=42):
+    """Spark's XXH64 row hash in numpy (uint64 arithmetic, wrapping), the
+    4-byte and 8-byte rounds of XXH64 as Spark's hashInt and hashLong take
+    them: ``words`` are int32 (4-byte) or int64 (8-byte) arrays, folded in
+    order; a null value leaves the running hash unchanged. Returns int64."""
+    import numpy as np
+
+    p1, p2, p3 = np.uint64(0x9E3779B185EBCA87), np.uint64(0xC2B2AE3D27D4EB4F), \
+        np.uint64(0x165667B19E3779F9)
+    p4, p5 = np.uint64(0x85EBCA77C2B2AE63), np.uint64(0x27D4EB2F165667C5)
+
+    def rotl(x, r):
+        return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+    h = np.full(len(words[0]), seed, np.uint64)
+    with np.errstate(over="ignore"):
+        for w, v in zip(words, valids):
+            if w.dtype == np.int64:
+                acc = h + p5 + np.uint64(8)
+                acc ^= rotl(w.view(np.uint64) * p2, 31) * p1
+                acc = rotl(acc, 27) * p1 + p4
+            else:
+                acc = h + p5 + np.uint64(4)
+                acc ^= w.view(np.uint32).astype(np.uint64) * p1
+                acc = rotl(acc, 23) * p2 + p3
+            acc = (acc ^ (acc >> np.uint64(33))) * p2
+            acc = (acc ^ (acc >> np.uint64(29))) * p3
+            acc ^= acc >> np.uint64(32)
+            h = acc if v is None else np.where(v, acc, h)
+    return h.view(np.int64)
+
+
+def kernel_k15(dev, rng, results):
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.exprs import spark_hash as H
+
+    cases = []
+    for case in XXH_CASES:
+        args = xxh_case(case, rng, dev)
+        got = H.xxhash64_rows_cuda(*args)
+        check_equal("xxhash64", case[0], got, H.xxhash64_rows_plain(*args))
+        words, valids, _kinds, n, _cap = args
+        want = xxh64_np([w[:n].cpu().numpy() for w in words],
+                        [v[:n].cpu().numpy() for v in valids])
+        if n and not np.array_equal(got[:n].cpu().numpy(), want):
+            raise AssertionError(f"xxhash64 [{case[0]}] differs from the numpy XXH64")
+        cases.append(case[0])
+    # Spark's golden vectors (tests/test_spark_hash.py:133): XXH64 of
+    # longs, seed 42
+    vals = torch.tensor([1, 0, -1, 2 ** 63 - 1, -(2 ** 63)], dtype=torch.int64, device=dev)
+    ones = torch.ones(5, dtype=torch.bool, device=dev)
+    golden = [-7001672635703045582, -5252525462095825812, 3858142552250413010,
+              -3246596055638297850, -8619748838626508300]
+    got = H.xxhash64_rows_cuda([vals], [ones], ["i64"], 5, 8).tolist()
+    if got != golden + [0, 0, 0]:
+        raise AssertionError(f"xxhash64 golden: {got}")
+    cases.append("Spark's golden longs")
+    # main path: one hash_sample batch, 262,144 rows of (ss_item_sk,
+    # ss_ticket_number), two int32 columns without nulls
+    words, valids, kinds, n, cap = xxh_case(XXH_CASES[-2], rng, dev)
+
+    def k15():
+        return H.xxhash64_rows_cuda(words, valids, kinds, n, cap)
+
+    results.append(dict(
+        name="xxhash64", route="cuda", source="blaze_tpu_torch/csrc/xxhash64.cu",
+        replaces="blaze_tpu/exprs/spark_hash.py:230",
+        shape="a hash_sample batch: 262,144 rows x 2 int32 columns "
+              "(ss_item_sk, ss_ticket_number)",
+        cases=cases, ms=time_ms(k15), device_ms=kernel_device_ms(k15, "blz_xxhash64"),
+        plain_ms=time_ms(lambda: H.xxhash64_rows_plain(words, valids, kinds, n, cap)),
+        library_ms=None, library_call="none: no single PyTorch call computes Spark XXH64",
+        # per row two 4-byte words and two validity bytes read, 8 bytes written
+        bytes=cap * (2 * (4 + 1) + 8)))
+
+
 # -- phase 4: the paths on the card ------------------------------------------------
 
 
 def stage_batches(schema, columns, dev, bs=262144, valids=None):
-    """Host int64 columns -> device batches of ``bs`` rows (the last one in
-    its own capacity bucket); ``valids`` (None: all valid) gives a
+    """Host integer columns -> device batches of ``bs`` rows (the last one
+    in its own capacity bucket), each in its field's plane type (a decimal
+    as its int64 unscaled values); ``valids`` (None: all valid) gives a
     validity array, or None, per column (null rows carry data 0). A
     decimal(19..38) field's int64 values become a WideColumn's limbs."""
     import torch
@@ -2760,7 +2988,7 @@ def stage_batches(schema, columns, dev, bs=262144, valids=None):
         for f, c, vc in zip(schema.fields, cols, vcols):
             v = torch.zeros(cap, dtype=torch.bool, device=dev)
             v[:n] = True if vc is None else vc[s:s + n]
-            d = torch.zeros(cap, dtype=torch.int64, device=dev)
+            d = torch.zeros(cap, dtype=T.torch_dtype(f.dtype) or torch.int64, device=dev)
             d[:n] = c[s:s + n]
             d[~v] = 0
             if T.is_wide_decimal(f.dtype):  # int64 values as the three limbs
@@ -3828,9 +4056,11 @@ def q89_plan(schemas, E, N, T, parts=PARTS):
     -> sort on them -> Window avg(sum_sales) over that partition (no order:
     the whole partition) -> filter |sum - avg| / avg > 0.1 -> single
     exchange -> ORDER BY sum_sales - avg_monthly_sales, s_store_name LIMIT
-    100. Strings are int codes; ss_quantity stands for ss_sales_price; the
-    CASE WHEN avg <> 0 THEN abs(sum - avg) / avg ELSE null END > 0.1 is
-    (sum - avg) / avg > 0.1 OR (avg - sum) / avg > 0.1 (PERF.md section 4)."""
+    100. The filter is Spark's own: CASE WHEN NOT (avg_monthly_sales = 0.0)
+    THEN abs(CAST(sum_sales AS DOUBLE) - avg_monthly_sales) /
+    avg_monthly_sales ELSE CAST(NULL AS DOUBLE) END > 0.1 (a ScalarFunction,
+    so it runs unfused: K1 compacts it). Strings are int codes; ss_quantity
+    stands for ss_sales_price, so sum_sales is a bigint (PERF.md section 4)."""
     C, B = E.Column, E.BinaryOp
     J = N.JoinType
 
@@ -3879,12 +4109,11 @@ def q89_plan(schemas, E, N, T, parts=PARTS):
                                       E.AggExpr(E.AggFunction.AVG, [C("sum_sales")]))],
                    pkeys, [])
     s, a = C("sum_sales"), C("avg_monthly_sales")
-
-    def over(x, y):
-        return E.BinaryExpr(B.GT, E.BinaryExpr(B.DIV, E.BinaryExpr(B.SUB, x, y), a),
-                            E.Literal(0.1, T.F64))
-
-    kept = N.Filter(win, [E.BinaryExpr(B.OR, over(s, a), over(a, s))])
+    ratio = E.BinaryExpr(B.DIV, E.ScalarFunction(
+        "abs", [E.BinaryExpr(B.SUB, E.Cast(s, T.F64), a)]), a)
+    case = E.Case([(E.Not(E.BinaryExpr(B.EQ, a, E.Literal(0.0, T.F64))), ratio)],
+                  E.Literal(None, T.F64))
+    kept = N.Filter(win, [E.BinaryExpr(B.GT, case, E.Literal(0.1, T.F64))])
     return N.Sort(N.ShuffleExchange(kept, N.SinglePartitioning(1)),
                   [E.SortOrder(E.BinaryExpr(B.SUB, s, a)), E.SortOrder(C("s_store_name"))],
                   fetch_limit=100)
@@ -3940,8 +4169,8 @@ def q89_oracle(host):
     avg = psum.astype(np.float64) / pcnt.astype(np.float64)
     a = avg[pinv]
     s = sums.astype(np.float64)
-    # Spark's form: CASE WHEN avg <> 0 THEN abs(sum - avg) / avg ELSE null
-    # END > 0.1 (the plan's rewrite is held to it)
+    # Spark's form, as the plan carries it: CASE WHEN avg <> 0 THEN
+    # abs(sum - avg) / avg ELSE null END > 0.1
     with np.errstate(divide="ignore", invalid="ignore"):
         keep = (a != 0) & (np.abs(s - a) / a > 0.1)
     order = np.lexsort((keys[3][keep], (s - a)[keep]))
@@ -4436,6 +4665,182 @@ def run_sort10m(dev, profile=False, trace_path=None):
     return launches
 
 
+# -- hash_sample: a stable XXH64 sample of store_sales (K15) --------------------------
+
+HS_SEED = 1115
+HS_ROWS = 28_800_991   # TPC-DS SF10's store_sales row count
+HS_ITEMS = 102_000     # SF10's items
+HS_STORES = 102        # SF10's stores
+HS_TICKET = 10         # rows (distinct items) a ticket
+HS_BUCKETS, HS_KEEP = 100, 10
+HS_COLUMNS = ("ss_item_sk", "ss_ticket_number", "ss_store_sk", "ss_quantity",
+              "ss_sales_price")
+XXH_PATH_TIMES = {}
+
+
+def hash_sample_schema(T):
+    """store_sales' five columns as Spark's TPC-DS schema types them."""
+    return T.Schema.of(("ss_item_sk", T.I32), ("ss_ticket_number", T.I32),
+                       ("ss_store_sk", T.I32), ("ss_quantity", T.I32),
+                       ("ss_sales_price", T.DecimalType(7, 2)))
+
+
+def hash_sample_host(rows=HS_ROWS, seed=HS_SEED, null_share=0.04):
+    """store_sales for the hash sample on the host: ss_ticket_number = row
+    // 10 + 1, its ten rows ten distinct items (a ticket's first item
+    uniform, the rest at a stride of 10,201 modulo the items), so that
+    (ss_item_sk, ss_ticket_number) is unique and neither is null;
+    ss_store_sk uniform over the stores, ss_quantity uniform [1, 100],
+    ss_sales_price decimal(7,2) unscaled uniform [0, 20,000], each of the
+    three ``null_share`` null (data 0). Returns (columns, validities)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    row = np.arange(rows, dtype=np.int64)
+    ticket = row // HS_TICKET
+    first = rng.integers(0, HS_ITEMS, int(ticket[-1]) + 1)
+    item = ((first[ticket] + (row % HS_TICKET) * 10_201) % HS_ITEMS + 1).astype(np.int32)
+    del row, first
+    cols, valids = [item, (ticket + 1).astype(np.int32)], [None, None]
+    del ticket
+    for lo, hi, dt in ((1, HS_STORES + 1, np.int32), (1, 101, np.int32),
+                       (0, 20_001, np.int64)):
+        v = rng.random(rows) >= null_share
+        cols.append(np.where(v, rng.integers(lo, hi, rows), 0).astype(dt))
+        valids.append(v)
+    return tuple(cols), tuple(valids)
+
+
+def hash_sample_plan(schema, E, N, T, parts=PARTS):
+    """A stable 10% hash sample of store_sales as Spark plans it, in the IR
+    modules ``E``, ``N``, ``T`` of either package: SELECT ss_store_sk,
+    count(*), sum(ss_quantity), sum(ss_sales_price) FROM store_sales WHERE
+    abs(xxhash64(ss_item_sk, ss_ticket_number)) % 100 < 10 GROUP BY
+    ss_store_sk ORDER BY ss_store_sk: the filter (a ScalarFunction, so
+    unfused: K15 + K1 a batch) -> PARTIAL -> hash exchange -> FINAL ->
+    range exchange on ss_store_sk, bounds sampled (K14) -> sort."""
+    C, B, L = E.Column, E.BinaryOp, E.Literal
+    xxh = E.ScalarFunction("xxhash64", [C("ss_item_sk"), C("ss_ticket_number")])
+    bucket = E.BinaryExpr(B.MOD, E.ScalarFunction("abs", [xxh]), L(HS_BUCKETS, T.I64))
+    kept = N.Filter(N.FFIReader(schema, "store_sales", parts),
+                    [E.BinaryExpr(B.LT, bucket, L(HS_KEEP, T.I64))])
+    keys = [("ss_store_sk", C("ss_store_sk"))]
+    aggs = (("cnt", E.AggExpr(E.AggFunction.COUNT, [L(1, T.I32)])),
+            ("sum_qty", E.AggExpr(E.AggFunction.SUM, [C("ss_quantity")])),
+            ("sum_price", E.AggExpr(E.AggFunction.SUM, [C("ss_sales_price")])))
+    partial = N.Agg(kept, E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(a, E.AggMode.PARTIAL, name) for name, a in aggs])
+    final = N.Agg(N.ShuffleExchange(partial, N.HashPartitioning([C("ss_store_sk")], parts)),
+                  E.AggExecMode.HASH_AGG, keys,
+                  [N.AggColumn(a, E.AggMode.FINAL, name) for name, a in aggs])
+    order = [E.SortOrder(C("ss_store_sk"))]
+    return N.Sort(N.ShuffleExchange(final, N.RangePartitioning(order, parts, [])), order)
+
+
+def hash_sample_oracle(host):
+    """The sample in numpy: ``xxh64_np`` over the two keys, Java's abs and
+    %, then counts and sums by store with ``np.bincount`` (exact: every
+    sum stays below 2^53); the null store first, then ascending. Returns
+    (the result as ``execute_to_pydict`` gives it, its sizes)."""
+    import decimal
+
+    import numpy as np
+
+    (item, ticket, store, qty, price), (_iv, _tv, sv, qv, pv) = host
+    h = xxh64_np([item, ticket], [None, None])
+    with np.errstate(over="ignore"):
+        keep = np.fmod(np.abs(h), HS_BUCKETS) < HS_KEEP
+    del h
+    group = np.where(sv, store, 0)[keep].astype(np.int64)
+    n = HS_STORES + 1
+    cnt = np.bincount(group, minlength=n)
+    qn = np.bincount(group, weights=qv[keep], minlength=n)
+    pn = np.bincount(group, weights=pv[keep], minlength=n)
+    qsum = np.bincount(group, weights=np.where(qv, qty, 0)[keep], minlength=n)
+    psum = np.bincount(group, weights=np.where(pv, price, 0)[keep], minlength=n)
+    present = [g for g in range(n) if cnt[g]]
+    out = {"ss_store_sk": [g or None for g in present],
+           "cnt": [int(cnt[g]) for g in present],
+           "sum_qty": [int(qsum[g]) if qn[g] else None for g in present],
+           "sum_price": [decimal.Decimal(int(psum[g])).scaleb(-2) if pn[g] else None
+                         for g in present]}
+    return out, {"kept_rows": int(keep.sum()), "groups": len(present)}
+
+
+@contextlib.contextmanager
+def xxhash_twin_check(name):
+    """While open, every K15 launch through ``xxhash64_rows`` is also held
+    to its twin on the same columns (``xxhash64:<name> batch``); the first
+    such batch is then timed (K15 by events and on the device, its twin)
+    into ``XXH_PATH_TIMES[name]``."""
+    from blaze_tpu_torch.exprs import spark_hash as H
+
+    fn = H.xxhash64_rows
+    first, checked_batches = [], [0]
+
+    def checked(words, valids, kinds, n, cap):
+        got = fn(words, valids, kinds, n, cap)
+        check_equal("xxhash64", f"{name} batch", got,
+                    H.xxhash64_rows_plain(words, valids, kinds, n, cap))
+        if not first:
+            first.append((list(words), list(valids), list(kinds), n, cap))
+        checked_batches[0] += 1
+        return got
+
+    H.xxhash64_rows = checked
+    try:
+        yield
+    finally:
+        H.xxhash64_rows = fn
+    if not first:
+        raise AssertionError(f"{name}'s first run launched no K15")
+    args = first[0]
+    XXH_PATH_TIMES[name] = {
+        "checked_batches": checked_batches[0], "rows": args[3], "capacity": args[4],
+        "columns": len(args[0]),
+        "ms": time_ms(lambda: H.xxhash64_rows_cuda(*args)),
+        "device_ms": kernel_device_ms(lambda: H.xxhash64_rows_cuda(*args), "blz_xxhash64"),
+        "plain_ms": time_ms(lambda: H.xxhash64_rows_plain(*args))}
+
+
+def run_hash_sample(dev, profile=False, trace_path=None):
+    """The hash sample at SF10 (28,800,991 store_sales rows, 4 partitions
+    of 262,144-row batches staged on the card), exact in order against
+    ``hash_sample_oracle``; K15 once a sales batch (every launch of the
+    first run held to its twin), K14 on the ORDER BY's range exchange."""
+    import blaze_tpu_torch
+    import torch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    t0 = time.perf_counter()
+    schema = hash_sample_schema(T)
+    cols, valids = hash_sample_host()
+    want, info = hash_sample_oracle((cols, valids))
+    session = blaze_tpu_torch.Session()
+    cuts = [HS_ROWS * p // PARTS for p in range(PARTS + 1)]
+    parts = [stage_batches(schema, [c[a:b] for c in cols], dev,
+                           valids=[None if v is None else v[a:b] for v in valids])
+             for a, b in zip(cuts, cuts[1:])]
+    del cols, valids
+    session.resources["store_sales"] = lambda p: parts[p]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    batches = sum(len(p) for p in parts)
+    launches = run_query("hash_sample", HS_ROWS, session,
+                         hash_sample_plan(schema, E, N, T), want, setup_s, info, profile,
+                         trace_path, first_run=xxhash_twin_check("hash_sample"))
+    if XXH_PATH_TIMES["hash_sample"]["checked_batches"] != batches:
+        raise AssertionError(f"hash_sample's first run held "
+                             f"{XXH_PATH_TIMES['hash_sample']['checked_batches']} K15 "
+                             f"launches to the twin, not one a sales batch ({batches})")
+    if launches["xxhash64"] != batches or launches["range_partition"] < 1:
+        raise AssertionError(f"hash_sample launched K15 {launches['xxhash64']} times for "
+                             f"{batches} sales batches, K14 {launches['range_partition']}")
+    return launches
+
+
 def check_result(name, got, want):
     """``want`` is the oracle's result (equal, order included) or a
     function that raises when ``got`` is wrong."""
@@ -4591,8 +4996,10 @@ def main(device: str = "cuda") -> int:
     kernel_limbs(dev, rng, results)
     battery_limbs = cuda_lib.limb_launch_counts()
     kernel_k14(dev, rng, results)
+    kernel_k15(dev, rng, results)
     # 4. the paths: q01, q67 (slot, sort and table routes), q06 and q47,
-    # q69, q96, q89, then q17 (slot, sort and table routes)
+    # q69, q96, q89, q17 (slot, sort and table routes), q98, sort10M and
+    # hash_sample
     args = sys.argv[1:]
     profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
@@ -4611,6 +5018,8 @@ def main(device: str = "cuda") -> int:
                        if trace else None),
         "sort10m": run_sort10m(dev, profile, trace[0].replace(".json", "") + "_sort10m.json"
                                if trace else None),
+        "hash_sample": run_hash_sample(dev, profile, trace[0].replace(".json", "")
+                                       + "_hash_sample.json" if trace else None),
     }
     launches = {k: sum(p.get(k, 0) for p in per_path.values())
                 for k in set().union(*per_path.values())}
@@ -4657,13 +5066,23 @@ def main(device: str = "cuda") -> int:
     # K14: q98's and sort10M's range exchanges (run_sort10m also holds it
     # to one launch a map-side bucketize pass, and both paths hold every
     # launch of their first run to the twin)
-    for q in ("q98", "sort10m"):
+    for q in ("q98", "sort10m", "hash_sample"):
         if per_path[q]["range_partition"] < 1:
             raise AssertionError(f"{q} did not go through K14")
+    # K15: hash_sample's filter, once a sales batch (4 partitions x 28);
+    # the range exchange's sampling reruns only the FINAL above the hash
+    # exchange, so the filter runs once (run_hash_sample also holds every
+    # launch of its first run to the twin)
+    hs_batches = PARTS * ((HS_ROWS // PARTS + 262143) // 262144)
+    if per_path["hash_sample"]["xxhash64"] != hs_batches:
+        raise AssertionError(f"hash_sample launched K15 {per_path['hash_sample']['xxhash64']}"
+                             f" times, not once a sales batch ({hs_batches})")
     # 5. summary lines
     for r in results:
         if r["name"] == "range_partition":
             r["path_batches"] = RANGE_PATH_TIMES
+        if r["name"] == "xxhash64":
+            r["path_batches"] = XXH_PATH_TIMES
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []

@@ -1,8 +1,9 @@
 """The port's CUDA and Triton kernels against their plain PyTorch versions
 on the card, and the q01, q67 (on both aggregation routes), q06, q96,
-q89, q17, q98 and sort10M paths, every hash-join type and an
-explicit-frame window on the card against the same plans on the CPU.
-K9's to K14's cases come from chip_smoke.py.
+q89, q17, q98, sort10M and hash_sample paths, every hash-join type, an
+explicit-frame window and the scalar functions on the card against the
+same plans and expressions on the CPU. K9's to K15's cases come from
+chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -19,7 +20,9 @@ import torch
 
 from chip_smoke import (FUSED_CAPS, PROBE_CASES, Q89_ROWS, Q96_ROWS, Q98_ROWS, RANGE_CASES,
                         SCAN_CASES, SEG_CASES, SORT10M_COLUMNS, UPD_CASES, WIDE_CASES,
-                        WIDE_UPD_CASES, customer_probe, doubled, fused_cases, fused_flat,
+                        WIDE_UPD_CASES, XXH_CASES, customer_probe, doubled, fused_cases,
+                        fused_flat, hash_sample_host, hash_sample_oracle, hash_sample_plan,
+                        hash_sample_schema, xxh64_np, xxh_case, fused_schema,
                         fused_planes, merge_states, one_nan, probe_case, q17_oracle, q17_plan,
                         q67_batch, q67_merge_input, q67_table_merge_batch, q89_host,
                         q89_oracle, q89_plan, q89_schemas, q96_host, q96_oracle, q96_plan,
@@ -149,14 +152,15 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
     # every kernel but the joins', the sort route's, K11, the host table's
-    # K12, the window aggregates' K13 and the range exchange's K14, which
-    # q01 does not reach (its filter feeds the partial aggregate, so it is
-    # not fused; both aggregates take the slot route; it has no window and
-    # no range exchange)
+    # K12, the window aggregates' K13, the range exchange's K14 and the
+    # xxhash64 function's K15, which q01 does not reach (its filter feeds
+    # the partial aggregate, so it is not fused; both aggregates take the
+    # slot route; it has no window, no range exchange and no xxhash64)
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
                if k not in ("inner_join_planes", "probe_codes", "segment_ids",
                             "seg_agg_partial", "seg_agg_merge", "fused_chain",
-                            "slot_update", "segment_scan", "range_partition"))
+                            "slot_update", "segment_scan", "range_partition",
+                            "xxhash64"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -1013,3 +1017,121 @@ def test_sort10m_on_the_card_equals_the_cpu(dev):
         np.testing.assert_array_equal(out[None][c], out["cpu"][c])
     check(out[None])
     assert cuda_lib.launch_counts()["range_partition"] == sum(len(p) for p in parts)
+
+
+@pytest.mark.parametrize("case", XXH_CASES, ids=[c[0] for c in XXH_CASES])
+def test_xxhash64_kernel(dev, case):
+    """K15 against its twin on the card and against the numpy XXH64."""
+    from blaze_tpu_torch.exprs import spark_hash as H
+
+    args = xxh_case(case, np.random.default_rng(sum(map(ord, case[0]))), dev)
+    got = H.xxhash64_rows_cuda(*args)
+    _equal(got, H.xxhash64_rows_plain(*args))
+    words, valids, _kinds, n, _cap = args
+    if n:
+        want = xxh64_np([w[:n].cpu().numpy() for w in words],
+                        [v[:n].cpu().numpy() for v in valids])
+        assert np.array_equal(got[:n].cpu().numpy(), want)
+    assert not got[n:].any()
+
+
+def test_xxhash64_launches_or_raises_and_never_takes_the_twin(dev, monkeypatch):
+    """A CUDA column launches K15 or raises: a word of the wrong width is
+    refused, and the twin is never called."""
+    from blaze_tpu_torch.exprs import spark_hash as H
+    from blaze_tpu_torch.utils import cuda_lib
+
+    words, valids, kinds, n, cap = xxh_case(XXH_CASES[-2], np.random.default_rng(5), dev)
+    monkeypatch.setattr(H, "xxhash64_rows_plain", None)
+    cuda_lib.reset_launch_counts()
+    H.xxhash64_rows(words, valids, kinds, n, cap)
+    assert cuda_lib.launch_counts()["xxhash64"] == 1
+    with pytest.raises(TypeError, match="xxhash64"):
+        H.xxhash64_rows([w.to(torch.int64) for w in words], valids, kinds, n, cap)
+
+
+def test_hash_sample_on_the_card_equals_the_cpu(dev):
+    """chip_smoke.py's hash_sample at 300,000 rows in 4 partitions on the
+    card and on the CPU: equal, order included, and to the numpy oracle;
+    K15 once a sales batch, K14 on the range exchange."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    cols, valids = hash_sample_host(rows=300_000)
+    want, _info = hash_sample_oracle((cols, valids))
+    schema = hash_sample_schema(T)
+    cuts = [300_000 * p // 4 for p in range(5)]
+    plist = [[{f.name: (c[s:min(s + 8192, b)],
+                        np.ones(min(s + 8192, b) - s, bool) if v is None
+                        else v[s:min(s + 8192, b)])
+               for f, c, v in zip(schema.fields, cols, valids)} for s in range(a, b, 8192)]
+             for a, b in zip(cuts, cuts[1:])]
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(Config(batch_size=8192), device=device)
+        s.resources["store_sales"] = lambda p: plist[p]
+        cuda_lib.reset_launch_counts()
+        out[device] = s.execute_to_pydict(hash_sample_plan(schema, E, N, T))
+    assert out[None] == out["cpu"] == want
+    counts = cuda_lib.launch_counts()
+    assert counts["xxhash64"] == sum(len(p) for p in plist)
+    assert counts["range_partition"] >= 1
+
+
+@pytest.mark.parametrize("name", ["year", "round", "greatest", "murmur3", "xxhash64", "abs",
+                                  "sqrt", "exp", "sin", "cbrt", "pow"])
+def test_scalar_functions_on_the_card_equal_the_cpu(dev, name):
+    """The device functions on the card against the CPU, over
+    chip_smoke.py's fused-chain planes: exact, except the transcendental
+    functions (CUDA's and the CPU's libm), at most 2 ulp apart."""
+    from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
+    from blaze_tpu_torch.exprs.compiler import ExprEvaluator
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    C, L = E.Column, E.Literal
+    schema = fused_schema(T)
+    exprs = {
+        "year": [E.ScalarFunction("year", [E.Cast(C("i"), T.DATE)]),
+                 E.ScalarFunction("quarter", [E.Cast(C("l"), T.TIMESTAMP)])],
+        "round": [E.ScalarFunction("round", [C("d"), L(2, T.I32)]),
+                  E.ScalarFunction("round", [C("m"), L(1, T.I32)]),
+                  E.ScalarFunction("round", [C("l"), L(-3, T.I32)])],
+        "greatest": [E.ScalarFunction("greatest", [C("d"), C("e")]),
+                     E.ScalarFunction("least", [C("f"), C("g")])],
+        "murmur3": [E.ScalarFunction("murmur3_hash", [C("i"), C("l"), C("d"), C("m"), C("b")])],
+        "xxhash64": [E.ScalarFunction("xxhash64", [C("i"), C("l"), C("f"), C("d"), C("m"),
+                                                   C("b")])],
+        "abs": [E.ScalarFunction("abs", [C(x)]) for x in "ilfdm"],
+        "sqrt": [E.ScalarFunction("sqrt", [C("d")]), E.ScalarFunction("sqrt", [C("m")])],
+        "exp": [E.ScalarFunction("exp", [C("e")]), E.ScalarFunction("ln", [C("d")])],
+        "sin": [E.ScalarFunction(fn, [C("d")]) for fn in ("sin", "cos", "tan", "atan")],
+        "cbrt": [E.ScalarFunction("cbrt", [C("d")])],
+        "pow": [E.ScalarFunction("pow", [C("e"), C("e")]),
+                E.ScalarFunction("atan2", [C("d"), C("e")])],
+    }[name]
+    ulps = 2 if name in ("sqrt", "exp", "sin", "cbrt", "pow") else 0
+    datas, valids = fused_planes(4096, 4000, np.random.default_rng(len(name)),
+                                 subnormals=False)
+    outs = {}
+    for d in ("cpu", dev):
+        cols = [DeviceColumn(f.dtype, torch.from_numpy(x).to(d), torch.from_numpy(v).to(d))
+                for f, x, v in zip(schema.fields, datas, valids)]
+        batch = ColumnarBatch(schema, cols, 4000)
+        outs[str(d)] = [(c.data.cpu(), c.validity.cpu())
+                        for c in ExprEvaluator(exprs, schema).evaluate(batch)]
+    for (gd, gv), (wd, wv) in zip(outs[str(dev)], outs["cpu"]):
+        assert torch.equal(gv, wv)
+        gd, wd = gd[wv], wd[wv]
+        if not gd.is_floating_point():
+            assert torch.equal(gd, wd)
+            continue
+        bits = {4: torch.int32, 8: torch.int64}[gd.element_size()]
+        gb, wb = gd.view(bits).to(torch.int64), wd.view(bits).to(torch.int64)
+        nan = torch.isnan(gd) & torch.isnan(wd)
+        near = (torch.signbit(gd) == torch.signbit(wd)) & ((gb - wb).abs() <= ulps)
+        assert bool((nan | (gb == wb) | near).all()), name

@@ -333,6 +333,20 @@ def _fma_shaped(expr) -> bool:
 FMA_CASES = ("floats", "fma shapes")
 
 
+def _casts_decimal_to_float(expr, schema) -> bool:
+    """Does the expression cast a decimal to a float? The JAX package
+    divides the unscaled value by 10^scale, which XLA on the CPU turns into
+    a multiply by the reciprocal under jit (0.35 as decimal(9,2) becomes
+    0.35000000000000003) and not eagerly; the port divides, as the eager
+    path and Spark do (ROADMAP.md Queue 3), so those columns are held
+    against the eager closure only."""
+    if isinstance(expr, (JE.Cast, JE.TryCast)) and \
+            isinstance(expr.dtype, (JT.Float32Type, JT.Float64Type)) and \
+            isinstance(JE.infer_type(expr.child, schema), JT.DecimalType):
+        return True
+    return any(_casts_decimal_to_float(c, schema) for c in expr.children())
+
+
 def _run_closure(fn, datas, valids, n):
     return fn(tuple(jnp.asarray(x) for x in datas), tuple(jnp.asarray(x) for x in valids),
               jnp.int64(n))
@@ -349,7 +363,8 @@ def test_fused_chain_plain_matches_jax(case):
     closure = build_fused_closure(schema, steps)
     jitted = jax.jit(closure)
     skip_jit = {k for k, e in enumerate(steps[0][1])
-                if case in FMA_CASES and _fma_shaped(e)}
+                if (case in FMA_CASES and _fma_shaped(e))
+                or (isinstance(e, JE.Expr) and _casts_decimal_to_float(e, schema))}
     rng = np.random.default_rng(sorted(CASES).index(case))
     for cap, n in CPU_CAPS:
         datas, valids = fused_planes(cap, n, rng, subnormals=False)

@@ -103,7 +103,8 @@ def test_every_module_is_listed_in_the_package():
                                                     "blaze_tpu_torch.")}
     for mod in ("config", "utils.device", "utils.cuda_lib", "ir.types", "ir.exprs",
                 "ir.nodes", "ir.carry", "core.batch", "core.kernels",
-                "exprs.decimal", "exprs.compiler", "exprs.spark_hash", "ops.base",
+                "exprs.decimal", "exprs.compiler", "exprs.spark_hash", "exprs.cast",
+                "exprs.functions", "exprs.function_types", "ops.base",
                 "ops.basic", "ops.shuffle.reader", "ops.shuffle.repartitioner",
                 "ops.aggfns", "ops.agg_device", "ops.agg", "ops.sort_keys",
                 "ops.sort", "ops.window", "ops.joins.keymap", "ops.joins.bhj",

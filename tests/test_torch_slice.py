@@ -248,9 +248,9 @@ def test_out_of_slice_plans_raise(variant):
         plan = JN.HashJoin(join.left, join.right.child, join.on, join.join_type)
         conf = Config(smj_fallback_rows_threshold=100)
     elif variant == "join_condition":
-        # a condition whose expression is not ported (Cast)
-        plan = _store_join(JN.JoinType.INNER, JE.BinaryExpr(
-            JE.BinaryOp.EQ, JE.Cast(JE.Column("s_state_id"), JT.I32), JE.Literal(3, JT.I32)))
+        # a condition whose expression is not ported (a cast to a string)
+        plan = _store_join(JN.JoinType.INNER, JE.StringStartsWith(
+            JE.Cast(JE.Column("s_state_id"), JT.STRING), "3"))
     port = blaze_tpu_torch.Session(conf=conf, device="cpu")
     port.resources["store_returns"] = lambda p: _numpy_batches(parts[p])
     port.resources["stores"] = lambda p: [

@@ -532,7 +532,8 @@ def _q89_filter_case(a, s):
 
 
 def _q89_filter_or(a, s):
-    """q89's filter as chip_smoke.py's q89_plan writes it."""
+    """q89's filter as chip_smoke.py's q89_plan wrote it before the port
+    evaluated CASE: (sum - avg) / avg > 0.1 OR (avg - sum) / avg > 0.1."""
     def over(x, y):
         return JE.BinaryExpr(B.GT, JE.BinaryExpr(B.DIV, JE.BinaryExpr(B.SUB, x, y), a),
                              JE.Literal(0.1, JT.F64))
@@ -543,9 +544,9 @@ def _q89_filter_or(a, s):
 def test_q89_matches_jax_and_numpy(tmp_path, monkeypatch):
     """chip_smoke.py's q89 plan and data at 200,000 store_sales rows and
     2,000 items: three broadcast joins, the six-key two-stage SUM, the
-    window AVG over four partition keys (through K13's entry point), the
-    rewritten filter and the top 100; equal to the reference, order
-    included, and to the numpy oracle, the window's every row too."""
+    window AVG over four partition keys (through K13's entry point),
+    Spark's CASE ... abs filter and the top 100; equal to the reference,
+    order included, and to the numpy oracle, the window's every row too."""
     from blaze_tpu_torch.ops import window as W
     from chip_smoke import q89_host, q89_oracle, q89_plan, q89_schemas, q89_window_check
 
@@ -575,19 +576,22 @@ def test_q89_matches_jax_and_numpy(tmp_path, monkeypatch):
 
 
 def test_q89_filter_rewrite_keeps_the_reference_rows(tmp_path):
-    """The reference gives the same rows under Spark's CASE ... abs form
-    and under q89's (sum - avg) / avg > 0.1 OR (avg - sum) / avg > 0.1,
-    zero averages included (both NULL, so the row drops)."""
+    """The reference gives the same rows under the plan's filter (Spark's
+    CASE ... abs form, as chip_smoke.py's q89_plan carries it) and under
+    the rewrite (sum - avg) / avg > 0.1 OR (avg - sum) / avg > 0.1 that
+    the plan carried before, zero averages included (both NULL, so the
+    row drops)."""
     from chip_smoke import q89_host, q89_plan, q89_schemas
 
     host = q89_host(Q89_SMALL)
     schemas = q89_schemas(JT)
     plan = q89_plan(schemas, JE, JN, JT, parts=4)
     kept = plan.child.child
-    spark = JN.Filter(kept.child, [_q89_filter_case(C("avg_monthly_sales"), C("sum_sales"))])
-    spark_plan = JN.Sort(JN.ShuffleExchange(spark, JN.SinglePartitioning(1)),
-                         plan.sort_orders, fetch_limit=None)
-    ours_plan = JN.Sort(plan.child, plan.sort_orders, fetch_limit=None)
+    assert isinstance(kept.predicates[0].left, JE.Case)
+    rewrite = JN.Filter(kept.child, [_q89_filter_or(C("avg_monthly_sales"), C("sum_sales"))])
+    spark_plan = JN.Sort(plan.child, plan.sort_orders, fetch_limit=None)
+    ours_plan = JN.Sort(JN.ShuffleExchange(rewrite, JN.SinglePartitioning(1)),
+                        plan.sort_orders, fetch_limit=None)
     parts = _q89_parts(host, schemas, 4, 8192)
     outs = []
     for p in (spark_plan, ours_plan):
