@@ -22,7 +22,11 @@ num_rows``.
 
 Var-width and nested columns (host-resident in the JAX package) are not
 ported yet: building a batch with one raises NotImplementedError
-(ROADMAP.md Queue 1 item 6b).
+(ROADMAP.md Queue 1 item 6b). The one exception is ``BytesColumn``, the
+smallest host column a BINARY result needs (the bloom_filter aggregate's
+serialized filter): Python ``bytes`` a row on the host, read by
+``to_numpy``/``to_pydict`` and by nothing else; every plane mover refuses
+it (``column_planes``), as do expressions and exchanges.
 """
 
 from __future__ import annotations
@@ -154,7 +158,42 @@ class WideColumn:
         return out
 
 
-Column = Union["DeviceColumn", WideColumn]
+@dataclasses.dataclass
+class BytesColumn:
+    """A BINARY column on the host: one Python ``bytes`` (None where null)
+    a row and a numpy validity, both of ``capacity`` rows (padding rows
+    None and invalid). It has no device planes; it is not the string
+    plane (ROADMAP.md Queue 1 item 6b)."""
+
+    dtype: T.DataType
+    values: List[Optional[bytes]]
+    validity: np.ndarray
+
+    @property
+    def capacity(self) -> int:
+        return len(self.values)
+
+    def nbytes(self) -> int:
+        return sum(len(v) for v in self.values if v is not None) + self.capacity
+
+    @staticmethod
+    def from_values(dt: T.DataType, values: List[Optional[bytes]],
+                    capacity: int) -> "BytesColumn":
+        vals = list(values) + [None] * (capacity - len(values))
+        return BytesColumn(dt, vals, np.array([v is not None for v in vals], dtype=bool))
+
+    def slice(self, offset: int, length: int, capacity: int) -> "BytesColumn":
+        return BytesColumn.from_values(self.dtype, self.values[offset:offset + length],
+                                       capacity)
+
+
+def host_column_error(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} of a BINARY host column (no device planes: the string and "
+        "binary plane is ROADMAP.md Queue 1 item 6b)")
+
+
+Column = Union["DeviceColumn", WideColumn, BytesColumn]
 
 
 def plane_count(dt: T.DataType) -> int:
@@ -166,6 +205,8 @@ def column_planes(columns) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     a column, three for a wide column, each beside the column's validity."""
     datas, valids = [], []
     for c in columns:
+        if isinstance(c, BytesColumn):
+            raise host_column_error("moving the planes")
         if isinstance(c, WideColumn):
             datas += c.planes()
             valids += [c.validity] * 3
@@ -293,8 +334,10 @@ class ColumnarBatch:
 
     @property
     def device(self) -> torch.device:
-        return self.columns[0].validity.device if self.columns \
-            else torch.device("cpu")
+        for c in self.columns:
+            if not isinstance(c, BytesColumn):
+                return c.validity.device
+        return torch.device("cpu")
 
     def nbytes(self) -> int:
         return sum(c.nbytes() for c in self.columns)
@@ -303,7 +346,8 @@ class ColumnarBatch:
         """Bytes of the live rows' planes (data + one validity byte per row
         per column): the size the JAX package's shuffle staging books for
         the same rows, which its AQE reducer coalescing sizes on."""
-        return sum(self.num_rows * ((16 if isinstance(c, WideColumn)
+        return sum(c.nbytes() if isinstance(c, BytesColumn) else
+                   self.num_rows * ((16 if isinstance(c, WideColumn)
                                      else c.data.element_size()) + 1)
                    for c in self.columns)
 
@@ -385,17 +429,25 @@ class ColumnarBatch:
 
     def to_numpy(self) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
         """``{name: (data, validity)}`` numpy planes of the live rows; a
-        wide column's data is its ``(n, 2)`` ``(lo_raw, hi)`` words."""
+        wide column's data is its ``(n, 2)`` ``(lo_raw, hi)`` words, a
+        BINARY host column's an object array of ``bytes``."""
         n = self.num_rows
-        return {f.name: (c.words(n) if isinstance(c, WideColumn)
-                         else c.data[:n].cpu().numpy(), c.validity[:n].cpu().numpy())
-                for f, c in zip(self.schema.fields, self.columns)}
+        out = {}
+        for f, c in zip(self.schema.fields, self.columns):
+            if isinstance(c, BytesColumn):
+                data = np.empty(n, dtype=object)
+                data[:] = c.values[:n]
+                out[f.name] = (data, c.validity[:n].copy())
+            else:
+                out[f.name] = (c.words(n) if isinstance(c, WideColumn)
+                               else c.data[:n].cpu().numpy(), c.validity[:n].cpu().numpy())
+        return out
 
     def to_pydict(self) -> Dict[str, list]:
         """Python values per column, in the shape the JAX package's
         ``to_pydict`` returns them: ints, floats, bools, ``decimal.Decimal``
         for decimals, ``datetime.date`` / ``datetime.datetime`` for dates
-        and timestamps, ``None`` for nulls."""
+        and timestamps, ``bytes`` for binary, ``None`` for nulls."""
         out = {}
         for f, (data, valid) in zip(self.schema.fields, self.to_numpy().values()):
             if T.is_wide_decimal(f.dtype):

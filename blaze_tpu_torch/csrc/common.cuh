@@ -1,7 +1,8 @@
 // Shared pieces of the port's hand-written Hopper kernels: the plain C
 // export macro, launch geometry, the column table of the row hashes
-// (murmur3.cu, xxhash64.cu), the key kinds and integer load of the key
-// passes (sort.cu, range_part.cu), the block-level stable rank that the
+// (murmur3.cu, xxhash64.cu), the murmur3 rounds (murmur3.cu, bloom.cu),
+// the key kinds and integer load of the key passes (sort.cu,
+// range_part.cu), the block-level stable rank that the
 // compaction kernels (compact.cu, slot_agg.cu) are built on, and the emit
 // arithmetic of the aggregate kernels (slot_agg.cu, seg_agg.cu).
 //
@@ -46,6 +47,34 @@ static inline KeySet blz_key_set(int k, const void* const* datas,
     ks.wide[c] = wide[c];
   }
   return ks;
+}
+
+// Murmur3_x86_32's rounds, as Spark's Murmur3_x86_32 takes them: the
+// row hash K2 (murmur3.cu) and the bloom probe K16's hashLong (bloom.cu).
+__device__ __forceinline__ uint32_t blz_rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+__device__ __forceinline__ uint32_t blz_mix_k1(uint32_t k1) {
+  k1 *= 0xcc9e2d51u;
+  k1 = blz_rotl32(k1, 15);
+  return k1 * 0x1b873593u;
+}
+
+__device__ __forceinline__ uint32_t blz_mix_h1(uint32_t h1, uint32_t k1) {
+  h1 ^= k1;
+  h1 = blz_rotl32(h1, 13);
+  return h1 * 5u + 0xe6546b64u;
+}
+
+__device__ __forceinline__ uint32_t blz_fmix(uint32_t h1, uint32_t len) {
+  h1 ^= len;
+  h1 ^= h1 >> 16;
+  h1 *= 0x85ebca6bu;
+  h1 ^= h1 >> 13;
+  h1 *= 0xc2b2ae35u;
+  h1 ^= h1 >> 16;
+  return h1;
 }
 
 // The key kinds of the sort and range-partition key passes (sort.cu,

@@ -13,34 +13,10 @@
 // validity byte per key column and writes one int32 (plus the hash when
 // asked); the ~20 integer operations per word are far below the card's
 // integer rate. One thread per row, the column table passed by value,
-// coalesced loads; nothing else is needed at this intensity.
+// coalesced loads; nothing else is needed at this intensity. The murmur3
+// rounds (blz_mix_k1, blz_mix_h1, blz_fmix) are common.cuh's, shared with
+// K16's hashLong (bloom.cu).
 #include "common.cuh"
-
-__device__ __forceinline__ uint32_t blz_rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ uint32_t blz_mix_k1(uint32_t k1) {
-  k1 *= 0xcc9e2d51u;
-  k1 = blz_rotl32(k1, 15);
-  return k1 * 0x1b873593u;
-}
-
-__device__ __forceinline__ uint32_t blz_mix_h1(uint32_t h1, uint32_t k1) {
-  h1 ^= k1;
-  h1 = blz_rotl32(h1, 13);
-  return h1 * 5u + 0xe6546b64u;
-}
-
-__device__ __forceinline__ uint32_t blz_fmix(uint32_t h1, uint32_t len) {
-  h1 ^= len;
-  h1 ^= h1 >> 16;
-  h1 *= 0x85ebca6bu;
-  h1 ^= h1 >> 13;
-  h1 *= 0xc2b2ae35u;
-  h1 ^= h1 >> 16;
-  return h1;
-}
 
 __global__ void blz_murmur3_pmod_kernel(KeySet ks, int64_t n, uint32_t seed,
                                         int32_t nparts, int32_t* hash_out,

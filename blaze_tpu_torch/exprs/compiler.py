@@ -12,13 +12,16 @@ their type), comparison/arithmetic/bitwise/logical BinaryExpr, IsNull,
 IsNotNull, Not, InList, Case (the device branch of the JAX package's
 ``_eval_Case``), Cast and TryCast (``exprs/cast.py cast_dev``) and
 ScalarFunction (the device functions of ``exprs/functions.py``, XXH64
-through K15). A bare reference to a
-decimal(19..38) column evaluates to its three limb planes (a ``DevVal``
-whose data is the ``(l0, l1, l2)`` tuple), which only aggregates and the
-plane movers read; any other expression over such a column raises
-(ROADMAP.md Queue 1 item 18). Strings, nested values, UDFs and casts from
-or to them raise NotImplementedError naming item 6b, the bloom probe
-item 7; there is no host fallback.
+through K15), ScalarSubquery (a device-typed value, as a literal) and
+BloomFilterMightContain (the runtime filter's probe: the filter is a
+BINARY literal or scalar subquery read on the host, deserialized and
+uploaded once per evaluator; the probe is K16, ``ops/bloom.py``). A bare
+reference to a decimal(19..38) column evaluates to its three limb planes
+(a ``DevVal`` whose data is the ``(l0, l1, l2)`` tuple), which only
+aggregates and the plane movers read; any other expression over such a
+column raises (ROADMAP.md Queue 1 item 18). Strings, binary columns,
+nested values, UDFs and casts from or to them raise NotImplementedError
+naming item 6b; there is no host fallback.
 
 Whole-stage fusion reads this module too: ``fusable_expr`` is the JAX
 package's whitelist of expressions a fused chain may hold,
@@ -32,11 +35,12 @@ from __future__ import annotations
 
 import dataclasses
 from decimal import Decimal
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn, WideColumn
+from blaze_tpu_torch.core.batch import (BytesColumn, ColumnarBatch, DeviceColumn, WideColumn,
+                                        host_column_error)
 from blaze_tpu_torch.exprs import decimal as dec
 from blaze_tpu_torch.exprs.cast import cast_dev, decimal_to_f64, host_cast_error
 from blaze_tpu_torch.ir import exprs as E
@@ -85,6 +89,9 @@ class ExprEvaluator:
                 raise NotImplementedError(
                     f"expression {type(e).__name__} over a decimal wider than 18 digits "
                     "is not ported to the PyTorch package yet (ROADMAP.md Queue 1 item 18)")
+        # each bloom probe's filter, deserialized and on the device once:
+        # id(expr) -> (expr, filter)
+        self._blooms: Dict[int, Tuple[E.Expr, Any]] = {}
 
     # -- public API -----------------------------------------------------------
 
@@ -125,11 +132,16 @@ class ExprEvaluator:
     def _eval_BoundReference(self, expr: E.BoundReference,
                              batch: ColumnarBatch) -> DevVal:
         col = batch.columns[expr.index]
+        if isinstance(col, BytesColumn):
+            raise host_column_error("an expression")
         if isinstance(col, WideColumn):
             return DevVal(col.dtype, tuple(col.planes()), col.validity)
         return DevVal(batch.schema[expr.index].dtype, col.data, col.validity)
 
     def _eval_Literal(self, expr: E.Literal, batch: ColumnarBatch) -> DevVal:
+        return make_literal(expr.value, expr.dtype, batch.device)
+
+    def _eval_ScalarSubquery(self, expr: E.ScalarSubquery, batch) -> DevVal:
         return make_literal(expr.value, expr.dtype, batch.device)
 
     def _eval_SortOrder(self, expr: E.SortOrder, batch) -> DevVal:
@@ -367,6 +379,34 @@ class ExprEvaluator:
         args = [self.eval(a, batch) for a in expr.args]
         return dispatch_function(expr.name, args, self, batch)
 
+    # -- the runtime filter's probe ----------------------------------------------
+
+    def _eval_BloomFilterMightContain(self, expr: E.BloomFilterMightContain,
+                                      batch) -> DevVal:
+        """``might_contain(filter, value)`` (blaze_tpu/exprs/compiler.py:823):
+        a null filter gives a null BOOL; otherwise the value as int64 is
+        probed (K16 on the card) and keeps its validity. The reference
+        deserializes the filter on every batch; here it is deserialized and
+        uploaded once per evaluator, which changes no answer."""
+        from blaze_tpu_torch.ops.bloom import SparkBloomFilter
+
+        arg = expr.bloom_filter
+        if not isinstance(arg, (E.Literal, E.ScalarSubquery)) or \
+                not isinstance(arg.dtype, T.BinaryType):
+            raise NotImplementedError(
+                f"a bloom filter given as {type(arg).__name__} (a BINARY column read on "
+                "the host in the JAX package) is not ported to the PyTorch package yet; "
+                "a BINARY Literal or ScalarSubquery is (ROADMAP.md Queue 1 item 6b)")
+        if arg.value is None:
+            return make_literal(None, T.BOOL, batch.device)
+        cached = self._blooms.get(id(expr))
+        if cached is None or cached[0] is not expr:
+            cached = (expr, SparkBloomFilter.deserialize(bytes(arg.value)))
+            self._blooms[id(expr)] = cached
+        data, validity = broadcast(self.eval(expr.value, batch), batch)
+        hit = cached[1].might_contain_long(data.to(torch.int64).contiguous())
+        return DevVal(T.BOOL, hit, validity)
+
 
 def _hashes_wide(expr: E.Expr, schema: T.Schema) -> bool:
     """Does the expression hash a decimal(19..38) column (an argument of
@@ -379,10 +419,9 @@ def _hashes_wide(expr: E.Expr, schema: T.Schema) -> bool:
 
 
 def not_ported(expr: E.Expr) -> NotImplementedError:
-    item = "7" if isinstance(expr, E.BloomFilterMightContain) else "6b"
     return NotImplementedError(
         f"expression {type(expr).__name__} is not ported to the PyTorch package "
-        f"yet (ROADMAP.md Queue 1 item {item})")
+        "yet (ROADMAP.md Queue 1 item 6b)")
 
 
 def _ones(batch: ColumnarBatch) -> torch.Tensor:

@@ -91,6 +91,15 @@ def _fmix(h1, length: int):
     return h1 ^ (h1 >> 16)
 
 
+def murmur3_int64(values: torch.Tensor, seeds) -> torch.Tensor:
+    """Spark's hashLong (Murmur3_x86_32 of the 8 little-endian bytes: the
+    low word, then the high word, then ``fmix(h, 8)``) of int64 ``values``
+    under per-row (or one) uint32 ``seeds``: uint32 values in int64 lanes."""
+    v = values.to(torch.int64)
+    h = _mix_h1(seeds, _mix_k1(v & _M32))
+    return _fmix(_mix_h1(h, _mix_k1((v >> 32) & _M32)), 8)
+
+
 def _hash_plain(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
                 kinds: Sequence[str], n: int, device) -> torch.Tensor:
     h = torch.full((n,), SEED, dtype=torch.int64, device=device)

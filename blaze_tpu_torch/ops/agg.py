@@ -14,7 +14,12 @@ reference does (``:164-400``):
   staged input passes ``device_merge_max_bytes``: then the staged batches
   and the rest of the stream go to the host table;
 - everything else (no grouping keys, COMPLETE mode, FIRST, a grouping
-  without aggregates): the host table, ``AggTable``.
+  without aggregates): the host table, ``AggTable``. It also takes the
+  bloom_filter aggregate (a host aggregate, ``aggfns.BloomFilterAgg``),
+  in COMPLETE mode without grouping keys only: its PARTIAL and FINAL
+  states are BINARY host columns that would cross an exchange (item 6b),
+  and the reference gives every group of a keyed one the filter of all
+  rows (ROADMAP.md, "does not mirror, on purpose").
 
 ``AggTable`` interns the group keys on the host (one pull of the key
 planes a batch, ``np.unique`` over the packed (value, validity) words,
@@ -41,8 +46,8 @@ import numpy as np
 import torch
 
 from blaze_tpu_torch.core import kernels as K
-from blaze_tpu_torch.core.batch import (ColumnarBatch, DeviceColumn, column_planes,
-                                        columns_from_planes, iota)
+from blaze_tpu_torch.core.batch import (BytesColumn, ColumnarBatch, DeviceColumn,
+                                        column_planes, columns_from_planes, iota)
 from blaze_tpu_torch.exprs.compiler import ExprEvaluator, broadcast, require_narrow_key
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
@@ -79,6 +84,17 @@ class AggExec(Operator):
                                    self.input_is_partial, self.is_partial_output)
         for f in schema.fields[:len(groupings)]:
             require_narrow_key(f.dtype, "grouping key")
+        for a in aggs:
+            if a.agg.fn != E.AggFunction.BLOOM_FILTER:
+                continue
+            if a.mode != E.AggMode.COMPLETE:
+                _not_ported(f"the bloom_filter aggregate in {a.mode.name} mode (its "
+                            "BINARY state, a host column, would cross an exchange)",
+                            "Queue 1 item 6b")
+            if groupings:
+                _not_ported("a bloom_filter aggregate with grouping keys (the JAX "
+                            "package gives every group the filter of all rows)",
+                            "Queue 3, does not mirror, on purpose")
         super().__init__(schema, [child])
 
     @property
@@ -309,9 +325,6 @@ class AggTable:
             return
         slots_np = self._intern_keys(batch)
         cap = batch.capacity
-        slots = torch.full((cap,), self.capacity, dtype=torch.int64)
-        slots[:n] = torch.from_numpy(slots_np)
-        slots = slots.to(self.device)
         mask = batch.row_exists_mask()
         ops = []
         for i, fn in enumerate(self.fns):
@@ -324,9 +337,16 @@ class AggTable:
                 ops += fn.update_ops(self.states[i], None, None)
                 continue
             data, validity = broadcast(ev.eval(a.agg.args[0], batch), batch)
+            if fn.host:
+                fn.update_host(self.states[i], data, validity & mask, n)
+                continue
             order = iota(cap, self.device) + self.row_order \
                 if isinstance(fn, aggfns.FirstAgg) else None
             ops += fn.update_ops(self.states[i], data, validity, order)
+        if ops:
+            slots = torch.full((cap,), self.capacity, dtype=torch.int64)
+            slots[:n] = torch.from_numpy(slots_np)
+            slots = slots.to(self.device)
         for at in range(0, len(ops), K._MAX_UPD_OPS):
             pack = self._packs.setdefault(at, K.SlotUpdatePack())
             K.slot_update(slots, mask, ops[at:at + K._MAX_UPD_OPS], pack)
@@ -369,12 +389,17 @@ class AggTable:
     def _assemble(self, keys: Optional[np.ndarray], agg_cols: List[DeviceColumn],
                   off: int, length: int) -> ColumnarBatch:
         """Slots [off, off + length) as one batch (``_assemble`` :1191): key
-        columns from the host, the state columns' rows by K7's slice."""
+        columns from the host, the state columns' rows by K7's slice (a
+        host aggregate's BINARY column sliced on the host)."""
         cap = self.ctx.conf.capacity_for(length)
         cols = [] if keys is None else self._key_columns(keys[off:off + length], cap)
-        if agg_cols:
-            datas, valids = K.slice_planes(*column_planes(agg_cols), off, length, cap)
-            cols += columns_from_planes([c.dtype for c in agg_cols], datas, valids)
+        dev_cols = [c for c in agg_cols if not isinstance(c, BytesColumn)]
+        sliced = iter(())
+        if dev_cols:
+            datas, valids = K.slice_planes(*column_planes(dev_cols), off, length, cap)
+            sliced = iter(columns_from_planes([c.dtype for c in dev_cols], datas, valids))
+        cols += [c.slice(off, length, cap) if isinstance(c, BytesColumn) else next(sliced)
+                 for c in agg_cols]
         return ColumnarBatch(self.op.schema, cols, length)
 
     def _global_empty_row(self) -> ColumnarBatch:

@@ -32,10 +32,18 @@ partial state's field names, never deriving it again. A limb state's
 final value comes to the host in one pull, is combined into exact Python
 ints (AVG divides HALF_UP into its result scale), nulled past the result
 precision (Spark's check_overflow), and goes back to the device as a
-wide (or, for a narrow AVG result, one-plane) decimal column. A decimal
-SUM whose scale changes (the reference's host object sum), MIN/MAX of
-bools and strings, and the host-object aggregates (collect,
-combine-unique, bloom filter, UDAF) raise NotImplementedError naming the
+wide (or, for a narrow AVG result, one-plane) decimal column.
+
+``BloomFilterAgg`` (``bloom_filter``, the runtime filter's build) is a
+host aggregate: its state is one ``SparkBloomFilter`` on the host, each
+batch's argument plane and validity come to the host in one pull and go
+to ``put_longs``, and its final value is one row of a BINARY host column
+(``BytesColumn``) holding the serialized filter. The host table takes it
+in COMPLETE mode without grouping keys (``ops/agg.py``).
+
+A decimal SUM whose scale changes (the reference's host object sum),
+MIN/MAX of bools and strings, and the other host-object aggregates
+(collect, combine-unique, UDAF) raise NotImplementedError naming the
 ROADMAP item that ports them.
 """
 
@@ -48,7 +56,7 @@ import numpy as np
 import torch
 
 from blaze_tpu_torch.core import kernels as K
-from blaze_tpu_torch.core.batch import DeviceColumn, WideColumn, wide_ints
+from blaze_tpu_torch.core.batch import BytesColumn, DeviceColumn, WideColumn, wide_ints
 from blaze_tpu_torch.exprs import decimal as dec
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
@@ -152,6 +160,7 @@ class AggFunction:
 
     kind = ""
     limbs = False
+    host = False  # a host aggregate (update_host), not K12 ops
 
     def __init__(self, agg: E.AggExpr, arg_type: T.DataType,
                  result_type: T.DataType):
@@ -549,6 +558,45 @@ class FirstAgg(AggFunction):
         return self.state_columns(state, num_slots, capacity)[0]
 
 
+class BloomFilterAgg(AggFunction):
+    """bloom_filter over int64 values (blaze_tpu/ops/aggfns.py:1024, with
+    Spark's defaults of 1,000,000 expected items and 8,388,608 bits): a
+    host aggregate. An empty input gives the empty filter, as the
+    reference does (Spark gives null)."""
+
+    kind = "bloom_filter"
+    host = True
+
+    def __init__(self, agg, arg_type, result_type):
+        from blaze_tpu_torch.ops.bloom import DEFAULT_EXPECTED_ITEMS, DEFAULT_NUM_BITS
+
+        super().__init__(agg, arg_type, T.BINARY)
+        self.expected_items = DEFAULT_EXPECTED_ITEMS
+        self.num_bits = DEFAULT_NUM_BITS
+
+    def state_fields(self):
+        return [("bloom", T.BINARY)]
+
+    def init_state(self, capacity, device):
+        from blaze_tpu_torch.ops.bloom import SparkBloomFilter
+
+        return [SparkBloomFilter.create(self.expected_items, self.num_bits)]
+
+    def grow(self, state, capacity):
+        return state
+
+    def update_host(self, state, value: torch.Tensor, keep: torch.Tensor, n: int) -> None:
+        """Put the first ``n`` rows' values where ``keep`` (valid and live):
+        one pull of the value plane and the mask."""
+        pulled = torch.stack([value[:n].to(torch.int64), keep[:n].to(torch.int64)]).cpu()
+        vals, m = pulled.numpy()
+        state[0].put_longs(vals[m != 0])
+
+    def final_column(self, state, num_slots, capacity):
+        return BytesColumn.from_values(T.BINARY, [state[0].serialize()] * num_slots,
+                                       capacity)
+
+
 def create_agg_function(agg: E.AggExpr, input_schema: T.Schema,
                         limbs=None) -> AggFunction:
     """``limbs``: the limb layout read from a partial state's field names
@@ -571,6 +619,6 @@ def create_agg_function(agg: E.AggExpr, input_schema: T.Schema,
     if agg.fn == F.FIRST_IGNORES_NULL:
         return FirstAgg(agg, arg_t, result_t, ignores_null=True)
     if agg.fn == F.BLOOM_FILTER:
-        _not_ported("the bloom_filter aggregate", "Queue 1 item 7")
+        return BloomFilterAgg(agg, arg_t, result_t)
     _not_ported(f"aggregate function {agg.fn.value} (host-object states: "
                 "collect, combine-unique, UDAF)", "Queue 1 item 3")

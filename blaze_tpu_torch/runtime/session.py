@@ -35,7 +35,7 @@ from typing import Dict, Iterator, List, Optional
 import torch
 
 from blaze_tpu_torch.config import Config
-from blaze_tpu_torch.core.batch import ColumnarBatch
+from blaze_tpu_torch.core.batch import ColumnarBatch, host_column_error
 from blaze_tpu_torch.exprs.compiler import ExprEvaluator
 from blaze_tpu_torch.ir import nodes as N
 from blaze_tpu_torch.ir import types as T
@@ -137,10 +137,12 @@ class Session:
         """The child's batches collected in partition order and read whole
         by every task (the device tier's counterpart of
         blaze_tpu/runtime/session.py:_run_broadcast_collect)."""
+        _require_device_planes(node.child.output_schema)
         return N.BatchSource(node.child.output_schema, self._collect(node.child), 1)
 
     def _run_exchange(self, node: N.ShuffleExchange) -> N.PlanNode:
         schema = node.child.output_schema
+        _require_device_planes(schema)
         part = node.partitioning
         if isinstance(part, N.RangePartitioning) and not part.bounds and \
                 part.num_partitions > 1:
@@ -264,3 +266,11 @@ def _child_zip_ok(node: N.PlanNode, own_zip_ok: bool) -> bool:
     if isinstance(node, (N.SortMergeJoin, N.HashJoin, N.Union)):
         return False
     return own_zip_ok
+
+
+def _require_device_planes(schema: T.Schema) -> None:
+    """The device tier moves device planes only: a BINARY host column (the
+    bloom_filter aggregate's result) cannot cross an exchange."""
+    for f in schema.fields:
+        if isinstance(f.dtype, T.BinaryType):
+            raise host_column_error(f"an exchange of column {f.name!r}")

@@ -13,10 +13,11 @@ through the kernels (``reset_launch_counts`` / ``launch_counts``); K11,
 the generated Triton kernel of a fused chain (exprs/fused_triton.py),
 counts under ``fused_chain``; K13, the window aggregates' segmented scan,
 under ``segment_scan``; K14, the range exchange's partition ids, under
-``range_partition``; K15, the xxhash64 row hash, under ``xxhash64``. Beside them ``LIMB_LAUNCHES`` counts, per kernel,
-the launches that carried each wide-decimal (limb) op: the aggregate
-kinds sum2/avg2/sum3/avg3/minw/maxw of K3, K4 and K10, and K12's limb
-update ops (``limb_launch_counts``).
+``range_partition``; K15, the xxhash64 row hash, under ``xxhash64``;
+K16, the bloom filter's probe, under ``bloom_probe``. Beside them
+``LIMB_LAUNCHES`` counts, per kernel, the launches that carried each
+wide-decimal (limb) op: the aggregate kinds sum2/avg2/sum3/avg3/minw/maxw
+of K3, K4 and K10, and K12's limb update ops (``limb_launch_counts``).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu",
            "join.cu", "seg_agg.cu", "slot_update.cu", "seg_scan.cu", "range_part.cu",
-           "xxhash64.cu")
+           "xxhash64.cu", "bloom.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libblaze_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -63,6 +64,7 @@ LAUNCHES: Dict[str, int] = {
     "segment_scan": 0,
     "range_partition": 0,
     "xxhash64": 0,
+    "bloom_probe": 0,
 }
 
 LIMB_LAUNCHES: Dict[str, int] = {}
@@ -256,6 +258,8 @@ _SIGNATURES = {
                                 _I, _I, _P, _P],
     # k, datas, valids, wide, n, cap, seed, out, stream
     "blz_xxhash64": [_I, _PP, _PP, _PI, _I64, _I64, _U64, _P, _P],
+    # values, n, words, k, bit_size, out, stream
+    "blz_bloom_probe": [_P, _I64, _P, _I, _I64, _P, _P],
 }
 
 

@@ -10,7 +10,7 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K15 held against their plain PyTorch versions on the
+3. kernels: K1-K16 held against their plain PyTorch versions on the
    card, exactly (float planes bit for bit), at the main paths' shapes and
    at edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
@@ -63,6 +63,13 @@ only when every phase passed:
    16 and 262,144 with padding rows and none live, each also against a
    numpy XXH64, and Spark's golden longs, timed at hash_sample's batch
    (and every K15 launch of hash_sample's first run held to the twin);
+   for the bloom filter's probe, K16: k = 1, 2, 6 and 8 hash functions,
+   64, 192 (three words: the modulo is not a mask), 8,388,608 and
+   67,108,864 bits, int64 min and max, 0 and -1, combined hashes that go
+   negative, 0% and 15% nulls, padding rows and none live, each also
+   against a numpy probe, timed at a q69_bloom store batch (262,144 rows,
+   the path's 1 MiB filter, k = 6) (and every K16 launch of q69_bloom's
+   first run held to the twin);
    K11's battery also covers CASE and Cast/TryCast; then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
@@ -91,7 +98,16 @@ only when every phase passed:
      by the five demographics TPC-DS names (sort route: K10) -> sort, top
      100) over TPC-DS SF10's row counts (seed 69), with the null filters
      Spark infers on its scans (each a fused stage: K11 + K1), exact in
-     order against set operations in numpy;
+     order against set operations in numpy; then q69_bloom on the same
+     data, with Spark's runtime bloom filter on the store side: the scalar
+     subquery (customer JOIN address -> single exchange ->
+     bloom_filter(xxhash64(c_customer_sk)) on the host table, K15) runs
+     first and its filter is shipped into the store scan's filter,
+     might_contain(filter, xxhash64(ss_customer_sk)) merged with the null
+     checks (unfused: K15 + K16 + K1 a store batch, 112); exact against
+     q69's oracle, the filter byte for byte against a numpy bloom filter,
+     the store side's kept rows against the numpy probe's (1,513,707 of
+     28,800,991), wall = subquery + query;
    - q67_table: q67's plan and data under the default Config, whose 256
      MiB merge budget each reducer's partial states pass, so the FINAL
      merge is the host table's (K12 a state batch); groups leave the table
@@ -144,14 +160,16 @@ only when every phase passed:
      batch (112);
    all through ``Session().execute_to_pydict`` (sort10M: ``execute``) in
    partitions staged on the card; every kernel must have launched over
-   the fifteen runs, every
+   the sixteen runs, every
    limb op over the runs or the battery, the
    unique-key join kernel on each join path, the generic probe on q69,
    K10's three launches on q69 and q67_sort, K11 on every q69 sales
    batch (196) and on the root rank filter of q67, q67_sort and q47,
    K12 on q96 and q67_table, K13 on q89 and q98, K14 on q98, on
-   hash_sample and on sort10M once a map-side bucketize pass, and K15 on
-   every hash_sample sales batch;
+   hash_sample and on sort10M once a map-side bucketize pass, K15 on
+   every hash_sample sales batch, and K16 on every q69_bloom store batch
+   (112), with K11 there q69's count less those 112 plus the subquery's
+   five;
 5. one JSON line per kernel (shape, times, bound, launches per path; the
    limb halves as ``name:limbs``), the limb ops' launch counts, the
    kernels' summary JSON line, the card line, and the device JSON line.
@@ -160,7 +178,8 @@ only when every phase passed:
 share, launch and sync counts, the top kernels); ``--trace=PATH`` also
 writes q01's Chrome trace to PATH and the other paths' beside it
 (``_q67.json``, ``_q67_sort.json``, ``_q67_table.json``, ``_q06.json``,
-``_q47.json``, ``_q69.json``, ``_q96.json``, ``_q89.json``, ``_q17.json``,
+``_q47.json``, ``_q69.json``, ``_q69_bloom.json``, ``_q96.json``,
+``_q89.json``, ``_q17.json``,
 ``_q17_sort.json``, ``_q17_table.json``, ``_q98.json``, ``_sort10m.json``,
 ``_hash_sample.json``).
 
@@ -2963,6 +2982,171 @@ def kernel_k15(dev, rng, results):
         bytes=cap * (2 * (4 + 1) + 8)))
 
 
+# -- K16: the bloom filter's probe -------------------------------------------------
+
+
+def murmur3_long_np(v, seed):
+    """Spark's Murmur3_x86_32 hashLong in numpy (uint32 arithmetic,
+    wrapping): the 8 little-endian bytes of int64 ``v``, low word first,
+    under uint32 ``seed``s. Returns uint32."""
+    import numpy as np
+
+    def rotl(x, r):
+        return (x << _u32(r)) | (x >> _u32(32 - r))
+
+    def mix_k1(k):
+        return rotl(k * _u32(0xcc9e2d51), 15) * _u32(0x1b873593)
+
+    def mix_h1(h, k):
+        return rotl(h ^ k, 13) * _u32(5) + _u32(0xe6546b64)
+
+    u = np.asarray(v).astype(np.int64).view(np.uint64)
+    h = mix_h1(np.asarray(seed).astype(np.uint32),
+               mix_k1((u & np.uint64(0xffffffff)).astype(np.uint32)))
+    h = mix_h1(h, mix_k1((u >> np.uint64(32)).astype(np.uint32)))
+    h = h ^ _u32(8)
+    h = h ^ (h >> _u32(16))
+    h = h * _u32(0x85ebca6b)
+    h = h ^ (h >> _u32(13))
+    h = h * _u32(0xc2b2ae35)
+    return h ^ (h >> _u32(16))
+
+
+def bloom_np_bits(values, k, bit_size):
+    """Spark's bloom bit positions ((n, k) int64) of int64 ``values``:
+    h1 = hashLong(v, 0), h2 = hashLong(v, h1); h1 + i*h2 for i = 1..k in
+    int32 (wrapping), ~ where negative, mod ``bit_size``."""
+    import numpy as np
+
+    h1 = murmur3_long_np(values, np.zeros(len(values), np.uint32))
+    h2 = murmur3_long_np(values, h1)
+    i = np.arange(1, k + 1, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        c = (h1[:, None] + i[None, :] * h2[:, None]).view(np.int32)
+    c = np.where(c < 0, ~c, c)
+    return c.astype(np.int64) % bit_size
+
+
+def bloom_np_create(expected_items=1_000_000, num_bits=8_388_608):
+    """An empty filter as Spark's BloomFilter.create sizes it: (uint64
+    words, k)."""
+    import numpy as np
+
+    num_bits = max(64, num_bits)
+    k = max(1, round(num_bits / max(expected_items, 1) * np.log(2.0)))
+    return np.zeros((num_bits + 63) // 64, np.uint64), k
+
+
+def bloom_np_put(words, k, values):
+    import numpy as np
+
+    if len(values):
+        idx = bloom_np_bits(values, k, len(words) * 64).ravel()
+        np.bitwise_or.at(words, idx >> 6, np.uint64(1) << (idx & 63).astype(np.uint64))
+    return words
+
+
+def bloom_np_probe(words, k, values):
+    """mightContainLong of each value (bool)."""
+    import numpy as np
+
+    if not len(values):
+        return np.zeros(0, bool)
+    idx = bloom_np_bits(values, k, len(words) * 64)
+    return ((words[idx >> 6] >> (idx & 63).astype(np.uint64)) & np.uint64(1)).all(axis=1)
+
+
+def bloom_np_serialize(words, k):
+    """Spark's wire format: big-endian version 1, k, word count, words."""
+    import struct
+
+    return struct.pack(">iii", 1, k, len(words)) + words.astype(">u8").tobytes()
+
+
+BLOOM_CASES = (
+    # label, k, bit size, capacity, live rows, null share, values put
+    ("k=1, 64 bits, padding, 15% null", 1, 64, 4096, 4000, 0.15, 20),
+    ("k=2, 192 bits (3 words), padding", 2, 192, 4096, 4001, 0.0, 10),
+    ("k=8, 192 bits, padding, 15% null", 8, 192, 256, 200, 0.15, 4),
+    ("k=6, 8,388,608 bits, q69's filter, no nulls", 6, 8_388_608, 262144, 262144, 0.0,
+     27_389),
+    ("k=6, 8,388,608 bits, 15% null, padding", 6, 8_388_608, 262144, 250_000, 0.15, 27_389),
+    ("k=8, 67,108,864 bits, 15% null, padding", 8, 67_108_864, 262144, 200_000, 0.15,
+     100_000),
+    ("k=1, 67,108,864 bits", 1, 67_108_864, 4096, 4096, 0.0, 1_000),
+    ("k=6, 8,388,608 bits, no live row", 6, 8_388_608, 16, 0, 0.0, 100),
+)
+BLOOM_SPECIAL = (-(1 << 63), (1 << 63) - 1, 0, -1)
+
+
+def bloom_case(case, rng):
+    """One battery case in numpy: (values (cap,) int64, words uint64, k,
+    bit size). Half the live rows are values put into the filter (hits),
+    the rest random int64 (mostly misses), int64 min and max, 0 and -1
+    mixed in (and put); null and padding rows carry 0, as the padding
+    contract has them, and are probed as any row."""
+    import numpy as np
+
+    _label, k, bits, cap, n, nulls, puts = case
+    put = rng.integers(-(1 << 63), (1 << 63) - 1, puts, dtype=np.int64, endpoint=True)
+    put[:len(BLOOM_SPECIAL)] = BLOOM_SPECIAL
+    vals = rng.integers(-(1 << 63), (1 << 63) - 1, cap, dtype=np.int64, endpoint=True)
+    members = rng.random(cap) < 0.5
+    vals[members] = put[rng.integers(0, puts, int(members.sum()))]
+    pick = rng.random(cap) < 0.05
+    vals[pick] = np.array(BLOOM_SPECIAL)[rng.integers(0, 4, int(pick.sum()))]
+    live = np.arange(cap) < n
+    vals[~(live & (rng.random(cap) >= nulls))] = 0
+    words = np.zeros(bits // 64, np.uint64)
+    bloom_np_put(words, k, put)
+    if n:  # values whose combined hash goes negative (flipped by ~)
+        h1 = murmur3_long_np(vals[:n], np.zeros(n, np.uint32))
+        h2 = murmur3_long_np(vals[:n], h1)
+        with np.errstate(over="ignore"):
+            neg = ((h1 + h2).view(np.int32) < 0).sum()
+        if not neg:
+            raise AssertionError(f"bloom case {case[0]}: no negative combined hash")
+    return vals, words, k, bits
+
+
+def kernel_k16(dev, rng, results):
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.ops import bloom as B
+
+    cases = []
+    for case in BLOOM_CASES:
+        vals, words, k, bits = bloom_case(case, rng)
+        v = torch.from_numpy(vals).to(dev)
+        w = torch.from_numpy(words.view(np.int64)).to(dev)
+        got = B.bloom_probe_cuda(v, w, k, bits)
+        check_equal("bloom_probe", case[0], got, B.might_contain_long_plain(v, w, k, bits))
+        if not np.array_equal(got.cpu().numpy(), bloom_np_probe(words, k, vals)):
+            raise AssertionError(f"bloom_probe [{case[0]}] differs from the numpy probe")
+        cases.append(case[0])
+    # main path: a store_sales batch of q69_bloom, 262,144 rows probed
+    # against the path's 1 MiB filter (k = 6) holding 27,389 keys
+    vals, words, k, bits = bloom_case(BLOOM_CASES[3], rng)
+    v = torch.from_numpy(vals).to(dev)
+    w = torch.from_numpy(words.view(np.int64)).to(dev)
+
+    def k16():
+        return B.bloom_probe_cuda(v, w, k, bits)
+
+    results.append(dict(
+        name="bloom_probe", route="cuda", source="blaze_tpu_torch/csrc/bloom.cu",
+        replaces="blaze_tpu/ops/bloom.py:93",
+        shape="a q69_bloom store_sales batch: 262,144 int64 hashes against an "
+              "8,388,608-bit (1 MiB) filter, k = 6, ~50% members",
+        cases=cases, ms=time_ms(k16), device_ms=kernel_device_ms(k16, "blz_bloom_probe"),
+        plain_ms=time_ms(lambda: B.might_contain_long_plain(v, w, k, bits)),
+        library_ms=None,
+        library_call="none: no single PyTorch call computes Spark's bloom probe",
+        # per row 8 bytes of value read and 1 byte written (K16 never
+        # reads the validity plane); the bitmap read once
+        bytes=262144 * (8 + 1) + words.nbytes))
+
+
 # -- phase 4: the paths on the card ------------------------------------------------
 
 
@@ -3057,27 +3241,7 @@ def spark_pmod_two_longs(a, b, n):
     Murmur3_x86_32 hashLong(a, 42), then hashLong(b, that), pmod n."""
     import numpy as np
 
-    def rotl(x, r):
-        return (x << _u32(r)) | (x >> _u32(32 - r))
-
-    def mix_k1(k):
-        return rotl(k * _u32(0xcc9e2d51), 15) * _u32(0x1b873593)
-
-    def mix_h1(h, k):
-        return rotl(h ^ k, 13) * _u32(5) + _u32(0xe6546b64)
-
-    def hash_long(v, seed):
-        u = v.astype(np.int64).view(np.uint64)
-        h = mix_h1(seed, mix_k1((u & np.uint64(0xffffffff)).astype(np.uint32)))
-        h = mix_h1(h, mix_k1((u >> np.uint64(32)).astype(np.uint32)))
-        h = h ^ _u32(8)
-        h = h ^ (h >> _u32(16))
-        h = h * _u32(0x85ebca6b)
-        h = h ^ (h >> _u32(13))
-        h = h * _u32(0xc2b2ae35)
-        return h ^ (h >> _u32(16))
-
-    h = hash_long(b, hash_long(a, np.full(len(a), 42, np.uint32)))
+    h = murmur3_long_np(b, murmur3_long_np(a, np.full(len(a), 42, np.uint32)))
     return np.mod(h.view(np.int32).astype(np.int64), n)
 
 
@@ -3706,9 +3870,30 @@ def make_q69_data(dev):
     return schemas, staged, host
 
 
-def q69_plan(schemas):
-    """TPC-DS q69 (v3.2.0) as Spark plans it, in 4 partitions, with the
-    null filters Spark's InferFiltersFromConstraints puts on the scans:
+def q69_customers(schemas, E, N, T, states=Q69_STATES, parts=PARTS):
+    """q69's customer side as Spark plans it: customer (isnotnull on both
+    foreign keys) JOIN broadcast customer_address (ca_state IN (...) AND
+    isnotnull(ca_address_sk)), built with the IR modules ``E``, ``N``,
+    ``T`` of either package."""
+    C = E.Column
+
+    def both(a, b):
+        return E.BinaryExpr(E.BinaryOp.AND, a, b)
+
+    address = N.Filter(N.FFIReader(schemas["customer_address"], "customer_address", 1),
+                       [both(E.InList(C("ca_state_id"), [E.Literal(s, T.I64) for s in states]),
+                             E.IsNotNull(C("ca_address_sk")))])
+    customer = N.Filter(N.FFIReader(schemas["customer"], "customer", parts),
+                        [both(E.IsNotNull(C("c_current_addr_sk")),
+                              E.IsNotNull(C("c_current_cdemo_sk")))])
+    return N.BroadcastJoin(customer, N.BroadcastExchange(address),
+                           [(C("c_current_addr_sk"), C("ca_address_sk"))], N.JoinType.INNER,
+                           N.JoinSide.RIGHT, "q69_address")
+
+
+def q69_plan(schemas, E=None, N=None, T=None, states=Q69_STATES, parts=PARTS, bloom=None):
+    """TPC-DS q69 (v3.2.0) as Spark plans it, in ``parts`` partitions, with
+    the null filters Spark's InferFiltersFromConstraints puts on the scans:
     customer (isnotnull on both foreign keys) JOIN broadcast
     customer_address (ca_state IN (...) AND isnotnull(ca_address_sk)) ->
     exchange by c_customer_sk -> LEFT SEMI store window, LEFT ANTI web
@@ -3722,10 +3907,20 @@ def q69_plan(schemas):
     radix_agg_max_slots, so both stages take the sort route, K10) ->
     single exchange -> sort on the five keys, top 100. Each scan filter is
     a fused stage (K11 + K1); the answer is the one without them, since no
-    join matches a null key."""
-    from blaze_tpu_torch.ir import exprs as E
-    from blaze_tpu_torch.ir import nodes as N
-    from blaze_tpu_torch.ir import types as T
+    join matches a null key.
+
+    ``bloom``, a serialized bloom filter of xxhash64(c_customer_sk) (the
+    scalar subquery ``q69_bloom_subquery`` computes), adds Spark's runtime
+    filter on the store side, merged into its scan filter as CombineFilters
+    leaves it: [isnotnull(ss_sold_date_sk) AND isnotnull(ss_customer_sk),
+    might_contain(bloom, xxhash64(ss_customer_sk))]; the probe is not
+    fusable, so that filter runs eagerly (K15, K16, K1). The web and
+    catalog windows are LEFT ANTI, which Spark does not prune. ``E``,
+    ``N``, ``T``: the IR modules (default: this package's)."""
+    if E is None:
+        from blaze_tpu_torch.ir import exprs as E
+        from blaze_tpu_torch.ir import nodes as N
+        from blaze_tpu_torch.ir import types as T
 
     C = E.Column
     J = N.JoinType
@@ -3733,26 +3928,17 @@ def q69_plan(schemas):
     def lit(op, c, v):
         return E.BinaryExpr(op, C(c), E.Literal(v, T.I64))
 
-    def scan(name, parts=PARTS):
-        return N.FFIReader(schemas[name], name, parts)
+    def scan(name, n=parts):
+        return N.FFIReader(schemas[name], name, n)
 
     def by(child, keys):
-        return N.ShuffleExchange(child, N.HashPartitioning([C(k) for k in keys], PARTS))
-
-    def both(a, b):
-        return E.BinaryExpr(E.BinaryOp.AND, a, b)
+        return N.ShuffleExchange(child, N.HashPartitioning([C(k) for k in keys], parts))
 
     def notnull(a, b):
-        return both(E.IsNotNull(C(a)), E.IsNotNull(C(b)))
+        return E.BinaryExpr(E.BinaryOp.AND, E.IsNotNull(C(a)), E.IsNotNull(C(b)))
 
     eq = E.BinaryOp.EQ
-    states = E.InList(C("ca_state_id"), [E.Literal(s, T.I64) for s in Q69_STATES])
-    address = N.Filter(scan("customer_address", 1),
-                       [both(states, E.IsNotNull(C("ca_address_sk")))])
-    customer = N.Filter(scan("customer"), [notnull("c_current_addr_sk", "c_current_cdemo_sk")])
-    cust = N.BroadcastJoin(customer, N.BroadcastExchange(address),
-                           [(C("c_current_addr_sk"), C("ca_address_sk"))], J.INNER,
-                           N.JoinSide.RIGHT, "q69_address")
+    cust = q69_customers(schemas, E, N, T, states, parts)
     out = by(N.Projection(cust, [C("c_customer_sk"), C("c_current_cdemo_sk")],
                           ["c_customer_sk", "c_current_cdemo_sk"]), ["c_customer_sk"])
     dates = N.Filter(scan("date_dim", 1), [lit(eq, "d_year", 2001),
@@ -3760,7 +3946,11 @@ def q69_plan(schemas):
                                            lit(E.BinaryOp.LTEQ, "d_moy", 6),
                                            E.IsNotNull(C("d_date_sk"))])
     for name, dcol, ccol, jt in Q69_SALES:
-        window = N.BroadcastJoin(N.Filter(scan(name), [notnull(dcol, ccol)]),
+        preds = [notnull(dcol, ccol)]
+        if bloom is not None and name == "store_sales":
+            preds.append(E.BloomFilterMightContain(
+                E.ScalarSubquery(bloom, T.BINARY), E.ScalarFunction("xxhash64", [C(ccol)])))
+        window = N.BroadcastJoin(N.Filter(scan(name), preds),
                                  N.BroadcastExchange(dates),
                                  [(C(dcol), C("d_date_sk"))], J.INNER, N.JoinSide.RIGHT,
                                  f"q69_dates_{name}")
@@ -3770,9 +3960,40 @@ def q69_plan(schemas):
     out = N.BroadcastJoin(out, N.BroadcastExchange(scan("customer_demographics", 1)),
                           [(C("c_current_cdemo_sk"), C("cd_demo_sk"))], J.INNER,
                           N.JoinSide.RIGHT, "q69_demographics")
-    agg = two_stage_agg(out, list(Q69_KEYS), [("cnt", E.AggExpr(E.AggFunction.COUNT, []))])
+    keys = [(k, C(k)) for k in Q69_KEYS]
+    count = E.AggExpr(E.AggFunction.COUNT, [])
+    partial = N.Agg(out, E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(count, E.AggMode.PARTIAL, "cnt")],
+                    supports_partial_skipping=True)
+    agg = N.Agg(N.ShuffleExchange(partial, N.HashPartitioning([e for _, e in keys], parts)),
+                E.AggExecMode.HASH_AGG, keys, [N.AggColumn(count, E.AggMode.FINAL, "cnt")])
     return N.Sort(N.ShuffleExchange(agg, N.SinglePartitioning(1)),
                   [E.SortOrder(C(k)) for k in Q69_KEYS], fetch_limit=100)
+
+
+def q69_bloom_subquery(schemas, E, N, T, states=Q69_STATES, parts=PARTS):
+    """The scalar subquery of Spark's runtime filter on q69's store side
+    (InjectRuntimeFilter): q69's customer side projected to c_customer_sk
+    -> single exchange -> bloom_filter(xxhash64(c_customer_sk)) as "bf",
+    COMPLETE without keys (Spark runs it as a partial before the exchange
+    and a final after it; OR-ing the partial bitmaps gives the same
+    filter)."""
+    C = E.Column
+    keys = N.ShuffleExchange(
+        N.Projection(q69_customers(schemas, E, N, T, states, parts), [C("c_customer_sk")],
+                     ["c_customer_sk"]), N.SinglePartitioning(1))
+    bf = E.AggExpr(E.AggFunction.BLOOM_FILTER,
+                   [E.ScalarFunction("xxhash64", [C("c_customer_sk")])])
+    return N.Agg(keys, E.AggExecMode.HASH_AGG, [], [N.AggColumn(bf, E.AggMode.COMPLETE, "bf")])
+
+
+def q69_bloom_collect(session, subquery, schemas, blobs):
+    """q69_bloom as the frontend runs it: the subquery first, its one value
+    shipped as a ScalarSubquery into q69's store filter, then the query;
+    each run's filter goes to ``blobs``."""
+    blob = session.execute_to_pydict(subquery)["bf"][0]
+    blobs.append(blob)
+    return session.execute_to_pydict(q69_plan(schemas, bloom=blob))
 
 
 def q69_oracle(host):
@@ -3810,20 +4031,146 @@ def q69_oracle(host):
     return want, steps, len(rows)
 
 
+def find_node(plan, pred):
+    """The first node of ``plan`` (depth first) for which ``pred`` holds."""
+    if pred(plan):
+        return plan
+    for child in plan.children():
+        hit = find_node(child, pred)
+        if hit is not None:
+            return hit
+    return None
+
+
+def q69_bloom_oracle(host):
+    """Spark's runtime filter on q69's store side in numpy (xxh64_np and
+    this file's bloom, not the port's code): the filter of xxhash64 of the
+    creation side's customers (non-null address and demographics keys,
+    address in the three states) at Spark's defaults (1,000,000 items,
+    8,388,608 bits, k = 6), its serialized bytes, and the store rows the
+    merged filter keeps (non-null customer whose hash passes the probe),
+    with the false positives among them and the members it missed (0 for
+    any bloom filter). The probe depends only on the customer key, so it
+    is taken once a key."""
+    import numpy as np
+
+    (c_sk, c_addr, _c_cd), (_, addr_v, cd_v) = host["customer"]
+    (ca_sk, ca_state), _ = host["customer_address"]
+    in_states = np.zeros(Q69_ROWS["customer_address"] + 1, bool)
+    in_states[ca_sk[np.isin(ca_state, Q69_STATES)]] = True
+    creation = c_sk[addr_v & cd_v & in_states[c_addr]]
+    words, k = bloom_np_create()
+    bloom_np_put(words, k, xxh64_np([creation], [None]))
+    keys = np.arange(Q69_ROWS["customer"] + 1)
+    passes = bloom_np_probe(words, k, xxh64_np([keys], [None]))
+    member = np.zeros(len(keys), bool)
+    member[creation] = True
+    (_date, cust), (_, cust_v) = host["store_sales"]
+    kept = cust_v & passes[cust]
+    return {"blob": bloom_np_serialize(words, k), "k": k, "creation_rows": int(len(creation)),
+            "bits_set": int(np.unpackbits(words.view(np.uint8)).sum()),
+            "store_rows": int(len(cust)), "kept_rows": int(kept.sum()),
+            "false_positive_rows": int((kept & ~member[cust]).sum()),
+            "false_positive_keys": int((passes & ~member)[1:].sum()),
+            "missed_rows": int((cust_v & member[cust] & ~passes[cust]).sum())}
+
+
+BLOOM_PATH_TIMES = {}
+
+
+@contextlib.contextmanager
+def bloom_twin_check(name):
+    """While open, every K16 launch through ``SparkBloomFilter.
+    might_contain_long`` is also held to its twin on the same values and
+    bitmap (``bloom_probe:<name> batch``); the first such batch is then
+    timed (K16 by events and on the device, its twin) into
+    ``BLOOM_PATH_TIMES[name]``."""
+    from blaze_tpu_torch.ops import bloom as B
+
+    fn = B.SparkBloomFilter.might_contain_long
+    first, checked_batches = [], [0]
+
+    def checked(bf, values):
+        got = fn(bf, values)
+        args = (values, bf.device_words(values.device), bf.num_hash_functions, bf.bit_size)
+        check_equal("bloom_probe", f"{name} batch", got, B.might_contain_long_plain(*args))
+        if not first:
+            first.append(args)
+        checked_batches[0] += 1
+        return got
+
+    B.SparkBloomFilter.might_contain_long = checked
+    try:
+        yield
+    finally:
+        B.SparkBloomFilter.might_contain_long = fn
+    if not first:
+        raise AssertionError(f"{name}'s first run launched no K16")
+    args = first[0]
+    BLOOM_PATH_TIMES[name] = {
+        "checked_batches": checked_batches[0], "rows": int(args[0].shape[0]),
+        "k": args[2], "bit_size": args[3],
+        "ms": time_ms(lambda: B.bloom_probe_cuda(*args)),
+        "device_ms": kernel_device_ms(lambda: B.bloom_probe_cuda(*args), "blz_bloom_probe"),
+        "plain_ms": time_ms(lambda: B.might_contain_long_plain(*args))}
+
+
 def run_q69(dev, profile=False, trace_path=None):
+    """q69 and q69_bloom on one draw of q69's tables at SF10: q69 as Spark
+    plans it, then with Spark's runtime bloom filter on the store side
+    (the subquery and the query, both timed), exact against the same
+    oracle; the bloom path's filter byte for byte against the numpy one,
+    its store side's kept rows against the numpy probe's, every K16
+    launch of its first run held to the twin, and K16 once a store batch."""
     import blaze_tpu_torch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
 
     t0 = time.perf_counter()
     schemas, staged, host = make_q69_data(dev)
     want, steps, agg_rows = q69_oracle(host)
-    del host
     setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bloom = q69_bloom_oracle(host)
+    bloom_setup_s = time.perf_counter() - t0
+    del host
     session = blaze_tpu_torch.Session()
     for name, parts in staged.items():
         session.resources[name] = lambda p, _parts=parts: _parts[p]
-    return run_query("q69", sum(Q69_ROWS.values()), session, q69_plan(schemas), want,
-                     setup_s, {"customers_after": steps, "agg_rows": agg_rows,
-                               "groups": len(want["cnt"])}, profile, trace_path)
+    info = {"customers_after": steps, "agg_rows": agg_rows, "groups": len(want["cnt"])}
+    out = {"q69": run_query("q69", sum(Q69_ROWS.values()), session, q69_plan(schemas), want,
+                            setup_s, info, profile, trace_path)}
+    # q69_bloom: the frontend runs the subquery, then ships its value
+    blob = bloom.pop("blob")
+    blobs = []
+    subquery = q69_bloom_subquery(schemas, E, N, T)
+    store_batches = len(staged["store_sales"][0]) * PARTS
+    out["q69_bloom"] = run_query(
+        "q69_bloom", sum(Q69_ROWS.values()) + Q69_ROWS["customer"] +
+        Q69_ROWS["customer_address"], session, subquery, want, setup_s + bloom_setup_s,
+        {**info, "bloom": bloom, "numpy_bloom_s": bloom_setup_s}, profile,
+        trace_path[:-len(".json")] + "_bloom.json" if trace_path else None,
+        collect=lambda s, plan: q69_bloom_collect(s, plan, schemas, blobs),
+        first_run=bloom_twin_check("q69_bloom"))
+    if any(b != blob for b in blobs):
+        raise AssertionError("q69_bloom's filter differs from the numpy filter")
+    checked = BLOOM_PATH_TIMES["q69_bloom"]["checked_batches"]
+    if checked != store_batches:
+        raise AssertionError(f"q69_bloom's first run held {checked} K16 launches to the "
+                             f"twin, not one a store batch ({store_batches})")
+    # the store side alone: the rows its merged filter keeps
+    store = find_node(q69_plan(schemas, bloom=blob), lambda n: isinstance(n, N.Filter) and
+                      getattr(n.child, "resource_id", None) == "store_sales")
+    kept = sum(b.num_rows for b in session.execute(store))
+    log(json.dumps({"phase": "q69_bloom_store_side", "kept_rows": kept,
+                    "numpy_kept_rows": bloom["kept_rows"],
+                    "false_positive_rows": bloom["false_positive_rows"],
+                    "missed_rows": bloom["missed_rows"], "store_rows": bloom["store_rows"]}))
+    if kept != bloom["kept_rows"] or bloom["missed_rows"]:
+        raise AssertionError(f"q69_bloom's store side kept {kept} rows, the numpy probe "
+                             f"{bloom['kept_rows']} (missed {bloom['missed_rows']})")
+    return out
 
 
 # -- q96: a global COUNT through the host table (K12) ----------------------------
@@ -4997,9 +5344,10 @@ def main(device: str = "cuda") -> int:
     battery_limbs = cuda_lib.limb_launch_counts()
     kernel_k14(dev, rng, results)
     kernel_k15(dev, rng, results)
+    kernel_k16(dev, rng, results)
     # 4. the paths: q01, q67 (slot, sort and table routes), q06 and q47,
-    # q69, q96, q89, q17 (slot, sort and table routes), q98, sort10M and
-    # hash_sample
+    # q69 and q69_bloom, q96, q89, q17 (slot, sort and table routes), q98,
+    # sort10M and hash_sample
     args = sys.argv[1:]
     profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
@@ -5007,8 +5355,8 @@ def main(device: str = "cuda") -> int:
         "q01": run_q01(dev, profile, trace[0] if trace else None),
         **run_q67(dev, profile, trace[0] if trace else None),
         **run_join_paths(dev, profile, trace[0] if trace else None),
-        "q69": run_q69(dev, profile, trace[0].replace(".json", "") + "_q69.json"
-                       if trace else None),
+        **run_q69(dev, profile, trace[0].replace(".json", "") + "_q69.json"
+                  if trace else None),
         "q96": run_q96(dev, profile, trace[0].replace(".json", "") + "_q96.json"
                        if trace else None),
         "q89": run_q89(dev, profile, trace[0].replace(".json", "") + "_q89.json"
@@ -5077,12 +5425,33 @@ def main(device: str = "cuda") -> int:
     if per_path["hash_sample"]["xxhash64"] != hs_batches:
         raise AssertionError(f"hash_sample launched K15 {per_path['hash_sample']['xxhash64']}"
                              f" times, not once a sales batch ({hs_batches})")
+    # K16: q69_bloom's store filter, once a store batch (4 partitions x
+    # 28), and nowhere else; that filter is eager, so K11 runs on every q69
+    # batch but those, plus the subquery's fused customer and address
+    # filters (one a customer batch, one) (run_q69 also holds every K16
+    # launch of the first run to the twin, the filter to the numpy filter
+    # and the store side's kept rows to the numpy probe's)
+    store_batches = PARTS * ((Q69_ROWS["store_sales"] // PARTS + 262143) // 262144)
+    subquery_k11 = PARTS * ((Q69_ROWS["customer"] // PARTS + 262143) // 262144) + 1
+    if per_path["q69_bloom"]["bloom_probe"] != store_batches:
+        raise AssertionError(f"q69_bloom launched K16 {per_path['q69_bloom']['bloom_probe']}"
+                             f" times, not once a store batch ({store_batches})")
+    want_k11 = per_path["q69"]["fused_chain"] - store_batches + subquery_k11
+    if per_path["q69_bloom"]["fused_chain"] != want_k11:
+        raise AssertionError(f"q69_bloom launched K11 {per_path['q69_bloom']['fused_chain']} "
+                             f"times, not q69's {per_path['q69']['fused_chain']} less the "
+                             f"{store_batches} store batches plus the subquery's "
+                             f"{subquery_k11} ({want_k11})")
+    if per_path["q69_bloom"]["xxhash64"] <= store_batches:
+        raise AssertionError("q69_bloom's subquery did not hash its customers with K15")
     # 5. summary lines
     for r in results:
         if r["name"] == "range_partition":
             r["path_batches"] = RANGE_PATH_TIMES
         if r["name"] == "xxhash64":
             r["path_batches"] = XXH_PATH_TIMES
+        if r["name"] == "bloom_probe":
+            r["path_batches"] = BLOOM_PATH_TIMES
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []

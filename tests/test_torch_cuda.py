@@ -1,9 +1,9 @@
 """The port's CUDA and Triton kernels against their plain PyTorch versions
 on the card, and the q01, q67 (on both aggregation routes), q06, q96,
 q89, q17, q98, sort10M and hash_sample paths, every hash-join type, an
-explicit-frame window and the scalar functions on the card against the
-same plans and expressions on the CPU. K9's to K15's cases come from
-chip_smoke.py.
+explicit-frame window, the scalar functions and the bloom runtime filter
+on the card against the same plans and expressions on the CPU. K9's to
+K16's cases come from chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -18,9 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FUSED_CAPS, PROBE_CASES, Q89_ROWS, Q96_ROWS, Q98_ROWS, RANGE_CASES,
-                        SCAN_CASES, SEG_CASES, SORT10M_COLUMNS, UPD_CASES, WIDE_CASES,
-                        WIDE_UPD_CASES, XXH_CASES, customer_probe, doubled, fused_cases,
+from chip_smoke import (BLOOM_CASES, FUSED_CAPS, PROBE_CASES, Q89_ROWS, Q96_ROWS, Q98_ROWS,
+                        RANGE_CASES, SCAN_CASES, SEG_CASES, SORT10M_COLUMNS, UPD_CASES, WIDE_CASES,
+                        WIDE_UPD_CASES, XXH_CASES, bloom_case, bloom_np_probe, customer_probe,
+                        doubled, fused_cases,
                         fused_flat, hash_sample_host, hash_sample_oracle, hash_sample_plan,
                         hash_sample_schema, xxh64_np, xxh_case, fused_schema,
                         fused_planes, merge_states, one_nan, probe_case, q17_oracle, q17_plan,
@@ -152,15 +153,16 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
     # every kernel but the joins', the sort route's, K11, the host table's
-    # K12, the window aggregates' K13, the range exchange's K14 and the
-    # xxhash64 function's K15, which q01 does not reach (its filter feeds
-    # the partial aggregate, so it is not fused; both aggregates take the
-    # slot route; it has no window, no range exchange and no xxhash64)
+    # K12, the window aggregates' K13, the range exchange's K14, the
+    # xxhash64 function's K15 and the bloom probe's K16, which q01 does not
+    # reach (its filter feeds the partial aggregate, so it is not fused;
+    # both aggregates take the slot route; it has no window, no range
+    # exchange, no xxhash64 and no runtime filter)
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
                if k not in ("inner_join_planes", "probe_codes", "segment_ids",
                             "seg_agg_partial", "seg_agg_merge", "fused_chain",
                             "slot_update", "segment_scan", "range_partition",
-                            "xxhash64"))
+                            "xxhash64", "bloom_probe"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -1135,3 +1137,77 @@ def test_scalar_functions_on_the_card_equal_the_cpu(dev, name):
         nan = torch.isnan(gd) & torch.isnan(wd)
         near = (torch.signbit(gd) == torch.signbit(wd)) & ((gb - wb).abs() <= ulps)
         assert bool((nan | (gb == wb) | near).all()), name
+
+
+@pytest.mark.parametrize("case", BLOOM_CASES, ids=[c[0] for c in BLOOM_CASES])
+def test_bloom_probe_kernel(dev, case):
+    """K16 against its twin on the card and against chip_smoke.py's numpy
+    probe, over the whole capacity."""
+    from blaze_tpu_torch.ops import bloom as B
+
+    vals, words, k, bits = bloom_case(case, np.random.default_rng(sum(map(ord, case[0]))))
+    v = torch.from_numpy(vals).to(dev)
+    w = torch.from_numpy(words.view(np.int64)).to(dev)
+    got = B.bloom_probe_cuda(v, w, k, bits)
+    _equal(got, B.might_contain_long_plain(v, w, k, bits))
+    assert np.array_equal(got.cpu().numpy(), bloom_np_probe(words, k, vals))
+
+
+def test_bloom_probe_launches_or_raises_and_never_takes_the_twin(dev, monkeypatch):
+    """A CUDA column launches K16 or raises (int32 values, a bitmap of
+    another size are refused); the twin is never called."""
+    from blaze_tpu_torch.ops import bloom as B
+    from blaze_tpu_torch.utils import cuda_lib
+
+    vals, words, k, bits = bloom_case(BLOOM_CASES[3], np.random.default_rng(5))
+    bf = B.SparkBloomFilter(words.copy(), k)
+    monkeypatch.setattr(B, "might_contain_long_plain", None)
+    cuda_lib.reset_launch_counts()
+    got = bf.might_contain_long(torch.from_numpy(vals).to(dev))
+    assert cuda_lib.launch_counts()["bloom_probe"] == 1
+    assert np.array_equal(got.cpu().numpy(), bloom_np_probe(words, k, vals))
+    w = bf.device_words(dev)
+    with pytest.raises(TypeError, match="bloom_probe"):
+        B.bloom_probe_cuda(torch.from_numpy(vals).to(dev).to(torch.int32), w, k, bits)
+    with pytest.raises(ValueError, match="bloom_probe"):
+        B.bloom_probe_cuda(torch.from_numpy(vals).to(dev), w[:-1], k, bits)
+
+
+def test_bloom_runtime_filter_on_the_card_equals_the_cpu(dev):
+    """The bloom aggregate's filter and the probe in a Filter merged with
+    its null check, over 200,000 rows in 4 partitions of 8,192-row batches:
+    the same filter bytes and rows on the card as on the CPU; K16 once a
+    probed batch."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    rng = np.random.default_rng(15)
+    schema = T.Schema.of(("k", T.I64))
+    keys = rng.integers(0, 1_000_000, 200_000)
+    valid = rng.random(200_000) >= 0.04
+    parts = [[{"k": (keys[s:s + 8192], valid[s:s + 8192])}
+              for s in range(p * 50_000, (p + 1) * 50_000, 8192)] for p in range(4)]
+    small = [[{"k": np.arange(p * 10_000, p * 10_000 + 5_000)}] for p in range(4)]
+    hashed = E.ScalarFunction("xxhash64", [E.Column("k")])
+    agg = N.Agg(N.ShuffleExchange(N.FFIReader(schema, "small", 4), N.SinglePartitioning(1)),
+                E.AggExecMode.HASH_AGG, [],
+                [N.AggColumn(E.AggExpr(E.AggFunction.BLOOM_FILTER, [hashed]),
+                             E.AggMode.COMPLETE, "bf")])
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(Config(batch_size=8192), device=device)
+        s.resources["small"] = lambda p: small[p]
+        s.resources["big"] = lambda p: parts[p]
+        blob = s.execute_to_pydict(agg)["bf"][0]
+        probe = E.BloomFilterMightContain(E.ScalarSubquery(blob, T.BINARY), hashed)
+        cuda_lib.reset_launch_counts()
+        rows = s.execute_to_pydict(N.Filter(N.FFIReader(schema, "big", 4),
+                                            [E.IsNotNull(E.Column("k")), probe]))
+        out[device] = (blob, rows)
+    assert out[None] == out["cpu"]
+    assert 0 < len(out[None][1]["k"]) < 200_000
+    assert cuda_lib.launch_counts()["bloom_probe"] == sum(len(p) for p in parts)

@@ -107,7 +107,7 @@ def test_every_module_is_listed_in_the_package():
                 "exprs.functions", "exprs.function_types", "ops.base",
                 "ops.basic", "ops.shuffle.reader", "ops.shuffle.repartitioner",
                 "ops.aggfns", "ops.agg_device", "ops.agg", "ops.sort_keys",
-                "ops.sort", "ops.window", "ops.joins.keymap", "ops.joins.bhj",
+                "ops.sort", "ops.window", "ops.joins.keymap", "ops.joins.bhj", "ops.bloom",
                 "ir.serde", "ir.fusion", "exprs.fused_triton", "ops.fused",
                 "runtime.executor",
                 "runtime.session"):
