@@ -66,6 +66,28 @@ class Config:
     # filtered output group. False builds the exact unfused operator tree.
     fusion_enabled: bool = True
 
+    # The device mesh (parallel/mesh.py). The reducer outputs of a mesh
+    # exchange stay device-resident only while the total payload across
+    # the session's live exchanges stays below this; the session debits
+    # each resident exchange from it, and anything beyond it lands in host
+    # memory and is uploaded when its reducer reads it.
+    mesh_device_resident_max_bytes: int = 128 << 20
+
+    # Per-slot, per-round byte budget of the compacted mesh exchange's send
+    # buffers. The segment capacity is the largest per-(slot, reducer) row
+    # count; one skewed reducer would pad every segment to its size, so past
+    # this budget the exchange runs several bounded rounds instead.
+    mesh_exchange_round_bytes: int = 256 << 20
+
+    # Multichip execution: a Session without an explicit ``mesh=`` builds
+    # one from this config (one slot per visible device, at most
+    # multichip_devices of them, 0 = all; a mesh spanning several cards
+    # raises, ROADMAP item 15), every ShuffleExchange rides
+    # the mesh's all-to-all, and fused stages stack same-shape batches (the
+    # stacked K11). Off by default.
+    multichip_enabled: bool = False
+    multichip_devices: int = 0
+
     # Capacity bucketing: device buffers are padded up to the next power of
     # two >= min_capacity.
     min_capacity: int = 256

@@ -292,26 +292,18 @@ def compact_planes(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor]
 # -- K11: a fused chain segment -------------------------------------------------
 
 
-def fused_chain_plain(in_schema, steps, datas: Sequence[torch.Tensor],
-                      valids: Sequence[torch.Tensor], num_rows: int):
-    """Plain PyTorch twin of K11, the same function as the jitted
-    blaze_tpu/exprs/compiler.py:1042 build_fused_closure: ``steps`` (project
-    / filter / rename / expand, no coalesce) over one batch's planes.
-    Expressions evaluate with ExprEvaluator over a LiveBatch, whose live
-    mask starts as the rows below ``num_rows`` and which filters only
-    narrow; each filtered output group then compacts once with K1's plain
-    version (stable order, dead lanes zeroed). Returns (groups, counts):
-    ``groups[g]`` is that group's (datas, valids) at the input capacity,
-    ``counts[g]`` its row count, a 0-d int64 tensor for a filtered group
-    and ``num_rows`` for an unfiltered one."""
+def _fused_step_groups(in_schema, steps, datas, valids, live):
+    """The output groups of a fused chain's steps over planes whose live
+    rows are ``live``: per group (columns, live mask, filtered).
+    Expressions evaluate with ExprEvaluator over a LiveBatch; filters only
+    narrow the mask."""
     from blaze_tpu_torch.core.batch import DeviceColumn
     from blaze_tpu_torch.exprs.compiler import ExprEvaluator, LiveBatch, \
         fused_chain_schemas
 
     schemas = fused_chain_schemas(in_schema, steps)
-    cap = int(datas[0].shape[0])
     cols = [DeviceColumn(f.dtype, d, v) for f, d, v in zip(in_schema.fields, datas, valids)]
-    groups = [(cols, iota(cap, datas[0].device) < num_rows, False)]
+    groups = [(cols, live, False)]
     for si, st in enumerate(steps):
         kind = st[0]
         out_groups = []
@@ -332,18 +324,59 @@ def fused_chain_plain(in_schema, steps, datas: Sequence[torch.Tensor],
             else:
                 raise ValueError(f"unknown fused step {kind!r}")
         groups = out_groups
+    return groups
+
+
+def _compact_groups(groups, num_rows: int, rows=slice(None)):
+    """(groups, counts) of one batch, the rows ``rows`` of every group's
+    planes: a filtered group compacted once with K1's plain version."""
     outs, counts = [], []
     for cols, live, filtered in groups:
-        ds = tuple(c.data for c in cols)
-        vs = tuple(c.validity for c in cols)
+        ds = tuple(c.data[rows] for c in cols)
+        vs = tuple(c.validity[rows] for c in cols)
         if filtered:
-            count, ds, vs = compact_planes_plain(ds, vs, live)
+            count, ds, vs = compact_planes_plain(ds, vs, live[rows])
             ds, vs = tuple(ds), tuple(vs)
         else:
             count = num_rows
         outs.append((ds, vs))
         counts.append(count)
     return tuple(outs), tuple(counts)
+
+
+def fused_chain_plain(in_schema, steps, datas: Sequence[torch.Tensor],
+                      valids: Sequence[torch.Tensor], num_rows: int):
+    """Plain PyTorch twin of K11, the same function as the jitted
+    blaze_tpu/exprs/compiler.py:1042 build_fused_closure: ``steps`` (project
+    / filter / rename / expand, no coalesce) over one batch's planes.
+    Expressions evaluate with ExprEvaluator over a LiveBatch, whose live
+    mask starts as the rows below ``num_rows`` and which filters only
+    narrow; each filtered output group then compacts once with K1's plain
+    version (stable order, dead lanes zeroed). Returns (groups, counts):
+    ``groups[g]`` is that group's (datas, valids) at the input capacity,
+    ``counts[g]`` its row count, a 0-d int64 tensor for a filtered group
+    and ``num_rows`` for an unfiltered one."""
+    live = iota(int(datas[0].shape[0]), datas[0].device) < num_rows
+    return _compact_groups(_fused_step_groups(in_schema, steps, datas, valids, live), num_rows)
+
+
+def fused_chain_stacked_plain(in_schema, steps, batch_datas, batch_valids,
+                              batch_nrows: Sequence[int]):
+    """Plain PyTorch twin of the stacked K11: k same-shape batches (per
+    batch its planes, each of one capacity, and its row count) as one
+    stack: every expression evaluated once over the k * capacity rows, the
+    live mask each batch's rows below its count, then each filtered group
+    compacted per batch (K1's plain version). Returns per batch exactly
+    what :func:`fused_chain_plain` returns for it."""
+    cap = int(batch_datas[0][0].shape[0])
+    dev = batch_datas[0][0].device
+    ncols = len(in_schema.fields)
+    groups = _fused_step_groups(
+        in_schema, steps, [torch.cat([bd[i] for bd in batch_datas]) for i in range(ncols)],
+        [torch.cat([bv[i] for bv in batch_valids]) for i in range(ncols)],
+        torch.cat([iota(cap, dev) < int(nr) for nr in batch_nrows]))
+    return [_compact_groups(groups, int(nr), slice(b * cap, (b + 1) * cap))
+            for b, nr in enumerate(batch_nrows)]
 
 
 def fused_chain(in_schema, steps, datas: Sequence[torch.Tensor],
@@ -358,6 +391,20 @@ def fused_chain(in_schema, steps, datas: Sequence[torch.Tensor],
         kernel = kernel or FusedKernel(in_schema, steps)
         return kernel(datas, valids, num_rows)
     return fused_chain_plain(in_schema, steps, datas, valids, num_rows)
+
+
+def fused_chain_stacked(in_schema, steps, batch_datas, batch_valids,
+                        batch_nrows: Sequence[int], kernel=None):
+    """One fused chain segment over k same-shape batches: the stacked K11
+    (with K1 per filtered group per batch) on CUDA planes, the plain
+    version on CPU planes. Returns per batch (groups, counts) as
+    :func:`fused_chain` does."""
+    if batch_datas[0][0].is_cuda:
+        from blaze_tpu_torch.exprs.fused_triton import FusedKernel, fused_chain_stacked_cuda
+
+        kernel = kernel or FusedKernel(in_schema, steps)
+        return fused_chain_stacked_cuda(kernel, batch_datas, batch_valids, batch_nrows)
+    return fused_chain_stacked_plain(in_schema, steps, batch_datas, batch_valids, batch_nrows)
 
 
 # -- K8: the unique-key inner join -------------------------------------------------
@@ -1949,3 +1996,137 @@ def segment_scan_planes(data: torch.Tensor, validity: torch.Tensor,
     out_s, out_c = segment_scan(data, validity, exists,
                                 torch.from_numpy(pad).to(data.device), carry_sum, carry_cnt)
     return out_s[:n].cpu().numpy(), out_c[:n].cpu().numpy()
+
+
+# -- K17: the device mesh's all-to-all ----------------------------------------------
+#
+# blaze_tpu/parallel/mesh.py:215 _exchange_compact_step with the pack of
+# MeshBatchExchange.run (:474-493): every plane of every source slot moved
+# into the receive buffers of every destination slot in one launch
+# (csrc/mesh.cu). Output position d * n * chunk + s * chunk + q is the q-th
+# position of the chunk slot s sends to slot d; in exchange mode it is row
+# k = rnd * scap + q % scap of reducer r = d * G + q // scap in slot s's
+# stable order by reducer (``routes[s]``, K5b), live when k < counts[s, r];
+# in tile mode (``counts`` None) it is row q, live when routes[s][q] == d.
+# Dead positions are 0 in every plane (data 0, validity False).
+
+
+def _mesh_geometry(n: int, chunk: int, counts: Optional[np.ndarray], G: int, scap: int):
+    tile = counts is None
+    if n <= 0 or chunk <= 0:
+        raise ValueError(f"mesh_all_to_all: {n} slots, chunk {chunk}")
+    if not tile and (counts.shape != (n, n * G) or chunk != G * scap or scap <= 0):
+        raise ValueError(f"mesh_all_to_all: counts {counts.shape} for {n} slots, "
+                         f"G={G}, scap={scap}, chunk={chunk}")
+    return tile, n * n * chunk
+
+
+def mesh_all_to_all_plain(slot_planes, routes, chunk: int, device, dtypes,
+                          counts: Optional[np.ndarray] = None, G: int = 1, scap: int = 1,
+                          rnd: int = 0):
+    """Plain PyTorch twin of K17. ``slot_planes[s]`` holds source slot s's
+    planes (None for an empty slot), in the order and of the ``dtypes``
+    given; ``routes[s]`` its int64 order by reducer (exchange mode) or its
+    int64 reducer id per row (tile mode, ``counts`` None). Returns (output
+    planes of n * n * chunk rows, the live plane, the int64 live count each
+    destination slot receives)."""
+    n = len(slot_planes)
+    tile, total = _mesh_geometry(n, chunk, counts, G, scap)
+    # n * n * chunk positions: no cached iota (it would hold a plane of
+    # every receive size for the process's life)
+    pos = torch.arange(total, dtype=torch.int64, device=device)
+    seg_len = n * chunk
+    d = pos // seg_len
+    s = (pos % seg_len) // chunk
+    q = pos % chunk
+    present = [i for i in range(n) if routes[i] is not None]
+    live = torch.zeros(total, dtype=torch.bool, device=device)
+    row = torch.zeros(total, dtype=torch.int64, device=device)
+    if present:
+        lens = torch.tensor([int(routes[i].shape[0]) if routes[i] is not None else 0
+                             for i in range(n)], dtype=torch.int64)
+        route_off = (torch.cumsum(lens, 0) - lens).to(device)
+        route_cat = torch.cat([routes[i].to(torch.int64) for i in present])
+        has = torch.tensor([routes[i] is not None for i in range(n)], device=device)[s]
+        if tile:
+            at = torch.where(has, route_off[s] + q, 0).clamp(max=route_cat.shape[0] - 1)
+            live = has & (route_cat[at] == d)
+            row = torch.where(live, q, 0)
+        else:
+            ct = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int64)).to(device)
+            st = torch.cumsum(ct, 1) - ct
+            r = d * G + q // scap
+            k = rnd * scap + q % scap
+            live = has & (k < ct[s, r])
+            at = torch.where(live, route_off[s] + st[s, r] + k, 0)
+            row = torch.where(live, route_cat[at], 0)
+    outs = []
+    for p, dt in enumerate(dtypes):
+        if not present:
+            outs.append(torch.zeros(total, dtype=dt, device=device))
+            continue
+        caps = torch.tensor([int(slot_planes[i][p].shape[0]) if slot_planes[i] is not None
+                             else 0 for i in range(n)], dtype=torch.int64)
+        off = (torch.cumsum(caps, 0) - caps).to(device)
+        cat = torch.cat([slot_planes[i][p] for i in range(n) if slot_planes[i] is not None])
+        at = torch.where(live, off[s] + row, 0).clamp(max=max(cat.shape[0] - 1, 0))
+        outs.append(_zero_where(live, cat[at]) if cat.shape[0] else
+                    torch.zeros(total, dtype=dt, device=device))
+    counts_out = torch.bincount(d[live], minlength=n)[:n]
+    return outs, live, counts_out
+
+
+def mesh_all_to_all_cuda(slot_planes, routes, chunk: int, device, dtypes,
+                         counts: Optional[np.ndarray] = None, G: int = 1, scap: int = 1,
+                         rnd: int = 0):
+    """K17 on the card (csrc/mesh.cu): same contract as
+    :func:`mesh_all_to_all_plain`, one launch for every plane of every
+    slot, its pointer table (and the count matrix with its prefix) uploaded
+    as one int64 tensor."""
+    n = len(slot_planes)
+    tile, total = _mesh_geometry(n, chunk, counts, G, scap)
+    planes = [p for sp in slot_planes if sp is not None for p in sp]
+    cuda_lib.require_cuda("mesh_all_to_all", *planes,
+                          *[r for r in routes if r is not None])
+    for sp, rt in zip(slot_planes, routes):
+        if (sp is None) != (rt is None):
+            raise ValueError("mesh_all_to_all: a slot with planes and no route, or the reverse")
+        if sp is None:
+            continue
+        if len(sp) != len(dtypes) or any(p.dtype != dt for p, dt in zip(sp, dtypes)):
+            raise TypeError(f"mesh_all_to_all: slot planes {[p.dtype for p in sp]}, "
+                            f"expected {list(dtypes)}")
+        if rt.dtype != torch.int64 or rt.dim() != 1 or (tile and rt.shape[0] != chunk):
+            raise ValueError(f"mesh_all_to_all: route {rt.dtype} of {tuple(rt.shape)}")
+        if tile and any(p.shape[0] < chunk for p in sp):
+            raise ValueError("mesh_all_to_all: a tile-mode plane shorter than the tile")
+        _check_planes("mesh_all_to_all", sp)
+    outs = [torch.empty(total, dtype=dt, device=device) for dt in dtypes]
+    live = torch.empty(total, dtype=torch.bool, device=device)
+    live_counts = torch.zeros(n, dtype=torch.int64, device=device)
+    words: List[int] = []
+    if not tile:
+        ct = np.ascontiguousarray(counts, dtype=np.int64)
+        words += ct.ravel().tolist() + (np.cumsum(ct, 1) - ct).ravel().tolist()
+    words += [r.data_ptr() if r is not None else 0 for r in routes]
+    for sp in slot_planes:
+        words += [p.data_ptr() for p in sp] if sp is not None else [0] * len(dtypes)
+    words += [o.data_ptr() for o in outs]
+    words += [torch.empty((), dtype=dt).element_size() for dt in dtypes]
+    table = torch.tensor(words, dtype=torch.int64).to(device)
+    err = cuda_lib.library().blz_mesh_all_to_all(
+        table.data_ptr(), n, len(dtypes), 0 if tile else n * G, G, scap, rnd, int(tile),
+        chunk, live.data_ptr(), live_counts.data_ptr(), cuda_lib.stream_of(device))
+    cuda_lib.check(err, "mesh_all_to_all")
+    cuda_lib.LAUNCHES["mesh_all_to_all"] += 1
+    return outs, live, live_counts
+
+
+def mesh_all_to_all(slot_planes, routes, chunk: int, device, dtypes,
+                    counts: Optional[np.ndarray] = None, G: int = 1, scap: int = 1,
+                    rnd: int = 0):
+    """One round of the mesh's all-to-all: K17 on the card, the plain
+    version on the CPU (by ``device``)."""
+    fn = mesh_all_to_all_cuda if torch.device(device).type == "cuda" \
+        else mesh_all_to_all_plain
+    return fn(slot_planes, routes, chunk, torch.device(device), dtypes, counts, G, scap, rnd)

@@ -46,6 +46,16 @@ which the generator guards:
   (Java's NaN -> 0 and saturation); decimal -> double is a float64 divide;
   timestamp -> date and -> seconds use ``_floordiv``.
 
+The stacked form (``stacked_source``, ``launch_stacked``; the device
+mesh's ShardedFusedRunner, parallel/mesh.py) is generated from the same
+body: k <= n batches of one capacity in one launch, the batch on the
+grid's second axis, each batch's planes read through an int64 table of
+their addresses (no stacking copy) and its row count from the same
+table; each output plane is (k, capacity). It replaces the JAX package's
+closure under ``shard_map`` (blaze_tpu/parallel/mesh.py:671), which runs
+one batch a device; here the k batches share one launch. The
+single-batch kernel's source is unchanged by it.
+
 A build or launch failure raises; nothing falls back to the plain
 version on a CUDA tensor.
 """
@@ -674,6 +684,37 @@ class _Gen:
                   for k, (v, tdt) in enumerate(self.stores)]
         return "\n".join(lines) + "\n"
 
+    def stacked_source(self, fingerprint: str) -> str:
+        """The stacked form (ShardedFusedRunner): the same body over k
+        same-shape batches, the batch on the grid's second axis. ``tab`` is
+        an int64 table of k row counts, then per loaded plane the k batches'
+        plane addresses (so no batch is copied into a stack); output plane
+        o{k} is (k, cap), batch b at row b."""
+        loads = ([(f"x{i}", _TL[_require_tdt(self.in_schema[i].dtype)]) for i in self.used_d]
+                 + [(f"xv{i}", "tl.int1") for i in self.used_v])
+        params = (["tab"] + [f"o{k}" for k in range(len(self.stores))]
+                  + ["consts", "cap", "nb", "BLOCK: tl.constexpr"])
+        lines = [_PRELUDE.format(fp=fingerprint),
+                 '@triton.jit(do_not_specialize=["cap", "nb"])',
+                 f"def fused_chain_stacked({', '.join(params)}):",
+                 "    b = tl.program_id(1)",
+                 "    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)",
+                 "    inb = offs < cap",
+                 "    exists = offs < tl.load(tab + b)",
+                 "    tt = offs >= 0",
+                 "    ff = offs < 0",
+                 "    zi64 = tl.zeros([BLOCK], dtype=tl.int64)",
+                 "    row0 = b.to(tl.int64) * cap"]
+        lines += [f"    w{k} = zi64 + tl.load(consts + {k})" for k in range(len(self.pool))]
+        for j, (name, tlt) in enumerate(loads):
+            lines += [f"    {name}_ptr = tl.load(tab + {j + 1} * nb + b)"
+                      f".to(tl.pointer_type({tlt}))",
+                      f"    {name} = tl.load({name}_ptr + offs, mask=inb, other=0)"]
+        lines += self.body
+        lines += [f"    tl.store(o{k} + row0 + offs, {v}.to({_TL[tdt]}), mask=inb)"
+                  for k, (v, tdt) in enumerate(self.stores)]
+        return "\n".join(lines) + "\n"
+
     def constants(self) -> List[int]:
         words = [0] * max(1, len(self.pool))
         for v, k in self.pool.items():
@@ -711,6 +752,8 @@ class FusedKernel:
         self._gen: Optional[_Gen] = None
         self._source: Optional[str] = None
         self._fn = None
+        self._stacked_source: Optional[str] = None
+        self._stacked_fn = None
         self._consts: Dict[str, torch.Tensor] = {}
         self._lock = threading.Lock()
 
@@ -735,24 +778,33 @@ class FusedKernel:
     def path(self) -> str:
         return os.path.join(kernel_dir(), f"{self.fingerprint}.py")
 
+    @property
+    def stacked_source(self) -> str:
+        if self._stacked_source is None:
+            self._stacked_source = self.gen.stacked_source(self.fingerprint)
+        return self._stacked_source
+
+    @property
+    def stacked_path(self) -> str:
+        return os.path.join(kernel_dir(), f"{self.fingerprint}_stacked.py")
+
     def compiled(self):
         """The ``@triton.jit`` kernel, from the source written to ``path``."""
         with self._lock:
             if self._fn is None:
-                os.environ.setdefault("TRITON_CACHE_DIR",
-                                      os.path.join(cuda_lib.build_dir(), "triton_cache"))
-                import triton  # noqa: F401  (K11 needs triton on the card)
-
-                path = self.path
-                _write_if_changed(path, self.source)
-                linecache.checkcache(path)
-                name = f"blaze_tpu_torch_fused_{self.fingerprint}"
-                spec = importlib.util.spec_from_file_location(name, path)
-                mod = importlib.util.module_from_spec(spec)
-                sys.modules[name] = mod
-                spec.loader.exec_module(mod)
-                self._fn = mod.fused_chain
+                self._fn = _import_kernel(self.path, self.source,
+                                          f"blaze_tpu_torch_fused_{self.fingerprint}",
+                                          "fused_chain")
             return self._fn
+
+    def compiled_stacked(self):
+        """The stacked form's ``@triton.jit`` kernel, from ``stacked_path``."""
+        with self._lock:
+            if self._stacked_fn is None:
+                self._stacked_fn = _import_kernel(
+                    self.stacked_path, self.stacked_source,
+                    f"blaze_tpu_torch_fused_stacked_{self.fingerprint}", "fused_chain_stacked")
+            return self._stacked_fn
 
     def constants_on(self, device: torch.device) -> torch.Tensor:
         key = str(device)
@@ -764,6 +816,22 @@ class FusedKernel:
 
     def __call__(self, datas, valids, num_rows: int):
         return fused_chain_cuda(self, datas, valids, num_rows)
+
+
+def _import_kernel(path: str, text: str, name: str, attr: str):
+    """Write a generated kernel module to ``path`` (if it differs) and
+    import it: ``@triton.jit`` reads its source with ``inspect``."""
+    os.environ.setdefault("TRITON_CACHE_DIR",
+                          os.path.join(cuda_lib.build_dir(), "triton_cache"))
+    import triton  # noqa: F401  (K11 needs triton on the card)
+
+    _write_if_changed(path, text)
+    linecache.checkcache(path)
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return getattr(mod, attr)
 
 
 def _write_if_changed(path: str, text: str) -> None:
@@ -780,22 +848,26 @@ def _write_if_changed(path: str, text: str) -> None:
     os.replace(tmp, path)
 
 
+def _check_batch(kernel: FusedKernel, name: str, datas, valids, cap: int) -> None:
+    fields = kernel.in_schema.fields
+    if len(datas) != len(fields) or len(valids) != len(fields):
+        raise ValueError(f"{name}: {len(datas)} planes for {len(fields)} columns")
+    cuda_lib.require_cuda(name, *datas, *valids)
+    for f, d, v in zip(fields, datas, valids):
+        if d.shape != (cap,) or v.shape != (cap,) or v.dtype != torch.bool \
+                or d.dtype != T.torch_dtype(f.dtype):
+            raise ValueError(f"{name}: column {f.name!r} planes {d.dtype}"
+                             f"{tuple(d.shape)} / {v.dtype}{tuple(v.shape)}")
+
+
 def launch(kernel: FusedKernel, datas: Sequence[torch.Tensor],
            valids: Sequence[torch.Tensor], num_rows: int) -> List[torch.Tensor]:
     """K11 alone: checks the planes, launches the segment's kernel once and
     returns the planes it stored (none, and no launch, for a segment that
     computes nothing)."""
     gen = kernel.gen
-    fields = kernel.in_schema.fields
-    if len(datas) != len(fields) or len(valids) != len(fields):
-        raise ValueError(f"fused_chain: {len(datas)} planes for {len(fields)} columns")
-    cuda_lib.require_cuda("fused_chain", *datas, *valids)
     cap = int(datas[0].shape[0])
-    for f, d, v in zip(fields, datas, valids):
-        if d.shape != (cap,) or v.shape != (cap,) or v.dtype != torch.bool \
-                or d.dtype != T.torch_dtype(f.dtype):
-            raise ValueError(f"fused_chain: column {f.name!r} planes {d.dtype}"
-                             f"{tuple(d.shape)} / {v.dtype}{tuple(v.shape)}")
+    _check_batch(kernel, "fused_chain", datas, valids, cap)
     dev = datas[0].device
     outs = [torch.empty(cap, dtype=tdt, device=dev) for _v, tdt in gen.stores]
     if outs:
@@ -812,16 +884,20 @@ def fused_chain_cuda(kernel: FusedKernel, datas: Sequence[torch.Tensor],
                      valids: Sequence[torch.Tensor], num_rows: int):
     """K11 on the card, then K1 once per filtered output group: the same
     contract as ``core/kernels.fused_chain_plain``."""
-    from blaze_tpu_torch.core.kernels import compact_planes_cuda
+    return _groups(kernel.gen, datas, valids, launch(kernel, datas, valids, num_rows), num_rows)
 
-    outs = launch(kernel, datas, valids, num_rows)
+
+def _groups(gen: _Gen, datas, valids, outs, num_rows: int):
+    """One batch's (groups, counts) from its input planes and the planes
+    K11 stored for it: each filtered group compacted once with K1."""
+    from blaze_tpu_torch.core.kernels import compact_planes_cuda
 
     def plane(spec):
         kind, i = spec
         return datas[i] if kind == "in_d" else valids[i] if kind == "in_v" else outs[i]
 
     groups, counts = [], []
-    for dspec, vspec, mask in kernel.gen.groups:
+    for dspec, vspec, mask in gen.groups:
         ds = [plane(s) for s in dspec]
         vs = [plane(s) for s in vspec]
         if mask is None:
@@ -831,3 +907,44 @@ def fused_chain_cuda(kernel: FusedKernel, datas: Sequence[torch.Tensor],
         groups.append((tuple(ds), tuple(vs)))
         counts.append(count)
     return tuple(groups), tuple(counts)
+
+
+def launch_stacked(kernel: FusedKernel, batch_datas, batch_valids,
+                   batch_nrows: Sequence[int]) -> List[torch.Tensor]:
+    """The stacked K11 alone: k same-shape batches in one launch (grid
+    (blocks, k)); returns the stored planes, each (k, cap), batch b at row
+    b (none, and no launch, for a segment that computes nothing)."""
+    gen = kernel.gen
+    k = len(batch_datas)
+    cap = int(batch_datas[0][0].shape[0])
+    if k == 0 or len(batch_valids) != k or len(batch_nrows) != k:
+        raise ValueError(f"fused_chain_stacked: {k} batches")
+    for datas, valids, nr in zip(batch_datas, batch_valids, batch_nrows):
+        _check_batch(kernel, "fused_chain_stacked", datas, valids, cap)
+        if not 0 <= int(nr) <= cap:
+            raise ValueError(f"fused_chain_stacked: {nr} rows in a {cap}-row batch")
+    dev = batch_datas[0][0].device
+    if any(d.device != dev for datas in batch_datas for d in datas):
+        raise ValueError("fused_chain_stacked: batches on different devices")
+    outs = [torch.empty((k, cap), dtype=tdt, device=dev) for _v, tdt in gen.stores]
+    if outs:
+        fn = kernel.compiled_stacked()
+        words = ([int(nr) for nr in batch_nrows]
+                 + [bd[i].data_ptr() for i in gen.used_d for bd in batch_datas]
+                 + [bv[i].data_ptr() for i in gen.used_v for bv in batch_valids])
+        tab = torch.tensor(words, dtype=torch.int64).to(dev)
+        fn[((cap + BLOCK - 1) // BLOCK, k)](tab, *outs, kernel.constants_on(dev), cap, k,
+                                             BLOCK=BLOCK, num_warps=NUM_WARPS,
+                                             enable_fp_fusion=False)
+        cuda_lib.LAUNCHES["fused_chain_stacked"] += 1
+    return outs
+
+
+def fused_chain_stacked_cuda(kernel: FusedKernel, batch_datas, batch_valids,
+                             batch_nrows: Sequence[int]):
+    """The stacked K11 on the card, then K1 once per filtered output group
+    per batch: per batch the same (groups, counts) as
+    :func:`fused_chain_cuda` gives it."""
+    outs = launch_stacked(kernel, batch_datas, batch_valids, batch_nrows)
+    return [_groups(kernel.gen, datas, valids, [o[b] for o in outs], int(nr))
+            for b, (datas, valids, nr) in enumerate(zip(batch_datas, batch_valids, batch_nrows))]

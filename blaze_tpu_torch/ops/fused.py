@@ -11,11 +11,20 @@ one count sync a batch, like a lone FilterExec. Kernels are cached
 process-wide by segment fingerprint, shared across queries; each batch
 counts a ``jit_cache_hits`` or ``jit_cache_misses`` against that cache.
 
+Under a device mesh (``Config(multichip_enabled=True)`` and a
+``ShardedFusedRunner`` of n > 1 slots in the session's resources under
+``__sharded_fused__``, parallel/mesh.py) consecutive batches of one
+capacity stack up to n and run as one stacked K11 launch with one count
+sync for the stack; a capacity change or the stream's end flushes the
+stack, and a stack of one runs alone (the JAX package's
+``_fused_stream_sharded``). Each batch's result is the single-batch
+kernel's.
+
 Not ported: the JAX package's per-batch eager fallback and its
 ``_BROKEN`` trip. The port has no host columns, so a batch that is not
 all device columns of one capacity raises, and so does a kernel that
-fails to build or launch. The sharded path belongs to the mesh (ROADMAP.md
-Queue 1 item 15).
+fails to build or launch. A failed stacked dispatch raises too, where the
+JAX package retries the stack batch by batch.
 """
 
 from __future__ import annotations
@@ -33,6 +42,10 @@ from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ir.fusion import chain_steps, fused_fingerprint
 from blaze_tpu_torch.ops.base import Operator
 from blaze_tpu_torch.ops.basic import coalesce_stream
+
+# the resource under which a session with a device mesh registers its
+# ShardedFusedRunner (parallel/mesh.py)
+SHARDED_FUSED = "__sharded_fused__"
 
 # process-wide kernel cache: segment fingerprint -> FusedKernel, shared
 # across batches, partitions and queries
@@ -98,29 +111,71 @@ class FusedStageExec(Operator):
         self.metrics["fused_ops"] += len(self.node.ops)
         stream = self.execute_child(0, partition, ctx)
         schema = self.children[0].schema
+        runner = ctx.resources.get(SHARDED_FUSED) if ctx.conf.multichip_enabled else None
         for part in self.pipeline:
             if isinstance(part, _FusedSegment):
-                stream = self._fused_stream(stream, part)
+                stream = self._fused_stream(stream, part) if runner is None or runner.n <= 1 \
+                    else self._fused_stream_sharded(stream, part, runner)
                 schema = part.out_schema
             else:
                 stream = coalesce_stream(stream, schema, part[1] or ctx.conf.batch_size,
                                          ctx.conf)
         yield from stream
 
+    @staticmethod
+    def _check_fusable(batch: ColumnarBatch) -> None:
+        cols = batch.columns
+        if not all(isinstance(c, DeviceColumn) for c in cols) or \
+                len({c.capacity for c in cols}) != 1:
+            raise ValueError(
+                "a fused stage takes batches of one-plane device columns of one "
+                f"capacity; got {[(c.dtype, c.capacity) for c in cols]}")
+
     def _fused_stream(self, stream, seg: _FusedSegment):
         for batch in stream:
+            self._check_fusable(batch)
             cols = batch.columns
-            if not all(isinstance(c, DeviceColumn) for c in cols) or \
-                    len({c.capacity for c in cols}) != 1:
-                raise ValueError(
-                    "a fused stage takes batches of one-plane device columns of one "
-                    f"capacity; got {[(c.dtype, c.capacity) for c in cols]}")
             kernel, hit = seg.kernel()
             self.metrics["jit_cache_hits" if hit else "jit_cache_misses"] += 1
             groups, counts = kernels.fused_chain(
                 seg.in_schema, seg.steps, [c.data for c in cols],
                 [c.validity for c in cols], batch.num_rows, kernel=kernel)
             yield from self._emit_groups(seg, batch.num_rows, groups, counts)
+
+    def _fused_stream_sharded(self, stream, seg: _FusedSegment, runner):
+        """Stacks of up to ``runner.n`` consecutive batches of one capacity,
+        each one stacked dispatch; a lone batch runs alone."""
+        staged: list = []
+        seen = False
+
+        def flush():
+            nonlocal seen
+            stack, staged[:] = list(staged), []
+            if len(stack) == 1:
+                yield from self._fused_stream(iter(stack), seg)
+                return
+            kernel, hit = seg.kernel()
+            self.metrics["jit_cache_hits" if hit else "jit_cache_misses"] += 1
+            outs = runner.dispatch(kernel, [[c.data for c in b.columns] for b in stack],
+                                   [[c.validity for c in b.columns] for b in stack],
+                                   [b.num_rows for b in stack])
+            if not seen:
+                seen = True
+                self.metrics["sharded_stages"] += 1
+                runner.counters["sharded_stages"] += 1
+            self.metrics["sharded_batches"] += len(stack)
+            for b, (groups, counts) in zip(stack, outs):
+                yield from self._emit_groups(seg, b.num_rows, groups, counts)
+
+        for batch in stream:
+            self._check_fusable(batch)
+            if staged and batch.capacity != staged[0].capacity:
+                yield from flush()
+            staged.append(batch)
+            if len(staged) >= runner.n:
+                yield from flush()
+        if staged:
+            yield from flush()
 
     @staticmethod
     def _emit_groups(seg: _FusedSegment, batch_rows: int, groups, counts):

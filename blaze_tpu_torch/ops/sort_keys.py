@@ -6,7 +6,8 @@ NaNs and padding rows folded into the rank (K5's key pass,
 core/kernels.py ``sort_key_operands``). ``peer_key_rows`` is the
 window's order-key encoding (ops/joins/keymap.py). ``host_key_part`` is
 the host sort key of one Python value (blaze_tpu/ops/sort_keys.py
-``_host_key_part``), which the range exchange's bound sampling sorts by
+``_host_key_part``); the range exchange's bound sampling sorts by
+``spark_key_part``, the same key with floats in Spark's order
 (runtime/session.py). Keys must be device (fixed-width) values; the host
 path for var-width keys is not ported (ROADMAP.md Queue 2).
 """
@@ -68,6 +69,16 @@ class _Rev:
 
     def __eq__(self, other):
         return self.v == other.v
+
+
+def spark_key_part(v, so: E.SortOrder):
+    """``host_key_part`` in Spark's order of floats (its RangePartitioner's
+    ordering): NaN above every value (so first under DESC), -0.0 equal to
+    0.0. The range exchange sorts its samples by it; the JAX package sorts
+    a float NaN with ``<``, which leaves its bounds out of order."""
+    if isinstance(v, float):
+        v = (1, 0.0) if v != v else (0, v + 0.0)
+    return host_key_part(v, so)
 
 
 def host_key_part(v, so: E.SortOrder):

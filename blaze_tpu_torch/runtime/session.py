@@ -24,10 +24,28 @@ exchange without bounds (Spark's plan for a global ORDER BY) first runs
 its child once to sample them (``_sample_range_bounds``), then again to
 map it. The file and remote shuffle tiers and worker pools are not
 ported (ROADMAP.md Queue 1 items 11, 12 and 13).
+
+``Session(mesh=...)`` takes a device mesh (parallel/mesh.py): every
+ShuffleExchange then runs on it (``_run_mesh_exchange``, the JAX
+package's mesh lowering: map partitions folded onto the slots in
+contiguous blocks, one K17 all-to-all a round, no reducer coalescing).
+``Config(multichip_enabled=True)`` builds a mesh from the config when none
+is given, as the JAX package does: one slot per visible device, at most
+``multichip_devices`` (one slot on a single card, so the exchanges take
+the mesh's code path unstacked; several cards raise, item 15), and
+registers the fused stages' ``ShardedFusedRunner``. The JAX package's
+placement model (runtime/placement.py, item 13) is not ported: under a
+mesh every ShuffleExchange takes the mesh. ``counters`` counts
+``sharded_stages``, ``collective_bytes`` and ``sharded_batches`` (the
+JAX package's metrics that its tests read; the metrics tree is item 10)
+and ``mesh_host_exchanges``, the exchanges whose reducers waited in host
+memory; ``mesh_exchanges`` describes the last query's mesh exchanges
+(rounds, wire bytes, compacted and as masked tiles, payload, residency).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 from typing import Dict, Iterator, List, Optional
@@ -42,7 +60,7 @@ from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ops.base import ExecContext
 from blaze_tpu_torch.ops.joins.bhj import BUILD_MAPS
 from blaze_tpu_torch.ops.shuffle.repartitioner import create_repartitioner
-from blaze_tpu_torch.ops.sort_keys import host_key_part
+from blaze_tpu_torch.ops.sort_keys import spark_key_part
 from blaze_tpu_torch.runtime.executor import build_operator
 from blaze_tpu_torch.utils.device import resolve_device
 
@@ -52,13 +70,33 @@ _COALESCE_MIN_ROWS = 32768
 
 
 class Session:
-    def __init__(self, conf: Optional[Config] = None, device=None):
+    def __init__(self, conf: Optional[Config] = None, device=None, mesh=None):
+        from blaze_tpu_torch.ops.fused import SHARDED_FUSED
+        from blaze_tpu_torch.parallel.mesh import DeviceMesh, ShardedFusedRunner, make_mesh, \
+            visible_devices
+
         self.conf = conf or Config()
         self.device: torch.device = resolve_device(device)
         self.resources: Dict[str, object] = {}
         self._stage_ids = itertools.count()
         self._query_rids: List[str] = []
         self._zip_ok = True
+        self.counters: collections.Counter = collections.Counter()
+        self.mesh_exchanges: List[dict] = []  # the last query's, one a mesh exchange
+        self._mesh_pinned_bytes = 0
+        self.mesh = mesh
+        if mesh is None and self.conf.multichip_enabled:
+            # the JAX package's config-built mesh: one slot per visible
+            # device, at most multichip_devices of them; more than one
+            # spans cards, which DeviceMesh refuses (item 15)
+            nd = visible_devices(self.device)
+            k = max(1, min(self.conf.multichip_devices or nd, nd))
+            self.mesh = make_mesh(1, self.device) if k == 1 else \
+                DeviceMesh([torch.device(self.device.type, i) for i in range(k)])
+        if self.mesh is not None and self.mesh.device != self.device:
+            raise ValueError(f"a mesh on {self.mesh.device} for a session on {self.device}")
+        if self.mesh is not None and self.conf.multichip_enabled:
+            self.resources[SHARDED_FUSED] = ShardedFusedRunner(self.mesh, self.counters)
 
     # -- public API -----------------------------------------------------------
 
@@ -67,6 +105,7 @@ class Session:
         order). Exchange outputs are released when the stream ends."""
         self._query_rids = [BUILD_MAPS]
         self.resources[BUILD_MAPS] = {}
+        self.mesh_exchanges = []
         try:
             op = build_operator(self._lower(plan), self.conf)
             for p in range(op.num_partitions()):
@@ -75,6 +114,7 @@ class Session:
             for rid in self._query_rids:
                 self.resources.pop(rid, None)
             self._query_rids = []
+            self._mesh_pinned_bytes = 0  # the exchanges' outputs went with them
 
     def execute_to_pydict(self, plan: N.PlanNode) -> dict:
         """Python values per output column, in the shape of the JAX
@@ -147,6 +187,8 @@ class Session:
         if isinstance(part, N.RangePartitioning) and not part.bounds and \
                 part.num_partitions > 1:
             part = self._sample_range_bounds(node)
+        if self.mesh is not None:
+            return self._run_mesh_exchange(node, part)
         if isinstance(part, N.SinglePartitioning) and part.num_partitions == 1:
             # a single-reducer exchange is a collect, assembled in map order
             return N.CoalesceBatches(N.BatchSource(schema, self._collect(node.child), 1),
@@ -174,12 +216,74 @@ class Session:
         return N.CoalesceBatches(N.BatchSource(schema, rid, len(groups)),
                                  batch_size=0)
 
+    def _run_mesh_exchange(self, node: N.ShuffleExchange, part) -> N.PlanNode:
+        """The exchange on the device mesh (blaze_tpu/runtime/session.py
+        ``_run_mesh_exchange``): each map partition's batches concatenated
+        (K7) with their reducer ids (K2, K14 or round robin, per task),
+        partitions folded onto the n slots in contiguous blocks (slot =
+        m * n // num_maps, so every reducer's rows keep the map order at
+        every slot count), one ``MeshBatchExchange.run``, the outputs
+        behind a BatchSource of ``num_partitions`` reducers (no coalescing).
+        The resident budget is what the query's earlier exchanges left."""
+        from blaze_tpu_torch.parallel.mesh import HostBatch, MeshBatchExchange
+
+        schema = node.child.output_schema
+        child_op = build_operator(node.child, self.conf)
+        num_maps = child_op.num_partitions()
+        num_reducers = part.num_partitions
+        n = self.mesh.n
+        shared = None if isinstance(part, N.RoundRobinPartitioning) else \
+            create_repartitioner(part, schema)
+        shard_batches: List[Optional[ColumnarBatch]] = [None] * n
+        shard_pids: List = [None] * n
+        for m in range(num_maps):
+            batches = [b for b in child_op.execute(m, self._ctx()) if b.num_rows]
+            if not batches:
+                continue
+            batch = ColumnarBatch.concat(batches, schema, self.conf)
+            pids = (shared or create_repartitioner(part, schema)).partition_ids(batch)
+            s = m * n // num_maps
+            if shard_batches[s] is None:
+                shard_batches[s], shard_pids[s] = batch, pids
+            else:
+                shard_batches[s] = ColumnarBatch.concat([shard_batches[s], batch], schema,
+                                                        self.conf)
+                shard_pids[s] = torch.cat([shard_pids[s], pids])
+        exchange = MeshBatchExchange(self.mesh)
+        remaining = max(0, self.conf.mesh_device_resident_max_bytes - self._mesh_pinned_bytes)
+        reducers = exchange.run(schema, shard_batches, shard_pids, num_reducers,
+                                device_resident_budget=remaining, conf=self.conf)
+        if exchange.last_device_resident:
+            self._mesh_pinned_bytes += exchange.last_payload_bytes
+        self.counters["sharded_stages"] += 1
+        self.counters["collective_bytes"] += int(exchange.last_wire_bytes)
+        if not exchange.last_device_resident:
+            self.counters["mesh_host_exchanges"] += 1
+        self.mesh_exchanges.append({
+            "reducers": num_reducers, "rounds": exchange.last_rounds,
+            "wire_bytes": exchange.last_wire_bytes,
+            "wire_bytes_uncompacted": exchange.last_wire_bytes_uncompacted,
+            "payload_bytes": exchange.last_payload_bytes,
+            "device_resident": exchange.last_device_resident})
+
+        def provider(r, _out=reducers, _dev=self.device, _conf=self.conf):
+            rb = _out[r]
+            if rb is None:
+                return []
+            return [rb.to_columnar(_dev, _conf) if isinstance(rb, HostBatch) else rb]
+
+        return N.CoalesceBatches(N.BatchSource(schema, self._register(provider),
+                                               num_reducers), batch_size=0)
+
     def _sample_range_bounds(self, node: N.ShuffleExchange) -> N.RangePartitioning:
         """num_partitions - 1 quantile bounds of the child's sort keys
         (blaze_tpu/runtime/session.py:_sample_range_bounds, the same
         procedure): every max(1, rows // 50)-th row of each batch, until a
         partition has given 5,000 rows; the samples sorted by their host
-        keys, the bound i the sample at i * len // num_partitions."""
+        keys, the bound i the sample at i * len // num_partitions. Floats
+        sort in Spark's order (NaN above every value, -0.0 equal to 0.0),
+        where the JAX package's sort leaves NaN samples out of order; K14's
+        ids do not depend on the bounds' order, only the balance does."""
         part = node.partitioning
         child_op = build_operator(node.child, self.conf)
         exprs = [so.child for so in part.sort_orders]
@@ -202,7 +306,7 @@ class Session:
             return dataclasses.replace(part, bounds=[])
 
         def keyf(row):
-            return tuple(host_key_part(v, so) for v, so in zip(row, part.sort_orders))
+            return tuple(spark_key_part(v, so) for v, so in zip(row, part.sort_orders))
 
         samples.sort(key=keyf)
         n = part.num_partitions

@@ -14,7 +14,10 @@ the generated Triton kernel of a fused chain (exprs/fused_triton.py),
 counts under ``fused_chain``; K13, the window aggregates' segmented scan,
 under ``segment_scan``; K14, the range exchange's partition ids, under
 ``range_partition``; K15, the xxhash64 row hash, under ``xxhash64``;
-K16, the bloom filter's probe, under ``bloom_probe``. Beside them
+K16, the bloom filter's probe, under ``bloom_probe``; K17, the device
+mesh's all-to-all (csrc/mesh.cu), under ``mesh_all_to_all``; the stacked
+form of K11 (several same-shape batches a launch) under
+``fused_chain_stacked``. Beside them
 ``LIMB_LAUNCHES`` counts, per kernel, the launches that carried each
 wide-decimal (limb) op: the aggregate kinds sum2/avg2/sum3/avg3/minw/maxw
 of K3, K4 and K10, and K12's limb update ops (``limb_launch_counts``).
@@ -38,7 +41,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu",
            "join.cu", "seg_agg.cu", "slot_update.cu", "seg_scan.cu", "range_part.cu",
-           "xxhash64.cu", "bloom.cu")
+           "xxhash64.cu", "bloom.cu", "mesh.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libblaze_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -65,6 +68,8 @@ LAUNCHES: Dict[str, int] = {
     "range_partition": 0,
     "xxhash64": 0,
     "bloom_probe": 0,
+    "mesh_all_to_all": 0,
+    "fused_chain_stacked": 0,
 }
 
 LIMB_LAUNCHES: Dict[str, int] = {}
@@ -260,6 +265,9 @@ _SIGNATURES = {
     "blz_xxhash64": [_I, _PP, _PP, _PI, _I64, _I64, _U64, _P, _P],
     # values, n, words, k, bit_size, out, stream
     "blz_bloom_probe": [_P, _I64, _P, _I, _I64, _P, _P],
+    # table, n, nplanes, rpad, G, scap, round, tile, chunk, live_out,
+    # live_counts, stream
+    "blz_mesh_all_to_all": [_P, _I, _I, _I64, _I64, _I64, _I64, _I, _I64, _P, _P, _P],
 }
 
 

@@ -10,7 +10,7 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K16 held against their plain PyTorch versions on the
+3. kernels: K1-K17 held against their plain PyTorch versions on the
    card, exactly (float planes bit for bit), at the main paths' shapes and
    at edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
@@ -70,6 +70,25 @@ only when every phase passed:
    against a numpy probe, timed at a q69_bloom store batch (262,144 rows,
    the path's 1 MiB filter, k = 6) (and every K16 launch of q69_bloom's
    first run held to the twin);
+   for the device mesh's all-to-all, K17: 1, 2 and 8 slots, 1 to 40
+   reducers (more reducers than slots), bool/int8/int16/int32/int64/
+   float32/float64 planes with NaN, +-0.0, +-inf, subnormals and int
+   extremes, null and padding rows, empty slots and every slot empty, a
+   skewed reducer over many rounds, tile mode (exchange_and_aggregate's
+   masked tiles), and sort10M_mesh's exchange (8 slots of 1,250,000 rows,
+   32 reducers, 12 planes), timed there beside the library chain
+   (index_select per plane and slot, the block permute copy) (and every
+   K17 launch of the mesh paths' first runs held to the twin, the first
+   exchange of each timed); for the stacked K11 (ShardedFusedRunner):
+   nine chains of K11's battery (every step kind and expression family)
+   over stacks of 1 to 8 batches, each batch held to the single-batch
+   plain version, and 8 q96 store batches of 262,144 rows held to it and
+   to the single-batch K11, timed against 8 single K11 dispatches (and
+   every stacked launch of the mesh paths' first runs held batch by batch
+   to the stacked plain version); (after phase 4) the mesh's demo steps,
+   exchange_and_aggregate and broadcast_join_sum at 8 slots of 262,144
+   rows, each held to the same step on the plain versions and to numpy and
+   timed beside it, and run_distributed_sum end to end;
    K11's battery also covers CASE and Cast/TryCast; then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
@@ -158,6 +177,16 @@ only when every phase passed:
      schema (int32 keys, decimal(7,2) price; seed 1115), exact in order
      against a numpy XXH64 and ``np.bincount`` sums, K15 once a sales
      batch (112);
+   - the device mesh (``Session(device, mesh=make_mesh(k, dev),
+     conf=Config(multichip_enabled=True))``, every slot on the one card):
+     q01_mesh1, q01_mesh2 and q01_mesh8 (q01 on 1, 2 and 8 slots: K17
+     once on its hash exchange and once on its single one), q96_mesh
+     (q96 on 8 slots: the store_sales filter's batches in stacks of 8
+     through the stacked K11, counted against the stacking of the staged
+     batches' capacities, and K11 q96's count less the stacked batches)
+     and sort10M_mesh (sort10M on 8 slots: 32 maps fold 4 a slot, one K17
+     exchange round, the payload past the 128 MiB resident budget so the
+     reducers wait in host memory), each exact against its path's oracle;
    all through ``Session().execute_to_pydict`` (sort10M: ``execute``) in
    partitions staged on the card; every kernel must have launched over
    the sixteen runs, every
@@ -181,13 +210,16 @@ writes q01's Chrome trace to PATH and the other paths' beside it
 ``_q47.json``, ``_q69.json``, ``_q69_bloom.json``, ``_q96.json``,
 ``_q89.json``, ``_q17.json``,
 ``_q17_sort.json``, ``_q17_table.json``, ``_q98.json``, ``_sort10m.json``,
-``_hash_sample.json``).
+``_hash_sample.json``, and the mesh paths' ``_q01_mesh1.json``,
+``_q01_mesh2.json``, ``_q01_mesh8.json``, ``_q96_mesh.json``,
+``_sort10m_mesh.json``).
 
 Needs one CUDA device; exits 2 without one, or when run outside a checkout
 of the repository.
 """
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -1596,6 +1628,107 @@ def kernel_k11(dev, rng, results):
         # planes and the count
         bytes=2 * plane_bytes + 8, k11_only_ms=k11_ms, k11_only_bytes=3 * cap,
         battery_s=battery_s))
+
+
+FUSED_STACK_ROWS = (4096, 4000, 0, 17, 4096, 2049, 1, 3000)
+# the chains of K11's battery the stacked form is held to here: every step
+# kind and expression family (tests/test_torch_cuda.py takes all of them)
+FUSED_STACK_CASES = ("q69 scan filter", "floats", "decimals", "chain", "expand rename",
+                     "isnotnull project", "case filter", "casts", "none kept")
+
+
+def kernel_k11_stacked(dev, rng, results):
+    """The stacked K11 (ShardedFusedRunner's dispatch): the battery chains
+    of FUSED_STACK_CASES over stacks of k = 1..8 batches of 4,096 rows
+    (live rows from FUSED_STACK_ROWS), each batch held to the single-batch
+    plain version; then q96's store_sales filter over 8 batches of
+    262,144 rows, each held to the plain version and to the single-batch
+    K11, and timed against 8 single K11 dispatches of the same batches."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.exprs.fused_triton import (FusedKernel, fused_chain_cuda, launch,
+                                                    launch_stacked)
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    t0 = time.perf_counter()
+    cases = []
+    for name, schema, steps in fused_cases(E, T):
+        if name not in FUSED_STACK_CASES:
+            continue
+        kern = FusedKernel(schema, steps)
+        for k in range(1, 9):
+            host = [fused_planes(4096, FUSED_STACK_ROWS[b], rng) for b in range(k)]
+            datas = [[torch.from_numpy(x).to(dev) for x in d] for d, _v in host]
+            valids = [[torch.from_numpy(x).to(dev) for x in v] for _d, v in host]
+            got = K.fused_chain_stacked(schema, steps, datas, valids, FUSED_STACK_ROWS[:k],
+                                        kernel=kern)
+            for b in range(k):
+                want = K.fused_chain_plain(schema, steps, datas[b], valids[b],
+                                           FUSED_STACK_ROWS[b])
+                check_equal("fused_chain_stacked", f"{name} k={k} batch {b}",
+                            fused_flat(got[b]), [x.to(dev) for x in fused_flat(want)])
+        cases.append(f"{name}, k = 1..8")
+    battery_s = time.perf_counter() - t0
+    # main path: q96's store_sales filter (isnotnull on its three keys, 4%
+    # of each null) over 8 batches of 262,144 rows
+    names = ("ss_sold_time_sk", "ss_hdemo_sk", "ss_store_sk")
+    sch = T.Schema.of(*[(c, T.I64) for c in names])
+    pred = E.IsNotNull(E.Column(names[0]))
+    for c in names[1:]:
+        pred = E.BinaryExpr(E.BinaryOp.AND, pred, E.IsNotNull(E.Column(c)))
+    steps = (("filter", (pred,)),)
+    kern = FusedKernel(sch, steps)
+    cap = 262144
+    datas, valids = [], []
+    for _b in range(8):
+        vs = [rng.random(cap) >= 0.04 for _c in names]
+        datas.append([torch.from_numpy(np.where(v, rng.integers(1, 86_400, cap), 0)).to(dev)
+                      for v in vs])
+        valids.append([torch.from_numpy(v).to(dev) for v in vs])
+    rows = [cap] * 8
+    got = K.fused_chain_stacked(sch, steps, datas, valids, rows, kernel=kern)
+    for b in range(8):
+        check_equal("fused_chain_stacked", f"q96 store_sales batch {b} of 8", fused_flat(got[b]),
+                    [x.to(dev) for x in fused_flat(K.fused_chain_plain(sch, steps, datas[b],
+                                                                      valids[b], cap))])
+        check_equal("fused_chain_stacked", f"q96 store_sales batch {b} of 8 against K11",
+                    fused_flat(got[b]), fused_flat(fused_chain_cuda(kern, datas[b], valids[b], cap)))
+
+    def stacked():
+        per = K.fused_chain_stacked(sch, steps, datas, valids, rows, kernel=kern)
+        return torch.stack([c for _g, cs in per for c in cs]).tolist()
+
+    def single8():
+        return [int(c) for b in range(8)
+                for c in fused_chain_cuda(kern, datas[b], valids[b], cap)[1]]
+
+    if stacked() != single8():
+        raise AssertionError("stacked K11's counts differ from 8 single K11 dispatches")
+    plane_bytes = sum(x.numel() * x.element_size() for x in datas[0] + valids[0])
+    results.append(dict(
+        name="fused_chain_stacked", route="triton",
+        source="blaze_tpu_torch/exprs/fused_triton.py",
+        replaces="blaze_tpu/parallel/mesh.py:671",
+        shape="8 stacked q96 store_sales batches, 262,144 rows x 3 int64 columns, "
+              "isnotnull on all three: stacked K11 + 8 K1 + one count sync",
+        cases=cases, ms=time_ms(stacked),
+        plain_ms=time_ms(lambda: K.fused_chain_stacked_plain(sch, steps, datas, valids, rows)),
+        library_ms=None,
+        library_call="none: no single PyTorch call computes a fused chain",
+        eight_single_ms=time_ms(single8),
+        k11_only_ms=time_ms(lambda: launch_stacked(kern, datas, valids, rows)),
+        k11_eight_single_ms=time_ms(lambda: [launch(kern, datas[b], valids[b], cap)
+                                             for b in range(8)]),
+        device_ms=kernel_device_ms(lambda: launch_stacked(kern, datas, valids, rows),
+                                   "fused_chain_stacked"),
+        # the stacked K11 alone reads the three validity planes and writes
+        # the live mask, a byte a row each, per batch
+        k11_only_bytes=8 * 4 * cap,
+        # each batch reads its planes once and writes its compacted planes
+        # and its count
+        bytes=8 * (2 * plane_bytes + 8), battery_s=battery_s))
 
 
 def check_fused_stage_coalesce(dev, rng):
@@ -3147,6 +3280,434 @@ def kernel_k16(dev, rng, results):
         bytes=262144 * (8 + 1) + words.nbytes))
 
 
+# -- K17: the device mesh's all-to-all ------------------------------------------------
+
+MESH_NP = {"bool": "bool", "i8": "int8", "i16": "int16", "i32": "int32", "i64": "int64",
+           "f32": "float32", "f64": "float64"}
+MESH_DTYPES = tuple(MESH_NP)
+# sort10M_mesh's planes: item, store, quantity and price (int64 with their
+# validity), then the decimal(38,2) cost's three limbs and its validity
+SORT10M_MESH_PLANES = ("i64", "bool") * 4 + ("i64", "i64", "i64", "bool")
+# (label, slots n, reducers R (None: tile mode), rows a slot, plane kinds,
+# null share, empty slots, segment rows scap (0: as MeshBatchExchange sizes
+# it), share of rows routed to reducer 0)
+MESH_CASES = (
+    ("n1 R4", 1, 4, 3000, MESH_DTYPES, 0.1, (), 0, 0.0),
+    ("n2 R2", 2, 2, 2500, MESH_DTYPES, 0.1, (), 0, 0.0),
+    ("n8 R8", 8, 8, 1000, MESH_DTYPES, 0.15, (), 0, 0.0),
+    ("n8 R13, empty slots", 8, 13, 700, MESH_DTYPES, 0.15, (0, 5), 0, 0.0),
+    ("n8 R3, skewed, many rounds", 8, 3, 4000, ("i64", "f64", "bool"), 0.05, (2,), 64, 0.9),
+    ("n2 R40, rounds of 8 rows", 2, 40, 5000, ("i32", "bool"), 0.0, (), 8, 0.0),
+    ("n8, every slot empty", 8, 4, 0, ("i64", "bool"), 0.0, (), 0, 0.0),
+    ("tile n1", 1, None, 256, ("i64",) * 3, 0.2, (), 0, 0.0),
+    ("tile n2", 2, None, 1, ("i64",) * 3, 0.0, (), 0, 0.0),
+    ("tile n8", 8, None, 1024, MESH_DTYPES, 0.2, (), 0, 0.0),
+)
+
+
+def mesh_values(kind, rows, rng):
+    """numpy values of a plane kind: the edge values mixed in (int minimum
+    and maximum, NaN, +-0.0, +-inf, subnormals)."""
+    import numpy as np
+
+    dt = np.dtype(MESH_NP[kind])
+    if kind == "bool":
+        return rng.random(rows) < 0.5
+    if dt.kind == "f":
+        x = (rng.standard_normal(rows) * 100).astype(dt)
+        special = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, 1e-40 if kind == "f32"
+                            else 5e-324], dtype=dt)
+    else:
+        info = np.iinfo(dt)
+        x = rng.integers(info.min, info.max, rows, dtype=dt, endpoint=True)
+        special = np.array([info.min, info.max, 0, -1], dtype=dt)
+    pick = rng.random(rows) < 0.1
+    x[pick] = special[rng.integers(0, len(special), int(pick.sum()))]
+    return x
+
+
+def mesh_case(case, rng):
+    """K17's inputs for one MESH_CASES entry, as numpy: per slot its planes
+    (each paired with a validity plane: null rows 0, capacity-bucket padding
+    0) and route (exchange mode: the stable order of its reducer ids; tile
+    mode: the id a row, n where it goes nowhere), and the geometry."""
+    import numpy as np
+
+    label, n, R, rows, kinds, nulls, empty, scap, skew = case
+    tile = R is None
+    kinds = tuple(kinds) if tile else tuple(k for kind in kinds for k in (kind, "bool"))
+    slots, routes, pids = [], [], []
+    for s in range(n):
+        if s in empty or rows == 0:
+            slots.append(None)
+            routes.append(None)
+            pids.append(None)
+            continue
+        cap = rows if tile else 1 << max(8, (rows - 1).bit_length())
+        valid = rng.random(rows) >= nulls
+        planes = []
+        for i, kind in enumerate(kinds):
+            buf = np.zeros(cap, dtype=MESH_NP[kind])
+            if not tile and i % 2:      # the validity of the plane before it
+                buf[:rows] = valid
+            else:
+                buf[:rows] = np.where(valid, mesh_values(kind, rows, rng), 0)
+            planes.append(buf)
+        slots.append(planes)
+        if tile:
+            pid = np.where(valid, rng.integers(0, n, rows), n).astype(np.int64)
+            routes.append(pid)
+            pids.append(pid)
+        else:
+            pid = rng.integers(0, R, rows).astype(np.int32)
+            pid[rng.random(rows) < skew] = 0
+            routes.append(np.argsort(pid, kind="stable").astype(np.int64))
+            pids.append(pid)
+    out = {"label": label, "n": n, "kinds": kinds, "slots": slots, "routes": routes,
+           "pids": pids}
+    if tile:
+        out.update(chunk=rows, counts=None, G=1, scap=1, rounds=1)
+        return out
+    G = -(-R // n)
+    counts = np.zeros((n, G * n), np.int64)
+    for s, p in enumerate(pids):
+        if p is not None:
+            counts[s] = np.bincount(p, minlength=G * n)
+    maxc = int(counts.max())
+    if not scap:
+        scap = max(512, -(-maxc // 512) * 512)
+    out.update(chunk=G * scap, counts=counts, G=G, scap=scap,
+               rounds=max(1, -(-maxc // scap)), R=R)
+    return out
+
+
+def mesh_torch(case, dev):
+    """(slot planes, routes, plane dtypes) of a mesh case as torch tensors
+    on ``dev``."""
+    import torch
+
+    planes = [None if sp is None else [torch.from_numpy(p).to(dev) for p in sp]
+              for sp in case["slots"]]
+    routes = [None if r is None else torch.from_numpy(r).to(dev) for r in case["routes"]]
+    dtypes = [getattr(torch, {"i8": "int8", "i16": "int16", "i32": "int32", "i64": "int64",
+                              "f32": "float32", "f64": "float64", "bool": "bool"}[k])
+              for k in case["kinds"]]
+    return planes, routes, dtypes
+
+
+def mesh_run(case, fn, dev):
+    """Every round of a mesh case through ``fn`` (K17 or its twin): per
+    round (planes, live plane, live counts)."""
+    planes, routes, dtypes = mesh_torch(case, dev)
+    return [fn(planes, routes, case["chunk"], dev, dtypes, case["counts"], case["G"],
+               case["scap"], t) for t in range(case["rounds"])]
+
+
+def mesh_recv_counts(case):
+    """The rows each destination slot receives each round, from the count
+    matrix (exchange mode)."""
+    import numpy as np
+
+    n, G, scap = case["n"], case["G"], case["scap"]
+    out = []
+    for t in range(case["rounds"]):
+        live = np.clip(case["counts"] - t * scap, 0, scap)
+        out.append([int(live[:, d * G:(d + 1) * G].sum()) for d in range(n)])
+    return out
+
+
+def mesh_chain(planes, routes, counts, n, G, scap, dev, dtypes):
+    """The library yardstick of one exchange round: each slot's send buffer
+    of every plane by ``index_select`` and ``where`` over the pack's indices
+    (computed once, outside the timing), then the all-to-all as one block
+    permute copy a plane."""
+    import numpy as np
+    import torch
+
+    seg_len = n * G * scap
+    sidx, lv = [], []
+    starts = np.cumsum(counts, 1) - counts
+    for s in range(n):
+        src = np.full(seg_len, -1, np.int64)
+        if routes[s] is not None:
+            order = routes[s].cpu().numpy()
+            for r in range(n * G):
+                c = min(int(counts[s, r]), scap)
+                src[r * scap: r * scap + c] = order[starts[s, r]: starts[s, r] + c]
+        sidx.append(torch.from_numpy(np.maximum(src, 0)).to(dev))
+        lv.append(torch.from_numpy(src >= 0).to(dev))
+
+    def run():
+        outs = []
+        for p, dt in enumerate(dtypes):
+            zero = torch.zeros((), dtype=dt, device=dev)
+            send = torch.stack([
+                torch.where(lv[s], torch.index_select(planes[s][p], 0, sidx[s]), zero)
+                if planes[s] is not None else torch.zeros(seg_len, dtype=dt, device=dev)
+                for s in range(n)])
+            outs.append(send.view(n, n, G * scap).transpose(0, 1).contiguous().view(-1))
+        live = torch.stack(lv).view(n, n, G * scap).transpose(0, 1).contiguous().view(-1)
+        return outs, live
+
+    return run
+
+
+def mesh_bytes(planes, dtypes, live_rows, total):
+    """K17's bytes: each live row of every plane read once through its
+    8-byte route entry, every output position of every plane and the live
+    plane written once."""
+    import torch
+
+    sizes = sum(torch.empty((), dtype=dt).element_size() for dt in dtypes)
+    return live_rows * (sizes + 8) + total * (sizes + 1)
+
+
+MESH_PATH_TIMES = {}
+
+
+@contextlib.contextmanager
+def mesh_twin_check(name, stacks=0):
+    """While open, every K17 launch is also held to its twin on the same
+    inputs (``mesh_all_to_all:<name>``), and every stacked K11 launch,
+    batch by batch, to the stacked plain version (``fused_chain_stacked:
+    <name>``); the run must make ``stacks`` stacked launches. The first
+    K17 launch is then timed (K17, its device time, its twin and the
+    library chain) into ``MESH_PATH_TIMES[name]``."""
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    fn, stacked_fn = K.mesh_all_to_all, K.fused_chain_stacked
+    first, seen = [], []
+
+    def checked_stacked(in_schema, steps, batch_datas, batch_valids, batch_nrows, kernel=None):
+        got = stacked_fn(in_schema, steps, batch_datas, batch_valids, batch_nrows, kernel=kernel)
+        want = K.fused_chain_stacked_plain(in_schema, steps, batch_datas, batch_valids,
+                                           batch_nrows)
+        if len(got) != len(want):
+            raise AssertionError(f"fused_chain_stacked [{name}]: {len(got)} batches, "
+                                 f"not {len(want)}")
+        dev = batch_datas[0][0].device
+        for b, (g, w) in enumerate(zip(got, want)):
+            check_equal("fused_chain_stacked", f"{name} stack {len(seen)} batch {b}",
+                        fused_flat(g), [x.to(dev) for x in fused_flat(w)])
+        seen.append(len(got))
+        return got
+
+    def checked(slot_planes, routes, chunk, device, dtypes, counts=None, G=1, scap=1, rnd=0):
+        got = fn(slot_planes, routes, chunk, device, dtypes, counts, G, scap, rnd)
+        check_equal("mesh_all_to_all", name, got,
+                    K.mesh_all_to_all_plain(slot_planes, routes, chunk, device, dtypes,
+                                            counts, G, scap, rnd))
+        if counts is not None and not first:
+            first.append((slot_planes, routes, chunk, device, dtypes, counts, G, scap, rnd))
+        return got
+
+    K.mesh_all_to_all, K.fused_chain_stacked = checked, checked_stacked
+    try:
+        yield
+    finally:
+        K.mesh_all_to_all, K.fused_chain_stacked = fn, stacked_fn
+    if not first:
+        raise AssertionError(f"{name}'s first run launched no K17 exchange round")
+    if len(seen) != stacks:
+        raise AssertionError(f"{name}'s first run held {len(seen)} stacked K11 launches to "
+                             f"the plain version, not {stacks}")
+    args = first[0]
+    slot_planes, routes, chunk, device, dtypes, counts, G, scap, rnd = args
+    n = len(slot_planes)
+    chain = mesh_chain(slot_planes, routes, counts, n, G, scap, device, dtypes)
+    outs, live, _c = K.mesh_all_to_all_cuda(*args)
+    c_outs, c_live = chain()
+    check_equal("mesh_all_to_all", f"{name}: the library chain", (c_outs, c_live), (outs, live))
+    live_rows = int(live.sum().item())
+    MESH_PATH_TIMES[name] = {
+        "slots": n, "reducers_padded": counts.shape[1], "scap": scap, "planes": len(dtypes),
+        "rows": int(counts.sum()), "positions": int(live.shape[0]),
+        "ms": time_ms(lambda: K.mesh_all_to_all_cuda(*args)),
+        "device_ms": kernel_device_ms(lambda: K.mesh_all_to_all_cuda(*args), "blz_mesh_a2a"),
+        "plain_ms": time_ms(lambda: K.mesh_all_to_all_plain(*args)),
+        "library_ms": time_ms(chain),
+        "bytes": mesh_bytes(slot_planes, dtypes, live_rows, int(live.shape[0]))}
+    MESH_PATH_TIMES[name]["bound_ms"] = MESH_PATH_TIMES[name]["bytes"] / HBM_BYTES_PER_S * 1e3
+    del outs, live, c_outs, c_live
+    torch.cuda.synchronize()
+
+
+def kernel_k17(dev, rng, results):
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    cases = []
+    for spec in MESH_CASES:
+        case = mesh_case(spec, rng)
+        got = mesh_run(case, K.mesh_all_to_all_cuda, dev)
+        check_equal("mesh_all_to_all", spec[0], got, mesh_run(case, K.mesh_all_to_all_plain, dev))
+        if case["counts"] is not None:
+            if [r[2].tolist() for r in got] != mesh_recv_counts(case):
+                raise AssertionError(f"mesh_all_to_all [{spec[0]}]: live counts "
+                                     f"{[r[2].tolist() for r in got]}")
+        cases.append(f"{spec[0]} ({case['rounds']} rounds)")
+    # main path: sort10M_mesh's exchange, 10,000,000 rows folded onto 8
+    # slots, range ids into 32 reducers (G = 4), the soak's five columns
+    spec = ("sort10M_mesh", 8, 32, 1_250_000, ("i64",) * 4 + ("i64", "i64", "i64"), 0.0,
+            (), 0, 0.0)
+    case = mesh_case(spec, rng)
+    case["kinds"] = SORT10M_MESH_PLANES
+    for sp in case["slots"]:       # the three limbs share the last validity
+        del sp[11], sp[9]
+    planes, routes, dtypes = mesh_torch(case, dev)
+    args = (planes, routes, case["chunk"], dev, dtypes, case["counts"], case["G"],
+            case["scap"], 0)
+    got = K.mesh_all_to_all_cuda(*args)
+    check_equal("mesh_all_to_all", "sort10M_mesh's exchange", got,
+                K.mesh_all_to_all_plain(*args))
+    chain = mesh_chain(planes, routes, case["counts"], 8, case["G"], case["scap"], dev, dtypes)
+    check_equal("mesh_all_to_all", "sort10M_mesh: the library chain", chain(), got[:2])
+    live_rows = int(case["counts"].sum())
+    total = int(got[1].shape[0])
+    del got
+    results.append(dict(
+        name="mesh_all_to_all", route="cuda", source="blaze_tpu_torch/csrc/mesh.cu",
+        replaces="blaze_tpu/parallel/mesh.py:215",
+        shape=f"sort10M_mesh's exchange: 8 slots of 1,250,000 rows, 32 reducers (G = 4), "
+              f"scap = {case['scap']}, 12 planes (7 int64, 5 bool), {total:,} positions",
+        cases=cases, ms=time_ms(lambda: K.mesh_all_to_all_cuda(*args)),
+        device_ms=kernel_device_ms(lambda: K.mesh_all_to_all_cuda(*args), "blz_mesh_a2a"),
+        plain_ms=time_ms(lambda: K.mesh_all_to_all_plain(*args)),
+        library_ms=time_ms(chain),
+        library_call="index_select + where per plane and slot, stack, and the block "
+                     "permute copy a plane (a chain)",
+        bytes=mesh_bytes(planes, dtypes, live_rows, total)))
+    del args, planes, routes, chain
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While open, the kernel dispatchers that the mesh's demo steps call
+    (K1, K2, K5, K6, K9, K10 and K17) run their plain PyTorch versions, on
+    whatever device their tensors are: the steps' plain time on the card."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.exprs import spark_hash as H
+
+    swaps = {(K, "mesh_all_to_all"): K.mesh_all_to_all_plain,
+             (K, "compact_planes"): lambda d, v, m: (lambda c, od, ov: (int(c), od, ov))(
+                 *K.compact_planes_plain(d, v, m)),
+             (K, "sort_key_operands"): K.sort_key_operands_plain,
+             (K, "lexsort_indices"): K.lexsort_indices_plain,
+             (K, "segment_starts_cuda"): K.segment_starts_plain,
+             (K, "segment_reduce"): lambda name, *a, kinds=(): K.segment_reduce_plain(*a),
+             (K, "gather_planes"): K.gather_planes_plain,
+             (K, "probe_codes"): K.probe_codes_plain,
+             (H, "murmur3_pmod"): lambda w, v, k, n, p: H.murmur3_pmod_plain(w, v, k, n, p)[1]}
+    old = {key: getattr(*key) for key in swaps}
+    for (mod, name), fn in swaps.items():
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in old.items():
+            setattr(mod, name, fn)
+
+
+MESH_DEMOS = {}
+
+
+def mesh_demos(dev, rng):
+    """The JAX package's mesh demos on the card, 8 slots of 262,144 rows:
+    exchange_and_aggregate's step (row 18b: K1 + K5 + K10 a slot, K2, K17
+    in tile mode, K1 + K5 + K10 a destination) and broadcast_join_sum's (row 18c:
+    K9 + K6 a slot against 102,000 sorted build keys with duplicates), each
+    held to the same step with every kernel's plain version on the card
+    and to numpy, then timed (CUDA events) beside that plain step; and
+    run_distributed_sum (row 18e: the host driver of 18b, numpy in, a dict
+    out) timed end to end. Into ``MESH_DEMOS``."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.parallel import mesh as M
+
+    n, cap = 8, 262144
+    mesh = M.make_mesh(n, dev)
+    keys = torch.from_numpy(rng.integers(0, 200_000, n * cap)).to(dev)
+    vals = torch.from_numpy(rng.integers(0, 1000, n * cap)).to(dev)
+    valid = torch.from_numpy(rng.random(n * cap) >= 0.02).to(dev)
+    step = M.exchange_and_aggregate(mesh, cap)
+    got = step(keys, vals, valid)
+    with plain_kernels():
+        want = step(keys, vals, valid)
+    check_equal("mesh_demo", "exchange_and_aggregate", list(got), list(want))
+    uk, sums, counts, ok, total = (x.cpu().numpy() for x in got)
+    kv, vv, mv = keys.cpu().numpy(), vals.cpu().numpy(), valid.cpu().numpy()
+    exp_s = np.bincount(kv[mv], weights=vv[mv], minlength=200_000).astype(np.int64)
+    exp_c = np.bincount(kv[mv], minlength=200_000)
+    if not (np.array_equal(np.sort(uk[ok]), np.nonzero(exp_c)[0])
+            and np.array_equal(sums[ok][np.argsort(uk[ok])], exp_s[exp_c > 0])
+            and np.array_equal(counts[ok][np.argsort(uk[ok])], exp_c[exp_c > 0])
+            and int(total) == int(mv.sum())):
+        raise AssertionError("exchange_and_aggregate differs from numpy")
+    out_rows = n * n * cap
+    with plain_kernels():
+        plain_ms = time_ms(lambda: step(keys, vals, valid), iters=3)
+    MESH_DEMOS["exchange_and_aggregate"] = {
+        "shape": f"{n} slots x {cap:,} int64 rows, keys in [0, 200,000), 2% invalid",
+        "ms": time_ms(lambda: step(keys, vals, valid), iters=5), "plain_ms": plain_ms,
+        "library_ms": None, "library_call": "none: no single PyTorch call",
+        # keys, values and validity read once; four output planes of n * n *
+        # cap rows and the psum written once
+        "bytes": n * cap * 17 + out_rows * 25 + 8, "groups": int(ok.sum())}
+    host_k, host_v = kv[mv], vv[mv]
+    t0 = time.perf_counter()
+    res = M.run_distributed_sum(host_k, host_v, mesh)
+    MESH_DEMOS["run_distributed_sum"] = {"wall_s": time.perf_counter() - t0,
+                                         "rows": len(host_k), "groups": len(res)}
+    # 18c: the probe sharded, the build (SF10's 102,000 items with keys
+    # drawn with repeats) replicated and sorted
+    bk_host = np.sort(rng.integers(0, 150_000, 102_000))
+    bcap = 131072
+    bk = torch.full((bcap,), np.iinfo(np.int64).max, dtype=torch.int64)
+    bk[:len(bk_host)] = torch.from_numpy(bk_host)
+    bk = bk.to(dev)
+    bv = torch.arange(bcap, dtype=torch.int64, device=dev) * 7
+    pk = torch.from_numpy(rng.integers(0, 160_000, n * cap)).to(dev)
+    pv = torch.from_numpy(rng.random(n * cap) >= 0.04).to(dev)
+    join = M.broadcast_join_sum(mesh, cap, bcap)
+    got = join(pk, pv, bk, bv, len(bk_host))
+    with plain_kernels():
+        want = join(pk, pv, bk, bv, len(bk_host))
+    check_equal("mesh_demo", "broadcast_join_sum", list(got), list(want))
+    idx = np.searchsorted(bk_host, pk.cpu().numpy())
+    hit = pv.cpu().numpy() & (idx < len(bk_host)) & \
+        (bk_host[np.minimum(idx, len(bk_host) - 1)] == pk.cpu().numpy())
+    if not (np.array_equal(got[0].cpu().numpy(), hit) and int(got[2]) == int(hit.sum())
+            and np.array_equal(got[1].cpu().numpy(), np.where(hit, idx * 7, 0))):
+        raise AssertionError("broadcast_join_sum differs from numpy")
+
+    def chain():
+        i = torch.searchsorted(bk[:len(bk_host)], pk).clamp(max=len(bk_host) - 1)
+        h = pv & (bk[i] == pk)
+        return h, torch.where(h, bv[i], 0), h.sum()
+
+    if any(not torch.equal(a, b) for a, b in zip(chain(), got)):
+        raise AssertionError("the library chain differs from broadcast_join_sum")
+    with plain_kernels():
+        plain_ms = time_ms(lambda: join(pk, pv, bk, bv, len(bk_host)))
+    MESH_DEMOS["broadcast_join_sum"] = {
+        "shape": f"{n} slots x {cap:,} int64 probe rows, 4% null, against 102,000 sorted "
+                 "build keys with repeats",
+        "ms": time_ms(lambda: join(pk, pv, bk, bv, len(bk_host))), "plain_ms": plain_ms,
+        "library_ms": time_ms(chain),
+        "library_call": "torch.searchsorted + a take + compare + where + sum (a chain)",
+        # probe keys and validity read once, the build's keys and payload
+        # once, the hit and payload planes and the psum written once
+        "bytes": n * cap * 9 + len(bk_host) * 16 + n * cap * 9 + 8, "hits": int(hit.sum())}
+    for v in MESH_DEMOS.values():
+        if "bytes" in v:
+            v["bound_ms"] = v["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(json.dumps({"phase": "mesh_demos", **MESH_DEMOS}))
+    torch.cuda.synchronize()
+
+
 # -- phase 4: the paths on the card ------------------------------------------------
 
 
@@ -3361,7 +3922,33 @@ def q01_oracle(host):
             "cnt": counts[top].tolist()}
 
 
+MESH_SLOTS = (1, 2, 8)
+
+
+def runs_of(profile):
+    """How many times ``run_query`` runs a path: a first run and the
+    measured one, and with ``--profile`` a torch.profiler and a cProfile
+    run."""
+    return 4 if profile else 2
+
+
+def mesh_session(dev, k):
+    """A session on a mesh of ``k`` slots on the card, with the fused
+    stages' stacking runner: ``Session(device, mesh=make_mesh(k, dev),
+    conf=Config(multichip_enabled=True))``."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.parallel.mesh import make_mesh
+
+    return blaze_tpu_torch.Session(conf=Config(multichip_enabled=True), device=dev,
+                                   mesh=make_mesh(k, dev))
+
+
 def run_q01(dev, profile=False, trace_path=None):
+    """q01, then q01_mesh1, q01_mesh2 and q01_mesh8 over the same staged
+    data: every exchange on a mesh of 1, 2 and 8 slots (K17 once on the
+    hash exchange and once on the single one, each launch of the first run
+    held to its twin), each exact against the same oracle as q01."""
     import blaze_tpu_torch
 
     t0 = time.perf_counter()
@@ -3370,8 +3957,22 @@ def run_q01(dev, profile=False, trace_path=None):
     session = blaze_tpu_torch.Session()
     session.resources["store_returns"] = lambda p: parts[p]
     want = q01_oracle(host)
-    return run_query("q01", ROWS, session, q01_plan(schema), want, setup_s,
-                     {"groups": len(want["sr_store_sk"])}, profile, trace_path)
+    out = {"q01": run_query("q01", ROWS, session, q01_plan(schema), want, setup_s,
+                            {"groups": len(want["sr_store_sk"])}, profile, trace_path)}
+    for k in MESH_SLOTS:
+        name = f"q01_mesh{k}"
+        session = mesh_session(dev, k)
+        session.resources["store_returns"] = lambda p: parts[p]
+        out[name] = run_query(name, ROWS, session, q01_plan(schema), want, setup_s,
+                              {"groups": len(want["sr_store_sk"]), "slots": k}, profile,
+                              trace_path.replace(".json", f"_{name}.json") if trace_path
+                              else None, first_run=mesh_twin_check(name))
+        if out[name]["mesh_all_to_all"] != 2:
+            raise AssertionError(f"{name} launched K17 {out[name]['mesh_all_to_all']} times, "
+                                 "not once for each of its two exchanges")
+        if session.counters["sharded_stages"] != 2 * runs_of(profile):  # two exchanges a run
+            raise AssertionError(f"{name}: {dict(session.counters)}")
+    return out
 
 
 def run_q67(dev, profile=False, trace_path=None):
@@ -4317,8 +4918,37 @@ def run_q96(dev, profile=False, trace_path=None):
     del host
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    return run_query("q96", sum(Q96_ROWS.values()), session, q96_plan(schemas, E, N, T),
-                     want, setup_s, {"count": want["cnt"][0]}, profile, trace_path)
+    out = {"q96": run_query("q96", sum(Q96_ROWS.values()), session, q96_plan(schemas, E, N, T),
+                            want, setup_s, {"count": want["cnt"][0]}, profile, trace_path)}
+    # q96_mesh: the same data on a mesh of 8 slots; the store_sales filter's
+    # batches stack 8 at a time within each run of one capacity (a stack of
+    # one runs alone), the single exchange rides K17
+    mesh = mesh_session(dev, 8)
+    for name in q96_schemas(T):
+        mesh.resources[name] = session.resources[name]
+    stacks = stacked = 0
+    for p in range(PARTS):
+        caps = [b.capacity for b in session.resources["store_sales"](p)]
+        runs = [len(list(g)) for _c, g in itertools.groupby(caps)]
+        stacks += sum(L // 8 + (L % 8 >= 2) for L in runs)
+        stacked += sum(L - (L % 8 == 1) for L in runs)
+    launches = run_query("q96_mesh", sum(Q96_ROWS.values()), mesh, q96_plan(schemas, E, N, T),
+                         want, setup_s, {"count": want["cnt"][0], "slots": 8,
+                                         "stacks": stacks, "stacked_batches": stacked},
+                         profile, trace_path.replace(".json", "_mesh.json") if trace_path
+                         else None, first_run=mesh_twin_check("q96_mesh", stacks))
+    if launches["fused_chain_stacked"] != stacks or \
+            launches["fused_chain"] != out["q96"]["fused_chain"] - stacked:
+        raise AssertionError(
+            f"q96_mesh launched the stacked K11 {launches['fused_chain_stacked']} times and K11 "
+            f"{launches['fused_chain']} times, not {stacks} stacks of {stacked} batches and "
+            f"q96's {out['q96']['fused_chain']} less them")
+    if launches["mesh_all_to_all"] != 1 or \
+            mesh.counters["sharded_batches"] != runs_of(profile) * stacked:
+        raise AssertionError(f"q96_mesh: K17 {launches['mesh_all_to_all']} times, "
+                             f"{dict(mesh.counters)}")
+    out["q96_mesh"] = launches
+    return out
 
 
 # -- q89: a window AVG over an aggregate (K13) -----------------------------------
@@ -5009,7 +5639,23 @@ def run_sort10m(dev, profile=False, trace_path=None):
     for k in ("sort_key_operands", "lexsort_indices", "gather_planes", "slice_planes"):
         if launches[k] < 1:
             raise AssertionError(f"sort10M did not launch {k}")
-    return launches
+    # sort10M_mesh: the same staged partitions on a mesh of 8 slots (32 maps
+    # fold 4 a slot, 32 reducers 4 a slot); its payload passes the 128 MiB
+    # resident budget, so the reducers' rows wait in host memory
+    mesh = mesh_session(dev, 8)
+    mesh.resources["store_sales"] = lambda p: parts[p]
+    mesh_launches = run_query("sort10m_mesh", SORT10M_ROWS, mesh, sort10m_plan(schema, E, N),
+                              want, setup_s, dict(info, slots=8), profile,
+                              trace_path.replace(".json", "_mesh.json") if trace_path
+                              else None, collect=sort10m_collect,
+                              first_run=mesh_twin_check("sort10m_mesh"))
+    if mesh_launches["mesh_all_to_all"] != 1 or \
+            mesh_launches["range_partition"] != SORT10M_PARTS or \
+            mesh.counters["mesh_host_exchanges"] != runs_of(profile):
+        raise AssertionError(f"sort10M_mesh: K17 {mesh_launches['mesh_all_to_all']} times, "
+                             f"K14 {mesh_launches['range_partition']} times (one a map), "
+                             f"{dict(mesh.counters)}")
+    return {"sort10m": launches, "sort10m_mesh": mesh_launches}
 
 
 # -- hash_sample: a stable XXH64 sample of store_sales (K15) --------------------------
@@ -5227,10 +5873,11 @@ def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_pat
     peak = torch.cuda.max_memory_allocated()
     if profile:
         profile_query(name, session, plan, want, trace_path, collect)
+    mesh = {"mesh_exchanges": session.mesh_exchanges} if session.mesh is not None else {}
     log(json.dumps({"phase": "slice", "query": name, "rows": rows, "partitions": PARTS,
                     **info, "setup_s": setup_s, "first_run_s": warm_s, "wall_s": wall,
                     "rows_per_s": rows / wall, "max_memory_allocated": peak,
-                    "launches": launches, "exact": True}))
+                    "launches": launches, **mesh, "exact": True}))
     return launches
 
 
@@ -5338,6 +5985,7 @@ def main(device: str = "cuda") -> int:
     kernel_k9(dev, rng, results)
     kernel_k10(dev, rng, results)
     kernel_k11(dev, rng, results)
+    kernel_k11_stacked(dev, rng, results)
     kernel_k12(dev, rng, results)
     kernel_k13(dev, rng, results)
     kernel_limbs(dev, rng, results)
@@ -5345,30 +5993,35 @@ def main(device: str = "cuda") -> int:
     kernel_k14(dev, rng, results)
     kernel_k15(dev, rng, results)
     kernel_k16(dev, rng, results)
-    # 4. the paths: q01, q67 (slot, sort and table routes), q06 and q47,
-    # q69 and q69_bloom, q96, q89, q17 (slot, sort and table routes), q98,
-    # sort10M and hash_sample
+    kernel_k17(dev, rng, results)
+    # 4. the paths: q01 (and on the mesh: q01_mesh1, q01_mesh2, q01_mesh8),
+    # q67 (slot, sort and table routes), q06 and q47, q69 and q69_bloom, q96
+    # (and q96_mesh), q89, q17 (slot, sort and table routes), q98, sort10M
+    # (and sort10M_mesh) and hash_sample
     args = sys.argv[1:]
     profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
     per_path = {
-        "q01": run_q01(dev, profile, trace[0] if trace else None),
+        **run_q01(dev, profile, trace[0] if trace else None),
         **run_q67(dev, profile, trace[0] if trace else None),
         **run_join_paths(dev, profile, trace[0] if trace else None),
         **run_q69(dev, profile, trace[0].replace(".json", "") + "_q69.json"
                   if trace else None),
-        "q96": run_q96(dev, profile, trace[0].replace(".json", "") + "_q96.json"
-                       if trace else None),
+        **run_q96(dev, profile, trace[0].replace(".json", "") + "_q96.json"
+                  if trace else None),
         "q89": run_q89(dev, profile, trace[0].replace(".json", "") + "_q89.json"
                        if trace else None),
         **run_q17(dev, profile, trace[0] if trace else None),
         "q98": run_q98(dev, profile, trace[0].replace(".json", "") + "_q98.json"
                        if trace else None),
-        "sort10m": run_sort10m(dev, profile, trace[0].replace(".json", "") + "_sort10m.json"
-                               if trace else None),
+        **run_sort10m(dev, profile, trace[0].replace(".json", "") + "_sort10m.json"
+                      if trace else None),
         "hash_sample": run_hash_sample(dev, profile, trace[0].replace(".json", "")
                                        + "_hash_sample.json" if trace else None),
     }
+    # the mesh's demo steps (rows 18b, 18c, 18e), after the paths: their
+    # plain versions' cached index planes would count in the paths' peaks
+    mesh_demos(dev, rng)
     launches = {k: sum(p.get(k, 0) for p in per_path.values())
                 for k in set().union(*per_path.values())}
     missing = [k for k in cuda_lib.LAUNCHES if launches.get(k, 0) <= 0]
@@ -5452,6 +6105,8 @@ def main(device: str = "cuda") -> int:
             r["path_batches"] = XXH_PATH_TIMES
         if r["name"] == "bloom_probe":
             r["path_batches"] = BLOOM_PATH_TIMES
+        if r["name"] == "mesh_all_to_all":
+            r["path_batches"] = MESH_PATH_TIMES
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -5474,7 +6129,8 @@ def main(device: str = "cuda") -> int:
                                              "battery_s", "fold_ms", "unpacked_ms",
                                              "six_kinds_ms", "fold_replaces", "fold_shape",
                                              "bounds_199", "one_key", "device_ms",
-                                             "path_batches")
+                                             "path_batches", "eight_single_ms",
+                                             "k11_eight_single_ms")
                            if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"phase": "limb_ops", "paths": {

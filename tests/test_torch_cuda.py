@@ -1,9 +1,10 @@
 """The port's CUDA and Triton kernels against their plain PyTorch versions
 on the card, and the q01, q67 (on both aggregation routes), q06, q96,
 q89, q17, q98, sort10M and hash_sample paths, every hash-join type, an
-explicit-frame window, the scalar functions and the bloom runtime filter
-on the card against the same plans and expressions on the CPU. K9's to
-K16's cases come from chip_smoke.py.
+explicit-frame window, the scalar functions, the bloom runtime filter
+and a plan on the device mesh (1, 2 and 8 slots) on the card against the
+same plans and expressions on the CPU. K9's to K17's cases come from
+chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -18,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BLOOM_CASES, FUSED_CAPS, PROBE_CASES, Q89_ROWS, Q96_ROWS, Q98_ROWS,
+from chip_smoke import (BLOOM_CASES, FUSED_CAPS, MESH_CASES, PROBE_CASES, Q89_ROWS, Q96_ROWS,
+                        Q98_ROWS,
                         RANGE_CASES, SCAN_CASES, SEG_CASES, SORT10M_COLUMNS, UPD_CASES, WIDE_CASES,
                         WIDE_UPD_CASES, XXH_CASES, bloom_case, bloom_np_probe, customer_probe,
                         doubled, fused_cases,
@@ -154,15 +156,17 @@ def test_q01_on_the_card_equals_the_cpu(dev):
     assert out[None] == out["cpu"]
     # every kernel but the joins', the sort route's, K11, the host table's
     # K12, the window aggregates' K13, the range exchange's K14, the
-    # xxhash64 function's K15 and the bloom probe's K16, which q01 does not
-    # reach (its filter feeds the partial aggregate, so it is not fused;
-    # both aggregates take the slot route; it has no window, no range
-    # exchange, no xxhash64 and no runtime filter)
+    # xxhash64 function's K15, the bloom probe's K16 and the mesh's K17 and
+    # stacked K11, which q01 does not reach (its filter feeds the partial
+    # aggregate, so it is not fused; both aggregates take the slot route;
+    # it has no window, no range exchange, no xxhash64, no runtime filter
+    # and no mesh)
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
                if k not in ("inner_join_planes", "probe_codes", "segment_ids",
                             "seg_agg_partial", "seg_agg_merge", "fused_chain",
                             "slot_update", "segment_scan", "range_partition",
-                            "xxhash64", "bloom_probe"))
+                            "xxhash64", "bloom_probe", "mesh_all_to_all",
+                            "fused_chain_stacked"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -1211,3 +1215,98 @@ def test_bloom_runtime_filter_on_the_card_equals_the_cpu(dev):
     assert out[None] == out["cpu"]
     assert 0 < len(out[None][1]["k"]) < 200_000
     assert cuda_lib.launch_counts()["bloom_probe"] == sum(len(p) for p in parts)
+
+
+# -- K17 and the stacked K11: the device mesh ------------------------------------------
+
+
+@pytest.mark.parametrize("spec", MESH_CASES, ids=[c[0] for c in MESH_CASES])
+def test_mesh_all_to_all_kernel(dev, spec):
+    """K17 against its twin on chip_smoke.py's battery, every round; the
+    live counts are the rows each slot receives."""
+    from blaze_tpu_torch.core import kernels as K
+    from chip_smoke import mesh_case, mesh_recv_counts, mesh_run
+
+    case = mesh_case(spec, np.random.default_rng(17))
+    got = mesh_run(case, K.mesh_all_to_all_cuda, dev)
+    _equal(got, mesh_run(case, K.mesh_all_to_all_plain, dev))
+    if case["counts"] is not None:
+        assert [r[2].tolist() for r in got] == mesh_recv_counts(case)
+
+
+def test_mesh_all_to_all_raises_on_bad_inputs(dev):
+    from blaze_tpu_torch.core import kernels as K
+    from chip_smoke import mesh_case, mesh_torch
+
+    case = mesh_case(MESH_CASES[2], np.random.default_rng(3))
+    planes, routes, dtypes = mesh_torch(case, dev)
+    with pytest.raises(TypeError, match="mesh_all_to_all"):
+        K.mesh_all_to_all_cuda(planes, routes, case["chunk"], dev, dtypes[::-1],
+                               case["counts"], case["G"], case["scap"])
+    with pytest.raises(ValueError, match="mesh_all_to_all"):
+        K.mesh_all_to_all_cuda(planes, [r.to(torch.int32) for r in routes], case["chunk"], dev,
+                               dtypes, case["counts"], case["G"], case["scap"])
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_stacked_fused_chain_kernel(dev, k):
+    """The stacked K11 (with K1 per batch) against the single-batch plain
+    version on every chain of K11's battery, batch by batch."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    rng = np.random.default_rng(k)
+    rows = (4096, 4000, 0, 17, 4096, 2049, 1, 3000)[:k]
+    for name, schema, steps in fused_cases(E, T):
+        host = [fused_planes(4096, rows[b], rng) for b in range(k)]
+        datas = [[torch.from_numpy(x).to(dev) for x in d] for d, _v in host]
+        valids = [[torch.from_numpy(x).to(dev) for x in v] for _d, v in host]
+        got = K.fused_chain_stacked(schema, steps, datas, valids, rows)
+        for b in range(k):
+            want = K.fused_chain_plain(schema, steps, datas[b], valids[b], rows[b])
+            _equal([x.to(dev) for x in fused_flat(got[b])],
+                   [x.to(dev) for x in fused_flat(want)])
+
+
+@pytest.mark.parametrize("slots", [1, 2, 8])
+def test_mesh_paths_on_the_card_equal_the_cpu(dev, slots):
+    """A fused filter and projection over 8 partitions of eight 4,096-row
+    batches, a two-stage SUM through a hash exchange into 13 reducers, a
+    single exchange and a sort, on a mesh of ``slots`` slots: the card's
+    result equals the CPU's; K17 once an exchange, the stacked K11 where
+    batches stack."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.parallel.mesh import make_mesh
+    from blaze_tpu_torch.utils import cuda_lib
+
+    rng = np.random.default_rng(slots)
+    schema = T.Schema.of(("k", T.I64), ("v", T.I64))
+    parts = [[{"k": rng.integers(0, 5000, 4096), "v": rng.integers(0, 1000, 4096)}
+              for _b in range(8)] for _p in range(8)]
+    C = E.Column
+    filt = N.Filter(N.FFIReader(schema, "src", 8),
+                    [E.BinaryExpr(E.BinaryOp.GT, C("v"), E.Literal(100, T.I64))])
+    proj = N.Projection(filt, [C("k"), C("v")], ["k", "v"])
+    agg = E.AggExpr(E.AggFunction.SUM, [C("v")], T.I64)
+    partial = N.Agg(proj, E.AggExecMode.HASH_AGG, [("k", C("k"))],
+                    [N.AggColumn(agg, E.AggMode.PARTIAL, "s")])
+    final = N.Agg(N.ShuffleExchange(partial, N.HashPartitioning([C("k")], 13)),
+                  E.AggExecMode.HASH_AGG, [("k", C("k"))],
+                  [N.AggColumn(agg, E.AggMode.FINAL, "s")])
+    plan = N.Sort(N.ShuffleExchange(final, N.SinglePartitioning(1)), [E.SortOrder(C("k"))])
+    out = {}
+    for device in ("cpu", dev):
+        s = blaze_tpu_torch.Session(Config(batch_size=4096, multichip_enabled=True),
+                                    device=device, mesh=make_mesh(slots, device))
+        s.resources["src"] = lambda p: parts[p]
+        cuda_lib.reset_launch_counts()
+        out[str(device)] = s.execute_to_pydict(plan)
+    assert out["cpu"] == out[str(dev)] and len(out["cpu"]["k"]) > 4000
+    counts = cuda_lib.launch_counts()
+    assert counts["mesh_all_to_all"] == 2
+    assert counts["fused_chain_stacked"] == (0 if slots == 1 else 8 * (8 // slots))

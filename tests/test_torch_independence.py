@@ -109,6 +109,6 @@ def test_every_module_is_listed_in_the_package():
                 "ops.aggfns", "ops.agg_device", "ops.agg", "ops.sort_keys",
                 "ops.sort", "ops.window", "ops.joins.keymap", "ops.joins.bhj", "ops.bloom",
                 "ir.serde", "ir.fusion", "exprs.fused_triton", "ops.fused",
-                "runtime.executor",
+                "runtime.executor", "parallel.mesh",
                 "runtime.session"):
         assert "blaze_tpu_torch." + mod in names

@@ -231,16 +231,17 @@ def test_decimal_and_null_bounds_land_at_the_keys_scale():
 _SAMPLE_SCHEMA = (("f", "f64"), ("p", "dec"), ("i", "i32"), ("b", "bool"))
 
 
-def _sample_batches(rng):
-    """Partitions of batches with NaN, +-0.0, nulls and ties; partition 0
-    passes 5,000 rows inside its third batch, so its fourth is never
-    sampled."""
+def _sample_batches(rng, nan=True):
+    """Partitions of batches with NaN (unless ``nan`` is False), +-0.0,
+    nulls and ties; partition 0 passes 5,000 rows inside its third batch,
+    so its fourth is never sampled."""
     parts = []
     for sizes in ((3000, 1500, 2000, 800), (100,), (40, 7), ()):
         batches = []
         for n in sizes:
             f = rng.integers(-6, 7, n) * 0.5
-            f[rng.random(n) < 0.05] = np.nan
+            if nan:
+                f[rng.random(n) < 0.05] = np.nan
             f[rng.random(n) < 0.05] = -0.0
             batches.append({"f": (f, rng.random(n) > 0.1),
                             "p": (rng.integers(0, 500, n), rng.random(n) > 0.05),
@@ -268,15 +269,78 @@ def _canon_rows(rows):
     return [tuple(repr(x) if isinstance(x, float) else x for x in r) for r in rows]
 
 
-@pytest.mark.parametrize("orders", [
+def _spark_cmp(a, b, orders):
+    """Spark's row order for the sample oracle, written out: per key nulls
+    first or last, then NaN above every value and -0.0 equal to 0.0 (floats
+    and decimals compared as numbers), reversed under DESC."""
+    for x, y, (_c, asc, nulls_first) in zip(a, b, orders):
+        if x is None or y is None:
+            if x is None and y is None:
+                continue
+            return (-1 if x is None else 1) * (1 if nulls_first else -1)
+        xn, yn = isinstance(x, float) and x != x, isinstance(y, float) and y != y
+        c = (xn > yn) - (xn < yn) if xn or yn else (x > y) - (x < y)
+        if c:
+            return c if asc else -c
+    return 0
+
+
+def _spark_bounds(parts, orders, num_partitions):
+    """The bounds sampled as the Session samples them (every max(1, rows //
+    50)-th row of each batch until a partition has given 5,000 rows), sorted
+    stably in Spark's order."""
+    import functools
+
+    samples = []
+    for batches in parts:
+        taken = 0
+        for b in batches:
+            n = len(b["f"][0])
+            step = max(1, n // 50)
+            for i in range(0, n, step):
+                row = []
+                for c, _asc, _nf in orders:
+                    d, v = b[c]
+                    x = d[i].item() if v[i] else None
+                    if c == "p" and x is not None:
+                        x = decimal.Decimal(x).scaleb(-2)
+                    row.append(x)
+                samples.append(tuple(row))
+            taken += n
+            if taken >= 5000:
+                break
+    samples.sort(key=functools.cmp_to_key(lambda a, b: _spark_cmp(a, b, orders)))
+    return [samples[min(len(samples) - 1, i * len(samples) // num_partitions)]
+            for i in range(1, num_partitions)]
+
+
+_SAMPLE_ORDERS = [
     (("f", False, False), ("p", True, True)),
     (("i", True, True), ("b", False, False), ("f", True, True)),
     (("p", False, True),),
-], ids=["f DESC, p", "i, b DESC, f", "p DESC"])
+]
+
+
+def _port_bounds(parts, orders, num_partitions=5):
+    port = blaze_tpu_torch.Session(device="cpu")
+    port.resources["src"] = lambda p: parts[p]
+    schema = T.Schema.of(*[(n, {"f64": T.F64, "dec": T.DecimalType(7, 2), "i32": T.I32,
+                                "bool": T.BOOL}[k]) for n, k in _SAMPLE_SCHEMA])
+    node = N.ShuffleExchange(
+        N.FFIReader(schema, "src", len(parts)),
+        N.RangePartitioning([E.SortOrder(E.Column(c), asc, nf) for c, asc, nf in orders],
+                            num_partitions, []))
+    return port._sample_range_bounds(node).bounds
+
+
+@pytest.mark.parametrize("orders", _SAMPLE_ORDERS, ids=["f DESC, p", "i, b DESC, f", "p DESC"])
 def test_sample_range_bounds_matches_reference(orders, tmp_path):
+    """On a NaN-free draw the port samples the reference's bounds; on the
+    draw with 5% NaN it samples Spark's (the reference sorts NaN with
+    ``<``, out of order: ROADMAP.md Queue 3, found and fixed)."""
     types = {"f64": JT.F64, "dec": JT.DecimalType(7, 2), "i32": JT.I32, "bool": JT.BOOL}
     schema = JT.Schema.of(*[(n, types[k]) for n, k in _SAMPLE_SCHEMA])
-    parts = _sample_batches(np.random.default_rng(len(orders)))
+    parts = _sample_batches(np.random.default_rng(len(orders)), nan=False)
     node = JN.ShuffleExchange(
         JN.FFIReader(schema, "src", len(parts)),
         JN.RangePartitioning([JE.SortOrder(JE.Column(c), asc, nf) for c, asc, nf in orders],
@@ -284,11 +348,37 @@ def test_sample_range_bounds_matches_reference(orders, tmp_path):
     with JaxSession(conf=JaxConfig(shm_dir=str(tmp_path))) as s:
         s.resources["src"] = lambda p: [_jax_batch(schema, b) for b in parts[p]]
         want = s._sample_range_bounds(node).bounds
-    port = blaze_tpu_torch.Session(device="cpu")
-    port.resources["src"] = lambda p: parts[p]
-    got = port._sample_range_bounds(from_foreign(node)).bounds
+    got = _port_bounds(parts, orders)
     assert len(want) == 4
     assert _canon_rows(got) == _canon_rows(want)
+    nan_parts = _sample_batches(np.random.default_rng(len(orders)))
+    assert _canon_rows(_port_bounds(nan_parts, orders)) == \
+        _canon_rows(_spark_bounds(nan_parts, orders, 5))
+
+
+@pytest.mark.parametrize("orders", [(("f", True, True),), (("f", False, False),),
+                                    (("f", False, True), ("i", True, False))],
+                         ids=["f", "f DESC", "f DESC nulls first, i"])
+def test_sampled_bounds_ascend_in_spark_order(orders):
+    """NaN and +-0.0 keys (a third of the rows NaN, a third +-0.0): the
+    bounds come out ascending in Spark's order, so each partition is a
+    quantile; NaN samples land after every value (before it under DESC)."""
+    import functools
+
+    rng = np.random.default_rng(31)
+    parts = []
+    for _p in range(3):
+        n = 2000
+        f = rng.choice([np.nan, 0.0, -0.0, 1.5, -2.5, 7.0], n)
+        parts.append([{"f": (f, rng.random(n) > 0.05), "p": (np.zeros(n, np.int64), np.ones(n, bool)),
+                       "i": (rng.integers(0, 4, n).astype(np.int32), np.ones(n, bool)),
+                       "b": (np.zeros(n, bool), np.ones(n, bool))}])
+    bounds = _port_bounds(parts, orders, 9)
+    assert len(bounds) == 8
+    assert any(isinstance(b[0], float) and b[0] != b[0] for b in bounds)
+    assert bounds == sorted(bounds, key=functools.cmp_to_key(
+        lambda a, b: _spark_cmp(a, b, orders)))
+    assert _canon_rows(bounds) == _canon_rows(_spark_bounds(parts, orders, 9))
 
 
 # -- plan level: q98 and sort10M's shape ----------------------------------------------
