@@ -1,9 +1,8 @@
 """Engine configuration: the ``Config`` fields the PyTorch port reads.
 
 A copy of the fields of the JAX package's ``config.py`` that the ported
-slice (scan -> filter -> partial agg -> hash exchange -> final agg ->
-top-k) consults, with the same names and defaults, so a plan behaves the
-same under both packages. Fields for subsystems not ported yet are left
+slices consult, with the same names, so a plan behaves the same under
+both packages; a None whose JAX meaning reads the backend is "on" here. Fields for subsystems not ported yet are left
 out rather than accepted and ignored.
 """
 
@@ -58,6 +57,17 @@ class Config:
     # to switch off.
     smj_fallback_rows_threshold: int = 10_000_000
     smj_fallback_mem_size_threshold: int = 1 << 30
+
+    # Filter -> agg and join -> agg fusion (ops/agg.py, row 10): the
+    # partial hash aggregate absorbs a Filter under it, else a one-segment
+    # fused stage, else the unique-key inner broadcast joins under it, and
+    # one generated kernel (K18, exprs/fused_triton.py) per batch probes
+    # the joins, runs the steps and predicates and writes the aggregate's
+    # keys and arguments with a live mask for K3/K10, with no compaction
+    # and no joined batch. None is the port's default, on (the JAX
+    # package's None means "on a CPU backend only", as for dense_agg);
+    # False builds the unfused route exactly.
+    fused_filter_agg: Optional[bool] = None
 
     # Whole-stage fusion (ir/fusion.py): maximal chains of project /
     # filter / rename / expand (with coalesce-batches as a staging point

@@ -12,12 +12,16 @@ launches the kernel or raises.
   ``ColumnarBatch.slice`` and ``.concat``.
 - K8 ``inner_join_planes`` (csrc/join.cu): the unique-key inner
   broadcast join of one probe batch (probe, stable compaction, gathers
-  of both sides), with ``canon_words``, the join key's canonical word.
+  of both sides); the join key's canonical word is ops/joins/keymap.py's
+  ``canon_words``.
 - K9 ``probe_codes`` (csrc/join.cu): the generic join probe, each probe
   key's code in the build map or -1.
 - K11 ``fused_chain`` (exprs/fused_triton.py, generated Triton): one
   fused chain segment of project / filter / rename / expand steps over a
   batch, then K1 once per filtered output group.
+- K18 ``fused_agg_input`` (exprs/fused_triton.py, generated Triton): a
+  fused partial aggregate's input (its joins' probes and gathers, steps,
+  predicates, keys and arguments) over a batch, with a live mask.
 - K13 ``segment_scan`` (csrc/seg_scan.cu): the window aggregates'
   segmented (sum, count) prefix scan with a carry, in XLA's float order.
 - K14 ``range_partition_ids`` (csrc/range_part.cu): the range exchange's
@@ -407,26 +411,80 @@ def fused_chain_stacked(in_schema, steps, batch_datas, batch_valids,
     return fused_chain_stacked_plain(in_schema, steps, batch_datas, batch_valids, batch_nrows)
 
 
+# -- K18: the fused aggregate input ------------------------------------------------
+
+
+def fused_agg_input_plain(spec, columns, num_rows: int, joins):
+    """Plain PyTorch twin of K18, the prologue of the JAX package's fused
+    partial aggregate (blaze_tpu/ops/agg_device.py:518 _trace_tb_mask with
+    :245 FusedJoinSpec.trace_join, exprs/compiler.py:1110
+    trace_fused_steps, and the keys and arguments of :411 _flow) for
+    ``spec`` (exprs/fused_triton.py FusedAggSpec) over one batch's
+    ``columns``. ``joins``: per fused join, inner-first, (the build's
+    sorted unique words, length max(nk, 1); nk; its build columns, code c
+    at row c). Each join probes with ops/joins/keymap.py sorted_probe (the
+    key valid on a row below num_rows), gathers every build column at the
+    clipped rank, valid on a hit, and narrows the live mask (the rows below
+    num_rows) by the hit; the steps run as K11's plain version runs them,
+    over a LiveBatch; the predicates narrow the mask; keys and arguments
+    evaluate over the aggregate's child schema. Returns (keys, args, live):
+    per key (data, valid & live), per argument (data, valid & live), for a
+    wide-decimal argument (its limb planes, valid & live), for COUNT(*)
+    None."""
+    from blaze_tpu_torch.core.batch import DeviceColumn
+    from blaze_tpu_torch.exprs.compiler import ExprEvaluator, LiveBatch, broadcast
+    from blaze_tpu_torch.ops.joins.keymap import sorted_probe
+
+    cap = int(columns[0].capacity)
+    dev = columns[0].validity.device
+    inrow = iota(cap, dev) < num_rows
+    live = inrow
+    cols = list(columns)
+    for js, (uniq, nk, bcols) in zip(spec.joins, joins):
+        batch = LiveBatch(js.probe_schema, cols, live)
+        kd, kv = broadcast(ExprEvaluator([js.key_expr], js.probe_schema)
+                           .eval(js.key_expr, batch), batch)
+        cidx, hit = sorted_probe(uniq, kd, kv & inrow, nk)
+        gathered = [DeviceColumn(c.dtype, c.data[cidx], c.validity[cidx] & hit)
+                    for c in bcols]
+        cols = cols + gathered if js.probe_on_left else gathered + cols
+        live = live & hit
+    if spec.steps:
+        (cols, live, _), = _fused_step_groups(
+            spec.input_schema, spec.steps, [c.data for c in cols],
+            [c.validity for c in cols], live)
+    schema = spec.child_schema
+    if spec.predicates:
+        live = ExprEvaluator(list(spec.predicates), schema).evaluate_predicate(
+            LiveBatch(schema, cols, live))
+    batch = LiveBatch(schema, cols, live)
+
+    def plane(e):
+        ev = ExprEvaluator([e], schema)
+        d, v = broadcast(ev.eval(e, batch), batch)
+        return d, v & live
+
+    keys = [plane(e) for e in spec.groupings]
+    args = [None if e is None else plane(e) for e in spec.args]
+    return keys, args, live
+
+
+def fused_agg_input(spec, columns, num_rows: int, joins, kernel=None):
+    """The fused aggregate input of one batch: K18 on a CUDA batch (its
+    cached ``exprs.fused_triton.FusedAggKernel``, made here when not
+    given), the plain version on a CPU one. Same (keys, args, live) as
+    :func:`fused_agg_input_plain`."""
+    if columns[0].validity.is_cuda:
+        from blaze_tpu_torch.exprs.fused_triton import fused_agg_input_cuda, fused_agg_kernel
+
+        return fused_agg_input_cuda(kernel or fused_agg_kernel(spec), columns, num_rows,
+                                    joins)
+    return fused_agg_input_plain(spec, columns, num_rows, joins)
+
+
 # -- K8: the unique-key inner join -------------------------------------------------
 
 _JOIN_KEY_INT, _JOIN_KEY_FLOAT = 0, 1
-
-
-def canon_words(data: torch.Tensor) -> torch.Tensor:
-    """Canonical int64 join words, the same function as
-    blaze_tpu/ops/joins/keymap.py:canon_word_traced: integers (and bools)
-    widen with their sign; floats fold -0.0 into +0.0 and every NaN
-    payload into the quiet NaN, then f64 words are the int64 bits and
-    f32 words the int32 bits sign-extended. K8 computes the same word in
-    its probe (csrc/join.cu blz_canon_word)."""
-    if data.is_floating_point():
-        d = _zero_where(data != 0, data)
-        d = torch.where(torch.isnan(d),
-                        torch.full((), float("nan"), dtype=d.dtype, device=d.device), d)
-        if d.dtype == torch.float32:
-            return d.view(torch.int32).to(torch.int64)
-        return d.view(torch.int64)
-    return data.to(torch.int64)
 
 
 def inner_join_planes_plain(uniq: torch.Tensor, nk: int, num_rows: int,
@@ -444,12 +502,11 @@ def inner_join_planes_plain(uniq: torch.Tensor, nk: int, num_rows: int,
     rows past the count are padding. Returns (count as a 0-d int64
     tensor, probe datas, probe valids, build datas, build valids), every
     output plane of the probe batch's capacity."""
+    from blaze_tpu_torch.ops.joins.keymap import sorted_probe  # keymap imports this module
+
     cap_p = key_data.shape[0]
     dev = key_data.device
-    w = canon_words(key_data)
-    idx = torch.searchsorted(uniq, w)
-    cidx = idx.clamp(0, max(nk - 1, 0))
-    hit = key_valid & (iota(cap_p, dev) < num_rows) & (idx < nk) & (uniq[cidx] == w)
+    cidx, hit = sorted_probe(uniq, key_data, key_valid & (iota(cap_p, dev) < num_rows), nk)
     count = hit.sum()
     pos = torch.where(hit, torch.cumsum(hit, 0) - 1, cap_p)
 
@@ -549,10 +606,9 @@ def probe_codes_plain(uniq: torch.Tensor, nk: int, key_data: torch.Tensor,
     canonical word w is in uniq[0, nk), else -1. ``uniq`` holds the
     build's sorted unique words (length max(nk, 1)); the codes are an
     int64 plane of the key's capacity."""
-    w = canon_words(key_data)
-    idx = torch.searchsorted(uniq, w)
-    cidx = idx.clamp(0, max(nk - 1, 0))
-    hit = key_valid & (idx < nk) & (uniq[cidx] == w)
+    from blaze_tpu_torch.ops.joins.keymap import sorted_probe  # keymap imports this module
+
+    cidx, hit = sorted_probe(uniq, key_data, key_valid, nk)
     return torch.where(hit, cidx, torch.full((), -1, dtype=torch.int64,
                                              device=cidx.device))
 
@@ -1226,19 +1282,23 @@ def segment_starts_cuda(datas, valids, order, num_rows: int):
     return starts, offs[nb]
 
 
-def segment_ids(key_data, key_valid, exists, num_rows: int, direct: bool = True):
+def segment_ids(key_data, key_valid, exists, num_rows: int, direct: bool = True,
+                live_rows: Optional[int] = None):
     """``_segmentation`` of blaze_tpu/ops/agg_device.py:1082: the stable
     order that makes equal keys adjacent (K5's key pass and radix sort,
     keys ascending, null first, NaN last), then K10's segment starts over
-    it. ``key_valid`` is masked with ``exists`` (a prefix of num_rows
-    rows). ``direct`` allows the single-integer-key case where the key is
-    the segment id. Returns (order, starts, count) as
-    :func:`segment_starts_plain` describes them."""
+    it. ``key_valid`` is masked with ``exists``: a prefix of num_rows
+    rows, or a live mask within it whose ``live_rows`` rows the sort puts
+    first (a dead row takes K5's padding rank), so the segments cover the
+    first live_rows sorted positions. ``direct`` allows the
+    single-integer-key case where the key is the segment id. Returns
+    (order, starts, count) as :func:`segment_starts_plain` describes
+    them."""
     datas, valids = _segment_planes(key_data, key_valid, exists, direct)
     ops = sort_key_operands(datas, valids, exists, [(True, True)] * len(datas))
     order = lexsort_indices(ops, num_rows)
     fn = segment_starts_cuda if order.is_cuda else segment_starts_plain
-    starts, count = fn(datas, valids, order, num_rows)
+    starts, count = fn(datas, valids, order, num_rows if live_rows is None else live_rows)
     return order, starts, count
 
 

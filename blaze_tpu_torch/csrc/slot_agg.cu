@@ -149,7 +149,8 @@ __device__ __forceinline__ bool blz_slot_ok(const SlotOp& op, int64_t i) {
 }
 
 __global__ void blz_slot_scatter_kernel(SlotPlan plan, OpSet ops,
-                                        int64_t num_rows, uint8_t* present,
+                                        int64_t num_rows, const uint8_t* exists,
+                                        uint8_t* present,
                                         int* overflow, long long* brows,
                                         int shift, int nb) {
   __shared__ unsigned int hist[BLZ_MAX_BUCKETS];
@@ -158,7 +159,7 @@ __global__ void blz_slot_scatter_kernel(SlotPlan plan, OpSet ops,
     __syncthreads();
   }
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < num_rows) {
+  if (i < num_rows && (exists == nullptr || exists[i] != 0)) {
     bool fits;
     const long long seg = blz_slot_of(plan, i, &fits);
     if (!fits) *overflow = 1;
@@ -202,9 +203,10 @@ __global__ void blz_slot_scatter_kernel(SlotPlan plan, OpSet ops,
 // Second pass of a wide extreme: the LEXLO op after each LEXMIN/LEXMAX op
 // takes the extreme low word of the rows whose l2 equals the slot's
 // extreme l2.
-__global__ void blz_slot_lex_kernel(SlotPlan plan, OpSet ops, int64_t num_rows) {
+__global__ void blz_slot_lex_kernel(SlotPlan plan, OpSet ops, int64_t num_rows,
+                                    const uint8_t* exists) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= num_rows) return;
+  if (i >= num_rows || (exists != nullptr && exists[i] == 0)) return;
   bool fits;
   const long long seg = blz_slot_of(plan, i, &fits);
   for (int o = 0; o + 1 < ops.n; ++o) {
@@ -271,7 +273,9 @@ __global__ void blz_slot_emit_kernel(SlotPlan plan, KeyOut ko, EmitSet es,
 }
 
 // keys/kvalids: k planes of >= num_rows rows (int64 / bool bytes); rows
-// at or past num_rows do not exist. bases/sizes/strides: the slot plan
+// at or past num_rows do not exist, nor, where ``exists`` is given (bool
+// bytes, K18's live mask of a fused aggregate), rows whose byte is 0: they
+// mark no slot, apply no op and count in no radix bucket. bases/sizes/strides: the slot plan
 // (sizes powers of two, S = prod(sizes)). Per op o: kind, source plane
 // (unused by COUNT), second source (LEXLO's l0, else null), op_nvalid[o]
 // validity planes at op_valid[3*o + q], table (S int64 scratch), mult,
@@ -285,7 +289,7 @@ __global__ void blz_slot_emit_kernel(SlotPlan plan, KeyOut ko, EmitSet es,
 BLZ_EXPORT int blz_slot_agg(
     int k, const long long* const* keys, const uint8_t* const* kvalids,
     const long long* bases, const long long* sizes, const long long* strides,
-    int64_t num_rows, int nops, const int* op_kind,
+    int64_t num_rows, const uint8_t* exists, int nops, const int* op_kind,
     const long long* const* op_src, const long long* const* op_src0,
     const int* op_nvalid, const uint8_t* const* op_valid, long long* const* op_table,
     const long long* op_mult, const long long* op_init, int nemit,
@@ -353,12 +357,12 @@ BLZ_EXPORT int blz_slot_agg(
   if (err != cudaSuccess) return (int)err;
   if (num_rows > 0) {
     blz_slot_scatter_kernel<<<blz_blocks(num_rows), BLZ_THREADS, 0, stream>>>(
-        plan, ops, num_rows, present, overflow, brows, shift, nb);
+        plan, ops, num_rows, exists, present, overflow, brows, shift, nb);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (lex) {
-      blz_slot_lex_kernel<<<blz_blocks(num_rows), BLZ_THREADS, 0, stream>>>(plan, ops,
-                                                                            num_rows);
+      blz_slot_lex_kernel<<<blz_blocks(num_rows), BLZ_THREADS, 0, stream>>>(
+          plan, ops, num_rows, exists);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

@@ -56,6 +56,11 @@ closure under ``shard_map`` (blaze_tpu/parallel/mesh.py:671), which runs
 one batch a device; here the k batches share one launch. The
 single-batch kernel's source is unchanged by it.
 
+K18 (``FusedAggKernel``, the section at the end) is generated by the
+same code: a fused partial aggregate's input (its broadcast joins'
+probes and gathers, its absorbed steps and predicates, its keys and
+arguments) over one batch, with a live mask for K3/K10.
+
 A build or launch failure raises; nothing falls back to the plain
 version on a CUDA tensor.
 """
@@ -95,7 +100,7 @@ _CMP = {_B.EQ: "==", _B.NEQ: "!=", _B.LT: "<", _B.LTEQ: "<=", _B.GT: ">", _B.GTE
 _ARITH = {_B.ADD: "+", _B.SUB: "-", _B.MUL: "*", _B.BIT_AND: "&", _B.BIT_OR: "|",
           _B.BIT_XOR: "^"}
 
-_PRELUDE = '''"""K11 for one fused chain segment (fingerprint {fp}), generated by
+_PRELUDE = '''"""{what} (fingerprint {fp}), generated by
 blaze_tpu_torch/exprs/fused_triton.py; rewritten whenever it differs."""
 import triton
 import triton.language as tl
@@ -337,6 +342,9 @@ class _Gen:
         else:
             data = self.let(f"{w}.to({_TL[tdt]})")
         return _V(data, "tt" if bool(lit.validity) else "ff", tdt, expr.dtype, scalar=True)
+
+    def _eval_ScalarSubquery(self, expr, schema, cols) -> _V:
+        return self._eval_Literal(E.Literal(expr.value, expr.dtype), schema, cols)
 
     def _eval_IsNull(self, expr, schema, cols) -> _V:
         v = self.eval(expr.child, schema, cols)
@@ -666,7 +674,7 @@ class _Gen:
         params = ([f"x{i}_ptr" for i in self.used_d] + [f"xv{i}_ptr" for i in self.used_v]
                   + [f"o{k}" for k in range(len(self.stores))]
                   + ["consts", "num_rows", "cap", "BLOCK: tl.constexpr"])
-        lines = [_PRELUDE.format(fp=fingerprint),
+        lines = [_PRELUDE.format(what="K11 for one fused chain segment", fp=fingerprint),
                  '@triton.jit(do_not_specialize=["num_rows", "cap"])',
                  f"def fused_chain({', '.join(params)}):",
                  "    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)",
@@ -694,7 +702,7 @@ class _Gen:
                  + [(f"xv{i}", "tl.int1") for i in self.used_v])
         params = (["tab"] + [f"o{k}" for k in range(len(self.stores))]
                   + ["consts", "cap", "nb", "BLOCK: tl.constexpr"])
-        lines = [_PRELUDE.format(fp=fingerprint),
+        lines = [_PRELUDE.format(what="K11 for one fused chain segment", fp=fingerprint),
                  '@triton.jit(do_not_specialize=["cap", "nb"])',
                  f"def fused_chain_stacked({', '.join(params)}):",
                  "    b = tl.program_id(1)",
@@ -742,6 +750,8 @@ class FusedKernel:
     use, from the steps alone, so it can be read without triton), the
     compiled ``@triton.jit`` function (imported from the written source on
     the first CUDA call) and its constant table per device."""
+
+    ENTRY = "fused_chain"  # the generated module's kernel function
 
     def __init__(self, in_schema: T.Schema, steps, fingerprint: Optional[str] = None):
         from blaze_tpu_torch.ir.fusion import fused_fingerprint
@@ -794,7 +804,7 @@ class FusedKernel:
             if self._fn is None:
                 self._fn = _import_kernel(self.path, self.source,
                                           f"blaze_tpu_torch_fused_{self.fingerprint}",
-                                          "fused_chain")
+                                          self.ENTRY)
             return self._fn
 
     def compiled_stacked(self):
@@ -948,3 +958,346 @@ def fused_chain_stacked_cuda(kernel: FusedKernel, batch_datas, batch_valids,
     outs = launch_stacked(kernel, batch_datas, batch_valids, batch_nrows)
     return [_groups(kernel.gen, datas, valids, [o[b] for o in outs], int(nr))
             for b, (datas, valids, nr) in enumerate(zip(batch_datas, batch_valids, batch_nrows))]
+
+
+# -- K18: the fused aggregate input ---------------------------------------------------
+#
+# Replaces the JAX package's fused partial-aggregate programs
+# (blaze_tpu/ops/agg_device.py:587 _fused_fn, :690 _probe_fn, :748
+# _dense_call), whose shared prologue is :518 _trace_tb_mask: the unique-key
+# inner broadcast joins (:245 FusedJoinSpec.trace_join), the absorbed fused
+# steps (exprs/compiler.py:1110 trace_fused_steps) and the filter's
+# predicates, then the keys and arguments of the aggregate (:411 _flow). The
+# reference composes that prologue with its aggregate kernels in one XLA
+# program; here it is one generated kernel a batch, K18, whose planes feed
+# K3 and K10 (ops/agg_device.py) over its live mask.
+#
+# One program takes 1,024 rows. For each fused join, inner-first, it
+# evaluates the probe key, takes its canonical word (ops/joins/keymap.py
+# canon_words: -0.0 -> 0.0, every NaN the quiet NaN, f32 as its int32 bits
+# sign-extended), binary-searches the build's sorted unique words (a fixed
+# trip count, S = bit_length(max(nk, 1)), a tl.constexpr; index math in
+# int64) as searchsorted-left, clips the rank into [0, nk - 1] and hits
+# where the key is valid on a row below num_rows, the rank is below nk and
+# the word is found (nk = 0: the one-word placeholder, no hit). It gathers
+# the build planes a later expression reads, valid only on a hit, and
+# narrows the live mask by the hit. Then the steps (filters narrow the
+# mask), the predicates, the keys and the arguments, with ``_Gen``'s
+# expression code; it stores each key and argument plane (a plane that is
+# an input data plane passes through unstored), each validity ANDed with the
+# live mask, and the mask. A wide-decimal argument (a bare column) stores
+# only its validity: K3/K10 read its limb planes from the batch.
+#
+# Bound: device memory. The search reads ~S words of a build table that
+# stays in L2 (102,000 keys: 816 KB); everything else is one pass over the
+# planes the expressions read. No reuse for shared memory or tensor
+# cores, and a kernel generated per expression tree at run time: Triton,
+# as K11.
+
+# the quiet NaNs every float key folds to (torch's NaN on either device)
+_QNAN64 = 0x7FF8000000000000
+_QNAN32 = 0x7FC00000
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedJoin:
+    """One unique-key inner broadcast join absorbed into the aggregate:
+    its probe key over the probe schema, which side the probe is, and both
+    schemas (ops/agg_device.py's DevicePartialAgger pairs it with its
+    build map)."""
+
+    key_expr: E.Expr
+    probe_on_left: bool
+    probe_schema: T.Schema
+    build_schema: T.Schema
+
+    @property
+    def joined_schema(self) -> T.Schema:
+        p, b = self.probe_schema.fields, self.build_schema.fields
+        return T.Schema(tuple(p) + tuple(b) if self.probe_on_left else tuple(b) + tuple(p))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedAggSpec:
+    """What K18 computes for one fused partial aggregate: batches of
+    ``input_schema`` (the innermost probe side, the absorbed steps' input,
+    or the aggregate's child), the joins inner-first, the absorbed steps
+    (project / filter / rename), the filter's predicates and the
+    aggregate's grouping expressions and arguments over ``child_schema``
+    (None for COUNT(*)). Joins and steps never come together (the
+    reference's peel order)."""
+
+    input_schema: T.Schema
+    joins: Tuple[FusedJoin, ...]
+    steps: tuple
+    predicates: tuple
+    child_schema: T.Schema
+    groupings: tuple
+    args: tuple
+
+    def wide_arg(self, e: Optional[E.Expr]) -> bool:
+        """A bare decimal(19..38) column: its limb planes pass through."""
+        return isinstance(e, (E.Column, E.BoundReference)) and \
+            T.is_wide_decimal(E.infer_type(e, self.child_schema))
+
+    def fingerprint(self) -> str:
+        """Structural identity: the input schema, each join's key, build
+        dtypes and probe side, the steps' fingerprint, the predicates, the
+        groupings and the arguments. Keys the kernel cache and names the
+        generated source."""
+        import hashlib
+        import json
+
+        from blaze_tpu_torch.ir.fusion import _schema_sig, fused_fingerprint
+        from blaze_tpu_torch.ir.serde import expr_to_json
+
+        payload = [_schema_sig(self.input_schema),
+                   [[expr_to_json(j.key_expr), int(j.probe_on_left),
+                     _schema_sig(j.build_schema)] for j in self.joins],
+                   fused_fingerprint(self.input_schema, self.steps) if self.steps else "",
+                   [expr_to_json(p) for p in self.predicates],
+                   _schema_sig(self.child_schema),
+                   [expr_to_json(e) for e in self.groupings],
+                   [None if e is None else expr_to_json(e) for e in self.args]]
+        blob = json.dumps(payload, sort_keys=True, default=str)
+        return "agg_" + hashlib.sha256(blob.encode()).hexdigest()[:24]
+
+
+class _AggGen(_Gen):
+    """Generates K18's body: joins, steps, predicates, keys, arguments."""
+
+    def __init__(self, spec: FusedAggSpec):
+        self.spec = spec
+        super().__init__(spec.input_schema, spec.steps)
+
+    def _generate(self):
+        spec = self.spec
+        cols = [_Col(f"x{i}", f"xv{i}", T.torch_dtype(f.dtype), i, True)
+                for i, f in enumerate(spec.input_schema.fields)]
+        live = "exists"
+        gathers = []  # (body line index, variable, join, build column)
+        for j, js in enumerate(spec.joins):
+            key = self.eval(js.key_expr, js.probe_schema, cols)
+            w = self._canon_word(key)
+            kvalid = self.let(f"{key.valid} & exists")
+            lo, hi = f"lo{j}", f"hi{j}"
+            self.body += [
+                f"    {lo} = zi64",
+                f"    {hi} = zi64 + ulen{j}",
+                f"    for _s in tl.static_range(S{j}):",
+                f"        act = {lo} < {hi}",
+                f"        mid = ({lo} + {hi}) >> 1",
+                f"        um = tl.load(u{j}_ptr + mid, mask=act & inb, other=0)",
+                f"        rt = act & (um < {w})",
+                f"        {lo} = tl.where(rt, mid + 1, {lo})",
+                f"        {hi} = tl.where(act & (rt == 0), mid, {hi})"]
+            cidx = self.let(f"tl.minimum({lo}, zi64 + nkm{j})")
+            uc = self.let(f"tl.load(u{j}_ptr + {cidx}, mask=inb, other=0)")
+            hit = self.let(f"{kvalid} & ({lo} < nk{j}) & ({uc} == {w})")
+            bcols = []
+            for c, f in enumerate(js.build_schema.fields):
+                d, v = f"g{j}_{c}", f"gv{j}_{c}"
+                gathers.append((len(self.body), d, j, c))
+                self.body.append(f"    {d} = tl.load(b{j}_{c}_ptr + {cidx}, mask=inb, other=0)")
+                gathers.append((len(self.body), v, j, c))
+                self.body.append(f"    {v} = tl.load(bv{j}_{c}_ptr + {cidx}, mask=inb, "
+                                 f"other=0) & {hit}")
+                bcols.append(_Col(d, v, _require_tdt(f.dtype), None, False))
+            cols = cols + bcols if js.probe_on_left else bcols + cols
+            live = self.let(f"{live} & {hit}")
+        if spec.steps:
+            schemas = fused_chain_schemas(spec.input_schema, spec.steps)
+            for si, st in enumerate(spec.steps):
+                if st[0] == "project":
+                    cols = self._project(st[1], schemas[si], cols, live)
+                elif st[0] == "filter":
+                    live = self._predicate(st[1], schemas[si], cols, live)
+                elif st[0] != "rename":
+                    raise ExprError(f"fused step {st[0]!r} cannot be absorbed")
+        if spec.predicates:
+            live = self._predicate(spec.predicates, spec.child_schema, cols, live)
+        self.key_specs = [self._out(self.eval(e, spec.child_schema, cols), live)
+                          for e in spec.groupings]
+        self.arg_specs = []
+        for e in spec.args:
+            if e is None:
+                self.arg_specs.append(None)
+                continue
+            v = self.eval(e, spec.child_schema, cols)
+            if spec.wide_arg(e):
+                self.arg_specs.append((("wide", v.src),
+                                       self._store(self.let(f"{v.valid} & {live}"), torch.bool)))
+            else:
+                self.arg_specs.append(self._out(v, live))
+        self.live_store = self._store(live, torch.bool)
+        # drop the gathers no later line reads (a gather reads only the
+        # join's rank and hit, never another gather)
+        stored = "".join(f"\n{v}" for v, _ in self.stores)
+        dead = {k for k, var, _j, _c in gathers
+                if not re.search(rf"\b{var}\b", "\n".join(self.body[k + 1:]) + stored)}
+        self.body = [ln for k, ln in enumerate(self.body) if k not in dead]
+        read = "\n".join(self.body) + stored
+        n = len(spec.input_schema.fields)
+        self.used_d = [i for i in range(n) if re.search(rf"\bx{i}\b", read)]
+        self.used_v = [i for i in range(n) if re.search(rf"\bxv{i}\b", read)]
+        # per join: the build columns whose data and validity planes it loads
+        cols_of = [range(len(j.build_schema.fields)) for j in spec.joins]
+        self.join_used_d = [[c for c in cs if re.search(rf"\bg{j}_{c}\b", read)]
+                            for j, cs in enumerate(cols_of)]
+        self.join_used_v = [[c for c in cs if re.search(rf"\bgv{j}_{c}\b", read)]
+                            for j, cs in enumerate(cols_of)]
+        self.join_used = [sorted(set(d) | set(v))
+                          for d, v in zip(self.join_used_d, self.join_used_v)]
+
+    def _out(self, v: _V, live: str):
+        """(data spec, validity store) of a key or argument: an input data
+        plane passes through, anything else is stored."""
+        if v.src is not None and not v.scalar:
+            data = ("in_d", v.src)
+        else:
+            data = ("out", self._store(v.data, v.tdt))
+        return data, self._store(self.let(f"{v.valid} & {live}"), torch.bool)
+
+    def _canon_word(self, v: _V) -> str:
+        """ops/joins/keymap.py canon_words, as device code."""
+        if v.tdt == torch.float64:
+            bits = self.let(f"{v.data}.to(tl.int64, bitcast=True)")
+            return self.let(f"tl.where({v.data} == 0, zi64, tl.where({v.data} != {v.data}, "
+                            f"{self.word(_QNAN64)}, {bits}))")
+        if v.tdt == torch.float32:
+            bits = self.let(f"{v.data}.to(tl.int32, bitcast=True).to(tl.int64)")
+            return self.let(f"tl.where({v.data} == 0, zi64, tl.where({v.data} != {v.data}, "
+                            f"{self.word(_QNAN32)}, {bits}))")
+        return self.cast(v.data, v.tdt, torch.int64)
+
+    def source(self, fingerprint: str) -> str:
+        nj = len(self.spec.joins)
+        params = [f"x{i}_ptr" for i in self.used_d] + [f"xv{i}_ptr" for i in self.used_v]
+        for j in range(nj):
+            params += [f"u{j}_ptr"] + [f"b{j}_{c}_ptr" for c in self.join_used_d[j]] + \
+                [f"bv{j}_{c}_ptr" for c in self.join_used_v[j]]
+        params += [f"o{k}" for k in range(len(self.stores))] + ["consts", "num_rows", "cap"]
+        ints = [f"{p}{j}" for j in range(nj) for p in ("ulen", "nkm", "nk")]
+        params += ints + [f"S{j}: tl.constexpr" for j in range(nj)] + ["BLOCK: tl.constexpr"]
+        spec = ", ".join(f'"{p}"' for p in ["num_rows", "cap"] + ints)
+        lines = [_PRELUDE.format(what="K18 for one fused aggregate", fp=fingerprint),
+                 f"@triton.jit(do_not_specialize=[{spec}])",
+                 f"def fused_agg_input({', '.join(params)}):",
+                 "    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)",
+                 "    inb = offs < cap",
+                 "    exists = offs < num_rows",
+                 "    tt = offs >= 0",
+                 "    ff = offs < 0",
+                 "    zi64 = tl.zeros([BLOCK], dtype=tl.int64)"]
+        lines += [f"    w{k} = zi64 + tl.load(consts + {k})" for k in range(len(self.pool))]
+        lines += [f"    x{i} = tl.load(x{i}_ptr + offs, mask=inb, other=0)" for i in self.used_d]
+        lines += [f"    xv{i} = tl.load(xv{i}_ptr + offs, mask=inb, other=0)"
+                  for i in self.used_v]
+        lines += self.body
+        lines += [f"    tl.store(o{k} + offs, {v}.to({_TL[tdt]}), mask=inb)"
+                  for k, (v, tdt) in enumerate(self.stores)]
+        return "\n".join(lines) + "\n"
+
+
+class FusedAggKernel(FusedKernel):
+    """K18 for one fused aggregate, made, written and compiled as a
+    segment's K11 is (``FusedKernel``), from its spec."""
+
+    ENTRY = "fused_agg_input"
+
+    def __init__(self, spec: FusedAggSpec):
+        super().__init__(spec.input_schema, spec.steps, spec.fingerprint())
+        self.spec = spec
+
+    @property
+    def gen(self) -> _AggGen:
+        if self._gen is None:
+            self._gen = _AggGen(self.spec)
+        return self._gen
+
+
+# process-wide K18 cache: spec fingerprint -> FusedAggKernel
+_AGG_KERNELS: Dict[str, FusedAggKernel] = {}
+_AGG_LOCK = threading.Lock()
+
+
+def fused_agg_kernel(spec: FusedAggSpec) -> FusedAggKernel:
+    """The process-wide cached K18 of a spec (by its fingerprint)."""
+    fp = spec.fingerprint()
+    with _AGG_LOCK:
+        k = _AGG_KERNELS.get(fp)
+        if k is None:
+            k = _AGG_KERNELS[fp] = FusedAggKernel(spec)
+        return k
+
+
+def _check_agg_inputs(spec: FusedAggSpec, columns, joins, cap: int) -> None:
+    name = "fused_agg_input"
+    fields = spec.input_schema.fields
+    if len(columns) != len(fields) or len(joins) != len(spec.joins):
+        raise ValueError(f"{name}: {len(columns)} columns for {len(fields)} fields, "
+                         f"{len(joins)} builds for {len(spec.joins)} joins")
+    for f, c in zip(fields, columns):
+        planes = [c.validity] + (list(c.planes()) if T.is_wide_decimal(f.dtype) else [c.data])
+        cuda_lib.require_cuda(name, *planes)
+        if any(p.shape != (cap,) for p in planes) or c.validity.dtype != torch.bool or \
+                (not T.is_wide_decimal(f.dtype) and c.data.dtype != T.torch_dtype(f.dtype)):
+            raise ValueError(f"{name}: column {f.name!r} does not match {f.dtype!r} "
+                             f"at capacity {cap}")
+    for js, (uniq, nk, bcols) in zip(spec.joins, joins):
+        cuda_lib.require_cuda(name, uniq, *[p for c in bcols for p in (c.data, c.validity)])
+        if uniq.dtype != torch.int64 or uniq.shape != (max(nk, 1),) or nk < 0:
+            raise ValueError(f"{name}: sorted keys {uniq.dtype}{tuple(uniq.shape)} for {nk} keys")
+        if len(bcols) != len(js.build_schema.fields):
+            raise ValueError(f"{name}: {len(bcols)} build columns for "
+                             f"{len(js.build_schema.fields)} fields")
+        cap_b = bcols[0].capacity if bcols else 0
+        if cap_b < max(nk, 1) or any(c.capacity != cap_b for c in bcols):
+            raise ValueError(f"{name}: build columns of capacity {cap_b} for {nk} keys")
+
+
+def launch_fused_agg(kernel: FusedAggKernel, columns, num_rows: int, joins) -> List[torch.Tensor]:
+    """K18 alone: checks its inputs, launches once and returns the planes it
+    stored. ``columns``: the batch's columns (DeviceColumn, or WideColumn
+    for a decimal(19..38)); ``joins``: per fused join, inner-first, (sorted
+    unique words on the device, nk, build columns)."""
+    gen = kernel.gen
+    cap = int(columns[0].capacity)
+    _check_agg_inputs(kernel.spec, columns, joins, cap)
+    if not 0 <= num_rows <= cap:
+        raise ValueError(f"fused_agg_input: {num_rows} rows in a {cap}-row batch")
+    dev = columns[0].validity.device
+    outs = [torch.empty(cap, dtype=tdt, device=dev) for _v, tdt in gen.stores]
+    args = [columns[i].data for i in gen.used_d] + [columns[i].validity for i in gen.used_v]
+    ints, steps = [], {}
+    for j, (uniq, nk, bcols) in enumerate(joins):
+        args += [uniq] + [bcols[c].data for c in gen.join_used_d[j]] + \
+            [bcols[c].validity for c in gen.join_used_v[j]]
+        ints += [max(nk, 1), max(nk - 1, 0), nk]
+        steps[f"S{j}"] = max(nk, 1).bit_length()  # the search's trip count
+    args += outs + [kernel.constants_on(dev), num_rows, cap] + ints
+    fn = kernel.compiled()
+    fn[((cap + BLOCK - 1) // BLOCK,)](*args, **steps, BLOCK=BLOCK, num_warps=NUM_WARPS,
+                                       enable_fp_fusion=False)
+    cuda_lib.LAUNCHES["fused_agg_input"] += 1
+    return outs
+
+
+def fused_agg_input_cuda(kernel: FusedAggKernel, columns, num_rows: int, joins):
+    """K18 on the card: the same contract as ``core/kernels.py
+    fused_agg_input_plain``, (keys, args, live) from the batch's columns and
+    the planes K18 stored."""
+    gen = kernel.gen
+    outs = launch_fused_agg(kernel, columns, num_rows, joins)
+
+    def data(spec):
+        kind, i = spec
+        if kind == "in_d":
+            return columns[i].data
+        if kind == "wide":
+            return tuple(columns[i].planes())
+        return outs[i]
+
+    keys = [(data(d), outs[v]) for d, v in gen.key_specs]
+    args = [None if a is None else (data(a[0]), outs[a[1]]) for a in gen.arg_specs]
+    return keys, args, outs[gen.live_store]

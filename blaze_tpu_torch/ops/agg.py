@@ -7,7 +7,12 @@ reference does (``:164-400``):
   aggregates: per-batch partial states from the slot route (K3) or the
   sort route (K10), as ``DevicePartialAgger`` routes each batch, then
   per-task consolidation of the staged partials (PARTIAL_MERGE) when they
-  are few and reducing, as the JAX package does before the exchange;
+  are few and reducing, as the JAX package does before the exchange.
+  Under ``fused_filter_agg`` (on unless False) it first absorbs a Filter
+  under it, then a one-segment fused stage or the unique-key inner
+  broadcast joins (``_partial_agger``): one K18 launch a batch then
+  gives K3/K10 their keys, arguments and live mask, with no compaction
+  and no joined batch;
 - FINAL / PARTIAL_MERGE over partial states, grouped, every function a
   device aggregate: one merge of every staged state batch
   (``DeviceMergeAgger``: K4 over a radix plan, else K10), unless the
@@ -54,7 +59,9 @@ from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ir.aggstate import (_arg_type_from_state,
                                          agg_output_schema, parse_state_mode)
 from blaze_tpu_torch.ops import aggfns
-from blaze_tpu_torch.ops.agg_device import DeviceMergeAgger, DevicePartialAgger
+from blaze_tpu_torch.ops.agg_device import (DeviceMergeAgger, DevicePartialAgger,
+                                            fusable_aggregate, fusable_join,
+                                            supports_fused_filter)
 from blaze_tpu_torch.ops.base import Operator
 
 # the aggregates the device routes take (blaze_tpu/ops/agg_device.py:50)
@@ -155,12 +162,59 @@ class AggExec(Operator):
         else:
             yield from self._execute_table(partition, ctx, child_schema)
 
+    def _partial_agger(self, partition, ctx, child_schema):
+        """The partial aggregate's engine and the stream it reads. Unless
+        ``fused_filter_agg`` is False, it absorbs what lies under it in the
+        reference's order (blaze_tpu/ops/agg.py:164-250): a Filter whose
+        predicates K18 generates, then a fused stage of one project /
+        filter / rename segment, or else, one after another, the
+        unique-key inner broadcast joins under it. A join whose loaded map
+        is not unique declines, and its unfused probe reuses that map.
+        Nothing fuses when a key or argument is not K18's to generate
+        (``fusable_aggregate``)."""
+        from blaze_tpu_torch.ops.basic import FilterExec
+        from blaze_tpu_torch.ops.fused import FusedStageExec
+
+        child_op = self.children[0]
+        fuse_ok = ctx.conf.fused_filter_agg is not False and \
+            fusable_aggregate(self, child_schema)
+        source, preds = child_op, None
+        if fuse_ok and isinstance(child_op, FilterExec) and \
+                supports_fused_filter(child_op, child_op.children[0].schema):
+            source, preds = child_op.children[0], child_op.predicates
+        seg = source.absorbable_segment() \
+            if fuse_ok and isinstance(source, FusedStageExec) else None
+        if seg is not None:
+            ctx.counters["fused_stages"] += 1
+            ctx.counters["fused_ops"] += len(source.node.ops)
+            source = source.children[0]
+        joins = []  # (FusedJoin, build map) pairs
+        stream = None
+        while fuse_ok and seg is None:
+            join = fusable_join(source)
+            if join is None:
+                break
+            bmap = source._load_build_map(ctx)
+            if not bmap.unique_single_key:
+                stream = source._probe_with_map(bmap, partition, ctx)
+                break
+            joins.append((join, bmap))
+            source = source.children[source._probe_child()]
+        if joins:
+            ctx.counters["fused_join_stages"] += len(joins)
+        agger = DevicePartialAgger(self, child_schema, ctx.conf, preds,
+                                   list(reversed(joins)),  # peeled outer-first
+                                   seg.steps if seg else None, seg.in_schema if seg else None)
+        if stream is None:
+            stream = source.execute(partition, ctx)
+        return agger, stream
+
     def _execute_partial(self, partition, ctx, child_schema):
-        agger = DevicePartialAgger(self, child_schema, ctx.conf)
+        agger, stream = self._partial_agger(partition, ctx, child_schema)
         staged: List[ColumnarBatch] = []
         staged_bytes = staged_rows = input_rows = 0
         gave_up = False
-        for batch in self.execute_child(0, partition, ctx):
+        for batch in stream:
             input_rows += batch.num_rows
             out = agger.process(batch)
             if out is None or not out.num_rows:

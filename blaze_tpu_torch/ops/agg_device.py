@@ -51,12 +51,14 @@ import numpy as np
 import torch
 
 from blaze_tpu_torch.core import kernels as K
-from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn, iota
+from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn, WideColumn, iota
 from blaze_tpu_torch.core.kernels import (EMIT_NONZERO, EMIT_RAW, EMIT_WHERE,
                                           OP_ADD, OP_ADD_HI32, OP_ADD_LO32, OP_COUNT,
                                           OP_MAX, OP_MIN, AggEmit, AggOp, lex_emits,
                                           lex_ops, limb_emits)
-from blaze_tpu_torch.exprs.compiler import ExprEvaluator, broadcast
+from blaze_tpu_torch.exprs.compiler import ExprEvaluator, broadcast, fusable_expr
+from blaze_tpu_torch.exprs.fused_triton import FusedAggSpec, FusedJoin, fused_agg_kernel
+from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ops import aggfns
 from blaze_tpu_torch.utils import cuda_lib
@@ -195,14 +197,19 @@ def _slots(sizes: Sequence[int]) -> int:
 
 
 def _run_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes, ops, emits,
-               out_cap, nbuck):
+               out_cap, nbuck, exists=None):
     """Plain PyTorch version of the slot program (the arithmetic of
-    ``_dense_partial_kernel`` / ``_radix_merge_kernel``)."""
+    ``_dense_partial_kernel`` / ``_radix_merge_kernel``). The rows below
+    ``num_rows`` exist, and of them, where ``exists`` is given (K18's live
+    mask), only those it holds."""
     dev = kvalids[0].device
     cap = kvalids[0].shape[0]
     S = _slots(sizes)
     strides = K.radix_strides(sizes)
+    live = exists
     exists = iota(cap, dev) < num_rows
+    if live is not None:
+        exists = exists & live
     seg, fits = K.radix_pack(keys, [v & exists for v in kvalids], exists,
                              bases, sizes, strides)
     tables = []
@@ -261,7 +268,7 @@ def _run_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes, ops, emits,
 
 
 def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
-              emits, out_cap, nbuck, kinds=()):
+              emits, out_cap, nbuck, exists=None, kinds=()):
     """The slot program on the card (csrc/slot_agg.cu); same outputs as
     :func:`_run_plain`. ``kinds``: the program's limb aggregate kinds,
     counted per launch."""
@@ -270,7 +277,10 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
     keys64 = [k.to(torch.int64).contiguous() for k in keys]
     srcs = [op.src.contiguous() if op.src is not None else None for op in ops]
     src0s = [op.src0.contiguous() if op.src0 is not None else None for op in ops]
-    cuda_lib.require_cuda(name, *keys64, *kvalids,
+    if exists is not None and (exists.dtype != torch.bool or
+                               exists.shape != kvalids[0].shape):
+        raise TypeError(f"{name}: exists plane {exists.dtype}{tuple(exists.shape)}")
+    cuda_lib.require_cuda(name, *keys64, *kvalids, *([exists] if exists is not None else []),
                           *[v for op in ops for v in op.valids],
                           *[s for s in srcs + src0s if s is not None])
     for v in list(kvalids) + [v for op in ops for v in op.valids]:
@@ -314,7 +324,8 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
     err = lib.blz_slot_agg(
         len(keys), arg(P(keys64)), arg(P(kvalids)),
         arg(Iv(bases, LL)), arg(Iv(sizes, LL)), arg(Iv(strides, LL)),
-        num_rows, len(ops), arg(Iv([op.kind for op in ops])),
+        num_rows, exists.data_ptr() if exists is not None else None,
+        len(ops), arg(Iv([op.kind for op in ops])),
         arg(P(srcs)), arg(P(src0s)), arg(Iv([len(op.valids) for op in ops])),
         arg(P(op_valid)), arg(P([tables[i] for i in range(len(ops))])),
         arg(Iv([op.mult for op in ops], LL)), arg(Iv([op.init for op in ops], LL)),
@@ -341,13 +352,14 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
     return tuple(results)
 
 
-def _run(name, kinds, *args):
+def _run(name, kinds, *args, exists=None):
     ops = args[6]
     if any(op.is_float for op in ops):
         # K3/K4 add with atomics: a float sum would depend on their order
         raise TypeError(f"{name}: float states take the sort route (K10)")
     on_cuda = args[1][0].is_cuda  # key validity planes
-    return _run_cuda(name, *args, kinds=kinds) if on_cuda else _run_plain(*args)
+    return _run_cuda(name, *args, exists=exists, kinds=kinds) if on_cuda \
+        else _run_plain(*args, exists=exists)
 
 
 def _limb_kinds(kinds) -> tuple:
@@ -355,21 +367,24 @@ def _limb_kinds(kinds) -> tuple:
 
 
 def slot_agg_partial(keys, kvalids, key_dtypes, num_rows, bases, sizes, specs,
-                     args, out_cap, nbuck=0):
+                     args, out_cap, nbuck=0, exists=None):
     """K3: rows -> partial states in slot order. Returns (group count, or
     -1 when a key fell outside the plan; out_valid; per key (data,
     valid); per aggregate its state arrays; [per-bucket rows, groups] when
-    ``nbuck``) — the outputs of ``_dense_partial_kernel``."""
+    ``nbuck``) — the outputs of ``_dense_partial_kernel``. ``exists``: a
+    fused aggregate's live mask (K18), the rows below ``num_rows`` that
+    exist; None: all of them."""
     ops, emits = _partial_program(specs, args)
     return _run("slot_agg_partial", _limb_kinds(s[0] for s in specs), keys, kvalids,
-                key_dtypes, num_rows, bases, sizes, ops, emits, out_cap, nbuck)
+                key_dtypes, num_rows, bases, sizes, ops, emits, out_cap, nbuck,
+                exists=exists)
 
 
 def slot_agg_partial_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes,
-                           specs, args, out_cap, nbuck=0):
+                           specs, args, out_cap, nbuck=0, exists=None):
     ops, emits = _partial_program(specs, args)
     return _run_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
-                      emits, out_cap, nbuck)
+                      emits, out_cap, nbuck, exists)
 
 
 def slot_agg_merge(keys, kvalids, key_dtypes, num_rows, bases, sizes, kinds,
@@ -388,16 +403,27 @@ def slot_agg_merge_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes,
                       emits, out_cap, 0)
 
 
-def _run_sorted(name, keys, kvalids, num_rows, ops, emits, direct, kinds=()):
+def _run_sorted(name, keys, kvalids, num_rows, ops, emits, direct, kinds=(),
+                exists=None):
     """The sort route (K5 sort, K10 segments and reduction, K6 take of each
     group's keys from its first row); outputs as the slot program's, with
     capacity-long planes: (group count, out_valid, per key (data, valid),
-    per emit its column). One sync, the group count, besides K5's."""
+    per emit its column). One sync, the group count, besides K5's. With
+    ``exists`` (K18's live mask over the rows below num_rows) the dead rows
+    sort last (K5's padding rank) and the segments cover the live rows
+    only, whose count is one more sync; none live: (0,) and no launch."""
     dev = kvalids[0].device
     cap = kvalids[0].shape[0]
-    exists = iota(cap, dev) < num_rows
-    order, starts, count = K.segment_ids(keys, kvalids, exists, num_rows, direct)
-    outs, first = K.segment_reduce(name, order, starts, count, num_rows, ops, emits,
+    live_rows = num_rows
+    if exists is None:
+        exists = iota(cap, dev) < num_rows
+    else:
+        live_rows = int(exists.sum())
+        if live_rows == 0:
+            return (0,)
+    order, starts, count = K.segment_ids(keys, kvalids, exists, num_rows, direct,
+                                         live_rows)
+    outs, first = K.segment_reduce(name, order, starts, count, live_rows, ops, emits,
                                    _limb_kinds(kinds))
     num_groups = int(count)
     kd, kv = K.gather_planes(keys, kvalids, first, cap, num_groups)
@@ -409,14 +435,15 @@ def _run_sorted(name, keys, kvalids, num_rows, ops, emits, direct, kinds=()):
     return tuple(results)
 
 
-def seg_agg_partial(keys, kvalids, num_rows, specs, args, direct=True):
+def seg_agg_partial(keys, kvalids, num_rows, specs, args, direct=True, exists=None):
     """K10 partial: rows -> partial states in key order; the outputs of
-    ``_partial_kernel`` (keys' validity masked with exists, a prefix of
-    num_rows rows). ``direct`` allows the single-integer-key segmentation
-    (nulls last); without it groups come in the slot routes' order."""
+    ``_partial_kernel`` (keys' validity masked with exists: a prefix of
+    num_rows rows, or a fused aggregate's live mask). ``direct`` allows the
+    single-integer-key segmentation (nulls last); without it groups come
+    in the slot routes' order."""
     ops, emits = _partial_program(specs, args)
     return _run_sorted("seg_agg_partial", keys, kvalids, num_rows, ops, emits,
-                       direct, [s[0] for s in specs])
+                       direct, [s[0] for s in specs], exists)
 
 
 def seg_agg_merge(keys, kvalids, num_rows, kinds, states, direct=True):
@@ -484,6 +511,64 @@ def _slot_fits(key_data, key_valid, num_rows, bases, sizes) -> bool:
                              K.radix_strides(sizes))[1])
 
 
+# -- filter -> agg and join -> agg fusion (row 10) -----------------------------
+
+
+def _device_or_wide(dt: T.DataType) -> bool:
+    return T.torch_dtype(dt) is not None or T.is_wide_decimal(dt)
+
+
+def fusable_join(op) -> Optional[FusedJoin]:
+    """The join's structure when a partial aggregate may absorb it
+    (blaze_tpu/ops/agg.py:121 _try_fuse_join, before its map loads): an
+    INNER BroadcastJoinExec without a condition on one key, every build
+    column a device plane, every probe column a device plane or a wide
+    decimal, and a probe key K18 can generate (``fusable_expr``, which
+    reads no wide column). Whether the map is unique is decided once it is
+    loaded (its ``unique_single_key``)."""
+    from blaze_tpu_torch.ir.nodes import JoinType
+    from blaze_tpu_torch.ops.joins.bhj import BroadcastJoinExec
+
+    if not isinstance(op, BroadcastJoinExec) or op.join_type != JoinType.INNER or \
+            op.condition is not None:
+        return None
+    keys = op._key_exprs(for_build=False)
+    probe = op.children[op._probe_child()].schema
+    build = op.children[op._build_child()].schema
+    if len(keys) != 1 or not all(T.torch_dtype(f.dtype) is not None for f in build.fields) \
+            or not all(_device_or_wide(f.dtype) for f in probe.fields) \
+            or not fusable_expr(keys[0], probe):
+        return None
+    return FusedJoin(keys[0], op._probe_child() == 0, probe, build)
+
+
+def supports_fused_filter(filter_op, grandchild_schema: T.Schema) -> bool:
+    """Can the filter's predicates run inside K18 (blaze_tpu/ops/
+    agg_device.py:323)? Every column a device plane or a wide decimal, and
+    every predicate one K18 generates (``fusable_expr``: no wide column,
+    no ScalarFunction, no bloom probe), decided from the plan before the
+    first batch."""
+    return all(_device_or_wide(f.dtype) for f in grandchild_schema.fields) and \
+        all(fusable_expr(p, grandchild_schema) for p in filter_op.predicates)
+
+
+def fusable_aggregate(op, child_schema: T.Schema) -> bool:
+    """May the partial aggregate's keys and arguments be K18's outputs
+    (the reference's ``fuse_ok`` argument rules, blaze_tpu/ops/agg.py:
+    193-216, with generable expressions only)? A bare wide-decimal
+    argument passes its limb planes through."""
+    for a in op.aggs:
+        if not a.agg.args:
+            continue
+        arg = a.agg.args[0]
+        if isinstance(arg, (E.Column, E.BoundReference)) and \
+                T.is_wide_decimal(E.infer_type(arg, child_schema)):
+            continue
+        if not fusable_expr(arg, child_schema):
+            return False
+    return all(fusable_expr(e, child_schema) for _, e in op.groupings)
+
+
 # -- the operators' engines ----------------------------------------------------
 
 
@@ -498,11 +583,38 @@ class DevicePartialAgger:
     (K10), routed as ``_try_dense`` routes them: probe once per stream,
     re-plan once on a range overflow, the sort route for a batch without
     a valid key to plan from, and for the rest of the stream once no plan
-    fits; one group-count sync per batch."""
+    fits; one group-count sync per batch.
 
-    def __init__(self, op, child_schema: T.Schema, conf):
+    With ``fused_predicates``, ``fused_joins`` (inner-first, each a
+    (``FusedJoin``, build map) pair: K18 searches the map's sorted unique
+    words, uploaded once by ``device_keys``, and gathers its build
+    columns, code c at row c) or ``fused_steps`` (over
+    ``fused_input_schema``) the batches are the
+    absorbed operators' input, and one K18 launch a batch
+    (``K.fused_agg_input``) gives the keys, the arguments and the live
+    mask that K3 and K10 then read (blaze_tpu/ops/agg_device.py:518
+    ``_trace_tb_mask`` composed with ``_dense_partial_kernel`` or
+    ``_partial_kernel``); the range probe reads the same planes. The
+    reference's per-batch ``materialize`` and eager-steps fallbacks for a
+    batch with host columns have no counterpart: the port decides fusion
+    from the plan, and a batch that is not all device and wide-decimal
+    columns raises."""
+
+    def __init__(self, op, child_schema: T.Schema, conf, fused_predicates=None,
+                 fused_joins=(), fused_steps=None, fused_input_schema=None):
         self.op = op
         self.conf = conf
+        self.fused_joins = list(fused_joins)
+        self.fused = None
+        if fused_predicates or self.fused_joins or fused_steps:
+            in_schema = fused_input_schema if fused_steps else \
+                self.fused_joins[0][0].probe_schema if self.fused_joins else child_schema
+            self.fused = FusedAggSpec(
+                in_schema, tuple(j for j, _ in self.fused_joins), tuple(fused_steps or ()),
+                tuple(fused_predicates or ()), child_schema,
+                tuple(e for _, e in op.groupings),
+                tuple(a.agg.args[0] if a.agg.args else None for a in op.aggs))
+            self._kernel = fused_agg_kernel(self.fused)
         self.group_ev = ExprEvaluator([e for _, e in op.groupings], child_schema)
         self.agg_evs = [ExprEvaluator(list(a.agg.args), child_schema)
                         if a.agg.args else None for a in op.aggs]
@@ -570,24 +682,41 @@ class DevicePartialAgger:
                 return ("radix",) + st
         return None
 
+    def _fused_input(self, batch: ColumnarBatch):
+        """K18 over the batch: (key data, key valid, args, live)."""
+        if not all(isinstance(c, (DeviceColumn, WideColumn)) for c in batch.columns):
+            raise ValueError("a fused aggregate takes batches of device and wide-decimal "
+                             f"columns; got {[type(c).__name__ for c in batch.columns]}")
+        joins = [(bmap.device_keys(batch.device), len(bmap.sorted_keys), bmap.batch.columns)
+                 for _, bmap in self.fused_joins]
+        keys, args, live = K.fused_agg_input(self.fused, batch.columns, batch.num_rows,
+                                             joins, self._kernel)
+        args = [(torch.zeros(batch.capacity, dtype=torch.int64, device=batch.device), live)
+                if a is None else a for a in args]
+        return [d for d, _ in keys], [v for _, v in keys], args, live
+
     def process(self, batch: ColumnarBatch) -> Optional[ColumnarBatch]:
         n = batch.num_rows
         if n == 0:
             return None
-        exists = batch.row_exists_mask()
-        key_data, key_valid = self._keys(batch, exists)
-        args = self._args(batch, exists)
+        live = None  # the rows below n exist
+        if self.fused is not None:
+            key_data, key_valid, args, live = self._fused_input(batch)
+        else:
+            exists = batch.row_exists_mask()
+            key_data, key_valid = self._keys(batch, exists)
+            args = self._args(batch, exists)
         if self._dense_ok is None:
             ints = _int_keys(key_data)
             self._dense_ok = ints and _route_on(self.conf.dense_agg)
             self._radix_ok = ints and _route_on(self.conf.radix_agg)
-        outs = self._try_slots(key_data, key_valid, args, n, batch.capacity)
+        outs = self._try_slots(key_data, key_valid, args, n, batch.capacity, live)
         if outs is None:
-            outs = seg_agg_partial(key_data, key_valid, n, self.specs, args)
+            outs = seg_agg_partial(key_data, key_valid, n, self.specs, args, exists=live)
         num_groups = int(outs[0])
         return self._assemble(outs, num_groups) if num_groups else None
 
-    def _try_slots(self, key_data, key_valid, args, n, capacity):
+    def _try_slots(self, key_data, key_valid, args, n, capacity, live=None):
         """``_try_dense``: the slot route's outputs, or None for the sort
         route."""
         self.last_bucket_stats = None
@@ -610,7 +739,7 @@ class DevicePartialAgger:
                     self._bucket_state = None
                     return None
                 self._bucket_state = st
-            outs = self._call(st, key_data, key_valid, n, args)
+            outs = self._call(st, key_data, key_valid, n, args, live)
             if int(outs[0]) >= 0:  # the sync; -1 flags a range overflow
                 if st[0] == "radix" and not self.float_states:
                     self.last_bucket_stats = (outs[-2], outs[-1])
@@ -620,17 +749,17 @@ class DevicePartialAgger:
         self._bucket_state = None
         return None
 
-    def _call(self, st, key_data, key_valid, n, args):
+    def _call(self, st, key_data, key_valid, n, args, live):
         table, bases, sizes, out_cap = st
         if self.float_states:
             # K10 in the slot order; the plan still decides the route
             if not _slot_fits(key_data, key_valid, n, bases, sizes):
                 return (-1,)
             return seg_agg_partial(key_data, key_valid, n, self.specs, args,
-                                   direct=False)
+                                   direct=False, exists=live)
         nbuck = self.conf.radix_agg_buckets if table == "radix" else 0
         return slot_agg_partial(key_data, key_valid, [d.dtype for d in key_data],
-                                n, bases, sizes, self.specs, args, out_cap, nbuck)
+                                n, bases, sizes, self.specs, args, out_cap, nbuck, live)
 
     def _assemble(self, outs, num_groups: int) -> ColumnarBatch:
         out_valid = outs[1]

@@ -10,6 +10,7 @@ ported yet (ROADMAP.md Queue 1 items 10, 11 and 14).
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Dict, Iterator, List, Optional
 
 import torch
@@ -20,13 +21,16 @@ from blaze_tpu_torch.ir import types as T
 
 
 class ExecContext:
-    """Per-task context handed to every operator."""
+    """Per-task context handed to every operator: ``counters`` is the
+    session's (``Session.counters``)."""
 
     def __init__(self, conf: Config, device: torch.device,
-                 resources: Optional[Dict[str, Any]] = None):
+                 resources: Optional[Dict[str, Any]] = None,
+                 counters: Optional[collections.Counter] = None):
         self.conf = conf
         self.device = device
         self.resources = resources if resources is not None else {}
+        self.counters = counters if counters is not None else collections.Counter()
 
 
 class Operator:

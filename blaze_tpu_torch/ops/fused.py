@@ -20,6 +20,11 @@ stack, and a stack of one runs alone (the JAX package's
 ``_fused_stream_sharded``). Each batch's result is the single-batch
 kernel's.
 
+A partial aggregate directly above a stage of one segment of project,
+filter and rename steps absorbs it (``absorbable_segment``; ops/agg.py,
+K18): the stage then never runs, and the aggregate counts its
+``fused_stages`` and ``fused_ops`` on the session.
+
 Not ported: the JAX package's per-batch eager fallback and its
 ``_BROKEN`` trip. The port has no host columns, so a batch that is not
 all device columns of one capacity raises, and so does a kernel that
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import collections
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from blaze_tpu_torch.core import kernels
 from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
@@ -104,6 +109,19 @@ class FusedStageExec(Operator):
                 run.append(st)
         if run:
             self.pipeline.append(_FusedSegment(tuple(run), schema))
+
+    def absorbable_segment(self) -> Optional[_FusedSegment]:
+        """The stage's one segment, when a partial aggregate above it may
+        absorb it into its input kernel (ops/agg.py, K18): no coalesce, only
+        project / filter / rename steps, and every input column a device
+        plane (blaze_tpu/ops/agg.py:220-248); else None."""
+        if len(self.pipeline) != 1 or not isinstance(self.pipeline[0], _FusedSegment):
+            return None
+        seg = self.pipeline[0]
+        if any(st[0] not in ("project", "filter", "rename") for st in seg.steps) or \
+                any(T.torch_dtype(f.dtype) is None for f in seg.in_schema.fields):
+            return None
+        return seg
 
     def _execute(self, partition, ctx):
         segs = [p for p in self.pipeline if isinstance(p, _FusedSegment)]

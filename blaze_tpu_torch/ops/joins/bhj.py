@@ -300,7 +300,12 @@ class BroadcastJoinExec(_HashJoinBase):
         super().__init__(left, right, on, join_type, broadcast_side, condition)
         self.cached_build_hash_map_id = cached_build_hash_map_id
 
-    def _execute(self, partition, ctx):
+    def _load_build_map(self, ctx) -> JoinHashMap:
+        """The query's map of the broadcast side (built on first use, then
+        cached under ``cached_build_hash_map_id``), with this task's own
+        ``matched`` flags. A partial aggregate that absorbs this join
+        (ops/agg.py) loads it here too, and when the map turns out not to
+        be unique drives ``_probe_with_map`` with it, built once."""
         cache_id = self.cached_build_hash_map_id
         cache = ctx.resources.get(BUILD_MAPS) if cache_id else None
         built = cache.get(cache_id) if cache is not None else None
@@ -310,4 +315,7 @@ class BroadcastJoinExec(_HashJoinBase):
                 list(self.execute_child(self._build_child(), 0, ctx)), ctx)
             if cache is not None:
                 cache[cache_id] = built
-        yield from self._probe_with_map(built.for_task(), partition, ctx)
+        return built.for_task()
+
+    def _execute(self, partition, ctx):
+        yield from self._probe_with_map(self._load_build_map(ctx), partition, ctx)

@@ -5,6 +5,8 @@ Copies of blaze_tpu/ops/joins/keymap.py, host numpy as they are there:
 
 - ``_canon_words``, ``key_rows`` and ``RunningKeyCodes``: the window
   operator finds its partition and peer boundaries with them;
+- ``canon_words`` and ``sorted_probe``: the canonical word of a device
+  key and the sorted-key probe that K8, K9 and K18 share;
 - ``key_codes``: the host interning of multi-column keys;
 - ``JoinHashMap``: the build side of every hash join (ops/joins/bhj.py),
   a CSR layout of the code-sorted build rows. A single fixed-width key
@@ -89,6 +91,38 @@ def _canon_words(data: np.ndarray) -> np.ndarray:
         d = np.where(np.isnan(d), np.float32(np.nan), d)
         return d.view(np.int32).astype(np.int64)
     return data.astype(np.int64)
+
+
+def canon_words(data: torch.Tensor) -> torch.Tensor:
+    """Canonical int64 join words of a device key plane, the same function
+    as blaze_tpu/ops/joins/keymap.py:195 canon_word_traced and the one
+    authority for the key encoding of every device probe (K8, K9, K18):
+    integers (and bools) widen with their sign; floats fold -0.0 into
+    +0.0 and every NaN payload into the quiet NaN, then f64 words are the
+    int64 bits and f32 words the int32 bits sign-extended. K8 and K9
+    compute the same word in csrc/join.cu (blz_canon_word), K18 in its
+    generated probe (exprs/fused_triton.py)."""
+    if data.is_floating_point():
+        d = torch.where(data != 0, data, torch.zeros((), dtype=data.dtype,
+                                                     device=data.device))
+        d = torch.where(torch.isnan(d),
+                        torch.full((), float("nan"), dtype=d.dtype, device=d.device), d)
+        if d.dtype == torch.float32:
+            return d.view(torch.int32).to(torch.int64)
+        return d.view(torch.int64)
+    return data.to(torch.int64)
+
+
+def sorted_probe(uniq: torch.Tensor, data: torch.Tensor, valid: torch.Tensor,
+                 nk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The membership probe against the build's sorted unique words
+    (blaze_tpu/ops/joins/keymap.py:211 sorted_probe_traced): ``uniq`` has
+    length max(nk, 1); returns each row's rank clip(searchsorted-left, 0,
+    nk - 1) and its hit mask (valid, rank < nk and the word found)."""
+    w = canon_words(data)
+    idx = torch.searchsorted(uniq, w)
+    cidx = idx.clamp(0, max(nk - 1, 0))
+    return cidx, valid & (idx < nk) & (uniq[cidx] == w)
 
 
 def key_rows(batch: ColumnarBatch, cols: List[DeviceColumn]) -> np.ndarray:

@@ -37,9 +37,12 @@ registers the fused stages' ``ShardedFusedRunner``. The JAX package's
 placement model (runtime/placement.py, item 13) is not ported: under a
 mesh every ShuffleExchange takes the mesh. ``counters`` counts
 ``sharded_stages``, ``collective_bytes`` and ``sharded_batches`` (the
-JAX package's metrics that its tests read; the metrics tree is item 10)
-and ``mesh_host_exchanges``, the exchanges whose reducers waited in host
-memory; ``mesh_exchanges`` describes the last query's mesh exchanges
+JAX package's metrics that its tests read; the metrics tree is item 10),
+``mesh_host_exchanges``, the exchanges whose reducers waited in host
+memory, and the fusions a partial aggregate made (ops/agg.py):
+``fused_stages`` and ``fused_ops`` for an absorbed fused stage,
+``fused_join_stages`` for each absorbed broadcast join;
+``mesh_exchanges`` describes the last query's mesh exchanges
 (rounds, wire bytes, compacted and as masked tiles, payload, residency).
 """
 
@@ -138,7 +141,7 @@ class Session:
     # -- lowering -------------------------------------------------------------
 
     def _ctx(self) -> ExecContext:
-        return ExecContext(self.conf, self.device, self.resources)
+        return ExecContext(self.conf, self.device, self.resources, self.counters)
 
     def _lower(self, node: N.PlanNode) -> N.PlanNode:
         # top-down flag: may the exchanges below merge reducers? Not under

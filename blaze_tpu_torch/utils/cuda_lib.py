@@ -17,7 +17,8 @@ under ``segment_scan``; K14, the range exchange's partition ids, under
 K16, the bloom filter's probe, under ``bloom_probe``; K17, the device
 mesh's all-to-all (csrc/mesh.cu), under ``mesh_all_to_all``; the stacked
 form of K11 (several same-shape batches a launch) under
-``fused_chain_stacked``. Beside them
+``fused_chain_stacked``; K18, a fused partial aggregate's generated
+input kernel (exprs/fused_triton.py), under ``fused_agg_input``. Beside them
 ``LIMB_LAUNCHES`` counts, per kernel, the launches that carried each
 wide-decimal (limb) op: the aggregate kinds sum2/avg2/sum3/avg3/minw/maxw
 of K3, K4 and K10, and K12's limb update ops (``limb_launch_counts``).
@@ -70,6 +71,7 @@ LAUNCHES: Dict[str, int] = {
     "bloom_probe": 0,
     "mesh_all_to_all": 0,
     "fused_chain_stacked": 0,
+    "fused_agg_input": 0,
 }
 
 LIMB_LAUNCHES: Dict[str, int] = {}
@@ -205,7 +207,7 @@ _SIGNATURES = {
     "blz_murmur3_pmod": [_I, _PP, _PP, _PI, _I64, _U32, _I32, _P, _P, _P],
     "blz_slot_agg": [
         _I, _PP, _PP, _PLL, _PLL, _PLL,      # k, keys, kvalids, bases, sizes, strides
-        _I64, _I, _PI,                       # num_rows, nops, op_kind
+        _I64, _P, _I, _PI,                   # num_rows, exists, nops, op_kind
         _PP, _PP, _PI, _PP, _PP, _PLL, _PLL,  # op_src, op_src0, op_nvalid, op_valid,
                                              # op_table, op_mult, op_init
         _I, _PI, _PP, _PP, _PP, _PP,         # nemit, emit_kind, emit_table, emit_aux,

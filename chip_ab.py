@@ -3,10 +3,10 @@
 comparisons on one NVIDIA GPU.
 
     python3 chip_ab.py [--tree DIR] [--label NAME] [--paths q67,q67_sort,q69]
-                       [--runs N] [--no-fusion] [--profile]
+                       [--runs N] [--no-fusion] [--no-fused-agg] [--profile]
 
-Paths: q67, q67_sort, q69, q06, and q17, q17_sort, q17_table (a checkout
-from before q17 has no q17 data to stage).
+Paths: q67, q67_sort, q69, q06, q17, q17_sort, q17_table, q89 and q98 (a
+checkout from before a path has no data to stage for it).
 
 Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
 (default: this one) and, for each named path, stages its data once (as
@@ -14,8 +14,9 @@ chip_smoke.py does, same seeds and sizes), makes a first run (kernel
 builds and Triton compiles), then N timed runs; every run must equal the
 path's numpy oracle. Prints one JSON line per path with every wall and the
 launch counts of the last run. ``--no-fusion`` runs with
-``Config(fusion_enabled=False)`` (only in a checkout that has the knob);
-``--profile`` adds that checkout's ``chip_smoke.profile_query`` run of each
+``Config(fusion_enabled=False)`` (only in a checkout that has the knob),
+``--no-fused-agg`` with ``Config(fused_filter_agg=False)`` (the partial
+aggregates take their input unfused); ``--profile`` adds that checkout's ``chip_smoke.profile_query`` run of each
 path (torch.profiler busy share, then cProfile's top host functions).
 
 Clocks and the host's load drift between processes and between calls:
@@ -40,7 +41,7 @@ def _args(argv):
             if k not in opts:
                 raise SystemExit(f"chip_ab: unknown option --{k}")
             opts[k] = v
-        elif a in ("--no-fusion", "--profile"):
+        elif a in ("--no-fusion", "--no-fused-agg", "--profile"):
             flags.add(a[2:])
         else:
             raise SystemExit(f"chip_ab: unknown argument {a}")
@@ -103,8 +104,32 @@ def _q17_setup(cs, dev, name, conf_kw):
     return session, cs.q17_plan(sales, item, store), want
 
 
+def _star_setup(cs, dev, name, conf_kw):
+    """q89 (the default routes) or q98 (the sort route, as chip_smoke.py
+    runs it)."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    if name == "q89":
+        schemas, host = cs.q89_schemas(T), cs.q89_host(cs.Q89_ROWS)
+        want, _info, _window = cs.q89_oracle(host)
+        plan, kw = cs.q89_plan(schemas, E, N, T), dict(conf_kw)
+    else:
+        schemas, host = cs.q98_schemas(T), cs.q98_host(cs.Q98_ROWS)
+        want, _info = cs.q98_oracle(host)
+        plan, kw = cs.q98_plan(schemas, E, N, T), dict(conf_kw, dense_agg=False,
+                                                       radix_agg=False)
+    session = blaze_tpu_torch.Session(Config(**kw))
+    cs.stage_star(session, schemas, host, dev)
+    return session, plan, want
+
+
 SETUPS = {"q67": _q67_setup, "q67_sort": _q67_setup, "q69": _q69_setup, "q06": _q06_setup,
-          "q17": _q17_setup, "q17_sort": _q17_setup, "q17_table": _q17_setup}
+          "q17": _q17_setup, "q17_sort": _q17_setup, "q17_table": _q17_setup,
+          "q89": _star_setup, "q98": _star_setup}
 
 
 def main(argv) -> int:
@@ -127,7 +152,11 @@ def main(argv) -> int:
         raise SystemExit(f"chip_ab: imported chip_smoke from {cs.__file__}, not {tree}")
     cuda_lib.library()
     dev = torch.device("cuda")
-    conf_kw = {"fusion_enabled": False} if "no-fusion" in flags else {}
+    conf_kw = {}
+    if "no-fusion" in flags:
+        conf_kw["fusion_enabled"] = False
+    if "no-fused-agg" in flags:
+        conf_kw["fused_filter_agg"] = False
     runs = int(opts["runs"])
     for name in opts["paths"].split(","):
         t0 = time.perf_counter()
@@ -146,6 +175,7 @@ def main(argv) -> int:
             cs.check_result(name, got, want)
         print(json.dumps({"phase": "ab", "label": opts["label"], "tree": tree,
                           "query": name, "fusion": "no-fusion" not in flags,
+                          "fused_agg": "no-fused-agg" not in flags,
                           "setup_s": setup_s, "first_run_s": first_s, "walls_s": walls,
                           "median_s": statistics.median(walls),
                           "launches": cuda_lib.launch_counts()}), flush=True)

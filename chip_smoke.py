@@ -10,7 +10,7 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K17 held against their plain PyTorch versions on the
+3. kernels: K1-K18 held against their plain PyTorch versions on the
    card, exactly (float planes bit for bit), at the main paths' shapes and
    at edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
@@ -89,7 +89,19 @@ only when every phase passed:
    exchange_and_aggregate and broadcast_join_sum at 8 slots of 262,144
    rows, each held to the same step on the plain versions and to numpy and
    timed beside it, and run_distributed_sum end to end;
-   K11's battery also covers CASE and Cast/TryCast; then each timed with
+   K11's battery also covers CASE and Cast/TryCast; for the fused
+   aggregate input, K18 (a Triton kernel generated per fused aggregate):
+   one to three chained joins, the second keyed by the first's build
+   column, int64/int32/float32/float64 keys with +-0.0, NaN payloads and
+   +-inf, null and padding probe rows, an empty build and one build key,
+   the build on the left, predicates over the joined schema, absorbed
+   project/filter/rename steps, q01's decimal predicate, every row
+   filtered, an empty batch and q17's wide-decimal argument, each then
+   through K3 and K10 over K18's live mask against their plain versions,
+   timed at q17's probe batch (262,144 rows, 102,000 items, 400 stores)
+   beside the library chain (searchsorted + index_select + where per
+   plane) (and every K18 launch of q01's, q17's and q89's first runs held
+   to the plain version); then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s);
@@ -97,7 +109,8 @@ only when every phase passed:
    set to 0 just before its measured run and read just after:
    - TPC-DS q01 (filter -> partial agg -> murmur3 hash exchange -> final
      agg -> top 100) over 28,795,080 store_returns rows (the SF100 row
-     count) drawn as bench.py draws them;
+     count) drawn as bench.py draws them; the filter fuses into the
+     partial aggregate (K18 a batch, no K1);
    - q67 (two-key partial agg -> hash exchange -> final agg -> full sort
      -> rank window -> rank <= 3) over 28,800,991 store_sales rows (the
      SF10 row count) drawn as bench.py draws them (seed 67), order
@@ -109,7 +122,8 @@ only when every phase passed:
      (category, brand) -> sort -> rank window -> rank <= 5) over one draw
      of 28,800,991 store_sales rows and SF10's 102,000 items (seed 6);
      q06 exact in order, q47's rows in order with the oracle's ranks
-     (rows tied on quantity in any order);
+     (rows tied on quantity in any order); the join fuses into the
+     partial aggregate (K18 a sales batch, no K8);
    - q69 (customer JOIN broadcast address in three states -> exchange ->
      LEFT SEMI store window, LEFT ANTI web window, LEFT ANTI catalog
      window, each a shuffled hash join against sales JOIN broadcast
@@ -144,16 +158,17 @@ only when every phase passed:
      Spark's own filter, CASE WHEN avg <> 0 THEN abs(CAST(sum AS DOUBLE)
      - avg) / avg ELSE NULL END > 0.1 (unfused: K1) -> top 100) over
      TPC-DS SF10's row counts (seed 89), exact against numpy (rows tied
-     on the sort key as sets), K13 on every reducer that holds rows and K8
-     on every sales batch;
+     on the sort key as sets), K13 on every reducer that holds rows and
+     K18 on every sales batch (its three joins fused, no K8);
    - q17 (store_sales JOIN broadcast item JOIN broadcast store -> COUNT,
      SUM(ss_quantity) and SUM(ss_ext_wholesale_cost), decimal(38,2), by
      (state, category), two-stage -> single exchange -> sort) over q06's
      store_sales draw with bench.py's wcost stream (seed 421), SF10's
      items and 400 stores: the wide sum crosses the exchange as
-     three-limb states; on the default route (K3, K4), as q17_sort
-     (K10) and as q17_table (the host table's FINAL merge, K12), each
-     exact in order against numpy;
+     three-limb states; on the default route (K18 over both joins, K3,
+     K4), as q17_sort (K18, K10), as q17_table (the host table's FINAL
+     merge, K12) and as q17_unfused (``fused_filter_agg=False``: both
+     joins through K8, then K3), each exact in order against numpy;
    - q98 (store_sales JOIN broadcast item (Sports, Books, Home) JOIN
      broadcast date_dim (February 1999) -> SUM(ss_quantity) by five
      keys on the sort route (K10), two-stage -> hash exchange by i_class
@@ -189,9 +204,12 @@ only when every phase passed:
      reducers wait in host memory), each exact against its path's oracle;
    all through ``Session().execute_to_pydict`` (sort10M: ``execute``) in
    partitions staged on the card; every kernel must have launched over
-   the sixteen runs, every
+   the runs, K18 on every path whose partial aggregate sits on a Filter
+   or a unique-key inner broadcast join (q01 and its mesh paths, q06,
+   q47, q17, q17_sort, q17_table, q89, q98, q69, q69_bloom) and on no
+   other, every
    limb op over the runs or the battery, the
-   unique-key join kernel on each join path, the generic probe on q69,
+   unique-key join kernel on q69 and q17_unfused, the generic probe on q69,
    K10's three launches on q69 and q67_sort, K11 on every q69 sales
    batch (196) and on the root rank filter of q67, q67_sort and q47,
    K12 on q96 and q67_table, K13 on q89 and q98, K14 on q98, on
@@ -209,7 +227,8 @@ writes q01's Chrome trace to PATH and the other paths' beside it
 (``_q67.json``, ``_q67_sort.json``, ``_q67_table.json``, ``_q06.json``,
 ``_q47.json``, ``_q69.json``, ``_q69_bloom.json``, ``_q96.json``,
 ``_q89.json``, ``_q17.json``,
-``_q17_sort.json``, ``_q17_table.json``, ``_q98.json``, ``_sort10m.json``,
+``_q17_sort.json``, ``_q17_table.json``, ``_q17_unfused.json``, ``_q98.json``,
+``_sort10m.json``,
 ``_hash_sample.json``, and the mesh paths' ``_q01_mesh1.json``,
 ``_q01_mesh2.json``, ``_q01_mesh8.json``, ``_q96_mesh.json``,
 ``_sort10m_mesh.json``).
@@ -3583,6 +3602,394 @@ def kernel_k17(dev, rng, results):
     torch.cuda.synchronize()
 
 
+# -- K18: the fused aggregate input -----------------------------------------------------
+
+K18_FLOATS = {"f64": (0.0, -0.0, float("inf"), float("-inf"), 1.5, -1.5, 2.25, -1e300, 7.0),
+              "f32": (0.0, -0.0, float("inf"), float("-inf"), 1.5, -1.5, 2.25, -1e30, 7.0)}
+# NaN payloads of both signs, quiet and signalling: each folds to the quiet NaN
+K18_NANS = {"f64": (0x7FF8000000000000, 0xFFF8000000000000, 0x7FF8000000000123,
+                    0x7FF0000000000001),
+            "f32": (0x7FC00000, 0xFFC00000, 0x7FC00123, 0x7F800001)}
+K18_NP = {"i64": "int64", "i32": "int32", "f64": "float64", "f32": "float32", "bool": "bool"}
+# (label, capacity, live rows, the shape): the shapes are k18_case's; the
+# last is the main path's batch
+K18_CASES = (
+    ("one join", 4096, 4000, "join"),
+    ("null and padding probe rows", 4096, 1000, "join"),
+    ("build on the left", 4096, 3000, "join_left"),
+    ("f64 keys: +-0.0, NaN payloads, +-inf", 4096, 4096, "f64"),
+    ("f32 keys: +-0.0, NaN payloads, +-inf", 4096, 4000, "f32"),
+    ("int32 probe keys against an int64 build", 4096, 3500, "i32"),
+    ("empty build (nk = 0)", 4096, 4000, "empty"),
+    ("one build key", 256, 200, "one"),
+    ("chained: the second key is the first join's build column", 4096, 4000, "chain"),
+    ("q89: three chained joins, six keys", 4096, 4000, "q89"),
+    ("predicates over the joined schema", 4096, 4000, "join_filter"),
+    ("absorbed steps: project, filter, rename", 4096, 4000, "steps"),
+    ("q01: a decimal predicate", 4096, 4096, "q01"),
+    ("every row filtered", 4096, 4000, "none_kept"),
+    ("empty batch", 256, 0, "join"),
+    ("q17: two joins, a wide-decimal argument", 4096, 4000, "q17"),
+    ("q17's probe batch", 262144, 262144, "q17_main"),
+)
+
+
+def canon_np(x):
+    """Numpy canonical join words (ops/joins/keymap.py canon_words)."""
+    import numpy as np
+
+    if x.dtype.kind == "f":
+        d = np.where(x == 0, x.dtype.type(0), x)
+        d = np.where(np.isnan(d), x.dtype.type(np.nan), d)
+        return d.view(np.int32).astype(np.int64) if x.dtype == np.float32 else d.view(np.int64)
+    return x.astype(np.int64)
+
+
+def k18_keys(kind, n, rng):
+    """n distinct build keys of ``kind`` (floats: one of each canonical word)."""
+    import numpy as np
+
+    if kind in K18_FLOATS:
+        pool = np.concatenate([np.array(K18_FLOATS[kind], K18_NP[kind]),
+                               np.array(K18_NANS[kind][:1], "uint64" if kind == "f64"
+                                        else "uint32").view(K18_NP[kind])])
+        _, first = np.unique(canon_np(pool), return_index=True)
+        pool = pool[np.sort(first)]
+        return pool[rng.permutation(len(pool))[:n]]
+    return rng.choice(np.arange(1, 4 * n + 10), n, replace=False).astype(K18_NP[kind])
+
+
+def k18_probe(kind, keys, cap, n, rng, nulls):
+    """A probe key plane: mostly build keys, some misses, nulls, padding."""
+    import numpy as np
+
+    if kind in K18_FLOATS:
+        nan_bits = np.array(K18_NANS[kind], "uint64" if kind == "f64" else "uint32")
+        pool = np.concatenate([np.array(K18_FLOATS[kind], K18_NP[kind]),
+                               nan_bits.view(K18_NP[kind]),
+                               np.array([5.0, -7.5, 1e-3], K18_NP[kind])])
+    else:
+        hi = int(keys.max()) + 30 if len(keys) else 50
+        pool = np.concatenate([np.repeat(keys, 3), np.arange(-5, hi).astype(K18_NP[kind])])
+    d = np.zeros(cap, K18_NP[kind])
+    v = np.zeros(cap, bool)
+    d[:n] = pool[rng.integers(0, len(pool), n)]
+    v[:n] = rng.random(n) >= nulls
+    d[~v] = 0
+    return d, v
+
+
+def k18_dim(kind, nk, cap_b, attrs, rng):
+    """A dimension of nk unique keys sorted by canonical word (code c at
+    row c, as JoinHashMap sorts its build), a null-keyed row after them,
+    and int64 attribute columns drawn from [0, attr): (keys, uniq words,
+    columns as (data, valid) host pairs)."""
+    import numpy as np
+
+    keys = k18_keys(kind, nk, rng)
+    keys = keys[np.argsort(canon_np(keys), kind="stable")]
+    uniq = canon_np(keys) if nk else np.zeros(1, np.int64)
+    kd = np.zeros(cap_b, K18_NP[kind])
+    kv = np.zeros(cap_b, bool)
+    kd[:nk] = keys
+    kv[:nk] = True
+    nrow = min(nk + 1, cap_b)
+    cols = [(kd, kv)]
+    for hi in attrs:
+        a = np.zeros(cap_b, np.int64)
+        a[:nrow] = rng.integers(0, hi, nrow)
+        av = np.arange(cap_b) < nrow
+        av[:nrow] &= rng.random(nrow) >= 0.05
+        a[~av] = 0
+        cols.append((a, av))
+    return keys, uniq, cols
+
+
+def k18_case(case, rng, E, T):
+    """One battery case in the IR modules ``E``, ``T`` of either package:
+    a dict of the input schema, the joins inner-first (probe key, probe on
+    the left, probe schema, build schema), the absorbed steps, the
+    predicates, the aggregate's child schema, its grouping expressions, its
+    aggregates ((function name, argument or None), the argument K18
+    computes) and the data: the input columns as host (data, valid) pairs
+    of the capacity (a decimal(19..38)'s data its int64 values), the live
+    rows, and per join (sorted unique words, nk, build columns as pairs)."""
+    import numpy as np
+
+    label, cap, n, shape = case
+    C = E.Column
+    TT = {"i64": T.I64, "i32": T.I32, "f64": T.F64, "f32": T.F32}
+    nulls = 0.2 if "null" in label else 0.03
+    price = T.DecimalType(7, 2)
+
+    def col(d, v=None):
+        v = np.arange(cap) < n if v is None else v
+        return (np.where(v, d, 0).astype(d.dtype), v)
+
+    def ints(lo, hi):
+        return col(rng.integers(lo, hi, cap).astype(np.int64),
+                   (np.arange(cap) < n) & (rng.random(cap) >= nulls))
+
+    def dim(name, kind, nk, attrs, cap_b=None):
+        keys, uniq, cols = k18_dim(kind, nk, cap_b or max(256, 1 << nk.bit_length()), attrs, rng)
+        schema = T.Schema.of((f"{name}_sk", TT[kind]),
+                             *[(f"{name}_a{i}", T.I64) for i in range(len(attrs))])
+        return keys, (uniq, nk, cols), schema
+
+    def joined(probe, build, left=True):
+        return T.Schema(tuple(probe.fields) + tuple(build.fields) if left
+                        else tuple(build.fields) + tuple(probe.fields))
+
+    def case_dict(inp, joins, child, groupings, aggs, cols, builds, steps=(), preds=()):
+        return dict(input=inp, joins=tuple(joins), steps=tuple(steps), preds=tuple(preds),
+                    child=child, groupings=tuple(groupings), aggs=tuple(aggs), cols=cols,
+                    n=n, builds=builds)
+
+    if shape in ("join", "join_left", "join_filter", "empty", "one", "none_kept", "i32") \
+            or shape in K18_FLOATS:
+        kind = shape if shape in K18_FLOATS or shape == "i32" else "i64"
+        bkind = "i64" if kind == "i32" else kind
+        nk = {"empty": 0, "one": 1}.get(shape, 8 if kind in K18_FLOATS else 60)
+        keys, build, bschema = dim("d", bkind, nk, (5, 1000))
+        pd, pv = k18_probe(kind, keys.astype(K18_NP[kind]), cap, n, rng, nulls)
+        probe = T.Schema.of(("fk", TT[kind]), ("v", T.I64), ("p", price))
+        left = shape != "join_left"
+        preds = ()
+        if shape == "join_filter":
+            preds = (E.BinaryExpr(E.BinaryOp.GT, C("v"), E.Literal(0, T.I64)),
+                     E.BinaryExpr(E.BinaryOp.NEQ, C("d_a0"), E.Literal(3, T.I64)))
+        if shape == "none_kept":
+            preds = (E.BinaryExpr(E.BinaryOp.GT, C("v"), E.Literal(1000, T.I64)),)
+        return case_dict(probe, [(C("fk"), left, probe, bschema)], joined(probe, bschema, left),
+                         [C("d_a0")], [("count", None), ("sum", C("v")), ("sum", C("p")),
+                                       ("max", C("d_a1"))],
+                         [(pd, pv), ints(-100, 100), ints(0, 500_00)], [build], preds=preds)
+    if shape == "chain":
+        k1, b1, s1 = dim("d1", "i64", 40, (20,))
+        _k2, b2, s2 = dim("d2", "i64", 19, (3, 100))
+        probe = T.Schema.of(("fk", T.I64), ("v", T.I64))
+        j1 = joined(probe, s1)
+        pd, pv = k18_probe("i64", k1, cap, n, rng, nulls)
+        return case_dict(probe, [(C("fk"), True, probe, s1), (C("d1_a0"), True, j1, s2)],
+                         joined(j1, s2), [C("d2_a0"), C("d1_a0")],
+                         [("sum", C("v")), ("min", C("d2_a1")), ("count", None)],
+                         [(pd, pv), ints(-50, 50)], [b1, b2])
+    if shape == "q89":
+        ki, bi, si = dim("i", "i64", 400, (10, 100, 1000))
+        kd, bd, sd = dim("dt", "i64", 365, (12,))
+        ks, bs, ss = dim("s", "i64", 102, (7, 20))
+        probe = T.Schema.of(("item", T.I64), ("date", T.I64), ("store", T.I64), ("q", T.I64))
+        j1 = joined(probe, si)
+        j2 = joined(j1, sd)
+        return case_dict(probe, [(C("item"), True, probe, si), (C("date"), True, j1, sd),
+                                 (C("store"), True, j2, ss)], joined(j2, ss),
+                         [C(x) for x in ("i_a0", "i_a1", "i_a2", "s_a0", "s_a1", "dt_a0")],
+                         [("sum", C("q"))],
+                         [k18_probe("i64", k, cap, n, rng, nulls) for k in (ki, kd, ks)] +
+                         [ints(1, 100)], [bi, bd, bs])
+    if shape == "steps":
+        schema = T.Schema.of(("k", T.I64), ("v", T.I64), ("f", T.F64))
+        twice = E.BinaryExpr(E.BinaryOp.MUL, C("v"), E.Literal(2, T.I64))
+        steps = (("project", (C("k"), twice, C("f")), ("k", "w", "f")),
+                 ("filter", (E.BinaryExpr(E.BinaryOp.GT, C("w"), E.Literal(10, T.I64)),)),
+                 ("rename", ("key", "w2", "f2")))
+        child = T.Schema.of(("key", T.I64), ("w2", T.I64), ("f2", T.F64))
+        fv = (np.arange(cap) < n) & (rng.random(cap) >= 0.1)
+        return case_dict(schema, [], child, [C("key")], [("sum", C("w2")), ("count", None)],
+                         [ints(0, 30), ints(-40, 40), col(rng.normal(size=cap), fv)], [],
+                         steps=steps, preds=(E.IsNotNull(C("f2")),))
+    if shape == "q01":
+        schema = T.Schema.of(("sr_store_sk", T.I64), ("sr_customer_sk", T.I64),
+                             ("sr_return_amt", price))
+        pred = E.BinaryExpr(E.BinaryOp.GT, C("sr_return_amt"), E.Literal("500.00", price))
+        return case_dict(schema, [], schema, [C("sr_store_sk")],
+                         [("sum", C("sr_return_amt")), ("count", None)],
+                         [ints(1, 400), ints(1, 100_000), ints(0, 10_000_00)], [],
+                         preds=(pred,))
+    if shape in ("q17", "q17_main"):
+        main = shape == "q17_main"
+        ki, bi, si = dim("i", "i64", 102_000 if main else 2000, (10, 100, 1000),
+                         cap_b=131072 if main else None)
+        ks, bs, ss = dim("s", "i64", 400, (50,))
+        probe = T.Schema.of(("ss_item_sk", T.I64), ("ss_store_sk", T.I64),
+                            ("ss_quantity", T.I64), ("ss_ext_wholesale_cost",
+                                                     T.DecimalType(38, 2)))
+        j1 = joined(probe, si)
+        # q17's draw misses ~2% of items (keys past the dimension); the
+        # small case adds null keys and costs
+        items = np.where(rng.random(cap) < 0.98, rng.choice(ki, cap),
+                         rng.integers(1, 10 ** 6, cap))
+        share = 0.0 if main else nulls
+
+        def valid():
+            return (np.arange(cap) < n) & (rng.random(cap) >= share)
+
+        cols = [col(items.astype(np.int64), valid()), col(rng.choice(ks, cap).astype(np.int64)),
+                ints(1, 100),
+                col(rng.integers(10 ** 14, 9 * 10 ** 16, cap).astype(np.int64), valid())]
+        return case_dict(probe, [(C("ss_item_sk"), True, probe, si),
+                                 (C("ss_store_sk"), True, j1, ss)], joined(j1, ss),
+                         [C("s_a0"), C("i_a0")],
+                         [("count", None), ("sum", C("ss_quantity")),
+                          ("sum", C("ss_ext_wholesale_cost"))], cols, [bi, bs])
+    raise ValueError(shape)
+
+
+def k18_spec(d):
+    """The port's FusedAggSpec of a battery case (in either package's IR)."""
+    from blaze_tpu_torch.exprs.fused_triton import FusedAggSpec, FusedJoin
+    from blaze_tpu_torch.ir.carry import from_foreign
+
+    f = from_foreign
+    return FusedAggSpec(f(d["input"]), tuple(FusedJoin(*f(j)) for j in d["joins"]),
+                        f(d["steps"]), f(d["preds"]), f(d["child"]), f(d["groupings"]),
+                        tuple(f(a) for _fn, a in d["aggs"]))
+
+
+def k18_torch(d, dev):
+    """A battery case's tensors on ``dev``: (spec, columns, live rows, joins)."""
+    import torch
+    from blaze_tpu_torch.core.batch import DeviceColumn, WideColumn
+    from blaze_tpu_torch.ir import types as T
+
+    spec = k18_spec(d)
+
+    def column(f, data, v):
+        data, v = torch.from_numpy(data).to(dev), torch.from_numpy(v).to(dev)
+        if T.is_wide_decimal(f.dtype):
+            return WideColumn(f.dtype, data & LO32, (data >> 32) & LO32, data >> 63, v)
+        return DeviceColumn(f.dtype, data, v)
+
+    columns = [column(f, data, v) for f, (data, v) in zip(spec.input_schema.fields, d["cols"])]
+    joins = []
+    for js, (uniq, nk, bcols) in zip(spec.joins, d["builds"]):
+        joins.append((torch.from_numpy(uniq).to(dev), nk,
+                      [column(f, data, v) for f, (data, v) in zip(js.build_schema.fields, bcols)]))
+    return spec, columns, d["n"], joins
+
+
+def k18_flat(out):
+    """(keys, args, live) as a flat list of tensors."""
+    keys, args, live = out
+    flat = [t for kv in keys for t in kv]
+    for a in args:
+        if a is not None:
+            d, v = a
+            flat += (list(d) if isinstance(d, tuple) else [d]) + [v]
+    return flat + [live]
+
+
+def k18_bytes(kernel, columns, joins):
+    """Bytes K18 must move: each plane it reads once (the input planes its
+    expressions read, each join's sorted words, and the build planes it
+    gathers over the first max(nk, 1) rows, the only ones its clipped
+    ranks reach), each plane it stores once."""
+    import torch
+
+    gen = kernel.gen
+    cap = columns[0].capacity
+    total = sum(columns[i].data.element_size() * cap for i in gen.used_d) + \
+        len(gen.used_v) * cap
+    for j, (uniq, nk, bcols) in enumerate(joins):
+        rows = [min(max(nk, 1), c.capacity) for c in bcols]
+        total += uniq.numel() * 8 + \
+            sum(rows[c] * bcols[c].data.element_size() for c in gen.join_used_d[j]) + \
+            sum(rows[c] for c in gen.join_used_v[j])
+    return total + sum(cap * torch.empty((), dtype=tdt).element_size() for _v, tdt in gen.stores)
+
+
+def k18_library_chain(columns, joins, spec):
+    """The joins' probes and gathers as PyTorch library calls (a chain):
+    per join searchsorted over the canonical words, clamp, compare, and an
+    index_select + where per gathered plane; then the live mask."""
+    import torch
+    from blaze_tpu_torch.ops.joins.keymap import canon_words
+
+    def run():
+        cols = list(columns)
+        live = None
+        for js, (uniq, nk, bcols) in zip(spec.joins, joins):
+            k = cols[js.probe_schema.index_of(js.key_expr.name)]
+            w = canon_words(k.data)
+            idx = torch.searchsorted(uniq, w)
+            cidx = idx.clamp(0, max(nk - 1, 0))
+            hit = k.validity & (idx < nk) & (uniq.index_select(0, cidx) == w)
+            gathered = [type(c)(c.dtype, c.data.index_select(0, cidx),
+                                torch.where(hit, c.validity.index_select(0, cidx), False))
+                        for c in bcols]
+            cols = cols + gathered if js.probe_on_left else gathered + cols
+            live = hit if live is None else live & hit
+        return live
+    return run
+
+
+def kernel_k18(dev, rng, results):
+    """K18 against its plain version on every battery case, bit for bit;
+    then K3 and K10 over its live mask (the masked entry points) against
+    their plain versions; timed at q17's probe batch."""
+    import torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.exprs.fused_triton import fused_agg_kernel
+    from blaze_tpu_torch.ops import agg_device as A
+
+    cases = []
+    main = None
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    for case in K18_CASES:
+        spec, columns, n, joins = k18_torch(k18_case(case, rng, E, T), dev)
+        kernel = fused_agg_kernel(spec)
+        got = K.fused_agg_input(spec, columns, n, joins, kernel)
+        want = K.fused_agg_input_plain(spec, columns, n, joins)
+        check_equal("fused_agg_input", case[0], k18_flat(got), k18_flat(want))
+        keys, args, live = got
+        kd, kv = [d for d, _ in keys], [v for _, v in keys]
+        if all(d.dtype == torch.int64 for d in kd) and spec.args[0] is None:
+            # the masked K3 and K10 over K18's planes: COUNT(*) and SUM of
+            # the first int64 argument, as the aggregate would run them
+            a_ = [(torch.zeros_like(live, dtype=torch.int64), live)] + \
+                [a for a in args[1:2] if a is not None and not isinstance(a[0], tuple)]
+            specs = [("count", 0, "int64")] + [("sum", 0, "int64")] * (len(a_) - 1)
+            probe = A.probe_ranges(kd, kv)
+            st = A.plan_slot_table(probe, live.shape[0], None, 1 << 22, Config())
+            if st is not None and st is not A._DEFER_PLAN:
+                bases, sizes, out_cap = st
+                check_equal("slot_agg_partial", f"{case[0]}: over K18's live mask",
+                            A.slot_agg_partial(kd, kv, [d.dtype for d in kd], n, bases, sizes,
+                                               specs, a_, out_cap, exists=live),
+                            A.slot_agg_partial_plain(kd, kv, [d.dtype for d in kd], n, bases,
+                                                     sizes, specs, a_, out_cap, exists=live))
+            check_seg_pipeline("seg_agg_partial", A.seg_agg_partial,
+                               (kd, kv, n, specs, a_, True, live),
+                               to_dev((kd, kv, n, specs, a_, True, live), "cpu"),
+                               f"{case[0]}: over K18's live mask")
+        cases.append(case[0])
+        if case[3] == "q17_main":
+            main = (spec, columns, n, joins, kernel)
+    spec, columns, n, joins, kernel = main
+
+    def k18():
+        return K.fused_agg_input(spec, columns, n, joins, kernel)
+
+    chain = k18_library_chain(columns, joins, spec)
+    results.append(dict(
+        name="fused_agg_input", route="triton",
+        source="blaze_tpu_torch/exprs/fused_triton.py",
+        replaces="blaze_tpu/ops/agg_device.py:587",
+        shape="q17's probe batch: 262,144 store_sales rows, two chained joins (102,000 "
+              "items, 400 stores), keys (s_state_id, i_category_id), COUNT(*), "
+              "SUM(ss_quantity), the decimal(38,2) wcost's validity (its limbs pass through)",
+        cases=cases, ms=time_ms(k18), device_ms=kernel_device_ms(k18, "fused_agg_input"),
+        plain_ms=time_ms(lambda: K.fused_agg_input_plain(spec, columns, n, joins)),
+        library_ms=time_ms(chain),
+        library_call="searchsorted + index_select + where per join and gathered plane "
+                     "(the joins' probes and gathers only: a chain)",
+        bytes=k18_bytes(kernel, columns, joins)))
+    torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """While open, the kernel dispatchers that the mesh's demo steps call
@@ -3709,6 +4116,25 @@ def mesh_demos(dev, rng):
 
 
 # -- phase 4: the paths on the card ------------------------------------------------
+
+
+def stage_star(session, schemas, host, dev):
+    """A star schema's host tables (``{name: (columns, valids)}``) on the
+    card as ``session``'s resources: store_sales cut into PARTS
+    partitions, its validity kept; each dimension one partition, all
+    valid."""
+    import torch
+
+    for name, (cols, valids) in host.items():
+        if name == "store_sales":
+            cuts = [len(cols[0]) * p // PARTS for p in range(PARTS + 1)]
+            parts = [stage_batches(schemas[name], [c[a:b] for c in cols], dev,
+                                   valids=[v[a:b] for v in valids])
+                     for a, b in zip(cuts, cuts[1:])]
+        else:
+            parts = [stage_batches(schemas[name], cols, dev)]
+        session.resources[name] = lambda p, _parts=parts: _parts[p]
+    torch.cuda.synchronize()
 
 
 def stage_batches(schema, columns, dev, bs=262144, valids=None):
@@ -3958,7 +4384,9 @@ def run_q01(dev, profile=False, trace_path=None):
     session.resources["store_returns"] = lambda p: parts[p]
     want = q01_oracle(host)
     out = {"q01": run_query("q01", ROWS, session, q01_plan(schema), want, setup_s,
-                            {"groups": len(want["sr_store_sk"])}, profile, trace_path)}
+                            {"groups": len(want["sr_store_sk"])}, profile, trace_path,
+                            first_run=k18_twin_check("q01"))}
+    batches = sum(len(p) for p in parts)
     for k in MESH_SLOTS:
         name = f"q01_mesh{k}"
         session = mesh_session(dev, k)
@@ -3972,6 +4400,11 @@ def run_q01(dev, profile=False, trace_path=None):
                                  "not once for each of its two exchanges")
         if session.counters["sharded_stages"] != 2 * runs_of(profile):  # two exchanges a run
             raise AssertionError(f"{name}: {dict(session.counters)}")
+    # the filter fuses into the partial aggregate: K18 a batch, no K1
+    for name, launches in out.items():
+        if launches["fused_agg_input"] != batches or launches["compact_planes"]:
+            raise AssertionError(f"{name} launched K18 {launches['fused_agg_input']} and K1 "
+                                 f"{launches['compact_planes']} times for {batches} batches")
     return out
 
 
@@ -4199,6 +4632,11 @@ def run_join_paths(dev, profile=False, trace_path=None):
         path_trace = trace_path.replace(".json", "") + f"_{name}.json" if trace_path else None
         out[name] = run_query(name, Q06_ROWS, session, plan, want, setup_s,
                               {"items": Q06_ITEMS, **info}, profile, path_trace)
+        batches = sum(len(p) for p in parts)
+        if out[name]["fused_agg_input"] != batches or out[name]["inner_join_planes"]:
+            raise AssertionError(f"{name}'s join did not fuse into its partial aggregate: "
+                                 f"K18 {out[name]['fused_agg_input']}, K8 "
+                                 f"{out[name]['inner_join_planes']} for {batches} batches")
     return out
 
 
@@ -4327,12 +4765,14 @@ def merge_inputs(seen):
 
 
 def run_q17(dev, profile=False, trace_path=None):
-    """q17 whole over one staged draw on three routes: the default Config
-    (K3's dense partial with the three-limb sum, K4's merges), the sort
-    route (``dense_agg=False, radix_agg=False``: K10), and the host
-    table's FINAL merge (``Q17_TABLE_MERGE_BYTES``: K12's limb merges);
-    each exact in order against ``q17_oracle``, the wide totals past
-    int64."""
+    """q17 whole over one staged draw on four routes: the default Config
+    (K18 over both joins, then K3's dense partial with the three-limb sum
+    over its live mask, K4's merges), the sort route (``dense_agg=False,
+    radix_agg=False``: K18, then K10), the host table's FINAL merge
+    (``Q17_TABLE_MERGE_BYTES``: K12's limb merges), and q17_unfused
+    (``fused_filter_agg=False``: the joins through K8, then K3); each
+    exact in order against ``q17_oracle``, the wide totals past int64;
+    every K18 launch of q17's first run held to its plain version."""
     import blaze_tpu_torch
     from blaze_tpu_torch.config import Config
 
@@ -4353,9 +4793,11 @@ def run_q17(dev, profile=False, trace_path=None):
                       ("device", PARTS * Q17_GROUPS, Config().capacity_for(PARTS * Q17_GROUPS))},
               "q17_sort": {("device", Q17_FINAL_ROWS, fcap)},
               "q17_table": {("table", Q17_FINAL_ROWS, fcap)}}
+    merges["q17_unfused"] = merges["q17"]
     out = {}
     for name, conf in (("q17", Config()), ("q17_sort", Config(dense_agg=False, radix_agg=False)),
-                       ("q17_table", Config(device_merge_max_bytes=Q17_TABLE_MERGE_BYTES))):
+                       ("q17_table", Config(device_merge_max_bytes=Q17_TABLE_MERGE_BYTES)),
+                       ("q17_unfused", Config(fused_filter_agg=False))):
         session = blaze_tpu_torch.Session(conf=conf)
         session.resources["store_sales"] = lambda p: parts[p]
         session.resources["item"] = lambda p: items
@@ -4365,14 +4807,19 @@ def run_q17(dev, profile=False, trace_path=None):
         with merge_inputs(seen):
             out[name] = run_query(name, Q06_ROWS, session, q17_plan(sales, item, store), want,
                                   setup_s, {"groups": len(want["n"]), "items": Q06_ITEMS,
-                                            "stores": N_STORES}, profile, path_trace)
+                                            "stores": N_STORES}, profile, path_trace,
+                                  first_run=k18_twin_check(name) if name == "q17"
+                                  else contextlib.nullcontext())
         if seen != merges[name]:
             raise AssertionError(f"{name}'s merge inputs {sorted(seen)} are not the shapes "
                                  f"the limb merges were held at, {sorted(merges[name])}")
-        if out[name]["inner_join_planes"] < 2 * sales_batches:
-            raise AssertionError(f"{name} launched K8 {out[name]['inner_join_planes']} times "
-                                 f"for {sales_batches} sales batches and two joins")
+        k8, k18 = out[name]["inner_join_planes"], out[name]["fused_agg_input"]
+        if (name == "q17_unfused" and (k8 < 2 * sales_batches or k18)) or \
+                (name != "q17_unfused" and (k8 or k18 != sales_batches)):
+            raise AssertionError(f"{name} launched K8 {k8} and K18 {k18} times for "
+                                 f"{sales_batches} sales batches and two joins")
     routes = {"q17": ("slot_agg_partial:sum3", "slot_agg_merge:sum3"),
+              "q17_unfused": ("slot_agg_partial:sum3", "slot_agg_merge:sum3"),
               "q17_sort": ("seg_agg_partial:sum3", "seg_agg_merge:sum3"),
               "q17_table": ("slot_agg_partial:sum3", "slot_update:renorm3")}
     for name, keys in routes.items():
@@ -4906,17 +5353,8 @@ def run_q96(dev, profile=False, trace_path=None):
     host = q96_host(Q96_ROWS)
     want = q96_oracle(host)
     session = blaze_tpu_torch.Session()
-    for name, (cols, valids) in host.items():
-        if name == "store_sales":
-            cuts = [len(cols[0]) * p // PARTS for p in range(PARTS + 1)]
-            parts = [stage_batches(schemas[name], [c[a:b] for c in cols], dev,
-                                   valids=[v[a:b] for v in valids])
-                     for a, b in zip(cuts, cuts[1:])]
-        else:
-            parts = [stage_batches(schemas[name], cols, dev)]
-        session.resources[name] = lambda p, _parts=parts: _parts[p]
+    stage_star(session, schemas, host, dev)
     del host
-    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     out = {"q96": run_query("q96", sum(Q96_ROWS.values()), session, q96_plan(schemas, E, N, T),
                             want, setup_s, {"count": want["cnt"][0]}, profile, trace_path)}
@@ -5199,17 +5637,8 @@ def run_q89(dev, profile=False, trace_path=None):
     host = q89_host(Q89_ROWS)
     want, info, window = q89_oracle(host)
     session = blaze_tpu_torch.Session()
-    for name, (cols, valids) in host.items():
-        if name == "store_sales":
-            cuts = [len(cols[0]) * p // PARTS for p in range(PARTS + 1)]
-            parts = [stage_batches(schemas[name], [c[a:b] for c in cols], dev,
-                                   valids=[v[a:b] for v in valids])
-                     for a, b in zip(cuts, cuts[1:])]
-        else:
-            parts = [stage_batches(schemas[name], cols, dev)]
-        session.resources[name] = lambda p, _parts=parts: _parts[p]
+    stage_star(session, schemas, host, dev)
     del host
-    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     # each reducer's window: its rows and its K13 launches, every run, and
     # the window's output batches, held to the oracle after the runs
@@ -5230,15 +5659,16 @@ def run_q89(dev, profile=False, trace_path=None):
     try:
         launches = run_query("q89", sum(Q89_ROWS.values()), session,
                              q89_plan(schemas, E, N, T), want, setup_s, info, profile,
-                             trace_path)
+                             trace_path, first_run=k18_twin_check("q89"))
     finally:
         W.WindowExec._execute_segmented = segmented
     idle = [(p, r) for p, r, k in reducers if k < 1 and r > 0]
     if idle or not reducers:
         raise AssertionError(f"q89 reducers whose window did not launch K13: {idle}")
-    if launches["inner_join_planes"] < sales_batches:
-        raise AssertionError(f"q89 launched K8 {launches['inner_join_planes']} times for "
-                             f"{sales_batches} sales batches")
+    if launches["fused_agg_input"] != sales_batches or launches["inner_join_planes"]:
+        raise AssertionError(f"q89 launched K18 {launches['fused_agg_input']} and K8 "
+                             f"{launches['inner_join_planes']} times for {sales_batches} "
+                             "sales batches: its three joins did not fuse into K18")
     q89_window_check(window_out, window)
     return launches
 
@@ -5474,26 +5904,19 @@ def run_q98(dev, profile=False, trace_path=None):
     host = q98_host(Q98_ROWS)
     want, info = q98_oracle(host)
     session = blaze_tpu_torch.Session(conf=Config(dense_agg=False, radix_agg=False))
-    for name, (cols, valids) in host.items():
-        if name == "store_sales":
-            cuts = [len(cols[0]) * p // PARTS for p in range(PARTS + 1)]
-            parts = [stage_batches(schemas[name], [c[a:b] for c in cols], dev,
-                                   valids=[v[a:b] for v in valids])
-                     for a, b in zip(cuts, cuts[1:])]
-        else:
-            parts = [stage_batches(schemas[name], cols, dev)]
-        session.resources[name] = lambda p, _parts=parts: _parts[p]
+    stage_star(session, schemas, host, dev)
     del host
-    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     sales_batches = sum(len(session.resources["store_sales"](p)) for p in range(PARTS))
     launches = run_query("q98", sum(Q98_ROWS.values()), session, q98_plan(schemas, E, N, T),
                          want, setup_s, info, profile, trace_path,
                          first_run=range_twin_check("q98"))
     for k, least in (("range_partition", 1), ("segment_scan", 1), ("seg_agg_partial", 1),
-                     ("seg_agg_merge", 1), ("inner_join_planes", 2 * sales_batches)):
+                     ("seg_agg_merge", 1), ("fused_agg_input", sales_batches)):
         if launches[k] < least:
             raise AssertionError(f"q98 launched {k} {launches[k]} times, fewer than {least}")
+    if launches["inner_join_planes"]:
+        raise AssertionError("q98's joins did not all fuse into its partial aggregate (K18)")
     return launches
 
 
@@ -5796,6 +6219,36 @@ def xxhash_twin_check(name):
         "plain_ms": time_ms(lambda: H.xxhash64_rows_plain(*args))}
 
 
+K18_PATH_BATCHES = {}
+
+
+@contextlib.contextmanager
+def k18_twin_check(name):
+    """While open, every K18 launch through ``fused_agg_input`` is also held
+    to its plain version on the same batch (``fused_agg_input:<name>
+    batch``); the count of batches held goes to ``K18_PATH_BATCHES``."""
+    from blaze_tpu_torch.core import kernels as K
+
+    fn = K.fused_agg_input
+    checked = [0]
+
+    def held(spec, columns, num_rows, joins, kernel=None):
+        got = fn(spec, columns, num_rows, joins, kernel)
+        check_equal("fused_agg_input", f"{name} batch", k18_flat(got),
+                    k18_flat(K.fused_agg_input_plain(spec, columns, num_rows, joins)))
+        checked[0] += 1
+        return got
+
+    K.fused_agg_input = held
+    try:
+        yield
+    finally:
+        K.fused_agg_input = fn
+    if not checked[0]:
+        raise AssertionError(f"{name}'s first run launched no K18")
+    K18_PATH_BATCHES[name] = checked[0]
+
+
 def run_hash_sample(dev, profile=False, trace_path=None):
     """The hash sample at SF10 (28,800,991 store_sales rows, 4 partitions
     of 262,144-row batches staged on the card), exact in order against
@@ -5994,6 +6447,7 @@ def main(device: str = "cuda") -> int:
     kernel_k15(dev, rng, results)
     kernel_k16(dev, rng, results)
     kernel_k17(dev, rng, results)
+    kernel_k18(dev, rng, results)
     # 4. the paths: q01 (and on the mesh: q01_mesh1, q01_mesh2, q01_mesh8),
     # q67 (slot, sort and table routes), q06 and q47, q69 and q69_bloom, q96
     # (and q96_mesh), q89, q17 (slot, sort and table routes), q98, sort10M
@@ -6036,9 +6490,18 @@ def main(device: str = "cuda") -> int:
     missing = [k for k in limb_ops if launches.get(k, 0) + battery_limbs.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"limb ops launched by no path and not by the battery: {missing}")
-    for q in ("q06", "q47", "q69"):
+    # K8: the joins no aggregate absorbs (q69's address and date joins) and
+    # q17_unfused's; K18: every path whose partial aggregate sits on a
+    # Filter or a unique-key inner broadcast join
+    for q in ("q69", "q17_unfused"):
         if per_path[q]["inner_join_planes"] <= 0:
             raise AssertionError(f"{q} did not go through the join kernel")
+    fused = ("q01", "q01_mesh1", "q01_mesh2", "q01_mesh8", "q06", "q47", "q17", "q17_sort",
+             "q17_table", "q89", "q98", "q69", "q69_bloom")
+    missing = [q for q in fused if per_path[q]["fused_agg_input"] <= 0]
+    unfused = [q for q in per_path if q not in fused and per_path[q]["fused_agg_input"]]
+    if missing or unfused:
+        raise AssertionError(f"K18 did not launch on {missing}, or launched on {unfused}")
     if per_path["q69"]["probe_codes"] <= 0:
         raise AssertionError("q69 did not go through the generic probe kernel")
     for q in ("q69", "q67_sort"):
@@ -6107,6 +6570,8 @@ def main(device: str = "cuda") -> int:
             r["path_batches"] = BLOOM_PATH_TIMES
         if r["name"] == "mesh_all_to_all":
             r["path_batches"] = MESH_PATH_TIMES
+        if r["name"] == "fused_agg_input":
+            r["path_batches"] = K18_PATH_BATCHES
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []

@@ -3,8 +3,8 @@ on the card, and the q01, q67 (on both aggregation routes), q06, q96,
 q89, q17, q98, sort10M and hash_sample paths, every hash-join type, an
 explicit-frame window, the scalar functions, the bloom runtime filter
 and a plan on the device mesh (1, 2 and 8 slots) on the card against the
-same plans and expressions on the CPU. K9's to K17's cases come from
-chip_smoke.py.
+same plans and expressions on the CPU; K18, the fused aggregate input,
+on its battery. K9's to K18's cases come from chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BLOOM_CASES, FUSED_CAPS, MESH_CASES, PROBE_CASES, Q89_ROWS, Q96_ROWS,
-                        Q98_ROWS,
+from chip_smoke import (BLOOM_CASES, FUSED_CAPS, K18_CASES, MESH_CASES, PROBE_CASES, Q89_ROWS,
+                        Q96_ROWS, Q98_ROWS, k18_case, k18_flat, k18_torch,
                         RANGE_CASES, SCAN_CASES, SEG_CASES, SORT10M_COLUMNS, UPD_CASES, WIDE_CASES,
                         WIDE_UPD_CASES, XXH_CASES, bloom_case, bloom_np_probe, customer_probe,
                         doubled, fused_cases,
@@ -154,19 +154,21 @@ def test_q01_on_the_card_equals_the_cpu(dev):
         cuda_lib.reset_launch_counts()
         out[device] = s.execute_to_pydict(plan)
     assert out[None] == out["cpu"]
-    # every kernel but the joins', the sort route's, K11, the host table's
-    # K12, the window aggregates' K13, the range exchange's K14, the
-    # xxhash64 function's K15, the bloom probe's K16 and the mesh's K17 and
-    # stacked K11, which q01 does not reach (its filter feeds the partial
-    # aggregate, so it is not fused; both aggregates take the slot route;
-    # it has no window, no range exchange, no xxhash64, no runtime filter
-    # and no mesh)
-    assert all(v > 0 for k, v in cuda_lib.launch_counts().items()
+    # every kernel but the joins', the sort route's, K1, K11, the host
+    # table's K12, the window aggregates' K13, the range exchange's K14,
+    # the xxhash64 function's K15, the bloom probe's K16 and the mesh's K17
+    # and stacked K11, which q01 does not reach (its filter fuses into the
+    # partial aggregate: K18 once a batch, no K1 and no fused stage; both
+    # aggregates take the slot route; it has no window, no range exchange,
+    # no xxhash64, no runtime filter and no mesh)
+    counts = cuda_lib.launch_counts()
+    assert counts["fused_agg_input"] == 3 and counts["compact_planes"] == 0
+    assert all(v > 0 for k, v in counts.items()
                if k not in ("inner_join_planes", "probe_codes", "segment_ids",
                             "seg_agg_partial", "seg_agg_merge", "fused_chain",
                             "slot_update", "segment_scan", "range_partition",
                             "xxhash64", "bloom_probe", "mesh_all_to_all",
-                            "fused_chain_stacked"))
+                            "fused_chain_stacked", "compact_planes"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -271,7 +273,7 @@ def test_q67_on_the_card_equals_the_cpu(dev):
 def _join_case(key_dtype, cap_p, n, nk, cap_b, ncols, seed, dev):
     """Sorted unique build words, the probe key and ncols probe / build
     columns (int64 and int32 planes with nulls) for K8."""
-    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops.joins import keymap as KM
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     if key_dtype.is_floating_point:
@@ -280,13 +282,13 @@ def _join_case(key_dtype, cap_p, n, nk, cap_b, ncols, seed, dev):
         nans = torch.tensor([0x7FF8000000000123, -0x0008000000000000],
                             dtype=torch.int64).view(torch.float64).to(key_dtype)
         pool = torch.cat([pool, nans])
-        words = torch.unique(K.canon_words(pool))
+        words = torch.unique(KM.canon_words(pool))
         uniq = words[torch.randperm(len(words), generator=g)[:nk]].sort().values
     else:
         keys = (torch.randperm(3 * nk + 64, generator=g)[:nk] - nk).to(key_dtype)
         misses = torch.randint(-4 * nk - 64, 4 * nk + 64, (64,), generator=g)
         pool = torch.cat([keys, misses.to(key_dtype)])
-        uniq = torch.unique(K.canon_words(keys))
+        uniq = torch.unique(KM.canon_words(keys))
     key = pool[torch.randint(0, len(pool), (cap_p,), generator=g)]
     kv = (torch.rand(cap_p, generator=g) < 0.9) & (torch.arange(cap_p) < n)
     key = torch.where(kv, key, torch.zeros((), dtype=key_dtype))
@@ -347,16 +349,23 @@ def test_q06_on_the_card_equals_the_cpu(dev):
                   [N.AggColumn(a, E.AggMode.FINAL, n) for n, a in agg])
     plan = N.Sort(N.ShuffleExchange(final, N.SinglePartitioning(1)),
                   [E.SortOrder(E.Column("cat"))])
-    out = {}
-    for device in ("cpu", None):
-        s = blaze_tpu_torch.Session(device=device)
-        s.resources["sales"] = lambda p: parts[p]
-        s.resources["items"] = lambda p: items
-        cuda_lib.reset_launch_counts()
-        out[device] = s.execute_to_pydict(plan)
-    assert out[None] == out["cpu"]
-    assert len(out["cpu"]["cat"]) == 10
-    assert cuda_lib.launch_counts()["inner_join_planes"] == 3
+    from blaze_tpu_torch.config import Config
+
+    # the join fuses into the partial aggregate by default (K18 once a
+    # probe batch); with fused_filter_agg=False it runs through K8
+    for fused in (None, False):
+        out = {}
+        for device in ("cpu", None):
+            s = blaze_tpu_torch.Session(Config(fused_filter_agg=fused), device=device)
+            s.resources["sales"] = lambda p: parts[p]
+            s.resources["items"] = lambda p: items
+            cuda_lib.reset_launch_counts()
+            out[device] = s.execute_to_pydict(plan)
+        assert out[None] == out["cpu"]
+        assert len(out["cpu"]["cat"]) == 10
+        counts = cuda_lib.launch_counts()
+        assert (counts["inner_join_planes"], counts["fused_agg_input"]) == \
+            ((0, 3) if fused is None else (3, 0))
 
 
 @pytest.mark.parametrize("case", [*PROBE_CASES, "q69 partition", "262144 customer keys"])
@@ -878,11 +887,12 @@ def test_slot_update_limb_kernel(dev, case):
            wide_upd_run(data, fns, K.slot_update_plain, dev))
 
 
-@pytest.mark.parametrize("route", ["default", "sort", "table"])
+@pytest.mark.parametrize("route", ["default", "sort", "table", "unfused"])
 def test_q17_on_the_card_equals_the_cpu(dev, route):
     """q17 at 200,000 store_sales rows on the card and on the CPU: equal to
     each other and to chip_smoke.py's exact oracle, the wide totals past
-    int64; the route's limb kernels launched."""
+    int64; the route's limb kernels launched, K18 once a sales batch where
+    the joins fuse (K8 never), K8 twice a batch where they do not."""
     import blaze_tpu_torch
     from blaze_tpu_torch.config import Config
     from blaze_tpu_torch.ir import types as T
@@ -909,7 +919,8 @@ def test_q17_on_the_card_equals_the_cpu(dev, route):
              for a, b in ((0, n // 4), (n // 4, n // 2), (n // 2, 3 * n // 4), (3 * n // 4, n))]
     conf = {"default": Config(batch_size=8192),
             "sort": Config(batch_size=8192, dense_agg=False, radix_agg=False),
-            "table": Config(batch_size=8192, device_merge_max_bytes=1)}[route]
+            "table": Config(batch_size=8192, device_merge_max_bytes=1),
+            "unfused": Config(batch_size=8192, fused_filter_agg=False)}[route]
     out = {}
     for device in ("cpu", None):
         s = blaze_tpu_torch.Session(conf, device=device)
@@ -923,8 +934,53 @@ def test_q17_on_the_card_equals_the_cpu(dev, route):
     assert any(int(x.scaleb(2)) >= 2 ** 63 for x in want["wcost"])
     limbs = cuda_lib.limb_launch_counts()
     key = {"default": "slot_agg_merge:sum3", "sort": "seg_agg_merge:sum3",
-           "table": "slot_update:renorm3"}[route]
+           "table": "slot_update:renorm3", "unfused": "slot_agg_merge:sum3"}[route]
     assert limbs.get(key, 0) > 0, limbs
+    batches = sum(len(p) for p in parts)
+    launches = cuda_lib.launch_counts()
+    if route == "unfused":
+        assert launches["inner_join_planes"] == 2 * batches and not launches["fused_agg_input"]
+    else:
+        assert launches["fused_agg_input"] == batches and not launches["inner_join_planes"]
+
+
+@pytest.mark.parametrize("case", K18_CASES, ids=[c[0] for c in K18_CASES])
+def test_fused_agg_input_kernel(dev, case):
+    """K18 against its plain version on the card, bit for bit: every key
+    and argument plane (stored or passed through), every validity plane
+    and the live mask."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    d = k18_case(case, np.random.default_rng(sum(map(ord, case[0]))), E, T)
+    spec, cols, n, joins = k18_torch(d, dev)
+    _equal(k18_flat(K.fused_agg_input(spec, cols, n, joins)),
+           k18_flat(K.fused_agg_input_plain(spec, cols, n, joins)))
+
+
+def test_fused_agg_input_launches_or_raises_and_never_takes_the_twin(dev, monkeypatch):
+    """A CUDA batch launches K18 or raises (a build column left on the CPU,
+    sorted keys of the wrong length); the plain version is never called."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    d = k18_case(K18_CASES[-2], np.random.default_rng(3), E, T)
+    spec, cols, n, joins = k18_torch(d, dev)
+    want = k18_flat(K.fused_agg_input_plain(spec, cols, n, joins))
+    monkeypatch.setattr(K, "fused_agg_input_plain", None)
+    cuda_lib.reset_launch_counts()
+    _equal(k18_flat(K.fused_agg_input(spec, cols, n, joins)), want)
+    assert cuda_lib.launch_counts()["fused_agg_input"] == 1
+    (uniq, nk, bcols), second = joins
+    with pytest.raises(ValueError, match="fused_agg_input"):
+        K.fused_agg_input(spec, cols, n, [(uniq, nk, [c.__class__(c.dtype, c.data.cpu(),
+                                                                   c.validity.cpu())
+                                                        for c in bcols]), second])
+    with pytest.raises(ValueError, match="fused_agg_input"):
+        K.fused_agg_input(spec, cols, n, [(uniq[:-1], nk, bcols), second])
 
 
 @pytest.mark.parametrize("case", RANGE_CASES, ids=[c[0] for c in RANGE_CASES])
@@ -1275,7 +1331,8 @@ def test_mesh_paths_on_the_card_equal_the_cpu(dev, slots):
     batches, a two-stage SUM through a hash exchange into 13 reducers, a
     single exchange and a sort, on a mesh of ``slots`` slots: the card's
     result equals the CPU's; K17 once an exchange, the stacked K11 where
-    batches stack."""
+    batches stack (filter -> agg fusion off: by default the partial
+    aggregate absorbs the stage and nothing stacks)."""
     import blaze_tpu_torch
     from blaze_tpu_torch.config import Config
     from blaze_tpu_torch.ir import exprs as E
@@ -1301,7 +1358,8 @@ def test_mesh_paths_on_the_card_equal_the_cpu(dev, slots):
     plan = N.Sort(N.ShuffleExchange(final, N.SinglePartitioning(1)), [E.SortOrder(C("k"))])
     out = {}
     for device in ("cpu", dev):
-        s = blaze_tpu_torch.Session(Config(batch_size=4096, multichip_enabled=True),
+        s = blaze_tpu_torch.Session(Config(batch_size=4096, multichip_enabled=True,
+                                           fused_filter_agg=False),
                                     device=device, mesh=make_mesh(slots, device))
         s.resources["src"] = lambda p: parts[p]
         cuda_lib.reset_launch_counts()

@@ -131,13 +131,16 @@ def test_two_stage_plan_across_meshes(reducers, eight_devices, tmp_path):
 def test_fused_sharding_composes_with_the_mesh_exchange(eight_devices, tmp_path):
     """test_multichip.py's fused-sharding variant: 8 partitions of eight
     1,024-row batches through a fused filter and projection (stacked up to
-    the slot count) into the two-stage plan."""
+    the slot count) into the two-stage plan. Filter -> agg fusion is off in
+    both packages: by default the partial aggregate absorbs the stage (its
+    steps run in the aggregate's input kernel) and nothing stacks."""
     scan = JN.FFIReader(KV, "src", 8)
     filt = JN.Filter(scan, [JE.BinaryExpr(JE.BinaryOp.GT, C("v"), JE.Literal(100, JT.I64))])
     proj = JN.Projection(filt, [C("k"), JE.BinaryExpr(JE.BinaryOp.MUL, C("v"),
                                                       JE.Literal(3, JT.I64))], ["k", "v"])
     base, runs = _run(_two_stage_plan(8, child=proj), {"src": KV},
-                      {"src": _kv_parts(24, 65_536, 8)}, tmp_path, 1024)
+                      {"src": _kv_parts(24, 65_536, 8)}, tmp_path, 1024,
+                      fused_filter_agg=False)
     _check(base, runs, fused=True)
 
 
@@ -223,12 +226,15 @@ def test_binary_column_crossing_the_mesh_raises_naming_item_6b():
 
 def test_failed_stacked_dispatch_raises(monkeypatch):
     """The port does not retry a failed stacked dispatch batch by batch (the
-    reference does): the error reaches the caller."""
+    reference does): the error reaches the caller. Filter -> agg fusion is
+    off, so the stage under the partial aggregate stacks rather than being
+    absorbed into it."""
     def broken(*args, **kwargs):
         raise RuntimeError("stacked dispatch failed")
 
     monkeypatch.setattr(K, "fused_chain_stacked", broken)
-    port = blaze_tpu_torch.Session(conf=Config(multichip_enabled=True, batch_size=1024),
+    port = blaze_tpu_torch.Session(conf=Config(multichip_enabled=True, batch_size=1024,
+                                               fused_filter_agg=False),
                                    device="cpu", mesh=make_mesh(4, "cpu"))
     _serve(port, {"src": _kv_parts(1, 16_384, 2)}, 1024)
     scan = JN.FFIReader(KV, "src", 2)
