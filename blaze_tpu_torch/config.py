@@ -45,6 +45,15 @@ class Config:
     # groups) histogram the radix partial pass reports.
     radix_agg_buckets: int = 256
 
+    # Adaptive partial skipping (the JAX package's config.py:168-172): a
+    # PARTIAL aggregate that supports skipping stops aggregating once, after
+    # ``partial_agg_skipping_min_rows`` rows, its estimated groups per row
+    # pass ``partial_agg_skipping_ratio``; the rest of the task's batches
+    # then pass through as one singleton state a row (K19, ops/agg.py).
+    partial_agg_skipping_enable: bool = True
+    partial_agg_skipping_ratio: float = 0.9
+    partial_agg_skipping_min_rows: int = 50_000
+
     # AQE reducer coalescing: adjacent reducer partitions below the
     # advisory size merge into one read task.
     coalesce_partitions_enable: bool = True

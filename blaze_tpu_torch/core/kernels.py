@@ -27,6 +27,9 @@ launches the kernel or raises.
 - K14 ``range_partition_ids`` (csrc/range_part.cu): the range exchange's
   partition ids, a binary search of each row's normalised key tuple over
   the sorted bound rows; ``range_partition_order`` sorts rows by them.
+- K19 ``passthrough_states`` (csrc/passthrough.cu): a skipped partial
+  aggregate's batch as one singleton state a row (the slot program with
+  the slot equal to the row).
 
 The slot-code helpers of the aggregation are plain PyTorch twins of the
 JAX package's (the slot kernels K3/K4 are in ops/agg_device.py), and the
@@ -1472,6 +1475,138 @@ def segment_reduce(name, order, starts, count, num_rows: int, ops, emits, kinds=
         return segment_reduce_cuda(name, order, starts, count, num_rows, ops, emits,
                                    kinds)
     return segment_reduce_plain(order, starts, count, num_rows, ops, emits)
+
+
+# -- K19: the passthrough of a skipped partial aggregate ---------------------------
+#
+# blaze_tpu/ops/agg_device.py:1710 _passthrough_kernel: once the partial
+# skipper decides that partials do not reduce, every existing row becomes
+# its own group, so ``_reduce_aggs`` runs with seg = where(exists, iota,
+# capacity) and each op's table value is the op applied once onto its init.
+# The program is K3's and K10's (``_partial_program``'s ops and emits).
+
+_MAX_PASS_KEYS = 16  # csrc/passthrough.cu limits of one launch
+_MAX_PASS_OPS = 24
+_MAX_PASS_EMITS = 24
+
+
+def _emit_out(x: torch.Tensor, e: AggEmit) -> torch.Tensor:
+    """An emit's value plane in its column's type (NaN as the quiet NaN of
+    a float32 column)."""
+    if e.kind == EMIT_NONZERO:
+        return x
+    return narrow_float(x, e.dtype) if x.is_floating_point() else x.to(e.dtype)
+
+
+def passthrough_states_plain(keys, kvalids, exists: torch.Tensor, num_rows: int,
+                             ops, emits):
+    """Plain twin of K19. ``exists`` is the batch's row mask (the rows below
+    ``num_rows``), ``kvalids`` are masked with it, every op's gate too.
+    Returns ``_passthrough_kernel``'s outputs: (num_rows, exists, per key
+    (data zeroed where null, validity), per emit its column), all
+    capacity-long."""
+    tables = []
+    for op in ops:
+        ok = exists
+        for v in op.valids:
+            ok = ok & v
+        if op.kind == OP_COUNT:
+            t = op.init + ok.to(torch.int64)
+        elif op.is_float:
+            x = torch.where(ok, op.src, 0.0)
+            init = torch.full_like(op.src, float(op.init))
+            # a sum starts from its init, +0.0: -0.0 and a null row sum to +0.0
+            t = _quiet_nan(init + x if op.kind == OP_ADD else torch.where(ok, op.src, init))
+        elif op.kind in (OP_ADD, OP_ADD_LO32, OP_ADD_HI32):
+            t = op.init + torch.where(ok, op_contrib(op, op.src), 0)
+        elif op.kind == OP_LEXLO:
+            t = torch.where(ok, (op.src << 32) | op.src0, op.init)
+        else:  # MIN, MAX, LEXMIN, LEXMAX: the row's own value
+            t = torch.where(ok, op.src, op.init)
+        tables.append(t)
+    results = [num_rows, exists]
+    for d, v in zip(keys, kvalids):
+        results += [_zero_where(v, d), v]
+    results += [_emit_out(emit_plain(e, tables), e) for e in emits]
+    return tuple(results)
+
+
+def passthrough_states_cuda(keys, kvalids, exists: torch.Tensor, num_rows: int,
+                            ops, emits):
+    """K19 on the card (csrc/passthrough.cu); same outputs as
+    :func:`passthrough_states_plain`. The kernel takes the row mask as
+    ``num_rows`` (``exists`` must be that prefix; it is returned as the
+    groups' validity), and writes keys and emits in their own types."""
+    name = "passthrough_states"
+    check_limb_program(name, ops, emits)
+    cap = int(exists.shape[0])
+    srcs = [p for op in ops for p in (op.src, op.src0) if p is not None]
+    valids = [v for op in ops for v in op.valids]
+    cuda_lib.require_cuda(name, exists, *keys, *kvalids, *srcs, *valids)
+    if len(keys) > _MAX_PASS_KEYS or len(ops) > _MAX_PASS_OPS or \
+            len(emits) > _MAX_PASS_EMITS or any(len(op.valids) > 3 for op in ops):
+        raise NotImplementedError(f"{name}: more keys or aggregates than one launch takes")
+    if not 0 <= num_rows <= cap or exists.dtype != torch.bool:
+        raise ValueError(f"{name}: {num_rows} rows of {cap}, row mask {exists.dtype}")
+    for d, v in zip(keys, kvalids):
+        if d.shape != (cap,) or v.shape != (cap,) or v.dtype != torch.bool or \
+                d.element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"{name}: key {d.dtype}{tuple(d.shape)}, validity "
+                            f"{v.dtype}{tuple(v.shape)} for {cap} rows")
+    for s in srcs:
+        if s.dtype not in (torch.int64, torch.float64) or s.shape != (cap,):
+            raise TypeError(f"{name}: state source {s.dtype} of {tuple(s.shape)}")
+    for v in valids:
+        if v.dtype != torch.bool or v.shape != (cap,):
+            raise TypeError(f"{name}: validity plane {v.dtype} of {tuple(v.shape)}")
+    dev = exists.device
+    key_out = [torch.empty_like(d) for d in keys]
+    outs = [torch.empty(cap, dtype=torch.bool if e.kind == EMIT_NONZERO else e.dtype,
+                        device=dev) for e in emits]
+    for e, o in zip(emits, outs):
+        if o.is_floating_point() and o.element_size() < 4:
+            raise TypeError(f"{name}: emit of dtype {o.dtype}")
+    keep = []
+
+    def arr(pair):
+        keep.append(pair[1])
+        return pair[0]
+
+    def init_bits(op):
+        if not op.is_float:
+            return int(op.init)
+        return int(torch.tensor(float(op.init), dtype=torch.float64).view(torch.int64).item())
+
+    op_valid = []
+    for op in ops:
+        op_valid += list(op.valids) + [None] * (3 - len(op.valids))
+    LL = cuda_lib.ctypes.c_longlong
+    Iv = cuda_lib.int_array
+    P = cuda_lib.ptr_array
+    err = cuda_lib.library().blz_passthrough(
+        len(keys), arr(P(keys)), arr(P(kvalids)), arr(Iv([d.element_size() for d in keys])),
+        arr(P(key_out)), num_rows, cap,
+        len(ops), arr(Iv([op.kind for op in ops])), arr(Iv([int(op.is_float) for op in ops])),
+        arr(P([op.src for op in ops])), arr(P([op.src0 for op in ops])),
+        arr(Iv([len(op.valids) for op in ops])), arr(P(op_valid)),
+        arr(Iv([op.mult for op in ops], LL)), arr(Iv([init_bits(op) for op in ops], LL)),
+        len(emits), arr(Iv([e.kind for e in emits])), arr(Iv([e.table for e in emits])),
+        arr(Iv([e.aux for e in emits])), arr(Iv([e.aux2 for e in emits])),
+        arr(Iv([o.element_size() for o in outs])),
+        arr(Iv([int(o.is_floating_point()) for o in outs])), arr(P(outs)),
+        cuda_lib.stream_of(dev))
+    cuda_lib.check(err, name)
+    cuda_lib.LAUNCHES[name] += 1
+    results = [num_rows, exists]
+    for d, v in zip(key_out, kvalids):
+        results += [d, v]
+    return tuple(results + outs)
+
+
+def passthrough_states(keys, kvalids, exists: torch.Tensor, num_rows: int, ops, emits):
+    """K19 on a CUDA batch, its plain twin on a CPU one."""
+    fn = passthrough_states_cuda if exists.is_cuda else passthrough_states_plain
+    return fn(keys, kvalids, exists, num_rows, ops, emits)
 
 
 # -- K12: the host table's slot update ---------------------------------------------

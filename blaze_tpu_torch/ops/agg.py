@@ -33,12 +33,23 @@ in slot tables on the device, which K12 (``core/kernels.py
 slot_update``) updates once a batch for all aggregates. Groups come out in
 slot order (first seen first), ``batch_size`` rows a batch.
 
+Adaptive partial skipping (``_PartialSkipper``, the reference's ``:508``):
+a PARTIAL aggregate with ``supports_partial_skipping`` (and
+``partial_agg_skipping_enable``) watches whether its partials reduce. On
+the device route it reads the radix pass's per-bucket (rows, groups)
+histograms; once their estimate of the groups a row passes
+``partial_agg_skipping_ratio`` after ``partial_agg_skipping_min_rows``
+rows, the rest of the task's batches go through
+``DevicePartialAgger.passthrough`` (K19), each counted under
+``partial_skipped_batches``. It stays off under a fused input, as the
+reference's does (``not agger._needs_trace()``). On the host table it
+reads the table's slots a row, and once it skips, the table is emitted and
+each further batch aggregates alone (``AggTable.passthrough_batch``).
+
 Not ported (NotImplementedError, ROADMAP.md Queue 1): sort-mode
 aggregation with grouping keys (``_execute_sorted_impl``), the table's
-spill under the memory manager (item 11), its partial skipping (the
-passthrough of ``AggTable.passthrough_batch``; the table never skips, and
-``supports_partial_skipping`` is accepted and never engages on the device
-route either: Queue 2 row 9), and host-resident key columns (item 6b).
+spill under the memory manager (item 11), and host-resident key columns
+(item 6b).
 """
 
 from __future__ import annotations
@@ -209,17 +220,40 @@ class AggExec(Operator):
             stream = source.execute(partition, ctx)
         return agger, stream
 
+    def _skipper(self, ctx) -> Optional["_PartialSkipper"]:
+        """The partial skipper of a raw-input PARTIAL aggregate that supports
+        skipping, or None."""
+        if self.supports_partial_skipping and self.is_partial_output and \
+                not self.input_is_partial and ctx.conf.partial_agg_skipping_enable:
+            return _PartialSkipper(ctx.conf, ctx.counters)
+        return None
+
     def _execute_partial(self, partition, ctx, child_schema):
         agger, stream = self._partial_agger(partition, ctx, child_schema)
+        # the passthrough evaluates the unfused input: a fused one keeps the
+        # skipper off (blaze_tpu/ops/agg.py:304-309)
+        skipper = self._skipper(ctx) if agger.fused is None else None
+        agger.histograms = skipper is not None
         staged: List[ColumnarBatch] = []
         staged_bytes = staged_rows = input_rows = 0
-        gave_up = False
+        gave_up = skipping = False
         for batch in stream:
             input_rows += batch.num_rows
+            if skipping:
+                out = agger.passthrough(batch)
+                ctx.counters["partial_skipped_batches"] += 1
+                if out is not None and out.num_rows:
+                    yield out
+                continue
             out = agger.process(batch)
+            if skipper is not None:
+                if agger.last_bucket_stats is not None:
+                    skipper.observe_buckets(*agger.last_bucket_stats)
+                if skipper.should_skip():
+                    skipping = True
             if out is None or not out.num_rows:
                 continue
-            if gave_up:
+            if gave_up or skipping:
                 yield out
                 continue
             staged.append(out)
@@ -259,11 +293,56 @@ class AggExec(Operator):
 
     def _execute_table(self, partition, ctx, child_schema, child_iter=None):
         table = AggTable(self, child_schema, ctx)
+        skipper = self._skipper(ctx)
         if child_iter is None:
             child_iter = self.execute_child(0, partition, ctx)
         for batch in child_iter:
             table.process_batch(batch)
+            if skipper is not None and skipper.should_skip(table):
+                # the table's groups, then each further batch on its own
+                # (blaze_tpu/ops/agg.py:911-920)
+                yield from table.output()
+                for rest in child_iter:
+                    out = table.passthrough_batch(rest)
+                    ctx.counters["partial_skipped_batches"] += 1
+                    if out is not None:
+                        yield out
+                return
         yield from table.output()
+
+
+class _PartialSkipper:
+    """The adaptive partial-skipping decision (blaze_tpu/ops/agg.py:508).
+    Two signals, the better one first: the radix pass's per-bucket (rows,
+    groups) histograms, whose ``min(groups, rows)`` summed over the buckets
+    estimates the rows a per-batch partial emits; else, on the host table,
+    its slots over the rows it took. ``counters`` (the session's) add up
+    the histograms' rows and estimates (``partial_skip_histogram_rows``,
+    ``partial_skip_estimate_rows``)."""
+
+    def __init__(self, conf, counters=None):
+        self.min_rows = conf.partial_agg_skipping_min_rows
+        self.ratio = conf.partial_agg_skipping_ratio
+        self.counters = counters
+        self._rows = 0  # rows seen through histograms
+        self._est = 0   # their estimated partial output rows
+
+    def observe_buckets(self, bucket_rows: np.ndarray, bucket_groups: np.ndarray) -> None:
+        """One batch's histogram (int64 numpy planes)."""
+        rows = int(bucket_rows.sum())
+        est = int(np.minimum(bucket_groups, bucket_rows).sum())
+        self._rows += rows
+        self._est += est
+        if self.counters is not None:
+            self.counters["partial_skip_histogram_rows"] += rows
+            self.counters["partial_skip_estimate_rows"] += est
+
+    def should_skip(self, table: Optional["AggTable"] = None) -> bool:
+        if self._rows >= self.min_rows:
+            return self._est / max(self._rows, 1) > self.ratio
+        if table is None or table.rows_processed < self.min_rows:
+            return False
+        return table.num_slots / max(table.rows_processed, 1) > self.ratio
 
 
 class AggTable:
@@ -275,6 +354,7 @@ class AggTable:
         self.op = op
         self.ctx = ctx
         self.device = ctx.device
+        self.child_schema = child_schema
         self.fns = op.make_fns(child_schema)
         if op.input_is_partial:
             self.group_ev = None
@@ -293,6 +373,7 @@ class AggTable:
         self.states = [fn.init_state(self.capacity, self.device) for fn in self.fns]
         self.num_slots = 0
         self.row_order = 0
+        self.rows_processed = 0  # the partial skipper's whole-table signal
         # the known keys: their packed (value, validity) rows as np.void,
         # sorted, beside their slots; and each slot's key row, by slot
         self._known: Optional[np.ndarray] = None
@@ -405,6 +486,7 @@ class AggTable:
             pack = self._packs.setdefault(at, K.SlotUpdatePack())
             K.slot_update(slots, mask, ops[at:at + K._MAX_UPD_OPS], pack)
         self.row_order += n
+        self.rows_processed += n
 
     # -- output -------------------------------------------------------------------
 
@@ -463,3 +545,14 @@ class AggTable:
 
     def output(self) -> Iterator[ColumnarBatch]:
         yield from self._emit(partial=self.op.is_partial_output)
+
+    def passthrough_batch(self, batch: ColumnarBatch) -> Optional[ColumnarBatch]:
+        """A skipped partial's batch on the host route (blaze_tpu/ops/agg.py:
+        400): the batch aggregated alone in a table of its own, its groups as
+        one batch; None for an empty batch."""
+        if batch.num_rows == 0:
+            return None
+        sub = AggTable(self.op, self.child_schema, self.ctx)
+        sub.process_batch(batch)
+        parts = list(sub.output())
+        return ColumnarBatch.concat(parts, self.op.schema, self.ctx.conf) if parts else None

@@ -38,9 +38,18 @@ extremes, compared lexicographically); ``_run_plain`` is the plain
 PyTorch version of the slot kernels, and core/kernels.py holds K10's
 twins.
 
+Partial skipping (``DevicePartialAgger.passthrough``): once the skipper
+of ops/agg.py decides that partials do not reduce, each further batch
+becomes one singleton state a row through K19 (core/kernels.py
+``passthrough_states``, csrc/passthrough.cu), the same program with the
+slot equal to the row, with no sync. The skipper reads the radix pass's
+per-bucket (rows, groups) histogram, which K3 writes beside its group
+count and which comes to the host in the same copy while a skipper
+listens (``histograms``); a float state's radix batch, which K10 folds,
+gets it from a K3 launch without aggregates, which also checks the plan.
+
 Not ported: any aggregate outside ops/aggfns.py (NotImplementedError
-naming ROADMAP.md), and the passthrough kernel of partial skipping
-(Queue 2 row 9).
+naming ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -268,7 +277,7 @@ def _run_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes, ops, emits,
 
 
 def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
-              emits, out_cap, nbuck, exists=None, kinds=()):
+              emits, out_cap, nbuck, exists=None, kinds=(), host_head=False):
     """The slot program on the card (csrc/slot_agg.cu); same outputs as
     :func:`_run_plain`. ``kinds``: the program's limb aggregate kinds,
     counted per launch."""
@@ -297,17 +306,20 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
         raise ValueError(f"{name}: {nb} radix buckets, at most {cuda_lib.THREADS}")
     lib = cuda_lib.library()
     i64 = dict(dtype=torch.int64, device=dev)
-    tables = torch.empty((max(1, len(ops)), S), **i64)
+    tables = torch.empty((len(ops), S), **i64)
     present = torch.empty(S, dtype=torch.uint8, device=dev)
     offs = torch.empty(cuda_lib.blocks(S) + 1, **i64)
     overflow = torch.empty(1, dtype=torch.int32, device=dev)
-    count = torch.empty(2, **i64)  # [count or -1 on overflow, count]
+    # [count or -1 on overflow, count], then the histogram's rows and
+    # groups planes: one buffer, so one copy brings all of it to the host
+    meta = torch.empty(2 + 2 * nb, **i64)
+    count = meta[:2]
     key_out = [torch.empty(out_cap, **i64) for _ in keys]
     kvalid_out = [torch.empty(out_cap, dtype=torch.bool, device=dev) for _ in keys]
     emit_out = [torch.empty(out_cap, dtype=torch.bool, device=dev)
                 if e.kind == EMIT_NONZERO else torch.empty(out_cap, **i64)
                 for e in emits]
-    hist = torch.empty((2, nb), **i64) if nb else None
+    hist = meta[2:].view(2, nb) if nb else None
 
     P = cuda_lib.ptr_array
     Iv = cuda_lib.int_array
@@ -349,17 +361,27 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
         results.append(o if e.kind == EMIT_NONZERO else o.to(e.dtype))
     if nb:
         results += [hist[0], hist[1]]
+        if host_head:
+            head = meta.cpu().numpy()
+            results[0] = int(head[0])
+            results[-2:] = [head[2:2 + nb], head[2 + nb:]]
     return tuple(results)
 
 
-def _run(name, kinds, *args, exists=None):
+def _run(name, kinds, *args, exists=None, host_head=False):
+    """K3/K4 on CUDA planes, the plain version on CPU ones. ``host_head``
+    (with a histogram): the group count as an int and the histogram as
+    numpy planes, pulled in one copy."""
     ops = args[6]
     if any(op.is_float for op in ops):
         # K3/K4 add with atomics: a float sum would depend on their order
         raise TypeError(f"{name}: float states take the sort route (K10)")
-    on_cuda = args[1][0].is_cuda  # key validity planes
-    return _run_cuda(name, *args, exists=exists, kinds=kinds) if on_cuda \
-        else _run_plain(*args, exists=exists)
+    if args[1][0].is_cuda:  # key validity planes
+        return _run_cuda(name, *args, exists=exists, kinds=kinds, host_head=host_head)
+    outs = _run_plain(*args, exists=exists)
+    if host_head and args[-1]:
+        outs = (int(outs[0]),) + outs[1:-2] + (outs[-2].numpy(), outs[-1].numpy())
+    return outs
 
 
 def _limb_kinds(kinds) -> tuple:
@@ -367,17 +389,18 @@ def _limb_kinds(kinds) -> tuple:
 
 
 def slot_agg_partial(keys, kvalids, key_dtypes, num_rows, bases, sizes, specs,
-                     args, out_cap, nbuck=0, exists=None):
+                     args, out_cap, nbuck=0, exists=None, host_head=False):
     """K3: rows -> partial states in slot order. Returns (group count, or
     -1 when a key fell outside the plan; out_valid; per key (data,
     valid); per aggregate its state arrays; [per-bucket rows, groups] when
     ``nbuck``) — the outputs of ``_dense_partial_kernel``. ``exists``: a
     fused aggregate's live mask (K18), the rows below ``num_rows`` that
-    exist; None: all of them."""
+    exist; None: all of them. ``host_head`` (with ``nbuck``): the count and
+    the histogram come back on the host, in one copy."""
     ops, emits = _partial_program(specs, args)
     return _run("slot_agg_partial", _limb_kinds(s[0] for s in specs), keys, kvalids,
                 key_dtypes, num_rows, bases, sizes, ops, emits, out_cap, nbuck,
-                exists=exists)
+                exists=exists, host_head=host_head)
 
 
 def slot_agg_partial_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes,
@@ -641,6 +664,10 @@ class DevicePartialAgger:
         # off for this stream; _bucket_state the active plan
         self._dense_ok = self._radix_ok = None
         self._bucket_state = None
+        # while a partial skipper listens (ops/agg.py sets it), each radix
+        # batch publishes its per-bucket (rows, groups) histogram as numpy
+        # planes (the reference's ``_note_radix``); None for any other batch
+        self.histograms = False
         self.last_bucket_stats = None
 
     def _keys(self, batch: ColumnarBatch, exists: torch.Tensor):
@@ -739,27 +766,57 @@ class DevicePartialAgger:
                     self._bucket_state = None
                     return None
                 self._bucket_state = st
-            outs = self._call(st, key_data, key_valid, n, args, live)
+            outs, hist = self._call(st, key_data, key_valid, n, args, live)
             if int(outs[0]) >= 0:  # the sync; -1 flags a range overflow
-                if st[0] == "radix" and not self.float_states:
-                    self.last_bucket_stats = (outs[-2], outs[-1])
-                    outs = outs[:-2]
+                self.last_bucket_stats = hist
                 return outs
             prev, st = (st[1], st[2]), None
         self._bucket_state = None
         return None
 
     def _call(self, st, key_data, key_valid, n, args, live):
+        """The slot route's outputs over the plan ``st`` and, while a skipper
+        listens on a radix plan, the batch's (rows, groups) histogram on the
+        host (else None)."""
         table, bases, sizes, out_cap = st
-        if self.float_states:
-            # K10 in the slot order; the plan still decides the route
-            if not _slot_fits(key_data, key_valid, n, bases, sizes):
-                return (-1,)
-            return seg_agg_partial(key_data, key_valid, n, self.specs, args,
-                                   direct=False, exists=live)
         nbuck = self.conf.radix_agg_buckets if table == "radix" else 0
-        return slot_agg_partial(key_data, key_valid, [d.dtype for d in key_data],
-                                n, bases, sizes, self.specs, args, out_cap, nbuck, live)
+        listen = self.histograms and nbuck > 0
+        dtypes = [d.dtype for d in key_data]
+        if self.float_states:
+            # K10 in the slot order; the plan still decides the route. A
+            # listener's histogram comes from K3 without aggregates, whose
+            # count also says whether the keys fit the plan
+            hist = None
+            if listen:
+                head = slot_agg_partial(key_data, key_valid, dtypes, n, bases, sizes, (), (),
+                                        out_cap, nbuck, live, host_head=True)
+                if head[0] < 0:
+                    return (-1,), None
+                hist = head[-2:]
+            elif not _slot_fits(key_data, key_valid, n, bases, sizes):
+                return (-1,), None
+            return seg_agg_partial(key_data, key_valid, n, self.specs, args,
+                                   direct=False, exists=live), hist
+        outs = slot_agg_partial(key_data, key_valid, dtypes, n, bases, sizes, self.specs,
+                                args, out_cap, nbuck, live, host_head=listen)
+        if not nbuck:
+            return outs, None
+        return outs[:-2], (tuple(outs[-2:]) if listen else None)
+
+    def passthrough(self, batch: ColumnarBatch) -> Optional[ColumnarBatch]:
+        """A skipped partial's batch (blaze_tpu/ops/agg_device.py:933): one
+        singleton partial-state group per existing row, keys and states in
+        place, through K19; the group count is the row count, so no sync.
+        Keys and arguments are evaluated as ``process`` evaluates them
+        unfused: valid only when ``fused`` is None (the caller gates it)."""
+        n = batch.num_rows
+        if n == 0:
+            return None
+        exists = batch.row_exists_mask()
+        key_data, key_valid = self._keys(batch, exists)
+        ops, emits = _partial_program(self.specs, self._args(batch, exists))
+        outs = K.passthrough_states(key_data, key_valid, exists, n, ops, emits)
+        return self._assemble(outs, n)
 
     def _assemble(self, outs, num_groups: int) -> ColumnarBatch:
         out_valid = outs[1]

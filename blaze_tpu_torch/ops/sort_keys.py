@@ -8,8 +8,9 @@ window's order-key encoding (ops/joins/keymap.py). ``host_key_part`` is
 the host sort key of one Python value (blaze_tpu/ops/sort_keys.py
 ``_host_key_part``); the range exchange's bound sampling sorts by
 ``spark_key_part``, the same key with floats in Spark's order
-(runtime/session.py). Keys must be device (fixed-width) values; the host
-path for var-width keys is not ported (ROADMAP.md Queue 2).
+(runtime/session.py). Keys must be device (fixed-width) values, a
+decimal(19..38) its three limb planes; the host path for var-width keys
+is not ported (ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
@@ -31,15 +32,19 @@ def key_spec(sort_orders: List[E.SortOrder]) -> tuple:
 
 def key_operands(batch: ColumnarBatch,
                  sort_orders: List[E.SortOrder]) -> List[torch.Tensor]:
-    """[rank0, val0, rank1, val1, ...]; padding rows sort last."""
+    """[rank0, val0, rank1, val1, ...]; padding rows sort last. A
+    decimal(19..38) key sorts as its limbs (l2 signed, then the 32-bit
+    chunks l1 and l0), each in the key's direction with its validity: the
+    numeric order of the value."""
     ev = ExprEvaluator([so.child for so in sort_orders], batch.schema)
-    datas, valids = [], []
-    for so in sort_orders:
+    datas, valids, spec = [], [], []
+    for so, dirs in zip(sort_orders, key_spec(sort_orders)):
         d, v = broadcast(ev.eval(so.child, batch), batch)
-        datas.append(d)
-        valids.append(v)
-    return K.sort_key_operands(datas, valids, batch.row_exists_mask(),
-                               key_spec(sort_orders))
+        planes = d[::-1] if isinstance(d, tuple) else (d,)
+        datas += planes
+        valids += [v] * len(planes)
+        spec += [dirs] * len(planes)
+    return K.sort_key_operands(datas, valids, batch.row_exists_mask(), tuple(spec))
 
 
 def peer_key_rows(batch: ColumnarBatch, sort_orders: List[E.SortOrder],

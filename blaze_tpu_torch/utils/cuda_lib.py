@@ -18,7 +18,9 @@ K16, the bloom filter's probe, under ``bloom_probe``; K17, the device
 mesh's all-to-all (csrc/mesh.cu), under ``mesh_all_to_all``; the stacked
 form of K11 (several same-shape batches a launch) under
 ``fused_chain_stacked``; K18, a fused partial aggregate's generated
-input kernel (exprs/fused_triton.py), under ``fused_agg_input``. Beside them
+input kernel (exprs/fused_triton.py), under ``fused_agg_input``; K19, the
+passthrough of a skipped partial aggregate (csrc/passthrough.cu), under
+``passthrough_states``. Beside them
 ``LIMB_LAUNCHES`` counts, per kernel, the launches that carried each
 wide-decimal (limb) op: the aggregate kinds sum2/avg2/sum3/avg3/minw/maxw
 of K3, K4 and K10, and K12's limb update ops (``limb_launch_counts``).
@@ -42,7 +44,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = ("compact.cu", "murmur3.cu", "slot_agg.cu", "sort.cu", "gather.cu",
            "join.cu", "seg_agg.cu", "slot_update.cu", "seg_scan.cu", "range_part.cu",
-           "xxhash64.cu", "bloom.cu", "mesh.cu")
+           "xxhash64.cu", "bloom.cu", "mesh.cu", "passthrough.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libblaze_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -72,6 +74,7 @@ LAUNCHES: Dict[str, int] = {
     "mesh_all_to_all": 0,
     "fused_chain_stacked": 0,
     "fused_agg_input": 0,
+    "passthrough_states": 0,
 }
 
 LIMB_LAUNCHES: Dict[str, int] = {}
@@ -270,6 +273,16 @@ _SIGNATURES = {
     # table, n, nplanes, rpad, G, scap, round, tile, chunk, live_out,
     # live_counts, stream
     "blz_mesh_all_to_all": [_P, _I, _I, _I64, _I64, _I64, _I64, _I, _I64, _P, _P, _P],
+    "blz_passthrough": [
+        _I, _PP, _PP, _PI, _PP, _I64, _I64,  # k, keys, kvalids, key_size, key_out,
+                                             # num_rows, cap
+        _I, _PI, _PI, _PP, _PP, _PI, _PP,    # nops, kind, is_float, src, src0, nvalid,
+                                             # valid
+        _PLL, _PLL,                          # mult, init
+        _I, _PI, _PI, _PI, _PI, _PI, _PI,    # nemit, kind, table, aux, aux2, size,
+                                             # is_float
+        _PP, _P,                             # emit_out, stream
+    ],
 }
 
 

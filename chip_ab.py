@@ -5,8 +5,9 @@ comparisons on one NVIDIA GPU.
     python3 chip_ab.py [--tree DIR] [--label NAME] [--paths q67,q67_sort,q69]
                        [--runs N] [--no-fusion] [--no-fused-agg] [--profile]
 
-Paths: q67, q67_sort, q69, q06, q17, q17_sort, q17_table, q89 and q98 (a
-checkout from before a path has no data to stage for it).
+Paths: q67, q67_sort, q69, q06, q17, q17_sort, q17_table, q89, q98,
+cust_spend and cust_spend_noskip (a checkout from before a path has no
+data to stage for it).
 
 Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
 (default: this one) and, for each named path, stages its data once (as
@@ -127,9 +128,27 @@ def _star_setup(cs, dev, name, conf_kw):
     return session, plan, want
 
 
+def _cust_setup(cs, dev, name, conf_kw):
+    """cust_spend (partial skipping on) or cust_spend_noskip."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    schema, parts, _host, check, _groups = cs.make_cust_spend_data(dev)
+    kw = dict(conf_kw)
+    if name == "cust_spend_noskip":
+        kw.update(partial_agg_skipping_enable=False)
+    session = blaze_tpu_torch.Session(Config(**kw))
+    session.resources["store_sales"] = lambda p: parts[p]
+    return session, cs.cust_spend_plan(schema, E, N, T), check
+
+
 SETUPS = {"q67": _q67_setup, "q67_sort": _q67_setup, "q69": _q69_setup, "q06": _q06_setup,
           "q17": _q17_setup, "q17_sort": _q17_setup, "q17_table": _q17_setup,
-          "q89": _star_setup, "q98": _star_setup}
+          "q89": _star_setup, "q98": _star_setup, "cust_spend": _cust_setup,
+          "cust_spend_noskip": _cust_setup}
 
 
 def main(argv) -> int:

@@ -10,7 +10,7 @@ only when every phase passed:
    versions;
 2. build: the kernel library from blaze_tpu_torch/csrc (nvcc, sm_90a),
    with its build seconds;
-3. kernels: K1-K18 held against their plain PyTorch versions on the
+3. kernels: K1-K19 held against their plain PyTorch versions on the
    card, exactly (float planes bit for bit), at the main paths' shapes and
    at edge cases (nulls, all-false and all-true masks, padding rows, keys
    next to the slot range, one to three sort keys ASC/DESC with nulls
@@ -101,7 +101,15 @@ only when every phase passed:
    timed at q17's probe batch (262,144 rows, 102,000 items, 400 stores)
    beside the library chain (searchsorted + index_select + where per
    plane) (and every K18 launch of q01's, q17's and q89's first runs held
-   to the plain version); then each timed with
+   to the plain version); for the passthrough of a skipped partial, K19:
+   every partial kind (SUM, AVG, COUNT, MIN, MAX and the limb kinds
+   sum2/avg2/sum3/avg3/minw/maxw) over int64, int32, float64 and float32
+   arguments with NaN, +-0.0, +-inf and subnormals, a decimal rescale that
+   wraps int64, 38-digit limbs, one to three int32/int64 keys and a float
+   key, nulls, padding, one row and every value null, capacities 256 and
+   4,096, and cust_spend's batch (262,144 rows, an int32 customer key, a
+   sum2 state), timed there beside the library chain (torch.where and
+   bit ops per plane); then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s);
@@ -192,6 +200,19 @@ only when every phase passed:
      schema (int32 keys, decimal(7,2) price; seed 1115), exact in order
      against a numpy XXH64 and ``np.bincount`` sums, K15 once a sales
      batch (112);
+   - cust_spend, TPC-DS q23's best_ss_customer aggregate (SELECT
+     ss_customer_sk, SUM(ss_quantity * ss_sales_price) GROUP BY
+     ss_customer_sk, the sum a decimal(28,2) two-limb state; PARTIAL with
+     partial skipping -> hash exchange into 16 reducers -> FINAL -> single
+     exchange -> top 100 by the sum DESC, a decimal(28,2) sort key) over
+     28,800,991 store_sales rows whose customer keys are SF100's
+     2,000,000 (1% null; seed 2323): each partition's first batch runs
+     K3's radix pass, the skipper flips (its per-bucket estimate ~0.93)
+     and the other 108 batches run K19; and cust_spend_noskip, the same
+     with ``partial_agg_skipping_enable=False`` (no K19); both exact
+     against numpy sums (the top 100 in order, tied rows as sets) and
+     equal; then a host-table skip check (FIRST and COUNT by customer over
+     4 batches of 65,536 rows: three skipped batches, exact);
    - the device mesh (``Session(device, mesh=make_mesh(k, dev),
      conf=Config(multichip_enabled=True))``, every slot on the one card):
      q01_mesh1, q01_mesh2 and q01_mesh8 (q01 on 1, 2 and 8 slots: K17
@@ -216,7 +237,7 @@ only when every phase passed:
    hash_sample and on sort10M once a map-side bucketize pass, K15 on
    every hash_sample sales batch, and K16 on every q69_bloom store batch
    (112), with K11 there q69's count less those 112 plus the subquery's
-   five;
+   five; K19 on cust_spend only, and no other path skipping a partial;
 5. one JSON line per kernel (shape, times, bound, launches per path; the
    limb halves as ``name:limbs``), the limb ops' launch counts, the
    kernels' summary JSON line, the card line, and the device JSON line.
@@ -229,7 +250,8 @@ writes q01's Chrome trace to PATH and the other paths' beside it
 ``_q89.json``, ``_q17.json``,
 ``_q17_sort.json``, ``_q17_table.json``, ``_q17_unfused.json``, ``_q98.json``,
 ``_sort10m.json``,
-``_hash_sample.json``, and the mesh paths' ``_q01_mesh1.json``,
+``_hash_sample.json``, ``_cust_spend.json``, ``_cust_spend_noskip.json``,
+and the mesh paths' ``_q01_mesh1.json``,
 ``_q01_mesh2.json``, ``_q01_mesh8.json``, ``_q96_mesh.json``,
 ``_sort10m_mesh.json``).
 
@@ -3990,6 +4012,172 @@ def kernel_k18(dev, rng, results):
     torch.cuda.synchronize()
 
 
+# -- K19: the passthrough of a skipped partial aggregate ------------------------------
+
+# int64 values besides uniform draws: the ends, and values whose 10^2
+# rescale wraps
+PASS_INT_POOL = (-(1 << 63), (1 << 63) - 1, (1 << 62) + 12345, -(1 << 62) - 7, 0, -1, 1)
+PASS_FLOATS = (float("nan"), 0.0, -0.0, float("inf"), float("-inf"), 1.5, -2.25, 1e300,
+               -1e300, 7.0, 0.1)
+PASS_SUBNORMALS = (5e-324, -5e-324, 1e-310, 1e-40, -1e-45)
+# aggregate (kind, rescale, accumulator) and its column: a int64, b int32,
+# e a decimal(18) int64 from PASS_INT_POOL and uniform (its 10^2 rescale
+# wraps), x float64, y float32, d a decimal(18) plane (two-limb sums), w a
+# decimal(38) plane as limbs, * COUNT(*)
+PASS_SPECS = {
+    "ints": ((("sum", 0, "int64"), "a"), (("sum", 2, "int64"), "e"), (("count", 0, ""), "*"),
+             (("count", 0, ""), "b"), (("avg", 4, "int64"), "e"), (("min", 0, ""), "b"),
+             (("max", 0, ""), "b"), (("sum", 0, "int64"), "b"), (("min", 0, ""), "a"),
+             (("max", 0, ""), "a")),
+    "floats": ((("sum", 0, "float64"), "x"), (("min", 0, ""), "x"), (("max", 0, ""), "x"),
+               (("avg", 0, "float64"), "y"), (("sum", 0, "float64"), "y"),
+               (("min", 0, ""), "y"), (("max", 0, ""), "y"), (("avg", 0, "float64"), "a"),
+               (("count", 0, ""), "x")),
+    "wide": WIDE_SPECS,
+}
+# (label, key kinds, capacity, live rows, key null share, value null share,
+# specs, the wide values' kind as WIDE_CASES names them)
+PASS_CASES = (
+    ("one int64 key, integers", ("i64",), 256, 200, 0.1, 0.15, "ints", "mixed"),
+    ("int32 and int64 keys, floats", ("i32", "i64"), 4096, 4000, 0.1, 0.15, "floats",
+     "mixed"),
+    ("three keys, 38-digit limbs", ("i64", "i32", "i64"), 4096, 3000, 0.05, 0.1, "wide",
+     "extremes"),
+    ("int32 key, limbs of both signs", ("i32",), 256, 256, 0.0, 0.1, "wide", "mixed"),
+    ("float64 and int32 keys, floats", ("f64", "i32"), 256, 130, 0.1, 0.1, "floats",
+     "mixed"),
+    ("every value null", ("i64",), 256, 200, 0.0, 1.0, "ints", "mixed"),
+    ("one row, cancelling limbs", ("i32",), 256, 1, 0.0, 0.0, "wide", "cancel"),
+    ("three int32 keys, integers", ("i32", "i32", "i32"), 4096, 4096, 0.2, 0.05, "ints",
+     "mixed"),
+)
+CUST_SKS = 2_000_000   # TPC-DS SF100's customer rows: ss_customer_sk in 1..2,000,000
+
+
+def pass_case(case, rng, subnormals=True):
+    """One PASS_CASES entry on the host: key planes, their validity (not yet
+    masked with the live rows), the specs and per aggregate its (data,
+    valid), data a (l0, l1, l2) tuple for a wide argument; padding rows 0,
+    null rows keep their drawn values."""
+    import numpy as np
+
+    _label, kinds, cap, n, knulls, vnulls, specs, values = case
+    live = np.arange(cap) < n
+    floats = np.array(PASS_FLOATS + (PASS_SUBNORMALS if subnormals else ()))
+
+    def plane(kind):
+        if kind in ("f64", "f32"):
+            with np.errstate(over="ignore"):  # +-1e300 is +-inf in float32
+                d = floats[rng.integers(0, len(floats), cap)].astype(
+                    np.float64 if kind == "f64" else np.float32)
+        elif kind == "i32":
+            d = rng.integers(-10 ** 6, 10 ** 6, cap).astype(np.int32)
+        else:
+            pool = np.array(PASS_INT_POOL, np.int64)
+            d = np.where(rng.random(cap) < 0.3, pool[rng.integers(0, len(pool), cap)],
+                         rng.integers(-(1 << 40), 1 << 40, cap))
+        return np.where(live, d, 0).astype(d.dtype)
+
+    def valid(share):
+        return live & (rng.random(cap) >= share)
+
+    keys, kvalids = [], []
+    for k in kinds:
+        keys.append(plane(k) if k != "i64" else
+                    np.where(live, rng.integers(-50, 50, cap), 0).astype(np.int64))
+        kvalids.append(valid(knulls))
+    w = wide_plane(values, cap, n, rng, vnulls)
+    cols = {"a": (plane("i64"), valid(vnulls)), "b": (plane("i32"), valid(vnulls)),
+            "e": (plane("e"), valid(vnulls)), "x": (plane("f64"), valid(vnulls)),
+            "y": (plane("f32"), valid(vnulls)), "d": narrow_plane(values, cap, n, rng, vnulls),
+            "w": (w[:3], w[3]), "*": (np.zeros(cap, np.int64), live)}
+    spec = PASS_SPECS[specs]
+    return keys, kvalids, tuple(s for s, _ in spec), [cols[c] for _, c in spec]
+
+
+def cust_spend_batch(rng, cap=262144):
+    """One cust_spend store_sales batch as K19 takes it: ss_customer_sk
+    int32 uniform over SF100's customers, 1% null; SUM(ss_quantity *
+    ss_sales_price)'s decimal(18,2) argument (quantity 1..100 times a price
+    of 0.00..200.00), as a two-limb sum (sum2)."""
+    import numpy as np
+
+    key = rng.integers(1, CUST_SKS + 1, cap).astype(np.int32)
+    kvalid = rng.random(cap) >= 0.01
+    arg = rng.integers(1, 101, cap) * rng.integers(0, 20_001, cap)
+    return ([np.where(kvalid, key, 0).astype(np.int32)], [kvalid], (("sum2", 0, "int64"),),
+            [(arg.astype(np.int64), np.ones(cap, bool))])
+
+
+def pass_inputs(case_np, n, dev):
+    """K19's arguments for a host case on ``dev``: (keys, their validity
+    and the arguments' masked with the rows below ``n``, that row mask, n,
+    and the program ``_partial_program`` builds)."""
+    import torch
+    from blaze_tpu_torch.ops import agg_device as A
+
+    keys, kvalids, specs, args = wide_torch(case_np, dev)
+    exists = torch.arange(keys[0].shape[0], device=keys[0].device) < n
+    ops, emits = A._partial_program(specs, [(d, v & exists) for d, v in args])
+    return keys, [v & exists for v in kvalids], exists, n, ops, emits
+
+
+def k19_library_chain(kd, kv, ad, av):
+    """cust_spend's passthrough in library calls: the key zeroed where null,
+    the argument's two limbs where valid, the has flag (a chain: no single
+    PyTorch call computes it)."""
+    import torch
+
+    return (torch.where(kv, kd, 0), torch.where(av, ad & LO32, 0),
+            torch.where(av, ad >> 32, 0), av.clone())
+
+
+def kernel_k19(dev, rng, results):
+    """K19 against its plain version on every battery case and on
+    cust_spend's batch, bit for bit; timed there beside the plain version
+    and the library chain."""
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    cases = []
+    for case in PASS_CASES:
+        args = pass_inputs(pass_case(case, rng), case[3], dev)
+        check_equal("passthrough_states", case[0], K.passthrough_states_cuda(*args)[1:],
+                    K.passthrough_states_plain(*args)[1:])
+        cases.append(case[0])
+    cap = 262144
+    host = cust_spend_batch(rng, cap)
+    args = pass_inputs(host, cap, dev)
+    got = K.passthrough_states_cuda(*args)
+    check_equal("passthrough_states", "cust_spend batch", got[1:],
+                K.passthrough_states_plain(*args)[1:])
+    cases.append("cust_spend batch")
+    (kd,), (kv,), _specs, ((ad, av),) = wide_torch(host, dev)
+    chain = k19_library_chain(kd, kv, ad, av)
+    check_equal("passthrough_states", "cust_spend batch: the library chain",
+                (got[2], got[4], got[5], got[6]), chain)
+
+    def k19():
+        return K.passthrough_states_cuda(*args)
+
+    results.append(dict(
+        name="passthrough_states", route="cuda", source="blaze_tpu_torch/csrc/passthrough.cu",
+        replaces="blaze_tpu/ops/agg_device.py:1710",
+        shape="a cust_spend store_sales batch: 262,144 rows, an int32 ss_customer_sk "
+              "(1% null), SUM of a decimal(18,2) into decimal(28,2): the sum2 limbs and "
+              "has flag",
+        cases=cases, ms=time_ms(k19), device_ms=kernel_device_ms(k19, "blz_passthrough"),
+        plain_ms=time_ms(lambda: K.passthrough_states_plain(*args)),
+        library_ms=time_ms(lambda: k19_library_chain(kd, kv, ad, av)),
+        library_call="torch.where per key and limb plane, & and >> for the limbs, a copy "
+                     "of the has flag (a chain: no single PyTorch call computes the "
+                     "passthrough)",
+        # read once: the key (4 B) and its validity, the argument (8 B) and
+        # its validity; written once: the key, the two limbs, the has flag
+        bytes=cap * ((4 + 1 + 8 + 1) + (4 + 8 + 8 + 1))))
+    torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """While open, the kernel dispatchers that the mesh's demo steps call
@@ -6287,6 +6475,221 @@ def run_hash_sample(dev, profile=False, trace_path=None):
     return launches
 
 
+CS_SEED = 2323
+CS_ROWS = 28_800_991   # store_sales rows: a tenth of SF100's 288,009,942
+CS_REDUCERS = 16       # Spark's 200 shuffle partitions after AQE's 64 MB coalescing
+CS_TOP = 100
+CS_TABLE_ROWS, CS_TABLE_BATCH = 262_144, 65_536  # the host-table skip check's input
+
+
+def cust_spend_schema(T):
+    """store_sales' three q23 columns as Spark's TPC-DS schema types them."""
+    return T.Schema.of(("ss_customer_sk", T.I32), ("ss_quantity", T.I32),
+                       ("ss_sales_price", T.DecimalType(7, 2)))
+
+
+def cust_spend_host(rows=CS_ROWS, seed=CS_SEED, customers=CUST_SKS, null_share=0.01):
+    """store_sales for cust_spend on the host: ss_customer_sk uniform over
+    1..customers (SF100's 2,000,000), ``null_share`` null (data 0);
+    ss_quantity uniform [1, 100]; ss_sales_price decimal(7,2) unscaled
+    uniform [0, 20,000]. Returns (columns, validities)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cv = rng.random(rows) >= null_share
+    cust = np.where(cv, rng.integers(1, customers + 1, rows), 0).astype(np.int32)
+    qty = rng.integers(1, 101, rows).astype(np.int32)
+    price = rng.integers(0, 20_001, rows).astype(np.int64)
+    return (cust, qty, price), (cv, None, None)
+
+
+def cust_spend_plan(schema, E, N, T, parts=PARTS, reducers=CS_REDUCERS, top=CS_TOP):
+    """TPC-DS q23's best_ss_customer aggregate, in the IR modules ``E``,
+    ``N``, ``T`` of either package: SELECT ss_customer_sk,
+    SUM(ss_quantity * ss_sales_price) ssales FROM store_sales GROUP BY
+    ss_customer_sk (PARTIAL on the scan with partial skipping -> hash
+    exchange on the key -> FINAL), its HAVING as the top ``top`` by ssales
+    DESC (single exchange -> sort). The argument is Spark's: the int
+    quantity cast to decimal(10,0) times the decimal(7,2) price,
+    decimal(18,2); its SUM decimal(28,2), a two-limb (sum2) state."""
+    C = E.Column
+    arg = E.BinaryExpr(E.BinaryOp.MUL, E.Cast(C("ss_quantity"), T.DecimalType(10, 0)),
+                       C("ss_sales_price"))
+    agg = E.AggExpr(E.AggFunction.SUM, [arg], T.DecimalType(28, 2))
+    keys = [("ss_customer_sk", C("ss_customer_sk"))]
+    partial = N.Agg(N.FFIReader(schema, "store_sales", parts), E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(agg, E.AggMode.PARTIAL, "ssales")],
+                    supports_partial_skipping=True)
+    final = N.Agg(N.ShuffleExchange(partial, N.HashPartitioning([C("ss_customer_sk")],
+                                                                reducers)),
+                  E.AggExecMode.HASH_AGG, keys, [N.AggColumn(agg, E.AggMode.FINAL, "ssales")])
+    return N.Sort(N.ShuffleExchange(final, N.SinglePartitioning(1)),
+                  [E.SortOrder(C("ssales"), ascending=False, nulls_first=False)],
+                  fetch_limit=top)
+
+
+def cust_spend_oracle(host, top=CS_TOP):
+    """Exact per-customer sums of quantity * price in int64 cents
+    (``np.bincount``, every sum below 2^53), the null customer one group;
+    returns (a check of ``execute_to_pydict``'s result: the top ``top``
+    sums in order, each row's customer holding its sum, customers distinct
+    (rows tied on ssales in any order), the number of groups)."""
+    import decimal
+
+    import numpy as np
+
+    (cust, qty, price), (cv, _qv, _pv) = host
+    group = np.where(cv, cust, 0).astype(np.int64)
+    sums = np.bincount(group, weights=qty.astype(np.int64) * price)
+    present = np.bincount(group) > 0
+    if sums.max() >= 2 ** 53:
+        raise AssertionError("cust_spend oracle: a sum reached 2^53")
+    sums = sums.astype(np.int64)
+    keys = np.nonzero(present)[0]
+    order = np.argsort(-sums[keys], kind="stable")[:top]
+    want_sums = [decimal.Decimal(int(v)).scaleb(-2) for v in sums[keys[order]]]
+
+    def check(got):
+        if list(got["ssales"]) != want_sums:
+            raise AssertionError("cust_spend: the top sums differ from the oracle")
+        custs = [0 if c is None else c for c in got["ss_customer_sk"]]
+        if len(set(custs)) != len(custs) or any(
+                not present[c] or decimal.Decimal(int(sums[c])).scaleb(-2) != s
+                for c, s in zip(custs, got["ssales"])):
+            raise AssertionError("cust_spend: a customer does not hold its oracle sum")
+
+    return check, int(present.sum())
+
+
+def cust_table_plan(schema, E, N, T, parts=1):
+    """The host table's skip check (TPC-DS's customer keys through the table
+    route): PARTIAL COUNT(1), FIRST(ss_customer_sk) by ss_customer_sk with
+    partial skipping (FIRST takes the host table) -> single exchange ->
+    FINAL."""
+    C = E.Column
+    aggs = (("cnt", E.AggExpr(E.AggFunction.COUNT, [E.Literal(1, T.I32)])),
+            ("first_sk", E.AggExpr(E.AggFunction.FIRST, [C("ss_customer_sk")])))
+    keys = [("ss_customer_sk", C("ss_customer_sk"))]
+    partial = N.Agg(N.FFIReader(schema, "store_sales", parts), E.AggExecMode.HASH_AGG, keys,
+                    [N.AggColumn(a, E.AggMode.PARTIAL, n) for n, a in aggs],
+                    supports_partial_skipping=True)
+    return N.Agg(N.ShuffleExchange(partial, N.SinglePartitioning(1)), E.AggExecMode.HASH_AGG,
+                 keys, [N.AggColumn(a, E.AggMode.FINAL, n) for n, a in aggs])
+
+
+def cust_table_check(dev, host):
+    """The host table's skip (``AggTable.passthrough_batch``) on the card:
+    cust_spend's first 262,144 rows in batches of 65,536 through
+    ``cust_table_plan``; the first batch's ~64,500 slots of 65,536 rows
+    pass the 0.9 ratio, so the next three batches skip. Exact against
+    numpy counts (groups in the table's slot order: compared as a dict)."""
+    import blaze_tpu_torch
+    import numpy as np
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    (cust, qty, price), (cv, _qv, _pv) = host
+    n = CS_TABLE_ROWS
+    cols = (cust[:n], qty[:n], price[:n])
+    session = blaze_tpu_torch.Session()
+    batches = stage_batches(cust_spend_schema(T), cols, dev, bs=CS_TABLE_BATCH,
+                            valids=[cv[:n], None, None])
+    session.resources["store_sales"] = lambda p: batches
+    t0 = time.perf_counter()
+    got = session.execute_to_pydict(cust_table_plan(cust_spend_schema(T), E, N, T))
+    wall = time.perf_counter() - t0
+    group = np.where(cv[:n], cust[:n], 0).astype(np.int64)
+    counts = np.bincount(group)
+    want = {(int(k) or None): (int(counts[k]), int(k) or None) for k in np.nonzero(counts)[0]}
+    have = {k: (c, f) for k, c, f in zip(got["ss_customer_sk"], got["cnt"], got["first_sk"])}
+    skipped = session.counters["partial_skipped_batches"]
+    if have != want or len(have) != len(got["cnt"]):
+        raise AssertionError("cust_table: the host table's skipped partials differ from numpy")
+    if skipped != n // CS_TABLE_BATCH - 1:
+        raise AssertionError(f"cust_table: {skipped} batches skipped, not "
+                             f"{n // CS_TABLE_BATCH - 1}")
+    log(json.dumps({"phase": "host_table_skip", "rows": n, "batch_rows": CS_TABLE_BATCH,
+                    "groups": len(have), "partial_skipped_batches": skipped,
+                    "wall_s": wall, "exact": True}))
+
+
+def make_cust_spend_data(dev):
+    """cust_spend's store_sales (``cust_spend_host``) in PARTS partitions of
+    262,144-row batches staged on the card, with its oracle: (schema,
+    partitions, host columns, the oracle's check, the group count)."""
+    import torch
+    from blaze_tpu_torch.ir import types as T
+
+    schema = cust_spend_schema(T)
+    host = cust_spend_host()
+    check, groups = cust_spend_oracle(host)
+    (cust, qty, price), (cv, _qv, _pv) = host
+    cuts = [CS_ROWS * p // PARTS for p in range(PARTS + 1)]
+    parts = [stage_batches(schema, [c[a:b] for c in (cust, qty, price)], dev,
+                           valids=[cv[a:b], None, None]) for a, b in zip(cuts, cuts[1:])]
+    torch.cuda.synchronize()
+    return schema, parts, host, check, groups
+
+
+def run_cust_spend(dev, profile=False, trace_path=None):
+    """cust_spend (q23's per-customer aggregate with partial skipping) and
+    cust_spend_noskip (``partial_agg_skipping_enable=False``) over one draw
+    of 28,800,991 store_sales rows in 4 partitions of 262,144-row batches
+    staged on the card, each exact against ``cust_spend_oracle`` and equal
+    to the other. Each partition's first batch runs K3's radix pass (2^21
+    slots; its per-bucket estimate ~0.93), then the skipper flips and the
+    other batches run K19; without skipping every batch aggregates (K3,
+    then K10 once two range overflows widen the plan past
+    radix_agg_max_slots). Then the host table's skip check."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    t0 = time.perf_counter()
+    schema, parts, host, check, groups = make_cust_spend_data(dev)
+    setup_s = time.perf_counter() - t0
+    batches = sum(len(p) for p in parts)
+    plan = cust_spend_plan(schema, E, N, T)
+    out, results = {}, {}
+
+    def collect(session, plan):
+        got = session.execute_to_pydict(plan)
+        results.setdefault(session, got)
+        return got
+
+    for name, conf in (("cust_spend", Config()),
+                       ("cust_spend_noskip", Config(partial_agg_skipping_enable=False))):
+        session = blaze_tpu_torch.Session(conf)
+        session.resources["store_sales"] = lambda p: parts[p]
+        out[name] = run_query(name, CS_ROWS, session, plan, check, setup_s,
+                              {"groups": groups, "reducers": CS_REDUCERS}, profile,
+                              trace_path and trace_path.replace(".json", f"_{name}.json"),
+                              collect=collect)
+    skip, noskip = results.values()
+    if skip != noskip:
+        raise AssertionError("cust_spend and cust_spend_noskip differ")
+    # each partition's first batch through K3, the rest through K19
+    got = tuple(out["cust_spend"][k] for k in ("slot_agg_partial", "passthrough_states",
+                                               "partial_skipped_batches"))
+    if got != (PARTS, batches - PARTS, batches - PARTS):
+        raise AssertionError(f"cust_spend: K3 {got[0]}, K19 {got[1]} and {got[2]} skipped "
+                             f"batches, not {PARTS}, {batches - PARTS} and {batches - PARTS}")
+    # without skipping every batch aggregates: K3 while the radix plan
+    # holds, K10 once a range overflow widens it past radix_agg_max_slots
+    # (the reference's union rule); a batch whose K3 overflowed retries
+    ns = out["cust_spend_noskip"]
+    if ns["passthrough_states"] or ns["partial_skipped_batches"] or \
+            ns["seg_agg_partial"] + ns["slot_agg_partial"] < batches:
+        raise AssertionError(f"cust_spend_noskip: K3 {ns['slot_agg_partial']}, K10 "
+                             f"{ns['seg_agg_partial']}, K19 {ns['passthrough_states']} for "
+                             f"{batches} batches")
+    cust_table_check(dev, host)
+    return out
+
+
 def check_result(name, got, want):
     """``want`` is the oracle's result (equal, order included) or a
     function that raises when ``got`` is wrong."""
@@ -6316,22 +6719,34 @@ def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_pat
     check_result(f"{name} (first run)", warm, want)
     del warm
     torch.cuda.reset_peak_memory_stats()
+    before = {k: session.counters[k] for k in SKIP_COUNTERS}
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
     got = collect(session, plan)
     wall = time.perf_counter() - t0
     launches = {**cuda_lib.launch_counts(), **cuda_lib.limb_launch_counts()}
+    skip = {k: session.counters[k] - before[k] for k in SKIP_COUNTERS}
     check_result(name, got, want)
     del got
     peak = torch.cuda.max_memory_allocated()
     if profile:
         profile_query(name, session, plan, want, trace_path, collect)
     mesh = {"mesh_exchanges": session.mesh_exchanges} if session.mesh is not None else {}
+    rows_seen = skip["partial_skip_histogram_rows"]
     log(json.dumps({"phase": "slice", "query": name, "rows": rows, "partitions": PARTS,
                     **info, "setup_s": setup_s, "first_run_s": warm_s, "wall_s": wall,
                     "rows_per_s": rows / wall, "max_memory_allocated": peak,
-                    "launches": launches, **mesh, "exact": True}))
-    return launches
+                    "launches": launches, **mesh,
+                    "partial_skipped_batches": skip["partial_skipped_batches"],
+                    "skip_estimate_ratio": skip["partial_skip_estimate_rows"] / rows_seen
+                    if rows_seen else None, "exact": True}))
+    return {**launches, "partial_skipped_batches": skip["partial_skipped_batches"]}
+
+
+# the partial skipper's counters (Session.counters): batches skipped, and
+# the rows its histograms covered with the partial output they estimate
+SKIP_COUNTERS = ("partial_skipped_batches", "partial_skip_histogram_rows",
+                 "partial_skip_estimate_rows")
 
 
 def profile_query(name, session, plan, want, trace_path=None, collect=pydict_of):
@@ -6448,10 +6863,11 @@ def main(device: str = "cuda") -> int:
     kernel_k16(dev, rng, results)
     kernel_k17(dev, rng, results)
     kernel_k18(dev, rng, results)
+    kernel_k19(dev, rng, results)
     # 4. the paths: q01 (and on the mesh: q01_mesh1, q01_mesh2, q01_mesh8),
     # q67 (slot, sort and table routes), q06 and q47, q69 and q69_bloom, q96
     # (and q96_mesh), q89, q17 (slot, sort and table routes), q98, sort10M
-    # (and sort10M_mesh) and hash_sample
+    # (and sort10M_mesh), hash_sample, cust_spend and cust_spend_noskip
     args = sys.argv[1:]
     profile = "--profile" in args
     trace = [a.split("=", 1)[1] for a in args if a.startswith("--trace=")]
@@ -6472,6 +6888,7 @@ def main(device: str = "cuda") -> int:
                       if trace else None),
         "hash_sample": run_hash_sample(dev, profile, trace[0].replace(".json", "")
                                        + "_hash_sample.json" if trace else None),
+        **run_cust_spend(dev, profile, trace[0] if trace else None),
     }
     # the mesh's demo steps (rows 18b, 18c, 18e), after the paths: their
     # plain versions' cached index planes would count in the paths' peaks
@@ -6560,6 +6977,13 @@ def main(device: str = "cuda") -> int:
                              f"{subquery_k11} ({want_k11})")
     if per_path["q69_bloom"]["xxhash64"] <= store_batches:
         raise AssertionError("q69_bloom's subquery did not hash its customers with K15")
+    # K19: cust_spend only (run_cust_spend holds it to every batch after
+    # each partition's first); no other path skips a partial
+    skipping = [q for q, p in per_path.items()
+                if q != "cust_spend" and (p.get("partial_skipped_batches", 0) or
+                                          p["passthrough_states"])]
+    if skipping:
+        raise AssertionError(f"partial skipping engaged on {skipping}")
     # 5. summary lines
     for r in results:
         if r["name"] == "range_partition":

@@ -4,7 +4,9 @@ q89, q17, q98, sort10M and hash_sample paths, every hash-join type, an
 explicit-frame window, the scalar functions, the bloom runtime filter
 and a plan on the device mesh (1, 2 and 8 slots) on the card against the
 same plans and expressions on the CPU; K18, the fused aggregate input,
-on its battery. K9's to K18's cases come from chip_smoke.py.
+on its battery; K19, the passthrough of a skipped partial, on its
+battery and cust_spend at a small scale. K9's to K19's cases come from
+chip_smoke.py.
 
 Marked ``cuda``: each test skips here (no GPU) and runs on a machine with
 one, where jax is not installed:
@@ -19,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BLOOM_CASES, FUSED_CAPS, K18_CASES, MESH_CASES, PROBE_CASES, Q89_ROWS,
+from chip_smoke import (BLOOM_CASES, FUSED_CAPS, K18_CASES, MESH_CASES, PASS_CASES, PROBE_CASES,
+                        Q89_ROWS, cust_spend_batch, cust_spend_host, cust_spend_oracle,
+                        cust_spend_plan, cust_spend_schema, pass_case, pass_inputs,
                         Q96_ROWS, Q98_ROWS, k18_case, k18_flat, k18_torch,
                         RANGE_CASES, SCAN_CASES, SEG_CASES, SORT10M_COLUMNS, UPD_CASES, WIDE_CASES,
                         WIDE_UPD_CASES, XXH_CASES, bloom_case, bloom_np_probe, customer_probe,
@@ -156,11 +160,12 @@ def test_q01_on_the_card_equals_the_cpu(dev):
     assert out[None] == out["cpu"]
     # every kernel but the joins', the sort route's, K1, K11, the host
     # table's K12, the window aggregates' K13, the range exchange's K14,
-    # the xxhash64 function's K15, the bloom probe's K16 and the mesh's K17
-    # and stacked K11, which q01 does not reach (its filter fuses into the
-    # partial aggregate: K18 once a batch, no K1 and no fused stage; both
-    # aggregates take the slot route; it has no window, no range exchange,
-    # no xxhash64, no runtime filter and no mesh)
+    # the xxhash64 function's K15, the bloom probe's K16, the mesh's K17
+    # and stacked K11 and the skipped partial's K19, which q01 does not
+    # reach (its filter fuses into the partial aggregate: K18 once a batch,
+    # no K1 and no fused stage; both aggregates take the slot route; it has
+    # no window, no range exchange, no xxhash64, no runtime filter, no mesh
+    # and no partial skipping)
     counts = cuda_lib.launch_counts()
     assert counts["fused_agg_input"] == 3 and counts["compact_planes"] == 0
     assert all(v > 0 for k, v in counts.items()
@@ -168,7 +173,8 @@ def test_q01_on_the_card_equals_the_cpu(dev):
                             "seg_agg_partial", "seg_agg_merge", "fused_chain",
                             "slot_update", "segment_scan", "range_partition",
                             "xxhash64", "bloom_probe", "mesh_all_to_all",
-                            "fused_chain_stacked", "compact_planes"))
+                            "fused_chain_stacked", "compact_planes",
+                            "passthrough_states"))
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -1368,3 +1374,69 @@ def test_mesh_paths_on_the_card_equal_the_cpu(dev, slots):
     counts = cuda_lib.launch_counts()
     assert counts["mesh_all_to_all"] == 2
     assert counts["fused_chain_stacked"] == (0 if slots == 1 else 8 * (8 // slots))
+
+
+@pytest.mark.parametrize("case", PASS_CASES + (("cust_spend batch",),),
+                         ids=[c[0] for c in PASS_CASES] + ["cust_spend batch"])
+def test_passthrough_kernel(dev, case):
+    """K19 against its twin on the card, bit for bit, on chip_smoke.py's
+    battery (subnormals included) and cust_spend's 262,144-row batch."""
+    from blaze_tpu_torch.core import kernels as K
+
+    rng = np.random.default_rng(len(case[0]))
+    if len(case) == 1:
+        args = pass_inputs(cust_spend_batch(rng), 262144, dev)
+    else:
+        args = pass_inputs(pass_case(case, rng), case[3], dev)
+    _equal(K.passthrough_states_cuda(*args)[1:], K.passthrough_states_plain(*args)[1:])
+
+
+def test_passthrough_launches_or_raises_and_never_takes_the_twin(dev, monkeypatch):
+    """A CUDA batch launches K19 or raises: a state source that is not
+    int64 or float64 is refused, and the twin is never called."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.utils import cuda_lib
+
+    keys, kvalids, exists, n, ops, emits = pass_inputs(
+        pass_case(PASS_CASES[0], np.random.default_rng(1)), PASS_CASES[0][3], dev)
+    monkeypatch.setattr(K, "passthrough_states_plain", None)
+    cuda_lib.reset_launch_counts()
+    K.passthrough_states(keys, kvalids, exists, n, ops, emits)
+    assert cuda_lib.launch_counts()["passthrough_states"] == 1
+    ops[0].src = ops[0].src.to(torch.int32)
+    with pytest.raises(TypeError, match="passthrough_states"):
+        K.passthrough_states(keys, kvalids, exists, n, ops, emits)
+
+
+def test_cust_spend_on_the_card_equals_the_cpu(dev):
+    """chip_smoke.py's cust_spend at 4 x 8 batches of 8,192 rows over
+    60,000 customers (a batch ~0.14 of the domain) on the card and on the
+    CPU: equal, order included, and to the oracle; K3 on each partition's
+    first batch, K19 on every other, as many batches skipped."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    rows, bs = 4 * 8 * 8192, 8192
+    (cust, qty, price), (cv, _q, _p) = cust_spend_host(rows=rows, seed=5, customers=60_000)
+    check, _groups = cust_spend_oracle(((cust, qty, price), (cv, None, None)))
+    ones = np.ones(rows, bool)
+    cols = {"ss_customer_sk": (cust, cv), "ss_quantity": (qty, ones),
+            "ss_sales_price": (price, ones)}
+    parts = [[{c: (d[s:s + bs], v[s:s + bs]) for c, (d, v) in cols.items()}
+              for s in range(p * 8 * bs, (p + 1) * 8 * bs, bs)] for p in range(4)]
+    out = {}
+    for device in ("cpu", None):
+        s = blaze_tpu_torch.Session(Config(batch_size=bs, partial_agg_skipping_min_rows=5_000),
+                                    device=device)
+        s.resources["store_sales"] = lambda p: parts[p]
+        cuda_lib.reset_launch_counts()
+        out[device] = s.execute_to_pydict(cust_spend_plan(cust_spend_schema(T), E, N, T))
+        assert s.counters["partial_skipped_batches"] == 4 * 7
+    assert out[None] == out["cpu"]
+    check(out[None])
+    counts = cuda_lib.launch_counts()
+    assert counts["slot_agg_partial"] == 4 and counts["passthrough_states"] == 4 * 7

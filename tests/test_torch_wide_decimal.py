@@ -693,9 +693,11 @@ def test_filter_and_exchange_carry_the_wide_column(tmp_path):
 @pytest.mark.parametrize("what", ["group key", "sort key", "partition key", "join key",
                                   "arithmetic", "isnull", "window result"])
 def test_unported_wide_uses_raise(what):
-    """A wide group, sort, partition or join key raises naming Queue 1 item
-    6b (the reference keeps such keys on host columns); an expression over
-    a wide column, or a window result wider than 18 digits, item 18."""
+    """A wide group, partition or join key, or a sort key computed from a
+    wide column, raises naming Queue 1 item 6b (the reference keeps such
+    keys on host columns; a bare wide column sorts by its limbs); an
+    expression over a wide column, or a window result wider than 18
+    digits, item 18."""
     schema = JT.Schema.of(("k", JT.I64), ("v", JT.DecimalType(38, 2)))
     scan = JN.FFIReader(schema, "src", 1)
     one = JN.AggColumn(JE.AggExpr(F.COUNT, []), M.COMPLETE, "n")
@@ -703,7 +705,7 @@ def test_unported_wide_uses_raise(what):
     if what == "group key":
         plan = JN.Agg(scan, HASH, [("v", C("v"))], [one])
     elif what == "sort key":
-        plan = JN.Sort(scan, [JE.SortOrder(C("v"))])
+        plan = JN.Sort(scan, [JE.SortOrder(JE.BinaryExpr(JE.BinaryOp.ADD, C("v"), C("v")))])
     elif what == "partition key":
         plan = JN.ShuffleExchange(scan, JN.HashPartitioning([C("v")], 2))
     elif what == "join key":
