@@ -39,6 +39,7 @@ numpy, as they are in the JAX package.
 
 from __future__ import annotations
 
+import struct
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -1403,11 +1404,13 @@ def segment_reduce_plain(order, starts, count, num_rows: int, ops, emits):
 
 def segment_reduce_cuda(name, order, starts, count, num_rows: int, ops, emits,
                         kinds=()):
-    """K10's reduction on the card (csrc/seg_agg.cu: one thread per
-    segment folds its rows in sorted order); same outputs as
-    :func:`segment_reduce_plain`. ``count`` is the device scalar
-    ``segment_starts_cuda`` returned; ``kinds`` the program's limb
-    aggregate kinds, counted per launch (``cuda_lib.LIMB_LAUNCHES``)."""
+    """K10's reduction on the card (csrc/seg_agg.cu: a thread folds a
+    segment of up to 64 rows, a warp one of up to 256 or each piece of 256
+    rows or more of a longer one); same outputs as
+    :func:`segment_reduce_plain`. ``count`` is the
+    device scalar ``segment_starts_cuda`` returned; ``kinds`` the
+    program's limb aggregate kinds, counted per launch
+    (``cuda_lib.LIMB_LAUNCHES``)."""
     check_limb_program(name, ops, emits)
     srcs = [p for op in ops for p in (op.src, op.src0) if p is not None]
     valids = [v for op in ops for v in op.valids]
@@ -1430,6 +1433,9 @@ def segment_reduce_cuda(name, order, starts, count, num_rows: int, ops, emits,
             else torch.empty(cap, dtype=torch.float64 if ops[e.table].is_float
                              else torch.int64, device=dev) for e in emits]
     first = torch.empty(cap, dtype=torch.int64, device=dev)
+    lib = cuda_lib.library()
+    words = lib.blz_segment_reduce_scratch(cap, len(ops))
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
     keep = []
 
     def arr(pair):
@@ -1439,14 +1445,13 @@ def segment_reduce_cuda(name, order, starts, count, num_rows: int, ops, emits,
     def init_bits(op):
         if not op.is_float:
             return int(op.init)
-        return int(torch.tensor(float(op.init), dtype=torch.float64)
-                   .view(torch.int64).item())
+        return struct.unpack("<q", struct.pack("<d", float(op.init)))[0]
 
     op_valid = []
     for op in ops:
         op_valid += list(op.valids) + [None] * (3 - len(op.valids))
     LL = cuda_lib.ctypes.c_longlong
-    err = cuda_lib.library().blz_segment_reduce(
+    err = lib.blz_segment_reduce(
         starts.data_ptr(), order.data_ptr(), count.data_ptr(), cap,
         len(ops), arr(cuda_lib.int_array([op.kind for op in ops])),
         arr(cuda_lib.int_array([int(op.is_float) for op in ops])),
@@ -1460,7 +1465,8 @@ def segment_reduce_cuda(name, order, starts, count, num_rows: int, ops, emits,
         arr(cuda_lib.int_array([e.table for e in emits])),
         arr(cuda_lib.int_array([e.aux for e in emits])),
         arr(cuda_lib.int_array([e.aux2 for e in emits])),
-        arr(cuda_lib.ptr_array(outs)), first.data_ptr(), cuda_lib.stream_of(dev))
+        arr(cuda_lib.ptr_array(outs)), first.data_ptr(), scratch.data_ptr(), words,
+        cuda_lib.stream_of(dev))
     cuda_lib.check(err, name)
     cuda_lib.LAUNCHES[name] += 1
     cuda_lib.count_limb_launch(name, kinds)

@@ -276,20 +276,44 @@ def _run_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes, ops, emits,
     return tuple(results)
 
 
+def _out_size(dtype: torch.dtype) -> int:
+    """csrc/slot_agg.cu's code for an output plane's type: 0 for bool
+    (value != 0), else the integer's bytes."""
+    if dtype == torch.bool:
+        return 0
+    if dtype.is_floating_point or dtype.is_complex:
+        raise TypeError(f"slot program output of dtype {dtype}")
+    return dtype.itemsize
+
+
+def _planes(dev, n: int, dtypes) -> List[torch.Tensor]:
+    """Planes of n values of ``dtypes``, views of one buffer (each at an
+    8-byte offset)."""
+    nbytes = [-(-n * d.itemsize // 8) * 8 for d in dtypes]
+    buf = torch.empty(max(sum(nbytes), 1), dtype=torch.uint8, device=dev)
+    views, off = [], 0
+    for d, b in zip(dtypes, nbytes):
+        views.append(buf[off:off + n * d.itemsize].view(d))
+        off += b
+    return views
+
+
 def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
               emits, out_cap, nbuck, exists=None, kinds=(), host_head=False):
     """The slot program on the card (csrc/slot_agg.cu); same outputs as
-    :func:`_run_plain`. ``kinds``: the program's limb aggregate kinds,
-    counted per launch."""
+    :func:`_run_plain`, written by the kernel in their final types into
+    three buffers: the counts, the groups' keys, their validity planes and
+    states (a FINAL merge keeps the keys and drops the rest). ``kinds``:
+    the program's limb aggregate kinds, counted per launch."""
     dev = kvalids[0].device
     K.check_limb_program(name, ops, emits)
-    keys64 = [k.to(torch.int64).contiguous() for k in keys]
+    keys = [(k if k.dtype in _INT_DTYPES else k.to(torch.int64)).contiguous() for k in keys]
     srcs = [op.src.contiguous() if op.src is not None else None for op in ops]
     src0s = [op.src0.contiguous() if op.src0 is not None else None for op in ops]
     if exists is not None and (exists.dtype != torch.bool or
                                exists.shape != kvalids[0].shape):
         raise TypeError(f"{name}: exists plane {exists.dtype}{tuple(exists.shape)}")
-    cuda_lib.require_cuda(name, *keys64, *kvalids, *([exists] if exists is not None else []),
+    cuda_lib.require_cuda(name, *keys, *kvalids, *([exists] if exists is not None else []),
                           *[v for op in ops for v in op.valids],
                           *[s for s in srcs + src0s if s is not None])
     for v in list(kvalids) + [v for op in ops for v in op.valids]:
@@ -305,21 +329,17 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
     if nb > cuda_lib.THREADS:
         raise ValueError(f"{name}: {nb} radix buckets, at most {cuda_lib.THREADS}")
     lib = cuda_lib.library()
-    i64 = dict(dtype=torch.int64, device=dev)
-    tables = torch.empty((len(ops), S), **i64)
-    present = torch.empty(S, dtype=torch.uint8, device=dev)
-    offs = torch.empty(cuda_lib.blocks(S) + 1, **i64)
-    overflow = torch.empty(1, dtype=torch.int32, device=dev)
-    # [count or -1 on overflow, count], then the histogram's rows and
-    # groups planes: one buffer, so one copy brings all of it to the host
-    meta = torch.empty(2 + 2 * nb, **i64)
-    count = meta[:2]
-    key_out = [torch.empty(out_cap, **i64) for _ in keys]
-    kvalid_out = [torch.empty(out_cap, dtype=torch.bool, device=dev) for _ in keys]
-    emit_out = [torch.empty(out_cap, dtype=torch.bool, device=dev)
-                if e.kind == EMIT_NONZERO else torch.empty(out_cap, **i64)
-                for e in emits]
-    hist = meta[2:].view(2, nb) if nb else None
+    key_sizes = [_out_size(d) for d in key_dtypes]
+    emit_dtypes = [torch.bool if e.kind == EMIT_NONZERO else e.dtype for e in emits]
+    emit_sizes = [_out_size(d) for d in emit_dtypes]
+    # meta: [count or -1 on overflow, count], then the histogram's rows and
+    # groups planes (one copy brings all of it to the host)
+    meta = torch.empty(2 + 2 * nb, dtype=torch.int64, device=dev)
+    key_out = _planes(dev, out_cap, key_dtypes)
+    rest = _planes(dev, out_cap, [torch.bool] * (len(keys) + 1) + emit_dtypes)
+    kvalid_out, valid_out, emit_out = rest[:len(keys)], rest[len(keys)], rest[len(keys) + 1:]
+    words = lib.blz_slot_agg_scratch(S, len(ops), num_rows, nb)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev) if words else None
 
     P = cuda_lib.ptr_array
     Iv = cuda_lib.int_array
@@ -334,33 +354,28 @@ def _run_cuda(name, keys, kvalids, key_dtypes, num_rows, bases, sizes, ops,
     for op in ops:
         op_valid += list(op.valids) + [None] * (3 - len(op.valids))
     err = lib.blz_slot_agg(
-        len(keys), arg(P(keys64)), arg(P(kvalids)),
+        len(keys), arg(P(keys)), arg(P(kvalids)), arg(Iv([k.element_size() for k in keys])),
         arg(Iv(bases, LL)), arg(Iv(sizes, LL)), arg(Iv(strides, LL)),
         num_rows, exists.data_ptr() if exists is not None else None,
         len(ops), arg(Iv([op.kind for op in ops])),
         arg(P(srcs)), arg(P(src0s)), arg(Iv([len(op.valids) for op in ops])),
-        arg(P(op_valid)), arg(P([tables[i] for i in range(len(ops))])),
-        arg(Iv([op.mult for op in ops], LL)), arg(Iv([op.init for op in ops], LL)),
-        len(emits), arg(Iv([e.kind for e in emits])),
-        arg(P([tables[e.table] for e in emits])),
-        arg(P([tables[e.aux] if e.aux >= 0 else None for e in emits])),
-        arg(P([tables[e.aux2] if e.aux2 >= 0 else None for e in emits])),
-        arg(P(emit_out)),
-        S, present.data_ptr(), offs.data_ptr(), overflow.data_ptr(), out_cap,
-        arg(P(key_out)), arg(P(kvalid_out)), count.data_ptr(),
-        hist[0].data_ptr() if nb else None, hist[1].data_ptr() if nb else None,
-        shift, nb, cuda_lib.stream_of(dev))
+        arg(P(op_valid)), arg(Iv([op.mult for op in ops], LL)),
+        arg(Iv([op.init for op in ops], LL)),
+        len(emits), arg(Iv([e.kind for e in emits])), arg(Iv([e.table for e in emits])),
+        arg(Iv([e.aux for e in emits])), arg(Iv([e.aux2 for e in emits])),
+        arg(Iv(emit_sizes)), arg(P(emit_out)), S, out_cap,
+        arg(P(key_out)), arg(Iv(key_sizes)), arg(P(kvalid_out)), valid_out.data_ptr(),
+        meta.data_ptr(), shift, nb, scratch.data_ptr() if words else None, words,
+        cuda_lib.stream_of(dev))
     cuda_lib.check(err, name)
     cuda_lib.LAUNCHES[name] += 1
     cuda_lib.count_limb_launch(name, kinds)
-    out_valid = iota(out_cap, dev) < count[1]
-    results = [count[0], out_valid]
-    for kd, kv, kdt in zip(key_out, kvalid_out, key_dtypes):
-        results += [kd.to(kdt), kv]
-    for e, o in zip(emits, emit_out):
-        results.append(o if e.kind == EMIT_NONZERO else o.to(e.dtype))
+    results = [meta[0], valid_out]
+    for kd, kv in zip(key_out, kvalid_out):
+        results += [kd, kv]
+    results += emit_out
     if nb:
-        results += [hist[0], hist[1]]
+        results += [meta[2:2 + nb], meta[2 + nb:]]
         if host_head:
             head = meta.cpu().numpy()
             results[0] = int(head[0])

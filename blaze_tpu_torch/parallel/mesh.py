@@ -106,7 +106,7 @@ def _segment_sums(keys, live, srcs, name):
     zero past the runs. The JAX package gives every dead row key int64 max
     and folds them into one last run of zero sums, which is invalid (its
     key is int64 max); dropping them first gives the same planes, and
-    spares K10's thread for that run from folding every dead row."""
+    spares K5 and K10 the dead rows."""
     cap = int(keys.shape[0])
     count, planes, _v = K.compact_planes([keys] + [x for x in srcs if x is not None], [],
                                          live)

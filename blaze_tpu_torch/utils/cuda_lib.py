@@ -209,16 +209,20 @@ _SIGNATURES = {
     # k, datas, valids, wide, n, seed, nparts, hash_out, pid_out, stream
     "blz_murmur3_pmod": [_I, _PP, _PP, _PI, _I64, _U32, _I32, _P, _P, _P],
     "blz_slot_agg": [
-        _I, _PP, _PP, _PLL, _PLL, _PLL,      # k, keys, kvalids, bases, sizes, strides
+        _I, _PP, _PP, _PI, _PLL, _PLL, _PLL,  # k, keys, kvalids, key_size, bases, sizes,
+                                             # strides
         _I64, _P, _I, _PI,                   # num_rows, exists, nops, op_kind
-        _PP, _PP, _PI, _PP, _PP, _PLL, _PLL,  # op_src, op_src0, op_nvalid, op_valid,
-                                             # op_table, op_mult, op_init
-        _I, _PI, _PP, _PP, _PP, _PP,         # nemit, emit_kind, emit_table, emit_aux,
-                                             # emit_aux2, emit_out
-        _I64, _P, _P, _P, _I64,              # S, present, offs, overflow, out_cap
-        _PP, _PP, _P, _P, _P, _I, _I,        # key_out, kvalid_out, count_out, brows, bgroups, shift, nb
-        _P,                                  # stream
+        _PP, _PP, _PI, _PP, _PLL, _PLL,      # op_src, op_src0, op_nvalid, op_valid,
+                                             # op_mult, op_init
+        _I, _PI, _PI, _PI, _PI, _PI, _PP,    # nemit, emit_kind, emit_table, emit_aux,
+                                             # emit_aux2, emit_size, emit_out
+        _I64, _I64,                          # S, out_cap
+        _PP, _PI, _PP, _P, _P, _I, _I,       # key_out, out_ksize, kvalid_out, valid_out,
+                                             # meta, shift, nb
+        _P, _I64, _P,                        # scratch, scratch_words, stream
     ],
+    # S, nops, num_rows, nb -> int64 words
+    "blz_slot_agg_scratch": [_I64, _I, _I64, _I],
     # k, datas, valids, sizes, kinds, asc, nulls_first, exists, n,
     # rank_out, val_out, stream
     "blz_sort_key_operands": [_I, _PP, _PP, _PI, _PI, _PI, _PI, _P, _I64,
@@ -249,8 +253,10 @@ _SIGNATURES = {
                                              # valid
         _PLL, _PLL,                          # mult, init
         _I, _PI, _PI, _PI, _PI, _PP,         # nemit, kind, table, aux, aux2, out
-        _P, _P,                              # first, stream
+        _P, _P, _I64, _P,                    # first, scratch, scratch_words, stream
     ],
+    # cap, nops -> int64 words
+    "blz_segment_reduce_scratch": [_I64, _I],
     "blz_slot_update": [
         _P, _P, _I64, _I64, _P, _I,          # slots, mask, n, cap, perm, nops
         _PI, _PI, _PP, _PI, _PP, _PP,        # kind, is_float, src, nvalid, valid, table
@@ -286,17 +292,25 @@ _SIGNATURES = {
 }
 
 
+# the exports that return a size, not a cudaError_t
+_RESTYPES = {"blz_slot_agg_scratch": _I64, "blz_segment_reduce_scratch": _I64}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set every export's argument and result types on ``lib``."""
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(build())
-            for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            _LIB = lib
+            _LIB = bind(ctypes.CDLL(build()))
         return _LIB
 
 

@@ -4,10 +4,17 @@ comparisons on one NVIDIA GPU.
 
     python3 chip_ab.py [--tree DIR] [--label NAME] [--paths q67,q67_sort,q69]
                        [--runs N] [--no-fusion] [--no-fused-agg] [--profile]
+    python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k3_k4,k10,limbs
 
-Paths: q67, q67_sort, q69, q06, q17, q17_sort, q17_table, q89, q98,
+Paths: q01, q67, q67_sort, q69, q06, q17, q17_sort, q17_table, q89, q98,
 cust_spend and cust_spend_noskip (a checkout from before a path has no
 data to stage for it).
+
+``--kernels`` runs, in place of paths, the named kernel phases of that
+checkout's chip_smoke.py (``kernel_<name>``: each holds its kernels to
+their plain versions and times them) and prints one JSON line per timed
+kernel: its shape, CUDA-event ms, device ms, plain and library ms, bound
+and extra shapes, whichever the checkout's phase records.
 
 Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
 (default: this one) and, for each named path, stages its data once (as
@@ -18,7 +25,8 @@ launch counts of the last run. ``--no-fusion`` runs with
 ``Config(fusion_enabled=False)`` (only in a checkout that has the knob),
 ``--no-fused-agg`` with ``Config(fused_filter_agg=False)`` (the partial
 aggregates take their input unfused); ``--profile`` adds that checkout's ``chip_smoke.profile_query`` run of each
-path (torch.profiler busy share, then cProfile's top host functions).
+path (torch.profiler busy share, then cProfile's top host functions). The
+peak device memory is taken over the timed runs (staged data included).
 
 Clocks and the host's load drift between processes and between calls:
 compare two checkouts only within one call, alternating processes (A, B,
@@ -34,7 +42,7 @@ import time
 
 def _args(argv):
     opts = {"tree": os.path.dirname(os.path.abspath(__file__)), "label": "",
-            "paths": "q67_sort,q69", "runs": "5"}
+            "paths": "q67_sort,q69", "runs": "5", "kernels": ""}
     flags = set()
     for a in argv:
         if a.startswith("--") and "=" in a:
@@ -47,6 +55,16 @@ def _args(argv):
         else:
             raise SystemExit(f"chip_ab: unknown argument {a}")
     return opts, flags
+
+
+def _q01_setup(cs, dev, name, conf_kw):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+
+    schema, parts, host = cs.make_data(dev)
+    session = blaze_tpu_torch.Session(Config(**conf_kw))
+    session.resources["store_returns"] = lambda p: parts[p]
+    return session, cs.q01_plan(schema), cs.q01_oracle(host)
 
 
 def _q67_setup(cs, dev, name, conf_kw):
@@ -145,7 +163,26 @@ def _cust_setup(cs, dev, name, conf_kw):
     return session, cs.cust_spend_plan(schema, E, N, T), check
 
 
-SETUPS = {"q67": _q67_setup, "q67_sort": _q67_setup, "q69": _q69_setup, "q06": _q06_setup,
+def _kernels(cs, dev, opts) -> int:
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    for phase in opts["kernels"].split(","):
+        results = []
+        t0 = time.perf_counter()
+        getattr(cs, f"kernel_{phase}")(dev, rng, results)
+        for r in results:
+            line = {k: r.get(k) for k in ("name", "shape", "ms", "device_ms", "plain_ms",
+                                          "library_ms", "library_device_ms", "library_call",
+                                          "bytes", "shapes")}
+            line["bound_ms"] = r["bytes"] / cs.HBM_BYTES_PER_S * 1e3
+            print(json.dumps({"phase": "ab_kernel", "label": opts["label"], "tree":
+                              os.path.abspath(opts["tree"]), "kernels": phase,
+                              "seconds": time.perf_counter() - t0, **line}), flush=True)
+    return 0
+
+
+SETUPS = {"q01": _q01_setup, "q67": _q67_setup, "q67_sort": _q67_setup, "q69": _q69_setup, "q06": _q06_setup,
           "q17": _q17_setup, "q17_sort": _q17_setup, "q17_table": _q17_setup,
           "q89": _star_setup, "q98": _star_setup, "cust_spend": _cust_setup,
           "cust_spend_noskip": _cust_setup}
@@ -176,6 +213,8 @@ def main(argv) -> int:
         conf_kw["fusion_enabled"] = False
     if "no-fused-agg" in flags:
         conf_kw["fused_filter_agg"] = False
+    if opts["kernels"]:
+        return _kernels(cs, dev, opts)
     runs = int(opts["runs"])
     for name in opts["paths"].split(","):
         t0 = time.perf_counter()
@@ -185,6 +224,8 @@ def main(argv) -> int:
         cs.check_result(f"{name} (first run)", session.execute_to_pydict(plan), want)
         first_s = time.perf_counter() - t0
         walls = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(runs):
             torch.cuda.synchronize()
             cuda_lib.reset_launch_counts()
@@ -197,6 +238,7 @@ def main(argv) -> int:
                           "fused_agg": "no-fused-agg" not in flags,
                           "setup_s": setup_s, "first_run_s": first_s, "walls_s": walls,
                           "median_s": statistics.median(walls),
+                          "max_memory_allocated": torch.cuda.max_memory_allocated(),
                           "launches": cuda_lib.launch_counts()}), flush=True)
         if "profile" in flags:
             cs.profile_query(name, session, plan, want)

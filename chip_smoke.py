@@ -25,7 +25,11 @@ only when every phase passed:
    aggregate: one to five int/float keys, direct and sorted segmentation,
    nulls, padding, all-null keys, int64/int32/f64/f32 arguments with NaN,
    +-0.0, +-inf and subnormals, partial and merge, a q67 batch and a
-   q67_sort reducer's merge; for the fused chain, K11 (a Triton kernel
+   q67_sort reducer's merge, segments of 1, 31, 32, 33, 524, 2,048,
+   2,049, 4,096 and 262,144 rows (a thread, a warp, a warp a piece) with
+   every limb kind too, and a float sum whose value depends on the order
+   of its adds; for K3/K4 also both sides of the shared-memory switch
+   with the LEX pairs, one block and many; for the fused chain, K11 (a Triton kernel
    generated per chain) with K1 after it: every step kind (project,
    filter, rename, expand, and a coalesce between two segments through
    FusedStageExec), i32/i64/f32/f64/bool/decimal planes, every ported
@@ -112,7 +116,10 @@ only when every phase passed:
    bit ops per plane); then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
-   bound (bytes moved over 3.35 TB/s);
+   bound (bytes moved over 3.35 TB/s); K3, K4 and K10 also by device ms
+   (torch.profiler), and at q06's batch (10 groups) and one group (K3),
+   cust_spend_noskip's batch with and without its null keys and one
+   segment of 262,144 rows (K10);
 4. paths, each checked against a numpy oracle, with the launch counts
    set to 0 just before its measured run and read just after:
    - TPC-DS q01 (filter -> partial agg -> murmur3 hash exchange -> final
@@ -369,6 +376,35 @@ def check_equal(name, case, got, want):
     return err
 
 
+# the device time of a hand-written kernel's call: every kernel of the port's
+# CUDA sources (all named blz_*) and the memsets its wrapper issues, not the
+# torch ops around them
+OURS = ("blz_", "Memset")
+
+
+def shape_times(fn, plain, lib, nbytes, prefix=OURS):
+    """One more shape of a kernel: CUDA events and device ms of the call,
+    its plain version's events, a library chain's events and device ms
+    (None without one), and the bound of ``nbytes`` over the HBM rate."""
+    return dict(ms=time_ms(fn), device_ms=kernel_device_ms(fn, prefix),
+                plain_ms=time_ms(plain), library_ms=time_ms(lib) if lib else None,
+                library_device_ms=kernel_device_ms(lib, "") if lib else None,
+                bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def seg_reduce_bytes(n, groups, ops, emits):
+    """K10's reduction moves at least: the permutation and each distinct
+    source or validity plane read once over the n rows, the starts read
+    once, and per group each emit and the first row written once."""
+    planes = {}
+    for op in ops:
+        for t in [op.src, op.src0, *op.valids]:
+            if t is not None:
+                planes[t.data_ptr()] = t.element_size()
+    out = sum(1 if e.kind == 1 else 8 for e in emits) + 8
+    return n * (8 + sum(planes.values())) + (groups + 1) * 8 + groups * out
+
+
 # -- phase 3: kernels against their plain versions ----------------------------
 
 
@@ -573,6 +609,14 @@ def kernel_k3_k4(dev, rng, results):
         want = A.slot_agg_merge_plain(keys, kvalids, kd, 2 * g, bases, sizes, kinds, states, out_cap)
         check_equal("slot_agg_merge", f"rows={2 * g} k={k}", got, want)
         cases4.append(f"rows={2 * g},k={k},aggs={'+'.join(kinds)}")
+    # both sides of the shared-memory switch, with the LEX pairs: one block
+    # (2,000 rows) and many (262,144), then K4 over the outputs
+    from blaze_tpu_torch.utils import cuda_lib
+    for side in ("below", "above"):
+        for rows in (2000, 262144):
+            label = slot_switch_check(side, rows, rng, dev, check_equal, cuda_lib.library())
+            cases3.append(label)
+            cases4.append(label)
 
     # main path K3: one 262144-row q01 batch, store key (400 values ->
     # 512 dense slots), SUM(decimal) + COUNT
@@ -595,12 +639,16 @@ def kernel_k3_k4(dev, rng, results):
 
     lib_ms = time_ms(lib3)
     nbytes = cap * (8 + 1 + 8 + 1) + out_cap * (8 + 1 + 8 + 1 + 8 + 1)
+    k3 = lambda: A.slot_agg_partial(keys, kvalids, kd, cap, bases, sizes, specs, args,  # noqa: E731
+                                    out_cap)
     results.append(dict(
         name="slot_agg_partial", route="cuda", source="blaze_tpu_torch/csrc/slot_agg.cu",
         replaces="blaze_tpu/ops/agg_device.py:1255", shape=f"262144 rows -> {S} slots",
         cases=cases3, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         library_call="2x index_add_ into the slot tables (slot ids given)",
-        bytes=nbytes))
+        bytes=nbytes, device_ms=kernel_device_ms(k3, OURS),
+        library_device_ms=kernel_device_ms(lib3, ""),
+        shapes=k3_few_group_shapes(dev, rng, conf)))
 
     # main path K4: the final merge of 4 maps' partial states (~400 store
     # keys each): key, sum, has, count planes
@@ -638,7 +686,121 @@ def kernel_k3_k4(dev, rng, results):
         shape=f"{n4} state rows ({PARTS} maps) -> {S4} slots",
         cases=cases4, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         library_call="3x index_add_ into the slot tables (slot ids given)",
-        bytes=nbytes))
+        bytes=nbytes,
+        device_ms=kernel_device_ms(lambda: A.slot_agg_merge(keys4, kv4, kd, n4, bases4, sizes4,
+                                                            kinds, states, out4), OURS),
+        library_device_ms=kernel_device_ms(lib4, "")))
+
+
+def slot_switch_sizes(nops, lib):
+    """(the largest slot count whose tables the shared-memory design of K3
+    takes at 262,144 rows for ``nops`` ops, the next power of two), read
+    from the library's scratch rule (that design's scratch has no
+    compaction offsets)."""
+    S = 2
+    while lib.blz_slot_agg_scratch(2 * S, nops, 262144, 0) == nops * 2 * S + (2 * S + 7) // 8 + 1:
+        S *= 2
+    return S, 2 * S
+
+
+def slot_switch_check(side, rows, rng, dev, check, lib):
+    """K3 with the LEX pairs (minw, maxw) and every limb sum (WIDE_SPECS)
+    at the slot count just below or just above the shared-memory switch,
+    over ``rows`` rows (one block up to 65,536 row-ops, 3,120 rows of its
+    21 ops; many above), then K4 over its outputs twice, each against its
+    plain version through ``check(name, label, got, want)``."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ops import agg_device as A
+
+    conf = Config()
+    cap = 1 << (rows - 1).bit_length()
+    keys, kvalids, specs, args = wide_torch(wide_case(
+        ("switch", ("i64",), cap, rows, 0.02, 0.1, (0, 2), "mixed"), rng), dev)
+    below, above = slot_switch_sizes(len(A._partial_program(specs, args)[0]), lib)
+    S = below if side == "below" else above
+    key = rng.integers(0, S - 1, cap)
+    key[:2] = (0, S - 2)  # the plan spans S slots
+    keys[0] = torch.from_numpy(np.where(np.arange(cap) < rows, key, 0)).to(dev)
+    kvalids[0][:2] = True
+    kd = [torch.int64]
+    bases, sizes, out_cap = A.plan_slot_table(A.probe_ranges(keys, kvalids), cap, None,
+                                              conf.radix_agg_max_slots, conf)
+    if sizes != (S,):
+        raise AssertionError(f"slot plan {sizes}, not ({S},)")
+    label = f"S={S} ({side} the switch), {rows} rows"
+    want = A.slot_agg_partial_plain(keys, kvalids, kd, rows, bases, sizes, specs, args, out_cap)
+    check("slot_agg_partial:limbs", label,
+          A.slot_agg_partial(keys, kvalids, kd, rows, bases, sizes, specs, args, out_cap), want)
+    g = int(want[0])
+    kinds = tuple(sp[0] for sp in specs)
+    cap2 = conf.capacity_for(2 * g)
+    cat = doubled(want, g, cap2, dev)
+    live = torch.arange(cap2, device=dev) < 2 * g
+    mk, mv = [cat[0]], [cat[1] & live]
+    states = wide_states([None, None] + cat, 1, kinds, live, rng)
+    b2, s2, o2 = A.plan_slot_table(A.probe_ranges(mk, mv), cap2, None,
+                                   conf.radix_agg_max_slots, conf)
+    check("slot_agg_merge:limbs", label,
+          A.slot_agg_merge(mk, mv, kd, 2 * g, b2, s2, kinds, states, o2),
+          A.slot_agg_merge_plain(mk, mv, kd, 2 * g, b2, s2, kinds, states, o2))
+    return label
+
+
+def q06_slot_batch(rng, dev, groups, cap=262144):
+    """K3's input on q06's path: a probe batch of 262,144 sales rows, every
+    row live in K18's mask (each has its item), i_category_id over
+    ``groups`` values (q06: 10), SUM(ss_quantity) and SUM(ss_sales_price)
+    as int64 states."""
+    import numpy as np
+    import torch
+
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    ones = t(np.ones(cap, bool))
+    keys = [t(rng.integers(0, groups, cap))]
+    args = [(t(rng.integers(1, 100, cap)), ones), (t(rng.integers(0, 500_00, cap)), ones)]
+    return keys, [ones], [("sum", 0, "int64"), ("sum", 0, "int64")], args, ones
+
+
+def k3_few_group_shapes(dev, rng, conf):
+    """K3 where few slots take every row: q06's batch (10 category groups,
+    over K18's live mask) and one group; each held to its plain version and
+    timed beside its index_add_ chain."""
+    import torch
+    from blaze_tpu_torch.ops import agg_device as A
+
+    shapes = {}
+    for label, groups in (("q06 batch: 262144 rows -> 10 groups, K18's live mask", 10),
+                          ("262144 rows -> 1 group", 1)):
+        keys, kvalids, specs, args, live = q06_slot_batch(rng, dev, groups)
+        cap = keys[0].shape[0]
+        bases, sizes, out_cap = A.plan_slot_table(A.probe_ranges(keys, kvalids), cap, None,
+                                                  conf.dense_agg_max_buckets, conf)
+        kd = [torch.int64]
+
+        def k3():
+            return A.slot_agg_partial(keys, kvalids, kd, cap, bases, sizes, specs, args,
+                                      out_cap, exists=live)
+
+        check_equal("slot_agg_partial", label, k3(),
+                    A.slot_agg_partial_plain(keys, kvalids, kd, cap, bases, sizes, specs,
+                                             args, out_cap, exists=live))
+        seg = keys[0] - bases[0] + 1
+        tabs = torch.zeros((3, sizes[0]), dtype=torch.int64, device=dev)
+        ones = torch.ones(cap, dtype=torch.int64, device=dev)
+        srcs = [args[0][0], args[1][0], ones]
+
+        def lib():
+            for t, x in zip(tabs, srcs):
+                t.index_add_(0, seg, x)
+
+        shapes[label] = shape_times(
+            k3, lambda: A.slot_agg_partial_plain(keys, kvalids, kd, cap, bases, sizes, specs,
+                                                 args, out_cap, exists=live),
+            lib, cap * (8 + 1 + 1 + 2 * 9) + out_cap * (8 + 1 + 2 * 9))
+        shapes[label]["library_call"] = "3x index_add_ into the slot tables (slot ids given)"
+    return shapes
 
 
 # K5-K7 cases: the CPU parity tests' shapes (tests/test_torch_sort_window.py)
@@ -1319,6 +1481,21 @@ def kernel_k10(dev, rng, results):
                                 to_dev(list(outs[3:3 + 2 * len(kinds):2]), cpu), g, kinds_m,
                                 to_dev(states, cpu)), label)
         cases.append(label)
+    # the reduction at the segment lengths its design branches on, and a
+    # float sum whose value depends on the order of its adds (one thread,
+    # one warp, then one warp after four pieces)
+    for length in SEG_LENGTHS:
+        for prog in SEG_PROGRAMS:
+            cases.append(seg_length_check(length, prog, rng, dev, check_equal))
+    for length in (20, 100, 5000):
+        args, fold = seg_fold_order_case(length, dev)
+        got = K.segment_reduce_cuda("seg_agg_partial", *args)
+        check_equal("seg_agg_partial", f"fold order, {length} rows", got,
+                    K.segment_reduce_plain(*args))
+        if got[0][0][0].item() != fold:
+            raise AssertionError(f"float sum of {length} rows {got[0][0][0].item()}, "
+                                 f"not the left fold's {fold}")
+        cases.append(f"a float sum's left fold over {length} rows")
     # main path, partial: one q67 batch through the sort route
     keys, kvalids, specs, args = q67_batch(rng, dev)
     cap = n = keys[0].shape[0]
@@ -1364,7 +1541,12 @@ def kernel_k10(dev, rng, results):
         replaces="blaze_tpu/ops/agg_device.py:1749", shape=shape, cases=cases,
         ms=red_ms, plain_ms=red_plain, library_ms=lib_ms,
         library_call="2x index_add_ into the segment tables (segment ids given: a chain)",
-        bytes=red_bytes, route_ms=route_ms))
+        bytes=red_bytes, route_ms=route_ms,
+        device_ms=kernel_device_ms(lambda: K.segment_reduce_cuda(
+            "seg_agg_partial", order, starts, count, n, ops, emits), OURS),
+        library_device_ms=kernel_device_ms(lib_partial, ""),
+        shapes={"one segment of 262144 rows (q67's SUM)": seg_one_segment(
+            dev, rng, keys, kvalids, specs, args)}))
     # main path, merge: one q67_sort reducer's ~6.2M state rows
     keys, kvalids, kinds, states, n = q67_merge_input(rng, dev)
     cap = keys[0].shape[0]
@@ -1390,8 +1572,9 @@ def kernel_k10(dev, rng, results):
         t_sum.index_add_(0, seg_row, msum)
         t_cnt.index_add_(0, seg_row, mcnt)
 
-    ms = time_ms(lambda: K.segment_reduce_cuda("seg_agg_merge", order, starts, count, n,
-                                               ops, emits))
+    k10 = lambda: K.segment_reduce_cuda("seg_agg_merge", order, starts, count, n,  # noqa: E731
+                                        ops, emits)
+    ms = time_ms(k10)
     plain_ms = time_ms(lambda: K.segment_reduce_plain(order, starts, count, n, ops, emits))
     lib_ms = time_ms(lib_merge)
     ids_merge_ms = time_ms(lambda: K.segment_starts_cuda(keys, kvalids, order, n))
@@ -1403,7 +1586,135 @@ def kernel_k10(dev, rng, results):
         library_call="2x index_add_ into the segment tables (segment ids and the "
                      "gate given: a chain)",
         bytes=n * (8 + 8 + 1 + 1 + 1) + groups * 8 + groups * (8 + 1 + 8),
-        segment_ids_ms=ids_merge_ms))
+        segment_ids_ms=ids_merge_ms, device_ms=kernel_device_ms(k10, OURS),
+        library_device_ms=kernel_device_ms(lib_merge, "")))
+
+
+# K10's reduction at the segment lengths its design branches on: one row,
+# around a thread's 32, a warp's item (524: q17's batch), a piece's 2,048,
+# several pieces, and one segment of 262,144 rows
+SEG_LENGTHS = (1, 31, 32, 33, 524, 2048, 2049, 4096, 262144)
+SEG_PROGRAMS = ("mixed", "wide")
+
+
+def seg_length_case(length, prog, rng):
+    """K10's partial arguments (CPU tensors) whose sorted segments hold
+    ``length`` rows each, the last one fewer, the rows shuffled: max(3 *
+    length + 7, 2,000) rows, or one segment of ``length`` rows from 262,144
+    on; no null key, 10% null values. ``prog`` "mixed": SEG_SPECS
+    (int64/int32/float64/float32 arguments with NaN, +-0.0, +-inf and
+    subnormals), "wide": WIDE_SPECS (every limb kind). Returns (keys,
+    their validity, specs, args, rows)."""
+    import numpy as np
+    import torch
+
+    rows = length if length >= 262144 else max(3 * length + 7, 2000)
+    cap = 1 << (rows - 1).bit_length()
+    key = np.zeros(cap, np.int64)
+    key[:rows] = (np.arange(rows) // length)[rng.permutation(rows)]
+    if prog == "wide":
+        _k, _v, specs, args = wide_torch(wide_case(
+            ("lengths", ("i64",), cap, rows, 0.0, 0.1, (0, 1), "mixed"), rng),
+            torch.device("cpu"))
+    else:
+        _k, _v, specs, args = seg_case(("i64",), cap, rows, 0.1, (0, 1), rng)
+    return [torch.from_numpy(key)], [torch.arange(cap) < rows], specs, args, rows
+
+
+def seg_length_check(length, prog, rng, dev, check):
+    """K10's reduction over seg_length_case's rows against its plain
+    version, then a merge of the partial's groups keyed three to a merged
+    group, through ``check(name, label, got, want)``."""
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops import agg_device as A
+
+    keys, kvalids, specs, args, n = to_dev(seg_length_case(length, prog, rng), dev)
+    cap = keys[0].shape[0]
+    kinds = tuple(s[0] for s in specs)
+    limbs = A._limb_kinds(kinds)
+    tag = ":limbs" if limbs else ""
+    label = f"segments of {length} rows, {prog}"
+    exists = torch.arange(cap, device=dev) < n
+    order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+    ops, emits = A._partial_program(specs, args)
+    check("seg_agg_partial" + tag, label,
+          K.segment_reduce_cuda("seg_agg_partial", order, starts, count, n, ops, emits, limbs),
+          K.segment_reduce_plain(order, starts, count, n, ops, emits))
+    outs = A.seg_agg_partial(keys, kvalids, n, specs, args)
+    g = int(outs[0])
+    live = torch.arange(cap, device=dev) < g
+    states = (wide_states(outs, 1, kinds, live, rng) if limbs
+              else merge_states(outs, 1, kinds, g, rng))
+    mk, mv = [torch.where(live, outs[2] // 3, 0)], [outs[3] & live]
+    morder, mstarts, mcount = K.segment_ids(mk, mv, live, g)
+    mops, memits = A._merge_program(kinds, states)
+    check("seg_agg_merge" + tag, label,
+          K.segment_reduce_cuda("seg_agg_merge", morder, mstarts, mcount, g, mops, memits,
+                                limbs),
+          K.segment_reduce_plain(morder, mstarts, mcount, g, mops, memits))
+    return label
+
+
+def seg_fold_order_case(length, dev):
+    """One segment of ``length`` rows (a multiple of 4) whose float SUM
+    depends on the order of its adds: 1e16, 1.0, -1e16, 1.0, ... is 1.0 as
+    a left fold (each 1.0 added to 1e16 is lost) and length / 2 when the
+    large values cancel first. Returns the reduction's arguments (order,
+    starts, count, n, ops, emits) and the left fold's value."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops import agg_device as A
+
+    x = np.resize(np.array([1e16, 1.0, -1e16, 1.0]), length)
+    cap = 1 << max(5, (length - 1).bit_length())
+    d = np.zeros(cap)
+    d[:length] = x
+    live = torch.arange(cap, device=dev) < length
+    keys = [torch.zeros(cap, dtype=torch.int64, device=dev)]
+    order, starts, count = K.segment_ids(keys, [live], live, length)
+    ops, emits = A._partial_program([("sum", 0, "float64")],
+                                    [(torch.from_numpy(d).to(dev), live)])
+    fold = 0.0
+    for v in x:
+        fold += float(v)
+    return (order, starts, count, length, ops, emits), fold
+
+
+def seg_one_segment(dev, rng, keys, kvalids, specs, args):
+    """K10's partial over one segment: every key of a 262,144-row batch made
+    equal (so every row folds into one group), the batch's program held to
+    its plain version and timed beside an index_add_ chain into one slot."""
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops import agg_device as A
+
+    cap = n = keys[0].shape[0]
+    one = [torch.full_like(k, 5) for k in keys]
+    ones = [torch.ones_like(v) for v in kvalids]
+    exists = torch.ones(cap, dtype=torch.bool, device=dev)
+    order, starts, count = K.segment_ids(one, ones, exists, n)
+    if int(count) != 1:
+        raise AssertionError(f"one segment expected, {int(count)} found")
+    ops, emits = A._partial_program(specs, args)
+    kinds = A._limb_kinds(s[0] for s in specs)
+    k10 = lambda: K.segment_reduce_cuda("seg_agg_partial", order, starts, count, n,  # noqa: E731
+                                        ops, emits, kinds)
+    plain = lambda: K.segment_reduce_plain(order, starts, count, n, ops, emits)  # noqa: E731
+    check_equal("seg_agg_partial:limbs" if kinds else "seg_agg_partial", "one segment",
+                k10(), plain())
+    zero = torch.zeros(cap, dtype=torch.int64, device=dev)
+    srcs = [op.src if op.src is not None else zero for op in ops]
+    tabs = torch.zeros((len(srcs), 1), dtype=torch.int64, device=dev)
+
+    def lib():
+        for t, x in zip(tabs, srcs):
+            t.index_add_(0, zero, x)
+
+    out = shape_times(k10, plain, lib, seg_reduce_bytes(n, 1, ops, emits))
+    out["library_call"] = f"{len(srcs)}x index_add_ into one slot (a chain)"
+    return out
 
 
 # -- K11: the fused chain ------------------------------------------------------------
@@ -2623,6 +2934,57 @@ def q17_merge_input(rng, dev, rows):
     return keys, [lv, lv], ("count", "sum", "sum3"), states
 
 
+def seg_cust_shapes(dev, rng):
+    """K10's limb partial at cust_spend_noskip's sorted batches: 262,144
+    rows of an int32 customer key over SF100's 2,000,000 customers (~1.07
+    rows a group), a sum2 state; with the 1% null keys, which sort into one
+    segment of ~2,600 rows, and without them."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops import agg_device as A
+
+    shapes = {}
+    kd_np, kv_np, specs, args_np = cust_spend_batch(rng)
+    for label, nulls in (("cust_spend_noskip batch: 262144 rows, 1% null keys", True),
+                         ("cust_spend_noskip batch without null keys", False)):
+        kv = kv_np[0] if nulls else np.ones_like(kv_np[0])
+        kd = kd_np[0] if nulls else np.where(
+            kv_np[0], kd_np[0], rng.integers(1, CUST_SKS + 1, len(kv))).astype(np.int32)
+        keys = [torch.from_numpy(kd).to(dev)]
+        kvalids = [torch.from_numpy(kv).to(dev)]
+        args = [(torch.from_numpy(d).to(dev), torch.from_numpy(v).to(dev))
+                for d, v in args_np]
+        cap = n = keys[0].shape[0]
+        exists = torch.ones(cap, dtype=torch.bool, device=dev)
+        order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+        g = int(count)
+        ops, emits = A._partial_program(specs, args)
+        k10 = lambda: K.segment_reduce_cuda("seg_agg_partial", order, starts,  # noqa: E731
+                                            count, n, ops, emits, ("sum2",))
+        plain = lambda: K.segment_reduce_plain(order, starts, count, n, ops,  # noqa: E731
+                                               emits)
+        check_equal("seg_agg_partial:limbs", label, k10(), plain())
+        new = torch.zeros(n, dtype=torch.bool, device=dev)
+        new[starts[:g]] = True
+        seg_row = torch.empty(n, dtype=torch.int64, device=dev)
+        seg_row[order] = torch.cumsum(new.to(torch.int64), 0) - 1
+        src = args[0][0]
+        srcs = [src & LO32, src >> 32, torch.ones(cap, dtype=torch.int64, device=dev)]
+        tabs = torch.zeros((3, cap), dtype=torch.int64, device=dev)
+
+        def lib():
+            for t, x in zip(tabs, srcs):
+                t.index_add_(0, seg_row, x)
+
+        lens = (starts[1:g + 1] - starts[:g])
+        shapes[label] = dict(shape_times(k10, plain, lib, seg_reduce_bytes(n, g, ops, emits)),
+                             segments=g, longest_segment=int(lens.max()),
+                             library_call="3x index_add_ into the segment tables (segment "
+                                          "ids and the limb split given: a chain)")
+    return shapes
+
+
 def time_limbs(dev, rng, results, cases, upd_cases):
     """The limb halves timed at q17's shapes beside their plain versions,
     a chain of PyTorch library calls computing the same sums (slot or
@@ -2676,7 +3038,10 @@ def time_limbs(dev, rng, results, cases, upd_cases):
         library_call="5x index_add_ into the slot tables (slot ids given; a chain)",
         bytes=n * row_bytes + groups * group_bytes,
         six_kinds_ms=time_ms(lambda: A.slot_agg_partial(sk, sv, kd, cap, sb, ss, sspecs,
-                                                         sargs, so))))
+                                                         sargs, so)),
+        device_ms=kernel_device_ms(lambda: A.slot_agg_partial(
+            keys, kvalids, kd, n, bases, sizes, specs, args, out_cap), OURS),
+        library_device_ms=kernel_device_ms(lambda: chain(tabs, slot, planes), "")))
     # K10 over the same batch (its reduction: the permutation read too)
     exists = torch.ones(cap, dtype=torch.bool, device=dev)
     order, starts, count = K.segment_ids(keys, kvalids, exists, n)
@@ -2703,7 +3068,13 @@ def time_limbs(dev, rng, results, cases, upd_cases):
         library_ms=time_ms(lambda: chain(stabs, seg_row, planes)),
         library_call="5x index_add_ into the segment tables (segment ids given; a chain)",
         bytes=n * (row_bytes - 18 + 8) + (g10 + 1) * 8 + g10 * (group_bytes - 18 + 8),
-        route_ms=time_ms(lambda: A.seg_agg_partial(keys, kvalids, n, specs, args))))
+        route_ms=time_ms(lambda: A.seg_agg_partial(keys, kvalids, n, specs, args)),
+        device_ms=kernel_device_ms(lambda: K.segment_reduce_cuda(
+            "seg_agg_partial", order, starts, count, n, ops, emits, ("sum3",)), OURS),
+        library_device_ms=kernel_device_ms(lambda: chain(stabs, seg_row, planes), ""),
+        shapes={**seg_cust_shapes(dev, rng),
+                "one segment of 262144 rows (q17's program)": seg_one_segment(
+                    dev, rng, keys, kvalids, specs, args)}))
     # a state row's keys, count, qty sum + has, three limbs + has (each with
     # its validity byte) read once; a group written once
     mrow_bytes = 2 * 9 + 9 + 9 + 2 + 27 + 2
@@ -2730,7 +3101,10 @@ def time_limbs(dev, rng, results, cases, upd_cases):
                                                         states, mo)),
         library_ms=time_ms(lambda: chain(mtabs, mslot, msrc)),
         library_call="5x index_add_ into the slot tables (slot ids given; a chain)",
-        bytes=rows * mrow_bytes + groups * group_bytes))
+        bytes=rows * mrow_bytes + groups * group_bytes,
+        device_ms=kernel_device_ms(lambda: A.slot_agg_merge(mk, mv, kd, rows, mb, ms_, kinds,
+                                                            states, mo), OURS),
+        library_device_ms=kernel_device_ms(lambda: chain(mtabs, mslot, msrc), "")))
     # K10 and K12: the reducer's FINAL merge of every partial batch's states
     # (q17_sort's and q17_table's; neither consolidates)
     fk, fv, kinds, fstates = q17_merge_input(rng, dev, Q17_FINAL_ROWS)
@@ -2762,7 +3136,10 @@ def time_limbs(dev, rng, results, cases, upd_cases):
                                                         femits)),
         library_ms=time_ms(lambda: chain(fstabs, fseg, fsrc)),
         library_call="5x index_add_ into the segment tables (segment ids given; a chain)",
-        bytes=frows * (mrow_bytes - 18 + 8) + groups * (8 + group_bytes - 18 + 8)))
+        bytes=frows * (mrow_bytes - 18 + 8) + groups * (8 + group_bytes - 18 + 8),
+        device_ms=kernel_device_ms(lambda: K.segment_reduce_cuda(
+            "seg_agg_merge", forder, fstarts, fcount, frows, fops, femits, ("sum3",)), OURS),
+        library_device_ms=kernel_device_ms(lambda: chain(fstabs, fseg, fsrc), "")))
     # K12: q17_table's FINAL merge of the same state rows into its 1,024-slot
     # table (the wide SUM's share of the launch: three limb adds, the
     # renormalisation, the has flag), and beside it the lexicographic fold
@@ -2911,6 +3288,7 @@ def range_run(case, fn, dev, bound_ops=None):
 
 def kernel_device_ms(fn, prefix, iters=ITERS):
     """The device time of one call's kernels whose names hold ``prefix``
+    (or any of a tuple of them; "" takes every kernel, copy and memset)
     (torch.profiler over ``iters`` calls after a warm-up): the
     kernel alone, without the host's time between launches that CUDA
     events over back-to-back calls also count; None when the profiler
@@ -2919,14 +3297,25 @@ def kernel_device_ms(fn, prefix, iters=ITERS):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    prefixes = (prefix,) if isinstance(prefix, str) else tuple(prefix)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and prefix in e.key)
+    total = 0
+    # the profiler can lose a kernel's records: a window whose every
+    # kernel's count is not a multiple of the calls is taken again (three
+    # windows at most; a lost record only lowers a window's sum)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ours = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and any(p in e.key for p in prefixes)]
+        window = sum(e.self_device_time_total for e in ours)
+        total = max(total, window)
+        if ours and all(e.count % iters == 0 for e in ours):
+            total = window
+            break
     # no kernel time recorded (torch.profiler sometimes keeps none of a
     # session's kernels): not measured, rather than 0
     return total / 1e3 / iters if total > 0 else None
@@ -7019,7 +7408,8 @@ def main(device: str = "cuda") -> int:
                                              "six_kinds_ms", "fold_replaces", "fold_shape",
                                              "bounds_199", "one_key", "device_ms",
                                              "path_batches", "eight_single_ms",
-                                             "k11_eight_single_ms")
+                                             "k11_eight_single_ms", "library_device_ms",
+                                             "shapes")
                            if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"phase": "limb_ops", "paths": {

@@ -25,7 +25,8 @@ from chip_smoke import (BLOOM_CASES, FUSED_CAPS, K18_CASES, MESH_CASES, PASS_CAS
                         Q89_ROWS, cust_spend_batch, cust_spend_host, cust_spend_oracle,
                         cust_spend_plan, cust_spend_schema, pass_case, pass_inputs,
                         Q96_ROWS, Q98_ROWS, k18_case, k18_flat, k18_torch,
-                        RANGE_CASES, SCAN_CASES, SEG_CASES, SORT10M_COLUMNS, UPD_CASES, WIDE_CASES,
+                        RANGE_CASES, SCAN_CASES, SEG_CASES, SEG_LENGTHS, SEG_PROGRAMS,
+                        SORT10M_COLUMNS, UPD_CASES, WIDE_CASES,
                         WIDE_UPD_CASES, XXH_CASES, bloom_case, bloom_np_probe, customer_probe,
                         doubled, fused_cases,
                         fused_flat, hash_sample_host, hash_sample_oracle, hash_sample_plan,
@@ -34,7 +35,8 @@ from chip_smoke import (BLOOM_CASES, FUSED_CAPS, K18_CASES, MESH_CASES, PASS_CAS
                         q67_batch, q67_merge_input, q67_table_merge_batch, q89_host,
                         q89_oracle, q89_plan, q89_schemas, q96_host, q96_oracle, q96_plan,
                         q96_schemas, q98_host, q98_oracle, q98_plan, q98_schemas, range_case,
-                        range_run, scan_case, scan_run, seg_case, sort10m_collect,
+                        range_run, scan_case, scan_run, seg_case, seg_fold_order_case,
+                        seg_length_check, slot_case, slot_switch_check, sort10m_collect,
                         sort10m_host, sort10m_oracle, sort10m_plan, sort10m_schema, to_dev,
                         upd_case, upd_fns, upd_run, wide_case, wide_states, wide_torch,
                         wide_upd_case, wide_upd_fns, wide_upd_run)
@@ -512,6 +514,124 @@ def test_seg_agg_never_runs_its_twin_on_the_card(dev, monkeypatch):
     counts = cuda_lib.launch_counts()
     assert counts["segment_ids"] == 2 and counts["seg_agg_partial"] == 1
     assert counts["seg_agg_merge"] == 1 and counts["slot_agg_partial"] == 0
+
+
+# -- K10's reduction and K3/K4 where their designs branch -------------------------
+
+
+@pytest.mark.parametrize("prog", SEG_PROGRAMS)
+@pytest.mark.parametrize("length", SEG_LENGTHS)
+def test_seg_reduce_at_every_segment_length(dev, length, prog):
+    """K10's reduction, partial then a merge, against its plain version bit
+    for bit with segments of 1, 31, 32, 33, 524, 2,048, 2,049 and 4,096
+    rows and one of 262,144 (a thread, a warp, a warp a piece): int64,
+    int32, float64 and float32 arguments with NaN, +-0.0, +-inf and
+    subnormals, 10% nulls, or every limb kind."""
+    seg_length_check(length, prog, np.random.default_rng(length), dev,
+                     lambda _name, _label, got, want: _equal(got, want))
+
+
+@pytest.mark.parametrize("length", [20, 100, 5000])
+def test_seg_reduce_float_sum_is_the_left_fold(dev, length):
+    """A float SUM whose value depends on the order of its adds (1.0 as a
+    sequential fold, another value pairwise or lane by lane) equals the
+    left fold in sorted order: folded by one thread, by one warp, and by
+    one warp after three pieces were folded apart."""
+    from blaze_tpu_torch.core import kernels as K
+
+    args, fold = seg_fold_order_case(length, dev)
+    got = K.segment_reduce_cuda("seg_agg_partial", *args)
+    _equal(got, K.segment_reduce_plain(*args))
+    assert got[0][0][0].item() == fold == 1.0
+
+
+@pytest.mark.parametrize("cap,n,length", [(4096, 4096, 33), (262144, 262144, 262144),
+                                          (256, 1, 1)])
+def test_seg_reduce_every_value_null_and_one_row(dev, cap, n, length):
+    """Every argument null (segments of 33 rows, and one of 262,144), and a
+    batch of one row, against the plain version."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops import agg_device as A
+
+    rng = np.random.default_rng(cap + n)
+    keys, kvalids, specs, args = seg_case(("i64",), cap, n, 1.0 if n > 1 else 0.0, (0, 1), rng)
+    keys = [(torch.arange(cap) // length).to(dev)]
+    kvalids = [(torch.arange(cap) < n).to(dev)]
+    args = to_dev(args, dev)
+    exists = torch.arange(cap, device=dev) < n
+    order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+    ops, emits = A._partial_program(specs, args)
+    _equal(K.segment_reduce_cuda("seg_agg_partial", order, starts, count, n, ops, emits),
+           K.segment_reduce_plain(order, starts, count, n, ops, emits))
+
+
+@pytest.mark.parametrize("nbuck", [0, 256])
+@pytest.mark.parametrize("live", [False, True])
+@pytest.mark.parametrize("groups", [1, 10, 400])
+def test_slot_agg_few_groups(dev, groups, live, nbuck):
+    """K3 over 262,144 rows into 1, 10 (q06) and 400 (q01) groups, with and
+    without a live mask and the radix histogram, against its plain
+    version."""
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ops import agg_device as A
+
+    conf = Config()
+    rng = np.random.default_rng(groups)
+    cap = 262144
+    keys, kvalids, specs, args = slot_case(rng, dev, cap, cap, 0, groups, 1, 0.02, True)
+    exists = torch.from_numpy(rng.random(cap) < 0.7).to(dev) if live else None
+    bases, sizes, out_cap = A.plan_slot_table(A.probe_ranges(keys, kvalids), cap, None,
+                                              conf.radix_agg_max_slots, conf)
+    call = (keys, kvalids, [torch.int64], cap, bases, sizes, specs, args, out_cap, nbuck)
+    _equal(A.slot_agg_partial(*call, exists=exists), A.slot_agg_partial_plain(*call, exists))
+
+
+@pytest.mark.parametrize("rows", [2000, 262144])
+@pytest.mark.parametrize("side", ["below", "above"])
+def test_slot_agg_at_the_shared_memory_switch(dev, side, rows):
+    """K3, then K4 over its outputs, with every limb kind (the LEX pairs
+    included) at the largest slot count of the shared-memory design and
+    at twice it, over one block's rows and many blocks'."""
+    from blaze_tpu_torch.utils import cuda_lib
+
+    slot_switch_check(side, rows, np.random.default_rng(rows), dev,
+                      lambda _name, _label, got, want: _equal(got, want), cuda_lib.library())
+
+
+def test_slot_agg_merge_at_q01s_shape_is_one_launch(dev):
+    """K4 at q01's final merge (4 maps x 399 store states) equals its plain
+    version and runs as one kernel launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ops import agg_device as A
+
+    conf = Config()
+    rng = np.random.default_rng(1)
+    cap = 262144
+    keys, kvalids, specs, args = slot_case(rng, dev, cap, cap, 1, 400, 1, 0.0, False)
+    bases, sizes, out_cap = A.plan_slot_table(A.probe_ranges(keys, kvalids), cap, None,
+                                              conf.dense_agg_max_buckets, conf)
+    part = A.slot_agg_partial_plain(keys, kvalids, [torch.int64], cap, bases, sizes, specs,
+                                    args, out_cap)
+    g = int(part[0])
+    n4 = 4 * g
+    cap4 = conf.capacity_for(n4)
+    cat = [torch.nn.functional.pad(torch.cat([x[:g]] * 4), (0, cap4 - n4)) for x in part[2:]]
+    live = torch.arange(cap4, device=dev) < n4
+    states = [[(cat[2], cat[3] & live), (cat[3], live)], [(cat[4], live)]]
+    b4, s4, o4 = A.plan_slot_table(A.probe_ranges([cat[0]], [cat[1] & live]), cap4, None,
+                                   conf.radix_agg_max_slots, conf)
+    call = ([cat[0]], [cat[1] & live], [torch.int64], n4, b4, s4, ("sum", "count"), states, o4)
+    _equal(A.slot_agg_merge(*call), A.slot_agg_merge_plain(*call))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        A.slot_agg_merge(*call)
+        torch.cuda.synchronize()
+    ours = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key.startswith("blz_")]
+    assert sum(e.count for e in ours) == 1, [(e.key, e.count) for e in ours]
 
 
 def _q67_plan(schema):

@@ -237,6 +237,39 @@ def test_slot_agg_partial_matches_jax(case):
         _assert_same(j, t)
 
 
+@pytest.mark.parametrize("case", [
+    # cap, n, lo, hi, specs: the card's slot designs (csrc/slot_agg.cu)
+    (16384, 16384, 0, 1, "all"),     # every row in one group
+    (16384, 16000, 0, 10, "all"),    # q06's ten categories
+    (4096, 4000, 0, 2047, "q01"),    # 2,048 slots: q01's three ops in shared memory
+    (8192, 8000, 0, 4095, "q01"),    # 4,096 slots: past the shared-memory budget
+    (1024, 1000, 0, 511, "all"),     # 512 slots: the 13 ops in shared memory
+    (2048, 2000, 0, 1023, "all"),    # 1,024 slots: past it
+])
+def test_slot_agg_partial_matches_jax_where_the_card_branches(case):
+    """A few groups over many rows, and slot tables on both sides of the
+    card's shared-memory switch (96 KB of tables), through
+    ``_dense_partial_kernel`` and K3's plain version."""
+    from blaze_tpu_torch.config import Config
+
+    cap, n, lo, hi, spec_name = case
+    conf = Config()
+    rng = np.random.default_rng(cap + hi)
+    keys, kvalids, exists, amt, small = _slot_inputs(rng, cap, n, 1, lo, hi, 0.02)
+    if hi > lo + 1:
+        keys[0][:2], kvalids[0][:2] = (lo, hi - 1), True  # the plan spans the range
+    specs = _SPECS[spec_name]
+    args = _args_for(spec_name, amt, small, exists, cap)
+    probe = A.probe_ranges([_t(d) for d in keys], [_t(v & exists) for v in kvalids])
+    bases, sizes, out_cap = A.plan_slot_table(probe, cap, None, conf.radix_agg_max_slots,
+                                              conf)
+    jouts, touts = _run_both_partial(keys, kvalids, exists, n, specs, args, bases, sizes,
+                                     out_cap, conf.radix_agg_buckets)
+    assert int(jouts[0]) == int(touts[0]) > 0
+    for j, t in zip(jouts[1:], touts[1:]):
+        _assert_same(j, t)
+
+
 def test_slot_agg_partial_overflow_at_base_minus_one():
     """radix_pack's overflow rule: a key at base - 1 (which would alias the
     null slot) and an int64-wrapping far key both flag the plan (count -1);

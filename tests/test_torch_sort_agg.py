@@ -241,6 +241,64 @@ def test_merge_kernel_matches_jax(keys, specs, key_range):
     _same_outputs(jouts, touts)
 
 
+# -- the shapes where the card's reduction branches (csrc/seg_agg.cu: a thread
+# folds a segment of up to 32 rows, a warp a longer one, a warp each 2,048-row
+# piece of a longer one still) ---------------------------------------------------
+
+
+def _branch_keys(shape, cap, n, rng):
+    """(data, validity) of an int64 key whose sorted segments take one of
+    the card's branches: "long" one segment of every live row, "edgeL"
+    segments of L rows (shuffled), "unique" keys over SF100's 2,000,000
+    customers (about one row a segment)."""
+    live = np.arange(cap) < n
+    d = np.zeros(cap, np.int64)
+    if shape.startswith("edge"):
+        d[:n] = (np.arange(n) // int(shape[4:]))[rng.permutation(n)]
+    elif shape == "unique":
+        d[:n] = rng.integers(1, 2_000_001, n)
+    return d, live
+
+
+@pytest.mark.parametrize("specs", ["ints", "floats"])
+@pytest.mark.parametrize("shape", ["long", "edge31", "edge32", "edge33", "unique"])
+def test_partial_kernel_matches_jax_where_the_card_branches(shape, specs):
+    """One segment of 4,000 rows, segments at the 32-row edge and a
+    near-unique batch, through ``_partial_kernel`` and the port's twin."""
+    cap, n = 4096, 4000
+    exists, _kcols, specs_t, args = _partial_case(["i64"], cap, n, specs, 0.1, 17)
+    kcols = [_branch_keys(shape, cap, n, np.random.default_rng(len(shape)))]
+    _same_outputs(_jax_partial(exists, kcols, specs_t, args),
+                  _port_partial(exists, kcols, specs_t, args, n))
+
+
+@pytest.mark.parametrize("shape", ["long", "edge32", "edge33", "unique"])
+def test_merge_kernel_matches_jax_where_the_card_branches(shape):
+    """A near-unique batch's partial states re-keyed into one long segment,
+    segments at the 32-row edge, or near-unique keys again, merged by
+    ``_merge_kernel`` and by the port's twin."""
+    rng = np.random.default_rng(len(shape) + 5)
+    cap, n = 4096, 4000
+    exists, _kcols, specs_t, args = _partial_case(["i64"], cap, n, "floats", 0.1, 23)
+    kcols = [_branch_keys("unique", cap, n, rng)]
+    touts = _port_partial(exists, kcols, specs_t, args, n)
+    g = int(touts[0])
+    live = np.arange(cap) < g
+    kd, _ = _branch_keys(shape, cap, g, rng)
+    kinds = tuple(s[0] for s in specs_t)
+    states = _states_of(kinds, [None, None] + [o.numpy() for o in touts[2:]], 1, live, rng)
+    jk = JA._merge_kernel(("int64",), kinds,
+                          tuple(tuple(str(d.dtype) for d, _ in sc) for sc in states), cap)
+    flat = [jnp.asarray(kd), jnp.asarray(live)]
+    for sc in states:
+        for d, v in sc:
+            flat += [jnp.asarray(d), jnp.asarray(v)]
+    jouts = jk(jnp.asarray(live), *flat)
+    tout = A.seg_agg_merge([_t(kd)], [_t(live)], g, kinds,
+                           [[(_t(d), _t(v)) for d, v in sc] for sc in states])
+    _same_outputs(jouts, tout)
+
+
 def test_null_order_of_the_two_segmentations():
     """One int key with nulls: the direct segmentation (keys in [0, cap-1))
     puts the null group last, the sorted one first; each equals the
