@@ -1537,82 +1537,148 @@ def passthrough_states_plain(keys, kvalids, exists: torch.Tensor, num_rows: int,
     return tuple(results)
 
 
+# csrc/passthrough.cu's argument words: the header, then a fixed slot of
+# words for each key, op and emit
+_PW_K, _PW_ROWS, _PW_CAP, _PW_NOPS, _PW_NEMIT, _PW_STREAM = range(6)
+_PASS_HEAD, _PASS_KEY_WORDS, _PASS_OP_WORDS, _PASS_EMIT_WORDS = 8, 4, 10, 7
+_PASS_OPS_AT = _PASS_HEAD + _MAX_PASS_KEYS * _PASS_KEY_WORDS
+_PASS_EMITS_AT = _PASS_OPS_AT + _MAX_PASS_OPS * _PASS_OP_WORDS
+_PASS_WORDS = _PASS_EMITS_AT + _MAX_PASS_EMITS * _PASS_EMIT_WORDS
+
+
+def _bits(op) -> int:
+    """An op's init as the table's 64 bits (a float's IEEE bits)."""
+    if not op.is_float:
+        return int(op.init)
+    return struct.unpack("<q", struct.pack("<d", float(op.init)))[0]
+
+
+class PassthroughPack:
+    """K19's argument words for the program a skipping partial aggregate
+    sends with every batch of a task: the same ops, emits and key types.
+    The program (kinds, float flags, mults, init bits, emit descriptors
+    and output types, key sizes, the capacity and the device) is checked
+    and packed once, and packed anew only when one of those changes; each
+    batch then only checks its planes and writes their pointers, and
+    those of the outputs it allocates, into the words in place."""
+
+    def __init__(self):
+        self.key = None
+        self.words = None
+        self.device = None
+        self.index = -1
+        self.out_dtypes = ()
+        self.src_dtypes = ()
+
+    @staticmethod
+    def _key(keys, exists, ops, emits):
+        return (int(exists.shape[0]), exists.device, tuple(d.dtype for d in keys),
+                tuple((op.kind, op.is_float, len(op.valids), op.mult, op.init,
+                       op.src is None, op.src0 is None) for op in ops),
+                tuple((e.kind, e.table, e.aux, e.aux2, e.dtype) for e in emits))
+
+    def _pack(self, key, keys, exists, ops, emits) -> None:
+        name = "passthrough_states"
+        check_limb_program(name, ops, emits)
+        if len(keys) > _MAX_PASS_KEYS or len(ops) > _MAX_PASS_OPS or \
+                len(emits) > _MAX_PASS_EMITS or any(len(op.valids) > 3 for op in ops):
+            raise NotImplementedError(f"{name}: more keys or aggregates than one launch takes")
+        if exists.dtype != torch.bool:
+            raise TypeError(f"{name}: row mask of {exists.dtype}")
+        if any(d.element_size() not in (1, 2, 4, 8) for d in keys):
+            raise TypeError(f"{name}: keys of {[d.dtype for d in keys]}")
+        outs = [torch.bool if e.kind == EMIT_NONZERO else e.dtype for e in emits]
+        if any(dt.is_floating_point and torch.empty(0, dtype=dt).element_size() < 4
+               for dt in outs):
+            raise TypeError(f"{name}: emits of {outs}")
+        w = (cuda_lib.ctypes.c_longlong * _PASS_WORDS)()
+        w[_PW_K], w[_PW_CAP], w[_PW_NOPS], w[_PW_NEMIT] = len(keys), key[0], len(ops), len(emits)
+        for j, d in enumerate(keys):
+            w[_PASS_HEAD + j * _PASS_KEY_WORDS + 3] = d.element_size()
+        for o, op in enumerate(ops):
+            b = _PASS_OPS_AT + o * _PASS_OP_WORDS
+            w[b], w[b + 1], w[b + 2] = op.kind, int(op.is_float), len(op.valids)
+            w[b + 8], w[b + 9] = int(op.mult), _bits(op)
+        for c, (e, dt) in enumerate(zip(emits, outs)):
+            b = _PASS_EMITS_AT + c * _PASS_EMIT_WORDS
+            w[b], w[b + 1], w[b + 2], w[b + 3] = e.kind, e.table, e.aux, e.aux2
+            w[b + 4] = torch.empty(0, dtype=dt).element_size()
+            w[b + 5] = int(dt.is_floating_point)
+        self.key, self.words, self.device = key, w, exists.device
+        self.index = exists.get_device()
+        self.out_dtypes = outs
+        self.src_dtypes = [None if op.src is None else
+                           torch.float64 if op.is_float else torch.int64 for op in ops]
+
+    def _row(self, p: torch.Tensor, cap: int, dtype) -> int:
+        """A plane's pointer, after its check."""
+        if p.dtype is not dtype or p.numel() != cap or p.dim() != 1 or \
+                p.get_device() != self.index or not p.is_contiguous():
+            raise TypeError(f"passthrough_states: a plane of {p.dtype}{tuple(p.shape)} on "
+                            f"{p.device}, expected {dtype} ({cap},) on {self.device}")
+        return p.data_ptr()
+
+    def bind(self, keys, kvalids, exists: torch.Tensor, num_rows: int, ops, emits):
+        """Pack the program if it is not the packed one, check the batch's
+        planes, allocate the outputs and write every pointer; returns
+        (words, key outputs, emit outputs)."""
+        key = self._key(keys, exists, ops, emits)
+        if key != self.key:
+            self._pack(key, keys, exists, ops, emits)
+        cap = key[0]
+        if not 0 <= num_rows <= cap:
+            raise ValueError(f"passthrough_states: {num_rows} rows of {cap}")
+        w, row, dev = self.words, self._row, self.device
+        w[_PW_ROWS] = num_rows
+        row(exists, cap, torch.bool)
+        key_out = []
+        for j, (d, v) in enumerate(zip(keys, kvalids)):
+            b = _PASS_HEAD + j * _PASS_KEY_WORDS
+            out = torch.empty(cap, dtype=d.dtype, device=dev)
+            w[b], w[b + 1], w[b + 2] = row(d, cap, d.dtype), row(v, cap, torch.bool), \
+                out.data_ptr()
+            key_out.append(out)
+        for o, (op, st) in enumerate(zip(ops, self.src_dtypes)):
+            b = _PASS_OPS_AT + o * _PASS_OP_WORDS
+            w[b + 3] = 0 if st is None else row(op.src, cap, st)
+            w[b + 4] = 0 if op.src0 is None else row(op.src0, cap, torch.int64)
+            for q, v in enumerate(op.valids):
+                w[b + 5 + q] = row(v, cap, torch.bool)
+        outs = []
+        for c, dt in enumerate(self.out_dtypes):
+            out = torch.empty(cap, dtype=dt, device=dev)
+            w[_PASS_EMITS_AT + c * _PASS_EMIT_WORDS + 6] = out.data_ptr()
+            outs.append(out)
+        return w, key_out, outs
+
+
 def passthrough_states_cuda(keys, kvalids, exists: torch.Tensor, num_rows: int,
-                            ops, emits):
+                            ops, emits, pack: Optional[PassthroughPack] = None):
     """K19 on the card (csrc/passthrough.cu); same outputs as
     :func:`passthrough_states_plain`. The kernel takes the row mask as
     ``num_rows`` (``exists`` must be that prefix; it is returned as the
-    groups' validity), and writes keys and emits in their own types."""
-    name = "passthrough_states"
-    check_limb_program(name, ops, emits)
-    cap = int(exists.shape[0])
-    srcs = [p for op in ops for p in (op.src, op.src0) if p is not None]
-    valids = [v for op in ops for v in op.valids]
-    cuda_lib.require_cuda(name, exists, *keys, *kvalids, *srcs, *valids)
-    if len(keys) > _MAX_PASS_KEYS or len(ops) > _MAX_PASS_OPS or \
-            len(emits) > _MAX_PASS_EMITS or any(len(op.valids) > 3 for op in ops):
-        raise NotImplementedError(f"{name}: more keys or aggregates than one launch takes")
-    if not 0 <= num_rows <= cap or exists.dtype != torch.bool:
-        raise ValueError(f"{name}: {num_rows} rows of {cap}, row mask {exists.dtype}")
-    for d, v in zip(keys, kvalids):
-        if d.shape != (cap,) or v.shape != (cap,) or v.dtype != torch.bool or \
-                d.element_size() not in (1, 2, 4, 8):
-            raise TypeError(f"{name}: key {d.dtype}{tuple(d.shape)}, validity "
-                            f"{v.dtype}{tuple(v.shape)} for {cap} rows")
-    for s in srcs:
-        if s.dtype not in (torch.int64, torch.float64) or s.shape != (cap,):
-            raise TypeError(f"{name}: state source {s.dtype} of {tuple(s.shape)}")
-    for v in valids:
-        if v.dtype != torch.bool or v.shape != (cap,):
-            raise TypeError(f"{name}: validity plane {v.dtype} of {tuple(v.shape)}")
-    dev = exists.device
-    key_out = [torch.empty_like(d) for d in keys]
-    outs = [torch.empty(cap, dtype=torch.bool if e.kind == EMIT_NONZERO else e.dtype,
-                        device=dev) for e in emits]
-    for e, o in zip(emits, outs):
-        if o.is_floating_point() and o.element_size() < 4:
-            raise TypeError(f"{name}: emit of dtype {o.dtype}")
-    keep = []
-
-    def arr(pair):
-        keep.append(pair[1])
-        return pair[0]
-
-    def init_bits(op):
-        if not op.is_float:
-            return int(op.init)
-        return int(torch.tensor(float(op.init), dtype=torch.float64).view(torch.int64).item())
-
-    op_valid = []
-    for op in ops:
-        op_valid += list(op.valids) + [None] * (3 - len(op.valids))
-    LL = cuda_lib.ctypes.c_longlong
-    Iv = cuda_lib.int_array
-    P = cuda_lib.ptr_array
-    err = cuda_lib.library().blz_passthrough(
-        len(keys), arr(P(keys)), arr(P(kvalids)), arr(Iv([d.element_size() for d in keys])),
-        arr(P(key_out)), num_rows, cap,
-        len(ops), arr(Iv([op.kind for op in ops])), arr(Iv([int(op.is_float) for op in ops])),
-        arr(P([op.src for op in ops])), arr(P([op.src0 for op in ops])),
-        arr(Iv([len(op.valids) for op in ops])), arr(P(op_valid)),
-        arr(Iv([op.mult for op in ops], LL)), arr(Iv([init_bits(op) for op in ops], LL)),
-        len(emits), arr(Iv([e.kind for e in emits])), arr(Iv([e.table for e in emits])),
-        arr(Iv([e.aux for e in emits])), arr(Iv([e.aux2 for e in emits])),
-        arr(Iv([o.element_size() for o in outs])),
-        arr(Iv([int(o.is_floating_point()) for o in outs])), arr(P(outs)),
-        cuda_lib.stream_of(dev))
-    cuda_lib.check(err, name)
-    cuda_lib.LAUNCHES[name] += 1
+    groups' validity), and writes keys and emits in their own types.
+    ``pack`` keeps the argument words of a task's batches."""
+    pack = pack if pack is not None else PassthroughPack()
+    w, key_out, outs = pack.bind(keys, kvalids, exists, num_rows, ops, emits)
+    if pack.device.type != "cuda":
+        raise ValueError(f"passthrough_states: planes on {pack.device}, expected CUDA")
+    w[_PW_STREAM] = cuda_lib.stream_handle(pack.index)
+    cuda_lib.check(cuda_lib.library().blz_passthrough(w), "passthrough_states")
+    cuda_lib.LAUNCHES["passthrough_states"] += 1
     results = [num_rows, exists]
     for d, v in zip(key_out, kvalids):
         results += [d, v]
     return tuple(results + outs)
 
 
-def passthrough_states(keys, kvalids, exists: torch.Tensor, num_rows: int, ops, emits):
-    """K19 on a CUDA batch, its plain twin on a CPU one."""
-    fn = passthrough_states_cuda if exists.is_cuda else passthrough_states_plain
-    return fn(keys, kvalids, exists, num_rows, ops, emits)
+def passthrough_states(keys, kvalids, exists: torch.Tensor, num_rows: int, ops, emits,
+                       pack: Optional[PassthroughPack] = None):
+    """K19 on a CUDA batch (``pack``: a task's argument words), its plain
+    twin on a CPU one."""
+    if exists.is_cuda:
+        return passthrough_states_cuda(keys, kvalids, exists, num_rows, ops, emits, pack)
+    return passthrough_states_plain(keys, kvalids, exists, num_rows, ops, emits)
 
 
 # -- K12: the host table's slot update ---------------------------------------------
@@ -1672,10 +1738,9 @@ class SlotUpdate:
 
     @property
     def folds(self) -> bool:
-        """Run in slot-sorted row order (float ADD, FIRST, the wide
-        extremes), not by atomics."""
-        return self.kind in (UPD_FIRST, UPD_LEXMIN, UPD_LEXMAX) or (
-            self.kind == UPD_ADD and self.table.is_floating_point())
+        """Runs in slot-sorted row order (a float ADD: a left fold), not
+        by atomics."""
+        return self.kind == UPD_ADD and self.table.is_floating_point()
 
 
 def _upd_rows(op: SlotUpdate, slots: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -1691,13 +1756,17 @@ def _touched(cap: int, s: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def slot_update_plain(slots: torch.Tensor, mask: torch.Tensor, ops) -> None:
+def slot_update_plain(slots: torch.Tensor, mask: torch.Tensor, ops,
+                      num_rows: Optional[int] = None) -> None:
     """Plain PyTorch twin of K12: each op's update of its table in place,
     the arithmetic of the reference's scatters. Float ADD is CPU
     ``index_add_`` (one by one in row order, XLA's scatter-add order) on a
     copy of the table, so the fold starts from the slot's value; a touched
-    float slot holding a NaN ends as the quiet NaN."""
+    float slot holding a NaN ends as the quiet NaN. Rows at or past
+    ``num_rows`` (where given) do not exist."""
     n = slots.shape[0]
+    if num_rows is not None:
+        mask = mask & (iota(n, mask.device) < num_rows)
     for op in ops:
         table = op.table
         cap = table.shape[0]
@@ -1812,145 +1881,218 @@ def _check_table(op: SlotUpdate, cap: int) -> None:
         raise TypeError(f"slot_update: op kind {op.kind} over a {t.dtype} table")
 
 
-def _check_rows(op: SlotUpdate, n: int) -> None:
-    """The row planes of one batch's op."""
-    planes = [p for p in [op.src, op.order] + op.valids + op.wvalids + op.srcs
-              if p is not None]
-    if any(p.shape != (n,) for p in planes):
-        raise ValueError(f"slot_update: row planes must be ({n},)")
-    if any(v.dtype != torch.bool for v in op.valids + op.wvalids):
-        raise TypeError("slot_update: validity planes must be bool")
-    src = None if op.src is None else op.src.dtype
+def _row_dtypes(op: SlotUpdate):
+    """The dtypes an op's row planes must have: (src, order, limb sources);
+    None where the op takes no such plane. The counts of validity planes
+    are the op's own (bool)."""
     t = op.table.dtype
     if op.kind in (UPD_FLAG, UPD_RENORM):
-        ok = src is None
-    elif op.kind in (UPD_LEXMIN, UPD_LEXMAX):
-        ok = src == torch.int64 and len(op.srcs) == 2 and \
-            all(x.dtype == torch.int64 for x in op.srcs)
-    elif op.kind == UPD_FIRST:
-        ok = src == t and op.order is not None and op.order.dtype == torch.int64
-    elif op.kind == UPD_ADD and t == torch.int64:
-        ok = src in (None, torch.int64)
-    else:
-        ok = src == t
-    if not ok:
-        raise TypeError(f"slot_update: op kind {op.kind} over a {t} table from {src}")
+        return None, None, None
+    if op.kind in (UPD_LEXMIN, UPD_LEXMAX):
+        return torch.int64, None, torch.int64
+    if op.kind == UPD_FIRST:
+        return t, torch.int64, None
+    if op.kind == UPD_ADD and t == torch.int64 and op.src is None:
+        return None, None, None  # a count
+    return t, None, None
+
+
+# csrc/slot_update.cu's argument words: the header, then _UPD_OP_WORDS an op
+_UW_N, _UW_CAP, _UW_NOPS, _UW_SLOTS, _UW_MASK, _UW_PERM, _UW_SCRATCH, _UW_SCRATCH_BYTES, \
+    _UW_STREAM = range(9)
+_UPD_HEAD, _UPD_OP_WORDS = 16, 20
+_UO_KIND, _UO_FLOAT, _UO_ESIZE, _UO_NVALID, _UO_NWVALID, _UO_SRC, _UO_VALID = range(7)
+_UO_WVALID, _UO_ORDER, _UO_TABLE, _UO_VALID_TABLE, _UO_ORDER_TABLE = 9, 12, 13, 14, 15
+_UO_LIMB_SRC, _UO_LIMB_TABLE = 16, 18
 
 
 class SlotUpdatePack:
-    """K12's argument arrays for an op list that recurs batch after batch,
-    as the host table's does. The words that stay the same (kinds, table
-    pointers, FIRST's tables, element sizes, plane counts) are checked and
-    packed once; each call then only checks the rows and writes their
-    planes' pointers into the arrays in place. An op list that differs in
-    any of those words (a table that grew is a new tensor) packs anew."""
+    """K12's argument words for an op list that recurs batch after batch,
+    as the host table's does. What stays the same (kinds, the tables and
+    their devices, dtypes and shapes, the counts of row planes, the
+    scratch the passes keep a slot, whether a float ADD needs K5's sort)
+    is checked and packed once, while the op list keeps the same tables
+    (the same tensors: a table that grew is a new one) and kinds; each call
+    then only checks the rows' planes and writes their pointers into the
+    words in place."""
 
     def __init__(self):
-        self.key = None
-        self.static = ()
+        self.static = None
+        self.words = None
+        self.scratch = None
+        self.sort = False
+        self.device = None
+        self.index = -1
         self.rows = ()
-        self.limb_src = None
+        self.refs = ()
+        self.limbs = ()
 
     @staticmethod
-    def _key(ops, cap: int):
-        def ptr(t):
-            return None if t is None else t.data_ptr()
+    def _static(op: SlotUpdate):
+        return (op.table, op.kind, op.valid_table, op.order_table, tuple(op.tables),
+                (len(op.valids), len(op.wvalids), op.src is None, op.order is None,
+                 len(op.srcs)))
 
-        return (cap,) + tuple((op.kind, op.table.dtype, op.table.data_ptr(), len(op.valids),
-                               len(op.wvalids), ptr(op.valid_table), ptr(op.order_table),
-                               tuple(ptr(t) for t in op.tables))
-                              for op in ops)
+    def _same(self, ops) -> bool:
+        st = self.static
+        if st is None or len(st) != len(ops):
+            return False
+        for op, (table, kind, vt, ot, tables, counts) in zip(ops, st):
+            if op.table is not table or op.kind != kind or op.valid_table is not vt or \
+                    op.order_table is not ot or counts != (
+                        len(op.valids), len(op.wvalids), op.src is None, op.order is None,
+                        len(op.srcs)):
+                return False
+            if (tables or op.tables) and (len(op.tables) != len(tables) or any(
+                    x is not y for x, y in zip(op.tables, tables))):
+                return False
+        return True
 
-    def args(self, ops, n: int, cap: int):
-        """(static arrays, row arrays) for ``blz_slot_update``: kind,
-        is_float, nvalid, table, esize, nwvalid, valid_table, order_table,
-        limb_table; then src, valid, order, wvalid. The limb ops' row
-        planes (limb_src) go to ``self.limb_src``."""
-        key = self._key(ops, cap)
-        if key != self.key:
-            for op in ops:
-                _check_table(op, cap)
-            m = max(1, len(ops))
-            I, P = cuda_lib.ctypes.c_int, cuda_lib.ctypes.c_void_p
-
-            def ptrs(ts):
-                return (P * m)(*[None if t is None else t.data_ptr() for t in ts])
-
-            self.static = (
-                (I * m)(*[op.kind for op in ops]),
-                (I * m)(*[int(op.table.is_floating_point()) for op in ops]),
-                (I * m)(*[len(op.valids) for op in ops]),
-                ptrs([op.table for op in ops]),
-                (I * m)(*[op.table.element_size() for op in ops]),
-                (I * m)(*[len(op.wvalids) for op in ops]),
-                ptrs([op.valid_table for op in ops]),
-                ptrs([op.order_table for op in ops]),
-                (P * (2 * m))(*[op.tables[q].data_ptr() if q < len(op.tables) else None
-                                for op in ops for q in range(2)]))
-            self.rows = ((P * m)(), (P * (3 * m))(), (P * m)(), (P * (3 * m))())
-            self.limb_src = (P * (2 * m))()
-            self.key = key
-        src, valid, order, wvalid = self.rows
-        limb_src = self.limb_src
+    def _pack(self, ops) -> None:
+        if len(ops) > _MAX_UPD_OPS:
+            raise NotImplementedError("slot_update: more aggregates than one launch takes")
+        t0 = ops[0].table
+        cap, dev = int(t0.shape[0]), t0.device
+        for op in ops:
+            _check_table(op, cap)
+            for x in [op.table, op.valid_table, op.order_table] + op.tables:
+                if x is not None and (x.device != dev or not x.is_contiguous()):
+                    raise ValueError(f"slot_update: a table on {x.device} (non-contiguous or "
+                                     f"not on {dev})")
+        words = (cuda_lib.ctypes.c_longlong * (_UPD_HEAD + _UPD_OP_WORDS * len(ops)))()
+        words[_UW_CAP], words[_UW_NOPS] = cap, len(ops)
+        rows = []
+        scratch_words = scratch_bytes = 0
         for o, op in enumerate(ops):
-            _check_rows(op, n)
-            src[o] = None if op.src is None else op.src.data_ptr()
-            order[o] = None if op.order is None else op.order.data_ptr()
-            for q in range(3):
-                valid[3 * o + q] = op.valids[q].data_ptr() if q < len(op.valids) else None
-                wvalid[3 * o + q] = op.wvalids[q].data_ptr() if q < len(op.wvalids) else None
-            for q in range(2):
-                limb_src[2 * o + q] = op.srcs[q].data_ptr() if q < len(op.srcs) else None
-        return self.static, self.rows
+            b = _UPD_HEAD + o * _UPD_OP_WORDS
+            words[b + _UO_KIND] = op.kind
+            words[b + _UO_FLOAT] = int(op.table.is_floating_point())
+            words[b + _UO_ESIZE] = op.table.element_size()
+            words[b + _UO_NVALID] = len(op.valids)
+            words[b + _UO_NWVALID] = len(op.wvalids)
+            words[b + _UO_TABLE] = op.table.data_ptr()
+            for at, x in ((_UO_VALID_TABLE, op.valid_table), (_UO_ORDER_TABLE, op.order_table)):
+                words[b + at] = 0 if x is None else x.data_ptr()
+            for q, x in enumerate(op.tables):
+                words[b + _UO_LIMB_TABLE + q] = x.data_ptr()
+            rows.append((b,) + _row_dtypes(op))
+            lex = op.kind in (UPD_LEXMIN, UPD_LEXMAX)
+            scratch_words += 1 if op.kind == UPD_FIRST else 2 if lex else 0
+            scratch_bytes += 1 if lex or op.kind == UPD_RENORM else 0
+        # csrc/slot_update.cu's scratch: FIRST's winning row and LEX's two
+        # keys a slot (int64), the marks of RENORM and LEX (a byte a slot,
+        # each table 8-byte aligned)
+        nbytes = scratch_words * cap * 8 + scratch_bytes * ((cap + 7) // 8 * 8)
+        # zero now; each call's last pass leaves it zero again
+        self.scratch = torch.zeros(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+        words[_UW_SCRATCH] = self.scratch.data_ptr() if nbytes else 0
+        words[_UW_SCRATCH_BYTES] = nbytes
+        self.static = [self._static(op) for op in ops]
+        self.words, self.rows, self.device = words, rows, dev
+        self.index = t0.get_device()
+        self.sort = any(op.folds for op in ops)
+        self.limbs = cuda_lib.limb_keys("slot_update", [
+            f"renorm{1 + len(op.tables)}" if op.kind == UPD_RENORM else _UPD_LIMB_NAMES[op.kind]
+            for op in ops if op.kind >= UPD_ADD_LO32])
+
+    def _row(self, p: torch.Tensor, n: int, dtype) -> int:
+        """A row plane's pointer, after its check."""
+        if p.dtype is not dtype:
+            raise TypeError(f"slot_update: a row plane of {p.dtype}, expected {dtype}")
+        if p.numel() != n or p.dim() != 1 or p.get_device() != self.index or \
+                not p.is_contiguous():
+            raise ValueError(f"slot_update: a row plane of {tuple(p.shape)} on {p.device}, "
+                             f"expected ({n},) on {self.device}, contiguous")
+        return p.data_ptr()
+
+    def _refs(self, ops) -> None:
+        """Every row plane the ops read: (op, attribute, index or -1, word,
+        dtype), in op order."""
+        for op, (_b, src_t, _o, limb_t) in zip(ops, self.rows):
+            if src_t is None and op.src is not None:
+                raise TypeError(f"slot_update: op kind {op.kind} takes no source")
+            if limb_t is not None and len(op.srcs) != 2:
+                raise TypeError("slot_update: a wide extreme takes two limb sources")
+        refs = []
+        for o, (op, (b, src_t, order_t, limb_t)) in enumerate(zip(ops, self.rows)):
+            if src_t is not None:
+                refs.append((o, "src", -1, b + _UO_SRC, src_t))
+            refs += [(o, "valids", q, b + _UO_VALID + q, torch.bool)
+                     for q in range(len(op.valids))]
+            if order_t is not None:
+                refs.append((o, "order", -1, b + _UO_ORDER, order_t))
+            refs += [(o, "wvalids", q, b + _UO_WVALID + q, torch.bool)
+                     for q in range(len(op.wvalids))]
+            if limb_t is not None:
+                refs += [(o, "srcs", q, b + _UO_LIMB_SRC + q, limb_t) for q in range(2)]
+        self.refs = refs
+
+    def bind(self, slots: torch.Tensor, mask: torch.Tensor, ops,
+             num_rows: Optional[int] = None):
+        """Pack the op list if it is not the packed one, check the batch's
+        row planes and write their pointers; returns the words. Rows at or
+        past ``num_rows`` (where given) do not exist: the kernels read only
+        the rows below it."""
+        if not self._same(ops):
+            self._pack(ops)
+            self._refs(ops)
+        n = int(slots.shape[0])
+        live = n if num_rows is None else int(num_rows)
+        if not 0 <= live <= n:
+            raise ValueError(f"slot_update: {live} rows of {n}")
+        w, check = self.words, self._row
+        w[_UW_N] = live
+        w[_UW_SLOTS] = check(slots, n, torch.int64)
+        w[_UW_MASK] = check(mask, n, torch.bool)
+        for o, attr, q, word, dtype in self.refs:
+            p = getattr(ops[o], attr)
+            w[word] = check(p if q < 0 else p[q], n, dtype)
+        return w
+
+    def launch(self, slots: torch.Tensor, mask: torch.Tensor, ops,
+               num_rows: Optional[int] = None) -> None:
+        """:meth:`bind`, then K12 (after K5's sort where a float ADD
+        folds)."""
+        w = self.bind(slots, mask, ops, num_rows)
+        if self.device.type != "cuda":
+            raise ValueError(f"slot_update: tables on {self.device}, expected CUDA")
+        perm = lexsort_indices([slots], w[_UW_N]) if self.sort else None
+        w[_UW_PERM] = 0 if perm is None else perm.data_ptr()
+        w[_UW_STREAM] = cuda_lib.stream_handle(self.index)
+        err = cuda_lib.library().blz_slot_update(w)
+        if err:
+            self.static = None  # a pass may have left scratch words: pack anew
+            cuda_lib.check(err, "slot_update")
+        cuda_lib.LAUNCHES["slot_update"] += 1
+        if self.limbs:
+            cuda_lib.count_limb_launch("slot_update", (), self.limbs)
 
 
 def slot_update_cuda(slots: torch.Tensor, mask: torch.Tensor, ops,
-                     pack: Optional[SlotUpdatePack] = None) -> None:
-    """K12 on the card (csrc/slot_update.cu): every op's update in one
-    atomic launch (integer ADD, MIN, MAX, FLAG) and one fold launch over
-    the rows sorted by slot (float ADD, FIRST; K5 sorts them); same
-    tables as :func:`slot_update_plain`. ``pack`` keeps the argument
-    arrays of a caller that sends the same op list every batch."""
+                     pack: Optional[SlotUpdatePack] = None,
+                     num_rows: Optional[int] = None) -> None:
+    """K12 on the card (csrc/slot_update.cu): the order-free ops as passes
+    of warp-aggregated atomics, FIRST and the wide extremes
+    with a tiebreak pass, then a pass a slot; a float ADD folds over the
+    rows sorted by slot (K5 sorts them); same tables as
+    :func:`slot_update_plain`. ``pack`` keeps the argument words of a
+    caller that sends the same op list every batch; rows at or past
+    ``num_rows`` (where given) do not exist and are not read."""
     if not ops:
         return
-    tensors = [slots, mask]
-    for op in ops:
-        tensors += [p for p in [op.table, op.src, op.order, op.valid_table, op.order_table]
-                    + op.valids + op.wvalids + op.srcs + op.tables if p is not None]
-    cuda_lib.require_cuda("slot_update", *tensors)
-    n = int(slots.shape[0])
-    cap = int(ops[0].table.shape[0])
-    if len(ops) > _MAX_UPD_OPS:
-        raise NotImplementedError("slot_update: more aggregates than one launch takes")
-    if slots.dtype != torch.int64 or slots.shape != (n,) or mask.dtype != torch.bool \
-            or mask.shape != (n,):
-        raise TypeError("slot_update: slots must be int64 and the mask bool, both (n,)")
-    pack = pack or SlotUpdatePack()
-    (kind, is_float, nvalid, table, esize, nwvalid, valid_table, order_table, limb_table), \
-        (src, valid, order, wvalid) = pack.args(ops, n, cap)
-    limb_src = pack.limb_src
-    perm = lexsort_indices([slots]) if any(op.folds for op in ops) else None
-    err = cuda_lib.library().blz_slot_update(
-        slots.data_ptr(), mask.data_ptr(), n, cap,
-        None if perm is None else perm.data_ptr(), len(ops), kind, is_float, src, nvalid,
-        valid, table, esize, order, nwvalid, wvalid, valid_table, order_table,
-        limb_src, limb_table, cuda_lib.stream_of(slots.device))
-    cuda_lib.check(err, "slot_update")
-    cuda_lib.LAUNCHES["slot_update"] += 1
-    cuda_lib.count_limb_launch("slot_update", [
-        f"renorm{1 + len(op.tables)}" if op.kind == UPD_RENORM else _UPD_LIMB_NAMES[op.kind]
-        for op in ops if op.kind >= UPD_ADD_LO32])
+    (pack if pack is not None else SlotUpdatePack()).launch(slots, mask, ops, num_rows)
 
 
 def slot_update(slots: torch.Tensor, mask: torch.Tensor, ops,
-                pack: Optional[SlotUpdatePack] = None) -> None:
+                pack: Optional[SlotUpdatePack] = None, num_rows: Optional[int] = None) -> None:
     """The reference's scatters of one batch into the host table's slot
     tables, in place: K12 on CUDA planes (``pack`` keeps its argument
-    arrays between calls), the plain version on CPU ones."""
+    words between calls), the plain version on CPU ones. Rows at or past
+    ``num_rows`` (where given) do not exist."""
     if slots.is_cuda:
-        slot_update_cuda(slots, mask, ops, pack)
+        slot_update_cuda(slots, mask, ops, pack, num_rows)
     else:
-        slot_update_plain(slots, mask, ops)
+        slot_update_plain(slots, mask, ops, num_rows)
 
 
 # -- window counters (host numpy) -------------------------------------------------

@@ -3,8 +3,10 @@
 // (murmur3.cu, xxhash64.cu), the murmur3 rounds (murmur3.cu, bloom.cu),
 // the key kinds and integer load of the key passes (sort.cu,
 // range_part.cu), the block-level stable rank that the
-// compaction kernels (compact.cu, slot_agg.cu) are built on, and the emit
-// arithmetic of the aggregate kernels (slot_agg.cu, seg_agg.cu).
+// compaction kernels (compact.cu, slot_agg.cu) are built on, the warp
+// aggregation of the slot kernels' atomics (slot_agg.cu, slot_update.cu),
+// and the emit arithmetic of the aggregate kernels (slot_agg.cu,
+// seg_agg.cu, passthrough.cu).
 //
 // Every exported function takes the caller's CUDA stream, allocates
 // nothing, does not synchronise, and returns cudaGetLastError() so the
@@ -24,6 +26,48 @@
 static inline unsigned int blz_blocks(int64_t n) {
   return (unsigned int)((n + BLZ_THREADS - 1) / BLZ_THREADS);
 }
+
+#define BLZ_FULL 0xffffffffu
+
+// The merge of x over the lanes of ``peers`` (the lanes whose slot is this
+// lane's, from __match_any_sync), in the group's lowest lane: a tree over
+// the group, one shuffle a level (E. Westphal's reduce_peers). ``merge``
+// is associative and commutative. Every lane of the warp calls it.
+template <class Merge>
+__device__ __forceinline__ long long blz_reduce_peers(unsigned peers, long long x,
+                                                      Merge merge) {
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned rel = __popc(peers & ((1u << lane) - 1u));  // my rank in the group
+  unsigned above = peers & (0xfffffffeu << lane);       // the group's lanes above me
+  while (__any_sync(BLZ_FULL, above != 0)) {
+    const int next = __ffs(above);
+    const long long t = __shfl_sync(BLZ_FULL, x, next > 0 ? next - 1 : 0);
+    if ((rel & 1u) == 0 && above != 0) x = merge(x, t);
+    above &= __ballot_sync(BLZ_FULL, (rel & 1u) == 0);
+    rel >>= 1;
+  }
+  return x;
+}
+
+// Whether this block is the last of the grid to get here (its writes and
+// every other block's made visible first); ``done`` counts the blocks.
+__device__ __forceinline__ bool blz_last_block(int* done) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// The rows of a block that walks a grid-stride over ``num_rows``: base,
+// base + gridDim.x * blockDim.x, ... Every thread of the block takes as
+// many turns, so the warps stay converged for the warp aggregation.
+#define BLZ_GRID_ROWS(i, num_rows)                                                      \
+  for (int64_t blz_base = (int64_t)blockIdx.x * blockDim.x; blz_base < (num_rows);      \
+       blz_base += (int64_t)gridDim.x * blockDim.x)                                     \
+    for (int64_t i = blz_base + threadIdx.x, blz_once = 0; blz_once < 1; ++blz_once)
 
 // The columns a row hash folds, passed to the kernel by value: k planes
 // of 4-byte (wide 0) or 8-byte (wide 1) words, each with its validity

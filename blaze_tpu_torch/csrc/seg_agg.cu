@@ -215,7 +215,6 @@ BLZ_EXPORT int blz_segment_starts(int k, const void* const* datas,
 #define BLZ_SEG_ROWS 4        // rows a lane of a warp has in flight
 #define BLZ_SEG_LANE_ROWS 4   // rows a thread folding a segment alone has in flight
 #define BLZ_SEG_LANE_BLOCKS 4  // pass 1's blocks an SM at least (launch bounds)
-#define BLZ_FULL 0xffffffffu
 
 __device__ __forceinline__ long long blz_seg_order_word(double x) {
   const long long b = __double_as_longlong(x);

@@ -86,7 +86,6 @@
 #define BLZ_SLOT_ONE_BLOCK_WORK 65536   // rows x ops one block takes alone (K4)
 #define BLZ_SLOT_BLOCK_WORK 2048        // rows x ops a block of many takes
 #define BLZ_SLOT_SHARED_ROWS 16         // rows a slot at least for many private tables
-#define BLZ_FULL 0xffffffffu
 
 enum { BLZ_OP_ADD = 0, BLZ_OP_COUNT = 1, BLZ_OP_MIN = 2, BLZ_OP_MAX = 3,
        BLZ_OP_ADD_LO32 = 4, BLZ_OP_ADD_HI32 = 5, BLZ_OP_LEXMIN = 6, BLZ_OP_LEXMAX = 7,
@@ -259,24 +258,6 @@ __device__ __forceinline__ void blz_slot_apply(int kind, long long* t, long long
     atomicMax(t, v);
 }
 
-// The merge of x over the lanes of ``peers`` (the lanes whose slot is
-// this lane's), in the group's lowest lane: a tree over the group, one
-// shuffle a level (E. Westphal's reduce_peers). Every lane of the warp
-// calls it.
-__device__ __forceinline__ long long blz_reduce_peers(unsigned peers, int kind, long long x) {
-  const unsigned lane = threadIdx.x & 31u;
-  unsigned rel = __popc(peers & ((1u << lane) - 1u));  // my rank in the group
-  unsigned above = peers & (0xfffffffeu << lane);       // the group's lanes above me
-  while (__any_sync(BLZ_FULL, above != 0)) {
-    const int next = __ffs(above);
-    const long long t = __shfl_sync(BLZ_FULL, x, next > 0 ? next - 1 : 0);
-    if ((rel & 1u) == 0 && above != 0) x = blz_slot_merge(kind, x, t);
-    above &= __ballot_sync(BLZ_FULL, (rel & 1u) == 0);
-    rel >>= 1;
-  }
-  return x;
-}
-
 __global__ void blz_slot_scatter_kernel(SlotPlan plan, OpSet ops, int64_t S,
                                         long long* tables, int64_t num_rows,
                                         const uint8_t* exists, uint8_t* present, int* flags,
@@ -428,13 +409,6 @@ __device__ __forceinline__ void blz_slot_smem_init(const OpSet& ops, const SlotS
   for (int64_t s = threadIdx.x; s < S; s += blockDim.x) m.present[s] = 0;
 }
 
-// The block's rows: base, base + gridDim.x * blockDim.x, ... (every
-// thread of the block takes as many turns).
-#define BLZ_SLOT_ROWS(i)                                                                \
-  for (int64_t blz_base = (int64_t)blockIdx.x * blockDim.x; blz_base < num_rows;        \
-       blz_base += (int64_t)gridDim.x * blockDim.x)                                     \
-    for (int64_t i = blz_base + threadIdx.x, blz_once = 0; blz_once < 1; ++blz_once)
-
 // The LEX second pass over the block's rows into the shared low-word
 // tables: ``l2(o, slot)`` is the slot's final l2 of the pair at op o.
 template <class L2>
@@ -442,7 +416,7 @@ __device__ __forceinline__ void blz_slot_lex_rows(const SlotPlan& plan, const Op
                                                   const SlotSmem& m, int64_t S,
                                                   int64_t num_rows, const uint8_t* exists,
                                                   bool mark, L2 l2) {
-  BLZ_SLOT_ROWS(i) {
+  BLZ_GRID_ROWS(i, num_rows) {
     if (i >= num_rows || (exists != nullptr && exists[i] == 0)) continue;
     bool fits;
     const long long slot = blz_slot_of(plan, i, &fits);
@@ -450,18 +424,6 @@ __device__ __forceinline__ void blz_slot_lex_rows(const SlotPlan& plan, const Op
     blz_slot_lex_row(ops, i, [&](int o) { return l2(o, slot); },
                      [&](int o) { return &m.tab[o * S + slot]; });
   }
-}
-
-// Whether this block is the last of the grid to get here (its writes and
-// every other block's made visible first).
-__device__ __forceinline__ bool blz_slot_last_block(int* done) {
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(done, 1) == (int)gridDim.x - 1;
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
 }
 
 // One block ranks the present slots (a block scan a chunk of slots) and
@@ -515,7 +477,7 @@ __global__ void __launch_bounds__(BLZ_SLOT_THREADS) blz_slot_shared_kernel(
   blz_slot_smem_init(ops, m, S, nb, !one, false);
   __syncthreads();
   const unsigned lane = threadIdx.x & 31u;
-  BLZ_SLOT_ROWS(i) {
+  BLZ_GRID_ROWS(i, num_rows) {
     const bool live = i < num_rows && (exists == nullptr || exists[i] != 0);
     const int64_t row = live ? i : 0;  // every load below is of a row that exists
     bool fits;
@@ -534,7 +496,9 @@ __global__ void __launch_bounds__(BLZ_SLOT_THREADS) blz_slot_shared_kernel(
       const SlotLoad d = next;
       if (o + 1 < ops.n) next = blz_slot_load(ops.op[o + 1], row);
       if (op.kind == BLZ_OP_LEXLO) continue;
-      const long long v = blz_reduce_peers(peers, op.kind, blz_slot_contrib(op, d, live));
+      const long long v =
+          blz_reduce_peers(peers, blz_slot_contrib(op, d, live),
+                           [&](long long a, long long b) { return blz_slot_merge(op.kind, a, b); });
       if (leader) blz_slot_apply(op.kind, &m.tab[o * S + slot], v);
     }
     if (nb > 0 && leader) atomicAdd(&m.hrows[slot >> shift], (unsigned)__popc(peers));
@@ -564,7 +528,7 @@ __global__ void __launch_bounds__(BLZ_SLOT_THREADS) blz_slot_shared_kernel(
   for (int j = threadIdx.x; j < nb; j += blockDim.x)
     if (m.hrows[j]) atomicAdd((unsigned long long*)&out.meta[2 + j], (unsigned long long)m.hrows[j]);
   if (threadIdx.x == 0 && overflow) atomicOr(&g.flags[0], 1);
-  if (lex || !blz_slot_last_block(&g.flags[1])) return;
+  if (lex || !blz_last_block(&g.flags[1])) return;
   blz_slot_emit_block(plan, out, es, S, m, shift, nb, __ldcg(&g.flags[0]) != 0, false,
                       [&](int o, int64_t s) { return __ldcg(&g.tables[o * S + s]); },
                       [&](int64_t s) { return __ldcg(&g.present[s]) != 0; });
@@ -594,7 +558,7 @@ __global__ void __launch_bounds__(BLZ_SLOT_THREADS) blz_slot_lex_shared_kernel(
         atomicMin(t, (unsigned long long)m.tab[o * S + s]);
     }
   }
-  if (!blz_slot_last_block(&g.flags[1])) return;
+  if (!blz_last_block(&g.flags[1])) return;
   blz_slot_emit_block(plan, out, es, S, m, shift, nb, __ldcg(&g.flags[0]) != 0, false,
                       [&](int o, int64_t s) { return __ldcg(&g.tables[o * S + s]); },
                       [&](int64_t s) { return __ldcg(&g.present[s]) != 0; });

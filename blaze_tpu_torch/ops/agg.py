@@ -484,7 +484,7 @@ class AggTable:
             slots = slots.to(self.device)
         for at in range(0, len(ops), K._MAX_UPD_OPS):
             pack = self._packs.setdefault(at, K.SlotUpdatePack())
-            K.slot_update(slots, mask, ops[at:at + K._MAX_UPD_OPS], pack)
+            K.slot_update(slots, mask, ops[at:at + K._MAX_UPD_OPS], pack, n)
         self.row_order += n
         self.rows_processed += n
 

@@ -658,6 +658,8 @@ class DevicePartialAgger:
                         if a.agg.args else None for a in op.aggs]
         self.fns = [aggfns.create_agg_function(a.agg, child_schema)
                     for a in op.aggs]
+        # K19's argument words, packed once for the task's skipped batches
+        self._pass_pack = K.PassthroughPack()
         self.specs = []
         for fn in self.fns:
             if fn.device_kind in aggfns.LIMB_KINDS:
@@ -830,7 +832,8 @@ class DevicePartialAgger:
         exists = batch.row_exists_mask()
         key_data, key_valid = self._keys(batch, exists)
         ops, emits = _partial_program(self.specs, self._args(batch, exists))
-        outs = K.passthrough_states(key_data, key_valid, exists, n, ops, emits)
+        outs = K.passthrough_states(key_data, key_valid, exists, n, ops, emits,
+                                    self._pass_pack)
         return self._assemble(outs, n)
 
     def _assemble(self, outs, num_groups: int) -> ColumnarBatch:

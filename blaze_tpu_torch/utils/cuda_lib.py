@@ -102,11 +102,17 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
-def count_limb_launch(name: str, ops) -> None:
-    """One launch of kernel ``name`` carrying the limb ops ``ops``: each
-    distinct one adds one under ``"name:op"``, and the launch one under
+def limb_keys(name: str, ops) -> list:
+    """The counts one launch of kernel ``name`` carrying the limb ops
+    ``ops`` adds one to: ``"name:op"`` for each distinct op, and
     ``"name:limbs"``."""
-    for key in [f"{name}:{op}" for op in set(ops)] + ([f"{name}:limbs"] if ops else []):
+    return [f"{name}:{op}" for op in set(ops)] + ([f"{name}:limbs"] if ops else [])
+
+
+def count_limb_launch(name: str, ops, keys=None) -> None:
+    """One launch of kernel ``name`` carrying the limb ops ``ops`` (or the
+    ``limb_keys`` made for them before)."""
+    for key in limb_keys(name, ops) if keys is None else keys:
         LIMB_LAUNCHES[key] = LIMB_LAUNCHES.get(key, 0) + 1
 
 
@@ -257,14 +263,8 @@ _SIGNATURES = {
     ],
     # cap, nops -> int64 words
     "blz_segment_reduce_scratch": [_I64, _I],
-    "blz_slot_update": [
-        _P, _P, _I64, _I64, _P, _I,          # slots, mask, n, cap, perm, nops
-        _PI, _PI, _PP, _PI, _PP, _PP,        # kind, is_float, src, nvalid, valid, table
-        _PI, _PP, _PI, _PP, _PP, _PP,        # esize, order, nwvalid, wvalid,
-                                             # valid_table, order_table
-        _PP, _PP,                            # limb_src (2 an op), limb_table (2 an op)
-        _P,                                  # stream
-    ],
+    # the argument words (csrc/slot_update.cu BLZ_UPD_W_* / BLZ_UPD_O_*)
+    "blz_slot_update": [_PLL],
     # data, kind, validity, exists, seg_start, n, carry_f, carry_i, carry_c,
     # rows, levels, out_s, out_c, stream
     "blz_segment_scan": [_P, _I, _P, _P, _P, _I64, _D, _I64, _I64, _P, _P, _P, _P, _P],
@@ -279,16 +279,8 @@ _SIGNATURES = {
     # table, n, nplanes, rpad, G, scap, round, tile, chunk, live_out,
     # live_counts, stream
     "blz_mesh_all_to_all": [_P, _I, _I, _I64, _I64, _I64, _I64, _I, _I64, _P, _P, _P],
-    "blz_passthrough": [
-        _I, _PP, _PP, _PI, _PP, _I64, _I64,  # k, keys, kvalids, key_size, key_out,
-                                             # num_rows, cap
-        _I, _PI, _PI, _PP, _PP, _PI, _PP,    # nops, kind, is_float, src, src0, nvalid,
-                                             # valid
-        _PLL, _PLL,                          # mult, init
-        _I, _PI, _PI, _PI, _PI, _PI, _PI,    # nemit, kind, table, aux, aux2, size,
-                                             # is_float
-        _PP, _P,                             # emit_out, stream
-    ],
+    # the argument words (csrc/passthrough.cu BLZ_PASS_W_*)
+    "blz_passthrough": [_PLL],
 }
 
 
@@ -333,8 +325,20 @@ def int_array(values, ctype=ctypes.c_int):
     return ctypes.cast(arr, ctypes.POINTER(ctype)), arr
 
 
+def stream_handle(index: int) -> int:
+    """The handle of the current CUDA stream of device ``index``, as an
+    int: PyTorch's raw accessor (the one Triton launches with) where it has
+    one; building a ``torch.cuda.Stream`` object for it costs tens of
+    microseconds of host time a call on the card's machine."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def stream_of(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return ctypes.c_void_p(stream_handle(index))
 
 
 def check(err: int, name: str) -> None:

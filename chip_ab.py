@@ -4,17 +4,19 @@ comparisons on one NVIDIA GPU.
 
     python3 chip_ab.py [--tree DIR] [--label NAME] [--paths q67,q67_sort,q69]
                        [--runs N] [--no-fusion] [--no-fused-agg] [--profile]
-    python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k3_k4,k10,limbs
+                       [--trace=DIR]
+    python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k3_k4,k10,limbs,k12,k19
 
-Paths: q01, q67, q67_sort, q69, q06, q17, q17_sort, q17_table, q89, q98,
-cust_spend and cust_spend_noskip (a checkout from before a path has no
-data to stage for it).
+Paths: q01, q67, q67_sort, q67_table, q69, q06, q96, q96_mesh, q17,
+q17_sort, q17_table, q89, q98, cust_spend and cust_spend_noskip (a
+checkout from before a path has no data to stage for it).
 
 ``--kernels`` runs, in place of paths, the named kernel phases of that
 checkout's chip_smoke.py (``kernel_<name>``: each holds its kernels to
 their plain versions and times them) and prints one JSON line per timed
-kernel: its shape, CUDA-event ms, device ms, plain and library ms, bound
-and extra shapes, whichever the checkout's phase records.
+kernel: its shape, CUDA-event ms, device ms, the wrapper's host ms, plain
+and library ms, bound and extra shapes, whichever the checkout's phase
+records.
 
 Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
 (default: this one) and, for each named path, stages its data once (as
@@ -24,8 +26,12 @@ path's numpy oracle. Prints one JSON line per path with every wall and the
 launch counts of the last run. ``--no-fusion`` runs with
 ``Config(fusion_enabled=False)`` (only in a checkout that has the knob),
 ``--no-fused-agg`` with ``Config(fused_filter_agg=False)`` (the partial
-aggregates take their input unfused); ``--profile`` adds that checkout's ``chip_smoke.profile_query`` run of each
-path (torch.profiler busy share, then cProfile's top host functions). The
+aggregates take their input unfused); ``--profile`` adds that checkout's
+``chip_smoke.profile_query`` run of each path (torch.profiler busy share,
+then cProfile's top host functions), and ``--trace=DIR`` with it writes
+that run's Chrome trace to DIR/<label>_<path>.json and prints the run's
+copies by kind (count, bytes, device ms) beside a probe of this
+process's pageable host-to-device rate (a 2 MiB copy, CUDA events). The
 peak device memory is taken over the timed runs (staged data included).
 
 Clocks and the host's load drift between processes and between calls:
@@ -42,7 +48,7 @@ import time
 
 def _args(argv):
     opts = {"tree": os.path.dirname(os.path.abspath(__file__)), "label": "",
-            "paths": "q67_sort,q69", "runs": "5", "kernels": ""}
+            "paths": "q67_sort,q69", "runs": "5", "kernels": "", "trace": ""}
     flags = set()
     for a in argv:
         if a.startswith("--") and "=" in a:
@@ -73,12 +79,79 @@ def _q67_setup(cs, dev, name, conf_kw):
 
     schema, parts, host = cs.make_q67_data(dev)
     want, _groups = cs.q67_oracle(host)
-    kw = dict(conf_kw, device_merge_max_bytes=cs.Q67_MERGE_BYTES)
+    # q67_table: the default merge budget, past which the FINAL is the host
+    # table's (K12)
+    kw = dict(conf_kw) if name == "q67_table" else \
+        dict(conf_kw, device_merge_max_bytes=cs.Q67_MERGE_BYTES)
     if name == "q67_sort":
         kw.update(dense_agg=False, radix_agg=False)
     session = blaze_tpu_torch.Session(Config(**kw))
     session.resources["store_sales"] = lambda p: parts[p]
-    return session, cs.q67_plan(schema), want
+    return session, cs.q67_plan(schema), \
+        cs.q67_table_check(want) if name == "q67_table" else want
+
+
+def _q96_setup(cs, dev, name, conf_kw):
+    """q96: three broadcast joins to a global COUNT(1) through the host
+    table (K12), as chip_smoke.py runs it."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    schemas, host = cs.q96_schemas(T), cs.q96_host(cs.Q96_ROWS)
+    want = cs.q96_oracle(host)
+    session = blaze_tpu_torch.Session(Config(**conf_kw))
+    cs.stage_star(session, schemas, host, dev)
+    return session, cs.q96_plan(schemas, E, N, T), want
+
+
+def _q96_mesh_setup(cs, dev, name, conf_kw):
+    """q96_mesh: q96's data and plan on a mesh of 8 slots (the stacked K11,
+    K17 for its exchange, K12 for the count), as chip_smoke.py runs it."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    session, plan, want = _q96_setup(cs, dev, name, conf_kw)
+    mesh = cs.mesh_session(dev, 8)
+    for table in cs.q96_schemas(T):
+        mesh.resources[table] = session.resources[table]
+    return mesh, cs.q96_plan(cs.q96_schemas(T), E, N, T), want
+
+
+def _copies(trace_path):
+    """The copies of a Chrome trace by kind: count, bytes, device ms."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "gpu_memcpy":
+            c = out.setdefault(e["name"], {"count": 0, "bytes": 0, "device_ms": 0.0})
+            c["count"] += 1
+            c["bytes"] += int(e.get("args", {}).get("bytes", 0))
+            c["device_ms"] += e.get("dur", 0) / 1e3
+    return out
+
+
+def _pageable_probe(dev, nbytes=1 << 21, iters=100):
+    """This process's pageable host-to-device rate in GB/s: the median of
+    ``iters`` copies of ``nbytes`` from a numpy array, by CUDA events."""
+    import numpy as np
+    import torch
+
+    src = torch.from_numpy(np.ones(nbytes // 8, np.int64))
+    dst = torch.empty(nbytes // 8, dtype=torch.int64, device=dev)
+    times = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return nbytes / (statistics.median(times) / 1e3) / 1e9
 
 
 def _q69_setup(cs, dev, name, conf_kw):
@@ -172,9 +245,10 @@ def _kernels(cs, dev, opts) -> int:
         t0 = time.perf_counter()
         getattr(cs, f"kernel_{phase}")(dev, rng, results)
         for r in results:
-            line = {k: r.get(k) for k in ("name", "shape", "ms", "device_ms", "plain_ms",
-                                          "library_ms", "library_device_ms", "library_call",
-                                          "bytes", "shapes")}
+            line = {k: r.get(k) for k in ("name", "shape", "ms", "device_ms", "host_ms",
+                                          "plain_ms", "library_ms", "library_device_ms",
+                                          "library_host_ms", "library_call", "bytes",
+                                          "shapes", "stream_object_ms", "stream_raw_ms")}
             line["bound_ms"] = r["bytes"] / cs.HBM_BYTES_PER_S * 1e3
             print(json.dumps({"phase": "ab_kernel", "label": opts["label"], "tree":
                               os.path.abspath(opts["tree"]), "kernels": phase,
@@ -182,7 +256,9 @@ def _kernels(cs, dev, opts) -> int:
     return 0
 
 
-SETUPS = {"q01": _q01_setup, "q67": _q67_setup, "q67_sort": _q67_setup, "q69": _q69_setup, "q06": _q06_setup,
+SETUPS = {"q01": _q01_setup, "q67": _q67_setup, "q67_sort": _q67_setup,
+          "q67_table": _q67_setup, "q69": _q69_setup, "q06": _q06_setup, "q96": _q96_setup,
+          "q96_mesh": _q96_mesh_setup,
           "q17": _q17_setup, "q17_sort": _q17_setup, "q17_table": _q17_setup,
           "q89": _star_setup, "q98": _star_setup, "cust_spend": _cust_setup,
           "cust_spend_noskip": _cust_setup}
@@ -241,7 +317,13 @@ def main(argv) -> int:
                           "max_memory_allocated": torch.cuda.max_memory_allocated(),
                           "launches": cuda_lib.launch_counts()}), flush=True)
         if "profile" in flags:
-            cs.profile_query(name, session, plan, want)
+            trace = os.path.join(opts["trace"], f"{opts['label']}_{name}.json") \
+                if opts["trace"] else None
+            cs.profile_query(name, session, plan, want, trace)
+            if trace:
+                print(json.dumps({"phase": "copies", "label": opts["label"], "query": name,
+                                  "copies": _copies(trace),
+                                  "pageable_htod_gb_s": _pageable_probe(dev)}), flush=True)
         del session, plan, want
         torch.cuda.empty_cache()
     return 0

@@ -41,16 +41,20 @@ only when every phase passed:
    float32, bool and decimal arguments) in update and merge mode, nulls,
    padding, table growth, int64 wrap, NaN, +-0.0 and subnormals, a float
    sum whose value depends on the fold's order, FIRST with tied orders,
-   an empty batch, and a q67_table merge batch; for the window
+   an empty batch, and K12's main paths' shapes, each held to the plain
+   version and timed with device ms beside a library chain: a q67_table
+   merge batch, q96's COUNT(1) batch, q17_table's FINAL merge of wide
+   sums, the lexicographic fold of a q17 batch, a float64 SUM into
+   q67_table's slots and into one slot; for the window
    aggregates' segmented scan, K13: int64, int32, float64 and float32
    planes, magnitudes 1e-5..1e16 with +-inf, -0.0 and NaN, nulls,
    padding, capacities 16, 4,096 and 262,144 with live rows not a
    multiple of 16, carries, segments of one row, of ~4 rows, one spanning
    the batch and none; for the limb halves of K3/K4, K10 and K12 (the
    wide-decimal states): sum2/avg2/sum3/avg3/minw/maxw in partial and
-   merge mode on K3, K4 and K10 and K12's limb update, merge and
-   lexicographic-fold ops, over negative values, 38-digit extremes and
-   values past 2^64, all-negative extremes, cancellation near the
+   merge mode on K3, K4 and K10 (K12's limb update, merge and
+   lexicographic-fold ops in K12's phase), over negative values, 38-digit
+   extremes and values past 2^64, all-negative extremes, cancellation near the
    extremes, single rows, one row, nulls, padding and every value null,
    then timed at q17's shapes); for the range exchange's partition ids,
    K14: one to five keys of int64/int32/int16/int8/bool/float32/float64/
@@ -111,9 +115,11 @@ only when every phase passed:
    arguments with NaN, +-0.0, +-inf and subnormals, a decimal rescale that
    wraps int64, 38-digit limbs, one to three int32/int64 keys and a float
    key, nulls, padding, one row and every value null, capacities 256 and
-   4,096, and cust_spend's batch (262,144 rows, an int32 customer key, a
-   sum2 state), timed there beside the library chain (torch.where and
-   bit ops per plane); then each timed with
+   4,096, each with a fresh argument pack and then all through one pack
+   (a task's batches), and cust_spend's batch (262,144 rows, an int32
+   customer key, a sum2 state), timed there beside the library chain
+   (torch.where and bit ops per plane), with the wrapper's host time
+   alone; then each timed with
    CUDA events beside its plain version, one PyTorch library call (or a
    chain of them, said so) where one computes the same function, and its
    bound (bytes moved over 3.35 TB/s); K3, K4 and K10 also by device ms
@@ -2309,13 +2315,187 @@ def q67_table_merge_batch(rng, dev, rows=262144, groups=200_000):
     return slots, live, s, has
 
 
-def kernel_k12(dev, rng, results):
+def q96_count_batch(dev, cap=262144):
+    """One q96 PARTIAL batch as the host table takes it: the rows of a
+    262,144-row store_sales batch that pass the three joins (q96_host's
+    draw at one batch's size, counted by q96_oracle) are the batch's first
+    rows, each into slot 0 of the global aggregate's 1,024-slot table; the
+    padding rows carry the table capacity and drop. COUNT(1)'s op: an ADD
+    counting the rows its literal's all-true validity keeps. Returns
+    (slots, row mask, the literal's validity, live rows)."""
     import torch
+
+    n = q96_oracle(q96_host(dict(Q96_ROWS, store_sales=cap)))["cnt"][0]
+    slots = torch.full((cap,), 1024, dtype=torch.int64, device=dev)
+    slots[:n] = 0
+    live = torch.arange(cap, device=dev) < n
+    return slots, live, torch.ones(cap, dtype=torch.bool, device=dev), n
+
+
+def k12_limb_inputs(rng, dev):
+    """K12's limb shapes of q17: the reducer's FINAL merge of every partial
+    batch's states into q17_table's 1,024-slot table (slots, row mask and
+    the wide SUM's state columns), and a 262,144-row q17 batch's
+    decimal(38,2) argument with its slots (the lexicographic fold's MIN and
+    MAX input)."""
+    import torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.core.batch import DeviceColumn
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops import agg_device as A
+
+    conf = Config()
+    keys, kvalids, _specs, args = q17_partial_batch(rng, dev)
+    bases, sizes, _cap = A.plan_slot_table(A.probe_ranges(keys, kvalids), keys[0].shape[0],
+                                           None, conf.dense_agg_max_buckets, conf)
+    lslots = (keys[0] - bases[0] + 1) * sizes[1] + (keys[1] - bases[1] + 1)
+    fk, _fv, _kinds, fstates = q17_merge_input(rng, dev, Q17_FINAL_ROWS)
+    fexists = torch.arange(fk[0].shape[0], device=dev) < Q17_FINAL_ROWS
+    slots = torch.where(fexists, fk[0] * 10 + fk[1], 1024)
+    cols = [DeviceColumn(T.I64, d, v) for d, v in fstates[2]]
+    return (slots, fexists, cols, fstates[2]), (lslots, kvalids[0], args[2][0])
+
+
+def k12_shape(spec, timed=True):
+    """One of K12's shapes (a ``k12_shapes`` entry): its functions' ops
+    into fresh tables through K12 and its plain version, equal bit for bit;
+    then, where ``timed``, timed on one set of tables beside the library
+    chain (where there is one), with the launches of K5's sort one call
+    makes."""
     from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.utils import cuda_lib
+
+    label, fns, planes, slots, mask, lib, nbytes, table_cap, num_rows = spec
+
+    def k12_launch(slots, mask, ops, pack):  # as the host table calls it
+        K.slot_update_cuda(slots, mask, ops, pack, num_rows=num_rows)
+
+    tables = {}
+    for name, update in (("kernel", lambda s_, m_, o_: k12_launch(s_, m_, o_, None)),
+                         ("plain", K.slot_update_plain)):
+        states = [fn.init_state(table_cap, slots.device) for fn in fns]
+        update(slots, mask, [op for fn, st, pl in zip(fns, states, planes)
+                             for op in pl(fn, st)])
+        tables[name] = states
+    check_equal("slot_update", label, tables["kernel"], tables["plain"])
+    states = [fn.init_state(table_cap, slots.device) for fn in fns]
+    ops = [op for fn, st, pl in zip(fns, states, planes) for op in pl(fn, st)]
+    pack = K.SlotUpdatePack()
+    k12_launch(slots, mask, ops, pack)
+    before = cuda_lib.launch_counts()["lexsort_indices"]
+    k12_launch(slots, mask, ops, pack)
+    sorts = cuda_lib.launch_counts()["lexsort_indices"] - before
+    if not timed:
+        return dict(device_ms=kernel_device_ms(lambda: k12_launch(slots, mask, ops, pack), OURS),
+                    k5_launches=sorts)
+    out = shape_times(lambda: k12_launch(slots, mask, ops, pack),
+                      lambda: K.slot_update_plain(slots, mask, ops), lib, nbytes)
+    return dict(out, k5_launches=sorts, rows=int(slots.shape[0]))
+
+
+def k12_shapes(dev, rng):
+    """K12's shapes at its main paths, the row's own first: (label,
+    functions, each one's ops over its state, slots, row mask, a library
+    chain computing the same sums or None, the bytes the call must move,
+    table capacity, the live rows the host table passes or None). A q67_table merge batch, q96's COUNT(1) batch,
+    q17_table's FINAL merge of wide sums, the lexicographic fold of a q17
+    batch, a float64 SUM into q67_table's slots (K5's sort, then the fold)
+    and into one slot."""
+    import torch
     from blaze_tpu_torch.core.batch import DeviceColumn
     from blaze_tpu_torch.ir import exprs as E
     from blaze_tpu_torch.ir import types as T
     from blaze_tpu_torch.ops import aggfns
+
+    def agg(fn, arg_type, args=None):
+        return aggfns.create_agg_function(
+            E.AggExpr(E.AggFunction[fn], [E.Column("v")] if args is None else args),
+            T.Schema.of(("v", arg_type)))
+
+    out = []
+    # main path: a q67_table merge batch, FINAL SUM(qty) states (sum, has)
+    slots, live, s, has = q67_table_merge_batch(rng, dev)
+    rows = slots.shape[0]
+    cols = [DeviceColumn(T.I64, s, has), DeviceColumn(T.BOOL, has, live)]
+    gate = has & live
+    touched = int(torch.unique(slots[gate]).numel())
+    acc = torch.zeros(262144, dtype=torch.int64, device=dev)
+    contrib = torch.where(gate, s, 0)
+    flags = gate.to(torch.uint8)
+    flag8 = torch.zeros(262144, dtype=torch.uint8, device=dev)
+
+    def library():
+        acc.index_add_(0, slots, contrib)
+        flag8.scatter_reduce_(0, slots, flags, "amax")
+
+    # the rows' slot, mask, sum and has planes (has: data and validity)
+    # read once; each touched slot's sum read and written once, its flag
+    # written once (nothing reads the flag table)
+    out.append((f"{rows} state rows -> {touched} touched slots of 262,144 (a q67_table merge "
+                "batch: SUM int64 + has flag)", [agg("SUM", T.I64)],
+                [lambda fn, st: fn.merge_ops(st, cols)], slots, live, library,
+                rows * (8 + 1 + 8 + 1 + 1) + touched * (8 * 2 + 1), 262144, rows))
+    # q96's COUNT(1) batch: every live row into slot 0
+    qslots, qlive, qvalid, qn = q96_count_batch(dev)
+    ones = torch.ones(rows, dtype=torch.int32, device=dev)
+    qacc = torch.zeros(1024, dtype=torch.int64, device=dev)
+    qidx = torch.where(qlive, qslots, 0)
+    qcontrib = (qlive & qvalid).to(torch.int64)
+    out.append((f"q96 COUNT(1) batch: {qn} live rows of 262,144 into slot 0",
+                [agg("COUNT", T.I64, [E.Literal(1, T.I32)])],
+                [lambda fn, st: fn.update_ops(st, ones, qvalid)], qslots, qlive,
+                lambda: qacc.index_add_(0, qidx, qcontrib), qn * (8 + 1 + 1) + 16, 1024, qn))
+    # q17_table's FINAL merge: three limb adds, the renormalisation, has
+    (fslots, fexists, fcols, fstates), (lslots, lvalid, lex_arg) = k12_limb_inputs(rng, dev)
+    wide = wide_upd_fns()
+    fgate = fstates[3][0] & fstates[3][1]
+    ltabs = torch.zeros((3, 1024), dtype=torch.int64, device=dev)
+    lsrc = [torch.where(fgate, fstates[q][0], 0) for q in range(3)]
+    fidx = fslots.clamp(max=1023)
+
+    def limb_chain():
+        for t, x in zip(ltabs, lsrc):
+            t.index_add_(0, fidx, x)
+
+    # a row's slot, mask, three limbs and the has flag's data and validity
+    # read once; a touched slot's three limbs read and written once, its
+    # flag written
+    out.append((f"q17_table FINAL: {Q17_FINAL_ROWS} state rows into 500 of 1,024 slots "
+                "(three-limb SUM + renormalisation + has)", [wide[2]],
+                [lambda fn, st: fn.merge_ops(st, fcols)], fslots, fexists, limb_chain,
+                Q17_FINAL_ROWS * (8 + 1 + 24 + 2) + Q17_GROUPS * (2 * 24 + 1), 1024,
+                Q17_FINAL_ROWS))
+    # the lexicographic fold: MIN and MAX of a q17 batch's decimal(38,2)
+    out.append(("lexicographic fold: 262,144 rows into <= 500 of 1,024 slots (MIN and MAX "
+                "of decimal(38,2))", wide[4:],
+                [lambda fn, st: fn.update_ops(st, lex_arg, lvalid)] * 2, lslots, lvalid, None,
+                int(lslots.shape[0]) * (8 + 1 + 24 + 1) + Q17_GROUPS * 2 * (24 + 24 + 1),
+                1024, None))
+    # the fold route: a float64 SUM of 262,144 raw rows into q67_table's
+    # slots, and into one slot
+    sum_f64 = agg("SUM", T.F64)
+    fvals = torch.from_numpy(rng.random(rows)).to(dev)
+    ftouched = int(torch.unique(slots).numel())
+    facc = torch.zeros(262144, dtype=torch.float64, device=dev)
+    out.append(("float fold route: a float64 SUM of 262,144 rows into q67_table's slots",
+                [sum_f64], [lambda fn, st: fn.update_ops(st, fvals, live)], slots, live,
+                lambda: facc.index_add_(0, slots, fvals),
+                rows * (8 + 1 + 8 + 1) + ftouched * (8 * 2 + 1), 262144, rows))
+    zeros = torch.zeros(rows, dtype=torch.int64, device=dev)
+    zacc = torch.zeros(1024, dtype=torch.float64, device=dev)
+    out.append(("one-slot float SUM: a float64 SUM of 262,144 rows into one slot", [sum_f64],
+                [lambda fn, st: fn.update_ops(st, fvals, live)], zeros, live,
+                lambda: zacc.index_add_(0, zeros, fvals), rows * (8 + 1 + 8 + 1) + 17, 1024,
+                rows))
+    return out
+
+
+def kernel_k12(dev, rng, results):
+    """K12 against its plain version on every UPD_CASES and WIDE_UPD_CASES
+    entry and at its main paths' shapes (``k12_shapes``), each timed (CUDA
+    events and device ms, a library chain's beside them where one
+    exists)."""
+    from blaze_tpu_torch.core import kernels as K
 
     cases = []
     fns = upd_fns()
@@ -2325,58 +2505,33 @@ def kernel_k12(dev, rng, results):
         want = upd_run(case, fns, K.slot_update_plain, dev)
         check_equal("slot_update", case["label"], got, want)
         cases.append(case["label"])
-    # main path: a q67_table merge batch, FINAL SUM(qty) states (sum, has)
-    slots, live, s, has = q67_table_merge_batch(rng, dev)
-    rows = slots.shape[0]
-    fn = aggfns.create_agg_function(E.AggExpr(E.AggFunction.SUM, [E.Column("v")]),
-                                    T.Schema.of(("v", T.I64)))
-    cols = [DeviceColumn(T.I64, s, has), DeviceColumn(T.BOOL, has, live)]
-    tables = {}
-    for name, update in (("kernel", K.slot_update_cuda), ("plain", K.slot_update_plain)):
-        st = fn.init_state(262144, dev)
-        update(slots, live, fn.merge_ops(st, cols))
-        tables[name] = st
-    check_equal("slot_update", "q67_table merge batch", tables["kernel"], tables["plain"])
+    limb_cases = kernel_limbs_k12(dev, rng)
+    specs = k12_shapes(dev, rng)
+    main = k12_shape(specs[0])
     cases.append("q67_table merge batch")
-    st = fn.init_state(262144, dev)
-    ops = fn.merge_ops(st, cols)
-    # as the host table calls it: its argument arrays kept in a pack; and
-    # without one, packing them anew each call
-    pack = K.SlotUpdatePack()
-    ms = time_ms(lambda: K.slot_update_cuda(slots, live, ops, pack))
-    unpacked_ms = time_ms(lambda: K.slot_update_cuda(slots, live, ops))
-    plain_ms = time_ms(lambda: K.slot_update_plain(slots, live, ops))
-    acc, flag = st
-    gate = has & live
-    contrib = torch.where(gate, s, 0)
-    flags = gate.to(torch.uint8)
-    flag8 = torch.zeros(262144, dtype=torch.uint8, device=dev)
-
-    def library():
-        acc.index_add_(0, slots, contrib)
-        flag8.scatter_reduce_(0, slots, flags, "amax")
-
-    lib_ms = time_ms(library)
-    touched = int(torch.unique(slots[gate]).numel())
-    # the rows' slot, mask, sum and has planes (has: data and validity)
-    # read once; each touched slot's sum read and written once, its flag
-    # written once (nothing reads the flag table)
-    nbytes = rows * (8 + 1 + 8 + 1 + 1) + touched * (8 * 2 + 1)
-    # the fold route at the same shape: a float64 SUM of 262,144 raw rows
-    # (K5's sort by slot, then one thread a run)
-    ffn = aggfns.create_agg_function(E.AggExpr(E.AggFunction.SUM, [E.Column("v")]),
-                                     T.Schema.of(("v", T.F64)))
-    fst = ffn.init_state(262144, dev)
-    fvals = torch.from_numpy(rng.random(rows)).to(dev)
-    fops = ffn.update_ops(fst, fvals, live)
-    fold_ms = time_ms(lambda: K.slot_update_cuda(slots, live, fops))
+    shapes = {spec[0]: k12_shape(spec) for spec in specs[1:]}
     results.append(dict(
         name="slot_update", route="cuda", source="blaze_tpu_torch/csrc/slot_update.cu",
-        replaces="blaze_tpu/ops/aggfns.py:362", shape=f"{rows} state rows -> {touched} "
-        "touched slots of 262,144 (a q67_table merge batch: SUM int64 + has flag)",
-        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        replaces="blaze_tpu/ops/aggfns.py:362", shape=specs[0][0], cases=cases,
+        ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+        library_ms=main["library_ms"], library_device_ms=main["library_device_ms"],
         library_call="index_add_ + scatter_reduce_(amax) into the slot tables (a chain)",
-        bytes=nbytes, fold_ms=fold_ms, unpacked_ms=unpacked_ms))
+        bytes=main["bytes"], shapes=shapes))
+    final = next(v for k, v in shapes.items() if k.startswith("q17_table FINAL"))
+    fold = next(v for k, v in shapes.items() if k.startswith("lexicographic"))
+    results.append(dict(
+        name="slot_update:limbs", route="cuda", source="blaze_tpu_torch/csrc/slot_update.cu",
+        replaces="blaze_tpu/ops/aggfns.py:320",
+        shape=f"{Q17_FINAL_ROWS} state rows -> 500 of 1,024 slots (q17_table's FINAL merge: "
+              "three-limb SUM + renormalisation + has)",
+        cases=limb_cases, ms=final["ms"], device_ms=final["device_ms"],
+        plain_ms=final["plain_ms"], library_ms=final["library_ms"],
+        library_device_ms=final["library_device_ms"],
+        library_call="3x index_add_ of the gated limbs into the slot tables (no "
+                     "renormalisation; a chain)",
+        bytes=final["bytes"], fold_ms=fold["ms"], fold_device_ms=fold["device_ms"],
+        fold_replaces="blaze_tpu/ops/aggfns.py:161",
+        fold_shape="262144 rows -> <= 500 of 1,024 slots (MIN and MAX of decimal(38,2))"))
 
 
 # K13's battery: (label, data kind, capacity, live rows, segment shape, null
@@ -2677,8 +2832,8 @@ def doubled(outs, g, cap2, dev):
 
 def kernel_limbs(dev, rng, results):
     """The limb ops of K3/K4 and K10 against their plain versions on every
-    WIDE_CASES entry, partial and merge, then K12's (``kernel_limbs_k12``),
-    then each timed at q17's shapes (``time_limbs``)."""
+    WIDE_CASES entry, partial and merge, then each timed at q17's shapes
+    (``time_limbs``; K12's limb ops are ``kernel_k12``'s)."""
     import torch
     from blaze_tpu_torch.config import Config
     from blaze_tpu_torch.core import kernels as K
@@ -2741,8 +2896,7 @@ def kernel_limbs(dev, rng, results):
                                (to_dev(mk, cpu), to_dev(mv, cpu), g, kinds,
                                 to_dev(states, cpu)), label)
         cases.append(label)
-    upd_cases = kernel_limbs_k12(dev, rng)
-    time_limbs(dev, rng, results, cases, upd_cases)
+    time_limbs(dev, rng, results, cases)
 
 
 # K12's limb battery: the limb aggregates of the host table and their
@@ -2985,15 +3139,13 @@ def seg_cust_shapes(dev, rng):
     return shapes
 
 
-def time_limbs(dev, rng, results, cases, upd_cases):
+def time_limbs(dev, rng, results, cases):
     """The limb halves timed at q17's shapes beside their plain versions,
     a chain of PyTorch library calls computing the same sums (slot or
     segment ids given) and the bytes they must move."""
     import torch
     from blaze_tpu_torch.config import Config
     from blaze_tpu_torch.core import kernels as K
-    from blaze_tpu_torch.core.batch import DeviceColumn
-    from blaze_tpu_torch.ir import types as T
     from blaze_tpu_torch.ops import agg_device as A
 
     conf = Config()
@@ -3140,47 +3292,6 @@ def time_limbs(dev, rng, results, cases, upd_cases):
         device_ms=kernel_device_ms(lambda: K.segment_reduce_cuda(
             "seg_agg_merge", forder, fstarts, fcount, frows, fops, femits, ("sum3",)), OURS),
         library_device_ms=kernel_device_ms(lambda: chain(fstabs, fseg, fsrc), "")))
-    # K12: q17_table's FINAL merge of the same state rows into its 1,024-slot
-    # table (the wide SUM's share of the launch: three limb adds, the
-    # renormalisation, the has flag), and beside it the lexicographic fold
-    # of a 262,144-row batch (MIN and MAX of a decimal(38,2) column: K5's
-    # sort by slot, then one thread a run)
-    fns = wide_upd_fns()
-    sum3 = fns[2]
-    slots = torch.where(fexists, fk[0] * 10 + fk[1], 1024)
-    cols = [DeviceColumn(T.I64, d, v) for d, v in fstates[2]]
-    tabs12 = {}
-    for name, update in (("kernel", K.slot_update_cuda), ("plain", K.slot_update_plain)):
-        st = sum3.init_state(1024, dev)
-        update(slots, fexists, sum3.merge_ops(st, cols))
-        tabs12[name] = st
-    check_equal("slot_update:limbs", "q17_table FINAL", tabs12["kernel"], tabs12["plain"])
-    st = sum3.init_state(1024, dev)
-    mops12 = sum3.merge_ops(st, cols)
-    gate = fstates[2][3][0] & fstates[2][3][1]
-    ltabs = torch.zeros((3, 1024), dtype=torch.int64, device=dev)
-    lsrc = [torch.where(gate, fstates[2][q][0], 0) for q in range(3)]
-    lex_st = [f.init_state(1024, dev) for f in fns[4:]]
-    lslots = slot[:n].clone()
-    lex_ops_ = [op for f, s_ in zip(fns[4:], lex_st) for op in f.update_ops(s_, args[2][0],
-                                                                             exists)]
-    results.append(dict(
-        name="slot_update:limbs", route="cuda", source="blaze_tpu_torch/csrc/slot_update.cu",
-        replaces="blaze_tpu/ops/aggfns.py:320",
-        shape=f"{frows} state rows -> {groups} of 1,024 slots (q17_table's FINAL merge: "
-              "three-limb SUM + renormalisation + has)",
-        cases=upd_cases, ms=time_ms(lambda: K.slot_update_cuda(slots, fexists, mops12)),
-        plain_ms=time_ms(lambda: K.slot_update_plain(slots, fexists, mops12)),
-        library_ms=time_ms(lambda: chain(ltabs, slots.clamp(max=1023), lsrc)),
-        library_call="3x index_add_ of the gated limbs into the slot tables (no "
-                     "renormalisation; a chain)",
-        # a row's slot, mask, three limbs and the has flag's data and
-        # validity read once; a touched slot's three limbs read and written
-        # once, its flag written
-        bytes=frows * (8 + 1 + 24 + 2) + groups * (2 * 24 + 1),
-        fold_ms=time_ms(lambda: K.slot_update_cuda(lslots, exists, lex_ops_)),
-        fold_replaces="blaze_tpu/ops/aggfns.py:161",
-        fold_shape="262144 rows -> <= 500 of 1,024 slots (MIN and MAX of decimal(38,2))"))
 
 
 # -- K14: range-partition ids -------------------------------------------------------
@@ -4521,23 +4632,47 @@ def k19_library_chain(kd, kv, ad, av):
             torch.where(av, ad >> 32, 0), av.clone())
 
 
+def host_ms(fn, iters=200):
+    """The host's time of one call that only enqueues work: the clock
+    around ``iters`` calls, synchronised before and after but not
+    between."""
+    import torch
+
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
 def kernel_k19(dev, rng, results):
     """K19 against its plain version on every battery case and on
-    cust_spend's batch, bit for bit; timed there beside the plain version
-    and the library chain."""
+    cust_spend's batch, bit for bit, each battery case once with a fresh
+    pack and then every case through one pack (a task's batches); timed at
+    cust_spend's batch beside the plain version and the library chain, with
+    the wrapper's host time alone."""
     import torch
     from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.utils import cuda_lib
 
+    shared = K.PassthroughPack()
     cases = []
     for case in PASS_CASES:
         args = pass_inputs(pass_case(case, rng), case[3], dev)
-        check_equal("passthrough_states", case[0], K.passthrough_states_cuda(*args)[1:],
-                    K.passthrough_states_plain(*args)[1:])
+        want = K.passthrough_states_plain(*args)[1:]
+        for pack in (K.PassthroughPack(), shared):
+            check_equal("passthrough_states", case[0],
+                        K.passthrough_states_cuda(*args, pack=pack)[1:], want)
         cases.append(case[0])
     cap = 262144
     host = cust_spend_batch(rng, cap)
     args = pass_inputs(host, cap, dev)
-    got = K.passthrough_states_cuda(*args)
+    pack = K.PassthroughPack()
+    got = K.passthrough_states_cuda(*args, pack=pack)
     check_equal("passthrough_states", "cust_spend batch", got[1:],
                 K.passthrough_states_plain(*args)[1:])
     cases.append("cust_spend batch")
@@ -4547,7 +4682,7 @@ def kernel_k19(dev, rng, results):
                 (got[2], got[4], got[5], got[6]), chain)
 
     def k19():
-        return K.passthrough_states_cuda(*args)
+        return K.passthrough_states_cuda(*args, pack=pack)
 
     results.append(dict(
         name="passthrough_states", route="cuda", source="blaze_tpu_torch/csrc/passthrough.cu",
@@ -4556,8 +4691,15 @@ def kernel_k19(dev, rng, results):
               "(1% null), SUM of a decimal(18,2) into decimal(28,2): the sum2 limbs and "
               "has flag",
         cases=cases, ms=time_ms(k19), device_ms=kernel_device_ms(k19, "blz_passthrough"),
+        host_ms=host_ms(k19),
         plain_ms=time_ms(lambda: K.passthrough_states_plain(*args)),
         library_ms=time_ms(lambda: k19_library_chain(kd, kv, ad, av)),
+        library_device_ms=kernel_device_ms(lambda: k19_library_chain(kd, kv, ad, av), ""),
+        library_host_ms=host_ms(lambda: k19_library_chain(kd, kv, ad, av)),
+        # the host ms of reading the current stream: a torch.cuda.Stream
+        # object, and the raw handle the wrappers read
+        stream_object_ms=host_ms(lambda: torch.cuda.current_stream(dev).cuda_stream),
+        stream_raw_ms=host_ms(lambda: cuda_lib.stream_handle(0)),
         library_call="torch.where per key and limb plane, & and >> for the limbs, a copy "
                      "of the has flag (a chain: no single PyTorch call computes the "
                      "passthrough)",

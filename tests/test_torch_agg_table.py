@@ -171,28 +171,76 @@ def test_first_ties_take_the_last_row():
 
 
 def test_slot_update_pack_repacks_only_when_a_table_changes():
-    """K12's argument pack, one a launch in the host table: the words that
-    stay the same pack once while the tables stay, each call points the
-    row arrays at its own batch's planes, a grown table packs anew, and
-    the rows are still checked on every call."""
+    """K12's argument words, one pack a launch in the host table: the
+    words that stay the same pack once while the tables stay, each call
+    points the rows' words at its own batch's planes, a grown table packs
+    anew, and the rows are still checked on every call."""
     fn = upd_fns()[0]  # SUM of int64: an ADD and a FLAG, gated by validity
     pack = K.SlotUpdatePack()
     st = fn.init_state(1024, torch.device("cpu"))
+    slots, mask = torch.zeros(8, dtype=torch.int64), torch.ones(8, dtype=torch.bool)
+    add, flag = K._UPD_HEAD, K._UPD_HEAD + K._UPD_OP_WORDS
     packed = []
     for _ in range(2):
         v, ok = torch.arange(8), torch.ones(8, dtype=torch.bool)
-        static, (src, valid, order, wvalid) = pack.args(fn.update_ops(st, v, ok), 8, 1024)
-        packed.append(static)
-        assert src[0] == v.data_ptr() and src[1] is None and order[0] is None
-        assert valid[0] == valid[3] == ok.data_ptr() and valid[1] is None
-    assert packed[1] is packed[0] and packed[0][3][0] == st[0].data_ptr()
+        w = pack.bind(slots, mask, fn.update_ops(st, v, ok))
+        packed.append(w)
+        assert w[add + K._UO_SRC] == v.data_ptr() and w[flag + K._UO_SRC] == 0
+        assert w[add + K._UO_VALID] == w[flag + K._UO_VALID] == ok.data_ptr()
+        assert w[add + K._UO_VALID + 1] == 0 and w[add + K._UO_ORDER] == 0
+        assert w[K._UW_SLOTS] == slots.data_ptr() and w[K._UW_N] == 8
+    assert packed[1] is packed[0] and packed[0][add + K._UO_TABLE] == st[0].data_ptr()
     st = fn.grow(st, 2048)
-    static, _ = pack.args(fn.update_ops(st, v, ok), 8, 2048)
-    assert static is not packed[0] and static[3][0] == st[0].data_ptr()
+    w = pack.bind(slots, mask, fn.update_ops(st, v, ok))
+    assert w is not packed[0] and w[add + K._UO_TABLE] == st[0].data_ptr()
+    assert w[K._UW_CAP] == 2048
     with pytest.raises(TypeError):
-        pack.args([K.SlotUpdate(K.UPD_ADD, st[0], v.double(), [ok])], 8, 2048)
+        pack.bind(slots, mask, [K.SlotUpdate(K.UPD_ADD, st[0], v.double(), [ok])])
     with pytest.raises(ValueError):
-        pack.args(fn.update_ops(st, v[:4], ok[:4]), 8, 2048)
+        pack.bind(slots, mask, fn.update_ops(st, v[:4], ok[:4]))
+
+
+# (UPD_FNS index, whether its ops ask for K5's sort): only a float ADD (a
+# SUM or AVG into a float64 table, AVG of an int64 too) folds in row
+# order; FIRST, the extremes and the integer sums do not
+_SORTS = [(0, False), (1, True), (2, True), (3, False), (4, False), (5, False), (6, True),
+          (7, True), (8, False), (9, False), (11, False), (12, False), (16, False),
+          (17, False)]
+
+
+@pytest.mark.parametrize("fn_at,sorts", _SORTS, ids=[f"{UPD_FNS[i][0]}-{UPD_FNS[i][1]}"
+                                                     for i, _ in _SORTS])
+def test_slot_update_pack_sorts_only_for_a_float_sum(fn_at, sorts):
+    """The pack decides whether a launch needs K5's sort by slot: only a
+    float ADD (a SUM or AVG of a float state) does; FIRST and MIN/MAX run
+    as passes of atomics (the wide extremes: ``test_torch_wide_decimal``)."""
+    fn = upd_fns()[fn_at]
+    cpu = torch.device("cpu")
+    st = fn.init_state(1024, cpu)
+    data = upd_case(UPD_CASES[0], np.random.default_rng(fn_at))["batches"][0]
+    planes = data["planes"][fn_at]
+    t = torch.from_numpy
+    ops = fn.update_ops(st, None, None) if planes is None else \
+        fn.update_ops(st, t(planes[0]), t(planes[1]), t(data["order"]))
+    pack = K.SlotUpdatePack()
+    pack.bind(t(data["slots"]), t(data["mask"]), ops)
+    assert pack.sort is sorts and pack.sort == any(op.folds for op in ops)
+
+
+# one slot, many rows: every row of two batches into slot 0; merged FIRST
+# states share orders (ties), the float sums fold 16,000 rows in order
+_ONE_SLOT = [("update, one slot of 16,000 rows", "update", (16384, 16000), 2, 1, (1024, 1024),
+              0.1, (-50, 50), "mixed"),
+             ("merge, one slot of 16,000 rows, tied orders", "merge", (16384, 16000), 2, 1,
+              (1024, 1024), 0.1, (-50, 50), "mixed")]
+
+
+@pytest.mark.parametrize("case", _ONE_SLOT, ids=[c[1] for c in _ONE_SLOT])
+def test_slot_update_one_slot_of_many_rows_matches_reference(case):
+    """K12's twin against the reference's scatters where every row of a
+    batch hits one slot: a global aggregate's shape (q96's COUNT, a float
+    SUM's long fold, FIRST over tied orders)."""
+    test_slot_update_plain_matches_reference_scatters(case)
 
 
 # -- plan level -----------------------------------------------------------------

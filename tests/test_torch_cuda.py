@@ -23,6 +23,7 @@ import torch
 
 from chip_smoke import (BLOOM_CASES, FUSED_CAPS, K18_CASES, MESH_CASES, PASS_CASES, PROBE_CASES,
                         Q89_ROWS, cust_spend_batch, cust_spend_host, cust_spend_oracle,
+                        narrow_plane, wide_plane,
                         cust_spend_plan, cust_spend_schema, pass_case, pass_inputs,
                         Q96_ROWS, Q98_ROWS, k18_case, k18_flat, k18_torch,
                         RANGE_CASES, SCAN_CASES, SEG_CASES, SEG_LENGTHS, SEG_PROGRAMS,
@@ -818,6 +819,79 @@ def test_slot_update_at_the_main_paths_shape(dev):
     _equal(states[0], states[1])
 
 
+# (label, table capacity, slots the rows draw from, sums only): one slot
+# and 100 slots of 512 (whole warps on one slot; sums only: the
+# renormalisation the only pass-3 op), 1,000 of 1,024 (a few lanes a
+# slot), 6,000 of 8,192 (scattered slots: no warp match)
+_BIG_UPD = [("one slot", 512, 1, False), ("one slot, sums only", 512, 1, True),
+            ("100 slots, sums only", 512, 100, True), ("1,000 slots", 1024, 1000, False),
+            ("6,000 slots", 8192, 6000, False)]
+
+
+def _big_upd_ops(states, planes, dev):
+    """The ops of one 262,144-row batch: COUNT(*), SUM int64, FIRST over
+    tied orders, SUM of decimal(18,2) (two limbs), SUM and MAX of
+    decimal(38,2) (three limbs, the wide extreme), SUM float64."""
+    from blaze_tpu_torch.core import kernels as K
+
+    fns = upd_fns()
+    wide = wide_upd_fns()
+    count, isum, first, dsum, wsum, wmax, fsum = states
+    (a, av), (order, fv, fw, x), (d, dv), (w, wv) = planes
+    val, valid, best = first
+    return (fns[4].update_ops(count, None, None) + fns[0].update_ops(isum, a, av)
+            + [K.SlotUpdate(K.UPD_FIRST, val, a, [fv], order=order, wvalids=[fw],
+                            valid_table=valid, order_table=best)]
+            + wide[0].update_ops(dsum, d, dv) + wide[2].update_ops(wsum, w, wv)
+            + wide[5].update_ops(wmax, w, wv) + fns[1].update_ops(fsum, x, av))
+
+
+@pytest.mark.parametrize("label,cap,nslots,sums", _BIG_UPD, ids=[c[0] for c in _BIG_UPD])
+def test_slot_update_kernel_at_262144_rows(dev, label, cap, nslots, sums):
+    """K12 against its twin over two batches of 262,144 rows (the last 100
+    padding; the live rows passed as ``num_rows``) into ``nslots`` slots:
+    every pass (the atoms with warp aggregation, FIRST's and LEX's
+    tiebreak, the renormalisation a slot) and the float fold (one run of ~262,000 rows for one
+    slot); one K12 launch a call, K5 only for the float SUM."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.utils import cuda_lib
+
+    rng = np.random.default_rng(cap + nslots)
+    rows, n = 262144, 262044
+    drop = (K.UPD_FIRST, K.UPD_LEXMIN, K.UPD_LEXMAX) if sums else ()
+    fns, wide = upd_fns(), wide_upd_fns()
+    makers = [fns[4], fns[0], fns[16], wide[0], wide[2], wide[5], fns[1]]
+    tables = {}
+    for name, update in (("kernel", K.slot_update_cuda), ("plain", K.slot_update_plain)):
+        tables[name] = [f.init_state(cap, dev) for f in makers]
+    batch_rng = np.random.default_rng(rng.integers(1 << 30))
+    for _ in range(2):
+        live = np.arange(rows) < n
+        slots = np.where(live, batch_rng.integers(0, nslots, rows), cap)
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+        a = np.where(batch_rng.random(rows) < 0.3, batch_rng.integers(-(1 << 62), 1 << 62, rows),
+                     batch_rng.integers(-1000, 1000, rows))
+        dec = narrow_plane("mixed", rows, n, batch_rng, 0.1)
+        wid = wide_plane("mixed", rows, n, batch_rng, 0.1)
+        planes = [(t(a), t(live & (batch_rng.random(rows) >= 0.1))),
+                  (t(batch_rng.integers(0, 3, rows)), t(live & (batch_rng.random(rows) >= 0.2)),
+                   t(batch_rng.random(rows) >= 0.5), t(batch_rng.normal(size=rows) * 1e6)),
+                  (t(dec[0]), t(dec[1])), (tuple(t(x) for x in wid[:3]), t(wid[3]))]
+        for name, update in (("kernel", K.slot_update_cuda), ("plain", K.slot_update_plain)):
+            ops = [op for op in _big_upd_ops(tables[name], planes, dev) if op.kind not in drop]
+            cuda_lib.reset_launch_counts()
+            update(t(slots), t(live), ops, num_rows=n)
+            if name == "kernel":
+                counts = cuda_lib.launch_counts()
+                assert counts["slot_update"] == 1 and counts["lexsort_indices"] == 1
+                update(t(slots), t(live), ops[:-2], num_rows=n)  # no float SUM: no sort
+                assert cuda_lib.launch_counts()["lexsort_indices"] == 1
+            else:
+                update(t(slots), t(live), ops[:-2], num_rows=n)
+    torch.cuda.synchronize()
+    _equal(tables["kernel"], tables["plain"])
+
+
 def test_q96_on_the_card_equals_the_cpu(dev, monkeypatch):
     """chip_smoke.py's q96 at 300,000 store_sales rows on the card and on
     the CPU: the same count as numpy; K12 launched on every joined batch
@@ -1509,6 +1583,21 @@ def test_passthrough_kernel(dev, case):
     else:
         args = pass_inputs(pass_case(case, rng), case[3], dev)
     _equal(K.passthrough_states_cuda(*args)[1:], K.passthrough_states_plain(*args)[1:])
+
+
+def test_passthrough_kernel_across_a_tasks_batches(dev):
+    """K19 through one pack over three batches of a task (cust_spend's
+    program; the last batch partial, as a partition's last is), each bit
+    for bit its twin: the pack's words point at each batch's planes."""
+    from blaze_tpu_torch.core import kernels as K
+
+    rng = np.random.default_rng(19)
+    pack = K.PassthroughPack()
+    for n in (262144, 262144, 100_003):
+        args = pass_inputs(cust_spend_batch(rng), n, dev)
+        _equal(K.passthrough_states_cuda(*args, pack=pack)[1:],
+               K.passthrough_states_plain(*args)[1:])
+    assert pack.words[K._PW_ROWS] == 100_003
 
 
 def test_passthrough_launches_or_raises_and_never_takes_the_twin(dev, monkeypatch):

@@ -130,6 +130,70 @@ def test_passthrough_twin_matches_jax(case):
         _same(j, t)
 
 
+def _pass_words_point_at(w, args, key_out, outs):
+    """The words of one batch point at its planes and its outputs."""
+    keys, kvalids, _exists, n, ops, _emits = args
+    assert w[K._PW_ROWS] == n and w[K._PW_K] == len(keys)
+    for j, (d, v, o) in enumerate(zip(keys, kvalids, key_out)):
+        b = K._PASS_HEAD + j * K._PASS_KEY_WORDS
+        assert (w[b], w[b + 1], w[b + 2]) == (d.data_ptr(), v.data_ptr(), o.data_ptr())
+    for o, op in enumerate(ops):
+        b = K._PASS_OPS_AT + o * K._PASS_OP_WORDS
+        assert w[b + 3] == (0 if op.src is None else op.src.data_ptr())
+        assert w[b + 4] == (0 if op.src0 is None else op.src0.data_ptr())
+        assert [w[b + 5 + q] for q in range(len(op.valids))] == [v.data_ptr()
+                                                                 for v in op.valids]
+        assert w[b + 9] == K._bits(op)  # the init's bits, a float's from struct
+    for c, out in enumerate(outs):
+        assert w[K._PASS_EMITS_AT + c * K._PASS_EMIT_WORDS + 6] == out.data_ptr()
+
+
+@pytest.mark.parametrize("case", PASS_CASES[:5], ids=[c[0] for c in PASS_CASES[:5]])
+def test_passthrough_pack_reuses_the_program_across_a_tasks_batches(case):
+    """K19's argument words, one pack a task: three batches of one program
+    pack it once, each batch writing only its planes' and outputs'
+    pointers (CPU tensors' data_ptr stand in for the card's); the outputs
+    are the twin's dtypes and shapes."""
+    rng = np.random.default_rng(len(case[0]))
+    pack = K.PassthroughPack()
+    words = []
+    for _ in range(3):
+        args = pass_inputs(pass_case(case, rng), case[3], "cpu")
+        w, key_out, outs = pack.bind(*args)
+        words.append(w)
+        _pass_words_point_at(w, args, key_out, outs)
+        want = K.passthrough_states_plain(*args)
+        got = [o for d, _v in zip(key_out, args[1]) for o in (d, None)] + outs
+        for g, t in zip(got, want[2:]):
+            if g is not None:
+                assert (g.dtype, g.shape) == (t.dtype, t.shape)
+    assert words[0] is words[1] is words[2]
+
+
+def test_passthrough_pack_repacks_when_the_program_changes():
+    """Another program packs anew: other ops (another case), the same ops
+    at another capacity, a float init, and a key of another width; a
+    plane of the wrong dtype or length is refused on every batch."""
+    rng = np.random.default_rng(11)
+    pack = K.PassthroughPack()
+    first = pass_inputs(pass_case(PASS_CASES[0], rng), PASS_CASES[0][3], "cpu")
+    w0, _, _ = pack.bind(*first)
+    for case in (PASS_CASES[1], PASS_CASES[2], PASS_CASES[0]):
+        args = pass_inputs(pass_case(case, rng), case[3], "cpu")
+        w, key_out, outs = pack.bind(*args)
+        assert w is not w0 and w[K._PW_CAP] == case[2] and w[K._PW_NOPS] == len(args[4])
+        _pass_words_point_at(w, args, key_out, outs)
+        w0 = w
+    keys, kvalids, exists, n, ops, emits = args
+    w, _, _ = pack.bind([keys[0].to(torch.int32)], kvalids, exists, n, ops, emits)
+    assert w is not w0 and w[K._PASS_HEAD + 3] == 4
+    ops[0].src = ops[0].src.to(torch.int32)
+    with pytest.raises(TypeError, match="passthrough_states"):
+        pack.bind(keys, kvalids, exists, n, ops, emits)
+    with pytest.raises(TypeError, match="passthrough_states"):
+        pack.bind([keys[0][:8]], kvalids, exists, n, ops, emits)
+
+
 def test_passthrough_state_semantics():
     """The traps of a one-row segment: a float sum starts from +0.0 (-0.0
     sums to +0.0, NaN stays NaN), a rescaled int64 sum wraps, float32

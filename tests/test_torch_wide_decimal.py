@@ -53,7 +53,8 @@ from blaze_tpu_torch.ir.carry import from_foreign
 from blaze_tpu_torch.ops import agg_device as A
 from blaze_tpu_torch.ops import aggfns
 from chip_smoke import (WIDE_CASES, WIDE_UPD_CASES, WIDE_UPD_FNS, ints_of, limbs_of,
-                        wide_case, wide_upd_case, wide_upd_fns, wide_upd_run, wide_upd_types)
+                        wide_case, wide_torch, wide_upd_case, wide_upd_fns, wide_upd_run,
+                        wide_upd_types)
 
 torch.set_num_threads(1)
 
@@ -402,6 +403,38 @@ def test_slot_update_limbs_match_reference(case):
             bound = 10 ** fn.result_type.precision
             assert got == [_dec(v, 2) if ok and -bound < v < bound else None
                            for v, ok in zip(ints, p[-1])], (name, arg)
+
+
+# one slot, many rows: every row of two batches into slot 0, the wide
+# extremes' l2 tied across most rows (int64-sized values: l2 is 0 or -1)
+_ONE_SLOT_UPD = [("update, one slot of 16,000 rows, tied l2", "update", (16384, 16000), 2, 1,
+                  (1024, 1024), 0.1, "mixed"),
+                 ("merge, one slot of 16,000 rows, tied l2", "merge", (16384, 16000), 2, 1,
+                  (1024, 1024), 0.1, "extremes")]
+
+
+@pytest.mark.parametrize("case", _ONE_SLOT_UPD, ids=[c[1] for c in _ONE_SLOT_UPD])
+def test_slot_update_limbs_one_slot_of_many_rows(case):
+    """K12's limb ops where every row of a batch hits one slot (a global
+    wide SUM and the wide extremes over tied l2): the twin against the
+    reference's scatters, as ``test_slot_update_limbs_match_reference``."""
+    test_slot_update_limbs_match_reference(case)
+
+
+@pytest.mark.parametrize("at", range(len(WIDE_UPD_FNS)),
+                         ids=[f"{f}-{a}" for f, a in WIDE_UPD_FNS])
+def test_slot_update_pack_never_sorts_a_limb_op(at):
+    """No limb op asks K12's pack for K5's sort: the limb sums and their
+    renormalisation are atomics and a pass a slot, the wide extremes a
+    best-l2 pass, a tiebreak pass and a pass a slot."""
+    data = wide_upd_case(WIDE_UPD_CASES[0], np.random.default_rng(at))["batches"][0]
+    fn = wide_upd_fns()[at]
+    cpu = torch.device("cpu")
+    d, v = wide_torch(data["planes"][at], cpu)
+    ops = fn.update_ops(fn.init_state(1024, cpu), d, v)
+    pack = K.SlotUpdatePack()
+    pack.bind(*wide_torch((data["slots"], data["mask"]), cpu), ops)
+    assert pack.sort is False and not any(op.folds for op in ops)
 
 
 def test_limb_final_overflow_nulls():
