@@ -18,9 +18,10 @@ class Config:
     batch_size: int = 262144
 
     # Device FINAL/PARTIAL_MERGE aggregation buffers all partial-state
-    # batches before one merge kernel call. The host spill table the JAX
-    # package falls back to beyond this is not ported: past it the merge
-    # raises NotImplementedError (ROADMAP.md Queue 2).
+    # batches before one merge kernel call. Past this many bytes the staged
+    # batches and the rest of the stream go to the host aggregation table
+    # (ops/agg.py ``AggTable``, ROADMAP.md Queue 1 item 3), as the JAX
+    # package's spill table does.
     device_merge_max_bytes: int = 256 << 20
 
     # The slot-table routes of the grouped aggregation (K3/K4): dense_agg

@@ -6,10 +6,12 @@ launches the kernel or raises.
 
 - K1 ``compact_planes`` (csrc/compact.cu): FilterExec's stable compaction.
 - K5 ``sort_key_operands`` + ``lexsort_indices`` (csrc/sort.cu): the sort
-  keys' (rank, value) operands and a stable LSD radix sort over them.
+  keys' (rank, value) operands and a stable LSD radix sort over them, one
+  launch and no host sync; ``partition_order`` sorts partition ids.
 - K6 ``gather_planes`` (csrc/gather.cu): ``ColumnarBatch.take``.
-- K7 ``slice_planes`` / ``concat_planes`` (csrc/gather.cu):
-  ``ColumnarBatch.slice`` and ``.concat``.
+- K7 ``slice_planes`` / ``concat_planes`` / ``split_planes``
+  (csrc/gather.cu): ``ColumnarBatch.slice`` and ``.concat``, and the
+  exchange's bucketize split of a batch by the partition order.
 - K8 ``inner_join_planes`` (csrc/join.cu): the unique-key inner
   broadcast join of one probe batch (probe, stable compaction, gathers
   of both sides); the join key's canonical word is ops/joins/keymap.py's
@@ -165,11 +167,20 @@ def concat_planes_plain(per_field_datas: List[List[torch.Tensor]],
             [cat(p) for p in per_field_valids])
 
 
+# csrc/gather.cu: the by-value table of the slice/concat kernel
+_CAT_MAX_SRC, _CAT_MAX_PLANES, _CAT_MAX_REFS = 8, 32, 128
+# csrc/gather.cu: partitions and output planes of the split's by-value table
+_SPLIT_MAX_PARTS, _SPLIT_MAX_DSTS = 64, 256
+_PLL = cuda_lib.ctypes.POINTER(cuda_lib.ctypes.c_longlong)
+
+
 def _rows_of_sources(name: str, per_plane: List[List[torch.Tensor]],
                      counts: Sequence[int], starts: Sequence[int], out_cap: int):
     """K7 on the card: output row r of the k sources (source b holds
     counts[b] rows from starts[b]) in one launch; rows past the total are
-    padding."""
+    padding. The table goes by value, or through the library's pinned
+    buffer when it is too large. Each output plane is its own allocation,
+    so a consumer that keeps one plane frees the others."""
     if not per_plane:
         return []
     k = len(counts)
@@ -184,19 +195,22 @@ def _rows_of_sources(name: str, per_plane: List[List[torch.Tensor]],
     for parts in per_plane:
         if len(parts) != k or any(t.dtype != parts[0].dtype for t in parts):
             raise ValueError(f"{name}: every source needs each plane, one dtype")
-    outs = [torch.empty(out_cap, dtype=parts[0].dtype, device=dev)
-            for parts in per_plane]
+    outs = [torch.empty(out_cap, dtype=parts[0].dtype, device=dev) for parts in per_plane]
+    np_ = len(per_plane)
     prefix = np.zeros(k + 1, dtype=np.int64)
     np.cumsum(counts, out=prefix[1:])
-    table = np.concatenate([
-        prefix, np.asarray(starts, dtype=np.int64),
+    words = np.concatenate([
+        np.array([k, np_, out_cap], dtype=np.int64), prefix,
+        np.asarray(starts, dtype=np.int64),
         np.array([o.data_ptr() for o in outs], dtype=np.uint64).view(np.int64),
         np.array([o.element_size() for o in outs], dtype=np.int64),
         np.array([t.data_ptr() for t in flat], dtype=np.uint64).view(np.int64),
         np.array([t.shape[0] for t in flat], dtype=np.int64)])
-    dev_table = torch.from_numpy(table).to(dev, non_blocking=True)
+    staged = None
+    if k > _CAT_MAX_SRC or np_ > _CAT_MAX_PLANES or np_ * k > _CAT_MAX_REFS:
+        staged = torch.empty(len(words) - 3, dtype=torch.int64, device=dev)
     err = cuda_lib.library().blz_concat_planes(
-        dev_table.data_ptr(), k, len(per_plane), out_cap,
+        words.ctypes.data_as(_PLL), staged.data_ptr() if staged is not None else None,
         cuda_lib.stream_of(dev))
     cuda_lib.check(err, name)
     cuda_lib.LAUNCHES[name] += 1
@@ -237,6 +251,80 @@ def concat_planes(per_field_datas: List[List[torch.Tensor]],
     on_cuda = bool(per_field_datas) and per_field_datas[0][0].is_cuda
     fn = concat_planes_cuda if on_cuda else concat_planes_plain
     return fn(per_field_datas, per_field_valids, num_rows, out_cap)
+
+
+def split_planes_plain(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                       order: torch.Tensor, counts: Sequence[int], caps: Sequence[int]):
+    """The exchange's bucketize split: partition p's rows are
+    ``order[pre[p]:pre[p] + counts[p]]`` (pre = exclusive sum of the
+    counts), gathered into ``caps[p]``-row planes, padding past its count;
+    None for an empty partition. Plain twin of K7's split form, the same
+    function as blaze_tpu/core/kernels.py:_gather_n by the order followed
+    by a _dyn_slice per partition."""
+    out, pre = [], 0
+    for c, cap in zip(counts, caps):
+        out.append(gather_planes_plain(datas, valids, order[pre:pre + c], cap, c)
+                   if c else None)
+        pre += c
+    return out
+
+
+def split_planes_cuda(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                      order: torch.Tensor, counts: Sequence[int], caps: Sequence[int]):
+    """K7's split form on the card (csrc/gather.cu ``blz_split_planes``):
+    same result as :func:`split_planes_plain`, every partition and plane
+    in one launch (32 planes a launch). Each output plane is its own
+    allocation, as a take's and a slice's are."""
+    planes = list(datas) + list(valids)
+    cuda_lib.require_cuda("split_planes", order, *planes)
+    _check_planes("split_planes", planes)
+    counts, caps = [int(c) for c in counts], [int(c) for c in caps]
+    if order.dtype != torch.int64 or order.dim() != 1 or \
+            order.shape[0] < sum(counts) or len(caps) != len(counts) or \
+            any(c < 0 or c > cap for c, cap in zip(counts, caps)):
+        raise ValueError(f"split_planes: {counts} rows into {caps} by an order of "
+                         f"{tuple(order.shape)} {order.dtype}")
+    dev = order.device
+    k = len(datas)
+    live = [p for p, c in enumerate(counts) if c]
+    out = [None] * len(counts)
+    if not live or not planes:
+        for p in live:
+            out[p] = ([], [])
+        return out
+    dsts = []
+    for p in live:
+        outs = [torch.empty(caps[p], dtype=t.dtype, device=dev) for t in planes]
+        dsts += [o.data_ptr() for o in outs]
+        out[p] = (outs[:k], outs[k:])
+    pre = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=pre[1:])
+    rowpre = np.zeros(len(live) + 1, dtype=np.int64)
+    np.cumsum([caps[p] for p in live], out=rowpre[1:])
+    plane_words = np.array([[t.data_ptr(), t.shape[0], t.element_size()] for t in planes],
+                           dtype=np.uint64).view(np.int64)
+    words = np.concatenate([
+        np.array([len(planes), len(live), order.data_ptr()], dtype=np.uint64).view(np.int64),
+        plane_words.reshape(-1), rowpre, pre[live], pre[live[-1] + 1:live[-1] + 2],
+        np.array(dsts, dtype=np.uint64).view(np.int64)])
+    staged = None
+    if len(live) > _SPLIT_MAX_PARTS or len(live) * len(planes) > _SPLIT_MAX_DSTS:
+        staged = torch.empty(2 * len(live) + 2 + len(dsts), dtype=torch.int64, device=dev)
+    err = cuda_lib.library().blz_split_planes(
+        words.ctypes.data_as(_PLL), staged.data_ptr() if staged is not None else None,
+        cuda_lib.stream_of(dev))
+    cuda_lib.check(err, "split_planes")
+    cuda_lib.LAUNCHES["split_planes"] += 1
+    return out
+
+
+def split_planes(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                 order: torch.Tensor, counts: Sequence[int], caps: Sequence[int]):
+    """``Repartitioner.bucketize``'s split of a batch's planes by the
+    partition order: K7's split form on a CUDA order, the plain version on
+    a CPU one. Returns per partition (datas, valids), None where empty."""
+    fn = split_planes_cuda if order.is_cuda else split_planes_plain
+    return fn(datas, valids, order, counts, caps)
 
 
 # -- K1: stable compaction -----------------------------------------------------
@@ -696,8 +784,8 @@ def radix_pack(key_data, key_valid, exists, bases, sizes, strides):
 _KEY_BOOL, _KEY_INT, _KEY_FLOAT = 0, 1, 2
 _WORD_UNSIGNED, _WORD_SIGNED, _WORD_FLOAT = 0, 1, 2
 _MAX_SORT_KEYS = 16
-# csrc/sort.cu BLZ_SORT_TILE: rows per block of a radix pass
-SORT_TILE = cuda_lib.THREADS * 4
+# csrc/sort.cu's rank of a padding (or dead) row in the key pass's rank plane
+RANK_DEAD = 6
 
 
 def sort_key_operands_plain(datas, valids, exists, spec):
@@ -790,26 +878,96 @@ def sort_key_operands(datas, valids, exists, spec):
     return fn(datas, valids, exists, spec)
 
 
-def lexsort_indices_plain(operands: List[torch.Tensor],
-                          num_rows: Optional[int] = None) -> torch.Tensor:
+def _sort_words(op: torch.Tensor) -> torch.Tensor:
+    """csrc/sort.cu ``blz_sort_word`` as int64 (the uint64 word's bits):
+    the order-preserving word of each value of ``op``."""
+    size = op.element_size()
+    if op.dtype in (torch.uint8, torch.bool):
+        return op.to(torch.int64)
+    if op.dtype in (torch.float32, torch.float64):
+        bits = op.view(torch.int64) if size == 8 else \
+            op.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        sign = -(1 << 63) if size == 8 else 1 << 31
+        full = -1 if size == 8 else 0xFFFFFFFF
+        bits = torch.where(bits == sign, 0, bits)  # -0.0 sorts as +0.0
+        w = torch.where((bits & sign) != 0, ~bits & full, bits | sign)
+        return torch.where(torch.isnan(op), full, w)
+    if size == 8:
+        return op ^ -(1 << 63)
+    return (op.to(torch.int64) & ((1 << (8 * size)) - 1)) ^ (1 << (8 * size - 1))
+
+
+def radix_digits(sizes: Sequence[int], widths: Optional[Sequence[int]] = None
+                 ) -> List[Tuple[int, int]]:
+    """(operand, bit shift) of every 8-bit digit that may vary, least
+    significant first: an operand's low ``widths[o]`` bytes (all of them
+    by default). The digits above an operand's width are the same in
+    every row (a pid below 256 is one byte, a rank plane one byte), so
+    the caller's widths are what lets the sort skip them without reading
+    the rows."""
+    widths = list(sizes) if widths is None else list(widths)
+    if len(widths) != len(sizes) or any(not 0 < w <= s for w, s in zip(widths, sizes)):
+        raise ValueError(f"lexsort_indices: widths {widths} for operand sizes {list(sizes)}")
+    return [(o, 8 * b) for o in reversed(range(len(sizes))) for b in range(widths[o])]
+
+
+def radix_passes(and_or: np.ndarray, sizes: Sequence[int],
+                 widths: Optional[Sequence[int]] = None) -> List[Tuple[int, int]]:
+    """(operand, bit shift) of every 8-bit digit that is not the same in
+    all rows, least significant first: K5's pass list, the digits of
+    :func:`radix_digits` whose histogram has more than one bin. ``and_or``
+    holds per operand the AND and the OR of its order-preserving words
+    over the rows the passes sort."""
+    passes = []
+    for o, shift in radix_digits(sizes, widths):
+        differ = int(and_or[2 * o]) ^ int(and_or[2 * o + 1])
+        if (differ >> shift) & 0xFF:
+            passes.append((o, shift))
+    return passes
+
+
+def lexsort_indices_plain(operands: List[torch.Tensor], num_rows: Optional[int] = None,
+                          widths: Optional[Sequence[int]] = None,
+                          dead_last: bool = False) -> torch.Tensor:
     """Indices that sort rows lexicographically by ``operands`` (first
-    operand most significant), ties in row order: successive stable sorts
-    from the least significant operand (plain twin of K5's sort). Only
-    rows [0, num_rows) are sorted; the rows past them keep their place
-    at the end, as padding rows (rank 6 in the first operand, every value
-    0) would in a sort of all rows."""
+    operand most significant), ties in row order; plain twin of K5's sort,
+    by its algorithm: one stable pass per digit of :func:`radix_digits`
+    that is not the same in every sorted row, least significant first.
+    Only rows [0, num_rows) are sorted; the rows past them keep their
+    place at the end, as padding rows (rank 6 in the first operand, every
+    value 0) would in a sort of all rows. With ``dead_last`` the first
+    operand is the key pass's rank plane: its rank-6 rows below num_rows
+    (a fused aggregate's dead rows) go after the others in row order, as
+    the sort of all rows puts them, and take no part in the passes."""
     n = operands[0].shape[0]
     m = n if num_rows is None else num_rows
-    idx = torch.arange(m, dtype=torch.int64, device=operands[0].device)
-    for op in reversed(operands):
-        key = op[idx]
-        if key.dtype == torch.uint8:
-            key = key.to(torch.int16)
-        order = torch.sort(key, stable=True).indices
-        idx = idx[order]
+    dev = operands[0].device
+    if dead_last and operands[0].dtype != torch.uint8:
+        raise TypeError("lexsort_indices: dead_last needs the rank plane first")
+    digits = radix_digits([op.element_size() for op in operands], widths)
+    words = [_sort_words(op[:m]) for op in operands]
+    live = operands[0][:m] != RANK_DEAD if dead_last else \
+        torch.ones(m, dtype=torch.bool, device=dev)
+    nlive = int(live.sum())
+    passes = []
+    for o, shift in digits:
+        b = (words[o][live] >> shift) & 0xFF
+        if nlive and bool(b.min() != b.max()):
+            passes.append((o, shift))
+    if not passes and 0 < nlive < m:
+        passes = digits[:1]  # the compaction of the dead rows alone
+    idx = torch.arange(m, dtype=torch.int64, device=dev)
+    for r, (o, shift) in enumerate(passes):
+        if r == 0:
+            key = torch.where(live, (words[o] >> shift) & 0xFF, 256)
+            idx = idx[torch.sort(key.to(torch.int16), stable=True).indices]
+        else:
+            head = idx[:nlive]
+            key = (words[o][head] >> shift) & 0xFF
+            idx = torch.cat([head[torch.sort(key.to(torch.int16), stable=True).indices],
+                             idx[nlive:]])
     if m < n:
-        idx = torch.cat([idx, torch.arange(m, n, dtype=torch.int64,
-                                           device=idx.device)])
+        idx = torch.cat([idx, torch.arange(m, n, dtype=torch.int64, device=dev)])
     return idx
 
 
@@ -823,74 +981,91 @@ def _word_kind(t: torch.Tensor) -> int:
     raise TypeError(f"lexsort_indices: operand of dtype {t.dtype}")
 
 
-def radix_passes(and_or: np.ndarray, sizes: Sequence[int]) -> List[Tuple[int, int]]:
-    """(operand, bit shift) of every 8-bit digit that is not the same in
-    all rows, least significant first: K5's pass list. ``and_or`` holds
-    per operand the AND and the OR of its order-preserving words."""
-    passes = []
-    for o in reversed(range(len(sizes))):
-        differ = int(and_or[2 * o]) ^ int(and_or[2 * o + 1])
-        passes += [(o, 8 * b) for b in range(sizes[o]) if (differ >> (8 * b)) & 0xFF]
-    return passes
-
-
-def lexsort_indices_cuda(operands: List[torch.Tensor],
-                         num_rows: Optional[int] = None) -> torch.Tensor:
-    """K5's stable LSD radix sort on the card (csrc/sort.cu); same result
-    as :func:`lexsort_indices_plain`. One sync: the per-operand bits that
-    decide which digit passes run."""
-    cuda_lib.require_cuda("lexsort_indices", *operands)
+def lexsort_indices_cuda(operands: List[torch.Tensor], num_rows: Optional[int] = None,
+                         widths: Optional[Sequence[int]] = None, dead_last: bool = False,
+                         hist: Optional[torch.Tensor] = None,
+                         trace: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5's stable LSD radix sort on the card (csrc/sort.cu), one launch
+    and no device-to-host copy: the kernel chooses its digit passes from
+    its own histograms. Same result as :func:`lexsort_indices_plain`.
+    ``hist`` (256 int64 on the card): receives the histogram of the least
+    significant digit of the last operand over the sorted rows (a one-byte
+    pid's partition counts). ``trace`` (64 int64 on the card, measurement
+    only): the %globaltimer ns at each phase boundary of the launch
+    (csrc/sort.cu ``blz_rs_stamp``)."""
+    cuda_lib.require_cuda("lexsort_indices", *operands, *([hist] if hist is not None else []))
     n = int(operands[0].shape[0])
     m = n if num_rows is None else int(num_rows)
     if not 0 < len(operands) <= 2 * _MAX_SORT_KEYS or not 0 <= m <= n or \
-            n >= 2 ** 31 or any(op.shape != (n,) for op in operands):
+            m >= 2 ** 30 or any(op.shape != (n,) for op in operands):
         raise ValueError(f"lexsort_indices: {len(operands)} operands of "
                          f"{[tuple(o.shape) for o in operands]}, {m} rows")
+    if dead_last and operands[0].dtype != torch.uint8:
+        raise TypeError("lexsort_indices: dead_last needs the rank plane first")
+    if hist is not None and (hist.dtype != torch.int64 or hist.shape != (256,)):
+        raise ValueError("lexsort_indices: hist must be 256 int64")
     dev = operands[0].device
     out = torch.empty(n, dtype=torch.int64, device=dev)
     if n == 0:
         return out
     lib = cuda_lib.library()
-    sizes = [op.element_size() for op in operands]
-    kinds = [_word_kind(op) for op in operands]
-    keep = []
-
-    def arr(pair):
-        keep.append(pair[1])
-        return pair[0]
-
-    datas = arr(cuda_lib.ptr_array(operands))
-    csizes, ckinds = arr(cuda_lib.int_array(sizes)), arr(cuda_lib.int_array(kinds))
-    stream = cuda_lib.stream_of(dev)
-    passes = []
-    if m > 1:
-        and_or = torch.empty(2 * len(operands), dtype=torch.int64, device=dev)
-        err = lib.blz_sort_bits(len(operands), datas, csizes, ckinds, m,
-                                and_or.data_ptr(), stream)
-        cuda_lib.check(err, "lexsort_indices")
-        passes = radix_passes(and_or.cpu().numpy().view(np.uint64), sizes)
-    ntiles = max(1, -(-m // SORT_TILE))
+    digits = radix_digits([op.element_size() for op in operands], widths)
+    side = lib.blz_radix_sort_scratch(m, n, len(digits))
+    scratch = torch.empty(side, dtype=torch.uint8, device=dev) if side else None
     idx_a = torch.empty(max(m, 1), dtype=torch.int32, device=dev)
     idx_b = torch.empty(max(m, 1), dtype=torch.int32, device=dev)
-    counts = torch.empty(ntiles * 256, dtype=torch.int32, device=dev)
-    err = lib.blz_radix_sort(
-        len(operands), datas, csizes, ckinds, m, n, len(passes),
-        arr(cuda_lib.int_array([o for o, _ in passes])),
-        arr(cuda_lib.int_array([s for _, s in passes])),
-        idx_a.data_ptr(), idx_b.data_ptr(), counts.data_ptr(), out.data_ptr(),
-        stream)
+    bar = torch.empty(1, dtype=torch.int32, device=dev)
+    words = [len(operands), m, n, int(dead_last), out.data_ptr(),
+             hist.data_ptr() if hist is not None else 0,
+             scratch.data_ptr() if scratch is not None else 0, len(digits),
+             trace.data_ptr() if trace is not None else 0, idx_a.data_ptr(), idx_b.data_ptr(),
+             bar.data_ptr()]
+    for op in operands:
+        words += [op.data_ptr(), op.element_size(), _word_kind(op)]
+    for o, shift in digits:
+        words += [o, shift]
+    w = np.array(words, dtype=np.int64)
+    err = lib.blz_radix_sort(w.ctypes.data_as(cuda_lib.ctypes.POINTER(cuda_lib.ctypes.c_longlong)),
+                             cuda_lib.stream_of(dev))
     cuda_lib.check(err, "lexsort_indices")
     cuda_lib.LAUNCHES["lexsort_indices"] += 1
     return out
 
 
-def lexsort_indices(operands: List[torch.Tensor],
-                    num_rows: Optional[int] = None) -> torch.Tensor:
+def lexsort_indices(operands: List[torch.Tensor], num_rows: Optional[int] = None,
+                    widths: Optional[Sequence[int]] = None,
+                    dead_last: bool = False) -> torch.Tensor:
     """The permutation that sorts rows [0, num_rows) by ``operands`` (ties
     in row order), rows past them after, in place: K5 on CUDA operands,
-    the plain version on CPU ones."""
+    the plain version on CPU ones. ``widths``: per operand the low bytes
+    of its order-preserving word that may vary; ``dead_last``: the first
+    operand is a rank plane whose rank-6 rows go last in row order."""
     fn = lexsort_indices_cuda if operands[0].is_cuda else lexsort_indices_plain
-    return fn(operands, num_rows)
+    return fn(operands, num_rows, widths, dead_last)
+
+
+def pid_width(num_partitions: int) -> int:
+    """Bytes of an int32 partition id below ``num_partitions`` that may
+    vary in its sort word."""
+    return max(1, (max(num_partitions - 1, 0).bit_length() + 7) // 8)
+
+
+def partition_order(pids: torch.Tensor, num_partitions: int):
+    """(order, counts): the stable order of the rows by their int32
+    partition id (each below ``num_partitions``) and the rows of each
+    partition as an int64 device tensor. On the card one K5 launch, whose
+    histogram is the counts where an id is one byte (up to 256
+    partitions); past that the counts are a ``bincount``."""
+    width = pid_width(num_partitions)
+    if not pids.is_cuda:
+        order = lexsort_indices_plain([pids], None, [width])
+        return order, torch.bincount(pids.to(torch.int64), minlength=num_partitions)
+    if width == 1:
+        hist = torch.empty(256, dtype=torch.int64, device=pids.device)
+        order = lexsort_indices_cuda([pids], None, [1], hist=hist)
+        return order, hist[:num_partitions]
+    order = lexsort_indices_cuda([pids], None, [width])
+    return order, torch.bincount(pids.to(torch.int64), minlength=num_partitions)
 
 
 # -- K14: range-partition ids ------------------------------------------------------
@@ -1300,7 +1475,7 @@ def segment_ids(key_data, key_valid, exists, num_rows: int, direct: bool = True,
     them."""
     datas, valids = _segment_planes(key_data, key_valid, exists, direct)
     ops = sort_key_operands(datas, valids, exists, [(True, True)] * len(datas))
-    order = lexsort_indices(ops, num_rows)
+    order = lexsort_indices(ops, num_rows, dead_last=True)
     fn = segment_starts_cuda if order.is_cuda else segment_starts_plain
     starts, count = fn(datas, valids, order, num_rows if live_rows is None else live_rows)
     return order, starts, count

@@ -16,13 +16,20 @@
 // an offset past the end yields an empty window, never a clamped one; a
 // concat has every start at 0. Rows past the total are zeroed.
 //
+// K7's split form replaces the exchange's bucketize (a take by the
+// partition order, _gather_n, then a _dyn_slice per partition) with one
+// launch: output row i of partition p reads source row order[pre[p] + i],
+// i < count[p], into p's own planes; the rest of those planes is padding.
+// Each element is read once and written once.
+//
 // Bound on the H100: bytes -- each output element is one read and one
 // write, the index (K6) or the prefix search (K7, log2 k steps over a
-// table that stays in L1) is all the arithmetic. One thread per output
-// row, every plane of the row in the same thread; planes of 1, 2, 4 or 8
-// bytes. K6 takes its plane table by value (32 planes a launch); K7 reads
-// a table the wrapper uploads, since k sources times the planes can be
-// any size.
+// table in the kernel's parameters) is all the arithmetic. One thread per
+// output row, every plane of the row in the same thread (consecutive
+// threads write consecutive rows of a plane); planes of 1, 2, 4 or 8
+// bytes. Tables go by value as kernel parameters (under 4 KB); a table
+// past that (many sources or partitions) is staged through a pinned host
+// buffer the library reuses, never uploaded from pageable memory.
 #include "common.cuh"
 
 #define BLZ_MAX_GATHER_PLANES 32
@@ -89,8 +96,91 @@ BLZ_EXPORT int blz_gather_planes(const int64_t* idx, int64_t n_out,
   return (int)cudaGetLastError();
 }
 
-// The K7 table (int64 words, built by the wrapper): for k sources and np
-// planes,
+// -- pinned staging of a table past the parameter limits ----------------------
+
+#include <mutex>
+#include <string.h>
+
+namespace {
+struct BlzPinned {
+  std::mutex mu;
+  void* host = nullptr;
+  size_t cap = 0;
+  cudaEvent_t done = nullptr;
+  bool pending = false;
+};
+BlzPinned g_pinned;
+}  // namespace
+
+// Copies ``bytes`` of ``src`` (host) to ``dev`` on ``stream`` through one
+// pinned buffer: the copy is asynchronous, and the buffer is refilled only
+// after the previous copy out of it has finished.
+static int blz_stage(const void* src, size_t bytes, void* dev, cudaStream_t stream) {
+  std::lock_guard<std::mutex> guard(g_pinned.mu);
+  cudaError_t err = cudaSuccess;
+  if (g_pinned.done == nullptr) {
+    err = cudaEventCreateWithFlags(&g_pinned.done, cudaEventDisableTiming);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (g_pinned.pending) {
+    err = cudaEventSynchronize(g_pinned.done);
+    if (err != cudaSuccess) return (int)err;
+    g_pinned.pending = false;
+  }
+  if (bytes > g_pinned.cap) {
+    if (g_pinned.host != nullptr) cudaFreeHost(g_pinned.host);
+    g_pinned.host = nullptr;
+    g_pinned.cap = 0;
+    const size_t want = bytes < (size_t)65536 ? (size_t)65536 : 2 * bytes;
+    err = cudaHostAlloc(&g_pinned.host, want, cudaHostAllocDefault);
+    if (err != cudaSuccess) return (int)err;
+    g_pinned.cap = want;
+  }
+  memcpy(g_pinned.host, src, bytes);
+  err = cudaMemcpyAsync(dev, g_pinned.host, bytes, cudaMemcpyHostToDevice, stream);
+  if (err == cudaSuccess) err = cudaEventRecord(g_pinned.done, stream);
+  if (err != cudaSuccess) return (int)err;
+  g_pinned.pending = true;
+  return 0;
+}
+
+// -- K7 slice and concat -----------------------------------------------------------
+
+// The by-value table: k <= 8 sources, np <= 32 planes, np * k <= 128.
+#define BLZ_CAT_MAX_SRC 8
+#define BLZ_CAT_MAX_PLANES 32
+#define BLZ_CAT_MAX_REFS 128
+
+struct CatTable {
+  int k, np;
+  long long prefix[BLZ_CAT_MAX_SRC + 1];      // output row where source b starts
+  long long start[BLZ_CAT_MAX_SRC];           // its first source row
+  unsigned long long dst[BLZ_CAT_MAX_PLANES];
+  int size[BLZ_CAT_MAX_PLANES];
+  unsigned long long src[BLZ_CAT_MAX_REFS];   // plane p of source b at p * k + b
+  long long cap[BLZ_CAT_MAX_REFS];
+};
+
+// One thread an output row, every plane of it: the row's source from the
+// by-value table (a linear search over at most 8 sources), 0 past the
+// total. (16-byte vector loads and stores, one thread a 16-byte chunk of
+// a plane, measured slower at the main path's shapes.)
+__global__ void blz_concat_row_kernel(CatTable t, int64_t out_cap) {
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= out_cap) return;
+  const bool on = r < t.prefix[t.k];
+  int b = 0;
+  if (on)
+    while (b + 1 < t.k && t.prefix[b + 1] <= r) ++b;
+  const int64_t row = on ? t.start[b] + r - t.prefix[b] : 0;
+  for (int p = 0; p < t.np; ++p) {
+    const int at = p * t.k + b;
+    blz_move((const void*)t.src[at], (void*)t.dst[p], t.size[p], blz_clip(row, t.cap[at]),
+             r, on);
+  }
+}
+
+// The staged table (int64 words) of any size: for k sources and np planes,
 //   prefix[k + 1]          output row where source b starts; prefix[k] = total
 //   start[k]               first source row of source b
 //   dst[np], size[np]      output plane pointers and element bytes
@@ -123,11 +213,153 @@ __global__ void blz_concat_kernel(const long long* table, int k, int np,
   }
 }
 
-// table: device int64 words laid out as above.
-BLZ_EXPORT int blz_concat_planes(const long long* table, int k, int nplanes,
-                                 int64_t out_cap, cudaStream_t stream) {
-  if (k <= 0 || nplanes <= 0 || out_cap <= 0) return (int)cudaErrorInvalidValue;
+// w: int64 words [k, np, out_cap, then the staged table's layout above].
+// Tables within CatTable's limits go by value; larger ones are staged
+// into ``dev_table`` (the table's words, on the card) through the pinned
+// buffer.
+BLZ_EXPORT int blz_concat_planes(const long long* w, long long* dev_table,
+                                 cudaStream_t stream) {
+  const int k = (int)w[0], np = (int)w[1];
+  const int64_t out_cap = w[2];
+  if (k <= 0 || np <= 0 || out_cap <= 0) return (int)cudaErrorInvalidValue;
+  const long long* tab = w + 3;
+  const long long* prefix = tab;
+  const long long* start = prefix + k + 1;
+  const long long* dst = start + k;
+  const long long* size = dst + np;
+  const long long* src = size + np;
+  const long long* cap = src + (int64_t)np * k;
+  for (int p = 0; p < np; ++p)
+    if (size[p] != 1 && size[p] != 2 && size[p] != 4 && size[p] != 8)
+      return (int)cudaErrorInvalidValue;
+  if (k <= BLZ_CAT_MAX_SRC && np <= BLZ_CAT_MAX_PLANES && np * k <= BLZ_CAT_MAX_REFS) {
+    CatTable t;
+    t.k = k;
+    t.np = np;
+    for (int b = 0; b <= k; ++b) t.prefix[b] = prefix[b];
+    for (int b = 0; b < k; ++b) t.start[b] = start[b];
+    for (int p = 0; p < np; ++p) {
+      t.dst[p] = (unsigned long long)dst[p];
+      t.size[p] = (int)size[p];
+    }
+    for (int i = 0; i < np * k; ++i) {
+      t.src[i] = (unsigned long long)src[i];
+      t.cap[i] = cap[i];
+      if (cap[i] <= 0) return (int)cudaErrorInvalidValue;
+    }
+    blz_concat_row_kernel<<<blz_blocks(out_cap), BLZ_THREADS, 0, stream>>>(t, out_cap);
+    return (int)cudaGetLastError();
+  }
+  if (dev_table == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t words = (size_t)(2 * k + 1 + 2 * np + 2 * (int64_t)np * k);
+  const int err = blz_stage(tab, words * 8, dev_table, stream);
+  if (err != 0) return err;
   blz_concat_kernel<<<blz_blocks(out_cap), BLZ_THREADS, 0, stream>>>(
-      table, k, nplanes, out_cap);
+      dev_table, k, np, out_cap);
   return (int)cudaGetLastError();
+}
+
+// -- K7 split: the exchange's bucketize in one launch -------------------------------
+
+#define BLZ_SPLIT_MAX_PLANES 32
+#define BLZ_SPLIT_MAX_PARTS 64
+#define BLZ_SPLIT_MAX_DSTS 256
+
+struct SplitPlanes {
+  int np, j0, np_all;                    // this launch's planes, the first, all
+  unsigned long long src[BLZ_SPLIT_MAX_PLANES];
+  long long cap[BLZ_SPLIT_MAX_PLANES];   // source rows of the plane
+  int size[BLZ_SPLIT_MAX_PLANES];
+};
+
+// Per partition, by value up to 64 partitions and 256 output planes:
+// where its rows start in the output's row space (the sum of the earlier
+// partitions' capacities), where they start in the order, and its
+// output planes (partition p's plane j at p * np_all + j).
+struct SplitParts {
+  long long rowpre[BLZ_SPLIT_MAX_PARTS + 1];
+  long long pre[BLZ_SPLIT_MAX_PARTS + 1];
+  unsigned long long dst[BLZ_SPLIT_MAX_DSTS];
+};
+
+// One thread an output row of one partition (the partitions' capacities
+// laid end to end), every plane of it. ``parts`` null: the by-value table
+// ``pv``; else the staged words [rowpre P+1][pre P+1][dst P * np_all].
+__global__ void blz_split_kernel(const int64_t* order, SplitPlanes pl,
+                                 const __grid_constant__ SplitParts pv,
+                                 const long long* parts, int nparts) {
+  const long long* rowpre = parts ? parts : pv.rowpre;
+  const long long* pre = parts ? parts + nparts + 1 : pv.pre;
+  const unsigned long long* dst =
+      parts ? (const unsigned long long*)(parts + 2 * (nparts + 1)) : pv.dst;
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rowpre[nparts]) return;
+  int lo = 0, hi = nparts - 1;  // last p with rowpre[p] <= r
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (rowpre[mid] <= r) lo = mid; else hi = mid - 1;
+  }
+  const int p = lo;
+  const int64_t i = r - rowpre[p];
+  const bool on = i < pre[p + 1] - pre[p];
+  const int64_t row = on ? order[pre[p] + i] : 0;
+  const unsigned long long* out = dst + (int64_t)p * pl.np_all + pl.j0;
+  for (int j = 0; j < pl.np; ++j)
+    blz_move((const void*)pl.src[j], (void*)out[j], pl.size[j], blz_clip(row, pl.cap[j]),
+             i, on);
+}
+
+// w: int64 words [np, nparts, order, then per plane (src, cap, size), then
+// rowpre[P + 1], pre[P + 1], dst[P * np]]. Tables within SplitParts go by
+// value; larger ones are staged into ``dev_parts`` (the words from
+// rowpre on, on the card) through the pinned buffer. Planes go 32 a
+// launch.
+BLZ_EXPORT int blz_split_planes(const long long* w, long long* dev_parts,
+                                cudaStream_t stream) {
+  const int np = (int)w[0], nparts = (int)w[1];
+  const int64_t* order = (const int64_t*)w[2];
+  if (np <= 0 || nparts <= 0) return (int)cudaErrorInvalidValue;
+  const long long* pw = w + 3;
+  const long long* pt = pw + 3 * (int64_t)np;
+  const long long* rowpre = pt;
+  const long long* pre = pt + nparts + 1;
+  const long long* dsts = pt + 2 * (nparts + 1);
+  const int64_t rows = rowpre[nparts];
+  if (rows <= 0) return 0;
+  SplitParts pv;
+  memset(&pv, 0, sizeof pv);
+  const long long* parts = nullptr;
+  if (nparts <= BLZ_SPLIT_MAX_PARTS && (int64_t)nparts * np <= BLZ_SPLIT_MAX_DSTS) {
+    for (int q = 0; q <= nparts; ++q) {
+      pv.rowpre[q] = rowpre[q];
+      pv.pre[q] = pre[q];
+    }
+    for (int i = 0; i < nparts * np; ++i) pv.dst[i] = (unsigned long long)dsts[i];
+  } else {
+    if (dev_parts == nullptr) return (int)cudaErrorInvalidValue;
+    const size_t words = (size_t)(2 * (nparts + 1)) + (size_t)nparts * np;
+    const int err = blz_stage(pt, words * 8, dev_parts, stream);
+    if (err != 0) return err;
+    parts = dev_parts;
+  }
+  for (int j0 = 0; j0 < np; j0 += BLZ_SPLIT_MAX_PLANES) {
+    SplitPlanes pl;
+    pl.np = np - j0 < BLZ_SPLIT_MAX_PLANES ? np - j0 : BLZ_SPLIT_MAX_PLANES;
+    pl.j0 = j0;
+    pl.np_all = np;
+    for (int j = 0; j < pl.np; ++j) {
+      const long long* e = pw + 3 * (int64_t)(j0 + j);
+      pl.src[j] = (unsigned long long)e[0];
+      pl.cap[j] = e[1];
+      pl.size[j] = (int)e[2];
+      if (pl.cap[j] <= 0 || (pl.size[j] != 1 && pl.size[j] != 2 && pl.size[j] != 4 &&
+                             pl.size[j] != 8))
+        return (int)cudaErrorInvalidValue;
+    }
+    blz_split_kernel<<<blz_blocks(rows), BLZ_THREADS, 0, stream>>>(order, pl, pv, parts,
+                                                                    nparts);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -783,7 +783,7 @@ class DevicePartialAgger:
                     self._bucket_state = None
                     return None
                 self._bucket_state = st
-            outs, hist = self._call(st, key_data, key_valid, n, args, live)
+            outs, hist = self._call(st, key_data, key_valid, n, capacity, args, live)
             if int(outs[0]) >= 0:  # the sync; -1 flags a range overflow
                 self.last_bucket_stats = hist
                 return outs
@@ -791,11 +791,14 @@ class DevicePartialAgger:
         self._bucket_state = None
         return None
 
-    def _call(self, st, key_data, key_valid, n, args, live):
+    def _call(self, st, key_data, key_valid, n, capacity, args, live):
         """The slot route's outputs over the plan ``st`` and, while a skipper
         listens on a radix plan, the batch's (rows, groups) histogram on the
-        host (else None)."""
+        host (else None). The plan's ``out_cap`` was sized from the batch
+        that made it; a later batch of a larger capacity can hold more
+        groups, so the outputs take this batch's bound where it is larger."""
         table, bases, sizes, out_cap = st
+        out_cap = max(out_cap, self.conf.capacity_for(min(_slots(sizes), capacity)))
         nbuck = self.conf.radix_agg_buckets if table == "radix" else 0
         listen = self.histograms and nbuck > 0
         dtypes = [d.dtype for d in key_data]

@@ -7,9 +7,12 @@ in turn (ids continue across a map task's batches, from 0 in each task),
 ``RangePartitioner`` binary-searches the driver-sampled bounds (K14,
 core/kernels.py ``range_partition_ids``), and ``SinglePartitioner`` is the
 collapse to one partition. ``bucketize`` splits a batch into
-per-partition device sub-batches with one stable sort by partition id
-(K5, one operand), one gather (K6) and contiguous slices (K7), as the JAX
-package's device tier does.
+per-partition device sub-batches as the JAX package's device tier does (a
+stable sort by partition id, a gather by it, a slice per partition), in
+two launches and one sync: K5's sort of the one-byte (or wider) ids,
+whose histogram is the partition counts, the counts pulled to size the
+outputs, then K7's split form, which writes every partition's planes
+straight from the batch through the order.
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from blaze_tpu_torch.config import Config
 from blaze_tpu_torch.core import kernels as K
-from blaze_tpu_torch.core.batch import ColumnarBatch
+from blaze_tpu_torch.core.batch import ColumnarBatch, column_planes
 from blaze_tpu_torch.exprs import spark_hash
 from blaze_tpu_torch.exprs.compiler import ExprEvaluator, broadcast, require_narrow_key
 from blaze_tpu_torch.ir import exprs as E
@@ -50,17 +54,13 @@ class Repartitioner:
         if self.num_partitions == 1:
             return [(0, batch)]
         pids = self.partition_ids(batch)
-        order = K.lexsort_indices([pids])
-        counts = torch.bincount(pids.to(torch.int64),
-                                minlength=self.num_partitions).tolist()
-        gathered = batch.take(order, conf)
-        out = []
-        start = 0
-        for pid, c in enumerate(counts):
-            if c:
-                out.append((pid, gathered.slice(start, c, conf)))
-            start += c
-        return out
+        order, counts = K.partition_order(pids, self.num_partitions)
+        counts = counts.tolist()  # the one sync: the outputs' sizes
+        conf = conf or Config()
+        parts = K.split_planes(*column_planes(batch.columns), order, counts,
+                               [conf.capacity_for(c) for c in counts])
+        return [(pid, ColumnarBatch(batch.schema, batch._rebuild(*planes), c))
+                for pid, (c, planes) in enumerate(zip(counts, parts)) if c]
 
 
 class SinglePartitioner(Repartitioner):
@@ -122,8 +122,8 @@ class RangePartitioner(Repartitioner):
     bounds are normalised once per partitioner (the Session builds one an
     exchange), by the same key pass as the rows (K5), sorted, and kept on
     the device; each bucketize pass is
-    one K14 launch, one K5 sort by id, one K6 gather and K7 slices. Empty
-    bounds put every row in partition 0."""
+    one K14 launch, one K5 sort by id and one K7 split. Empty bounds put
+    every row in partition 0."""
 
     def __init__(self, sort_orders: List[E.SortOrder], num_partitions: int,
                  bounds: List[tuple], schema):

@@ -29,7 +29,7 @@ def sort_batch(batch: ColumnarBatch, sort_orders: List[E.SortOrder],
     if batch.num_rows <= 1:
         return batch
     operands = SK.key_operands(batch, sort_orders)
-    idx = K.lexsort_indices(operands, batch.num_rows)[:batch.num_rows]
+    idx = K.lexsort_indices(operands, batch.num_rows, dead_last=True)[:batch.num_rows]
     if limit is not None:
         idx = idx[:limit]
     return batch.take(idx, conf)

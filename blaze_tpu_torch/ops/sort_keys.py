@@ -10,7 +10,7 @@ the host sort key of one Python value (blaze_tpu/ops/sort_keys.py
 ``spark_key_part``, the same key with floats in Spark's order
 (runtime/session.py). Keys must be device (fixed-width) values, a
 decimal(19..38) its three limb planes; the host path for var-width keys
-is not ported (ROADMAP.md Queue 2).
+is not ported (ROADMAP.md Queue 1 items 6b and 3).
 """
 
 from __future__ import annotations

@@ -421,7 +421,7 @@ class MeshBatchExchange:
 
         routes = [None] * n
         for s in live_slots:
-            routes[s] = K.lexsort_indices([pids[s]])
+            routes[s] = K.lexsort_indices([pids[s]], widths=[K.pid_width(Rpad)])
         red_cnt = counts.sum(axis=0)
         pieces: List[list] = [[] for _ in range(Rpad)]
         self.last_wire_bytes = 0

@@ -9,7 +9,8 @@ compiles in its own ``nvcc`` process, all started together, then one link.
 
 Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it
 launches its kernel and nowhere else, so a run can show that it went
-through the kernels (``reset_launch_counts`` / ``launch_counts``); K11,
+through the kernels (``reset_launch_counts`` / ``launch_counts``); K7's
+split form (the exchange's bucketize) counts under ``split_planes``; K11,
 the generated Triton kernel of a fused chain (exprs/fused_triton.py),
 counts under ``fused_chain``; K13, the window aggregates' segmented scan,
 under ``segment_scan``; K14, the range exchange's partition ids, under
@@ -60,6 +61,7 @@ LAUNCHES: Dict[str, int] = {
     "gather_planes": 0,
     "slice_planes": 0,
     "concat_planes": 0,
+    "split_planes": 0,
     "inner_join_planes": 0,
     "probe_codes": 0,
     "segment_ids": 0,
@@ -233,16 +235,15 @@ _SIGNATURES = {
     # rank_out, val_out, stream
     "blz_sort_key_operands": [_I, _PP, _PP, _PI, _PI, _PI, _PI, _P, _I64,
                               _PP, _PP, _P],
-    # nops, datas, sizes, kinds, n, andor, stream
-    "blz_sort_bits": [_I, _PP, _PI, _PI, _I64, _P, _P],
-    # nops, datas, sizes, kinds, n_sort, n_total, npasses, pass_op,
-    # pass_shift, idx_a, idx_b, counts, out, stream
-    "blz_radix_sort": [_I, _PP, _PI, _PI, _I64, _I64, _I, _PI, _PI, _P, _P,
-                       _P, _P, _P],
+    # the argument words (csrc/sort.cu blz_radix_sort), stream
+    "blz_radix_sort": [_PLL, _P],
+    # n_sort, n_total, ndigits -> scratch bytes
+    "blz_radix_sort_scratch": [_I64, _I64, _I],
     # idx, n_out, live, out_cap, nplanes, srcs, dsts, caps, sizes, stream
     "blz_gather_planes": [_P, _I64, _P, _I64, _I, _PP, _PP, _PLL, _PI, _P],
-    # table, k, nplanes, out_cap, stream
-    "blz_concat_planes": [_P, _I, _I, _I64, _P],
+    # the argument words (csrc/gather.cu), the staged table or null, stream
+    "blz_concat_planes": [_PLL, _P, _P],
+    "blz_split_planes": [_PLL, _P, _P],
     # uniq, nk, num_rows, key, key_size, key_kind, key_valid, cap_p, cap_b,
     # nprobe, nplanes, srcs, dsts, sizes, codes, offs, stream
     "blz_inner_join": [_P, _I64, _I64, _P, _I, _I, _P, _I64, _I64, _I, _I,
@@ -285,7 +286,8 @@ _SIGNATURES = {
 
 
 # the exports that return a size, not a cudaError_t
-_RESTYPES = {"blz_slot_agg_scratch": _I64, "blz_segment_reduce_scratch": _I64}
+_RESTYPES = {"blz_slot_agg_scratch": _I64, "blz_segment_reduce_scratch": _I64,
+             "blz_radix_sort_scratch": _I64}
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

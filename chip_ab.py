@@ -5,18 +5,21 @@ comparisons on one NVIDIA GPU.
     python3 chip_ab.py [--tree DIR] [--label NAME] [--paths q67,q67_sort,q69]
                        [--runs N] [--no-fusion] [--no-fused-agg] [--profile]
                        [--trace=DIR]
-    python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k3_k4,k10,limbs,k12,k19
+    python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k3_k4,k10,limbs,k12,k19,k5,k7
 
-Paths: q01, q67, q67_sort, q67_table, q69, q06, q96, q96_mesh, q17,
-q17_sort, q17_table, q89, q98, cust_spend and cust_spend_noskip (a
-checkout from before a path has no data to stage for it).
+Paths: q01, q01_mesh1, q01_mesh2, q01_mesh8, q67, q67_sort, q67_table,
+q69, q69_bloom, q06, q47, q96, q96_mesh, q17, q17_sort, q17_table, q89,
+q98, sort10m, sort10m_mesh, hash_sample, cust_spend and cust_spend_noskip
+(a checkout from before a path has no data to stage for it; each stages
+and checks its data as chip_smoke.py does: sort10m collects numpy
+planes, q69_bloom runs its subquery in each run).
 
 ``--kernels`` runs, in place of paths, the named kernel phases of that
 checkout's chip_smoke.py (``kernel_<name>``: each holds its kernels to
 their plain versions and times them) and prints one JSON line per timed
 kernel: its shape, CUDA-event ms, device ms, the wrapper's host ms, plain
-and library ms, bound and extra shapes, whichever the checkout's phase
-records.
+ms (and the plain chain's device ms), library ms, bound and extra shapes,
+whichever the checkout's phase records.
 
 Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
 (default: this one) and, for each named path, stages its data once (as
@@ -89,6 +92,77 @@ def _q67_setup(cs, dev, name, conf_kw):
     session.resources["store_sales"] = lambda p: parts[p]
     return session, cs.q67_plan(schema), \
         cs.q67_table_check(want) if name == "q67_table" else want
+
+
+def _q01_mesh_setup(cs, dev, name, conf_kw):
+    """q01_mesh1/2/8: q01's data and plan on a mesh of 1, 2 or 8 slots."""
+    session, plan, want = _q01_setup(cs, dev, name, conf_kw)
+    mesh = cs.mesh_session(dev, int(name[len("q01_mesh"):]))
+    mesh.resources["store_returns"] = session.resources["store_returns"]
+    return mesh, plan, want
+
+
+def _q47_setup(cs, dev, name, conf_kw):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+
+    sales, item, parts, items, host, item_cols = cs.make_join_data(dev)
+    check, _groups, _rows = cs.q47_oracle(host, item_cols)
+    session = blaze_tpu_torch.Session(Config(**conf_kw))
+    session.resources["store_sales"] = lambda p: parts[p]
+    session.resources["item"] = lambda p: items
+    return session, cs.q47_plan(sales, item), check
+
+
+def _q69_bloom_setup(cs, dev, name, conf_kw):
+    """q69_bloom as chip_smoke.py runs it: the bloom subquery, then q69
+    with its filter, both in each run."""
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    session, _plan, want = _q69_setup(cs, dev, name, conf_kw)
+    schemas = cs.q69_schemas()
+    blobs = []
+    return session, cs.q69_bloom_subquery(schemas, E, N, T), want, \
+        lambda s, plan: cs.q69_bloom_collect(s, plan, schemas, blobs)
+
+
+def _hash_sample_setup(cs, dev, name, conf_kw):
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    schema = cs.hash_sample_schema(T)
+    cols, valids = cs.hash_sample_host()
+    want, _info = cs.hash_sample_oracle((cols, valids))
+    cuts = [cs.HS_ROWS * p // cs.PARTS for p in range(cs.PARTS + 1)]
+    parts = [cs.stage_batches(schema, [c[a:b] for c in cols], dev,
+                              valids=[None if v is None else v[a:b] for v in valids])
+             for a, b in zip(cuts, cuts[1:])]
+    session = blaze_tpu_torch.Session(Config(**conf_kw))
+    session.resources["store_sales"] = lambda p: parts[p]
+    return session, cs.hash_sample_plan(schema, E, N, T), want
+
+
+def _sort10m_setup(cs, dev, name, conf_kw):
+    """sort10M (or sort10M_mesh, on 8 slots), collected as numpy planes."""
+    import blaze_tpu_torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+
+    schema = cs.sort10m_schema(T)
+    host = cs.sort10m_host()
+    want, _info = cs.sort10m_oracle(host)
+    parts = [cs.stage_batches(schema, cols, dev) for cols in host]
+    session = cs.mesh_session(dev, 8) if name == "sort10m_mesh" else \
+        blaze_tpu_torch.Session(Config(**conf_kw))
+    session.resources["store_sales"] = lambda p: parts[p]
+    return session, cs.sort10m_plan(schema, E, N), want, cs.sort10m_collect
 
 
 def _q96_setup(cs, dev, name, conf_kw):
@@ -246,9 +320,11 @@ def _kernels(cs, dev, opts) -> int:
         getattr(cs, f"kernel_{phase}")(dev, rng, results)
         for r in results:
             line = {k: r.get(k) for k in ("name", "shape", "ms", "device_ms", "host_ms",
-                                          "plain_ms", "library_ms", "library_device_ms",
+                                          "plain_ms", "plain_device_ms", "library_ms",
+                                          "library_device_ms",
                                           "library_host_ms", "library_call", "bytes",
-                                          "shapes", "stream_object_ms", "stream_raw_ms")}
+                                          "shapes", "stream_object_ms", "stream_raw_ms",
+                                          "phases_us")}
             line["bound_ms"] = r["bytes"] / cs.HBM_BYTES_PER_S * 1e3
             print(json.dumps({"phase": "ab_kernel", "label": opts["label"], "tree":
                               os.path.abspath(opts["tree"]), "kernels": phase,
@@ -256,12 +332,15 @@ def _kernels(cs, dev, opts) -> int:
     return 0
 
 
-SETUPS = {"q01": _q01_setup, "q67": _q67_setup, "q67_sort": _q67_setup,
-          "q67_table": _q67_setup, "q69": _q69_setup, "q06": _q06_setup, "q96": _q96_setup,
+SETUPS = {"q01": _q01_setup, "q01_mesh1": _q01_mesh_setup, "q01_mesh2": _q01_mesh_setup,
+          "q01_mesh8": _q01_mesh_setup, "q67": _q67_setup, "q67_sort": _q67_setup,
+          "q67_table": _q67_setup, "q69": _q69_setup, "q69_bloom": _q69_bloom_setup,
+          "q06": _q06_setup, "q47": _q47_setup, "q96": _q96_setup,
           "q96_mesh": _q96_mesh_setup,
           "q17": _q17_setup, "q17_sort": _q17_setup, "q17_table": _q17_setup,
-          "q89": _star_setup, "q98": _star_setup, "cust_spend": _cust_setup,
-          "cust_spend_noskip": _cust_setup}
+          "q89": _star_setup, "q98": _star_setup, "sort10m": _sort10m_setup,
+          "sort10m_mesh": _sort10m_setup, "hash_sample": _hash_sample_setup,
+          "cust_spend": _cust_setup, "cust_spend_noskip": _cust_setup}
 
 
 def main(argv) -> int:
@@ -294,10 +373,11 @@ def main(argv) -> int:
     runs = int(opts["runs"])
     for name in opts["paths"].split(","):
         t0 = time.perf_counter()
-        session, plan, want = SETUPS[name](cs, dev, name, conf_kw)
+        session, plan, want, *collect = SETUPS[name](cs, dev, name, conf_kw)
+        collect = collect[0] if collect else cs.pydict_of
         setup_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        cs.check_result(f"{name} (first run)", session.execute_to_pydict(plan), want)
+        cs.check_result(f"{name} (first run)", collect(session, plan), want)
         first_s = time.perf_counter() - t0
         walls = []
         torch.cuda.synchronize()
@@ -306,7 +386,7 @@ def main(argv) -> int:
             torch.cuda.synchronize()
             cuda_lib.reset_launch_counts()
             t0 = time.perf_counter()
-            got = session.execute_to_pydict(plan)
+            got = collect(session, plan)
             walls.append(time.perf_counter() - t0)
             cs.check_result(name, got, want)
         print(json.dumps({"phase": "ab", "label": opts["label"], "tree": tree,
@@ -319,7 +399,7 @@ def main(argv) -> int:
         if "profile" in flags:
             trace = os.path.join(opts["trace"], f"{opts['label']}_{name}.json") \
                 if opts["trace"] else None
-            cs.profile_query(name, session, plan, want, trace)
+            cs.profile_query(name, session, plan, want, trace, collect)
             if trace:
                 print(json.dumps({"phase": "copies", "label": opts["label"], "query": name,
                                   "copies": _copies(trace),

@@ -560,7 +560,7 @@ def kernel_k3_k4(dev, rng, results):
     from blaze_tpu_torch.config import Config
 
     conf = Config()
-    cases3, cases4 = [], []
+    cases3, cases4 = [k3_plan_growth_check(dev)], []
     merged_inputs = []
     for cap, n, lo, hi, k, nulls, mm, nbuck in (
             (262144, 262144, 1, N_STORES, 1, 0.0, False, 0),
@@ -696,6 +696,70 @@ def kernel_k3_k4(dev, rng, results):
         device_ms=kernel_device_ms(lambda: A.slot_agg_merge(keys4, kv4, kd, n4, bases4, sizes4,
                                                             kinds, states, out4), OURS),
         library_device_ms=kernel_device_ms(lib4, "")))
+
+
+def k3_plan_growth_check(dev):
+    """K3 at the shape of ROADMAP.md Queue 3's fixed fault (a slot plan
+    kept past its output capacity): one partial aggregate, SUM and COUNT
+    by an int64 key, over a 100-row batch of keys spread over 0..999 (a
+    radix plan of 1,024 slots, sized for 256 output rows) and then a
+    1,024-row batch of keys ``arange(1024) % 1000`` (1,000 groups under
+    that plan). Every K3 output plane gets 64 guard rows past its out_cap,
+    filled with 0x5A; the guards must come back untouched and the second
+    batch must give the numpy oracle's 1,000 groups. Returns a case label."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.config import Config
+    from blaze_tpu_torch.core.batch import ColumnarBatch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import nodes as N
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops import agg_device as A
+    from blaze_tpu_torch.runtime.executor import build_operator
+
+    schema = T.Schema.of(("k", T.I64), ("v", T.I64))
+    node = N.Agg(N.FFIReader(schema, "src", 1), E.AggExecMode.HASH_AGG, [("k", E.Column("k"))],
+                 [N.AggColumn(E.AggExpr(E.AggFunction.SUM, [E.Column("v")]),
+                              E.AggMode.PARTIAL, "s"),
+                  N.AggColumn(E.AggExpr(E.AggFunction.COUNT, []), E.AggMode.PARTIAL, "c")])
+    op = build_operator(node)
+    agger = A.DevicePartialAgger(op, op.children[0].schema, Config(batch_size=1024))
+    guards, real = [], A._planes
+
+    def guarded(dev_, n, dtypes):
+        views = []
+        for d in dtypes:
+            buf = torch.full(((n + 64) * d.itemsize,), 0x5A, dtype=torch.uint8, device=dev_)
+            guards.append((buf, n * d.itemsize))
+            views.append(buf[:n * d.itemsize].view(d))
+        return views
+
+    rng = np.random.default_rng(21)
+    batches = [np.linspace(0, 999, 100).astype(np.int64), np.arange(1024) % 1000]
+    A._planes = guarded
+    try:
+        outs = []
+        for keys in batches:
+            v = rng.integers(-1000, 1000, len(keys))
+            batch = ColumnarBatch.from_numpy(schema, {"k": keys, "v": v}, dev)
+            outs.append((keys, v, agger.process(batch).to_pydict()))
+        torch.cuda.synchronize()
+    finally:
+        A._planes = real
+    plan = agger._bucket_state
+    if plan is None or plan[0] != "radix" or plan[3] != 256 or not guards:
+        raise AssertionError(f"K3 plan growth: plan {plan}, {len(guards)} planes")
+    for buf, at in guards:
+        if not bool((buf[at:] == 0x5A).all()):
+            raise AssertionError("K3 wrote past its out_cap-row planes")
+    keys, v, got = outs[1]
+    uniq, inv = np.unique(keys, return_inverse=True)
+    want = dict(zip(uniq.tolist(), zip(np.bincount(inv, weights=v).astype(np.int64).tolist(),
+                                       np.bincount(inv).tolist())))
+    if dict(zip(got["k"], zip(got["s#sum"], got["c#count"]))) != want or len(want) != 1000:
+        raise AssertionError(f"K3 plan growth: {len(got['k'])} groups, not the oracle's 1000")
+    return "plan kept from a 100-row batch (out_cap 256) for 1,024 rows of 1,000 groups, " \
+        f"{len(guards)} planes' guard rows untouched"
 
 
 def slot_switch_sizes(nops, lib):
@@ -866,6 +930,75 @@ def q67_sort_keys(rng, dev):
             [torch.from_numpy(v).to(dev)] * 2, torch.from_numpy(v).to(dev), n)
 
 
+# the device time of K5's and K7's calls: their kernels, memsets and the
+# copies their wrappers issue (a pageable table upload counts)
+OURS_COPIES = ("blz_", "Memset", "Memcpy")
+
+
+def chain_times(fn, plain, lib, nbytes, prefix=OURS_COPIES):
+    """:func:`shape_times` with the plain version's device ms beside its
+    events (every kernel and copy of its chain)."""
+    out = shape_times(fn, plain, lib, nbytes, prefix)
+    out["plain_device_ms"] = kernel_device_ms(plain, "")
+    return out
+
+
+def q67_sort_batch_keys(rng, dev, cap=262144):
+    """A q67_sort partial batch's K5 input: the key pass of its (item,
+    store) keys, as ``segment_ids`` sorts them (262,144 rows, every row
+    live)."""
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    keys, kvalids, _specs, _args = q67_batch(rng, dev, cap)
+    exists = torch.ones(cap, dtype=torch.bool, device=dev)
+    return K.sort_key_operands(keys, kvalids, exists, [(True, True)] * 2), cap
+
+
+def bucketize_pids(rng, dev, rows, nparts):
+    """A map batch's partition ids (int32, ``rows`` rows, uniform over
+    ``nparts``: sort10M's range ids, cust_spend's hash ids)."""
+    import torch
+
+    return torch.from_numpy(rng.integers(0, nparts, rows).astype("int32")).to(dev)
+
+
+def dead_rows_case(rng, dev, cap, n, live_share, keys=2):
+    """Key-pass operands of ``n`` rows of ``cap`` where only ``live_share``
+    of the rows below n exist (a fused aggregate's dead rows: rank 6)."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    datas = [torch.from_numpy(rng.integers(-50, 50, cap)).to(dev) for _ in range(keys)]
+    valids = [torch.from_numpy(rng.random(cap) >= 0.1).to(dev) for _ in range(keys)]
+    ex = np.zeros(cap, bool)
+    ex[:n] = rng.random(n) < live_share
+    return K.sort_key_operands(datas, valids, torch.from_numpy(ex).to(dev),
+                               [(True, True)] * keys)
+
+
+def k5_phases(ops, rows, dev, calls=5):
+    """Where one K5 launch's device time goes: csrc/sort.cu's phase stamps
+    (``blz_rs_stamp``), microseconds from the launch's start, median of
+    ``calls`` launches, for block 0 ("b0_<i>") and the last block
+    ("last_<i>"); empty where the kernel writes none."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    trace = torch.zeros(64, dtype=torch.int64, device=dev)
+    stamps = []
+    for _ in range(calls):
+        trace.zero_()
+        K.lexsort_indices_cuda(ops, rows, dead_last=True, trace=trace)
+        torch.cuda.synchronize()
+        stamps.append(trace.cpu().numpy().astype(np.float64))
+    st = np.median(np.array(stamps), axis=0)
+    return {f"{'b0' if i < 32 else 'last'}_{i % 32}": (st[i] - st[0]) / 1e3
+            for i in range(64) if st[i] > 0 and st[0] > 0}
+
+
 def kernel_k5(dev, rng, results):
     import torch
     from blaze_tpu_torch.core import kernels as K
@@ -881,53 +1014,96 @@ def kernel_k5(dev, rng, results):
         label = f"keys={'+'.join(k for k, _, _ in keys)},cap={cap},n={n},nulls={nulls}"
         check_equal("sort_key_operands", label, got, want)
         for rows in (n, None):
-            check_equal("lexsort_indices", f"{label},num_rows={rows}",
-                        K.lexsort_indices_cuda(want, rows),
-                        K.lexsort_indices_plain(want, rows))
+            for dead_last in (False, True):
+                check_equal("lexsort_indices", f"{label},num_rows={rows},dead_last={dead_last}",
+                            K.lexsort_indices_cuda(want, rows, dead_last=dead_last),
+                            K.lexsort_indices_plain(want, rows, dead_last=dead_last))
         cases.append(label)
-    # the exchange's pid sort (one int32 operand) and a raw f64 operand
-    # with signed zeros and infinities (the sort's own word mapping; the
-    # key pass never hands it a NaN)
-    pids = torch.randint(0, PARTS, (229_000,), dtype=torch.int32, device=dev)
-    check_equal("lexsort_indices", "pids", K.lexsort_indices_cuda([pids]),
-                K.lexsort_indices_plain([pids]))
+    # the exchange's pid sort (one int32 operand: one byte, two, or every
+    # byte; the histogram is the counts), a raw f64 operand with signed
+    # zeros and infinities (the sort's own word mapping; the key pass never
+    # hands it a NaN), and dead rows (rank 6) among live ones: a quarter,
+    # none live, one live
+    for rows, nparts in ((229_000, PARTS), (262_144, 32), (1000, 1), (5000, 300),
+                         (70_000, 70_000), (1, 4)):
+        pids = bucketize_pids(rng, dev, rows, nparts)
+        order, counts = K.partition_order(pids, nparts)
+        want_order, want_counts = K.partition_order(pids.cpu(), nparts)
+        check_equal("lexsort_indices", f"pids n={rows} partitions={nparts}",
+                    (order, counts), (want_order.to(dev), want_counts.to(dev)))
+        check_equal("lexsort_indices", f"pids n={rows} all bytes",
+                    K.lexsort_indices_cuda([pids]), want_order.to(dev))
+        cases.append(f"pids int32 n={rows} partitions={nparts} (counts from the histogram)")
     raw, _ = key_plane("f64", 4096, 4096, rng, 0.0, dev)
     raw = torch.nan_to_num(raw, nan=0.0, posinf=float("inf"), neginf=float("-inf"))
     check_equal("lexsort_indices", "raw f64", K.lexsort_indices_cuda([raw]),
                 K.lexsort_indices_plain([raw]))
-    cases += ["pids int32 n=229000", "raw f64 +-0.0 +-inf n=4096"]
+    for cap, n, share in ((262144, 262144, 0.25), (4096, 3000, 0.0), (4096, 3000, 0.0004),
+                          (256, 200, 0.9)):
+        ops = dead_rows_case(rng, dev, cap, n, share)
+        for rows in (n, None):
+            check_equal("lexsort_indices", f"dead rows cap={cap} n={n} live={share}",
+                        K.lexsort_indices_cuda(ops, rows, dead_last=True),
+                        K.lexsort_indices_plain(ops, rows, dead_last=True))
+        cases.append(f"dead rows (rank 6) cap={cap},n={n},live share={share}")
+    cases.append("raw f64 +-0.0 +-inf n=4096")
 
-    # main path: the q67 full sort
+    def chained_sort(ops, n):
+        def run():
+            idx = torch.arange(n, device=dev)
+            for op in reversed(ops):
+                key = op[idx]
+                idx = idx[torch.sort(key.to(torch.int16) if key.dtype == torch.uint8 else key,
+                                     stable=True).indices]
+            return idx
+        return run
+
+    # the key pass: the q67 full sort (PR 3's shape) and a q67_sort batch
     datas, valids, exists, n = q67_sort_keys(rng, dev)
     spec = ((True, True), (False, True))
     cap = exists.shape[0]
     ops = K.sort_key_operands_cuda(datas, valids, exists, spec)
-    ms = time_ms(lambda: K.sort_key_operands_cuda(datas, valids, exists, spec))
-    plain_ms = time_ms(lambda: K.sort_key_operands_plain(datas, valids, exists, spec))
+    keys, kvalids, _s, _a = q67_batch(rng, dev)
+    ones = torch.ones(262144, dtype=torch.bool, device=dev)
+    batch = chain_times(lambda: K.sort_key_operands_cuda(keys, kvalids, ones, [(True, True)] * 2),
+                        lambda: K.sort_key_operands_plain(keys, kvalids, ones, [(True, True)] * 2),
+                        None, 262144 * (2 * (8 + 1) + 2 * (1 + 8)) + 262144)
+    full = chain_times(lambda: K.sort_key_operands_cuda(datas, valids, exists, spec),
+                       lambda: K.sort_key_operands_plain(datas, valids, exists, spec), None,
+                       cap * (1 + 2 * (8 + 1) + 2 * (1 + 8)))
     results.append(dict(
         name="sort_key_operands", route="cuda", source="blaze_tpu_torch/csrc/sort.cu",
         replaces="blaze_tpu/core/kernels.py:293", shape=f"{cap} rows x 2 int64 keys",
-        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=None, library_call=None,
-        bytes=cap * (1 + 2 * (8 + 1) + 2 * (1 + 8))))
-    ms = time_ms(lambda: K.lexsort_indices_cuda(ops, n))
-    plain_ms = time_ms(lambda: K.lexsort_indices_plain(ops, n))
-
-    def chained_sort():
-        idx = torch.arange(n, device=dev)
-        for op in reversed(ops):
-            key = op[idx]
-            idx = idx[torch.sort(key.to(torch.int16) if key.dtype == torch.uint8 else key,
-                                 stable=True).indices]
-        return idx
-
-    lib_ms = time_ms(chained_sort)
-    passes = K.radix_passes(_and_or(ops, n), [op.element_size() for op in ops])
+        cases=cases, library_call=None, **full,
+        shapes={"q67_sort batch: 262144 rows x 2 int64 keys": batch}))
+    # the sort: a q67_sort batch's key sort (segment_ids: rank first, dead
+    # rows last), the bucketize pid sorts of sort10M (32 partitions) and
+    # cust_spend (16) with their histogram, and the q67 full sort
+    bops, bn = q67_sort_batch_keys(rng, dev)
+    shapes = {}
+    for label, rows, nparts in (("sort10M bucketize pids: 262144 rows into 32", 262144, 32),
+                                ("cust_spend bucketize pids: 262144 rows into 16", 262144, 16)):
+        pids = bucketize_pids(rng, dev, rows, nparts)
+        shapes[label] = chain_times(
+            lambda: K.partition_order(pids, nparts),
+            lambda: (K.lexsort_indices_plain([pids], None, [K.pid_width(nparts)]),
+                     torch.bincount(pids.to(torch.int64), minlength=nparts)),
+            lambda: torch.sort(pids, stable=True), rows * (4 + 8) + nparts * 8)
+        shapes[label]["library_call"] = "torch.sort(stable=True)"
+    shapes[f"q67 full sort: {n} of {cap} rows, 4 operands"] = chain_times(
+        lambda: K.lexsort_indices_cuda(ops, n, dead_last=True),
+        lambda: K.lexsort_indices_plain(ops, n, dead_last=True), chained_sort(ops, n),
+        n * (1 + 8 + 1 + 8) + cap * 8)
+    main = chain_times(lambda: K.lexsort_indices_cuda(bops, bn, dead_last=True),
+                       lambda: K.lexsort_indices_plain(bops, bn, dead_last=True),
+                       chained_sort(bops, bn), bn * (1 + 8 + 1 + 8) + bn * 8)
+    passes = K.radix_passes(_and_or(bops, bn), [op.element_size() for op in bops])
+    main["phases_us"] = k5_phases(bops, bn, dev)
     results.append(dict(
         name="lexsort_indices", route="cuda", source="blaze_tpu_torch/csrc/sort.cu",
-        replaces="blaze_tpu/ops/sort.py:46", shape=f"{n} of {cap} rows, 4 operands, "
-        f"{len(passes)} digit passes", cases=cases, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, library_call="torch.sort(stable=True) chained per operand",
-        bytes=n * (1 + 8 + 1 + 8) + cap * 8, digit_passes=len(passes)))
+        replaces="blaze_tpu/ops/sort.py:46", shape=f"q67_sort batch: {bn} rows, 4 operands, "
+        f"{len(passes)} digit passes", cases=cases, library_call="torch.sort(stable=True) "
+        "chained per operand", digit_passes=len(passes), shapes=shapes, **main))
 
 
 def _and_or(ops, n):
@@ -997,6 +1173,54 @@ def kernel_k6(dev, rng, results):
         bytes=n * 8 + n * 3 * (8 + 1) + cap * 3 * (8 + 1)))
 
 
+# K7's split form: (rows, partitions, planes: int64 data / bool validity
+# pairs, source capacity of every other plane), the bucketize shapes and
+# the edges: an empty partition, every row in one, past 64 (the staged
+# table) and past 256 partitions, uneven source capacities, past 32
+# planes (two launches)
+SPLIT_CASES = (
+    (3000, 4, 4, 4096), (3000, 5, 3, 3000), (1, 3, 2, 256), (4096, 1, 2, 4096),
+    (5000, 300, 3, 8192), (2000, 100, 2, 2048), (262_144, 32, 7, 262_144),
+    (262_144, 16, 3, 262_144), (1500, 8, 18, 1536),
+)
+
+
+def split_case(rows, nparts, nplanes, cap, rng, dev, empty=True):
+    """A bucketize split's input: ``nplanes`` int64 data planes and their
+    bool validity planes (every other pair of capacity ``cap``, the rest
+    of ``rows``), ids over ``nparts`` with partition 1 empty where there
+    are three or more, and the order and counts of K5's pid sort."""
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    datas, valids = [], []
+    for j in range(nplanes):
+        c = cap if j % 2 == 0 else max(rows, 1)
+        d = np.zeros(c, np.int64)
+        v = np.zeros(c, bool)
+        d[:rows] = rng.integers(-(1 << 40), 1 << 40, rows)
+        v[:rows] = rng.random(rows) >= 0.1
+        d[~v] = 0
+        datas.append(torch.from_numpy(d).to(dev))
+        valids.append(torch.from_numpy(v).to(dev))
+    pids = rng.integers(0, nparts, rows).astype(np.int32)
+    if empty and nparts >= 3:
+        pids[pids == 1] = 0
+    order, counts = K.partition_order(torch.from_numpy(pids).to(dev), nparts)
+    counts = counts.tolist()
+    caps = [max(256, 1 << max(c - 1, 0).bit_length()) for c in counts]
+    return datas, valids, order, counts, caps
+
+
+def split_bytes(datas, valids, counts, caps):
+    """K7's split moves at least: each plane's live rows read once and
+    every output row written once, and the order read once."""
+    n = sum(counts)
+    out_rows = sum(c for c, k in zip(caps, counts) if k)
+    return n * 8 + sum((n + out_rows) * t.element_size() for t in list(datas) + list(valids))
+
+
 def kernel_k7(dev, rng, results):
     import torch
     import torch.nn.functional as Fn
@@ -1006,17 +1230,17 @@ def kernel_k7(dev, rng, results):
     for cap, num_rows, offset, length, out_cap in (
             (4096, 3000, 0, 256, 256), (4096, 3000, 2900, 256, 256),
             (4096, 3000, 3000, 256, 256), (4096, 3000, 5000, 256, 256),
-            (256, 256, 10, 200, 256)):
+            (256, 256, 10, 200, 256), (4096, 3000, 3, 1000, 1000), (4096, 3000, 1, 5, 7)):
         datas, valids = mixed_planes(rng, (cap,) * 4, num_rows, dev)
         length = max(0, min(length, num_rows - offset))
-        check_equal("slice_planes", f"offset={offset} length={length}",
+        check_equal("slice_planes", f"offset={offset} length={length} out_cap={out_cap}",
                     K.slice_planes_cuda(datas, valids, offset, length, out_cap),
                     K.slice_planes_plain(datas, valids, offset, length, out_cap))
-        cases.append(f"cap={cap},offset={offset},length={length}")
+        cases.append(f"cap={cap},offset={offset},length={length},out_cap={out_cap}")
     ccases = []
-    for k in range(1, 6):
-        caps = [256, 1024, 256, 512, 256][:k]
-        rows = [200, 0, 256, 37, 0][:k]
+    for k in range(1, 12):
+        caps = ([256, 1024, 256, 512, 256] * 3)[:k]
+        rows = ([200, 0, 256, 37, 0] * 3)[:k]
         per = [mixed_planes(rng, (c,) * 4, n, dev) for c, n in zip(caps, rows)]
         pd = [[b[0][f] for b in per] for f in range(4)]
         pv = [[b[1][f] for b in per] for f in range(4)]
@@ -1024,7 +1248,25 @@ def kernel_k7(dev, rng, results):
         check_equal("concat_planes", f"k={k}",
                     K.concat_planes_cuda(pd, pv, rows, out_cap),
                     K.concat_planes_plain(pd, pv, rows, out_cap))
-        ccases.append(f"k={k},rows={rows}")
+        ccases.append(f"k={k},rows={rows}" + (" (staged table)" if k > 8 else ""))
+    scases = []
+    for rows, nparts, nplanes, cap in SPLIT_CASES:
+        datas, valids, order, counts, caps = split_case(rows, nparts, nplanes, cap, rng, dev)
+        check_equal("split_planes", f"rows={rows} partitions={nparts} planes={2 * nplanes}",
+                    [x for x in K.split_planes_cuda(datas, valids, order, counts, caps) if x],
+                    [x for x in K.split_planes_plain(datas, valids, order, counts, caps) if x])
+        scases.append(f"rows={rows},partitions={nparts},planes={2 * nplanes},"
+                      f"caps={cap}/{rows},empty={counts.count(0)}")
+    # every row in one partition
+    datas, valids, _o, _c, _p = split_case(3000, 1, 2, 4096, rng, dev)
+    one = torch.zeros(3000, dtype=torch.int32, device=dev)
+    order, counts = K.partition_order(one, 5)
+    counts = counts.tolist()
+    caps = [max(256, 1 << max(c - 1, 0).bit_length()) for c in counts]
+    check_equal("split_planes", "every row in partition 0 of 5",
+                [x for x in K.split_planes_cuda(datas, valids, order, counts, caps) if x],
+                [x for x in K.split_planes_plain(datas, valids, order, counts, caps) if x])
+    scases.append("rows=3000,partitions=5,every row in one")
     # main path: the full sort's 262144-row output slices of the sorted
     # 1,048,576-row batch, and its concat of the four reducers' outputs
     cap, n, bs = 1 << 20, Q67_GROUPS, 262144
@@ -1034,15 +1276,15 @@ def kernel_k7(dev, rng, results):
     check_equal("slice_planes", "q67 last slice", K.slice_planes_cuda(datas, valids, off, length, bs),
                 K.slice_planes_plain(datas, valids, off, length, bs))
     cases.append(f"cap={cap},offset={off},length={length} (q67)")
-    ms = time_ms(lambda: K.slice_planes_cuda(datas, valids, 0, bs, bs))
-    plain_ms = time_ms(lambda: K.slice_planes_plain(datas, valids, 0, bs, bs))
-    lib_ms = time_ms(lambda: [torch.cat([x[0:bs]]) for x in datas + valids])
+    t = chain_times(lambda: K.slice_planes_cuda(datas, valids, 0, bs, bs),
+                    lambda: K.slice_planes_plain(datas, valids, 0, bs, bs),
+                    lambda: [torch.cat([x[0:bs]]) for x in datas + valids],
+                    2 * bs * 3 * (8 + 1))
     results.append(dict(
         name="slice_planes", route="cuda", source="blaze_tpu_torch/csrc/gather.cu",
         replaces="blaze_tpu/core/kernels.py:233", shape=f"{bs} of {cap} rows x 6 planes",
-        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library_call="torch.cat of the live prefix + pad per plane (k = 1: a copy)",
-        bytes=2 * bs * 3 * (8 + 1)))
+        cases=cases, library_call="torch.cat of the live prefix + pad per plane (k = 1: a "
+        "copy)", **t))
     rows = [n // 4 + (1 if i < n % 4 else 0) for i in range(4)]
     parts = [planes(r, bs, 3, rng, dev) for r in rows]
     pd = [[p[0][f] for p in parts] for f in range(3)]
@@ -1050,16 +1292,36 @@ def kernel_k7(dev, rng, results):
     check_equal("concat_planes", "q67 concat", K.concat_planes_cuda(pd, pv, rows, cap),
                 K.concat_planes_plain(pd, pv, rows, cap))
     ccases.append(f"k=4,rows={rows} (q67)")
-    ms = time_ms(lambda: K.concat_planes_cuda(pd, pv, rows, cap))
-    plain_ms = time_ms(lambda: K.concat_planes_plain(pd, pv, rows, cap))
-    lib_ms = time_ms(lambda: [Fn.pad(torch.cat([x[:r] for x, r in zip(p, rows)]), (0, cap - n))
-                              for p in pd + pv])
+    t = chain_times(lambda: K.concat_planes_cuda(pd, pv, rows, cap),
+                    lambda: K.concat_planes_plain(pd, pv, rows, cap),
+                    lambda: [Fn.pad(torch.cat([x[:r] for x, r in zip(p, rows)]), (0, cap - n))
+                             for p in pd + pv],
+                    n * 3 * (8 + 1) + cap * 3 * (8 + 1))
     results.append(dict(
         name="concat_planes", route="cuda", source="blaze_tpu_torch/csrc/gather.cu",
         replaces="blaze_tpu/core/kernels.py:354", shape=f"4 x ~{n // 4} rows -> {cap} x 6 planes",
-        cases=ccases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library_call="torch.cat of the live prefixes + pad per plane",
-        bytes=n * 3 * (8 + 1) + cap * 3 * (8 + 1)))
+        cases=ccases, library_call="torch.cat of the live prefixes + pad per plane", **t))
+    # the split at the bucketize shapes: a sort10M map batch (its five
+    # columns, the decimal(38,2) as three limbs: 7 data + 7 validity planes)
+    # into 32 range partitions, and a cust_spend batch (3 + 3) into 16
+    shapes = {}
+    for label, (rows, nparts, nplanes) in (
+            ("sort10M bucketize: 262144 rows x 14 planes into 32", (262_144, 32, 7)),
+            ("cust_spend bucketize: 262144 rows x 6 planes into 16", (262_144, 16, 3))):
+        datas, valids, order, counts, caps = split_case(rows, nparts, nplanes, rows, rng, dev,
+                                                        empty=False)
+        shapes[label] = chain_times(
+            lambda: K.split_planes_cuda(datas, valids, order, counts, caps),
+            lambda: K.split_planes_plain(datas, valids, order, counts, caps),
+            None, split_bytes(datas, valids, counts, caps))
+    main = shapes.pop("sort10M bucketize: 262144 rows x 14 planes into 32")
+    results.append(dict(
+        name="split_planes", route="cuda", source="blaze_tpu_torch/csrc/gather.cu",
+        replaces="blaze_tpu/core/kernels.py:233", shape="sort10M bucketize: 262144 rows x "
+        "14 planes into 32 partitions (the take by the order, _gather_n :181, and a "
+        "_dyn_slice a partition)", cases=scases, library_ms=None, library_device_ms=None,
+        library_call=None, shapes=shapes,
+        **{k: v for k, v in main.items() if not k.startswith("library")}))
 
 
 # K8 cases: the CPU parity tests' (tests/test_torch_joins.py): key kind,
@@ -3447,9 +3709,11 @@ def kernel_k14(dev, rng, results):
     # timed at the sort10M map batch (262,144 rows, two int64 keys) against
     # 31 and 199 bounds drawn as that path samples them (quantiles of the
     # rows), and on one key against torch.searchsorted
-    def timed(keys, nb):
-        case = range_case(("timed", keys, 262144, 262144, 0, 0.0, 0.0), rng)
-        live = np.lexsort([d if asc else -d for d, (_k, asc, _nf) in
+    def timed(keys, nb, rows=262144, cap=262144, distinct=False):
+        case = range_case(("timed", keys, cap, rows, 0, 0.0, 0.0), rng)
+        if distinct:  # one row a value, as after a GROUP BY of the key
+            case["datas"][0][:rows] = rng.permutation(np.arange(1, rows + 1))
+        live = np.lexsort([d[:rows] if asc else -d[:rows] for d, (_k, asc, _nf) in
                            zip(case["datas"][::-1], keys[::-1])])
         picks = live[(np.arange(1, nb + 1) * len(live)) // (nb + 1)]
         case["bdatas"] = [d[picks] for d in case["datas"]]
@@ -3467,7 +3731,7 @@ def kernel_k14(dev, rng, results):
                                                                        case["spec"])),
                # each key's data and validity and the exists byte read once,
                # a 4-byte id written
-               "bytes": 262144 * (sum(d.element_size() + 1 for d in t[0]) + 1 + 4),
+               "bytes": cap * (sum(d.element_size() + 1 for d in t[0]) + 1 + 4),
                "device_ms": kernel_device_ms(
                    lambda: K.range_partition_ids_cuda(t[0], t[1], ex, ops, case["spec"]),
                    "blz_range_partition")}
@@ -3475,16 +3739,22 @@ def kernel_k14(dev, rng, results):
             # one valid ascending key: bisect_right is torch.searchsorted
             # over the sorted bound values
             bvals = ops[1].contiguous()
-            want = K.range_partition_ids_cuda(t[0], t[1], ex, ops, case["spec"])
-            got = torch.searchsorted(bvals, t[0][0], right=True).to(torch.int32)
+            want = K.range_partition_ids_cuda(t[0], t[1], ex, ops, case["spec"])[:rows]
+            keys0 = t[0][0][:rows]
+            got = torch.searchsorted(bvals, keys0, right=True).to(torch.int32)
             if not torch.equal(got, want):
                 raise AssertionError("torch.searchsorted differs from K14 on one valid key")
-            out["library_ms"] = time_ms(lambda: torch.searchsorted(bvals, t[0][0], right=True))
+            out["library_ms"] = time_ms(lambda: torch.searchsorted(bvals, keys0, right=True))
+            out["library_device_ms"] = kernel_device_ms(
+                lambda: torch.searchsorted(bvals, keys0, right=True), "")
         return out
 
     main = timed(SORT10M_KEYS, 31)
     wide = timed(SORT10M_KEYS, 199)
     one = timed((("item", True, True),), 31)
+    # hash_sample's ORDER BY ss_store_sk: the range exchange over its ~102
+    # aggregated rows (one int32 store key a row) into 4 partitions
+    store = timed((("i32", True, True),), PARTS - 1, rows=HS_STORES, cap=256, distinct=True)
     results.append(dict(
         name="range_partition", route="cuda", source="blaze_tpu_torch/csrc/range_part.cu",
         replaces="blaze_tpu/core/kernels.py:321",
@@ -3496,7 +3766,10 @@ def kernel_k14(dev, rng, results):
                      "(one_key, beside K14 on one key)",
         bytes=main["bytes"], bounds_199=wide,
         one_key=dict(one, shape="262,144 rows, ss_item_sk ASC, 31 bounds",
-                     library_call="torch.searchsorted(bounds, keys, right=True)")))
+                     library_call="torch.searchsorted(bounds, keys, right=True)"),
+        shapes={"hash_sample's ORDER BY: 102 of 256 rows, ss_store_sk (int32) ASC, "
+                "3 bounds": dict(store, library_call="torch.searchsorted(bounds, keys, "
+                                 "right=True) over the live rows")}))
 
 
 # -- K15: the XXH64 row hash ------------------------------------------------------
@@ -6778,7 +7051,12 @@ def run_sort10m(dev, profile=False, trace_path=None):
     if launches["range_partition"] != map_batches:
         raise AssertionError(f"sort10M launched K14 {launches['range_partition']} times over "
                              f"{map_batches} map batches")
-    for k in ("sort_key_operands", "lexsort_indices", "gather_planes", "slice_planes"):
+    # the exchange's bucketize is K14, K5 and one K7 split a map batch
+    # (the take and 32 slices a batch before), the sort K5 and K6
+    if launches["split_planes"] != map_batches:
+        raise AssertionError(f"sort10M launched K7's split {launches['split_planes']} times "
+                             f"over {map_batches} map batches")
+    for k in ("sort_key_operands", "lexsort_indices", "gather_planes"):
         if launches[k] < 1:
             raise AssertionError(f"sort10M did not launch {k}")
     # sort10M_mesh: the same staged partitions on a mesh of 8 slots (32 maps
@@ -7549,7 +7827,7 @@ def main(device: str = "cuda") -> int:
                                              "battery_s", "fold_ms", "unpacked_ms",
                                              "six_kinds_ms", "fold_replaces", "fold_shape",
                                              "bounds_199", "one_key", "device_ms",
-                                             "path_batches", "eight_single_ms",
+                                             "path_batches", "eight_single_ms", "phases_us",
                                              "k11_eight_single_ms", "library_device_ms",
                                              "shapes")
                            if k in r}}))

@@ -618,6 +618,32 @@ def test_first_and_collect():
         _port(collect, _split(cols, 2))
 
 
+def test_bool_key_beside_another_key_in_a_table_fed_by_a_table():
+    """FIRST (host table) by an int64 key (0..39, 5% null) and a bool key
+    (10% null), PARTIAL -> hash exchange -> FINAL over one partition of 4 x
+    1,024 rows: the FINAL table holds the bool key beside the other. The
+    reference raises here (ROADMAP.md Queue 3, not mirrored); the port
+    gives the numpy oracle's 123 groups, each the value of its first row."""
+    rng = np.random.default_rng(123)
+    n = 4 * 1024
+    kv, bv = rng.random(n) >= 0.05, rng.random(n) >= 0.10
+    cols = {"k": (np.where(kv, rng.integers(0, 40, n), 0), kv),
+            "b": (np.where(bv, rng.random(n) < 0.5, False), bv),
+            "v": (rng.integers(-10 ** 6, 10 ** 6, n), np.ones(n, bool))}
+    schema = JT.Schema.of(("k", JT.I64), ("b", JT.BOOL), ("v", JT.I64))
+    aggs = [("f", JE.AggExpr(F.FIRST, [C("v")]))]
+    partial = _agg(JN.FFIReader(schema, "src", 1), ["k", "b"], aggs, M.PARTIAL)
+    plan = _agg(JN.ShuffleExchange(partial, JN.HashPartitioning([C("k"), C("b")], 2)),
+                ["k", "b"], aggs, M.FINAL)
+    out = _port(plan, _split(cols, 4), batch_size=1024)
+    want = {}
+    for i in range(n):
+        key = (int(cols["k"][0][i]) if kv[i] else None, bool(cols["b"][0][i]) if bv[i] else None)
+        want.setdefault(key, int(cols["v"][0][i]))
+    got = {(k, b): f for k, b, f in zip(out["k"], out["b"], out["f"])}
+    assert len(out["f"]) == len(got) == 123 and got == want
+
+
 def test_device_final_merge_matches_host_table(monkeypatch):
     """The port's device FINAL merge against its host table
     (``device_merge_max_bytes=0``) over the same partial states: decimal

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from chip_smoke import (BLOOM_CASES, FUSED_CAPS, K18_CASES, MESH_CASES, PASS_CASES, PROBE_CASES,
+                        SPLIT_CASES, dead_rows_case, k3_plan_growth_check, split_case,
                         Q89_ROWS, cust_spend_batch, cust_spend_host, cust_spend_oracle,
                         narrow_plane, wide_plane,
                         cust_spend_plan, cust_spend_schema, pass_case, pass_inputs,
@@ -168,16 +169,17 @@ def test_q01_on_the_card_equals_the_cpu(dev):
     # reach (its filter fuses into the partial aggregate: K18 once a batch,
     # no K1 and no fused stage; both aggregates take the slot route; it has
     # no window, no range exchange, no xxhash64, no runtime filter, no mesh
-    # and no partial skipping)
+    # and no partial skipping); nor K7's slice: its hash exchange's
+    # bucketize, its only slicer, is one K7 split a batch
     counts = cuda_lib.launch_counts()
     assert counts["fused_agg_input"] == 3 and counts["compact_planes"] == 0
-    assert all(v > 0 for k, v in counts.items()
-               if k not in ("inner_join_planes", "probe_codes", "segment_ids",
-                            "seg_agg_partial", "seg_agg_merge", "fused_chain",
-                            "slot_update", "segment_scan", "range_partition",
-                            "xxhash64", "bloom_probe", "mesh_all_to_all",
-                            "fused_chain_stacked", "compact_planes",
-                            "passthrough_states"))
+    assert counts["split_planes"] == 3
+    zero = [k for k, v in counts.items() if v <= 0 and k not in (
+        "inner_join_planes", "probe_codes", "segment_ids", "seg_agg_partial",
+        "seg_agg_merge", "fused_chain", "slot_update", "segment_scan", "range_partition",
+        "xxhash64", "bloom_probe", "mesh_all_to_all", "fused_chain_stacked",
+        "compact_planes", "passthrough_states", "slice_planes")]
+    assert not zero, counts
 
 
 def _key_planes(kinds, cap, n, seed, dev):
@@ -244,6 +246,113 @@ def test_slice_and_concat_kernels(dev):
               (torch.rand(4096, generator=g) < 0.8).to(dev)) for _ in rows]
     args = ([[p[0] for p in parts]], [[p[1] for p in parts]], rows, 8192)
     _equal(K.concat_planes_cuda(*args), K.concat_planes_plain(*args))
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[str(c) for c in SPLIT_CASES])
+def test_split_planes_kernel(dev, case):
+    """K7's split form against its twin at the bucketize shapes and edges
+    (an empty partition, one row, more than 64 and 256 partitions, uneven
+    source capacities, more than 32 planes)."""
+    from blaze_tpu_torch.core import kernels as K
+
+    rng = np.random.default_rng(sum(case))
+    datas, valids, order, counts, caps = split_case(*case, rng, dev)
+    got = K.split_planes_cuda(datas, valids, order, counts, caps)
+    want = K.split_planes_plain(datas, valids, order, counts, caps)
+    assert [x is None for x in got] == [c == 0 for c in counts]
+    _equal([x for x in got if x], [x for x in want if x])
+
+
+@pytest.mark.parametrize("nparts", [2, 32, 300])
+def test_bucketize_is_one_sort_and_one_split(dev, nparts):
+    """``Repartitioner.bucketize`` of a CUDA batch into more than one
+    partition: one K5 launch, one K7 split, no K6 and no K7 slice; the
+    partitions equal the CPU's, padding and validity included."""
+    from blaze_tpu_torch.core.batch import ColumnarBatch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops.shuffle.repartitioner import HashPartitioner
+    from blaze_tpu_torch.utils import cuda_lib
+
+    rng = np.random.default_rng(nparts)
+    schema = T.Schema.of(("k", T.I64), ("v", T.I32), ("b", T.BOOL))
+    n = 5000
+    cols = {"k": (rng.integers(0, 1000, n), rng.random(n) > 0.1),
+            "v": (rng.integers(-99, 99, n).astype(np.int32), rng.random(n) > 0.2),
+            "b": (rng.random(n) < 0.5, None)}
+    cuda_lib.reset_launch_counts()
+    got = HashPartitioner([E.Column("k")], nparts, schema).bucketize(
+        ColumnarBatch.from_numpy(schema, cols, dev))
+    counts = cuda_lib.launch_counts()
+    assert counts["lexsort_indices"] == 1 and counts["split_planes"] == 1
+    assert counts["gather_planes"] == 0 and counts["slice_planes"] == 0
+    want = HashPartitioner([E.Column("k")], nparts, schema).bucketize(
+        ColumnarBatch.from_numpy(schema, cols, torch.device("cpu")))
+    assert [p for p, _ in got] == [p for p, _ in want] and len(got) > 1
+    for (_, a), (_, b) in zip(got, want):
+        assert a.num_rows == b.num_rows and a.capacity == b.capacity
+        for ca, cb in zip(a.columns, b.columns):
+            _equal([ca.data.cpu(), ca.validity.cpu()], [cb.data, cb.validity])
+
+
+def test_sort_makes_no_host_sync_and_bucketize_one(dev):
+    """K5's wrapper copies nothing to the host: under
+    ``set_sync_debug_mode("error")`` any ``.cpu()``, ``.item()`` or
+    ``.tolist()`` inside it fails. The pid sort with its counts and the
+    split sync nowhere either; bucketize's one sync is the counts pull."""
+    import warnings
+
+    from blaze_tpu_torch.core import kernels as K
+
+    rng = np.random.default_rng(5)
+    ops = dead_rows_case(rng, dev, 262144, 262144, 0.5)
+    pids = torch.from_numpy(rng.integers(0, 32, 262144).astype(np.int32)).to(dev)
+    datas, valids, order, counts, caps = split_case(262144, 32, 3, 262144, rng, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = K.lexsort_indices_cuda(ops, 262144, dead_last=True)
+        got_all = K.lexsort_indices_cuda(ops)
+        porder, pcounts = K.partition_order(pids, 32)
+        K.split_planes_cuda(datas, valids, order, counts, caps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _equal(got, K.lexsort_indices_plain(ops, 262144, dead_last=True))
+    _equal(got_all, K.lexsort_indices_plain(ops))
+    _equal([porder, pcounts], [K.lexsort_indices_plain([pids]),
+                               torch.bincount(pids.to(torch.int64), minlength=32)])
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            porder, pcounts = K.partition_order(pids, 32)
+            host = pcounts.tolist()
+            K.split_planes_cuda(datas, valids, porder, host, [16384] * 32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len([w for w in caught if "synchroniz" in str(w.message)]) == 1
+
+
+@pytest.mark.parametrize("cap,n,share", [(262144, 262144, 0.25), (4096, 3000, 0.0),
+                                         (4096, 3000, 0.0004), (1 << 20, 797_601, 0.9)])
+def test_key_sort_dead_rows_kernel(dev, cap, n, share):
+    """Rank-6 rows (a fused aggregate's dead rows) among live ones: the
+    kernel leaves them out of its passes and puts them last in row order,
+    as the sort of every row does."""
+    from blaze_tpu_torch.core import kernels as K
+
+    ops = dead_rows_case(np.random.default_rng(cap + n), dev, cap, n, share)
+    for rows in (n, None):
+        _equal(K.lexsort_indices_cuda(ops, rows, dead_last=True),
+               K.lexsort_indices_plain(ops, rows))
+
+
+def test_slot_plan_output_grows_with_the_batch_on_the_card(dev):
+    """ROADMAP.md Queue 3's fixed fault on the card: a slot plan made on a
+    100-row batch and kept for a 1,024-row batch of 1,000 groups. K3
+    writes nothing past its planes (64 guard rows each) and the groups
+    are the numpy oracle's."""
+    assert "untouched" in k3_plan_growth_check(dev)
 
 
 def test_q67_on_the_card_equals_the_cpu(dev):

@@ -384,3 +384,84 @@ def test_slot_agg_merge_matches_jax(k, spec_name, table):
     assert int(jouts[0]) == int(touts[0]) > 0
     for j, t in zip(jouts[1:], touts[1:]):
         _assert_same(j, t)
+
+
+# -- K5's pass selection: known widths and the rank-6 tail ------------------------
+
+
+def _reference_order(ops, cap):
+    from blaze_tpu.ops.sort import _device_sort_indices
+
+    return np.asarray(_device_sort_indices([jnp.asarray(o.numpy()) for o in ops],
+                                           cap)).astype(np.int64)
+
+
+@pytest.mark.parametrize("nparts,n", [(4, 1000), (32, 262144), (256, 5000), (300, 5000),
+                                      (70_000, 70_000), (1, 10)])
+def test_pid_sort_from_known_widths_matches_reference(nparts, n):
+    """The exchange's pid sort passes only the id's known width (one byte
+    up to 256 partitions): lexsort_indices_plain's passes over those
+    digits give the reference's stable order, and partition_order's counts
+    are the ids' histogram."""
+    pids = np.random.default_rng(nparts).integers(0, nparts, n).astype(np.int32)
+    width = K.pid_width(nparts)
+    assert width == (1 if nparts <= 256 else 2 if nparts <= 65536 else 3)
+    assert K.radix_digits([4], [width]) == [(0, 8 * b) for b in range(width)]
+    want = _reference_order([_t(pids)], n)
+    np.testing.assert_array_equal(K.lexsort_indices_plain([_t(pids)], None, [width]).numpy(),
+                                  want)
+    order, counts = K.partition_order(_t(pids), nparts)
+    np.testing.assert_array_equal(order.numpy(), want)
+    np.testing.assert_array_equal(counts.numpy(), np.bincount(pids, minlength=nparts))
+    with pytest.raises(ValueError, match="widths"):
+        K.radix_digits([4], [5])
+
+
+@pytest.mark.parametrize("cap,n,live_share,keys", [
+    (4096, 3000, 0.6, ("i64", "i32")), (4096, 4096, 0.0, ("i64",)),
+    (256, 200, 0.995, ("bool", "i64")), (4096, 3000, 1.0, ("i64",)),
+    (4096, 3000, 0.001, ("i32", "i64")), (256, 256, 0.5, ("f64",)),
+])
+def test_dead_rows_sort_last_in_row_order_as_the_reference(cap, n, live_share, keys):
+    """Rows whose rank is 6 (padding, or a fused aggregate's dead rows
+    below num_rows) go after the live rows in row order and take no part
+    in the digit passes: the same permutation as the reference's sort of
+    every row (``_device_sort_indices`` over ``_key_ops``)."""
+    rng = np.random.default_rng(cap + n + len(keys))
+    datas, valids = [], []
+    for kind in keys:
+        d = {"i64": lambda: rng.integers(-60, 60, cap),
+             "i32": lambda: rng.integers(-9, 9, cap).astype(np.int32),
+             "bool": lambda: rng.random(cap) < 0.5,
+             "f64": lambda: rng.choice(np.array([0.0, -0.0, 1.5, -2.0, np.inf, np.nan]),
+                                       cap)}[kind]()
+        v = rng.random(cap) > 0.1
+        datas.append(np.where(v, d, np.zeros((), d.dtype)))
+        valids.append(v)
+    exists = np.zeros(cap, bool)
+    exists[:n] = rng.random(n) < live_share
+    spec = tuple((True, True) for _ in keys)
+    jops = JK._key_ops(tuple(jnp.asarray(d) for d in datas), tuple(jnp.asarray(v) for v in valids),
+                       jnp.asarray(exists), spec)
+    ops = K.sort_key_operands([_t(d) for d in datas], [_t(v) for v in valids], _t(exists), spec)
+    for a, b in zip(jops, ops):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    want = _reference_order(ops, cap)
+    for rows in (n, None):
+        np.testing.assert_array_equal(
+            K.lexsort_indices_plain(ops, rows, dead_last=True).numpy(), want)
+    live = int(exists.sum())
+    assert sorted(want[live:n].tolist()) == want[live:n].tolist()  # dead rows in row order
+    # the passes the kernel keeps are the digits that vary over the live
+    # rows: never more than over every row below n, dead ones included
+    def passes(rows):
+        words = [K._sort_words(o[:n][_t(rows)]).numpy().view(np.uint64) for o in ops]
+        and_or = np.array([f(w) for w in words
+                           for f in (np.bitwise_and.reduce, np.bitwise_or.reduce)]
+                          if rows.any() else [0, 0] * len(ops), np.uint64)
+        return K.radix_passes(and_or, [o.element_size() for o in ops])
+
+    live_passes, all_passes = passes(exists[:n]), passes(np.ones(n, bool))
+    assert set(live_passes) <= set(all_passes)
+    if 0 < live < n:
+        assert (0, 0) in all_passes  # the ranks 6 would have cost a pass

@@ -506,3 +506,81 @@ def test_date_and_timestamp_bounds():
     p = create_repartitioner(N.RangePartitioning(
         [E.SortOrder(E.Column("d")), E.SortOrder(E.Column("t"))], 2, bounds), schema)
     np.testing.assert_array_equal(p.partition_ids(b).numpy(), [0, 0, 1, 1])
+
+
+# -- bucketize: K5's pid sort and K7's split against the reference -------------------
+
+
+def _bucketize_batch(rng, n, keys=None):
+    """A batch of ``n`` rows (capacity past n, so padding rows follow):
+    an int64 key (with nulls where drawn here, not where given), an int32,
+    a bool with nulls and a decimal(30,4) (the port's three limb planes,
+    a wide column in both)."""
+    k = rng.integers(0, 1000, n) if keys is None else np.asarray(keys, np.int64)
+    cols = {"k": (k, rng.random(n) > 0.1 if keys is None else np.ones(n, bool)),
+            "v": (rng.integers(-99, 99, n).astype(np.int32), np.ones(n, bool)),
+            "b": (rng.random(n) < 0.5, rng.random(n) > 0.2),
+            "w": (rng.integers(-10 ** 17, 10 ** 17, n) * 1000 + rng.integers(0, 999, n),
+                  rng.random(n) > 0.1)}
+    return cols
+
+
+_BUCKET_SCHEMA = (("k", "i64"), ("v", "i32"), ("b", "bool"), ("w", "d304"))
+_BUCKET_TYPES = {"i64": (T.I64, JT.I64), "i32": (T.I32, JT.I32), "bool": (T.BOOL, JT.BOOL),
+                 "d304": (T.DecimalType(30, 4), JT.DecimalType(30, 4))}
+
+
+def _bucketize_partitioning(kind, nparts, pkg):
+    En, Nn = (E, N) if pkg == "port" else (JE, JN)
+    if kind == "hash":
+        return Nn.HashPartitioning([En.Column("k")], nparts)
+    if kind == "round_robin":
+        return Nn.RoundRobinPartitioning(nparts)
+    bounds = [(int(x),) for x in np.linspace(100, 900, nparts - 1)]
+    if nparts > 3:  # a repeated bound: the partition between the two is empty
+        bounds[1] = bounds[2]
+    return Nn.RangePartitioning([En.SortOrder(En.Column("k"))], nparts, bounds)
+
+
+@pytest.mark.parametrize("kind", ["hash", "range", "round_robin"])
+@pytest.mark.parametrize("shape", ["spread", "one_partition", "empty_partitions"])
+def test_bucketize_matches_reference(kind, shape):
+    """``Repartitioner.bucketize`` (K5's pid sort, its histogram as the
+    counts, then K7's split form: here their plain versions) against the
+    reference's bucketize (a stable argsort, a take, a slice a partition)
+    on the same numpy batch: the same partitions in order, each with the
+    same rows, capacity and planes, padding rows and validity included."""
+    from blaze_tpu.core import ColumnarBatch as JaxBatch
+    from blaze_tpu.ops.shuffle.repartitioner import create_repartitioner as jax_create
+    from blaze_tpu_torch.ops.shuffle.repartitioner import create_repartitioner
+
+    rng = np.random.default_rng(len(kind) * 7 + len(shape))
+    n, nparts, keys = 3000, 5, None
+    if shape == "one_partition":
+        n, keys = (1, None) if kind == "round_robin" else (3000, [5] * 3000)
+    elif shape == "empty_partitions":
+        nparts = 64
+        if kind == "round_robin":
+            n = 40
+        else:
+            keys = rng.integers(0, 10, n) * 97
+    cols = _bucketize_batch(rng, n, keys)
+    schema = T.Schema.of(*[(c, _BUCKET_TYPES[t][0]) for c, t in _BUCKET_SCHEMA])
+    jschema = JT.Schema.of(*[(c, _BUCKET_TYPES[t][1]) for c, t in _BUCKET_SCHEMA])
+    d, v = cols["w"]
+    port_cols = dict(cols, w=(np.stack([d, np.where(d < 0, -1, 0)], 1), v))
+    got = create_repartitioner(_bucketize_partitioning(kind, nparts, "port"), schema).bucketize(
+        ColumnarBatch.from_numpy(schema, port_cols, CPU))
+    want = jax_create(_bucketize_partitioning(kind, nparts, "jax"), jschema).bucketize(
+        JaxBatch.from_arrow(_jax_batch(jschema, cols), jschema))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    if shape == "empty_partitions":
+        assert len(got) < nparts
+    if shape == "one_partition":
+        assert len(got) == 1
+    for (_, a), (_, b) in zip(got, want):
+        assert a.num_rows == b.num_rows and a.capacity == b.capacity
+        assert a.to_pydict() == b.to_pydict()
+        for ca, cb in zip(a.columns[:3], b.columns[:3]):
+            np.testing.assert_array_equal(ca.data.numpy(), np.asarray(cb.data))
+            np.testing.assert_array_equal(ca.validity.numpy(), np.asarray(cb.validity))

@@ -700,6 +700,68 @@ def test_range_overflow_replans_or_sorts(conf, second, table):
             assert agger._bucket_state[0] == table
 
 
+def plan_growth_batches(value_kind):
+    """One partition of two batches: 100 rows whose keys spread over
+    0..999, then 1,024 rows of keys ``arange(1024) % 1000``. The first
+    batch's slot plan (a radix table of 1,024 slots, out_cap 256) covers
+    the second batch's keys, whose 1,000 groups need a larger output."""
+    rng = np.random.default_rng(21)
+    out = []
+    for keys in (np.linspace(0, 999, 100).astype(np.int64), np.arange(1024) % 1000):
+        n = len(keys)
+        v = rng.integers(-1000, 1000, n)
+        out.append({"k": (keys.astype(np.int64), np.ones(n, bool)),
+                    "v": (v.astype(np.float64) if value_kind == "f64" else v,
+                          np.ones(n, bool))})
+    return out
+
+
+def plan_growth_oracle(batches):
+    """{key: (sum, count)} over every row, by numpy."""
+    k = np.concatenate([b["k"][0] for b in batches])
+    v = np.concatenate([b["v"][0] for b in batches]).astype(np.int64)
+    keys, inv = np.unique(k, return_inverse=True)
+    return {int(g): (int(s), int(c)) for g, s, c in
+            zip(keys, np.bincount(inv, weights=v).astype(np.int64), np.bincount(inv))}
+
+
+@pytest.mark.parametrize("value_kind,skipping", [("i64", False), ("f64", True)],
+                         ids=["slot-route", "float-state-skipper-probe"])
+def test_slot_plan_output_grows_with_the_batch(value_kind, skipping, monkeypatch):
+    """A slot plan made on a small batch and kept for a larger one: every
+    slot-route call takes an out_cap of at least this batch's group bound.
+    On the plain slot route (int64 SUM: K3's twin) and on a float-state
+    radix batch whose skipper listens (K3 without aggregates for the
+    histogram, then K10), the 1,000 groups of the numpy oracle come out
+    (the reference keeps the first plan's out_cap and drops 670 of them)."""
+    calls = []
+    real = A.DevicePartialAgger._call
+
+    def spy(self, st, *args):
+        calls.append((st[0], st[3], self.float_states, self.histograms))
+        return real(self, st, *args)
+
+    monkeypatch.setattr(A.DevicePartialAgger, "_call", spy)
+    vt = JT.F64 if value_kind == "f64" else JT.I64
+    schema = JT.Schema.of(("k", JT.I64), ("v", vt))
+    aggs = [("s", JE.AggExpr(F.SUM, [JE.Column("v")])), ("c", JE.AggExpr(F.COUNT, []))]
+    kcols = [("k", JE.Column("k"))]
+    partial = JN.Agg(JN.FFIReader(schema, "src", 1), HASH, kcols,
+                     [JN.AggColumn(a, M.PARTIAL, n) for n, a in aggs],
+                     supports_partial_skipping=skipping)
+    plan = JN.Agg(JN.ShuffleExchange(partial, JN.HashPartitioning([JE.Column("k")], 2)),
+                  HASH, kcols, [JN.AggColumn(a, M.FINAL, n) for n, a in aggs])
+    batches = plan_growth_batches(value_kind)
+    port = blaze_tpu_torch.Session(conf=Config(batch_size=1024), device="cpu")
+    port.resources["src"] = lambda p: batches
+    out = port.execute_to_pydict(from_foreign(plan))
+    got = {k: (int(s), c) for k, s, c in zip(out["k"], out["s"], out["c"])}
+    assert len(got) == 1000 and got == plan_growth_oracle(batches)
+    # both batches went through the first batch's radix plan (out_cap 256)
+    assert [c[:3] for c in calls] == [("radix", 256, value_kind == "f64")] * 2
+    assert all(c[3] == skipping for c in calls)
+
+
 @pytest.mark.parametrize("conf", [_SORT, _SLOTS], ids=["sort", "slots"])
 def test_all_null_key_batches(conf):
     """An all-null batch after a plan keeps the plan's anchor; as the first
