@@ -14,13 +14,15 @@ launches the kernel or raises.
   exchange's bucketize split of a batch by the partition order.
 - K8 ``inner_join_planes`` (csrc/join.cu): the unique-key inner
   broadcast join of one probe batch (probe, stable compaction, gathers
-  of both sides); the join key's canonical word is ops/joins/keymap.py's
-  ``canon_words``.
+  of both sides, the padding) in one launch for up to 128 planes, its
+  argument words packed once a build map (``JoinPack``); the join key's
+  canonical word is ops/joins/keymap.py's ``canon_words``.
 - K9 ``probe_codes`` (csrc/join.cu): the generic join probe, each probe
   key's code in the build map or -1.
 - K11 ``fused_chain`` (exprs/fused_triton.py, generated Triton): one
   fused chain segment of project / filter / rename / expand steps over a
-  batch, then K1 once per filtered output group.
+  batch, each filtered output group compacted by the same launch (the
+  stacked form: K1 once per filtered group and batch).
 - K18 ``fused_agg_input`` (exprs/fused_triton.py, generated Triton): a
   fused partial aggregate's input (its joins' probes and gathers, steps,
   predicates, keys and arguments) over a batch, with a live mask.
@@ -432,7 +434,7 @@ def _compact_groups(groups, num_rows: int, rows=slice(None)):
         vs = tuple(c.validity[rows] for c in cols)
         if filtered:
             count, ds, vs = compact_planes_plain(ds, vs, live[rows])
-            ds, vs = tuple(ds), tuple(vs)
+            ds, vs, count = tuple(ds), tuple(vs), int(count)
         else:
             count = num_rows
         outs.append((ds, vs))
@@ -450,8 +452,8 @@ def fused_chain_plain(in_schema, steps, datas: Sequence[torch.Tensor],
     narrow; each filtered output group then compacts once with K1's plain
     version (stable order, dead lanes zeroed). Returns (groups, counts):
     ``groups[g]`` is that group's (datas, valids) at the input capacity,
-    ``counts[g]`` its row count, a 0-d int64 tensor for a filtered group
-    and ``num_rows`` for an unfiltered one."""
+    ``counts[g]`` its row count (an int; ``num_rows`` for an unfiltered
+    group)."""
     live = iota(int(datas[0].shape[0]), datas[0].device) < num_rows
     return _compact_groups(_fused_step_groups(in_schema, steps, datas, valids, live), num_rows)
 
@@ -477,15 +479,20 @@ def fused_chain_stacked_plain(in_schema, steps, batch_datas, batch_valids,
 
 def fused_chain(in_schema, steps, datas: Sequence[torch.Tensor],
                 valids: Sequence[torch.Tensor], num_rows: int, kernel=None):
-    """One fused chain segment over a batch's planes: K11 (with K1) on
-    CUDA planes, the plain version on CPU planes. ``kernel`` is the
-    segment's cached ``exprs.fused_triton.FusedKernel``, made here when
-    not given."""
+    """One fused chain segment over a batch's planes: K11 (one launch,
+    its filtered groups compacted in it) on CUDA planes, the plain version
+    on CPU planes. ``kernel`` is the segment's cached
+    ``exprs.fused_triton.FusedKernel``, made here when not given. Returns
+    (groups, counts) as :func:`fused_chain_plain` does; on the card the
+    filtered groups' counts come to the host in one sync."""
     if datas[0].is_cuda:
-        from blaze_tpu_torch.exprs.fused_triton import FusedKernel
+        from blaze_tpu_torch.exprs.fused_triton import FusedKernel, fused_chain_cuda
 
         kernel = kernel or FusedKernel(in_schema, steps)
-        return kernel(datas, valids, num_rows)
+        groups, counts = fused_chain_cuda(kernel, datas, valids, num_rows)
+        synced = iter(counts.tolist() if kernel.gen.filtered else ())
+        return groups, tuple(num_rows if mask is None else next(synced)
+                             for _d, _v, mask in kernel.gen.groups)
     return fused_chain_plain(in_schema, steps, datas, valids, num_rows)
 
 
@@ -494,7 +501,8 @@ def fused_chain_stacked(in_schema, steps, batch_datas, batch_valids,
     """One fused chain segment over k same-shape batches: the stacked K11
     (with K1 per filtered group per batch) on CUDA planes, the plain
     version on CPU planes. Returns per batch (groups, counts) as
-    :func:`fused_chain` does."""
+    :func:`fused_chain` does; on the card every batch's counts come to the
+    host in one sync."""
     if batch_datas[0][0].is_cuda:
         from blaze_tpu_torch.exprs.fused_triton import FusedKernel, fused_chain_stacked_cuda
 
@@ -623,68 +631,150 @@ def _join_key_kind(t: torch.Tensor) -> int:
     raise TypeError(f"join key of dtype {t.dtype}")
 
 
-def inner_join_planes_cuda(uniq: torch.Tensor, nk: int, num_rows: int,
-                           key_data: torch.Tensor, key_valid: torch.Tensor,
-                           probe_datas: Sequence[torch.Tensor],
-                           probe_valids: Sequence[torch.Tensor],
-                           build_datas: Sequence[torch.Tensor],
-                           build_valids: Sequence[torch.Tensor]):
-    """K8 on the card (csrc/join.cu): same contract as
-    :func:`inner_join_planes_plain`, one probe for every plane and one
-    scatter launch per 32 planes."""
+# csrc/join.cu blz_inner_join's argument words: the header, then (src, dst,
+# size) a plane from _JW_PLANES
+(_JW_NK, _JW_LO, _JW_HI, _JW_DENSE, _JW_TOP, _JW_STEP, _JW_UNIQ, _JW_KEY, _JW_KSIZE,
+ _JW_KKIND, _JW_KVALID, _JW_ROWS, _JW_CAP_P, _JW_CAP_B, _JW_SCRATCH, _JW_TILES, _JW_TAG,
+ _JW_COUNT, _JW_STREAM, _JW_NPROBE, _JW_NPLANES) = range(21)
+_JW_PLANES = 24
+# csrc/join.cu: rows a tile, words of the staged search top, planes a launch
+_JOIN_TILE, _JOIN_TOP, _JOIN_MAX_PLANES = 1024, 4096, 128
+_JOIN_TAGS = (1 << 30) - 1
+
+
+class JoinPack:
+    """K8's argument words for one build map on one device, packed once:
+    ``uniq`` the sorted unique words on the device (length max(nk, 1)),
+    ``words`` the same words on the host (nk of them), from which the
+    search is decided here: the dense route when they are one run of
+    consecutive integers (``ops/joins/keymap.dense_key_words``; ``search``
+    forces the staged-top search), else the staged top's size and step.
+    The build planes' pointers and sizes are packed with them, anew only
+    when the probe's capacity or plane types change. A join of up to 128
+    planes (probe and build) is one launch; a wider one is a launch for
+    each 128 planes, each a whole pass over the batch (probe, look-back,
+    its planes' scatter and padding). Each probe batch checks its planes
+    and writes their pointers, those of the outputs it allocates and the
+    count's into the words in place. The pack also keeps the kernel's
+    scratch (the tickets' counter, then a look-back word a tile), grown
+    with the capacity and never zeroed: each launch tags its words anew.
+    One pack serves one build map; its launches go in stream order."""
+
+    def __init__(self, uniq: torch.Tensor, words: np.ndarray,
+                 build_datas: Sequence[torch.Tensor], build_valids: Sequence[torch.Tensor],
+                 search: bool = False):
+        from blaze_tpu_torch.ops.joins.keymap import dense_key_words  # imports this module
+
+        name = "inner_join_planes"
+        build = list(build_datas) + list(build_valids)
+        cuda_lib.require_cuda(name, uniq, *build)
+        nk = len(words)
+        if uniq.dtype != torch.int64 or uniq.shape != (max(nk, 1),):
+            raise ValueError(f"{name}: sorted keys {uniq.dtype} of shape "
+                             f"{tuple(uniq.shape)} for {nk} keys")
+        if not build_datas:
+            raise ValueError(f"{name}: the build side has no planes")
+        cap_b = int(build[0].shape[0])
+        if any(p.shape != (cap_b,) for p in build) or cap_b >= 2 ** 31:
+            raise ValueError(f"{name}: build planes need one capacity below 2^31 "
+                             f"(got {cap_b})")
+        _check_planes(name, build)
+        self.uniq, self.nk, self.cap_b = uniq, nk, cap_b
+        self.build, self.nbuild_datas = build, len(build_datas)
+        self.dense = not search and dense_key_words(words)
+        self.lo = int(words[0]) if self.dense else 0
+        self.device, self.index = uniq.device, uniq.get_device()
+        self.sig = None
+        self.words = []
+        self.out_dtypes = ()
+        self.scratch = None
+        self.tag = 0
+
+    def _pack(self, sig, key_data: torch.Tensor, probe: Sequence[torch.Tensor]) -> None:
+        """One word array a launch, each over its group of at most 128 of
+        the planes (probe planes first, then the build's)."""
+        _check_planes("inner_join_planes", probe)
+        cap_p, nprobe = sig[0], len(probe)
+        planes = list(probe) + self.build
+        step = max(1, -(-self.nk // _JOIN_TOP))
+        tiles = -(-cap_p // _JOIN_TILE)
+        if self.scratch is None or self.scratch.shape[0] < 1 + tiles:
+            self.scratch = torch.zeros(1 + tiles, dtype=torch.int64, device=self.device)
+        self.words = []
+        for g0 in range(0, len(planes), _JOIN_MAX_PLANES):
+            group = planes[g0:g0 + _JOIN_MAX_PLANES]
+            w = (cuda_lib.ctypes.c_longlong * (_JW_PLANES + 3 * len(group)))()
+            w[_JW_NK], w[_JW_LO], w[_JW_HI] = self.nk, self.lo, self.lo + self.nk - 1
+            w[_JW_DENSE], w[_JW_TOP], w[_JW_STEP] = int(self.dense), \
+                max(1, -(-self.nk // step)), step
+            w[_JW_UNIQ], w[_JW_KSIZE], w[_JW_KKIND] = self.uniq.data_ptr(), \
+                key_data.element_size(), _join_key_kind(key_data)
+            w[_JW_CAP_P], w[_JW_CAP_B] = cap_p, self.cap_b
+            w[_JW_SCRATCH], w[_JW_TILES] = self.scratch.data_ptr(), self.scratch.shape[0] - 1
+            w[_JW_NPROBE] = min(max(nprobe - g0, 0), len(group))
+            w[_JW_NPLANES] = len(group)
+            for j, p in enumerate(group):
+                w[_JW_PLANES + 3 * j + 2] = p.element_size()
+                if g0 + j >= nprobe:
+                    w[_JW_PLANES + 3 * j] = p.data_ptr()
+            self.words.append((g0, w))
+        self.sig = sig
+        self.out_dtypes = [p.dtype for p in planes]
+
+    def _row(self, p: torch.Tensor, cap: int, dtype) -> int:
+        """A probe plane's pointer, after its check."""
+        if p.dtype is not dtype or p.numel() != cap or p.dim() != 1 or \
+                p.get_device() != self.index or not p.is_contiguous():
+            raise ValueError(f"inner_join_planes: a probe plane of {p.dtype}{tuple(p.shape)} "
+                             f"on {p.device}, expected {dtype} ({cap},) on {self.device}")
+        return p.data_ptr()
+
+    def bind(self, num_rows: int, key_data: torch.Tensor, key_valid: torch.Tensor,
+             probe: Sequence[torch.Tensor]):
+        """Pack the probe's signature if it is not the packed one, check the
+        batch's planes, allocate the outputs and the count and write every
+        pointer and each launch's tag; returns (outputs, count, the word
+        arrays to launch)."""
+        cap_p = int(key_data.shape[0])
+        sig = (cap_p, key_data.dtype, tuple(p.dtype for p in probe))
+        if sig != self.sig:
+            self._pack(sig, key_data, probe)
+        if not 0 <= num_rows <= cap_p or cap_p == 0:
+            raise ValueError(f"inner_join_planes: {num_rows} rows of {cap_p}")
+        row, dev = self._row, self.device
+        key, kvalid = row(key_data, cap_p, key_data.dtype), row(key_valid, cap_p, torch.bool)
+        srcs = [row(p, cap_p, dt) for p, dt in zip(probe, sig[2])]
+        outs = [torch.empty(cap_p, dtype=dt, device=dev) for dt in self.out_dtypes]
+        count = torch.empty(1, dtype=torch.int64, device=dev)
+        stream = cuda_lib.stream_handle(self.index)
+        launches = []
+        for g0, w in self.words:
+            w[_JW_ROWS], w[_JW_KEY], w[_JW_KVALID] = num_rows, key, kvalid
+            w[_JW_COUNT], w[_JW_STREAM] = count.data_ptr(), stream
+            for j in range(w[_JW_NPLANES]):
+                if g0 + j < len(srcs):
+                    w[_JW_PLANES + 3 * j] = srcs[g0 + j]
+                w[_JW_PLANES + 3 * j + 1] = outs[g0 + j].data_ptr()
+            self.tag = self.tag % _JOIN_TAGS + 1
+            w[_JW_TAG] = self.tag
+            launches.append(w)
+        return outs, count, launches
+
+
+def inner_join_planes_cuda(pack: JoinPack, num_rows: int, key_data: torch.Tensor,
+                           key_valid: torch.Tensor, probe_datas: Sequence[torch.Tensor],
+                           probe_valids: Sequence[torch.Tensor]):
+    """K8 on the card (csrc/join.cu): the contract of
+    :func:`inner_join_planes_plain` for the build map that ``pack`` holds
+    (its sorted words and build planes), one launch for up to 128 planes."""
     probe = list(probe_datas) + list(probe_valids)
-    build = list(build_datas) + list(build_valids)
-    cuda_lib.require_cuda("inner_join_planes", uniq, key_data, key_valid,
-                          *probe, *build)
-    cap_p = int(key_data.shape[0])
-    kind = _join_key_kind(key_data)
-    if uniq.dtype != torch.int64 or uniq.shape != (max(nk, 1),) or nk < 0:
-        raise ValueError(f"inner_join_planes: sorted keys {uniq.dtype} of shape "
-                         f"{tuple(uniq.shape)} for {nk} keys")
-    if key_valid.dtype != torch.bool or key_data.shape != (cap_p,) or \
-            key_valid.shape != (cap_p,) or not 0 <= num_rows <= cap_p or cap_p == 0:
-        raise ValueError(f"inner_join_planes: key planes {tuple(key_data.shape)} / "
-                         f"{tuple(key_valid.shape)}, {num_rows} rows")
-    if not build_datas:
-        raise ValueError("inner_join_planes: the build side has no planes")
-    cap_b = int(build_datas[0].shape[0])
-    if any(p.shape != (cap_p,) for p in probe) or \
-            any(p.shape != (cap_b,) for p in build) or cap_b >= 2 ** 31:
-        raise ValueError(f"inner_join_planes: probe planes need {cap_p} rows, "
-                         f"build planes one capacity below 2^31 (got {cap_b})")
-    _check_planes("inner_join_planes", probe + build)
-    dev = key_data.device
-    planes = probe + build
-    outs = [torch.empty(cap_p, dtype=p.dtype, device=dev) for p in planes]
-    codes = torch.empty(cap_p, dtype=torch.int32, device=dev)
-    offs = torch.empty(cuda_lib.blocks(cap_p) + 1, dtype=torch.int64, device=dev)
-    srcs, _k1 = cuda_lib.ptr_array(planes)
-    dsts, _k2 = cuda_lib.ptr_array(outs)
-    sizes, _k3 = cuda_lib.int_array([p.element_size() for p in planes])
-    err = cuda_lib.library().blz_inner_join(
-        uniq.data_ptr(), nk, num_rows, key_data.data_ptr(), key_data.element_size(),
-        kind, key_valid.data_ptr(), cap_p, cap_b, len(probe), len(planes), srcs,
-        dsts, sizes, codes.data_ptr(), offs.data_ptr(), cuda_lib.stream_of(dev))
-    cuda_lib.check(err, "inner_join_planes")
-    cuda_lib.LAUNCHES["inner_join_planes"] += 1
-    a, b, c = len(probe_datas), len(probe), len(probe) + len(build_datas)
-    return offs[-1], outs[:a], outs[a:b], outs[b:c], outs[c:]
-
-
-def inner_join_planes(uniq: torch.Tensor, nk: int, num_rows: int,
-                      key_data: torch.Tensor, key_valid: torch.Tensor,
-                      probe_datas: Sequence[torch.Tensor],
-                      probe_valids: Sequence[torch.Tensor],
-                      build_datas: Sequence[torch.Tensor],
-                      build_valids: Sequence[torch.Tensor]):
-    """One probe batch's unique-key inner join (BroadcastJoinExec's hot
-    path): K8 on a CUDA key, the plain version on a CPU one. Returns
-    (count: int, probe datas, probe valids, build datas, build valids);
-    the count is the one host sync."""
-    fn = inner_join_planes_cuda if key_data.is_cuda else inner_join_planes_plain
-    count, pd, pv, bd, bv = fn(uniq, nk, num_rows, key_data, key_valid,
-                               probe_datas, probe_valids, build_datas, build_valids)
-    return int(count), pd, pv, bd, bv
+    outs, count, launches = pack.bind(num_rows, key_data, key_valid, probe)
+    lib = cuda_lib.library()
+    for w in launches:
+        cuda_lib.check(lib.blz_inner_join(w), "inner_join_planes")
+        cuda_lib.LAUNCHES["inner_join_planes"] += 1
+    a, b, c = len(probe_datas), len(probe), len(probe) + pack.nbuild_datas
+    return count[0], outs[:a], outs[a:b], outs[b:c], outs[c:]
 
 
 # -- K9: the generic join probe ----------------------------------------------------

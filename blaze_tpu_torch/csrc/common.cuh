@@ -3,7 +3,8 @@
 // (murmur3.cu, xxhash64.cu), the murmur3 rounds (murmur3.cu, bloom.cu),
 // the key kinds and integer load of the key passes (sort.cu,
 // range_part.cu), the block-level stable rank that the
-// compaction kernels (compact.cu, slot_agg.cu) are built on, the warp
+// compaction kernels (compact.cu, slot_agg.cu) are built on, the
+// decoupled look-back of the single-pass kernels (sort.cu, join.cu), the warp
 // aggregation of the slot kernels' atomics (slot_agg.cu, slot_update.cu),
 // and the emit arithmetic of the aggregate kernels (slot_agg.cu,
 // seg_agg.cu, passthrough.cu).
@@ -156,6 +157,115 @@ __device__ __forceinline__ int blz_block_rank(bool flag, int* warp_sums) {
   }
   __syncthreads();
   return (warp ? warp_sums[warp - 1] : 0) + lane_rank;
+}
+
+// Decoupled look-back (Merrill and Garland's single-pass scan, as onesweep
+// uses it): the exclusive prefix of tile t's ``count`` over the tiles
+// before it, for the radix sort's passes (sort.cu, a word per tile and
+// digit) and the join's compaction (join.cu, a word per tile). Tile k's
+// word sits at status[k * stride]: (tag << 34) | (flag << 32) | count,
+// flag BLZ_LB_AGG for the tile's own count, BLZ_LB_INCL for its inclusive
+// prefix; a word of another tag is not yet published in this pass or
+// launch, so the words need no zeroing between passes that change the
+// tag. Tile t publishes its count, sums the earlier tiles' words back to
+// the nearest inclusive one (BLZ_LB_LOOK tiles a round, independent
+// loads, not a chain), publishes its inclusive prefix and returns the
+// exclusive one. One thread a word calls it; the words are read and
+// written volatile (the counts are the only data they carry).
+#define BLZ_LB_AGG 1ull
+#define BLZ_LB_INCL 2ull
+#define BLZ_LB_LOOK 4
+
+__device__ __forceinline__ unsigned long long blz_lb_word(unsigned long long tag,
+                                                          unsigned long long flag,
+                                                          unsigned int count) {
+  return (tag << 34) | (flag << 32) | count;
+}
+
+__device__ __forceinline__ unsigned int blz_look_back(unsigned long long* status,
+                                                      int64_t stride, int64_t t,
+                                                      unsigned long long tag,
+                                                      unsigned int count) {
+  unsigned long long* st = status + t * stride;
+  unsigned int excl = 0;
+  if (t > 0) {
+    *(volatile unsigned long long*)st = blz_lb_word(tag, BLZ_LB_AGG, count);
+    for (int64_t k = t - 1; k >= 0;) {
+      unsigned long long v[BLZ_LB_LOOK];
+#pragma unroll
+      for (int i = 0; i < BLZ_LB_LOOK; ++i)
+        v[i] = k - i >= 0 ? *(volatile unsigned long long*)(status + (k - i) * stride) : 0ull;
+      int step = 0;  // tiles summed this round before a stop
+      bool done = false, stop = false;
+#pragma unroll
+      for (int i = 0; i < BLZ_LB_LOOK; ++i) {
+        if (stop || done || k - i < 0) continue;
+        if ((v[i] >> 34) != tag) {  // tile k - i has not published yet
+          stop = true;
+          continue;
+        }
+        excl += (unsigned int)(v[i] & 0xffffffffull);
+        ++step;
+        done = ((v[i] >> 32) & 3ull) == BLZ_LB_INCL;
+      }
+      if (done) break;
+      k -= step;
+    }
+  }
+  *(volatile unsigned long long*)st = blz_lb_word(tag, BLZ_LB_INCL, excl + count);
+  return excl;
+}
+
+// The block-wide form (join.cu), for grids whose tiles run at once rather
+// than in turn: each round every thread of the block reads one earlier
+// tile's word (THREADS tiles a round), waits until that tile has
+// published its count (a tile publishes it before it looks back, so the
+// wait is short and never circular), and the block sums the words back to
+// the nearest inclusive one; a tile a few hundred tiles into the grid so
+// sums its prefix in one round, where a window of BLZ_LB_LOOK tiles would
+// walk back tile group by tile group behind tiles that are still looking
+// back themselves. Every thread of the block calls it with the tile's
+// count; all get the exclusive prefix. ``s_red``: __shared__ int[2 *
+// warps] scratch. Tile k's word at status[k].
+template <int THREADS>
+__device__ __forceinline__ unsigned int blz_block_look_back(unsigned long long* status,
+                                                            int64_t t,
+                                                            unsigned long long tag,
+                                                            unsigned int count, int* s_red) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0 && t > 0)
+    *(volatile unsigned long long*)(status + t) = blz_lb_word(tag, BLZ_LB_AGG, count);
+  unsigned int excl = 0;
+  for (int64_t hi = t - 1; hi >= 0; hi -= THREADS) {
+    const int64_t k = hi - threadIdx.x;
+    unsigned long long v = 0ull;
+    if (k >= 0) {
+      v = *(volatile unsigned long long*)(status + k);
+      while ((v >> 34) != tag) {
+        __nanosleep(32);
+        v = *(volatile unsigned long long*)(status + k);
+      }
+    }
+    const bool incl = k >= 0 && ((v >> 32) & 3ull) == BLZ_LB_INCL;
+    // the nearest inclusive word: the least thread index holding one
+    const int w_first = (int)__reduce_min_sync(BLZ_FULL, incl ? threadIdx.x : THREADS);
+    if (lane == 0) s_red[warp] = w_first;
+    __syncthreads();
+    int first = THREADS;
+    for (int w = 0; w < THREADS / 32; ++w) first = s_red[w] < first ? s_red[w] : first;
+    const unsigned int c =
+        k >= 0 && (int)threadIdx.x <= first ? (unsigned int)(v & 0xffffffffull) : 0u;
+    const unsigned int w_sum = __reduce_add_sync(BLZ_FULL, c);
+    if (lane == 0) s_red[THREADS / 32 + warp] = (int)w_sum;
+    __syncthreads();
+    for (int w = 0; w < THREADS / 32; ++w) excl += (unsigned int)s_red[THREADS / 32 + w];
+    __syncthreads();  // s_red is read by every thread before the next round
+    if (first < THREADS) break;
+  }
+  if (threadIdx.x == 0)
+    *(volatile unsigned long long*)(status + t) = blz_lb_word(tag, BLZ_LB_INCL, excl + count);
+  return excl;
 }
 
 // In-place exclusive scan of per-block counts (compact.cu), by one block:

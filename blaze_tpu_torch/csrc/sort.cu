@@ -150,9 +150,6 @@ __device__ __forceinline__ unsigned long long blz_sort_word(const void* p,
 #define BLZ_RS_NONE 257                              // a lane past the rows
 #define BLZ_RS_MAX_DIGITS (BLZ_MAX_SORT_OPS * 8)
 #define BLZ_RS_CHUNK 32                              // digits a histogram sweep
-#define BLZ_RS_LOOK 4                               // tiles a look-back round
-#define BLZ_RS_AGG 1ull
-#define BLZ_RS_INCL 2ull
 
 struct RadixArgs {
   SortOperands ops;
@@ -204,12 +201,6 @@ __device__ __forceinline__ void blz_grid_sync(unsigned int* bar, unsigned int& t
     __threadfence();
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ unsigned long long blz_rs_status(unsigned long long tag,
-                                                            unsigned long long flag,
-                                                            unsigned int count) {
-  return (tag << 34) | (flag << 32) | count;
 }
 
 // Stable LSD radix sort of rows [0, n_sort), 8-bit digits, in one launch:
@@ -425,37 +416,9 @@ blz_radix_sort_kernel(RadixArgs a) {
           whist[w * BLZ_RS_BINS + b] = run;
           run += c;
         }
-        // look back over the earlier tiles' counts of this bin, a window
-        // of BLZ_RS_LOOK tiles a round (independent loads, not a chain)
-        unsigned long long* st = a.status + t * BLZ_RS_BINS + b;
-        unsigned int excl = 0;
-        if (t > 0) {
-          *(volatile unsigned long long*)st = blz_rs_status(tag, BLZ_RS_AGG, (unsigned)run);
-          for (int64_t k = t - 1; k >= 0;) {
-            unsigned long long v[BLZ_RS_LOOK];
-#pragma unroll
-            for (int i = 0; i < BLZ_RS_LOOK; ++i)
-              v[i] = k - i >= 0 ? *(volatile unsigned long long*)(a.status +
-                                                                  (k - i) * BLZ_RS_BINS + b)
-                                : 0ull;
-            int step = 0;  // tiles summed this round before a stop
-            bool done = false, stop = false;
-#pragma unroll
-            for (int i = 0; i < BLZ_RS_LOOK; ++i) {
-              if (stop || done || k - i < 0) continue;
-              if ((v[i] >> 34) != tag) {  // tile k - i has not published yet
-                stop = true;
-                continue;
-              }
-              excl += (unsigned int)(v[i] & 0xffffffffull);
-              ++step;
-              done = ((v[i] >> 32) & 3ull) == BLZ_RS_INCL;
-            }
-            if (done) break;
-            k -= step;
-          }
-        }
-        *(volatile unsigned long long*)st = blz_rs_status(tag, BLZ_RS_INCL, excl + run);
+        // look back over the earlier tiles' counts of this bin (common.cuh)
+        const unsigned int excl =
+            blz_look_back(a.status + b, BLZ_RS_BINS, t, tag, (unsigned int)run);
         s_off[b] = s_base[b] + (int)excl;
       }
       __syncthreads();

@@ -14,18 +14,39 @@ where there is none.
 One program takes 1,024 rows. For each row the kernel loads the data and
 validity planes the chain reads, evaluates every expression with the
 semantics of ``exprs/compiler.py`` and ``exprs/decimal.py`` (op for op,
-in the same types), keeps one live mask per output group (filters only
-narrow it) and stores each group's new planes and, for a filtered group,
-its live mask. Rows past ``num_rows`` carry what the plain version gives
-them (the value, validity False). A column that passes an input data
-plane through is not stored: a filtered group compacts the input planes
-themselves, an unfiltered one shares them. K1 (csrc/compact.cu) then
-compacts each filtered group once, stable, dead lanes zeroed.
+in the same types) and keeps one live mask per output group (filters only
+narrow it). An unfiltered group's new planes are stored in place, rows
+past ``num_rows`` carrying what the plain version gives them (the value,
+validity False); a column that passes an input data plane through is not
+stored, the group shares it.
+
+A segment with a filtered group compacts every such group in the same
+launch (``_Gen._compacting_source``), stable, padding zeroed:
+- programs take tickets (``tl.atomic_add`` on a counter the last ticket
+  resets), so a program waits only on programs that started before it;
+  the first ntiles tickets are the batch's tiles, the rest zero padding;
+- a tile counts each filtered group's live rows (``tl.sum``) and takes
+  the group's exclusive prefix from a decoupled look-back over a
+  per-group status array (``_look_back``: words published with release
+  and read with acquire atomics, 256 earlier tiles a round, tagged by
+  the launch so the array is never zeroed); ranks within the tile come
+  from ``tl.cumsum``; every plane of the group (the input planes it
+  passes through, loaded for it, and its new ones) is stored at prefix +
+  rank; the last tile writes the group counts into one small array that
+  the segment's one count sync reads;
+- a zeroing program clears its 1,024 rows of every filtered plane past
+  the group's count: at once for rows at or past ``num_rows``, else once
+  the last tile's inclusive word is published (``_group_total``; every
+  tile has started by then, and none waits on a zeroing program).
+The stacked form (below) keeps the mask store and compacts with K1
+(csrc/compact.cu) a batch.
 
 Bound: device memory. A chain reads a few planes and writes a few, with
 a handful of integer or float operations a row; nothing is reused, so no
 shared memory and no tensor cores. Triton's blocked loads and stores
-serve that as well as CUDA C++ would, and need no nvcc at run time.
+serve that as well as CUDA C++ would, and need no nvcc at run time. The
+compaction's stores go to computed offsets, which Triton issues an
+element a thread (its loads and in-place stores are vectors).
 
 Bit-equality with the plain version (``core/kernels.fused_chain_plain``),
 which the generator guards:
@@ -51,10 +72,12 @@ mesh's ShardedFusedRunner, parallel/mesh.py) is generated from the same
 body: k <= n batches of one capacity in one launch, the batch on the
 grid's second axis, each batch's planes read through an int64 table of
 their addresses (no stacking copy) and its row count from the same
-table; each output plane is (k, capacity). It replaces the JAX package's
-closure under ``shard_map`` (blaze_tpu/parallel/mesh.py:671), which runs
-one batch a device; here the k batches share one launch. The
-single-batch kernel's source is unchanged by it.
+table; each output plane is (k, capacity), a filtered group's live mask
+among them, and K1 compacts each filtered group of each batch. It
+replaces the JAX package's closure under ``shard_map``
+(blaze_tpu/parallel/mesh.py:671), which runs one batch a device; here the
+k batches share one launch. The single-batch kernel's source is
+unchanged by it.
 
 K18 (``FusedAggKernel``, the section at the end) is generated by the
 same code: a fused partial aggregate's input (its broadcast joins'
@@ -90,6 +113,9 @@ from blaze_tpu_torch.utils import cuda_lib
 
 BLOCK = 1024
 NUM_WARPS = 4
+# a compacting launch's look-back tags: 1 .. 2^30 - 1, so a status word
+# (tag << 33 | flag << 32 | count) stays a positive int64
+_TAGS = (1 << 30) - 1
 
 _TL = {torch.bool: "tl.int1", torch.int8: "tl.int8", torch.int16: "tl.int16",
        torch.int32: "tl.int32", torch.int64: "tl.int64", torch.float32: "tl.float32",
@@ -160,6 +186,58 @@ def _trunc_f32(x):
     return tl.inline_asm_elementwise("cvt.rzi.f32.f32 $0, $1;", "=f,f", [x],
                                      dtype=tl.float32, is_pure=True, pack=1)
 
+'''
+
+
+# the compacting kernel's scan helpers (a filtered group's look-back and the
+# zeroing programs' wait for its total); a status word is (tag << 33) |
+# (flag << 32) | count, flag 1 for an inclusive prefix, and a word of another
+# tag is not yet published in this launch
+_LOOK_BACK = '''
+
+@triton.jit
+def _look_back(status, tile, groups, tag, count, active):
+    # a filtered group's decoupled look-back (Merrill and Garland): tile k's
+    # word at status + k * groups. Publishes the tile's count, sums the
+    # earlier tiles' words back to the nearest inclusive one (256 tiles a
+    # round, one vector of acquire loads: the tiles of a batch run at
+    # once, and each publishes its count before it looks back), publishes
+    # its inclusive prefix and returns the exclusive one.
+    excl = count * 0
+    if active:
+        tagw = tag.to(tl.int64) << 33
+        tl.atomic_xchg(status + tile * groups, tagw | count, sem="release")
+        lane = tl.arange(0, 256)
+        k = tile - 1
+        while k >= 0:
+            kk = k - lane
+            inr = kk >= 0
+            v = tl.atomic_add(status + tl.where(inr, kk, 0) * groups, 0, mask=inr,
+                              sem="acquire")
+            ready = inr & ((v >> 33) == tag)
+            incl = ready & (((v >> 32) & 1) == 1)
+            nr = tl.min(tl.where(inr & (ready == 0), lane, 256), axis=0)
+            fi = tl.min(tl.where(incl, lane, 256), axis=0)
+            take = ready & (lane < nr) & (lane <= fi)
+            excl += tl.sum(tl.where(take, v & 0xFFFFFFFF, 0), axis=0)
+            k = tl.where(fi < nr, -1, k - nr)
+        tl.atomic_xchg(status + tile * groups, tagw | 0x100000000 | (excl + count),
+                       sem="release")
+    return excl
+
+
+@triton.jit
+def _group_total(word, tag, active):
+    # a zeroing program's wait for the launch's last tile's inclusive word:
+    # the group's row count
+    total = tag.to(tl.int64) * 0
+    if active:
+        want = tag.to(tl.int64) * 2 + 1
+        w = tl.atomic_add(word, 0, sem="acquire")
+        while (w >> 32) != want:
+            w = tl.atomic_add(word, 0, sem="acquire")
+        total = w & 0xFFFFFFFF
+    return total
 '''
 
 
@@ -284,6 +362,30 @@ class _Gen:
         n = len(self.in_schema.fields)
         self.used_d = [i for i in range(n) if re.search(rf"\bx{i}\b", read)]
         self.used_v = [i for i in range(n) if re.search(rf"\bxv{i}\b", read)]
+        # the compacting kernel (``source``) also loads the input planes a
+        # filtered group passes through, and stores only the unfiltered
+        # groups' planes in place
+        filt = [(d, v) for d, v, mask in self.groups if mask is not None]
+        self.load_d = sorted(set(self.used_d) | {i for d, _v in filt for k, i in d
+                                                 if k == "in_d"})
+        self.load_v = sorted(set(self.used_v) | {i for _d, v in filt for k, i in v
+                                                 if k == "in_v"})
+        self.full_stores = sorted({i for d, v, mask in self.groups if mask is None
+                                   for k, i in d + v if k == "out"})
+        # per filtered group: (live mask variable, [(variable, torch dtype)]
+        # of its data planes, then its validity planes)
+        self.filtered = [(self.stores[mask][0], [self.plane_value(sp) for sp in d + v])
+                         for d, v, mask in self.groups if mask is not None]
+
+    def plane_value(self, spec) -> Tuple[str, torch.dtype]:
+        """A group plane's variable in the kernel and its torch dtype."""
+        kind, i = spec
+        if kind == "in_d":
+            return f"x{i}", _require_tdt(self.in_schema[i].dtype)
+        if kind == "in_v":
+            return f"xv{i}", torch.bool
+        return self.stores[i]
+
 
     def _store(self, var: str, tdt: torch.dtype) -> int:
         self.stores.append((var, tdt))
@@ -671,6 +773,8 @@ class _Gen:
     # -- the module -----------------------------------------------------------------
 
     def source(self, fingerprint: str) -> str:
+        if self.filtered:
+            return self._compacting_source(fingerprint)
         params = ([f"x{i}_ptr" for i in self.used_d] + [f"xv{i}_ptr" for i in self.used_v]
                   + [f"o{k}" for k in range(len(self.stores))]
                   + ["consts", "num_rows", "cap", "BLOCK: tl.constexpr"])
@@ -690,6 +794,63 @@ class _Gen:
         lines += self.body
         lines += [f"    tl.store(o{k} + offs, {v}.to({_TL[tdt]}), mask=inb)"
                   for k, (v, tdt) in enumerate(self.stores)]
+        return "\n".join(lines) + "\n"
+
+    def _compacting_source(self, fingerprint: str) -> str:
+        """One launch of 2 * ntiles programs, each taking a ticket: the
+        first ntiles are the batch's tiles (the chain's body, the unfiltered
+        groups' stores in place, then per filtered group its live count, a
+        look-back for its offset and its planes stored at offset + rank,
+        the last tile writing the counts); the others zero the filtered
+        groups' padding, tile by tile, once the last tile's inclusive words
+        give the counts. ``state``: the tickets' counter, then ntiles words
+        a filtered group; ``tag``: this launch's."""
+        filt = self.filtered
+        ng = len(filt)
+        params = ([f"x{i}_ptr" for i in self.load_d] + [f"xv{i}_ptr" for i in self.load_v]
+                  + [f"o{k}" for k in self.full_stores]
+                  + [f"g{f}_{j}" for f, (_m, planes) in enumerate(filt)
+                     for j in range(len(planes))]
+                  + ["consts", "state", "counts", "num_rows", "cap", "ntiles", "tag",
+                     "BLOCK: tl.constexpr"])
+        lines = [_PRELUDE.format(what="K11 for one fused chain segment", fp=fingerprint)
+                 + _LOOK_BACK,
+                 '@triton.jit(do_not_specialize=["num_rows", "cap", "ntiles", "tag"])',
+                 f"def fused_chain({', '.join(params)}):",
+                 "    ticket = tl.atomic_add(state, 1)",
+                 "    tl.atomic_xchg(state, 0, mask=ticket == 2 * ntiles - 1)",
+                 "    is_tile = ticket < ntiles",
+                 "    offs = ticket * BLOCK + tl.arange(0, BLOCK)",
+                 "    inb = offs < cap",
+                 "    exists = offs < num_rows",
+                 "    tt = offs >= 0",
+                 "    ff = offs < 0",
+                 "    zi64 = tl.zeros([BLOCK], dtype=tl.int64)"]
+        lines += [f"    w{k} = zi64 + tl.load(consts + {k})" for k in range(len(self.pool))]
+        lines += [f"    x{i} = tl.load(x{i}_ptr + offs, mask=inb, other=0)" for i in self.load_d]
+        lines += [f"    xv{i} = tl.load(xv{i}_ptr + offs, mask=inb, other=0)"
+                  for i in self.load_v]
+        lines += self.body
+        lines += [f"    tl.store(o{k} + offs, {self.stores[k][0]}.to({_TL[self.stores[k][1]]}), "
+                  "mask=inb)" for k in self.full_stores]
+        # the zeroing programs: rows at or past num_rows at once, the others
+        # once the group's count is published
+        lines += ["    zoffs = (ticket - ntiles) * BLOCK + tl.arange(0, BLOCK)",
+                  "    last = ticket == ntiles - 1"]
+        for f, (mask, planes) in enumerate(filt):
+            lines += [f"    m{f} = {mask} & inb",
+                      f"    c{f} = tl.sum(m{f}.to(tl.int64), axis=0)",
+                      f"    e{f} = _look_back(state + 1 + {f}, ticket, {ng}, tag, c{f}, is_tile)",
+                      f"    p{f} = e{f} + tl.cumsum(m{f}.to(tl.int64), axis=0) - "
+                      f"m{f}.to(tl.int64)"]
+            lines += [f"    tl.store(g{f}_{j} + p{f}, {var}.to({_TL[tdt]}), mask=m{f})"
+                      for j, (var, tdt) in enumerate(planes)]
+            lines += [f"    tl.store(counts + {f}, e{f} + c{f}, mask=last)",
+                      f"    n{f} = _group_total(state + 1 + (ntiles - 1) * {ng} + {f}, tag, "
+                      "(is_tile == 0) & ((ticket - ntiles) * BLOCK < num_rows))",
+                      f"    z{f} = (is_tile == 0) & (zoffs >= n{f}) & (zoffs < cap)"]
+            lines += [f"    tl.store(g{f}_{j} + zoffs, zi64.to({_TL[tdt]}), mask=z{f})"
+                      for j, (_var, tdt) in enumerate(planes)]
         return "\n".join(lines) + "\n"
 
     def stacked_source(self, fingerprint: str) -> str:
@@ -765,6 +926,9 @@ class FusedKernel:
         self._stacked_source: Optional[str] = None
         self._stacked_fn = None
         self._consts: Dict[str, torch.Tensor] = {}
+        self._state: Dict[str, torch.Tensor] = {}
+        self._tag = 0
+        self._plane_dtypes: Optional[List[Optional[torch.dtype]]] = None
         self._lock = threading.Lock()
 
     @property
@@ -772,6 +936,13 @@ class FusedKernel:
         if self._gen is None:
             self._gen = _Gen(self.in_schema, self.steps)
         return self._gen
+
+    @property
+    def plane_dtypes(self) -> List[Optional[torch.dtype]]:
+        """The torch dtype of each input column's data plane."""
+        if self._plane_dtypes is None:
+            self._plane_dtypes = [T.torch_dtype(f.dtype) for f in self.in_schema.fields]
+        return self._plane_dtypes
 
     @property
     def source(self) -> str:
@@ -816,6 +987,20 @@ class FusedKernel:
                     f"blaze_tpu_torch_fused_stacked_{self.fingerprint}", "fused_chain_stacked")
             return self._stacked_fn
 
+    def scan_state(self, device: torch.device, words: int) -> Tuple[torch.Tensor, int]:
+        """The compacting kernel's scratch on ``device`` (the tickets'
+        counter, then the look-back words; zeroed once, grown to ``words``)
+        and a tag of its own for the next launch: the kernel resets its
+        counter and its words carry the tag, so the scratch is never zeroed
+        again. The launches of one device go in stream order."""
+        key = str(device)
+        with self._lock:
+            state = self._state.get(key)
+            if state is None or state.shape[0] < words:
+                state = self._state[key] = torch.zeros(words, dtype=torch.int64, device=device)
+            self._tag = self._tag % _TAGS + 1
+            return state, self._tag
+
     def constants_on(self, device: torch.device) -> torch.Tensor:
         key = str(device)
         t = self._consts.get(key)
@@ -823,9 +1008,6 @@ class FusedKernel:
             t = torch.tensor(self.gen.constants(), dtype=torch.int64, device=device)
             self._consts[key] = t
         return t
-
-    def __call__(self, datas, valids, num_rows: int):
-        return fused_chain_cuda(self, datas, valids, num_rows)
 
 
 def _import_kernel(path: str, text: str, name: str, attr: str):
@@ -863,43 +1045,65 @@ def _check_batch(kernel: FusedKernel, name: str, datas, valids, cap: int) -> Non
     if len(datas) != len(fields) or len(valids) != len(fields):
         raise ValueError(f"{name}: {len(datas)} planes for {len(fields)} columns")
     cuda_lib.require_cuda(name, *datas, *valids)
-    for f, d, v in zip(fields, datas, valids):
-        if d.shape != (cap,) or v.shape != (cap,) or v.dtype != torch.bool \
-                or d.dtype != T.torch_dtype(f.dtype):
+    for f, tdt, d, v in zip(fields, kernel.plane_dtypes, datas, valids):
+        if d.shape != (cap,) or v.shape != (cap,) or v.dtype != torch.bool or d.dtype != tdt:
             raise ValueError(f"{name}: column {f.name!r} planes {d.dtype}"
                              f"{tuple(d.shape)} / {v.dtype}{tuple(v.shape)}")
 
 
-def launch(kernel: FusedKernel, datas: Sequence[torch.Tensor],
-           valids: Sequence[torch.Tensor], num_rows: int) -> List[torch.Tensor]:
-    """K11 alone: checks the planes, launches the segment's kernel once and
-    returns the planes it stored (none, and no launch, for a segment that
-    computes nothing)."""
+def fused_chain_cuda(kernel: FusedKernel, datas: Sequence[torch.Tensor],
+                     valids: Sequence[torch.Tensor], num_rows: int):
+    """K11 on the card, one launch that also compacts every filtered output
+    group (none for a segment that computes nothing and filters nothing):
+    the groups of ``core/kernels.fused_chain_plain``, and the filtered
+    groups' counts in group order as one int64 device array (empty when
+    no group is filtered), which ``core/kernels.fused_chain`` reads in its
+    one sync."""
     gen = kernel.gen
     cap = int(datas[0].shape[0])
     _check_batch(kernel, "fused_chain", datas, valids, cap)
+    if not 0 <= num_rows <= cap:
+        raise ValueError(f"fused_chain: {num_rows} rows in a {cap}-row batch")
     dev = datas[0].device
-    outs = [torch.empty(cap, dtype=tdt, device=dev) for _v, tdt in gen.stores]
-    if outs:
+    filt = gen.filtered
+    full = {k: torch.empty(cap, dtype=gen.stores[k][1], device=dev) for k in gen.full_stores}
+    packed = [[torch.empty(cap, dtype=tdt, device=dev) for _v, tdt in planes]
+              for _m, planes in filt]
+    counts = torch.empty(len(filt), dtype=torch.int64, device=dev)
+    if full or filt:
         fn = kernel.compiled()
-        args = ([datas[i] for i in gen.used_d] + [valids[i] for i in gen.used_v] + outs
-                + [kernel.constants_on(dev), num_rows, cap])
-        fn[((cap + BLOCK - 1) // BLOCK,)](*args, BLOCK=BLOCK, num_warps=NUM_WARPS,
-                                           enable_fp_fusion=False)
+        ntiles = (cap + BLOCK - 1) // BLOCK
+        args = ([datas[i] for i in gen.load_d] + [valids[i] for i in gen.load_v]
+                + list(full.values()) + [t for planes in packed for t in planes]
+                + [kernel.constants_on(dev)])
+        if filt:
+            state, tag = kernel.scan_state(dev, 1 + ntiles * len(filt))
+            fn[(2 * ntiles,)](*args, state, counts, num_rows, cap, ntiles, tag, BLOCK=BLOCK,
+                              num_warps=NUM_WARPS, enable_fp_fusion=False)
+        else:
+            fn[(ntiles,)](*args, num_rows, cap, BLOCK=BLOCK, num_warps=NUM_WARPS,
+                          enable_fp_fusion=False)
         cuda_lib.LAUNCHES["fused_chain"] += 1
-    return outs
 
+    def plane(spec):
+        kind, i = spec
+        return datas[i] if kind == "in_d" else valids[i] if kind == "in_v" else full[i]
 
-def fused_chain_cuda(kernel: FusedKernel, datas: Sequence[torch.Tensor],
-                     valids: Sequence[torch.Tensor], num_rows: int):
-    """K11 on the card, then K1 once per filtered output group: the same
-    contract as ``core/kernels.fused_chain_plain``."""
-    return _groups(kernel.gen, datas, valids, launch(kernel, datas, valids, num_rows), num_rows)
+    groups, f = [], 0
+    for dspec, vspec, mask in gen.groups:
+        if mask is None:
+            groups.append((tuple(plane(s) for s in dspec), tuple(plane(s) for s in vspec)))
+        else:
+            planes = packed[f]
+            groups.append((tuple(planes[:len(dspec)]), tuple(planes[len(dspec):])))
+            f += 1
+    return tuple(groups), counts
 
 
 def _groups(gen: _Gen, datas, valids, outs, num_rows: int):
     """One batch's (groups, counts) from its input planes and the planes
-    K11 stored for it: each filtered group compacted once with K1."""
+    the stacked K11 stored for it: each filtered group compacted once with
+    K1, its count a 0-d device tensor."""
     from blaze_tpu_torch.core.kernels import compact_planes_cuda
 
     def plane(spec):
@@ -953,11 +1157,18 @@ def launch_stacked(kernel: FusedKernel, batch_datas, batch_valids,
 def fused_chain_stacked_cuda(kernel: FusedKernel, batch_datas, batch_valids,
                              batch_nrows: Sequence[int]):
     """The stacked K11 on the card, then K1 once per filtered output group
-    per batch: per batch the same (groups, counts) as
-    :func:`fused_chain_cuda` gives it."""
+    per batch: per batch the (groups, counts) of
+    ``core/kernels.fused_chain_plain``, every batch's filtered counts read
+    in one sync."""
     outs = launch_stacked(kernel, batch_datas, batch_valids, batch_nrows)
-    return [_groups(kernel.gen, datas, valids, [o[b] for o in outs], int(nr))
-            for b, (datas, valids, nr) in enumerate(zip(batch_datas, batch_valids, batch_nrows))]
+    per_batch = [_groups(kernel.gen, datas, valids, [o[b] for o in outs], int(nr))
+                 for b, (datas, valids, nr) in enumerate(zip(batch_datas, batch_valids,
+                                                             batch_nrows))]
+    filt = [mask is not None for _d, _v, mask in kernel.gen.groups]
+    synced = iter(torch.stack([c for _g, counts in per_batch for c, f in zip(counts, filt) if f])
+                  .tolist() if any(filt) else ())
+    return [(groups, tuple(next(synced) if f else c for c, f in zip(counts, filt)))
+            for groups, counts in per_batch]
 
 
 # -- K18: the fused aggregate input ---------------------------------------------------

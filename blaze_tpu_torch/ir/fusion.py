@@ -6,8 +6,8 @@ projection, filter, rename, expand, with coalesce-batches as an in-stage
 staging point — touches each row once and has no data-dependent control
 flow. The pass rewrites maximal such chains into ``N.FusedStage`` nodes;
 ``ops/fused.py`` runs each segment of a stage as one generated Triton
-kernel (K11, ``exprs/fused_triton.py``) per batch, with one compaction
-(K1) per filtered output group at its end.
+kernel (K11, ``exprs/fused_triton.py``) per batch, which also compacts
+each filtered output group.
 
 Cost model, as in the JAX package:
 

@@ -5,9 +5,9 @@ to fuse; this operator runs it. A FusedStage's ops are lowered to steps
 and split at coalesce-batches boundaries into segments. Each segment runs
 per batch as one K11 launch (``exprs/fused_triton.py``: every project,
 filter, rename and expand step of the segment in one kernel, filters
-narrowing a live mask) followed by one K1 compaction per filtered output
-group, so a project-over-filter-over-project chain costs two launches and
-one count sync a batch, like a lone FilterExec. Kernels are cached
+narrowing a live mask, and every filtered output group compacted by the
+same launch), so a project-over-filter-over-project chain costs one
+launch and one count sync a batch, as a lone FilterExec does. Kernels are cached
 process-wide by segment fingerprint, shared across queries; each batch
 counts a ``jit_cache_hits`` or ``jit_cache_misses`` against that cache.
 
@@ -158,7 +158,7 @@ class FusedStageExec(Operator):
             groups, counts = kernels.fused_chain(
                 seg.in_schema, seg.steps, [c.data for c in cols],
                 [c.validity for c in cols], batch.num_rows, kernel=kernel)
-            yield from self._emit_groups(seg, batch.num_rows, groups, counts)
+            yield from self._emit_groups(seg, groups, counts)
 
     def _fused_stream_sharded(self, stream, seg: _FusedSegment, runner):
         """Stacks of up to ``runner.n`` consecutive batches of one capacity,
@@ -183,7 +183,7 @@ class FusedStageExec(Operator):
                 runner.counters["sharded_stages"] += 1
             self.metrics["sharded_batches"] += len(stack)
             for b, (groups, counts) in zip(stack, outs):
-                yield from self._emit_groups(seg, b.num_rows, groups, counts)
+                yield from self._emit_groups(seg, groups, counts)
 
         for batch in stream:
             self._check_fusable(batch)
@@ -196,14 +196,12 @@ class FusedStageExec(Operator):
             yield from flush()
 
     @staticmethod
-    def _emit_groups(seg: _FusedSegment, batch_rows: int, groups, counts):
-        for g, (datas, valids) in enumerate(groups):
-            if seg.group_flags[g]:
-                count = int(counts[g])  # one count sync, as FilterExec
-                if count == 0:
-                    continue
-            else:
-                count = batch_rows
+    def _emit_groups(seg: _FusedSegment, groups, counts):
+        """One batch's output groups; ``counts`` per group, host ints (a
+        filtered group that kept no row is left out)."""
+        for g, ((datas, valids), count) in enumerate(zip(groups, counts)):
+            if seg.group_flags[g] and count == 0:
+                continue
             cols = [DeviceColumn(f.dtype, d, v)
                     for f, d, v in zip(seg.out_schema.fields, datas, valids)]
             yield ColumnarBatch(seg.out_schema, cols, count)

@@ -11,9 +11,10 @@ an optional condition over the pair of rows.
 Per probe batch, as in the reference:
 
 - an INNER, unconditioned join whose build keys are unique and single
-  (a dimension table) takes K8 (core/kernels.py ``inner_join_planes``:
-  probe, stable compaction and the gathers of both sides, one count
-  sync);
+  (a dimension table) takes K8 (core/kernels.py ``inner_join_planes_cuda``:
+  probe, stable compaction and the gathers of both sides in one launch,
+  its argument words packed once a build map, ``JoinHashMap.join_pack``;
+  one count sync);
 - every other join takes the generic probe: K9 (``probe_codes``) gives
   each probe key its build-map code, the codes come to the host, the
   map's CSR expands the matching pairs there (numpy), the condition
@@ -172,10 +173,15 @@ class _HashJoinBase(Operator):
         """One K8 call: the probe batch's hit rows beside their build rows,
         or None when no row hits."""
         bb = bmap.batch
-        count, pd, pv, bd, bv = kernels.inner_join_planes(
-            bmap.device_keys(batch.device), len(bmap.sorted_keys), batch.num_rows,
-            cols[0].data, cols[0].validity,
-            *column_planes(batch.columns), *column_planes(bb.columns))
+        dev = batch.device
+        probe = (batch.num_rows, cols[0].data, cols[0].validity, *column_planes(batch.columns))
+        if dev.type == "cuda":  # K8, packed once a build map
+            count, pd, pv, bd, bv = kernels.inner_join_planes_cuda(bmap.join_pack(dev), *probe)
+        else:
+            count, pd, pv, bd, bv = kernels.inner_join_planes_plain(
+                bmap.device_keys(dev), len(bmap.sorted_keys), *probe,
+                *column_planes(bb.columns))
+        count = int(count)  # the batch's one host sync
         if count == 0:
             return None
         probe_cols = columns_from_planes(batch.schema.types, pd, pv)

@@ -7,13 +7,14 @@ Copies of blaze_tpu/ops/joins/keymap.py, host numpy as they are there:
   operator finds its partition and peer boundaries with them;
 - ``canon_words`` and ``sorted_probe``: the canonical word of a device
   key and the sorted-key probe that K8, K9 and K18 share;
+  ``dense_key_words``: K8's search route, decided once a build map;
 - ``key_codes``: the host interning of multi-column keys;
 - ``JoinHashMap``: the build side of every hash join (ops/joins/bhj.py),
   a CSR layout of the code-sorted build rows. A single fixed-width key
   gets codes that are ranks in its sorted unique canonical words, probed
   on the device by K9 (core/kernels.py ``probe_codes``; the reference's
   ``_probe_fn``) or, for a unique-key inner join, by K8
-  (``inner_join_planes``); several key columns are interned on the host.
+  (``inner_join_planes_cuda``); several key columns are interned on the host.
   The codes come to the host, where ``probe`` expands the matching
   (probe row, build row) pairs, as in the reference.
 
@@ -33,7 +34,7 @@ import torch
 
 from blaze_tpu_torch.config import Config
 from blaze_tpu_torch.core import kernels
-from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn
+from blaze_tpu_torch.core.batch import ColumnarBatch, DeviceColumn, column_planes
 from blaze_tpu_torch.exprs.compiler import ExprEvaluator
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
@@ -113,6 +114,16 @@ def canon_words(data: torch.Tensor) -> torch.Tensor:
     return data.to(torch.int64)
 
 
+def dense_key_words(words: np.ndarray) -> bool:
+    """Whether a build's sorted unique canonical words are one run of
+    consecutive integers (nk == words[-1] - words[0] + 1): K8 then ranks a
+    probe word by a subtraction behind a range check (csrc/join.cu's dense
+    route), with no search. Decided once a build map, on the host, in
+    Python integers (no int64 wrap)."""
+    n = len(words)
+    return n > 0 and int(words[-1]) - int(words[0]) + 1 == n
+
+
 def sorted_probe(uniq: torch.Tensor, data: torch.Tensor, valid: torch.Tensor,
                  nk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The membership probe against the build's sorted unique words
@@ -188,8 +199,10 @@ class JoinHashMap:
         self.schema = schema
         self.sorted_keys = sorted_keys
         # one-element cell: every task of a query that shares this map
-        # shares one upload of the sorted keys to the device
+        # shares one upload of the sorted keys to the device, and K8's
+        # argument words (``join_pack``) a device
         self._dev_cell: List[Optional[torch.Tensor]] = [None]
+        self._packs: Dict[str, "kernels.JoinPack"] = {}
         self.matched = np.zeros(batch.num_rows, dtype=bool)
 
     def for_task(self) -> "JoinHashMap":
@@ -200,6 +213,7 @@ class JoinHashMap:
         m = JoinHashMap(self.batch, self.key_map, self.offsets, self.schema,
                         self.sorted_keys)
         m._dev_cell = self._dev_cell
+        m._packs = self._packs
         return m
 
     @property
@@ -223,6 +237,18 @@ class JoinHashMap:
             self._dev_cell[0] = torch.from_numpy(
                 np.ascontiguousarray(keys, dtype=np.int64)).to(device)
         return self._dev_cell[0]
+
+    def join_pack(self, device: torch.device) -> "kernels.JoinPack":
+        """K8's argument words for this map's build planes on ``device``
+        (made once a query and device, shared by its tasks), its search
+        route decided once, from the sorted words (``dense_key_words``)."""
+        key = str(device)
+        pack = self._packs.get(key)
+        if pack is None:
+            pack = self._packs[key] = kernels.JoinPack(
+                self.device_keys(device), self.sorted_keys,
+                *column_planes(self.batch.columns))
+        return pack
 
     @staticmethod
     def build(batches: List[ColumnarBatch], key_exprs: List[E.Expr],

@@ -521,10 +521,6 @@ class ShardedFusedRunner:
         ints."""
         per_batch = K.fused_chain_stacked(kernel.in_schema, kernel.steps, batch_datas,
                                           batch_valids, batch_nrows, kernel=kernel)
-        flat = [c for _g, counts in per_batch for c in counts]
-        tensors = [c for c in flat if isinstance(c, torch.Tensor)]
-        synced = iter(torch.stack(tensors).tolist() if tensors else [])
         self.dispatches += 1
         self.counters["sharded_batches"] += len(batch_datas)
-        return [(groups, tuple(next(synced) if isinstance(c, torch.Tensor) else int(c)
-                               for c in counts)) for groups, counts in per_batch]
+        return per_batch

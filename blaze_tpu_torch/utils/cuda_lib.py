@@ -244,10 +244,8 @@ _SIGNATURES = {
     # the argument words (csrc/gather.cu), the staged table or null, stream
     "blz_concat_planes": [_PLL, _P, _P],
     "blz_split_planes": [_PLL, _P, _P],
-    # uniq, nk, num_rows, key, key_size, key_kind, key_valid, cap_p, cap_b,
-    # nprobe, nplanes, srcs, dsts, sizes, codes, offs, stream
-    "blz_inner_join": [_P, _I64, _I64, _P, _I, _I, _P, _I64, _I64, _I, _I,
-                       _PP, _PP, _PI, _P, _P, _P],
+    # the argument words (csrc/join.cu blz_inner_join; core/kernels.py _JW_*)
+    "blz_inner_join": [_PLL],
     # uniq, nk, key, key_size, key_kind, key_valid, cap, codes, stream
     "blz_probe_codes": [_P, _I64, _P, _I, _I, _P, _I64, _P, _P],
     # k, datas, valids, sizes, is_float, order, n, cap, flags, offs,

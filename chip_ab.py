@@ -5,7 +5,7 @@ comparisons on one NVIDIA GPU.
     python3 chip_ab.py [--tree DIR] [--label NAME] [--paths q67,q67_sort,q69]
                        [--runs N] [--no-fusion] [--no-fused-agg] [--profile]
                        [--trace=DIR]
-    python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k3_k4,k10,limbs,k12,k19,k5,k7
+    python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k3_k4,k10,limbs,k12,k19,k5,k7,k8,k11
 
 Paths: q01, q01_mesh1, q01_mesh2, q01_mesh8, q67, q67_sort, q67_table,
 q69, q69_bloom, q06, q47, q96, q96_mesh, q17, q17_sort, q17_table, q89,
@@ -19,7 +19,9 @@ checkout's chip_smoke.py (``kernel_<name>``: each holds its kernels to
 their plain versions and times them) and prints one JSON line per timed
 kernel: its shape, CUDA-event ms, device ms, the wrapper's host ms, plain
 ms (and the plain chain's device ms), library ms, bound and extra shapes,
-whichever the checkout's phase records.
+whichever the checkout's phase records (``k8``: q96's three probes, q69's
+date probe and q06's all-hit batch; ``k11``: q69's and q96's scan filters,
+with the generated kernel's own device ms).
 
 Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
 (default: this one) and, for each named path, stages its data once (as
@@ -324,7 +326,7 @@ def _kernels(cs, dev, opts) -> int:
                                           "library_device_ms",
                                           "library_host_ms", "library_call", "bytes",
                                           "shapes", "stream_object_ms", "stream_raw_ms",
-                                          "phases_us")}
+                                          "phases_us", "k11_device_ms", "hits")}
             line["bound_ms"] = r["bytes"] / cs.HBM_BYTES_PER_S * 1e3
             print(json.dumps({"phase": "ab_kernel", "label": opts["label"], "tree":
                               os.path.abspath(opts["tree"]), "kernels": phase,

@@ -18,7 +18,9 @@ only when every phase passed:
    capacities, offsets past the end, empty batches in a concat; for the
    join: misses, null probe keys, an empty build, one build key, a
    null-keyed build row, int32/f32/f64 keys with +-0.0 and NaN payloads,
-   and q06's batch all hitting and half missing; for the generic probe:
+   and q06's batch all hitting and half missing, on both search routes
+   where the build words are dense, then q96's three chained probes and
+   q69's date probe of a store_sales batch; for the generic probe:
    the same key kinds, keys below and above the build's range, an empty
    build, one build key, q69's probe batch and a 262,144-row batch of
    customer keys against the store window's keys; for the segmented
@@ -30,7 +32,8 @@ only when every phase passed:
    every limb kind too, and a float sum whose value depends on the order
    of its adds; for K3/K4 also both sides of the shared-memory switch
    with the LEX pairs, one block and many; for the fused chain, K11 (a Triton kernel
-   generated per chain) with K1 after it: every step kind (project,
+   generated per chain, compacting its filtered groups itself): every
+   step kind (project,
    filter, rename, expand, and a coalesce between two segments through
    FusedStageExec), i32/i64/f32/f64/bool/decimal planes, every ported
    operator, InList with a null item and negated, the FMA shapes, division
@@ -1417,52 +1420,239 @@ def q06_join_batch(rng, dev, miss, nulls):
             [t(x) for x in build], [t(live_b)] * 4)
 
 
-def kernel_k8(dev, rng, results):
+def k8_dim(keys, attrs, cap_b, t):
+    """A broadcast side as the build map holds it: its rows sorted by key
+    (code c owns row c), the key and ``attrs`` as int64 planes of ``cap_b``
+    rows, rows past the keys padding; with the sorted words."""
+    import numpy as np
+
+    order = np.argsort(keys, kind="stable")
+    nk = len(keys)
+    live = np.arange(cap_b) < nk
+    planes = []
+    for col in (keys,) + tuple(attrs):
+        d = np.zeros(cap_b, np.int64)
+        d[:nk] = col[order]
+        planes.append(d)
+    return (t(np.sort(keys) if nk else np.zeros(1, np.int64)), nk,
+            [t(d) for d in planes], [t(live)] * len(planes))
+
+
+def k8_probe(cols, n, cap, t):
+    """A probe batch after Spark's scan filter: ``cols`` (int64, all
+    valid) compacted to the front of ``cap`` rows."""
+    import numpy as np
+
+    live = np.arange(cap) < n
+    planes = []
+    for c in cols:
+        d = np.zeros(cap, np.int64)
+        d[:n] = c[:n]
+        planes.append(d)
+    return [t(d) for d in planes], [t(live)] * len(planes)
+
+
+def q96_join_probes(dev, cap=262144):
+    """K8's three probes of one q96 store_sales batch as the main path
+    chains them: 262,144 rows drawn as ``q96_host`` draws them (seed 96),
+    Spark's isnotnull filter on the three keys compacting the live rows to
+    the front; probe 1 against time_dim under t_hour = 20 AND t_minute >=
+    30 (1,800 dense keys 73,800..75,599, capacity 131,072); its plain output
+    against household_demographics under hd_dep_count = 7 (720 keys in six
+    runs of 120, capacity 8,192); that output against store under
+    s_store_name = 'ese' (capacity 128). Returns [(label, args, dense
+    words)], args as ``inner_join_planes_plain`` takes them."""
     import numpy as np
     import torch
     from blaze_tpu_torch.core import kernels as K
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    host = q96_host(dict(Q96_ROWS, store_sales=cap))
+    (t_sk, t_hour, t_minute), _ = host["time_dim"]
+    (hd_sk, dep), _ = host["household_demographics"]
+    (s_sk, name), _ = host["store"]
+    (time, hdemo, store), (tv, hv, sv) = host["store_sales"]
+    keep = tv & hv & sv
+    n = int(keep.sum())
+    pd, pv = k8_probe([time[keep], hdemo[keep], store[keep]], n, cap, t)
+    sel = (t_hour == 20) & (t_minute >= 30)
+    dims = [("time_dim", 0, k8_dim(t_sk[sel], (t_hour[sel], t_minute[sel]), 131072, t)),
+            ("household_demographics", 1, k8_dim(hd_sk[dep == 7], ((dep[dep == 7]),), 8192, t)),
+            ("store", 2, k8_dim(s_sk[name == Q96_ESE], (name[name == Q96_ESE],), 128, t))]
+    out = []
+    for table, col, (uniq, nk, bd, bv) in dims:
+        args = (uniq, nk, n, pd[col], pv[col], pd, pv, bd, bv)
+        label = (f"q96 probe {len(out) + 1}: {n} of {cap} rows x {len(pd)} cols vs {table} "
+                 f"({nk} keys, {len(bd)} cols)")
+        out.append((label, args, uniq[:max(nk, 1)].cpu().numpy()))
+        count, od, ov, obd, obv = K.inner_join_planes_plain(*args)
+        n = int(count)
+        pd, pv = list(od) + list(obd), list(ov) + list(obv)
+    return out
+
+
+def q69_dates_probe(dev, rng, cap=262144):
+    """K8 at q69: one store_sales batch after Spark's scan filter
+    (isnotnull on the date and customer keys: 4% of the customers null,
+    the live rows compacted to the front) against date_dim under d_year =
+    2001 AND d_moy BETWEEN 4 AND 6 (91 dense keys, capacity 131,072)."""
+    import numpy as np
+    import torch
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    date = rng.integers(Q69_SALES_DATES[0], Q69_SALES_DATES[1] + 1, cap)
+    cust_v = rng.random(cap) >= 0.04
+    cust = rng.integers(1, Q69_ROWS["customer"] + 1, cap)
+    n = int(cust_v.sum())
+    pd, pv = k8_probe([date[cust_v], cust[cust_v]], n, cap, t)
+    days = np.arange(2_415_022, 2_415_022 + Q69_ROWS["date_dim"])
+    d = np.datetime64("1900-01-02") + (days - 2_415_022)
+    year = d.astype("datetime64[Y]").astype(np.int64) + 1970
+    moy = d.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    sel = (year == 2001) & (moy >= 4) & (moy <= 6)
+    uniq, nk, bd, bv = k8_dim(days[sel], (year[sel], moy[sel]), 131072, t)
+    label = (f"q69 store_sales probe: {n} of {cap} rows x 2 cols vs date_dim "
+             f"({nk} keys, 3 cols)")
+    return label, (uniq, nk, n, pd[0], pv[0], pd, pv, bd, bv), uniq[:nk].cpu().numpy()
+
+
+def k8_bytes(args, dense):
+    """The bytes K8 must move for one probe: each live row's key and
+    validity read, the other probe planes of the hit rows read, every build
+    word read once by a search (two by the dense route), the hit build rows'
+    planes read once, and every output plane written over the probe's
+    capacity (hit rows, then padding)."""
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    uniq, nk, n, key, kv, pd, pv, bd, bv = args
+    count = int(K.inner_join_planes_plain(*args)[0])
+    row_p = sum(x.element_size() for x in list(pd) + list(pv))
+    row_b = sum(x.element_size() for x in list(bd) + list(bv))
+    hit_keys = key[:n][kv[:n]]
+    touched = int(torch.unique(hit_keys[torch.isin(hit_keys, uniq[:nk])]).numel()) if nk else 0
+    return (n * (key.element_size() + 1) + count * (row_p - key.element_size() - 1)
+            + (16 if dense else nk * 8) + touched * row_b
+            + key.shape[0] * (row_p + row_b)), count
+
+
+def k8_library(args):
+    """The library chain of one probe: searchsorted, the hit rows by
+    nonzero, index_select per plane (no padding)."""
+    import torch
+
+    uniq, nk, n, key, kv, pd, pv, bd, bv = args
+
+    def chain():
+        idx = torch.searchsorted(uniq, key)
+        cidx = idx.clamp(max=max(nk - 1, 0))
+        rows = torch.nonzero(kv & (idx < nk) & (uniq[cidx] == key)).squeeze(1)
+        brow = cidx.index_select(0, rows)
+        return ([p.index_select(0, rows) for p in list(pd) + list(pv)] +
+                [p.index_select(0, brow) for p in list(bd) + list(bv)])
+    return chain
+
+
+def k8_pack(args, search=False):
+    """K8's pack over the build map of the plain version's ``args``: the
+    route decided from the sorted words, or the search forced."""
+    from blaze_tpu_torch.core import kernels as K
+
+    uniq, nk, _n, _k, _v, _pd, _pv, bd, bv = args
+    return K.JoinPack(uniq, uniq[:nk].cpu().numpy(), bd, bv, search)
+
+
+def k8_call(pack, args):
+    """K8 through ``pack`` on the probe side of the plain version's
+    ``args``."""
+    from blaze_tpu_torch.core import kernels as K
+
+    return K.inner_join_planes_cuda(pack, *args[2:7])
+
+
+def k8_shape(label, args, route):
+    """One K8 shape: held to the plain version on the route (``dense``
+    from the words, or the search forced with ``route="search"``), then
+    timed through a pack, as the main path calls it (events, device ms,
+    the wrapper's host ms) beside the plain version and the library
+    chain."""
+    from blaze_tpu_torch.core import kernels as K
+
+    pack = k8_pack(args, route == "search")
+    dense = pack.dense
+    want = K.inner_join_planes_plain(*args)
+    check_equal("inner_join_planes", f"{label} ({'dense' if dense else 'search'})",
+                k8_call(pack, args), want)
+    nbytes, count = k8_bytes(args, dense)
+
+    def k8():
+        return k8_call(pack, args)
+
+    out = shape_times(k8, lambda: K.inner_join_planes_plain(*args), k8_library(args), nbytes)
+    return dict(out, host_ms=host_ms(k8), route="dense" if dense else "search", hits=count,
+                probe_rows=int(args[2]))
+
+
+def kernel_k8(dev, rng, results):
+    """K8 against its plain version on JOIN_CASES (both search routes where
+    the build words are dense), q06's batch half missing and all hitting,
+    and at the main paths' probes (``q96_join_probes``, ``q69_dates_probe``);
+    timed at q96's three probes (the first also on the search route), q69's
+    and q06's."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.utils import cuda_lib
 
     cases = []
     for kind, cap_p, n, nk, cap_b, nulls in JOIN_CASES:
         args = join_case(kind, cap_p, n, nk, cap_b, nulls, rng, dev)
         label = f"key={kind},cap_p={cap_p},n={n},nk={nk},cap_b={cap_b},nulls={nulls}"
-        check_equal("inner_join_planes", label, K.inner_join_planes_cuda(*args),
-                    K.inner_join_planes_plain(*args))
+        want = K.inner_join_planes_plain(*args)
+        # the route the words give, and the search where that is the dense one
+        routes = {p.dense: p for p in (k8_pack(args, search) for search in (False, True))}
+        for dense, pack in routes.items():
+            check_equal("inner_join_planes", f"{label} dense={dense}", k8_call(pack, args), want)
         cases.append(label)
-    # the main path's shape: all hit, then ~50% misses with 5% null keys
+    # a join wider than one launch's 128 planes: 25 copies of the probe
+    # side of the 4,096-row case (200 probe planes and 6 build planes), two
+    # launches, each against the plain version
+    args = join_case(*JOIN_CASES[2], rng, dev)
+    wide = args[:5] + (list(args[5]) * 25, list(args[6]) * 25) + args[7:]
+    before = cuda_lib.LAUNCHES["inner_join_planes"]
+    check_equal("inner_join_planes", "206 planes", k8_call(k8_pack(wide), wide),
+                K.inner_join_planes_plain(*wide))
+    if cuda_lib.LAUNCHES["inner_join_planes"] - before != 2:
+        raise AssertionError("K8 on 206 planes did not take two launches")
+    cases.append("key=i64,cap_p=4096: 25 copies of the probe side, 206 planes in 2 launches")
+    # q06's batch: ~50% misses with 5% null keys, then all hitting
     for miss, nulls in ((0.5, 0.05), (0.0, 0.0)):
-        args = q06_join_batch(rng, dev, miss, nulls)
-        got = K.inner_join_planes_cuda(*args)
-        check_equal("inner_join_planes", f"q06 miss={miss} nulls={nulls}", got,
-                    K.inner_join_planes_plain(*args))
+        q06 = q06_join_batch(rng, dev, miss, nulls)
+        want = K.inner_join_planes_plain(*q06)
+        for search in (False, True):
+            check_equal("inner_join_planes", f"q06 miss={miss} nulls={nulls} search={search}",
+                        k8_call(k8_pack(q06, search), q06), want)
         cases.append(f"q06 262144 x 4 cols vs 102000 x 4 cols, miss={miss},nulls={nulls}")
-    uniq, nk, n, key, kv, pd, pv, bd, bv = args
-
-    def library():
-        idx = torch.searchsorted(uniq, key)
-        cidx = idx.clamp(max=nk - 1)
-        rows = torch.nonzero(kv & (idx < nk) & (uniq[cidx] == key)).squeeze(1)
-        brow = cidx.index_select(0, rows)
-        return ([p.index_select(0, rows) for p in list(pd) + list(pv)] +
-                [p.index_select(0, brow) for p in list(bd) + list(bv)])
-
-    ms = time_ms(lambda: K.inner_join_planes_cuda(*args))
-    plain_ms = time_ms(lambda: K.inner_join_planes_plain(*args))
-    lib_ms = time_ms(library)
-    hits = int(got[0])
-    row_p = sum(x.element_size() for x in list(pd) + list(pv))
-    row_b = sum(x.element_size() for x in list(bd) + list(bv))
-    touched = int(torch.unique(key[:n][kv[:n]]).numel())  # build rows the hits read
-    nbytes = (n * (key.element_size() + 1) + hits * (row_p - key.element_size() - 1)
-              + nk * 8 + touched * row_b + n * (row_p + row_b))
+    probes = q96_join_probes(dev)
+    probes.append(q69_dates_probe(dev, rng))
+    shapes = {}
+    main = None
+    for label, args, _words in probes:
+        got = k8_shape(label, args, "dense")
+        main = main or got
+        shapes[label] = got
+        cases.append(label)
+    label, args, _words = probes[0]
+    shapes[label + " (search route)"] = k8_shape(label, args, "search")
+    shapes["q06 262144 x 4 cols vs 102000 x 4 cols, all hit"] = k8_shape(
+        "q06 all hit", q06, "dense")
     results.append(dict(
         name="inner_join_planes", route="cuda", source="blaze_tpu_torch/csrc/join.cu",
-        replaces="blaze_tpu/ops/joins/bhj.py:38",
-        shape=f"{n} probe rows x 4 cols (all hit) vs {nk} build rows x 4 cols",
-        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        replaces="blaze_tpu/ops/joins/bhj.py:38", shape=probes[0][0], cases=cases,
+        ms=main["ms"], device_ms=main["device_ms"], host_ms=main["host_ms"],
+        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+        library_device_ms=main["library_device_ms"],
         library_call="torch.searchsorted + torch.nonzero + index_select per plane "
                      "(a chain of calls)",
-        bytes=nbytes, build_rows_touched=touched, hits=hits))
+        bytes=main["bytes"], hits=main["hits"], shapes=shapes))
 
 
 # K9 cases: the CPU parity tests' (tests/test_torch_generic_joins.py): key
@@ -2196,10 +2386,14 @@ def fused_flat(result):
 
 
 def kernel_k11(dev, rng, results):
-    import numpy as np
+    """K11 against its plain version on the battery (``fused_cases`` at
+    every ``FUSED_CAPS`` entry, a coalesce between two segments) and at the
+    main paths' scan filters (q69's and q96's store_sales batches); timed at
+    both: events, device ms (the segment's kernels and memsets), the
+    generated kernel's own device ms and the wrapper's host ms."""
     import torch
     from blaze_tpu_torch.core import kernels as K
-    from blaze_tpu_torch.exprs.fused_triton import FusedKernel, fused_chain_cuda, launch
+    from blaze_tpu_torch.exprs.fused_triton import FusedKernel, fused_chain_cuda
     from blaze_tpu_torch.ir import exprs as E
     from blaze_tpu_torch.ir import types as T
 
@@ -2211,7 +2405,7 @@ def kernel_k11(dev, rng, results):
             datas, valids = fused_planes(cap, n, rng)
             datas = [torch.from_numpy(x).to(dev) for x in datas]
             valids = [torch.from_numpy(x).to(dev) for x in valids]
-            got = fused_chain_cuda(kern, datas, valids, n)
+            got = K.fused_chain(schema, steps, datas, valids, n, kernel=kern)
             want = K.fused_chain_plain(schema, steps, datas, valids, n)
             check_equal("fused_chain", f"{name} cap={cap} n={n}", fused_flat(got),
                         [x.to(dev) for x in fused_flat(want)])
@@ -2219,35 +2413,70 @@ def kernel_k11(dev, rng, results):
     check_fused_stage_coalesce(dev, rng)
     cases.append("project+filter | coalesce | project through FusedStageExec")
     battery_s = time.perf_counter() - t0
-    # main path: the null filter Spark infers on a q69 store_sales scan, one
-    # 262,144-row batch (4% of ss_customer_sk null)
+    shapes = {}
+    for label, sch, steps, datas, valids, n in (q69_filter_batch(rng, dev, E, T),
+                                                 q96_filter_batch(dev, E, T)):
+        kern = FusedKernel(sch, steps)
+        check_equal("fused_chain", label,
+                    fused_flat(K.fused_chain(sch, steps, datas, valids, n, kernel=kern)),
+                    fused_flat(K.fused_chain_plain(sch, steps, datas, valids, n)))
+        cases.append(label)
+
+        def chain(kern=kern, datas=datas, valids=valids, n=n):
+            return fused_chain_cuda(kern, datas, valids, n)
+
+        # the segment reads each input plane once and writes every output
+        # plane over the capacity (live rows, then padding) and the count
+        plane_bytes = sum(x.numel() * x.element_size() for x in datas + valids)
+        out = shape_times(chain, lambda sch=sch, steps=steps, datas=datas, valids=valids, n=n:
+                          K.fused_chain_plain(sch, steps, datas, valids, n), None,
+                          2 * plane_bytes + 8, prefix=OURS + ("fused_chain",))
+        shapes[label] = dict(out, host_ms=host_ms(chain),
+                             k11_device_ms=kernel_device_ms(chain, "fused_chain"))
+    main = shapes[cases[-2]]
+    results.append(dict(
+        name="fused_chain", route="triton", source="blaze_tpu_torch/exprs/fused_triton.py",
+        replaces="blaze_tpu/exprs/compiler.py:1042", shape=cases[-2], cases=cases,
+        ms=main["ms"], device_ms=main["device_ms"], host_ms=main["host_ms"],
+        k11_device_ms=main["k11_device_ms"], plain_ms=main["plain_ms"], library_ms=None,
+        library_call="none: no single PyTorch call computes a fused chain",
+        bytes=main["bytes"], battery_s=battery_s, shapes=shapes))
+
+
+def q69_filter_batch(rng, dev, E, T, cap=262144):
+    """K11's main path at q69: the null filter Spark infers on a
+    store_sales scan over one 262,144-row batch (4% of ss_customer_sk
+    null). Returns (label, schema, steps, datas, valids, live rows)."""
+    import numpy as np
+    import torch
+
     sch = T.Schema.of(("ss_sold_date_sk", T.I64), ("ss_customer_sk", T.I64))
     steps = (("filter", (E.BinaryExpr(E.BinaryOp.AND, E.IsNotNull(E.Column("ss_sold_date_sk")),
                                       E.IsNotNull(E.Column("ss_customer_sk"))),)),)
-    cap = 262144
     cust_v = rng.random(cap) >= 0.04
     datas = [torch.from_numpy(rng.integers(*Q69_SALES_DATES, cap)).to(dev),
              torch.from_numpy(np.where(cust_v, rng.integers(1, 500_001, cap), 0)).to(dev)]
     valids = [torch.ones(cap, dtype=torch.bool, device=dev), torch.from_numpy(cust_v).to(dev)]
-    kern = FusedKernel(sch, steps)
-    check_equal("fused_chain", "q69 store_sales batch",
-                fused_flat(fused_chain_cuda(kern, datas, valids, cap)),
-                fused_flat(K.fused_chain_plain(sch, steps, datas, valids, cap)))
-    ms = time_ms(lambda: fused_chain_cuda(kern, datas, valids, cap))
-    plain_ms = time_ms(lambda: K.fused_chain_plain(sch, steps, datas, valids, cap))
-    k11_ms = time_ms(lambda: launch(kern, datas, valids, cap))
-    plane_bytes = sum(x.numel() * x.element_size() for x in datas + valids)
-    results.append(dict(
-        name="fused_chain", route="triton", source="blaze_tpu_torch/exprs/fused_triton.py",
-        replaces="blaze_tpu/exprs/compiler.py:1042",
-        shape="a q69 store_sales batch, 262,144 rows x 2 int64 columns, "
-              "isnotnull(ss_sold_date_sk) AND isnotnull(ss_customer_sk): K11 + K1",
-        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=None,
-        library_call="none: no single PyTorch call computes a fused chain",
-        # the segment reads each input plane once and writes its compacted
-        # planes and the count
-        bytes=2 * plane_bytes + 8, k11_only_ms=k11_ms, k11_only_bytes=3 * cap,
-        battery_s=battery_s))
+    return ("q69 store_sales batch, 262,144 rows x 2 int64 columns, "
+            "isnotnull(ss_sold_date_sk) AND isnotnull(ss_customer_sk)", sch, steps, datas,
+            valids, cap)
+
+
+def q96_filter_batch(dev, E, T, cap=262144):
+    """K11's main path at q96: Spark's isnotnull filter on store_sales'
+    three keys over one 262,144-row batch drawn as ``q96_host`` draws it
+    (4% of each key null)."""
+    import torch
+
+    (cols, vals) = q96_host(dict(Q96_ROWS, store_sales=cap))["store_sales"]
+    names = ("ss_sold_time_sk", "ss_hdemo_sk", "ss_store_sk")
+    sch = T.Schema.of(*[(c, T.I64) for c in names])
+    pred = E.IsNotNull(E.Column(names[0]))
+    for c in names[1:]:
+        pred = E.BinaryExpr(E.BinaryOp.AND, pred, E.IsNotNull(E.Column(c)))
+    return ("q96 store_sales batch, 262,144 rows x 3 int64 columns, isnotnull on all three",
+            sch, (("filter", (pred,)),), [torch.from_numpy(c).to(dev) for c in cols],
+            [torch.from_numpy(v).to(dev) for v in vals], cap)
 
 
 FUSED_STACK_ROWS = (4096, 4000, 0, 17, 4096, 2049, 1, 3000)
@@ -2267,8 +2496,7 @@ def kernel_k11_stacked(dev, rng, results):
     import numpy as np
     import torch
     from blaze_tpu_torch.core import kernels as K
-    from blaze_tpu_torch.exprs.fused_triton import (FusedKernel, fused_chain_cuda, launch,
-                                                    launch_stacked)
+    from blaze_tpu_torch.exprs.fused_triton import FusedKernel, launch_stacked
     from blaze_tpu_torch.ir import exprs as E
     from blaze_tpu_torch.ir import types as T
 
@@ -2314,15 +2542,16 @@ def kernel_k11_stacked(dev, rng, results):
                     [x.to(dev) for x in fused_flat(K.fused_chain_plain(sch, steps, datas[b],
                                                                       valids[b], cap))])
         check_equal("fused_chain_stacked", f"q96 store_sales batch {b} of 8 against K11",
-                    fused_flat(got[b]), fused_flat(fused_chain_cuda(kern, datas[b], valids[b], cap)))
+                    fused_flat(got[b]),
+                    fused_flat(K.fused_chain(sch, steps, datas[b], valids[b], cap, kernel=kern)))
 
     def stacked():
         per = K.fused_chain_stacked(sch, steps, datas, valids, rows, kernel=kern)
-        return torch.stack([c for _g, cs in per for c in cs]).tolist()
+        return [c for _g, cs in per for c in cs]
 
     def single8():
-        return [int(c) for b in range(8)
-                for c in fused_chain_cuda(kern, datas[b], valids[b], cap)[1]]
+        return [c for b in range(8)
+                for c in K.fused_chain(sch, steps, datas[b], valids[b], cap, kernel=kern)[1]]
 
     if stacked() != single8():
         raise AssertionError("stacked K11's counts differ from 8 single K11 dispatches")
@@ -2339,8 +2568,6 @@ def kernel_k11_stacked(dev, rng, results):
         library_call="none: no single PyTorch call computes a fused chain",
         eight_single_ms=time_ms(single8),
         k11_only_ms=time_ms(lambda: launch_stacked(kern, datas, valids, rows)),
-        k11_eight_single_ms=time_ms(lambda: [launch(kern, datas[b], valids[b], cap)
-                                             for b in range(8)]),
         device_ms=kernel_device_ms(lambda: launch_stacked(kern, datas, valids, rows),
                                    "fused_chain_stacked"),
         # the stacked K11 alone reads the three validity planes and writes
@@ -7585,6 +7812,11 @@ def profile_query(name, session, plan, want, trace_path=None, collect=pydict_of)
              if e.key in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize")}
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     k11 = [e for e in device if e.key.startswith("fused_chain")]
+    # K8's kernels (one now; the probe and scatter before), K1's and the
+    # block-count scan they shared
+    k8_k1 = {e.key[:60]: {"calls": e.count, "device_ms": e.self_device_time_total / 1e3}
+             for e in device if e.key.startswith(("blz_inner_join", "blz_join_", "blz_flag_count",
+                                                  "blz_compact_", "blz_offsets_scan"))}
     if trace_path:
         os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
         prof.export_chrome_trace(trace_path)
@@ -7595,6 +7827,7 @@ def profile_query(name, session, plan, want, trace_path=None, collect=pydict_of)
                     "k11_device": {"calls": sum(e.count for e in k11),
                                    "device_ms": sum(e.self_device_time_total
                                                     for e in k11) / 1e3},
+                    "k8_k1_device": k8_k1,
                     "top_device": [{"name": e.key[:80], "calls": e.count,
                                     "device_ms": e.self_device_time_total / 1e3}
                                    for e in top]}))
@@ -7828,8 +8061,8 @@ def main(device: str = "cuda") -> int:
                                              "six_kinds_ms", "fold_replaces", "fold_shape",
                                              "bounds_199", "one_key", "device_ms",
                                              "path_batches", "eight_single_ms", "phases_us",
-                                             "k11_eight_single_ms", "library_device_ms",
-                                             "shapes")
+                                             "library_device_ms",
+                                             "host_ms", "k11_device_ms", "shapes")
                            if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"phase": "limb_ops", "paths": {

@@ -432,13 +432,128 @@ def _join_case(key_dtype, cap_p, n, nk, cap_b, ncols, seed, dev):
     (torch.float32, 256, 250, 6, 256, 3),
     (torch.float64, 4096, 4000, 8, 16, 3),
     (torch.int64, 262144, 262144, 102_000, 131072, 3),
-    (torch.int64, 4096, 3000, 700, 1024, 20),   # 42 planes: two scatter launches
+    (torch.int64, 4096, 3000, 700, 1024, 20),   # 82 planes in one launch
+    (torch.int64, 4096, 3000, 700, 1024, 32),   # 130 planes: two launches
+    (torch.float64, 20_000, 19_000, 8, 16, 70),  # 282 planes: three, the last all build
 ])
 def test_inner_join_kernel(dev, key_dtype, cap_p, n, nk, cap_b, ncols):
+    """K8 through a pack against the plain version, one launch for each
+    128 planes."""
     from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.utils import cuda_lib
 
     args = _join_case(key_dtype, cap_p, n, nk, cap_b, ncols, cap_p + nk + ncols, dev)
-    _equal(K.inner_join_planes_cuda(*args), K.inner_join_planes_plain(*args))
+    before = cuda_lib.LAUNCHES["inner_join_planes"]
+    _equal(_k8(args), K.inner_join_planes_plain(*args))
+    planes = sum(len(p) for p in args[5:])
+    assert cuda_lib.LAUNCHES["inner_join_planes"] - before == -(-planes // 128)
+
+
+def _k8(args, search=False, pack=None):
+    """K8 on the plain version's ``args`` through ``pack``, or a pack made
+    for the call (the route from the words, or the search forced)."""
+    from blaze_tpu_torch.core import kernels as K
+
+    uniq, nk, _n, _k, _v, _pd, _pv, bd, bv = args
+    pack = pack or K.JoinPack(uniq, uniq[:nk].cpu().numpy(), bd, bv, search)
+    return K.inner_join_planes_cuda(pack, *args[2:7])
+
+
+def _dense_join_case(lo, nk, gap, cap_p, n, cap_b, seed, dev):
+    """K8's arguments over the build keys lo .. lo + nk (one of them left
+    out when ``gap``), negative ones included where lo < 0; probe keys
+    on both sides of the range, 10% null, rows past ``n`` padding."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    keys = torch.arange(lo, lo + nk + (1 if gap else 0), dtype=torch.int64)
+    if gap:
+        keys = torch.cat([keys[:nk // 2], keys[nk // 2 + 1:]])
+    key = torch.randint(lo - nk, lo + 2 * nk, (cap_p,), generator=g)
+    kv = (torch.rand(cap_p, generator=g) < 0.9) & (torch.arange(cap_p) < n)
+    key = torch.where(kv, key, 0)
+    pay = torch.randint(-2**40, 2**40, (cap_p,), generator=g)
+    bpay = torch.zeros(cap_b, dtype=torch.int64)
+    bpay[:nk] = torch.randint(-2**40, 2**40, (nk,), generator=g)
+    live_b = torch.arange(cap_b) < nk
+    bkey = torch.zeros(cap_b, dtype=torch.int64)
+    bkey[:nk] = keys
+    on = lambda ts: [t.to(dev) for t in ts]  # noqa: E731
+    return (keys.to(dev), nk, n, key.to(dev), kv.to(dev), on([key, pay]), on([kv, kv]),
+            on([bkey, bpay]), on([live_b, live_b]))
+
+
+@pytest.mark.parametrize("lo,nk,gap,cap_p,n", [
+    (-50, 100, False, 4096, 3000),        # dense, negative keys
+    (-50, 100, True, 4096, 3000),         # one gap: the search route only
+    (73_800, 1800, False, 262144, 232_116),  # q96's time_dim probe
+    (1, 5000, True, 20_000, 19_999),      # past the 4,096-word shared top
+    (7, 1, False, 256, 256),              # one key
+])
+def test_inner_join_kernel_routes(dev, lo, nk, gap, cap_p, n):
+    """K8 on its dense route (only where the words are dense) and on its
+    search route, each against the plain version, through one pack kept
+    over three batches (the launch tags and the tickets' counter carry
+    over)."""
+    from blaze_tpu_torch.core import kernels as K
+
+    args = _dense_join_case(lo, nk, gap, cap_p, n, max(nk, 256), lo + nk, dev)
+    want = K.inner_join_planes_plain(*args)
+    packs = {search: K.JoinPack(args[0], args[0].cpu().numpy(), args[7], args[8], search)
+             for search in (False, True)}
+    assert packs[False].dense == (not gap) and not packs[True].dense
+    for pack in packs.values():
+        for _ in range(3):
+            _equal(_k8(args, pack=pack), want)
+
+
+def test_inner_join_q96_probes(dev):
+    """chip_smoke.py's three q96 probes (each the last one's output) on
+    both routes where the words are dense, and q69's date probe."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.ops.joins.keymap import dense_key_words
+    from chip_smoke import q69_dates_probe, q96_join_probes
+
+    probes = q96_join_probes(dev) + [q69_dates_probe(dev, np.random.default_rng(69))]
+    assert [dense_key_words(w) for _label, _a, w in probes] == [True, False, False, True]
+    for _label, args, words in probes:
+        want = K.inner_join_planes_plain(*args)
+        for search in {True, not dense_key_words(words)}:
+            _equal(_k8(args, search), want)
+
+
+def _device_kernels(fn, calls=5):
+    """The device kernels and memsets that ``calls`` calls of ``fn`` run
+    (torch.profiler): {name: launches}. The profiler can keep none of a
+    window's kernels: a window that recorded nothing is taken again (three
+    at most)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if names:
+            break
+    return names
+
+
+def test_inner_join_is_one_launch(dev):
+    """A probe batch is one kernel and no memset, at q96's first probe
+    (where 98% of the output is padding)."""
+    from blaze_tpu_torch.core import kernels as K
+    from chip_smoke import q96_join_probes
+
+    _label, args, words = q96_join_probes(dev)[0]
+    pack = K.JoinPack(args[0], words, args[7], args[8])
+    assert pack.dense
+    names = _device_kernels(lambda: _k8(args, pack=pack))
+    assert len(names) == 1 and next(iter(names)).startswith("blz_inner_join_kernel"), names
+    assert next(iter(names.values())) <= 5
 
 
 def test_q06_on_the_card_equals_the_cpu(dev):
@@ -711,9 +826,6 @@ def test_slot_agg_at_the_shared_memory_switch(dev, side, rows):
 def test_slot_agg_merge_at_q01s_shape_is_one_launch(dev):
     """K4 at q01's final merge (4 maps x 399 store states) equals its plain
     version and runs as one kernel launch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from blaze_tpu_torch.config import Config
     from blaze_tpu_torch.ops import agg_device as A
 
@@ -735,13 +847,10 @@ def test_slot_agg_merge_at_q01s_shape_is_one_launch(dev):
                                    conf.radix_agg_max_slots, conf)
     call = ([cat[0]], [cat[1] & live], [torch.int64], n4, b4, s4, ("sum", "count"), states, o4)
     _equal(A.slot_agg_merge(*call), A.slot_agg_merge_plain(*call))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        A.slot_agg_merge(*call)
-        torch.cuda.synchronize()
-    ours = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key.startswith("blz_")]
-    assert sum(e.count for e in ours) == 1, [(e.key, e.count) for e in ours]
+    # a profiler window that kept no kernel is taken again (_device_kernels)
+    ours = {k: n for k, n in _device_kernels(lambda: A.slot_agg_merge(*call), calls=1).items()
+            if k.startswith("blz_")}
+    assert sum(ours.values()) == 1, ours
 
 
 def _q67_plan(schema):
@@ -808,7 +917,7 @@ def test_fused_chain_kernel(dev, case):
     """K11 (and K1 after it) against the plain version on the same CUDA
     planes, bit for bit, at every battery capacity; subnormals included."""
     from blaze_tpu_torch.core import kernels as K
-    from blaze_tpu_torch.exprs.fused_triton import FusedKernel, fused_chain_cuda
+    from blaze_tpu_torch.exprs.fused_triton import FusedKernel
     from blaze_tpu_torch.ir import exprs as E
     from blaze_tpu_torch.ir import types as T
 
@@ -819,9 +928,44 @@ def test_fused_chain_kernel(dev, case):
         datas, valids = fused_planes(cap, n, rng)
         datas = [torch.from_numpy(x).to(dev) for x in datas]
         valids = [torch.from_numpy(x).to(dev) for x in valids]
-        _equal([x.cpu() for x in fused_flat(fused_chain_cuda(kern, datas, valids, n))],
+        _equal([x.cpu() for x in fused_flat(K.fused_chain(schema, steps, datas, valids, n,
+                                                          kernel=kern))],
                [x.cpu() for x in fused_flat(K.fused_chain_plain(schema, steps, datas,
                                                                 valids, n))])
+
+
+@pytest.mark.parametrize("case", ["none kept", "all kept", "expand rename", "chain"])
+@pytest.mark.parametrize("cap,n", [(3000, 2999), (1024, 1024), (262144, 100_000), (5, 0)])
+def test_fused_chain_compacts_in_one_launch(dev, case, cap, n):
+    """The compacting K11 against its plain version at capacities that are
+    not a multiple of its 1,024-row tile (and one that is), a filter that
+    keeps nothing or everything and an expand with two filtered groups;
+    three batches in a row through one kernel (its tags and tickets carry
+    over), each one Triton launch with no K1 kernel."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.exprs.fused_triton import FusedKernel, fused_chain_cuda
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.utils import cuda_lib
+
+    _, schema, steps = next(c for c in fused_cases(E, T) if c[0] == case)
+    kern = FusedKernel(schema, steps)
+    assert kern.gen.filtered
+    rng = np.random.default_rng(cap + n)
+    for _ in range(3):
+        datas, valids = fused_planes(cap, n, rng)
+        datas = [torch.from_numpy(x).to(dev) for x in datas]
+        valids = [torch.from_numpy(x).to(dev) for x in valids]
+        _equal([x.cpu() for x in fused_flat(K.fused_chain(schema, steps, datas, valids, n,
+                                                          kernel=kern))],
+               [x.cpu() for x in fused_flat(K.fused_chain_plain(schema, steps, datas,
+                                                                valids, n))])
+    before = cuda_lib.launch_counts()
+    names = _device_kernels(lambda: fused_chain_cuda(kern, datas, valids, n))
+    after = cuda_lib.launch_counts()
+    assert list(names) == ["fused_chain"] and names["fused_chain"] <= 5, names
+    assert after["fused_chain"] - before["fused_chain"] >= 6
+    assert after["compact_planes"] == before["compact_planes"]
 
 
 def test_fused_chain_failures_raise_and_never_take_the_twin(dev, monkeypatch):

@@ -445,8 +445,9 @@ def test_generated_source_parses(case):
 
 
 def test_filter_only_segment_stores_just_its_mask():
-    """q69's scan filter reads two validity planes and writes one mask;
-    K1 compacts the input planes themselves."""
+    """q69's scan filter reads two validity planes and computes one plane,
+    its live mask; its group passes the input planes through (K11
+    compacts them itself)."""
     schema, steps = CASES["q69 scan filter"]
     gen = FusedKernel(from_foreign(schema), from_foreign(steps)).gen
     assert gen.stores and [t for _, t in gen.stores] == [torch.bool]
