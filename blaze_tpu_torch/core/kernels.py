@@ -44,6 +44,7 @@ numpy, as they are in the JAX package.
 from __future__ import annotations
 
 import struct
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -91,15 +92,54 @@ def _check_planes(name: str, planes: Sequence[torch.Tensor]) -> None:
             raise TypeError(f"{name}: element size {p.element_size()}")
 
 
+_WORDS = threading.local()
+
+
+def _words(values: Sequence[int]):
+    """The argument words of one launch, in this thread's reused ctypes
+    buffer (the exported function reads them before it returns)."""
+    buf = getattr(_WORDS, "buf", None)
+    if buf is None or len(buf) < len(values):
+        buf = _WORDS.buf = (cuda_lib.ctypes.c_longlong * max(256, len(values)))()
+    buf[:len(values)] = values
+    return buf
+
+
+def _alloc_planes(dtypes: Sequence[torch.dtype], rows: int, device: torch.device):
+    """Planes of ``rows`` rows of each dtype: the planes of one dtype are
+    the rows of one 2-d allocation, each at a 16-byte boundary (one
+    allocation and one ``unbind`` a dtype cost less host time than a
+    ``torch.empty`` a plane, or than views of one allocation for every
+    dtype). Returns (planes, their addresses)."""
+    groups = {}
+    for i, dt in enumerate(dtypes):
+        groups.setdefault(dt, []).append(i)
+    outs, ptrs = [None] * len(dtypes), [0] * len(dtypes)
+    for dt, ix in groups.items():
+        size = dt.itemsize
+        stride = (rows * size + 15) // 16 * 16 // size
+        block = torch.empty((len(ix), stride), dtype=dt, device=device)
+        if stride != rows:
+            block = block[:, :rows]
+        base, step = block.data_ptr(), stride * size
+        for j, (i, plane) in enumerate(zip(ix, block.unbind(0))):
+            outs[i], ptrs[i] = plane, base + j * step
+    return outs, ptrs
+
+
 def gather_planes_cuda(datas: Sequence[torch.Tensor],
                        valids: Sequence[torch.Tensor], idx: torch.Tensor,
                        out_cap: int, n_out: int,
                        live: Optional[torch.Tensor] = None):
     """K6 on the card (csrc/gather.cu): same contract as
-    :func:`gather_planes_plain`, one launch for every plane."""
-    planes = list(datas) + list(valids)
-    extra = [live] if live is not None else []
-    cuda_lib.require_cuda("gather_planes", idx, *planes, *extra)
+    :func:`gather_planes_plain`, one launch for every 32 planes. A plane
+    passed more than once (a wide column's validity, once a limb) is
+    gathered once and its output returned for each. The output planes of
+    one dtype are views of one allocation; the plane table goes to the
+    library in a reused word buffer."""
+    given = [*datas, *valids]
+    planes = list({id(p): p for p in given}.values())
+    cuda_lib.require_cuda("gather_planes", idx, *planes, *([live] if live is not None else []))
     if idx.dtype != torch.int64 or idx.dim() != 1 or idx.shape[0] < n_out:
         raise ValueError(f"gather_planes: index {idx.dtype} of shape "
                          f"{tuple(idx.shape)} for {n_out} rows")
@@ -107,22 +147,22 @@ def gather_planes_cuda(datas: Sequence[torch.Tensor],
         raise ValueError("gather_planes: live mask must be bool, n_out rows")
     if not 0 <= n_out <= out_cap:
         raise ValueError(f"gather_planes: {n_out} rows into {out_cap}")
-    _check_planes("gather_planes", planes)
-    outs = [torch.empty(out_cap, dtype=p.dtype, device=idx.device) for p in planes]
-    k = len(datas)
     if not planes:
-        return outs[:k], outs[k:]
-    srcs, _k1 = cuda_lib.ptr_array(planes)
-    dsts, _k2 = cuda_lib.ptr_array(outs)
-    caps, _k3 = cuda_lib.int_array([p.shape[0] for p in planes],
-                                   cuda_lib.ctypes.c_longlong)
-    sizes, _k4 = cuda_lib.int_array([p.element_size() for p in planes])
-    err = cuda_lib.library().blz_gather_planes(
-        idx.data_ptr(), n_out, live.data_ptr() if live is not None else None,
-        out_cap, len(planes), srcs, dsts, caps, sizes,
-        cuda_lib.stream_of(idx.device))
+        return [], []
+    words = [n_out, out_cap, idx.data_ptr(), live.data_ptr() if live is not None else 0,
+             cuda_lib.stream_handle(idx.get_device()), len(planes)]
+    for p in planes:
+        size = p.element_size()
+        if p.dim() != 1 or size not in (1, 2, 4, 8):
+            _check_planes("gather_planes", [p])
+        words += (p.data_ptr(), 0, p.shape[0], size)
+    outs, words[7::4] = _alloc_planes([p.dtype for p in planes], out_cap, idx.device)
+    err = cuda_lib.library().blz_gather_planes(_words(words))
     cuda_lib.check(err, "gather_planes")
     cuda_lib.LAUNCHES["gather_planes"] += 1
+    out_of = {id(p): o for p, o in zip(planes, outs)}
+    outs = [out_of[id(p)] for p in given]
+    k = len(datas)
     return outs[:k], outs[k:]
 
 
@@ -1316,6 +1356,7 @@ _LIMB_OPS = (OP_ADD_LO32, OP_ADD_HI32, OP_LEXMIN, OP_LEXMAX, OP_LEXLO)
 _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
 # csrc/seg_agg.cu limits of one launch
 _MAX_SEG_KEYS = 16
+_SEG_KEY_DTYPES = _INT_DTYPES + (torch.bool, torch.float32, torch.float64)
 _MAX_SEG_OPS = 24
 _MAX_SEG_EMITS = 24
 _QNAN_BITS = 0x7FF8000000000000  # every NaN a float state ends as
@@ -1509,66 +1550,115 @@ def segment_starts_plain(datas, valids, order, num_rows: int):
     return starts[:cap + 1], new.sum()
 
 
-def segment_starts_cuda(datas, valids, order, num_rows: int):
-    """K10's segmentation pass on the card (csrc/seg_agg.cu: flag, block
-    scan, stable scatter of the starts); same result as
-    :func:`segment_starts_plain`."""
-    cuda_lib.require_cuda("segment_ids", order, *datas, *valids)
+def segment_keys_plain(datas, valids, order, num_rows: int, key_data, key_valid):
+    """Plain twin of K10's segmentation: :func:`segment_starts_plain`,
+    then each segment's keys from its first row (``gather_planes_plain``
+    of the key planes at order[starts[:count]]). ``datas``/``valids`` are
+    the planes compared, ``key_data``/``key_valid`` the keys emitted (the
+    same planes but in the direct single-integer mode). Returns (starts,
+    count, key datas, key valids), the key planes capacity-long and
+    padding past the count."""
+    starts, count = segment_starts_plain(datas, valids, order, num_rows)
+    c = int(count)
+    kd, kv = gather_planes_plain(key_data, key_valid, order[starts[:c]], order.shape[0], c)
+    return starts, count, kd, kv
+
+
+# csrc/seg_agg.cu: positions a tile of the segmentation (the smaller of its two
+# tile sizes), keys a chunk of its loads
+_SEG_TILE, _SEG_CHUNK = 512, 4
+
+
+class _SegScratch:
+    """The segmentation's scratch on one device and stream (the tickets'
+    counter, then a look-back word a tile), grown with the rows and never
+    zeroed after its allocation: each launch tags its words anew. Its
+    launches go in stream order."""
+
+    def __init__(self):
+        self.words = None
+        self.tag = 0
+
+    def take(self, rows: int, device: torch.device):
+        tiles = -(-rows // _SEG_TILE)
+        if self.words is None or self.words.shape[0] < 1 + tiles:
+            self.words = torch.zeros(1 + max(tiles, 128), dtype=torch.int64, device=device)
+        self.tag = self.tag % _JOIN_TAGS + 1
+        return self.words, self.tag
+
+
+_SEG_SCRATCH = {}
+
+
+def segment_keys_cuda(datas, valids, order, num_rows: int, key_data, key_valid):
+    """K10's segmentation on the card (csrc/seg_agg.cu blz_segment_keys:
+    one launch ranks the segment starts and takes each segment's keys
+    from its first row); same result as :func:`segment_keys_plain`."""
+    name = "segment_ids"
+    k, m = len(datas), len(key_data)
+    # the emitted planes are the compared ones (no direct plane): the kernel
+    # stores the rows it compared
+    reuse = m == k <= _SEG_CHUNK and all(a is b for a, b in zip(datas, key_data)) and \
+        all(a is b for a, b in zip(valids, key_valid))
+    keys = [*datas, *key_data] if not reuse else list(datas)
+    flags = [*valids, *key_valid] if not reuse else list(valids)
+    cuda_lib.require_cuda(name, order, *keys, *flags)
     cap = int(order.shape[0])
-    k = len(datas)
-    if not 0 < k <= _MAX_SEG_KEYS or len(valids) != k or order.dtype != torch.int64:
-        raise ValueError(f"segment_ids: {k} keys, order {order.dtype}")
+    if not 0 < k <= _MAX_SEG_KEYS or len(valids) != k or order.dtype != torch.int64 or \
+            m > _MAX_SEG_KEYS or len(key_valid) != m:
+        raise ValueError(f"{name}: {k} keys compared, {m} emitted, order {order.dtype}")
     if not 0 <= num_rows <= cap:
-        raise ValueError(f"segment_ids: {num_rows} rows of {cap}")
-    for d, v in zip(datas, valids):
-        if d.shape != (cap,) or v.shape != (cap,) or v.dtype != torch.bool:
-            raise ValueError("segment_ids: key planes must be capacity-long, "
-                             "validity bool")
-        if d.dtype not in _INT_DTYPES + (torch.bool, torch.float32, torch.float64):
-            raise TypeError(f"segment_ids: key of dtype {d.dtype}")
+        raise ValueError(f"{name}: {num_rows} rows of {cap}")
+    for d, v in zip(keys, flags):
+        if d.dim() != 1 or v.dim() != 1 or d.shape[0] != cap or v.shape[0] != cap or \
+                v.dtype != torch.bool:
+            raise ValueError(f"{name}: key planes must be capacity-long, validity bool")
+        if d.dtype not in _SEG_KEY_DTYPES:
+            raise TypeError(f"{name}: key of dtype {d.dtype}")
     dev = order.device
-    starts = torch.empty(cap + 1, dtype=torch.int64, device=dev)
-    if num_rows == 0:
-        starts.zero_()
-        return starts, torch.zeros((), dtype=torch.int64, device=dev)
-    nb = cuda_lib.blocks(num_rows)
-    flags = torch.empty(num_rows, dtype=torch.uint8, device=dev)
-    offs = torch.empty(nb + 1, dtype=torch.int64, device=dev)
-    keep = []
-
-    def arr(pair):
-        keep.append(pair[1])
-        return pair[0]
-
-    err = cuda_lib.library().blz_segment_starts(
-        k, arr(cuda_lib.ptr_array(datas)), arr(cuda_lib.ptr_array(valids)),
-        arr(cuda_lib.int_array([d.element_size() for d in datas])),
-        arr(cuda_lib.int_array([int(d.is_floating_point()) for d in datas])),
-        order.data_ptr(), num_rows, cap, flags.data_ptr(), offs.data_ptr(),
-        starts.data_ptr(), cuda_lib.stream_of(dev))
-    cuda_lib.check(err, "segment_ids")
-    cuda_lib.LAUNCHES["segment_ids"] += 1
-    return starts, offs[nb]
+    index = order.get_device()
+    stream = cuda_lib.stream_handle(index)
+    scratch = _SEG_SCRATCH.get((index, stream))
+    if scratch is None:
+        scratch = _SEG_SCRATCH[(index, stream)] = _SegScratch()
+    words_t, tag = scratch.take(num_rows, dev)
+    head = torch.empty(cap + 2, dtype=torch.int64, device=dev)  # the starts, then the count
+    outs, ptrs = _alloc_planes([d.dtype for d in key_data] + [torch.bool] * m, cap, dev)
+    head_at = head.data_ptr()
+    words = [k, m, order.data_ptr(), num_rows, cap, head_at, head_at + 8 * (cap + 1),
+             words_t.data_ptr(), words_t.shape[0] - 1, tag, stream, int(reuse)]
+    for d, v in zip(datas, valids):
+        words += (d.data_ptr(), v.data_ptr(), d.element_size(), int(d.is_floating_point()))
+    for j, (d, v) in enumerate(zip(key_data, key_valid)):
+        words += (d.data_ptr(), v.data_ptr(), ptrs[j], ptrs[m + j], d.element_size())
+    err = cuda_lib.library().blz_segment_keys(_words(words))
+    cuda_lib.check(err, name)
+    cuda_lib.LAUNCHES[name] += 1
+    return head[:cap + 1], head[cap + 1], outs[:m], outs[m:]
 
 
 def segment_ids(key_data, key_valid, exists, num_rows: int, direct: bool = True,
                 live_rows: Optional[int] = None):
     """``_segmentation`` of blaze_tpu/ops/agg_device.py:1082: the stable
     order that makes equal keys adjacent (K5's key pass and radix sort,
-    keys ascending, null first, NaN last), then K10's segment starts over
-    it. ``key_valid`` is masked with ``exists``: a prefix of num_rows
-    rows, or a live mask within it whose ``live_rows`` rows the sort puts
-    first (a dead row takes K5's padding rank), so the segments cover the
-    first live_rows sorted positions. ``direct`` allows the
-    single-integer-key case where the key is the segment id. Returns
-    (order, starts, count) as :func:`segment_starts_plain` describes
-    them."""
+    keys ascending, null first, NaN last), then K10's segmentation over it,
+    which also takes each segment's keys from its first row. ``key_valid``
+    is masked with ``exists``: a prefix of num_rows rows, or a live mask
+    within it whose ``live_rows`` rows the sort puts first (a dead row
+    takes K5's padding rank), so the segments cover the first live_rows
+    sorted positions. ``direct`` allows the single-integer-key case where
+    the key is the segment id. Returns (order, starts, count, (key datas,
+    key valids)): starts and count as :func:`segment_starts_plain`
+    describes them, the keys of segment s at row s of capacity-long
+    planes, padding past the count."""
     datas, valids = _segment_planes(key_data, key_valid, exists, direct)
     ops = sort_key_operands(datas, valids, exists, [(True, True)] * len(datas))
     order = lexsort_indices(ops, num_rows, dead_last=True)
-    fn = segment_starts_cuda if order.is_cuda else segment_starts_plain
-    starts, count = fn(datas, valids, order, num_rows if live_rows is None else live_rows)
-    return order, starts, count
+    fn = segment_keys_cuda if order.is_cuda else segment_keys_plain
+    starts, count, kd, kv = fn(datas, valids, order,
+                               num_rows if live_rows is None else live_rows,
+                               key_data, key_valid)
+    return order, starts, count, (kd, kv)
 
 
 def _order_words(x: torch.Tensor) -> torch.Tensor:
@@ -1673,7 +1763,7 @@ def segment_reduce_cuda(name, order, starts, count, num_rows: int, ops, emits,
     segment of up to 64 rows, a warp one of up to 256 or each piece of 256
     rows or more of a longer one); same outputs as
     :func:`segment_reduce_plain`. ``count`` is the
-    device scalar ``segment_starts_cuda`` returned; ``kinds`` the
+    device scalar ``segment_keys_cuda`` returned; ``kinds`` the
     program's limb aggregate kinds, counted per launch
     (``cuda_lib.LIMB_LAUNCHES``)."""
     check_limb_program(name, ops, emits)

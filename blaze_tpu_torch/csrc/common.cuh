@@ -4,7 +4,8 @@
 // the key kinds and integer load of the key passes (sort.cu,
 // range_part.cu), the block-level stable rank that the
 // compaction kernels (compact.cu, slot_agg.cu) are built on, the
-// decoupled look-back of the single-pass kernels (sort.cu, join.cu), the warp
+// decoupled look-back of the single-pass kernels (sort.cu, join.cu,
+// seg_agg.cu), a block's zeroing of a plane's rows, the warp
 // aggregation of the slot kernels' atomics (slot_agg.cu, slot_update.cu),
 // and the emit arithmetic of the aggregate kernels (slot_agg.cu,
 // seg_agg.cu, passthrough.cu).
@@ -216,7 +217,7 @@ __device__ __forceinline__ unsigned int blz_look_back(unsigned long long* status
   return excl;
 }
 
-// The block-wide form (join.cu), for grids whose tiles run at once rather
+// The block-wide form (join.cu, seg_agg.cu), for grids whose tiles run at once rather
 // than in turn: each round every thread of the block reads one earlier
 // tile's word (THREADS tiles a round), waits until that tile has
 // published its count (a tile publishes it before it looks back, so the
@@ -266,6 +267,21 @@ __device__ __forceinline__ unsigned int blz_block_look_back(unsigned long long* 
   if (threadIdx.x == 0)
     *(volatile unsigned long long*)(status + t) = blz_lb_word(tag, BLZ_LB_INCL, excl + count);
   return excl;
+}
+
+// Zero bytes [from, to) of a plane by the block (join.cu's and
+// seg_agg.cu's padding, gather.cu's padding blocks): 16-byte stores over
+// the aligned middle, single bytes at the two ends.
+__device__ __forceinline__ void blz_zero_bytes(uint8_t* base, int64_t from, int64_t to) {
+  int64_t a = (from + 15) & ~(int64_t)15;
+  a = a < to ? a : to;
+  int64_t b = to & ~(int64_t)15;
+  b = b > a ? b : a;
+  for (int64_t i = from + threadIdx.x; i < a; i += blockDim.x) base[i] = 0;
+  for (int64_t i = b + threadIdx.x; i < to; i += blockDim.x) base[i] = 0;
+  uint4* v = (uint4*)(base + a);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int64_t i = threadIdx.x; i < (b - a) >> 4; i += blockDim.x) v[i] = zero;
 }
 
 // In-place exclusive scan of per-block counts (compact.cu), by one block:

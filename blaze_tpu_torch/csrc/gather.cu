@@ -24,23 +24,35 @@
 //
 // Bound on the H100: bytes -- each output element is one read and one
 // write, the index (K6) or the prefix search (K7, log2 k steps over a
-// table in the kernel's parameters) is all the arithmetic. One thread per
-// output row, every plane of the row in the same thread (consecutive
+// table in the kernel's parameters) is all the arithmetic. K7: one thread
+// per output row, every plane of the row in the same thread (consecutive
 // threads write consecutive rows of a plane); planes of 1, 2, 4 or 8
 // bytes. Tables go by value as kernel parameters (under 4 KB); a table
 // past that (many sources or partitions) is staged through a pinned host
 // buffer the library reuses, never uploaded from pageable memory.
+//
+// K6's design (blz_gather_planes): random gathers bound it (a 32-byte
+// sector a row and plane), so it keeps many in flight and keeps the
+// gathered planes in L2. The host groups the planes by element size when
+// it packs the table, so each size has a loop of its own with no branch on
+// the size inside. A thread takes four output rows 256 apart, so every
+// index load, gather and store coalesces across the warp (four
+// consecutive rows a thread with one vector store a plane measured
+// 10-15% slower on an H100); every gather of a batch of eight planes for the four rows is
+// issued on the read-only path before the first store; the index is read
+// and the outputs written with the streaming hints (evict first). The
+// padding rows past the live blocks go to blocks of their own that only
+// store zeros (16-byte stores). The table travels by value; past 32 planes
+// it is a launch for each 32. The output planes are 16-byte aligned views
+// of one allocation (core/kernels.py).
 #include "common.cuh"
 
 #define BLZ_MAX_GATHER_PLANES 32
-
-struct GatherSet {
-  int n;
-  const void* src[BLZ_MAX_GATHER_PLANES];
-  void* dst[BLZ_MAX_GATHER_PLANES];
-  long long cap[BLZ_MAX_GATHER_PLANES];
-  int size[BLZ_MAX_GATHER_PLANES];
-};
+#define BLZ_G_THREADS 256
+#define BLZ_G_ROWS 4                               // output rows a thread, THREADS apart
+#define BLZ_G_TILE (BLZ_G_THREADS * BLZ_G_ROWS)    // 1,024 rows a live block
+#define BLZ_G_ZTILE 4096                           // padding rows a zeroing block
+#define BLZ_G_BATCH 8                              // planes whose gathers go out together
 
 __device__ __forceinline__ void blz_move(const void* src, void* dst, int size,
                                          int64_t from, int64_t to, bool on) {
@@ -59,41 +71,136 @@ __device__ __forceinline__ int64_t blz_clip(int64_t i, int64_t cap) {
   return i < 0 ? 0 : (i >= cap ? cap - 1 : i);
 }
 
-__global__ void blz_gather_kernel(const int64_t* idx, int64_t n_out,
-                                  const uint8_t* live, int64_t out_cap,
-                                  GatherSet gs) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= out_cap) return;
-  const bool on = r < n_out && (live == nullptr || live[r] != 0);
-  const int64_t j = on ? idx[r] : 0;
-  for (int p = 0; p < gs.n; ++p)
-    blz_move(gs.src[p], gs.dst[p], gs.size[p], blz_clip(j, gs.cap[p]), r, on);
+// One launch's planes, grouped by element size: n8 planes of 8 bytes,
+// then n4 of 4, n2 of 2 and n1 of 1.
+struct GatherSet {
+  int n8, n4, n2, n1;
+  const int64_t* idx;
+  const uint8_t* live;       // null: every row below n_out is live
+  int64_t n_out, out_cap;
+  int64_t nlive, live_end;   // blocks of live rows, and the first row past them
+  const void* src[BLZ_MAX_GATHER_PLANES];
+  void* dst[BLZ_MAX_GATHER_PLANES];
+  long long cap[BLZ_MAX_GATHER_PLANES];
+};
+
+// The planes [first, first + np) of one element type: BLZ_G_BATCH planes'
+// gathers for the thread's rows, then their stores (streaming: the output
+// is not read again by this launch, and the gathered planes keep L2).
+template <typename T>
+__device__ __forceinline__ void blz_gather_rows(const GatherSet& g, int first, int np,
+                                                const int64_t* j, const bool* on, int64_t r0) {
+  for (int p = first; p < first + np; p += BLZ_G_BATCH) {
+    T v[BLZ_G_BATCH][BLZ_G_ROWS];
+#pragma unroll
+    for (int q = 0; q < BLZ_G_BATCH; ++q) {
+      const bool here = p + q < first + np;
+      const int pl = here ? p + q : p;
+      const T* src = (const T*)g.src[pl];
+      const long long cap = g.cap[pl];
+#pragma unroll
+      for (int i = 0; i < BLZ_G_ROWS; ++i)
+        v[q][i] = here && on[i] ? __ldg(src + blz_clip(j[i], cap)) : (T)0;
+    }
+#pragma unroll
+    for (int q = 0; q < BLZ_G_BATCH; ++q) {
+      if (p + q >= first + np) break;
+      T* dst = (T*)g.dst[p + q];
+#pragma unroll
+      for (int i = 0; i < BLZ_G_ROWS; ++i) {
+        const int64_t r = r0 + (int64_t)i * BLZ_G_THREADS;
+        if (r < g.out_cap) __stcs(dst + r, v[q][i]);
+      }
+    }
+  }
 }
 
-// idx: n_out int64 row indices; live: n_out bytes or null; srcs/dsts:
-// nplanes planes (caps[p] rows of sizes[p] bytes in, out_cap rows out).
-BLZ_EXPORT int blz_gather_planes(const int64_t* idx, int64_t n_out,
-                                 const uint8_t* live, int64_t out_cap,
-                                 int nplanes, const void* const* srcs,
-                                 void* const* dsts, const long long* caps,
-                                 const int* sizes, cudaStream_t stream) {
-  if (out_cap <= 0 || n_out < 0 || n_out > out_cap) return (int)cudaErrorInvalidValue;
-  for (int p0 = 0; p0 < nplanes; p0 += BLZ_MAX_GATHER_PLANES) {
-    GatherSet gs;
-    gs.n = nplanes - p0 < BLZ_MAX_GATHER_PLANES ? nplanes - p0 : BLZ_MAX_GATHER_PLANES;
-    for (int p = 0; p < gs.n; ++p) {
-      gs.src[p] = srcs[p0 + p];
-      gs.dst[p] = dsts[p0 + p];
-      gs.cap[p] = caps[p0 + p];
-      gs.size[p] = sizes[p0 + p];
-      if (gs.cap[p] <= 0) return (int)cudaErrorInvalidValue;
+__global__ void __launch_bounds__(BLZ_G_THREADS)
+    blz_gather_kernel(const __grid_constant__ GatherSet g) {
+  if (blockIdx.x >= g.nlive) {  // a padding block: zeros over its rows of every plane
+    const int64_t from = g.live_end + (int64_t)(blockIdx.x - g.nlive) * BLZ_G_ZTILE;
+    const int64_t to = from + BLZ_G_ZTILE < g.out_cap ? from + BLZ_G_ZTILE : g.out_cap;
+    const int n = g.n8 + g.n4 + g.n2 + g.n1;
+    for (int p = 0; p < n; ++p) {
+      const int size = p < g.n8 ? 8 : p < g.n8 + g.n4 ? 4 : p < g.n8 + g.n4 + g.n2 ? 2 : 1;
+      blz_zero_bytes((uint8_t*)g.dst[p], from * size, to * size);
     }
-    blz_gather_kernel<<<blz_blocks(out_cap), BLZ_THREADS, 0, stream>>>(
-        idx, n_out, live, out_cap, gs);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    return;
   }
-  return (int)cudaGetLastError();
+  // rows r0 + i * THREADS: each load and store coalesces across the warp
+  const int64_t r0 = (int64_t)blockIdx.x * BLZ_G_TILE + threadIdx.x;
+  int64_t j[BLZ_G_ROWS];
+  bool on[BLZ_G_ROWS];
+#pragma unroll
+  for (int i = 0; i < BLZ_G_ROWS; ++i) {
+    const int64_t r = r0 + (int64_t)i * BLZ_G_THREADS;
+    on[i] = r < g.n_out;
+    j[i] = on[i] ? __ldcs((const long long*)g.idx + r) : 0;
+  }
+  if (g.live != nullptr) {
+#pragma unroll
+    for (int i = 0; i < BLZ_G_ROWS; ++i)
+      on[i] = on[i] && __ldg(g.live + r0 + (int64_t)i * BLZ_G_THREADS) != 0;
+  }
+  blz_gather_rows<unsigned long long>(g, 0, g.n8, j, on, r0);
+  blz_gather_rows<unsigned int>(g, g.n8, g.n4, j, on, r0);
+  blz_gather_rows<unsigned short>(g, g.n8 + g.n4, g.n2, j, on, r0);
+  blz_gather_rows<unsigned char>(g, g.n8 + g.n4 + g.n2, g.n1, j, on, r0);
+}
+
+// w: int64 words [n_out, out_cap, idx (n_out int64), live (n_out bytes, or
+// 0), stream, nplanes, then per plane (src, dst, src rows, element
+// bytes)]. Every dst is a 16-byte aligned plane of out_cap rows. The
+// planes go grouped by size, 32 a launch.
+BLZ_EXPORT int blz_gather_planes(const long long* w) {
+  const int64_t n_out = w[0], out_cap = w[1];
+  const int nplanes = (int)w[5];
+  cudaStream_t stream = (cudaStream_t)w[4];
+  if (out_cap <= 0 || n_out < 0 || n_out > out_cap || nplanes < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long* pw = w + 6;
+  for (int p = 0; p < nplanes; ++p) {
+    const long long* e = pw + 4 * (int64_t)p;
+    if (e[2] <= 0 || (e[1] & 15) != 0 || (e[3] != 1 && e[3] != 2 && e[3] != 4 && e[3] != 8))
+      return (int)cudaErrorInvalidValue;
+  }
+  GatherSet g;
+  g.idx = (const int64_t*)w[2];
+  g.live = (const uint8_t*)w[3];
+  g.n_out = n_out;
+  g.out_cap = out_cap;
+  g.nlive = (n_out + BLZ_G_TILE - 1) / BLZ_G_TILE;
+  g.live_end = g.nlive * BLZ_G_TILE < out_cap ? g.nlive * BLZ_G_TILE : out_cap;
+  const int64_t nzero = (out_cap - g.live_end + BLZ_G_ZTILE - 1) / BLZ_G_ZTILE;
+  int counts[4] = {0, 0, 0, 0};
+  int taken = 0;
+  auto launch = [&]() -> int {
+    g.n8 = counts[0];
+    g.n4 = counts[1];
+    g.n2 = counts[2];
+    g.n1 = counts[3];
+    blz_gather_kernel<<<(unsigned int)(g.nlive + nzero), BLZ_G_THREADS, 0, stream>>>(g);
+    counts[0] = counts[1] = counts[2] = counts[3] = 0;
+    taken = 0;
+    return (int)cudaGetLastError();
+  };
+  // the planes size by size (8, 4, 2, 1 bytes), each size in plane order;
+  // a launch for every 32 of them
+  static const long long kSizes[4] = {8, 4, 2, 1};
+  for (int c = 0; c < 4; ++c)
+    for (int p = 0; p < nplanes; ++p) {
+      const long long* e = pw + 4 * (int64_t)p;
+      if (e[3] != kSizes[c]) continue;
+      g.src[taken] = (const void*)e[0];
+      g.dst[taken] = (void*)e[1];
+      g.cap[taken] = e[2];
+      ++counts[c];
+      if (++taken == BLZ_MAX_GATHER_PLANES) {
+        const int err = launch();
+        if (err != 0) return err;
+      }
+    }
+  return taken > 0 ? launch() : 0;
 }
 
 // -- pinned staging of a table past the parameter limits ----------------------

@@ -159,20 +159,6 @@ __device__ __forceinline__ void blz_join_scatter(const T* src, T* dst, bool from
     if (hit[j]) dst[pos[j]] = src[from_probe ? row[j] : (int64_t)brow[j]];
 }
 
-// Zero bytes [from, to) of a plane by the block: 16-byte stores over the
-// aligned middle, single bytes at the two ends.
-__device__ __forceinline__ void blz_zero_bytes(uint8_t* base, int64_t from, int64_t to) {
-  int64_t a = (from + 15) & ~(int64_t)15;
-  a = a < to ? a : to;
-  int64_t b = to & ~(int64_t)15;
-  b = b > a ? b : a;
-  for (int64_t i = from + threadIdx.x; i < a; i += BLZ_J_THREADS) base[i] = 0;
-  for (int64_t i = b + threadIdx.x; i < to; i += BLZ_J_THREADS) base[i] = 0;
-  uint4* v = (uint4*)(base + a);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int64_t i = threadIdx.x; i < (b - a) >> 4; i += BLZ_J_THREADS) v[i] = zero;
-}
-
 __device__ __forceinline__ void blz_join_zero_rows(const JoinArgs& a, int64_t from,
                                                    int64_t to) {
   if (from >= to) return;

@@ -8,15 +8,15 @@
 // changes, _reduce_aggs / _merge_reduce reduce each segment, and the
 // segments are compacted. Here K5 (sort.cu) does the sort; this file does
 // the rest in two exported calls:
-//   blz_segment_starts: (1) one thread per sorted position flags a new
-//     segment where any key's validity differs from the previous row's,
+//   blz_segment_keys: one launch over the sorted positions: a segment
+//     starts where any key's validity differs from the previous row's,
 //     or both are valid and the values differ (IEEE compare: -0.0 equals
 //     0.0, a NaN equals nothing -- the reference compares its canonical
-//     keys the same way, so every NaN row is a segment of its own);
-//     (2) block counts and one-block scan of the flags (compact.cu);
-//     (3) a stable scatter of each flagged position to its rank (warp
-//     ballot + shared scan, no atomics): starts[s] is where segment s
-//     begins, num_rows past the count. Segment ids are dense by
+//     keys the same way, so every NaN row is a segment of its own); each
+//     start goes to its rank (starts[s] is where segment s begins,
+//     num_rows past the count), and the segment's keys from its first row
+//     order[starts[s]] go to row s of the key outputs (the take
+//     _partial_kernel makes with first_idx). Segment ids are dense by
 //     construction, so the reference's cumsum-and-scatter compaction is
 //     the identity here.
 //   blz_segment_reduce: the ops (ADD / COUNT / MIN / MAX over int64 or
@@ -48,8 +48,8 @@
 //
 // Bound on the H100: bytes. The segmentation reads each key plane and the
 // permutation once (the key loads are gathers through the permutation,
-// served by L2 at a 262,144-row batch) and writes a flag byte and a start
-// per segment; the reduction reads each state source and validity plane
+// served by L2 at a 262,144-row batch) and writes the starts and the key
+// outputs over the capacity; the reduction reads each state source and validity plane
 // once through the permutation and writes each output once. The gathers
 // fetch a 32-byte sector for each 8-byte value where the rows of a segment
 // lie apart (a merge of millions of rows), so there the sectors bound it.
@@ -87,14 +87,6 @@ enum { BLZ_SEG_ADD = 0, BLZ_SEG_COUNT = 1, BLZ_SEG_MIN = 2, BLZ_SEG_MAX = 3,
 
 #define BLZ_QNAN_BITS 0x7FF8000000000000LL
 
-struct SegKeys {
-  int k;
-  const void* data[BLZ_MAX_SEG_KEYS];
-  const uint8_t* valid[BLZ_MAX_SEG_KEYS];
-  int size[BLZ_MAX_SEG_KEYS];
-  int is_float[BLZ_MAX_SEG_KEYS];
-};
-
 struct SegOp {
   int kind;
   int is_float;
@@ -124,87 +116,367 @@ struct SegEmitSet {
   SegEmit col[BLZ_MAX_SEG_EMITS];
 };
 
-__device__ __forceinline__ long long blz_seg_load_int(const void* p, int size,
-                                                      int64_t i) {
+// -- the segmentation (blz_segment_keys) ------------------------------------------
+//
+// One launch, no memset, no host table a call:
+//   - blocks take tickets (an atomic counter, reset by the last ticket), so
+//     a block only waits on blocks that started before it. The first
+//     ntiles tickets are tiles of sorted positions, ITEMS consecutive
+//     positions a thread in 512-thread blocks: the thread loads their
+//     order entries (16-byte vectors where ITEMS is even), then gathers
+//     each key's rows for all of them, BLZ_SK_CHUNK keys at a time with
+//     every load of the chunk issued before the first compare, and
+//     compares each position with the one before it in registers: the
+//     previous thread's last row comes by a shuffle, and only a warp's
+//     first lane loads the row before its positions itself. So each key
+//     row is gathered once, where a thread a position reading order[p] and
+//     order[p - 1] gathers it twice.
+//   - the tile ranks its starts (a shuffle scan of the threads' counts and
+//     a one-warp scan of the warps'), takes its offset from the
+//     block-wide decoupled look-back (common.cuh blz_block_look_back, its
+//     words tagged by the launch so the scratch is never zeroed), writes
+//     each start's position to starts[rank] and the emitted key planes'
+//     rows order[p] to row rank: where those planes are the compared ones
+//     (up to BLZ_SK_CHUNK keys, not the direct mode's plane) from the rows
+//     the compare loaded, else gathered again (every load of a chunk of
+//     planes before its stores). The last tile writes the count.
+//   - the other tickets fill the tail, BLZ_SK_ZTILE rows each: starts[r] =
+//     num_rows and the key outputs' rows zeroed (data 0, validity False)
+//     for r at or past num_rows at once, and for r at or past the count
+//     once the last tile's inclusive word gives it (every tile has its
+//     ticket by then, and none waits on these blocks).
+#define BLZ_SK_THREADS 512
+#define BLZ_SK_WARPS (BLZ_SK_THREADS / 32)
+#define BLZ_SK_ZTILE 4096                            // tail rows a filling block
+// From BLZ_SK_BIG positions on a thread takes four consecutive positions
+// (2,048-position tiles, 110 registers); below, one (512-position tiles,
+// 54 registers, so two blocks an SM). Measured on an H100 (700 W), device
+// time a call on the main path's inputs (one against four): q89's
+// partial batches (about 800 live rows in 262,144: the tail's fill is
+// the work) 0.011 against 0.014; q17_sort's and cust_spend_noskip's
+// batches (262,144 rows) 0.020 and 0.019 against 0.017; a q67_sort batch
+// 0.021 against 0.022; a q67_sort reducer's merge (6.2M positions) 0.41
+// against 0.29.
+#define BLZ_SK_BIG (1 << 17)
+#define BLZ_SK_CHUNK 4                               // keys (planes) loaded together
+
+struct SegKeyArgs {
+  int k;  // compared planes
+  const void* data[BLZ_MAX_SEG_KEYS];
+  const uint8_t* valid[BLZ_MAX_SEG_KEYS];
+  unsigned char size[BLZ_MAX_SEG_KEYS];
+  unsigned char is_float[BLZ_MAX_SEG_KEYS];
+  int m;  // emitted key planes: (data, validity) read at the segment's first row
+  int reuse;  // they are the compared planes, m == k <= BLZ_SK_CHUNK
+  const void* src[BLZ_MAX_SEG_KEYS];
+  const uint8_t* src_valid[BLZ_MAX_SEG_KEYS];
+  void* dst[BLZ_MAX_SEG_KEYS];
+  uint8_t* dst_valid[BLZ_MAX_SEG_KEYS];
+  unsigned char out_size[BLZ_MAX_SEG_KEYS];
+  const int64_t* order;
+  int64_t n, cap, ntiles;
+  int64_t* starts;  // cap + 1
+  int64_t* count;   // one int64
+  unsigned int* ticket;
+  unsigned long long* status;  // ntiles look-back words
+  unsigned long long tag;
+};
+
+// A plane's row as its raw bits, zero-extended.
+__device__ __forceinline__ unsigned long long blz_sk_raw(const void* p, int size, int64_t i) {
   switch (size) {
-    case 1: return ((const int8_t*)p)[i];
-    case 2: return ((const int16_t*)p)[i];
-    case 4: return ((const int32_t*)p)[i];
-    default: return ((const long long*)p)[i];
+    case 1: return __ldg((const unsigned char*)p + i);
+    case 2: return __ldg((const unsigned short*)p + i);
+    case 4: return __ldg((const unsigned int*)p + i);
+    default: return __ldg((const unsigned long long*)p + i);
   }
 }
 
-__device__ __forceinline__ bool blz_seg_key_differs(const SegKeys& ks, int j,
-                                                    int64_t a, int64_t b) {
-  const bool va = ks.valid[j][a] != 0;
-  const bool vb = ks.valid[j][b] != 0;
-  if (va != vb) return true;
-  if (!va) return false;
-  if (ks.is_float[j]) {
-    const double x = ks.size[j] == 4 ? (double)((const float*)ks.data[j])[a]
-                                     : ((const double*)ks.data[j])[a];
-    const double y = ks.size[j] == 4 ? (double)((const float*)ks.data[j])[b]
-                                     : ((const double*)ks.data[j])[b];
-    return x != y;
+__device__ __forceinline__ void blz_sk_store(void* p, int size, int64_t i,
+                                             unsigned long long x) {
+  switch (size) {
+    case 1: ((unsigned char*)p)[i] = (unsigned char)x; break;
+    case 2: ((unsigned short*)p)[i] = (unsigned short)x; break;
+    case 4: ((unsigned int*)p)[i] = (unsigned int)x; break;
+    default: ((unsigned long long*)p)[i] = x; break;
   }
-  return blz_seg_load_int(ks.data[j], ks.size[j], a) !=
-         blz_seg_load_int(ks.data[j], ks.size[j], b);
 }
 
-__global__ void blz_seg_flags_kernel(SegKeys ks, const int64_t* order,
-                                     int64_t n, uint8_t* flags) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  bool fresh = p == 0;
-  if (!fresh) {
-    const int64_t a = order[p];
-    const int64_t b = order[p - 1];
-    for (int j = 0; j < ks.k && !fresh; ++j) fresh = blz_seg_key_differs(ks, j, a, b);
+// A key row's compare state: 0 null, 1 a value (``word``: the raw bits,
+// a float's -0.0 folded into +0.0), 2 a NaN (it differs from every row).
+__device__ __forceinline__ int blz_sk_state(unsigned long long& word, int size, int is_float,
+                                            bool valid) {
+  if (!valid) return 0;
+  if (is_float) {
+    const unsigned long long mag =
+        size == 4 ? (word & 0x7fffffffull) : (word & 0x7fffffffffffffffull);
+    const unsigned long long inf = size == 4 ? 0x7f800000ull : 0x7ff0000000000000ull;
+    if (mag > inf) return 2;
+    if (mag == 0ull) word = 0ull;
   }
-  flags[p] = fresh;
+  return 1;
 }
 
-__global__ void blz_seg_starts_kernel(const uint8_t* flags, int64_t n,
-                                      const int64_t* offs, unsigned int nb_n,
-                                      int64_t cap, int64_t* starts) {
-  __shared__ int warp_sums[BLZ_WARPS];
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool f = p < n && flags[p] != 0;
-  const int r = blz_block_rank(f, warp_sums);
-  const int64_t total = offs[nb_n];
-  if (f) starts[offs[blockIdx.x] + r] = p;
-  if (p >= total && p <= cap) starts[p] = n;
+__device__ __forceinline__ bool blz_sk_differs(int sa, unsigned long long wa, int sb,
+                                               unsigned long long wb) {
+  return sa != sb || sa == 2 || (sa == 1 && wa != wb);
 }
 
-// k key planes of cap rows (element sizes 1/2/4/8; is_float for f32/f64)
-// with bool validity; order: cap int64, the sorted permutation whose first
-// n positions are the existing rows; flags: n bytes; offs: blz_blocks(n)
-// + 1 int64, offs[blz_blocks(n)] receives the segment count; starts: cap
-// + 1 int64.
-BLZ_EXPORT int blz_segment_starts(int k, const void* const* datas,
-                                  const uint8_t* const* valids,
-                                  const int* sizes, const int* is_float,
-                                  const int64_t* order, int64_t n, int64_t cap,
-                                  uint8_t* flags, int64_t* offs,
-                                  int64_t* starts, cudaStream_t stream) {
-  if (k <= 0 || k > BLZ_MAX_SEG_KEYS || n <= 0 || n > cap)
+// The tail from row ``from`` up to this block's end: starts = num_rows,
+// key outputs zero.
+__device__ __forceinline__ void blz_sk_fill(const SegKeyArgs& a, int64_t z0, int64_t z1,
+                                            int64_t from) {
+  const int64_t lo = from > z0 ? from : z0;
+  for (int64_t r = lo + threadIdx.x; r < z1; r += BLZ_SK_THREADS) a.starts[r] = a.n;
+  const int64_t hi = z1 < a.cap ? z1 : a.cap;  // the key outputs hold cap rows
+  if (lo >= hi) return;
+  for (int o = 0; o < a.m; ++o) {
+    blz_zero_bytes((uint8_t*)a.dst[o], lo * a.out_size[o], hi * a.out_size[o]);
+    blz_zero_bytes(a.dst_valid[o], lo, hi);
+  }
+}
+
+// __grid_constant__: the planes' tables are indexed by loop variables,
+// read in place from the parameter space
+template <int ITEMS>
+__global__ void __launch_bounds__(BLZ_SK_THREADS)
+    blz_segment_keys_kernel(const __grid_constant__ SegKeyArgs a) {
+  __shared__ int s_warp[BLZ_SK_WARPS];
+  __shared__ int s_red[2 * BLZ_SK_WARPS];
+  __shared__ unsigned int s_ticket;
+  __shared__ int64_t s_count;
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    const unsigned int t = atomicAdd(a.ticket, 1u);
+    // every other block has its ticket by now: the counter starts the
+    // next launch at 0
+    if (t == gridDim.x - 1) atomicExch(a.ticket, 0u);
+    s_ticket = t;
+  }
+  __syncthreads();
+  const int64_t t = s_ticket;
+
+  if (t >= a.ntiles) {  // a filling block: rows [z0, z1) of the cap + 1 starts
+    const int64_t z0 = (t - a.ntiles) * BLZ_SK_ZTILE;
+    int64_t z1 = z0 + BLZ_SK_ZTILE;
+    z1 = z1 < a.cap + 1 ? z1 : a.cap + 1;
+    if (a.ntiles == 0 && z0 == 0 && threadIdx.x == 0) *a.count = 0;
+    blz_sk_fill(a, z0, z1, a.n);  // rows at or past num_rows whatever the count
+    if (z0 >= a.n) return;
+    if (threadIdx.x == 0) {  // the count: the last tile's inclusive word
+      const volatile unsigned long long* last = a.status + (a.ntiles - 1);
+      unsigned long long v = *last;
+      while ((v >> 34) != a.tag || ((v >> 32) & 3ull) != BLZ_LB_INCL) {
+        __nanosleep(128);
+        v = *last;
+      }
+      s_count = (int64_t)(v & 0xffffffffull);
+    }
+    __syncthreads();
+    blz_sk_fill(a, z0, z1 < a.n ? z1 : a.n, s_count);
+    return;
+  }
+
+  // -- a tile: the order entries of its positions
+  const int64_t p0 = t * (BLZ_SK_THREADS * ITEMS) + (int64_t)threadIdx.x * ITEMS;
+  int64_t row[ITEMS];
+  if (ITEMS % 2 == 0 && p0 + ITEMS <= a.n && (((uintptr_t)(a.order + p0)) & 15u) == 0u) {
+#pragma unroll
+    for (int i = 0; i + 1 < ITEMS; i += 2) {
+      const longlong2 x = __ldg((const longlong2*)(a.order + p0 + i));
+      row[i] = x.x;
+      row[i + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) row[i] = p0 + i < a.n ? __ldg(a.order + p0 + i) : 0;
+  }
+  // the row before this thread's first position, for a warp's first lane
+  // (the other lanes take it from the lane before them)
+  const bool own_prev = lane == 0 && p0 > 0 && p0 < a.n;
+  const int64_t prev_row = own_prev ? __ldg(a.order + p0 - 1) : 0;
+  bool fresh[ITEMS];
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) fresh[i] = p0 + i == 0;
+  // the last chunk's key rows as loaded (every key's when a.k <= CHUNK)
+  unsigned long long raw[BLZ_SK_CHUNK][ITEMS];
+  bool rv[BLZ_SK_CHUNK][ITEMS];
+  for (int c0 = 0; c0 < a.k; c0 += BLZ_SK_CHUNK) {
+    unsigned long long wp[BLZ_SK_CHUNK];
+    bool vp[BLZ_SK_CHUNK];
+    // every load of the chunk first, independent of each other
+#pragma unroll
+    for (int q = 0; q < BLZ_SK_CHUNK; ++q) {
+      const int j = c0 + q < a.k ? c0 + q : a.k - 1;
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        const bool in = c0 + q < a.k && p0 + i < a.n;
+        rv[q][i] = in && __ldg(a.valid[j] + row[i]) != 0;
+        raw[q][i] = in ? blz_sk_raw(a.data[j], a.size[j], row[i]) : 0ull;
+      }
+      const bool in = c0 + q < a.k && own_prev;
+      vp[q] = in && __ldg(a.valid[j] + prev_row) != 0;
+      wp[q] = in ? blz_sk_raw(a.data[j], a.size[j], prev_row) : 0ull;
+    }
+#pragma unroll
+    for (int q = 0; q < BLZ_SK_CHUNK; ++q) {
+      const int j = c0 + q < a.k ? c0 + q : a.k - 1;
+      const int size = a.size[j], is_float = a.is_float[j];
+      int st[ITEMS];
+      unsigned long long w[ITEMS];
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        w[i] = raw[q][i];
+        st[i] = blz_sk_state(w[i], size, is_float, rv[q][i]);
+      }
+      int sp = blz_sk_state(wp[q], size, is_float, vp[q]);
+      // the previous thread's last row
+      const int up_s = __shfl_up_sync(BLZ_FULL, st[ITEMS - 1], 1);
+      const unsigned long long up_w = __shfl_up_sync(BLZ_FULL, w[ITEMS - 1], 1);
+      unsigned long long pw = wp[q];
+      if (lane > 0) {
+        sp = up_s;
+        pw = up_w;
+      }
+      if (c0 + q >= a.k) continue;
+      fresh[0] |= p0 < a.n && blz_sk_differs(st[0], w[0], sp, pw);
+#pragma unroll
+      for (int i = 1; i < ITEMS; ++i)
+        fresh[i] |= p0 + i < a.n && blz_sk_differs(st[i], w[i], st[i - 1], w[i - 1]);
+    }
+  }
+  // ranks in position order: a shuffle scan of the threads' counts, a
+  // one-warp scan of the warps'
+  int mine = 0;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) mine += fresh[i];
+  int incl = mine;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(BLZ_FULL, incl, off);
+    if ((int)lane >= off) incl += y;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int c = lane < BLZ_SK_WARPS ? s_warp[lane] : 0;
+    int x = c;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(BLZ_FULL, x, off);
+      if ((int)lane >= off) x += y;
+    }
+    if (lane < BLZ_SK_WARPS) s_warp[lane] = x - c;
+    if (lane == BLZ_SK_WARPS - 1) s_red[0] = x;  // the tile's total
+  }
+  __syncthreads();
+  const unsigned int total = (unsigned int)s_red[0];
+  const int below = s_warp[warp] + incl - mine;
+  __syncthreads();  // s_red is the look-back's scratch from here
+  const unsigned int excl =
+      blz_block_look_back<BLZ_SK_THREADS>(a.status, t, a.tag, total, s_red);
+  if (threadIdx.x == 0 && t == a.ntiles - 1) *a.count = (int64_t)excl + total;
+  if (mine == 0) return;
+  int64_t pos[ITEMS];
+  int r = (int)excl + below;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    pos[i] = r;
+    r += fresh[i];
+    if (fresh[i]) a.starts[pos[i]] = p0 + i;
+  }
+  if (a.reuse) {  // the emitted planes are the compared ones, all loaded above
+#pragma unroll
+    for (int q = 0; q < BLZ_SK_CHUNK; ++q) {
+      if (q >= a.m) continue;
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        if (!fresh[i]) continue;
+        blz_sk_store(a.dst[q], a.out_size[q], pos[i], raw[q][i]);
+        a.dst_valid[q][pos[i]] = rv[q][i];
+      }
+    }
+    return;
+  }
+  // the segments' keys from their first rows, a chunk of planes' loads
+  // before its stores
+  for (int o0 = 0; o0 < a.m; o0 += BLZ_SK_CHUNK) {
+    unsigned long long w[BLZ_SK_CHUNK][ITEMS];
+    unsigned char v[BLZ_SK_CHUNK][ITEMS];
+#pragma unroll
+    for (int q = 0; q < BLZ_SK_CHUNK; ++q) {
+      const int o = o0 + q < a.m ? o0 + q : a.m - 1;
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        const bool on = o0 + q < a.m && fresh[i];
+        w[q][i] = on ? blz_sk_raw(a.src[o], a.out_size[o], row[i]) : 0ull;
+        v[q][i] = on ? __ldg(a.src_valid[o] + row[i]) : 0;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < BLZ_SK_CHUNK; ++q) {
+      if (o0 + q >= a.m) continue;
+      const int o = o0 + q;
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        if (!fresh[i]) continue;
+        blz_sk_store(a.dst[o], a.out_size[o], pos[i], w[q][i]);
+        a.dst_valid[o][pos[i]] = v[q][i];
+      }
+    }
+  }
+}
+
+// The argument words (int64; core/kernels.py _SW_*):
+//   [0] k  [1] m  [2] order  [3] num_rows  [4] cap  [5] starts (cap + 1)
+//   [6] count (one int64)  [7] scratch (int64 words: the tickets' counter,
+//   then one look-back word a tile)  [8] scratch tiles  [9] tag
+//   [10] stream  [11] reuse (the emitted planes are the compared ones, at
+//   most BLZ_SK_CHUNK), then from [12] per compared plane (data,
+//   validity, size, is_float), then per emitted plane (src, src validity,
+//   dst, dst validity, size).
+BLZ_EXPORT int blz_segment_keys(const long long* w) {
+  SegKeyArgs a;
+  a.k = (int)w[0];
+  a.m = (int)w[1];
+  a.order = (const int64_t*)w[2];
+  a.n = w[3];
+  a.cap = w[4];
+  a.starts = (int64_t*)w[5];
+  a.count = (int64_t*)w[6];
+  a.ticket = (unsigned int*)w[7];
+  a.status = (unsigned long long*)w[7] + 1;
+  const bool big = a.n >= BLZ_SK_BIG;
+  const int64_t tile = BLZ_SK_THREADS * (big ? 4 : 1);
+  a.ntiles = (a.n + tile - 1) / tile;
+  a.tag = (unsigned long long)w[9];
+  cudaStream_t stream = (cudaStream_t)w[10];
+  a.reuse = (int)w[11];
+  if (a.reuse && (a.m != a.k || a.k > BLZ_SK_CHUNK)) return (int)cudaErrorInvalidValue;
+  if (a.k <= 0 || a.k > BLZ_MAX_SEG_KEYS || a.m < 0 || a.m > BLZ_MAX_SEG_KEYS ||
+      a.cap <= 0 || a.cap >= 0x7fffffffLL || a.n < 0 || a.n > a.cap || a.ntiles > w[8] ||
+      a.tag == 0 || a.tag >= (1ull << 30))
     return (int)cudaErrorInvalidValue;
-  SegKeys ks;
-  ks.k = k;
-  for (int j = 0; j < k; ++j) {
-    ks.data[j] = datas[j];
-    ks.valid[j] = valids[j];
-    ks.size[j] = sizes[j];
-    ks.is_float[j] = is_float[j];
+  const long long* kw = w + 12;
+  for (int j = 0; j < a.k; ++j, kw += 4) {
+    a.data[j] = (const void*)kw[0];
+    a.valid[j] = (const uint8_t*)kw[1];
+    a.size[j] = (unsigned char)kw[2];
+    a.is_float[j] = (unsigned char)kw[3];
+    if (kw[2] != 1 && kw[2] != 2 && kw[2] != 4 && kw[2] != 8) return (int)cudaErrorInvalidValue;
   }
-  blz_seg_flags_kernel<<<blz_blocks(n), BLZ_THREADS, 0, stream>>>(ks, order, n,
-                                                                  flags);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = blz_flag_offsets(flags, n, offs, stream);
-  if (err != cudaSuccess) return (int)err;
-  blz_seg_starts_kernel<<<blz_blocks(cap + 1), BLZ_THREADS, 0, stream>>>(
-      flags, n, offs, blz_blocks(n), cap, starts);
+  for (int o = 0; o < a.m; ++o, kw += 5) {
+    a.src[o] = (const void*)kw[0];
+    a.src_valid[o] = (const uint8_t*)kw[1];
+    a.dst[o] = (void*)kw[2];
+    a.dst_valid[o] = (uint8_t*)kw[3];
+    a.out_size[o] = (unsigned char)kw[4];
+    if (kw[4] != 1 && kw[4] != 2 && kw[4] != 4 && kw[4] != 8) return (int)cudaErrorInvalidValue;
+  }
+  const unsigned int grid = (unsigned int)(a.ntiles + (a.cap + BLZ_SK_ZTILE) / BLZ_SK_ZTILE);
+  if (big)
+    blz_segment_keys_kernel<4><<<grid, BLZ_SK_THREADS, 0, stream>>>(a);
+  else
+    blz_segment_keys_kernel<1><<<grid, BLZ_SK_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -628,7 +900,7 @@ static int blz_seg_warp_grid() {
   return blocks;
 }
 
-// starts: cap + 1 int64 (blz_segment_starts); order: cap int64; count: the
+// starts: cap + 1 int64 (blz_segment_keys); order: cap int64; count: the
 // device segment count. Per op o: kind, is_float, source (int64 or float64
 // rows; null for COUNT), op_nvalid[o] bool planes at op_valid[3*o + q],
 // mult (integer ADD), init (the table's first value as 64 bits). Per emit

@@ -443,8 +443,8 @@ def slot_agg_merge_plain(keys, kvalids, key_dtypes, num_rows, bases, sizes,
 
 def _run_sorted(name, keys, kvalids, num_rows, ops, emits, direct, kinds=(),
                 exists=None):
-    """The sort route (K5 sort, K10 segments and reduction, K6 take of each
-    group's keys from its first row); outputs as the slot program's, with
+    """The sort route (K5 sort, K10 segments with each group's keys from its
+    first row, and reduction); outputs as the slot program's, with
     capacity-long planes: (group count, out_valid, per key (data, valid),
     per emit its column). One sync, the group count, besides K5's. With
     ``exists`` (K18's live mask over the rows below num_rows) the dead rows
@@ -459,12 +459,11 @@ def _run_sorted(name, keys, kvalids, num_rows, ops, emits, direct, kinds=(),
         live_rows = int(exists.sum())
         if live_rows == 0:
             return (0,)
-    order, starts, count = K.segment_ids(keys, kvalids, exists, num_rows, direct,
-                                         live_rows)
-    outs, first = K.segment_reduce(name, order, starts, count, live_rows, ops, emits,
-                                   _limb_kinds(kinds))
+    order, starts, count, (kd, kv) = K.segment_ids(keys, kvalids, exists, num_rows,
+                                                   direct, live_rows)
+    outs, _first = K.segment_reduce(name, order, starts, count, live_rows, ops, emits,
+                                    _limb_kinds(kinds))
     num_groups = int(count)
-    kd, kv = K.gather_planes(keys, kvalids, first, cap, num_groups)
     results = [num_groups, iota(cap, dev) < num_groups]
     for d, v in zip(kd, kv):
         results += [d, v]

@@ -100,9 +100,9 @@ def pmod(hashes: torch.Tensor, n: int) -> torch.Tensor:
 
 def _segment_sums(keys, live, srcs, name):
     """Group the rows of ``keys`` where ``live`` holds: K1 moves them to the
-    front (stable), K5 sorts them by key, K10 cuts equal runs and sums each
-    of ``srcs`` (None: counts the rows) per run, and K6 takes each run's
-    key from its first row. Returns (run keys, the sums) of len(keys) rows,
+    front (stable), K5 sorts them by key, K10 cuts equal runs, takes each
+    run's key from its first row and sums each of ``srcs`` (None: counts
+    the rows) per run. Returns (run keys, the sums) of len(keys) rows,
     zero past the runs. The JAX package gives every dead row key int64 max
     and folds them into one last run of zero sums, which is invalid (its
     key is int64 max); dropping them first gives the same planes, and
@@ -115,10 +115,10 @@ def _segment_sums(keys, live, srcs, name):
            for x in srcs]
     ones = torch.ones(cap, dtype=torch.bool, device=keys.device)
     exists = torch.arange(cap, device=keys.device) < count
-    order, starts, nseg = K.segment_ids([ckeys], [ones], exists, count, direct=False)
+    order, starts, nseg, ((uk,), _v) = K.segment_ids([ckeys], [ones], exists, count,
+                                                     direct=False)
     emits = [K.AggEmit(K.EMIT_RAW, i, torch.int64) for i in range(len(ops))]
-    sums, first = K.segment_reduce(name, order, starts, nseg, count, ops, emits)
-    (uk,), _v = K.gather_planes([ckeys], [], first, cap, cap)
+    sums, _first = K.segment_reduce(name, order, starts, nseg, count, ops, emits)
     return uk, sums
 
 

@@ -239,8 +239,8 @@ _SIGNATURES = {
     "blz_radix_sort": [_PLL, _P],
     # n_sort, n_total, ndigits -> scratch bytes
     "blz_radix_sort_scratch": [_I64, _I64, _I],
-    # idx, n_out, live, out_cap, nplanes, srcs, dsts, caps, sizes, stream
-    "blz_gather_planes": [_P, _I64, _P, _I64, _I, _PP, _PP, _PLL, _PI, _P],
+    # the argument words (csrc/gather.cu blz_gather_planes)
+    "blz_gather_planes": [_PLL],
     # the argument words (csrc/gather.cu), the staged table or null, stream
     "blz_concat_planes": [_PLL, _P, _P],
     "blz_split_planes": [_PLL, _P, _P],
@@ -248,10 +248,8 @@ _SIGNATURES = {
     "blz_inner_join": [_PLL],
     # uniq, nk, key, key_size, key_kind, key_valid, cap, codes, stream
     "blz_probe_codes": [_P, _I64, _P, _I, _I, _P, _I64, _P, _P],
-    # k, datas, valids, sizes, is_float, order, n, cap, flags, offs,
-    # starts, stream
-    "blz_segment_starts": [_I, _PP, _PP, _PI, _PI, _P, _I64, _I64, _P, _P, _P,
-                           _P],
+    # the argument words (csrc/seg_agg.cu blz_segment_keys; core/kernels.py _SW_*)
+    "blz_segment_keys": [_PLL],
     "blz_segment_reduce": [
         _P, _P, _P, _I64,                    # starts, order, count, cap
         _I, _PI, _PI, _PP, _PP, _PI, _PP,    # nops, kind, is_float, src, src0, nvalid,
@@ -348,14 +346,16 @@ def check(err: int, name: str) -> None:
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """A wrapper's input check: every tensor on one CUDA device and
-    contiguous."""
-    dev = None
+    contiguous (by ``is_cuda`` and the device index: reading ``.device``
+    builds an object a tensor)."""
+    index = None
     for t in tensors:
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name}: tensor on {t.device}, expected CUDA")
-        if dev is None:
-            dev = t.device
-        elif t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        i = t.get_device()
+        if index is None:
+            index = i
+        elif i != index:
+            raise ValueError(f"{name}: tensors on cuda:{index} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: non-contiguous input")

@@ -326,7 +326,8 @@ def _kernels(cs, dev, opts) -> int:
                                           "library_device_ms",
                                           "library_host_ms", "library_call", "bytes",
                                           "shapes", "stream_object_ms", "stream_raw_ms",
-                                          "phases_us", "k11_device_ms", "hits")}
+                                          "phases_us", "k11_device_ms", "hits",
+                                          "call_kernels", "route_ms", "segment_ids_ms")}
             line["bound_ms"] = r["bytes"] / cs.HBM_BYTES_PER_S * 1e3
             print(json.dumps({"phase": "ab_kernel", "label": opts["label"], "tree":
                               os.path.abspath(opts["tree"]), "kernels": phase,

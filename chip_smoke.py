@@ -16,6 +16,10 @@ only when every phase passed:
    next to the slot range, one to three sort keys ASC/DESC with nulls
    first/last, int64 min/max, bools, f64 NaN, +-0.0 and subnormals, mixed plane
    capacities, offsets past the end, empty batches in a concat; for the
+   gather (K6): every element size in one call, 33 planes, no row, masked
+   takes, out_cap past n_out, an index not 16-byte aligned, timed with
+   device and host ms at the q67 sort's, a sort10M reducer's and the sort
+   route's key take; for the
    join: misses, null probe keys, an empty build, one build key, a
    null-keyed build row, int32/f32/f64 keys with +-0.0 and NaN payloads,
    and q06's batch all hitting and half missing, on both search routes
@@ -24,7 +28,10 @@ only when every phase passed:
    the same key kinds, keys below and above the build's range, an empty
    build, one build key, q69's probe batch and a 262,144-row batch of
    customer keys against the store window's keys; for the segmented
-   aggregate: one to five int/float keys, direct and sorted segmentation,
+   aggregate: the segmentation with each group's keys (one launch, held
+   to the starts and a gather of the keys at the groups' first rows;
+   its kernels a call listed by torch.profiler: one, no memset), one to
+   five int/float keys, direct and sorted segmentation,
    nulls, padding, all-null keys, int64/int32/f64/f32 arguments with NaN,
    +-0.0, +-inf and subnormals, partial and merge, a q67 batch and a
    q67_sort reducer's merge, segments of 1, 31, 32, 33, 524, 2,048,
@@ -1126,16 +1133,26 @@ def _and_or(ops, n):
     return np.array(out, np.uint64)
 
 
-def mixed_planes(rng, caps, n_live, dev):
+def mixed_planes(rng, caps, n_live, dev, dtypes=("int64", "int32", "bool", "float64")):
+    """A (data, validity) plane of each dtype, its capacity from ``caps``
+    (cycled), ``n_live`` rows drawn (20% null, data 0 there)."""
     import numpy as np
     import torch
 
     datas, valids = [], []
-    for cap, dt in zip(caps, (np.int64, np.int32, np.bool_, np.float64)):
+    for i, dt in enumerate(dtypes):
+        cap = caps[i % len(caps)]
         d = np.zeros(cap, dt)
         v = np.zeros(cap, bool)
         m = min(n_live, cap)
-        d[:m] = rng.integers(-1000, 1000, m) if dt != np.bool_ else rng.random(m) < 0.5
+        if dt == "bool":
+            d[:m] = rng.random(m) < 0.5
+        elif dt.startswith("float"):
+            with np.errstate(over="ignore"):
+                d[:m] = np.array(SEG_FLOATS, dt)[rng.integers(0, len(SEG_FLOATS), m)]
+        else:
+            lim = 100 if dt == "int8" else 1000
+            d[:m] = rng.integers(-lim, lim, m)
         v[:m] = rng.random(m) >= 0.2
         d[~v] = 0
         datas.append(torch.from_numpy(d).to(dev))
@@ -1143,37 +1160,118 @@ def mixed_planes(rng, caps, n_live, dev):
     return datas, valids
 
 
+# K6's battery: (label, source capacities (cycled over the planes), live
+# source rows, plane dtypes, out_cap, n_out, masked, an index not 16-byte
+# aligned): the old mixed-capacity cases, every element size in one call,
+# 33 planes (two launches), no row, out_cap past n_out with mixed source
+# capacities, an out_cap that is not a multiple of a thread's four rows
+MIX4 = ("int64", "int32", "bool", "float64")
+ALL_SIZES = ("int8", "int16", "int32", "float32", "int64", "float64", "bool")
+GATHER_CASES = (
+    ("mixed caps, a part", (4096, 4096, 1024, 4096), 3000, MIX4, 256, 200, False, False),
+    ("mixed caps, whole", (4096, 4096, 1024, 4096), 3000, MIX4, 4096, 4096, False, False),
+    ("no row", (4096, 4096, 1024, 4096), 3000, MIX4, 256, 0, False, False),
+    ("masked", (4096, 4096, 1024, 4096), 3000, MIX4, 1024, 700, True, False),
+    ("masked, whole", (4096, 4096, 1024, 4096), 3000, MIX4, 256, 256, True, False),
+    ("every element size", (4096, 2048, 1000), 3000, ALL_SIZES, 8192, 5000, False, False),
+    ("every element size, masked", (4096, 2048), 3000, ALL_SIZES, 4096, 3001, True, True),
+    ("33 planes", (2048, 1024), 2000, ("int64", "bool", "int32") * 11, 4096, 2500, False,
+     False),
+    ("33 planes, no row", (2048,), 2000, ("int16", "bool", "int64") * 11, 1024, 0, False,
+     False),
+    ("out_cap past n_out", (300, 70000, 5000), 4000, ALL_SIZES, 65536, 9001, False, True),
+    ("out_cap not a multiple of 4", (500,), 500, MIX4, 1023, 1021, False, True),
+    ("n_out = out_cap, odd", (700,), 700, ALL_SIZES, 333, 333, True, False),
+)
+
+
+def gather_case(case, rng, dev):
+    """(datas, valids, idx, out_cap, n_out, live) of a GATHER_CASES entry;
+    the indices cover each source's live rows and run past some planes'
+    capacities (the kernel clips them)."""
+    import torch
+
+    _label, caps, n_live, dtypes, out_cap, n_out, masked, unaligned = case
+    datas, valids = mixed_planes(rng, caps, n_live, dev, dtypes)
+    idx = torch.from_numpy(rng.integers(0, n_live, n_out + 1)).to(dev)
+    idx = idx[1:] if unaligned else idx[:n_out]
+    live = torch.from_numpy(rng.random(n_out) < 0.7).to(dev) if masked else None
+    return datas, valids, idx, out_cap, n_out, live
+
+
+def gather_bytes(datas, valids, n_out, out_cap):
+    """K6 moves at least: the index and each distinct plane's gathered
+    rows read once, its output written over out_cap."""
+    row = sum(p.element_size() for p in {id(p): p for p in [*datas, *valids]}.values())
+    return n_out * (8 + row) + out_cap * row
+
+
+def k6_shapes(dev, rng):
+    """K6 at the main path's takes: (label, datas, valids, idx, out_cap,
+    n_out). The q67 full sort's take of 797,601 of 1,048,576 rows (3 int64
+    and 3 bool planes); a sort10M reducer's sort take (~312,500 of its
+    524,288 rows; 5 columns: 7 int64 planes with the wide cost's limbs,
+    and 7 bool planes, the limbs' three one plane); the sort route's take of each group's keys by its first row
+    (a q67_sort batch, 262,144 rows, 2 int64 and 2 bool key planes)."""
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+
+    out = []
+    cap, n = 1 << 20, Q67_GROUPS
+    datas, valids = planes(n, cap, 3, rng, dev)
+    out.append(("q67 sort take", datas, valids, torch.randperm(n, device=dev), cap, n))
+    cap, n = 1 << 19, SORT10M_ROWS // SORT10M_PARTS
+    datas, valids = planes(n, cap, 7, rng, dev)
+    valids[5:] = [valids[4]] * 2  # the wide cost's three limbs share its validity
+    out.append(("sort10M reducer's sort take", datas, valids, torch.randperm(n, device=dev),
+                cap, n))
+    keys, kvalids, _specs, _args = q67_batch(rng, dev)
+    cap = n = keys[0].shape[0]
+    exists = torch.ones(cap, dtype=torch.bool, device=dev)
+    order = K.lexsort_indices(K.sort_key_operands(keys, kvalids, exists, [(True, True)] * 2),
+                              n)
+    starts, count = K.segment_starts_plain(keys, kvalids, order, n)
+    g = int(count)
+    out.append(("q67_sort batch's key take", keys, kvalids, order[starts[:g]], cap, g))
+    return out
+
+
 def kernel_k6(dev, rng, results):
     import torch
     from blaze_tpu_torch.core import kernels as K
 
     cases = []
-    datas, valids = mixed_planes(rng, (4096, 4096, 1024, 4096), 3000, dev)
-    for out_cap, n_out, masked in ((256, 200, False), (4096, 4096, False), (256, 0, False),
-                                   (1024, 700, True), (256, 256, True)):
-        idx = torch.randint(0, 3000, (n_out,), device=dev)
-        live = (torch.rand(n_out, device=dev) < 0.7) if masked else None
-        got = K.gather_planes_cuda(datas, valids, idx, out_cap, n_out, live)
-        want = K.gather_planes_plain(datas, valids, idx, out_cap, n_out, live)
-        check_equal("gather_planes", f"out_cap={out_cap} n_out={n_out} masked={masked}",
-                    got, want)
-        cases.append(f"out_cap={out_cap},n_out={n_out},masked={masked},mixed caps")
-    # main path: the q67 sort's take of 797,601 of 1,048,576 rows
-    cap, n = 1 << 20, Q67_GROUPS
-    datas, valids = planes(n, cap, 3, rng, dev)
-    idx = torch.randperm(n, device=dev)
-    check_equal("gather_planes", "q67 take", K.gather_planes_cuda(datas, valids, idx, cap, n),
-                K.gather_planes_plain(datas, valids, idx, cap, n))
-    cases.append(f"out_cap={cap},n_out={n},3 int64 + 3 bool planes")
-    ms = time_ms(lambda: K.gather_planes_cuda(datas, valids, idx, cap, n))
-    plain_ms = time_ms(lambda: K.gather_planes_plain(datas, valids, idx, cap, n))
-    lib_ms = time_ms(lambda: [torch.index_select(x, 0, idx) for x in datas + valids])
+    for case in GATHER_CASES:
+        args = gather_case(case, rng, dev)
+        check_equal("gather_planes", case[0], K.gather_planes_cuda(*args),
+                    K.gather_planes_plain(*args))
+        cases.append(case[0])
+    shapes = {}
+    for label, datas, valids, idx, cap, n in k6_shapes(dev, rng):
+        check_equal("gather_planes", label, K.gather_planes_cuda(datas, valids, idx, cap, n),
+                    K.gather_planes_plain(datas, valids, idx, cap, n))
+        cases.append(f"{label}: {n} of {cap} rows x {len(datas) + len(valids)} planes")
+
+        def k6(datas=datas, valids=valids, idx=idx, cap=cap, n=n):
+            return K.gather_planes_cuda(datas, valids, idx, cap, n)
+
+        def lib(datas=datas, valids=valids, idx=idx):
+            return [torch.index_select(x, 0, idx) for x in datas + valids]
+
+        shapes[label] = dict(
+            shape_times(k6, lambda: K.gather_planes_plain(datas, valids, idx, cap, n), lib,
+                        gather_bytes(datas, valids, n, cap)),
+            host_ms=host_ms(k6), library_host_ms=host_ms(lib), rows=n, out_cap=cap,
+            planes=len(datas) + len(valids))
+    main = shapes.pop("q67 sort take")
     results.append(dict(
         name="gather_planes", route="cuda", source="blaze_tpu_torch/csrc/gather.cu",
-        replaces="blaze_tpu/core/kernels.py:181", shape=f"{n} of {cap} rows x 6 planes",
-        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library_call="torch.index_select per plane",
-        bytes=n * 8 + n * 3 * (8 + 1) + cap * 3 * (8 + 1)))
+        replaces="blaze_tpu/core/kernels.py:181",
+        shape=f"{main['rows']} of {main['out_cap']} rows x 6 planes (the q67 sort's take)",
+        cases=cases, ms=main["ms"], device_ms=main["device_ms"], host_ms=main["host_ms"],
+        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+        library_device_ms=main["library_device_ms"], library_host_ms=main["library_host_ms"],
+        library_call="torch.index_select per plane", bytes=main["bytes"], shapes=shapes))
 
 
 # K7's split form: (rows, partitions, planes: int64 data / bool validity
@@ -1911,17 +2009,21 @@ def kernel_k10(dev, rng, results):
         keys, kvalids, specs, args = seg_case(kinds, cap, n, nulls, key_range, rng)
         label = f"keys={'+'.join(kinds)},cap={cap},n={n},nulls={nulls},range={key_range}"
         dkeys, dvalids, dargs = to_dev(keys, dev), to_dev(kvalids, dev), to_dev(args, dev)
-        # the two passes against their plain versions on the same planes
+        # the two passes against their plain versions on the same planes,
+        # both segmentations (the direct one compares a plane of its own
+        # and still emits the keys)
         exists = torch.arange(cap, device=dev) < n
-        planes = K._segment_planes(dkeys, dvalids, exists, True)
-        ops = K.sort_key_operands(*planes, exists, [(True, True)] * len(planes[0]))
-        order = K.lexsort_indices(ops, n)
-        got = K.segment_starts_cuda(*planes, order, n)
-        check_equal("segment_ids", label, got, K.segment_starts_plain(*planes, order, n))
+        for direct in (True, False):
+            planes = K._segment_planes(dkeys, dvalids, exists, direct)
+            ops = K.sort_key_operands(*planes, exists, [(True, True)] * len(planes[0]))
+            order = K.lexsort_indices(ops, n)
+            got = K.segment_keys_cuda(*planes, order, n, dkeys, dvalids)
+            check_equal("segment_ids", f"{label},direct={direct}", got,
+                        K.segment_keys_plain(*planes, order, n, dkeys, dvalids))
         ops_, emits = A._partial_program(specs, dargs)
         check_equal("seg_agg_partial", label,
-                    K.segment_reduce_cuda("seg_agg_partial", order, *got, n, ops_, emits),
-                    K.segment_reduce_plain(order, *got, n, ops_, emits))
+                    K.segment_reduce_cuda("seg_agg_partial", order, *got[:2], n, ops_, emits),
+                    K.segment_reduce_plain(order, *got[:2], n, ops_, emits))
         # the whole route, both segmentations
         for direct in (True, False):
             outs = check_seg_pipeline("seg_agg_partial", A.seg_agg_partial,
@@ -1960,7 +2062,7 @@ def kernel_k10(dev, rng, results):
     check_seg_pipeline("seg_agg_partial", A.seg_agg_partial, (keys, kvalids, n, specs, args),
                        to_dev((keys, kvalids, n, specs, args), cpu), "q67 batch")
     exists = torch.ones(cap, dtype=torch.bool, device=dev)
-    order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+    order, starts, count, _keys = K.segment_ids(keys, kvalids, exists, n)
     groups = int(count)
     ops, emits = A._partial_program(specs, args)
     new = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -1975,25 +2077,32 @@ def kernel_k10(dev, rng, results):
         t_sum.index_add_(0, seg_row, args[0][0])
         t_cnt.index_add_(0, seg_row, ones)
 
-    ids_ms = time_ms(lambda: K.segment_starts_cuda(keys, kvalids, order, n))
-    ids_plain = time_ms(lambda: K.segment_starts_plain(keys, kvalids, order, n))
+    def seg():
+        return K.segment_keys_cuda(keys, kvalids, order, n, keys, kvalids)
+
+    check_equal("segment_ids", "q67 batch", seg(),
+                K.segment_keys_plain(keys, kvalids, order, n, keys, kvalids))
+    ids_ms = time_ms(seg)
+    ids_plain = time_ms(lambda: K.segment_keys_plain(keys, kvalids, order, n, keys, kvalids))
     red_ms = time_ms(lambda: K.segment_reduce_cuda("seg_agg_partial", order, starts, count,
                                                    n, ops, emits))
     red_plain = time_ms(lambda: K.segment_reduce_plain(order, starts, count, n, ops, emits))
     lib_ms = time_ms(lib_partial)
     route_ms = time_ms(lambda: A.seg_agg_partial(keys, kvalids, n, specs, args))
     # segment_ids: each key plane (8 + 1 bytes a row) and the permutation
-    # read once, the starts written; the reduction: the permutation, the
-    # starts, the sum's source and validity read once, per group the sum,
-    # has flag and first row written
-    ids_bytes = n * (2 * 9 + 8) + (groups + 1) * 8
+    # read once, the starts (cap + 1) and the count written, and the two
+    # key planes emitted over the capacity; the reduction: the
+    # permutation, the starts, the sum's source and validity read once,
+    # per group the sum, has flag and first row written
+    ids_bytes = n * (2 * 9 + 8) + (cap + 2) * 8 + cap * 2 * 9
     red_bytes = n * (8 + 8 + 1) + groups * 8 + groups * (8 + 1 + 8)
     shape = f"262144 rows -> {groups} segments (q67 batch, 2 int64 keys, SUM)"
     results.append(dict(
         name="segment_ids", route="cuda", source="blaze_tpu_torch/csrc/seg_agg.cu",
         replaces="blaze_tpu/ops/agg_device.py:1082", shape=shape, cases=cases,
         ms=ids_ms, plain_ms=ids_plain, library_ms=None, library_call=None,
-        bytes=ids_bytes, route_ms=route_ms))
+        bytes=ids_bytes, route_ms=route_ms, device_ms=kernel_device_ms(seg, OURS),
+        host_ms=host_ms(seg), call_kernels=call_kernels(seg)))
     results.append(dict(
         name="seg_agg_partial", route="cuda", source="blaze_tpu_torch/csrc/seg_agg.cu",
         replaces="blaze_tpu/ops/agg_device.py:1749", shape=shape, cases=cases,
@@ -2009,7 +2118,7 @@ def kernel_k10(dev, rng, results):
     keys, kvalids, kinds, states, n = q67_merge_input(rng, dev)
     cap = keys[0].shape[0]
     exists = torch.arange(cap, device=dev) < n
-    order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+    order, starts, count, _keys = K.segment_ids(keys, kvalids, exists, n)
     groups = int(count)
     ops, emits = A._merge_program(kinds, states)
     got = K.segment_reduce_cuda("seg_agg_merge", order, starts, count, n, ops, emits)
@@ -2035,7 +2144,8 @@ def kernel_k10(dev, rng, results):
     ms = time_ms(k10)
     plain_ms = time_ms(lambda: K.segment_reduce_plain(order, starts, count, n, ops, emits))
     lib_ms = time_ms(lib_merge)
-    ids_merge_ms = time_ms(lambda: K.segment_starts_cuda(keys, kvalids, order, n))
+    ids_merge_ms = time_ms(lambda: K.segment_keys_cuda(keys, kvalids, order, n, keys,
+                                                       kvalids))
     results.append(dict(
         name="seg_agg_merge", route="cuda", source="blaze_tpu_torch/csrc/seg_agg.cu",
         replaces="blaze_tpu/ops/agg_device.py:1477",
@@ -2094,7 +2204,7 @@ def seg_length_check(length, prog, rng, dev, check):
     tag = ":limbs" if limbs else ""
     label = f"segments of {length} rows, {prog}"
     exists = torch.arange(cap, device=dev) < n
-    order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+    order, starts, count, _keys = K.segment_ids(keys, kvalids, exists, n)
     ops, emits = A._partial_program(specs, args)
     check("seg_agg_partial" + tag, label,
           K.segment_reduce_cuda("seg_agg_partial", order, starts, count, n, ops, emits, limbs),
@@ -2105,7 +2215,7 @@ def seg_length_check(length, prog, rng, dev, check):
     states = (wide_states(outs, 1, kinds, live, rng) if limbs
               else merge_states(outs, 1, kinds, g, rng))
     mk, mv = [torch.where(live, outs[2] // 3, 0)], [outs[3] & live]
-    morder, mstarts, mcount = K.segment_ids(mk, mv, live, g)
+    morder, mstarts, mcount, _keys = K.segment_ids(mk, mv, live, g)
     mops, memits = A._merge_program(kinds, states)
     check("seg_agg_merge" + tag, label,
           K.segment_reduce_cuda("seg_agg_merge", morder, mstarts, mcount, g, mops, memits,
@@ -2131,7 +2241,7 @@ def seg_fold_order_case(length, dev):
     d[:length] = x
     live = torch.arange(cap, device=dev) < length
     keys = [torch.zeros(cap, dtype=torch.int64, device=dev)]
-    order, starts, count = K.segment_ids(keys, [live], live, length)
+    order, starts, count, _keys = K.segment_ids(keys, [live], live, length)
     ops, emits = A._partial_program([("sum", 0, "float64")],
                                     [(torch.from_numpy(d).to(dev), live)])
     fold = 0.0
@@ -2152,7 +2262,7 @@ def seg_one_segment(dev, rng, keys, kvalids, specs, args):
     one = [torch.full_like(k, 5) for k in keys]
     ones = [torch.ones_like(v) for v in kvalids]
     exists = torch.ones(cap, dtype=torch.bool, device=dev)
-    order, starts, count = K.segment_ids(one, ones, exists, n)
+    order, starts, count, _keys = K.segment_ids(one, ones, exists, n)
     if int(count) != 1:
         raise AssertionError(f"one segment expected, {int(count)} found")
     ops, emits = A._partial_program(specs, args)
@@ -3364,7 +3474,7 @@ def kernel_limbs(dev, rng, results):
         # K10: its reduction against the twin on the same sorted rows, then
         # the whole route on the card against the route on CPU copies
         exists = torch.arange(cap, device=dev) < n
-        order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+        order, starts, count, _keys = K.segment_ids(keys, kvalids, exists, n)
         ops, emits = A._partial_program(specs, args)
         check_equal("seg_agg_partial:limbs", label,
                     K.segment_reduce_cuda("seg_agg_partial", order, starts, count, n, ops,
@@ -3600,7 +3710,7 @@ def seg_cust_shapes(dev, rng):
                 for d, v in args_np]
         cap = n = keys[0].shape[0]
         exists = torch.ones(cap, dtype=torch.bool, device=dev)
-        order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+        order, starts, count, _keys = K.segment_ids(keys, kvalids, exists, n)
         g = int(count)
         ops, emits = A._partial_program(specs, args)
         k10 = lambda: K.segment_reduce_cuda("seg_agg_partial", order, starts,  # noqa: E731
@@ -3685,7 +3795,7 @@ def time_limbs(dev, rng, results, cases):
         library_device_ms=kernel_device_ms(lambda: chain(tabs, slot, planes), "")))
     # K10 over the same batch (its reduction: the permutation read too)
     exists = torch.ones(cap, dtype=torch.bool, device=dev)
-    order, starts, count = K.segment_ids(keys, kvalids, exists, n)
+    order, starts, count, _keys = K.segment_ids(keys, kvalids, exists, n)
     ops, emits = A._partial_program(specs, args)
     check_equal("seg_agg_partial:limbs", "q17 batch",
                 K.segment_reduce_cuda("seg_agg_partial", order, starts, count, n, ops, emits,
@@ -3751,7 +3861,7 @@ def time_limbs(dev, rng, results, cases):
     fk, fv, kinds, fstates = q17_merge_input(rng, dev, Q17_FINAL_ROWS)
     frows, fcap = Q17_FINAL_ROWS, fk[0].shape[0]
     fexists = torch.arange(fcap, device=dev) < frows
-    forder, fstarts, fcount = K.segment_ids(fk, fv, fexists, frows)
+    forder, fstarts, fcount, _keys = K.segment_ids(fk, fv, fexists, frows)
     fops, femits = A._merge_program(kinds, fstates)
     check_equal("seg_agg_merge:limbs", "q17 FINAL",
                 K.segment_reduce_cuda("seg_agg_merge", forder, fstarts, fcount, frows, fops,
@@ -3919,6 +4029,31 @@ def kernel_device_ms(fn, prefix, iters=ITERS):
     # no kernel time recorded (torch.profiler sometimes keeps none of a
     # session's kernels): not measured, rather than 0
     return total / 1e3 / iters if total > 0 else None
+
+
+def call_kernels(fn, calls=10):
+    """The device kernels and memsets of one call of ``fn``, by name with
+    their launches a call: torch.profiler over ``calls`` calls after a
+    warm-up, each name's count over the calls, rounded. The profiler can
+    lose records (on the card's machine often the window's first launch),
+    which the rounding absorbs; a window that recorded nothing is taken
+    again (five windows at most; {} when every one was empty)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {e.key: round(e.count / calls) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count > 0}
+        if counts:
+            return {k: c for k, c in counts.items() if c > 0}
+    return {}
 
 
 def kernel_k14(dev, rng, results):
@@ -5222,7 +5357,7 @@ def plain_kernels():
                  *K.compact_planes_plain(d, v, m)),
              (K, "sort_key_operands"): K.sort_key_operands_plain,
              (K, "lexsort_indices"): K.lexsort_indices_plain,
-             (K, "segment_starts_cuda"): K.segment_starts_plain,
+             (K, "segment_keys_cuda"): K.segment_keys_plain,
              (K, "segment_reduce"): lambda name, *a, kinds=(): K.segment_reduce_plain(*a),
              (K, "gather_planes"): K.gather_planes_plain,
              (K, "probe_codes"): K.probe_codes_plain,
@@ -7817,6 +7952,11 @@ def profile_query(name, session, plan, want, trace_path=None, collect=pydict_of)
     k8_k1 = {e.key[:60]: {"calls": e.count, "device_ms": e.self_device_time_total / 1e3}
              for e in device if e.key.startswith(("blz_inner_join", "blz_join_", "blz_flag_count",
                                                   "blz_compact_", "blz_offsets_scan"))}
+    # K6's kernel and the segmentation's (one launch; an older tree's flag
+    # and start kernels are matched too, for an A/B against it)
+    k6_k10s = {e.key[:60]: {"calls": e.count, "device_ms": e.self_device_time_total / 1e3}
+               for e in device if any(k in e.key for k in (
+                   "blz_gather_kernel", "blz_segment_keys", "blz_seg_flags", "blz_seg_starts"))}
     if trace_path:
         os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
         prof.export_chrome_trace(trace_path)
@@ -7827,7 +7967,7 @@ def profile_query(name, session, plan, want, trace_path=None, collect=pydict_of)
                     "k11_device": {"calls": sum(e.count for e in k11),
                                    "device_ms": sum(e.self_device_time_total
                                                     for e in k11) / 1e3},
-                    "k8_k1_device": k8_k1,
+                    "k8_k1_device": k8_k1, "k6_k10_segmentation_device": k6_k10s,
                     "top_device": [{"name": e.key[:80], "calls": e.count,
                                     "device_ms": e.self_device_time_total / 1e3}
                                    for e in top]}))
@@ -7906,6 +8046,12 @@ def main(device: str = "cuda") -> int:
     kernel_k17(dev, rng, results)
     kernel_k18(dev, rng, results)
     kernel_k19(dev, rng, results)
+    # the segmentation is one kernel a call and no memset
+    seg = next(r for r in results if r["name"] == "segment_ids")
+    ours = {k: c for k, c in seg["call_kernels"].items() if any(p in k for p in OURS)}
+    if sum(ours.values()) != 1 or any(k.startswith("Memset") for k in ours):
+        raise AssertionError(f"a segment_ids call ran {seg['call_kernels']}, not one "
+                             "kernel and no memset")
     # 4. the paths: q01 (and on the mesh: q01_mesh1, q01_mesh2, q01_mesh8),
     # q67 (slot, sort and table routes), q06 and q47, q69 and q69_bloom, q96
     # (and q96_mesh), q89, q17 (slot, sort and table routes), q98, sort10M
@@ -8062,7 +8208,8 @@ def main(device: str = "cuda") -> int:
                                              "bounds_199", "one_key", "device_ms",
                                              "path_batches", "eight_single_ms", "phases_us",
                                              "library_device_ms",
-                                             "host_ms", "k11_device_ms", "shapes")
+                                             "host_ms", "k11_device_ms", "shapes",
+                                             "call_kernels")
                            if k in r}}))
         kernels.append({k: r[k] for k in keys})
     log(json.dumps({"phase": "limb_ops", "paths": {

@@ -371,14 +371,43 @@ def test_segment_twins_on_their_own():
     kd = _t(np.array([3, 1, 3, 2, 1, 0, 0, 0], np.int64))
     kv = _t(np.array([1, 1, 1, 1, 1, 0, 0, 0], bool))
     exists = _t(np.arange(8) < 5)
-    order, starts, count = K.segment_ids([kd], [kv], exists, 5, direct=False)
+    order, starts, count, ((gd,), (gv,)) = K.segment_ids([kd], [kv], exists, 5, direct=False)
     assert order[:5].tolist() == [1, 4, 3, 0, 2] and int(count) == 3
     assert starts.tolist() == [0, 2, 3, 5, 5, 5, 5, 5, 5]
+    assert gd.tolist() == [1, 2, 3, 0, 0, 0, 0, 0]
+    assert gv.tolist() == [True] * 3 + [False] * 5
     ops = [K.AggOp(K.OP_COUNT, None, [kv])]
     emits = [K.AggEmit(K.EMIT_RAW, 0, torch.int64)]
     outs, first = K.segment_reduce("seg_agg_partial", order, starts, count, 5, ops, emits)
     assert outs[0].tolist() == [2, 1, 2, 0, 0, 0, 0, 0]
     assert first.tolist() == [1, 3, 0, 0, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("keys,cap,n,nulls,key_range,direct", [
+    (["i64"], 256, 200, 0.2, (0, 255), True),            # the direct mode: keys in [0, cap-1)
+    (["i32"], 1024, 1000, 0.1, (0, 20), True),           # direct, an int32 key
+    (["i64"], 256, 200, 0.2, (-40, 40), True),           # negative keys: sorted
+    (["i64"], 256, 200, 0.2, (-40, 40), False),
+    (["f64"], 256, 240, 0.1, (0, 1), True),              # NaN, +-0.0, +-inf keys
+    (["f32"], 256, 200, 0.3, (0, 1), False),
+    (["i64", "f64", "i32"], 1024, 900, 0.1, (-3, 3), False),
+    (["i64"], 256, 200, 1.0, (0, 10), True),             # every key null
+])
+def test_segment_keys_match_jax_sort_route(keys, cap, n, nulls, key_range, direct):
+    """The segmentation with its group keys (``segment_ids``' plain twin:
+    the starts, then each segment's keys from its first row) against the
+    group count and key planes of the reference's sort route,
+    ``_partial_kernel``, on the same inputs: equal, exactly."""
+    exists, kcols, specs, args = _partial_case(keys, cap, n, "ints", nulls,
+                                               cap + n + 3 * len(keys), key_range)
+    jouts = _jax_partial(exists, kcols, specs, args)
+    kd = [_t(d) for d, _ in kcols]
+    kv = [_t(v & exists) for _, v in kcols]
+    _order, _starts, count, (gd, gv) = K.segment_ids(kd, kv, _t(exists), n, direct)
+    assert int(count) == int(jouts[0])
+    for i in range(len(keys)):
+        _same(jouts[2 + 2 * i], gd[i])
+        _same(jouts[3 + 2 * i], gv[i])
 
 
 def test_slot_kernels_refuse_float_states():

@@ -188,13 +188,19 @@ def test_bucketize_sort_is_one_operand_pass():
 # -- K6: gather ------------------------------------------------------------------
 
 
-def _mixed_planes(rng, caps, n_live):
+_MIX4 = (np.int64, np.int32, np.bool_, np.float64)
+_ALL_SIZES = (np.int8, np.int16, np.int32, np.float32, np.int64, np.float64, np.bool_)
+
+
+def _mixed_planes(rng, caps, n_live, dtypes=_MIX4):
     datas, valids = [], []
-    for cap, dt in zip(caps, (np.int64, np.int32, np.bool_, np.float64)):
+    for i, dt in enumerate(dtypes):
+        cap = caps[i % len(caps)]
         d = np.zeros(cap, dt)
         v = np.zeros(cap, bool)
         m = min(n_live, cap)
-        d[:m] = rng.integers(-1000, 1000, m) if dt != np.bool_ else rng.random(m) < 0.5
+        lim = 100 if dt == np.int8 else 1000
+        d[:m] = rng.integers(-lim, lim, m) if dt != np.bool_ else rng.random(m) < 0.5
         v[:m] = rng.random(m) >= 0.2
         d[~v] = 0
         datas.append(d)
@@ -202,14 +208,35 @@ def _mixed_planes(rng, caps, n_live):
     return datas, valids
 
 
-@pytest.mark.parametrize("out_cap,n_out,masked", [
-    (256, 200, False), (4096, 4096, False), (256, 0, False),
-    (1024, 700, True), (256, 256, True),
+@pytest.mark.parametrize("rows", [1, 256, 333, 4096])
+def test_k6_output_planes_are_aligned_views_a_dtype(rows):
+    """K6's output planes (``_alloc_planes``): each plane its dtype and
+    ``rows`` long, contiguous, at the address given for it, 16-byte
+    aligned, the planes of one dtype views of one allocation."""
+    dtypes = [torch.int64, torch.bool, torch.int32, torch.bool, torch.int8, torch.float64,
+              torch.int16, torch.bool]
+    outs, ptrs = K._alloc_planes(dtypes, rows, torch.device("cpu"))
+    for p, dt, at in zip(outs, dtypes, ptrs):
+        assert p.dtype == dt and p.shape == (rows,) and p.is_contiguous()
+        assert p.data_ptr() == at and at % 16 == 0
+    bools = [p for p, dt in zip(outs, dtypes) if dt == torch.bool]
+    assert len({p.untyped_storage().data_ptr() for p in bools}) == 1
+    spans = sorted((p.data_ptr(), p.data_ptr() + p.nbytes) for p in outs)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("out_cap,n_out,masked,dtypes", [
+    pytest.param(256, 200, False, _MIX4, id="256-200-False"),
+    pytest.param(4096, 4096, False, _MIX4, id="4096-4096-False"),
+    pytest.param(256, 0, False, _MIX4, id="256-0-False"),
+    pytest.param(1024, 700, True, _MIX4, id="1024-700-True"),
+    pytest.param(256, 256, True, _MIX4, id="256-256-True"),
+    pytest.param(8192, 2999, True, _ALL_SIZES, id="8192-2999-True-every-element-size"),
 ])
-def test_gather_matches_jax(out_cap, n_out, masked):
+def test_gather_matches_jax(out_cap, n_out, masked, dtypes):
     rng = np.random.default_rng(out_cap + n_out)
     # planes of one batch at different capacities: indices clip per plane
-    datas, valids = _mixed_planes(rng, (4096, 4096, 1024, 4096), 3000)
+    datas, valids = _mixed_planes(rng, (4096, 4096, 1024, 4096), 3000, dtypes)
     idx = rng.integers(0, 3000, n_out)
     buf = np.zeros(out_cap, np.int64)
     buf[:n_out] = idx
