@@ -386,35 +386,93 @@ def compact_planes_plain(datas: Sequence[torch.Tensor],
     return count, out_d, out_v
 
 
+# csrc/compact.cu blz_compact_planes' argument words: n, mask, scratch, its
+# tiles, tag, count, stream, planes, the ends of the 8-, 4-, 2- and 1-byte
+# planes, the table in device memory (_CW_TABLE; 0: by value), three
+# unused, then (src, dst) a plane in that order of sizes
+_CW_TABLE = 12
+# csrc/compact.cu: rows a tile, planes by value
+_COMPACT_TILE, _COMPACT_MAX_PLANES = 1024, 128
+_COMPACT_TAGS = (1 << 30) - 1
+# per device: [the scratch (the tickets' counter, then a look-back word a
+# tile; zeroed once, grown with the rows), the last launch's tag]
+_COMPACT_STATE = {}
+_COMPACT_LOCK = threading.Lock()
+
+
+def _compact_state(index: int, tiles: int) -> Tuple[torch.Tensor, int]:
+    """K1's scratch on device ``index`` and the next launch's tag: the
+    kernel resets its counter and tags its words, so the scratch is never
+    zeroed again. The launches of one device go in stream order."""
+    with _COMPACT_LOCK:
+        state = _COMPACT_STATE.get(index)
+        if state is None or state[0].shape[0] < 1 + tiles:
+            state = _COMPACT_STATE[index] = [
+                torch.zeros(1 + tiles, dtype=torch.int64, device=torch.device("cuda", index)),
+                0 if state is None else state[1]]
+        state[1] = state[1] % _COMPACT_TAGS + 1
+        return state[0], state[1]
+
+
 def compact_planes_cuda(datas: Sequence[torch.Tensor],
                         valids: Sequence[torch.Tensor], mask: torch.Tensor):
     """K1 on the card (csrc/compact.cu): same contract as
-    :func:`compact_planes_plain`."""
-    planes = list(datas) + list(valids)
-    cuda_lib.require_cuda("compact_planes", mask, *planes)
-    n = int(mask.shape[0])
-    if mask.dtype != torch.bool:
-        raise TypeError(f"compact_planes: mask dtype {mask.dtype}, expected bool")
-    for p in planes:
-        if p.shape != (n,):
-            raise ValueError(f"compact_planes: plane shape {tuple(p.shape)}, "
-                             f"expected ({n},)")
-        if p.element_size() not in (1, 2, 4, 8):
-            raise TypeError(f"compact_planes: element size {p.element_size()}")
-    lib = cuda_lib.library()
-    outs = [torch.empty_like(p) for p in planes]
-    scratch = torch.empty(cuda_lib.blocks(n) + 1, dtype=torch.int64,
-                          device=mask.device)
-    srcs, _k1 = cuda_lib.ptr_array(planes)
-    dsts, _k2 = cuda_lib.ptr_array(outs)
-    sizes, _k3 = cuda_lib.int_array([p.element_size() for p in planes])
-    err = lib.blz_compact_planes(mask.data_ptr(), n, len(planes), srcs, dsts,
-                                 sizes, scratch.data_ptr(),
-                                 cuda_lib.stream_of(mask.device))
+    :func:`compact_planes_plain`, one launch a call. The outputs of one
+    dtype are 16-byte aligned rows of one allocation (as ``_alloc_planes``
+    lays them out), made in the same pass that groups the planes by
+    element size for the kernel; the argument words go in a reused buffer
+    (past 128 planes the plane table goes in device memory)."""
+    planes = [*datas, *valids]
+    cuda_lib.require_cuda("compact_planes", mask)
+    n = mask.shape[0]
+    if mask.dtype != torch.bool or mask.dim() != 1:
+        raise TypeError(f"compact_planes: mask {mask.dtype}{tuple(mask.shape)}, expected "
+                        "a bool plane")
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"compact_planes: {n} rows (1 to 2^31 - 1)")
+    dev, index = mask.device, mask.get_device()
+    groups = {}
+    for i, p in enumerate(planes):
+        if p.shape != (n,) or not p.is_cuda or p.get_device() != index or \
+                not p.is_contiguous():
+            cuda_lib.require_cuda("compact_planes", mask, p)
+            raise ValueError(f"compact_planes: plane shape {tuple(p.shape)}, expected ({n},)")
+        groups.setdefault(p.dtype, []).append(i)
+    outs = [None] * len(planes)
+    by_size = {8: [], 4: [], 2: [], 1: []}
+    for dt, ix in groups.items():
+        size = dt.itemsize
+        pairs = by_size.get(size)
+        if pairs is None:
+            raise TypeError(f"compact_planes: element size {size}")
+        stride = (n * size + 15) // 16 * 16 // size
+        block = torch.empty((len(ix), stride), dtype=dt, device=dev)
+        if stride != n:
+            block = block[:, :n]
+        base, step = block.data_ptr(), stride * size
+        for j, (i, out) in enumerate(zip(ix, block.unbind(0))):
+            outs[i] = out
+            pairs += (planes[i].data_ptr(), base + j * step)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    scratch, tag = _compact_state(index, -(-n // _COMPACT_TILE))
+    e8 = len(by_size[8]) >> 1
+    e4 = e8 + (len(by_size[4]) >> 1)
+    e2 = e4 + (len(by_size[2]) >> 1)
+    pairs = by_size[8] + by_size[4] + by_size[2] + by_size[1]
+    words = [n, mask.data_ptr(), scratch.data_ptr(), scratch.shape[0] - 1, tag,
+             count.data_ptr(), cuda_lib.stream_handle(index), len(planes), e8, e4, e2,
+             len(planes), 0, 0, 0, 0]
+    table = None
+    if len(planes) > _COMPACT_MAX_PLANES:
+        table = torch.tensor(pairs, dtype=torch.int64).to(dev)
+        words[_CW_TABLE] = table.data_ptr()
+    else:
+        words += pairs
+    err = cuda_lib.library().blz_compact_planes(_words(words))
     cuda_lib.check(err, "compact_planes")
     cuda_lib.LAUNCHES["compact_planes"] += 1
     k = len(datas)
-    return scratch[-1], outs[:k], outs[k:]
+    return count, outs[:k], outs[k:]
 
 
 def compact_planes(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
@@ -562,7 +620,8 @@ def fused_agg_input_plain(spec, columns, num_rows: int, joins):
     ``spec`` (exprs/fused_triton.py FusedAggSpec) over one batch's
     ``columns``. ``joins``: per fused join, inner-first, (the build's
     sorted unique words, length max(nk, 1); nk; its build columns, code c
-    at row c). Each join probes with ops/joins/keymap.py sorted_probe (the
+    at row c; and for K18 its ops/joins/keymap.JoinRank, which the twin
+    does not read). Each join probes with ops/joins/keymap.py sorted_probe (the
     key valid on a row below num_rows), gathers every build column at the
     clipped rank, valid on a hit, and narrows the live mask (the rows below
     num_rows) by the hit; the steps run as K11's plain version runs them,
@@ -580,7 +639,7 @@ def fused_agg_input_plain(spec, columns, num_rows: int, joins):
     inrow = iota(cap, dev) < num_rows
     live = inrow
     cols = list(columns)
-    for js, (uniq, nk, bcols) in zip(spec.joins, joins):
+    for js, (uniq, nk, bcols, *_rank) in zip(spec.joins, joins):
         batch = LiveBatch(js.probe_schema, cols, live)
         kd, kv = broadcast(ExprEvaluator([js.key_expr], js.probe_schema)
                            .eval(js.key_expr, batch), batch)

@@ -2,10 +2,10 @@
 // export macro, launch geometry, the column table of the row hashes
 // (murmur3.cu, xxhash64.cu), the murmur3 rounds (murmur3.cu, bloom.cu),
 // the key kinds and integer load of the key passes (sort.cu,
-// range_part.cu), the block-level stable rank that the
-// compaction kernels (compact.cu, slot_agg.cu) are built on, the
-// decoupled look-back of the single-pass kernels (sort.cu, join.cu,
-// seg_agg.cu), a block's zeroing of a plane's rows, the warp
+// range_part.cu), the block-level stable rank of slot_agg.cu's
+// compaction of the present slots, the decoupled look-back
+// of the single-pass kernels (sort.cu, join.cu, seg_agg.cu, compact.cu),
+// a block's zeroing of a plane's rows, the warp
 // aggregation of the slot kernels' atomics (slot_agg.cu, slot_update.cu),
 // and the emit arithmetic of the aggregate kernels (slot_agg.cu,
 // seg_agg.cu, passthrough.cu).
@@ -217,7 +217,7 @@ __device__ __forceinline__ unsigned int blz_look_back(unsigned long long* status
   return excl;
 }
 
-// The block-wide form (join.cu, seg_agg.cu), for grids whose tiles run at once rather
+// The block-wide form (join.cu, seg_agg.cu, compact.cu), for grids whose tiles run at once rather
 // than in turn: each round every thread of the block reads one earlier
 // tile's word (THREADS tiles a round), waits until that tile has
 // published its count (a tile publishes it before it looks back, so the
@@ -269,8 +269,8 @@ __device__ __forceinline__ unsigned int blz_block_look_back(unsigned long long* 
   return excl;
 }
 
-// Zero bytes [from, to) of a plane by the block (join.cu's and
-// seg_agg.cu's padding, gather.cu's padding blocks): 16-byte stores over
+// Zero bytes [from, to) of a plane by the block (join.cu's, seg_agg.cu's
+// and compact.cu's padding, gather.cu's padding blocks): 16-byte stores over
 // the aligned middle, single bytes at the two ends.
 __device__ __forceinline__ void blz_zero_bytes(uint8_t* base, int64_t from, int64_t to) {
   int64_t a = (from + 15) & ~(int64_t)15;
@@ -283,19 +283,6 @@ __device__ __forceinline__ void blz_zero_bytes(uint8_t* base, int64_t from, int6
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (int64_t i = threadIdx.x; i < (b - a) >> 4; i += blockDim.x) v[i] = zero;
 }
-
-// In-place exclusive scan of per-block counts (compact.cu), by one block:
-// block_offsets[b] becomes the sum of the counts before block b and
-// block_offsets[nblocks] the total. block_offsets holds nblocks + 1 values.
-cudaError_t blz_scan_block_counts(int64_t* block_offsets, int64_t nblocks,
-                                  cudaStream_t stream);
-
-// Stable compaction offsets over a byte flag array (compact.cu):
-// block_offsets[b] = number of set flags before block b (blocks of
-// BLZ_THREADS), block_offsets[nblocks] = total. block_offsets holds
-// blz_blocks(n) + 1 int64 values.
-cudaError_t blz_flag_offsets(const uint8_t* flags, int64_t n,
-                             int64_t* block_offsets, cudaStream_t stream);
 
 // The aggregate kernels' emit kinds (core/kernels.py EMIT_*).
 enum { BLZ_EMIT_RAW = 0, BLZ_EMIT_NONZERO = 1, BLZ_EMIT_WHERE = 2, BLZ_EMIT_LO32 = 3,

@@ -76,6 +76,71 @@
 // move S * 8 bytes a table.
 #include "common.cuh"
 
+// -- the flag offsets of the present slots' compaction ------------------------------
+//
+// blz_flag_offsets: block_offsets[b] = the set flags before block b (blocks
+// of BLZ_THREADS), block_offsets[nblocks] = the total; block_offsets holds
+// blz_blocks(n) + 1 int64 values.
+
+__global__ void blz_flag_count_kernel(const uint8_t* flags, int64_t n,
+                                      int64_t* block_counts) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = __syncthreads_count(i < n && flags[i] != 0);
+  if (threadIdx.x == 0) block_counts[blockIdx.x] = c;
+}
+
+// In-place exclusive scan of offs[0, nblocks) by one block, total to
+// offs[nblocks].
+__global__ void blz_offsets_scan_kernel(int64_t* offs, int64_t nblocks) {
+  __shared__ long long warp_sums[BLZ_WARPS];
+  __shared__ long long carry;
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (int64_t base = 0; base < nblocks; base += blockDim.x) {
+    const int64_t i = base + threadIdx.x;
+    const long long v = i < nblocks ? (long long)offs[i] : 0;
+    long long incl = v;
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long t = __shfl_up_sync(0xffffffffu, incl, off);
+      if ((int)lane >= off) incl += t;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      long long w = warp_sums[lane];
+      for (int off = 1; off < 32; off <<= 1) {
+        const long long t = __shfl_up_sync(0xffffffffu, w, off);
+        if ((int)lane >= off) w += t;
+      }
+      warp_sums[lane] = w;
+    }
+    __syncthreads();
+    incl += warp ? warp_sums[warp - 1] : 0;
+    if (i < nblocks) offs[i] = (int64_t)(carry + incl - v);
+    __syncthreads();
+    if (threadIdx.x == blockDim.x - 1) carry += incl;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) offs[nblocks] = (int64_t)carry;
+}
+
+static cudaError_t blz_scan_block_counts(int64_t* block_offsets, int64_t nblocks,
+                                         cudaStream_t stream) {
+  blz_offsets_scan_kernel<<<1, BLZ_THREADS, 0, stream>>>(block_offsets,
+                                                         nblocks);
+  return cudaGetLastError();
+}
+
+static cudaError_t blz_flag_offsets(const uint8_t* flags, int64_t n,
+                                    int64_t* block_offsets, cudaStream_t stream) {
+  const unsigned int nb = blz_blocks(n);
+  blz_flag_count_kernel<<<nb, BLZ_THREADS, 0, stream>>>(flags, n,
+                                                         block_offsets);
+  return blz_scan_block_counts(block_offsets, nb, stream);
+}
+
 
 #define BLZ_MAX_SLOT_KEYS 8
 #define BLZ_MAX_OPS 24

@@ -98,17 +98,20 @@ import os
 import re
 import sys
 import threading
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from blaze_tpu_torch.core.kernels import _alloc_planes
 from blaze_tpu_torch.exprs.cast import US_PER_DAY, US_PER_SECOND
 from blaze_tpu_torch.exprs.cast import is_int as _is_int
 from blaze_tpu_torch.exprs.compiler import ExprError, fused_chain_schemas, make_literal, \
     not_ported
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
+from blaze_tpu_torch.ops.joins.keymap import RANK_DENSE, RANK_SEARCH, JoinRank
 from blaze_tpu_torch.utils import cuda_lib
 
 BLOCK = 1024
@@ -925,7 +928,7 @@ class FusedKernel:
         self._fn = None
         self._stacked_source: Optional[str] = None
         self._stacked_fn = None
-        self._consts: Dict[str, torch.Tensor] = {}
+        self._consts: Dict[tuple, torch.Tensor] = {}
         self._state: Dict[str, torch.Tensor] = {}
         self._tag = 0
         self._plane_dtypes: Optional[List[Optional[torch.dtype]]] = None
@@ -1002,7 +1005,7 @@ class FusedKernel:
             return state, self._tag
 
     def constants_on(self, device: torch.device) -> torch.Tensor:
-        key = str(device)
+        key = (device.type, device.index)
         t = self._consts.get(key)
         if t is None:
             t = torch.tensor(self.gen.constants(), dtype=torch.int64, device=device)
@@ -1183,31 +1186,64 @@ def fused_chain_stacked_cuda(kernel: FusedKernel, batch_datas, batch_valids,
 # program; here it is one generated kernel a batch, K18, whose planes feed
 # K3 and K10 (ops/agg_device.py) over its live mask.
 #
-# One program takes 1,024 rows. For each fused join, inner-first, it
+# One program takes 512 rows. For each fused join, inner-first, it
 # evaluates the probe key, takes its canonical word (ops/joins/keymap.py
 # canon_words: -0.0 -> 0.0, every NaN the quiet NaN, f32 as its int32 bits
-# sign-extended), binary-searches the build's sorted unique words (a fixed
-# trip count, S = bit_length(max(nk, 1)), a tl.constexpr; index math in
-# int64) as searchsorted-left, clips the rank into [0, nk - 1] and hits
-# where the key is valid on a row below num_rows, the rank is below nk and
-# the word is found (nk = 0: the one-word placeholder, no hit). It gathers
-# the build planes a later expression reads, valid only on a hit, and
-# narrows the live mask by the hit. Then the steps (filters narrow the
-# mask), the predicates, the keys and the arguments, with ``_Gen``'s
-# expression code; it stores each key and argument plane (a plane that is
-# an input data plane passes through unstored), each validity ANDed with the
-# live mask, and the mask. A wide-decimal argument (a bare column) stores
-# only its validity: K3/K10 read its limb planes from the batch.
+# sign-extended) and its rank: clip(searchsorted-left, 0, nk - 1) in the
+# build's sorted unique words, on the route the build map decided once
+# (ops/joins/keymap.py rank_route, JoinRank):
+#   - dense (the words one run lo..hi): w - lo behind a range check, with
+#     no load;
+#   - bitmap (a range of at most 256 words a key): the word's 64-word
+#     block's mask and the keys before the block, interleaved in one
+#     table and read by one 16-byte load, the rank the count plus the
+#     popcount of the mask's bits below the word;
+#   - search (float words spread over their bit patterns, wide ranges,
+#     nk = 0): a binary search with a fixed trip count, S = bit_length(
+#     max(nk, 1)), a tl.constexpr.
+# The range check comes before the subtraction, so a word range past 2^63
+# does not wrap. A row hits where the key is valid on a row below
+# num_rows and its word is a key (nk = 0: the one-word placeholder, no
+# hit). It gathers the build planes a later expression reads, valid only on
+# a hit, and narrows the live mask by the hit. Then the steps (filters
+# narrow the mask), the predicates, the keys and the arguments, with
+# ``_Gen``'s expression code; it stores each key and argument plane (a
+# plane that is an input data plane passes through unstored), each
+# validity ANDed with the live mask, and the mask. A wide-decimal argument
+# (a bare column) stores only its validity: K3/K10 read its limb planes
+# from the batch.
 #
-# Bound: device memory. The search reads ~S words of a build table that
-# stays in L2 (102,000 keys: 816 KB); everything else is one pass over the
-# planes the expressions read. No reuse for shared memory or tensor
-# cores, and a kernel generated per expression tree at run time: Triton,
-# as K11.
+# The source is generated for the joins' routes (``FusedAggKernel
+# .source_for``), each route's code alone: a tl.constexpr a join in
+# effect. (Measured on an H100 against one source with every route behind
+# a branch on a runtime argument: device time within 3% at the timed
+# batches, a compile of 0.27-0.50 s a tuple of routes against 2.2-2.4 s;
+# PERF.md.)
+#
+# Bound: device memory. A bitmap table stays in L1/L2 (q89's items: 25
+# KB), a search reads ~S words of a build table that stays in L2 (102,000
+# keys: 816 KB); everything else is one pass over the planes the
+# expressions read and a gather a build plane. No reuse for shared memory
+# or tensor cores, and a kernel generated per expression tree at run time:
+# Triton, as K11.
 
+# K18's program: 512 rows, 4 warps (on an H100, against 1,024 rows with 4
+# or 8 warps and 256 with 2, the fastest or level at q17's, q89's and q01's
+# batches)
+AGG_BLOCK = 512
+AGG_NUM_WARPS = 4
 # the quiet NaNs every float key folds to (torch's NaN on either device)
 _QNAN64 = 0x7FF8000000000000
 _QNAN32 = 0x7FC00000
+
+_POPC = '''
+@triton.jit
+def _popc64(x):
+    # the set bits of each int64 word
+    return tl.inline_asm_elementwise("popc.b64 $0, $1;", "=r,l", [x], dtype=tl.int32,
+                                     is_pure=True, pack=1)
+
+'''
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1279,6 +1315,7 @@ class _AggGen(_Gen):
 
     def __init__(self, spec: FusedAggSpec):
         self.spec = spec
+        self.rank_words: List[str] = []  # per join, its canonical word's variable
         super().__init__(spec.input_schema, spec.steps)
 
     def _generate(self):
@@ -1290,21 +1327,14 @@ class _AggGen(_Gen):
         for j, js in enumerate(spec.joins):
             key = self.eval(js.key_expr, js.probe_schema, cols)
             w = self._canon_word(key)
+            self.rank_words.append(w)
             kvalid = self.let(f"{key.valid} & exists")
-            lo, hi = f"lo{j}", f"hi{j}"
-            self.body += [
-                f"    {lo} = zi64",
-                f"    {hi} = zi64 + ulen{j}",
-                f"    for _s in tl.static_range(S{j}):",
-                f"        act = {lo} < {hi}",
-                f"        mid = ({lo} + {hi}) >> 1",
-                f"        um = tl.load(u{j}_ptr + mid, mask=act & inb, other=0)",
-                f"        rt = act & (um < {w})",
-                f"        {lo} = tl.where(rt, mid + 1, {lo})",
-                f"        {hi} = tl.where(act & (rt == 0), mid, {hi})"]
-            cidx = self.let(f"tl.minimum({lo}, zi64 + nkm{j})")
-            uc = self.let(f"tl.load(u{j}_ptr + {cidx}, mask=inb, other=0)")
-            hit = self.let(f"{kvalid} & ({lo} < nk{j}) & ({uc} == {w})")
+            # ``source`` puts the join's route here: ci{j}, its clipped
+            # rank, and hf{j}, whether its word (named on the line, for the
+            # loads' analysis below) is a key
+            self.body.append(f"    #rank{j} {w}")
+            cidx = f"ci{j}"
+            hit = self.let(f"{kvalid} & hf{j}")
             bcols = []
             for c, f in enumerate(js.build_schema.fields):
                 d, v = f"g{j}_{c}", f"gv{j}_{c}"
@@ -1381,17 +1411,54 @@ class _AggGen(_Gen):
                             f"{self.word(_QNAN32)}, {bits}))")
         return self.cast(v.data, v.tdt, torch.int64)
 
-    def source(self, fingerprint: str) -> str:
+    def _rank_lines(self, j: int, route: str) -> List[str]:
+        """Join j's rank on ``route``: ci{j} = clip(searchsorted-left, 0,
+        nk - 1) of its word and hf{j}, whether the word is a key, in
+        ops/joins/keymap.py rank_probe_plain's arithmetic. The dense route
+        loads nothing; the bitmap route reads its block's (mask, count)
+        pair in one 16-byte load; the search takes S{j} dependent loads.
+        The range check comes before the subtraction (no int64 wrap)."""
+        w = self.rank_words[j]
+        if route == RANK_SEARCH:
+            return [f"sl{j} = zi64",
+                    f"sh{j} = zi64 + ulen{j}",
+                    f"for _s in tl.static_range(S{j}):",
+                    f"    act{j} = sl{j} < sh{j}",
+                    f"    mid{j} = (sl{j} + sh{j}) >> 1",
+                    f"    um{j} = tl.load(u{j}_ptr + mid{j}, mask=act{j} & inb, other=0)",
+                    f"    rt{j} = act{j} & (um{j} < {w})",
+                    f"    sl{j} = tl.where(rt{j}, mid{j} + 1, sl{j})",
+                    f"    sh{j} = tl.where(act{j} & (rt{j} == 0), mid{j}, sh{j})",
+                    f"ci{j} = tl.minimum(sl{j}, zi64 + nkm{j})",
+                    f"hf{j} = (sl{j} < nk{j}) & "
+                    f"(tl.load(u{j}_ptr + ci{j}, mask=inb, other=0) == {w})"]
+        lines = [f"ir{j} = ({w} >= lo{j}) & ({w} <= hi{j})",
+                 f"d{j} = tl.where(ir{j}, {w}, zi64 + lo{j}) - lo{j}",
+                 f"ou{j} = tl.where({w} > hi{j}, zi64 + nkm{j}, zi64)"]
+        if route == RANK_DENSE:
+            return lines + [f"ci{j} = tl.where(ir{j}, d{j}, ou{j})", f"hf{j} = ir{j}"]
+        return lines + [
+            f"bt{j} = d{j} & 63",
+            f"mw{j}, mp{j} = tl.split(tl.load(m{j}_ptr + ((d{j} >> 6) * 2)[:, None] "
+            "+ tl.arange(0, 2)[None, :]))",
+            f"ci{j} = tl.where(ir{j}, mp{j} + _popc64(mw{j} & ~((zi64 - 1) << bt{j})), ou{j})",
+            f"hf{j} = ir{j} & (((mw{j} >> bt{j}) & 1) != 0)"]
+
+    def source(self, fingerprint: str, routes) -> str:
+        """K18's source with each join's route (``routes``, per join
+        inner-first)."""
         nj = len(self.spec.joins)
         params = [f"x{i}_ptr" for i in self.used_d] + [f"xv{i}_ptr" for i in self.used_v]
         for j in range(nj):
-            params += [f"u{j}_ptr"] + [f"b{j}_{c}_ptr" for c in self.join_used_d[j]] + \
+            params += [f"u{j}_ptr", f"m{j}_ptr"] + [f"b{j}_{c}_ptr" for c in self.join_used_d[j]] + \
                 [f"bv{j}_{c}_ptr" for c in self.join_used_v[j]]
         params += [f"o{k}" for k in range(len(self.stores))] + ["consts", "num_rows", "cap"]
-        ints = [f"{p}{j}" for j in range(nj) for p in ("ulen", "nkm", "nk")]
+        ints = [f"{p}{j}" for j in range(nj) for p in ("lo", "hi", "nk", "nkm", "ulen")]
         params += ints + [f"S{j}: tl.constexpr" for j in range(nj)] + ["BLOCK: tl.constexpr"]
-        spec = ", ".join(f'"{p}"' for p in ["num_rows", "cap"] + ints)
-        lines = [_PRELUDE.format(what="K18 for one fused aggregate", fp=fingerprint),
+        # the capacity is specialised: its divisibility by 16 lets the
+        # planes' masked loads and stores go as vectors
+        spec = ", ".join(f'"{p}"' for p in ["num_rows"] + ints)
+        lines = [_PRELUDE.format(what="K18 for one fused aggregate", fp=fingerprint) + _POPC,
                  f"@triton.jit(do_not_specialize=[{spec}])",
                  f"def fused_agg_input({', '.join(params)}):",
                  "    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)",
@@ -1404,7 +1471,13 @@ class _AggGen(_Gen):
         lines += [f"    x{i} = tl.load(x{i}_ptr + offs, mask=inb, other=0)" for i in self.used_d]
         lines += [f"    xv{i} = tl.load(xv{i}_ptr + offs, mask=inb, other=0)"
                   for i in self.used_v]
-        lines += self.body
+        for ln in self.body:
+            m = re.fullmatch(r"    #rank(\d+) \w+", ln)
+            if m is None:
+                lines.append(ln)
+            else:
+                j = int(m.group(1))
+                lines += ["    " + r for r in self._rank_lines(j, routes[j])]
         lines += [f"    tl.store(o{k} + offs, {v}.to({_TL[tdt]}), mask=inb)"
                   for k, (v, tdt) in enumerate(self.stores)]
         return "\n".join(lines) + "\n"
@@ -1412,19 +1485,62 @@ class _AggGen(_Gen):
 
 class FusedAggKernel(FusedKernel):
     """K18 for one fused aggregate, made, written and compiled as a
-    segment's K11 is (``FusedKernel``), from its spec."""
+    segment's K11 is (``FusedKernel``), from its spec: one source and
+    compiled kernel a tuple of join routes (``source_for``,
+    ``compiled_for``); a segment's route-free ``source``, ``path`` and
+    ``compiled`` refuse. It keeps the launch plan of the last inputs it
+    checked."""
 
     ENTRY = "fused_agg_input"
 
     def __init__(self, spec: FusedAggSpec):
         super().__init__(spec.input_schema, spec.steps, spec.fingerprint())
         self.spec = spec
+        self._routed: Dict[tuple, object] = {}
+        self._store_dtypes: Optional[List[torch.dtype]] = None
+        self.checked = None  # (signature, weak references to the builds, launch plan)
 
     @property
     def gen(self) -> _AggGen:
         if self._gen is None:
             self._gen = _AggGen(self.spec)
         return self._gen
+
+    @property
+    def store_dtypes(self) -> List[torch.dtype]:
+        if self._store_dtypes is None:
+            self._store_dtypes = [tdt for _v, tdt in self.gen.stores]
+        return self._store_dtypes
+
+    def _no_routes(self):
+        raise TypeError(f"{self.fingerprint}: K18's source depends on its joins' routes "
+                        "(source_for, compiled_for)")
+
+    source = property(_no_routes)
+    path = property(_no_routes)
+    compiled = _no_routes
+
+    def source_for(self, routes) -> str:
+        """The source for the joins' ``routes`` (a rank route a join,
+        inner-first)."""
+        if len(routes) != len(self.spec.joins):
+            raise ValueError(f"{self.fingerprint}: {len(routes)} routes for "
+                             f"{len(self.spec.joins)} joins")
+        return self.gen.source(self.fingerprint, routes)
+
+    def compiled_for(self, routes: tuple):
+        """The ``@triton.jit`` kernel for ``routes``, written to
+        ``agg_<fingerprint>[_<routes' initials>].py``."""
+        fn = self._routed.get(routes)
+        if fn is not None:
+            return fn
+        with self._lock:
+            if routes not in self._routed:
+                name = self.fingerprint + ("_" + "".join(r[0] for r in routes) if routes else "")
+                self._routed[routes] = _import_kernel(
+                    os.path.join(kernel_dir(), f"{name}.py"), self.source_for(routes),
+                    f"blaze_tpu_torch_fused_{name}", self.ENTRY)
+            return self._routed[routes]
 
 
 # process-wide K18 cache: spec fingerprint -> FusedAggKernel
@@ -1442,7 +1558,30 @@ def fused_agg_kernel(spec: FusedAggSpec) -> FusedAggKernel:
         return k
 
 
-def _check_agg_inputs(spec: FusedAggSpec, columns, joins, cap: int) -> None:
+def _triton_launcher(fn, grid, args, **options):
+    """``fn`` compiled for its positional ``args`` (every parameter in the
+    kernel's order, constexprs included) and ``options`` without a launch
+    (``JITFunction.warmup``), as its compiled kernel's own runner over
+    ``grid``, called with the same positional arguments and ``stream=``.
+    Triton's per-call launcher binds and specialises every argument anew,
+    tens of microseconds a call with K18's 40-odd. Both calls are Triton
+    3's interface; another major version is refused."""
+    import triton
+
+    if triton.__version__.split(".")[0] != "3":
+        raise RuntimeError(f"fused_agg_input: launched through Triton 3's compiled-kernel "
+                           f"runner, not Triton {triton.__version__}'s")
+    return fn.warmup(*args, grid=grid, **options)[grid]
+
+
+def _agg_launch_plan(kernel: FusedAggKernel, columns, joins, cap: int, dev: torch.device,
+                     batch, outs, num_rows: int):
+    """K18's whole input check, then the launch's part that depends on the
+    builds and the signature alone: (weak references to the joins' tensor
+    arguments, the constant table, the arguments after the capacity (the
+    joins' integers, the search trip counts, the block) and the launcher of
+    the kernel for the joins' routes, compiled for this signature)."""
+    spec, gen = kernel.spec, kernel.gen
     name = "fused_agg_input"
     fields = spec.input_schema.fields
     if len(columns) != len(fields) or len(joins) != len(spec.joins):
@@ -1455,41 +1594,76 @@ def _check_agg_inputs(spec: FusedAggSpec, columns, joins, cap: int) -> None:
                 (not T.is_wide_decimal(f.dtype) and c.data.dtype != T.torch_dtype(f.dtype)):
             raise ValueError(f"{name}: column {f.name!r} does not match {f.dtype!r} "
                              f"at capacity {cap}")
-    for js, (uniq, nk, bcols) in zip(spec.joins, joins):
-        cuda_lib.require_cuda(name, uniq, *[p for c in bcols for p in (c.data, c.validity)])
-        if uniq.dtype != torch.int64 or uniq.shape != (max(nk, 1),) or nk < 0:
-            raise ValueError(f"{name}: sorted keys {uniq.dtype}{tuple(uniq.shape)} for {nk} keys")
+    tail, ints, steps, routes = [], [], [], []
+    for j, (js, join) in enumerate(zip(spec.joins, joins)):
+        if len(join) != 4 or not isinstance(join[3], JoinRank):
+            raise ValueError(f"{name}: join {j} needs (sorted words, nk, build columns, "
+                             "its JoinRank)")
+        uniq, nk, bcols, rank = join
+        table = rank.table(dev)
+        cuda_lib.require_cuda(name, columns[0].validity, uniq,
+                              *([table] if table is not None else []),
+                              *[p for c in bcols for p in (c.data, c.validity)])
+        if uniq.dtype != torch.int64 or uniq.shape != (max(nk, 1),) or nk < 0 or \
+                rank.nk != nk:
+            raise ValueError(f"{name}: sorted keys {uniq.dtype}{tuple(uniq.shape)} for {nk} "
+                             f"keys (its route ranks {rank.nk})")
         if len(bcols) != len(js.build_schema.fields):
             raise ValueError(f"{name}: {len(bcols)} build columns for "
                              f"{len(js.build_schema.fields)} fields")
         cap_b = bcols[0].capacity if bcols else 0
         if cap_b < max(nk, 1) or any(c.capacity != cap_b for c in bcols):
             raise ValueError(f"{name}: build columns of capacity {cap_b} for {nk} keys")
+        tail += [uniq, uniq if table is None else table] + \
+            [bcols[c].data for c in gen.join_used_d[j]] + \
+            [bcols[c].validity for c in gen.join_used_v[j]]
+        ints += rank.ints
+        routes.append(rank.route)
+        # the search's trip count (a kernel of another route reads none)
+        steps.append(max(nk, 1).bit_length() if rank.route == RANK_SEARCH else 0)
+    consts = kernel.constants_on(dev)
+    rest = ints + steps + [AGG_BLOCK]
+    grid = ((cap + AGG_BLOCK - 1) // AGG_BLOCK, 1, 1)
+    launcher = _triton_launcher(kernel.compiled_for(tuple(routes)), grid,
+                                [*batch, *tail, *outs, consts, num_rows, cap, *rest],
+                                num_warps=AGG_NUM_WARPS, enable_fp_fusion=False)
+    return [weakref.ref(t) for t in tail], consts, rest, launcher
 
 
 def launch_fused_agg(kernel: FusedAggKernel, columns, num_rows: int, joins) -> List[torch.Tensor]:
-    """K18 alone: checks its inputs, launches once and returns the planes it
-    stored. ``columns``: the batch's columns (DeviceColumn, or WideColumn
-    for a decimal(19..38)); ``joins``: per fused join, inner-first, (sorted
-    unique words on the device, nk, build columns)."""
+    """K18 alone: launches once and returns the planes it stored, one
+    allocation a dtype. ``columns``: the batch's columns (DeviceColumn, or
+    WideColumn for a decimal(19..38)); ``joins``: per fused join,
+    inner-first, (sorted unique words on the device, nk, build columns, its
+    ``ops/joins/keymap.JoinRank``). The inputs are checked whole once a
+    kernel, signature of the planes it reads (dtype, shape, 16-byte
+    alignment and device each) and set of builds (the same sorted words,
+    rank routes and build columns as the last check, held weakly), which
+    also fixes the launch's part that depends on the builds and the kernel
+    it compiled to (``_triton_launcher``)."""
     gen = kernel.gen
-    cap = int(columns[0].capacity)
-    _check_agg_inputs(kernel.spec, columns, joins, cap)
+    v0 = columns[0].validity
+    cap = v0.shape[0]
     if not 0 <= num_rows <= cap:
         raise ValueError(f"fused_agg_input: {num_rows} rows in a {cap}-row batch")
-    dev = columns[0].validity.device
-    outs = [torch.empty(cap, dtype=tdt, device=dev) for _v, tdt in gen.stores]
-    args = [columns[i].data for i in gen.used_d] + [columns[i].validity for i in gen.used_v]
-    ints, steps = [], {}
-    for j, (uniq, nk, bcols) in enumerate(joins):
-        args += [uniq] + [bcols[c].data for c in gen.join_used_d[j]] + \
-            [bcols[c].validity for c in gen.join_used_v[j]]
-        ints += [max(nk, 1), max(nk - 1, 0), nk]
-        steps[f"S{j}"] = max(nk, 1).bit_length()  # the search's trip count
-    args += outs + [kernel.constants_on(dev), num_rows, cap] + ints
-    fn = kernel.compiled()
-    fn[((cap + BLOCK - 1) // BLOCK,)](*args, **steps, BLOCK=BLOCK, num_warps=NUM_WARPS,
-                                       enable_fp_fusion=False)
+    index = v0.get_device()
+    batch = [columns[i].data for i in gen.used_d] + [columns[i].validity for i in gen.used_v]
+    sig = (cap, index, [(p.dtype, p.shape, p.data_ptr() & 15, p.get_device()) for p in batch])
+    builds = [o for j in joins for o in (j[0], j[3] if len(j) == 4 else None, *j[2])]
+    outs, _ptrs = _alloc_planes(kernel.store_dtypes, cap, v0.device)
+    last = kernel.checked
+    tail = None
+    if last is not None and last[0] == sig and len(last[1]) == len(builds) and \
+            all(r() is o for r, o in zip(last[1], builds)):
+        plan = last[2]
+        tail = [r() for r in plan[0]]
+    if tail is None or any(t is None for t in tail):
+        plan = _agg_launch_plan(kernel, columns, joins, cap, v0.device, batch, outs, num_rows)
+        kernel.checked = (sig, [weakref.ref(o) for o in builds], plan)
+        tail = [r() for r in plan[0]]
+    _refs, consts, rest, launcher = plan
+    launcher(*batch, *tail, *outs, consts, num_rows, cap, *rest,
+             stream=cuda_lib.stream_handle(index))
     cuda_lib.LAUNCHES["fused_agg_input"] += 1
     return outs
 

@@ -54,7 +54,7 @@ naming ROADMAP.md).
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -615,6 +615,20 @@ def _route_on(flag: Optional[bool]) -> bool:
     return True if flag is None else bool(flag)
 
 
+_ZEROS: Dict[tuple, torch.Tensor] = {}
+
+
+def _zero_plane(capacity: int, device: torch.device) -> torch.Tensor:
+    """A read-only int64 zero plane of ``capacity`` rows on ``device``, one
+    a device and capacity: the data plane of a fused COUNT(*), which K3 and
+    K10 never read or write (only its validity, the live mask, counts)."""
+    key = (device.type, device.index, capacity)
+    z = _ZEROS.get(key)
+    if z is None:
+        z = _ZEROS.setdefault(key, torch.zeros(capacity, dtype=torch.int64, device=device))
+    return z
+
+
 class DevicePartialAgger:
     """Streams batches through the slot routes (K3) or the sort route
     (K10), routed as ``_try_dense`` routes them: probe once per stream,
@@ -652,6 +666,7 @@ class DevicePartialAgger:
                 tuple(e for _, e in op.groupings),
                 tuple(a.agg.args[0] if a.agg.args else None for a in op.aggs))
             self._kernel = fused_agg_kernel(self.fused)
+        self._joins = {}  # device -> the fused joins' K18 inputs
         self.group_ev = ExprEvaluator([e for _, e in op.groupings], child_schema)
         self.agg_evs = [ExprEvaluator(list(a.agg.args), child_schema)
                         if a.agg.args else None for a in op.aggs]
@@ -726,16 +741,22 @@ class DevicePartialAgger:
         return None
 
     def _fused_input(self, batch: ColumnarBatch):
-        """K18 over the batch: (key data, key valid, args, live)."""
+        """K18 over the batch: (key data, key valid, args, live). The joins'
+        build maps (sorted words on the device, nk, build columns, rank
+        route) are gathered once a device; a COUNT(*) reads a shared zero
+        plane (``_zero_plane``)."""
         if not all(isinstance(c, (DeviceColumn, WideColumn)) for c in batch.columns):
             raise ValueError("a fused aggregate takes batches of device and wide-decimal "
                              f"columns; got {[type(c).__name__ for c in batch.columns]}")
-        joins = [(bmap.device_keys(batch.device), len(bmap.sorted_keys), bmap.batch.columns)
-                 for _, bmap in self.fused_joins]
+        dev = batch.device
+        joins = self._joins.get(dev)
+        if joins is None:
+            joins = self._joins[dev] = [
+                (bmap.device_keys(dev), len(bmap.sorted_keys), bmap.batch.columns,
+                 bmap.join_rank()) for _, bmap in self.fused_joins]
         keys, args, live = K.fused_agg_input(self.fused, batch.columns, batch.num_rows,
                                              joins, self._kernel)
-        args = [(torch.zeros(batch.capacity, dtype=torch.int64, device=batch.device), live)
-                if a is None else a for a in args]
+        args = [(_zero_plane(batch.capacity, dev), live) if a is None else a for a in args]
         return [d for d, _ in keys], [v for _, v in keys], args, live
 
     def process(self, batch: ColumnarBatch) -> Optional[ColumnarBatch]:

@@ -8,6 +8,8 @@ Copies of blaze_tpu/ops/joins/keymap.py, host numpy as they are there:
 - ``canon_words`` and ``sorted_probe``: the canonical word of a device
   key and the sorted-key probe that K8, K9 and K18 share;
   ``dense_key_words``: K8's search route, decided once a build map;
+  ``rank_route`` and ``JoinRank``: K18's (dense, bitmap or search), with
+  ``rank_probe_plain`` the kernel's rank arithmetic in PyTorch;
 - ``key_codes``: the host interning of multi-column keys;
 - ``JoinHashMap``: the build side of every hash join (ops/joins/bhj.py),
   a CSR layout of the code-sorted build rows. A single fixed-width key
@@ -124,6 +126,111 @@ def dense_key_words(words: np.ndarray) -> bool:
     return n > 0 and int(words[-1]) - int(words[0]) + 1 == n
 
 
+# K18's rank routes (exprs/fused_triton.py), decided once a build map
+RANK_DENSE, RANK_BITMAP, RANK_SEARCH = "dense", "bitmap", "search"
+# the bitmap route's limits: a word range of at most 256 words a key, and a
+# table (16 bytes a 64-word block) of at most 16 MiB
+BITMAP_SPAN_PER_KEY = 256
+BITMAP_MAX_BYTES = 16 << 20
+
+
+def rank_route(words: np.ndarray) -> str:
+    """K18's route to a probe word's rank in a build's sorted unique
+    canonical words, a function of the words alone (Python integers, no
+    int64 wrap): ``dense`` when they are one run of consecutive integers
+    (the rank is w - lo), ``bitmap`` when their range is at most 256 words
+    a key and its table at most 16 MiB (one 16-byte load a row), else
+    ``search`` (the binary search; float words, wide ranges and nk = 0)."""
+    n = len(words)
+    if dense_key_words(words):
+        return RANK_DENSE
+    if n == 0:
+        return RANK_SEARCH
+    span = int(words[-1]) - int(words[0]) + 1
+    if span <= BITMAP_SPAN_PER_KEY * n and 16 * (-(-span // 64)) <= BITMAP_MAX_BYTES:
+        return RANK_BITMAP
+    return RANK_SEARCH
+
+
+def bitmap_table(words: np.ndarray) -> np.ndarray:
+    """The bitmap route's table of sorted unique words lo..hi: per 64-word
+    block b (words lo + 64b .. lo + 64b + 63), its int64 bit mask (bit k:
+    word lo + 64b + k is a key) and the count of keys in the blocks before
+    it, interleaved (mask, count) so that one 16-byte load reads both."""
+    d = np.asarray(words, dtype=np.int64) - np.int64(words[0])  # < span: no wrap
+    nblocks = int(d[-1]) // 64 + 1
+    blk = d >> 6
+    bits = np.left_shift(np.uint64(1), (d & 63).astype(np.uint64))
+    starts = np.flatnonzero(np.r_[True, blk[1:] != blk[:-1]])
+    table = np.zeros((nblocks, 2), dtype=np.int64)
+    table[blk[starts], 0] = np.bitwise_or.reduceat(bits, starts).view(np.int64)
+    counts = np.bincount(blk, minlength=nblocks)
+    table[:, 1] = np.cumsum(counts) - counts
+    return table.reshape(-1)
+
+
+class JoinRank:
+    """K18's rank route for one build map (``rank_route`` of its ``words``,
+    the sorted unique canonical words): the route, the words' ends lo and
+    hi, nk, and for the bitmap route its table, uploaded once a device.
+    ``ints`` are the launch's integers (lo, hi, nk, nk - 1, max(nk, 1))."""
+
+    def __init__(self, words: np.ndarray):
+        self.nk = len(words)
+        self.route = rank_route(words)
+        self.lo = int(words[0]) if self.nk else 0
+        self.hi = int(words[-1]) if self.nk else 0
+        self.ints = (self.lo, self.hi, self.nk, max(self.nk - 1, 0), max(self.nk, 1))
+        self._table = bitmap_table(words) if self.route == RANK_BITMAP else None
+        self._on: Dict[tuple, torch.Tensor] = {}
+
+    def table(self, device: torch.device) -> Optional[torch.Tensor]:
+        """The bitmap table on ``device`` (None on the other routes)."""
+        if self._table is None:
+            return None
+        key = (device.type, device.index)
+        t = self._on.get(key)
+        if t is None:
+            t = self._on[key] = torch.from_numpy(self._table).to(device)
+        return t
+
+
+def _popcount64(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 word (a SWAR count; the masks keep the
+    arithmetic shifts' sign bits out)."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return (x + (x >> 32)) & 0x7F
+
+
+def rank_probe_plain(rank: JoinRank, uniq: torch.Tensor,
+                     words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K18's rank of canonical ``words`` on ``rank``'s route, in the
+    kernel's arithmetic: (clip(searchsorted-left, 0, nk - 1), whether the
+    word is a key). The range check comes before the subtraction, so a word
+    range past 2^63 does not wrap. ``uniq``: the sorted words on the device
+    (length max(nk, 1)), which the search reads."""
+    nkm = rank.ints[3]
+    if rank.route == RANK_SEARCH:
+        idx = torch.searchsorted(uniq, words)
+        cidx = idx.clamp(max=nkm)
+        return cidx, (idx < rank.nk) & (uniq[cidx] == words)
+    inr = (words >= rank.lo) & (words <= rank.hi)
+    d = torch.where(inr, words, rank.lo) - rank.lo
+    outside = torch.where(words > rank.hi, nkm, 0)
+    if rank.route == RANK_DENSE:
+        return torch.where(inr, d, outside), inr
+    table = rank.table(words.device)
+    mask, before = table[2 * (d >> 6)], table[2 * (d >> 6) + 1]
+    bit = d & 63
+    below = mask & ~(torch.full_like(bit, -1) << bit)
+    return (torch.where(inr, before + _popcount64(below), outside),
+            inr & (((mask >> bit) & 1) != 0))
+
+
 def sorted_probe(uniq: torch.Tensor, data: torch.Tensor, valid: torch.Tensor,
                  nk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The membership probe against the build's sorted unique words
@@ -203,6 +310,8 @@ class JoinHashMap:
         # argument words (``join_pack``) a device
         self._dev_cell: List[Optional[torch.Tensor]] = [None]
         self._packs: Dict[str, "kernels.JoinPack"] = {}
+        # K18's rank route (``join_rank``), shared by the tasks as the upload is
+        self._rank_cell: List[Optional[JoinRank]] = [None]
         self.matched = np.zeros(batch.num_rows, dtype=bool)
 
     def for_task(self) -> "JoinHashMap":
@@ -214,6 +323,7 @@ class JoinHashMap:
                         self.sorted_keys)
         m._dev_cell = self._dev_cell
         m._packs = self._packs
+        m._rank_cell = self._rank_cell
         return m
 
     @property
@@ -249,6 +359,14 @@ class JoinHashMap:
                 self.device_keys(device), self.sorted_keys,
                 *column_planes(self.batch.columns))
         return pack
+
+    def join_rank(self) -> JoinRank:
+        """K18's rank route for this map's sorted words (``JoinRank``),
+        decided once a map, beside K8's pack; its bitmap table goes to each
+        device once."""
+        if self._rank_cell[0] is None:
+            self._rank_cell[0] = JoinRank(self.sorted_keys)
+        return self._rank_cell[0]
 
     @staticmethod
     def build(batches: List[ColumnarBatch], key_exprs: List[E.Expr],

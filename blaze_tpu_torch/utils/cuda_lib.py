@@ -90,10 +90,6 @@ BUILD_INFO: Dict[str, object] = {}
 THREADS = 1024
 
 
-def blocks(n: int) -> int:
-    return (n + THREADS - 1) // THREADS
-
-
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -212,8 +208,8 @@ _PLL = ctypes.POINTER(ctypes.c_longlong)
 _D = ctypes.c_double
 
 _SIGNATURES = {
-    # mask, n, nplanes, srcs, dsts, sizes, scratch, stream
-    "blz_compact_planes": [_P, _I64, _I, _PP, _PP, _PI, _P, _P],
+    # the argument words (csrc/compact.cu blz_compact_planes; core/kernels.py _CW_*)
+    "blz_compact_planes": [_PLL],
     # k, datas, valids, wide, n, seed, nparts, hash_out, pid_out, stream
     "blz_murmur3_pmod": [_I, _PP, _PP, _PI, _I64, _U32, _I32, _P, _P, _P],
     "blz_slot_agg": [

@@ -6,6 +6,7 @@ comparisons on one NVIDIA GPU.
                        [--runs N] [--no-fusion] [--no-fused-agg] [--profile]
                        [--trace=DIR]
     python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k3_k4,k10,limbs,k12,k19,k5,k7,k8,k11
+                       [--shapes DIR]
 
 Paths: q01, q01_mesh1, q01_mesh2, q01_mesh8, q67, q67_sort, q67_table,
 q69, q69_bloom, q06, q47, q96, q96_mesh, q17, q17_sort, q17_table, q89,
@@ -22,6 +23,11 @@ ms (and the plain chain's device ms), library ms, bound and extra shapes,
 whichever the checkout's phase records (``k8``: q96's three probes, q69's
 date probe and q06's all-hit batch; ``k11``: q69's and q96's scan filters,
 with the generated kernel's own device ms).
+
+``--shapes=DIR`` imports ``chip_smoke`` from the checkout at DIR in place
+of ``--tree``'s (the package still from ``--tree``): an older tree's
+kernels at a newer tree's shapes and cases (its ``kernel_k1`` and
+``kernel_k18`` run against a tree from before K18's routes).
 
 Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
 (default: this one) and, for each named path, stages its data once (as
@@ -53,7 +59,7 @@ import time
 
 def _args(argv):
     opts = {"tree": os.path.dirname(os.path.abspath(__file__)), "label": "",
-            "paths": "q67_sort,q69", "runs": "5", "kernels": "", "trace": ""}
+            "paths": "q67_sort,q69", "runs": "5", "kernels": "", "trace": "", "shapes": ""}
     flags = set()
     for a in argv:
         if a.startswith("--") and "=" in a:
@@ -330,7 +336,8 @@ def _kernels(cs, dev, opts) -> int:
                                           "call_kernels", "route_ms", "segment_ids_ms")}
             line["bound_ms"] = r["bytes"] / cs.HBM_BYTES_PER_S * 1e3
             print(json.dumps({"phase": "ab_kernel", "label": opts["label"], "tree":
-                              os.path.abspath(opts["tree"]), "kernels": phase,
+                              os.path.abspath(opts["tree"]), "shapes": cs.__file__,
+                              "kernels": phase,
                               "seconds": time.perf_counter() - t0, **line}), flush=True)
     return 0
 
@@ -357,13 +364,22 @@ def main(argv) -> int:
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 2
     tree = os.path.abspath(opts["tree"])
+    shapes = os.path.abspath(opts["shapes"] or tree)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [tree] + [p for p in sys.path if os.path.abspath(p or ".") != here]
-    import chip_smoke as cs
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(shapes, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
+    import blaze_tpu_torch
     from blaze_tpu_torch.utils import cuda_lib
 
-    if not os.path.samefile(os.path.dirname(cs.__file__), tree):
-        raise SystemExit(f"chip_ab: imported chip_smoke from {cs.__file__}, not {tree}")
+    if not os.path.samefile(os.path.dirname(os.path.dirname(blaze_tpu_torch.__file__)), tree):
+        raise SystemExit(f"chip_ab: imported blaze_tpu_torch from {blaze_tpu_torch.__file__}, "
+                         f"not {tree}")
     cuda_lib.library()
     dev = torch.device("cuda")
     conf_kw = {}

@@ -114,12 +114,20 @@ only when every phase passed:
    +-inf, null and padding probe rows, an empty build and one build key,
    the build on the left, predicates over the joined schema, absorbed
    project/filter/rename steps, q01's decimal predicate, every row
-   filtered, an empty batch and q17's wide-decimal argument, each then
+   filtered, an empty batch, q17's wide-decimal argument and each rank
+   route (dense words with misses on both sides, a bitmap range of 256 x
+   nk, a search range one past it and over the int64 ends), each then
    through K3 and K10 over K18's live mask against their plain versions,
-   timed at q17's probe batch (262,144 rows, 102,000 items, 400 stores)
-   beside the library chain (searchsorted + index_select + where per
-   plane) (and every K18 launch of q01's, q17's and q89's first runs held
-   to the plain version); for the passthrough of a skipped partial, K19:
+   timed (device and host ms) at q17's path batch (262,144 rows, items
+   1..102,000 and stores 1..400: dense), q17's probe batch (102,000 of
+   408,010 item words: bitmap), q89's (items sparse, dates and stores
+   dense) and q01's (no join) beside the library chain (searchsorted +
+   index_select + where per plane) (and every K18 launch of q01's, q17's
+   and q89's first runs held to the plain version; each fused path logs
+   its joins' routes, a ``k18_routes`` line); for the stable compaction, K1: a 1,024-row
+   tile's edges, every element size, 40 and 130 planes, a mask at an odd
+   address, timed (device and host ms, one kernel a call) at
+   hash_sample's, q69_bloom's and q96_mesh's batches; for the passthrough of a skipped partial, K19:
    every partial kind (SUM, AVG, COUNT, MIN, MAX and the limb kinds
    sum2/avg2/sum3/avg3/minw/maxw) over int64, int32, float64 and float32
    arguments with NaN, +-0.0, +-inf and subnormals, a decimal rescale that
@@ -440,50 +448,131 @@ def planes(n, cap, k_int64, rng, dev, null_frac=0.0):
     return datas, valids
 
 
+# K1's path shapes: (label, rows, kept share, the planes' dtypes, their
+# null share): hash_sample's FilterExec batch (store_sales as Spark types
+# it: four int32 columns and a decimal(7,2), 10% kept by the hash),
+# q69_bloom's store_sales batch after the bloom probe (~5.4% of the rows:
+# the non-null customers of the three states' 28,000 of 500,000), and
+# q96_mesh's per-batch compaction after the stacked K11 (isnotnull on
+# three keys, each 4% null: 88.5% kept; the mask a row of the stack's
+# (k, capacity) plane)
+K1_SHAPES = (
+    ("hash_sample's FilterExec batch: 262,144 rows x (4 int32 + 1 int64 + 5 bool), "
+     "10% kept", 262144, 0.10, ("int32",) * 4 + ("int64",), 0.04),
+    ("q69_bloom's store_sales batch after the bloom probe: 262,144 rows x (2 int64 + "
+     "2 bool), 5.4% kept", 262144, 0.054, ("int64",) * 2, 0.04),
+    ("q96_mesh's compaction after the stacked K11: 262,144 rows x (3 int64 + 3 bool), "
+     "88.5% kept", 262144, 0.885, ("int64",) * 3, 0.04),
+)
+# K1's battery: (rows, live rows, kept share, planes' dtypes, null share):
+# a tile's edges (1,024 rows), every element size, more than 32 and more
+# than 128 planes (the table in device memory), none and all kept
+K1_CASES = (
+    (262144, 200000, 0.5, ("int64",) * 3 + ("int32",), 0.1),
+    (1024, 1000, 0.0, ("int64",) * 3 + ("int32",), 0.2),
+    (1024, 1024, 1.0, ("int64",) * 3 + ("int32",), 0.0),
+    (1024, 300, 0.3, ("int64",) * 3 + ("int32",), 0.5),
+    (1023, 1023, 0.6, ("int8", "int16", "int32", "int64"), 0.1),
+    (1025, 1025, 0.6, ("int8", "int16", "int32", "int64"), 0.1),
+    (2049, 2049, 0.6, ("int8", "int16", "int32", "int64"), 0.1),
+    (6145, 6000, 0.97, ("float64", "float32", "bool"), 0.1),
+    (4096, 4000, 0.4, ("int64", "int32", "int16", "int8") * 5, 0.1),
+    (4096, 4096, 0.5, ("int32",) * 65, 0.1),
+    (300, 300, 1.0, ("int64",), 0.0),
+    (1, 1, 1.0, ("int64",), 0.0),
+)
+
+
+def k1_batch(rows, n, keep, dtypes, nulls, rng, dev):
+    """K1's inputs: a data plane of each dtype and its validity plane,
+    ``rows`` long, rows past ``n`` padding; the mask keeps ``keep`` of the
+    live rows."""
+    import numpy as np
+    import torch
+
+    datas, valids = [], []
+    for dt in dtypes:
+        info = np.iinfo(dt) if np.dtype(dt).kind in "iu" else None
+        d = np.zeros(rows, dt)
+        if info is not None:
+            d[:n] = rng.integers(max(info.min, -(1 << 40)), min(info.max, 1 << 40), n)
+        elif dt == "bool":
+            d[:n] = rng.random(n) < 0.5
+        else:
+            d[:n] = np.array(SEG_FLOATS, dt)[rng.integers(0, len(SEG_FLOATS), n)]
+        v = np.zeros(rows, bool)
+        v[:n] = rng.random(n) >= nulls
+        d[~v] = 0
+        datas.append(torch.from_numpy(d).to(dev))
+        valids.append(torch.from_numpy(v).to(dev))
+    mask = np.zeros(rows, bool)
+    mask[:n] = rng.random(n) < keep
+    return datas, valids, torch.from_numpy(mask).to(dev)
+
+
+def k1_bytes(datas, valids, mask):
+    """Bytes K1 must move on this mask: the mask read once, each output
+    plane written whole (its kept rows, then its zeroed padding), and of
+    each input plane only the 32-byte sectors that hold a kept row (a
+    dropped row need not be read)."""
+    import torch
+
+    kept = torch.nonzero(mask).flatten()
+    read = sum(32 * torch.unique_consecutive((x.data_ptr() + kept * x.element_size()) // 32)
+               .numel() for x in datas + valids)
+    return mask.numel() + sum(x.numel() * x.element_size() for x in datas + valids) + read
+
+
 def kernel_k1(dev, rng, results):
+    """K1 against its plain version on its battery (``K1_CASES``: a tile's
+    edges, every element size, float planes with NaN, +-0.0, +-inf and
+    subnormals moved bit for bit, more than 32 and more than 128 planes,
+    none and all kept) and with a mask that is not 16-byte aligned; timed
+    at its paths' shapes (``K1_SHAPES``): CUDA events, device ms, the
+    wrapper's host ms and the kernels of one call."""
     import numpy as np
     import torch
     from blaze_tpu_torch.core import kernels as K
 
     cases = []
-    for cap, n, frac, nulls in ((262144, 262144, 0.95, 0.0), (262144, 200000, 0.5, 0.1),
-                                (1024, 1000, 0.0, 0.2), (1024, 1024, 1.0, 0.0),
-                                (1024, 300, 0.3, 0.5)):
-        datas, valids = planes(n, cap, 3, rng, dev, nulls)
-        datas.append(torch.from_numpy(rng.integers(0, 1 << 30, cap).astype(np.int32)).to(dev))
-        valids.append(torch.ones(cap, dtype=torch.bool, device=dev))
-        mask = torch.from_numpy(np.concatenate(
-            [rng.random(n) < frac, np.zeros(cap - n, bool)])).to(dev)
-        got = K.compact_planes_cuda(datas, valids, mask)
-        want = K.compact_planes_plain(datas, valids, mask)
-        check_equal("compact_planes", f"cap={cap} n={n} keep={frac}", got, want)
-        cases.append(f"cap={cap},n={n},keep={frac},nulls={nulls}")
-    # float planes with NaN, +-0.0, +-inf and subnormals move bit for bit
-    cap = 1024
-    floats = np.array(SEG_FLOATS)[rng.integers(0, len(SEG_FLOATS), cap)]
-    with np.errstate(over="ignore"):
-        datas = [torch.from_numpy(floats).to(dev), torch.from_numpy(floats[::-1].astype(
-            np.float32)).to(dev)]
-    valids = [torch.ones(cap, dtype=torch.bool, device=dev)] * 2
-    mask = torch.from_numpy(rng.random(cap) < 0.6).to(dev)
-    check_equal("compact_planes", "f64/f32 subnormals",
-                K.compact_planes_cuda(datas, valids, mask),
+    for rows, n, keep, dtypes, nulls in K1_CASES:
+        with np.errstate(over="ignore"):
+            datas, valids, mask = k1_batch(rows, n, keep, dtypes, nulls, rng, dev)
+        label = f"rows={rows},n={n},keep={keep},planes={2 * len(dtypes)}"
+        check_equal("compact_planes", label, K.compact_planes_cuda(datas, valids, mask),
+                    K.compact_planes_plain(datas, valids, mask))
+        cases.append(label)
+    # a mask one byte into its allocation (not 16-byte aligned)
+    datas, valids, mask = k1_batch(4097, 4097, 0.5, ("int64", "int32"), 0.1, rng, dev)
+    odd = torch.zeros(4098, dtype=torch.bool, device=dev)
+    odd[1:] = mask
+    check_equal("compact_planes", "unaligned mask", K.compact_planes_cuda(datas, valids, odd[1:]),
                 K.compact_planes_plain(datas, valids, mask))
-    cases.append("cap=1024,f64+f32 planes with subnormals")
-    # main path: FilterExec on a 262144-row q01 batch (3 int64 planes + 3
-    # validity planes, ~95% kept)
-    cap = 262144
-    datas, valids = planes(cap, cap, 3, rng, dev)
-    mask = torch.from_numpy(rng.random(cap) < 0.95).to(dev)
-    ms = time_ms(lambda: K.compact_planes_cuda(datas, valids, mask))
-    plain_ms = time_ms(lambda: K.compact_planes_plain(datas, valids, mask))
-    lib_ms = time_ms(lambda: [x[mask] for x in datas + valids])
-    nbytes = cap + 2 * sum(x.numel() * x.element_size() for x in datas + valids)
+    cases.append("rows=4097, the mask at an odd address")
+    shapes = {}
+    for label, rows, keep, dtypes, nulls in K1_SHAPES:
+        datas, valids, mask = k1_batch(rows, rows, keep, dtypes, nulls, rng, dev)
+        check_equal("compact_planes", label, K.compact_planes_cuda(datas, valids, mask),
+                    K.compact_planes_plain(datas, valids, mask))
+        cases.append(label)
+
+        def k1(datas=datas, valids=valids, mask=mask):
+            return K.compact_planes_cuda(datas, valids, mask)
+
+        def lib(datas=datas, valids=valids, mask=mask):
+            return [x[mask] for x in datas + valids]
+
+        shapes[label] = dict(shape_times(k1, lambda: K.compact_planes_plain(datas, valids, mask),
+                                         lib, k1_bytes(datas, valids, mask)),
+                             host_ms=host_ms(k1), call_kernels=call_kernels(k1))
+    main = shapes[K1_SHAPES[0][0]]
     results.append(dict(
         name="compact_planes", route="cuda", source="blaze_tpu_torch/csrc/compact.cu",
-        replaces="blaze_tpu/core/kernels.py:212", shape="262144 rows x 6 planes",
-        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library_call="x[mask] per plane", bytes=nbytes))
+        replaces="blaze_tpu/core/kernels.py:212", shape=K1_SHAPES[0][0], cases=cases,
+        ms=main["ms"], device_ms=main["device_ms"], host_ms=main["host_ms"],
+        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+        library_device_ms=main["library_device_ms"], call_kernels=main["call_kernels"],
+        library_call="x[mask] per plane", bytes=main["bytes"], shapes=shapes))
 
 
 def kernel_k2(dev, rng, results):
@@ -4787,7 +4876,19 @@ K18_CASES = (
     ("every row filtered", 4096, 4000, "none_kept"),
     ("empty batch", 256, 0, "join"),
     ("q17: two joins, a wide-decimal argument", 4096, 4000, "q17"),
+    ("dense route: negative words, misses below and above", 4096, 4000, "dense"),
+    ("bitmap route: a word range of exactly 256 x nk", 4096, 4000, "bitmap_edge"),
+    ("search route: a word range one past 256 x nk", 4096, 4000, "span_past"),
+    ("search route: words at the int64 ends", 4096, 4000, "int64_ends"),
     ("q17's probe batch", 262144, 262144, "q17_main"),
+)
+# the 262,144-row batches K18 is timed at besides q17's probe batch: q17's
+# and q89's as their paths draw them (q17's items and stores dense, q89's
+# items sparse, its dates and stores dense), and q01's (no join)
+K18_BATCHES = (
+    ("q17's path batch", 262144, 262144, "q17_path"),
+    ("q89's batch", 262144, 262144, "q89_main"),
+    ("q01's batch", 262144, 262144, "q01"),
 )
 
 
@@ -4836,14 +4937,34 @@ def k18_probe(kind, keys, cap, n, rng, nulls):
     return d, v
 
 
-def k18_dim(kind, nk, cap_b, attrs, rng):
-    """A dimension of nk unique keys sorted by canonical word (code c at
-    row c, as JoinHashMap sorts its build), a null-keyed row after them,
-    and int64 attribute columns drawn from [0, attr): (keys, uniq words,
-    columns as (data, valid) host pairs)."""
+def k18_route_words(shape, rng):
+    """A route case's sorted unique build words and probe words that miss
+    them below, inside and above their range."""
     import numpy as np
 
-    keys = k18_keys(kind, nk, rng)
+    if shape == "dense":
+        keys, miss = np.arange(-30, 30), [-10 ** 6, -31, 30, 31, 10 ** 6]
+    elif shape == "int64_ends":
+        keys = np.array([-(1 << 63), -(1 << 63) + 1, -5, 0, 7, (1 << 63) - 2, (1 << 63) - 1])
+        miss = [-(1 << 63) + 2, -4, 1, 8, (1 << 63) - 3]
+    else:  # a word range of 256 x nk words, or one more
+        nk, lo = 40, -5000
+        span = 256 * nk + (shape == "span_past")
+        keys = np.sort(np.r_[lo, lo + span - 1, rng.choice(np.arange(lo + 1, lo + span - 1),
+                                                          nk - 2, replace=False)])
+        miss = [lo - 10 ** 6, lo - 1, lo + span, lo + span + 10 ** 6] + \
+            list(np.setdiff1d(rng.integers(lo, lo + span, 40), keys))
+    return keys.astype(np.int64), np.array(miss, np.int64)
+
+
+def k18_dim(kind, nk, cap_b, attrs, rng, keys=None):
+    """A dimension of nk unique keys (drawn, or ``keys``) sorted by
+    canonical word (code c at row c, as JoinHashMap sorts its build), a
+    null-keyed row after them, and int64 attribute columns drawn from [0,
+    attr): (keys, uniq words, columns as (data, valid) host pairs)."""
+    import numpy as np
+
+    keys = k18_keys(kind, nk, rng) if keys is None else keys
     keys = keys[np.argsort(canon_np(keys), kind="stable")]
     uniq = canon_np(keys) if nk else np.zeros(1, np.int64)
     kd = np.zeros(cap_b, K18_NP[kind])
@@ -4887,8 +5008,9 @@ def k18_case(case, rng, E, T):
         return col(rng.integers(lo, hi, cap).astype(np.int64),
                    (np.arange(cap) < n) & (rng.random(cap) >= nulls))
 
-    def dim(name, kind, nk, attrs, cap_b=None):
-        keys, uniq, cols = k18_dim(kind, nk, cap_b or max(256, 1 << nk.bit_length()), attrs, rng)
+    def dim(name, kind, nk, attrs, cap_b=None, keys=None):
+        keys, uniq, cols = k18_dim(kind, nk, cap_b or max(256, 1 << nk.bit_length()), attrs,
+                                   rng, keys)
         schema = T.Schema.of((f"{name}_sk", TT[kind]),
                              *[(f"{name}_a{i}", T.I64) for i in range(len(attrs))])
         return keys, (uniq, nk, cols), schema
@@ -4921,6 +5043,37 @@ def k18_case(case, rng, E, T):
                          [C("d_a0")], [("count", None), ("sum", C("v")), ("sum", C("p")),
                                        ("max", C("d_a1"))],
                          [(pd, pv), ints(-100, 100), ints(0, 500_00)], [build], preds=preds)
+    if shape in ("dense", "bitmap_edge", "span_past", "int64_ends"):
+        keys, miss = k18_route_words(shape, rng)
+        keys, build, bschema = dim("d", "i64", len(keys), (5, 1000), keys=keys)
+        pool = np.concatenate([np.repeat(keys, 3), miss])
+        pv = (np.arange(cap) < n) & (rng.random(cap) >= nulls)
+        pd = np.where(pv, pool[rng.integers(0, len(pool), cap)], 0)
+        probe = T.Schema.of(("fk", T.I64), ("v", T.I64), ("p", price))
+        return case_dict(probe, [(C("fk"), True, probe, bschema)], joined(probe, bschema),
+                         [C("d_a0")], [("count", None), ("sum", C("v")), ("max", C("d_a1"))],
+                         [(pd, pv), ints(-100, 100), ints(0, 500_00)], [build])
+    if shape == "q89_main":
+        # the sales batch as q89_host draws it (each key 4% null) against
+        # q89's builds: the 1.8% of SF10's 102,000 items its category and
+        # class filter keeps, 1999's 365 dates, the 102 stores
+        def fk(lo, hi):
+            v = (np.arange(cap) < n) & (rng.random(cap) >= 0.04)
+            return col(np.where(v, rng.integers(lo, hi + 1, cap), 0).astype(np.int64), v)
+
+        items = np.sort(rng.choice(np.arange(1, Q89_ROWS["item"] + 1), 1_836, replace=False))
+        _ki, bi, si = dim("i", "i64", len(items), (10, 100, 1000), keys=items)
+        _kd, bd, sd = dim("dt", "i64", 365, (12,), keys=np.arange(2_451_180, 2_451_545))
+        _ks, bs, ss = dim("s", "i64", 102, (7, 20), keys=np.arange(1, 103))
+        probe = T.Schema.of(("item", T.I64), ("date", T.I64), ("store", T.I64), ("q", T.I64))
+        j1 = joined(probe, si)
+        j2 = joined(j1, sd)
+        return case_dict(probe, [(C("item"), True, probe, si), (C("date"), True, j1, sd),
+                                 (C("store"), True, j2, ss)], joined(j2, ss),
+                         [C(x) for x in ("i_a0", "i_a1", "i_a2", "s_a0", "s_a1", "dt_a0")],
+                         [("sum", C("q"))],
+                         [fk(1, Q89_ROWS["item"]), fk(*Q89_SALES_DATES),
+                          fk(1, Q89_ROWS["store"]), ints(1, 100)], [bi, bd, bs])
     if shape == "chain":
         k1, b1, s1 = dim("d1", "i64", 40, (20,))
         _k2, b2, s2 = dim("d2", "i64", 19, (3, 100))
@@ -4963,25 +5116,32 @@ def k18_case(case, rng, E, T):
                          [("sum", C("sr_return_amt")), ("count", None)],
                          [ints(1, 400), ints(1, 100_000), ints(0, 10_000_00)], [],
                          preds=(pred,))
-    if shape in ("q17", "q17_main"):
-        main = shape == "q17_main"
+    if shape in ("q17", "q17_main", "q17_path"):
+        main, path = shape != "q17", shape == "q17_path"
+        # q17's path: i_item_sk 1..102,000 and s_store_sk 1..400, dense
         ki, bi, si = dim("i", "i64", 102_000 if main else 2000, (10, 100, 1000),
-                         cap_b=131072 if main else None)
-        ks, bs, ss = dim("s", "i64", 400, (50,))
+                         cap_b=131072 if main else None,
+                         keys=np.arange(1, 102_001) if path else None)
+        ks, bs, ss = dim("s", "i64", 400, (50,), keys=np.arange(1, 401) if path else None)
         probe = T.Schema.of(("ss_item_sk", T.I64), ("ss_store_sk", T.I64),
                             ("ss_quantity", T.I64), ("ss_ext_wholesale_cost",
                                                      T.DecimalType(38, 2)))
         j1 = joined(probe, si)
-        # q17's draw misses ~2% of items (keys past the dimension); the
-        # small case adds null keys and costs
-        items = np.where(rng.random(cap) < 0.98, rng.choice(ki, cap),
-                         rng.integers(1, 10 ** 6, cap))
+        # the probe batch misses ~2% of items (keys past the dimension), the
+        # path's draw none (its items and stores uniform over the keys);
+        # the small case adds null keys and costs
+        if path:
+            items, stores = rng.integers(1, 102_001, cap), rng.integers(1, N_STORES, cap)
+        else:
+            items = np.where(rng.random(cap) < 0.98, rng.choice(ki, cap),
+                             rng.integers(1, 10 ** 6, cap))
         share = 0.0 if main else nulls
 
         def valid():
             return (np.arange(cap) < n) & (rng.random(cap) >= share)
 
-        cols = [col(items.astype(np.int64), valid()), col(rng.choice(ks, cap).astype(np.int64)),
+        cols = [col(items.astype(np.int64), valid()),
+                col((stores if path else rng.choice(ks, cap)).astype(np.int64)),
                 ints(1, 100),
                 col(rng.integers(10 ** 14, 9 * 10 ** 16, cap).astype(np.int64), valid())]
         return case_dict(probe, [(C("ss_item_sk"), True, probe, si),
@@ -5021,8 +5181,19 @@ def k18_torch(d, dev):
     joins = []
     for js, (uniq, nk, bcols) in zip(spec.joins, d["builds"]):
         joins.append((torch.from_numpy(uniq).to(dev), nk,
-                      [column(f, data, v) for f, (data, v) in zip(js.build_schema.fields, bcols)]))
+                      [column(f, data, v) for f, (data, v) in zip(js.build_schema.fields, bcols)])
+                     + k18_rank(uniq[:nk]))
     return spec, columns, d["n"], joins
+
+
+def k18_rank(words):
+    """K18's rank route of a build's sorted words, as a one-tuple to end a
+    join's entry; empty for a checkout whose K18 has no routes (a parent
+    timed at this checkout's shapes by ``chip_ab.py --shapes``)."""
+    from blaze_tpu_torch.ops.joins import keymap
+
+    rank = getattr(keymap, "JoinRank", None)
+    return (rank(words),) if rank is not None else ()
 
 
 def k18_flat(out):
@@ -5047,7 +5218,7 @@ def k18_bytes(kernel, columns, joins):
     cap = columns[0].capacity
     total = sum(columns[i].data.element_size() * cap for i in gen.used_d) + \
         len(gen.used_v) * cap
-    for j, (uniq, nk, bcols) in enumerate(joins):
+    for j, (uniq, nk, bcols, *_rank) in enumerate(joins):
         rows = [min(max(nk, 1), c.capacity) for c in bcols]
         total += uniq.numel() * 8 + \
             sum(rows[c] * bcols[c].data.element_size() for c in gen.join_used_d[j]) + \
@@ -5065,7 +5236,7 @@ def k18_library_chain(columns, joins, spec):
     def run():
         cols = list(columns)
         live = None
-        for js, (uniq, nk, bcols) in zip(spec.joins, joins):
+        for js, (uniq, nk, bcols, *_rank) in zip(spec.joins, joins):
             k = cols[js.probe_schema.index_of(js.key_expr.name)]
             w = canon_words(k.data)
             idx = torch.searchsorted(uniq, w)
@@ -5080,25 +5251,50 @@ def k18_library_chain(columns, joins, spec):
     return run
 
 
+def k18_routes(joins):
+    """The rank route of each join (none in a checkout without routes)."""
+    return [j[3].route for j in joins if len(j) == 4]
+
+
+def k18_timed(spec, columns, n, joins, kernel, first_s):
+    """One timed K18 batch: CUDA events, device ms, the wrapper's host ms,
+    its plain version's events and the library chain of its joins (none
+    without a join), with its routes and the first call's wall (the
+    compile of a kernel new to its routes)."""
+    from blaze_tpu_torch.core import kernels as K
+
+    def k18():
+        return K.fused_agg_input(spec, columns, n, joins, kernel)
+
+    chain = k18_library_chain(columns, joins, spec) if joins else None
+    return dict(shape_times(k18, lambda: K.fused_agg_input_plain(spec, columns, n, joins),
+                            chain, k18_bytes(kernel, columns, joins), prefix="fused_agg_input"),
+                host_ms=host_ms(k18), routes=k18_routes(joins), first_call_s=first_s)
+
+
 def kernel_k18(dev, rng, results):
-    """K18 against its plain version on every battery case, bit for bit;
-    then K3 and K10 over its live mask (the masked entry points) against
-    their plain versions; timed at q17's probe batch."""
+    """K18 against its plain version on every battery case (``K18_CASES``,
+    each join on the route its words give, then ``K18_BATCHES``), bit for
+    bit; then K3 and K10 over its live mask (the masked entry points)
+    against their plain versions; timed at q17's path batch (the entry),
+    q17's probe batch, q89's and q01's."""
     import torch
     from blaze_tpu_torch.config import Config
     from blaze_tpu_torch.core import kernels as K
     from blaze_tpu_torch.exprs.fused_triton import fused_agg_kernel
-    from blaze_tpu_torch.ops import agg_device as A
-
-    cases = []
-    main = None
     from blaze_tpu_torch.ir import exprs as E
     from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops import agg_device as A
 
-    for case in K18_CASES:
+    cases, timed = [], {}
+    for case in K18_CASES + K18_BATCHES:
         spec, columns, n, joins = k18_torch(k18_case(case, rng, E, T), dev)
         kernel = fused_agg_kernel(spec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         got = K.fused_agg_input(spec, columns, n, joins, kernel)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
         want = K.fused_agg_input_plain(spec, columns, n, joins)
         check_equal("fused_agg_input", case[0], k18_flat(got), k18_flat(want))
         keys, args, live = got
@@ -5122,28 +5318,25 @@ def kernel_k18(dev, rng, results):
                                (kd, kv, n, specs, a_, True, live),
                                to_dev((kd, kv, n, specs, a_, True, live), "cpu"),
                                f"{case[0]}: over K18's live mask")
-        cases.append(case[0])
-        if case[3] == "q17_main":
-            main = (spec, columns, n, joins, kernel)
-    spec, columns, n, joins, kernel = main
-
-    def k18():
-        return K.fused_agg_input(spec, columns, n, joins, kernel)
-
-    chain = k18_library_chain(columns, joins, spec)
+        cases.append(f"{case[0]} ({'/'.join(k18_routes(joins)) or 'no join'})")
+        if case[3] in ("q17_main", "q17_path", "q89_main") or case in K18_BATCHES:
+            timed[case[0]] = k18_timed(spec, columns, n, joins, kernel, first_s)
+        del spec, columns, joins, got, want
+    main = timed[K18_BATCHES[0][0]]
     results.append(dict(
         name="fused_agg_input", route="triton",
         source="blaze_tpu_torch/exprs/fused_triton.py",
         replaces="blaze_tpu/ops/agg_device.py:587",
-        shape="q17's probe batch: 262,144 store_sales rows, two chained joins (102,000 "
-              "items, 400 stores), keys (s_state_id, i_category_id), COUNT(*), "
-              "SUM(ss_quantity), the decimal(38,2) wcost's validity (its limbs pass through)",
-        cases=cases, ms=time_ms(k18), device_ms=kernel_device_ms(k18, "fused_agg_input"),
-        plain_ms=time_ms(lambda: K.fused_agg_input_plain(spec, columns, n, joins)),
-        library_ms=time_ms(chain),
+        shape="q17's path batch: 262,144 store_sales rows, two chained joins (102,000 items "
+              "i_item_sk 1..102,000, 400 stores 1..400: both dense), keys (s_state_id, "
+              "i_category_id), COUNT(*), SUM(ss_quantity), the decimal(38,2) wcost's "
+              "validity (its limbs pass through)",
+        cases=cases, ms=main["ms"], device_ms=main["device_ms"], host_ms=main["host_ms"],
+        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+        library_device_ms=main["library_device_ms"],
         library_call="searchsorted + index_select + where per join and gathered plane "
                      "(the joins' probes and gathers only: a chain)",
-        bytes=k18_bytes(kernel, columns, joins)))
+        bytes=main["bytes"], shapes=timed))
     torch.cuda.synchronize()
 
 
@@ -5267,21 +5460,27 @@ def k19_library_chain(kd, kv, ad, av):
             torch.where(av, ad >> 32, 0), av.clone())
 
 
-def host_ms(fn, iters=200):
+def host_ms(fn, iters=200, windows=5):
     """The host's time of one call that only enqueues work: the clock
     around ``iters`` calls, synchronised before and after but not
-    between."""
+    between; the median of ``windows`` such windows (the host's clock
+    varies more than the device's)."""
+    import statistics
+
     import torch
 
     for _ in range(WARMUP):
         fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / iters * 1e3
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        out.append((t1 - t0) / iters * 1e3)
+    return statistics.median(out)
 
 
 def kernel_k19(dev, rng, results):
@@ -7874,6 +8073,31 @@ def pydict_of(session, plan):
     return session.execute_to_pydict(plan)
 
 
+@contextlib.contextmanager
+def k18_route_log(name):
+    """While open, the join routes of every K18 launch through
+    ``fused_agg_input`` are gathered; a path that launched K18 then logs
+    them (a line ``k18_routes``: each distinct tuple of routes, inner join
+    first, with its launches)."""
+    from blaze_tpu_torch.core import kernels as K
+
+    fn = K.fused_agg_input
+    seen = {}
+
+    def logged(spec, columns, num_rows, joins, kernel=None):
+        key = "/".join(k18_routes(joins)) or "no join"
+        seen[key] = seen.get(key, 0) + 1
+        return fn(spec, columns, num_rows, joins, kernel)
+
+    K.fused_agg_input = logged
+    try:
+        yield
+    finally:
+        K.fused_agg_input = fn
+    if seen:
+        log(json.dumps({"phase": "k18_routes", "query": name, "routes": seen}))
+
+
 def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_path,
               collect=pydict_of, first_run=contextlib.nullcontext()):
     """A first run (inside the context ``first_run``), then one run with
@@ -7884,7 +8108,7 @@ def run_query(name, rows, session, plan, want, setup_s, info, profile, trace_pat
     from blaze_tpu_torch.utils import cuda_lib
 
     t0 = time.perf_counter()
-    with first_run:
+    with first_run, k18_route_log(name):
         warm = collect(session, plan)
     warm_s = time.perf_counter() - t0
     check_result(f"{name} (first run)", warm, want)
@@ -7947,6 +8171,7 @@ def profile_query(name, session, plan, want, trace_path=None, collect=pydict_of)
              if e.key in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize")}
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     k11 = [e for e in device if e.key.startswith("fused_chain")]
+    k18 = [e for e in device if e.key.startswith("fused_agg_input")]
     # K8's kernels (one now; the probe and scatter before), K1's and the
     # block-count scan they shared
     k8_k1 = {e.key[:60]: {"calls": e.count, "device_ms": e.self_device_time_total / 1e3}
@@ -7967,6 +8192,9 @@ def profile_query(name, session, plan, want, trace_path=None, collect=pydict_of)
                     "k11_device": {"calls": sum(e.count for e in k11),
                                    "device_ms": sum(e.self_device_time_total
                                                     for e in k11) / 1e3},
+                    "k18_device": {"calls": sum(e.count for e in k18),
+                                   "device_ms": sum(e.self_device_time_total
+                                                    for e in k18) / 1e3},
                     "k8_k1_device": k8_k1, "k6_k10_segmentation_device": k6_k10s,
                     "top_device": [{"name": e.key[:80], "calls": e.count,
                                     "device_ms": e.self_device_time_total / 1e3}
@@ -8052,6 +8280,12 @@ def main(device: str = "cuda") -> int:
     if sum(ours.values()) != 1 or any(k.startswith("Memset") for k in ours):
         raise AssertionError(f"a segment_ids call ran {seg['call_kernels']}, not one "
                              "kernel and no memset")
+    # K1 is one kernel a call and no memset, at each of its paths' shapes
+    for label, sh in next(r for r in results if r["name"] == "compact_planes")["shapes"].items():
+        ours = {k: c for k, c in sh["call_kernels"].items() if any(p in k for p in OURS)}
+        if sum(ours.values()) != 1 or any(k.startswith("Memset") for k in ours):
+            raise AssertionError(f"a compact_planes call at {label} ran {sh['call_kernels']}, "
+                                 "not one kernel and no memset")
     # 4. the paths: q01 (and on the mesh: q01_mesh1, q01_mesh2, q01_mesh8),
     # q67 (slot, sort and table routes), q06 and q47, q69 and q69_bloom, q96
     # (and q96_mesh), q89, q17 (slot, sort and table routes), q98, sort10M

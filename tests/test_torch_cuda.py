@@ -84,6 +84,36 @@ def test_compact_planes_kernel(dev, cap, n, keep):
     _equal(K.compact_planes_cuda(*args), K.compact_planes_plain(*args))
 
 
+@pytest.mark.parametrize("cap,n", [(4096, 1023), (4096, 1024), (4096, 1025), (1023, 1023),
+                                   (1024, 1024), (1025, 1025), (10000, 6143)])
+def test_compact_planes_tile_edges_kernel(dev, cap, n):
+    """K1 at a 1,024-row tile's edges (live rows one below, at and one above
+    a tile, the mask longer than the live rows), with planes of every
+    element size, more than 128 planes (the table in device memory) and a
+    mask that is not 16-byte aligned, against its plain version; one launch
+    a call."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.utils import cuda_lib
+
+    g = torch.Generator(device="cpu").manual_seed(cap * 7 + n)
+    datas = [torch.randint(-2**40, 2**40, (cap,), generator=g),
+             torch.randint(-2**20, 2**20, (cap,), generator=g).to(torch.int32),
+             torch.randint(-2**14, 2**14, (cap,), generator=g).to(torch.int16),
+             torch.randint(-100, 100, (cap,), generator=g).to(torch.int8)]
+    valids = [torch.rand(cap, generator=g) < 0.8 for _ in datas]
+    mask = (torch.rand(cap, generator=g) < 0.6) & (torch.arange(cap) < n)
+    for planes in (1, 40):
+        args = ([d.to(dev) for d in datas] * planes, [v.to(dev) for v in valids] * planes,
+                mask.to(dev))
+        before = cuda_lib.launch_counts()["compact_planes"]
+        _equal(K.compact_planes_cuda(*args), K.compact_planes_plain(*args))
+        assert cuda_lib.launch_counts()["compact_planes"] == before + 1
+    odd = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+    odd[1:] = mask.to(dev)
+    args = ([d.to(dev) for d in datas], [v.to(dev) for v in valids])
+    _equal(K.compact_planes_cuda(*args, odd[1:]), K.compact_planes_plain(*args, mask.to(dev)))
+
+
 @pytest.mark.parametrize("kinds", [("i64",), ("i32",), ("i64", "i32")])
 def test_murmur3_pmod_kernel(dev, kinds):
     from blaze_tpu_torch.exprs import spark_hash as H
@@ -1549,6 +1579,27 @@ def test_fused_agg_input_kernel(dev, case):
            k18_flat(K.fused_agg_input_plain(spec, cols, n, joins)))
 
 
+@pytest.mark.parametrize("route", ["dense", "bitmap", "search"])
+def test_fused_agg_input_routes_kernel(dev, route):
+    """K18 on each rank route against its plain version, bit for bit:
+    every battery case with a join that takes the route."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.exprs import fused_triton as FT
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+
+    checked = 0
+    for case in K18_CASES[:-1]:
+        d = k18_case(case, np.random.default_rng(sum(map(ord, case[0]))), E, T)
+        spec, cols, n, joins = k18_torch(d, dev)
+        if route not in [j[3].route for j in joins]:
+            continue
+        want = k18_flat(K.fused_agg_input_plain(spec, cols, n, joins))
+        _equal(k18_flat(K.fused_agg_input(spec, cols, n, joins, FT.fused_agg_kernel(spec))), want)
+        checked += 1
+    assert checked
+
+
 def test_fused_agg_input_launches_or_raises_and_never_takes_the_twin(dev, monkeypatch):
     """A CUDA batch launches K18 or raises (a build column left on the CPU,
     sorted keys of the wrong length); the plain version is never called."""
@@ -1557,20 +1608,24 @@ def test_fused_agg_input_launches_or_raises_and_never_takes_the_twin(dev, monkey
     from blaze_tpu_torch.ir import types as T
     from blaze_tpu_torch.utils import cuda_lib
 
-    d = k18_case(K18_CASES[-2], np.random.default_rng(3), E, T)
+    case = next(c for c in K18_CASES if c[3] == "q17")
+    d = k18_case(case, np.random.default_rng(3), E, T)
     spec, cols, n, joins = k18_torch(d, dev)
     want = k18_flat(K.fused_agg_input_plain(spec, cols, n, joins))
     monkeypatch.setattr(K, "fused_agg_input_plain", None)
     cuda_lib.reset_launch_counts()
     _equal(k18_flat(K.fused_agg_input(spec, cols, n, joins)), want)
     assert cuda_lib.launch_counts()["fused_agg_input"] == 1
-    (uniq, nk, bcols), second = joins
+    (uniq, nk, bcols, rank), second = joins
     with pytest.raises(ValueError, match="fused_agg_input"):
         K.fused_agg_input(spec, cols, n, [(uniq, nk, [c.__class__(c.dtype, c.data.cpu(),
                                                                    c.validity.cpu())
-                                                        for c in bcols]), second])
+                                                        for c in bcols], rank), second])
     with pytest.raises(ValueError, match="fused_agg_input"):
-        K.fused_agg_input(spec, cols, n, [(uniq[:-1], nk, bcols), second])
+        K.fused_agg_input(spec, cols, n, [(uniq[:-1], nk, bcols, rank), second])
+    # a join without its rank route
+    with pytest.raises(ValueError, match="fused_agg_input"):
+        K.fused_agg_input(spec, cols, n, [(uniq, nk, bcols), second])
 
 
 @pytest.mark.parametrize("case", RANGE_CASES, ids=[c[0] for c in RANGE_CASES])

@@ -33,6 +33,7 @@ compared by its repr (-0.0 and NaN spelled out).
 import ast
 import dataclasses
 import decimal
+import itertools
 import types
 
 import numpy as np
@@ -63,6 +64,8 @@ from blaze_tpu_torch.ops import agg as AGG
 from blaze_tpu_torch.ops import agg_device as AD
 from blaze_tpu_torch.ops.joins import keymap as KM
 from chip_smoke import K18_CASES, k18_case, k18_spec, k18_torch
+
+ROUTES = (KM.RANK_DENSE, KM.RANK_BITMAP, KM.RANK_SEARCH)
 from tests.test_torch_joins import BATCH, SALES17, SCHEMAS, _q06, _q17, _q47, _slices, \
     _tables, _tables_wcost
 from tests.test_torch_slice import SCHEMA as Q01_SCHEMA
@@ -199,8 +202,9 @@ def test_paths_match_jax(query, mode, tmp_path):
         fact = parts["store_sales" if njoins else "store_returns"]
         assert calls == sum(len(p) for p in fact)
         assert counters.get("fused_join_stages", 0) == njoins * len(fact)
-    for kernel in FT._AGG_KERNELS.values():  # every K18 generated so far parses
-        ast.parse(kernel.source)
+    for kernel in FT._AGG_KERNELS.values():  # every K18 generated so far parses,
+        for routes in itertools.product(ROUTES, repeat=len(kernel.spec.joins)):  # any routes
+            ast.parse(kernel.source_for(routes))
 
 
 # -- batch by batch: the fused partial aggregate of both packages ----------------------
@@ -269,9 +273,10 @@ def _port_agger(d, **conf):
     op = AGG.AggExec(AGG._SchemaSource(spec.child_schema), E.AggExecMode.HASH_AGG, groupings,
                      from_foreign(_aggs(d, JE, JN, JT)))
     fused = []
-    for j, (uniq, nk, bcols) in zip(spec.joins, joins):
+    for j, (uniq, nk, bcols, rank) in zip(spec.joins, joins):
         bmap = types.SimpleNamespace(sorted_keys=uniq[:nk].numpy(),
                                      device_keys=lambda dev, _u=uniq: _u,
+                                     join_rank=lambda _r=rank: _r,
                                      batch=types.SimpleNamespace(columns=bcols))
         fused.append((j, bmap))
     return AD.DevicePartialAgger(op, spec.child_schema, Config(**conf),
@@ -687,15 +692,21 @@ def test_generated_source_parses(case):
     """Every K18 of the battery generates Python that parses, with one
     load per input plane it reads and one gather per build plane a later
     expression reads; the kernel cache returns one kernel per spec."""
-    spec = k18_spec(k18_case(case, np.random.default_rng(1), E, T))
+    spec, _cols, _n, joins = k18_torch(k18_case(case, np.random.default_rng(1), E, T), "cpu")
     kernel = FT.fused_agg_kernel(spec)
     assert FT.fused_agg_kernel(dataclasses.replace(spec)) is kernel
-    tree = ast.parse(kernel.source)
+    source = kernel.source_for(tuple(j[3].route for j in joins))  # the routes its builds take
+    tree = ast.parse(source)
     fn = [n for n in tree.body if isinstance(n, ast.FunctionDef) and
           n.name == "fused_agg_input"]
     assert len(fn) == 1
     gen = kernel.gen
     for j, used in enumerate(gen.join_used):
         for c in used:
-            assert f"b{j}_{c}_ptr" in kernel.source or f"bv{j}_{c}_ptr" in kernel.source
-    assert kernel.source.count("tl.store(") == len(gen.stores)
+            assert f"b{j}_{c}_ptr" in source or f"bv{j}_{c}_ptr" in source
+    assert source.count("tl.store(") == len(gen.stores)
+    for refused in ("source", "path"):  # no source without its joins' routes
+        with pytest.raises(TypeError):
+            getattr(kernel, refused)
+    with pytest.raises(TypeError):
+        kernel.compiled()

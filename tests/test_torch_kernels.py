@@ -85,6 +85,43 @@ def test_compact_planes_matches_jax(cap, n, keep, nulls):
     _assert_same(jd[0], wd[0])
 
 
+@pytest.mark.parametrize("cap,n,keep,dtypes", [
+    (4096, 4000, 0.4, ("int8", "int16", "int32", "int64") * 9),  # 72 planes
+    (1025, 1025, 0.0, ("int8", "int16", "int32", "int64")),     # all false
+    (1024, 1000, 1.0, ("int8", "uint8", "float32", "float64")),
+    (1023, 900, 0.6, ("int16",) * 3 + ("bool",)),
+])
+def test_compact_planes_sizes_and_many_planes_match_jax(cap, n, keep, dtypes):
+    """K1's twin against the reference on 1-, 2-, 4- and 8-byte planes,
+    more than 32 planes (the 32 a launch of K1's first kernel), an all-false
+    mask and sizes at a 1,024-row tile's edges."""
+    rng = np.random.default_rng(cap + len(dtypes))
+    datas, valids = [], []
+    for dt in dtypes:
+        d = np.zeros(cap, dt)
+        if np.dtype(dt).kind in "iu":
+            info = np.iinfo(dt)
+            d[:n] = rng.integers(info.min, info.max, n, endpoint=True)
+        elif dt == "bool":
+            d[:n] = rng.random(n) < 0.5
+        else:
+            d[:n] = rng.normal(size=n) * 1e3
+        v = np.zeros(cap, bool)
+        v[:n] = rng.random(n) >= 0.1
+        d[~v] = 0
+        datas.append(d)
+        valids.append(v)
+    mask = np.zeros(cap, bool)
+    mask[:n] = rng.random(n) < keep
+    jc, jd, jv = JK._compact(tuple(jnp.asarray(d) for d in datas),
+                             tuple(jnp.asarray(v) for v in valids), jnp.asarray(mask))
+    tc, td, tv = K.compact_planes_plain([_t(d) for d in datas], [_t(v) for v in valids],
+                                        _t(mask))
+    assert int(jc) == int(tc) == int(mask.sum())
+    for a, b in zip(jd + jv, td + tv):
+        _assert_same(a, b)
+
+
 # -- K2 murmur3_pmod -----------------------------------------------------------
 
 
