@@ -2833,47 +2833,115 @@ def mesh_all_to_all_plain(slot_planes, routes, chunk: int, device, dtypes,
     return outs, live, counts_out
 
 
+# csrc/mesh.cu blz_mesh_all_to_all's argument words: the header, then
+# route[n], src[n * np] and dst[np] from _MW_PTRS
+(_MW_N, _MW_NP, _MW_N8, _MW_N4, _MW_N2, _MW_N1, _MW_G, _MW_SCAP, _MW_ROUND, _MW_TILE,
+ _MW_CHUNK, _MW_LIVE, _MW_COUNTS, _MW_DEV_TABLE, _MW_HOST_TABLE, _MW_STREAM,
+ _MW_PTRS) = range(17)
+# csrc/mesh.cu: the by-value pointer table's bounds, planes a launch
+_MESH_MAX_SLOTS, _MESH_MAX_SRC, _MESH_MAX_PLANES, _MESH_SMEM_PLANES = 64, 256, 64, 256
+_MESH_SIGS = threading.local()
+
+
+def _mesh_signature(n: int, G: int, scap: int, chunk: int, tile: bool, dtypes):
+    """K17's per-signature plan: the planes' order by element size (8, 4,
+    2, 1 bytes; csrc/mesh.cu's groups), the count of each size, whether the
+    pointers go by value, and the staged table's words. Checked once a
+    (dtypes, n, G, scap, chunk, mode) signature, per thread."""
+    sigs = getattr(_MESH_SIGS, "by_sig", None)
+    if sigs is None:
+        sigs = _MESH_SIGS.by_sig = {}
+    key = (n, G, scap, chunk, tile, *dtypes)
+    plan = sigs.get(key)
+    if plan is not None:
+        return plan
+    sizes = [dt.itemsize for dt in dtypes]
+    if any(z not in (1, 2, 4, 8) for z in sizes):
+        raise TypeError(f"mesh_all_to_all: element sizes {sizes}")
+    np_ = len(dtypes)
+    order = sorted(range(np_), key=lambda p: -sizes[p])
+    by_value = n <= _MESH_MAX_SLOTS and n * np_ <= _MESH_MAX_SRC and np_ <= _MESH_MAX_PLANES
+    table = (0 if tile else 2 * n * n * G) + (0 if by_value else n + n * np_ + np_)
+    plan = (order, [sizes.count(z) for z in (8, 4, 2, 1)], table)
+    if len(sigs) >= 64:
+        sigs.clear()
+    sigs[key] = plan
+    return plan
+
+
+def _mesh_plane_error(sp, dtypes, p, dt, device):
+    if p.dtype is not dt:
+        raise TypeError(f"mesh_all_to_all: slot planes {[q.dtype for q in sp]}, "
+                        f"expected {list(dtypes)}")
+    raise ValueError(f"mesh_all_to_all: a plane {tuple(p.shape)} on {p.device}, expected a "
+                     f"contiguous one-dimensional CUDA plane on {device}")
+
+
 def mesh_all_to_all_cuda(slot_planes, routes, chunk: int, device, dtypes,
                          counts: Optional[np.ndarray] = None, G: int = 1, scap: int = 1,
                          rnd: int = 0):
     """K17 on the card (csrc/mesh.cu): same contract as
     :func:`mesh_all_to_all_plain`, one launch for every plane of every
-    slot, its pointer table (and the count matrix with its prefix) uploaded
-    as one int64 tensor."""
+    slot (a launch for each 256 planes past that). The output planes and the live plane are one allocation a dtype;
+    the count matrix and its prefix go to the card through the library's
+    pinned buffer (with the pointers, past the parameter limit) into a
+    small int64 tensor whose tail is the returned receive counts, written
+    by the kernel (exchange mode; zeroed here and counted by atomics in
+    tile mode). The argument words go in a reused buffer."""
     n = len(slot_planes)
     tile, total = _mesh_geometry(n, chunk, counts, G, scap)
-    planes = [p for sp in slot_planes if sp is not None for p in sp]
-    cuda_lib.require_cuda("mesh_all_to_all", *planes,
-                          *[r for r in routes if r is not None])
+    if len(dtypes) > _MESH_SMEM_PLANES:  # a launch for each 256 planes
+        parts = [mesh_all_to_all_cuda(
+            [None if sp is None else sp[i:i + _MESH_SMEM_PLANES] for sp in slot_planes],
+            routes, chunk, device, dtypes[i:i + _MESH_SMEM_PLANES], counts, G, scap, rnd)
+            for i in range(0, len(dtypes), _MESH_SMEM_PLANES)]
+        return [o for outs, _l, _c in parts for o in outs], parts[0][1], parts[0][2]
+    order, by_size, table = _mesh_signature(n, G, scap, chunk, tile, dtypes)
+    np_ = len(dtypes)
+    device = torch.device(device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device() if device.type == "cuda" else -1
+    if index < 0:
+        raise ValueError(f"mesh_all_to_all: outputs for {device}, expected CUDA")
+    words = [n, np_, *by_size, G, scap, rnd, int(tile), chunk, 0, 0, 0, 0, 0]
+    words += [0] * n
     for sp, rt in zip(slot_planes, routes):
         if (sp is None) != (rt is None):
             raise ValueError("mesh_all_to_all: a slot with planes and no route, or the reverse")
         if sp is None:
+            words += [0] * np_
             continue
-        if len(sp) != len(dtypes) or any(p.dtype != dt for p, dt in zip(sp, dtypes)):
-            raise TypeError(f"mesh_all_to_all: slot planes {[p.dtype for p in sp]}, "
-                            f"expected {list(dtypes)}")
-        if rt.dtype != torch.int64 or rt.dim() != 1 or (tile and rt.shape[0] != chunk):
-            raise ValueError(f"mesh_all_to_all: route {rt.dtype} of {tuple(rt.shape)}")
+        if len(sp) != np_:
+            raise TypeError(f"mesh_all_to_all: {len(sp)} slot planes, expected {np_}")
+        # get_device() is -1 off the card: one check for the device and CUDA
+        for p, dt in zip(sp, dtypes):
+            if p.dtype is not dt or p.get_device() != index or p.dim() != 1 or \
+                    not p.is_contiguous():
+                _mesh_plane_error(sp, dtypes, p, dt, device)
+        if rt.dtype is not torch.int64 or rt.get_device() != index or rt.dim() != 1 or \
+                not rt.is_contiguous() or (tile and rt.shape[0] != chunk):
+            raise ValueError(f"mesh_all_to_all: route {rt.dtype} of {tuple(rt.shape)} "
+                             f"on {rt.device}, expected a contiguous int64 plane on {device}")
         if tile and any(p.shape[0] < chunk for p in sp):
             raise ValueError("mesh_all_to_all: a tile-mode plane shorter than the tile")
-        _check_planes("mesh_all_to_all", sp)
-    outs = [torch.empty(total, dtype=dt, device=device) for dt in dtypes]
-    live = torch.empty(total, dtype=torch.bool, device=device)
-    live_counts = torch.zeros(n, dtype=torch.int64, device=device)
-    words: List[int] = []
+        words += [sp[p].data_ptr() for p in order]
+    words[_MW_PTRS:_MW_PTRS + n] = [0 if r is None else r.data_ptr() for r in routes]
+    outs, ptrs = _alloc_planes(list(dtypes) + [torch.bool], total, device)
+    live = outs.pop()
+    words += [ptrs[p] for p in order]
+    tab = torch.empty(table + n, dtype=torch.int64, device=device)
+    live_counts = tab[table:]
+    host = None
     if not tile:
         ct = np.ascontiguousarray(counts, dtype=np.int64)
-        words += ct.ravel().tolist() + (np.cumsum(ct, 1) - ct).ravel().tolist()
-    words += [r.data_ptr() if r is not None else 0 for r in routes]
-    for sp in slot_planes:
-        words += [p.data_ptr() for p in sp] if sp is not None else [0] * len(dtypes)
-    words += [o.data_ptr() for o in outs]
-    words += [torch.empty((), dtype=dt).element_size() for dt in dtypes]
-    table = torch.tensor(words, dtype=torch.int64).to(device)
-    err = cuda_lib.library().blz_mesh_all_to_all(
-        table.data_ptr(), n, len(dtypes), 0 if tile else n * G, G, scap, rnd, int(tile),
-        chunk, live.data_ptr(), live_counts.data_ptr(), cuda_lib.stream_of(device))
+        host = np.concatenate([ct.ravel(), (np.cumsum(ct, 1) - ct).ravel()])
+    else:
+        live_counts.zero_()
+    words[_MW_LIVE], words[_MW_COUNTS], words[_MW_DEV_TABLE] = \
+        ptrs[-1], live_counts.data_ptr(), tab.data_ptr()
+    words[_MW_HOST_TABLE] = 0 if host is None else host.ctypes.data
+    words[_MW_STREAM] = cuda_lib.stream_handle(index)
+    err = cuda_lib.library().blz_mesh_all_to_all(_words(words))
     cuda_lib.check(err, "mesh_all_to_all")
     cuda_lib.LAUNCHES["mesh_all_to_all"] += 1
     return outs, live, live_counts

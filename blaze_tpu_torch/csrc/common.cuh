@@ -1,6 +1,7 @@
 // Shared pieces of the port's hand-written Hopper kernels: the plain C
-// export macro, launch geometry, the column table of the row hashes
-// (murmur3.cu, xxhash64.cu), the murmur3 rounds (murmur3.cu, bloom.cu),
+// export macro, the pinned staging of host tables (gather.cu, mesh.cu),
+// launch geometry, the column table of the XXH64 row hash (xxhash64.cu),
+// the murmur3 rounds (murmur3.cu, bloom.cu),
 // the key kinds and integer load of the key passes (sort.cu,
 // range_part.cu), the block-level stable rank of slot_agg.cu's
 // compaction of the present slots, the decoupled look-back
@@ -71,7 +72,7 @@ __device__ __forceinline__ bool blz_last_block(int* done) {
        blz_base += (int64_t)gridDim.x * blockDim.x)                                     \
     for (int64_t i = blz_base + threadIdx.x, blz_once = 0; blz_once < 1; ++blz_once)
 
-// The columns a row hash folds, passed to the kernel by value: k planes
+// The columns XXH64's row hash folds, passed to the kernel by value: k planes
 // of 4-byte (wide 0) or 8-byte (wide 1) words, each with its validity
 // bytes (a null entry: every row valid).
 #define BLZ_MAX_KEYS 32
@@ -94,6 +95,13 @@ static inline KeySet blz_key_set(int k, const void* const* datas,
   }
   return ks;
 }
+
+// Copies ``bytes`` of host memory to ``dev`` on ``stream`` through the
+// library's reused pinned buffers (a ring of four, gather.cu):
+// asynchronous, and a buffer is refilled only after its previous copy has
+// finished. For the tables past a kernel's parameter limit (K7) and K17's
+// count matrix.
+int blz_stage(const void* src, size_t bytes, void* dev, cudaStream_t stream);
 
 // Murmur3_x86_32's rounds, as Spark's Murmur3_x86_32 takes them: the
 // row hash K2 (murmur3.cu) and the bloom probe K16's hashLong (bloom.cu).

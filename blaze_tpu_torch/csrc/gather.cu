@@ -28,8 +28,8 @@
 // per output row, every plane of the row in the same thread (consecutive
 // threads write consecutive rows of a plane); planes of 1, 2, 4 or 8
 // bytes. Tables go by value as kernel parameters (under 4 KB); a table
-// past that (many sources or partitions) is staged through a pinned host
-// buffer the library reuses, never uploaded from pageable memory.
+// past that (many sources or partitions) is staged through the library's
+// reused pinned host buffers, never uploaded from pageable memory.
 //
 // K6's design (blz_gather_planes): random gathers bound it (a 32-byte
 // sector a row and plane), so it keeps many in flight and keeps the
@@ -209,45 +209,53 @@ BLZ_EXPORT int blz_gather_planes(const long long* w) {
 #include <string.h>
 
 namespace {
+// A ring of pinned buffers, each refilled only after its last copy has
+// finished: a caller waits on the copy BLZ_PINNED_RING stagings back,
+// not on the one just before (which runs behind the previous kernel).
+#define BLZ_PINNED_RING 4
 struct BlzPinned {
-  std::mutex mu;
   void* host = nullptr;
   size_t cap = 0;
   cudaEvent_t done = nullptr;
   bool pending = false;
 };
-BlzPinned g_pinned;
+std::mutex g_pinned_mu;
+BlzPinned g_pinned[BLZ_PINNED_RING];
+int g_pinned_next = 0;
 }  // namespace
 
-// Copies ``bytes`` of ``src`` (host) to ``dev`` on ``stream`` through one
-// pinned buffer: the copy is asynchronous, and the buffer is refilled only
-// after the previous copy out of it has finished.
-static int blz_stage(const void* src, size_t bytes, void* dev, cudaStream_t stream) {
-  std::lock_guard<std::mutex> guard(g_pinned.mu);
+// Copies ``bytes`` of ``src`` (host) to ``dev`` on ``stream`` through the
+// next pinned buffer of the ring: the copy is asynchronous, and a buffer
+// is refilled only after its previous copy has finished (common.cuh; K7's
+// tables here, K17's in mesh.cu).
+int blz_stage(const void* src, size_t bytes, void* dev, cudaStream_t stream) {
+  std::lock_guard<std::mutex> guard(g_pinned_mu);
+  BlzPinned& b = g_pinned[g_pinned_next];
+  g_pinned_next = (g_pinned_next + 1) % BLZ_PINNED_RING;
   cudaError_t err = cudaSuccess;
-  if (g_pinned.done == nullptr) {
-    err = cudaEventCreateWithFlags(&g_pinned.done, cudaEventDisableTiming);
+  if (b.done == nullptr) {
+    err = cudaEventCreateWithFlags(&b.done, cudaEventDisableTiming);
     if (err != cudaSuccess) return (int)err;
   }
-  if (g_pinned.pending) {
-    err = cudaEventSynchronize(g_pinned.done);
+  if (b.pending) {
+    err = cudaEventSynchronize(b.done);
     if (err != cudaSuccess) return (int)err;
-    g_pinned.pending = false;
+    b.pending = false;
   }
-  if (bytes > g_pinned.cap) {
-    if (g_pinned.host != nullptr) cudaFreeHost(g_pinned.host);
-    g_pinned.host = nullptr;
-    g_pinned.cap = 0;
+  if (bytes > b.cap) {
+    if (b.host != nullptr) cudaFreeHost(b.host);
+    b.host = nullptr;
+    b.cap = 0;
     const size_t want = bytes < (size_t)65536 ? (size_t)65536 : 2 * bytes;
-    err = cudaHostAlloc(&g_pinned.host, want, cudaHostAllocDefault);
+    err = cudaHostAlloc(&b.host, want, cudaHostAllocDefault);
     if (err != cudaSuccess) return (int)err;
-    g_pinned.cap = want;
+    b.cap = want;
   }
-  memcpy(g_pinned.host, src, bytes);
-  err = cudaMemcpyAsync(dev, g_pinned.host, bytes, cudaMemcpyHostToDevice, stream);
-  if (err == cudaSuccess) err = cudaEventRecord(g_pinned.done, stream);
+  memcpy(b.host, src, bytes);
+  err = cudaMemcpyAsync(dev, b.host, bytes, cudaMemcpyHostToDevice, stream);
+  if (err == cudaSuccess) err = cudaEventRecord(b.done, stream);
   if (err != cudaSuccess) return (int)err;
-  g_pinned.pending = true;
+  b.pending = true;
   return 0;
 }
 

@@ -10,9 +10,12 @@ CUDA tensor and runs ``murmur3_pmod_plain`` on a CPU tensor;
 
 - multi-column hashing chains: each row's running hash is the seed for the
   next column; a NULL value leaves the hash unchanged;
-- int8/16/32, date and bool hash as a 4-byte int (hashInt), float32 as its
-  4-byte bit pattern; int64, timestamp, decimal(p<=18) (unscaled) hash as
-  8 bytes (hashLong: low word, then high word), float64 as its bit pattern;
+- int8/16/32, date and bool hash as a 4-byte int (hashInt of the value
+  sign-extended; a bool is 0 or 1), float32 as its 4-byte bit pattern;
+  int64, timestamp, decimal(p<=18) (unscaled) hash as 8 bytes (hashLong:
+  low word, then high word), float64 as its bit pattern. K2 and its twin
+  read bool, int8 and int16 planes at their own width (``hash_words``);
+  K15 takes them widened to int32;
 - partition id = ((int32) hash mod n + n) mod n;
 - XXH64 hashes a 4-byte word with XXH64's 4-byte tail round and an
   8-byte word with its 8-byte round, then the avalanche; floats hash as
@@ -26,6 +29,7 @@ overflow is not relied on, so XXH64's 64-bit words are (hi, lo) pairs of
 
 from __future__ import annotations
 
+import threading
 from typing import List, Sequence, Tuple
 
 import torch
@@ -48,15 +52,23 @@ def hash_kind(dt: T.DataType) -> str:
 
 
 def hash_words(data: torch.Tensor, kind: str) -> torch.Tensor:
-    """The column's hash words: int32 for "i32" (narrow ints and bools
-    widened, float32 bit-cast), int64 for "i64" (float64 bit-cast)."""
+    """The column's hash words at their own width: a bool, int8, int16 or
+    int32 plane as it is (K2 and its twin sign-extend to 32 bits; a bool is
+    0 or 1), float32 bit-cast to int32, float64 to int64, an "i64" integer
+    plane as int64."""
     if kind == "i64":
         if data.dtype == torch.float64:
             return data.view(torch.int64)
-        return data.to(torch.int64)
+        return data if data.dtype == torch.int64 else data.to(torch.int64)
     if data.dtype == torch.float32:
         return data.view(torch.int32)
-    return data.to(torch.int32)
+    return data
+
+
+def xxhash_words(words: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``hash_words``' planes as K15 takes them: a bool, int8 or int16
+    plane widened to int32 (the same hashInt words)."""
+    return [w.to(torch.int32) if w.element_size() < 4 else w for w in words]
 
 
 # -- plain version (int64 arithmetic on 32-bit lanes) --------------------------
@@ -128,35 +140,103 @@ def murmur3_pmod_plain(words: Sequence[torch.Tensor],
 
 # -- K2 on the card ------------------------------------------------------------
 
+# csrc/murmur3.cu blz_murmur3_pmod's argument words: the header, then
+# (data, validity, element bytes) a column from _HW_COLS
+_HW_K, _HW_N, _HW_SEED, _HW_NPARTS, _HW_HASH, _HW_PID, _HW_STREAM, _HW_COLS = range(8)
+# csrc/common.cuh BLZ_MAX_KEYS
+_MAX_KEYS = 32
+# the plane dtypes each kind hashes: "i32" as hashInt of the value
+# sign-extended to 32 bits (a bool is 0 or 1), "i64" as hashLong
+_KIND_DTYPES = {"i32": (torch.bool, torch.int8, torch.int16, torch.int32),
+                "i64": (torch.int64,)}
+
+
+class Murmur3Pack:
+    """K2's argument words for one key signature (the device, nparts,
+    whether the hash is written too, each column's kind and word dtype),
+    checked and packed once; each call then checks its planes' device,
+    shape and validity dtype, writes only the row count, the planes' and
+    outputs' pointers and the stream into the words in place, and allocates
+    one output (the pids, or the hash and the pids as the two rows of one
+    allocation). Packs live per thread, one a signature
+    (``murmur3_pmod_cuda``)."""
+
+    def __init__(self, index: int, words: Sequence[torch.Tensor],
+                 valids: Sequence[torch.Tensor], kinds: Sequence[str], nparts: int,
+                 with_hash: bool):
+        k = len(words)
+        if index < 0:
+            raise ValueError("murmur3_pmod: planes off the card, expected CUDA")
+        if not 0 < k <= _MAX_KEYS or len(valids) != k or len(kinds) != k:
+            raise ValueError(f"murmur3_pmod: {k} words, {len(valids)} validities, "
+                             f"{len(kinds)} kinds (1..{_MAX_KEYS} columns)")
+        for w, kind in zip(words, kinds):
+            if w.dtype not in _KIND_DTYPES.get(kind, ()):
+                raise TypeError(f"murmur3_pmod: word {w.dtype}/{kind}")
+        if nparts <= 0 or nparts >= 2 ** 31:
+            raise ValueError(f"murmur3_pmod: nparts={nparts}")
+        self.index, self.with_hash = index, with_hash
+        self.device = torch.device("cuda", index)
+        self.fn = cuda_lib.library().blz_murmur3_pmod
+        self.words = (cuda_lib.ctypes.c_longlong * (_HW_COLS + 3 * k))()
+        self.words[_HW_K], self.words[_HW_SEED], self.words[_HW_NPARTS] = k, SEED, nparts
+        for c, w in enumerate(words):
+            self.words[_HW_COLS + 3 * c + 2] = w.element_size()
+
+    def launch(self, words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor], n: int):
+        """(hash or None, pids) of the first ``n`` rows: one K2 launch."""
+        if n <= 0:
+            raise ValueError(f"murmur3_pmod: n={n}")
+        w, index, at = self.words, self.index, _HW_COLS
+        for d, v in zip(words, valids):
+            # get_device() is -1 off the card: one check for the device and CUDA
+            if d.get_device() != index or v.get_device() != index or \
+                    v.dtype is not torch.bool or d.dim() != 1 or v.dim() != 1 or \
+                    not d.is_contiguous() or not v.is_contiguous() or \
+                    d.numel() < n or v.numel() < n:
+                raise ValueError(f"murmur3_pmod: planes {d.dtype}{tuple(d.shape)} on "
+                                 f"{d.device} and {v.dtype}{tuple(v.shape)} on {v.device}, "
+                                 f"expected contiguous CUDA planes on cuda:{index} of "
+                                 f">= {n} rows")
+            w[at], w[at + 1] = d.data_ptr(), v.data_ptr()
+            at += 3
+        if self.with_hash:
+            out = torch.empty((2, (n + 3) // 4 * 4), dtype=torch.int32, device=self.device)
+            hash_out, pid_out = out[0, :n], out[1, :n]
+            w[_HW_HASH] = out.data_ptr()
+            w[_HW_PID] = w[_HW_HASH] + out.shape[1] * 4
+        else:
+            hash_out = None
+            pid_out = torch.empty(n, dtype=torch.int32, device=self.device)
+            w[_HW_HASH], w[_HW_PID] = 0, pid_out.data_ptr()
+        w[_HW_N] = n
+        w[_HW_STREAM] = cuda_lib.stream_handle(index)
+        cuda_lib.check(self.fn(w), "murmur3_pmod")
+        cuda_lib.LAUNCHES["murmur3_pmod"] += 1
+        return hash_out, pid_out
+
+
+_PACKS = threading.local()
+
 
 def murmur3_pmod_cuda(words: Sequence[torch.Tensor],
                       valids: Sequence[torch.Tensor], kinds: Sequence[str],
                       n: int, nparts: int, with_hash: bool = True):
     """K2 (csrc/murmur3.cu): same contract as :func:`murmur3_pmod_plain`
-    (the hash output is skipped when ``with_hash`` is False)."""
-    cuda_lib.require_cuda("murmur3_pmod", *words, *valids)
-    for w, v, kind in zip(words, valids, kinds):
-        want = torch.int64 if kind == "i64" else torch.int32
-        if w.dtype != want or v.dtype != torch.bool or w.shape[0] < n \
-                or v.shape[0] < n:
-            raise TypeError(f"murmur3_pmod: word {w.dtype}/{kind}, validity "
-                            f"{v.dtype}, rows {w.shape[0]} for n={n}")
-    if n <= 0 or nparts <= 0:
-        raise ValueError(f"murmur3_pmod: n={n}, nparts={nparts}")
-    lib = cuda_lib.library()
-    device = valids[0].device
-    hash_out = torch.empty(n, dtype=torch.int32, device=device) if with_hash else None
-    pid_out = torch.empty(n, dtype=torch.int32, device=device)
-    datas, _k1 = cuda_lib.ptr_array(words)
-    vptrs, _k2 = cuda_lib.ptr_array(valids)
-    wide, _k3 = cuda_lib.int_array([1 if k == "i64" else 0 for k in kinds])
-    err = lib.blz_murmur3_pmod(
-        len(words), datas, vptrs, wide, n, SEED, nparts,
-        hash_out.data_ptr() if hash_out is not None else None,
-        pid_out.data_ptr(), cuda_lib.stream_of(device))
-    cuda_lib.check(err, "murmur3_pmod")
-    cuda_lib.LAUNCHES["murmur3_pmod"] += 1
-    return hash_out, pid_out
+    (the hash output is None when ``with_hash`` is False). ``words`` are
+    ``hash_words``' planes at their own width; the signature's checks and
+    argument words are kept in a :class:`Murmur3Pack`."""
+    packs = getattr(_PACKS, "by_sig", None)
+    if packs is None:
+        packs = _PACKS.by_sig = {}
+    index = valids[0].get_device() if valids else -1
+    sig = (index, nparts, with_hash, *kinds, *[w.dtype for w in words])
+    pack = packs.get(sig)
+    if pack is None:
+        if len(packs) >= 64:
+            packs.clear()
+        pack = packs[sig] = Murmur3Pack(index, words, valids, kinds, nparts, with_hash)
+    return pack.launch(words, valids, n)
 
 
 def murmur3_hashes(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],

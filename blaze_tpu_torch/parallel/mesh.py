@@ -393,10 +393,7 @@ class MeshBatchExchange:
         for s in live_slots:
             slot_planes[s] = [p for c in shard_batches[s].columns for p in _column_planes(c)]
 
-        def isz(dt):
-            return torch.empty((), dtype=dt).element_size()
-
-        slot_bytes = 1 + sum(sum(isz(dt) for dt in cd) + 1 for cd in col_dtypes)
+        slot_bytes = 1 + sum(sum(dt.itemsize for dt in cd) + 1 for cd in col_dtypes)
         budget = int(conf.mesh_exchange_round_bytes)
         gran = 512
         while gran > 8 and Rpad * gran * slot_bytes > budget:
@@ -431,7 +428,7 @@ class MeshBatchExchange:
             outs, live, recv = _exchange_compact_step(self.mesh, slot_planes, routes, dtypes,
                                                       counts, G, scap, t)
             self.last_recv_counts.append(recv)
-            self.last_wire_bytes += n * seg_len * (1 + sum(isz(dt) for dt in dtypes))
+            self.last_wire_bytes += n * seg_len * (1 + sum(dt.itemsize for dt in dtypes))
             # each reducer's rows of this round: in slot d's buffer, a run
             # of c rows at every peer chunk's segment g (K7 over those runs)
             c_live = np.clip(counts - t * scap, 0, scap)        # (n, Rpad)
@@ -452,7 +449,7 @@ class MeshBatchExchange:
         cap = conf.capacity_for(max([b.num_rows for b in shard_batches if b is not None]
                                     or [1]))
         self.last_wire_bytes_uncompacted = n * n * cap * (
-            1 + sum(isz(dt) for dt in dtypes))
+            1 + sum(dt.itemsize for dt in dtypes))
 
         def group(planes):
             """The exchange's flat plane list as (data planes, validity) a

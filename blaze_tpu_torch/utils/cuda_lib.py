@@ -210,8 +210,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     # the argument words (csrc/compact.cu blz_compact_planes; core/kernels.py _CW_*)
     "blz_compact_planes": [_PLL],
-    # k, datas, valids, wide, n, seed, nparts, hash_out, pid_out, stream
-    "blz_murmur3_pmod": [_I, _PP, _PP, _PI, _I64, _U32, _I32, _P, _P, _P],
+    # the argument words (csrc/murmur3.cu; exprs/spark_hash.py _HW_*)
+    "blz_murmur3_pmod": [_PLL],
     "blz_slot_agg": [
         _I, _PP, _PP, _PI, _PLL, _PLL, _PLL,  # k, keys, kvalids, key_size, bases, sizes,
                                              # strides
@@ -269,9 +269,8 @@ _SIGNATURES = {
     "blz_xxhash64": [_I, _PP, _PP, _PI, _I64, _I64, _U64, _P, _P],
     # values, n, words, k, bit_size, out, stream
     "blz_bloom_probe": [_P, _I64, _P, _I, _I64, _P, _P],
-    # table, n, nplanes, rpad, G, scap, round, tile, chunk, live_out,
-    # live_counts, stream
-    "blz_mesh_all_to_all": [_P, _I, _I, _I64, _I64, _I64, _I64, _I, _I64, _P, _P, _P],
+    # the argument words (csrc/mesh.cu; core/kernels.py _MW_*)
+    "blz_mesh_all_to_all": [_PLL],
     # the argument words (csrc/passthrough.cu BLZ_PASS_W_*)
     "blz_passthrough": [_PLL],
 }

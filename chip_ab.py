@@ -7,6 +7,8 @@ comparisons on one NVIDIA GPU.
                        [--trace=DIR]
     python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k3_k4,k10,limbs,k12,k19,k5,k7,k8,k11
                        [--shapes DIR]
+    python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k2,k17 [--shapes DIR]
+    python3 chip_ab.py [--tree DIR] --resources=murmur3,mesh
 
 Paths: q01, q01_mesh1, q01_mesh2, q01_mesh8, q67, q67_sort, q67_table,
 q69, q69_bloom, q06, q47, q96, q96_mesh, q17, q17_sort, q17_table, q89,
@@ -22,12 +24,22 @@ kernel: its shape, CUDA-event ms, device ms, the wrapper's host ms, plain
 ms (and the plain chain's device ms), library ms, bound and extra shapes,
 whichever the checkout's phase records (``k8``: q96's three probes, q69's
 date probe and q06's all-hit batch; ``k11``: q69's and q96's scan filters,
-with the generated kernel's own device ms).
+with the generated kernel's own device ms; ``k2``: cust_spend's, q67's and
+q01's exchange batches; ``k17``: sort10M_mesh's and q01_mesh8's exchanges
+with the 32-byte sectors of their gathers). A process that has run
+torch.profiler launches slower from then on, so the k2 and k17 phases take
+the wrapper's host ms first; give each phase its own process to keep its
+host ms clear of an earlier phase's profiler.
 
 ``--shapes=DIR`` imports ``chip_smoke`` from the checkout at DIR in place
 of ``--tree``'s (the package still from ``--tree``): an older tree's
 kernels at a newer tree's shapes and cases (its ``kernel_k1`` and
 ``kernel_k18`` run against a tree from before K18's routes).
+
+``--resources=NAME,...`` builds DIR's kernels and prints, for each kernel
+whose name holds one of the names, ptxas's registers, stack frame and
+spills and the local-memory loads and stores (LDL, STL) in its SASS
+(``cuobjdump``), one JSON line a kernel.
 
 Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
 (default: this one) and, for each named path, stages its data once (as
@@ -59,7 +71,8 @@ import time
 
 def _args(argv):
     opts = {"tree": os.path.dirname(os.path.abspath(__file__)), "label": "",
-            "paths": "q67_sort,q69", "runs": "5", "kernels": "", "trace": "", "shapes": ""}
+            "paths": "q67_sort,q69", "runs": "5", "kernels": "", "trace": "", "shapes": "",
+            "resources": ""}
     flags = set()
     for a in argv:
         if a.startswith("--") and "=" in a:
@@ -342,6 +355,45 @@ def _kernels(cs, dev, opts) -> int:
     return 0
 
 
+def _resources(names) -> int:
+    """ptxas's report and the SASS local-memory accesses of the kernels
+    whose (mangled) names hold one of ``names``."""
+    import re
+    import subprocess
+
+    from blaze_tpu_torch.utils import cuda_lib
+
+    lib = cuda_lib.build()
+    report = str(cuda_lib.BUILD_INFO.get("ptxas", ""))
+    if not report:  # a cached build: its log sits beside the library
+        with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
+            report = f.read()
+    ptxas, fn = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+        elif fn and ("registers" in ln or "stack frame" in ln):
+            ptxas.setdefault(fn, []).append(ln.split(":", 1)[-1].strip())
+    sass = subprocess.run([os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump"),
+                           "-sass", lib], capture_output=True, text=True).stdout
+    local, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            local[fn] = [0, 0]
+        elif fn:
+            local[fn][0] += bool(re.search(r"\bLDL\b", ln))
+            local[fn][1] += bool(re.search(r"\bSTL\b", ln))
+    for fn in sorted(set(ptxas) | set(local)):
+        if any(n in fn for n in names):
+            print(json.dumps({"phase": "resources", "kernel": fn, "ptxas": ptxas.get(fn),
+                              "sass_ldl": local.get(fn, [None])[0],
+                              "sass_stl": local.get(fn, [None, None])[1]}), flush=True)
+    return 0
+
+
 SETUPS = {"q01": _q01_setup, "q01_mesh1": _q01_mesh_setup, "q01_mesh2": _q01_mesh_setup,
           "q01_mesh8": _q01_mesh_setup, "q67": _q67_setup, "q67_sort": _q67_setup,
           "q67_table": _q67_setup, "q69": _q69_setup, "q69_bloom": _q69_bloom_setup,
@@ -380,6 +432,8 @@ def main(argv) -> int:
     if not os.path.samefile(os.path.dirname(os.path.dirname(blaze_tpu_torch.__file__)), tree):
         raise SystemExit(f"chip_ab: imported blaze_tpu_torch from {blaze_tpu_torch.__file__}, "
                          f"not {tree}")
+    if opts["resources"]:
+        return _resources(opts["resources"].split(","))
     cuda_lib.library()
     dev = torch.device("cuda")
     conf_kw = {}

@@ -575,53 +575,143 @@ def kernel_k1(dev, rng, results):
         library_call="x[mask] per plane", bytes=main["bytes"], shapes=shapes))
 
 
+# K2's battery: (rows, plane kinds, null share, element offset of every
+# plane (a view that far into its allocation), partition counts); kinds
+# as MESH_NP names them, each hashed at its own width
+K2_CASES = (
+    (262144, ("i64",), 0.0, 0, (4, 7)),
+    (1024, ("i32",), 0.3, 0, (4, 7)),
+    (1000, ("i64", "i32"), 0.2, 0, (4, 7)),
+    (400, ("i64",), 0.0, 0, (4, 7)),
+    (4099, ("bool", "i8", "i16"), 0.2, 0, (1, 4, 7, 200)),
+    (4099, ("i8", "i16", "i32", "i64", "bool"), 0.1, 1, (1, 4, 7, 200)),
+    (5, ("i16", "i64"), 0.0, 3, (4, 200)),
+    (1023, ("i64",) * 9, 0.1, 0, (4, 7)),
+    (255, ("i8", "i16", "i32", "i64") * 8, 0.1, 1, (7, 200)),
+)
+# Spark's golden vectors (the JAX package's tests/test_spark_hash.py):
+# hashLong and hashInt with seed 42; a byte hashes as hashInt of its value,
+# and so does a short
+K2_GOLDEN = ((("i64",), [1, 0, -1, 2**63 - 1, -(2**63)],
+              [0x99F0149D, 0x9C67B85D, 0xC8008529, 0xA05B5D7B, 0xCD1E64FB]),
+             (("i32",), [1, 2, 3, 4], [-559580957, 1765031574, -1823081949, -397064898]),
+             (("i8",), [1, 0, -1, 127, -128],
+              [0xDEA578E3, 0x379FAE8F, 0xA0590E3D, 0x43B4D8ED, 0x422A1365]),
+             (("i16",), [1, 0, -1, 127, -128],
+              [0xDEA578E3, 0x379FAE8F, 0xA0590E3D, 0x43B4D8ED, 0x422A1365]))
+
+
+def k2_case(case, rng, dev):
+    """One K2_CASES entry as the kernel takes it: (hash words at their own
+    width, validities, hash kinds, rows, partition counts); null rows carry
+    data 0."""
+    import numpy as np
+    import torch
+
+    n, kinds, nulls, off, parts = case
+    words, valids = [], []
+    for kind in kinds:
+        w = np.zeros(n + off, MESH_NP[kind])
+        v = np.zeros(n + off, bool)
+        v[off:] = rng.random(n) >= nulls
+        w[off:] = np.where(v[off:], mesh_values(kind, n, rng), 0)
+        words.append(torch.from_numpy(w).to(dev)[off:])
+        valids.append(torch.from_numpy(v).to(dev)[off:])
+    return words, valids, ["i64" if k == "i64" else "i32" for k in kinds], n, parts
+
+
+def k2_shapes(rng, dev):
+    """K2's timed shapes, as the exchanges give them: (label, words,
+    validities, kinds, rows, nparts, bytes). cust_spend's batch: the
+    passthrough's 262,144 rows of ss_customer_sk (int32, as the port types
+    it; 1% null) into 16 reducers; q67's: the (item, store) groups of one
+    262,144-row partial batch (q67_batch's draw: its distinct pairs, two
+    int64 keys) into 4; q01's: ~400 store keys (int64) into 4. Bytes: each
+    key plane and validity read once, the pids written once."""
+    import numpy as np
+    import torch
+
+    out = []
+    n = 262144
+    key = rng.integers(1, CUST_SKS + 1, n).astype(np.int32)
+    kv = rng.random(n) >= 0.01
+    out.append(("cust_spend's exchange batch", [np.where(kv, key, 0).astype(np.int32)], [kv],
+                CS_REDUCERS))
+    item, store = rng.integers(1, N_ITEMS, n), rng.integers(1, N_STORES, n)
+    pairs = rng.permutation(np.unique(item * N_STORES + store))
+    out.append(("q67's exchange batch", [pairs // N_STORES, pairs % N_STORES],
+                [np.ones(len(pairs), bool)] * 2, PARTS))
+    out.append(("q01's 400 keys", [rng.integers(1, N_STORES, 400)], [np.ones(400, bool)],
+                PARTS))
+    shapes = []
+    for label, ws, vs, nparts in out:
+        rows = len(ws[0])
+        words = [torch.from_numpy(w).to(dev) for w in ws]
+        valids = [torch.from_numpy(v).to(dev) for v in vs]
+        kinds = ["i64" if w.dtype == np.int64 else "i32" for w in ws]
+        nbytes = rows * (sum(w.itemsize + 1 for w in ws) + 4)
+        shapes.append((f"{label}: {rows:,} rows x {'+'.join(str(w.dtype) for w in ws)} "
+                       f"into {nparts}", words, valids, kinds, rows, nparts, nbytes))
+    return shapes
+
+
 def kernel_k2(dev, rng, results):
+    """K2 against its twin on K2_CASES (every element size, nulls, planes
+    at odd element offsets, 1 to 32 columns, tails of 1 to 3 rows) with
+    and without the hash output, on Spark's golden vectors, then timed at
+    k2_shapes with device ms and the wrapper's host ms."""
     import numpy as np
     import torch
     from blaze_tpu_torch.exprs import spark_hash as H
 
     cases = []
-    for n, kinds, nulls in ((262144, ("i64",), 0.0), (1024, ("i32",), 0.3),
-                            (1000, ("i64", "i32"), 0.2), (400, ("i64",), 0.0)):
-        words, valids = [], []
-        for kind in kinds:
-            w = rng.integers(-(1 << 62), 1 << 62, n) if kind == "i64" \
-                else rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
-            words.append(torch.from_numpy(w).to(dev))
-            valids.append(torch.from_numpy(rng.random(n) >= nulls).to(dev))
-        for nparts in (4, 7):
-            got = H.murmur3_pmod_cuda(words, valids, kinds, n, nparts)
+    for case in K2_CASES:
+        words, valids, kinds, n, parts = k2_case(case, rng, dev)
+        for nparts in parts:
             want = H.murmur3_pmod_plain(words, valids, kinds, n, nparts)
-            check_equal("murmur3_pmod", f"n={n} kinds={kinds} parts={nparts}", got, want)
-        cases.append(f"n={n},kinds={'+'.join(kinds)},nulls={nulls}")
-    # Spark's golden vectors (tests/test_spark_hash.py): hashLong and
-    # hashInt with seed 42
-    golden = ((("i64",), [1, 0, -1, 2**63 - 1, -(2**63)],
-               [0x99F0149D, 0x9C67B85D, 0xC8008529, 0xA05B5D7B, 0xCD1E64FB]),
-              (("i32",), [1, 2, 3, 4], [-559580957, 1765031574, -1823081949, -397064898]))
-    for kinds, vals, expect in golden:
-        dt = torch.int64 if kinds[0] == "i64" else torch.int32
-        w = torch.tensor(vals, dtype=dt, device=dev)
+            label = f"n={n} kinds={'+'.join(case[1])} offset={case[3]} parts={nparts}"
+            check_equal("murmur3_pmod", label, H.murmur3_pmod_cuda(words, valids, kinds, n,
+                                                                   nparts), want)
+            check_equal("murmur3_pmod", label + " (pids only)",
+                        H.murmur3_pmod_cuda(words, valids, kinds, n, nparts, False)[1],
+                        want[1])
+        cases.append(f"n={n},kinds={'+'.join(case[1])},nulls={case[2]},offset={case[3]}")
+    for kinds, vals, expect in K2_GOLDEN:
+        w = torch.tensor(vals, dtype=getattr(torch, MESH_NP[kinds[0]]), device=dev)
         v = torch.ones(len(vals), dtype=torch.bool, device=dev)
-        h, _ = H.murmur3_pmod_cuda([w], [v], list(kinds), len(vals), 4)
+        h, _ = H.murmur3_pmod_cuda([w], [v], ["i64" if kinds[0] == "i64" else "i32"],
+                                   len(vals), 4)
         want = np.array(expect, dtype=np.int64).astype(np.uint32).view(np.int32).tolist()
         if h.tolist() != want:
             raise AssertionError(f"murmur3 {kinds[0]} golden: {h.tolist()} != {want}")
-    # main path: the q01 hash exchange routes each map's consolidated
-    # partial states (~400 store keys, int64) to 4 reducers
-    n = 400
-    words = [torch.from_numpy(rng.integers(1, N_STORES, n)).to(dev)]
-    valids = [torch.ones(n, dtype=torch.bool, device=dev)]
-    ms = time_ms(lambda: H.murmur3_pmod_cuda(words, valids, ["i64"], n, PARTS, False))
-    plain_ms = time_ms(lambda: H.murmur3_pmod_plain(words, valids, ["i64"], n, PARTS))
-    big = [torch.from_numpy(rng.integers(1, N_STORES, 262144)).to(dev)]
-    bigv = [torch.ones(262144, dtype=torch.bool, device=dev)]
-    big_ms = time_ms(lambda: H.murmur3_pmod_cuda(big, bigv, ["i64"], 262144, PARTS, False))
+        cases.append(f"golden {kinds[0]}")
+    # the host ms first, before this phase's profiler sessions (a process
+    # that has run torch.profiler launches slower from then on)
+    shapes, fns = {}, {}
+    for label, words, valids, kinds, n, nparts, nbytes in k2_shapes(rng, dev):
+        check_equal("murmur3_pmod", label, H.murmur3_pmod_cuda(words, valids, kinds, n, nparts,
+                                                               False)[1],
+                    H.murmur3_pmod_plain(words, valids, kinds, n, nparts)[1])
+
+        def k2(words=words, valids=valids, kinds=kinds, n=n, nparts=nparts):
+            return H.murmur3_pmod_cuda(words, valids, kinds, n, nparts, False)
+
+        def plain(words=words, valids=valids, kinds=kinds, n=n, nparts=nparts):
+            return H.murmur3_pmod_plain(words, valids, kinds, n, nparts)
+
+        fns[label] = (k2, plain, nbytes)
+        shapes[label] = dict(host_ms=host_ms(k2), rows=n)
+    for label, (k2, plain, nbytes) in fns.items():
+        shapes[label].update(shape_times(k2, plain, None, nbytes), call_kernels=call_kernels(k2))
+        log(json.dumps({"phase": "k2_shape", "shape": label, **shapes[label]}))
+    label = next(iter(shapes))
+    main = shapes[label]
     results.append(dict(
         name="murmur3_pmod", route="cuda", source="blaze_tpu_torch/csrc/murmur3.cu",
-        replaces="blaze_tpu/exprs/spark_hash.py:429", shape="400 rows x 1 int64 key",
-        cases=cases, ms=ms, plain_ms=plain_ms, library_ms=None, library_call=None,
-        bytes=n * (8 + 1 + 4), ms_262144_rows=big_ms))
+        replaces="blaze_tpu/exprs/spark_hash.py:429", shape=label, cases=cases,
+        ms=main["ms"], device_ms=main["device_ms"], host_ms=main["host_ms"],
+        plain_ms=main["plain_ms"], library_ms=None, library_call=None,
+        call_kernels=main["call_kernels"], bytes=main["bytes"], shapes=shapes))
 
 
 def slot_case(rng, dev, cap, n, key_lo, key_hi, k, nulls, with_minmax):
@@ -4282,8 +4372,8 @@ def xxh_values(lane, cap, rng):
 def xxh_case(case, rng, dev):
     """One battery case as the kernel takes it: (words, validities, kinds,
     n, cap), each column's values in its own plane type turned into hash
-    words as ``exprs/spark_hash.py hash_words`` turns them; null and
-    padding rows carry data 0."""
+    words as ``exprs/spark_hash.py hash_words`` and ``xxhash_words`` turn
+    them; null and padding rows carry data 0."""
     import numpy as np
     import torch
     from blaze_tpu_torch.exprs import spark_hash as H
@@ -4300,7 +4390,7 @@ def xxh_case(case, rng, dev):
         words.append(H.hash_words(torch.from_numpy(vals).to(dev), kind))
         valids.append(torch.from_numpy(v).to(dev))
         kinds.append(kind)
-    return words, valids, kinds, n, cap
+    return H.xxhash_words(words), valids, kinds, n, cap
 
 
 def xxh64_np(words, valids, seed=42):
@@ -4570,6 +4660,68 @@ MESH_CASES = (
 )
 
 
+# K17 at its segments' edges, each with the element offset of its slot
+# planes (views at odd offsets): segments of 7 and 1,030 rows (not a
+# multiple of 4; a tile's edge inside a segment) over several rounds,
+# segments wholly dead (50 rows into 16 reducers), 80 planes (past the
+# by-value pointer table: staged with the counts), 300 planes (a launch
+# for each 256), tile mode
+K17_EDGE_CASES = (
+    (("scap 7, many rounds", 3, 5, 300, ("i64", "i8", "f32"), 0.1, (1,), 7, 0.3), 1),
+    (("scap 1030, skewed", 2, 3, 5000, ("i16", "bool"), 0.1, (), 1030, 0.5), 3),
+    (("dead segments", 4, 16, 50, ("i64", "i32"), 0.0, (2,), 512, 0.0), 1),
+    (("80 planes", 4, 9, 2000, ("i64",) * 40, 0.1, (), 0, 0.0), 0),
+    (("300 planes", 2, 3, 300, ("i64", "i8", "i16") * 50, 0.1, (), 0, 0.0), 1),
+    (("tile n4, odd views", 4, None, 777, ("i16", "i64", "bool"), 0.2, (), 0, 0.0), 1),
+)
+# q01_mesh8's first exchange (8 slots, 4 maps of ~399 store keys on slots
+# 0-3, 4 reducers: G = 1, Rpad = 8, scap 512): the partial's store key,
+# decimal sum, its empty flag and count, each with its validity
+Q01_MESH8_SPEC = ("q01_mesh8's exchange", 8, 4, 399, ("i64", "i64", "bool", "i64"), 0.0,
+                  (4, 5, 6, 7), 0, 0.0)
+
+
+def mesh_sectors(case, sizes):
+    """The 32-byte sectors round 0's live gathers touch: over every slot and
+    plane, the distinct sectors (each fetched once: the floor of a gather's
+    reads) and the sectors a warp's gathers request (32 consecutive
+    positions of a segment's part a warp instruction, as K17 issues them:
+    P = ceil(scap / 992) parts of each segment's live rows; a reducer's
+    rows are spread over its slot, so nearly one a row); with the planes'
+    element ``sizes``."""
+    import numpy as np
+
+    counts, G, scap = case["counts"], case["G"], case["scap"]
+    n = case["n"]
+    parts = -(-scap // 992)
+    starts = np.cumsum(counts, 1) - counts
+    per_size = {z: sizes.count(z) for z in set(sizes)}
+    distinct = requests = 0
+    for s in range(n):
+        order = case["routes"][s]
+        if order is None:
+            continue
+        runs = []
+        for r in range(n * G):
+            live = min(int(counts[s, r]), scap)
+            for p in range(parts):
+                lo = 0 if p == 0 else live * p // parts // 32 * 32
+                hi = live if p + 1 == parts else live * (p + 1) // parts // 32 * 32
+                rows = np.full(-(-(hi - lo) // 32) * 32, -1, np.int64)
+                rows[:hi - lo] = order[starts[s, r] + lo:starts[s, r] + hi]
+                runs.append(rows)
+        rows = np.concatenate(runs).reshape(-1, 32)
+        for z, planes in per_size.items():
+            sec = np.where(rows >= 0, rows * z // 32, -1)
+            distinct += planes * np.unique(sec[sec >= 0]).size
+            srt = np.sort(sec, axis=1)
+            requests += planes * int(((np.diff(srt, axis=1) != 0) & (srt[:, 1:] >= 0)).sum()
+                                     + (srt[:, 0] >= 0).sum())
+    return {"distinct_sectors": distinct, "distinct_ms": distinct * 32 / HBM_BYTES_PER_S * 1e3,
+            "sector_requests": requests,
+            "requests_ms": requests * 32 / HBM_BYTES_PER_S * 1e3}
+
+
 def mesh_values(kind, rows, rng):
     """numpy values of a plane kind: the edge values mixed in (int minimum
     and maximum, NaN, +-0.0, +-inf, subnormals)."""
@@ -4646,13 +4798,17 @@ def mesh_case(case, rng):
     return out
 
 
-def mesh_torch(case, dev):
+def mesh_torch(case, dev, offset=0):
     """(slot planes, routes, plane dtypes) of a mesh case as torch tensors
-    on ``dev``."""
+    on ``dev``; with ``offset``, each plane a view that many elements into
+    its allocation."""
+    import numpy as np
     import torch
 
-    planes = [None if sp is None else [torch.from_numpy(p).to(dev) for p in sp]
-              for sp in case["slots"]]
+    def plane(p):
+        return torch.from_numpy(np.concatenate([np.zeros(offset, p.dtype), p])).to(dev)[offset:]
+
+    planes = [None if sp is None else [plane(p) for p in sp] for sp in case["slots"]]
     routes = [None if r is None else torch.from_numpy(r).to(dev) for r in case["routes"]]
     dtypes = [getattr(torch, {"i8": "int8", "i16": "int16", "i32": "int32", "i64": "int64",
                               "f32": "float32", "f64": "float64", "bool": "bool"}[k])
@@ -4660,10 +4816,10 @@ def mesh_torch(case, dev):
     return planes, routes, dtypes
 
 
-def mesh_run(case, fn, dev):
+def mesh_run(case, fn, dev, offset=0):
     """Every round of a mesh case through ``fn`` (K17 or its twin): per
     round (planes, live plane, live counts)."""
-    planes, routes, dtypes = mesh_torch(case, dev)
+    planes, routes, dtypes = mesh_torch(case, dev, offset)
     return [fn(planes, routes, case["chunk"], dev, dtypes, case["counts"], case["G"],
                case["scap"], t) for t in range(case["rounds"])]
 
@@ -4789,7 +4945,7 @@ def mesh_twin_check(name, stacks=0):
         "slots": n, "reducers_padded": counts.shape[1], "scap": scap, "planes": len(dtypes),
         "rows": int(counts.sum()), "positions": int(live.shape[0]),
         "ms": time_ms(lambda: K.mesh_all_to_all_cuda(*args)),
-        "device_ms": kernel_device_ms(lambda: K.mesh_all_to_all_cuda(*args), "blz_mesh_a2a"),
+        "device_ms": kernel_device_ms(lambda: K.mesh_all_to_all_cuda(*args), "blz_mesh"),
         "plain_ms": time_ms(lambda: K.mesh_all_to_all_plain(*args)),
         "library_ms": time_ms(chain),
         "bytes": mesh_bytes(slot_planes, dtypes, live_rows, int(live.shape[0]))}
@@ -4799,20 +4955,26 @@ def mesh_twin_check(name, stacks=0):
 
 
 def kernel_k17(dev, rng, results):
+    """K17 against its twin on MESH_CASES and K17_EDGE_CASES, every round
+    (the receive counts against the count matrix's too), then timed at
+    sort10M_mesh's exchange and q01_mesh8's: events, device ms, the
+    wrapper's host ms, the twin and the library chain, the kernels and
+    copies of a call, and the 32-byte sectors of the live gathers beside
+    the byte bound."""
     import numpy as np
     import torch
     from blaze_tpu_torch.core import kernels as K
 
     cases = []
-    for spec in MESH_CASES:
+    for spec, offset in [(c, 0) for c in MESH_CASES] + list(K17_EDGE_CASES):
         case = mesh_case(spec, rng)
-        got = mesh_run(case, K.mesh_all_to_all_cuda, dev)
+        got = mesh_run(case, K.mesh_all_to_all_cuda, dev, offset)
         check_equal("mesh_all_to_all", spec[0], got, mesh_run(case, K.mesh_all_to_all_plain, dev))
         if case["counts"] is not None:
             if [r[2].tolist() for r in got] != mesh_recv_counts(case):
                 raise AssertionError(f"mesh_all_to_all [{spec[0]}]: live counts "
                                      f"{[r[2].tolist() for r in got]}")
-        cases.append(f"{spec[0]} ({case['rounds']} rounds)")
+        cases.append(f"{spec[0]} ({case['rounds']} rounds, offset {offset})")
     # main path: sort10M_mesh's exchange, 10,000,000 rows folded onto 8
     # slots, range ids into 32 reducers (G = 4), the soak's five columns
     spec = ("sort10M_mesh", 8, 32, 1_250_000, ("i64",) * 4 + ("i64", "i64", "i64"), 0.0,
@@ -4821,31 +4983,56 @@ def kernel_k17(dev, rng, results):
     case["kinds"] = SORT10M_MESH_PLANES
     for sp in case["slots"]:       # the three limbs share the last validity
         del sp[11], sp[9]
-    planes, routes, dtypes = mesh_torch(case, dev)
-    args = (planes, routes, case["chunk"], dev, dtypes, case["counts"], case["G"],
-            case["scap"], 0)
-    got = K.mesh_all_to_all_cuda(*args)
-    check_equal("mesh_all_to_all", "sort10M_mesh's exchange", got,
-                K.mesh_all_to_all_plain(*args))
-    chain = mesh_chain(planes, routes, case["counts"], 8, case["G"], case["scap"], dev, dtypes)
-    check_equal("mesh_all_to_all", "sort10M_mesh: the library chain", chain(), got[:2])
-    live_rows = int(case["counts"].sum())
-    total = int(got[1].shape[0])
-    del got
+    shapes, timed = {}, []
+    for label, case in ((f"sort10M_mesh's exchange: 8 slots of 1,250,000 rows, 32 reducers "
+                         f"(G = 4), scap = {case['scap']}, 12 planes (7 int64, 5 bool)", case),
+                        ("q01_mesh8's exchange: 8 slots (4 of 399 rows), 4 reducers (G = 1), "
+                         "scap = 512, 8 planes (3 int64, 5 bool)",
+                         mesh_case(Q01_MESH8_SPEC, rng))):
+        planes, routes, dtypes = mesh_torch(case, dev)
+        args = (planes, routes, case["chunk"], dev, dtypes, case["counts"], case["G"],
+                case["scap"], 0)
+        got = K.mesh_all_to_all_cuda(*args)
+        check_equal("mesh_all_to_all", label, got, K.mesh_all_to_all_plain(*args))
+        n = case["n"]
+        chain = mesh_chain(planes, routes, case["counts"], n, case["G"], case["scap"], dev,
+                           dtypes)
+        check_equal("mesh_all_to_all", f"{label}: the library chain", chain(), got[:2])
+        live_rows = int(np.clip(case["counts"], 0, case["scap"]).sum())
+        total = int(got[1].shape[0])
+        del got
+
+        def k17(args=args):
+            return K.mesh_all_to_all_cuda(*args)
+
+        nbytes = mesh_bytes(planes, dtypes, live_rows, total)
+        # the host ms before this phase's profiler sessions; a few calls a
+        # window at sort10M_mesh's, below the pinned ring's four, so no call
+        # waits on an earlier one's table copy
+        shapes[label] = dict(
+            host_ms=host_ms(k17, iters=3 if total > 1 << 20 else 200),
+            ms=time_ms(k17), plain_ms=time_ms(lambda: K.mesh_all_to_all_plain(*args)),
+            library_ms=time_ms(chain), bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            positions=total, live_rows=live_rows,
+            sectors=mesh_sectors(case, [dt.itemsize for dt in dtypes]))
+        timed.append((label, k17))
+        del planes, routes, chain
+    for label, k17 in timed:
+        shapes[label].update(device_ms=kernel_device_ms(k17, "blz_mesh"),
+                             call_kernels=call_kernels(k17))
+        log(json.dumps({"phase": "k17_shape", "shape": label, **shapes[label]}))
+    del timed
+    torch.cuda.synchronize()
+    label = next(iter(shapes))
+    main = shapes[label]
     results.append(dict(
         name="mesh_all_to_all", route="cuda", source="blaze_tpu_torch/csrc/mesh.cu",
-        replaces="blaze_tpu/parallel/mesh.py:215",
-        shape=f"sort10M_mesh's exchange: 8 slots of 1,250,000 rows, 32 reducers (G = 4), "
-              f"scap = {case['scap']}, 12 planes (7 int64, 5 bool), {total:,} positions",
-        cases=cases, ms=time_ms(lambda: K.mesh_all_to_all_cuda(*args)),
-        device_ms=kernel_device_ms(lambda: K.mesh_all_to_all_cuda(*args), "blz_mesh_a2a"),
-        plain_ms=time_ms(lambda: K.mesh_all_to_all_plain(*args)),
-        library_ms=time_ms(chain),
+        replaces="blaze_tpu/parallel/mesh.py:215", shape=label, cases=cases,
+        ms=main["ms"], device_ms=main["device_ms"], host_ms=main["host_ms"],
+        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
         library_call="index_select + where per plane and slot, stack, and the block "
                      "permute copy a plane (a chain)",
-        bytes=mesh_bytes(planes, dtypes, live_rows, total)))
-    del args, planes, routes, chain
-    torch.cuda.synchronize()
+        call_kernels=main["call_kernels"], bytes=main["bytes"], shapes=shapes))
 
 
 # -- K18: the fused aggregate input -----------------------------------------------------
@@ -8286,6 +8473,15 @@ def main(device: str = "cuda") -> int:
         if sum(ours.values()) != 1 or any(k.startswith("Memset") for k in ours):
             raise AssertionError(f"a compact_planes call at {label} ran {sh['call_kernels']}, "
                                  "not one kernel and no memset")
+    # K2 and K17 are one kernel a call at each timed shape, with no memset
+    # and no pageable upload (K17's table goes through a pinned copy)
+    for name in ("murmur3_pmod", "mesh_all_to_all"):
+        for label, sh in next(r for r in results if r["name"] == name)["shapes"].items():
+            ours = {k: c for k, c in sh["call_kernels"].items() if any(p in k for p in OURS)}
+            if sum(ours.values()) != 1 or any(k.startswith("Memset") for k in ours) or \
+                    any("Pageable" in k for k in sh["call_kernels"]):
+                raise AssertionError(f"a {name} call at {label} ran {sh['call_kernels']}, not "
+                                     "one kernel, no memset and no pageable copy")
     # 4. the paths: q01 (and on the mesh: q01_mesh1, q01_mesh2, q01_mesh8),
     # q67 (slot, sort and table routes), q06 and q47, q69 and q69_bloom, q96
     # (and q96_mesh), q89, q17 (slot, sort and table routes), q98, sort10M

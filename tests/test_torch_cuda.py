@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BLOOM_CASES, FUSED_CAPS, GATHER_CASES, K18_CASES, MESH_CASES, PASS_CASES, PROBE_CASES,
+from chip_smoke import (BLOOM_CASES, FUSED_CAPS, GATHER_CASES, K17_EDGE_CASES, K18_CASES,
+                        MESH_CASES, PASS_CASES, PROBE_CASES,
                         SEG_FLOATS, SPLIT_CASES, dead_rows_case, gather_case,
                         k3_plan_growth_check, k6_shapes, split_case,
                         Q89_ROWS, cust_spend_batch, cust_spend_host, cust_spend_oracle,
@@ -126,6 +127,32 @@ def test_murmur3_pmod_kernel(dev, kinds):
     valids = [torch.rand(n, generator=g) < 0.9 for _ in kinds]
     args = ([w.to(dev) for w in words], [v.to(dev) for v in valids], list(kinds), n, 4)
     _equal(H.murmur3_pmod_cuda(*args), H.murmur3_pmod_plain(*args))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 255, 1023, 262145])
+@pytest.mark.parametrize("k", [1, 2, 8, 32])
+def test_murmur3_pmod_native_widths_kernel(dev, n, k):
+    """K2 against its twin with every element size read at its own width
+    (bool, int8, int16, int32, int64 in turn), the planes views at element
+    offsets 0, 1 and 2 (odd addresses: the scalar loads), tails of 1 to 3
+    rows, 1 to 32 columns, with and without the hash output."""
+    from blaze_tpu_torch.exprs import spark_hash as H
+    from chip_smoke import k2_case
+
+    kinds = tuple(("bool", "i8", "i16", "i32", "i64")[c % 5] for c in range(k))
+    words, valids, hkinds = [], [], []
+    rng = np.random.default_rng(n * 64 + k)
+    for c, kind in enumerate(kinds):
+        w, v, hk, _n, _p = k2_case((n, (kind,), 0.2, c % 3, ()), rng, dev)
+        words += w
+        valids += v
+        hkinds += hk
+    for nparts in (1, 4, 7, 200):
+        want = H.murmur3_pmod_plain(words, valids, hkinds, n, nparts)
+        _equal(H.murmur3_pmod_cuda(words, valids, hkinds, n, nparts), want)
+        got = H.murmur3_pmod_cuda(words, valids, hkinds, n, nparts, False)
+        assert got[0] is None
+        _equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("hi,nbuck", [(400, 0), (100_000, 256)])
@@ -1930,6 +1957,23 @@ def test_mesh_all_to_all_kernel(dev, spec):
 
     case = mesh_case(spec, np.random.default_rng(17))
     got = mesh_run(case, K.mesh_all_to_all_cuda, dev)
+    _equal(got, mesh_run(case, K.mesh_all_to_all_plain, dev))
+    if case["counts"] is not None:
+        assert [r[2].tolist() for r in got] == mesh_recv_counts(case)
+
+
+@pytest.mark.parametrize("spec,offset", K17_EDGE_CASES, ids=[e[0][0] for e in K17_EDGE_CASES])
+def test_mesh_all_to_all_edges_kernel(dev, spec, offset):
+    """K17 against its twin at its segments' edges (segments of 7 and 1,030
+    rows over several rounds, wholly dead segments, 80 planes past the
+    by-value table, 300 planes in two launches, tile mode), the slot
+    planes views at odd element offsets, every round; the receive counts
+    against the count matrix's."""
+    from blaze_tpu_torch.core import kernels as K
+    from chip_smoke import mesh_case, mesh_recv_counts, mesh_run
+
+    case = mesh_case(spec, np.random.default_rng(23))
+    got = mesh_run(case, K.mesh_all_to_all_cuda, dev, offset)
     _equal(got, mesh_run(case, K.mesh_all_to_all_plain, dev))
     if case["counts"] is not None:
         assert [r[2].tolist() for r in got] == mesh_recv_counts(case)
