@@ -1011,14 +1011,14 @@ def sort_key_operands_plain(datas, valids, exists, spec):
     return ops
 
 
-def _key_kind(t: torch.Tensor) -> int:
-    if t.dtype in (torch.float32, torch.float64):
+def _key_kind(dtype: torch.dtype) -> int:
+    if dtype in (torch.float32, torch.float64):
         return _KEY_FLOAT
-    if t.dtype == torch.bool:
+    if dtype == torch.bool:
         return _KEY_BOOL
-    if t.dtype in (torch.int8, torch.int16, torch.int32, torch.int64):
+    if dtype in (torch.int8, torch.int16, torch.int32, torch.int64):
         return _KEY_INT
-    raise TypeError(f"sort_key_operands: sort key of dtype {t.dtype}")
+    raise TypeError(f"sort_key_operands: sort key of dtype {dtype}")
 
 
 def sort_key_operands_cuda(datas, valids, exists, spec):
@@ -1035,7 +1035,7 @@ def sort_key_operands_cuda(datas, valids, exists, spec):
         if p.shape != (n,):
             raise ValueError(f"sort_key_operands: plane {tuple(p.shape)}, "
                              f"expected ({n},)")
-    kinds = [_key_kind(d) for d in datas]
+    kinds = [_key_kind(d.dtype) for d in datas]
     dev = exists.device
     ranks = [torch.empty(n, dtype=torch.uint8, device=dev) for _ in datas]
     vals = [torch.empty(n, dtype=torch.uint8 if kind == _KEY_BOOL else d.dtype,
@@ -1263,16 +1263,35 @@ def partition_order(pids: torch.Tensor, num_partitions: int):
 # bound rows whose key tuple is <= the row's (bisect_right), both compared
 # as K5's key pass normalises them: (u8 rank, value) per key, the value
 # compared with < and == in its own dtype (so a -0.0 bound equals a 0.0
-# row). The reference counts over a (rows x bounds) broadcast; K14 and its
-# twin binary-search the bounds, which ``range_bound_operands`` hands over
-# in ascending order. A count of bounds <= a row does not depend on the
-# order of the bounds, and over bounds in ascending order those bounds are
-# a prefix, so the two agree on any bound set. Padding rows park at
-# ``len(bounds) + 1``, past every partition.
+# row). The reference counts over a (rows x bounds) broadcast. K14 and its
+# twin compare each key's (rank, int64 word) (``_range_words``: a float as
+# its double's order-preserving integer, -0.0 as 0.0) against the bounds
+# that ``range_bound_operands`` hands over in ascending order, laid out by
+# ``range_bound_words`` as the nodes of the implicit search tree, level by
+# level: the kernel counts the nodes <= a row (up to
+# RANGE_COUNT_MAX_BOUNDS bounds) or, as the twin does, walks d =
+# ceil(log2(B + 1)) levels down the tree. A count of bounds <= a row does
+# not depend on their order, and over bounds in ascending order those
+# bounds are a prefix, so all three agree on any bound set. Padding rows
+# park at ``len(bounds) + 1``, past every partition.
 
-# csrc/range_part.cu: bound rows staged in shared memory up to this many
-# bytes (8-byte words and 1-byte ranks), read from global memory past it
+# csrc/range_part.cu: the search tree's nodes staged in shared memory up to
+# this many bytes (8-byte words and 1-byte ranks), read from global memory
+# past it
 RANGE_SMEM_BYTES = 48 << 10
+# csrc/range_part.cu's routes: a count of the staged nodes <= each row, a
+# search down the staged tree, a search down the tree in global memory
+RANGE_COUNT, RANGE_SEARCH, RANGE_GLOBAL = 0, 1, 2
+# the count's crossover: up to this many bounds every row counts them all
+# (no branch; each node a shared-memory broadcast), past it the search's
+# ceil(log2(B + 1)) levels cost less. On the H100 (chip_smoke.py
+# kernel_k14's ``route_ms``, PERF.md row 12) the count wins at 3 bounds on
+# hash_sample's store exchange, ties at 3 on sort10M's map batch and
+# loses from 7 bounds on
+RANGE_COUNT_MAX_BOUNDS = 3
+# the rank of a node past the bounds: above every row's (0..4)
+_RANK_PAST = 5
+_I64_MIN = -(1 << 63)
 
 
 def range_bound_operands(datas, valids, spec) -> List[torch.Tensor]:
@@ -1286,89 +1305,196 @@ def range_bound_operands(datas, valids, spec) -> List[torch.Tensor]:
     return [op[order] for op in ops]
 
 
-def _bounds_le(ops, bound_ops, j: torch.Tensor) -> torch.Tensor:
-    """Is bound row ``j[i]`` <= row i, lexicographically over the operands?"""
-    lt = torch.zeros(j.shape, dtype=torch.bool, device=j.device)
-    eq = torch.ones(j.shape, dtype=torch.bool, device=j.device)
-    for o, b in zip(ops, bound_ops):
-        bb = b[j]
-        lt |= eq & (bb < o)
-        eq &= bb == o
+def _range_words(op: torch.Tensor) -> torch.Tensor:
+    """A key operand's values as the int64 words K14 compares: a float's
+    double as its order-preserving integer (-0.0 as 0.0, then a negative
+    value's magnitude bits flipped, so that signed order is the float's
+    order and == is IEEE's ==; no operand is NaN: the rank holds it), an
+    integer sign-extended, a bool's 0 / 1."""
+    if not op.is_floating_point():
+        return op.to(torch.int64)
+    b = op.to(torch.float64).view(torch.int64)
+    b = torch.where(b == _I64_MIN, 0, b)
+    return torch.where(b < 0, b ^ 0x7FFFFFFFFFFFFFFF, b)
+
+
+def _search_order(nb: int) -> List[int]:
+    """The sorted bound each node of K14's search tree holds, level by
+    level: node 2^L - 1 + p of level L holds bound p * 2^(d-L) +
+    2^(d-1-L) - 1, d = ceil(log2(nb + 1)); 2^d - 1 nodes, those past the
+    nb bounds are padding."""
+    d = nb.bit_length()
+    out = []
+    for level in range(d):
+        step = 1 << (d - 1 - level)
+        out += [p * 2 * step + step - 1 for p in range(1 << level)]
+    return out
+
+
+def range_tree_staged(k: int, nb: int) -> bool:
+    """Whether K14's search tree over ``nb`` bounds of ``k`` keys fits
+    RANGE_SMEM_BYTES (9 bytes a key of each of its 2^d - 1 nodes)."""
+    return k * ((1 << nb.bit_length()) - 1) * 9 <= RANGE_SMEM_BYTES
+
+
+def range_bound_words(bound_ops) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K14's table, made once an exchange from ``bound_ops`` (ascending,
+    from :func:`range_bound_operands`): (int64 words, uint8 ranks), one of
+    each a key of a node, key-major, the nodes of the search tree level by
+    level (``_search_order``); a padding node has rank 5, above every
+    row."""
+    nb = int(bound_ops[1].shape[0])
+    idx = torch.tensor(_search_order(nb), dtype=torch.int64, device=bound_ops[0].device)
+    real = idx < nb
+    at = idx.clamp(max=max(nb - 1, 0))
+    words = torch.stack([torch.where(real, _range_words(v)[at], 0) for v in bound_ops[1::2]])
+    ranks = torch.stack([torch.where(real, r[at], _RANK_PAST) for r in bound_ops[0::2]])
+    return words.reshape(-1).contiguous(), ranks.to(torch.uint8).reshape(-1).contiguous()
+
+
+def _bound_rows_le(bw, br, rw, rr) -> torch.Tensor:
+    """Is node i (words ``bw[i]``, ranks ``br[i]``) <= row i,
+    lexicographically over the keys' (rank, word)?"""
+    lt = torch.zeros(rw.shape[0], dtype=torch.bool, device=rw.device)
+    eq = torch.ones(rw.shape[0], dtype=torch.bool, device=rw.device)
+    for c in range(rw.shape[1]):
+        b, r, v, w = br[:, c], rr[:, c], bw[:, c], rw[:, c]
+        lt |= eq & ((b < r) | ((b == r) & (v < w)))
+        eq &= (b == r) & (v == w)
     return lt | eq
 
 
 def range_partition_ids_plain(datas, valids, exists, bound_ops, spec) -> torch.Tensor:
     """Plain PyTorch twin of K14: int32 partition ids over the capacity,
-    by a binary search of every row at once over ``bound_ops`` (ascending,
-    from :func:`range_bound_operands`)."""
-    ops = sort_key_operands_plain(datas, valids, exists, spec)
-    nb = int(bound_ops[0].shape[0]) if bound_ops else 0
-    n = int(exists.shape[0])
-    lo = torch.zeros(n, dtype=torch.int64, device=exists.device)
-    hi = torch.full((n,), nb, dtype=torch.int64, device=exists.device)
-    for _ in range(nb.bit_length()):
-        mid = (lo + hi) // 2
-        le = _bounds_le(ops, bound_ops, mid.clamp(max=max(nb - 1, 0)))
-        active = lo < hi
-        lo = torch.where(active & le, mid + 1, lo)
-        hi = torch.where(active & ~le, mid, hi)
-    return torch.where(exists, lo, nb + 1).to(torch.int32)
-
-
-def range_partition_ids_cuda(datas, valids, exists, bound_ops, spec) -> torch.Tensor:
-    """K14 on the card (csrc/range_part.cu): same ids as
-    :func:`range_partition_ids_plain`, one launch."""
-    cuda_lib.require_cuda("range_partition_ids", exists, *datas, *valids, *bound_ops)
-    n = int(exists.shape[0])
+    the rows and ``bound_ops`` (ascending, from
+    :func:`range_bound_operands`) as K14 normalises them, every row's
+    walk down the search tree (:func:`range_bound_words`) at once."""
     k = len(datas)
-    if not 0 < k <= _MAX_SORT_KEYS or len(valids) != k or len(spec) != k or \
-            len(bound_ops) != 2 * k:
-        raise ValueError(f"range_partition_ids: {k} keys, {len(spec)} specs, "
-                         f"{len(bound_ops)} bound operands")
-    if exists.dtype != torch.bool or any(v.dtype != torch.bool for v in valids):
-        raise TypeError("range_partition_ids: exists and validity must be bool")
-    for p in list(datas) + list(valids):
-        if p.shape != (n,):
-            raise ValueError(f"range_partition_ids: plane {tuple(p.shape)}, "
-                             f"expected ({n},)")
-    nb = int(bound_ops[0].shape[0])
-    kinds = [_key_kind(d) for d in datas]
-    for c, (d, kind) in enumerate(zip(datas, kinds)):
-        rank, val = bound_ops[2 * c], bound_ops[2 * c + 1]
-        want = torch.uint8 if kind == _KEY_BOOL else d.dtype
-        if rank.dtype != torch.uint8 or val.dtype != want or \
-                rank.shape != (nb,) or val.shape != (nb,):
-            raise TypeError(f"range_partition_ids: key {c}'s bounds are {rank.dtype}/"
-                            f"{val.dtype} of {tuple(val.shape)}, expected uint8/{want} "
-                            f"of ({nb},)")
-    out = torch.empty(n, dtype=torch.int32, device=exists.device)
-    if n:
-        keep = []
-
-        def arr(pair):
-            keep.append(pair[1])
-            return pair[0]
-
-        err = cuda_lib.library().blz_range_partition_ids(
-            k, arr(cuda_lib.ptr_array(datas)), arr(cuda_lib.ptr_array(valids)),
-            arr(cuda_lib.int_array([d.element_size() for d in datas])),
-            arr(cuda_lib.int_array(kinds)),
-            arr(cuda_lib.int_array([int(a) for a, _ in spec])),
-            arr(cuda_lib.int_array([int(nf) for _, nf in spec])),
-            exists.data_ptr(), n, arr(cuda_lib.ptr_array(bound_ops[0::2])),
-            arr(cuda_lib.ptr_array(bound_ops[1::2])), nb,
-            int(k * nb * 9 <= RANGE_SMEM_BYTES), out.data_ptr(),
-            cuda_lib.stream_of(exists.device))
-        cuda_lib.check(err, "range_partition_ids")
-        cuda_lib.LAUNCHES["range_partition"] += 1
-    return out
+    ops = sort_key_operands_plain(datas, valids, exists, spec)
+    rw = torch.stack([_range_words(v) for v in ops[1::2]], 1)
+    rr = torch.stack(ops[0::2], 1)
+    nb = int(bound_ops[1].shape[0])
+    bw, br = range_bound_words(bound_ops)
+    bw, br = bw.view(k, -1), br.view(k, -1)
+    d = nb.bit_length()
+    pos = torch.zeros(rw.shape[0], dtype=torch.int64, device=exists.device)
+    for level in range(d):
+        e = (1 << level) - 1 + (pos >> (d - level))
+        le = _bound_rows_le(bw[:, e].T, br[:, e].T, rw, rr)
+        pos = pos + (le.to(torch.int64) << (d - 1 - level))
+    return torch.where(exists, pos, nb + 1).to(torch.int32)
 
 
-def range_partition_ids(datas, valids, exists, bound_ops, spec) -> torch.Tensor:
+# csrc/range_part.cu blz_range_partition_ids' argument words: the header,
+# then (data, validity, element bytes, kind, asc, nulls_first) a key from
+# _RW_KEYS
+(_RW_K, _RW_NB, _RW_N, _RW_EXISTS, _RW_OUT, _RW_STREAM, _RW_BWORDS, _RW_BRANKS, _RW_ROUTE,
+ _RW_KEYS) = range(10)
+
+
+class RangePack:
+    """K14's argument words for one exchange's bounds, checked and packed
+    once: the key and bound counts, each key's element size, kind,
+    direction and null order, the route, and the search tree the kernel
+    stages (:func:`range_bound_words`, kept here on the device). Each call
+    checks its planes' device, shape and dtypes against the pack, writes
+    only the key planes', ``exists``' and the output's pointers, the row
+    count and the stream into the words in place, and allocates the int32
+    ids. ``RangePartitioner`` makes one an exchange on the card (its map
+    tasks run in turn, so one thread writes the words at a time). ``route``
+    forces RANGE_COUNT, RANGE_SEARCH or RANGE_GLOBAL (timing); by default
+    the bound count and :func:`range_tree_staged` decide."""
+
+    def __init__(self, bound_ops, spec, dtypes: Sequence[torch.dtype],
+                 route: Optional[int] = None):
+        k = len(dtypes)
+        if not 0 < k <= _MAX_SORT_KEYS or len(spec) != k or len(bound_ops) != 2 * k:
+            raise ValueError(f"range_partition_ids: {k} keys, {len(spec)} specs, "
+                             f"{len(bound_ops)} bound operands")
+        index = bound_ops[0].get_device()
+        if index < 0:
+            raise ValueError("range_partition_ids: bounds off the card, expected CUDA")
+        nb = int(bound_ops[0].shape[0])
+        kinds = [_key_kind(dt) for dt in dtypes]
+        for c, (dt, kind) in enumerate(zip(dtypes, kinds)):
+            rank, val = bound_ops[2 * c], bound_ops[2 * c + 1]
+            want = torch.uint8 if kind == _KEY_BOOL else dt
+            if rank.dtype != torch.uint8 or val.dtype != want or \
+                    rank.shape != (nb,) or val.shape != (nb,) or \
+                    rank.get_device() != index or val.get_device() != index:
+                raise TypeError(f"range_partition_ids: key {c}'s bounds are {rank.dtype}/"
+                                f"{val.dtype} of {tuple(val.shape)} on {val.device}, "
+                                f"expected uint8/{want} of ({nb},) on cuda:{index}")
+        staged = range_tree_staged(k, nb)
+        if route is None:
+            route = RANGE_GLOBAL if not staged else \
+                RANGE_COUNT if nb <= RANGE_COUNT_MAX_BOUNDS else RANGE_SEARCH
+        if route not in (RANGE_COUNT, RANGE_SEARCH, RANGE_GLOBAL) or \
+                (route != RANGE_GLOBAL and not staged):
+            raise ValueError(f"range_partition_ids: route {route} for {nb} bounds of {k} keys")
+        self.index, self.dtypes = index, tuple(dtypes)
+        self.bwords, self.branks = range_bound_words(bound_ops)
+        self.fn = cuda_lib.library().blz_range_partition_ids
+        w = self.words = (cuda_lib.ctypes.c_longlong * (_RW_KEYS + 6 * k))()
+        w[_RW_K], w[_RW_NB], w[_RW_ROUTE] = k, nb, route
+        w[_RW_BWORDS], w[_RW_BRANKS] = self.bwords.data_ptr(), self.branks.data_ptr()
+        for c, (dt, kind, (asc, nf)) in enumerate(zip(dtypes, kinds, spec)):
+            at = _RW_KEYS + 6 * c
+            w[at + 2] = torch.empty((), dtype=dt).element_size()
+            w[at + 3], w[at + 4], w[at + 5] = kind, int(asc), int(nf)
+
+    def launch(self, datas, valids, exists) -> torch.Tensor:
+        """The int32 ids of ``exists``' rows: one K14 launch."""
+        index, n = self.index, int(exists.shape[0])
+        if exists.get_device() != index or exists.dtype is not torch.bool or \
+                exists.dim() != 1 or not exists.is_contiguous() or \
+                len(datas) != len(self.dtypes) or len(valids) != len(self.dtypes):
+            raise ValueError(f"range_partition_ids: exists {exists.dtype}"
+                             f"{tuple(exists.shape)} on {exists.device}, {len(datas)} keys, "
+                             f"expected a contiguous bool plane on cuda:{index} and "
+                             f"{len(self.dtypes)} keys")
+        w, at = self.words, _RW_KEYS
+        for d, v, dt in zip(datas, valids, self.dtypes):
+            # get_device() is -1 off the card: one check for the device and CUDA
+            if d.get_device() != index or v.get_device() != index or \
+                    d.dtype is not dt or v.dtype is not torch.bool or \
+                    d.dim() != 1 or v.dim() != 1 or d.shape[0] != n or v.shape[0] != n or \
+                    not d.is_contiguous() or not v.is_contiguous():
+                raise TypeError(f"range_partition_ids: key planes {d.dtype}{tuple(d.shape)} "
+                                f"on {d.device} and {v.dtype}{tuple(v.shape)} on {v.device}, "
+                                f"expected contiguous {dt} and bool planes of ({n},) on "
+                                f"cuda:{index}")
+            w[at], w[at + 1] = d.data_ptr(), v.data_ptr()
+            at += 6
+        out = torch.empty(n, dtype=torch.int32, device=exists.device)
+        if n:
+            w[_RW_N], w[_RW_EXISTS], w[_RW_OUT] = n, exists.data_ptr(), out.data_ptr()
+            w[_RW_STREAM] = cuda_lib.stream_handle(index)
+            cuda_lib.check(self.fn(w), "range_partition_ids")
+            cuda_lib.LAUNCHES["range_partition"] += 1
+        return out
+
+
+def range_partition_ids_cuda(datas, valids, exists, bound_ops, spec,
+                             pack: Optional[RangePack] = None) -> torch.Tensor:
+    """K14 on the card (csrc/range_part.cu): same ids as
+    :func:`range_partition_ids_plain`, one launch, through ``pack`` (an
+    exchange's :class:`RangePack` over these bounds) or a pack made for
+    this call."""
+    if pack is None:
+        cuda_lib.require_cuda("range_partition_ids", exists, *datas, *valids, *bound_ops)
+        pack = RangePack(bound_ops, spec, [d.dtype for d in datas])
+    return pack.launch(datas, valids, exists)
+
+
+def range_partition_ids(datas, valids, exists, bound_ops, spec,
+                        pack: Optional[RangePack] = None) -> torch.Tensor:
     """Row-order int32 range-partition ids over the capacity: K14 on a
-    CUDA batch, the plain version on a CPU one."""
-    fn = range_partition_ids_cuda if exists.is_cuda else range_partition_ids_plain
-    return fn(datas, valids, exists, bound_ops, spec)
+    CUDA batch (through ``pack`` where the caller keeps one), the plain
+    version on a CPU one."""
+    if exists.is_cuda:
+        return range_partition_ids_cuda(datas, valids, exists, bound_ops, spec, pack)
+    return range_partition_ids_plain(datas, valids, exists, bound_ops, spec)
 
 
 def range_partition_order(datas, valids, exists, bound_ops, spec,

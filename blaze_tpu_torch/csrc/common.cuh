@@ -1,7 +1,8 @@
 // Shared pieces of the port's hand-written Hopper kernels: the plain C
 // export macro, the pinned staging of host tables (gather.cu, mesh.cu),
-// launch geometry, the column table of the XXH64 row hash (xxhash64.cu),
-// the murmur3 rounds (murmur3.cu, bloom.cu),
+// launch geometry, the column table and four-row loads of the row hashes
+// and the range partition (murmur3.cu, xxhash64.cu, range_part.cu), the
+// murmur3 rounds (murmur3.cu, bloom.cu),
 // the key kinds and integer load of the key passes (sort.cu,
 // range_part.cu), the block-level stable rank of slot_agg.cu's
 // compaction of the present slots, the decoupled look-back
@@ -72,28 +73,128 @@ __device__ __forceinline__ bool blz_last_block(int* done) {
        blz_base += (int64_t)gridDim.x * blockDim.x)                                     \
     for (int64_t i = blz_base + threadIdx.x, blz_once = 0; blz_once < 1; ++blz_once)
 
-// The columns XXH64's row hash folds, passed to the kernel by value: k planes
-// of 4-byte (wide 0) or 8-byte (wide 1) words, each with its validity
-// bytes (a null entry: every row valid).
+// The columns of a row-hash launch (K2 murmur3.cu, K15 xxhash64.cu) and
+// the keys of K14's range partition (range_part.cu), passed to the kernel
+// by value (__grid_constant__, so a runtime column index reads the
+// parameter bank and nothing is copied to local memory): k planes of 1, 2,
+// 4 or 8-byte values, each with its validity bytes (null: every row
+// valid). A thread of these kernels takes BLZ_H_ROWS consecutive rows and
+// issues the loads of BLZ_H_GROUP columns before it computes on them.
 #define BLZ_MAX_KEYS 32
+#define BLZ_H_THREADS 256
+#define BLZ_H_ROWS 4
+#define BLZ_H_GROUP 8
 
-struct KeySet {
+struct HashCols {
   int k;
   const void* data[BLZ_MAX_KEYS];
   const uint8_t* valid[BLZ_MAX_KEYS];
-  int wide[BLZ_MAX_KEYS];
+  int size[BLZ_MAX_KEYS];
 };
 
-static inline KeySet blz_key_set(int k, const void* const* datas,
-                                 const uint8_t* const* valids, const int* wide) {
-  KeySet ks;
+// Fills ``ks`` with k columns from the argument words ``e``: (data,
+// validity (or 0), element bytes) at e[c * stride]. False on a null data
+// pointer or an element size other than 1, 2, 4 or 8.
+static inline bool blz_hash_cols(const long long* e, int k, int stride, HashCols& ks) {
   ks.k = k;
-  for (int c = 0; c < k; ++c) {
-    ks.data[c] = datas[c];
-    ks.valid[c] = valids[c];
-    ks.wide[c] = wide[c];
+  for (int c = 0; c < k; ++c, e += stride) {
+    const int size = (int)e[2];
+    if (e[0] == 0 || (size != 1 && size != 2 && size != 4 && size != 8)) return false;
+    ks.data[c] = (const void*)e[0];
+    ks.valid[c] = (const uint8_t*)e[1];
+    ks.size[c] = size;
   }
-  return ks;
+  return true;
+}
+
+// Four flag bytes from row r0 (a validity or exists plane; null: all set)
+// as bits 0..3: one 4-byte load when ``full`` (all four rows below n) and
+// the plane is 4-byte aligned, else a byte a row below n.
+__device__ __forceinline__ uint32_t blz_load_flags(const uint8_t* p, int64_t r0, int64_t n,
+                                                   bool full) {
+  if (p == nullptr) return 0xFu;
+  if (full && (((uintptr_t)p & 3u) == 0)) {
+    const uint32_t w = __ldg((const unsigned int*)(p + r0));
+    return ((w & 0xFFu) != 0) | (((w >> 8) & 0xFFu) != 0) << 1 |
+           (((w >> 16) & 0xFFu) != 0) << 2 | ((w >> 24) != 0) << 3;
+  }
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int i = 0; i < BLZ_H_ROWS; ++i)
+    if (r0 + i < n && __ldg(p + r0 + i) != 0) bits |= 1u << i;
+  return bits;
+}
+
+// Column c's four values from row r0 (lo: the low 32 bits, sign-extended
+// from a narrower plane, a bool's 0 / 1; hi: the high word of an 8-byte
+// value) and their validity as bits 0..3. ``full``: all four rows are
+// below n. A plane whose address is not aligned to its four rows' width
+// (a view at an odd offset), and rows past n, take scalar loads.
+__device__ __forceinline__ void blz_load_col(const HashCols& ks, int c, int64_t r0, int64_t n,
+                                             bool full, uint32_t lo[BLZ_H_ROWS],
+                                             uint32_t hi[BLZ_H_ROWS], uint32_t& vbits) {
+  vbits = blz_load_flags(ks.valid[c], r0, n, full);
+  const void* p = ks.data[c];
+  const uintptr_t a = (uintptr_t)p;
+  switch (ks.size[c]) {
+    case 8: {
+      const unsigned long long* q = (const unsigned long long*)p + r0;
+      if (full && (a & 15u) == 0) {
+        const uint4 x = __ldg((const uint4*)q);
+        const uint4 y = __ldg((const uint4*)q + 1);
+        lo[0] = x.x; hi[0] = x.y; lo[1] = x.z; hi[1] = x.w;
+        lo[2] = y.x; hi[2] = y.y; lo[3] = y.z; hi[3] = y.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < BLZ_H_ROWS; ++i) {
+          const unsigned long long v = r0 + i < n ? __ldg(q + i) : 0ull;
+          lo[i] = (uint32_t)v;
+          hi[i] = (uint32_t)(v >> 32);
+        }
+      }
+      break;
+    }
+    case 4: {
+      const unsigned int* q = (const unsigned int*)p + r0;
+      if (full && (a & 15u) == 0) {
+        const uint4 x = __ldg((const uint4*)q);
+        lo[0] = x.x; lo[1] = x.y; lo[2] = x.z; lo[3] = x.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < BLZ_H_ROWS; ++i) lo[i] = r0 + i < n ? __ldg(q + i) : 0u;
+      }
+      break;
+    }
+    case 2: {
+      const short* q = (const short*)p + r0;
+      if (full && (a & 7u) == 0) {
+        const uint2 x = __ldg((const uint2*)q);
+        lo[0] = (uint32_t)(int32_t)(short)(x.x & 0xFFFFu);
+        lo[1] = (uint32_t)(int32_t)(short)(x.x >> 16);
+        lo[2] = (uint32_t)(int32_t)(short)(x.y & 0xFFFFu);
+        lo[3] = (uint32_t)(int32_t)(short)(x.y >> 16);
+      } else {
+#pragma unroll
+        for (int i = 0; i < BLZ_H_ROWS; ++i)
+          lo[i] = r0 + i < n ? (uint32_t)(int32_t)__ldg(q + i) : 0u;
+      }
+      break;
+    }
+    default: {  // 1 byte: int8, or a bool's 0 / 1
+      const signed char* q = (const signed char*)p + r0;
+      if (full && (a & 3u) == 0) {
+        const uint32_t x = __ldg((const unsigned int*)q);
+#pragma unroll
+        for (int i = 0; i < BLZ_H_ROWS; ++i)
+          lo[i] = (uint32_t)(int32_t)(signed char)((x >> (8 * i)) & 0xFFu);
+      } else {
+#pragma unroll
+        for (int i = 0; i < BLZ_H_ROWS; ++i)
+          lo[i] = r0 + i < n ? (uint32_t)(int32_t)__ldg(q + i) : 0u;
+      }
+      break;
+    }
+  }
 }
 
 // Copies ``bytes`` of host memory to ``dev`` on ``stream`` through the

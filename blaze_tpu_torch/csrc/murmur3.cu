@@ -31,110 +31,17 @@
 // unroll with no runtime index; past 8 columns a loop over groups of 8.
 // The pmod is Spark's: a 32-bit % and a fix-up of a negative residue (a
 // reciprocal multiply was not measured faster: the kernel sits at the
-// card's launch floor at these shapes). The murmur3 rounds (blz_mix_k1,
-// blz_mix_h1, blz_fmix) are common.cuh's, shared with K16's hashLong
+// card's launch floor at these shapes). The column table and its
+// four-row loader (HashCols, blz_load_col) are common.cuh's, shared with
+// K15 (xxhash64.cu) and K14 (range_part.cu); the murmur3 rounds
+// (blz_mix_k1, blz_mix_h1, blz_fmix) too, shared with K16's hashLong
 // (bloom.cu).
 #include "common.cuh"
-
-#define BLZ_H_THREADS 256
-#define BLZ_H_ROWS 4     // consecutive rows a thread
-#define BLZ_H_GROUP 8    // columns whose loads go out together
-
-// The key columns of one launch, by value: k planes of 1, 2, 4 or 8-byte
-// values, each with its validity bytes (null: every row valid).
-struct HashCols {
-  int k;
-  const void* data[BLZ_MAX_KEYS];
-  const uint8_t* valid[BLZ_MAX_KEYS];
-  int size[BLZ_MAX_KEYS];
-};
 
 // Spark's pmod of the int32 hash: ((h % n) + n) % n for n > 0.
 __device__ __forceinline__ int32_t blz_pmod(uint32_t h, int32_t n) {
   const int32_t m = (int32_t)h % n;
   return m < 0 ? m + n : m;
-}
-
-// Column c's four values from row r0 (lo: the low 32 bits, sign-extended
-// from a narrower key; hi: the high word of an 8-byte key) and their
-// validity as bits 0..3. ``full``: all four rows are below n.
-__device__ __forceinline__ void blz_load_col(const HashCols& ks, int c, int64_t r0, int64_t n,
-                                             bool full, uint32_t lo[BLZ_H_ROWS],
-                                             uint32_t hi[BLZ_H_ROWS], uint32_t& vbits) {
-  const uint8_t* vp = ks.valid[c];
-  if (vp == nullptr) {
-    vbits = 0xFu;
-  } else if (full && (((uintptr_t)vp & 3u) == 0)) {
-    const uint32_t w = __ldg((const unsigned int*)(vp + r0));
-    vbits = ((w & 0xFFu) != 0) | (((w >> 8) & 0xFFu) != 0) << 1 |
-            (((w >> 16) & 0xFFu) != 0) << 2 | ((w >> 24) != 0) << 3;
-  } else {
-    vbits = 0u;
-#pragma unroll
-    for (int i = 0; i < BLZ_H_ROWS; ++i)
-      if (r0 + i < n && __ldg(vp + r0 + i) != 0) vbits |= 1u << i;
-  }
-  const void* p = ks.data[c];
-  const uintptr_t a = (uintptr_t)p;
-  switch (ks.size[c]) {
-    case 8: {
-      const unsigned long long* q = (const unsigned long long*)p + r0;
-      if (full && (a & 15u) == 0) {
-        const uint4 x = __ldg((const uint4*)q);
-        const uint4 y = __ldg((const uint4*)q + 1);
-        lo[0] = x.x; hi[0] = x.y; lo[1] = x.z; hi[1] = x.w;
-        lo[2] = y.x; hi[2] = y.y; lo[3] = y.z; hi[3] = y.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < BLZ_H_ROWS; ++i) {
-          const unsigned long long v = r0 + i < n ? __ldg(q + i) : 0ull;
-          lo[i] = (uint32_t)v;
-          hi[i] = (uint32_t)(v >> 32);
-        }
-      }
-      break;
-    }
-    case 4: {
-      const unsigned int* q = (const unsigned int*)p + r0;
-      if (full && (a & 15u) == 0) {
-        const uint4 x = __ldg((const uint4*)q);
-        lo[0] = x.x; lo[1] = x.y; lo[2] = x.z; lo[3] = x.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < BLZ_H_ROWS; ++i) lo[i] = r0 + i < n ? __ldg(q + i) : 0u;
-      }
-      break;
-    }
-    case 2: {
-      const short* q = (const short*)p + r0;
-      if (full && (a & 7u) == 0) {
-        const uint2 x = __ldg((const uint2*)q);
-        lo[0] = (uint32_t)(int32_t)(short)(x.x & 0xFFFFu);
-        lo[1] = (uint32_t)(int32_t)(short)(x.x >> 16);
-        lo[2] = (uint32_t)(int32_t)(short)(x.y & 0xFFFFu);
-        lo[3] = (uint32_t)(int32_t)(short)(x.y >> 16);
-      } else {
-#pragma unroll
-        for (int i = 0; i < BLZ_H_ROWS; ++i)
-          lo[i] = r0 + i < n ? (uint32_t)(int32_t)__ldg(q + i) : 0u;
-      }
-      break;
-    }
-    default: {  // 1 byte: int8, or a bool's 0 / 1
-      const signed char* q = (const signed char*)p + r0;
-      if (full && (a & 3u) == 0) {
-        const uint32_t x = __ldg((const unsigned int*)q);
-#pragma unroll
-        for (int i = 0; i < BLZ_H_ROWS; ++i)
-          lo[i] = (uint32_t)(int32_t)(signed char)((x >> (8 * i)) & 0xFFu);
-      } else {
-#pragma unroll
-        for (int i = 0; i < BLZ_H_ROWS; ++i)
-          lo[i] = r0 + i < n ? (uint32_t)(int32_t)__ldg(q + i) : 0u;
-      }
-      break;
-    }
-  }
 }
 
 // KMAX: the columns' bound, known at compile time (1, 2, 8, or
@@ -201,16 +108,7 @@ BLZ_EXPORT int blz_murmur3_pmod(const long long* w) {
       (((uintptr_t)hash_out | (uintptr_t)pid_out) & 15u) != 0)
     return (int)cudaErrorInvalidValue;
   HashCols ks;
-  ks.k = k;
-  for (int c = 0; c < k; ++c) {
-    const long long* e = w + 7 + 3 * c;
-    const int size = (int)e[2];
-    if (e[0] == 0 || (size != 1 && size != 2 && size != 4 && size != 8))
-      return (int)cudaErrorInvalidValue;
-    ks.data[c] = (const void*)e[0];
-    ks.valid[c] = (const uint8_t*)e[1];
-    ks.size[c] = size;
-  }
+  if (!blz_hash_cols(w + 7, k, 3, ks)) return (int)cudaErrorInvalidValue;
   const int32_t np = pid_out != nullptr ? (int32_t)nparts : 1;
   const uint32_t seed = (uint32_t)w[2];
   const unsigned int blocks =

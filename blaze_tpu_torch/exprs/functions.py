@@ -343,7 +343,7 @@ def _fn_murmur3(args, ev, batch):
 
 def _fn_xxhash64(args, ev, batch):
     words, valids, kinds = _hash_planes(args, ev, batch)
-    out = H.xxhash64_rows(H.xxhash_words(words), valids, kinds, batch.num_rows, batch.capacity)
+    out = H.xxhash64_rows(words, valids, kinds, batch.num_rows, batch.capacity)
     return DevVal(T.I64, out, batch.row_exists_mask())
 
 

@@ -13,9 +13,9 @@ CUDA tensor and runs ``murmur3_pmod_plain`` on a CPU tensor;
 - int8/16/32, date and bool hash as a 4-byte int (hashInt of the value
   sign-extended; a bool is 0 or 1), float32 as its 4-byte bit pattern;
   int64, timestamp, decimal(p<=18) (unscaled) hash as 8 bytes (hashLong:
-  low word, then high word), float64 as its bit pattern. K2 and its twin
-  read bool, int8 and int16 planes at their own width (``hash_words``);
-  K15 takes them widened to int32;
+  low word, then high word), float64 as its bit pattern. Both kernels
+  and their twins read bool, int8 and int16 planes at their own width
+  (``hash_words``): nothing is widened before a launch;
 - partition id = ((int32) hash mod n + n) mod n;
 - XXH64 hashes a 4-byte word with XXH64's 4-byte tail round and an
   8-byte word with its 8-byte round, then the avalanche; floats hash as
@@ -55,7 +55,7 @@ def hash_words(data: torch.Tensor, kind: str) -> torch.Tensor:
     """The column's hash words at their own width: a bool, int8, int16 or
     int32 plane as it is (K2 and its twin sign-extend to 32 bits; a bool is
     0 or 1), float32 bit-cast to int32, float64 to int64, an "i64" integer
-    plane as int64."""
+    plane as int64. K2, K15 and their twins take these planes."""
     if kind == "i64":
         if data.dtype == torch.float64:
             return data.view(torch.int64)
@@ -63,12 +63,6 @@ def hash_words(data: torch.Tensor, kind: str) -> torch.Tensor:
     if data.dtype == torch.float32:
         return data.view(torch.int32)
     return data
-
-
-def xxhash_words(words: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """``hash_words``' planes as K15 takes them: a bool, int8 or int16
-    plane widened to int32 (the same hashInt words)."""
-    return [w.to(torch.int32) if w.element_size() < 4 else w for w in words]
 
 
 # -- plain version (int64 arithmetic on 32-bit lanes) --------------------------
@@ -138,11 +132,8 @@ def murmur3_pmod_plain(words: Sequence[torch.Tensor],
     return signed.to(torch.int32), pid.to(torch.int32)
 
 
-# -- K2 on the card ------------------------------------------------------------
+# -- the row hashes' packs (K2, K15) ----------------------------------------------
 
-# csrc/murmur3.cu blz_murmur3_pmod's argument words: the header, then
-# (data, validity, element bytes) a column from _HW_COLS
-_HW_K, _HW_N, _HW_SEED, _HW_NPARTS, _HW_HASH, _HW_PID, _HW_STREAM, _HW_COLS = range(8)
 # csrc/common.cuh BLZ_MAX_KEYS
 _MAX_KEYS = 32
 # the plane dtypes each kind hashes: "i32" as hashInt of the value
@@ -151,7 +142,73 @@ _KIND_DTYPES = {"i32": (torch.bool, torch.int8, torch.int16, torch.int32),
                 "i64": (torch.int64,)}
 
 
-class Murmur3Pack:
+class _HashPack:
+    """A row hash's argument words for one column signature (the device,
+    each column's kind and word dtype), checked and packed once: a header
+    of ``cols`` words, then (data, validity, element bytes) a column from
+    word ``cols``. ``planes`` checks a call's planes' device, shape and
+    validity dtype and writes their pointers into the words in place."""
+
+    def __init__(self, name: str, index: int, words: Sequence[torch.Tensor],
+                 valids: Sequence[torch.Tensor], kinds: Sequence[str], cols: int):
+        k = len(words)
+        if index < 0:
+            raise ValueError(f"{name}: planes off the card, expected CUDA")
+        if not 0 < k <= _MAX_KEYS or len(valids) != k or len(kinds) != k:
+            raise ValueError(f"{name}: {k} words, {len(valids)} validities, "
+                             f"{len(kinds)} kinds (1..{_MAX_KEYS} columns)")
+        for w, kind in zip(words, kinds):
+            if w.dtype not in _KIND_DTYPES.get(kind, ()):
+                raise TypeError(f"{name}: word {w.dtype}/{kind}")
+        self.name, self.index, self.cols = name, index, cols
+        self.device = torch.device("cuda", index)
+        self.words = (cuda_lib.ctypes.c_longlong * (cols + 3 * k))()
+        self.words[0] = k
+        for c, w in enumerate(words):
+            self.words[cols + 3 * c + 2] = w.element_size()
+
+    def planes(self, words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor], n: int):
+        w, index, at = self.words, self.index, self.cols
+        for d, v in zip(words, valids):
+            # get_device() is -1 off the card: one check for the device and CUDA
+            if d.get_device() != index or v.get_device() != index or \
+                    v.dtype is not torch.bool or d.dim() != 1 or v.dim() != 1 or \
+                    not d.is_contiguous() or not v.is_contiguous() or \
+                    d.numel() < n or v.numel() < n:
+                raise ValueError(f"{self.name}: planes {d.dtype}{tuple(d.shape)} on "
+                                 f"{d.device} and {v.dtype}{tuple(v.shape)} on {v.device}, "
+                                 f"expected contiguous CUDA planes on cuda:{index} of "
+                                 f">= {n} rows")
+            w[at], w[at + 1] = d.data_ptr(), v.data_ptr()
+            at += 3
+
+
+_PACKS = threading.local()
+
+
+def _pack(cls, sig, *args):
+    """The per-thread pack of ``cls`` for signature ``sig`` (at most 64
+    kept a class)."""
+    by_sig = getattr(_PACKS, cls.__name__, None)
+    if by_sig is None:
+        by_sig = {}
+        setattr(_PACKS, cls.__name__, by_sig)
+    pack = by_sig.get(sig)
+    if pack is None:
+        if len(by_sig) >= 64:
+            by_sig.clear()
+        pack = by_sig[sig] = cls(*args)
+    return pack
+
+
+# -- K2 on the card ------------------------------------------------------------
+
+# csrc/murmur3.cu blz_murmur3_pmod's argument words: the header, then
+# (data, validity, element bytes) a column from _HW_COLS
+_HW_K, _HW_N, _HW_SEED, _HW_NPARTS, _HW_HASH, _HW_PID, _HW_STREAM, _HW_COLS = range(8)
+
+
+class Murmur3Pack(_HashPack):
     """K2's argument words for one key signature (the device, nparts,
     whether the hash is written too, each column's kind and word dtype),
     checked and packed once; each call then checks its planes' device,
@@ -164,42 +221,19 @@ class Murmur3Pack:
     def __init__(self, index: int, words: Sequence[torch.Tensor],
                  valids: Sequence[torch.Tensor], kinds: Sequence[str], nparts: int,
                  with_hash: bool):
-        k = len(words)
-        if index < 0:
-            raise ValueError("murmur3_pmod: planes off the card, expected CUDA")
-        if not 0 < k <= _MAX_KEYS or len(valids) != k or len(kinds) != k:
-            raise ValueError(f"murmur3_pmod: {k} words, {len(valids)} validities, "
-                             f"{len(kinds)} kinds (1..{_MAX_KEYS} columns)")
-        for w, kind in zip(words, kinds):
-            if w.dtype not in _KIND_DTYPES.get(kind, ()):
-                raise TypeError(f"murmur3_pmod: word {w.dtype}/{kind}")
+        super().__init__("murmur3_pmod", index, words, valids, kinds, _HW_COLS)
         if nparts <= 0 or nparts >= 2 ** 31:
             raise ValueError(f"murmur3_pmod: nparts={nparts}")
-        self.index, self.with_hash = index, with_hash
-        self.device = torch.device("cuda", index)
+        self.with_hash = with_hash
         self.fn = cuda_lib.library().blz_murmur3_pmod
-        self.words = (cuda_lib.ctypes.c_longlong * (_HW_COLS + 3 * k))()
-        self.words[_HW_K], self.words[_HW_SEED], self.words[_HW_NPARTS] = k, SEED, nparts
-        for c, w in enumerate(words):
-            self.words[_HW_COLS + 3 * c + 2] = w.element_size()
+        self.words[_HW_SEED], self.words[_HW_NPARTS] = SEED, nparts
 
     def launch(self, words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor], n: int):
         """(hash or None, pids) of the first ``n`` rows: one K2 launch."""
         if n <= 0:
             raise ValueError(f"murmur3_pmod: n={n}")
-        w, index, at = self.words, self.index, _HW_COLS
-        for d, v in zip(words, valids):
-            # get_device() is -1 off the card: one check for the device and CUDA
-            if d.get_device() != index or v.get_device() != index or \
-                    v.dtype is not torch.bool or d.dim() != 1 or v.dim() != 1 or \
-                    not d.is_contiguous() or not v.is_contiguous() or \
-                    d.numel() < n or v.numel() < n:
-                raise ValueError(f"murmur3_pmod: planes {d.dtype}{tuple(d.shape)} on "
-                                 f"{d.device} and {v.dtype}{tuple(v.shape)} on {v.device}, "
-                                 f"expected contiguous CUDA planes on cuda:{index} of "
-                                 f">= {n} rows")
-            w[at], w[at + 1] = d.data_ptr(), v.data_ptr()
-            at += 3
+        self.planes(words, valids, n)
+        w = self.words
         if self.with_hash:
             out = torch.empty((2, (n + 3) // 4 * 4), dtype=torch.int32, device=self.device)
             hash_out, pid_out = out[0, :n], out[1, :n]
@@ -210,13 +244,10 @@ class Murmur3Pack:
             pid_out = torch.empty(n, dtype=torch.int32, device=self.device)
             w[_HW_HASH], w[_HW_PID] = 0, pid_out.data_ptr()
         w[_HW_N] = n
-        w[_HW_STREAM] = cuda_lib.stream_handle(index)
+        w[_HW_STREAM] = cuda_lib.stream_handle(self.index)
         cuda_lib.check(self.fn(w), "murmur3_pmod")
         cuda_lib.LAUNCHES["murmur3_pmod"] += 1
         return hash_out, pid_out
-
-
-_PACKS = threading.local()
 
 
 def murmur3_pmod_cuda(words: Sequence[torch.Tensor],
@@ -226,17 +257,10 @@ def murmur3_pmod_cuda(words: Sequence[torch.Tensor],
     (the hash output is None when ``with_hash`` is False). ``words`` are
     ``hash_words``' planes at their own width; the signature's checks and
     argument words are kept in a :class:`Murmur3Pack`."""
-    packs = getattr(_PACKS, "by_sig", None)
-    if packs is None:
-        packs = _PACKS.by_sig = {}
     index = valids[0].get_device() if valids else -1
     sig = (index, nparts, with_hash, *kinds, *[w.dtype for w in words])
-    pack = packs.get(sig)
-    if pack is None:
-        if len(packs) >= 64:
-            packs.clear()
-        pack = packs[sig] = Murmur3Pack(index, words, valids, kinds, nparts, with_hash)
-    return pack.launch(words, valids, n)
+    return _pack(Murmur3Pack, sig, index, words, valids, kinds, nparts,
+                 with_hash).launch(words, valids, n)
 
 
 def murmur3_hashes(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
@@ -352,14 +376,18 @@ def _to_int64(a) -> torch.Tensor:
 
 
 def xxhash64_rows_plain(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
-                        kinds: Sequence[str], n: int, cap: int) -> torch.Tensor:
-    """Plain PyTorch twin of K15: Spark's XXH64 row hash (seed 42) of the
-    first ``n`` rows, the columns folded in order (a null value leaves the
-    running hash unchanged), as int64 of ``cap`` rows, 0 past ``n``.
-    ``words``/``kinds`` as ``hash_words``/``hash_kind`` give them."""
+                        kinds: Sequence[str], n: int, cap: int,
+                        seed: int = SEED) -> torch.Tensor:
+    """Plain PyTorch twin of K15: Spark's XXH64 row hash of the first ``n``
+    rows, the columns folded in order from ``seed`` (42, the SQL function's;
+    a null value leaves the running hash unchanged), as int64 of ``cap``
+    rows, 0 past ``n``. ``words``/``kinds`` as ``hash_words``/``hash_kind``
+    give them: a bool, int8 or int16 plane takes the 4-byte round of its
+    value sign-extended to 32 bits."""
     device = valids[0].device if valids else torch.device("cpu")
     zero = torch.zeros(n, dtype=torch.int64, device=device)
-    h = (zero, zero + SEED)
+    seed &= (1 << 64) - 1
+    h = (zero + (seed >> 32), zero + (seed & _M32))
     for w, v, kind in zip(words, valids, kinds):
         word = _halves(w[:n], kind)
         new = _xxh64_long(word, h) if kind == "i64" else _xxh64_int(word, h)
@@ -372,35 +400,53 @@ def xxhash64_rows_plain(words: Sequence[torch.Tensor], valids: Sequence[torch.Te
 
 # -- K15 on the card -------------------------------------------------------------------
 
+# csrc/xxhash64.cu blz_xxhash64's argument words: the header, then (data,
+# validity, element bytes) a column from _XW_COLS
+_XW_K, _XW_N, _XW_CAP, _XW_SEED, _XW_OUT, _XW_STREAM, _XW_COLS = range(7)
+
+
+class Xxh64Pack(_HashPack):
+    """K15's argument words for one column signature (the device, each
+    column's kind and word dtype), checked and packed once; each call then
+    checks its planes' device, shape and validity dtype, writes only the
+    row count, the capacity, the seed, the planes' and the output's
+    pointers and the stream into the words in place, and allocates the
+    output. Packs live per thread, one a signature (``xxhash64_rows_cuda``)."""
+
+    def __init__(self, index: int, words: Sequence[torch.Tensor],
+                 valids: Sequence[torch.Tensor], kinds: Sequence[str]):
+        super().__init__("xxhash64", index, words, valids, kinds, _XW_COLS)
+        self.fn = cuda_lib.library().blz_xxhash64
+
+    def launch(self, words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor], n: int,
+               cap: int, seed: int = SEED) -> torch.Tensor:
+        """The int64 hashes of ``cap`` rows, 0 past ``n``: one K15 launch."""
+        if not 0 <= n <= cap:
+            raise ValueError(f"xxhash64: n={n}, cap={cap}")
+        self.planes(words, valids, n)
+        out = torch.empty(cap, dtype=torch.int64, device=self.device)
+        if cap == 0:
+            return out
+        w = self.words
+        w[_XW_N], w[_XW_CAP], w[_XW_OUT] = n, cap, out.data_ptr()
+        w[_XW_SEED] = (seed + (1 << 63)) % (1 << 64) - (1 << 63)  # as a signed word
+        w[_XW_STREAM] = cuda_lib.stream_handle(self.index)
+        cuda_lib.check(self.fn(w), "xxhash64")
+        cuda_lib.LAUNCHES["xxhash64"] += 1
+        return out
+
 
 def xxhash64_rows_cuda(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
-                       kinds: Sequence[str], n: int, cap: int) -> torch.Tensor:
-    """K15 (csrc/xxhash64.cu): same contract as :func:`xxhash64_rows_plain`."""
-    cuda_lib.require_cuda("xxhash64", *words, *valids)
-    if not words or len(words) != len(valids) or len(words) != len(kinds):
-        raise ValueError(f"xxhash64: {len(words)} words, {len(valids)} validities, "
-                         f"{len(kinds)} kinds")
-    if not 0 <= n <= cap:
-        raise ValueError(f"xxhash64: n={n}, cap={cap}")
-    for w, v, kind in zip(words, valids, kinds):
-        want = torch.int64 if kind == "i64" else torch.int32
-        if w.dtype != want or v.dtype != torch.bool or w.shape[0] < n \
-                or v.shape[0] < n:
-            raise TypeError(f"xxhash64: word {w.dtype}/{kind}, validity "
-                            f"{v.dtype}, rows {w.shape[0]} for n={n}")
-    device = valids[0].device
-    out = torch.empty(cap, dtype=torch.int64, device=device)
-    if cap == 0:
-        return out
-    lib = cuda_lib.library()
-    datas, _k1 = cuda_lib.ptr_array(words)
-    vptrs, _k2 = cuda_lib.ptr_array(valids)
-    wide, _k3 = cuda_lib.int_array([1 if k == "i64" else 0 for k in kinds])
-    err = lib.blz_xxhash64(len(words), datas, vptrs, wide, n, cap, SEED,
-                           out.data_ptr(), cuda_lib.stream_of(device))
-    cuda_lib.check(err, "xxhash64")
-    cuda_lib.LAUNCHES["xxhash64"] += 1
-    return out
+                       kinds: Sequence[str], n: int, cap: int,
+                       seed: int = SEED) -> torch.Tensor:
+    """K15 (csrc/xxhash64.cu): same contract as :func:`xxhash64_rows_plain`.
+    ``words`` are ``hash_words``' planes at their own width; the
+    signature's checks and argument words are kept in an
+    :class:`Xxh64Pack`."""
+    index = valids[0].get_device() if valids else -1
+    sig = (index, *kinds, *[w.dtype for w in words])
+    return _pack(Xxh64Pack, sig, index, words, valids, kinds).launch(words, valids, n, cap,
+                                                                     seed)
 
 
 def xxhash64_rows(words: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],

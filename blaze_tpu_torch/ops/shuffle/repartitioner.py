@@ -121,9 +121,9 @@ class RangePartitioner(Repartitioner):
     (rows of the sort-key schema, Spark's RangePartitioning bounds). The
     bounds are normalised once per partitioner (the Session builds one an
     exchange), by the same key pass as the rows (K5), sorted, and kept on
-    the device; each bucketize pass is
-    one K14 launch, one K5 sort by id and one K7 split. Empty bounds put
-    every row in partition 0."""
+    the device, on the card with K14's argument words and bound table (a
+    ``RangePack``); each bucketize pass is one K14 launch, one K5 sort by
+    id and one K7 split. Empty bounds put every row in partition 0."""
 
     def __init__(self, sort_orders: List[E.SortOrder], num_partitions: int,
                  bounds: List[tuple], schema):
@@ -136,11 +136,13 @@ class RangePartitioner(Repartitioner):
         self.spec = SK.key_spec(sort_orders)
         self.ev = ExprEvaluator([so.child for so in sort_orders], schema)
         self._dev_bounds = None
+        self._key_dtypes = None
+        self._pack = None
 
     def _device_bounds(self, device: torch.device) -> List[torch.Tensor]:
         """The bound rows as a batch of the sort-key schema, through K5's
         key pass and sort, sliced to the bound count (the batch pads to its
-        capacity)."""
+        capacity); on the card also K14's pack over them."""
         if self._dev_bounds is None:
             schema = T.Schema.of(*[(f"k{i}", t) for i, t in enumerate(self.key_types)])
             cols = {}
@@ -154,6 +156,10 @@ class RangePartitioner(Repartitioner):
             self._dev_bounds = K.range_bound_operands(
                 [c.data[:nb] for c in bb.columns], [c.validity[:nb] for c in bb.columns],
                 self.spec)
+            # the key planes' dtypes: the bound batch's, by the same schema
+            self._key_dtypes = [c.data.dtype for c in bb.columns]
+            if device.type == "cuda":
+                self._pack = K.RangePack(self._dev_bounds, self.spec, self._key_dtypes)
         return self._dev_bounds
 
     def _key_planes(self, batch):
@@ -168,8 +174,9 @@ class RangePartitioner(Repartitioner):
         if not self.bounds:
             return torch.zeros(batch.num_rows, dtype=torch.int32, device=batch.device)
         datas, valids = self._key_planes(batch)
-        pids = K.range_partition_ids(datas, valids, batch.row_exists_mask(),
-                                     self._device_bounds(batch.device), self.spec)
+        bounds = self._device_bounds(batch.device)
+        pids = K.range_partition_ids(datas, valids, batch.row_exists_mask(), bounds, self.spec,
+                                     pack=self._pack)
         return pids[:batch.num_rows]
 
 

@@ -200,7 +200,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
-_U64 = ctypes.c_uint64
 _I32 = ctypes.c_int32
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
@@ -261,12 +260,10 @@ _SIGNATURES = {
     # data, kind, validity, exists, seg_start, n, carry_f, carry_i, carry_c,
     # rows, levels, out_s, out_c, stream
     "blz_segment_scan": [_P, _I, _P, _P, _P, _I64, _D, _I64, _I64, _P, _P, _P, _P, _P],
-    # k, datas, valids, sizes, kinds, asc, nulls_first, exists, n, brank,
-    # bval, nb, staged, out, stream
-    "blz_range_partition_ids": [_I, _PP, _PP, _PI, _PI, _PI, _PI, _P, _I64, _PP, _PP,
-                                _I, _I, _P, _P],
-    # k, datas, valids, wide, n, cap, seed, out, stream
-    "blz_xxhash64": [_I, _PP, _PP, _PI, _I64, _I64, _U64, _P, _P],
+    # the argument words (csrc/range_part.cu; core/kernels.py _RW_*)
+    "blz_range_partition_ids": [_PLL],
+    # the argument words (csrc/xxhash64.cu; exprs/spark_hash.py _XW_*)
+    "blz_xxhash64": [_PLL],
     # values, n, words, k, bit_size, out, stream
     "blz_bloom_probe": [_P, _I64, _P, _I, _I64, _P, _P],
     # the argument words (csrc/mesh.cu; core/kernels.py _MW_*)

@@ -8,7 +8,9 @@ comparisons on one NVIDIA GPU.
     python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k3_k4,k10,limbs,k12,k19,k5,k7,k8,k11
                        [--shapes DIR]
     python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k2,k17 [--shapes DIR]
-    python3 chip_ab.py [--tree DIR] --resources=murmur3,mesh
+    python3 chip_ab.py [--tree DIR] [--label NAME] --kernels=k15,k14 [--shapes DIR]
+    python3 chip_ab.py [--tree DIR] --resources=murmur3,mesh,xxhash64,range_partition
+    python3 chip_ab.py [--tree DIR] --variants=k15,k14
 
 Paths: q01, q01_mesh1, q01_mesh2, q01_mesh8, q67, q67_sort, q67_table,
 q69, q69_bloom, q06, q47, q96, q96_mesh, q17, q17_sort, q17_table, q89,
@@ -26,10 +28,14 @@ whichever the checkout's phase records (``k8``: q96's three probes, q69's
 date probe and q06's all-hit batch; ``k11``: q69's and q96's scan filters,
 with the generated kernel's own device ms; ``k2``: cust_spend's, q67's and
 q01's exchange batches; ``k17``: sort10M_mesh's and q01_mesh8's exchanges
-with the 32-byte sectors of their gathers). A process that has run
-torch.profiler launches slower from then on, so the k2 and k17 phases take
-the wrapper's host ms first; give each phase its own process to keep its
-host ms clear of an earlier phase's profiler.
+with the 32-byte sectors of their gathers; ``k15``: hash_sample's and
+q69_bloom's batches; ``k14``: sort10M's map batch at 31 and 199 bounds,
+one key beside torch.searchsorted's events and device ms, and
+hash_sample's store exchange, with each route's device ms at 3 to 199
+bounds in ``route_ms``). A process that has run torch.profiler launches
+slower from then on, so the k2, k17, k15 and k14 phases take the
+wrapper's host ms first; give each phase its own process to keep its host
+ms clear of an earlier phase's profiler.
 
 ``--shapes=DIR`` imports ``chip_smoke`` from the checkout at DIR in place
 of ``--tree``'s (the package still from ``--tree``): an older tree's
@@ -40,6 +46,15 @@ kernels at a newer tree's shapes and cases (its ``kernel_k1`` and
 whose name holds one of the names, ptxas's registers, stack frame and
 spills and the local-memory loads and stores (LDL, STL) in its SASS
 (``cuobjdump``), one JSON line a kernel.
+
+``--variants=k15,k14`` builds design variants of K15's and K14's sources
+(each a copy of csrc/ with one edit, built with nvcc into its own library
+under the build directory: K15 at 128 threads a block as committed, at
+256, and at 128 with its XXH64 rounds left out, the loads' and stores'
+own floor; K14 at 256 threads as committed and at 512), launches each
+through the checkout's packs at chip_smoke.py's shapes (XXH_HASH_SAMPLE,
+XXH_Q69_BLOOM, K14_SHAPES) held to the twin, and prints each variant's
+torch.profiler device ms, one JSON line a shape.
 
 Imports ``chip_smoke`` and ``blaze_tpu_torch`` from the checkout at DIR
 (default: this one) and, for each named path, stages its data once (as
@@ -72,7 +87,7 @@ import time
 def _args(argv):
     opts = {"tree": os.path.dirname(os.path.abspath(__file__)), "label": "",
             "paths": "q67_sort,q69", "runs": "5", "kernels": "", "trace": "", "shapes": "",
-            "resources": ""}
+            "resources": "", "variants": ""}
     flags = set()
     for a in argv:
         if a.startswith("--") and "=" in a:
@@ -394,6 +409,101 @@ def _resources(names) -> int:
     return 0
 
 
+# --variants: (kernel, variant) -> (source, {file: [(text, replacement)]});
+# the rounds-free K15 returns the seed xor the word from both XXH64 rounds
+_NO_ROUNDS = (r"(unsigned long long v,\s+unsigned long long seed\) \{)",
+              r"\1\n  return seed ^ v;")
+VARIANTS = {
+    ("k15", "128 threads (committed)"): ("xxhash64.cu", {}),
+    ("k15", "256 threads"): ("xxhash64.cu", {"xxhash64.cu": [(
+        "#define BLZ_XXH_THREADS 128", "#define BLZ_XXH_THREADS 256")]}),
+    ("k15", "128 threads, no XXH64 rounds"): ("xxhash64.cu", {"xxhash64.cu": [_NO_ROUNDS]}),
+    ("k14", "256 threads (committed)"): ("range_part.cu", {}),
+    ("k14", "512 threads"): ("range_part.cu", {"common.cuh": [(
+        "#define BLZ_H_THREADS 256", "#define BLZ_H_THREADS 512")]}),
+}
+
+
+def _variant_lib(name, source, edits):
+    """A variant of one kernel source built into its own library."""
+    import ctypes
+    import re
+    import subprocess
+
+    from blaze_tpu_torch.utils import cuda_lib
+
+    d = os.path.join(cuda_lib.build_dir(), "variants", re.sub(r"\W+", "_", name))
+    os.makedirs(d, exist_ok=True)
+    for f in (source, "common.cuh"):
+        with open(os.path.join(cuda_lib.CSRC, f)) as fh:
+            text = fh.read()
+        for a, b in edits.get(f, ()):
+            new = re.sub(a, b, text) if a.startswith("(") else text.replace(a, b)
+            if new == text:
+                raise SystemExit(f"chip_ab: variant {name}: {a!r} not in {f}")
+            text = new
+        with open(os.path.join(d, f), "w") as fh:
+            fh.write(text)
+    lib = os.path.join(d, "lib.so")
+    out = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", lib,
+                          os.path.join(d, source)], capture_output=True, text=True)
+    if out.returncode:
+        raise SystemExit(f"chip_ab: variant {name}: {out.stderr[-2000:]}")
+    fn = getattr(ctypes.CDLL(lib), "blz_xxhash64" if source == "xxhash64.cu"
+                 else "blz_range_partition_ids")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _variants(cs, dev, names) -> int:
+    import numpy as np
+    import torch
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.exprs import spark_hash as H
+
+    rng = np.random.default_rng(7)
+    fns = {key: _variant_lib(" ".join(key), *spec) for key, spec in VARIANTS.items()
+           if key[0] in names}
+    if "k15" in names:
+        for case in (cs.XXH_HASH_SAMPLE, cs.XXH_Q69_BLOOM):
+            words, valids, kinds, n, cap = cs.xxh_case(case, rng, dev)
+            want = H.xxhash64_rows_plain(words, valids, kinds, n, cap)
+            out = {}
+            for (kernel, label), fn in fns.items():
+                if kernel != "k15":
+                    continue
+                pack = H.Xxh64Pack(valids[0].get_device(), words, valids, kinds)
+                pack.fn = fn
+                got = pack.launch(words, valids, n, cap)
+                if "no XXH64" not in label and not torch.equal(got, want):
+                    raise SystemExit(f"chip_ab: K15 variant {label} differs from the twin")
+                out[label] = cs.kernel_device_ms(lambda: pack.launch(words, valids, n, cap),
+                                                 "blz_xxhash64")
+            print(json.dumps({"phase": "variants", "kernel": "k15", "shape": case[0],
+                              "device_ms": out}), flush=True)
+    if "k14" in names:
+        for keys, nb, rows, cap, distinct in cs.K14_SHAPES:
+            m = cs.k14_shape(keys, nb, rows, cap, distinct, rng, dev)
+            want = m["plain"]()
+            out = {}
+            for (kernel, label), fn in fns.items():
+                if kernel != "k14":
+                    continue
+                for route in (K.RANGE_COUNT, K.RANGE_SEARCH):
+                    pack = K.RangePack(m["ops"], m["spec"], [d.dtype for d in m["datas"]],
+                                       route=route)
+                    pack.fn = fn
+                    if not torch.equal(pack.launch(m["datas"], m["valids"], m["ex"]), want):
+                        raise SystemExit(f"chip_ab: K14 variant {label} differs from the twin")
+                    out[f"{label}, {'count' if route == K.RANGE_COUNT else 'search'}"] = \
+                        cs.kernel_device_ms(lambda pack=pack: pack.launch(
+                            m["datas"], m["valids"], m["ex"]), "blz_range_partition")
+            print(json.dumps({"phase": "variants", "kernel": "k14", "keys": len(keys),
+                              "bounds": nb, "rows": rows, "device_ms": out}), flush=True)
+    return 0
+
+
 SETUPS = {"q01": _q01_setup, "q01_mesh1": _q01_mesh_setup, "q01_mesh2": _q01_mesh_setup,
           "q01_mesh8": _q01_mesh_setup, "q67": _q67_setup, "q67_sort": _q67_setup,
           "q67_table": _q67_setup, "q69": _q69_setup, "q69_bloom": _q69_bloom_setup,
@@ -436,6 +546,8 @@ def main(argv) -> int:
         return _resources(opts["resources"].split(","))
     cuda_lib.library()
     dev = torch.device("cuda")
+    if opts["variants"]:
+        return _variants(cs, dev, opts["variants"].split(","))
     conf_kw = {}
     if "no-fusion" in flags:
         conf_kw["fusion_enabled"] = False

@@ -67,20 +67,26 @@ only when every phase passed:
    extremes and values past 2^64, all-negative extremes, cancellation near the
    extremes, single rows, one row, nulls, padding and every value null,
    then timed at q17's shapes); for the range exchange's partition ids,
-   K14: one to five keys of int64/int32/int16/int8/bool/float32/float64/
-   decimal, ASC and DESC, nulls first and last, NaN and +-0.0 in rows and
-   bounds, int64 min and max, null bounds, 1, 3, 31, 199 and 1,200
-   bounds (the last past the shared-memory stage), padding rows,
-   capacities 256, 4,096 and 262,144, and sort10M's map batch, then timed
-   there at 31 and 199 bounds and on one key beside torch.searchsorted
-   (and every K14 launch of q98's and sort10M's first runs held to the
-   twin on that batch); for the XXH64 row hash, K15: every lane (int8,
-   int16, int32, int64, date, timestamp, bool, float32 and float64 bits
-   with -0.0, +-inf and four NaN payloads, decimal(7,2) and decimal(18,0)
-   unscaled), nulls at 0%, 15% and 100%, one to eight columns, capacities
-   16 and 262,144 with padding rows and none live, each also against a
-   numpy XXH64, and Spark's golden longs, timed at hash_sample's batch
-   (and every K15 launch of hash_sample's first run held to the twin);
+   K14: one to five and sixteen keys of int64/int32/int16/int8/bool/
+   float32/float64/decimal, ASC and DESC, nulls first and last, NaN and
+   +-0.0 in rows and bounds, int64 min and max, null bounds, 0, 1, 3, 7,
+   31, 199, 400 and 1,200 bounds (the last two past the shared-memory
+   stage), padding rows, 1 to 262,145 rows, planes as views at odd
+   element offsets, sort10M's map batch, each on every route its bounds
+   allow (count, search, search in global memory), then timed at 31 and
+   199 bounds, on one key beside torch.searchsorted and at hash_sample's
+   store exchange with the wrapper's host ms, and each route's device ms
+   at 3 to 199 bounds (and every K14 launch of q98's and sort10M's first
+   runs held to the twin on that batch); for the XXH64 row hash, K15:
+   every lane at its own width (int8, int16, int32, int64, date,
+   timestamp, bool, float32 and float64 bits with -0.0, +-inf and four
+   NaN payloads, decimal(7,2) and decimal(18,0) unscaled), nulls at 0%,
+   4%, 15% and 100%, 1 to 32 columns, 1 to 262,145 rows with padding
+   rows and none live, planes as views at odd element offsets, each also
+   against a numpy XXH64, Spark's golden longs and its documented
+   xxhash64('Spark', array(123), 2) with a byte and a short, timed at
+   hash_sample's and q69_bloom's batches with the wrapper's host ms (and
+   every K15 launch of hash_sample's first run held to the twin);
    for the bloom filter's probe, K16: k = 1, 2, 6 and 8 hash functions,
    64, 192 (three words: the modulo is not a mask), 8,388,608 and
    67,108,864 bits, int64 min and max, 0 and -1, combined hashes that go
@@ -302,6 +308,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ROWS = 28_795_080
 PARTS = 4
 N_STORES = 400
+HS_STORES = 102  # SF10's stores (hash_sample's, the K14 shape of its ORDER BY)
 N_CUSTOMERS = 100_000
 N_ITEMS = 2000
 Q67_ROWS = 28_800_991
@@ -4107,6 +4114,27 @@ RANGE_CASES = (
      (("i64", True, True), ("f64", False, True), ("i32", True, False), ("bool", False, False),
       ("dec", True, True)), 4096, 4000, 1200, 0.05, 0.05),
     ("padding only: no live row, 3 bounds", (("i64", True, True),), 256, 0, 3, 0.0, 0.0),
+    # K14's tails, views and key counts (a last element: every plane a view
+    # that many elements into its allocation)
+    ("n = 1: i8, 3 bounds, offset 1", (("i8", True, True),), 1, 1, 3, 0.0, 0.0, 1),
+    ("n = 3: i32 DESC + f32, 7 bounds, offset 1",
+     (("i32", False, True), ("f32", True, False)), 3, 3, 7, 0.2, 0.1, 1),
+    ("n = 4: bool + i16 DESC + f64, 31 bounds, offset 1",
+     (("bool", True, True), ("i16", False, False), ("f64", True, True)), 4, 3, 31, 0.2, 0.1,
+     1),
+    ("n = 5: 5 keys, no bound, offset 3",
+     (("i64", True, True), ("f64", False, True), ("i32", True, False), ("bool", False, False),
+      ("dec", True, True)), 5, 5, 0, 0.2, 0.0, 3),
+    ("n = 255: f64 DESC nulls last, 199 bounds, offset 1", (("f64", False, False),), 255, 250,
+     199, 0.1, 0.05, 1),
+    ("n = 1,023: i64 + dec DESC, 31 bounds, offset 1",
+     (("i64", True, True), ("dec", False, False)), 1023, 1000, 31, 0.1, 0.1, 1),
+    ("n = 262,145: sort10M's keys, 31 bounds, offset 1", SORT10M_KEYS, 262145, 262145, 31, 0.0,
+     0.0, 1),
+    ("16 keys, 400 bounds: bounds read from global memory",
+     tuple((kind, c % 2 == 0, c % 3 != 0) for c, kind in enumerate(
+         ("i64", "f64", "i32", "bool", "dec", "f32", "i16", "i8", "wide", "i64", "f64", "i32",
+          "bool", "dec", "f32", "i16"))), 1024, 1000, 400, 0.1, 0.1),
 )
 RANGE_FLOAT_SPECIALS = (0.0, -0.0, float("nan"), float("inf"), float("-inf"))
 RANGE_NPDT = {"i64": "int64", "wide": "int64", "dec": "int64", "price": "int64",
@@ -4142,7 +4170,7 @@ def range_case(case, rng):
     bvalids (one row a bound, in draw order), spec}."""
     import numpy as np
 
-    label, keys, cap, n, nb, nulls, bnulls = case
+    label, keys, cap, n, nb, nulls, bnulls, *offset = case
     datas, valids, bdatas, bvalids = [], [], [], []
     for kind, _asc, _nf in keys:
         d = np.zeros(cap, RANGE_NPDT[kind])
@@ -4158,21 +4186,56 @@ def range_case(case, rng):
         bvalids.append(bv)
     return {"label": label, "datas": datas, "valids": valids, "exists": np.arange(cap) < n,
             "bdatas": bdatas, "bvalids": bvalids,
-            "spec": tuple((asc, nf) for _k, asc, nf in keys)}
+            "spec": tuple((asc, nf) for _k, asc, nf in keys),
+            "offset": offset[0] if offset else 0}
+
+
+def range_tensors(case, dev):
+    """A battery case's (datas, valids, exists, bound datas, bound valids)
+    on ``dev``; the row planes views ``offset`` elements into their
+    allocations."""
+    import numpy as np
+    import torch
+
+    off = case.get("offset", 0)
+
+    def view(x):
+        return torch.from_numpy(np.concatenate([np.zeros(off, x.dtype), x])).to(dev)[off:]
+
+    return ([view(x) for x in case["datas"]], [view(x) for x in case["valids"]],
+            view(case["exists"]), [torch.from_numpy(x).to(dev) for x in case["bdatas"]],
+            [torch.from_numpy(x).to(dev) for x in case["bvalids"]])
 
 
 def range_run(case, fn, dev, bound_ops=None):
     """One battery case through ``fn`` (K14's wrapper or its twin, or
     ``range_partition_order``) on ``dev``, over the bounds as
     ``range_bound_operands`` sorts them (or ``bound_ops``)."""
-    import torch
     from blaze_tpu_torch.core import kernels as K
 
-    t = [[torch.from_numpy(x).to(dev) for x in case[k]]
-         for k in ("datas", "valids", "bdatas", "bvalids")]
+    datas, valids, exists, bdatas, bvalids = range_tensors(case, dev)
     if bound_ops is None:
-        bound_ops = K.range_bound_operands(t[2], t[3], case["spec"])
-    return fn(t[0], t[1], torch.from_numpy(case["exists"]).to(dev), bound_ops, case["spec"])
+        bound_ops = K.range_bound_operands(bdatas, bvalids, case["spec"])
+    return fn(datas, valids, exists, bound_ops, case["spec"])
+
+
+def range_routes(case, dev):
+    """K14's ids of a battery case on every route its bounds allow (the
+    count and the search over the staged tree where it fits in
+    RANGE_SMEM_BYTES, the search in global memory always), each through a
+    pack of its own, and the twin's ids: ({route: ids}, twin ids)."""
+    from blaze_tpu_torch.core import kernels as K
+
+    datas, valids, exists, bdatas, bvalids = range_tensors(case, dev)
+    ops = K.range_bound_operands(bdatas, bvalids, case["spec"])
+    staged = K.range_tree_staged(len(datas), int(ops[0].shape[0]))
+    out = {}
+    for name, route in (("count", K.RANGE_COUNT), ("search", K.RANGE_SEARCH),
+                        ("global", K.RANGE_GLOBAL)):
+        if staged or route == K.RANGE_GLOBAL:
+            pack = K.RangePack(ops, case["spec"], [d.dtype for d in datas], route=route)
+            out[name] = pack.launch(datas, valids, exists)
+    return out, K.range_partition_ids_plain(datas, valids, exists, ops, case["spec"])
 
 
 def kernel_device_ms(fn, prefix, iters=ITERS):
@@ -4235,97 +4298,165 @@ def call_kernels(fn, calls=10):
     return {}
 
 
-def kernel_k14(dev, rng, results):
+# K14's bound counts timed on both routes at sort10M's map batch (the
+# crossover RANGE_COUNT_MAX_BOUNDS is chosen from them)
+K14_ROUTE_BOUNDS = (3, 7, 15, 31, 63, 199)
+# K14's timed shapes: (keys, bounds, live rows, capacity, one row a value):
+# sort10M's map batch at 31 and 199 bounds, one ascending key (beside
+# torch.searchsorted), hash_sample's ORDER BY ss_store_sk (the range
+# exchange over its ~102 aggregated rows, one int32 store key a row, into
+# 4 partitions)
+K14_SHAPES = ((SORT10M_KEYS, 31, 262144, 262144, False),
+              (SORT10M_KEYS, 199, 262144, 262144, False),
+              ((("item", True, True),), 31, 262144, 262144, False),
+              ((("i32", True, True),), PARTS - 1, HS_STORES, 256, True))
+
+
+def k14_shape(keys, nb, rows, cap, distinct, rng, dev):
+    """One timed K14 shape on ``dev``: bounds drawn as the path samples
+    them (quantiles of the rows), a pack made once as the partitioner
+    makes it, K14's call through it and the twin's; a dict of both calls,
+    the bound bytes (each key's data and validity and the exists byte read
+    once, a 4-byte id written), the planes, bound operands and spec."""
     import numpy as np
+    from blaze_tpu_torch.core import kernels as K
+
+    case = range_case(("timed", keys, cap, rows, 0, 0.0, 0.0), rng)
+    if distinct:  # one row a value, as after a GROUP BY of the key
+        case["datas"][0][:rows] = rng.permutation(np.arange(1, rows + 1))
+    live = np.lexsort([d[:rows] if asc else -d[:rows] for d, (_k, asc, _nf) in
+                       zip(case["datas"][::-1], keys[::-1])])
+    picks = live[(np.arange(1, nb + 1) * len(live)) // (nb + 1)]
+    case["bdatas"] = [d[picks] for d in case["datas"]]
+    case["bvalids"] = [np.ones(nb, bool) for _ in keys]
+    datas, valids, ex, bdatas, bvalids = range_tensors(case, dev)
+    ops = K.range_bound_operands(bdatas, bvalids, case["spec"])
+    pack = K.RangePack(ops, case["spec"], [d.dtype for d in datas])
+
+    def k14():
+        return K.range_partition_ids_cuda(datas, valids, ex, ops, case["spec"], pack)
+
+    def plain():
+        return K.range_partition_ids_plain(datas, valids, ex, ops, case["spec"])
+
+    check_equal("range_partition", f"timed, {len(keys)} keys, {nb} bounds", k14(), plain())
+    return dict(k14=k14, plain=plain, datas=datas, valids=valids, ex=ex, ops=ops,
+                spec=case["spec"], rows=rows,
+                nbytes=cap * (sum(d.element_size() + 1 for d in datas) + 1 + 4))
+
+
+def kernel_k14(dev, rng, results):
+    """K14 against its twin on RANGE_CASES, on every route the bounds allow
+    (views at odd element offsets, tails of 1 to 3 rows, 1 to 16 keys,
+    0 to 1,200 bounds), then timed at four shapes (sort10M's map batch at
+    31 and 199 bounds, one ascending key against torch.searchsorted,
+    hash_sample's store exchange) through one pack a shape, as the
+    partitioner calls it, with device ms and the wrapper's host ms; and
+    each route's device ms at K14_ROUTE_BOUNDS bounds."""
     import torch
     from blaze_tpu_torch.core import kernels as K
 
     cases = []
     for spec in RANGE_CASES:
         case = range_case(spec, rng)
+        want = range_run(case, K.range_partition_ids_plain, dev)
         check_equal("range_partition", case["label"],
-                    range_run(case, K.range_partition_ids_cuda, dev),
-                    range_run(case, K.range_partition_ids_plain, dev))
+                    range_run(case, K.range_partition_ids_cuda, dev), want)
+        routes, twin = range_routes(case, dev)
+        for route, got in routes.items():
+            check_equal("range_partition", f"{case['label']} ({route})", got, twin)
         cases.append(case["label"])
-    # timed at the sort10M map batch (262,144 rows, two int64 keys) against
-    # 31 and 199 bounds drawn as that path samples them (quantiles of the
-    # rows), and on one key against torch.searchsorted
-    def timed(keys, nb, rows=262144, cap=262144, distinct=False):
-        case = range_case(("timed", keys, cap, rows, 0, 0.0, 0.0), rng)
-        if distinct:  # one row a value, as after a GROUP BY of the key
-            case["datas"][0][:rows] = rng.permutation(np.arange(1, rows + 1))
-        live = np.lexsort([d[:rows] if asc else -d[:rows] for d, (_k, asc, _nf) in
-                           zip(case["datas"][::-1], keys[::-1])])
-        picks = live[(np.arange(1, nb + 1) * len(live)) // (nb + 1)]
-        case["bdatas"] = [d[picks] for d in case["datas"]]
-        case["bvalids"] = [np.ones(nb, bool) for _ in keys]
-        t = [[torch.from_numpy(x).to(dev) for x in case[k]]
-             for k in ("datas", "valids", "bdatas", "bvalids")]
-        ex = torch.from_numpy(case["exists"]).to(dev)
-        ops = K.range_bound_operands(t[2], t[3], case["spec"])
-        check_equal("range_partition", f"timed, {len(keys)} keys, {nb} bounds",
-                    K.range_partition_ids_cuda(t[0], t[1], ex, ops, case["spec"]),
-                    K.range_partition_ids_plain(t[0], t[1], ex, ops, case["spec"]))
-        out = {"ms": time_ms(lambda: K.range_partition_ids_cuda(t[0], t[1], ex, ops,
-                                                                case["spec"])),
-               "plain_ms": time_ms(lambda: K.range_partition_ids_plain(t[0], t[1], ex, ops,
-                                                                       case["spec"])),
-               # each key's data and validity and the exists byte read once,
-               # a 4-byte id written
-               "bytes": cap * (sum(d.element_size() + 1 for d in t[0]) + 1 + 4),
-               "device_ms": kernel_device_ms(
-                   lambda: K.range_partition_ids_cuda(t[0], t[1], ex, ops, case["spec"]),
-                   "blz_range_partition")}
-        if len(keys) == 1 and keys[0][1]:
-            # one valid ascending key: bisect_right is torch.searchsorted
-            # over the sorted bound values
-            bvals = ops[1].contiguous()
-            want = K.range_partition_ids_cuda(t[0], t[1], ex, ops, case["spec"])[:rows]
-            keys0 = t[0][0][:rows]
-            got = torch.searchsorted(bvals, keys0, right=True).to(torch.int32)
-            if not torch.equal(got, want):
-                raise AssertionError("torch.searchsorted differs from K14 on one valid key")
-            out["library_ms"] = time_ms(lambda: torch.searchsorted(bvals, keys0, right=True))
-            out["library_device_ms"] = kernel_device_ms(
-                lambda: torch.searchsorted(bvals, keys0, right=True), "")
-        return out
 
-    main = timed(SORT10M_KEYS, 31)
-    wide = timed(SORT10M_KEYS, 199)
-    one = timed((("item", True, True),), 31)
-    # hash_sample's ORDER BY ss_store_sk: the range exchange over its ~102
-    # aggregated rows (one int32 store key a row) into 4 partitions
-    store = timed((("i32", True, True),), PARTS - 1, rows=HS_STORES, cap=256, distinct=True)
+    labels = ("sort10M's map batch: 262,144 rows, ss_sales_price DESC and ss_item_sk ASC "
+              "(two int64 keys, no nulls), 31 bounds (32 partitions)",
+              "the same batch, 199 bounds", "262,144 rows, ss_item_sk ASC, 31 bounds",
+              "hash_sample's ORDER BY: 102 of 256 rows, ss_store_sk (int32) ASC, 3 bounds")
+    made = dict(zip(labels, [k14_shape(*args, rng, dev) for args in K14_SHAPES]))
+    # the host ms first, before this phase's profiler sessions (a process
+    # that has run torch.profiler launches slower from then on)
+    shapes = {label: dict(host_ms=host_ms(m["k14"]), rows=m["rows"])
+              for label, m in made.items()}
+    for label, m in made.items():
+        shapes[label].update(shape_times(m["k14"], m["plain"], None, m["nbytes"]),
+                             call_kernels=call_kernels(m["k14"]))
+    # one valid ascending key: bisect_right is torch.searchsorted over the
+    # sorted bound values
+    one = made[labels[2]]
+    bvals = one["ops"][1].contiguous()
+    keys0 = one["datas"][0][:one["rows"]]
+    got = torch.searchsorted(bvals, keys0, right=True).to(torch.int32)
+    if not torch.equal(got, one["k14"]()[:one["rows"]]):
+        raise AssertionError("torch.searchsorted differs from K14 on one valid key")
+    shapes[labels[2]].update(
+        library_call="torch.searchsorted(bounds, keys, right=True)",
+        library_ms=time_ms(lambda: torch.searchsorted(bvals, keys0, right=True)),
+        library_device_ms=kernel_device_ms(
+            lambda: torch.searchsorted(bvals, keys0, right=True), ""))
+    for label in shapes:
+        log(json.dumps({"phase": "k14_shape", "shape": label, **shapes[label]}))
+    # each route's device ms at sort10M's map batch, by bound count
+    route_ms = {}
+    for nb in K14_ROUTE_BOUNDS:
+        m = k14_shape(SORT10M_KEYS, nb, 262144, 262144, False, rng, dev)
+        for name, route in (("count", K.RANGE_COUNT), ("search", K.RANGE_SEARCH)):
+            pack = K.RangePack(m["ops"], m["spec"], [d.dtype for d in m["datas"]], route=route)
+            check_equal("range_partition", f"timed, {nb} bounds ({name})",
+                        pack.launch(m["datas"], m["valids"], m["ex"]), m["plain"]())
+            route_ms[f"{name}, {nb} bounds"] = kernel_device_ms(
+                lambda pack=pack, m=m: pack.launch(m["datas"], m["valids"], m["ex"]),
+                "blz_range_partition")
+    log(json.dumps({"phase": "k14_routes", "device_ms": route_ms,
+                    "count_max_bounds": K.RANGE_COUNT_MAX_BOUNDS}))
+    main = shapes[labels[0]]
     results.append(dict(
         name="range_partition", route="cuda", source="blaze_tpu_torch/csrc/range_part.cu",
-        replaces="blaze_tpu/core/kernels.py:321",
-        shape="sort10M's map batch: 262,144 rows, ss_sales_price DESC and ss_item_sk ASC "
-              "(two int64 keys, no nulls), 31 bounds (32 partitions)",
-        cases=cases, ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
-        library_ms=None,
+        replaces="blaze_tpu/core/kernels.py:321", shape=labels[0], cases=cases,
+        ms=main["ms"], device_ms=main["device_ms"], host_ms=main["host_ms"],
+        plain_ms=main["plain_ms"], library_ms=None,
         library_call="none for two keys: torch.searchsorted takes one sorted key "
-                     "(one_key, beside K14 on one key)",
-        bytes=main["bytes"], bounds_199=wide,
-        one_key=dict(one, shape="262,144 rows, ss_item_sk ASC, 31 bounds",
-                     library_call="torch.searchsorted(bounds, keys, right=True)"),
-        shapes={"hash_sample's ORDER BY: 102 of 256 rows, ss_store_sk (int32) ASC, "
-                "3 bounds": dict(store, library_call="torch.searchsorted(bounds, keys, "
-                                 "right=True) over the live rows")}))
+                     f"({labels[2]}, in shapes)",
+        call_kernels=main["call_kernels"], bytes=main["bytes"], shapes=shapes,
+        route_ms=route_ms))
 
 
 # -- K15: the XXH64 row hash ------------------------------------------------------
 
 XXH_LANES = ("i8", "i16", "i32", "i64", "date", "ts", "bool", "f32", "f64", "d72", "d180")
+# K15's timed shapes: hash_sample's batch (ss_item_sk, ss_ticket_number:
+# two int32 keys, no nulls) and q69_bloom's store_sales batch
+# (ss_customer_sk: int64, 4% null, as make_q69_data stages it)
+XXH_HASH_SAMPLE = ("hash_sample's two int32 keys", ("i32", "i32"), 262144, 262144, 0.0, 0)
+XXH_Q69_BLOOM = ("q69_bloom's ss_customer_sk: one int64, 4% null", ("i64",), 262144, 262144,
+                 0.04, 0)
 XXH_CASES = tuple(
-    # label, lanes, capacity, live rows, null share
-    [(f"{lane}, padding, 15% null", (lane,), 16, 13, 0.15) for lane in XXH_LANES] + [
-        ("eight columns, 15% null", XXH_LANES[:8], 262144, 262144, 0.15),
+    # label, lanes, capacity, live rows, null share, element offset of
+    # every plane (a view that far into its allocation); each lane's plane
+    # at its own width
+    [(f"{lane}, padding, 15% null", (lane,), 16, 13, 0.15, 0) for lane in XXH_LANES] + [
+        ("eight columns, 15% null", XXH_LANES[:8], 262144, 262144, 0.15, 0),
         ("f64 + decimals + i32, no nulls, padding", ("f64", "d72", "d180", "i32"), 262144,
-         262000, 0.0),
-        ("floats, every value null, padding", ("f64", "f32"), 262144, 200000, 1.0),
-        ("hash_sample's two int32 keys", ("i32", "i32"), 262144, 262144, 0.0),
-        ("one i64, no live row", ("i64",), 16, 0, 0.0),
+         262000, 0.0, 0),
+        ("floats, every value null, padding", ("f64", "f32"), 262144, 200000, 1.0, 0),
+        XXH_HASH_SAMPLE,
+        ("one i64, no live row", ("i64",), 16, 0, 0.0, 0),
+        ("one i8, n = 1, offset 1", ("i8",), 4, 1, 0.0, 1),
+        ("i32 + d72, n = 3, offset 1", ("i32", "d72"), 8, 3, 0.3, 1),
+        ("f32, n = cap = 4, offset 1", ("f32",), 4, 4, 0.1, 1),
+        ("i16 + bool + d182, n = cap = 5, offset 3", ("i16", "bool", "d182"), 5, 5, 0.2, 3),
+        ("every lane (11 columns), n = 255, offset 1", XXH_LANES, 256, 255, 0.1, 1),
+        ("nine columns, n = 1,023, offset 1", XXH_LANES[:8] + ("d182",), 1024, 1023, 0.15,
+         1),
+        ("32 columns, n = 1,023 of 1,030, offset 1", (XXH_LANES * 3)[:32], 1030, 1023, 0.1,
+         1),
+        ("two i32, n = cap = 262,145, offset 1", ("i32", "i32"), 262145, 262145, 0.0, 1),
+        XXH_Q69_BLOOM,
     ])
+# Spark's documented example (the SQL reference of xxhash64): xxhash64('Spark',
+# array(123), 2) = 5602566077635097486. Spark hashes a string's UTF-8 bytes,
+# then each array element, then the int, each seeding the next; a byte and a
+# short hash as hashInt of the value, so the row [123, 2] as int8 + int16,
+# as int32 + int16 or as int8 + int32 from the bytes' hash gives the same
+XXH_SPARK_DOC = (b"Spark", (123, 2), 5602566077635097486)
 XXH_F32_BITS = (0x7FC00000, 0x7FC00001, 0xFFC00000, 0x7F800001)  # NaN payloads
 XXH_F64_BITS = (0x7FF8000000000000, 0x7FF8000000000001, 0xFFF8000000000000,
                 0x7FF0000000000001)
@@ -4334,7 +4465,8 @@ XXH_F64_BITS = (0x7FF8000000000000, 0x7FF8000000000001, 0xFFF8000000000000,
 def xxh_lane_type(T, lane):
     return {"i8": T.I8, "i16": T.I16, "i32": T.I32, "i64": T.I64, "date": T.DATE,
             "ts": T.TIMESTAMP, "bool": T.BOOL, "f32": T.F32, "f64": T.F64,
-            "d72": T.DecimalType(7, 2), "d180": T.DecimalType(18, 0)}[lane]
+            "d72": T.DecimalType(7, 2), "d180": T.DecimalType(18, 0),
+            "d182": T.DecimalType(18, 2)}[lane]
 
 
 def xxh_values(lane, cap, rng):
@@ -4365,21 +4497,22 @@ def xxh_values(lane, cap, rng):
         special = np.concatenate([np.array([0.0, -0.0, np.inf, -np.inf, 1.0, -2.5], dt),
                                   np.array(bits, it).view(dt)])
         return mix((rng.standard_normal(cap) * 1e3).astype(dt), special)
-    bound = 10 ** (7 if lane == "d72" else 18)
+    bound = 10 ** (7 if lane == "d72" else 18)  # decimal(7,2), decimal(18,0 or 2)
     return mix(rng.integers(-bound + 1, bound, cap), [bound - 1, -bound + 1, 0])
 
 
 def xxh_case(case, rng, dev):
     """One battery case as the kernel takes it: (words, validities, kinds,
     n, cap), each column's values in its own plane type turned into hash
-    words as ``exprs/spark_hash.py hash_words`` and ``xxhash_words`` turn
-    them; null and padding rows carry data 0."""
+    words as ``exprs/spark_hash.py hash_words`` turns them (a bool, int8 or
+    int16 plane at its own width), each plane a view ``offset`` elements
+    into its allocation; null and padding rows carry data 0."""
     import numpy as np
     import torch
     from blaze_tpu_torch.exprs import spark_hash as H
     from blaze_tpu_torch.ir import types as T
 
-    _label, lanes, cap, n, nulls = case
+    _label, lanes, cap, n, nulls, off = case
     words, valids, kinds = [], [], []
     for lane in lanes:
         vals = xxh_values(lane, cap, rng)
@@ -4387,17 +4520,71 @@ def xxh_case(case, rng, dev):
         v[n:] = False
         vals[~v] = 0
         kind = H.hash_kind(xxh_lane_type(T, lane))
-        words.append(H.hash_words(torch.from_numpy(vals).to(dev), kind))
-        valids.append(torch.from_numpy(v).to(dev))
+        w = H.hash_words(torch.from_numpy(np.concatenate([np.zeros(off, vals.dtype), vals])),
+                         kind)
+        words.append(w.to(dev)[off:])
+        valids.append(torch.from_numpy(np.concatenate([np.zeros(off, bool), v])).to(dev)[off:])
         kinds.append(kind)
-    return H.xxhash_words(words), valids, kinds, n, cap
+    return words, valids, kinds, n, cap
+
+
+def xxh64_bytes(data: bytes, seed: int) -> int:
+    """XXH64 of a short byte string (under 32 bytes, XXH64's tail rounds)
+    as Spark's XXH64.hashUnsafeBytes takes it, in Python ints: uint64."""
+    m = (1 << 64) - 1
+    p1, p2, p3 = 0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9
+    p4, p5 = 0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & m
+
+    if len(data) >= 32:
+        raise ValueError("xxh64_bytes: 32 bytes or more")
+    acc, i = (seed + p5 + len(data)) & m, 0
+    while i + 8 <= len(data):
+        k1 = rotl(int.from_bytes(data[i:i + 8], "little") * p2 & m, 31) * p1 & m
+        acc = (rotl(acc ^ k1, 27) * p1 + p4) & m
+        i += 8
+    if i + 4 <= len(data):
+        acc ^= int.from_bytes(data[i:i + 4], "little") * p1 & m
+        acc = (rotl(acc, 23) * p2 + p3) & m
+        i += 4
+    for b in data[i:]:
+        acc = rotl(acc ^ (b * p5 & m), 11) * p1 & m
+    acc = (acc ^ (acc >> 33)) * p2 & m
+    acc = (acc ^ (acc >> 29)) * p3 & m
+    return acc ^ (acc >> 32)
+
+
+def xxh_spark_doc(fn, dev):
+    """Spark's documented xxhash64('Spark', array(123), 2) through ``fn``
+    (K15's wrapper or its twin, with a seed): the bytes' hash on the host
+    seeds the row [123, 2] as int8 + int16, int32 + int16 and int8 +
+    int32 planes. Returns the case labels; raises on a difference."""
+    import torch
+
+    text, vals, want = XXH_SPARK_DOC
+    seed = xxh64_bytes(text, 42)
+    ones = torch.ones(1, dtype=torch.bool, device=dev)
+    cases = []
+    for dts in ((torch.int8, torch.int16), (torch.int32, torch.int16),
+                (torch.int8, torch.int32)):
+        words = [torch.tensor([v], dtype=dt, device=dev) for v, dt in zip(vals, dts)]
+        got = fn(words, [ones, ones], ["i32", "i32"], 1, 4, seed).tolist()
+        if got != [want - (1 << 64) if want >= 1 << 63 else want, 0, 0, 0]:
+            raise AssertionError(f"xxhash64 Spark's documented example as "
+                                 f"{'+'.join(str(d) for d in dts)}: {got}")
+        cases.append(f"Spark's xxhash64('Spark', array(123), 2) as "
+                     f"{'+'.join(str(d).replace('torch.', '') for d in dts)}")
+    return cases
 
 
 def xxh64_np(words, valids, seed=42):
     """Spark's XXH64 row hash in numpy (uint64 arithmetic, wrapping), the
     4-byte and 8-byte rounds of XXH64 as Spark's hashInt and hashLong take
-    them: ``words`` are int32 (4-byte) or int64 (8-byte) arrays, folded in
-    order; a null value leaves the running hash unchanged. Returns int64."""
+    them: ``words`` are int64 (8-byte) arrays or bool, int8, int16 or int32
+    (4-byte: the value sign-extended to 32 bits) ones, folded in order; a
+    null value leaves the running hash unchanged. Returns int64."""
     import numpy as np
 
     p1, p2, p3 = np.uint64(0x9E3779B185EBCA87), np.uint64(0xC2B2AE3D27D4EB4F), \
@@ -4414,9 +4601,9 @@ def xxh64_np(words, valids, seed=42):
                 acc = h + p5 + np.uint64(8)
                 acc ^= rotl(w.view(np.uint64) * p2, 31) * p1
                 acc = rotl(acc, 27) * p1 + p4
-            else:
+            else:  # a bool's 0 / 1, a narrower integer sign-extended
                 acc = h + p5 + np.uint64(4)
-                acc ^= w.view(np.uint32).astype(np.uint64) * p1
+                acc ^= w.astype(np.int32).view(np.uint32).astype(np.uint64) * p1
                 acc = rotl(acc, 23) * p2 + p3
             acc = (acc ^ (acc >> np.uint64(33))) * p2
             acc = (acc ^ (acc >> np.uint64(29))) * p3
@@ -4426,6 +4613,12 @@ def xxh64_np(words, valids, seed=42):
 
 
 def kernel_k15(dev, rng, results):
+    """K15 against its twin and the numpy XXH64 on XXH_CASES (every lane
+    at its own width, nulls, padding, planes at odd element offsets, 1 to
+    32 columns, tails of 1 to 3 rows), on Spark's golden longs and its
+    documented example with a byte and a short; then timed at
+    hash_sample's and q69_bloom's batches with device ms and the wrapper's
+    host ms."""
     import numpy as np
     import torch
     from blaze_tpu_torch.exprs import spark_hash as H
@@ -4451,23 +4644,40 @@ def kernel_k15(dev, rng, results):
     if got != golden + [0, 0, 0]:
         raise AssertionError(f"xxhash64 golden: {got}")
     cases.append("Spark's golden longs")
-    # main path: one hash_sample batch, 262,144 rows of (ss_item_sk,
-    # ss_ticket_number), two int32 columns without nulls
-    words, valids, kinds, n, cap = xxh_case(XXH_CASES[-2], rng, dev)
+    cases += xxh_spark_doc(H.xxhash64_rows_cuda, dev)
+    # the host ms first, before this phase's profiler sessions (a process
+    # that has run torch.profiler launches slower from then on)
+    shapes, fns = {}, {}
+    for case in (XXH_HASH_SAMPLE, XXH_Q69_BLOOM):
+        words, valids, kinds, n, cap = xxh_case(case, rng, dev)
+        check_equal("xxhash64", case[0], H.xxhash64_rows_cuda(words, valids, kinds, n, cap),
+                    H.xxhash64_rows_plain(words, valids, kinds, n, cap))
 
-    def k15():
-        return H.xxhash64_rows_cuda(words, valids, kinds, n, cap)
+        def k15(words=words, valids=valids, kinds=kinds, n=n, cap=cap):
+            return H.xxhash64_rows_cuda(words, valids, kinds, n, cap)
 
+        def plain(words=words, valids=valids, kinds=kinds, n=n, cap=cap):
+            return H.xxhash64_rows_plain(words, valids, kinds, n, cap)
+
+        # per row each column's word and validity byte read, 8 bytes written
+        nbytes = cap * (sum(w.element_size() + 1 for w in words) + 8)
+        label = (f"{case[0]}: {cap:,} rows x "
+                 f"{'+'.join(str(w.dtype).replace('torch.', '') for w in words)}")
+        fns[label] = (k15, plain, nbytes)
+        shapes[label] = dict(host_ms=host_ms(k15), rows=n)
+    for label, (k15, plain, nbytes) in fns.items():
+        shapes[label].update(shape_times(k15, plain, None, nbytes),
+                             call_kernels=call_kernels(k15))
+        log(json.dumps({"phase": "k15_shape", "shape": label, **shapes[label]}))
+    label = next(iter(shapes))
+    main = shapes[label]
     results.append(dict(
         name="xxhash64", route="cuda", source="blaze_tpu_torch/csrc/xxhash64.cu",
-        replaces="blaze_tpu/exprs/spark_hash.py:230",
-        shape="a hash_sample batch: 262,144 rows x 2 int32 columns "
-              "(ss_item_sk, ss_ticket_number)",
-        cases=cases, ms=time_ms(k15), device_ms=kernel_device_ms(k15, "blz_xxhash64"),
-        plain_ms=time_ms(lambda: H.xxhash64_rows_plain(words, valids, kinds, n, cap)),
-        library_ms=None, library_call="none: no single PyTorch call computes Spark XXH64",
-        # per row two 4-byte words and two validity bytes read, 8 bytes written
-        bytes=cap * (2 * (4 + 1) + 8)))
+        replaces="blaze_tpu/exprs/spark_hash.py:230", shape=label, cases=cases,
+        ms=main["ms"], device_ms=main["device_ms"], host_ms=main["host_ms"],
+        plain_ms=main["plain_ms"], library_ms=None,
+        library_call="none: no single PyTorch call computes Spark XXH64",
+        call_kernels=main["call_kernels"], bytes=main["bytes"], shapes=shapes))
 
 
 # -- K16: the bloom filter's probe -------------------------------------------------
@@ -7597,12 +7807,12 @@ def range_twin_check(name):
     fn = K.range_partition_ids
     first = []
 
-    def checked(datas, valids, exists, bound_ops, spec):
-        got = fn(datas, valids, exists, bound_ops, spec)
+    def checked(datas, valids, exists, bound_ops, spec, pack=None):
+        got = fn(datas, valids, exists, bound_ops, spec, pack=pack)
         check_equal("range_partition", f"{name} batch", got,
                     K.range_partition_ids_plain(datas, valids, exists, bound_ops, spec))
         if not first:
-            first.append((datas, valids, exists, bound_ops, spec))
+            first.append(((datas, valids, exists, bound_ops, spec), pack))
         return got
 
     K.range_partition_ids = checked
@@ -7612,13 +7822,15 @@ def range_twin_check(name):
         K.range_partition_ids = fn
     if not first:
         raise AssertionError(f"{name}'s first run launched no K14")
-    args = first[0]
+    args, pack = first[0]
+    if pack is None:
+        raise AssertionError(f"{name}'s range partitioner passed K14 no pack")
     n = int(args[2].shape[0])
     RANGE_PATH_TIMES[name] = {
         "rows": int(args[2].sum().item()), "capacity": n, "keys": len(args[0]),
         "bounds": int(args[3][0].shape[0]),
-        "ms": time_ms(lambda: K.range_partition_ids_cuda(*args)),
-        "device_ms": kernel_device_ms(lambda: K.range_partition_ids_cuda(*args),
+        "ms": time_ms(lambda: K.range_partition_ids_cuda(*args, pack)),
+        "device_ms": kernel_device_ms(lambda: K.range_partition_ids_cuda(*args, pack),
                                       "blz_range_partition"),
         "plain_ms": time_ms(lambda: K.range_partition_ids_plain(*args)),
         "bytes": n * (sum(d.element_size() + 1 for d in args[0]) + 1 + 4)}
@@ -7831,7 +8043,6 @@ def run_sort10m(dev, profile=False, trace_path=None):
 HS_SEED = 1115
 HS_ROWS = 28_800_991   # TPC-DS SF10's store_sales row count
 HS_ITEMS = 102_000     # SF10's items
-HS_STORES = 102        # SF10's stores
 HS_TICKET = 10         # rows (distinct items) a ticket
 HS_BUCKETS, HS_KEEP = 100, 10
 HS_COLUMNS = ("ss_item_sk", "ss_ticket_number", "ss_store_sk", "ss_quantity",
@@ -8369,6 +8580,10 @@ def profile_query(name, session, plan, want, trace_path=None, collect=pydict_of)
     k6_k10s = {e.key[:60]: {"calls": e.count, "device_ms": e.self_device_time_total / 1e3}
                for e in device if any(k in e.key for k in (
                    "blz_gather_kernel", "blz_segment_keys", "blz_seg_flags", "blz_seg_starts"))}
+    # K14's and K15's kernels (the same names in an older tree)
+    k14_k15 = {e.key[:60]: {"calls": e.count, "device_ms": e.self_device_time_total / 1e3}
+               for e in device if any(k in e.key for k in (
+                   "blz_range_partition", "blz_xxhash64"))}
     if trace_path:
         os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
         prof.export_chrome_trace(trace_path)
@@ -8383,6 +8598,7 @@ def profile_query(name, session, plan, want, trace_path=None, collect=pydict_of)
                                    "device_ms": sum(e.self_device_time_total
                                                     for e in k18) / 1e3},
                     "k8_k1_device": k8_k1, "k6_k10_segmentation_device": k6_k10s,
+                    "k14_k15_device": k14_k15,
                     "top_device": [{"name": e.key[:80], "calls": e.count,
                                     "device_ms": e.self_device_time_total / 1e3}
                                    for e in top]}))
@@ -8473,9 +8689,9 @@ def main(device: str = "cuda") -> int:
         if sum(ours.values()) != 1 or any(k.startswith("Memset") for k in ours):
             raise AssertionError(f"a compact_planes call at {label} ran {sh['call_kernels']}, "
                                  "not one kernel and no memset")
-    # K2 and K17 are one kernel a call at each timed shape, with no memset
-    # and no pageable upload (K17's table goes through a pinned copy)
-    for name in ("murmur3_pmod", "mesh_all_to_all"):
+    # K2, K17, K15 and K14 are one kernel a call at each timed shape, with no
+    # memset and no pageable upload (K17's table goes through a pinned copy)
+    for name in ("murmur3_pmod", "mesh_all_to_all", "xxhash64", "range_partition"):
         for label, sh in next(r for r in results if r["name"] == name)["shapes"].items():
             ours = {k: c for k, c in sh["call_kernels"].items() if any(p in k for p in OURS)}
             if sum(ours.values()) != 1 or any(k.startswith("Memset") for k in ours) or \
@@ -8635,7 +8851,7 @@ def main(device: str = "cuda") -> int:
                                              "segment_ids_ms", "k11_only_ms", "k11_only_bytes",
                                              "battery_s", "fold_ms", "unpacked_ms",
                                              "six_kinds_ms", "fold_replaces", "fold_shape",
-                                             "bounds_199", "one_key", "device_ms",
+                                             "device_ms",
                                              "path_batches", "eight_single_ms", "phases_us",
                                              "library_device_ms",
                                              "host_ms", "k11_device_ms", "shapes",

@@ -31,7 +31,8 @@ from chip_smoke import (BLOOM_CASES, FUSED_CAPS, GATHER_CASES, K17_EDGE_CASES, K
                         Q96_ROWS, Q98_ROWS, k18_case, k18_flat, k18_torch,
                         RANGE_CASES, SCAN_CASES, SEG_CASES, SEG_LENGTHS, SEG_PROGRAMS,
                         SORT10M_COLUMNS, UPD_CASES, WIDE_CASES,
-                        WIDE_UPD_CASES, XXH_CASES, bloom_case, bloom_np_probe, customer_probe,
+                        WIDE_UPD_CASES, XXH_CASES, XXH_HASH_SAMPLE, bloom_case, bloom_np_probe,
+                        customer_probe, range_routes, range_tensors, xxh_spark_doc,
                         doubled, fused_cases,
                         fused_flat, hash_sample_host, hash_sample_oracle, hash_sample_plan,
                         hash_sample_schema, xxh64_np, xxh_case, fused_schema,
@@ -1657,15 +1658,76 @@ def test_fused_agg_input_launches_or_raises_and_never_takes_the_twin(dev, monkey
 
 @pytest.mark.parametrize("case", RANGE_CASES, ids=[c[0] for c in RANGE_CASES])
 def test_range_partition_kernel(dev, case):
-    """K14 against its twin on the card, and range_partition_order's K5
-    sort of its ids against the twin's."""
+    """K14 against its twin on the card, on every route the bounds allow
+    (the count and the search over staged bounds, the search in global
+    memory), and range_partition_order's K5 sort of its ids against the
+    twin's."""
     from blaze_tpu_torch.core import kernels as K
 
     data = range_case(case, np.random.default_rng(sum(map(ord, case[0]))))
     _equal(range_run(data, K.range_partition_ids_cuda, dev),
            range_run(data, K.range_partition_ids_plain, dev))
+    routes, twin = range_routes(data, dev)
+    assert "global" in routes
+    for got in routes.values():
+        _equal(got, twin)
     _equal(range_run(data, K.range_partition_order, dev),
            [x.to(dev) for x in range_run(data, K.range_partition_order, torch.device("cpu"))])
+
+
+def test_range_pack_serves_batches_of_any_size(dev):
+    """One RangePack (an exchange's) over batches of 1 to 262,145 rows,
+    views at odd offsets among them: each launch equals the twin, one
+    launch a batch; a batch of another key dtype, or off the card, is
+    refused."""
+    from blaze_tpu_torch.core import kernels as K
+    from blaze_tpu_torch.utils import cuda_lib
+
+    keys = (("i64", False, True), ("f64", True, False))
+    rng = np.random.default_rng(8)
+    bounds = range_case(("bounds", keys, 64, 64, 31, 0.1, 0.1), rng)
+    _d, _v, _e, bdatas, bvalids = range_tensors(bounds, dev)
+    spec = bounds["spec"]
+    ops = K.range_bound_operands(bdatas, bvalids, spec)
+    pack = K.RangePack(ops, spec, [torch.int64, torch.float64])
+    cuda_lib.reset_launch_counts()
+    sizes = (1, 3, 4, 5, 255, 1023, 262145)
+    for n in sizes:
+        data = range_case((f"n={n}", keys, n, n - n // 7, 31, 0.1, 0.1, n % 2), rng)
+        datas, valids, exists, _bd, _bv = range_tensors(data, dev)
+        _equal(K.range_partition_ids(datas, valids, exists, ops, spec, pack=pack),
+               K.range_partition_ids_plain(datas, valids, exists, ops, spec))
+    assert cuda_lib.launch_counts()["range_partition"] == len(sizes)
+    with pytest.raises(TypeError, match="range_partition_ids"):
+        pack.launch([datas[0].to(torch.int32), datas[1]], valids, exists)
+    with pytest.raises(TypeError, match="range_partition_ids"):
+        pack.launch([datas[0].cpu(), datas[1]], valids, exists)
+
+
+def test_two_range_partitioners_keep_their_own_bounds(dev):
+    """Two range exchanges' partitioners in one process, over the same
+    batch with other bounds, each through its own pack: each gives the
+    ids of its own bounds, as the same partitioner on the CPU does."""
+    from blaze_tpu_torch.core.batch import ColumnarBatch
+    from blaze_tpu_torch.ir import exprs as E
+    from blaze_tpu_torch.ir import types as T
+    from blaze_tpu_torch.ops.shuffle.repartitioner import RangePartitioner
+
+    schema = T.Schema.of(("k", T.I64), ("f", T.F64))
+    rng = np.random.default_rng(9)
+    cols = {"k": rng.integers(-50, 50, 5000), "f": rng.integers(-8, 9, 5000) * 0.5}
+    orders = [E.SortOrder(E.Column("k"), ascending=False), E.SortOrder(E.Column("f"))]
+    bounds = ([(30, 0.0), (0, -1.5), (-20, 2.0)], [(10, None), (-45, 0.5)])
+    for bs in bounds:
+        got, want = [], []
+        for device, out in ((dev, got), (torch.device("cpu"), want)):
+            p = RangePartitioner(orders, len(bs) + 1, bs, schema)
+            b = ColumnarBatch.from_numpy(schema, cols, device)
+            out.append(p.partition_ids(b))
+            out.append(p.partition_ids(b))
+            assert (p._pack is not None) == (device.type == "cuda")
+        for g, w in zip(got, want):
+            _equal(g.cpu(), w)
 
 
 def test_range_partition_raises_on_bad_bounds_and_never_takes_the_twin(dev, monkeypatch):
@@ -1775,13 +1837,33 @@ def test_xxhash64_launches_or_raises_and_never_takes_the_twin(dev, monkeypatch):
     from blaze_tpu_torch.exprs import spark_hash as H
     from blaze_tpu_torch.utils import cuda_lib
 
-    words, valids, kinds, n, cap = xxh_case(XXH_CASES[-2], np.random.default_rng(5), dev)
+    words, valids, kinds, n, cap = xxh_case(XXH_HASH_SAMPLE, np.random.default_rng(5), dev)
     monkeypatch.setattr(H, "xxhash64_rows_plain", None)
     cuda_lib.reset_launch_counts()
     H.xxhash64_rows(words, valids, kinds, n, cap)
     assert cuda_lib.launch_counts()["xxhash64"] == 1
     with pytest.raises(TypeError, match="xxhash64"):
         H.xxhash64_rows([w.to(torch.int64) for w in words], valids, kinds, n, cap)
+
+
+def test_xxhash64_spark_documented_example_and_packs_per_signature(dev):
+    """Spark's xxhash64('Spark', array(123), 2) on K15 with the row as a
+    byte and a short (and the two other mixes of widths); one pack a
+    signature, so columns of another width or kind in the same process
+    hash as their own twin; a plane off the card or a validity that is
+    not bool is refused."""
+    from blaze_tpu_torch.exprs import spark_hash as H
+
+    assert len(xxh_spark_doc(H.xxhash64_rows_cuda, dev)) == 3
+    rng = np.random.default_rng(12)
+    for case in XXH_CASES[:4] + (XXH_HASH_SAMPLE,):
+        args = xxh_case(case, rng, dev)
+        _equal(H.xxhash64_rows_cuda(*args), H.xxhash64_rows_plain(*args))
+    words, valids, kinds, n, cap = args
+    with pytest.raises(ValueError, match="xxhash64"):
+        H.xxhash64_rows_cuda([words[0].cpu(), words[1]], valids, kinds, n, cap)
+    with pytest.raises(ValueError, match="xxhash64"):
+        H.xxhash64_rows_cuda(words, [valids[0].to(torch.uint8), valids[1]], kinds, n, cap)
 
 
 def test_hash_sample_on_the_card_equals_the_cpu(dev):

@@ -154,15 +154,21 @@ def test_k2_cuda_wrapper_raises_off_the_card():
 
 
 def test_xxhash_words_widen_only_narrow_planes():
-    """K15 takes 4- and 8-byte words: ``xxhash_words`` widens a bool, int8
-    or int16 plane to int32 and leaves the others as they are."""
+    """K15 and its twin take a bool, int8 or int16 plane at its own width
+    (nothing widens it before the launch): the twin over the narrow planes
+    equals the twin over the same values widened to int32, and a 4- or
+    8-byte plane hashes as it is."""
     planes = [torch.tensor([True, False]), torch.tensor([-1, 2], dtype=torch.int8),
               torch.tensor([-300, 7], dtype=torch.int16), torch.tensor([5, -6], dtype=torch.int32),
               torch.tensor([1, -1], dtype=torch.int64)]
-    out = H.xxhash_words(planes)
-    assert [o.dtype for o in out] == [torch.int32] * 4 + [torch.int64]
-    assert [o.tolist() for o in out] == [[1, 0], [-1, 2], [-300, 7], [5, -6], [1, -1]]
-    assert out[3] is planes[3] and out[4] is planes[4]
+    kinds = ["i32"] * 4 + ["i64"]
+    v = torch.ones(2, dtype=torch.bool)
+    wide = [p.to(torch.int32) if p.element_size() < 4 else p for p in planes]
+    for c in range(len(planes)):
+        assert torch.equal(H.xxhash64_rows_plain(planes[c:], [v] * (5 - c), kinds[c:], 2, 4),
+                           H.xxhash64_rows_plain(wide[c:], [v] * (5 - c), kinds[c:], 2, 4))
+    assert [h.dtype for h in (H.hash_words(p, k) for p, k in zip(planes, kinds))] == \
+        [p.dtype for p in planes]
 
 
 _COUNT_CASES = [c for c in MESH_CASES if c[2] is not None] + \

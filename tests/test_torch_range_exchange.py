@@ -11,6 +11,12 @@ and q98 and a sort10M-shaped global sort.
   on the CPU, over the bounds as its key pass gives them, in draw order)
   and the port's (the twin, over the bounds ``range_bound_operands``
   sorts).
+- K14's bound table (``range_bound_words``: one int64 word and one rank
+  a key of a node of the search tree, a float as its order-preserving
+  integer) against the sorted operands, and the range partitioner's key
+  dtypes (the
+  card's ``RangePack`` checks each batch's planes against them) against
+  the planes it evaluates, for every key type.
 - The reference's test_shuffle.py cases on the port: round robin, the
   range partitioner over given bounds, and the sampled global sort.
 - ``Session._sample_range_bounds`` of both packages on the same batches.
@@ -24,6 +30,7 @@ Tolerance: none. Ids, orders and bounds compare exactly (floats by
 ``repr``, so -0.0 and NaN count); plan results compare floats by ``repr``.
 """
 
+import datetime
 import decimal
 
 import numpy as np
@@ -113,6 +120,76 @@ def test_signed_zero_bound_equals_a_zero_row():
     got = range_run(case, K.range_partition_ids, CPU).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, [1, 1, 1, 0])
+
+
+def test_range_words_keep_the_float_order_and_equality():
+    """The words K14 compares: a float as its double's order-preserving
+    integer, so signed order is the float order over every non-NaN value,
+    -0.0 and 0.0 one word, and float32 as its double; integers and bools
+    as they are."""
+    vals = np.array([-np.inf, -1e300, -2.5, -1e-310, -0.0, 0.0, 1e-310, 0.5, 1e300, np.inf])
+    for dt in (np.float64, np.float32):
+        with np.errstate(over="ignore"):
+            x = vals.astype(dt)
+        w = K._range_words(torch.from_numpy(x)).numpy()
+        for i in range(len(x)):
+            for j in range(len(x)):
+                assert (w[i] < w[j]) == (x[i] < x[j]) and (w[i] == w[j]) == (x[i] == x[j])
+    ints = torch.tensor([-128, -1, 0, 127], dtype=torch.int8)
+    assert K._range_words(ints).tolist() == [-128, -1, 0, 127]
+    assert K._range_words(torch.tensor([0, 1], dtype=torch.uint8)).tolist() == [0, 1]
+
+
+@pytest.mark.parametrize("nb", [0, 1, 5, 31])
+def test_range_bound_words_hold_the_search_tree(nb):
+    """K14's table: key c of node e at c * (2^d - 1) + e, node 2^L - 1 + p
+    of level L holding sorted bound p * 2^(d-L) + 2^(d-1-L) - 1 (an
+    in-order walk of the tree is the ascending order), nodes past the
+    bounds rank 5 with word 0."""
+    data = range_case(RANGE_CASES[4], np.random.default_rng(5))  # 5 keys, 31 bounds
+    ops = K.range_bound_operands([torch.from_numpy(x) for x in data["bdatas"]],
+                                 [torch.from_numpy(x) for x in data["bvalids"]], data["spec"])
+    ops = [o[:nb] for o in ops]
+    words, ranks = K.range_bound_words(ops)
+    k, d = len(data["bdatas"]), nb.bit_length()
+    ne = (1 << d) - 1
+    assert words.dtype == torch.int64 and ranks.dtype == torch.uint8
+    assert words.shape == ranks.shape == (k * ne,)
+    w, r = words.view(k, ne), ranks.view(k, ne)
+
+    def in_order(e, level):  # the tree's nodes, left subtree first
+        if level == d:
+            return []
+        return in_order(2 * e + 1, level + 1) + [e] + in_order(2 * e + 2, level + 1)
+
+    nodes = in_order(0, 0)
+    assert sorted(nodes) == list(range(ne))
+    for j, e in enumerate(nodes):
+        for c in range(k):
+            if j < nb:
+                assert r[c, e] == ops[2 * c][j]
+                assert w[c, e] == K._range_words(ops[2 * c + 1])[j]
+            else:
+                assert (r[c, e], w[c, e]) == (5, 0)
+
+
+@pytest.mark.parametrize("dt", [T.I8, T.I16, T.I32, T.I64, T.BOOL, T.F32, T.F64, T.DATE,
+                                T.TIMESTAMP, T.DecimalType(7, 2), T.DecimalType(18, 2)],
+                         ids=repr)
+def test_range_partitioner_key_dtypes_are_the_evaluated_planes(dt):
+    """The dtypes the partitioner gives K14's pack (its bound batch's) are
+    those of the key planes it evaluates from a batch of the key's type."""
+    schema = T.Schema.of(("k", dt))
+    plane = torch.zeros(4, dtype=T.torch_dtype(dt)).numpy()
+    b = ColumnarBatch.from_numpy(schema, {"k": plane}, CPU)
+    bound = {T.BOOL: True, T.DATE: datetime.date(1970, 1, 2),
+             T.TIMESTAMP: datetime.datetime(1970, 1, 2)}.get(dt, 0)
+    if isinstance(dt, T.DecimalType):
+        bound = decimal.Decimal(0)
+    p = RangePartitioner([E.SortOrder(E.Column("k"))], 2, [(bound,)], schema)
+    p.partition_ids(b)
+    datas, _valids = p._key_planes(b)
+    assert p._key_dtypes == [d.dtype for d in datas]
 
 
 # -- the reference's test_shuffle.py cases on the port ---------------------------------

@@ -14,8 +14,11 @@ port against the JAX package.
   the function type rules, and the raises naming ROADMAP.md item 6b.
 - K15's plain twin against ``xxhash64_int64``/``xxhash64_int32`` and
   ``hash_batch(..., algo="xxhash64")`` on chip_smoke.py's K15 battery
-  (the numeric half of test_spark_hash.py's xxhash64 chaining), and
-  test_spark_hash.py's golden longs.
+  (the numeric half of test_spark_hash.py's xxhash64 chaining; every
+  lane at its own width, 1 to 32 columns, views at odd offsets), and
+  test_spark_hash.py's golden longs and Spark's documented
+  xxhash64('Spark', array(123), 2) with a byte and a short; the
+  xxhash64 function hands K15 its bool, int8 and int16 planes unwidened.
 - hash_sample (chip_smoke.py) at 6,000 rows in both packages and against
   its numpy oracle, order included.
 
@@ -57,8 +60,8 @@ from blaze_tpu_torch.exprs.compiler import ExprEvaluator
 from blaze_tpu_torch.ir import exprs as E
 from blaze_tpu_torch.ir import types as T
 from blaze_tpu_torch.ir.carry import from_foreign
-from chip_smoke import XXH_CASES, hash_sample_host, hash_sample_oracle, hash_sample_plan, \
-    hash_sample_schema, xxh_case, xxh_lane_type
+from chip_smoke import XXH_CASES, XXH_SPARK_DOC, hash_sample_host, hash_sample_oracle, \
+    hash_sample_plan, hash_sample_schema, xxh64_bytes, xxh_case, xxh_lane_type, xxh_spark_doc
 
 torch.set_num_threads(1)
 
@@ -459,6 +462,40 @@ def test_xxhash64_i64_golden():
     out = H.xxhash64_rows_plain([vals], [torch.ones(5, dtype=torch.bool)], ["i64"], 5, 5)
     assert out.tolist() == [-7001672635703045582, -5252525462095825812, 3858142552250413010,
                             -3246596055638297850, -8619748838626508300]
+
+
+def test_xxhash64_spark_documented_example_with_a_byte_and_a_short():
+    """Spark's SQL reference: xxhash64('Spark', array(123), 2) =
+    5602566077635097486. The reference's byte hash of 'Spark' equals
+    chip_smoke.py's ``xxh64_bytes``; from it, the reference's hashInt
+    chain and K15's twin over the row [123, 2] as int8 + int16, int32 +
+    int16 and int8 + int32 planes give Spark's value."""
+    text, vals, want = XXH_SPARK_DOC
+    seed = xxh64_bytes(text, 42)
+    off = np.array([0, len(text)], np.int64)
+    ref = JH.xxhash64_bytes_np(off, np.frombuffer(text, np.uint8), np.full(1, 42, np.uint64))
+    assert int(ref[0]) == seed
+    h = np.full(1, seed, np.uint64)
+    for v in vals:
+        h = JH.xxhash64_int32_np(np.array([v], np.int8 if v < 128 else np.int32), h)
+    assert int(h[0]) == want
+    assert len(xxh_spark_doc(H.xxhash64_rows_plain, torch.device("cpu"))) == 3
+
+
+def test_xxhash64_function_hands_k15_planes_unwidened(monkeypatch):
+    """The xxhash64 function passes ``hash_words``' planes as they are: a
+    bool, int8 and int16 column reach K15 (here its twin) at their own
+    width, with no widening copy, and hash as the reference does."""
+    seen = []
+    fn = H.xxhash64_rows
+
+    def spy(words, valids, kinds, n, cap):
+        seen.append([w.dtype for w in words])
+        return fn(words, valids, kinds, n, cap)
+
+    monkeypatch.setattr(H, "xxhash64_rows", spy)
+    _check(_f("xxhash64", _c("b"), _c("i8"), _c("i16"), _c("f32"), _c("i64")))
+    assert seen == [[torch.bool, torch.int8, torch.int16, torch.int32, torch.int64]]
 
 
 @pytest.mark.parametrize("case", XXH_CASES, ids=[c[0] for c in XXH_CASES])
